@@ -1,0 +1,143 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process for
+``sm_90a`` into a shared library with a plain C interface, loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries land
+in ``build/ksql_tpu_torch/`` at the root of the checkout, named by a hash of
+their sources and flags, and are built at first use.  Nothing here runs at
+import time: this module imports on machines without a CUDA toolkit.
+
+Every C entry point takes raw device pointers, 64-bit scalars and the CUDA
+stream, launches on that stream without synchronising, and returns
+``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List, Tuple
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "ksql_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int64
+#: C signature of each kernel library's entry point (all return cudaError_t)
+SIGNATURES: Dict[str, Tuple[str, List]] = {
+    "row_prologue": (
+        "ksql_row_prologue",
+        [_P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    ),
+    "probe_insert": (
+        "ksql_probe_insert",
+        [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
+         _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    ),
+    "fold_and_mark": (
+        "ksql_fold_and_mark",
+        [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+    ),
+    "evict": (
+        "ksql_evict",
+        [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P],
+    ),
+}
+KERNELS = tuple(SIGNATURES)
+
+# loaded libraries are immutable code, shared process-wide like torch's own
+# extension cache; the lock makes first-use builds from two threads safe
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the port's CUDA kernels need the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for part in (SRC_DIR / f"{name}.cu", SRC_DIR / "common.cuh"):
+        h.update(part.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
+    """Compile the named kernels that are not built yet, one ``nvcc`` per
+    source, all started together.  Returns per kernel ``{"seconds",
+    "ptxas"}`` (the wall time of its nvcc and its ``-Xptxas -v`` report;
+    ``seconds`` is 0 for a library already on disk).  Raises with the
+    compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    procs = {}
+    out: Dict[str, dict] = {}
+    for name in names:
+        target = _lib_path(name)
+        if target.exists():
+            out[name] = {"seconds": 0.0, "ptxas": "(cached)"}
+            continue
+        nvcc = nvcc or nvcc_path()
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(tmp),
+               str(SRC_DIR / f"{name}.cu")]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            time.perf_counter(), tmp, target,
+        )
+    failed = []
+    for name, (proc, t0, tmp, target) in procs.items():
+        log, _ = proc.communicate()
+        out[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+def lib(name: str):
+    """The loaded entry point of kernel ``name`` (built at first use)."""
+    with _LOCK:
+        fn = _LIBS.get(name)
+        if fn is None:
+            build([name])
+            dll = ctypes.CDLL(str(_lib_path(name)))
+            sym, argtypes = SIGNATURES[name]
+            fn = getattr(dll, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _LIBS[name] = fn
+        return fn
+
+
+def check(name: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {code}")
+
+
+def host_i64(values: Iterable[int]):
+    """A ctypes int64 array in host memory (kernel descriptors passed by
+    value: the C side copies it into the launch's parameter struct)."""
+    vals = list(values)
+    return (ctypes.c_int64 * max(len(vals), 1))(*vals)

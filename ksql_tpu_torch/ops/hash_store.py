@@ -1,0 +1,528 @@
+"""Device-resident keyed state store — the port of ``ksql_tpu/ops/hash_store.py``.
+
+An open-addressing hash table laid out as structure-of-arrays on the card
+(all columns length ``capacity + 1``; the last slot is the *dump slot* that
+absorbs writes from inactive and overflowed rows):
+
+* ``occ`` bool, ``grave`` bool — slot occupied / tombstoned
+* ``khash`` int64, ``wstart`` int64 — probe identity
+* ``key<i>`` int64, ``knull`` int32 — key reprs and null bits for emission
+* ``dirty`` bool, ``max_ts`` int64 scalar, ``overflow`` int64 scalar
+* ``a<j>`` — aggregate components (``ops/device_aggs.py``)
+
+The store is updated IN PLACE (the reference's functions return a new
+store; PyTorch lets the port keep one set of device buffers).
+
+Four hand-written CUDA kernels (``csrc/``) carry the per-batch work:
+``row_prologue`` (K1), ``probe_insert`` (K2), ``fold_and_mark`` (K3) and
+``evict`` (K4).  Each wrapper below launches its kernel for CUDA tensors
+and counts the launch in ``<wrapper>.launches``; for CPU tensors it runs
+the plain torch twin beside it (``*_plain``), which is also the kernel's
+oracle on the card.  There is no fallback: a CUDA tensor gets the kernel
+or an exception.
+
+``np_mix64`` and ``host_insert`` are numpy copies: the host rebuild on grow.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ksql_tpu_torch.ops import cuda
+from ksql_tpu_torch.ops.window import tumbling_starts
+
+MAX_PROBES = 32
+INT32_MAX = np.iinfo(np.int32).max
+INT64_MIN = np.iinfo(np.int64).min
+
+_M1 = int(np.array(0xBF58476D1CE4E5B9, dtype=np.uint64).view(np.int64))
+_M2 = int(np.array(0x94D049BB133111EB, dtype=np.uint64).view(np.int64))
+_GOLD = int(np.array(0x9E3779B97F4A7C15, dtype=np.uint64).view(np.int64))
+
+_DTYPES = {"int32": torch.int32, "int64": torch.int64, "float64": torch.float64}
+#: dtype / combine codes shared with csrc/common.cuh
+_DTYPE_CODES = {"int32": 0, "int64": 1, "float64": 2}
+_COMBINE_CODES = {"add": 0, "min": 1, "max": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class AggComponent:
+    """One scatter-combined state column of an aggregate."""
+
+    combine: str  # 'add' | 'min' | 'max'
+    dtype: str  # numpy dtype name
+    init: float  # fill value for empty slots
+
+
+@dataclasses.dataclass(frozen=True)
+class StoreLayout:
+    capacity: int  # power of two
+    num_keys: int
+    components: Tuple[AggComponent, ...]
+    windowed: bool = False
+
+    def __post_init__(self):
+        if self.capacity & (self.capacity - 1):
+            raise ValueError("store capacity must be a power of two")
+
+
+def init_store(layout: StoreLayout, device) -> Dict[str, torch.Tensor]:
+    c1 = layout.capacity + 1
+
+    def z(dt):
+        return torch.zeros(c1, dtype=dt, device=device)
+
+    store = {
+        "occ": z(torch.bool),
+        # tombstoned slots: freed but still part of probe chains; the host
+        # rebuild in _grow reclaims them
+        "grave": z(torch.bool),
+        "khash": z(torch.int64),
+        "wstart": z(torch.int64),
+        "knull": z(torch.int32),
+        "dirty": z(torch.bool),
+        "max_ts": torch.tensor(INT64_MIN, dtype=torch.int64, device=device),
+        "overflow": torch.zeros((), dtype=torch.int64, device=device),
+    }
+    for i in range(layout.num_keys):
+        store[f"key{i}"] = z(torch.int64)
+    for j, comp in enumerate(layout.components):
+        store[f"a{j}"] = torch.full(
+            (c1,), comp.init, dtype=_DTYPES[comp.dtype], device=device
+        )
+    return store
+
+
+def init_scratch(capacity: int, device) -> Dict[str, torch.Tensor]:
+    """Per-store scratch the kernels keep clean between calls: the claim
+    cells of probe_insert and the first-row cells of fold_and_mark."""
+    return {
+        "claim": torch.full((capacity + 1,), INT32_MAX, dtype=torch.int32, device=device),
+        "first": torch.full((capacity + 1,), INT32_MAX, dtype=torch.int32, device=device),
+    }
+
+
+# ------------------------------------------------------------------ hashing
+def _srl(h: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 (torch's >> is arithmetic)."""
+    return (h >> s) & ((1 << (64 - s)) - 1)
+
+
+def mix64(h: torch.Tensor) -> torch.Tensor:
+    """splitmix64 finalizer (logical shifts; int64 wraps)."""
+    h = h ^ _srl(h, 30)
+    h = h * _M1
+    h = h ^ _srl(h, 27)
+    h = h * _M2
+    h = h ^ _srl(h, 31)
+    return h
+
+
+def combine_hash(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Fold per-key-column 64-bit reprs into one group hash.  Python's ``+``
+    binds tighter than ``^``: each step is ``mix64(h ^ (p + GOLD))``."""
+    h = torch.full_like(parts[0], _GOLD)
+    for p in parts:
+        h = mix64(h ^ (p + _GOLD))
+    return h
+
+
+def slot_base(khash: torch.Tensor, wstart: torch.Tensor, capacity: int) -> torch.Tensor:
+    """First probe candidate of each row (the top of the reference's
+    ``probe_insert``)."""
+    return (mix64(khash ^ (wstart * _GOLD)) & (capacity - 1)).to(torch.int32)
+
+
+# ----------------------------------------------------- K1: row_prologue
+def row_prologue_plain(key_reprs, key_valid, ts, active, size_ms, grace_ms,
+                       max_ts, capacity):
+    """Plain twin of K1 — see :func:`row_prologue`."""
+    k, n = key_reprs.shape
+    if size_ms:
+        wstart = tumbling_starts(ts, size_ms)
+    else:
+        wstart = torch.zeros(n, dtype=torch.int64, device=ts.device)
+    knull = torch.zeros(n, dtype=torch.int32, device=ts.device)
+    for i in range(k):
+        knull = knull | ((~key_valid[i]).to(torch.int32) << i)
+    active = active & (knull == 0)
+    khash = combine_hash([key_reprs[i] for i in range(k)] + [knull.to(torch.int64)])
+    if size_ms:
+        active = active & (wstart + size_ms + grace_ms > max_ts)
+    base = slot_base(khash, wstart, capacity)
+    c0 = torch.where(active, ts, torch.full_like(ts, INT64_MIN))
+    return wstart, knull, active, khash, base, c0
+
+
+def row_prologue(key_reprs: torch.Tensor, key_valid: torch.Tensor,
+                 ts: torch.Tensor, active: torch.Tensor, size_ms: int,
+                 grace_ms: int, max_ts: torch.Tensor, capacity: int):
+    """K1 (replaces ``ops/hash_store.py:mix64/combine_hash`` and the fixed
+    per-row part of ``runtime/lowering.py:pre_exchange``).
+
+    ``key_reprs`` int64[k, n] and ``key_valid`` bool[k, n] are the group
+    key columns' 64-bit reprs and valid bits; ``size_ms`` is 0 when the
+    aggregation is unwindowed (no window start, no grace cut);
+    ``max_ts`` is the store's stream time at batch start (a device scalar).
+    Returns ``(wstart, knull, active, khash, base, c0)``: the window start,
+    the int32 null-key bitmask, the rows that reach the store (non-null key,
+    inside grace), the group hash, the probe's base slot and the watermark
+    contribution (``ts`` where active, INT64_MIN elsewhere)."""
+    if not key_reprs.is_cuda:
+        return row_prologue_plain(key_reprs, key_valid, ts, active, size_ms,
+                                  grace_ms, max_ts, capacity)
+    k, n = key_reprs.shape
+    _expect(key_reprs, torch.int64, (k, n))
+    _expect(key_valid, torch.bool, (k, n))
+    _expect(ts, torch.int64, (n,))
+    _expect(active, torch.bool, (n,))
+    _expect(max_ts, torch.int64, ())
+    dev = ts.device
+    wstart = torch.empty(n, dtype=torch.int64, device=dev)
+    knull = torch.empty(n, dtype=torch.int32, device=dev)
+    act = torch.empty(n, dtype=torch.bool, device=dev)
+    khash = torch.empty(n, dtype=torch.int64, device=dev)
+    base = torch.empty(n, dtype=torch.int32, device=dev)
+    c0 = torch.empty(n, dtype=torch.int64, device=dev)
+    fn = cuda.lib("row_prologue")
+    cuda.check("row_prologue", fn(
+        key_reprs.data_ptr(), key_valid.data_ptr(), k, n, ts.data_ptr(),
+        active.data_ptr(), int(size_ms), int(grace_ms), max_ts.data_ptr(),
+        capacity - 1, wstart.data_ptr(), knull.data_ptr(), act.data_ptr(),
+        khash.data_ptr(), base.data_ptr(), c0.data_ptr(), _stream(dev),
+    ))
+    row_prologue.launches += 1
+    return wstart, knull, act, khash, base, c0
+
+
+row_prologue.launches = 0
+
+
+# ----------------------------------------------------- K2: probe_insert
+def probe_insert_plain(store, capacity, base, khash, wstart, key_reprs,
+                       knull, active) -> torch.Tensor:
+    """Plain twin of K2 — see :func:`probe_insert`."""
+    n = khash.shape[0]
+    dev = khash.device
+    mask = capacity - 1
+    dump = capacity
+    occ, grave, kh, ws = store["occ"], store["grave"], store["khash"], store["wstart"]
+    rowidx = torch.arange(n, dtype=torch.int32, device=dev)
+    slots = torch.full((n,), dump, dtype=torch.int32, device=dev)
+    done = torch.zeros(n, dtype=torch.bool, device=dev)
+    offset = torch.zeros(n, dtype=torch.int32, device=dev)
+    won_round = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    for r in range(MAX_PROBES):
+        cand = (base + offset) & mask
+        ci = cand.long()
+        c_used = occ[ci] | grave[ci]
+        # a matching grave is reclaimed (same key re-inserted after free)
+        c_match = c_used & (kh[ci] == khash) & (ws[ci] == wstart)
+        newly = ~done & active & c_match
+        slots = torch.where(newly, cand, slots)
+        done = done | newly
+        # claim truly-empty candidates: lowest row index wins the slot
+        want = ~done & active & ~c_used
+        claim = torch.full((capacity + 1,), n, dtype=torch.int32, device=dev)
+        claim.scatter_reduce_(0, torch.where(want, ci, dump), rowidx, "amin")
+        winner = want & (claim[ci] == rowidx)
+        w = winner.nonzero().squeeze(1)
+        wc = ci[w]
+        occ[wc] = True
+        kh[wc] = khash[w]
+        ws[wc] = wstart[w]
+        won_round[w] = r
+        slots = torch.where(winner, cand, slots)
+        done = done | winner
+        # used-by-other: advance; claim losers re-examine the same slot
+        offset = offset + (~done & active & c_used & ~c_match).to(torch.int32)
+    _dump_khash(kh, ws, khash, wstart, won_round, dump)
+    store["overflow"] += (active & ~done).sum()
+    d = done.nonzero().squeeze(1)
+    ds = slots[d].long()
+    occ[ds] = True
+    grave[ds] = False
+    for i in range(key_reprs.shape[0]):
+        store[f"key{i}"][ds] = key_reprs[i][d]
+    store["knull"][ds] = knull[d]
+    undone = (~done).nonzero().squeeze(1)
+    if undone.numel():
+        last = undone[-1]
+        grave[dump] = False
+        for i in range(key_reprs.shape[0]):
+            store[f"key{i}"][dump] = key_reprs[i][last]
+        store["knull"][dump] = knull[last]
+    occ[dump] = False
+    return slots
+
+
+def _dump_khash(kh, ws, khash, wstart, won_round, dump) -> None:
+    """The reference scatters every round's non-winners into the dump slot
+    and XLA applies duplicate updates in row order: the highest row that
+    did not win the final round leaves its khash/wstart there (if every
+    row won the final round, the round before it decides)."""
+    for r in range(MAX_PROBES - 1, -1, -1):
+        lost = (won_round != r).nonzero()
+        if lost.numel():
+            i = int(lost[-1])
+            kh[dump] = khash[i]
+            ws[dump] = wstart[i]
+            return
+
+
+def probe_insert(store: Dict[str, torch.Tensor], scratch: Dict[str, torch.Tensor],
+                 capacity: int, base: torch.Tensor, khash: torch.Tensor,
+                 wstart: torch.Tensor, key_reprs: torch.Tensor,
+                 knull: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """K2 (replaces ``ops/hash_store.py:probe_insert``): resolve and create
+    one slot per active row, in place; returns int32 ``slots`` (the dump
+    slot ``capacity`` for inactive and overflowed rows).  The slot layout,
+    ``overflow`` and the dump slot's contents are the reference's bit for
+    bit."""
+    if not khash.is_cuda:
+        return probe_insert_plain(store, capacity, base, khash, wstart,
+                                  key_reprs, knull, active)
+    k, n = key_reprs.shape
+    c1 = capacity + 1
+    for name, dt in (("occ", torch.bool), ("grave", torch.bool),
+                     ("khash", torch.int64), ("wstart", torch.int64),
+                     ("knull", torch.int32)):
+        _expect(store[name], dt, (c1,))
+    for i in range(k):
+        _expect(store[f"key{i}"], torch.int64, (c1,))
+    _expect(store["overflow"], torch.int64, ())
+    _expect(scratch["claim"], torch.int32, (c1,))
+    _expect(base, torch.int32, (n,))
+    _expect(khash, torch.int64, (n,))
+    _expect(wstart, torch.int64, (n,))
+    _expect(key_reprs, torch.int64, (k, n))
+    _expect(knull, torch.int32, (n,))
+    _expect(active, torch.bool, (n,))
+    dev = khash.device
+    slots = torch.empty(n, dtype=torch.int32, device=dev)
+    work = torch.empty(3 * n + MAX_PROBES + 2, dtype=torch.int32, device=dev)
+    keys = cuda.host_i64(store[f"key{i}"].data_ptr() for i in range(k))
+    fn = cuda.lib("probe_insert")
+    cuda.check("probe_insert", fn(
+        store["occ"].data_ptr(), store["grave"].data_ptr(),
+        store["khash"].data_ptr(), store["wstart"].data_ptr(), keys, k,
+        store["knull"].data_ptr(), store["overflow"].data_ptr(),
+        scratch["claim"].data_ptr(), capacity, base.data_ptr(),
+        khash.data_ptr(), wstart.data_ptr(), key_reprs.data_ptr(),
+        knull.data_ptr(), active.data_ptr(), n, slots.data_ptr(),
+        work.data_ptr(), _stream(dev),
+    ))
+    probe_insert.launches += 1
+    return slots
+
+
+probe_insert.launches = 0
+
+
+# ---------------------------------------------------- K3: fold_and_mark
+def fold_and_mark_plain(store, layout: StoreLayout, slots, contribs,
+                        active) -> torch.Tensor:
+    """Plain twin of K3 — see :func:`fold_and_mark`."""
+    capacity = layout.capacity
+    s = slots.long()
+    for j, comp in enumerate(layout.components):
+        col = store[f"a{j}"]
+        c = contribs[j].to(col.dtype)
+        if comp.combine == "add":
+            col.index_add_(0, s, c)
+        elif comp.combine in ("min", "max"):
+            before = col.clone() if col.is_floating_point() else None
+            col.scatter_reduce_(0, s, c, "amin" if comp.combine == "min" else "amax")
+            if before is not None:
+                _xla_signed_zero(col, before, s, c, comp.combine)
+        else:
+            raise ValueError(comp.combine)
+    store["dirty"][s] = True
+    store["dirty"][capacity] = False
+    n = s.shape[0]
+    rowidx = torch.arange(n, dtype=torch.int32, device=s.device)
+    first = torch.full((capacity + 1,), n, dtype=torch.int32, device=s.device)
+    first.scatter_reduce_(0, torch.where(active, s, capacity), rowidx, "amin")
+    return active & (s != capacity) & (first[s] == rowidx)
+
+
+def _xla_signed_zero(col, before, s, c, combine) -> None:
+    """XLA's min/max order -0.0 below +0.0 (torch's scatter_reduce keeps
+    whichever zero it saw first): a slot folded to zero takes -0.0 under
+    min when any of its operands was -0.0, and +0.0 under max when any was
+    +0.0."""
+    want_neg = combine == "min"
+    zero_src = (c == 0) & (torch.signbit(c) == want_neg)
+    hit = torch.zeros_like(col, dtype=torch.bool)
+    hit[s[zero_src]] = True
+    hit |= (before == 0) & (torch.signbit(before) == want_neg)
+    fix = hit & (col == 0)
+    col[fix] = -0.0 if want_neg else 0.0
+
+
+def fold_and_mark(store: Dict[str, torch.Tensor], scratch: Dict[str, torch.Tensor],
+                  layout: StoreLayout, slots: torch.Tensor,
+                  contribs: Sequence[torch.Tensor], active: torch.Tensor) -> torch.Tensor:
+    """K3 (replaces ``ops/hash_store.py:scatter_combine``'s add/min/max
+    branches with its ``dirty`` marking, and ``winners_per_slot``): fold
+    each row's contributions into its slot in place, mark touched slots
+    dirty, and return the bool mask of one representative (lowest) row per
+    touched slot.  Inactive rows must carry identity contributions."""
+    if not slots.is_cuda:
+        return fold_and_mark_plain(store, layout, slots, contribs, active)
+    n = slots.shape[0]
+    capacity = layout.capacity
+    c1 = capacity + 1
+    _expect(slots, torch.int32, (n,))
+    _expect(active, torch.bool, (n,))
+    _expect(store["dirty"], torch.bool, (c1,))
+    _expect(scratch["first"], torch.int32, (c1,))
+    desc: List[int] = []
+    keep = []  # the cast contributions must outlive the launch below
+    for j, comp in enumerate(layout.components):
+        col = store[f"a{j}"]
+        c = contribs[j].to(col.dtype).contiguous()
+        _expect(col, _DTYPES[comp.dtype], (c1,))
+        _expect(c, _DTYPES[comp.dtype], (n,))
+        keep.append(c)
+        desc += [col.data_ptr(), c.data_ptr(),
+                 _COMBINE_CODES[comp.combine] * 3 + _DTYPE_CODES[comp.dtype]]
+    winners = torch.empty(n, dtype=torch.bool, device=slots.device)
+    fn = cuda.lib("fold_and_mark")
+    cuda.check("fold_and_mark", fn(
+        cuda.host_i64(desc), len(layout.components), slots.data_ptr(),
+        active.data_ptr(), n, capacity, store["dirty"].data_ptr(),
+        scratch["first"].data_ptr(), winners.data_ptr(), _stream(slots.device),
+    ))
+    fold_and_mark.launches += 1
+    return winners
+
+
+fold_and_mark.launches = 0
+
+
+# ------------------------------------------------------------ K4: evict
+def evict_plain(store, layout: StoreLayout, retention_ms: int) -> None:
+    """Plain twin of K4 — see :func:`evict`."""
+    expired = store["occ"] & (store["wstart"] + retention_ms < store["max_ts"])
+    store["occ"] &= ~expired
+    store["grave"] |= expired
+    store["dirty"] &= ~expired
+    for j, comp in enumerate(layout.components):
+        store[f"a{j}"].masked_fill_(expired, comp.init)
+
+
+def evict(store: Dict[str, torch.Tensor], layout: StoreLayout, retention_ms: int) -> None:
+    """K4 (replaces ``runtime/lowering.py:_trace_evict``, non-sliced,
+    non-suppress branch): free the slots whose window left retention, in
+    place, resetting their components to init."""
+    occ = store["occ"]
+    if not occ.is_cuda:
+        evict_plain(store, layout, retention_ms)
+        return
+    c1 = layout.capacity + 1
+    for name, dt in (("occ", torch.bool), ("grave", torch.bool),
+                     ("dirty", torch.bool), ("wstart", torch.int64)):
+        _expect(store[name], dt, (c1,))
+    _expect(store["max_ts"], torch.int64, ())
+    desc: List[int] = []
+    for j, comp in enumerate(layout.components):
+        col = store[f"a{j}"]
+        _expect(col, _DTYPES[comp.dtype], (c1,))
+        init = np.array([comp.init], dtype=comp.dtype)
+        bits = int(init.view(np.int32 if comp.dtype == "int32" else np.int64)[0])
+        desc += [col.data_ptr(), _DTYPE_CODES[comp.dtype], bits]
+    fn = cuda.lib("evict")
+    cuda.check("evict", fn(
+        cuda.host_i64(desc), len(layout.components), occ.data_ptr(),
+        store["grave"].data_ptr(), store["dirty"].data_ptr(),
+        store["wstart"].data_ptr(), store["max_ts"].data_ptr(),
+        int(retention_ms), layout.capacity, _stream(occ.device),
+    ))
+    evict.launches += 1
+
+
+evict.launches = 0
+
+KERNEL_WRAPPERS = (row_prologue, probe_insert, fold_and_mark, evict)
+
+
+def reset_launch_counts() -> None:
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _expect(t: torch.Tensor, dtype, shape) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(
+            f"kernel argument: expected contiguous {dtype}{list(shape)}, "
+            f"got {t.dtype}{list(t.shape)}"
+        )
+    if not t.is_cuda:
+        raise ValueError("kernel argument on the CPU beside CUDA tensors")
+
+
+# --------------------------------------------------------- host rebuild
+def np_mix64(h: np.ndarray) -> np.ndarray:
+    """Host (numpy) replica of mix64 — bit-identical; used when rebuilding
+    a store into a larger capacity."""
+    u = np.asarray(h).astype(np.int64).view(np.uint64).copy()
+    u ^= u >> np.uint64(30)
+    u *= np.uint64(0xBF58476D1CE4E5B9)
+    u ^= u >> np.uint64(27)
+    u *= np.uint64(0x94D049BB133111EB)
+    u ^= u >> np.uint64(31)
+    return u.view(np.int64)
+
+
+def host_insert(
+    occ: np.ndarray,
+    kh: np.ndarray,
+    ws: np.ndarray,
+    capacity: int,
+    khash: np.ndarray,
+    wstart: np.ndarray,
+) -> np.ndarray:
+    """Vectorized numpy insert of unique (khash, wstart) keys into a store
+    (occ/kh/ws mutated in place); returns per-key slots.  The host half of
+    store growth — the RocksDB-compaction analog."""
+    n = len(khash)
+    mask = capacity - 1
+    wmul = (
+        np.asarray(wstart).astype(np.int64).view(np.uint64)
+        * np.uint64(0x9E3779B97F4A7C15)
+    ).view(np.int64)
+    base = (np_mix64(np.asarray(khash) ^ wmul) & mask).astype(np.int64)
+    slots = np.full(n, -1, np.int64)
+    offset = np.zeros(n, np.int64)
+    done = np.zeros(n, bool)
+    for _ in range(4 * MAX_PROBES):
+        if done.all():
+            break
+        cand = (base + offset) & mask
+        c_occ = occ[cand]
+        match = c_occ & (kh[cand] == khash) & (ws[cand] == wstart)
+        newly = ~done & match
+        slots[newly] = cand[newly]
+        done |= newly
+        want = ~done & ~c_occ
+        claim = np.full(capacity, n, np.int64)
+        np.minimum.at(claim, cand[want], np.nonzero(want)[0])
+        winner = want & (claim[cand] == np.arange(n))
+        occ[cand[winner]] = True
+        kh[cand[winner]] = khash[winner]
+        ws[cand[winner]] = wstart[winner]
+        slots[winner] = cand[winner]
+        done |= winner
+        offset += (~done & c_occ & ~match).astype(np.int64)
+    if not done.all():
+        raise RuntimeError("host_insert: probe limit exceeded (table too full)")
+    return slots

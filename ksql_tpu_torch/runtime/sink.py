@@ -1,0 +1,140 @@
+"""Source-record decode and sink emission, shared by the port's executors.
+
+Trimmed copies of ``SinkEmit``, ``StreamRow``, ``decode_source_record`` and
+``SinkWriter`` from ``ksql_tpu/runtime/oracle.py``: stream sources only,
+KAFKA/JSON keys and JSON values (``serde/formats.py``), no header columns,
+no fault points, no changelog fence.  Values are serialized one emit at a
+time with the same serializer the reference's block encoder mirrors byte
+for byte, so the sink topic's bytes are the reference's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+from ksql_tpu_torch.common.errors import SerdeException
+from ksql_tpu_torch.execution import steps as st
+from ksql_tpu_torch.runtime.topics import Broker, Record
+from ksql_tpu_torch.serde import formats as fmt
+
+
+@dataclasses.dataclass
+class StreamRow:
+    key: Tuple[Any, ...]
+    row: Optional[Dict[str, Any]]
+    ts: int
+    window: Optional[Tuple[int, int]] = None
+    part: Optional[int] = None  # source record partition (ROWPARTITION)
+    offset: Optional[int] = None  # source record offset (ROWOFFSET)
+
+
+@dataclasses.dataclass
+class SinkEmit:
+    """One sink emission: key tuple, row (None = tombstone), event time and
+    the window bounds of a windowed key."""
+
+    key: Tuple[Any, ...]
+    row: Optional[Dict[str, Any]]
+    ts: int
+    window: Optional[Tuple[int, int]] = None
+
+
+def decode_source_record(
+    source_step: st.StreamSource,
+    record: Record,
+    on_error: Callable[[str, Exception], None],
+) -> Optional[StreamRow]:
+    """Deserialize one source-topic record into a StreamRow (value serde,
+    key serde, TIMESTAMP-column extraction).  Returns None for a record the
+    serde rejects (reported through ``on_error``) or whose extracted
+    timestamp is negative."""
+    schema = source_step.schema
+    cached = source_step.__dict__.get("_decode_cache")
+    if cached is None:
+        value_serde = fmt.of(
+            source_step.formats.value_format,
+            wrap_single_values=source_step.formats.wrap_single_values,
+        )
+        cached = (value_serde, list(schema.value_columns))
+        source_step.__dict__["_decode_cache"] = cached
+    value_serde, value_columns = cached
+    try:
+        value_row = value_serde.deserialize(record.value, value_columns) \
+            if record.value is not None else None
+        key_row = {}
+        if record.key is not None and schema.key_columns:
+            key_row = fmt.deserialize_key(
+                source_step.formats.key_format, record.key, schema.key_columns
+            )
+    except Exception as e:  # noqa: BLE001 — any serde failure drops the record
+        on_error(f"deserialize:{source_step.topic}", e)
+        return None
+    ts = record.timestamp
+    if source_step.timestamp_column and value_row is not None:
+        tv = value_row.get(source_step.timestamp_column)
+        if tv is None and source_step.timestamp_column in key_row:
+            tv = key_row[source_step.timestamp_column]
+        if tv is not None:
+            try:
+                ts = int(tv)
+            except (TypeError, ValueError) as e:
+                on_error("timestamp-extract", e)
+                return None
+            if ts < 0:
+                # negative extracted timestamps drop the record
+                # (reference MetadataTimestampExtractor semantics)
+                return None
+    if record.key is None and schema.key_columns:
+        key: tuple = ()  # null key payload: stays a null key on passthrough
+    else:
+        key = tuple(key_row.get(c.name) for c in schema.key_columns)
+    if value_row is None:
+        row = None
+    else:
+        row = dict(key_row)
+        row.update(value_row)
+    return StreamRow(key, row, ts, record.window, record.partition, record.offset)
+
+
+class SinkWriter:
+    """Serializes SinkEmits and produces them to the sink topic (the
+    SinkBuilder analog: value/key serde + sink timestamp column)."""
+
+    def __init__(self, sink_step, broker: Broker):
+        self.sink_step = sink_step
+        self.broker = broker
+        broker.create_topic(sink_step.topic)
+        self.value_serde = fmt.of(
+            sink_step.formats.value_format,
+            wrap_single_values=sink_step.formats.wrap_single_values,
+        )
+        fmt.check_key_format(sink_step.formats.key_format)
+        self.defaults = dict(getattr(sink_step, "value_defaults", ()) or ())
+        if any(not isinstance(n, str) for n in self.defaults):
+            raise SerdeException("nested-path sink defaults are not supported by the port")
+
+    def produce(self, e: SinkEmit) -> None:
+        schema = self.sink_step.schema
+        row = e.row
+        if row is not None and self.defaults:
+            row = {**self.defaults, **row}
+        value = (
+            self.value_serde.serialize(row, list(schema.value_columns))
+            if row is not None
+            else None
+        )
+        key = fmt.serialize_key(
+            self.sink_step.formats.key_format, e.key, schema.key_columns,
+            wrapped=getattr(self.sink_step.formats, "key_wrapped", False),
+        )
+        ts = e.ts
+        if self.sink_step.timestamp_column and e.row is not None:
+            tv = e.row.get(self.sink_step.timestamp_column)
+            if tv is not None:
+                ts = int(tv)
+                if ts < 0:
+                    return  # negative timestamps drop the record
+        topic = self.broker.topic(self.sink_step.topic)
+        topic.produce(Record(key=key, value=value, timestamp=ts, partition=-1,
+                             window=e.window))
