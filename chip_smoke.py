@@ -5,13 +5,13 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py [--seed N]
 
-Phases, in order; any failure exits non-zero and prints no result:
+Phases, in this order; any failure exits non-zero and prints no result:
 
 1. Device and build: the card's name and power limit, then every CUDA
    kernel of the main path built from ``ksql_tpu_torch/csrc`` by its own
    ``nvcc`` (all started together), with each build's seconds and its
    ``-Xptxas -v`` report.
-2. Each kernel against its plain torch twin on the card, at the main path's
+2. Each kernel against its plain torch twin on the card, at the flagship's
    shapes (65,536-row batches, a 2^20-slot store that is 70% full with
    graves, zipf(1.3) keys): exact for every int and bool column, rtol 1e-12
    for float64 sums (atomic order is not fixed).  Per kernel: its device
@@ -20,6 +20,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    launch cost included), the twin's time, the least time the card could
    take (bytes over 3.35 TB/s, ops over 67 TOP/s) and a PyTorch library
    yardstick where one exists.
+2h. The hopping path's kernels against their twins at BASELINE #2's shapes
+   (16,384-row batches, k = 4, S = 4 slices per window, a ring of 102
+   slices, a 2^16-slot store 70% full with graves, stale ring cells and
+   zipf(1.3) keys): K1's sliced and expansion modes, K5 sliced_fold, K7
+   member_lanes, K6 combine_windows (and its plain gather at the flagship's
+   shapes) and K4's sliced branch; exact for ints, bools and slots, rtol
+   1e-12 for float64 sums.  Yardstick: torch.gather + sum/amin/amax over
+   dim 1 for K6, none for K5 and K7.
 3. End to end: ``run_plan`` on the flagship plan
    (``ksql_tpu_torch/plans/pv_counts_tumbling.json``, tumbling COUNT(*)
    GROUP BY URL) over 16 x 65,536 JSON records of 50,000 zipf(1.3) URLs.
@@ -31,10 +39,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    (URL, window) keys, from a 2^20-slot store: the load trigger must run the
    retention pass (K4), which frees the windows past retention, and grow
    the store to 2^21 slots with zero overflow and exact counts.
-5. Launch counters: every kernel launched during phases 3-4 (the counts are
-   reset just before phase 3 and read just after phase 4).  Then a short
-   profiled re-run of 4 e2e batches splits a batch's time into host stages
-   and the card's busy share.
+6. Hopping end to end, sliced: ``run_plan`` on BASELINE #2's plan
+   (``ksql_tpu_torch/plans/pv_stats_hopping.json``, SUM/AVG/MIN/MAX of
+   USER_ID over HOPPING 1 h / 15 min windows GROUP BY URL) over 16 x 16,384
+   JSON records of 50,000 zipf(1.3) URLs, 17 ms apart; the store is asked
+   for 2^20 slots, clamped to 2^15 by the state budget, and grows.  The
+   route must be sliced (ring 102, k 4), the sink must equal the port's
+   ``device="cpu"`` run, the last value per (URL, window) a numpy dict
+   reference, and nothing may overflow.
+7. Hopping long span, sliced: 72 x 16,384 records over 48 h, 500 hot URLs
+   in every hour and an hour-local pool of 2,000 URLs per hour: at least
+   one retention pass (K4) must free keys, the ring must be resized, the
+   store must grow, values must equal the dict reference.
+8. Hopping end to end on the expansion route (``sliced=False``), phase 6's
+   traffic into a 2^20-slot store: the sink must equal the CPU run, and the
+   final value per (URL, window) phase 6's and the dict's.
+5. Launch counters, per path: the counts (per kernel, and per mode for K1,
+   K4 and K6) are set to 0 just before each of phases 3, 4, 6, 7 and 8
+   drives ``run_plan`` on the card and read just after it; each phase must
+   have launched every kernel of its route in the route's mode
+   (``PATH_KERNELS``).  Then short profiled re-runs split a batch's time
+   into host stages and the card's busy share, for the flagship (3b) and
+   BASELINE #2 (6b).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON record, and the line before that the card's name and
@@ -45,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -60,6 +87,9 @@ N_URLS = 50_000
 GROWTH_ROWS = 1 << 17
 GROWTH_BATCHES = 20
 GROWTH_REPEATS = 8
+HOP_ROWS = 1 << 14  # BASELINE #2's batch: CAPACITY // 4 (bench.py:217)
+HOP_STORE = 1 << 16
+HOP_RING = 102  # (1 h + 24 h grace) / 15 min + 2
 DEVICE = "cuda"
 TS0 = 1_700_000_000_000
 HOUR_MS = 3_600_000
@@ -101,10 +131,13 @@ def time_events(torch, fn, reset=None, reps=REPS, warmup=3) -> float:
 
 #: CUDA function names of each kernel wrapper's launches
 KERNEL_FUNCS = {
-    "row_prologue": ("row_prologue_kernel",),
+    "row_prologue": ("row_prologue_kernel", "batch_max_kernel"),
     "probe_insert": ("init_kernel", "round_a_kernel", "round_b_kernel", "write_kernel", "fixup_kernel"),
     "fold_and_mark": ("fold_kernel", "winners_kernel"),
     "evict": ("evict_kernel",),
+    "sliced_fold": ("slice_reset_kernel", "slice_fold_kernel"),
+    "combine_windows": ("combine_kernel",),
+    "member_lanes": ("lane_claim_kernel", "lane_winner_kernel"),
 }
 
 
@@ -133,8 +166,10 @@ def kernel_device_ms(torch, name, fn, reset=None, reps=REPS) -> float:
                 reset()
             fn()
         torch.cuda.synchronize()
-    total = sum(_device_us(e) for e in prof.key_averages()
-                if any(f in e.key for f in KERNEL_FUNCS[name]))
+    # a function name not preceded by a letter or "_" (slice_fold_kernel is
+    # not fold_kernel), demangled or not
+    pats = [re.compile(rf"(?<![A-Za-z_]){f}") for f in KERNEL_FUNCS[name]]
+    total = sum(_device_us(e) for e in prof.key_averages() if any(p.search(e.key) for p in pats))
     require(total > 0, f"{name}: the profiler saw no device time for its kernels")
     return total / reps / 1e3
 
@@ -251,6 +286,24 @@ def _assert_equal(torch, name, a, b, rtol=0.0):
     return 0.0
 
 
+def measure(torch, name, fn, plain, bytes_moved, ops, reset=None, library=None, plain_reps=REPS):
+    """One kernel record: device ms (profiler), call ms (CUDA events),
+    the twin's ms, the bound and the library yardstick's ms (or None)."""
+    ms = kernel_device_ms(torch, name, fn, reset)
+    call = time_events(torch, fn, reset)
+    plain_ms = time_events(torch, plain, reset, reps=plain_reps, warmup=1)
+    lib = time_events(torch, library, reset) if library is not None else None
+    b, by = bound(bytes_moved, ops)
+    return dict(ms=ms, call_ms=call, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib)
+
+
+def _report(phase, tag, rec):
+    lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
+    print(f"[{phase}] {tag}: exact (floats rtol 1e-12); device {rec['ms']:.4f} ms, call {rec['call_ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}), "
+          f"yardstick {lib}; max abs err {rec['max_abs_err']:.3g}")
+
+
 def phase_kernels(torch, seed, n=N_ROWS, capacity=STORE):
     """Every kernel against its plain twin on the card; returns the
     per-kernel records (without launch counts)."""
@@ -281,14 +334,11 @@ def phase_kernels(torch, seed, n=N_ROWS, capacity=STORE):
     err = max(_assert_equal(torch, f"row_prologue.{nm}", g, w) for nm, g, w in zip(names, got, want))
     require(0 < int(got[2].sum()) < n, "row_prologue: grace cut should drop some rows and keep others")
     k = reprs.shape[0]
-    ms = kernel_device_ms(torch, "row_prologue", lambda: hs.row_prologue(*args))
-    call = time_events(torch, lambda: hs.row_prologue(*args))
-    plain = time_events(torch, lambda: hs.row_prologue_plain(*args))
-    b, by = bound(n * (9 * k + 9 + 33), n * (30 * (k + 1) + 20))
-    recs["row_prologue"] = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b, bound_by=by,
-                                library_ms=None, max_abs_err=err)
-    print(f"[2] row_prologue: exact; device {ms:.4f} ms, call {call:.4f} ms "
-          f"(plain {plain:.4f} ms, bound {b:.4f} ms)")
+    rec = measure(torch, "row_prologue", lambda: hs.row_prologue(*args),
+                  lambda: hs.row_prologue_plain(*args),
+                  n * (9 * k + 9 + 33), n * (30 * (k + 1) + 20))
+    recs["row_prologue"] = dict(rec, max_abs_err=err)
+    _report("2", "row_prologue", recs["row_prologue"])
 
     # ---- K2 probe_insert: 70%-full store with graves, zipf keys
     layout, store0 = make_store(torch, hs, capacity, int(0.7 * capacity), rng, url_hashes, dev)
@@ -317,18 +367,13 @@ def phase_kernels(torch, seed, n=N_ROWS, capacity=STORE):
     def k2():
         hs.probe_insert(work, scratch, capacity, base, khash, wstart, reprs, knull, act)
 
-    ms = kernel_device_ms(torch, "probe_insert", k2, reset_k2)
-    call = time_events(torch, k2, reset_k2)
-    plain = time_events(torch, lambda: hs.probe_insert_plain(work, capacity, base, khash, wstart, reprs, knull, act), reset_k2, reps=10, warmup=1)
     n_act = int(act.sum())
-    b2, by2 = bound(
-        n * (4 + 8 + 8 + 8 * k + 4 + 1) + n * 4 + n_act * 18 + new_keys * (1 + 1 + 8 + 8 + 8 * k + 4),
-        n * 40,
-    )
-    recs["probe_insert"] = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b2, bound_by=by2,
-                                library_ms=None, max_abs_err=0.0)
-    print(f"[2] probe_insert: device {ms:.4f} ms, call {call:.4f} ms (plain {plain:.4f} ms, "
-          f"bound {b2:.4f} ms); {matched} rows matched")
+    rec = measure(torch, "probe_insert", k2,
+                  lambda: hs.probe_insert_plain(work, capacity, base, khash, wstart, reprs, knull, act),
+                  n * (4 + 8 + 8 + 8 * k + 4 + 1) + n * 4 + n_act * 18
+                  + new_keys * (1 + 1 + 8 + 8 + 8 * k + 4), n * 40, reset=reset_k2, plain_reps=10)
+    recs["probe_insert"] = dict(rec, max_abs_err=0.0)
+    _report("2", f"probe_insert ({matched} rows matched)", recs["probe_insert"])
 
     # ---- K3 fold_and_mark: the flagship's components at its shapes, then
     # every combine x dtype (float64 sums to rtol 1e-12, NaNs included)
@@ -379,18 +424,16 @@ def phase_kernels(torch, seed, n=N_ROWS, capacity=STORE):
     def k3():
         hs.fold_and_mark(work, scratch, layout, slots, flag_contribs, act)
 
-    ms = kernel_device_ms(torch, "fold_and_mark", k3, reset_k3)
-    call = time_events(torch, k3, reset_k3)
-    plain = time_events(torch, lambda: hs.fold_and_mark_plain(work, layout, slots, flag_contribs, act), reset_k3, reps=10, warmup=1)
     sl = slots.long()
-    lib = time_events(torch, lambda: (work["a0"].index_reduce_(0, sl, c0, "amax"), work["a1"].index_add_(0, sl, ones)), reset_k3)
     touched = int(torch.unique(slots[act]).numel())
-    b3, by3 = bound(n * (4 + 1 + 16) + touched * (2 * 16 + 1) + n, n * 6)
-    recs["fold_and_mark"] = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b3, bound_by=by3,
-                                 library_ms=lib, max_abs_err=err3)
-    print(f"[2] fold_and_mark: exact ints, float64 sums max abs err {err3:.3g}; device {ms:.4f} ms, "
-          f"call {call:.4f} ms (plain {plain:.4f} ms, index_reduce_+index_add_ {lib:.4f} ms, "
-          f"bound {b3:.4f} ms)")
+    rec = measure(torch, "fold_and_mark", k3,
+                  lambda: hs.fold_and_mark_plain(work, layout, slots, flag_contribs, act),
+                  n * (4 + 1 + 16) + touched * (2 * 16 + 1) + n, n * 6, reset=reset_k3,
+                  plain_reps=10,
+                  library=lambda: (work["a0"].index_reduce_(0, sl, c0, "amax"),
+                                   work["a1"].index_add_(0, sl, ones)))
+    recs["fold_and_mark"] = dict(rec, max_abs_err=err3)
+    _report("2", "fold_and_mark (yardstick index_reduce_ amax + index_add_)", recs["fold_and_mark"])
 
     # ---- K4 evict: the same store, stream time past the oldest windows
     ev0 = _clone(store_k)
@@ -411,29 +454,305 @@ def phase_kernels(torch, seed, n=N_ROWS, capacity=STORE):
     def k4():
         hs.evict(work, layout, retention)
 
-    ms = kernel_device_ms(torch, "evict", k4, reset_k4)
-    call = time_events(torch, k4, reset_k4)
-    plain = time_events(torch, lambda: hs.evict_plain(work, layout, retention), reset_k4)
-    b4, by4 = bound((capacity + 1) * 9 + expired * (3 + 16), (capacity + 1) * 4)
-    recs["evict"] = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b4, bound_by=by4,
-                         library_ms=None, max_abs_err=0.0)
-    print(f"[2] evict: exact; {expired} slots expired; device {ms:.4f} ms, call {call:.4f} ms "
-          f"(plain {plain:.4f} ms, bound {b4:.4f} ms)")
+    rec = measure(torch, "evict", k4, lambda: hs.evict_plain(work, layout, retention),
+                  (capacity + 1) * 9 + expired * (3 + 16), (capacity + 1) * 4, reset=reset_k4)
+    recs["evict"] = dict(rec, max_abs_err=0.0)
+    _report("2", f"evict ({expired} slots expired)", recs["evict"])
+    return recs
+
+
+# ------------------------------------------------------------- phase 2h
+#: BASELINE #2's store components (``bench.py:207``): the watermark, then
+#: SUM, AVG, MIN and MAX of a BIGINT
+HOP_COMPONENTS = (
+    ("max", "int64", np.iinfo(np.int64).min),
+    ("add", "int64", 0),
+    ("add", "float64", 0.0), ("add", "int64", 0),
+    ("min", "int64", np.iinfo(np.int64).max), ("max", "int32", 0),
+    ("max", "int64", np.iinfo(np.int64).min), ("max", "int32", 0),
+)
+SLICE_MS = 15 * 60_000  # BASELINE #2's slice width: gcd(1 h, 15 min)
+
+
+def _cell_values(rng, comp, shape, specials):
+    """Random values a folded cell or a contribution of ``comp`` can hold;
+    with ``specials`` a float column also gets NaN, -0.0 and +0.0."""
+    if comp.dtype == "float64":
+        # non-negative: float sums then carry no cancellation, so a
+        # different fold order stays within rtol 1e-12
+        v = np.round(rng.random(shape) * 1000.0, 3)
+        if specials:
+            pick = rng.random(shape)
+            v[pick < 0.02] = np.nan
+            v[(pick >= 0.02) & (pick < 0.06)] = -0.0
+            v[(pick >= 0.06) & (pick < 0.10)] = 0.0
+        return v
+    if comp.dtype == "int32":
+        return rng.integers(0, 2, shape).astype(np.int32) if comp.combine == "max" else \
+            rng.integers(-1000, 1000, shape).astype(np.int32)
+    return rng.integers(0, 1000, shape).astype(np.int64)
+
+
+def make_sliced_case(hs, rng, capacity, ring, n, components=HOP_COMPONENTS,
+                     fill=0.7, width=SLICE_MS, specials=False, one_slot=False):
+    """A sliced store and a batch of ``n`` rows against it, as numpy.
+
+    The store (``capacity + 1`` slots, a ring of ``ring`` cells per
+    component) is ``fill`` full of keys, 5% of them graves; a live slot's
+    ring cells hold its slices of the last ``ring - 1`` slice indices, a
+    slice of an earlier ring wrap (stale) or nothing (-1).  The batch's
+    slots are zipf(1.3) over the live keys (so several rows write one ring
+    cell), 10% free slots (new keys), 2% active rows that overflowed into
+    the dump slot and 10% inactive rows (dump slot, garbage timestamps);
+    the active rows' slices lie within the ring's horizon, as K1 admits
+    them.  ``one_slot`` sends every active row to one key whose slices
+    span the whole ring (the ring-cap case of K7).  Returns ``(layout,
+    store, rows)``; ``rows`` holds ``slots`` int32, ``active``, ``wstart``
+    (slice starts), ``contribs`` (identity where inactive) and ``max_ts``."""
+    comps = tuple(hs.AggComponent(c, d, i, ring) for c, d, i in components)
+    layout = hs.StoreLayout(capacity, 1, comps, windowed=True)
+    c1 = capacity + 1
+    newest = 1_888_888  # slice index of the batch's newest slice
+    store = {k: v.numpy().copy() for k, v in hs.init_store(layout, "cpu").items()}
+    store["slice_id"] = np.full((c1, ring), -1, np.int64)
+    store["slast"] = np.full(c1, hs.SLAST_NONE, np.int64)
+    live = rng.choice(capacity, max(1, int(fill * capacity)), replace=False)
+    store["occ"][live] = True
+    store["khash"][live] = rng.integers(-2**62, 2**62, live.size)
+    store["key0"][live] = store["khash"][live]
+    pos = np.arange(ring)
+    # the live slice index held at each ring position: newest - ring + 2 ..
+    # newest, one per position (the position of newest - ring + 1 is free)
+    live_sid = newest - ((newest - pos) % ring)
+    kind = rng.random((live.size, ring))
+    sid = np.where(kind < 0.6, live_sid, np.where(kind < 0.8, live_sid - ring, -1))
+    sid[:, (newest + 1) % ring] = np.where(kind[:, 0] < 0.5, newest + 1 - ring, -1)
+    store["slice_id"][live] = sid
+    held = sid >= 0
+    for j, comp in enumerate(comps):
+        col = store[f"a{j}"]
+        vals = _cell_values(rng, comp, (live.size, ring), specials)
+        if j == 0:
+            vals = np.maximum(sid, 0) * width + rng.integers(0, width, (live.size, ring))
+        col[live] = np.where(held, vals, col[live])
+    store["slast"][live] = np.where(sid >= newest - ring + 2, sid, -1).max(axis=1) * width
+    store["slast"][live[store["slast"][live] < 0]] = hs.SLAST_NONE
+    store["dirty"][live] = rng.random(live.size) < 0.5
+    graves = live[rng.random(live.size) < 0.05]
+    store["occ"][graves] = False
+    store["grave"][graves] = True
+    store["slice_id"][graves] = -1
+    store["slast"][graves] = hs.SLAST_NONE
+    for j, comp in enumerate(comps):
+        store[f"a{j}"][graves] = comp.init
+    store["max_ts"] = np.array((newest - 2) * width, np.int64)
+    occupied = np.nonzero(store["occ"][:-1])[0]
+    free = np.nonzero(~(store["occ"] | store["grave"])[:-1])[0]
+    kind = rng.random(n)
+    if one_slot:
+        slots = np.full(n, occupied[0], np.int64)
+        sidx = newest - rng.integers(0, ring - 1, n)
+    else:
+        slots = occupied[(rng.zipf(1.3, n) - 1) % occupied.size]
+        new_rows = (kind < 0.10) & (free.size > 0)
+        if free.size:
+            slots[new_rows] = free[rng.integers(0, free.size, n)][new_rows]
+        # recent slices most often: duplicate writers of one ring cell
+        sidx = newest - np.minimum(rng.geometric(0.3, n) - 1, ring - 2)
+    slots[(kind >= 0.10) & (kind < 0.12)] = capacity  # overflowed
+    inactive = kind >= 0.90
+    active = ~inactive
+    slots[inactive] = capacity
+    sidx[inactive] = rng.integers(-5, 2 * newest, inactive.sum())
+    wstart = sidx * width
+    ts = wstart + rng.integers(0, width, n)
+    contribs = []
+    for j, comp in enumerate(comps):
+        v = ts.copy() if j == 0 else _cell_values(rng, comp, n, specials)
+        ident = 0 if comp.combine == "add" else comp.init
+        contribs.append(np.where(active, v, np.array(ident).astype(v.dtype)).astype(comp.dtype))
+    rows = {"slots": slots.astype(np.int32), "active": active, "wstart": wstart,
+            "contribs": contribs, "max_ts": np.array((newest - 2) * width, np.int64)}
+    return layout, store, rows
+
+
+def phase_hop_kernels(torch, seed, n=HOP_ROWS, capacity=HOP_STORE, ring=HOP_RING):
+    """The hopping path's kernels and modes against their twins at BASELINE
+    #2's shapes: K1's sliced and expansion modes, K5, K7, K6 (sliced, and
+    its plain gather at the flagship's shapes) and K4's sliced branch.
+    Returns ``{kernel: {mode: record}}``."""
+    from ksql_tpu_torch.common.batch import stable_hash64
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.ops import slicing
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 10)
+    url_hashes = np.fromiter((stable_hash64(u) for u in _urls(N_URLS)), np.int64, N_URLS)
+    recs: dict = {"row_prologue": {}, "evict": {}, "combine_windows": {}}
+    size, adv, grace = HOUR_MS, 15 * 60_000, 24 * HOUR_MS
+    spw, k = HOUR_MS // SLICE_MS, HOUR_MS // adv
+
+    # ---- K1, sliced and expansion: rows over 31 h against a batch-start
+    # clock 1 h before the newest row, so admission and horizon both cut
+    uid = rng.zipf(1.3, n).astype(np.int64) % N_URLS
+    reprs = torch.from_numpy(url_hashes[uid].reshape(1, n)).to(dev)
+    valid = torch.from_numpy(rng.random((1, n)) > 0.01).to(dev)
+    ts = torch.from_numpy(TS0 - 30 * HOUR_MS + np.sort(rng.integers(0, 31 * HOUR_MS, n))).to(dev)
+    active = torch.from_numpy(np.arange(n) < n - 17).to(dev)
+    max_ts = torch.tensor(TS0, dtype=torch.int64, device=dev)
+    for mode, hop in (("sliced", dict(advance_ms=adv, slice_width=SLICE_MS, slice_ring=ring)),
+                      ("expansion", dict(advance_ms=adv))):
+        args = (reprs, valid, ts, active, size, grace, max_ts, capacity)
+        got = hs.row_prologue(*args, **hop)
+        want = hs.row_prologue_plain(*args, **hop)
+        for nm, g, w in zip(("wstart", "knull", "active", "khash", "base", "c0"), got, want):
+            _assert_equal(torch, f"row_prologue[{mode}].{nm}", g, w)
+        kept = int(got[2].sum())
+        require(0 < kept < got[2].numel() - 17 * (k if mode == "expansion" else 1),
+                f"row_prologue[{mode}]: the cuts should drop some rows and keep others")
+        lanes = got[0].numel()
+        rec = measure(torch, "row_prologue", lambda: hs.row_prologue(*args, **hop),
+                      lambda: hs.row_prologue_plain(*args, **hop),
+                      n * (9 + 9 + 8) + 8 + lanes * 33, n * 90 + lanes * 30)
+        rec["max_abs_err"] = 0.0
+        recs["row_prologue"][mode] = rec
+        _report("2h", f"row_prologue[{mode}] ({lanes} lanes, {kept} admitted)", rec)
+
+    # ---- K5 sliced_fold on a 70%-full ring store with stale cells
+    layout, store_np, rows = make_sliced_case(hs, rng, capacity, ring, n)
+    store0 = {key: torch.from_numpy(v).to(dev) for key, v in store_np.items()}
+    slots = torch.from_numpy(rows["slots"]).to(dev)
+    act = torch.from_numpy(rows["active"]).to(dev)
+    wstart = torch.from_numpy(rows["wstart"]).to(dev)
+    contribs = [torch.from_numpy(c).to(dev) for c in rows["contribs"]]
+    scratch = slicing.init_slice_scratch(capacity, ring, spw, dev)
+    sk, sp = _clone(store0), _clone(store0)
+    slicing.sliced_fold(sk, scratch, layout, slots, wstart, contribs, act, SLICE_MS)
+    slicing.sliced_fold_plain(sp, layout, slots, wstart, contribs, act, SLICE_MS)
+    err = 0.0
+    for key in store0:
+        comp = layout.components[int(key[1:])] if key[0] == "a" and key[1:].isdigit() else None
+        rtol = 1e-12 if comp is not None and comp.dtype == "float64" else 0.0
+        err = max(err, _assert_equal(torch, f"sliced_fold.{key}", sk[key], sp[key], rtol))
+    require(bool((scratch["ring_last"] == -1).all()), "sliced_fold: ring_last not clean")
+    live = act & (slots != capacity)
+    sidx = torch.div(wstart, SLICE_MS, rounding_mode="floor")
+    cell = slots.long() * ring + torch.remainder(sidx, ring)
+    stale = int((live & (store0["slice_id"].view(-1)[cell] != sidx)).sum())
+    cells = int(torch.unique(torch.where(live, cell, capacity * ring)).numel())
+    touched = int(torch.unique(slots[live]).numel())
+    cbytes = sum(np.dtype(c.dtype).itemsize for c in layout.components)
+    work = _clone(store0)
+    rec = measure(torch, "sliced_fold",
+                  lambda: slicing.sliced_fold(work, scratch, layout, slots, wstart, contribs, act, SLICE_MS),
+                  lambda: slicing.sliced_fold_plain(work, layout, slots, wstart, contribs, act, SLICE_MS),
+                  n * (4 + 8 + 1 + cbytes) + cells * 2 * (8 + cbytes) + touched * 2 * 9,
+                  n * 40, reset=lambda: _restore(work, store0), plain_reps=10)
+    rec["max_abs_err"] = err
+    recs["sliced_fold"] = {"sliced": rec}
+    _report("2h", f"sliced_fold ({stale} stale cells reset, {cells} cells)", rec)
+
+    # ---- K7 member_lanes on the folded store (the stream time at batch
+    # start closes the oldest windows)
+    args = (slots, act, wstart, sk["max_ts"], capacity, SLICE_MS, spw, adv, size, grace, k)
+    got = slicing.member_lanes(*args, scratch)
+    want = slicing.member_lanes_plain(*args)
+    for nm, g, w in zip(("w_lane", "slot_lane", "winner"), got, want):
+        _assert_equal(torch, f"member_lanes.{nm}", g, w)
+    require(bool((scratch["lanes"] == hs.INT32_MAX).all()), "member_lanes: claims not clean")
+    w_lane, slot_lane, winner = want
+    nn = n * k
+    n_win = int(winner.sum())
+    rec = measure(torch, "member_lanes", lambda: slicing.member_lanes(*args, scratch),
+                  lambda: slicing.member_lanes_plain(*args),
+                  n * 13 + 8 + nn * 13 + n_win * 8, nn * 40, plain_reps=10)
+    rec["max_abs_err"] = 0.0
+    recs["member_lanes"] = {"sliced": rec}
+    _report("2h", f"member_lanes ({nn} lanes, {n_win} winners)", rec)
+
+    # ---- K6 combine_windows over those lanes, S = 4 slices per window
+    got = slicing.combine_windows(sk, layout, 1, slot_lane, w_lane, spw, SLICE_MS)
+    want = slicing.combine_windows_plain(sk, layout, 1, slot_lane, w_lane, spw, SLICE_MS)
+    err = max(_assert_equal(torch, f"combine_windows.{nm}", got[nm], want[nm],
+                            1e-12 if want[nm].is_floating_point() else 0.0) for nm in want)
+    ids = w_lane[:, None] + torch.arange(spw, device=dev)
+    flat = slot_lane.long()[:, None] * ring + torch.remainder(ids, ring)
+    cells = int(torch.unique(flat).numel())
+    slots6 = int(torch.unique(slot_lane).numel())
+    cols = [sk[f"a{j}"] for j in range(len(layout.components))]
+
+    def yardstick():
+        # torch.gather + sum/amax/amin over dim 1, per component (not used
+        # by the port)
+        ok = torch.gather(sk["slice_id"].view(-1), 0, flat.view(-1)).view_as(flat) == ids
+        for comp, col in zip(layout.components, cols):
+            cellv = torch.gather(col.view(-1), 0, flat.view(-1)).view_as(flat)
+            cellv = torch.where(ok, cellv, torch.tensor(comp.init, dtype=col.dtype, device=dev))
+            {"add": lambda x: x.sum(1), "min": lambda x: x.amin(1), "max": lambda x: x.amax(1)}[comp.combine](cellv)
+
+    rec = measure(torch, "combine_windows",
+                  lambda: slicing.combine_windows(sk, layout, 1, slot_lane, w_lane, spw, SLICE_MS),
+                  lambda: slicing.combine_windows_plain(sk, layout, 1, slot_lane, w_lane, spw, SLICE_MS),
+                  nn * 12 + cells * (8 + cbytes) + slots6 * 12 + nn * (cbytes + 20),
+                  nn * spw * len(layout.components) * 4, library=yardstick)
+    rec["max_abs_err"] = err
+    recs["combine_windows"]["sliced"] = rec
+    _report("2h", f"combine_windows[sliced] ({nn} lanes x {spw} slices, {cells} cells)", rec)
+
+    # ---- K6 plain gather (S = 1) at the flagship's shapes
+    flag_layout, flag_store = make_store(torch, hs, STORE, int(0.7 * STORE), rng, url_hashes, dev)
+    fslots = torch.from_numpy(rng.integers(0, STORE + 1, N_ROWS).astype(np.int32)).to(dev)
+    got = slicing.combine_windows(flag_store, flag_layout, 1, fslots)
+    want = slicing.combine_windows_plain(flag_store, flag_layout, 1, fslots)
+    for nm in want:
+        _assert_equal(torch, f"combine_windows[gather].{nm}", got[nm], want[nm])
+    fidx = fslots.long()
+    rec = measure(torch, "combine_windows",
+                  lambda: slicing.combine_windows(flag_store, flag_layout, 1, fslots),
+                  lambda: slicing.combine_windows_plain(flag_store, flag_layout, 1, fslots),
+                  N_ROWS * 4 + N_ROWS * (16 + 8 + 8 + 4) * 2, N_ROWS * 10,
+                  library=lambda: [flag_store[c].index_select(0, fidx)
+                                   for c in ("a0", "a1", "wstart", "key0", "knull")])
+    rec["max_abs_err"] = 0.0
+    recs["combine_windows"]["gather"] = rec
+    _report("2h", f"combine_windows[gather] ({N_ROWS} lanes, 2^20 slots)", rec)
+    del flag_store
+
+    # ---- K4 sliced: half the keys' newest slice left the retention
+    retention = 25 * HOUR_MS
+    ev0 = _clone(sk)
+    ev0["max_ts"].fill_(int(sk["slast"][sk["occ"]].median()) + retention)
+    ek, ep = _clone(ev0), _clone(ev0)
+    hs.evict(ek, layout, retention, sliced=True)
+    hs.evict_plain(ep, layout, retention, sliced=True)
+    for key in ev0:
+        _assert_equal(torch, f"evict[sliced].{key}", ek[key], ep[key])
+    expired = int((ev0["occ"] & ~ek["occ"]).sum())
+    require(expired > 0 and bool(ek["occ"].any()), "evict[sliced]: data should expire some slots")
+    work = _clone(ev0)
+    rec = measure(torch, "evict", lambda: hs.evict(work, layout, retention, sliced=True),
+                  lambda: hs.evict_plain(work, layout, retention, sliced=True),
+                  (capacity + 1) * 9 + expired * (3 + 8 + ring * (8 + cbytes)), (capacity + 1) * 4,
+                  reset=lambda: _restore(work, ev0))
+    rec["max_abs_err"] = 0.0
+    recs["evict"]["sliced"] = rec
+    _report("2h", f"evict[sliced] ({expired} keys expired, ring {ring})", rec)
     return recs
 
 
 # ------------------------------------------------------------- phase 3/4
-def produce_pageviews(broker, url_idx, ts):
+def produce_pageviews(broker, url_idx, ts, user_ids=None):
     from ksql_tpu_torch.runtime.topics import Record
 
     topic = broker.create_topic("page_views")
-    for u, t in zip(url_idx.tolist(), ts.tolist()):
-        value = f'{{"URL":"/page/{u}","USER_ID":{u % 1000},"VIEWTIME":{t}}}'
+    uids = (url_idx % 1000 if user_ids is None else user_ids).tolist()
+    for u, t, uid in zip(url_idx.tolist(), ts.tolist(), uids):
+        value = f'{{"URL":"/page/{u}","USER_ID":{uid},"VIEWTIME":{t}}}'
         topic.produce(Record(key=None, value=value, timestamp=t))
 
 
-def sink_records(broker):
-    return [(r.key, r.value, r.timestamp, r.window) for r in broker.topic("PV_COUNTS").all_records()]
+def sink_records(broker, topic="PV_COUNTS"):
+    return [(r.key, r.value, r.timestamp, r.window) for r in broker.topic(topic).all_records()]
 
 
 def check_counts(broker, url_idx, ts, label):
@@ -449,17 +768,73 @@ def check_counts(broker, url_idx, ts, label):
     return len(expected)
 
 
-def run_main_path(torch, plan_json, url_idx, ts, device, store, batch_seconds=None, rows=None):
-    """``run_plan`` over freshly produced page-view records.  With a
-    ``batch_seconds`` list, each micro-batch (assembly, encode, device
-    step, emit decode, produce) is timed on the host clock up to a
-    ``torch.cuda.synchronize()``."""
+#: the kernels each main-path phase must launch, with the mode (None: the
+#: kernel has one) its route runs them in
+_TUMBLING = {"row_prologue": "tumbling", "probe_insert": None, "fold_and_mark": None,
+             "combine_windows": "gather"}
+_SLICED = {"row_prologue": "sliced", "probe_insert": None, "sliced_fold": None,
+           "member_lanes": None, "combine_windows": "sliced"}
+PATH_KERNELS = {
+    "3": _TUMBLING,
+    "4": {**_TUMBLING, "evict": "tumbling"},
+    "6": _SLICED,
+    "7": {**_SLICED, "evict": "sliced"},
+    "8": {**_TUMBLING, "row_prologue": "expansion"},
+}
+#: per phase, each kernel's launches in that phase's card run, by mode
+PATH_LAUNCHES: dict = {}
+
+
+def _wrappers():
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.ops import slicing
+
+    return hs.KERNEL_WRAPPERS + slicing.KERNEL_WRAPPERS
+
+
+def zero_launches() -> None:
+    for w in _wrappers():
+        w.launches = 0
+        for m in getattr(w, "mode_launches", {}):
+            w.mode_launches[m] = 0
+
+
+def read_launches() -> dict:
+    """Each kernel's launches since :func:`zero_launches`, by mode (one
+    ``all`` entry for a kernel with one mode)."""
+    out = {}
+    for w in _wrappers():
+        modes = dict(getattr(w, "mode_launches", {}))
+        if modes:
+            require(sum(modes.values()) == w.launches,
+                    f"{w.__name__}: mode counts {modes} do not add up to {w.launches}")
+        out[w.__name__] = modes or {"all": w.launches}
+    return out
+
+
+def check_path_launches(path: str, launches: dict) -> None:
+    for name, mode in PATH_KERNELS[path].items():
+        got = launches[name]["all" if mode is None else mode]
+        require(got > 0, f"[{path}] kernel {name}{'' if mode is None else f'[{mode}]'} "
+                f"was not launched on this path's run ({launches[name]})")
+    print(f"[{path}] launches on this path's card run: {json.dumps(launches)}")
+
+
+def run_main_path(torch, plan_json, url_idx, ts, device, store, batch_seconds=None, rows=None,
+                  user_ids=None, path=None, **run_kw):
+    """``run_plan`` over freshly produced page-view records (``run_kw``:
+    ``sliced``).  With a ``batch_seconds`` list, each micro-batch
+    (assembly, encode, device step, emit decode, produce) is timed on the
+    host clock up to a ``torch.cuda.synchronize()``.  With a ``path`` (a
+    phase of ``PATH_KERNELS``), the launch counts are set to 0 just before
+    ``run_plan`` and read just after it into ``PATH_LAUNCHES[path]``, and
+    every kernel of the path must have launched."""
     from ksql_tpu_torch.runner import run_plan
     from ksql_tpu_torch.runtime.device_executor import TorchDeviceExecutor
     from ksql_tpu_torch.runtime.topics import Broker
 
     broker = Broker()
-    produce_pageviews(broker, url_idx, ts)
+    produce_pageviews(broker, url_idx, ts, user_ids)
     run_batch = TorchDeviceExecutor._run_batch
     if batch_seconds is not None:
         def timed_batch(self):
@@ -472,13 +847,20 @@ def run_main_path(torch, plan_json, url_idx, ts, device, store, batch_seconds=No
 
         TorchDeviceExecutor._run_batch = timed_batch
     try:
+        if path is not None:
+            zero_launches()
         t0 = time.perf_counter()
-        ex = run_plan(plan_json, broker, device=device, capacity=rows or N_ROWS, store_capacity=store)
+        ex = run_plan(plan_json, broker, device=device, capacity=rows or N_ROWS,
+                      store_capacity=store, **run_kw)
         if device != "cpu":
             torch.cuda.synchronize()
-        return broker, ex, time.perf_counter() - t0
+        secs = time.perf_counter() - t0
     finally:
         TorchDeviceExecutor._run_batch = run_batch
+    if path is not None:
+        PATH_LAUNCHES[path] = read_launches()
+        check_path_launches(path, PATH_LAUNCHES[path])
+    return broker, ex, secs
 
 
 def phase_e2e(torch, plan_json, seed):
@@ -488,7 +870,7 @@ def phase_e2e(torch, plan_json, seed):
     ts = TS0 + np.arange(n, dtype=np.int64) * 17
     torch.cuda.reset_peak_memory_stats()
     batch_s = []
-    broker, ex, secs = run_main_path(torch, plan_json, url_idx, ts, DEVICE, STORE, batch_s)
+    broker, ex, secs = run_main_path(torch, plan_json, url_idx, ts, DEVICE, STORE, batch_s, path="3")
     peak = torch.cuda.max_memory_allocated()
     require(int(ex.query.state["overflow"]) == 0, "e2e: store overflowed")
     keys = check_counts(broker, url_idx, ts, "e2e")
@@ -502,11 +884,11 @@ def phase_e2e(torch, plan_json, seed):
     return dict(events_per_s=n / secs, p50_ms=p50, p99_ms=p99, peak_bytes=peak)
 
 
-def phase_breakdown(torch, plan_json, seed, n_batches=4):
-    """Where an e2e batch's time goes, over the first ``n_batches`` of the
-    e2e traffic: host stages timed by wrapping the port's functions (each
-    device step synchronized, so its device work is charged to it — the
-    pipelined overlap is off here), and the card's busy time from
+def phase_breakdown(torch, plan_json, url_idx, ts, rows, tag, user_ids=None, **run_kw):
+    """Where an e2e batch's time goes, over the given records (a few
+    batches of ``rows``): host stages timed by wrapping the port's functions
+    (each device step synchronized, so its device work is charged to it —
+    the pipelined overlap is off here), and the card's busy time from
     torch.profiler (kernels and copies) against the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -516,10 +898,7 @@ def phase_breakdown(torch, plan_json, seed, n_batches=4):
     from ksql_tpu_torch.runtime.lowering import TorchCompiledQuery
     from ksql_tpu_torch.runtime.sink import SinkWriter
 
-    rng = np.random.default_rng(seed + 1)
-    n = N_BATCHES * N_ROWS
-    url_idx = (rng.zipf(1.3, size=n).astype(np.int64) % N_URLS)[: n_batches * N_ROWS]
-    ts = TS0 + np.arange(url_idx.size, dtype=np.int64) * 17
+    n_batches = -(-url_idx.size // rows)
     acc: dict = {}
 
     def timed(stage, fn, sync=False):
@@ -549,14 +928,15 @@ def phase_breakdown(torch, plan_json, seed, n_batches=4):
         HostBatch.from_rows = staticmethod(timed("batch assembly", HostBatch.from_rows))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _broker, _ex, wall = run_main_path(torch, plan_json, url_idx, ts, DEVICE, STORE)
+            _broker, _ex, wall = run_main_path(torch, plan_json, url_idx, ts, DEVICE, STORE,
+                                               rows=rows, user_ids=user_ids, **run_kw)
     finally:
         for obj, name, orig in saved:
             setattr(obj, name, orig)
     busy = sum(_device_us(e) for e in prof.key_averages()) / 1e6
     per = {k: v / n_batches * 1e3 for k, v in sorted(acc.items(), key=lambda kv: -kv[1])}
     per["other host"] = wall / n_batches * 1e3 - sum(per.values())
-    print(f"[3b] breakdown over {n_batches} batches of {N_ROWS} (ms per batch): "
+    print(f"[{tag}] breakdown over {n_batches} batches of {rows} (ms per batch): "
           + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
           + f"; card busy {busy / wall * 100:.2f}% of {wall:.3f} s wall (idle {100 - busy / wall * 100:.2f}%)")
     return {"ms_per_batch": per, "device_busy_share": busy / wall}
@@ -578,7 +958,8 @@ def phase_growth(torch, plan_json, seed):
     pool = max(1, n // 48 // GROWTH_REPEATS)
     url_idx = hour * pool + rng.integers(0, pool, n)
     torch.cuda.reset_peak_memory_stats()
-    broker, ex, secs = run_main_path(torch, plan_json, url_idx, ts, DEVICE, STORE, rows=GROWTH_ROWS)
+    broker, ex, secs = run_main_path(torch, plan_json, url_idx, ts, DEVICE, STORE, rows=GROWTH_ROWS,
+                                     path="4")
     q = ex.query
     require(q.evictions >= 1, "growth: the retention pass never ran")
     require(q.grows >= 1 and q.store_capacity == 2 * STORE, f"growth: store at {q.store_capacity} slots")
@@ -591,13 +972,177 @@ def phase_growth(torch, plan_json, seed):
           f"{torch.cuda.max_memory_allocated()} B; counts equal dict reference, overflow 0")
 
 
+# ------------------------------------------------------------- phase 6-8
+HOP_BATCHES = 16
+LONG_BATCHES = 72  # past EVICT_INTERVAL (64): the cadence retention pass runs
+HOT_URLS = 500
+POOL_URLS = 2000
+
+
+def hop_traffic(seed, n_batches=HOP_BATCHES):
+    """``bench.py:119-146`` at BASELINE #2's batch: 50,000 URLs drawn
+    zipf(1.3), USER_ID uniform in 1..999, records 17 ms apart."""
+    rng = np.random.default_rng(seed + 3)
+    n = n_batches * HOP_ROWS
+    url_idx = rng.zipf(1.3, size=n).astype(np.int64) % N_URLS
+    return url_idx, rng.integers(1, 1000, n), TS0 + np.arange(n, dtype=np.int64) * 17
+
+
+def hop_reference(url_idx, uid, ts, size=HOUR_MS, adv=15 * 60_000):
+    """SUM/AVG/MIN/MAX of USER_ID per (URL, hopping window), by numpy."""
+    k = -(-size // adv)
+    first = ts - ts % adv
+    starts = np.concatenate([first - h * adv for h in range(k)])
+    urls, uids, tts = np.tile(url_idx, k), np.tile(uid, k), np.tile(ts, k)
+    keep = (starts >= 0) & (starts + size > tts)
+    urls, uids, starts = urls[keep], uids[keep], starts[keep]
+    order = np.lexsort((starts, urls))
+    urls, uids, starts = urls[order], uids[order], starts[order]
+    head = np.ones(urls.size, bool)
+    head[1:] = (urls[1:] != urls[:-1]) | (starts[1:] != starts[:-1])
+    idx = np.nonzero(head)[0]
+    sums = np.add.reduceat(uids, idx)
+    cnts = np.diff(np.append(idx, urls.size))
+    mins = np.minimum.reduceat(uids, idx)
+    maxs = np.maximum.reduceat(uids, idx)
+    return {(f"/page/{u}", int(w)): (int(sm), float(np.float64(sm) / c), int(mn), int(mx))
+            for u, w, sm, c, mn, mx in zip(urls[idx].tolist(), starts[idx].tolist(),
+                                           sums.tolist(), cnts.tolist(), mins.tolist(), maxs.tolist())}
+
+
+def last_hop_values(broker):
+    last = {}
+    for key, value, _ts, window in sink_records(broker, "PV_STATS"):
+        v = json.loads(value)
+        last[(key, window[0])] = (v["S"], v["A"], v["MN"], v["MX"])
+    return last
+
+
+def check_hop_values(broker, url_idx, uid, ts, label):
+    last = last_hop_values(broker)
+    want = hop_reference(url_idx, uid, ts)
+    require(last == want, f"{label}: final SUM/AVG/MIN/MAX differ from the dict reference "
+            f"({len(last)} sink keys vs {len(want)} expected, "
+            f"{sum(last.get(k) != v for k, v in want.items())} differ)")
+    return last
+
+
+def phase_hop_e2e(torch, plan_json, seed, sliced, tag):
+    """BASELINE #2 end to end through ``run_plan``: the sliced route
+    (``sliced=None``) or the k-fold expansion (``sliced=False``)."""
+    url_idx, uid, ts = hop_traffic(seed)
+    n = url_idx.size
+    torch.cuda.reset_peak_memory_stats()
+    batch_s = []
+    broker, ex, secs = run_main_path(torch, plan_json, url_idx, ts, DEVICE, STORE, batch_s,
+                                     rows=HOP_ROWS, user_ids=uid, path=tag, sliced=sliced)
+    peak = torch.cuda.max_memory_allocated()
+    q = ex.query
+    if sliced is None:
+        require(q.sliced and q.slice_ring == HOP_RING and q.hop_k == 4,
+                f"{tag}: route sliced={q.sliced} ring={q.slice_ring} k={q.hop_k}")
+    else:
+        require(not q.sliced and q.expansion == 4 and q.windowing_fallback is not None,
+                f"{tag}: expected the expansion route")
+    require(int(q.state["overflow"]) == 0, f"{tag}: store overflowed")
+    last = check_hop_values(broker, url_idx, uid, ts, tag)
+    cpu_broker, _ex, cpu_secs = run_main_path(torch, plan_json, url_idx, ts, "cpu", STORE,
+                                              rows=HOP_ROWS, user_ids=uid, sliced=sliced)
+    require(sink_records(broker, "PV_STATS") == sink_records(cpu_broker, "PV_STATS"),
+            f"{tag}: card sink differs from the CPU run")
+    p50, p99 = np.percentile(np.array(batch_s) * 1e3, [50, 99])
+    print(f"[{tag}] BASELINE #2 {'sliced' if q.sliced else 'expansion'}: {n} events, "
+          f"{len(last)} (URL, window) keys, {len(sink_records(broker, 'PV_STATS'))} sink records; "
+          f"card run {secs:.3f} s = {n / secs:.1f} events/s; batch p50 {p50:.3f} ms p99 {p99:.3f} ms "
+          f"over {len(batch_s)} batches; store {q.store_capacity} slots after {q.grows} grows "
+          f"(rebuild s {[round(x, 4) for x in q.rebuild_seconds]}); peak device memory {peak} B; "
+          f"CPU twin run {cpu_secs:.3f} s; sink equals CPU run, values equal dict reference, overflow 0")
+    return last, dict(events_per_s=n / secs, p50_ms=p50, p99_ms=p99, peak_bytes=peak,
+                      grows=q.grows, store_slots=q.store_capacity)
+
+
+def phase_hop_long(torch, plan_json, seed):
+    """72 x 16,384 records over 48 h (a batch spans 40 min): 500 hot URLs in
+    every hour, so their ring cells wrap after 25.5 h, and an hour-local
+    pool of 2,000 URLs per hour that goes cold and passes the 25 h
+    retention.  The ring must be resized (more than 25 h of event time
+    live), the store must grow, and the cadence retention pass at batch
+    64 (~42.7 h) must free the cold pools' keys."""
+    from ksql_tpu_torch.runtime.lowering import TorchCompiledQuery
+
+    rng = np.random.default_rng(seed + 4)
+    n = LONG_BATCHES * HOP_ROWS
+    ts = TS0 - TS0 % HOUR_MS + (np.arange(n, dtype=np.int64) * (48 * HOUR_MS)) // n
+    hour = (ts - ts[0]) // HOUR_MS
+    hot = rng.random(n) < 0.25
+    url_idx = np.where(hot, rng.integers(0, HOT_URLS, n),
+                       HOT_URLS + hour * POOL_URLS + rng.integers(0, POOL_URLS, n))
+    uid = rng.integers(1, 1000, n)
+    freed = []
+    evict = TorchCompiledQuery._evict
+
+    def counting_evict(self):
+        before = int(self.state["occ"].sum())
+        evict(self)
+        freed.append(before - int(self.state["occ"].sum()))
+
+    TorchCompiledQuery._evict = counting_evict
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        broker, ex, secs = run_main_path(torch, plan_json, url_idx, ts, DEVICE, STORE,
+                                         rows=HOP_ROWS, user_ids=uid, path="7")
+    finally:
+        TorchCompiledQuery._evict = evict
+    q = ex.query
+    require(q.sliced, "long span: expected the sliced route")
+    require(q.evictions >= 1 and max(freed) > 0, f"long span: no retention pass freed keys ({freed})")
+    require(q.ring_resizes >= 1, f"long span: the ring was never resized (ring {q.slice_ring})")
+    require(q.grows >= 1, "long span: the store never grew")
+    require(int(q.state["overflow"]) == 0, "long span: store overflowed")
+    last = check_hop_values(broker, url_idx, uid, ts, "long span")
+    print(f"[7] hopping long span: {n} events over 48 h in {secs:.3f} s = {n / secs:.1f} events/s; "
+          f"{len(last)} (URL, window) keys; {q.evictions} retention passes freeing {freed} keys; "
+          f"{q.compactions} compactions, {q.grows} grows -> {q.store_capacity} slots "
+          f"(rebuild s {[round(x, 4) for x in q.rebuild_seconds]}); {q.ring_resizes} ring regrows -> "
+          f"{q.slice_ring} slices (regrow s {[round(x, 4) for x in q.ring_seconds]}); peak device "
+          f"memory {torch.cuda.max_memory_allocated()} B; values equal dict reference, overflow 0")
+    return dict(events_per_s=n / secs, freed=freed, grows=q.grows, store_slots=q.store_capacity,
+                ring=q.slice_ring, ring_seconds=q.ring_seconds, rebuild_seconds=q.rebuild_seconds)
+
+
 # ------------------------------------------------------------------ main
 REPLACES = {
-    "row_prologue": "ksql_tpu/ops/hash_store.py:48 (mix64), :58 (combine_hash); ksql_tpu/runtime/lowering.py:3802 (pre_exchange)",
+    "row_prologue": "ksql_tpu/ops/hash_store.py:48 (mix64), :58 (combine_hash); ksql_tpu/runtime/lowering.py:3802 (pre_exchange); ksql_tpu/ops/window.py:63 (hopping_starts), :82 (expand)",
     "probe_insert": "ksql_tpu/ops/hash_store.py:126 (probe_insert)",
     "fold_and_mark": "ksql_tpu/ops/hash_store.py:502 (scatter_combine), :567 (winners_per_slot)",
     "evict": "ksql_tpu/runtime/lowering.py:4239 (_trace_evict)",
+    "sliced_fold": "ksql_tpu/runtime/lowering.py:1988 (_sliced_scatter)",
+    "combine_windows": "ksql_tpu/runtime/lowering.py:2036 (_combine_windows), :4073 (_finalized_env gather)",
+    "member_lanes": "ksql_tpu/runtime/lowering.py:2116 (_sliced_member_emits)",
 }
+#: the record each kernel's JSON entry carries; the other modes ride along
+MAIN_MODE = {"row_prologue": "tumbling", "evict": "tumbling", "combine_windows": "sliced",
+             "sliced_fold": "sliced", "member_lanes": "sliced"}
+
+
+def kernel_records(wrappers, recs) -> list:
+    """The ``kernels`` line: per kernel its main mode's phase-2 record, its
+    launches over the main-path phases (in all, by mode and by phase) and
+    its other modes' records, each with its launches."""
+    kernels = []
+    for w in wrappers:
+        name = w.__name__
+        main_mode = MAIN_MODE.get(name, "tumbling")
+        by_path = {p: PATH_LAUNCHES[p][name] for p in sorted(PATH_LAUNCHES)}
+        by_mode = {m: sum(c[m] for c in by_path.values()) for m in by_path[min(by_path)]}
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"ksql_tpu_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": sum(by_mode.values()),
+            **recs[name][main_mode], "mode": main_mode,
+            "modes": {m: {**r, "launches": by_mode[m]} for m, r in recs[name].items() if m != main_mode},
+            "launches_by_mode": by_mode, "launches_by_path": by_path,
+        })
+    return kernels
 
 
 def main() -> int:
@@ -612,31 +1157,51 @@ def main() -> int:
         fail("no CUDA device: this check runs only on the card")
     try:
         from ksql_tpu_torch.ops import hash_store as hs
+        from ksql_tpu_torch.ops import slicing
     except ImportError as e:
         fail(f"run from the root of a checkout ({e})")
+    t_start = time.perf_counter()
     kind, smi = phase_device_and_build(torch)
-    recs = phase_kernels(torch, args.seed)
+    recs = {name: {"tumbling": rec} for name, rec in phase_kernels(torch, args.seed).items()}
+    for name, modes in phase_hop_kernels(torch, args.seed).items():
+        recs.setdefault(name, {}).update(modes)
     with open("ksql_tpu_torch/plans/pv_counts_tumbling.json") as f:
         plan_json = json.load(f)
-    hs.reset_launch_counts()
+    with open("ksql_tpu_torch/plans/pv_stats_hopping.json") as f:
+        hop_json = json.load(f)
+    wrappers = hs.KERNEL_WRAPPERS + slicing.KERNEL_WRAPPERS
     e2e = phase_e2e(torch, plan_json, args.seed)
     phase_growth(torch, plan_json, args.seed)
-    launches = {w.__name__: w.launches for w in hs.KERNEL_WRAPPERS}
-    print(f"[5] launches on the main path: {launches}")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the main path")
-    e2e["breakdown"] = phase_breakdown(torch, plan_json, args.seed)
-    kernels = [
-        {"name": name, "route": "cuda", "source": f"ksql_tpu_torch/csrc/{name}.cu",
-         "replaces": REPLACES[name], "launches": launches[name], **recs[name]}
-        for name in ("row_prologue", "probe_insert", "fold_and_mark", "evict")
-    ]
+    sliced_last, e2e["hopping_sliced"] = phase_hop_e2e(torch, hop_json, args.seed, None, "6")
+    e2e["hopping_long"] = phase_hop_long(torch, hop_json, args.seed)
+    exp_last, e2e["hopping_expansion"] = phase_hop_e2e(torch, hop_json, args.seed, False, "8")
+    require(exp_last == sliced_last, "8: the expansion route's final values differ from the sliced route's")
+    require(sorted(PATH_LAUNCHES) == sorted(PATH_KERNELS), f"paths run: {sorted(PATH_LAUNCHES)}")
+    for w in wrappers:  # every kernel of K1-K7 is on some path, in every mode
+        for mode in w.__dict__.get("mode_launches", {"all": 0}):
+            require(sum(PATH_LAUNCHES[p][w.__name__][mode] for p in PATH_LAUNCHES) > 0,
+                    f"kernel {w.__name__}[{mode}] was launched on no path")
+    e2e["breakdown"] = phase_breakdown(
+        torch, plan_json, *_flagship_head(args.seed), N_ROWS, "3b")
+    url_idx, uid, ts = hop_traffic(args.seed, n_batches=8)
+    e2e["hopping_breakdown"] = phase_breakdown(
+        torch, hop_json, url_idx, ts, HOP_ROWS, "6b", user_ids=uid)
+    kernels = kernel_records(wrappers, recs)
     print(f"e2e: {json.dumps(e2e)}")
+    print(f"total seconds {time.perf_counter() - t_start:.1f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _flagship_head(seed, n_batches=4):
+    """The first batches of the flagship e2e traffic (phase 3)."""
+    rng = np.random.default_rng(seed + 1)
+    n = N_BATCHES * N_ROWS
+    url_idx = (rng.zipf(1.3, size=n).astype(np.int64) % N_URLS)[: n_batches * N_ROWS]
+    return url_idx, TS0 + np.arange(url_idx.size, dtype=np.int64) * 17
 
 
 if __name__ == "__main__":

@@ -33,6 +33,103 @@ enum Dtype : int64_t { kInt32 = 0, kInt64 = 1, kFloat64 = 2 };
 // combine codes (ops/hash_store.py:_COMBINE_CODES)
 enum Combine : int64_t { kAdd = 0, kMin = 1, kMax = 2 };
 
+// int64 arithmetic that wraps like XLA's (signed overflow is undefined in C++)
+__device__ __forceinline__ int64_t wadd(int64_t a, int64_t b) {
+  return static_cast<int64_t>(static_cast<uint64_t>(a) + static_cast<uint64_t>(b));
+}
+__device__ __forceinline__ int64_t wmul(int64_t a, int64_t b) {
+  return static_cast<int64_t>(static_cast<uint64_t>(a) * static_cast<uint64_t>(b));
+}
+
+// jnp.remainder / floor division for a positive divisor (C++ truncates)
+__device__ __forceinline__ int64_t floor_mod(int64_t a, int64_t b) {
+  const int64_t r = a % b;
+  return r < 0 ? r + b : r;
+}
+__device__ __forceinline__ int64_t floor_div(int64_t a, int64_t b) {
+  const int64_t q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+// XLA's float min/max: NaN wins, -0.0 is below +0.0 (fmin/fmax differ)
+__device__ __forceinline__ double xla_min(double a, double b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  if (a == b) return signbit(a) ? a : b;
+  return a < b ? a : b;
+}
+__device__ __forceinline__ double xla_max(double a, double b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  if (a == b) return signbit(a) ? b : a;
+  return a > b ? a : b;
+}
+
+// float64 min/max fold into device memory: a CAS loop keeping XLA's order
+__device__ __forceinline__ void atomic_fold_f64(double* p, double v, bool is_min) {
+  auto* a = reinterpret_cast<unsigned long long*>(p);
+  unsigned long long old = *a, assumed;
+  do {
+    assumed = old;
+    const double cur = __longlong_as_double(static_cast<long long>(assumed));
+    const double nv = is_min ? xla_min(cur, v) : xla_max(cur, v);
+    const unsigned long long bits =
+        static_cast<unsigned long long>(__double_as_longlong(nv));
+    if (bits == assumed) return;
+    old = atomicCAS(a, assumed, bits);
+  } while (old != assumed);
+}
+
+// Fold row `row` of a contribution column into cell `cell` of a store
+// column, atomically; `kind` is combine * 3 + dtype.  int64 add wraps as
+// two's complement (unsigned long long); int32/int64 min/max use the native
+// atomics; float64 add is atomicAdd(double*), whose order is not fixed.
+__device__ __forceinline__ void atomic_fold(void* col, int64_t cell,
+                                            const void* contrib, int64_t row,
+                                            int64_t kind) {
+  const int64_t combine = kind / 3, dtype = kind % 3;
+  if (dtype == kInt64) {
+    const long long v = static_cast<const long long*>(contrib)[row];
+    long long* p = static_cast<long long*>(col) + cell;
+    if (combine == kAdd) {
+      atomicAdd(reinterpret_cast<unsigned long long*>(p),
+                static_cast<unsigned long long>(v));
+    } else if (combine == kMin) {
+      atomicMin(p, v);
+    } else {
+      atomicMax(p, v);
+    }
+  } else if (dtype == kInt32) {
+    const int v = static_cast<const int*>(contrib)[row];
+    int* p = static_cast<int*>(col) + cell;
+    if (combine == kAdd) {
+      atomicAdd(p, v);
+    } else if (combine == kMin) {
+      atomicMin(p, v);
+    } else {
+      atomicMax(p, v);
+    }
+  } else {
+    const double v = static_cast<const double*>(contrib)[row];
+    double* p = static_cast<double*>(col) + cell;
+    if (combine == kAdd) {
+      atomicAdd(p, v);
+    } else {
+      atomic_fold_f64(p, v, combine == kMin);
+    }
+  }
+}
+
+// Write a component's init value (its bit pattern) into one cell.
+__device__ __forceinline__ void store_init(void* col, int64_t cell,
+                                           int64_t dtype, int64_t bits) {
+  if (dtype == kInt32) {
+    static_cast<int32_t*>(col)[cell] = static_cast<int32_t>(bits);
+  } else {
+    static_cast<int64_t*>(col)[cell] = bits;  // int64 / float64 bits
+  }
+}
+
 inline int blocks_for(int64_t n, int threads) {
   int64_t b = (n + threads - 1) / threads;
   return static_cast<int>(b < 1 ? 1 : b);

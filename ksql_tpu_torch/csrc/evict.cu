@@ -1,15 +1,22 @@
 // K4 evict: the windowed store's retention pass.
 //
-// Replaces runtime/lowering.py:_trace_evict (B7), its non-sliced,
-// non-suppress branch: a slot whose window start plus retention is below
-// the stream time (read from device memory) is expired — occ off, grave on,
-// dirty off, and every aggregate component reset to its init value.  The
-// pass runs every 64 batches and when the store passes its load threshold.
+// Replaces runtime/lowering.py:_trace_evict (B7), its non-suppress
+// branches.  A windowed slot whose window start plus retention is below the
+// stream time (read from device memory) is expired: occ off, grave on,
+// dirty off, and every aggregate component reset to its init value.  On a
+// sliced store (ring > 0: one slot per group key, a ring of slice partials
+// per component) a slot expires once its newest slice start `slast` left
+// the retention; its `slast` resets to -2^62, its `slice_id` row to -1 and
+// every ring cell of every component to its init.  The pass runs every 64
+// batches and when the store passes its load threshold.
 //
 // Bound: memory.  One elementwise pass over C+1 slots: it reads occ and
-// wstart (9 bytes a slot) and writes only the expired slots' cells, so at
-// C = 2^20 the floor is about 9.4 MB (~2.8 us at 3.35 TB/s) plus 3 + the
-// component bytes per expired slot.  One thread per slot, coalesced.
+// wstart (or slast), 9 bytes a slot, and writes only the expired slots'
+// cells, so at C = 2^20 the floor is about 9.4 MB (~2.8 us at 3.35 TB/s)
+// plus 3 + the component bytes per expired slot (times the ring when
+// sliced: 8 + 56 bytes per ring cell at BASELINE #2's layout).  One thread
+// per slot, coalesced on the slot columns; an expired sliced slot's thread
+// writes its ring rows alone (contiguous, one slot's row per component).
 #include "common.cuh"
 
 namespace {
@@ -24,21 +31,25 @@ struct Comps {
 __global__ void evict_kernel(Comps c, bool* __restrict__ occ,
                              bool* __restrict__ grave, bool* __restrict__ dirty,
                              const int64_t* __restrict__ wstart,
+                             int64_t* __restrict__ slast,
+                             int64_t* __restrict__ slice_id, int64_t ring,
                              const int64_t* __restrict__ max_ts,
                              int64_t retention, int64_t slots) {
   int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (s >= slots || !occ[s]) return;
-  const int64_t horizon = static_cast<int64_t>(
-      static_cast<uint64_t>(wstart[s]) + static_cast<uint64_t>(retention));
-  if (!(horizon < *max_ts)) return;
+  const int64_t start = ring > 0 ? slast[s] : wstart[s];
+  if (!(ksql::wadd(start, retention) < *max_ts)) return;
   occ[s] = false;
   grave[s] = true;
   dirty[s] = false;
+  const int64_t cells = ring > 0 ? ring : 1;
+  if (ring > 0) {
+    slast[s] = -(1LL << 62);
+    for (int64_t p = 0; p < ring; ++p) slice_id[s * ring + p] = -1;
+  }
   for (int64_t j = 0; j < c.count; ++j) {
-    if (c.dtype[j] == ksql::kInt32) {
-      static_cast<int32_t*>(c.col[j])[s] = static_cast<int32_t>(c.init_bits[j]);
-    } else {
-      static_cast<int64_t*>(c.col[j])[s] = c.init_bits[j];  // int64 / float64 bits
+    for (int64_t p = 0; p < cells; ++p) {
+      ksql::store_init(c.col[j], s * cells + p, c.dtype[j], c.init_bits[j]);
     }
   }
 }
@@ -47,6 +58,7 @@ __global__ void evict_kernel(Comps c, bool* __restrict__ occ,
 
 extern "C" int ksql_evict(const int64_t* comps, int64_t count, void* occ,
                           void* grave, void* dirty, const void* wstart,
+                          void* slast, void* slice_id, int64_t ring,
                           const void* max_ts, int64_t retention,
                           int64_t capacity, void* stream) {
   if (count > KSQL_MAX_COMPS) return static_cast<int>(cudaErrorInvalidValue);
@@ -63,6 +75,7 @@ extern "C" int ksql_evict(const int64_t* comps, int64_t count, void* occ,
                  static_cast<cudaStream_t>(stream)>>>(
       c, static_cast<bool*>(occ), static_cast<bool*>(grave),
       static_cast<bool*>(dirty), static_cast<const int64_t*>(wstart),
+      static_cast<int64_t*>(slast), static_cast<int64_t*>(slice_id), ring,
       static_cast<const int64_t*>(max_ts), retention, slots);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,14 +3,14 @@
 //
 // Replaces ops/hash_store.py:scatter_combine (B3: the add/min/max branches
 // plus the `dirty` marking) and ops/hash_store.py:winners_per_slot (B4).
-// Phase 1, one thread per active row: fold each component with an atomic —
-// int64 add as unsigned long long (wraps like two's complement), int32/int64
-// min/max with the native atomics, float64 add with atomicAdd(double*), and
-// float64 min/max with a CAS loop that keeps XLA's semantics (NaN wins;
-// -0.0 is below +0.0), which fmin/fmax would not; then dirty[slot] and
-// atomicMin(first[slot], row).  Phase 2: a row wins iff first[slot] is its
-// own index; the winner resets first[slot] (INT32_MAX when clean), and
-// dirty[C] is cleared.  Inactive rows carry identity contributions (every
+// Phase 1, one thread per active row: fold each component with an atomic
+// (common.cuh atomic_fold: int64 add as unsigned long long, which wraps like
+// two's complement; int32/int64 min/max with the native atomics; float64 add
+// with atomicAdd(double*); float64 min/max with a CAS loop that keeps XLA's
+// semantics — NaN wins, -0.0 is below +0.0 — which fmin/fmax would not);
+// then dirty[slot] and atomicMin(first[slot], row).  Phase 2: a row wins
+// iff first[slot] is its own index; the winner resets first[slot]
+// (INT32_MAX when clean), and dirty[C] is cleared.  Inactive rows carry identity contributions (every
 // device_aggs contrib masks them), so skipping them leaves the dump slot
 // exactly as the reference's full scatter does.
 //
@@ -29,34 +29,6 @@ struct Comps {
   int64_t count;
 };
 
-__device__ __forceinline__ double xla_min(double a, double b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  if (a == b) return signbit(a) ? a : b;
-  return a < b ? a : b;
-}
-
-__device__ __forceinline__ double xla_max(double a, double b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  if (a == b) return signbit(a) ? b : a;
-  return a > b ? a : b;
-}
-
-__device__ __forceinline__ void fold_f64(double* p, double v, bool is_min) {
-  auto* a = reinterpret_cast<unsigned long long*>(p);
-  unsigned long long old = *a, assumed;
-  do {
-    assumed = old;
-    const double cur = __longlong_as_double(static_cast<long long>(assumed));
-    const double nv = is_min ? xla_min(cur, v) : xla_max(cur, v);
-    const unsigned long long bits =
-        static_cast<unsigned long long>(__double_as_longlong(nv));
-    if (bits == assumed) return;
-    old = atomicCAS(a, assumed, bits);
-  } while (old != assumed);
-}
-
 __global__ void fold_kernel(Comps c, const int32_t* __restrict__ slots,
                             const bool* __restrict__ active, int64_t n,
                             int32_t capacity, bool* __restrict__ dirty,
@@ -65,37 +37,7 @@ __global__ void fold_kernel(Comps c, const int32_t* __restrict__ slots,
   if (i >= n || !active[i]) return;
   const int32_t s = slots[i];
   for (int64_t j = 0; j < c.count; ++j) {
-    const int64_t combine = c.kind[j] / 3, dtype = c.kind[j] % 3;
-    if (dtype == ksql::kInt64) {
-      const long long v = static_cast<const long long*>(c.contrib[j])[i];
-      long long* p = static_cast<long long*>(c.col[j]) + s;
-      if (combine == ksql::kAdd) {
-        atomicAdd(reinterpret_cast<unsigned long long*>(p),
-                  static_cast<unsigned long long>(v));
-      } else if (combine == ksql::kMin) {
-        atomicMin(p, v);
-      } else {
-        atomicMax(p, v);
-      }
-    } else if (dtype == ksql::kInt32) {
-      const int v = static_cast<const int*>(c.contrib[j])[i];
-      int* p = static_cast<int*>(c.col[j]) + s;
-      if (combine == ksql::kAdd) {
-        atomicAdd(p, v);
-      } else if (combine == ksql::kMin) {
-        atomicMin(p, v);
-      } else {
-        atomicMax(p, v);
-      }
-    } else {
-      const double v = static_cast<const double*>(c.contrib[j])[i];
-      double* p = static_cast<double*>(c.col[j]) + s;
-      if (combine == ksql::kAdd) {
-        atomicAdd(p, v);
-      } else {
-        fold_f64(p, v, combine == ksql::kMin);
-      }
-    }
+    ksql::atomic_fold(c.col[j], s, c.contrib[j], i, c.kind[j]);
   }
   if (s != capacity) {
     dirty[s] = true;

@@ -38,7 +38,8 @@ _I = ctypes.c_int64
 SIGNATURES: Dict[str, Tuple[str, List]] = {
     "row_prologue": (
         "ksql_row_prologue",
-        [_P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+        [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P,
+         _P, _P, _P, _P, _P, _P, _P],
     ),
     "probe_insert": (
         "ksql_probe_insert",
@@ -51,7 +52,19 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
     ),
     "evict": (
         "ksql_evict",
-        [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P],
+        [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
+    ),
+    "sliced_fold": (
+        "ksql_sliced_fold",
+        [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
+    "combine_windows": (
+        "ksql_combine_windows",
+        [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
+    "member_lanes": (
+        "ksql_member_lanes",
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P],
     ),
 }
 KERNELS = tuple(SIGNATURES)

@@ -8,17 +8,21 @@ absorbs writes from inactive and overflowed rows):
 * ``khash`` int64, ``wstart`` int64 — probe identity
 * ``key<i>`` int64, ``knull`` int32 — key reprs and null bits for emission
 * ``dirty`` bool, ``max_ts`` int64 scalar, ``overflow`` int64 scalar
-* ``a<j>`` — aggregate components (``ops/device_aggs.py``)
+* ``a<j>`` — aggregate components (``ops/device_aggs.py``); a sliced
+  hopping store widens each to ``[capacity + 1, ring]`` and adds
+  ``slice_id`` and ``slast`` (``ops/slicing.py``)
 
 The store is updated IN PLACE (the reference's functions return a new
 store; PyTorch lets the port keep one set of device buffers).
 
 Four hand-written CUDA kernels (``csrc/``) carry the per-batch work:
 ``row_prologue`` (K1), ``probe_insert`` (K2), ``fold_and_mark`` (K3) and
-``evict`` (K4).  Each wrapper below launches its kernel for CUDA tensors
-and counts the launch in ``<wrapper>.launches``; for CPU tensors it runs
-the plain torch twin beside it (``*_plain``), which is also the kernel's
-oracle on the card.  There is no fallback: a CUDA tensor gets the kernel
+``evict`` (K4); the sliced route's K5-K7 live in ``ops/slicing.py``.
+Each wrapper below launches its kernel for CUDA tensors and counts the
+launch in ``<wrapper>.launches`` (a wrapper with several modes also in
+``<wrapper>.mode_launches[mode]``); for CPU tensors it runs the plain torch
+twin beside it (``*_plain``), which is also the kernel's oracle on the
+card.  There is no fallback: a CUDA tensor gets the kernel
 or an exception.
 
 ``np_mix64`` and ``host_insert`` are numpy copies: the host rebuild on grow.
@@ -33,7 +37,13 @@ import numpy as np
 import torch
 
 from ksql_tpu_torch.ops import cuda
-from ksql_tpu_torch.ops.window import tumbling_starts
+from ksql_tpu_torch.ops.window import (
+    expand,
+    hopping_expansion,
+    hopping_starts,
+    slice_starts,
+    tumbling_starts,
+)
 
 MAX_PROBES = 32
 INT32_MAX = np.iinfo(np.int32).max
@@ -56,6 +66,9 @@ class AggComponent:
     combine: str  # 'add' | 'min' | 'max'
     dtype: str  # numpy dtype name
     init: float  # fill value for empty slots
+    #: cells per slot: 1, or the slice ring of a sliced hopping store
+    #: (a ``[capacity + 1, width]`` column)
+    width: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,8 +104,9 @@ def init_store(layout: StoreLayout, device) -> Dict[str, torch.Tensor]:
     for i in range(layout.num_keys):
         store[f"key{i}"] = z(torch.int64)
     for j, comp in enumerate(layout.components):
+        shape = (c1,) if comp.width == 1 else (c1, comp.width)
         store[f"a{j}"] = torch.full(
-            (c1,), comp.init, dtype=_DTYPES[comp.dtype], device=device
+            shape, comp.init, dtype=_DTYPES[comp.dtype], device=device
         )
     return store
 
@@ -139,67 +153,115 @@ def slot_base(khash: torch.Tensor, wstart: torch.Tensor, capacity: int) -> torch
 
 # ----------------------------------------------------- K1: row_prologue
 def row_prologue_plain(key_reprs, key_valid, ts, active, size_ms, grace_ms,
-                       max_ts, capacity):
+                       max_ts, capacity, advance_ms=0, slice_width=0,
+                       slice_ring=0):
     """Plain twin of K1 — see :func:`row_prologue`."""
     k, n = key_reprs.shape
-    if size_ms:
-        wstart = tumbling_starts(ts, size_ms)
-    else:
-        wstart = torch.zeros(n, dtype=torch.int64, device=ts.device)
     knull = torch.zeros(n, dtype=torch.int32, device=ts.device)
     for i in range(k):
         knull = knull | ((~key_valid[i]).to(torch.int32) << i)
-    active = active & (knull == 0)
     khash = combine_hash([key_reprs[i] for i in range(k)] + [knull.to(torch.int64)])
-    if size_ms:
+    if advance_ms and slice_ring:  # sliced hopping
+        wstart = slice_starts(ts, slice_width)
+        newest = ts - torch.remainder(ts, advance_ms)
+        open_any = newest + size_ms + grace_ms > max_ts
+        batch_max = torch.maximum(max_ts, torch.where(active, ts, torch.full_like(ts, INT64_MIN)).max())
+        horizon_ok = wstart + (slice_ring - 1) * slice_width > batch_max
+        active = active & open_any & horizon_ok & (knull == 0)
+        base = slot_base(khash, torch.zeros_like(wstart), capacity)
+    elif advance_ms:  # k-fold hopping expansion
+        hops = hopping_expansion(size_ms, advance_ms)
+        wstart, in_win = hopping_starts(ts, size_ms, advance_ms)
+        knull, khash, ts = expand(knull, hops), expand(khash, hops), expand(ts, hops)
+        active = expand(active, hops) & in_win & (knull == 0)
         active = active & (wstart + size_ms + grace_ms > max_ts)
-    base = slot_base(khash, wstart, capacity)
+        base = slot_base(khash, wstart, capacity)
+    else:
+        if size_ms:
+            wstart = tumbling_starts(ts, size_ms)
+        else:
+            wstart = torch.zeros(n, dtype=torch.int64, device=ts.device)
+        active = active & (knull == 0)
+        if size_ms:
+            active = active & (wstart + size_ms + grace_ms > max_ts)
+        base = slot_base(khash, wstart, capacity)
     c0 = torch.where(active, ts, torch.full_like(ts, INT64_MIN))
     return wstart, knull, active, khash, base, c0
 
 
 def row_prologue(key_reprs: torch.Tensor, key_valid: torch.Tensor,
                  ts: torch.Tensor, active: torch.Tensor, size_ms: int,
-                 grace_ms: int, max_ts: torch.Tensor, capacity: int):
-    """K1 (replaces ``ops/hash_store.py:mix64/combine_hash`` and the fixed
-    per-row part of ``runtime/lowering.py:pre_exchange``).
+                 grace_ms: int, max_ts: torch.Tensor, capacity: int,
+                 advance_ms: int = 0, slice_width: int = 0, slice_ring: int = 0):
+    """K1 (replaces ``ops/hash_store.py:mix64/combine_hash``, the fixed
+    per-row part of ``runtime/lowering.py:pre_exchange`` and
+    ``ops/window.py:hopping_starts/expand``).
 
     ``key_reprs`` int64[k, n] and ``key_valid`` bool[k, n] are the group
-    key columns' 64-bit reprs and valid bits; ``size_ms`` is 0 when the
-    aggregation is unwindowed (no window start, no grace cut);
-    ``max_ts`` is the store's stream time at batch start (a device scalar).
-    Returns ``(wstart, knull, active, khash, base, c0)``: the window start,
-    the int32 null-key bitmask, the rows that reach the store (non-null key,
-    inside grace), the group hash, the probe's base slot and the watermark
-    contribution (``ts`` where active, INT64_MIN elsewhere)."""
+    key columns' 64-bit reprs and valid bits; ``max_ts`` is the store's
+    stream time at batch start (a device scalar).  Three modes:
+
+    * ``advance_ms == 0``: unwindowed (``size_ms == 0``: no window start, no
+      grace cut) or TUMBLING (window start, grace cut against ``max_ts``);
+    * sliced HOPPING (``advance_ms`` and ``slice_ring``): ``wstart`` is the
+      slice start; a row is admitted while the newest advance-aligned
+      window covering it is open at batch start, and while its slice lies
+      inside the ring of ``slice_ring`` slices below the batch's newest
+      stream time (``max(max_ts, max ts over the active rows)``, taken
+      before the null-key mask); the base slot hashes with window 0 (the
+      sliced store keys by group key only);
+    * k-fold HOPPING expansion (``advance_ms``, no ring): n rows become
+      ``n·k`` lanes, lane ``h·n + i`` being row ``i``'s hop ``h``; each lane
+      gets its window start and the tumbling-style grace cut.
+
+    Returns ``(wstart, knull, active, khash, base, c0)`` per row (per lane
+    when expanding): the window or slice start, the int32 null-key bitmask,
+    the rows that reach the store, the group hash, the probe's base slot
+    and the watermark contribution (``ts`` where active, INT64_MIN
+    elsewhere)."""
     if not key_reprs.is_cuda:
         return row_prologue_plain(key_reprs, key_valid, ts, active, size_ms,
-                                  grace_ms, max_ts, capacity)
+                                  grace_ms, max_ts, capacity, advance_ms,
+                                  slice_width, slice_ring)
     k, n = key_reprs.shape
     _expect(key_reprs, torch.int64, (k, n))
     _expect(key_valid, torch.bool, (k, n))
     _expect(ts, torch.int64, (n,))
     _expect(active, torch.bool, (n,))
     _expect(max_ts, torch.int64, ())
+    if advance_ms and slice_ring:
+        mode, hops = 1, 1
+    elif advance_ms:
+        mode, hops = 2, hopping_expansion(size_ms, advance_ms)
+    else:
+        mode, hops = 0, 1
     dev = ts.device
-    wstart = torch.empty(n, dtype=torch.int64, device=dev)
-    knull = torch.empty(n, dtype=torch.int32, device=dev)
-    act = torch.empty(n, dtype=torch.bool, device=dev)
-    khash = torch.empty(n, dtype=torch.int64, device=dev)
-    base = torch.empty(n, dtype=torch.int32, device=dev)
-    c0 = torch.empty(n, dtype=torch.int64, device=dev)
+    nn = n * hops
+    wstart = torch.empty(nn, dtype=torch.int64, device=dev)
+    knull = torch.empty(nn, dtype=torch.int32, device=dev)
+    act = torch.empty(nn, dtype=torch.bool, device=dev)
+    khash = torch.empty(nn, dtype=torch.int64, device=dev)
+    base = torch.empty(nn, dtype=torch.int32, device=dev)
+    c0 = torch.empty(nn, dtype=torch.int64, device=dev)
+    batch_max = torch.empty(1, dtype=torch.int64, device=dev)
     fn = cuda.lib("row_prologue")
     cuda.check("row_prologue", fn(
         key_reprs.data_ptr(), key_valid.data_ptr(), k, n, ts.data_ptr(),
-        active.data_ptr(), int(size_ms), int(grace_ms), max_ts.data_ptr(),
-        capacity - 1, wstart.data_ptr(), knull.data_ptr(), act.data_ptr(),
-        khash.data_ptr(), base.data_ptr(), c0.data_ptr(), _stream(dev),
+        active.data_ptr(), mode, int(size_ms), int(advance_ms), int(grace_ms),
+        int(slice_width), int(slice_ring), hops, max_ts.data_ptr(),
+        capacity - 1, batch_max.data_ptr(), wstart.data_ptr(),
+        knull.data_ptr(), act.data_ptr(), khash.data_ptr(), base.data_ptr(),
+        c0.data_ptr(), _stream(dev),
     ))
     row_prologue.launches += 1
+    row_prologue.mode_launches[ROW_PROLOGUE_MODES[mode]] += 1
     return wstart, knull, act, khash, base, c0
 
 
+#: K1's modes by kernel code: ``tumbling`` also serves unwindowed plans
+ROW_PROLOGUE_MODES = ("tumbling", "sliced", "expansion")
 row_prologue.launches = 0
+row_prologue.mode_launches = dict.fromkeys(ROW_PROLOGUE_MODES, 0)
 
 
 # ----------------------------------------------------- K2: probe_insert
@@ -350,18 +412,33 @@ def fold_and_mark_plain(store, layout: StoreLayout, slots, contribs,
     return active & (s != capacity) & (first[s] == rowidx)
 
 
+def xla_minmax(a: torch.Tensor, b: torch.Tensor, combine: str) -> torch.Tensor:
+    """XLA's elementwise min or max (``combine``): NaN wins, and -0.0 is
+    below +0.0 (torch.minimum/maximum return either zero on a tie)."""
+    want_neg = combine == "min"
+    r = torch.minimum(a, b) if want_neg else torch.maximum(a, b)
+    if r.is_floating_point():
+        zero = (a == 0) & (b == 0)
+        sa, sb = torch.signbit(a), torch.signbit(b)
+        neg = (sa | sb) if want_neg else (sa & sb)
+        r = torch.where(zero & neg, -0.0, torch.where(zero & ~neg, 0.0, r))
+    return r
+
+
 def _xla_signed_zero(col, before, s, c, combine) -> None:
-    """XLA's min/max order -0.0 below +0.0 (torch's scatter_reduce keeps
-    whichever zero it saw first): a slot folded to zero takes -0.0 under
-    min when any of its operands was -0.0, and +0.0 under max when any was
-    +0.0."""
+    """Bring a float column folded by torch's scatter_reduce (which keeps
+    whichever zero it saw first) to XLA's zero: a slot folded to zero is
+    min/maxed (:func:`xla_minmax`) with the wanted zero (-0.0 for min,
+    +0.0 for max) where any of its operands — the rows scattered to it or
+    its value before — was that zero.  NaN and nonzero slots keep their
+    bits."""
     want_neg = combine == "min"
     zero_src = (c == 0) & (torch.signbit(c) == want_neg)
     hit = torch.zeros_like(col, dtype=torch.bool)
     hit[s[zero_src]] = True
     hit |= (before == 0) & (torch.signbit(before) == want_neg)
     fix = hit & (col == 0)
-    col[fix] = -0.0 if want_neg else 0.0
+    col[fix] = xla_minmax(col[fix], torch.full_like(col[fix], -0.0 if want_neg else 0.0), combine)
 
 
 def fold_and_mark(store: Dict[str, torch.Tensor], scratch: Dict[str, torch.Tensor],
@@ -406,54 +483,80 @@ fold_and_mark.launches = 0
 
 
 # ------------------------------------------------------------ K4: evict
-def evict_plain(store, layout: StoreLayout, retention_ms: int) -> None:
+#: ``slast`` of a sliced slot that holds no slice
+SLAST_NONE = -(2 ** 62)
+
+
+def evict_plain(store, layout: StoreLayout, retention_ms: int, sliced: bool = False) -> None:
     """Plain twin of K4 — see :func:`evict`."""
-    expired = store["occ"] & (store["wstart"] + retention_ms < store["max_ts"])
+    if sliced:
+        expired = store["occ"] & (store["slast"] + retention_ms < store["max_ts"])
+        store["slast"].masked_fill_(expired, SLAST_NONE)
+        store["slice_id"].masked_fill_(expired[:, None], -1)
+    else:
+        expired = store["occ"] & (store["wstart"] + retention_ms < store["max_ts"])
     store["occ"] &= ~expired
     store["grave"] |= expired
     store["dirty"] &= ~expired
     for j, comp in enumerate(layout.components):
-        store[f"a{j}"].masked_fill_(expired, comp.init)
+        col = store[f"a{j}"]
+        col.masked_fill_(expired[:, None] if col.dim() == 2 else expired, comp.init)
 
 
-def evict(store: Dict[str, torch.Tensor], layout: StoreLayout, retention_ms: int) -> None:
-    """K4 (replaces ``runtime/lowering.py:_trace_evict``, non-sliced,
-    non-suppress branch): free the slots whose window left retention, in
-    place, resetting their components to init."""
+def evict(store: Dict[str, torch.Tensor], layout: StoreLayout, retention_ms: int,
+          sliced: bool = False) -> None:
+    """K4 (replaces ``runtime/lowering.py:_trace_evict``, non-suppress
+    branches): free the slots that left retention, in place, resetting
+    their components to init.  A windowed slot expires when its window
+    start plus retention is below the stream time; a sliced slot (one per
+    group key, ``sliced=True``) when its newest slice start ``slast`` is,
+    and then also drops its ring (``slice_id`` -1, ``slast`` reset)."""
     occ = store["occ"]
     if not occ.is_cuda:
-        evict_plain(store, layout, retention_ms)
+        evict_plain(store, layout, retention_ms, sliced)
         return
     c1 = layout.capacity + 1
+    ring = layout.components[0].width if sliced else 0
     for name, dt in (("occ", torch.bool), ("grave", torch.bool),
                      ("dirty", torch.bool), ("wstart", torch.int64)):
         _expect(store[name], dt, (c1,))
     _expect(store["max_ts"], torch.int64, ())
+    if sliced:
+        _expect(store["slast"], torch.int64, (c1,))
+        _expect(store["slice_id"], torch.int64, (c1, ring))
     desc: List[int] = []
     for j, comp in enumerate(layout.components):
         col = store[f"a{j}"]
-        _expect(col, _DTYPES[comp.dtype], (c1,))
-        init = np.array([comp.init], dtype=comp.dtype)
-        bits = int(init.view(np.int32 if comp.dtype == "int32" else np.int64)[0])
-        desc += [col.data_ptr(), _DTYPE_CODES[comp.dtype], bits]
+        _expect(col, _DTYPES[comp.dtype], (c1, ring) if sliced else (c1,))
+        desc += [col.data_ptr(), _DTYPE_CODES[comp.dtype], init_bits(comp)]
     fn = cuda.lib("evict")
     cuda.check("evict", fn(
         cuda.host_i64(desc), len(layout.components), occ.data_ptr(),
         store["grave"].data_ptr(), store["dirty"].data_ptr(),
-        store["wstart"].data_ptr(), store["max_ts"].data_ptr(),
-        int(retention_ms), layout.capacity, _stream(occ.device),
+        store["wstart"].data_ptr(),
+        store["slast"].data_ptr() if sliced else None,
+        store["slice_id"].data_ptr() if sliced else None, ring,
+        store["max_ts"].data_ptr(), int(retention_ms), layout.capacity,
+        _stream(occ.device),
     ))
     evict.launches += 1
+    evict.mode_launches["sliced" if sliced else "tumbling"] += 1
 
 
 evict.launches = 0
+#: ``tumbling``: one slot per (key, window), as the tumbling and expansion
+#: stores keep; ``sliced``: one slot per key with its slice ring
+evict.mode_launches = {"tumbling": 0, "sliced": 0}
+
+
+def init_bits(comp: AggComponent) -> int:
+    """The bit pattern of a component's init value, as the kernels take it
+    (int32 sign-extended, int64 and float64 as their 64 bits)."""
+    init = np.array([comp.init], dtype=comp.dtype)
+    return int(init.view(np.int32 if comp.dtype == "int32" else np.int64)[0])
+
 
 KERNEL_WRAPPERS = (row_prologue, probe_insert, fold_and_mark, evict)
-
-
-def reset_launch_counts() -> None:
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
 
 
 def _stream(device) -> int:

@@ -32,12 +32,15 @@ class TorchDeviceExecutor:
         device=None,
         batch_size: int = 4096,
         store_capacity: int = 1 << 17,
+        sliced: Optional[bool] = None,
+        slice_ring_max: int = 512,
         on_error: Optional[Callable[[str, Exception], None]] = None,
     ):
         self.plan = plan
         self.on_error = on_error or (lambda where, e: None)
         self.query = TorchCompiledQuery(
-            plan, capacity=batch_size, store_capacity=store_capacity, device=device
+            plan, capacity=batch_size, store_capacity=store_capacity, device=device,
+            sliced=sliced, slice_ring_max=slice_ring_max,
         )
         self.query.pipeline = batch_size > 1
         self.source_step = self.query.source

@@ -3,22 +3,28 @@
 The port of ``ksql_tpu/runtime/lowering.py``'s ``CompiledDeviceQuery`` for
 the plan shapes of this slice:
 
-    Source → Filter*/Select* → [GroupBy → Aggregate (unwindowed or
-    TUMBLING) → TableSelect*] → Sink
+    Source → Filter*/Select* → [GroupBy → Aggregate (unwindowed, TUMBLING
+    or HOPPING) → TableSelect*] → Sink
 
 with COUNT(*), COUNT, SUM, AVG, MIN and MAX (``ops/device_aggs.py``), plus
-the stateless filter/project pipelines.  Every other shape raises
-:class:`DeviceUnsupported` at construction: hopping and session windows,
-joins, flat-maps, PARTITION BY, EMIT FINAL, HAVING, table sources and
-table aggregation, vector and arg-set aggregates.
+the stateless filter/project pipelines.  HOPPING aggregation takes the
+reference's two routes: stream slicing (one slice per row into a per-key
+ring of slice partials, a per-window monoid combine at emission; the
+default when eligible) and the k-fold expansion (``sliced=False``, or when
+slicing is ineligible, with the reference's reason in
+``windowing_fallback``).  Every other shape raises
+:class:`DeviceUnsupported` at construction: session windows, joins,
+flat-maps, PARTITION BY, EMIT FINAL, HAVING, table sources and table
+aggregation, vector and arg-set aggregates, window families.
 
 Where the reference traces one jitted step, the port runs eagerly: the
 expression phases are torch tensor ops, and the keyed store goes through
-the four CUDA kernels of ``ops/hash_store.py`` (row_prologue, probe_insert,
-fold_and_mark, evict).  The store is updated IN PLACE; every emitted lane
-is a fresh tensor (a gather or a batch column), never a view of a store
-column, so a pipelined batch's emits stay valid while the next batch
-mutates the store.
+the CUDA kernels of ``ops/hash_store.py`` (K1 row_prologue, K2
+probe_insert, K3 fold_and_mark, K4 evict) and ``ops/slicing.py`` (K5
+sliced_fold, K6 combine_windows, K7 member_lanes).  The store is updated
+IN PLACE; every emitted lane is a fresh tensor (a K6 gather or a batch
+column), never a view of a store column, so a pipelined batch's emits stay
+valid while the next batch mutates the store.
 
 Semantics are the reference's, including its documented deltas from the
 row oracle: EMIT CHANGES coalesces to one change per key per micro-batch,
@@ -50,6 +56,8 @@ from ksql_tpu_torch.compiler.torch_expr import (
 from ksql_tpu_torch.execution import expressions as ex
 from ksql_tpu_torch.execution import steps as st
 from ksql_tpu_torch.ops import hash_store as hs
+from ksql_tpu_torch.ops import slicing
+from ksql_tpu_torch.ops import window as W
 from ksql_tpu_torch.ops.device_aggs import DeviceAgg, compile_device_agg, resolve_udaf
 from ksql_tpu_torch.parser.ast_nodes import WindowType
 from ksql_tpu_torch.runtime.device import BatchLayout, DictionaryServer, decode_value
@@ -60,6 +68,11 @@ from ksql_tpu_torch.state import resolve_device, state_from_numpy, state_to_nump
 DEFAULT_GRACE_MS = 24 * 3600 * 1000
 _I64_MIN = np.iinfo(np.int64).min
 _PSEUDO = ("ROWTIME", "ROWOFFSET", "ROWPARTITION", "WINDOWSTART", "WINDOWEND")
+#: HBM budget for a store's aggregate state arrays: wide state (slice
+#: rings) trades initial slot count for width; the store still grows
+_VEC_STATE_BUDGET_BYTES = 256 << 20
+#: slice-ring combines cover exactly the monoid component kinds
+_DECOMPOSABLE = ("add", "min", "max")
 
 
 @dataclasses.dataclass
@@ -68,6 +81,21 @@ class _AggSpec:
     arg_exprs: Tuple[ex.Expression, ...]
     device: DeviceAgg
     out_name: str
+
+
+@dataclasses.dataclass
+class _MemberSpec:
+    """The query whose window a sliced pipeline emits.  The reference
+    shares one slice store among a window family (``members[1:]``); the
+    port runs ``members[0]``, the query's own window, only."""
+
+    size_ms: int
+    advance_ms: int
+    grace_ms: int
+    agg_schema: LogicalSchema  # aggregate output schema (key column names)
+    post_ops: List[st.ExecutionStep]
+    sink_schema: LogicalSchema  # emitted row schema
+    agg_map: List[int]  # member-local aggregate -> index in agg_specs
 
 
 def _refs_of_ops(ops) -> set:
@@ -97,11 +125,11 @@ class TorchCompiledQuery:
     pipeline = False
 
     def __init__(self, plan: st.QueryPlan, capacity: int = 8192,
-                 store_capacity: int = 1 << 17, device=None):
+                 store_capacity: int = 1 << 17, device=None,
+                 sliced: Optional[bool] = None, slice_ring_max: int = 512):
         self.device = resolve_device(device)
         self.plan = plan
         self.capacity = capacity
-        self.store_capacity = store_capacity
         self.dictionary = DictionaryServer()
         self.sink: Optional[st.ExecutionStep] = None
         self.post_ops: List[st.ExecutionStep] = []  # TableSelect (after the aggregate)
@@ -113,44 +141,64 @@ class TorchCompiledQuery:
 
         self.window = getattr(self.agg, "window", None) if self.agg is not None else None
         self.size_ms = 0
+        self.advance_ms = 0  # HOPPING only
         self.grace_ms = 0
         self.retention_ms: Optional[int] = None
+        #: hopping windows expand each batch k-fold (the expansion route)
+        self.expansion = 1
         if self.window is not None:
-            if self.window.window_type != WindowType.TUMBLING:
-                raise DeviceUnsupported(f"{self.window.window_type.value} windows on device")
+            wt = self.window.window_type
+            if wt not in (WindowType.TUMBLING, WindowType.HOPPING):
+                raise DeviceUnsupported(f"{wt.value} windows on device")
             self.size_ms = self.window.size_ms
             grace = self.window.grace_ms
             self.grace_ms = grace if grace is not None else DEFAULT_GRACE_MS
             # windowed-store retention (KS: max(explicit retention, size+grace))
             self.retention_ms = max(self.window.retention_ms or 0, self.size_ms + self.grace_ms)
+            if wt == WindowType.HOPPING:
+                self.advance_ms = self.window.advance_ms
+                self.expansion = W.hopping_expansion(self.size_ms, self.advance_ms)
 
         self.agg_specs: List[_AggSpec] = []
         self.key_types = []
         if self.agg is not None:
             self._build_agg_specs()
+        self._setup_slicing(sliced, slice_ring_max)
         self._build_ingress_layout()
 
         self.store_layout: Optional[hs.StoreLayout] = None
         if self.agg is not None:
-            comps = [hs.AggComponent("max", "int64", _I64_MIN)]
-            for spec in self.agg_specs:
-                comps.extend(spec.device.components)
+            comps = self._agg_components()
+            # wide state (slice rings) shrinks the initial slot count to a
+            # bounded budget; the store still grows on demand
+            row_bytes = sum(np.dtype(c.dtype).itemsize * c.width for c in comps)
+            budget_slots = max(1024, _VEC_STATE_BUDGET_BYTES // max(row_bytes, 1))
+            while store_capacity > 1024 and store_capacity > budget_slots:
+                store_capacity //= 2
             self.store_layout = hs.StoreLayout(
                 capacity=store_capacity, num_keys=len(self.key_types),
                 components=tuple(comps), windowed=self.window is not None,
             )
+        self.store_capacity = store_capacity
         self._state: Optional[Dict[str, torch.Tensor]] = None
         self.scratch: Dict[str, torch.Tensor] = {}
         self._pending_emits: Optional[Dict[str, torch.Tensor]] = None
         self._batches = 0
         self._seen_overflow = 0
+        #: host mirrors driving pre-dispatch ring sizing: a lower bound on
+        #: the device stream clock (read back with the per-batch load
+        #: counters) and the oldest slice index any batch could have written
+        self._mirror_max_ts = -(2 ** 62)
+        self._host_min_slice = 2 ** 62
         #: host-side counters of the store's maintenance (read by the chip
-        #: check): retention passes, compactions, capacity doublings and
-        #: the wall seconds of each rebuild
+        #: check): retention passes, compactions, capacity doublings, ring
+        #: resizes and the wall seconds of each rebuild
         self.evictions = 0
         self.compactions = 0
         self.grows = 0
         self.rebuild_seconds: List[float] = []
+        self.ring_resizes = 0
+        self.ring_seconds: List[float] = []
         self._check_compiles()
 
     # ------------------------------------------------------------ analysis
@@ -209,6 +257,153 @@ class TorchCompiledQuery:
         if len(self.key_types) > 16:
             raise DeviceUnsupported("more than 16 grouping columns on device")
 
+    # ------------------------------------------------------- stream slicing
+    def _agg_components(self) -> List[hs.AggComponent]:
+        """Store component list for the aggregate state arrays.  Sliced
+        stores widen every component to a per-key ring of ``slice_ring``
+        slice partials; the other routes keep one cell per slot."""
+        comps = [hs.AggComponent("max", "int64", _I64_MIN)]
+        for spec in self.agg_specs:
+            comps.extend(spec.device.components)
+        if self.sliced:
+            comps = [dataclasses.replace(c, width=self.slice_ring) for c in comps]
+        return comps
+
+    def _slice_ineligibility(self, ring_max: int) -> Optional[str]:
+        """Why this hopping aggregation must keep the k-fold expansion
+        route (None = sliced-eligible), in the reference's words.  (Its
+        EMIT FINAL and HAVING reasons cannot arise: the port refuses both
+        shapes in ``_analyze``.)"""
+        w = self.window
+        for spec in self.agg_specs:
+            if any(c.combine not in _DECOMPOSABLE for c in spec.device.components):
+                return (
+                    f"non-decomposable aggregate {spec.fname} keeps the "
+                    "expansion path (no monoid merge for its device state)"
+                )
+        if W.hopping_expansion(w.size_ms, w.advance_ms) < 2:
+            return (
+                "hopping ADVANCE equals SIZE (k=1): the expansion path is "
+                "already slice-optimal"
+            )
+        sw = W.slice_width(w.size_ms, w.advance_ms)
+        ring = self.retention_ms // sw + 2
+        if ring > ring_max:
+            return (
+                f"hopping slice ring of {ring} slices exceeds "
+                f"ksql.slicing.max.ring={ring_max} (slice width {sw}ms, "
+                f"retention {self.retention_ms}ms) — set an explicit GRACE "
+                "PERIOD or raise the cap; keeping the expansion path"
+            )
+        return None
+
+    def _setup_slicing(self, sliced_opt: Optional[bool], ring_max: int) -> None:
+        self.sliced = False
+        self.slice_width = 0
+        self.slice_ring = 0
+        self.slice_ring_max = ring_max
+        #: hopping fan-out of the window (also on the sliced route, where
+        #: the batch itself no longer expands)
+        self.hop_k = self.expansion
+        #: why a hopping query runs the expansion route (None when sliced,
+        #: or not a hopping aggregation at all)
+        self.windowing_fallback: Optional[str] = None
+        self.members: List[_MemberSpec] = []
+        hopping = self.window is not None and self.window.window_type == WindowType.HOPPING
+        if not hopping:
+            if sliced_opt is True:
+                raise DeviceUnsupported(
+                    "sliced aggregation requires a HOPPING windowed aggregation"
+                )
+            return
+        reason = self._slice_ineligibility(ring_max)
+        if reason is None and sliced_opt is False:
+            reason = "hopping runs the expansion path (slicing disabled for this executor)"
+        if reason is not None:
+            if sliced_opt is True:
+                raise DeviceUnsupported(reason)
+            self.windowing_fallback = reason
+            return
+        self.sliced = True
+        self.expansion = 1  # no k-fold batch blow-up
+        w = self.window
+        self.slice_width = W.slice_width(w.size_ms, w.advance_ms)
+        self.slice_ring = self.retention_ms // self.slice_width + 2
+        self.members = [_MemberSpec(
+            size_ms=w.size_ms, advance_ms=w.advance_ms, grace_ms=self.grace_ms,
+            agg_schema=self.agg.schema,
+            post_ops=list(self.post_ops), sink_schema=self._emit_schema(),
+            agg_map=list(range(len(self.agg_specs))),
+        )]
+
+    def ensure_ring_for(self, ts: np.ndarray, valid: np.ndarray) -> None:
+        """Pre-dispatch ring sizing: the ring must span every slice that is
+        live this batch — from the admission floor (stream time − retention,
+        bounded below by the host mirrors) up to the batch's
+        newest slice — or two live slices would fold into one ring cell.
+        Growth is capped at ``slice_ring_max``, where K1's horizon cut
+        takes over."""
+        if not self.sliced or ts.size == 0:
+            return
+        v = np.asarray(valid, bool)
+        if not v.any():
+            return
+        tt = np.asarray(ts)[v]
+        width = self.slice_width
+        smin = int(tt.min()) // width
+        smax = int(tt.max()) // width
+        self._host_min_slice = min(self._host_min_slice, smin)
+        floor = self._host_min_slice
+        if self._mirror_max_ts > -(2 ** 61):
+            # below clock − retention nothing reaches a ring cell, so the
+            # ring need not span it
+            floor = max(floor, (self._mirror_max_ts - self.retention_ms) // width)
+        needed = smax - min(floor, smax) + 2
+        target = min(needed, self.slice_ring_max)
+        if needed > self.slice_ring and target != self.slice_ring:
+            self._resize_ring(target)
+        # after this batch folds, the device clock is >= the batch max
+        self._mirror_max_ts = max(self._mirror_max_ts, int(tt.max()))
+
+    def _resize_ring(self, new_ring: int) -> None:
+        """Re-shape the slice ring to ``new_ring`` cells per slot (the
+        slice width never changes without window families)."""
+        self.slice_ring = new_ring
+        self.store_layout = dataclasses.replace(
+            self.store_layout,
+            components=tuple(
+                dataclasses.replace(c, width=new_ring) for c in self.store_layout.components
+            ),
+        )
+        if self._state is not None and int(self._state["occ"][:-1].sum()) != 0:
+            self._regrow_ring(new_ring)
+        else:
+            self._state = None  # lazy re-init at the new shapes
+
+    def _regrow_ring(self, new_ring: int) -> None:
+        """Host-side ring regrow: every live (slot, slice) partial moves to
+        ``slice_id % new_ring`` in the widened arrays (new_ring spans every
+        live slice, so no two live slices of one key collide)."""
+        t0 = time.perf_counter()
+        new = state_to_numpy(self.state)
+        ids = new["slice_id"]
+        rix, cix = np.nonzero(ids >= 0)
+        npos = ids[rix, cix] % new_ring
+        c1 = ids.shape[0]
+        nid = np.full((c1, new_ring), -1, np.int64)
+        nid[rix, npos] = ids[rix, cix]
+        new["slice_id"] = nid
+        for j, comp in enumerate(self.store_layout.components):
+            col = new[f"a{j}"]
+            ncol = np.full((c1, new_ring), comp.init, dtype=np.dtype(comp.dtype))
+            ncol[rix, npos] = col[rix, cix]
+            new[f"a{j}"] = ncol
+        self.state = state_from_numpy(new, self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.ring_seconds.append(time.perf_counter() - t0)
+        self.ring_resizes += 1
+
     def _build_ingress_layout(self) -> None:
         """The ingress BatchLayout: only the columns the pipeline reads."""
         needed = _refs_of_ops(self.pre_ops)
@@ -250,10 +445,20 @@ class TorchCompiledQuery:
         self._pack_emits(env, active, ts)
 
     # --------------------------------------------------------------- state
-    def init_state(self) -> Dict[str, torch.Tensor]:
+    def init_state(self, device=None) -> Dict[str, torch.Tensor]:
+        dev = self.device if device is None else device
         if self.store_layout is None:
-            return {"max_ts": torch.tensor(_I64_MIN, dtype=torch.int64, device=self.device)}
-        return hs.init_store(self.store_layout, self.device)
+            return {"max_ts": torch.tensor(_I64_MIN, dtype=torch.int64, device=dev)}
+        state = hs.init_store(self.store_layout, dev)
+        if self.sliced:
+            c1 = self.store_capacity + 1
+            # absolute slice index per ring cell (-1 = empty): a combine
+            # whose expected index mismatches reads the cell as identity,
+            # which is how stale cells of an earlier ring wrap drop out
+            state["slice_id"] = torch.full((c1, self.slice_ring), -1, dtype=torch.int64, device=dev)
+            # newest slice start folded per key slot (drives eviction)
+            state["slast"] = torch.full((c1,), hs.SLAST_NONE, dtype=torch.int64, device=dev)
+        return state
 
     @property
     def state(self) -> Dict[str, torch.Tensor]:
@@ -266,6 +471,10 @@ class TorchCompiledQuery:
         self._state = value
         if self.store_layout is not None:
             self.scratch = hs.init_scratch(self.store_capacity, self.device)
+            if self.sliced:
+                spw = W.slices_per_window(self.size_ms, self.slice_width)
+                self.scratch.update(slicing.init_slice_scratch(
+                    self.store_capacity, self.slice_ring, spw, self.device))
 
     # ---------------------------------------------------------- the step
     def _source_env(self, arrays: Dict[str, torch.Tensor]) -> Dict[str, DCol]:
@@ -321,8 +530,9 @@ class TorchCompiledQuery:
         return self.post_exchange(self.pre_exchange(arrays))
 
     def pre_exchange(self, arrays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Per-row phase: transforms, window assignment, group-key hashing,
-        aggregate contributions (K1 does the fixed per-row part)."""
+        """Per-row phase: transforms, window assignment (the k-fold hopping
+        expansion included), group-key hashing, aggregate contributions
+        (K1 does the fixed per-row part)."""
         n = self.capacity
         env = self._source_env(arrays)
         env, active = self._apply_ops(self.pre_ops, env, arrays["row_valid"], n)
@@ -332,79 +542,154 @@ class TorchCompiledQuery:
         valid = torch.stack([kc.valid for kc in key_cols])
         wstart, knull, active, khash, base, c0 = hs.row_prologue(
             reprs, valid, ts, active, self.size_ms, self.grace_ms,
-            self.state["max_ts"], self.store_capacity,
+            self.state["max_ts"], self.store_capacity, advance_ms=self.advance_ms,
+            slice_width=self.slice_width, slice_ring=self.slice_ring,
         )
+        k = self.expansion
+        if k > 1:
+            # the expansion route: lane h·n + i is row i's hop h
+            env = {name: DCol(W.expand(c.data, k), W.expand(c.valid, k), c.sql_type)
+                   for name, c in env.items()}
+            reprs = reprs.repeat(1, k)
+            ts = W.expand(ts, k)
+        nn = n * k
         contribs = [c0]
-        c = TorchExprCompiler(env, n, ts.device, self.dictionary)
+        c = TorchExprCompiler(env, nn, ts.device, self.dictionary)
         for spec in self.agg_specs:
             contribs.extend(spec.device.contribs([c.compile(e) for e in spec.arg_exprs], active))
         return {"khash": khash, "wstart": wstart, "knull": knull, "ts": ts,
                 "active": active, "base": base, "reprs": reprs, "contribs": contribs}
 
     def post_exchange(self, payload: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """State-owning phase: probe/insert (K2), fold + winners (K3),
-        emission of one change per touched key."""
+        """State-owning phase: probe/insert (K2), fold (K3, or the sliced
+        ring fold K5), emission of one change per touched key (per touched
+        (key, window) on the hopping routes)."""
         store = self.state
         active = payload["active"]
+        nn = active.shape[0]
+        # sliced stores key per GROUP KEY only (the slice ring hangs off the
+        # key slot); the other routes key per (group key, window start)
+        probe_w = torch.zeros_like(payload["wstart"]) if self.sliced else payload["wstart"]
         slots = hs.probe_insert(
             store, self.scratch, self.store_capacity, payload["base"],
-            payload["khash"], payload["wstart"], payload["reprs"],
-            payload["knull"], active,
+            payload["khash"], probe_w, payload["reprs"], payload["knull"], active,
         )
-        winners = hs.fold_and_mark(
-            store, self.scratch, self.store_layout, slots, payload["contribs"], active
-        )
+        if self.sliced:
+            slicing.sliced_fold(store, self.scratch, self.store_layout, slots,
+                                payload["wstart"], payload["contribs"], active,
+                                self.slice_width)
+            # the emission mask reads the stream time AT BATCH START: it
+            # runs before the max_ts update below
+            emits = self._sliced_member_emits(slots, payload, self.members[0])
+        else:
+            winners = hs.fold_and_mark(
+                store, self.scratch, self.store_layout, slots, payload["contribs"], active
+            )
+            emits = self._emit_agg(slots, winners, nn)
         ts = payload["ts"]
         batch_max = torch.where(active, ts, torch.full_like(ts, _I64_MIN)).max()
         torch.maximum(store["max_ts"], batch_max, out=store["max_ts"])
-        emits = self._emit_agg(slots, winners, active.shape[0])
         # load metrics, read host-side to trigger growth (graves hold
         # probe-chain slots until compaction, so they count)
         emits["occupancy"] = (store["occ"] | store["grave"]).sum()
         emits["graves"] = store["grave"].sum()
         emits["overflow"] = store["overflow"].clone()
+        if self.sliced:
+            # host mirror of the stream clock (rides the load readback)
+            emits["smax_ts"] = store["max_ts"].clone()
         return emits
 
-    def _finalized_env(self, slots: torch.Tensor, nn: int) -> Tuple[Dict[str, DCol], torch.Tensor]:
-        """Gather + finalize store state at ``slots`` into an env over the
-        aggregate's output schema."""
-        store = self.state
-        idx = slots.long()
+    def _spec_comp_starts(self) -> List[int]:
+        """Starting store-component index of each aggregate spec
+        (component 0 is the per-slot ts watermark)."""
+        starts: List[int] = []
+        idx = 1
+        for spec in self.agg_specs:
+            starts.append(idx)
+            idx += len(spec.device.components)
+        return starts
+
+    def _sliced_member_emits(self, slots: torch.Tensor, payload: Dict[str, torch.Tensor],
+                             member: _MemberSpec) -> Dict[str, torch.Tensor]:
+        """A member's per-batch emission: every still-open window covering
+        a touched slice emits one coalesced change (K7 builds and dedupes
+        the window lanes, K6 combines their slices)."""
+        width = self.slice_width
+        spw = W.slices_per_window(member.size_ms, width)
+        k = W.hopping_expansion(member.size_ms, member.advance_ms)
+        w_lane, slot_lane, winner = slicing.member_lanes(
+            slots, payload["active"], payload["wstart"], self.state["max_ts"],
+            self.store_capacity, width, spw, member.advance_ms, member.size_ms,
+            member.grace_ms, k, self.scratch,
+        )
+        env, row_ts = self._combine_windows(slot_lane, w_lane, member)
+        return self._member_emit(env, row_ts, winner, member, slot_lane.shape[0])
+
+    def _combine_windows(self, slot_lane: torch.Tensor, w_lane: torch.Tensor,
+                         member: _MemberSpec) -> Tuple[Dict[str, DCol], torch.Tensor]:
+        """Monoid-merge the covering slices of each (slot, window) lane (K6)
+        and finalize into an expression env over the aggregate schema."""
+        spw = W.slices_per_window(member.size_ms, self.slice_width)
+        view = slicing.combine_windows(
+            self.state, self.store_layout, len(self.key_types), slot_lane,
+            w_lane, spw, self.slice_width,
+        )
+        return self._finalized_env(view, slot_lane.shape[0], wsize_ms=member.size_ms,
+                                   agg_schema=member.agg_schema, agg_map=member.agg_map)
+
+    def _member_emit(self, env: Dict[str, DCol], row_ts: torch.Tensor, mask: torch.Tensor,
+                     member: _MemberSpec, nn: int) -> Dict[str, torch.Tensor]:
+        """Post-aggregation ops + emission packing for one member."""
+        env, mask = self._apply_ops(member.post_ops, env, mask, nn)
+        return self._pack_emits(env, mask, row_ts, schema=member.sink_schema)
+
+    def _finalized_env(self, view: Dict[str, torch.Tensor], nn: int,
+                       wsize_ms: Optional[int] = None,
+                       agg_schema: Optional[LogicalSchema] = None,
+                       agg_map: Optional[List[int]] = None) -> Tuple[Dict[str, DCol], torch.Tensor]:
+        """Finalize the store state gathered per lane (``view``, from K6)
+        into an env over the aggregate's output schema.  ``wsize_ms``
+        overrides the window size for WINDOWEND; ``agg_map`` picks a
+        member's aggregates, re-bound to its KSQL_AGG_VARIABLE_<i> names."""
         env: Dict[str, DCol] = {}
-        knull = store["knull"][idx]
-        for i, col in enumerate(self.agg.schema.key_columns):
-            data = store[f"key{i}"][idx]
+        knull = view["knull"]
+        for i, col in enumerate((agg_schema or self.agg.schema).key_columns):
+            data = view[f"key{i}"]
             valid = ((knull >> i) & 1) == 0
             if col.type.base in (SqlBaseType.DOUBLE, SqlBaseType.DECIMAL):
                 data = data.view(torch.float64)
             elif col.type.base not in _HASHED:
                 data = data.to(torch_dtype(col.type))
             env[col.name] = DCol(data, valid, col.type)
-        row_ts = store["a0"][idx]
-        base = 1
-        for spec in self.agg_specs:
-            ncomp = len(spec.device.components)
-            comps = [store[f"a{base + t}"][idx] for t in range(ncomp)]
-            base += ncomp
+        row_ts = view["a0"]
+        starts = self._spec_comp_starts()
+        indices = agg_map if agg_map is not None else range(len(self.agg_specs))
+        for i, j in enumerate(indices):
+            spec = self.agg_specs[j]
+            comps = [view[f"a{starts[j] + t}"] for t in range(len(spec.device.components))]
             data, valid = spec.device.finalize(comps)
-            env[spec.out_name] = DCol(data, valid, spec.device.result_type)
-        ones = torch.ones(nn, dtype=torch.bool, device=slots.device)
+            out_name = spec.out_name if agg_map is None else f"KSQL_AGG_VARIABLE_{i}"
+            env[out_name] = DCol(data, valid, spec.device.result_type)
+        ones = torch.ones(nn, dtype=torch.bool, device=row_ts.device)
         env["ROWTIME"] = DCol(row_ts, ones, T.BIGINT)
         if self.window is not None:
-            ws = store["wstart"][idx]
+            ws = view["wstart"]
+            size = wsize_ms if wsize_ms is not None else self.size_ms
             env["WINDOWSTART"] = DCol(ws, ones, T.BIGINT)
-            env["WINDOWEND"] = DCol(ws + self.size_ms, ones, T.BIGINT)
+            env["WINDOWEND"] = DCol(ws + size, ones, T.BIGINT)
         return env, row_ts
 
     def _emit_agg(self, slots: torch.Tensor, mask: torch.Tensor, nn: int) -> Dict[str, torch.Tensor]:
-        env, row_ts = self._finalized_env(slots, nn)
+        view = slicing.combine_windows(self.state, self.store_layout, len(self.key_types), slots)
+        env, row_ts = self._finalized_env(view, nn)
         env, mask = self._apply_ops(self.post_ops, env, mask, nn)
         return self._pack_emits(env, mask, row_ts)
 
-    def _pack_emits(self, env: Dict[str, DCol], mask: torch.Tensor,
-                    ts: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _pack_emits(self, env: Dict[str, DCol], mask: torch.Tensor, ts: torch.Tensor,
+                    schema: Optional[LogicalSchema] = None) -> Dict[str, torch.Tensor]:
         out: Dict[str, torch.Tensor] = {"emit_mask": mask, "emit_ts": ts}
-        for col in self._emit_schema().columns():
+        schema = schema if schema is not None else self._emit_schema()
+        for col in schema.columns():
             d = env.get(col.name)
             if d is None:
                 raise DeviceUnsupported(f"sink column {col.name} not computed on device")
@@ -416,7 +701,10 @@ class TorchCompiledQuery:
         return out
 
     def _evict(self) -> None:
-        hs.evict(self.state, self.store_layout, self.retention_ms)
+        # sliced slots are per KEY: a slot expires only once its NEWEST
+        # slice left the retention (stale ring cells recycle in place at
+        # the next wrap)
+        hs.evict(self.state, self.store_layout, self.retention_ms, sliced=self.sliced)
         self.evictions += 1
 
     # ------------------------------------------------------------ host API
@@ -428,6 +716,8 @@ class TorchCompiledQuery:
 
     def process_arrays(self, arrays: Dict[str, np.ndarray]) -> List[SinkEmit]:
         """One encoded micro-batch through the device step."""
+        if self.sliced:
+            self.ensure_ring_for(arrays["ts"], arrays["row_valid"])
         emits = self._step(self.upload(arrays))
         if self.agg is not None:
             self._batches += 1
@@ -457,6 +747,8 @@ class TorchCompiledQuery:
     def _react_to_load(self, emits: Dict[str, torch.Tensor]) -> None:
         """Grow the store before it can overflow (and fail loudly if it
         somehow did — slot exhaustion drops aggregates)."""
+        if "smax_ts" in emits:
+            self._mirror_max_ts = max(self._mirror_max_ts, int(emits["smax_ts"]))
         overflow = int(emits["overflow"])
         if overflow > self._seen_overflow:
             self._seen_overflow = overflow
@@ -466,7 +758,7 @@ class TorchCompiledQuery:
                 "key×window cardinality"
             )
         occupancy = int(emits["occupancy"])
-        headroom = self.capacity
+        headroom = self.capacity * self.expansion
         if self.pipeline:
             headroom *= 4  # load checks are sampled every 4th batch
         if occupancy + headroom > 0.75 * self.store_capacity:
@@ -488,7 +780,7 @@ class TorchCompiledQuery:
         old = state_to_numpy(self.state)
         self.store_capacity *= factor
         self.store_layout = dataclasses.replace(self.store_layout, capacity=self.store_capacity)
-        new = state_to_numpy(hs.init_store(self.store_layout, "cpu"))
+        new = state_to_numpy(self.init_state("cpu"))
         scalars = {k for k, v in old.items() if v.ndim == 0}
         live = np.nonzero(old["occ"][:-1])[0]
         if live.size:

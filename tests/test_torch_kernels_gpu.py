@@ -4,17 +4,21 @@ These tests need an NVIDIA card with the CUDA toolkit (the kernels are
 compiled with nvcc at first use); without one each test skips from its
 fixture.  Run them on the card with
 
-    python -m pytest -m gpu tests/test_torch_kernels_gpu.py
+    python -m pytest -m gpu --noconftest tests/test_torch_kernels_gpu.py
 
 Ints, bools, hashes and slots must be equal; float64 sums agree to rtol
-1e-12 (atomic fold order is not fixed).
+1e-12 (atomic fold order is not fixed).  The sliced stores come from
+``chip_smoke.make_sliced_case``, the generator of the chip check's own
+kernel phase.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from ksql_tpu_torch.ops import hash_store as hs
+from ksql_tpu_torch.ops import slicing
 
 pytestmark = pytest.mark.gpu
 I64 = np.iinfo(np.int64)
@@ -57,8 +61,10 @@ def test_row_prologue_kernel_matches_twin(dev, k, size):
     reprs, valid, ts, active, max_ts = _prologue_inputs(dev, 5000, k, k)
     args = (reprs, valid, ts, active, size, 24 * HOUR, max_ts, 1 << 12)
     before = hs.row_prologue.launches
+    mode_before = dict(hs.row_prologue.mode_launches)
     got = hs.row_prologue(*args)
     assert hs.row_prologue.launches == before + 1
+    assert hs.row_prologue.mode_launches == {**mode_before, "tumbling": mode_before["tumbling"] + 1}
     for g, w in zip(got, hs.row_prologue_plain(*args)):
         _same(g, w)
 
@@ -124,7 +130,9 @@ def test_evict_kernel_matches_twin(dev):
     st["max_ts"].fill_(40 * HOUR)
     sk = {k: v.clone() for k, v in st.items()}
     sp = {k: v.clone() for k, v in st.items()}
+    mode_before = dict(hs.evict.mode_launches)
     hs.evict(sk, layout, 25 * HOUR)
+    assert hs.evict.mode_launches == {**mode_before, "tumbling": mode_before["tumbling"] + 1}
     hs.evict_plain(sp, layout, 25 * HOUR)
     for k in st:
         _same(sk[k], sp[k])
@@ -136,3 +144,108 @@ def test_cuda_tensor_never_takes_the_twin(dev):
     reprs, valid, ts, active, max_ts = _prologue_inputs(dev, 64, 1, 0)
     with pytest.raises(ValueError):
         hs.row_prologue(reprs.to(torch.int32), valid, ts, active, HOUR, 0, max_ts, 64)
+
+
+@pytest.mark.parametrize("mode", ["sliced", "expansion"])
+@pytest.mark.parametrize("k", [1, 2])
+def test_row_prologue_hopping_modes_match_twin(dev, mode, k):
+    reprs, valid, ts, active, max_ts = _prologue_inputs(dev, 5000, k, 10 + k)
+    hop = dict(advance_ms=15 * 60_000)
+    if mode == "sliced":
+        # a ring of 26 h: the horizon cut drops the oldest rows
+        hop.update(slice_width=15 * 60_000, slice_ring=106)
+    args = (reprs, valid, ts, active, HOUR, 24 * HOUR, max_ts, 1 << 12)
+    before = hs.row_prologue.launches
+    mode_before = dict(hs.row_prologue.mode_launches)
+    got = hs.row_prologue(*args, **hop)
+    assert hs.row_prologue.launches == before + 1
+    assert hs.row_prologue.mode_launches == {**mode_before, mode: mode_before[mode] + 1}
+    want = hs.row_prologue_plain(*args, **hop)
+    for g, w in zip(got, want):
+        _same(g, w)
+    assert 0 < int(got[2].sum()) < got[2].numel()
+
+
+def _sliced(dev, seed, capacity=1 << 10, ring=30, n=3000, **kw):
+    layout, store, rows = chip_smoke.make_sliced_case(
+        hs, np.random.default_rng(seed), capacity, ring, n, **kw)
+    st = {k: torch.from_numpy(v).to(dev) for k, v in store.items()}
+    r = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in rows.items() if k != "contribs"}
+    r["contribs"] = [torch.from_numpy(c).to(dev) for c in rows["contribs"]]
+    return layout, st, r
+
+
+FLOAT_COMPONENTS = chip_smoke.HOP_COMPONENTS + (
+    ("add", "float64", 0.0), ("min", "float64", float("inf")), ("max", "float64", float("-inf")),
+)
+SW = chip_smoke.SLICE_MS
+
+
+@pytest.mark.parametrize("components", [chip_smoke.HOP_COMPONENTS, FLOAT_COMPONENTS])
+def test_sliced_fold_kernel_matches_twin(dev, components):
+    layout, st, r = _sliced(dev, 1, components=components, specials=len(components) > 8)
+    ring = layout.components[0].width
+    sk = {k: v.clone() for k, v in st.items()}
+    sp = {k: v.clone() for k, v in st.items()}
+    scratch = slicing.init_slice_scratch(layout.capacity, ring, 4, dev)
+    args = (layout, r["slots"], r["wstart"], r["contribs"], r["active"], SW)
+    before = slicing.sliced_fold.launches
+    slicing.sliced_fold(sk, scratch, *args)
+    assert slicing.sliced_fold.launches == before + 1
+    slicing.sliced_fold_plain(sp, *args)
+    for k in st:
+        _same(sk[k], sp[k], rtol=1e-12)
+    assert (scratch["ring_last"] == -1).all()
+    assert not torch.equal(sk["slice_id"], st["slice_id"])
+
+
+@pytest.mark.parametrize("one_slot", [False, True])
+def test_member_lanes_and_combine_kernels_match_twins(dev, one_slot):
+    layout, st, r = _sliced(dev, 2, ring=12, components=FLOAT_COMPONENTS, specials=True,
+                            one_slot=one_slot)
+    ring = layout.components[0].width
+    scratch = slicing.init_slice_scratch(layout.capacity, ring, 4, dev)
+    # a grace of 2 h closes the oldest windows at batch start
+    lane_args = (r["slots"], r["active"], r["wstart"], r["max_ts"], layout.capacity,
+                 SW, 4, SW, HOUR, 2 * HOUR, 4)
+    got = slicing.member_lanes(*lane_args, scratch)
+    want = slicing.member_lanes_plain(*lane_args)
+    for g, w in zip(got, want):
+        _same(g, w)
+    assert (scratch["lanes"] == hs.INT32_MAX).all()
+    w_lane, slot_lane, winner = want
+    assert 0 < int(winner.sum()) < int((r["active"] & (r["slots"] != layout.capacity)).sum()) * 4
+    mode_before = dict(slicing.combine_windows.mode_launches)
+    got = slicing.combine_windows(st, layout, 1, slot_lane, w_lane, 4, SW)
+    assert slicing.combine_windows.mode_launches == {**mode_before, "sliced": mode_before["sliced"] + 1}
+    want = slicing.combine_windows_plain(st, layout, 1, slot_lane, w_lane, 4, SW)
+    assert set(got) == set(want)
+    for k in want:
+        _same(got[k], want[k], rtol=1e-12)
+
+
+def test_combine_kernel_plain_gather_matches_twin(dev):
+    layout, st = _store(dev, 1 << 12, 2000, 100, seed=7)
+    slots = torch.from_numpy(np.random.default_rng(3).integers(0, (1 << 12) + 1, 9000)
+                             .astype(np.int32)).to(dev)
+    mode_before = dict(slicing.combine_windows.mode_launches)
+    got = slicing.combine_windows(st, layout, 1, slots)
+    assert slicing.combine_windows.mode_launches == {**mode_before, "gather": mode_before["gather"] + 1}
+    want = slicing.combine_windows_plain(st, layout, 1, slots)
+    for k in want:
+        _same(got[k], want[k])
+
+
+def test_evict_kernel_sliced_matches_twin(dev):
+    layout, st, _r = _sliced(dev, 4)
+    live = st["slast"][st["occ"]]
+    st["max_ts"].fill_(int(live.median()) + 20 * SW)
+    sk = {k: v.clone() for k, v in st.items()}
+    sp = {k: v.clone() for k, v in st.items()}
+    mode_before = dict(hs.evict.mode_launches)
+    hs.evict(sk, layout, 20 * SW, sliced=True)
+    assert hs.evict.mode_launches == {**mode_before, "sliced": mode_before["sliced"] + 1}
+    hs.evict_plain(sp, layout, 20 * SW, sliced=True)
+    for k in st:
+        _same(sk[k], sp[k])
+    assert (st["occ"] & ~sk["occ"]).any() and sk["occ"].any()

@@ -7,7 +7,8 @@ included) and every emit lane the port produces, bit for bit, plus the
 decoded SinkEmits.  The cases are the flagship (BASELINE #1) and the
 tumbling, unwindowed, stateless and two-key cases of test_device_parity.py,
 with store growth (``_grow``), the retention pass, the pipelined double
-buffer, and a hand-over of mid-stream reference state.
+buffer, and a hand-over of mid-stream reference state.  ``run_parity`` is
+also the harness of the hopping cases (``test_torch_hopping.py``).
 """
 
 import json
@@ -130,11 +131,14 @@ def assert_same_lanes(ref_lanes, port_lanes, where):
 
 
 def run_parity(ddl, query, batches, capacity, store, pipeline=False,
-               evict_interval=None, handoff_at=None):
+               evict_interval=None, handoff_at=None, **query_kw):
+    """``query_kw`` (``sliced``, ``slice_ring_max``) goes to both queries."""
     engine, plan, schema = plan_for(ddl, query)
-    ref_q = CompiledDeviceQuery(plan, engine.registry, capacity=capacity, store_capacity=store)
+    ref_q = CompiledDeviceQuery(plan, engine.registry, capacity=capacity, store_capacity=store,
+                                **query_kw)
     port_plan = plan_from_json(json.loads(json.dumps(plan_to_json(plan))))
-    port_q = TorchCompiledQuery(port_plan, capacity=capacity, store_capacity=store, device="cpu")
+    port_q = TorchCompiledQuery(port_plan, capacity=capacity, store_capacity=store, device="cpu",
+                                **query_kw)
     port_schema = LogicalSchema.from_json(schema.to_json())
     ref_q.pipeline = port_q.pipeline = pipeline
     if evict_interval is not None:
@@ -147,8 +151,14 @@ def run_parity(ddl, query, batches, capacity, store, pipeline=False,
         if i == handoff_at:
             # carry the reference's mid-stream state into a fresh port query
             port_q = TorchCompiledQuery(port_plan, capacity=capacity,
-                                        store_capacity=ref_q.store_capacity, device="cpu")
+                                        store_capacity=ref_q.store_capacity, device="cpu",
+                                        **query_kw)
             port_q.pipeline = pipeline
+            port_q.EVICT_INTERVAL = ref_q.EVICT_INTERVAL
+            if ref_q.sliced:
+                port_q._resize_ring(ref_q.slice_ring)
+                port_q._mirror_max_ts = ref_q._mirror_max_ts
+                port_q._host_min_slice = ref_q._host_min_slice
             port_q.state = state_from_numpy(jax.device_get(ref_q.state), "cpu")
             port_q.dictionary._map.update(ref_q.dictionary._map)
             port_q._batches = ref_q._batches
@@ -262,8 +272,9 @@ def test_overflow_raises_like_reference():
 
 
 UNSUPPORTED = {
-    "hopping": "CREATE TABLE C AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
-               "WINDOW HOPPING (SIZE 1 HOUR, ADVANCE BY 20 MINUTES) GROUP BY URL;",
+    "hopping_emit_final": "CREATE TABLE C AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
+                          "WINDOW HOPPING (SIZE 1 HOUR, ADVANCE BY 20 MINUTES, GRACE PERIOD 0 SECONDS) "
+                          "GROUP BY URL EMIT FINAL;",
     "session": "CREATE TABLE C AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
                "WINDOW SESSION (5 MINUTES) GROUP BY URL;",
     "emit_final": "CREATE TABLE C AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "

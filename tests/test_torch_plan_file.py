@@ -1,10 +1,12 @@
-"""The committed flagship plan stays what the JAX engine builds today.
+"""The committed plans stay what the JAX engine builds today.
 
-``ksql_tpu_torch/plans/pv_counts_tumbling.json`` is the serialized physical
-plan that ``chip_smoke.py`` runs (the port has no SQL front end yet): it
-must equal ``plan_to_json`` of the plan the reference engine builds for the
-bench's page-view stream and its tumbling COUNT(*) table, and the port's
-decoder must read it back to the same JSON.
+``ksql_tpu_torch/plans/pv_counts_tumbling.json`` (BASELINE #1) and
+``pv_stats_hopping.json`` (BASELINE #2) are the serialized physical plans
+that ``chip_smoke.py`` runs (the port has no SQL front end yet): each must
+equal ``plan_to_json`` of the plan the reference engine builds for the
+bench's page-view stream and its table (``bench.py``'s tumbling COUNT(*)
+and hopping SUM/AVG/MIN/MAX), and the port's decoder must read it back to
+the same JSON.
 """
 
 import json
@@ -15,28 +17,51 @@ from ksql_tpu.execution.steps import plan_to_json
 from ksql_tpu_torch.execution import expressions as pex
 from ksql_tpu_torch.execution.steps import PLAN_FORMAT_VERSION, plan_from_json
 
-PLAN_FILE = os.path.join(
-    os.path.dirname(__file__), os.pardir, "ksql_tpu_torch", "plans", "pv_counts_tumbling.json"
-)
-CTAS = (
-    "CREATE TABLE PV_COUNTS AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
-    "WINDOW TUMBLING (SIZE 1 HOUR) GROUP BY URL EMIT CHANGES;"
-)
+PLANS = os.path.join(os.path.dirname(__file__), os.pardir, "ksql_tpu_torch", "plans")
+CTAS = {
+    "pv_counts_tumbling.json": (
+        "CREATE TABLE PV_COUNTS AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
+        "WINDOW TUMBLING (SIZE 1 HOUR) GROUP BY URL EMIT CHANGES;"
+    ),
+    # bench.py:212-216, bench_hopping_multi_udaf
+    "pv_stats_hopping.json": (
+        "CREATE TABLE PV_STATS AS SELECT URL, SUM(USER_ID) AS S, AVG(USER_ID) AS A, "
+        "MIN(USER_ID) AS MN, MAX(USER_ID) AS MX FROM PAGE_VIEWS "
+        "WINDOW HOPPING (SIZE 1 HOUR, ADVANCE BY 15 MINUTES) GROUP BY URL EMIT CHANGES;"
+    ),
+}
+SINKS = {"pv_counts_tumbling.json": "PV_COUNTS", "pv_stats_hopping.json": "PV_STATS"}
 
 
-def _committed():
-    with open(PLAN_FILE) as f:
+def _committed(name):
+    with open(os.path.join(PLANS, name)) as f:
         return json.load(f)
 
 
-def test_plan_file_equals_reference_engine_plan():
+def _check_equals_reference(name):
     engine = bench._engine()
-    plan = bench._plan_of(engine, [bench.PV_DDL, CTAS])
-    assert _committed() == json.loads(json.dumps(plan_to_json(plan)))
+    plan = bench._plan_of(engine, [bench.PV_DDL, CTAS[name]])
+    assert _committed(name) == json.loads(json.dumps(plan_to_json(plan)))
+
+
+def _check_decodes(name):
+    obj = _committed(name)
+    plan = plan_from_json(obj)
+    assert {"version": PLAN_FORMAT_VERSION, "plan": pex.encode(plan)} == obj
+    assert plan.physical_plan.topic == SINKS[name]
+
+
+def test_plan_file_equals_reference_engine_plan():
+    _check_equals_reference("pv_counts_tumbling.json")
 
 
 def test_port_decodes_plan_file_losslessly():
-    obj = _committed()
-    plan = plan_from_json(obj)
-    assert {"version": PLAN_FORMAT_VERSION, "plan": pex.encode(plan)} == obj
-    assert plan.physical_plan.topic == "PV_COUNTS"
+    _check_decodes("pv_counts_tumbling.json")
+
+
+def test_hopping_plan_file_equals_reference_engine_plan():
+    _check_equals_reference("pv_stats_hopping.json")
+
+
+def test_port_decodes_hopping_plan_file_losslessly():
+    _check_decodes("pv_stats_hopping.json")

@@ -39,6 +39,10 @@ QUERIES = {
     "two_keys_projected": "CREATE TABLE C AS SELECT URL, UID, COUNT(*) * 2 AS C2 FROM PV "
                           "WINDOW TUMBLING (SIZE 30 MINUTES) GROUP BY URL, UID EMIT CHANGES;",
     "stateless": "CREATE STREAM S AS SELECT URL, UID * 2 AS U2, LAT FROM PV WHERE LAT > 100 EMIT CHANGES;",
+    # BASELINE #2's aggregates over a hopping window (sliced route)
+    "hopping_aggs": "CREATE TABLE C AS SELECT URL, SUM(UID) AS S, AVG(UID) AS A, MIN(UID) AS MN, "
+                    "MAX(UID) AS MX FROM PV WINDOW HOPPING (SIZE 1 HOUR, ADVANCE BY 15 MINUTES) "
+                    "GROUP BY URL EMIT CHANGES;",
 }
 
 
@@ -98,6 +102,7 @@ def test_sink_equals_device_backend_and_oracle(name):
 
 BATCHED = {
     "flagship": QUERIES["flagship"],
+    "hopping_aggs": QUERIES["hopping_aggs"],
     "double_aggs": "CREATE TABLE C AS SELECT UID, SUM(LAT) AS S, MIN(LAT) AS MN, MAX(LAT) AS MX "
                    "FROM PV WINDOW TUMBLING (SIZE 2 HOURS) GROUP BY UID EMIT CHANGES;",
 }
