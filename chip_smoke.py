@@ -51,16 +51,32 @@ Phases, in this order; any failure exits non-zero and prints no result:
    in every hour and an hour-local pool of 2,000 URLs per hour: at least
    one retention pass (K4) must free keys, the ring must be resized, the
    store must grow, values must equal the dict reference.
+2j. The stream-table join's kernels against their twins at BASELINE #3's
+   shapes (65,536 rows, a 2^18-slot table of 100,000 users with 5% graves,
+   stream keys uniform over 0..199,999 so about half match): K8
+   probe_find, K1's table mode, and K9 table_upsert after K2 on a
+   changelog batch with repeated keys, tombstones (some of absent keys)
+   and delete + re-insert pairs; all exact, the dump row included.
+   Yardstick: ``index_select`` per column for K8.
 8. Hopping end to end on the expansion route (``sliced=False``), phase 6's
    traffic into a 2^20-slot store: the sink must equal the CPU run, and the
    final value per (URL, window) phase 6's and the dict's.
+9. BASELINE #3 end to end (``ksql_tpu_torch/plans/enriched_join.json``,
+   CLICKS LEFT JOIN USERS WHERE REGION <> 'excluded') through
+   ``start_plan``/``run_until_quiescent``: 100,000 USERS into a 2^18-slot
+   table store, 16 x 65,536 CLICKS, then 8 more batches with 4,096 USERS
+   changes before every fourth; the sink must equal a dict join replayed
+   in the executor's order, record for record, with no overflow.
+9g. Table growth: the users in ticks of 4,096 into a 2^14-slot table
+   store, which must double to 2^18 while they load; then one click batch
+   must equal the dict join.
 5. Launch counters, per path: the counts (per kernel, and per mode for K1,
-   K4 and K6) are set to 0 just before each of phases 3, 4, 6, 7 and 8
-   drives ``run_plan`` on the card and read just after it; each phase must
-   have launched every kernel of its route in the route's mode
+   K4 and K6) are set to 0 just before each of phases 3, 4, 6, 7, 8, 9 and
+   9g drives the runner on the card and read just after it; each phase
+   must have launched every kernel of its route in the route's mode
    (``PATH_KERNELS``).  Then short profiled re-runs split a batch's time
-   into host stages and the card's busy share, for the flagship (3b) and
-   BASELINE #2 (6b).
+   into host stages and the card's busy share, for the flagship (3b),
+   BASELINE #2 (6b) and BASELINE #3 (9b).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON record, and the line before that the card's name and
@@ -138,6 +154,8 @@ KERNEL_FUNCS = {
     "sliced_fold": ("slice_reset_kernel", "slice_fold_kernel"),
     "combine_windows": ("combine_kernel",),
     "member_lanes": ("lane_claim_kernel", "lane_winner_kernel"),
+    "probe_find": ("probe_find_kernel",),
+    "table_upsert": ("claim_kernel", "upsert_kernel", "dump_kernel"),
 }
 
 
@@ -740,6 +758,194 @@ def phase_hop_kernels(torch, seed, n=HOP_ROWS, capacity=HOP_STORE, ring=HOP_RING
     return recs
 
 
+# ------------------------------------------------------------- phase 2j
+JOIN_ROWS = 1 << 16  # BASELINE #3's batch (bench.py CAPACITY)
+JOIN_STORE = 1 << 18  # bench.py:557, the table store of bench_stream_table_join
+JOIN_USERS = 100_000  # bench.py:556
+N_REGIONS = 50
+#: BASELINE #3's table columns (ENRICHED keeps U_REGION, a string hash)
+JOIN_COLS = (("U_REGION", "int64"),)
+_NP = {"int64": np.int64, "int32": np.int32, "float64": np.float64, "bool": np.bool_}
+
+
+def _col_values(rng, dtype, n):
+    if dtype == "float64":
+        return np.round(rng.standard_normal(n) * 1e3, 3)
+    if dtype == "bool":
+        return rng.random(n) < 0.5
+    info = np.iinfo(_NP[dtype])
+    return rng.integers(info.min, info.max, n, dtype=_NP[dtype])
+
+
+def make_join_case(torch, hs, rng, capacity, n_users, cols=JOIN_COLS, grave_frac=0.05):
+    """A join table store, as numpy: users 0..n_users-1 keyed as the
+    table step keys them (key0 = id, khash = combine_hash([id]), window
+    0), a fraction ``grave_frac`` of them deleted (graves), and per column
+    of ``cols`` a ``v_``/``m_`` pair of random values (5% null); the dump
+    row holds a row's values, as an earlier batch leaves it."""
+    st = {k: v.numpy().copy() for k, v in hs.init_store(hs.StoreLayout(capacity, 1, ()), "cpu").items()}
+    ids = np.arange(n_users, dtype=np.int64)
+    khash = hs.combine_hash([torch.from_numpy(ids)]).numpy()
+    slots = fill_store(hs, st["occ"], st["khash"], st["wstart"], capacity, khash, np.zeros(n_users, np.int64))
+    st["key0"][slots] = ids
+    for name, dtype in cols:
+        v = np.zeros(capacity + 1, _NP[dtype])
+        m = np.zeros(capacity + 1, bool)
+        v[slots] = _col_values(rng, dtype, n_users)
+        m[slots] = rng.random(n_users) > 0.05
+        v[capacity], m[capacity] = v[slots[0]], True
+        st[f"v_{name}"], st[f"m_{name}"] = v, m
+    graves = slots[rng.random(n_users) < grave_frac]
+    st["occ"][graves] = False
+    st["grave"][graves] = True
+    return st
+
+
+def probe_walk(hs, store, capacity, krepr, look):
+    """The reference's find walk replayed in numpy: (slots read, distinct
+    slots read) by the rows ``look`` (the data-dependent part of K8's
+    bound)."""
+    mask = capacity - 1
+    gold = np.uint64(0x9E3779B97F4A7C15)
+    h = hs.np_mix64(((krepr.astype(np.int64).view(np.uint64) + gold) ^ gold).view(np.int64))
+    cand = hs.np_mix64(h) & mask
+    todo = np.nonzero(look)[0]
+    seen = []
+    for _ in range(32):
+        if not todo.size:
+            break
+        c = cand[todo]
+        seen.append(c)
+        hit = store["occ"][c] & (store["khash"][c] == h[todo])
+        empty = ~(store["occ"][c] | store["grave"][c])
+        keep = ~(hit | empty)
+        todo = todo[keep]
+        cand[todo] = (cand[todo] + 1) & mask
+    allc = np.concatenate(seen) if seen else np.zeros(0, np.int64)
+    return allc.size, np.unique(allc).size
+
+
+def table_batch(rng, n, n_users, pad=100):
+    """A changelog batch of ``n`` rows: keys over 1.1 x ``n_users`` (so
+    some are new and repeat in the batch), 5% tombstones (some of absent
+    keys), 1% delete + re-insert pairs, 0.5% null keys and ``pad``
+    inactive rows at the end.  Returns (keys, key valid, delete, active)."""
+    keys = rng.integers(0, int(n_users * 1.1), n)
+    dels = rng.random(n) < 0.05
+    pairs = rng.choice(n - 1, n // 100, replace=False)
+    dels[pairs], dels[pairs + 1] = True, False
+    keys[pairs + 1] = keys[pairs]
+    return keys, rng.random(n) > 0.005, dels, np.arange(n) < n - pad
+
+
+def phase_join_kernels(torch, seed, n=JOIN_ROWS, capacity=JOIN_STORE, n_users=JOIN_USERS):
+    """BASELINE #3's kernels against their twins at its shapes: K8
+    probe_find (65,536 stream rows, keys uniform over 0..199,999 so about
+    half match, into a 2^18-slot table of 100,000 users with 5% graves),
+    K1's table mode, and K9 table_upsert after K2 on a 65,536-row
+    changelog batch.  Everything exact, the dump row included.  Returns
+    ``{kernel: {mode: record}}``."""
+    from ksql_tpu_torch.ops import hash_store as hs
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 20)
+    st_np = make_join_case(torch, hs, rng, capacity, n_users)
+    store = {k: torch.from_numpy(v).to(dev) for k, v in st_np.items()}
+    cols = [c for c, _ in JOIN_COLS]
+    recs: dict = {}
+
+    # ---- K8 probe_find
+    uid = rng.integers(0, 2 * n_users, n)
+    kvalid_np = rng.random(n) > 0.01
+    active_np = np.arange(n) < n - 17
+    krepr = torch.from_numpy(uid).to(dev)
+    kvalid = torch.from_numpy(kvalid_np).to(dev)
+    active = torch.from_numpy(active_np).to(dev)
+    args = (store, capacity, krepr, kvalid, active, cols)
+    got = hs.probe_find(*args)
+    want = hs.probe_find_gather_plain(*args)
+    for nm in want[0]:
+        _assert_equal(torch, f"probe_find.{nm}", got[0][nm], want[0][nm])
+    _assert_equal(torch, "probe_find.key0", got[1], want[1])
+    _assert_equal(torch, "probe_find.found", got[2], want[2])
+    n_found = int(want[2].sum())
+    require(0.3 * n < n_found < 0.7 * n, f"probe_find: {n_found} of {n} rows found, about half expected")
+    reads, distinct = probe_walk(hs, st_np, capacity, uid, kvalid_np & active_np)
+    look = active & kvalid
+    slots = hs.probe_find_plain(store, capacity, hs.combine_hash([krepr]),
+                                torch.zeros_like(krepr), look).long()
+    gathered = int(torch.unique(slots).numel())
+    width = sum(np.dtype(_NP[d]).itemsize + 1 for _, d in JOIN_COLS)
+    rec = measure(torch, "probe_find", lambda: hs.probe_find(*args),
+                  lambda: hs.probe_find_gather_plain(*args),
+                  n * (8 + 1 + 1) + n * (8 + 1 + width) + distinct * 18 + gathered * (8 + width),
+                  n * 40 + reads * 6,
+                  library=lambda: [store[c].index_select(0, slots)
+                                   for c in ["key0"] + [f"{p}_{c}" for c in cols for p in "vm"]])
+    recs["probe_find"] = {"join": dict(rec, max_abs_err=0.0)}
+    _report("2j", f"probe_find ({n_found} of {n} rows found, {reads} slot reads, "
+            f"yardstick index_select per column)", recs["probe_find"]["join"])
+
+    # ---- K1 table mode on a changelog batch
+    keys, kv, dels, tact = table_batch(rng, n, n_users)
+    reprs = torch.from_numpy(keys.reshape(1, n)).to(dev)
+    kv2 = torch.from_numpy(kv.reshape(1, n)).to(dev)
+    tactive = torch.from_numpy(tact).to(dev)
+    delete = torch.from_numpy(dels).to(dev)
+    pargs = (reprs, kv2, tactive, capacity)
+    got = hs.table_prologue(*pargs)
+    want = hs.table_prologue_plain(*pargs)
+    for nm, g, w in zip(("active", "khash", "base"), got, want):
+        _assert_equal(torch, f"row_prologue[table].{nm}", g, w)
+    # reads repr, valid and active; writes active, khash and base
+    rec = measure(torch, "row_prologue", lambda: hs.table_prologue(*pargs),
+                  lambda: hs.table_prologue_plain(*pargs),
+                  n * (8 + 1 + 1) + n * (1 + 8 + 4), n * 30)
+    recs["row_prologue"] = {"table": dict(rec, max_abs_err=0.0)}
+    _report("2j", "row_prologue[table]", recs["row_prologue"]["table"])
+
+    # ---- K2 then K9 table_upsert, each against its twin
+    act, khash, base = got
+    zeros64 = torch.zeros(n, dtype=torch.int64, device=dev)
+    zeros32 = torch.zeros(n, dtype=torch.int32, device=dev)
+    scratch = hs.init_table_scratch(capacity, dev)
+    sk, sp = _clone(store), _clone(store)
+    slots_k = hs.probe_insert(sk, scratch, capacity, base, khash, zeros64, reprs, zeros32, act)
+    slots_p = hs.probe_insert_plain(sp, capacity, base, khash, zeros64, reprs, zeros32, act)
+    _assert_equal(torch, "probe_insert[table].slots", slots_k, slots_p)
+    for key in store:
+        _assert_equal(torch, f"probe_insert[table].{key}", sk[key], sp[key])
+    require(int(sk["overflow"]) == 0, "probe_insert[table]: overflow")
+    vals = {c: (torch.from_numpy(_col_values(rng, d, n)).to(dev), torch.from_numpy(rng.random(n) > 0.05).to(dev))
+            for c, d in JOIN_COLS}
+    after_k2 = _clone(sk)
+    uk, up = _clone(after_k2), _clone(after_k2)
+    hs.table_upsert(uk, scratch, capacity, slots_k, act, delete, vals)
+    hs.table_upsert_plain(up, capacity, slots_k, act, delete, vals)
+    for key in store:
+        _assert_equal(torch, f"table_upsert.{key}", uk[key], up[key])
+    require(bool((scratch["last"] == -1).all()), "table_upsert: last-writer cells not clean")
+    s_np, act_np, del_np = slots_k.cpu().numpy(), act.cpu().numpy(), dels
+    live_rows = act_np & (s_np != capacity)
+    last = np.full(capacity + 1, -1)
+    np.maximum.at(last, s_np[live_rows], np.nonzero(live_rows)[0])
+    winners = live_rows & (last[s_np] == np.arange(n))
+    n_win, n_del = int(winners.sum()), int((winners & del_np).sum())
+    # tombstones of absent keys claim a fresh slot (K2) and leave a grave
+    absent = int((uk["grave"] & ~(store["occ"] | store["grave"])).sum())
+    require(n_win < int(live_rows.sum()) and n_del > 0 and absent > 0,
+            "table_upsert: data should hold duplicate keys, deletes and tombstones of absent keys")
+    work = _clone(after_k2)
+    rec = measure(torch, "table_upsert", lambda: hs.table_upsert(work, scratch, capacity, slots_k, act, delete, vals),
+                  lambda: hs.table_upsert_plain(work, capacity, slots_k, act, delete, vals),
+                  n * (4 + 1 + 1 + width) + n_win * width + n_del * 2 + width,
+                  n * 10, reset=lambda: _restore(work, after_k2))
+    recs["table_upsert"] = {"join": dict(rec, max_abs_err=0.0)}
+    _report("2j", f"table_upsert ({n_win} winners of {int(live_rows.sum())} rows, {n_del} deletes, "
+            f"{absent} graves of absent keys)", recs["table_upsert"]["join"])
+    return recs
+
+
 # ------------------------------------------------------------- phase 3/4
 def produce_pageviews(broker, url_idx, ts, user_ids=None):
     from ksql_tpu_torch.runtime.topics import Record
@@ -774,12 +980,17 @@ _TUMBLING = {"row_prologue": "tumbling", "probe_insert": None, "fold_and_mark": 
              "combine_windows": "gather"}
 _SLICED = {"row_prologue": "sliced", "probe_insert": None, "sliced_fold": None,
            "member_lanes": None, "combine_windows": "sliced"}
+#: a stream-table join: K8 per stream batch; K1 (table mode), K2 and K9 per
+#: table batch
+_JOIN = {"probe_find": None, "row_prologue": "table", "probe_insert": None, "table_upsert": None}
 PATH_KERNELS = {
     "3": _TUMBLING,
     "4": {**_TUMBLING, "evict": "tumbling"},
     "6": _SLICED,
     "7": {**_SLICED, "evict": "sliced"},
     "8": {**_TUMBLING, "row_prologue": "expansion"},
+    "9": _JOIN,
+    "9g": _JOIN,
 }
 #: per phase, each kernel's launches in that phase's card run, by mode
 PATH_LAUNCHES: dict = {}
@@ -820,6 +1031,24 @@ def check_path_launches(path: str, launches: dict) -> None:
     print(f"[{path}] launches on this path's card run: {json.dumps(launches)}")
 
 
+def _timed_batches(torch, batch_seconds):
+    """Patch the executor's stream batch to append its synchronized wall
+    seconds to ``batch_seconds``; returns the undo."""
+    from ksql_tpu_torch.runtime.device_executor import TorchDeviceExecutor
+
+    run_batch = TorchDeviceExecutor._run_batch
+
+    def timed_batch(self):
+        t0 = time.perf_counter()
+        out = run_batch(self)
+        torch.cuda.synchronize()
+        batch_seconds.append(time.perf_counter() - t0)
+        return out
+
+    TorchDeviceExecutor._run_batch = timed_batch
+    return lambda: setattr(TorchDeviceExecutor, "_run_batch", run_batch)
+
+
 def run_main_path(torch, plan_json, url_idx, ts, device, store, batch_seconds=None, rows=None,
                   user_ids=None, path=None, **run_kw):
     """``run_plan`` over freshly produced page-view records (``run_kw``:
@@ -830,22 +1059,11 @@ def run_main_path(torch, plan_json, url_idx, ts, device, store, batch_seconds=No
     ``run_plan`` and read just after it into ``PATH_LAUNCHES[path]``, and
     every kernel of the path must have launched."""
     from ksql_tpu_torch.runner import run_plan
-    from ksql_tpu_torch.runtime.device_executor import TorchDeviceExecutor
     from ksql_tpu_torch.runtime.topics import Broker
 
     broker = Broker()
     produce_pageviews(broker, url_idx, ts, user_ids)
-    run_batch = TorchDeviceExecutor._run_batch
-    if batch_seconds is not None:
-        def timed_batch(self):
-            t0 = time.perf_counter()
-            out = run_batch(self)
-            if device != "cpu":
-                torch.cuda.synchronize()
-            batch_seconds.append(time.perf_counter() - t0)
-            return out
-
-        TorchDeviceExecutor._run_batch = timed_batch
+    undo = _timed_batches(torch, batch_seconds) if batch_seconds is not None else (lambda: None)
     try:
         if path is not None:
             zero_launches()
@@ -856,7 +1074,7 @@ def run_main_path(torch, plan_json, url_idx, ts, device, store, batch_seconds=No
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     finally:
-        TorchDeviceExecutor._run_batch = run_batch
+        undo()
     if path is not None:
         PATH_LAUNCHES[path] = read_launches()
         check_path_launches(path, PATH_LAUNCHES[path])
@@ -884,11 +1102,12 @@ def phase_e2e(torch, plan_json, seed):
     return dict(events_per_s=n / secs, p50_ms=p50, p99_ms=p99, peak_bytes=peak)
 
 
-def phase_breakdown(torch, plan_json, url_idx, ts, rows, tag, user_ids=None, **run_kw):
-    """Where an e2e batch's time goes, over the given records (a few
-    batches of ``rows``): host stages timed by wrapping the port's functions
-    (each device step synchronized, so its device work is charged to it —
-    the pipelined overlap is off here), and the card's busy time from
+def phase_breakdown(torch, drive, n_batches, tag):
+    """Where an e2e batch's time goes, over ``drive()`` (a run of a few
+    stream batches through the runner, returning its wall seconds): host
+    stages timed by wrapping the port's functions (each device step and
+    table step synchronized, so its device work is charged to it — the
+    pipelined overlap is off here), and the card's busy time from
     torch.profiler (kernels and copies) against the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -898,7 +1117,6 @@ def phase_breakdown(torch, plan_json, url_idx, ts, rows, tag, user_ids=None, **r
     from ksql_tpu_torch.runtime.lowering import TorchCompiledQuery
     from ksql_tpu_torch.runtime.sink import SinkWriter
 
-    n_batches = -(-url_idx.size // rows)
     acc: dict = {}
 
     def timed(stage, fn, sync=False):
@@ -916,6 +1134,7 @@ def phase_breakdown(torch, plan_json, url_idx, ts, rows, tag, user_ids=None, **r
         (BatchLayout, "encode", "encode", False),
         (TorchCompiledQuery, "upload", "upload", True),
         (TorchCompiledQuery, "_step", "device step", True),
+        (TorchCompiledQuery, "_table_step", "table step", True),
         (TorchCompiledQuery, "_react_to_load", "load check", False),
         (TorchCompiledQuery, "_decode_emits", "emit decode", False),
         (SinkWriter, "produce", "sink produce", False),
@@ -928,15 +1147,14 @@ def phase_breakdown(torch, plan_json, url_idx, ts, rows, tag, user_ids=None, **r
         HostBatch.from_rows = staticmethod(timed("batch assembly", HostBatch.from_rows))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _broker, _ex, wall = run_main_path(torch, plan_json, url_idx, ts, DEVICE, STORE,
-                                               rows=rows, user_ids=user_ids, **run_kw)
+            wall = drive()
     finally:
         for obj, name, orig in saved:
             setattr(obj, name, orig)
     busy = sum(_device_us(e) for e in prof.key_averages()) / 1e6
     per = {k: v / n_batches * 1e3 for k, v in sorted(acc.items(), key=lambda kv: -kv[1])}
     per["other host"] = wall / n_batches * 1e3 - sum(per.values())
-    print(f"[{tag}] breakdown over {n_batches} batches of {rows} (ms per batch): "
+    print(f"[{tag}] breakdown over {n_batches} batches (ms per batch): "
           + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
           + f"; card busy {busy / wall * 100:.2f}% of {wall:.3f} s wall (idle {100 - busy / wall * 100:.2f}%)")
     return {"ms_per_batch": per, "device_busy_share": busy / wall}
@@ -1110,19 +1328,223 @@ def phase_hop_long(torch, plan_json, seed):
                 ring=q.slice_ring, ring_seconds=q.ring_seconds, rebuild_seconds=q.rebuild_seconds)
 
 
+# ------------------------------------------------------------- phase 9
+JOIN_BATCHES = 16
+#: the second part: stream batches with USERS changes before every fourth
+JOIN_CHANGE_BATCHES = 8
+JOIN_CHANGES = 4096
+#: phase 9g: users arrive in ticks of GROW_TICK records into a table store
+#: of GROW_STORE slots, which doubles four times to JOIN_STORE (sizes and
+#: why in PERF.md; scripts/torch_store_overflow.py --table counts the overflow)
+GROW_TICK = 4096
+GROW_STORE = 1 << 14
+
+
+def produce_users(broker, ids, regions, ts):
+    """USERS changelog records: key = ID, value NAME/REGION (``None``
+    region: null; ``False``: a tombstone)."""
+    from ksql_tpu_torch.runtime.topics import Record
+
+    topic = broker.create_topic("users")
+    for k, region in zip(ids, regions):
+        if region is False:
+            value = None
+        elif region is None:
+            value = f'{{"NAME":"user{k}","REGION":null}}'
+        else:
+            value = f'{{"NAME":"user{k}","REGION":"{region}"}}'
+        topic.produce(Record(key=k, value=value, timestamp=ts))
+
+
+def produce_clicks(broker, uid, ts):
+    from ksql_tpu_torch.runtime.topics import Record
+
+    topic = broker.create_topic("clicks")
+    for u, t in zip(uid.tolist(), ts.tolist()):
+        topic.produce(Record(key=None, value=f'{{"USER_ID":{u},"URL":"/u/{u % 997}"}}', timestamp=t))
+
+
+def dict_join(users, uid, ts):
+    """ENRICHED by a plain dict: a click emits (USER_ID, URL, REGION, ts)
+    when its user is in the table with a region other than 'excluded'
+    (LEFT JOIN, then WHERE U.REGION <> 'excluded', which a null region
+    fails)."""
+    out = []
+    for u, t in zip(uid.tolist(), ts.tolist()):
+        region = users.get(u)
+        if region is not None and region != "excluded":
+            out.append((u, f"/u/{u % 997}", region, t))
+    return out
+
+
+def enriched_sink(broker):
+    out = []
+    for r in broker.topic("ENRICHED").all_records():
+        v = json.loads(r.value)
+        out.append((r.key, v["URL"], v["REGION"], r.timestamp))
+    return out
+
+
+def user_changes(rng, users, n, next_key):
+    """``n`` USERS changes, applied to ``users`` in order: a third each
+    tombstones (of present keys, some absent), new keys and updates of a
+    present key's region, a fifth of those to 'excluded'.  Returns (ids,
+    regions, next new key)."""
+    present = np.fromiter(users.keys(), np.int64, len(users))
+    ids, regions = [], []
+    for kind, pick in zip(rng.integers(0, 3, n).tolist(), rng.integers(0, present.size, n).tolist()):
+        if kind == 0:
+            k = int(present[pick]) if rng.random() > 0.1 else int(next_key + 10**6)
+            region = False
+            users.pop(k, None)
+        elif kind == 1:
+            k, next_key = next_key, next_key + 1
+            region = f"r{k % N_REGIONS}"
+            users[k] = region
+        else:
+            k = int(present[pick])
+            region = "excluded" if rng.random() < 0.2 else f"r{int(rng.integers(0, N_REGIONS))}"
+            users[k] = region
+        ids.append(k)
+        regions.append(region)
+    return ids, regions, next_key
+
+
+def phase_join_e2e(torch, plan_json, seed):
+    """BASELINE #3 end to end through ``start_plan``/``run_until_quiescent``
+    at ``bench.py:534``'s widths: 100,000 USERS (REGION r{k % 50}) into a
+    2^18-slot table store, then 16 x 65,536 CLICKS (USER_ID
+    uniform in 0..199,999, URL /u/{uid % 997}); then JOIN_CHANGE_BATCHES
+    (8) more stream batches with 4,096 USERS changes before every fourth.  The
+    sink must equal a dict join replayed in the executor's order, record
+    for record, and nothing may overflow."""
+    from ksql_tpu_torch.runner import run_until_quiescent, start_plan
+    from ksql_tpu_torch.runtime.topics import Broker
+
+    n_batches, change_batches, path = JOIN_BATCHES, JOIN_CHANGE_BATCHES, "9"
+    rng = np.random.default_rng(seed + 5)
+    broker = Broker()
+    users = {k: f"r{k % N_REGIONS}" for k in range(JOIN_USERS)}
+    torch.cuda.reset_peak_memory_stats()
+    h = start_plan(plan_json, broker, device=DEVICE, capacity=JOIN_ROWS, table_store_capacity=JOIN_STORE)
+    zero_launches()
+    t0 = time.perf_counter()
+    produce_users(broker, list(users), list(users.values()), TS0)
+    run_until_quiescent(h)
+    load_s = time.perf_counter() - t0
+    n = n_batches * JOIN_ROWS
+    uid = rng.integers(0, 2 * JOIN_USERS, n)
+    ts = TS0 + 1 + np.arange(n, dtype=np.int64) * 3
+    produce_clicks(broker, uid, ts)
+    want = dict_join(users, uid, ts)
+    batch_s: list = []
+    undo = _timed_batches(torch, batch_s)
+    try:
+        t0 = time.perf_counter()
+        run_until_quiescent(h)
+        h.executor.drain()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        # the second part: table changes between stream batches
+        next_key, t, changes = JOIN_USERS, int(ts[-1]), 0
+        t1 = time.perf_counter()
+        for b in range(change_batches):
+            if b % 4 == 0:
+                ids, regions, next_key = user_changes(rng, users, JOIN_CHANGES, next_key)
+                produce_users(broker, ids, regions, t)
+                run_until_quiescent(h)
+                changes += len(ids)
+            uid2 = rng.integers(0, 2 * JOIN_USERS, JOIN_ROWS)
+            ts2 = t + 1 + np.arange(JOIN_ROWS, dtype=np.int64) * 3
+            t = int(ts2[-1])
+            produce_clicks(broker, uid2, ts2)
+            want += dict_join(users, uid2, ts2)
+            run_until_quiescent(h)
+        h.executor.drain()
+        torch.cuda.synchronize()
+        secs2 = time.perf_counter() - t1
+    finally:
+        undo()
+    PATH_LAUNCHES[path] = read_launches()
+    check_path_launches(path, PATH_LAUNCHES[path])
+    peak = torch.cuda.max_memory_allocated()
+    q = h.executor.query
+    require(int(q.state["jtab"]["overflow"]) == 0, f"{path}: table store overflowed")
+    require(q.table_store_capacity == JOIN_STORE and q.table_grows == 0,
+            f"{path}: table store at {q.table_store_capacity} slots after {q.table_grows} grows")
+    got = enriched_sink(broker)
+    require(got == want, f"{path}: sink differs from the dict join ({len(got)} vs {len(want)} records, "
+            f"first difference at {next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))})")
+    p50, p99 = np.percentile(np.array(batch_s[:n_batches]) * 1e3, [50, 99])
+    print(f"[{path}] BASELINE #3 ENRICHED: {JOIN_USERS} users loaded in {load_s:.3f} s; {n} click events "
+          f"in {secs:.3f} s = {n / secs:.1f} events/s, batch p50 {p50:.3f} ms p99 {p99:.3f} ms over "
+          f"{n_batches} batches; then {change_batches * JOIN_ROWS} events with {changes} table changes "
+          f"between batches in {secs2:.3f} s = {change_batches * JOIN_ROWS / secs2:.1f} events/s; "
+          f"{len(got)} sink records equal the dict join; table store {q.table_store_capacity} slots, "
+          f"overflow 0; peak device memory {peak} B")
+    return dict(events_per_s=n / secs, p50_ms=p50, p99_ms=p99, events_per_s_with_changes=change_batches * JOIN_ROWS / secs2,
+                sink_records=len(got), load_s=load_s, peak_bytes=peak)
+
+
+def phase_join_growth(torch, plan_json, seed):
+    """Table growth on the card: the 100,000 users arrive in ticks of
+    GROW_TICK records (each tick polled and drained) into a GROW_STORE-slot
+    table store, so the load check doubles it to 2^18 while they load;
+    then one stream batch must join against every user."""
+    from ksql_tpu_torch.runner import run_until_quiescent, start_plan
+    from ksql_tpu_torch.runtime.topics import Broker
+
+    rng = np.random.default_rng(seed + 6)
+    broker = Broker()
+    users = {k: f"r{k % N_REGIONS}" for k in range(JOIN_USERS)}
+    h = start_plan(plan_json, broker, device=DEVICE, capacity=JOIN_ROWS, table_store_capacity=GROW_STORE)
+    zero_launches()
+    t0 = time.perf_counter()
+    ids = list(users)
+    for start in range(0, JOIN_USERS, GROW_TICK):
+        chunk = ids[start:start + GROW_TICK]
+        produce_users(broker, chunk, [users[k] for k in chunk], TS0)
+        run_until_quiescent(h)
+        h.executor.drain()
+    load_s = time.perf_counter() - t0
+    uid = rng.integers(0, 2 * JOIN_USERS, JOIN_ROWS)
+    ts = TS0 + 1 + np.arange(JOIN_ROWS, dtype=np.int64) * 3
+    produce_clicks(broker, uid, ts)
+    run_until_quiescent(h)
+    h.executor.drain()
+    torch.cuda.synchronize()
+    PATH_LAUNCHES["9g"] = read_launches()
+    check_path_launches("9g", PATH_LAUNCHES["9g"])
+    q = h.executor.query
+    require(q.table_grows >= 3 and q.table_store_capacity == JOIN_STORE,
+            f"9g: table store at {q.table_store_capacity} slots after {q.table_grows} grows")
+    require(int(q.state["jtab"]["overflow"]) == 0, "9g: table store overflowed")
+    got = enriched_sink(broker)
+    want = dict_join(users, uid, ts)
+    require(got == want, f"9g: sink differs from the dict join ({len(got)} vs {len(want)} records)")
+    print(f"[9g] table growth: {JOIN_USERS} users in ticks of {GROW_TICK} in {load_s:.3f} s; "
+          f"{q.table_grows} grows {GROW_STORE} -> {q.table_store_capacity} slots (host rebuild s "
+          f"{[round(x, 4) for x in q.table_rebuild_seconds]}); {len(got)} enriched rows equal the dict join, "
+          "overflow 0")
+    return dict(grows=q.table_grows, rebuild_seconds=q.table_rebuild_seconds, load_s=load_s)
+
+
 # ------------------------------------------------------------------ main
 REPLACES = {
-    "row_prologue": "ksql_tpu/ops/hash_store.py:48 (mix64), :58 (combine_hash); ksql_tpu/runtime/lowering.py:3802 (pre_exchange); ksql_tpu/ops/window.py:63 (hopping_starts), :82 (expand)",
+    "row_prologue": "ksql_tpu/ops/hash_store.py:48 (mix64), :58 (combine_hash); ksql_tpu/runtime/lowering.py:3802 (pre_exchange), :2284 (_trace_table_step key hash); ksql_tpu/ops/window.py:63 (hopping_starts), :82 (expand)",
     "probe_insert": "ksql_tpu/ops/hash_store.py:126 (probe_insert)",
     "fold_and_mark": "ksql_tpu/ops/hash_store.py:502 (scatter_combine), :567 (winners_per_slot)",
     "evict": "ksql_tpu/runtime/lowering.py:4239 (_trace_evict)",
     "sliced_fold": "ksql_tpu/runtime/lowering.py:1988 (_sliced_scatter)",
     "combine_windows": "ksql_tpu/runtime/lowering.py:2036 (_combine_windows), :4073 (_finalized_env gather)",
     "member_lanes": "ksql_tpu/runtime/lowering.py:2116 (_sliced_member_emits)",
+    "probe_find": "ksql_tpu/ops/hash_store.py:210 (probe_find); ksql_tpu/runtime/lowering.py:2986 (_apply_join gather)",
+    "table_upsert": "ksql_tpu/runtime/lowering.py:2284 (_trace_table_step, after its probe_insert)",
 }
 #: the record each kernel's JSON entry carries; the other modes ride along
 MAIN_MODE = {"row_prologue": "tumbling", "evict": "tumbling", "combine_windows": "sliced",
-             "sliced_fold": "sliced", "member_lanes": "sliced"}
+             "sliced_fold": "sliced", "member_lanes": "sliced", "probe_find": "join",
+             "table_upsert": "join"}
 
 
 def kernel_records(wrappers, recs) -> list:
@@ -1165,10 +1587,14 @@ def main() -> int:
     recs = {name: {"tumbling": rec} for name, rec in phase_kernels(torch, args.seed).items()}
     for name, modes in phase_hop_kernels(torch, args.seed).items():
         recs.setdefault(name, {}).update(modes)
+    for name, modes in phase_join_kernels(torch, args.seed).items():
+        recs.setdefault(name, {}).update(modes)
     with open("ksql_tpu_torch/plans/pv_counts_tumbling.json") as f:
         plan_json = json.load(f)
     with open("ksql_tpu_torch/plans/pv_stats_hopping.json") as f:
         hop_json = json.load(f)
+    with open("ksql_tpu_torch/plans/enriched_join.json") as f:
+        join_json = json.load(f)
     wrappers = hs.KERNEL_WRAPPERS + slicing.KERNEL_WRAPPERS
     e2e = phase_e2e(torch, plan_json, args.seed)
     phase_growth(torch, plan_json, args.seed)
@@ -1176,16 +1602,21 @@ def main() -> int:
     e2e["hopping_long"] = phase_hop_long(torch, hop_json, args.seed)
     exp_last, e2e["hopping_expansion"] = phase_hop_e2e(torch, hop_json, args.seed, False, "8")
     require(exp_last == sliced_last, "8: the expansion route's final values differ from the sliced route's")
+    e2e["join"] = phase_join_e2e(torch, join_json, args.seed)
+    e2e["join_growth"] = phase_join_growth(torch, join_json, args.seed)
     require(sorted(PATH_LAUNCHES) == sorted(PATH_KERNELS), f"paths run: {sorted(PATH_LAUNCHES)}")
-    for w in wrappers:  # every kernel of K1-K7 is on some path, in every mode
+    for w in wrappers:  # every kernel of K1-K9 is on some path, in every mode
         for mode in w.__dict__.get("mode_launches", {"all": 0}):
             require(sum(PATH_LAUNCHES[p][w.__name__][mode] for p in PATH_LAUNCHES) > 0,
                     f"kernel {w.__name__}[{mode}] was launched on no path")
+    url_idx, ts = _flagship_head(args.seed)
     e2e["breakdown"] = phase_breakdown(
-        torch, plan_json, *_flagship_head(args.seed), N_ROWS, "3b")
+        torch, lambda: run_main_path(torch, plan_json, url_idx, ts, DEVICE, STORE)[2], 4, "3b")
     url_idx, uid, ts = hop_traffic(args.seed, n_batches=8)
     e2e["hopping_breakdown"] = phase_breakdown(
-        torch, hop_json, url_idx, ts, HOP_ROWS, "6b", user_ids=uid)
+        torch, lambda: run_main_path(torch, hop_json, url_idx, ts, DEVICE, STORE, rows=HOP_ROWS,
+                                     user_ids=uid)[2], 8, "6b")
+    e2e["join_breakdown"] = phase_breakdown(torch, _join_head(torch, join_json, args.seed), 4, "9b")
     kernels = kernel_records(wrappers, recs)
     print(f"e2e: {json.dumps(e2e)}")
     print(f"total seconds {time.perf_counter() - t_start:.1f}")
@@ -1194,6 +1625,32 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _join_head(torch, join_json, seed, n_batches=4):
+    """Phase 9's table load and its first ``n_batches`` stream batches,
+    produced; returns the drive of the breakdown's window: polling the
+    stream batches (and the last table batch, which the first stream row
+    runs) through the runner, in wall seconds."""
+    from ksql_tpu_torch.runner import run_until_quiescent, start_plan
+    from ksql_tpu_torch.runtime.topics import Broker
+
+    broker = Broker()
+    h = start_plan(join_json, broker, device=DEVICE, capacity=JOIN_ROWS, table_store_capacity=JOIN_STORE)
+    produce_users(broker, list(range(JOIN_USERS)), [f"r{k % N_REGIONS}" for k in range(JOIN_USERS)], TS0)
+    run_until_quiescent(h)
+    rng = np.random.default_rng(seed + 5)
+    n = n_batches * JOIN_ROWS
+    produce_clicks(broker, rng.integers(0, 2 * JOIN_USERS, n), TS0 + 1 + np.arange(n, dtype=np.int64) * 3)
+
+    def drive():
+        t0 = time.perf_counter()
+        run_until_quiescent(h)
+        h.executor.drain()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    return drive
 
 
 def _flagship_head(seed, n_batches=4):

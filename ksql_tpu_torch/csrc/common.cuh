@@ -11,6 +11,7 @@
 #define KSQL_MAX_PROBES 32
 #define KSQL_MAX_KEYS 16
 #define KSQL_MAX_COMPS 32
+#define KSQL_MAX_COLS 32
 
 namespace ksql {
 
@@ -127,6 +128,19 @@ __device__ __forceinline__ void store_init(void* col, int64_t cell,
     static_cast<int32_t*>(col)[cell] = static_cast<int32_t>(bits);
   } else {
     static_cast<int64_t*>(col)[cell] = bits;  // int64 / float64 bits
+  }
+}
+
+// Copy one element of `size` bytes (1, 4 or 8: bool, int32, int64/float64)
+// from src[si] to dst[di].
+__device__ __forceinline__ void copy_elem(void* dst, int64_t di, const void* src,
+                                          int64_t si, int64_t size) {
+  if (size == 8) {
+    static_cast<int64_t*>(dst)[di] = static_cast<const int64_t*>(src)[si];
+  } else if (size == 4) {
+    static_cast<int32_t*>(dst)[di] = static_cast<const int32_t*>(src)[si];
+  } else {
+    static_cast<int8_t*>(dst)[di] = static_cast<const int8_t*>(src)[si];
   }
 }
 

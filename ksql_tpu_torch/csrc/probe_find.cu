@@ -1,0 +1,105 @@
+// K8 probe_find: the stream side of a stream-table join, one launch per
+// join probe per batch.
+//
+// Replaces ops/hash_store.py:probe_find (B12) and the gather of
+// runtime/lowering.py:_apply_join.  One thread per stream row:
+//   1. the probe hash, combine_hash([repr]) = mix64(GOLD ^ (repr + GOLD)),
+//      and the base slot mix64(hash ^ 0 * GOLD) & mask (the table store
+//      keys with window 0);
+//   2. the find-only walk of the reference, for rows that are active with
+//      a valid key: at most KSQL_MAX_PROBES candidates (base + offset) &
+//      mask; a LIVE slot (occ) whose khash and wstart (0) match ends the
+//      walk found; a truly empty slot (neither occ nor grave) ends it
+//      absent; graves and other keys are walked past.  A row that is not
+//      looked up, not found, or still walking after the last round reads
+//      the dump slot C, as the reference's `slots = capacity` does;
+//   3. the gather at that slot: every v_<col> into a fresh output lane,
+//      every m_<col> AND found, key0 (the right side's primary key repr),
+//      and `found`.
+// A row that is not found thus carries the DUMP ROW's data in its lanes,
+// bit for bit the reference's lanes (only the valid bits are cleared).
+//
+// Bound: memory, and the latency of dependent random reads.  The per-row
+// inputs and outputs are coalesced (about 10 + 9 * cols bytes a row in,
+// the same out); the store reads are scattered: 18 bytes a probe
+// (occ, grave, khash, wstart) plus the gathered row.  At 65,536 rows and
+// two columns that is about 4 MB (~1.2 us at 3.35 TB/s); a 2^18-slot
+// table's occ/grave/khash fit in L2 (50 MB), so most probes hit it.  The
+// kernel is one launch, so at this size launch latency is its real limit.
+#include "common.cuh"
+
+namespace {
+
+struct Gather {
+  const void* vsrc[KSQL_MAX_COLS];
+  void* vdst[KSQL_MAX_COLS];
+  int64_t size[KSQL_MAX_COLS];  // element bytes of v_<col>: 1, 4 or 8
+  const bool* msrc[KSQL_MAX_COLS];
+  bool* mdst[KSQL_MAX_COLS];
+  int64_t count;
+};
+
+__global__ void probe_find_kernel(
+    const int64_t* __restrict__ krepr, const bool* __restrict__ kvalid,
+    const bool* __restrict__ active, int64_t n, const bool* __restrict__ occ,
+    const bool* __restrict__ grave, const int64_t* __restrict__ kh,
+    const int64_t* __restrict__ ws, const int64_t* __restrict__ key0,
+    int64_t capacity, Gather g, int64_t* __restrict__ key_out,
+    bool* __restrict__ found_out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int64_t mask = capacity - 1;
+  int64_t slot = capacity;
+  bool found = false;
+  if (active[i] && kvalid[i]) {
+    const uint64_t h =
+        ksql::mix64(ksql::kGold ^ (static_cast<uint64_t>(krepr[i]) + ksql::kGold));
+    const int64_t hs = static_cast<int64_t>(h);
+    const int64_t base = static_cast<int64_t>(ksql::mix64(h) & static_cast<uint64_t>(mask));
+    for (int64_t off = 0; off < KSQL_MAX_PROBES; ++off) {
+      const int64_t cand = (base + off) & mask;
+      const bool live = occ[cand];
+      if (live && kh[cand] == hs && ws[cand] == 0) {
+        slot = cand;
+        found = true;
+        break;
+      }
+      if (!live && !grave[cand]) break;  // truly empty: the key is absent
+    }
+  }
+  for (int64_t j = 0; j < g.count; ++j) {
+    ksql::copy_elem(g.vdst[j], i, g.vsrc[j], slot, g.size[j]);
+    g.mdst[j][i] = g.msrc[j][slot] && found;
+  }
+  key_out[i] = key0[slot];
+  found_out[i] = found;
+}
+
+}  // namespace
+
+extern "C" int ksql_probe_find(
+    const void* occ, const void* grave, const void* kh, const void* ws,
+    const void* key0, int64_t capacity, const int64_t* cols, int64_t count,
+    const void* krepr, const void* kvalid, const void* active, int64_t n,
+    void* key_out, void* found_out, void* stream) {
+  if (count > KSQL_MAX_COLS) return static_cast<int>(cudaErrorInvalidValue);
+  Gather g{};
+  for (int64_t j = 0; j < count; ++j) {
+    g.vsrc[j] = reinterpret_cast<const void*>(cols[5 * j]);
+    g.vdst[j] = reinterpret_cast<void*>(cols[5 * j + 1]);
+    g.size[j] = cols[5 * j + 2];
+    g.msrc[j] = reinterpret_cast<const bool*>(cols[5 * j + 3]);
+    g.mdst[j] = reinterpret_cast<bool*>(cols[5 * j + 4]);
+  }
+  g.count = count;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = 256;
+  probe_find_kernel<<<ksql::blocks_for(n, threads), threads, 0, st>>>(
+      static_cast<const int64_t*>(krepr), static_cast<const bool*>(kvalid),
+      static_cast<const bool*>(active), n, static_cast<const bool*>(occ),
+      static_cast<const bool*>(grave), static_cast<const int64_t*>(kh),
+      static_cast<const int64_t*>(ws), static_cast<const int64_t*>(key0),
+      capacity, g, static_cast<int64_t*>(key_out),
+      static_cast<bool*>(found_out));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -17,12 +17,19 @@
 //   2  k-fold HOPPING expansion: the row's k lanes h*n + i (hop-major, as
 //      jnp.tile lays them out), each with its window start, in-window test
 //      and tumbling-style grace cut; hash and knull are computed once per
-//      row and repeated to each lane.
+//      row and repeated to each lane;
+//   3  table: a join table's changelog key (runtime/lowering.py:
+//      _trace_table_step), hashed over the key reprs alone, without the
+//      null-key bitmask (combine_hash([repr]), which is also what the
+//      stream side probes with), window 0, no grace cut; it reads no ts
+//      and writes only active, khash and base (ts, max_ts, wstart, knull
+//      and c0 may be null).
 // Then the probe's base slot and the watermark contribution c0.
 //
 // Bound: memory.  Per row it reads 9k+9 bytes and writes 33 per lane, about
 // 1 MB at k = 1 for 16,384 rows (~0.3 us at 3.35 TB/s), k times the writes
-// when expanding; its ~30 integer ops per key column are far below the
+// when expanding; the table mode reads 9k+1 and writes 13.  Its ~30
+// integer ops per key column are far below the
 // card's rate.  The design is the plain coalesced one: consecutive threads
 // touch consecutive rows (and, per hop, consecutive lanes), and the key
 // matrix is [k, n] so each column read is coalesced too.  The batch_max
@@ -71,7 +78,6 @@ __global__ void row_prologue_kernel(
     int64_t* __restrict__ c0) {
   int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int64_t t = ts[i];
   int32_t kn = 0;
   for (int64_t j = 0; j < k; ++j) {
     if (!valid[j * n + i]) kn |= static_cast<int32_t>(1u << j);
@@ -82,7 +88,14 @@ __global__ void row_prologue_kernel(
   for (int64_t j = 0; j < k; ++j) {
     h = ksql::mix64(h ^ (static_cast<uint64_t>(reprs[j * n + i]) + ksql::kGold));
   }
+  if (mode == 3) {  // window 0: the probe hashes h ^ (0 * GOLD)
+    active_out[i] = act_row;
+    khash[i] = static_cast<int64_t>(h);
+    base[i] = static_cast<int32_t>(ksql::mix64(h) & static_cast<uint64_t>(mask));
+    return;
+  }
   h = ksql::mix64(h ^ (static_cast<uint64_t>(static_cast<int64_t>(kn)) + ksql::kGold));
+  const int64_t t = ts[i];
   const int64_t clock = *max_ts;
 
   if (mode == 2) {
@@ -113,7 +126,7 @@ __global__ void row_prologue_kernel(
     const bool open_any = ksql::wadd(ksql::wadd(newest, size_ms), grace_ms) > clock;
     const bool horizon_ok = ksql::wadd(ws, ksql::wmul(ring - 1, width)) > *batch_max;
     act = act && open_any && horizon_ok;
-  } else if (size_ms > 0) {
+  } else if (mode == 0 && size_ms > 0) {
     ws = t - ksql::floor_mod(t, size_ms);
     probe_w = ws;
     act = act && ksql::wadd(ksql::wadd(ws, size_ms), grace_ms) > clock;

@@ -66,6 +66,14 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
         "ksql_member_lanes",
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P],
     ),
+    "probe_find": (
+        "ksql_probe_find",
+        [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
+    ),
+    "table_upsert": (
+        "ksql_table_upsert",
+        [_P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P],
+    ),
 }
 KERNELS = tuple(SIGNATURES)
 

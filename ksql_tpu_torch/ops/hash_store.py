@@ -15,9 +15,15 @@ absorbs writes from inactive and overflowed rows):
 The store is updated IN PLACE (the reference's functions return a new
 store; PyTorch lets the port keep one set of device buffers).
 
-Four hand-written CUDA kernels (``csrc/``) carry the per-batch work:
-``row_prologue`` (K1), ``probe_insert`` (K2), ``fold_and_mark`` (K3) and
-``evict`` (K4); the sliced route's K5-K7 live in ``ops/slicing.py``.
+Four hand-written CUDA kernels (``csrc/``) carry the per-batch work of an
+aggregation: ``row_prologue`` (K1), ``probe_insert`` (K2),
+``fold_and_mark`` (K3) and ``evict`` (K4); the sliced route's K5-K7 live in
+``ops/slicing.py``.  A stream-table join keeps each table in a store of
+the same layout (one key, no components, plus ``v_<col>``/``m_<col>``
+value columns): K1's table mode (``table_prologue``) and K2 insert its
+changelog, K9
+``table_upsert`` writes the last row per key, and K8 ``probe_find`` looks
+the stream rows up and gathers the table's columns.
 Each wrapper below launches its kernel for CUDA tensors and counts the
 launch in ``<wrapper>.launches`` (a wrapper with several modes also in
 ``<wrapper>.mode_launches[mode]``); for CPU tensors it runs the plain torch
@@ -160,7 +166,8 @@ def row_prologue_plain(key_reprs, key_valid, ts, active, size_ms, grace_ms,
     knull = torch.zeros(n, dtype=torch.int32, device=ts.device)
     for i in range(k):
         knull = knull | ((~key_valid[i]).to(torch.int32) << i)
-    khash = combine_hash([key_reprs[i] for i in range(k)] + [knull.to(torch.int64)])
+    parts = [key_reprs[i] for i in range(k)]
+    khash = combine_hash(parts + [knull.to(torch.int64)])
     if advance_ms and slice_ring:  # sliced hopping
         wstart = slice_starts(ts, slice_width)
         newest = ts - torch.remainder(ts, advance_ms)
@@ -199,7 +206,8 @@ def row_prologue(key_reprs: torch.Tensor, key_valid: torch.Tensor,
 
     ``key_reprs`` int64[k, n] and ``key_valid`` bool[k, n] are the group
     key columns' 64-bit reprs and valid bits; ``max_ts`` is the store's
-    stream time at batch start (a device scalar).  Three modes:
+    stream time at batch start (a device scalar).  Three modes (a fourth,
+    for join tables, is :func:`table_prologue`):
 
     * ``advance_ms == 0``: unwindowed (``size_ms == 0``: no window start, no
       grace cut) or TUMBLING (window start, grace cut against ``max_ts``);
@@ -258,10 +266,53 @@ def row_prologue(key_reprs: torch.Tensor, key_valid: torch.Tensor,
     return wstart, knull, act, khash, base, c0
 
 
-#: K1's modes by kernel code: ``tumbling`` also serves unwindowed plans
-ROW_PROLOGUE_MODES = ("tumbling", "sliced", "expansion")
+#: K1's modes by kernel code: ``tumbling`` also serves unwindowed plans,
+#: ``table`` (:func:`table_prologue`) hashes a join table's changelog keys
+ROW_PROLOGUE_MODES = ("tumbling", "sliced", "expansion", "table")
 row_prologue.launches = 0
 row_prologue.mode_launches = dict.fromkeys(ROW_PROLOGUE_MODES, 0)
+
+
+def table_prologue_plain(key_reprs, key_valid, active, capacity):
+    """Plain twin of K1's table mode — see :func:`table_prologue`."""
+    k = key_reprs.shape[0]
+    khash = combine_hash([key_reprs[i] for i in range(k)])
+    base = slot_base(khash, torch.zeros_like(khash), capacity)
+    return active & key_valid.all(0), khash, base
+
+
+def table_prologue(key_reprs: torch.Tensor, key_valid: torch.Tensor,
+                   active: torch.Tensor, capacity: int):
+    """K1's table mode (replaces the key hash of ``runtime/lowering.py:
+    _trace_table_step``): a join table's changelog key, hashed over the
+    key reprs alone, without the null-key bitmask (``combine_hash([repr])``,
+    what the stream side probes with), window 0, no grace cut.  It reads
+    no timestamps and writes no window start, null bits or watermark
+    contribution: K2 gets the reference's zeros for those.
+
+    Returns ``(active, khash, base)`` per row: the rows with a valid key
+    among ``active``, the key hash and the probe's base slot.  Counts on
+    :func:`row_prologue`'s counters (it is K1's fourth mode)."""
+    if not key_reprs.is_cuda:
+        return table_prologue_plain(key_reprs, key_valid, active, capacity)
+    k, n = key_reprs.shape
+    _expect(key_reprs, torch.int64, (k, n))
+    _expect(key_valid, torch.bool, (k, n))
+    _expect(active, torch.bool, (n,))
+    dev = active.device
+    act = torch.empty(n, dtype=torch.bool, device=dev)
+    khash = torch.empty(n, dtype=torch.int64, device=dev)
+    base = torch.empty(n, dtype=torch.int32, device=dev)
+    fn = cuda.lib("row_prologue")
+    cuda.check("row_prologue", fn(
+        key_reprs.data_ptr(), key_valid.data_ptr(), k, n, None,
+        active.data_ptr(), 3, 0, 0, 0, 0, 0, 1, None, capacity - 1, None,
+        None, None, act.data_ptr(), khash.data_ptr(), base.data_ptr(), None,
+        _stream(dev),
+    ))
+    row_prologue.launches += 1
+    row_prologue.mode_launches["table"] += 1
+    return act, khash, base
 
 
 # ----------------------------------------------------- K2: probe_insert
@@ -549,6 +600,177 @@ evict.launches = 0
 evict.mode_launches = {"tumbling": 0, "sliced": 0}
 
 
+# ------------------------------------------------- K8: probe_find (join)
+def probe_find_plain(store, capacity, khash, wstart, active) -> torch.Tensor:
+    """Find-only probe (a copy of the reference's ``probe_find``): one slot
+    per active row, or the dump slot ``capacity`` when the key is absent,
+    the row is inactive, or 32 rounds did not resolve it.  Only LIVE slots
+    match; a truly empty slot ends the walk, graves are walked past."""
+    n = khash.shape[0]
+    mask = capacity - 1
+    dump = capacity
+    base = slot_base(khash, wstart, capacity)
+    slots = torch.full((n,), dump, dtype=torch.int32, device=khash.device)
+    done = torch.zeros(n, dtype=torch.bool, device=khash.device)
+    offset = torch.zeros(n, dtype=torch.int32, device=khash.device)
+    for _ in range(MAX_PROBES):
+        ci = ((base + offset) & mask).long()
+        c_occ = store["occ"][ci]
+        c_used = c_occ | store["grave"][ci]
+        c_match = c_occ & (store["khash"][ci] == khash) & (store["wstart"][ci] == wstart)
+        newly = ~done & active & c_match
+        slots = torch.where(newly, ci.to(torch.int32), slots)
+        done = done | newly | ~c_used
+        offset = offset + (~done & active).to(torch.int32)
+    return torch.where(active, slots, torch.full_like(slots, dump))
+
+
+def probe_find_gather_plain(store, capacity, krepr, kvalid, active, cols):
+    """Plain twin of K8 — see :func:`probe_find`."""
+    look = active & kvalid
+    khash = combine_hash([krepr])
+    slots = probe_find_plain(store, capacity, khash, torch.zeros_like(khash), look)
+    found = look & (slots != capacity)
+    s = slots.long()
+    out = {}
+    for name in cols:
+        out[f"v_{name}"] = store[f"v_{name}"][s]
+        out[f"m_{name}"] = store[f"m_{name}"][s] & found
+    return out, store["key0"][s], found
+
+
+def probe_find(store: Dict[str, torch.Tensor], capacity: int, krepr: torch.Tensor,
+               kvalid: torch.Tensor, active: torch.Tensor, cols: Sequence[str]):
+    """K8 (replaces ``ops/hash_store.py:probe_find`` and the gather of
+    ``runtime/lowering.py:_apply_join``): look each stream row's join key
+    up in a table store and gather the table's columns.
+
+    ``krepr`` int64[n] is the key's 64-bit repr, ``kvalid`` its valid bit;
+    a row is looked up when it is ``active`` with a valid key.  Returns
+    ``(lanes, key0, found)``: per table column ``v_<col>`` (the store's
+    value at the row's slot) and ``m_<col>`` (its valid bit AND found),
+    the slot's ``key0`` repr and ``found``.  A row not found reads the
+    dump slot, as the reference does.  Every lane is a fresh tensor."""
+    if not krepr.is_cuda:
+        return probe_find_gather_plain(store, capacity, krepr, kvalid, active, cols)
+    n = krepr.shape[0]
+    c1 = capacity + 1
+    for name, dt in (("occ", torch.bool), ("grave", torch.bool),
+                     ("khash", torch.int64), ("wstart", torch.int64),
+                     ("key0", torch.int64)):
+        _expect(store[name], dt, (c1,))
+    _expect(krepr, torch.int64, (n,))
+    _expect(kvalid, torch.bool, (n,))
+    _expect(active, torch.bool, (n,))
+    dev = krepr.device
+    out: Dict[str, torch.Tensor] = {}
+    desc: List[int] = []
+    for name in cols:
+        v, m = store[f"v_{name}"], store[f"m_{name}"]
+        _expect(v, v.dtype, (c1,))
+        _expect(m, torch.bool, (c1,))
+        vo = torch.empty(n, dtype=v.dtype, device=dev)
+        mo = torch.empty(n, dtype=torch.bool, device=dev)
+        out[f"v_{name}"], out[f"m_{name}"] = vo, mo
+        desc += [v.data_ptr(), vo.data_ptr(), v.element_size(), m.data_ptr(), mo.data_ptr()]
+    key = torch.empty(n, dtype=torch.int64, device=dev)
+    found = torch.empty(n, dtype=torch.bool, device=dev)
+    fn = cuda.lib("probe_find")
+    cuda.check("probe_find", fn(
+        store["occ"].data_ptr(), store["grave"].data_ptr(),
+        store["khash"].data_ptr(), store["wstart"].data_ptr(),
+        store["key0"].data_ptr(), capacity, cuda.host_i64(desc), len(cols),
+        krepr.data_ptr(), kvalid.data_ptr(), active.data_ptr(), n,
+        key.data_ptr(), found.data_ptr(), _stream(dev),
+    ))
+    probe_find.launches += 1
+    return out, key, found
+
+
+probe_find.launches = 0
+
+
+# ----------------------------------------------- K9: table_upsert (join)
+def init_table_scratch(capacity: int, device) -> Dict[str, torch.Tensor]:
+    """Scratch of one join table store: K2's claim cells and K9's
+    last-writer cells (-1 when clean), both kept clean by the kernels."""
+    return {
+        "claim": torch.full((capacity + 1,), INT32_MAX, dtype=torch.int32, device=device),
+        "last": torch.full((capacity + 1,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def table_upsert_plain(store, capacity, slots, active, delete, values) -> None:
+    """Plain twin of K9 — see :func:`table_upsert`."""
+    n = slots.shape[0]
+    dump = capacity
+    s = slots.long()
+    rowidx = torch.arange(n, dtype=torch.int32, device=slots.device)
+    last = torch.full((capacity + 1,), -1, dtype=torch.int32, device=slots.device)
+    last.scatter_reduce_(0, torch.where(active, s, dump), rowidx, "amax")
+    winner = active & (s != dump) & (last[s] == rowidx)
+    up = winner & ~delete
+    rest = (~up).nonzero()
+    for name, (data, valid) in values.items():
+        v, m = store[f"v_{name}"], store[f"m_{name}"]
+        data = data.to(v.dtype)
+        v[s[up]] = data[up]
+        m[s[up]] = valid[up]
+        if rest.numel():  # the highest non-upserting row's values
+            v[dump] = data[int(rest[-1])]
+            m[dump] = valid[int(rest[-1])]
+    dl = s[winner & delete]
+    store["occ"][dl] = False
+    store["grave"][dl] = True
+    store["occ"][dump] = False
+    store["grave"][dump] = False
+
+
+def table_upsert(store: Dict[str, torch.Tensor], scratch: Dict[str, torch.Tensor],
+                 capacity: int, slots: torch.Tensor, active: torch.Tensor,
+                 delete: torch.Tensor, values: Dict[str, Tuple[torch.Tensor, torch.Tensor]]) -> None:
+    """K9 (replaces the body of ``runtime/lowering.py:_trace_table_step``
+    after its ``probe_insert``): fold a changelog batch, whose rows K2 has
+    given ``slots``, into a join table store in place.  Per slot the LAST
+    active row wins; an upserting winner writes ``values`` (per column
+    ``(data, valid)``, data cast to the store's dtype), a deleting winner
+    turns the slot into a grave.  Every other row writes the dump row, the
+    highest such row last, as the reference's scatter leaves it; the dump
+    row ends with occ and grave False."""
+    if not slots.is_cuda:
+        table_upsert_plain(store, capacity, slots, active, delete, values)
+        return
+    n = slots.shape[0]
+    c1 = capacity + 1
+    _expect(store["occ"], torch.bool, (c1,))
+    _expect(store["grave"], torch.bool, (c1,))
+    _expect(scratch["last"], torch.int32, (c1,))
+    _expect(slots, torch.int32, (n,))
+    _expect(active, torch.bool, (n,))
+    _expect(delete, torch.bool, (n,))
+    desc: List[int] = []
+    keep = []  # the cast columns must outlive the launch below
+    for name, (data, valid) in values.items():
+        v, m = store[f"v_{name}"], store[f"m_{name}"]
+        data = data.to(v.dtype).contiguous()
+        _expect(v, v.dtype, (c1,))
+        _expect(m, torch.bool, (c1,))
+        _expect(data, v.dtype, (n,))
+        _expect(valid, torch.bool, (n,))
+        keep.append(data)
+        desc += [v.data_ptr(), data.data_ptr(), v.element_size(), m.data_ptr(), valid.data_ptr()]
+    fn = cuda.lib("table_upsert")
+    cuda.check("table_upsert", fn(
+        store["occ"].data_ptr(), store["grave"].data_ptr(), capacity,
+        cuda.host_i64(desc), len(values), slots.data_ptr(), active.data_ptr(),
+        delete.data_ptr(), n, scratch["last"].data_ptr(), _stream(slots.device),
+    ))
+    table_upsert.launches += 1
+
+
+table_upsert.launches = 0
+
+
 def init_bits(comp: AggComponent) -> int:
     """The bit pattern of a component's init value, as the kernels take it
     (int32 sign-extended, int64 and float64 as their 64 bits)."""
@@ -556,7 +778,7 @@ def init_bits(comp: AggComponent) -> int:
     return int(init.view(np.int32 if comp.dtype == "int32" else np.int64)[0])
 
 
-KERNEL_WRAPPERS = (row_prologue, probe_insert, fold_and_mark, evict)
+KERNEL_WRAPPERS = (row_prologue, probe_insert, fold_and_mark, evict, probe_find, table_upsert)
 
 
 def _stream(device) -> int:

@@ -2,13 +2,18 @@
 
 The port enters the system at the serialized physical plan (the versioned
 ``ExecutionStep`` IR that ``plan_to_json`` writes and ksqlDB replays from
-its command topic); the SQL front end is not ported yet.  ``run_plan``
-builds the executor for the plan, polls the source topic from the start,
-drives the micro-batches through the device path and writes the sink topic.
+its command topic); the SQL front end is not ported yet.  ``start_plan``
+builds the executor for the plan and a consumer of every source topic of
+the plan (a join reads its tables' changelog topics too), from the start;
+``run_until_quiescent`` drives the records produced so far through
+the device path and writes the sink topic, and may be called again after
+more records are produced; ``run_plan`` is the two, once, plus the final
+``drain``.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 from ksql_tpu_torch.execution.steps import plan_from_json
@@ -19,11 +24,22 @@ from ksql_tpu_torch.runtime.topics import Broker, Consumer
 POLL_RECORDS = 1 << 16
 
 
-def run_plan(plan_json: Dict[str, Any], broker: Broker, *, device=None,
-             capacity: int = 4096, store_capacity: int = 1 << 17,
-             sliced: Optional[bool] = None, slice_ring_max: int = 512) -> TorchDeviceExecutor:
-    """Run the query ``plan_json`` (``plan_to_json`` output) over every
-    record of its source topic in ``broker`` and write its sink topic.
+@dataclass
+class QueryHandle:
+    """A started query: its executor and the consumer of its source topics
+    (the reference engine's handle, cut to these two)."""
+
+    executor: TorchDeviceExecutor
+    consumer: Consumer
+
+
+def start_plan(plan_json: Dict[str, Any], broker: Broker, *, device=None,
+               capacity: int = 4096, store_capacity: int = 1 << 17,
+               sliced: Optional[bool] = None, slice_ring_max: int = 512,
+               table_store_capacity: int = 1 << 16) -> QueryHandle:
+    """Build the executor of the query ``plan_json`` (``plan_to_json``
+    output) and a consumer of its source topics in ``broker``, sorted and
+    from their start (topics that do not exist yet are created).
 
     ``capacity`` is the micro-batch size: 1 emits one change per record,
     larger batches coalesce to one change per key per batch.  ``device``
@@ -31,19 +47,40 @@ def run_plan(plan_json: Dict[str, Any], broker: Broker, *, device=None,
     aggregation runs sliced when eligible (``sliced=None``, the reference's
     ``ksql.slicing.enable``), the k-fold expansion with ``sliced=False``,
     and must slice with ``sliced=True``; ``slice_ring_max`` caps the slice
-    ring (``ksql.slicing.max.ring``).  Returns the executor (its ``query``
-    holds the device state and counters)."""
+    ring (``ksql.slicing.max.ring``).  ``table_store_capacity`` is the
+    first slot count of each join table's store (it grows)."""
     executor = TorchDeviceExecutor(
-        plan_from_json(plan_json), broker, device=device,
-        batch_size=capacity, store_capacity=store_capacity,
-        sliced=sliced, slice_ring_max=slice_ring_max,
+        plan_from_json(plan_json), broker, device=device, batch_size=capacity,
+        store_capacity=store_capacity, sliced=sliced,
+        slice_ring_max=slice_ring_max, table_store_capacity=table_store_capacity,
     )
-    consumer = Consumer(broker, [executor.source_step.topic])
+    for t in executor.source_topics:
+        broker.create_topic(t)
+    return QueryHandle(executor, Consumer(broker, executor.source_topics))
+
+
+def run_until_quiescent(handle: QueryHandle) -> int:
+    """Poll the handle's consumer until no record is left, processing each
+    through its executor; returns the records taken.  Micro-batches that
+    are not full stay buffered until more records come or
+    :meth:`~TorchDeviceExecutor.drain`."""
+    taken = 0
     while True:
-        polled = consumer.poll(POLL_RECORDS)
+        polled = handle.consumer.poll(POLL_RECORDS)
         if not polled:
-            break
+            return taken
+        taken += len(polled)
         for topic, record in polled:
-            executor.process(topic, record)
-    executor.drain()
-    return executor
+            handle.executor.process(topic, record)
+
+
+def run_plan(plan_json: Dict[str, Any], broker: Broker, **kw) -> TorchDeviceExecutor:
+    """Run the query ``plan_json`` over every record of its source topics
+    in ``broker`` and write its sink topic: :func:`start_plan` (same
+    keyword arguments), one :func:`run_until_quiescent`, then ``drain``.
+    Returns the executor (its ``query`` holds the device state and
+    counters)."""
+    handle = start_plan(plan_json, broker, **kw)
+    run_until_quiescent(handle)
+    handle.executor.drain()
+    return handle.executor

@@ -1,18 +1,27 @@
 """TorchDeviceExecutor — runs a persistent query on the port's device path.
 
 The port of ``ksql_tpu/runtime/device_executor.py``'s ``DeviceExecutor``,
-stream-row branch: records are deserialized with the shared source decoder
-(the Python JSON path; the reference's native C++ ingest is not ported
-yet), micro-batched up to the batch size, stepped through
-:class:`TorchCompiledQuery`, and the resulting SinkEmits are written to
-the sink topic.  Batched mode double-buffers: a batch's emissions are
-decoded when the next batch runs, or at :meth:`drain`.  Batch size 1 is the
-per-record mode (one change per record, the reference's cache-off parity).
+stream-row and stream-table-join branches: records are deserialized with
+the shared source decoder (the Python JSON path; the reference's native
+C++ ingest is not ported yet), micro-batched up to the batch size, stepped
+through :class:`TorchCompiledQuery`, and the resulting SinkEmits are
+written to the sink topic.  Batched mode double-buffers: a batch's
+emissions are decoded when the next batch runs, or at :meth:`drain`.
+Batch size 1 is the per-record mode (one change per record, the
+reference's cache-off parity).
+
+A join's table topics buffer per probe.  Stream and table records keep
+their arrival order across the two sides: a table record first runs the
+pending stream rows, a stream row first runs the pending table batches,
+and a table batch runs synchronously (it updates the table store in
+place; the pipelined stream emits it may overtake are fresh tensors).
 """
 
 from __future__ import annotations
 
 from typing import Callable, List, Optional
+
+import numpy as np
 
 from ksql_tpu_torch.common.batch import HostBatch
 from ksql_tpu_torch.execution import steps as st
@@ -34,6 +43,7 @@ class TorchDeviceExecutor:
         store_capacity: int = 1 << 17,
         sliced: Optional[bool] = None,
         slice_ring_max: int = 512,
+        table_store_capacity: int = 1 << 16,
         on_error: Optional[Callable[[str, Exception], None]] = None,
     ):
         self.plan = plan
@@ -41,6 +51,7 @@ class TorchDeviceExecutor:
         self.query = TorchCompiledQuery(
             plan, capacity=batch_size, store_capacity=store_capacity, device=device,
             sliced=sliced, slice_ring_max=slice_ring_max,
+            table_store_capacity=table_store_capacity,
         )
         self.query.pipeline = batch_size > 1
         self.source_step = self.query.source
@@ -50,10 +61,22 @@ class TorchDeviceExecutor:
         self._parts: List[int] = []
         self._offsets: List[int] = []
         self.stream_time = -(2 ** 63)
+        # per-probe table-side buffers and topic -> probe routing
+        self._tbuf: List[dict] = [_table_buffer() for _ in self.query.join_chain]
+        self._join_topics = {js.table_source.topic: i for i, js in enumerate(self.query.join_chain)}
+
+    @property
+    def source_topics(self) -> List[str]:
+        """The topics :meth:`process` routes, sorted (the reference
+        engine's subscription order): the stream source and each join
+        table's changelog."""
+        return sorted({self.source_step.topic, *self._join_topics})
 
     def process(self, topic: str, record: Record) -> List[SinkEmit]:
         """Buffer one record; runs the device step when the micro-batch is
         full.  Call :meth:`drain` at the end of a poll tick."""
+        if topic in self._join_topics:
+            return self._buffer_table_record(self._join_topics[topic], record)
         if topic != self.source_step.topic:
             return []
         ev = decode_source_record(self.source_step, record, self.on_error)
@@ -62,7 +85,8 @@ class TorchDeviceExecutor:
         out: List[SinkEmit] = []
         q = self.query
         if ev.row is None:
-            if q.agg is None and not any(isinstance(op, st.StreamFilter) for op in q.pre_ops):
+            if (q.agg is None and q.join is None
+                    and not any(isinstance(op, st.StreamFilter) for op in q.pre_ops)):
                 # null-value stream records pass filter-less projections
                 # through unchanged (oracle SelectNode); filters and
                 # aggregations drop them
@@ -71,6 +95,8 @@ class TorchDeviceExecutor:
                 self._dispatch([emit])
                 out.append(emit)
             return out
+        if any(b["rows"] for b in self._tbuf):
+            self._run_table_batch()
         self.stream_time = max(self.stream_time, ev.ts)
         self._rows.append(ev.row)
         self._ts.append(ev.ts)
@@ -80,9 +106,54 @@ class TorchDeviceExecutor:
             out.extend(self._run_batch())
         return out
 
+    def _buffer_table_record(self, idx: int, record: Record) -> List[SinkEmit]:
+        """One record of probe ``idx``'s table topic: the pending stream
+        rows run first; the change joins the probe's table batch."""
+        step = self.query.join_chain[idx].table_source
+        ev = decode_source_record(step, record, self.on_error)
+        if ev is None:
+            return []
+        self.stream_time = max(self.stream_time, ev.ts)
+        out = self._run_batch() if self._rows else []
+        if ev.new is not None:
+            row = ev.new
+        else:  # tombstone: key columns only
+            row = {c.name: None for c in step.schema.columns()}
+            for c, v in zip(step.schema.key_columns, ev.key):
+                row[c.name] = v
+        buf = self._tbuf[idx]
+        buf["rows"].append(row)
+        buf["ts"].append(ev.ts)
+        buf["del"].append(ev.new is None)
+        buf["parts"].append(record.partition)
+        buf["offs"].append(record.offset)
+        if len(buf["rows"]) >= self.query.capacity:
+            self._run_table_batch(idx)
+        return out
+
+    def _run_table_batch(self, idx: Optional[int] = None) -> None:
+        """Fold the buffered table changes (of probe ``idx``, or of every
+        probe) into the table stores, synchronously."""
+        cap = self.query.capacity
+        for j in range(len(self._tbuf)) if idx is None else (idx,):
+            buf = self._tbuf[j]
+            if not buf["rows"]:
+                continue
+            self._tbuf[j] = _table_buffer()
+            schema = self.query.join_chain[j].table_source.schema
+            for i in range(0, len(buf["rows"]), cap):
+                hb = HostBatch.from_rows(
+                    schema, buf["rows"][i : i + cap], timestamps=buf["ts"][i : i + cap],
+                    partitions=buf["parts"][i : i + cap], offsets=buf["offs"][i : i + cap],
+                )
+                self.query.process_table(hb, np.asarray(buf["del"][i : i + cap], bool), idx=j)
+
     def drain(self) -> List[SinkEmit]:
-        """Flush the partial micro-batch and the pipelined emissions."""
+        """Flush the partial micro-batches (table changes first) and the
+        pipelined emissions."""
         out: List[SinkEmit] = []
+        if any(b["rows"] for b in self._tbuf):
+            self._run_table_batch()
         if self._rows:
             out.extend(self._run_batch())
         if self.query.pipeline:
@@ -117,3 +188,7 @@ class TorchDeviceExecutor:
     def _dispatch(self, emits: List[SinkEmit]) -> None:
         for e in emits:
             self.sink_writer.produce(e)
+
+
+def _table_buffer() -> dict:
+    return {"rows": [], "ts": [], "del": [], "parts": [], "offs": []}

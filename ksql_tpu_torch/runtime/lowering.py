@@ -3,28 +3,35 @@
 The port of ``ksql_tpu/runtime/lowering.py``'s ``CompiledDeviceQuery`` for
 the plan shapes of this slice:
 
-    Source → Filter*/Select* → [GroupBy → Aggregate (unwindowed, TUMBLING
-    or HOPPING) → TableSelect*] → Sink
+    Source → Filter*/Select* → [StreamTableJoin (INNER or LEFT, n-way
+    chains) → Filter*/Select*] → [GroupBy → Aggregate (unwindowed,
+    TUMBLING or HOPPING) → TableSelect*] → Sink
 
 with COUNT(*), COUNT, SUM, AVG, MIN and MAX (``ops/device_aggs.py``), plus
-the stateless filter/project pipelines.  HOPPING aggregation takes the
+the stateless filter/project pipelines.  Each table of a stream-table join
+is materialized into its own keyed store on the card (``jtab``, inner
+probes of a chain ``jtab<i>``): ``process_table`` folds a changelog batch
+into it (K1 table mode, K2, K9 table_upsert) and every stream row probes
+it in-step (K8 probe_find).  HOPPING aggregation takes the
 reference's two routes: stream slicing (one slice per row into a per-key
 ring of slice partials, a per-window monoid combine at emission; the
 default when eligible) and the k-fold expansion (``sliced=False``, or when
 slicing is ineligible, with the reference's reason in
 ``windowing_fallback``).  Every other shape raises
-:class:`DeviceUnsupported` at construction: session windows, joins,
-flat-maps, PARTITION BY, EMIT FINAL, HAVING, table sources and table
-aggregation, vector and arg-set aggregates, window families.
+:class:`DeviceUnsupported` at construction: session windows, FULL/RIGHT,
+stream-stream, table-table and foreign-key joins, flat-maps, PARTITION BY
+outside a join's left side, EMIT FINAL, HAVING, table aggregation, vector
+and arg-set aggregates, window families.
 
 Where the reference traces one jitted step, the port runs eagerly: the
 expression phases are torch tensor ops, and the keyed store goes through
 the CUDA kernels of ``ops/hash_store.py`` (K1 row_prologue, K2
-probe_insert, K3 fold_and_mark, K4 evict) and ``ops/slicing.py`` (K5
-sliced_fold, K6 combine_windows, K7 member_lanes).  The store is updated
-IN PLACE; every emitted lane is a fresh tensor (a K6 gather or a batch
-column), never a view of a store column, so a pipelined batch's emits stay
-valid while the next batch mutates the store.
+probe_insert, K3 fold_and_mark, K4 evict, K8 probe_find, K9
+table_upsert) and ``ops/slicing.py`` (K5 sliced_fold, K6 combine_windows,
+K7 member_lanes).  The stores are updated IN PLACE; every emitted lane is a
+fresh tensor (a K6 or K8 gather or a batch column), never a view of a store
+column, so a pipelined batch's emits stay valid while the next batch, or a
+table batch, mutates the stores.
 
 Semantics are the reference's, including its documented deltas from the
 row oracle: EMIT CHANGES coalesces to one change per key per micro-batch,
@@ -59,7 +66,7 @@ from ksql_tpu_torch.ops import hash_store as hs
 from ksql_tpu_torch.ops import slicing
 from ksql_tpu_torch.ops import window as W
 from ksql_tpu_torch.ops.device_aggs import DeviceAgg, compile_device_agg, resolve_udaf
-from ksql_tpu_torch.parser.ast_nodes import WindowType
+from ksql_tpu_torch.parser.ast_nodes import JoinType, WindowType
 from ksql_tpu_torch.runtime.device import BatchLayout, DictionaryServer, decode_value
 from ksql_tpu_torch.runtime.sink import SinkEmit
 from ksql_tpu_torch.state import resolve_device, state_from_numpy, state_to_numpy
@@ -98,6 +105,21 @@ class _MemberSpec:
     agg_map: List[int]  # member-local aggregate -> index in agg_specs
 
 
+@dataclasses.dataclass
+class _JoinSpec:
+    """One stream-table probe of an n-way join chain (deepest-first)."""
+
+    step: st.StreamTableJoin
+    table_source: st.TableSource
+    table_pre_ops: List[st.ExecutionStep]
+    #: stream-side ops between the PREVIOUS probe (or the source) and this one
+    between_ops: List[st.ExecutionStep]
+    layout: Optional[BatchLayout] = None
+    cols: List = dataclasses.field(default_factory=list)
+    capacity: int = 0
+    seen_overflow: int = 0
+
+
 def _refs_of_ops(ops) -> set:
     """Source columns referenced anywhere in a step chain."""
     out: set = set()
@@ -106,15 +128,38 @@ def _refs_of_ops(ops) -> set:
             out.update(ex.referenced_columns(s.predicate))
         for _, e in getattr(s, "selects", ()):
             out.update(ex.referenced_columns(e))
+        for e in getattr(s, "key_expressions", ()):
+            out.update(ex.referenced_columns(e))
     return out
+
+
+def _rebuild_keyed_store(old: Dict[str, np.ndarray], new: Dict[str, np.ndarray],
+                         capacity: int) -> int:
+    """Host rebuild of a keyed store (numpy arrays) into the fresh arrays
+    ``new`` of ``capacity`` slots: live slots re-insert (``host_insert``),
+    the other per-slot columns follow them, graves drop, scalars
+    (``max_ts``, ``overflow``) carry over.  Returns the live slots."""
+    live = np.nonzero(old["occ"][:-1])[0]
+    if live.size:
+        slots = hs.host_insert(new["occ"], new["khash"], new["wstart"], capacity,
+                               old["khash"][live], old["wstart"][live])
+        for name in old:
+            if name not in ("occ", "khash", "wstart") and old[name].ndim:
+                new[name][slots] = old[name][live]
+    for name in old:
+        if old[name].ndim == 0:
+            new[name] = old[name]
+    return int(live.size)
 
 
 class TorchCompiledQuery:
     """A query lowered to the port's device path.
 
     Host API: ``process(HostBatch)`` / ``process_arrays(encoded arrays)``
-    return the decoded ``SinkEmit``s of a micro-batch; ``state`` is the
-    dict of device tensors (the reference's state pytree, same keys and
+    return the decoded ``SinkEmit``s of a micro-batch;
+    ``process_table(HostBatch, deletes, idx)`` folds a table-changelog
+    batch into join probe ``idx``'s store; ``state`` is the dict of device
+    tensors (the reference's state pytree, same keys, nesting and
     dtypes).  ``device`` defaults to ``cuda`` and raises when there is no
     card; tests pass ``device="cpu"``, which runs the kernels' plain twins.
     """
@@ -126,7 +171,8 @@ class TorchCompiledQuery:
 
     def __init__(self, plan: st.QueryPlan, capacity: int = 8192,
                  store_capacity: int = 1 << 17, device=None,
-                 sliced: Optional[bool] = None, slice_ring_max: int = 512):
+                 sliced: Optional[bool] = None, slice_ring_max: int = 512,
+                 table_store_capacity: int = 1 << 16):
         self.device = resolve_device(device)
         self.plan = plan
         self.capacity = capacity
@@ -136,7 +182,13 @@ class TorchCompiledQuery:
         self.agg: Optional[st.ExecutionStep] = None
         self.group: Optional[st.ExecutionStep] = None
         self.pre_ops: List[st.ExecutionStep] = []  # StreamFilter/StreamSelect
+        #: stream-side ops between the outermost join and the aggregate/sink
+        self.mid_ops: List[st.ExecutionStep] = []
         self.source: Optional[st.StreamSource] = None
+        #: the outermost StreamTableJoin, and every probe of the chain,
+        #: deepest first
+        self.join: Optional[st.StreamTableJoin] = None
+        self.join_chain: List[_JoinSpec] = []
         self._analyze(plan.physical_plan)
 
         self.window = getattr(self.agg, "window", None) if self.agg is not None else None
@@ -165,6 +217,9 @@ class TorchCompiledQuery:
             self._build_agg_specs()
         self._setup_slicing(sliced, slice_ring_max)
         self._build_ingress_layout()
+        self.table_store_capacity = 0
+        if self.join is not None:
+            self._build_table_layouts(table_store_capacity)
 
         self.store_layout: Optional[hs.StoreLayout] = None
         if self.agg is not None:
@@ -199,6 +254,10 @@ class TorchCompiledQuery:
         self.rebuild_seconds: List[float] = []
         self.ring_resizes = 0
         self.ring_seconds: List[float] = []
+        #: join table stores' doublings and the wall seconds of each rebuild
+        self.table_grows = 0
+        self.table_rebuild_seconds: List[float] = []
+        self.jscratch: Dict[str, Dict[str, torch.Tensor]] = {}
         self._check_compiles()
 
     # ------------------------------------------------------------ analysis
@@ -229,11 +288,61 @@ class TorchCompiledQuery:
             self.pre_ops.append(cur)
             cur = cur.source
         self.pre_ops.reverse()
+        if isinstance(cur, st.StreamTableJoin):
+            self._analyze_join(cur)
+            return
         if not isinstance(cur, st.StreamSource) or isinstance(cur, st.WindowedStreamSource):
             raise DeviceUnsupported(f"device source {type(cur).__name__}")
         self.source = cur
 
+    def _analyze_join(self, cur: st.StreamTableJoin) -> None:
+        """A stream-table join, possibly an n-way chain A⋈B⋈C: the stream
+        side keeps flowing through the row pipeline; each table side
+        materializes into its own keyed store, probed in chain order."""
+        self.mid_ops = self.pre_ops
+        chain_rev = []  # outermost-first while walking down
+        while isinstance(cur, st.StreamTableJoin):
+            if cur.join_type not in (JoinType.INNER, JoinType.LEFT):
+                raise DeviceUnsupported(f"{cur.join_type} stream-table join on device")
+            tops: List[st.ExecutionStep] = []
+            rcur = cur.right
+            while isinstance(rcur, (st.TableSelect, st.TableFilter, st.TableSelectKey)):
+                tops.append(rcur)
+                rcur = rcur.source
+            tops.reverse()
+            if not isinstance(rcur, st.TableSource):
+                raise DeviceUnsupported(f"join right source {type(rcur).__name__} on device")
+            ops: List[st.ExecutionStep] = []
+            lcur = cur.left
+            while isinstance(lcur, (st.StreamFilter, st.StreamSelect, st.StreamSelectKey)):
+                ops.append(lcur)
+                lcur = lcur.source
+            ops.reverse()
+            # `ops` sit between this join and whatever feeds its left
+            chain_rev.append((cur, rcur, tops, ops))
+            cur = lcur
+        if not isinstance(cur, st.StreamSource) or isinstance(cur, st.WindowedStreamSource):
+            raise DeviceUnsupported(f"join left source {type(cur).__name__} on device")
+        self.source = cur
+        # deepest-first probe order; each spec's between_ops run BEFORE its
+        # probe (they transform that join's left input)
+        for join_step, tsrc, tops, between in reversed(chain_rev):
+            self.join_chain.append(_JoinSpec(join_step, tsrc, tops, between))
+        topics = [j.table_source.topic for j in self.join_chain]
+        if len(set(topics)) != len(topics):
+            # two probes of one changelog topic (a self-join via aliases)
+            # cannot be routed topic -> probe
+            raise DeviceUnsupported("same-topic stream-table join chain on device")
+        deepest = self.join_chain[0]
+        self.pre_ops = list(deepest.between_ops)
+        deepest.between_ops = []
+        self.join = self.join_chain[-1].step
+
     def _pre_agg_schema(self) -> LogicalSchema:
+        if self.mid_ops:
+            return self.mid_ops[-1].schema
+        if self.join is not None:
+            return self.join.schema
         return self.pre_ops[-1].schema if self.pre_ops else self.source.schema
 
     def _emit_schema(self) -> LogicalSchema:
@@ -377,6 +486,11 @@ class TorchCompiledQuery:
         )
         if self._state is not None and int(self._state["occ"][:-1].sum()) != 0:
             self._regrow_ring(new_ring)
+        elif self._state is not None and self.join_chain:
+            # an empty aggregate store re-inits at the new shapes; the join
+            # table stores keep their contents
+            jtabs = {k: v for k, v in self._state.items() if isinstance(v, dict)}
+            self.state = {**self.init_state(tables=False), **jtabs}
         else:
             self._state = None  # lazy re-init at the new shapes
 
@@ -406,7 +520,7 @@ class TorchCompiledQuery:
 
     def _build_ingress_layout(self) -> None:
         """The ingress BatchLayout: only the columns the pipeline reads."""
-        needed = _refs_of_ops(self.pre_ops)
+        needed = _refs_of_ops(self.pre_ops) | _refs_of_ops(self.mid_ops)
         if self.group is not None:
             for e in getattr(self.group, "group_by_expressions", ()):
                 needed.update(ex.referenced_columns(e))
@@ -420,6 +534,34 @@ class TorchCompiledQuery:
         needed.update(c.name for c in src_schema.key_columns)
         self.layout = BatchLayout(src_schema, sorted(needed), self.capacity, self.dictionary)
 
+    def _build_table_layouts(self, table_store_capacity: int) -> None:
+        """Table-side ingress of each probe: the table columns its pre-ops
+        and key read, into the SAME dictionary as the stream side (string
+        comparisons and emit decode meet there); the store keeps only the
+        right-side columns something above the probe reads."""
+        down = _refs_of_ops(self.mid_ops) | _refs_of_ops(self.post_ops)
+        if self.group is not None:
+            for e in getattr(self.group, "group_by_expressions", ()):
+                down.update(ex.referenced_columns(e))
+        for spec in self.agg_specs:
+            for e in spec.arg_exprs:
+                down.update(ex.referenced_columns(e))
+        down.update(c.name for c in self._emit_schema().columns())
+        for jspec in self.join_chain:
+            down.update(ex.referenced_columns(jspec.step.left_key))
+            down.update(_refs_of_ops(jspec.between_ops))
+            down.update(c.name for c in jspec.step.schema.key_columns)
+        for jspec in self.join_chain:
+            tsrc = jspec.table_source.schema
+            tneeded = _refs_of_ops(jspec.table_pre_ops)
+            tneeded.update(ex.referenced_columns(jspec.step.right_key))
+            tneeded &= {c.name for c in tsrc.columns()}
+            tneeded.update(c.name for c in tsrc.key_columns)
+            jspec.layout = BatchLayout(tsrc, sorted(tneeded), self.capacity, self.dictionary)
+            jspec.cols = [c for c in jspec.step.right.schema.value_columns if c.name in down]
+            jspec.capacity = table_store_capacity
+        self.table_store_capacity = table_store_capacity
+
     def _check_compiles(self) -> None:
         """Compile every expression of the plan on empty CPU columns, so an
         expression the port does not lower raises DeviceUnsupported here,
@@ -429,6 +571,20 @@ class TorchCompiledQuery:
         active = torch.zeros(0, dtype=torch.bool)
         ts = torch.zeros(0, dtype=torch.int64)
         env, active = self._apply_ops(self.pre_ops, env, active, 0)
+        if self.join is not None:
+            for jspec in self.join_chain:
+                tt = {spec.name: spec.sql_type for spec in jspec.layout.specs}
+                tenv, _ = self._apply_ops(jspec.table_pre_ops, _probe_env({**tt, **PSEUDOCOLUMNS}),
+                                          active, 0)
+                TorchExprCompiler(tenv, 0, "cpu").compile(jspec.step.right_key)
+                missing = [c.name for c in jspec.cols if c.name not in tenv]
+                if missing:
+                    raise DeviceUnsupported(f"join table columns {missing} not computed on device")
+            # one-slot CPU stores: the probes of an empty batch
+            jtabs = {self._jtab_key(i): self._init_table_store(i, "cpu", 1)
+                     for i in range(len(self.join_chain))}
+            env, active = self._apply_join(env, active, 0, jtabs)
+            env, active = self._apply_ops(self.mid_ops, env, active, 0)
         if self.agg is None:
             self._pack_emits(env, active, ts)
             return
@@ -445,10 +601,20 @@ class TorchCompiledQuery:
         self._pack_emits(env, active, ts)
 
     # --------------------------------------------------------------- state
-    def init_state(self, device=None) -> Dict[str, torch.Tensor]:
+    def init_state(self, device=None, tables: bool = True) -> Dict[str, torch.Tensor]:
+        """A fresh state dict; ``tables=False`` leaves out the join table
+        stores (a rebuild of the aggregate store keeps them)."""
         dev = self.device if device is None else device
         if self.store_layout is None:
-            return {"max_ts": torch.tensor(_I64_MIN, dtype=torch.int64, device=dev)}
+            state = {"max_ts": torch.tensor(_I64_MIN, dtype=torch.int64, device=dev)}
+        else:
+            state = self._init_agg_state(dev)
+        if tables:
+            for i in range(len(self.join_chain)):
+                state[self._jtab_key(i)] = self._init_table_store(i, dev)
+        return state
+
+    def _init_agg_state(self, dev) -> Dict[str, torch.Tensor]:
         state = hs.init_store(self.store_layout, dev)
         if self.sliced:
             c1 = self.store_capacity + 1
@@ -469,6 +635,10 @@ class TorchCompiledQuery:
     @state.setter
     def state(self, value: Dict[str, torch.Tensor]) -> None:
         self._state = value
+        self.jscratch = {
+            self._jtab_key(i): hs.init_table_scratch(jspec.capacity, self.device)
+            for i, jspec in enumerate(self.join_chain)
+        }
         if self.store_layout is not None:
             self.scratch = hs.init_scratch(self.store_capacity, self.device)
             if self.sliced:
@@ -477,9 +647,10 @@ class TorchCompiledQuery:
                     self.store_capacity, self.slice_ring, spw, self.device))
 
     # ---------------------------------------------------------- the step
-    def _source_env(self, arrays: Dict[str, torch.Tensor]) -> Dict[str, DCol]:
+    def _source_env(self, arrays: Dict[str, torch.Tensor],
+                    layout: Optional[BatchLayout] = None) -> Dict[str, DCol]:
         env: Dict[str, DCol] = {}
-        for spec in self.layout.specs:
+        for spec in (layout or self.layout).specs:
             env[spec.name] = DCol(arrays[f"v_{spec.name}"], arrays[f"m_{spec.name}"], spec.sql_type)
         ones = torch.ones(arrays["ts"].shape[0], dtype=torch.bool, device=arrays["ts"].device)
         env["ROWTIME"] = DCol(arrays["ts"], ones, T.BIGINT)
@@ -491,10 +662,14 @@ class TorchCompiledQuery:
                    active: torch.Tensor, n: int) -> Tuple[Dict[str, DCol], torch.Tensor]:
         for op in ops:
             c = TorchExprCompiler(env, n, active.device, self.dictionary)
-            if isinstance(op, st.StreamFilter):
+            if isinstance(op, (st.StreamFilter, st.TableFilter)):
                 pred = c.compile(op.predicate)
                 active = active & pred.valid & pred.data.to(torch.bool)
-            else:  # StreamSelect, or the TableSelect after an aggregate
+            elif isinstance(op, (st.StreamSelectKey, st.TableSelectKey)):
+                for col, e in zip(op.schema.key_columns, op.key_expressions):
+                    env[col.name] = c.compile(e)
+            else:  # StreamSelect, or a TableSelect (after an aggregate, or
+                # on a join's table side)
                 new_env: Dict[str, DCol] = {}
                 src_keys = [k.name for k in op.source.schema.key_columns]
                 out_keys = [k.name for k in op.schema.key_columns]
@@ -522,6 +697,9 @@ class TorchCompiledQuery:
         if self.agg is None:
             env = self._source_env(arrays)
             env, active = self._apply_ops(self.pre_ops, env, arrays["row_valid"], self.capacity)
+            if self.join is not None:
+                env, active = self._apply_join(env, active, self.capacity, state)
+                env, active = self._apply_ops(self.mid_ops, env, active, self.capacity)
             ts = arrays["ts"]
             emits = self._pack_emits(env, active, ts)
             batch_max = torch.where(active, ts, torch.full_like(ts, _I64_MIN)).max()
@@ -536,6 +714,9 @@ class TorchCompiledQuery:
         n = self.capacity
         env = self._source_env(arrays)
         env, active = self._apply_ops(self.pre_ops, env, arrays["row_valid"], n)
+        if self.join is not None:
+            env, active = self._apply_join(env, active, n, self.state)
+            env, active = self._apply_ops(self.mid_ops, env, active, n)
         ts = arrays["ts"]
         key_cols = self._key_cols(env, n, ts.device)
         reprs = torch.stack([_repr64(kc) for kc in key_cols])
@@ -707,6 +888,123 @@ class TorchCompiledQuery:
         hs.evict(self.state, self.store_layout, self.retention_ms, sliced=self.sliced)
         self.evictions += 1
 
+    # ------------------------------------------- join table stores (device)
+    def _jtab_key(self, idx: int) -> str:
+        """State key of probe ``idx``: the outermost store is ``jtab``, the
+        inner probes of an n-way chain ``jtab<i>`` (the reference's names)."""
+        if idx < 0:
+            idx += len(self.join_chain)
+        return "jtab" if idx == len(self.join_chain) - 1 else f"jtab{idx}"
+
+    def _init_table_store(self, idx: int = -1, device=None,
+                          capacity: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """The keyed store of one probe's table: the join key's repr in
+        ``key0`` and one ``v_<col>``/``m_<col>`` pair per kept column,
+        overwritten last-write-wins (the materialized KTable)."""
+        jspec = self.join_chain[idx]
+        cap = jspec.capacity if capacity is None else capacity
+        dev = self.device if device is None else device
+        s = hs.init_store(hs.StoreLayout(capacity=cap, num_keys=1, components=()), dev)
+        for col in jspec.cols:
+            s[f"v_{col.name}"] = torch.zeros(cap + 1, dtype=torch_dtype(col.type), device=dev)
+            s[f"m_{col.name}"] = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+        return s
+
+    def _apply_join(self, env: Dict[str, DCol], active: torch.Tensor, n: int,
+                    jtabs: Dict[str, Dict[str, torch.Tensor]]) -> Tuple[Dict[str, DCol], torch.Tensor]:
+        """Probe each table store in chain order (K8), each probe after its
+        between-ops: the table's columns for matches; INNER drops rows that
+        do not match, LEFT null-pads them."""
+        for idx, jspec in enumerate(self.join_chain):
+            env, active = self._apply_ops(jspec.between_ops, env, active, n)
+            jtab = jtabs[self._jtab_key(idx)]
+            c = TorchExprCompiler(env, n, active.device, self.dictionary)
+            kcol = c.compile(jspec.step.left_key)
+            lanes, key, found = hs.probe_find(
+                jtab, jtab["occ"].shape[0] - 1, _repr64(kcol).contiguous(),
+                kcol.valid.contiguous(), active, [col.name for col in jspec.cols],
+            )
+            if jspec.step.join_type == JoinType.INNER:
+                active = found
+            for col in jspec.cols:
+                env[col.name] = DCol(lanes[f"v_{col.name}"], lanes[f"m_{col.name}"], col.type)
+            # the right side's primary key column (stored as its key repr)
+            for kc in jspec.step.right.schema.key_columns:
+                kdata = key
+                if kc.type.base in (SqlBaseType.DOUBLE, SqlBaseType.DECIMAL):
+                    kdata = kdata.view(torch.float64)
+                elif kc.type.base not in _HASHED:
+                    kdata = kdata.to(torch_dtype(kc.type))
+                env[kc.name] = DCol(kdata, found, kc.type)
+            # the join result's key column carries the join key value
+            for out_key in jspec.step.schema.key_columns:
+                env[out_key.name] = kcol
+        return env, active
+
+    def _table_step(self, arrays: Dict[str, torch.Tensor], idx: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Fold one table-changelog batch into probe ``idx``'s store in
+        place: K1's table mode hashes the key, K2 inserts with window 0 and
+        null bits 0 for every row (the reference's arguments, whatever the
+        key's validity), K9 writes the last row per key; tombstones leave
+        graves.  Returns the store's (occupancy, overflow) device scalars."""
+        jspec = self.join_chain[idx]
+        key = self._jtab_key(idx)
+        jt = self.state[key]
+        n = self.capacity
+        env = self._source_env(arrays, jspec.layout)
+        env, active = self._apply_ops(jspec.table_pre_ops, env, arrays["row_valid"], n)
+        kcol = TorchExprCompiler(env, n, active.device, self.dictionary).compile(jspec.step.right_key)
+        krepr = _repr64(kcol).reshape(1, n).contiguous()
+        cap_t = jspec.capacity
+        act, khash, base = hs.table_prologue(
+            krepr, kcol.valid.reshape(1, n).contiguous(), active, cap_t)
+        zeros64 = torch.zeros(n, dtype=torch.int64, device=active.device)
+        zeros32 = torch.zeros(n, dtype=torch.int32, device=active.device)
+        slots = hs.probe_insert(jt, self.jscratch[key], cap_t, base, khash, zeros64, krepr,
+                                zeros32, act)
+        values = {col.name: (env[col.name].data, env[col.name].valid) for col in jspec.cols}
+        hs.table_upsert(jt, self.jscratch[key], cap_t, slots, act, arrays["delete"], values)
+        return (jt["occ"] | jt["grave"]).sum(), jt["overflow"]
+
+    def process_table(self, batch: HostBatch, deletes: np.ndarray, idx: int = -1) -> None:
+        """Host entry for one table-side micro-batch (rows + tombstone
+        mask) of join probe ``idx``."""
+        if idx < 0:
+            idx += len(self.join_chain)
+        jspec = self.join_chain[idx]
+        arrays = jspec.layout.encode(batch)
+        pad = np.zeros(self.capacity, bool)
+        pad[: len(deletes)] = deletes
+        arrays["delete"] = pad
+        occupancy, overflow = self._table_step(self.upload(arrays), idx)
+        overflow = int(overflow)
+        if overflow > jspec.seen_overflow:
+            jspec.seen_overflow = overflow
+            raise QueryRuntimeException(
+                f"device join-table store overflowed ({overflow} rows); "
+                "growth failed to keep pace with key cardinality"
+            )
+        if int(occupancy) + self.capacity > 0.75 * jspec.capacity:
+            self._grow_table(idx=idx)
+
+    def _grow_table(self, factor: int = 2, idx: int = -1) -> None:
+        """Double one join table store (host rebuild)."""
+        if idx < 0:
+            idx += len(self.join_chain)
+        t0 = time.perf_counter()
+        jspec = self.join_chain[idx]
+        jspec.capacity *= factor
+        if idx == len(self.join_chain) - 1:
+            self.table_store_capacity = jspec.capacity
+        key = self._jtab_key(idx)
+        new = state_to_numpy(self._init_table_store(idx, "cpu"))
+        _rebuild_keyed_store(state_to_numpy(self.state[key]), new, jspec.capacity)
+        self.state = {**self.state, key: state_from_numpy(new, self.device)}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.table_rebuild_seconds.append(time.perf_counter() - t0)
+        self.table_grows += 1
+
     # ------------------------------------------------------------ host API
     def process(self, batch: HostBatch) -> List[SinkEmit]:
         return self.process_arrays(self.layout.encode(batch))
@@ -777,24 +1075,14 @@ class TorchCompiledQuery:
         ``host_insert``), dropping tombstones; factor=1 compacts in place,
         factor>1 also multiplies the capacity.  Returns the live slots."""
         t0 = time.perf_counter()
-        old = state_to_numpy(self.state)
+        # the join table stores are sized on their own: they carry over
+        jtabs = {k: v for k, v in self.state.items() if isinstance(v, dict)}
+        old = state_to_numpy({k: v for k, v in self.state.items() if k not in jtabs})
         self.store_capacity *= factor
         self.store_layout = dataclasses.replace(self.store_layout, capacity=self.store_capacity)
-        new = state_to_numpy(self.init_state("cpu"))
-        scalars = {k for k, v in old.items() if v.ndim == 0}
-        live = np.nonzero(old["occ"][:-1])[0]
-        if live.size:
-            slots = hs.host_insert(
-                new["occ"], new["khash"], new["wstart"], self.store_capacity,
-                old["khash"][live], old["wstart"][live],
-            )
-            for name in old:
-                if name in scalars or name in ("occ", "khash", "wstart"):
-                    continue
-                new[name][slots] = old[name][live]
-        for name in scalars:  # max_ts, overflow
-            new[name] = old[name]
-        self.state = state_from_numpy(new, self.device)
+        new = state_to_numpy(self.init_state("cpu", tables=False))
+        live = _rebuild_keyed_store(old, new, self.store_capacity)
+        self.state = {**state_from_numpy(new, self.device), **jtabs}
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.rebuild_seconds.append(time.perf_counter() - t0)
@@ -802,7 +1090,7 @@ class TorchCompiledQuery:
             self.compactions += 1
         else:
             self.grows += 1
-        return int(live.size)
+        return live
 
     def _decode_emits(self, emits: Dict[str, torch.Tensor]) -> List[SinkEmit]:
         idx_dev = emits["emit_mask"].nonzero().squeeze(1)
@@ -824,7 +1112,7 @@ class TorchCompiledQuery:
         out: List[SinkEmit] = []
         key_names = [c.name for c in schema.key_columns]
         val_names = [c.name for c in schema.value_columns]
-        collapse_null_keys = self.agg is None
+        collapse_null_keys = self.agg is None and self.join is None
         for j in range(len(ts)):
             key = tuple(cols[kn][j] for kn in key_names)
             if collapse_null_keys and key and all(k is None for k in key):

@@ -1,9 +1,10 @@
 """Source-record decode and sink emission, shared by the port's executors.
 
-Trimmed copies of ``SinkEmit``, ``StreamRow``, ``decode_source_record`` and
-``SinkWriter`` from ``ksql_tpu/runtime/oracle.py``: stream sources only,
-KAFKA/JSON keys and JSON values (``serde/formats.py``), no header columns,
-no fault points, no changelog fence.  Values are serialized one emit at a
+Trimmed copies of ``SinkEmit``, ``StreamRow``, ``TableChange``,
+``decode_source_record`` and ``SinkWriter`` from
+``ksql_tpu/runtime/oracle.py``: stream and table sources, KAFKA/JSON keys
+and JSON values (``serde/formats.py``), no header columns, no fault points,
+no changelog fence.  Values are serialized one emit at a
 time with the same serializer the reference's block encoder mirrors byte
 for byte, so the sink topic's bytes are the reference's.
 """
@@ -11,7 +12,7 @@ for byte, so the sink topic's bytes are the reference's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 from ksql_tpu_torch.common.errors import SerdeException
 from ksql_tpu_torch.execution import steps as st
@@ -30,6 +31,20 @@ class StreamRow:
 
 
 @dataclasses.dataclass
+class TableChange:
+    """One changelog record of a table source: the key's previous row (None
+    when the key was absent) and its new row (None = tombstone)."""
+
+    key: Tuple[Any, ...]
+    old: Optional[Dict[str, Any]]
+    new: Optional[Dict[str, Any]]
+    ts: int
+    window: Optional[Tuple[int, int]] = None
+    part: Optional[int] = None
+    offset: Optional[int] = None
+
+
+@dataclasses.dataclass
 class SinkEmit:
     """One sink emission: key tuple, row (None = tombstone), event time and
     the window bounds of a windowed key."""
@@ -41,14 +56,16 @@ class SinkEmit:
 
 
 def decode_source_record(
-    source_step: st.StreamSource,
+    source_step,
     record: Record,
     on_error: Callable[[str, Exception], None],
-) -> Optional[StreamRow]:
-    """Deserialize one source-topic record into a StreamRow (value serde,
-    key serde, TIMESTAMP-column extraction).  Returns None for a record the
-    serde rejects (reported through ``on_error``) or whose extracted
-    timestamp is negative."""
+) -> Optional[Union[StreamRow, TableChange]]:
+    """Deserialize one source-topic record into a StreamRow, or for a table
+    source a TableChange (value serde, key serde, TIMESTAMP-column
+    extraction, and the table's old/new tracking in a per-step key → row
+    map).  Returns None for a record the serde rejects (reported through
+    ``on_error``), whose extracted timestamp is negative, a table record
+    with a null key, and a tombstone for a key the table does not hold."""
     schema = source_step.schema
     cached = source_step.__dict__.get("_decode_cache")
     if cached is None:
@@ -85,16 +102,41 @@ def decode_source_record(
                 # negative extracted timestamps drop the record
                 # (reference MetadataTimestampExtractor semantics)
                 return None
+    is_table = isinstance(source_step, (st.TableSource, st.WindowedTableSource))
     if record.key is None and schema.key_columns:
+        if is_table:
+            return None  # table upsert with null key: skipped (KTable source)
         key: tuple = ()  # null key payload: stays a null key on passthrough
     else:
         key = tuple(key_row.get(c.name) for c in schema.key_columns)
+        if is_table and key and all(k is None for k in key):
+            return None
     if value_row is None:
         row = None
     else:
         row = dict(key_row)
         row.update(value_row)
+    if is_table:
+        state = source_step.__dict__.setdefault("_table_state", {})
+        hkey = _hashable(key)
+        old = state.get(hkey)
+        if row is None:
+            state.pop(hkey, None)
+        else:
+            state[hkey] = row
+        if old is None and row is None:
+            return None
+        return TableChange(key, old, row, ts, record.window, record.partition, record.offset)
     return StreamRow(key, row, ts, record.window, record.partition, record.offset)
+
+
+def _hashable(v: Any) -> Any:
+    """A dict key for a (possibly nested) key tuple."""
+    if isinstance(v, dict):
+        return tuple(sorted((k, _hashable(x)) for k, x in v.items()))
+    if isinstance(v, (list, tuple)):
+        return tuple(_hashable(x) for x in v)
+    return v
 
 
 class SinkWriter:

@@ -4,7 +4,8 @@ The reference keeps a query's store as a dict of JAX arrays
 (``CompiledDeviceQuery.state``); ``jax.device_get`` turns it into numpy.
 :func:`state_from_numpy` loads such a dict into the port (the counterpart
 of carrying weights across), and :func:`state_to_numpy` reads the port's
-state back.  Keys, shapes and dtypes are the same on both sides.
+state back.  Keys, shapes and dtypes are the same on both sides; a nested dict (a join
+query's table store under ``jtab``) stays nested.
 """
 
 from __future__ import annotations
@@ -32,10 +33,15 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], device=None) -> Dict[str,
     """Copy a state dict of numpy arrays (0-d for scalars) onto ``device``."""
     dev = resolve_device(device)
     return {
-        k: torch.from_numpy(np.array(v, copy=True)).to(dev) for k, v in arrays.items()
+        k: state_from_numpy(v, dev) if isinstance(v, Mapping)
+        else torch.from_numpy(np.array(v, copy=True)).to(dev)
+        for k, v in arrays.items()
     }
 
 
 def state_to_numpy(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Copy a state dict of tensors to writable host numpy arrays."""
-    return {k: v.detach().cpu().numpy().copy() for k, v in state.items()}
+    return {
+        k: state_to_numpy(v) if isinstance(v, Mapping) else v.detach().cpu().numpy().copy()
+        for k, v in state.items()
+    }

@@ -9,7 +9,18 @@ A fraction ``--new`` of each batch are new keys, the rest repeat keys
 already inserted.  Counts only; on the CPU (the default) it says nothing
 about time.
 
+With ``--table`` it loads a join table instead: ``--users`` distinct USERS
+keys through the ENRICHED plan's ``TorchCompiledQuery.process_table`` (K1's
+table mode, K2 and K9), ``--batch`` records per table batch, into a store
+of ``--capacity`` slots that grows by the reference's rule (double when
+occupancy + the query's batch capacity ``--query-batch`` passes 0.75 of the
+store), and prints per table batch the store's slots, grows, load and
+cumulative ``overflow``.  ``chip_smoke.py`` phase 9g's sizes are
+``--capacity 16384 --batch 4096``; phase 9's are ``--capacity 262144
+--batch 65536``.
+
     python3 scripts/torch_store_overflow.py --capacity 1048576 --batch 65536 --new 1.0 --seed 0
+    python3 scripts/torch_store_overflow.py --table --users 100000 --capacity 16384 --batch 4096
 """
 
 import argparse
@@ -20,20 +31,13 @@ import sys
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir))
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
+sys.path.insert(0, ROOT)
 
 from ksql_tpu_torch.ops import hash_store as hs  # noqa: E402
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--capacity", type=int, default=1 << 20)
-    ap.add_argument("--batch", type=int, default=1 << 16)
-    ap.add_argument("--new", type=float, default=1.0, help="fraction of new keys per batch")
-    ap.add_argument("--max-load", type=float, default=0.57)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default="cpu")
-    args = ap.parse_args()
+def fill_store(args) -> None:
     dev = torch.device(args.device)
     cap, n = args.capacity, args.batch
     layout = hs.StoreLayout(cap, 1, (hs.AggComponent("max", "int64", 0),))
@@ -62,6 +66,50 @@ def main() -> None:
             "load": round(float(store["occ"].sum()) / cap, 4),
             "overflow": int(store["overflow"]),
         }), flush=True)
+
+
+def load_table(args) -> None:
+    from ksql_tpu_torch.common.batch import HostBatch
+    from ksql_tpu_torch.common.errors import QueryRuntimeException
+    from ksql_tpu_torch.execution.steps import plan_from_json
+    from ksql_tpu_torch.runtime.lowering import TorchCompiledQuery
+
+    with open(os.path.join(ROOT, "ksql_tpu_torch", "plans", "enriched_join.json")) as f:
+        plan = plan_from_json(json.load(f))
+    q = TorchCompiledQuery(plan, capacity=args.query_batch, device=args.device,
+                           table_store_capacity=args.capacity)
+    schema = q.join_chain[0].table_source.schema
+    for start in range(0, args.users, args.batch):
+        ids = range(start, min(start + args.batch, args.users))
+        rows = [{"ID": k, "NAME": f"user{k}", "REGION": f"r{k % 50}"} for k in ids]
+        try:
+            q.process_table(HostBatch.from_rows(schema, rows, timestamps=[0] * len(rows)),
+                            np.zeros(len(rows), bool))
+        except QueryRuntimeException as e:  # the store lost rows: report and stop
+            print(json.dumps({"users": ids.stop, "slots": q.table_store_capacity, "error": str(e)}))
+            sys.exit(1)
+        jt = q.state["jtab"]
+        print(json.dumps({
+            "users": ids.stop, "slots": q.table_store_capacity, "grows": q.table_grows,
+            "load": round(int(jt["occ"].sum()) / q.table_store_capacity, 4),
+            "overflow": int(jt["overflow"]),
+        }), flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--capacity", type=int, default=1 << 20, help="(first) store slots")
+    ap.add_argument("--batch", type=int, default=1 << 16, help="rows per batch")
+    ap.add_argument("--new", type=float, default=1.0, help="fraction of new keys per batch")
+    ap.add_argument("--max-load", type=float, default=0.57)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--table", action="store_true", help="load ENRICHED's USERS table")
+    ap.add_argument("--users", type=int, default=100_000, help="--table: distinct keys")
+    ap.add_argument("--query-batch", type=int, default=1 << 16,
+                    help="--table: the query's batch capacity (the load check's headroom)")
+    args = ap.parse_args()
+    (load_table if args.table else fill_store)(args)
 
 
 if __name__ == "__main__":

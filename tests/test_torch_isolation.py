@@ -80,7 +80,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         pytest.skip("a CUDA device is present: the default device is usable")
     import json
 
-    from ksql_tpu_torch.runner import run_plan
+    from ksql_tpu_torch.runner import run_plan, start_plan
     from ksql_tpu_torch.runtime.topics import Broker
     from ksql_tpu_torch.state import state_from_numpy
 
@@ -88,6 +88,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         plan = json.load(f)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_plan(plan, Broker())
+    with open(os.path.join(PKG, "plans", "enriched_join.json")) as f:
+        join_plan = json.load(f)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        start_plan(join_plan, Broker())
     with pytest.raises(RuntimeError, match="CUDA"):
         state_from_numpy({})
 

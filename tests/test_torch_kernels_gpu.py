@@ -249,3 +249,68 @@ def test_evict_kernel_sliced_matches_twin(dev):
     for k in st:
         _same(sk[k], sp[k])
     assert (st["occ"] & ~sk["occ"]).any() and sk["occ"].any()
+
+
+JOIN_COLS = (("A", "int64"), ("B", "int32"), ("C", "float64"), ("D", "bool"))
+
+
+def _join_store(dev, capacity, n_users, seed):
+    st = chip_smoke.make_join_case(torch, hs, np.random.default_rng(seed), capacity, n_users,
+                                   cols=JOIN_COLS, grave_frac=0.1)
+    return {k: torch.from_numpy(v).to(dev) for k, v in st.items()}
+
+
+@pytest.mark.parametrize("capacity,n_users", [(1 << 12, 1500), (1 << 6, 40)])
+def test_probe_find_kernel_matches_twin(dev, capacity, n_users):
+    # the small table is 60% full with graves: long walks, some past 32 rounds
+    st = _join_store(dev, capacity, n_users, capacity)
+    rng = np.random.default_rng(2)
+    n = 3000
+    krepr = torch.from_numpy(rng.integers(0, 2 * n_users, n)).to(dev)
+    kvalid = torch.from_numpy(rng.random(n) > 0.05).to(dev)
+    active = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    cols = [c for c, _ in JOIN_COLS]
+    before = hs.probe_find.launches
+    lanes, key, found = hs.probe_find(st, capacity, krepr, kvalid, active, cols)
+    assert hs.probe_find.launches == before + 1
+    want_lanes, want_key, want_found = hs.probe_find_gather_plain(st, capacity, krepr, kvalid, active, cols)
+    assert set(lanes) == set(want_lanes)
+    for k in want_lanes:
+        _same(lanes[k], want_lanes[k])
+    _same(key, want_key)
+    _same(found, want_found)
+    assert 0 < int(found.sum()) < int((kvalid & active).sum())
+
+
+def test_table_mode_and_upsert_kernels_match_twins(dev):
+    capacity, n_users, n = 1 << 12, 1500, 2048
+    st = _join_store(dev, capacity, n_users, 3)
+    rng = np.random.default_rng(4)
+    keys, kv, dels, act_np = chip_smoke.table_batch(rng, n, n_users, pad=40)
+    reprs = torch.from_numpy(keys.reshape(1, n)).to(dev)
+    kvalid = torch.from_numpy(kv.reshape(1, n)).to(dev)
+    active = torch.from_numpy(act_np).to(dev)
+    args = (reprs, kvalid, active, capacity)
+    mode_before = dict(hs.row_prologue.mode_launches)
+    got = hs.table_prologue(*args)
+    assert hs.row_prologue.mode_launches == {**mode_before, "table": mode_before["table"] + 1}
+    for g, w in zip(got, hs.table_prologue_plain(*args)):
+        _same(g, w)
+    act, khash, base = got
+    scratch = hs.init_table_scratch(capacity, dev)
+    zeros64 = torch.zeros(n, dtype=torch.int64, device=dev)
+    zeros32 = torch.zeros(n, dtype=torch.int32, device=dev)
+    slots = hs.probe_insert(st, scratch, capacity, base, khash, zeros64, reprs, zeros32, act)
+    values = {c: (torch.from_numpy(chip_smoke._col_values(rng, d, n)).to(dev),
+                  torch.from_numpy(rng.random(n) > 0.1).to(dev)) for c, d in JOIN_COLS}
+    delete = torch.from_numpy(dels).to(dev)
+    sk = {k: v.clone() for k, v in st.items()}
+    sp = {k: v.clone() for k, v in st.items()}
+    before = hs.table_upsert.launches
+    hs.table_upsert(sk, scratch, capacity, slots, act, delete, values)
+    assert hs.table_upsert.launches == before + 1
+    hs.table_upsert_plain(sp, capacity, slots, act, delete, values)
+    for k in st:
+        _same(sk[k], sp[k])
+    assert (scratch["last"] == -1).all() and (scratch["claim"] == hs.INT32_MAX).all()
+    assert (sk["grave"] & ~st["grave"]).any() and not torch.equal(sk["v_A"], st["v_A"])

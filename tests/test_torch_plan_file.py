@@ -1,12 +1,13 @@
 """The committed plans stay what the JAX engine builds today.
 
-``ksql_tpu_torch/plans/pv_counts_tumbling.json`` (BASELINE #1) and
-``pv_stats_hopping.json`` (BASELINE #2) are the serialized physical plans
-that ``chip_smoke.py`` runs (the port has no SQL front end yet): each must
-equal ``plan_to_json`` of the plan the reference engine builds for the
-bench's page-view stream and its table (``bench.py``'s tumbling COUNT(*)
-and hopping SUM/AVG/MIN/MAX), and the port's decoder must read it back to
-the same JSON.
+``ksql_tpu_torch/plans/pv_counts_tumbling.json`` (BASELINE #1),
+``pv_stats_hopping.json`` (BASELINE #2) and ``enriched_join.json``
+(BASELINE #3) are the serialized physical plans that ``chip_smoke.py``
+runs (the port has no SQL front end yet): each must equal ``plan_to_json``
+of the plan the reference engine builds from the bench's DDL
+(``bench.py``'s tumbling COUNT(*) and hopping SUM/AVG/MIN/MAX over the
+page-view stream, and its clicks-users LEFT JOIN), and the port's decoder
+must read it back to the same JSON.
 """
 
 import json
@@ -29,8 +30,26 @@ CTAS = {
         "MIN(USER_ID) AS MN, MAX(USER_ID) AS MX FROM PAGE_VIEWS "
         "WINDOW HOPPING (SIZE 1 HOUR, ADVANCE BY 15 MINUTES) GROUP BY URL EMIT CHANGES;"
     ),
+    # bench.py:540-551, bench_stream_table_join
+    "enriched_join.json": (
+        "CREATE STREAM ENRICHED AS SELECT C.USER_ID, C.URL, U.REGION "
+        "FROM CLICKS C LEFT JOIN USERS U ON C.USER_ID = U.ID "
+        "WHERE U.REGION <> 'excluded' EMIT CHANGES;"
+    ),
 }
-SINKS = {"pv_counts_tumbling.json": "PV_COUNTS", "pv_stats_hopping.json": "PV_STATS"}
+#: the DDL each plan's query reads (bench.py:149, :541-546)
+DDL = {
+    "pv_counts_tumbling.json": [bench.PV_DDL],
+    "pv_stats_hopping.json": [bench.PV_DDL],
+    "enriched_join.json": [
+        "CREATE TABLE USERS (ID BIGINT PRIMARY KEY, NAME STRING, REGION STRING) "
+        "WITH (KAFKA_TOPIC='users', VALUE_FORMAT='JSON');",
+        "CREATE STREAM CLICKS (USER_ID BIGINT, URL STRING) "
+        "WITH (KAFKA_TOPIC='clicks', VALUE_FORMAT='JSON');",
+    ],
+}
+SINKS = {"pv_counts_tumbling.json": "PV_COUNTS", "pv_stats_hopping.json": "PV_STATS",
+         "enriched_join.json": "ENRICHED"}
 
 
 def _committed(name):
@@ -40,7 +59,7 @@ def _committed(name):
 
 def _check_equals_reference(name):
     engine = bench._engine()
-    plan = bench._plan_of(engine, [bench.PV_DDL, CTAS[name]])
+    plan = bench._plan_of(engine, DDL[name] + [CTAS[name]])
     assert _committed(name) == json.loads(json.dumps(plan_to_json(plan)))
 
 
@@ -65,3 +84,11 @@ def test_hopping_plan_file_equals_reference_engine_plan():
 
 def test_port_decodes_hopping_plan_file_losslessly():
     _check_decodes("pv_stats_hopping.json")
+
+
+def test_join_plan_file_equals_reference_engine_plan():
+    _check_equals_reference("enriched_join.json")
+
+
+def test_port_decodes_join_plan_file_losslessly():
+    _check_decodes("enriched_join.json")
