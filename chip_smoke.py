@@ -70,13 +70,34 @@ Phases, in this order; any failure exits non-zero and prints no result:
 9g. Table growth: the users in ticks of 4,096 into a 2^14-slot table
    store, which must double to 2^18 while they load; then one click batch
    must equal the dict join.
+2s. The stream-stream join's kernels against their twins at BASELINE #4's
+   shapes (a 2,048-row left batch with 5% null keys, 2% late rows and 16
+   padding rows; a 16,385-entry right ring filled from bench.py's traffic,
+   entries past the retention dead; a left ring whose cursor wraps): K10
+   ss_match (count, write), K11 ss_insert (prologue, write) and K12
+   ss_expire; all exact, dump entries included.  No single PyTorch call
+   computes any of them, so there is no yardstick.
+10. BASELINE #4 end to end (``ksql_tpu_torch/plans/ss_join_grace.json``,
+   LEFTS LEFT JOIN RIGHTS WITHIN 10 SECONDS GRACE PERIOD 1 SECOND) through
+   ``start_plan``: bench.py:610-665's traffic (20,000 keys, V = ID, a
+   record every 2 ms), 32 batches of 2,048 JSON records a side,
+   alternating, one a tick (``run_until_quiescent`` + ``drain``), rings of
+   2^14, 8 x 2,048 match lanes, then ``flush_time``.  The sink must equal
+   the port's CPU run record for record; its joined rows must equal a
+   numpy count of the (L, R) pairs with equal ID within 10 s, its padded
+   rows the lefts without one; no loss, no match overflow, no grow.
+10g. Both growths: phase 10's first 16 batches a side with
+   ``ss_buffer_capacity`` 512 (rings from 2,048 entries to at least 8,192)
+   and 64 match lanes (at least two doublings); the sink must equal a run
+   at phase 10's sizes.
 5. Launch counters, per path: the counts (per kernel, and per mode for K1,
-   K4 and K6) are set to 0 just before each of phases 3, 4, 6, 7, 8, 9 and
-   9g drives the runner on the card and read just after it; each phase
-   must have launched every kernel of its route in the route's mode
-   (``PATH_KERNELS``).  Then short profiled re-runs split a batch's time
-   into host stages and the card's busy share, for the flagship (3b),
-   BASELINE #2 (6b) and BASELINE #3 (9b).
+   K4, K6, K10 and K11) are set to 0 just before each of phases 3, 4, 6,
+   7, 8, 9, 9g, 10 and 10g drives the runner on the card and read just
+   after it; each phase must have launched every kernel of its route in
+   the route's modes (``PATH_KERNELS``), and no kernel or mode outside it.
+   Then short profiled re-runs split a batch's time into host stages and
+   the card's busy share, for the flagship (3b), BASELINE #2 (6b),
+   BASELINE #3 (9b) and BASELINE #4 (10b).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON record, and the line before that the card's name and
@@ -156,6 +177,9 @@ KERNEL_FUNCS = {
     "member_lanes": ("lane_claim_kernel", "lane_winner_kernel"),
     "probe_find": ("probe_find_kernel",),
     "table_upsert": ("claim_kernel", "upsert_kernel", "dump_kernel"),
+    "ss_match": ("match_count_kernel", "match_scan_kernel", "match_write_kernel"),
+    "ss_insert": ("insert_prologue_kernel", "insert_write_kernel"),
+    "ss_expire": ("expire_kernel",),
 }
 
 
@@ -946,6 +970,272 @@ def phase_join_kernels(torch, seed, n=JOIN_ROWS, capacity=JOIN_STORE, n_users=JO
     return recs
 
 
+# ------------------------------------------------------------- phase 2s
+SS_ROWS = 2048  # BASELINE #4's batch: min(2048, CAPACITY) (bench.py:630)
+SS_RING = 1 << 14  # bench.py:631, each side's ring
+SS_KEYS = 20_000  # bench.py:636
+SS_STEP_MS = 2  # bench.py:642, a record every 2 ms
+SS_WITHIN_MS = 10_000
+SS_GRACE_MS = 1_000
+SS_RETENTION_MS = 2 * SS_WITHIN_MS + SS_GRACE_MS
+SS_PAD = 16  # padding rows at the end of phase 2s's batch
+
+
+def _ss_bench_ts(rec, side, n):
+    """ts of record ``rec`` of a side in bench.py's traffic (batches of
+    ``n`` alternate left, right; a record every SS_STEP_MS)."""
+    batch = 2 * (rec // n) + (side == "r")
+    return TS0 + (batch * n + rec % n) * SS_STEP_MS
+
+
+def _ss_ring_np(rng, ring, cursor, records, side, n, keys):
+    """One side's ring after ``records`` records of bench.py's traffic, its
+    cursor at ``cursor``: the last ``ring`` records at entry seq mod ring,
+    live while within the side's retention, a quarter marked matched; the
+    dump entry holds a record, not live.  Columns (BASELINE #4's plan): the
+    left ring keeps L_ID and L_V, the right R_V, each the key (V = ID)."""
+    b1 = ring + 1
+    seq = np.arange(cursor - ring, cursor)
+    pos = seq % ring
+    st = {"ts": np.zeros(b1, np.int64), "krepr": np.zeros(b1, np.int64), "kval": np.zeros(b1, bool),
+          "live": np.zeros(b1, bool), "matched": np.zeros(b1, bool), "seq": np.zeros(b1, np.int64)}
+    ts = _ss_bench_ts(seq - cursor + records, side, n)
+    kk = rng.integers(0, keys, ring)
+    st["ts"][pos], st["krepr"][pos], st["kval"][pos], st["seq"][pos] = ts, kk, True, seq
+    st["live"][pos] = ts + SS_RETENTION_MS >= ts.max()
+    st["matched"][pos] = rng.random(ring) < 0.25
+    st["ts"][ring], st["krepr"][ring], st["seq"][ring] = ts[0], kk[0], seq[0]
+    cols = [(st["krepr"].copy(), st["kval"].copy()) for _ in range(2 if side == "l" else 1)]
+    return st, cols, int(ts.max())
+
+
+def make_ss_case(rng, ring=SS_RING, n=SS_ROWS, keys=SS_KEYS):
+    """One BASELINE #4 step at its shapes, numpy: a left batch of ``n``
+    rows (bench.py's next left batch: keys uniform over 20,000, 5% null
+    keys, 2% of rows 30 s late, the last SS_PAD rows padding), the right
+    ring it matches (after 3.5 rings of right records: entries past the
+    retention are dead) and the left ring it is inserted into, whose
+    cursor sits half a batch before a multiple of the ring (as rows not
+    admitted earlier leave it), so the insert wraps it."""
+    records = 7 * ring // 2  # each side's records so far
+    ring_r, cols_r, smax_r = _ss_ring_np(rng, ring, records, records, "r", n, keys)
+    l_cursor = 4 * ring - n // 2
+    ring_l, cols_l, smax_l = _ss_ring_np(rng, ring, l_cursor, records, "l", n, keys)
+    batch = 2 * (records // n)
+    ts = TS0 + (batch * n + np.arange(n)) * SS_STEP_MS
+    late = rng.random(n) < 0.02
+    ts[late] -= 30_000
+    row_keys = rng.integers(0, keys, n)
+    kvalid = rng.random(n) > 0.05
+    row_valid = np.arange(n) < n - SS_PAD
+    row_keys[~row_valid], ts[~row_valid] = 0, 0
+    rows = {"krepr": row_keys, "kvalid": kvalid & row_valid, "active": row_valid.copy(), "ts": ts,
+            "row_valid": row_valid}
+    # the batch's columns: L_ID (the key, null with it) and L_V (= ID)
+    row_cols = [(row_keys.copy(), kvalid & row_valid), (row_keys.copy(), row_valid.copy())]
+    return {"ring_l": ring_l, "cols_l": cols_l, "ring_r": ring_r, "cols_r": cols_r,
+            "rows": rows, "row_cols": row_cols, "max_ts": smax_r, "smax_l": smax_l,
+            "smax_r": smax_r, "cursor_l": l_cursor}
+
+
+def ss_case_tensors(torch, case, dev):
+    """``make_ss_case``'s arrays as tensors on ``dev`` (scalars 0-d)."""
+    def t(x):
+        return torch.from_numpy(np.asarray(x)).to(dev)
+
+    out = {k: {f: t(v) for f, v in case[k].items()} for k in ("ring_l", "ring_r", "rows")}
+    for k in ("cols_l", "cols_r", "row_cols"):
+        out[k] = [(t(d), t(v)) for d, v in case[k]]
+    for k in ("max_ts", "smax_l", "smax_r", "cursor_l"):
+        out[k] = torch.tensor(case[k], dtype=torch.int64, device=dev)
+    return out
+
+
+def _clone_case(c):
+    return {k: ({f: x.clone() for f, x in v.items()} if isinstance(v, dict)
+                else [(d.clone(), m.clone()) for d, m in v] if isinstance(v, list) else v.clone())
+            for k, v in c.items()}
+
+
+def _assert_tree(torch, name, got, want):
+    if isinstance(want, dict):
+        for k in want:
+            _assert_tree(torch, f"{name}.{k}", got[k], want[k])
+    elif isinstance(want, (list, tuple)):
+        require(len(got) == len(want), f"{name}: {len(got)} vs {len(want)} items")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_tree(torch, f"{name}[{i}]", g, w)
+    else:
+        _assert_equal(torch, name, got, want)
+
+
+def _ss_calls(torch, c, oc, plain=False):
+    """Phase 2s's five calls (K10 count and write, K11 prologue and write,
+    K12) on case ``c``, as BASELINE #4's plan makes them for a left batch
+    (its key is L_ID, the batch's first column): the wrappers, or with
+    ``plain`` their twins (which run on the card's tensors too)."""
+    from ksql_tpu_torch.ops import ss_join as ssj
+
+    def fn(name):
+        return getattr(ssj, f"{name}_plain" if plain else name)
+
+    r = c["rows"]
+    key = c["row_cols"][0]
+
+    def count():
+        return fn("ss_match_count")("l", r["krepr"], r["kvalid"], r["active"], r["ts"], c["ring_r"],
+                                    SS_WITHIN_MS, SS_WITHIN_MS)
+
+    def write(cnt):
+        return fn("ss_match")("l", r["krepr"], r["kvalid"], r["active"], r["ts"], c["ring_r"],
+                              SS_WITHIN_MS, SS_WITHIN_MS, cnt, oc, c["row_cols"] + [key], c["cols_r"])
+
+    def prologue(cnt):
+        return fn("ss_insert_prologue")(r["row_valid"], r["ts"], r["active"], cnt[1], c["ring_l"],
+                                        c["max_ts"], c["smax_l"], c["cursor_l"], pad_side=True,
+                                        deferred=True, swin=SS_WITHIN_MS, grace=SS_GRACE_MS,
+                                        retention=SS_RETENTION_MS)
+
+    def insert(cnt, pro):
+        fn("ss_insert")(c["ring_l"], c["cols_l"], pro, r["ts"], r["krepr"], r["kvalid"], cnt[1],
+                        c["row_cols"], c["max_ts"], c["smax_l"], c["cursor_l"])
+
+    def expire():
+        return fn("ss_expire")({"l": c["ring_l"], "r": c["ring_r"]}, {"l": c["cols_l"], "r": c["cols_r"]},
+                               c["max_ts"], {"l": c["smax_l"], "r": c["smax_r"]}, [torch.int64],
+                               deferred=True, pad_sides={"l"}, after=SS_WITHIN_MS,
+                               before=SS_WITHIN_MS, grace=SS_GRACE_MS, retention=SS_RETENTION_MS)
+
+    return count, write, prologue, insert, expire
+
+
+def phase_ss_kernels(torch, seed, ring=SS_RING, n=SS_ROWS):
+    """BASELINE #4's kernels against their twins at its shapes: a
+    2,048-row left batch (5% null keys, 2% late rows, 16 padding rows)
+    against a 16,385-entry right ring filled from bench.py's traffic, with
+    its dead entries, and into a left ring whose cursor wraps.  K10 count
+    and write, K11 prologue and write, K12; everything exact, the dump
+    entries included.  Returns ``{kernel: {mode: record}}``."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 30)
+    base = ss_case_tensors(torch, make_ss_case(rng, ring, n), dev)
+    oc = 8 * n  # bench.py:633, ss_out_capacity=8 * cap
+    b1 = ring + 1
+    recs: dict = {}
+    kc, pc = _clone_case(base), _clone_case(base)
+    k_calls, p_calls = _ss_calls(torch, kc, oc), _ss_calls(torch, pc, oc, plain=True)
+
+    # ---- K10 count (count + scan launches)
+    got = k_calls[0]()
+    want = p_calls[0]()
+    for nm, g, w in zip(("cnt", "row_matched", "offsets", "total"), got, want):
+        _assert_equal(torch, f"ss_match[count].{nm}", g, w)
+    total = int(want[3])
+    rows_hit = int(want[1].sum())
+    look = int((base["rows"]["active"] & base["rows"]["kvalid"]).sum())
+    live = int((base["ring_r"]["live"] & base["ring_r"]["kval"]).sum())
+    require(0 < total < oc and live < b1, f"ss_match: {total} matches, {live} live entries")
+    # the function's own work, as an index by key would do it: one key test
+    # a row and an entry, a window test and a count a match (8 ops each)
+    ops = (n + b1 + total) * 8
+    # reads the rows' key, valid, active and ts and the ring's match fields
+    # (18 B an entry) once; writes cnt, row_matched, offsets and the total
+    rec = measure(torch, "ss_match", k_calls[0], p_calls[0],
+                  n * (8 + 1 + 1 + 8) + b1 * 18 + n * (8 + 1 + 8) + 8, ops)
+    recs["ss_match"] = {"count": dict(rec, max_abs_err=0.0)}
+    _report("2s", f"ss_match[count] ({total} matches of {look} rows x {b1} entries, "
+            f"{live} live entries; no single PyTorch call computes it)", recs["ss_match"]["count"])
+
+    # ---- K11 prologue
+    pro_k = k_calls[2](got)
+    pro_p = p_calls[2](want)
+    _assert_tree(torch, "ss_insert[prologue]", pro_k, pro_p)
+    lost, admitted = int(pro_p["scal"][0]), int(pro_p["scal"][1])
+    n_pad = int(pro_p["pad"].sum())
+    require(lost == 0 and admitted < n - SS_PAD, f"ss_insert: lost {lost}, {admitted} admitted")
+    rec = measure(torch, "ss_insert", lambda: k_calls[2](got), lambda: p_calls[2](want),
+                  n * (1 + 8 + 1 + 1) + admitted * 9 + 24 + n * (1 + 1 + 8 + 4) + 40, n * 30)
+    recs["ss_insert"] = {"prologue": dict(rec, max_abs_err=0.0)}
+    _report("2s", f"ss_insert[prologue] ({admitted} of {n - SS_PAD} rows admitted, {n_pad} pads on "
+            "arrival; no single PyTorch call)", recs["ss_insert"]["prologue"])
+
+    # ---- K10 write, then K11 write (each on its own copy of the rings)
+    snap_k, snap_p = _clone_case(kc), _clone_case(pc)
+    lanes_k = k_calls[1](got)
+    lanes_p = p_calls[1](want)
+    _assert_tree(torch, "ss_match[write]", lanes_k, lanes_p)
+    _assert_equal(torch, "ss_match[write].matched", kc["ring_r"]["matched"], pc["ring_r"]["matched"])
+    width = 3 * 9 + 9  # own columns (L_ID, L_V, the key) and R_V, data + valid
+    rec = measure(torch, "ss_match", lambda: k_calls[1](got), lambda: p_calls[1](want),
+                  n * (8 + 1 + 1 + 8 + 8 + 8) + b1 * 18 + total * (8 + 1) + oc * (4 + 4 + 8 + 8 + 1 + width),
+                  ops, reset=lambda: [c["ring_r"]["matched"].copy_(snap["ring_r"]["matched"])
+                                                    for c, snap in ((kc, snap_k), (pc, snap_p))])
+    recs["ss_match"]["write"] = dict(rec, max_abs_err=0.0)
+    # the timing runs reset both copies: write them once more
+    k_calls[1](got)
+    p_calls[1](want)
+    _report("2s", f"ss_match[write] ({total} matches into {oc} lanes, {rows_hit} rows walked; "
+            "no single PyTorch call)", recs["ss_match"]["write"])
+
+    k_calls[3](got, pro_k)
+    p_calls[3](want, pro_p)
+    for k in ("ring_l", "cols_l", "cursor_l", "max_ts", "smax_l"):
+        _assert_tree(torch, f"ss_insert[write].{k}", kc[k], pc[k])
+
+    def reset_insert():
+        for c, snap in ((kc, snap_k), (pc, snap_p)):
+            for k in ("ring_l", "cols_l", "cursor_l", "max_ts", "smax_l"):
+                _restore_tree(c[k], snap[k])
+
+    rec = measure(torch, "ss_insert", lambda: k_calls[3](got, pro_k),
+                  lambda: p_calls[3](want, pro_p),
+                  n * (8 + 8 + 1 + 1 + 1 + 1 + 8 + 4 + 2 * 9) + 40 + admitted * (8 + 8 + 1 + 1 + 1 + 8 + 2 * 9) + 24,
+                  n * 10, reset=reset_insert)
+    recs["ss_insert"]["write"] = dict(rec, max_abs_err=0.0)
+    reset_insert()
+    k_calls[3](got, pro_k)
+    p_calls[3](want, pro_p)
+    _report("2s", f"ss_insert[write] ({admitted} rows, the cursor wraps the ring; no single PyTorch "
+            "call)", recs["ss_insert"]["write"])
+
+    # ---- K12 over both rings after the step, the clock 6 s on
+    for c in (kc, pc):
+        c["max_ts"].add_(6_000)
+    snap_k, snap_p = _clone_case(kc), _clone_case(pc)
+    out_k = k_calls[4]()
+    out_p = p_calls[4]()
+    _assert_tree(torch, "ss_expire", out_k, out_p)
+    for k in ("ring_l", "ring_r"):
+        _assert_tree(torch, f"ss_expire.{k}", kc[k], pc[k])
+    n_emit = int(out_p["mask"].sum())
+    require(n_emit > 0, "ss_expire: nothing closed")
+
+    def reset_expire():
+        for c, snap in ((kc, snap_k), (pc, snap_p)):
+            for k in ("ring_l", "ring_r"):
+                _restore_tree(c[k], snap[k])
+
+    rec = measure(torch, "ss_expire", k_calls[4], p_calls[4],
+                  2 * b1 * (8 + 8 + 1 + 1 + 1 + 8) + 3 * b1 * 9 + 24 + 2 * b1 * (1 + 1)
+                  + 2 * b1 * (1 + 8 + 8 + 8 + 1 + 3 * 9), 2 * b1 * 12, reset=reset_expire)
+    recs["ss_expire"] = {"ss": dict(rec, max_abs_err=0.0)}
+    _report("2s", f"ss_expire ({n_emit} deferred pads of {2 * b1} entries; no single PyTorch call)",
+            recs["ss_expire"]["ss"])
+    return recs
+
+
+def _restore_tree(dst, src):
+    if isinstance(dst, dict):
+        for k in dst:
+            _restore_tree(dst[k], src[k])
+    elif isinstance(dst, list):
+        for (d, m), (sd, sm) in zip(dst, src):
+            d.copy_(sd)
+            m.copy_(sm)
+    else:
+        dst.copy_(src)
+
+
 # ------------------------------------------------------------- phase 3/4
 def produce_pageviews(broker, url_idx, ts, user_ids=None):
     from ksql_tpu_torch.runtime.topics import Record
@@ -975,22 +1265,26 @@ def check_counts(broker, url_idx, ts, label):
 
 
 #: the kernels each main-path phase must launch, with the mode (None: the
-#: kernel has one) its route runs them in
+#: kernel has one) its route runs them in; a phase may launch no other
 _TUMBLING = {"row_prologue": "tumbling", "probe_insert": None, "fold_and_mark": None,
              "combine_windows": "gather"}
 _SLICED = {"row_prologue": "sliced", "probe_insert": None, "sliced_fold": None,
-           "member_lanes": None, "combine_windows": "sliced"}
+           "member_lanes": None, "combine_windows": "sliced", "evict": "sliced"}
 #: a stream-table join: K8 per stream batch; K1 (table mode), K2 and K9 per
 #: table batch
 _JOIN = {"probe_find": None, "row_prologue": "table", "probe_insert": None, "table_upsert": None}
+#: a stream-stream join: K10 and K11 in both modes per batch, K12 per tick
+_SS = {"ss_match": ("count", "write"), "ss_insert": ("prologue", "write"), "ss_expire": None}
 PATH_KERNELS = {
     "3": _TUMBLING,
     "4": {**_TUMBLING, "evict": "tumbling"},
     "6": _SLICED,
-    "7": {**_SLICED, "evict": "sliced"},
+    "7": _SLICED,
     "8": {**_TUMBLING, "row_prologue": "expansion"},
     "9": _JOIN,
     "9g": _JOIN,
+    "10": _SS,
+    "10g": _SS,
 }
 #: per phase, each kernel's launches in that phase's card run, by mode
 PATH_LAUNCHES: dict = {}
@@ -999,8 +1293,9 @@ PATH_LAUNCHES: dict = {}
 def _wrappers():
     from ksql_tpu_torch.ops import hash_store as hs
     from ksql_tpu_torch.ops import slicing
+    from ksql_tpu_torch.ops import ss_join
 
-    return hs.KERNEL_WRAPPERS + slicing.KERNEL_WRAPPERS
+    return hs.KERNEL_WRAPPERS + slicing.KERNEL_WRAPPERS + ss_join.KERNEL_WRAPPERS
 
 
 def zero_launches() -> None:
@@ -1024,10 +1319,16 @@ def read_launches() -> dict:
 
 
 def check_path_launches(path: str, launches: dict) -> None:
-    for name, mode in PATH_KERNELS[path].items():
-        got = launches[name]["all" if mode is None else mode]
-        require(got > 0, f"[{path}] kernel {name}{'' if mode is None else f'[{mode}]'} "
-                f"was not launched on this path's run ({launches[name]})")
+    for name, modes in PATH_KERNELS[path].items():
+        for mode in modes if isinstance(modes, tuple) else (modes,):
+            got = launches[name]["all" if mode is None else mode]
+            require(got > 0, f"[{path}] kernel {name}{'' if mode is None else f'[{mode}]'} "
+                    f"was not launched on this path's run ({launches[name]})")
+    listed = {(k, m) for k, ms in PATH_KERNELS[path].items()
+              for m in (ms if isinstance(ms, tuple) else ("all" if ms is None else ms,))}
+    other = {f"{k}[{m}]": c for k, modes in launches.items() for m, c in modes.items()
+             if c and (k, m) not in listed}
+    require(not other, f"[{path}] launched kernels or modes outside its list: {other}")
     print(f"[{path}] launches on this path's card run: {json.dumps(launches)}")
 
 
@@ -1135,6 +1436,9 @@ def phase_breakdown(torch, drive, n_batches, tag):
         (TorchCompiledQuery, "upload", "upload", True),
         (TorchCompiledQuery, "_step", "device step", True),
         (TorchCompiledQuery, "_table_step", "table step", True),
+        (TorchCompiledQuery, "_ss_prepare", "ss match count + insert prologue", True),
+        (TorchCompiledQuery, "_ss_write", "ss match + insert write + emission", True),
+        (TorchCompiledQuery, "_ss_expire", "ss expiry", True),
         (TorchCompiledQuery, "_react_to_load", "load check", False),
         (TorchCompiledQuery, "_decode_emits", "emit decode", False),
         (SinkWriter, "produce", "sink produce", False),
@@ -1529,6 +1833,175 @@ def phase_join_growth(torch, plan_json, seed):
     return dict(grows=q.table_grows, rebuild_seconds=q.table_rebuild_seconds, load_s=load_s)
 
 
+# ------------------------------------------------------------- phase 10
+SS_BATCHES = 32  # a side; 64 batches wrap each 2^14 ring four times
+SS_GROW_BATCHES = 16  # a side
+SS_GROW_BUFFER = 512  # ss_buffer_capacity of phase 10g (B starts at SS_ROWS)
+SS_GROW_OUT = 64  # ss_out_capacity of phase 10g
+SS_FLUSH_MS = 10 * SS_RETENTION_MS  # flush_time this far past the last record
+
+
+def ss_traffic(seed, n_batches=2 * SS_BATCHES):
+    """bench.py:610-665's traffic: batch ``b`` (left when even) of SS_ROWS
+    records, ID uniform over SS_KEYS, V = ID, ts = TS0 + (b * SS_ROWS + i)
+    * 2 ms.  Returns (ids, ts), both [n_batches, SS_ROWS]."""
+    rng = np.random.default_rng(seed + 13)
+    ids = rng.integers(0, SS_KEYS, (n_batches, SS_ROWS))
+    ts = TS0 + (np.arange(n_batches)[:, None] * SS_ROWS + np.arange(SS_ROWS)[None, :]) * SS_STEP_MS
+    return ids, ts
+
+
+def produce_ss_batch(broker, b, ids, ts):
+    from ksql_tpu_torch.runtime.topics import Record
+
+    topic = broker.create_topic("lt" if b % 2 == 0 else "rt")
+    for k, t in zip(ids.tolist(), ts.tolist()):
+        topic.produce(Record(key=k, value=f'{{"V":{k}}}', timestamp=t))
+
+
+def start_ss(plan_json, device, buffer=None, out_cap=None):
+    """BASELINE #4's query on a fresh broker: bench.py's rings of SS_RING
+    entries and 8 x SS_ROWS match lanes unless given."""
+    from ksql_tpu_torch.runner import start_plan
+    from ksql_tpu_torch.runtime.topics import Broker
+
+    broker = Broker()
+    return broker, start_plan(plan_json, broker, device=device, capacity=SS_ROWS,
+                              ss_buffer_capacity=buffer or SS_RING,
+                              ss_out_capacity=out_cap or 8 * SS_ROWS)
+
+
+def ss_ticks(torch, broker, h, ids, ts, first=0, device=DEVICE):
+    """Batches ``first``.. of the traffic, one a tick: produced, polled and
+    drained (the join's expiry runs at the drain), as
+    ``tests/test_device_join.py::_run_ss`` drives its feed.  Returns the
+    host seconds of each tick, synchronized, production left out."""
+    from ksql_tpu_torch.runner import run_until_quiescent
+
+    secs = []
+    for b in range(len(ids)):
+        produce_ss_batch(broker, first + b, ids[b], ts[b])
+        t0 = time.perf_counter()
+        run_until_quiescent(h)
+        h.executor.drain()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs
+
+
+def drive_ss(torch, plan_json, ids, ts, device, buffer=None, out_cap=None, path=None):
+    """BASELINE #4 through ``start_plan``: every batch a tick, then
+    ``flush_time`` SS_FLUSH_MS past the last record.  With a ``path``, the
+    launch counts are set to 0 just before the run and read just after it.
+    Returns (broker, handle, per-tick seconds, flush seconds)."""
+    broker, h = start_ss(plan_json, device, buffer, out_cap)
+    if path is not None:
+        zero_launches()
+    secs = ss_ticks(torch, broker, h, ids, ts, device=device)
+    t0 = time.perf_counter()
+    h.executor.flush_time(int(ts[-1, -1]) + SS_FLUSH_MS)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t0
+    if path is not None:
+        PATH_LAUNCHES[path] = read_launches()
+        check_path_launches(path, PATH_LAUNCHES[path])
+    return broker, h, secs, flush_s
+
+
+def ss_pair_counts(ids, ts):
+    """(joined rows, padded rows) of BASELINE #4 by numpy: the (L, R) pairs
+    with equal ID and |t_l - t_r| <= 10 s, and the lefts with none."""
+    lid, lts = ids[0::2].ravel(), ts[0::2].ravel() - TS0
+    rid, rts = ids[1::2].ravel(), ts[1::2].ravel() - TS0
+    rk = np.sort(rid * (1 << 40) + rts)
+    lk = lid * (1 << 40) + lts
+    cnt = (np.searchsorted(rk, lk + SS_WITHIN_MS, "right")
+           - np.searchsorted(rk, lk - SS_WITHIN_MS, "left"))
+    return int(cnt.sum()), int((cnt == 0).sum())
+
+
+def ss_sink_counts(records):
+    joined = sum(1 for _k, v, _t, _w in records if json.loads(v)["RV"] is not None)
+    return joined, len(records) - joined
+
+
+def phase_ss_e2e(torch, plan_json, seed):
+    """BASELINE #4 end to end (``ksql_tpu_torch/plans/ss_join_grace.json``,
+    LEFTS LEFT JOIN RIGHTS WITHIN 10 SECONDS GRACE PERIOD 1 SECOND) at
+    bench.py's sizes: 32 batches a side of 2,048 records, alternating, one
+    a tick, into rings of 2^14 entries with 8 x 2,048 match lanes, then a
+    flush.  The sink must equal the port's CPU run record for record; the
+    joined rows must equal a numpy count of the pairs, the padded rows the
+    lefts without a pair; no loss, no match overflow, no grow."""
+    ids, ts = ss_traffic(seed)
+    n = ids.size
+    torch.cuda.reset_peak_memory_stats()
+    broker, h, tick_s, flush_s = drive_ss(torch, plan_json, ids, ts, DEVICE, path="10")
+    peak = torch.cuda.max_memory_allocated()
+    q = h.executor.query
+    require(q.ss_grows == 0 and q.ss_out_grows == 0 and q.ss_capacity == SS_RING
+            and q.ss_out_cap == 8 * SS_ROWS,
+            f"10: rings {q.ss_capacity} after {q.ss_grows} grows, lanes {q.ss_out_cap}")
+    got = sink_records(broker, "J")
+    joined, pads = ss_sink_counts(got)
+    want_joined, want_pads = ss_pair_counts(ids, ts)
+    require((joined, pads) == (want_joined, want_pads),
+            f"10: {joined} joined / {pads} padded rows, numpy says {want_joined} / {want_pads}")
+    t0 = time.perf_counter()
+    cpu_broker, _h, _s, _f = drive_ss(torch, plan_json, ids, ts, "cpu")
+    cpu_s = time.perf_counter() - t0
+    require(sink_records(cpu_broker, "J") == got, "10: card sink differs from the CPU run")
+    secs = sum(tick_s) + flush_s
+    p50, p99 = np.percentile(np.array(tick_s) * 1e3, [50, 99])
+    print(f"[10] BASELINE #4 ss join: {n} events in {len(tick_s)} ticks, {secs:.3f} s = {n / secs:.1f} "
+          f"events/s; batch p50 {p50:.3f} ms p99 {p99:.3f} ms (first tick {tick_s[0] * 1e3:.3f} ms, "
+          f"slowest {max(tick_s) * 1e3:.3f} ms at tick {int(np.argmax(tick_s))}); flush {flush_s * 1e3:.3f} ms; "
+          f"{len(got)} sink records ({joined} joined, {pads} null-padded) equal the numpy counts and the "
+          f"CPU run ({cpu_s:.3f} s); rings {q.ss_capacity}, lanes {q.ss_out_cap}, no grow; peak device "
+          f"memory {peak} B")
+    return dict(events_per_s=n / secs, p50_ms=p50, p99_ms=p99, flush_ms=flush_s * 1e3,
+                first_tick_ms=tick_s[0] * 1e3, max_tick_ms=max(tick_s) * 1e3,
+                sink_records=len(got), joined=joined, padded=pads, cpu_s=cpu_s, peak_bytes=peak)
+
+
+def phase_ss_growth(torch, plan_json, seed):
+    """Both growths on the card: the first 16 batches a side of phase 10's
+    traffic with ``ss_buffer_capacity`` 512 (the rings start at 2,048
+    entries and must reach 8,192: a side keeps about 5,250 entries within
+    its 21 s retention) and 64 match lanes (about 256 matches a batch: at
+    least two doublings).  The sink must equal a run of phase 10's
+    settings over the same records."""
+    ids, ts = ss_traffic(seed, 2 * SS_GROW_BATCHES)
+    broker, h, tick_s, _f = drive_ss(torch, plan_json, ids, ts, DEVICE, buffer=SS_GROW_BUFFER,
+                                     out_cap=SS_GROW_OUT, path="10g")
+    q = h.executor.query
+    require(q.ss_capacity >= 4 * SS_ROWS and q.ss_grows >= 2,
+            f"10g: rings at {q.ss_capacity} after {q.ss_grows} grows")
+    require(q.ss_out_cap >= 4 * SS_GROW_OUT and q.ss_out_grows >= 2,
+            f"10g: match lanes at {q.ss_out_cap} after {q.ss_out_grows} doublings")
+    ref_broker, _h, _s, _f = drive_ss(torch, plan_json, ids, ts, DEVICE)
+    got = sink_records(broker, "J")
+    require(got == sink_records(ref_broker, "J"), "10g: sink differs from the run at phase 10's sizes")
+    print(f"[10g] growth: {ids.size} events; rings {SS_ROWS} -> {q.ss_capacity} in {q.ss_grows} grows "
+          f"(host rebuild s {[round(x, 4) for x in q.ss_rebuild_seconds]}), match lanes {SS_GROW_OUT} -> "
+          f"{q.ss_out_cap} in {q.ss_out_grows} doublings; {len(got)} sink records equal the run at "
+          "phase 10's sizes")
+    return dict(ring=q.ss_capacity, grows=q.ss_grows, rebuild_seconds=q.ss_rebuild_seconds,
+                out_cap=q.ss_out_cap, out_grows=q.ss_out_grows)
+
+
+def _ss_head(torch, plan_json, seed, warm=8, n_batches=4):
+    """Phase 10's query after its first ``warm`` batches; returns the drive
+    of the breakdown's window: the next ``n_batches`` ticks, in wall
+    seconds (production left out)."""
+    ids, ts = ss_traffic(seed, warm + n_batches)
+    broker, h = start_ss(plan_json, DEVICE)
+    ss_ticks(torch, broker, h, ids[:warm], ts[:warm])
+    return lambda: sum(ss_ticks(torch, broker, h, ids[warm:], ts[warm:], first=warm))
+
+
 # ------------------------------------------------------------------ main
 REPLACES = {
     "row_prologue": "ksql_tpu/ops/hash_store.py:48 (mix64), :58 (combine_hash); ksql_tpu/runtime/lowering.py:3802 (pre_exchange), :2284 (_trace_table_step key hash); ksql_tpu/ops/window.py:63 (hopping_starts), :82 (expand)",
@@ -1540,11 +2013,16 @@ REPLACES = {
     "member_lanes": "ksql_tpu/runtime/lowering.py:2116 (_sliced_member_emits)",
     "probe_find": "ksql_tpu/ops/hash_store.py:210 (probe_find); ksql_tpu/runtime/lowering.py:2986 (_apply_join gather)",
     "table_upsert": "ksql_tpu/runtime/lowering.py:2284 (_trace_table_step, after its probe_insert)",
+    "ss_match": "ksql_tpu/runtime/lowering.py:3052 (_trace_ss_step: the match mask, nonzero compaction, "
+                "gathers and any(axis=0), :3073-3170)",
+    "ss_insert": "ksql_tpu/runtime/lowering.py:3052 (_trace_ss_step: running maxima, pads, admission, "
+                 "ss_lost and the ring insert, :3104-3127 and :3169-3210)",
+    "ss_expire": "ksql_tpu/runtime/lowering.py:3213 (_trace_ss_expire)",
 }
 #: the record each kernel's JSON entry carries; the other modes ride along
 MAIN_MODE = {"row_prologue": "tumbling", "evict": "tumbling", "combine_windows": "sliced",
              "sliced_fold": "sliced", "member_lanes": "sliced", "probe_find": "join",
-             "table_upsert": "join"}
+             "table_upsert": "join", "ss_match": "write", "ss_insert": "write", "ss_expire": "ss"}
 
 
 def kernel_records(wrappers, recs) -> list:
@@ -1578,8 +2056,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this check runs only on the card")
     try:
-        from ksql_tpu_torch.ops import hash_store as hs
-        from ksql_tpu_torch.ops import slicing
+        wrappers = _wrappers()
     except ImportError as e:
         fail(f"run from the root of a checkout ({e})")
     t_start = time.perf_counter()
@@ -1589,13 +2066,19 @@ def main() -> int:
         recs.setdefault(name, {}).update(modes)
     for name, modes in phase_join_kernels(torch, args.seed).items():
         recs.setdefault(name, {}).update(modes)
+    # the stream-stream join's phases (2s, 10, 10g, 10b), timed together
+    t_ss = time.perf_counter()
+    for name, modes in phase_ss_kernels(torch, args.seed).items():
+        recs.setdefault(name, {}).update(modes)
+    ss_s = time.perf_counter() - t_ss
     with open("ksql_tpu_torch/plans/pv_counts_tumbling.json") as f:
         plan_json = json.load(f)
     with open("ksql_tpu_torch/plans/pv_stats_hopping.json") as f:
         hop_json = json.load(f)
     with open("ksql_tpu_torch/plans/enriched_join.json") as f:
         join_json = json.load(f)
-    wrappers = hs.KERNEL_WRAPPERS + slicing.KERNEL_WRAPPERS
+    with open("ksql_tpu_torch/plans/ss_join_grace.json") as f:
+        ss_json = json.load(f)
     e2e = phase_e2e(torch, plan_json, args.seed)
     phase_growth(torch, plan_json, args.seed)
     sliced_last, e2e["hopping_sliced"] = phase_hop_e2e(torch, hop_json, args.seed, None, "6")
@@ -1604,8 +2087,12 @@ def main() -> int:
     require(exp_last == sliced_last, "8: the expansion route's final values differ from the sliced route's")
     e2e["join"] = phase_join_e2e(torch, join_json, args.seed)
     e2e["join_growth"] = phase_join_growth(torch, join_json, args.seed)
+    t_ss = time.perf_counter()
+    e2e["ss_join"] = phase_ss_e2e(torch, ss_json, args.seed)
+    e2e["ss_growth"] = phase_ss_growth(torch, ss_json, args.seed)
+    ss_s += time.perf_counter() - t_ss
     require(sorted(PATH_LAUNCHES) == sorted(PATH_KERNELS), f"paths run: {sorted(PATH_LAUNCHES)}")
-    for w in wrappers:  # every kernel of K1-K9 is on some path, in every mode
+    for w in wrappers:  # every kernel of K1-K12 is on some path, in every mode
         for mode in w.__dict__.get("mode_launches", {"all": 0}):
             require(sum(PATH_LAUNCHES[p][w.__name__][mode] for p in PATH_LAUNCHES) > 0,
                     f"kernel {w.__name__}[{mode}] was launched on no path")
@@ -1617,9 +2104,12 @@ def main() -> int:
         torch, lambda: run_main_path(torch, hop_json, url_idx, ts, DEVICE, STORE, rows=HOP_ROWS,
                                      user_ids=uid)[2], 8, "6b")
     e2e["join_breakdown"] = phase_breakdown(torch, _join_head(torch, join_json, args.seed), 4, "9b")
+    t_ss = time.perf_counter()
+    e2e["ss_breakdown"] = phase_breakdown(torch, _ss_head(torch, ss_json, args.seed), 4, "10b")
+    ss_s += time.perf_counter() - t_ss
     kernels = kernel_records(wrappers, recs)
     print(f"e2e: {json.dumps(e2e)}")
-    print(f"total seconds {time.perf_counter() - t_start:.1f}")
+    print(f"total seconds {time.perf_counter() - t_start:.1f} (phases 2s, 10, 10g and 10b: {ss_s:.1f})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

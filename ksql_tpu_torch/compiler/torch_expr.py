@@ -114,6 +114,17 @@ def _repr64(col: DCol) -> torch.Tensor:
     return col.data.to(torch.int64)
 
 
+def decode_key64(data: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A key column of ``dtype`` from its 64-bit repr, the inverse of
+    :func:`_repr64` (``_decode_key64`` of the reference): float64 by its
+    bits, bool as nonzero, narrower ints truncated, int64 as it is."""
+    if dtype == torch.float64:
+        return data.view(torch.float64)
+    if dtype == torch.bool:
+        return data != 0
+    return data if dtype == torch.int64 else data.to(dtype)
+
+
 def _decode_repr(data: np.ndarray, sql_type: SqlType) -> np.ndarray:
     if sql_type.base in (SqlBaseType.DOUBLE, SqlBaseType.DECIMAL):
         return data.view(np.float64)

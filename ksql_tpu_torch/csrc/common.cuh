@@ -38,6 +38,9 @@ enum Combine : int64_t { kAdd = 0, kMin = 1, kMax = 2 };
 __device__ __forceinline__ int64_t wadd(int64_t a, int64_t b) {
   return static_cast<int64_t>(static_cast<uint64_t>(a) + static_cast<uint64_t>(b));
 }
+__device__ __forceinline__ int64_t wsub(int64_t a, int64_t b) {
+  return static_cast<int64_t>(static_cast<uint64_t>(a) - static_cast<uint64_t>(b));
+}
 __device__ __forceinline__ int64_t wmul(int64_t a, int64_t b) {
   return static_cast<int64_t>(static_cast<uint64_t>(a) * static_cast<uint64_t>(b));
 }
@@ -142,6 +145,80 @@ __device__ __forceinline__ void copy_elem(void* dst, int64_t di, const void* src
   } else {
     static_cast<int8_t*>(dst)[di] = static_cast<const int8_t*>(src)[si];
   }
+}
+
+// Write a zero element of `size` bytes to dst[di].
+__device__ __forceinline__ void zero_elem(void* dst, int64_t di, int64_t size) {
+  if (size == 8) {
+    static_cast<int64_t*>(dst)[di] = 0;
+  } else if (size == 4) {
+    static_cast<int32_t*>(dst)[di] = 0;
+  } else {
+    static_cast<int8_t*>(dst)[di] = 0;
+  }
+}
+
+// Column gathers of one launch: per column a value source and destination
+// (element bytes `size`) and a valid-bit source and destination.  Built on
+// the host side from descriptors of 5 int64 per column: (value src, value
+// dst, size, valid src, valid dst).
+struct Gather {
+  const void* vsrc[KSQL_MAX_COLS];
+  void* vdst[KSQL_MAX_COLS];
+  int64_t size[KSQL_MAX_COLS];
+  const bool* msrc[KSQL_MAX_COLS];
+  bool* mdst[KSQL_MAX_COLS];
+  int64_t count;
+};
+
+inline bool gather_from_desc(const int64_t* desc, int64_t count, Gather* g) {
+  if (count > KSQL_MAX_COLS) return false;
+  *g = Gather{};
+  for (int64_t j = 0; j < count; ++j) {
+    g->vsrc[j] = reinterpret_cast<const void*>(desc[5 * j]);
+    g->vdst[j] = reinterpret_cast<void*>(desc[5 * j + 1]);
+    g->size[j] = desc[5 * j + 2];
+    g->msrc[j] = reinterpret_cast<const bool*>(desc[5 * j + 3]);
+    g->mdst[j] = reinterpret_cast<bool*>(desc[5 * j + 4]);
+  }
+  g->count = count;
+  return true;
+}
+
+struct AddOp {
+  __device__ int64_t operator()(int64_t a, int64_t b) const { return wadd(a, b); }
+};
+struct MaxOp {
+  __device__ int64_t operator()(int64_t a, int64_t b) const { return a > b ? a : b; }
+};
+
+// Inclusive scan of one int64 per thread across the block (Hillis-Steele
+// over `buf`, blockDim.x entries of shared memory).  Every thread must
+// call it; on return buf[blockDim.x - 1] holds the block's total.
+template <typename Op>
+__device__ int64_t block_inclusive_scan(int64_t v, int64_t* buf, Op op) {
+  const int t = threadIdx.x;
+  buf[t] = v;
+  __syncthreads();
+  for (int d = 1; d < static_cast<int>(blockDim.x); d <<= 1) {
+    const int64_t w = t >= d ? buf[t - d] : 0;
+    __syncthreads();
+    if (t >= d) {
+      v = op(w, v);
+      buf[t] = v;
+    }
+    __syncthreads();
+  }
+  return v;
+}
+
+// The contiguous rows [lo, hi) of n that thread threadIdx.x of a one-block
+// scan owns.
+__device__ __forceinline__ void thread_chunk(int64_t n, int64_t* lo, int64_t* hi) {
+  const int64_t per = (n + blockDim.x - 1) / blockDim.x;
+  const int64_t a = static_cast<int64_t>(threadIdx.x) * per;
+  *lo = a < n ? a : n;
+  *hi = *lo + per < n ? *lo + per : n;
 }
 
 inline int blocks_for(int64_t n, int threads) {

@@ -30,21 +30,12 @@
 
 namespace {
 
-struct Gather {
-  const void* vsrc[KSQL_MAX_COLS];
-  void* vdst[KSQL_MAX_COLS];
-  int64_t size[KSQL_MAX_COLS];  // element bytes of v_<col>: 1, 4 or 8
-  const bool* msrc[KSQL_MAX_COLS];
-  bool* mdst[KSQL_MAX_COLS];
-  int64_t count;
-};
-
 __global__ void probe_find_kernel(
     const int64_t* __restrict__ krepr, const bool* __restrict__ kvalid,
     const bool* __restrict__ active, int64_t n, const bool* __restrict__ occ,
     const bool* __restrict__ grave, const int64_t* __restrict__ kh,
     const int64_t* __restrict__ ws, const int64_t* __restrict__ key0,
-    int64_t capacity, Gather g, int64_t* __restrict__ key_out,
+    int64_t capacity, ksql::Gather g, int64_t* __restrict__ key_out,
     bool* __restrict__ found_out) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -82,16 +73,8 @@ extern "C" int ksql_probe_find(
     const void* key0, int64_t capacity, const int64_t* cols, int64_t count,
     const void* krepr, const void* kvalid, const void* active, int64_t n,
     void* key_out, void* found_out, void* stream) {
-  if (count > KSQL_MAX_COLS) return static_cast<int>(cudaErrorInvalidValue);
-  Gather g{};
-  for (int64_t j = 0; j < count; ++j) {
-    g.vsrc[j] = reinterpret_cast<const void*>(cols[5 * j]);
-    g.vdst[j] = reinterpret_cast<void*>(cols[5 * j + 1]);
-    g.size[j] = cols[5 * j + 2];
-    g.msrc[j] = reinterpret_cast<const bool*>(cols[5 * j + 3]);
-    g.mdst[j] = reinterpret_cast<bool*>(cols[5 * j + 4]);
-  }
-  g.count = count;
+  ksql::Gather g;
+  if (!ksql::gather_from_desc(cols, count, &g)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int threads = 256;
   probe_find_kernel<<<ksql::blocks_for(n, threads), threads, 0, st>>>(

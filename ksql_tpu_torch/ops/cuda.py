@@ -22,7 +22,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -34,52 +34,48 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
-#: C signature of each kernel library's entry point (all return cudaError_t)
-SIGNATURES: Dict[str, Tuple[str, List]] = {
-    "row_prologue": (
-        "ksql_row_prologue",
-        [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P,
-         _P, _P, _P, _P, _P, _P, _P],
-    ),
-    "probe_insert": (
-        "ksql_probe_insert",
-        [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
-         _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
-    ),
-    "fold_and_mark": (
-        "ksql_fold_and_mark",
-        [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
-    ),
-    "evict": (
-        "ksql_evict",
-        [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
-    ),
-    "sliced_fold": (
-        "ksql_sliced_fold",
-        [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    ),
-    "combine_windows": (
-        "ksql_combine_windows",
-        [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    ),
-    "member_lanes": (
-        "ksql_member_lanes",
-        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P],
-    ),
-    "probe_find": (
-        "ksql_probe_find",
-        [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
-    ),
-    "table_upsert": (
-        "ksql_table_upsert",
-        [_P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P],
-    ),
+#: the C entry points of each kernel library (``csrc/<name>.cu``) and their
+#: signatures (all return cudaError_t)
+SIGNATURES: Dict[str, Dict[str, List]] = {
+    "row_prologue": {"ksql_row_prologue": [
+        _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P]},
+    "probe_insert": {"ksql_probe_insert": [
+        _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P]},
+    "fold_and_mark": {"ksql_fold_and_mark": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P]},
+    "evict": {"ksql_evict": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P]},
+    "sliced_fold": {"ksql_sliced_fold": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]},
+    "combine_windows": {"ksql_combine_windows": [
+        _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "member_lanes": {"ksql_member_lanes": [
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P]},
+    "probe_find": {"ksql_probe_find": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P]},
+    "table_upsert": {"ksql_table_upsert": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P]},
+    "ss_match": {
+        "ksql_ss_match_count": [
+            _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+        "ksql_ss_match_write": [
+            _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I,
+            _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
+    },
+    "ss_insert": {
+        "ksql_ss_insert_prologue": [
+            _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+            _P, _P, _P, _P, _P, _P],
+        "ksql_ss_insert_write": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I,
+            _P, _P, _P, _P],
+    },
+    "ss_expire": {"ksql_ss_expire": [
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+        _I, _P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P]},
 }
 KERNELS = tuple(SIGNATURES)
 
-# loaded libraries are immutable code, shared process-wide like torch's own
-# extension cache; the lock makes first-use builds from two threads safe
-_LIBS: Dict[str, ctypes.CDLL] = {}
+# loaded entry points (by symbol) are immutable code, shared process-wide like
+# torch's own extension cache; the lock makes first-use builds from two
+# threads safe
+_LIBS: Dict[str, Callable[..., int]] = {}
 _LOCK = threading.Lock()
 
 
@@ -137,18 +133,20 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
     return out
 
 
-def lib(name: str):
-    """The loaded entry point of kernel ``name`` (built at first use)."""
+def lib(name: str, entry: Optional[str] = None):
+    """The loaded C entry point ``entry`` of kernel library ``name`` (built
+    at first use); ``entry`` may be left out for a library with one."""
+    entries = SIGNATURES[name]
+    if entry is None:
+        (entry,) = entries
     with _LOCK:
-        fn = _LIBS.get(name)
+        fn = _LIBS.get(entry)
         if fn is None:
             build([name])
-            dll = ctypes.CDLL(str(_lib_path(name)))
-            sym, argtypes = SIGNATURES[name]
-            fn = getattr(dll, sym)
-            fn.argtypes = argtypes
+            fn = getattr(ctypes.CDLL(str(_lib_path(name))), entry)
+            fn.argtypes = entries[entry]
             fn.restype = ctypes.c_int
-            _LIBS[name] = fn
+            _LIBS[entry] = fn
         return fn
 
 

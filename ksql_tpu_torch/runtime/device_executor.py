@@ -1,11 +1,11 @@
 """TorchDeviceExecutor — runs a persistent query on the port's device path.
 
 The port of ``ksql_tpu/runtime/device_executor.py``'s ``DeviceExecutor``,
-stream-row and stream-table-join branches: records are deserialized with
-the shared source decoder (the Python JSON path; the reference's native
-C++ ingest is not ported yet), micro-batched up to the batch size, stepped
-through :class:`TorchCompiledQuery`, and the resulting SinkEmits are
-written to the sink topic.  Batched mode double-buffers: a batch's
+stream-row, stream-table-join and stream-stream-join branches: records
+are deserialized with the shared source decoder (the Python JSON path;
+the reference's native C++ ingest is not ported yet), micro-batched up
+to the batch size, stepped through :class:`TorchCompiledQuery`, and the
+resulting SinkEmits are written to the sink topic.  Batched mode double-buffers: a batch's
 emissions are decoded when the next batch runs, or at :meth:`drain`.
 Batch size 1 is the per-record mode (one change per record, the
 reference's cache-off parity).
@@ -15,6 +15,14 @@ their arrival order across the two sides: a table record first runs the
 pending stream rows, a stream row first runs the pending table batches,
 and a table batch runs synchronously (it updates the table store in
 place; the pipelined stream emits it may overtake are fresh tensors).
+
+A stream-stream join buffers each side's rows on its own, and keeps their
+arrival order the same way: a left record runs the pending right rows
+first, a right record the pending left rows.  Its batches return their
+emissions at once (nothing is pipelined), and every :meth:`drain` ends
+with the join's expiry, which emits the windows the tick closed.  A
+self-join (one topic on both sides) needs record-interleaved sides and is
+refused in batched mode.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from ksql_tpu_torch.common.batch import HostBatch
+from ksql_tpu_torch.compiler.torch_expr import DeviceUnsupported
 from ksql_tpu_torch.execution import steps as st
 from ksql_tpu_torch.runtime.lowering import TorchCompiledQuery
 from ksql_tpu_torch.runtime.sink import SinkEmit, SinkWriter, decode_source_record
@@ -44,6 +53,8 @@ class TorchDeviceExecutor:
         sliced: Optional[bool] = None,
         slice_ring_max: int = 512,
         table_store_capacity: int = 1 << 16,
+        ss_buffer_capacity: int = 2048,
+        ss_out_capacity: Optional[int] = None,
         on_error: Optional[Callable[[str, Exception], None]] = None,
     ):
         self.plan = plan
@@ -51,10 +62,17 @@ class TorchDeviceExecutor:
         self.query = TorchCompiledQuery(
             plan, capacity=batch_size, store_capacity=store_capacity, device=device,
             sliced=sliced, slice_ring_max=slice_ring_max,
-            table_store_capacity=table_store_capacity,
+            table_store_capacity=table_store_capacity, ss_buffer_capacity=ss_buffer_capacity,
+            ss_out_capacity=ss_out_capacity,
         )
         self.query.pipeline = batch_size > 1
         self.source_step = self.query.source
+        #: a stream-stream join's right side
+        self.right_step = self.query.right_source
+        if (self.right_step is not None and self.right_step.topic == self.source_step.topic
+                and batch_size > 1):
+            # a self-join's parity needs record-interleaved left/right steps
+            raise DeviceUnsupported("batched self-join on device")
         self.sink_writer = SinkWriter(self.query.sink, broker)
         self._rows: List[dict] = []
         self._ts: List[int] = []
@@ -64,28 +82,40 @@ class TorchDeviceExecutor:
         # per-probe table-side buffers and topic -> probe routing
         self._tbuf: List[dict] = [_table_buffer() for _ in self.query.join_chain]
         self._join_topics = {js.table_source.topic: i for i, js in enumerate(self.query.join_chain)}
+        # the right side's pending rows
+        self._rrows: List[dict] = []
+        self._rts: List[int] = []
+        self._rparts: List[int] = []
+        self._roffs: List[int] = []
 
     @property
     def source_topics(self) -> List[str]:
         """The topics :meth:`process` routes, sorted (the reference
-        engine's subscription order): the stream source and each join
-        table's changelog."""
-        return sorted({self.source_step.topic, *self._join_topics})
+        engine's subscription order): the stream source, each join table's
+        changelog and a stream-stream join's right stream."""
+        right = [self.right_step.topic] if self.right_step is not None else []
+        return sorted({self.source_step.topic, *self._join_topics, *right})
 
     def process(self, topic: str, record: Record) -> List[SinkEmit]:
         """Buffer one record; runs the device step when the micro-batch is
         full.  Call :meth:`drain` at the end of a poll tick."""
         if topic in self._join_topics:
             return self._buffer_table_record(self._join_topics[topic], record)
-        if topic != self.source_step.topic:
-            return []
+        out: List[SinkEmit] = []
+        if topic == self.source_step.topic:
+            out.extend(self._buffer_stream_record(record))
+        if self.right_step is not None and topic == self.right_step.topic:
+            out.extend(self._buffer_right_record(record))
+        return out
+
+    def _buffer_stream_record(self, record: Record) -> List[SinkEmit]:
         ev = decode_source_record(self.source_step, record, self.on_error)
         if ev is None:
             return []
         out: List[SinkEmit] = []
         q = self.query
         if ev.row is None:
-            if (q.agg is None and q.join is None
+            if (q.agg is None and q.join is None and q.ss_join is None
                     and not any(isinstance(op, st.StreamFilter) for op in q.pre_ops)):
                 # null-value stream records pass filter-less projections
                 # through unchanged (oracle SelectNode); filters and
@@ -97,6 +127,8 @@ class TorchDeviceExecutor:
             return out
         if any(b["rows"] for b in self._tbuf):
             self._run_table_batch()
+        if self._rrows:
+            out.extend(self._run_right_batch())
         self.stream_time = max(self.stream_time, ev.ts)
         self._rows.append(ev.row)
         self._ts.append(ev.ts)
@@ -104,6 +136,22 @@ class TorchDeviceExecutor:
         self._offsets.append(record.offset)
         if len(self._rows) >= q.capacity:
             out.extend(self._run_batch())
+        return out
+
+    def _buffer_right_record(self, record: Record) -> List[SinkEmit]:
+        """One record of a stream-stream join's right stream: the pending
+        left rows run first (null-value records are dropped)."""
+        ev = decode_source_record(self.right_step, record, self.on_error)
+        if ev is None or ev.row is None:
+            return []
+        out = self._run_batch() if self._rows else []
+        self.stream_time = max(self.stream_time, ev.ts)
+        self._rrows.append(ev.row)
+        self._rts.append(ev.ts)
+        self._rparts.append(record.partition)
+        self._roffs.append(record.offset)
+        if len(self._rrows) >= self.query.capacity:
+            out.extend(self._run_right_batch())
         return out
 
     def _buffer_table_record(self, idx: int, record: Record) -> List[SinkEmit]:
@@ -150,29 +198,49 @@ class TorchDeviceExecutor:
 
     def drain(self) -> List[SinkEmit]:
         """Flush the partial micro-batches (table changes first) and the
-        pipelined emissions."""
+        pipelined emissions; a stream-stream join then expires its rings
+        (the windows this tick closed emit their pads)."""
         out: List[SinkEmit] = []
         if any(b["rows"] for b in self._tbuf):
             self._run_table_batch()
+        if self._rrows:
+            out.extend(self._run_right_batch())
         if self._rows:
             out.extend(self._run_batch())
         if self.query.pipeline:
             emits = self.query.flush_pipeline()
             self._dispatch(emits)
             out.extend(emits)
+        if self.right_step is not None:
+            emits = self.query.ss_expire_host()
+            self._dispatch(emits)
+            out.extend(emits)
         return out
 
     def flush_time(self, stream_time: int) -> List[SinkEmit]:
-        """Advance event time explicitly (end-of-input flush)."""
+        """Advance event time explicitly (end-of-input flush): drain, then
+        close what the new stream time closes."""
         out = self.drain()
         self.stream_time = max(self.stream_time, stream_time)
+        emits = self.query.flush(self.stream_time)
+        self._dispatch(emits)
+        out.extend(emits)
         return out
 
+    def _run_right_batch(self) -> List[SinkEmit]:
+        rows, ts, parts, offs = self._rrows, self._rts, self._rparts, self._roffs
+        self._rrows, self._rts, self._rparts, self._roffs = [], [], [], []
+        return self._run_rows(self.right_step.schema, rows, ts, parts, offs,
+                              lambda hb: self.query.process_ss(hb, "r"))
+
     def _run_batch(self) -> List[SinkEmit]:
-        schema = self.source_step.schema
-        rows, ts = self._rows, self._ts
-        parts, offs = self._parts, self._offsets
+        rows, ts, parts, offs = self._rows, self._ts, self._parts, self._offsets
         self._rows, self._ts, self._parts, self._offsets = [], [], [], []
+        return self._run_rows(self.source_step.schema, rows, ts, parts, offs, self.query.process)
+
+    def _run_rows(self, schema, rows, ts, parts, offs, step) -> List[SinkEmit]:
+        """Step the buffered rows of one source through ``step`` in
+        micro-batches, writing each batch's emissions to the sink."""
         out: List[SinkEmit] = []
         cap = self.query.capacity
         for i in range(0, len(rows), cap):
@@ -180,7 +248,7 @@ class TorchDeviceExecutor:
                 schema, rows[i : i + cap], timestamps=ts[i : i + cap],
                 partitions=parts[i : i + cap], offsets=offs[i : i + cap],
             )
-            emits = self.query.process(hb)
+            emits = step(hb)
             self._dispatch(emits)
             out.extend(emits)
         return out

@@ -7,31 +7,41 @@ the plan shapes of this slice:
     chains) → Filter*/Select*] → [GroupBy → Aggregate (unwindowed,
     TUMBLING or HOPPING) → TableSelect*] → Sink
 
+    (Source → Filter*/Select*/SelectKey*) x 2 → StreamStreamJoin (INNER,
+    LEFT, RIGHT or FULL OUTER, WITHIN, with or without GRACE) →
+    Filter*/Select* → Sink
+
 with COUNT(*), COUNT, SUM, AVG, MIN and MAX (``ops/device_aggs.py``), plus
 the stateless filter/project pipelines.  Each table of a stream-table join
 is materialized into its own keyed store on the card (``jtab``, inner
 probes of a chain ``jtab<i>``): ``process_table`` folds a changelog batch
 into it (K1 table mode, K2, K9 table_upsert) and every stream row probes
-it in-step (K8 probe_find).  HOPPING aggregation takes the
-reference's two routes: stream slicing (one slice per row into a per-key
-ring of slice partials, a per-window monoid combine at emission; the
-default when eligible) and the k-fold expansion (``sliced=False``, or when
-slicing is ineligible, with the reference's reason in
-``windowing_fallback``).  Every other shape raises
-:class:`DeviceUnsupported` at construction: session windows, FULL/RIGHT,
-stream-stream, table-table and foreign-key joins, flat-maps, PARTITION BY
-outside a join's left side, EMIT FINAL, HAVING, table aggregation, vector
-and arg-set aggregates, window families.
+it in-step (K8 probe_find).  Each side of a stream-stream join buffers
+its rows in a ring on the card (``ssl_*``/``ssr_*``): ``process_ss``
+matches a batch of one side against the other side's ring (K10
+ss_match), pads and inserts it into its own (K11 ss_insert);
+``ss_expire_host`` closes, pads and evicts both rings once per tick (K12
+ss_expire).  HOPPING aggregation takes the reference's two routes: stream
+slicing (one slice per row into a per-key ring of slice partials, a
+per-window monoid combine at emission; the default when eligible) and the
+k-fold expansion (``sliced=False``, or when slicing is ineligible, with
+the reference's reason in ``windowing_fallback``).  Every other shape raises
+:class:`DeviceUnsupported` at construction: session windows, FULL/RIGHT
+stream-table joins, an aggregation over a stream-stream join, table-table
+and foreign-key joins, flat-maps, PARTITION BY outside a join's input
+side, EMIT FINAL, HAVING, table aggregation, vector and arg-set
+aggregates, window families.
 
 Where the reference traces one jitted step, the port runs eagerly: the
 expression phases are torch tensor ops, and the keyed store goes through
 the CUDA kernels of ``ops/hash_store.py`` (K1 row_prologue, K2
 probe_insert, K3 fold_and_mark, K4 evict, K8 probe_find, K9
-table_upsert) and ``ops/slicing.py`` (K5 sliced_fold, K6 combine_windows,
-K7 member_lanes).  The stores are updated IN PLACE; every emitted lane is a
-fresh tensor (a K6 or K8 gather or a batch column), never a view of a store
-column, so a pipelined batch's emits stay valid while the next batch, or a
-table batch, mutates the stores.
+table_upsert), ``ops/slicing.py`` (K5 sliced_fold, K6 combine_windows,
+K7 member_lanes) and ``ops/ss_join.py`` (K10 ss_match, K11 ss_insert, K12
+ss_expire).  The stores are updated IN PLACE; every emitted lane is a
+fresh tensor (a K6, K8, K10 or K12 gather or a batch column), never a view
+of a store column, so a pipelined batch's emits stay valid while the next
+batch, or a table batch, mutates the stores.
 
 Semantics are the reference's, including its documented deltas from the
 row oracle: EMIT CHANGES coalesces to one change per key per micro-batch,
@@ -58,12 +68,14 @@ from ksql_tpu_torch.compiler.torch_expr import (
     TorchExprCompiler,
     _HASHED,
     _repr64,
+    decode_key64,
     torch_dtype,
 )
 from ksql_tpu_torch.execution import expressions as ex
 from ksql_tpu_torch.execution import steps as st
 from ksql_tpu_torch.ops import hash_store as hs
 from ksql_tpu_torch.ops import slicing
+from ksql_tpu_torch.ops import ss_join as ssj
 from ksql_tpu_torch.ops import window as W
 from ksql_tpu_torch.ops.device_aggs import DeviceAgg, compile_device_agg, resolve_udaf
 from ksql_tpu_torch.parser.ast_nodes import JoinType, WindowType
@@ -74,6 +86,7 @@ from ksql_tpu_torch.state import resolve_device, state_from_numpy, state_to_nump
 #: the reference's legacy default grace for EMIT CHANGES windows (24 h)
 DEFAULT_GRACE_MS = 24 * 3600 * 1000
 _I64_MIN = np.iinfo(np.int64).min
+_I64_MAX = np.iinfo(np.int64).max
 _PSEUDO = ("ROWTIME", "ROWOFFSET", "ROWPARTITION", "WINDOWSTART", "WINDOWEND")
 #: HBM budget for a store's aggregate state arrays: wide state (slice
 #: rings) trades initial slot count for width; the store still grows
@@ -158,7 +171,9 @@ class TorchCompiledQuery:
     Host API: ``process(HostBatch)`` / ``process_arrays(encoded arrays)``
     return the decoded ``SinkEmit``s of a micro-batch;
     ``process_table(HostBatch, deletes, idx)`` folds a table-changelog
-    batch into join probe ``idx``'s store; ``state`` is the dict of device
+    batch into join probe ``idx``'s store; ``process_ss(HostBatch, side)``
+    runs a batch of one side of a stream-stream join, ``ss_expire_host()``
+    and ``flush(stream_time)`` close its windows; ``state`` is the dict of device
     tensors (the reference's state pytree, same keys, nesting and
     dtypes).  ``device`` defaults to ``cuda`` and raises when there is no
     card; tests pass ``device="cpu"``, which runs the kernels' plain twins.
@@ -172,7 +187,8 @@ class TorchCompiledQuery:
     def __init__(self, plan: st.QueryPlan, capacity: int = 8192,
                  store_capacity: int = 1 << 17, device=None,
                  sliced: Optional[bool] = None, slice_ring_max: int = 512,
-                 table_store_capacity: int = 1 << 16):
+                 table_store_capacity: int = 1 << 16, ss_buffer_capacity: int = 2048,
+                 ss_out_capacity: Optional[int] = None):
         self.device = resolve_device(device)
         self.plan = plan
         self.capacity = capacity
@@ -189,6 +205,11 @@ class TorchCompiledQuery:
         #: deepest first
         self.join: Optional[st.StreamTableJoin] = None
         self.join_chain: List[_JoinSpec] = []
+        #: a stream-stream join, its right source and that side's pre-ops
+        #: (``pre_ops`` are then the left side's)
+        self.ss_join: Optional[st.StreamStreamJoin] = None
+        self.right_source: Optional[st.StreamSource] = None
+        self.right_pre_ops: List[st.ExecutionStep] = []
         self._analyze(plan.physical_plan)
 
         self.window = getattr(self.agg, "window", None) if self.agg is not None else None
@@ -220,6 +241,8 @@ class TorchCompiledQuery:
         self.table_store_capacity = 0
         if self.join is not None:
             self._build_table_layouts(table_store_capacity)
+        if self.ss_join is not None:
+            self._setup_ss_join(ss_buffer_capacity, ss_out_capacity)
 
         self.store_layout: Optional[hs.StoreLayout] = None
         if self.agg is not None:
@@ -257,6 +280,11 @@ class TorchCompiledQuery:
         #: join table stores' doublings and the wall seconds of each rebuild
         self.table_grows = 0
         self.table_rebuild_seconds: List[float] = []
+        #: stream-stream join rings' doublings with the wall seconds of each
+        #: rebuild, and the match lanes' doublings
+        self.ss_grows = 0
+        self.ss_rebuild_seconds: List[float] = []
+        self.ss_out_grows = 0
         self.jscratch: Dict[str, Dict[str, torch.Tensor]] = {}
         self._check_compiles()
 
@@ -290,6 +318,9 @@ class TorchCompiledQuery:
         self.pre_ops.reverse()
         if isinstance(cur, st.StreamTableJoin):
             self._analyze_join(cur)
+            return
+        if isinstance(cur, st.StreamStreamJoin):
+            self._analyze_ss_join(cur)
             return
         if not isinstance(cur, st.StreamSource) or isinstance(cur, st.WindowedStreamSource):
             raise DeviceUnsupported(f"device source {type(cur).__name__}")
@@ -337,6 +368,59 @@ class TorchCompiledQuery:
         self.pre_ops = list(deepest.between_ops)
         deepest.between_ops = []
         self.join = self.join_chain[-1].step
+
+    def _analyze_ss_join(self, cur: st.StreamStreamJoin) -> None:
+        """A stream-stream windowed join: each side runs its own pre-op
+        chain into its own ring buffer on the card; each incoming batch
+        matches the other side's buffer over the WITHIN window."""
+        if self.agg is not None or self.post_ops:
+            raise DeviceUnsupported("aggregation over a stream-stream join on device")
+        self.ss_join = cur
+        self.mid_ops = self.pre_ops
+        for attr, src_attr, ops_attr in (("source", "left", "pre_ops"),
+                                         ("right_source", "right", "right_pre_ops")):
+            c2 = getattr(cur, src_attr)
+            ops: List[st.ExecutionStep] = []
+            while isinstance(c2, (st.StreamFilter, st.StreamSelect, st.StreamSelectKey)):
+                ops.append(c2)
+                c2 = c2.source
+            ops.reverse()
+            setattr(self, ops_attr, ops)
+            if not isinstance(c2, st.StreamSource):
+                raise DeviceUnsupported(f"join {src_attr} source {type(c2).__name__} on device")
+            setattr(self, attr, c2)
+
+    def _setup_ss_join(self, buffer_capacity: int, out_capacity: Optional[int]) -> None:
+        """The right side's ingress (sharing the dictionary), the columns
+        each ring buffers (those the emission reads), the window, the
+        klip-36 mode and the ring and match-lane sizes."""
+        ss = self.ss_join
+        rsrc = self.right_source.schema
+        rneeded = _refs_of_ops(self.right_pre_ops)
+        rneeded.update(ex.referenced_columns(ss.right_key))
+        rneeded &= {c.name for c in rsrc.columns()}
+        rneeded.update(c.name for c in rsrc.key_columns)
+        self.right_layout = BatchLayout(rsrc, sorted(rneeded), self.capacity, self.dictionary)
+        down = _refs_of_ops(self.mid_ops)
+        down.update(c.name for c in self._emit_schema().columns())
+        down.update(c.name for c in ss.schema.key_columns)
+        self.ss_cols = {side: [c for c in step.schema.columns() if c.name in down]
+                        for side, step in (("l", ss.left), ("r", ss.right))}
+        self.ss_before = ss.before_ms
+        self.ss_after = ss.after_ms
+        # klip-36: an explicit GRACE selects deferred (pad at close) left and
+        # outer semantics; without it, the legacy eager padding
+        self.ss_deferred = ss.grace_ms is not None
+        self.ss_grace = ss.grace_ms if self.ss_deferred else DEFAULT_GRACE_MS
+        self.ss_pad_sides = set()
+        if ss.join_type in (JoinType.LEFT, JoinType.OUTER):
+            self.ss_pad_sides.add("l")
+        if ss.join_type in (JoinType.RIGHT, JoinType.OUTER):
+            self.ss_pad_sides.add("r")
+        # admission horizon against the own side's stream time: size + grace
+        self.ss_retention = self.ss_before + self.ss_after + self.ss_grace
+        self.ss_capacity = max(buffer_capacity, self.capacity)
+        self.ss_out_cap = out_capacity or max(64, 2 * self.capacity)
 
     def _pre_agg_schema(self) -> LogicalSchema:
         if self.mid_ops:
@@ -566,10 +650,13 @@ class TorchCompiledQuery:
         """Compile every expression of the plan on empty CPU columns, so an
         expression the port does not lower raises DeviceUnsupported here,
         before any batch (the reference's construction-time trace)."""
-        types = {spec.name: spec.sql_type for spec in self.layout.specs}
-        env = _probe_env({**types, **PSEUDOCOLUMNS})
         active = torch.zeros(0, dtype=torch.bool)
         ts = torch.zeros(0, dtype=torch.int64)
+        if self.ss_join is not None:
+            self._check_ss_compiles(active, ts)
+            return
+        types = {spec.name: spec.sql_type for spec in self.layout.specs}
+        env = _probe_env({**types, **PSEUDOCOLUMNS})
         env, active = self._apply_ops(self.pre_ops, env, active, 0)
         if self.join is not None:
             for jspec in self.join_chain:
@@ -600,6 +687,21 @@ class TorchCompiledQuery:
         env, active = self._apply_ops(self.post_ops, _probe_env(fin), active, 0)
         self._pack_emits(env, active, ts)
 
+    def _check_ss_compiles(self, active: torch.Tensor, ts: torch.Tensor) -> None:
+        ss = self.ss_join
+        for side, layout, pre, key in (("l", self.layout, self.pre_ops, ss.left_key),
+                                       ("r", self.right_layout, self.right_pre_ops, ss.right_key)):
+            types = {spec.name: spec.sql_type for spec in layout.specs}
+            env, _ = self._apply_ops(pre, _probe_env({**types, **PSEUDOCOLUMNS}), active, 0)
+            TorchExprCompiler(env, 0, "cpu").compile(key)
+            missing = [c.name for c in self.ss_cols[side] if c.name not in env]
+            if missing:
+                raise DeviceUnsupported(f"join {side} columns {missing} not computed on device")
+        out = {c.name: c.type for s in ("l", "r") for c in self.ss_cols[s]}
+        out.update({c.name: c.type for c in ss.schema.key_columns}, ROWTIME=T.BIGINT)
+        env, active = self._apply_ops(self.mid_ops, _probe_env(out), active, 0)
+        self._pack_emits(env, active, ts)
+
     # --------------------------------------------------------------- state
     def init_state(self, device=None, tables: bool = True) -> Dict[str, torch.Tensor]:
         """A fresh state dict; ``tables=False`` leaves out the join table
@@ -607,12 +709,32 @@ class TorchCompiledQuery:
         dev = self.device if device is None else device
         if self.store_layout is None:
             state = {"max_ts": torch.tensor(_I64_MIN, dtype=torch.int64, device=dev)}
+            if self.ss_join is not None:
+                state.update(self._init_ss_rings(dev))
         else:
             state = self._init_agg_state(dev)
         if tables:
             for i in range(len(self.join_chain)):
                 state[self._jtab_key(i)] = self._init_table_store(i, dev)
         return state
+
+    def _init_ss_rings(self, dev) -> Dict[str, torch.Tensor]:
+        """Both sides' ring buffers, ``ss{side}_<field>`` (``ops/ss_join.py``
+        ``RING_FIELDS``), ``ss{side}_v_<col>``/``_m_<col>`` per buffered
+        column, each ``ss_capacity + 1`` long, and the scalars
+        ``ss{side}_cursor`` (the next sequence number) and ``ss{side}_smax``
+        (the side's stream time)."""
+        b1 = self.ss_capacity + 1
+        out: Dict[str, torch.Tensor] = {}
+        for s in ("l", "r"):
+            for field, t in ssj.init_ring(b1, dev).items():
+                out[f"ss{s}_{field}"] = t
+            for col in self.ss_cols[s]:
+                out[f"ss{s}_v_{col.name}"] = torch.zeros(b1, dtype=torch_dtype(col.type), device=dev)
+                out[f"ss{s}_m_{col.name}"] = torch.zeros(b1, dtype=torch.bool, device=dev)
+            out[f"ss{s}_cursor"] = torch.zeros((), dtype=torch.int64, device=dev)
+            out[f"ss{s}_smax"] = torch.tensor(_I64_MIN, dtype=torch.int64, device=dev)
+        return out
 
     def _init_agg_state(self, dev) -> Dict[str, torch.Tensor]:
         state = hs.init_store(self.store_layout, dev)
@@ -930,12 +1052,7 @@ class TorchCompiledQuery:
                 env[col.name] = DCol(lanes[f"v_{col.name}"], lanes[f"m_{col.name}"], col.type)
             # the right side's primary key column (stored as its key repr)
             for kc in jspec.step.right.schema.key_columns:
-                kdata = key
-                if kc.type.base in (SqlBaseType.DOUBLE, SqlBaseType.DECIMAL):
-                    kdata = kdata.view(torch.float64)
-                elif kc.type.base not in _HASHED:
-                    kdata = kdata.to(torch_dtype(kc.type))
-                env[kc.name] = DCol(kdata, found, kc.type)
+                env[kc.name] = DCol(decode_key64(key, torch_dtype(kc.type)), found, kc.type)
             # the join result's key column carries the join key value
             for out_key in jspec.step.schema.key_columns:
                 env[out_key.name] = kcol
@@ -1005,9 +1122,197 @@ class TorchCompiledQuery:
         self.table_rebuild_seconds.append(time.perf_counter() - t0)
         self.table_grows += 1
 
+    # ------------------------------------- stream-stream join (device)
+    def _ss_ring(self, side: str) -> ssj.Ring:
+        return {f: self.state[f"ss{side}_{f}"] for f in ssj.RING_FIELDS}
+
+    def _ss_ring_cols(self, side: str) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        return [(self.state[f"ss{side}_v_{c.name}"], self.state[f"ss{side}_m_{c.name}"])
+                for c in self.ss_cols[side]]
+
+    def _ss_prepare(self, side: str, arrays: Dict[str, torch.Tensor]) -> Dict[str, object]:
+        """The side's batch through its pre-ops and join key, K10's count
+        against the other side's ring and K11's prologue against its own:
+        everything before the host reads the match total and the overwrite
+        loss.  Writes no state."""
+        ss = self.ss_join
+        n = arrays["row_valid"].shape[0]
+        layout, pre, key = ((self.layout, self.pre_ops, ss.left_key) if side == "l"
+                            else (self.right_layout, self.right_pre_ops, ss.right_key))
+        env, active = self._apply_ops(pre, self._source_env(arrays, layout), arrays["row_valid"], n)
+        kcol = TorchExprCompiler(env, n, active.device, self.dictionary).compile(key)
+        kvalid = kcol.valid.contiguous()
+        krepr = _repr64(kcol).contiguous()
+        active = active.contiguous()
+        ts = arrays["ts"]
+        other = "r" if side == "l" else "l"
+        count = ssj.ss_match_count(side, krepr, kvalid, active, ts, self._ss_ring(other),
+                                   self.ss_before, self.ss_after)
+        state = self.state
+        pro = ssj.ss_insert_prologue(
+            arrays["row_valid"], ts, active, count[1], self._ss_ring(side), state["max_ts"],
+            state[f"ss{side}_smax"], state[f"ss{side}_cursor"], pad_side=side in self.ss_pad_sides,
+            deferred=self.ss_deferred, swin=self.ss_after if side == "l" else self.ss_before,
+            grace=self.ss_grace, retention=self.ss_retention,
+        )
+        return {"env": env, "active": active, "kcol": kcol, "kvalid": kvalid, "krepr": krepr,
+                "count": count, "pro": pro}
+
+    def _ss_write(self, side: str, arrays: Dict[str, torch.Tensor],
+                  prep: Dict[str, object]) -> Dict[str, torch.Tensor]:
+        """K10's write (the match lanes, the other ring's matched bits) and
+        K11's write (the admitted rows into the own ring, both clocks), then
+        the step's emission: ``ss_out_cap`` match lanes, then the batch's
+        own pads, through the ops above the join."""
+        ss = self.ss_join
+        env, kcol, kvalid, krepr = prep["env"], prep["kcol"], prep["kvalid"], prep["krepr"]
+        count, pro = prep["count"], prep["pro"]
+        ts = arrays["ts"]
+        n = ts.shape[0]
+        oc = self.ss_out_cap
+        other = "r" if side == "l" else "l"
+        own = [(env[c.name].data.contiguous(), env[c.name].valid.contiguous())
+               for c in self.ss_cols[side]]
+        lanes = ssj.ss_match(side, krepr, kvalid, prep["active"], ts, self._ss_ring(other),
+                             self.ss_before, self.ss_after, count, oc,
+                             own + [(kcol.data.contiguous(), kvalid)], self._ss_ring_cols(other))
+        state = self.state
+        ssj.ss_insert(self._ss_ring(side), self._ss_ring_cols(side), pro, ts, krepr, kvalid,
+                      count[1], own, state["max_ts"], state[f"ss{side}_smax"],
+                      state[f"ss{side}_cursor"])
+        pad = pro["pad"]
+        own_lanes, other_lanes = iter(lanes["own"]), iter(lanes["opp"])
+        out_env: Dict[str, DCol] = {}
+        for s2 in ("l", "r"):
+            for col in self.ss_cols[s2]:
+                if s2 == side:
+                    md, mv = next(own_lanes)
+                    d = env[col.name]
+                    pdata, pvalid = d.data, d.valid & pad
+                else:
+                    md, mv = next(other_lanes)
+                    pdata = torch.zeros(n, dtype=md.dtype, device=md.device)
+                    pvalid = torch.zeros(n, dtype=torch.bool, device=md.device)
+                out_env[col.name] = DCol(torch.cat([md, pdata]), torch.cat([mv, pvalid]), col.type)
+        kd, kv = lanes["own"][-1]
+        for out_key in ss.schema.key_columns:
+            out_env[out_key.name] = DCol(torch.cat([kd, kcol.data]), torch.cat([kv, kvalid & pad]),
+                                         out_key.type)
+        nn = oc + n
+        out_ts = torch.cat([lanes["ts"], ts])
+        out_env["ROWTIME"] = DCol(out_ts, torch.ones(nn, dtype=torch.bool, device=ts.device), T.BIGINT)
+        mask = torch.cat([lanes["mvalid"], pad])
+        out_env, mask = self._apply_ops(self.mid_ops, out_env, mask, nn)
+        emits = self._pack_emits(out_env, mask, out_ts)
+        # the oracle's emission order: per incoming row its matches in
+        # buffer (seq) order, then the row's own pad
+        emits["ord_a"] = torch.cat([lanes["mi"].to(torch.int64),
+                                    torch.arange(n, dtype=torch.int64, device=ts.device)])
+        emits["ord_b"] = torch.cat([lanes["ord_b"],
+                                    torch.full((n,), _I64_MAX, dtype=torch.int64, device=ts.device)])
+        emits["ss_matchovf"] = (count[3] - oc).clamp(min=0)
+        emits["ss_lost"] = pro["scal"][0]
+        return emits
+
+    def process_ss(self, batch: HostBatch, side: str) -> List[SinkEmit]:
+        """One batch of side ``side`` (``"l"`` or ``"r"``) of a
+        stream-stream join.  The reference re-runs a step on the old state
+        when its matches overflow the lanes or its insert would overwrite
+        live entries; the port reads both numbers (one sync) before it
+        writes any state: the match lanes double until they hold every
+        match, the rings double and the batch starts again on the loss."""
+        layout = self.layout if side == "l" else self.right_layout
+        arrays = self.upload(layout.encode(batch))
+        while True:
+            prep = self._ss_prepare(side, arrays)
+            total, lost = torch.stack([prep["count"][3], prep["pro"]["scal"][0]]).tolist()
+            if lost == 0:
+                break
+            self._grow_ss()
+        while total > self.ss_out_cap:
+            self.ss_out_cap *= 2
+            self.ss_out_grows += 1
+        return self._decode_emits(self._ss_write(side, arrays, prep))
+
+    def ss_expire_host(self) -> List[SinkEmit]:
+        """Close, pad and evict both rings at the current stream time
+        (K12); once per tick, after the tick's batches."""
+        return self._decode_emits(self._ss_expire())
+
+    def _ss_expire(self) -> Dict[str, torch.Tensor]:
+        """K12 over both rings, then the expiry's emission: every entry of
+        the left ring, then of the right, through the ops above the join."""
+        ss = self.ss_join
+        state = self.state
+        key_cols = ss.schema.key_columns
+        out = ssj.ss_expire(
+            {s: self._ss_ring(s) for s in ("l", "r")},
+            {s: self._ss_ring_cols(s) for s in ("l", "r")}, state["max_ts"],
+            {s: state[f"ss{s}_smax"] for s in ("l", "r")}, [torch_dtype(k.type) for k in key_cols],
+            deferred=self.ss_deferred, pad_sides=self.ss_pad_sides, after=self.ss_after,
+            before=self.ss_before, grace=self.ss_grace, retention=self.ss_retention,
+        )
+        out_ts = out["ts"]
+        nn = out_ts.shape[0]
+        out_env: Dict[str, DCol] = {}
+        for s2 in ("l", "r"):
+            for col, (d, v) in zip(self.ss_cols[s2], out[s2]):
+                out_env[col.name] = DCol(d, v, col.type)
+        for out_key, kd in zip(key_cols, out["keys"]):
+            out_env[out_key.name] = DCol(kd, out["key_valid"], out_key.type)
+        out_env["ROWTIME"] = DCol(out_ts, torch.ones(nn, dtype=torch.bool, device=out_ts.device),
+                                  T.BIGINT)
+        out_env, mask = self._apply_ops(self.mid_ops, out_env, out["mask"], nn)
+        emits = self._pack_emits(out_env, mask, out_ts)
+        # the oracle's on_time order: by ts, left entries before right ones
+        emits["ord_a"] = out_ts
+        emits["ord_b"] = out["ord_b"]
+        return emits
+
+    def _grow_ss(self) -> None:
+        """Double both rings (host rebuild): each side's live entries move,
+        in seq order, to entries 0..k-1 with seq renumbered 0..k-1 and the
+        cursor at k, so the emission order is kept; every other entry, the
+        dump entry included, starts zeroed."""
+        t0 = time.perf_counter()
+        self.ss_capacity *= 2
+        b1 = self.ss_capacity + 1
+        old = state_to_numpy(self.state)
+        new = dict(old)
+        for s in ("l", "r"):
+            live = np.nonzero(old[f"ss{s}_live"][:-1])[0]
+            live = live[np.argsort(old[f"ss{s}_seq"][live])]
+            k = live.size
+            for key, v in old.items():
+                if key.startswith(f"ss{s}_") and v.ndim:
+                    new[key] = np.zeros(b1, v.dtype)
+                    new[key][:k] = v[live]
+            new[f"ss{s}_seq"][:k] = np.arange(k)
+            new[f"ss{s}_live"][:k] = True
+            new[f"ss{s}_cursor"] = np.asarray(k, np.int64)
+        self.state = state_from_numpy(new, self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.ss_rebuild_seconds.append(time.perf_counter() - t0)
+        self.ss_grows += 1
+
     # ------------------------------------------------------------ host API
     def process(self, batch: HostBatch) -> List[SinkEmit]:
+        if self.ss_join is not None:
+            return self.process_ss(batch, "l")
         return self.process_arrays(self.layout.encode(batch))
+
+    def flush(self, stream_time: Optional[int] = None) -> List[SinkEmit]:
+        """Advance the stream time to ``stream_time`` (when given) and emit
+        what closes: a stream-stream join's expiry (the reference's
+        ``flush``/``ss_flush``).  No other shape the port runs closes on
+        time alone (EMIT FINAL is refused)."""
+        if self.ss_join is None:
+            return []
+        if stream_time is not None:
+            max_ts = self.state["max_ts"]
+            torch.clamp_min(max_ts, stream_time, out=max_ts)
+        return self.ss_expire_host()
 
     def upload(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
@@ -1101,6 +1406,11 @@ class TorchCompiledQuery:
         def host(name: str) -> np.ndarray:
             return emits[name][idx_dev].cpu().numpy()
 
+        ordered = "ord_a" in emits
+        if ordered:  # an explicit emission order (the join's match/expiry sequencing)
+            order = np.lexsort((host("ord_b"), host("ord_a")))
+            idx_dev = idx_dev[torch.from_numpy(order).to(idx_dev.device)]
+
         cols: Dict[str, list] = {}
         for col in schema.columns():
             cols[col.name] = decode_value(
@@ -1112,7 +1422,7 @@ class TorchCompiledQuery:
         out: List[SinkEmit] = []
         key_names = [c.name for c in schema.key_columns]
         val_names = [c.name for c in schema.value_columns]
-        collapse_null_keys = self.agg is None and self.join is None
+        collapse_null_keys = self.agg is None and self.join is None and self.ss_join is None
         for j in range(len(ts)):
             key = tuple(cols[kn][j] for kn in key_names)
             if collapse_null_keys and key and all(k is None for k in key):
@@ -1123,8 +1433,9 @@ class TorchCompiledQuery:
             row.update({vn: cols[vn][j] for vn in val_names})
             window = (int(ws[j]), int(we[j])) if ws is not None else None
             out.append(SinkEmit(key, row, int(ts[j]), window))
-        # ts-major, window-start-minor: the reference's emission order
-        out.sort(key=lambda e: (e.ts, e.window or (0, 0)))
+        if not ordered:
+            # ts-major, window-start-minor: the reference's emission order
+            out.sort(key=lambda e: (e.ts, e.window or (0, 0)))
         return out
 
 

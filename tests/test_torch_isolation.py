@@ -88,10 +88,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         plan = json.load(f)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_plan(plan, Broker())
-    with open(os.path.join(PKG, "plans", "enriched_join.json")) as f:
-        join_plan = json.load(f)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        start_plan(join_plan, Broker())
+    for name in ("enriched_join.json", "ss_join_grace.json"):
+        with open(os.path.join(PKG, "plans", name)) as f:
+            join_plan = json.load(f)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            start_plan(join_plan, Broker())
     with pytest.raises(RuntimeError, match="CUDA"):
         state_from_numpy({})
 

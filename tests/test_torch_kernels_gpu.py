@@ -8,8 +8,9 @@ fixture.  Run them on the card with
 
 Ints, bools, hashes and slots must be equal; float64 sums agree to rtol
 1e-12 (atomic fold order is not fixed).  The sliced stores come from
-``chip_smoke.make_sliced_case``, the generator of the chip check's own
-kernel phase.
+``chip_smoke.make_sliced_case``, the stream-stream join steps from
+``chip_smoke.make_ss_case``: the generators of the chip check's own
+kernel phases.
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 import chip_smoke
 from ksql_tpu_torch.ops import hash_store as hs
 from ksql_tpu_torch.ops import slicing
+from ksql_tpu_torch.ops import ss_join as ssj
 
 pytestmark = pytest.mark.gpu
 I64 = np.iinfo(np.int64)
@@ -314,3 +316,92 @@ def test_table_mode_and_upsert_kernels_match_twins(dev):
         _same(sk[k], sp[k])
     assert (scratch["last"] == -1).all() and (scratch["claim"] == hs.INT32_MAX).all()
     assert (sk["grave"] & ~st["grave"]).any() and not torch.equal(sk["v_A"], st["v_A"])
+
+
+def _ss_case(dev, seed, ring=1 << 10, n=512):
+    # 2,000 keys: about 240 matches a batch against the 1,024-entry ring
+    case = chip_smoke.make_ss_case(np.random.default_rng(seed), ring, n, keys=2000)
+    return chip_smoke.ss_case_tensors(torch, case, dev)
+
+
+def _same_tree(got, want):
+    if isinstance(want, dict):
+        assert set(got) == set(want)
+        for k in want:
+            _same_tree(got[k], want[k])
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _same_tree(g, w)
+    else:
+        _same(got, want)
+
+
+@pytest.mark.parametrize("oc_rows", [8, 0])
+def test_ss_match_kernel_matches_twin(dev, oc_rows):
+    # tolerance: exact (every lane, the matched bits and the counts bit for
+    # bit); oc_rows 0 gives 16 lanes, fewer than the matches: the cut
+    case = _ss_case(dev, 5)
+    n = case["rows"]["ts"].shape[0]
+    oc = oc_rows * n or 16
+    kc, pc = chip_smoke._clone_case(case), chip_smoke._clone_case(case)
+    k_calls = chip_smoke._ss_calls(torch, kc, oc)
+    p_calls = chip_smoke._ss_calls(torch, pc, oc, plain=True)
+    modes = dict(ssj.ss_match.mode_launches)
+    got = k_calls[0]()
+    assert ssj.ss_match.mode_launches == {**modes, "count": modes["count"] + 1}
+    want = p_calls[0]()
+    _same_tree(got, want)
+    assert 16 < int(want[3]) < 8 * n
+    lanes = k_calls[1](got)
+    assert ssj.ss_match.mode_launches["write"] == modes["write"] + 1
+    _same_tree(lanes, p_calls[1](want))
+    _same(kc["ring_r"]["matched"], pc["ring_r"]["matched"])
+
+
+@pytest.mark.parametrize("deferred", [True, False])
+def test_ss_insert_kernels_match_twins(dev, deferred):
+    # tolerance: exact (pads, admissions, targets, the scalars, the whole
+    # ring with its dump entry, the cursor and the clocks)
+    case = _ss_case(dev, 6)
+    kc, pc = chip_smoke._clone_case(case), chip_smoke._clone_case(case)
+    r = case["rows"]
+    count = ssj.ss_match_count_plain("l", r["krepr"], r["kvalid"], r["active"], r["ts"], case["ring_r"],
+                                     10_000, 10_000)
+    args = dict(pad_side=True, deferred=deferred, swin=10_000, grace=1_000 if deferred else 86_400_000,
+                retention=21_000 if deferred else 86_420_000)
+    modes = dict(ssj.ss_insert.mode_launches)
+    pros = [fn(r["row_valid"], r["ts"], r["active"], count[1], c["ring_l"], c["max_ts"], c["smax_l"],
+               c["cursor_l"], **args)
+            for fn, c in ((ssj.ss_insert_prologue, kc), (ssj.ss_insert_prologue_plain, pc))]
+    assert ssj.ss_insert.mode_launches == {**modes, "prologue": modes["prologue"] + 1}
+    _same_tree(pros[0], pros[1])
+    assert int(pros[1]["scal"][4]) >= 0  # some row is not admitted: the dump entry takes it
+    for fn, c, pro in ((ssj.ss_insert, kc, pros[0]), (ssj.ss_insert_plain, pc, pros[1])):
+        fn(c["ring_l"], c["cols_l"], pro, r["ts"], r["krepr"], r["kvalid"], count[1], c["row_cols"],
+           c["max_ts"], c["smax_l"], c["cursor_l"])
+    assert ssj.ss_insert.mode_launches["write"] == modes["write"] + 1
+    for k in ("ring_l", "cols_l", "cursor_l", "max_ts", "smax_l"):
+        _same_tree(kc[k], pc[k])
+
+
+@pytest.mark.parametrize("deferred", [True, False])
+def test_ss_expire_kernel_matches_twin(dev, deferred):
+    # tolerance: exact (every lane and both rings' live and matched bits);
+    # keys decode as int64, int32, float64 bits and bool
+    case = _ss_case(dev, 7)
+    outs, rings = [], []
+    for fn in (ssj.ss_expire, ssj.ss_expire_plain):
+        c = chip_smoke._clone_case(case)
+        c["max_ts"].add_(20_000)  # past the close of the ring's newer entries
+        before = ssj.ss_expire.launches
+        outs.append(fn({"l": c["ring_l"], "r": c["ring_r"]}, {"l": c["cols_l"], "r": c["cols_r"]},
+                       c["max_ts"], {"l": c["smax_l"], "r": c["smax_r"]},
+                       [torch.int64, torch.int32, torch.float64, torch.bool], deferred=deferred,
+                       pad_sides={"l", "r"}, after=10_000, before=10_000, grace=1_000,
+                       retention=21_000))
+        assert ssj.ss_expire.launches == before + (fn is ssj.ss_expire)
+        rings.append((c["ring_l"], c["ring_r"]))
+    _same_tree(outs[0], outs[1])
+    _same_tree(rings[0], rings[1])
+    assert bool(outs[1]["mask"].any()) == deferred

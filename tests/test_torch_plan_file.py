@@ -1,13 +1,14 @@
 """The committed plans stay what the JAX engine builds today.
 
 ``ksql_tpu_torch/plans/pv_counts_tumbling.json`` (BASELINE #1),
-``pv_stats_hopping.json`` (BASELINE #2) and ``enriched_join.json``
-(BASELINE #3) are the serialized physical plans that ``chip_smoke.py``
-runs (the port has no SQL front end yet): each must equal ``plan_to_json``
-of the plan the reference engine builds from the bench's DDL
-(``bench.py``'s tumbling COUNT(*) and hopping SUM/AVG/MIN/MAX over the
-page-view stream, and its clicks-users LEFT JOIN), and the port's decoder
-must read it back to the same JSON.
+``pv_stats_hopping.json`` (BASELINE #2), ``enriched_join.json``
+(BASELINE #3) and ``ss_join_grace.json`` (BASELINE #4) are the serialized
+physical plans that ``chip_smoke.py`` runs (the port has no SQL front end
+yet): each must equal ``plan_to_json`` of the plan the reference engine
+builds from the bench's DDL (``bench.py``'s tumbling COUNT(*) and hopping
+SUM/AVG/MIN/MAX over the page-view stream, its clicks-users LEFT JOIN and
+its stream-stream LEFT JOIN with GRACE), and the port's decoder must read
+it back to the same JSON.
 """
 
 import json
@@ -36,6 +37,12 @@ CTAS = {
         "FROM CLICKS C LEFT JOIN USERS U ON C.USER_ID = U.ID "
         "WHERE U.REGION <> 'excluded' EMIT CHANGES;"
     ),
+    # bench.py:624-628, bench_stream_stream_join
+    "ss_join_grace.json": (
+        "CREATE STREAM J AS SELECT L.ID, L.V AS LV, R.V AS RV FROM LEFTS L "
+        "LEFT JOIN RIGHTS R WITHIN 10 SECONDS GRACE PERIOD 1 SECOND "
+        "ON L.ID = R.ID EMIT CHANGES;"
+    ),
 }
 #: the DDL each plan's query reads (bench.py:149, :541-546)
 DDL = {
@@ -47,9 +54,13 @@ DDL = {
         "CREATE STREAM CLICKS (USER_ID BIGINT, URL STRING) "
         "WITH (KAFKA_TOPIC='clicks', VALUE_FORMAT='JSON');",
     ],
+    "ss_join_grace.json": [
+        "CREATE STREAM LEFTS (ID BIGINT KEY, V BIGINT) WITH (KAFKA_TOPIC='lt', VALUE_FORMAT='JSON');",
+        "CREATE STREAM RIGHTS (ID BIGINT KEY, V BIGINT) WITH (KAFKA_TOPIC='rt', VALUE_FORMAT='JSON');",
+    ],
 }
 SINKS = {"pv_counts_tumbling.json": "PV_COUNTS", "pv_stats_hopping.json": "PV_STATS",
-         "enriched_join.json": "ENRICHED"}
+         "enriched_join.json": "ENRICHED", "ss_join_grace.json": "J"}
 
 
 def _committed(name):
@@ -92,3 +103,11 @@ def test_join_plan_file_equals_reference_engine_plan():
 
 def test_port_decodes_join_plan_file_losslessly():
     _check_decodes("enriched_join.json")
+
+
+def test_ss_join_plan_file_equals_reference_engine_plan():
+    _check_equals_reference("ss_join_grace.json")
+
+
+def test_port_decodes_ss_join_plan_file_losslessly():
+    _check_decodes("ss_join_grace.json")
