@@ -90,14 +90,35 @@ Phases, in this order; any failure exits non-zero and prints no result:
    ``ss_buffer_capacity`` 512 (rings from 2,048 entries to at least 8,192)
    and 64 match lanes (at least two doublings); the sink must equal a run
    at phase 10's sizes.
+2w. The session path's kernels against their twins at BASELINE #5's
+   shapes: BASELINE #5's query run on the card over phase 11's first 8
+   batches into a 2^20-slot store with 32 session slots, then batch 9 with
+   5% null keys, 2% rows 9-11 min late (a 9.5 min grace drops some) and 1%
+   repeated timestamps: K1's session mode, K14 prologue, K13 on the rows,
+   K14 first and items (270,336 items), K13 on the items, K15
+   session_merge, K16 delete, K2 and K16 write; all exact, every emission
+   lane and the dump slot included.  Yardstick: two stable torch.argsort
+   calls for K13; no single PyTorch call computes K14-K16.
+11. BASELINE #5 end to end (``ksql_tpu_torch/plans/pv_sessions.json``,
+   COUNT(*) per URL over SESSION (30 SECONDS)) through ``run_plan`` at
+   bench.py:668-692's sizes: 16 x 8,192 JSON records of bench.py's
+   ``_pv_batches`` traffic (seed 7, zipf(1.3) over 50,000 URLs, 17 ms
+   apart), a 2^20-slot store, 16 session slots.  The sink must equal the
+   port's CPU run record for record, the live sessions at the end a numpy
+   split of each URL's timestamps at gaps over 30 s; no overflow; the
+   session slots must grow (the batch restarts on ``sess_ovf``).
+11g. Both growths: phase 11's first 8 batches with 4 session slots (the
+   reference's default) and a 2^14-slot store: the slots must reach 32, the
+   store must grow, and the sink must equal phase 11's.
 5. Launch counters, per path: the counts (per kernel, and per mode for K1,
-   K4, K6, K10 and K11) are set to 0 just before each of phases 3, 4, 6,
-   7, 8, 9, 9g, 10 and 10g drives the runner on the card and read just
-   after it; each phase must have launched every kernel of its route in
-   the route's modes (``PATH_KERNELS``), and no kernel or mode outside it.
-   Then short profiled re-runs split a batch's time into host stages and
-   the card's busy share, for the flagship (3b), BASELINE #2 (6b),
-   BASELINE #3 (9b) and BASELINE #4 (10b).
+   K4, K6, K10, K11, K14 and K16) are set to 0 just before each of phases
+   3, 4, 6, 7, 8, 9, 9g, 10, 10g, 11 and 11g drives the runner on the card
+   and read just after it; each phase must have launched every kernel of
+   its route in the route's modes (``PATH_KERNELS``), and no kernel or
+   mode outside it.  Then short profiled re-runs split a batch's time into
+   host stages and the card's busy share, for the flagship (3b), BASELINE
+   #2 (6b), BASELINE #3 (9b), BASELINE #4 (10b) and BASELINE #5 (11b, with
+   the share of its one ``sess_ovf`` read).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON record, and the line before that the card's name and
@@ -180,6 +201,10 @@ KERNEL_FUNCS = {
     "ss_match": ("match_count_kernel", "match_scan_kernel", "match_write_kernel"),
     "ss_insert": ("insert_prologue_kernel", "insert_write_kernel"),
     "ss_expire": ("expire_kernel",),
+    "seg_sort": ("tile_sort_kernel", "merge_pass_kernel"),
+    "session_items": ("prologue_kernel", "first_kernel", "items_kernel"),
+    "session_merge": ("permute_kernel", "runs_kernel", "finish_kernel"),
+    "session_write": ("delete_kernel", "write_kernel", "dump_kernel"),
 }
 
 
@@ -1275,6 +1300,11 @@ _SLICED = {"row_prologue": "sliced", "probe_insert": None, "sliced_fold": None,
 _JOIN = {"probe_find": None, "row_prologue": "table", "probe_insert": None, "table_upsert": None}
 #: a stream-stream join: K10 and K11 in both modes per batch, K12 per tick
 _SS = {"ss_match": ("count", "write"), "ss_insert": ("prologue", "write"), "ss_expire": None}
+#: a session aggregation: K1's session mode, K13 twice, K14 in its three
+#: modes, K15, K16 delete, K2 and K16 write per batch
+_SESSION = {"row_prologue": "session", "seg_sort": None,
+            "session_items": ("prologue", "first", "items"), "session_merge": None,
+            "session_write": ("delete", "write"), "probe_insert": None}
 PATH_KERNELS = {
     "3": _TUMBLING,
     "4": {**_TUMBLING, "evict": "tumbling"},
@@ -1285,6 +1315,8 @@ PATH_KERNELS = {
     "9g": _JOIN,
     "10": _SS,
     "10g": _SS,
+    "11": _SESSION,
+    "11g": _SESSION,
 }
 #: per phase, each kernel's launches in that phase's card run, by mode
 PATH_LAUNCHES: dict = {}
@@ -1292,10 +1324,12 @@ PATH_LAUNCHES: dict = {}
 
 def _wrappers():
     from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.ops import session
     from ksql_tpu_torch.ops import slicing
     from ksql_tpu_torch.ops import ss_join
 
-    return hs.KERNEL_WRAPPERS + slicing.KERNEL_WRAPPERS + ss_join.KERNEL_WRAPPERS
+    return (hs.KERNEL_WRAPPERS + slicing.KERNEL_WRAPPERS + ss_join.KERNEL_WRAPPERS
+            + session.KERNEL_WRAPPERS)
 
 
 def zero_launches() -> None:
@@ -1439,6 +1473,7 @@ def phase_breakdown(torch, drive, n_batches, tag):
         (TorchCompiledQuery, "_ss_prepare", "ss match count + insert prologue", True),
         (TorchCompiledQuery, "_ss_write", "ss match + insert write + emission", True),
         (TorchCompiledQuery, "_ss_expire", "ss expiry", True),
+        (TorchCompiledQuery, "_read_sess_ovf", "of which the sess_ovf read", False),
         (TorchCompiledQuery, "_react_to_load", "load check", False),
         (TorchCompiledQuery, "_decode_emits", "emit decode", False),
         (SinkWriter, "produce", "sink produce", False),
@@ -1457,7 +1492,9 @@ def phase_breakdown(torch, drive, n_batches, tag):
             setattr(obj, name, orig)
     busy = sum(_device_us(e) for e in prof.key_averages()) / 1e6
     per = {k: v / n_batches * 1e3 for k, v in sorted(acc.items(), key=lambda kv: -kv[1])}
-    per["other host"] = wall / n_batches * 1e3 - sum(per.values())
+    # a stage named "of which ..." runs inside another (the device step)
+    per["other host"] = wall / n_batches * 1e3 - sum(v for k, v in per.items()
+                                                     if not k.startswith("of which"))
     print(f"[{tag}] breakdown over {n_batches} batches (ms per batch): "
           + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
           + f"; card busy {busy / wall * 100:.2f}% of {wall:.3f} s wall (idle {100 - busy / wall * 100:.2f}%)")
@@ -2002,9 +2039,440 @@ def _ss_head(torch, plan_json, seed, warm=8, n_batches=4):
     return lambda: sum(ss_ticks(torch, broker, h, ids[warm:], ts[warm:], first=warm))
 
 
+# ------------------------------------------------------------- phase 11
+SESS_ROWS = 8192  # BASELINE #5's batch: min(8192, CAPACITY) (bench.py:677)
+SESS_STORE = 1 << 20  # bench.py:678 (STORE)
+SESS_SLOTS = 16  # bench.py:679: session_slots presized for the zipf tail
+SESS_BATCHES = 16
+SESS_GAP_MS = 30_000
+SESS_STEP_MS = 17  # bench.py:139, a record every 17 ms
+#: phase 11's batches replayed through the CPU twins for the sink check
+SESS_CPU_BATCHES = 16
+SESS_GROW_BATCHES = 8
+#: phase 11g's store: grows at least once, clear of the overflow defect of
+#: ROADMAP C (scripts/torch_store_overflow.py --session counts it)
+SESS_GROW_STORE = 1 << 14
+SESS_GROW_SLOTS = 4  # the reference's default session_slots
+SESS_2W_WARM = 8
+SESS_2W_SLOTS = 32
+#: phase 2w's grace: with the 30 s gap, rows 9-11 min late straddle it
+SESS_2W_GRACE_MS = 9 * 60_000 + 30_000
+
+
+def session_traffic(n_batches=SESS_BATCHES, n=None):
+    """bench.py:119-146 (``_pv_batches``) at BASELINE #5's batch: seed 7,
+    per batch SESS_ROWS URLs drawn zipf(1.3) over 50,000 and as many
+    USER_IDs uniform over 1..999, records 17 ms apart in increasing time.  Returns
+    (url_idx, user_ids, ts)."""
+    n = n or SESS_ROWS
+    rng = np.random.default_rng(7)
+    url_idx, uid = [], []
+    for _ in range(n_batches):
+        url_idx.append(rng.zipf(1.3, size=n).astype(np.int64) % N_URLS)
+        uid.append(rng.integers(1, 1000, n))
+    ts = TS0 + np.arange(n_batches * n, dtype=np.int64) * SESS_STEP_MS
+    return np.concatenate(url_idx), np.concatenate(uid), ts
+
+
+def session_reference(url_idx, ts, gap=SESS_GAP_MS):
+    """The live sessions by numpy: per URL its timestamps sorted and split
+    where two lie more than ``gap`` apart: {(URL, start, end): count}."""
+    order = np.lexsort((ts, url_idx))
+    u, t = url_idx[order], ts[order]
+    new = np.ones(len(u), bool)
+    new[1:] = (u[1:] != u[:-1]) | (t[1:] - t[:-1] > gap)
+    starts = np.nonzero(new)[0]
+    ends = np.append(starts[1:], len(u)) - 1
+    return {(f"/page/{u[s]}", int(t[s]), int(t[e])): int(e - s + 1) for s, e in zip(starts, ends)}
+
+
+def live_sessions(records):
+    """The sink's live sessions: the last record per (URL, window) that no
+    later tombstone removed; with the tombstone and merged-row counts."""
+    live, tombs = {}, 0
+    for key, value, _ts, window in records:
+        k = (key, window[0], window[1])
+        if value is None:
+            live.pop(k, None)
+            tombs += 1
+        else:
+            live[k] = json.loads(value)["CNT"]
+    return live, tombs, len(records) - tombs
+
+
+def run_session(torch, plan_json, url_idx, uid, ts, device, store, slots, log=None, path=None):
+    """BASELINE #5's plan through ``run_main_path`` at its batch; with a
+    ``log`` list, each micro-batch's synchronized wall seconds and emitted
+    records are appended to it."""
+    from ksql_tpu_torch.runtime.device_executor import TorchDeviceExecutor
+
+    run_batch = TorchDeviceExecutor._run_batch
+
+    def logged(self):
+        t0 = time.perf_counter()
+        out = run_batch(self)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0, len(out)))
+        return out
+
+    if log is not None:
+        TorchDeviceExecutor._run_batch = logged
+    try:
+        return run_main_path(torch, plan_json, url_idx, ts, device, store, rows=SESS_ROWS,
+                             user_ids=uid, path=path, session_slots=slots)
+    finally:
+        TorchDeviceExecutor._run_batch = run_batch
+
+
+def phase_session_e2e(torch, plan_json, seed):
+    """BASELINE #5 end to end (``ksql_tpu_torch/plans/pv_sessions.json``,
+    COUNT(*) per URL over SESSION (30 SECONDS)) through ``run_plan`` at
+    bench.py's sizes: 16 x 8,192 records, a 2^20-slot store, 16 session
+    slots.  The sink must equal the port's CPU run record for record (over
+    the first SESS_CPU_BATCHES batches); the live sessions at the end must
+    equal the numpy sessions; no overflow; the session slots must grow.
+    Returns the summary and the sink's records of the first
+    SESS_GROW_BATCHES batches (phase 11g's reference)."""
+    url_idx, uid, ts = session_traffic()
+    n = len(ts)
+    torch.cuda.reset_peak_memory_stats()
+    log: list = []
+    broker, ex, secs = run_session(torch, plan_json, url_idx, uid, ts, DEVICE, SESS_STORE,
+                                   SESS_SLOTS, log, path="11")
+    peak = torch.cuda.max_memory_allocated()
+    q = ex.query
+    got = sink_records(broker, "SESSIONS")
+    require(int(q.state["overflow"]) == 0, "11: store overflowed")
+    require(len(log) == SESS_BATCHES and sum(c for _s, c in log) == len(got),
+            f"11: {len(log)} batches emitted {sum(c for _s, c in log)} of {len(got)} sink records")
+    require(q.session_grows >= 1 and q.session_slots > SESS_SLOTS,
+            f"11: session slots {q.session_slots} after {q.session_grows} doublings")
+    live, tombs, merged = live_sessions(got)
+    want = session_reference(url_idx, ts)
+    require(live == want, f"11: {len(live)} live sessions in the sink, numpy says {len(want)} "
+            f"({len(set(live.items()) ^ set(want.items()))} differ)")
+    k = SESS_CPU_BATCHES * SESS_ROWS
+    t0 = time.perf_counter()
+    cpu_broker, _ex, _s = run_session(torch, plan_json, url_idx[:k], uid[:k], ts[:k], "cpu",
+                                      SESS_STORE, SESS_SLOTS)
+    cpu_s = time.perf_counter() - t0
+    prefix = sum(c for _s, c in log[:SESS_CPU_BATCHES])
+    require(sink_records(cpu_broker, "SESSIONS") == got[:prefix],
+            f"11: card sink differs from the CPU run over {SESS_CPU_BATCHES} batches")
+    batch_s = np.array([s for s, _c in log]) * 1e3
+    p50, p99 = np.percentile(batch_s, [50, 99])
+    urls = len(np.unique(url_idx))
+    print(f"[11] BASELINE #5 sessions: {n} events in {secs:.3f} s = {n / secs:.1f} events/s; batch p50 "
+          f"{p50:.3f} ms p99 {p99:.3f} ms (first {batch_s[0]:.3f} ms, slowest {batch_s.max():.3f} ms); "
+          f"session slots {SESS_SLOTS} -> {q.session_slots} in {q.session_grows} restarts; store "
+          f"{q.store_capacity} slots, {q.grows} grows, overflow 0; {urls} URLs, {len(want)} live sessions "
+          f"equal the numpy sessions; {len(got)} sink records ({tombs} tombstones, {merged} merged "
+          f"sessions) equal the CPU run over {SESS_CPU_BATCHES} batches ({cpu_s:.3f} s); peak device "
+          f"memory {peak} B")
+    out = dict(events_per_s=n / secs, p50_ms=p50, p99_ms=p99, first_batch_ms=batch_s[0],
+               max_batch_ms=batch_s.max(), session_slots=q.session_slots, restarts=q.session_grows,
+               sink_records=len(got), tombstones=tombs, merged=merged, live_sessions=len(want),
+               cpu_s=cpu_s, peak_bytes=peak)
+    return out, got[:sum(c for _s, c in log[:SESS_GROW_BATCHES])]
+
+
+def phase_session_growth(torch, plan_json, seed, want):
+    """Both growths on the card: phase 11's first 8 batches with the
+    reference's 4 session slots and a SESS_GROW_STORE-slot store.  The
+    slots must reach 32, the store must grow, nothing may overflow, and the
+    sink must equal phase 11's over the same records."""
+    url_idx, uid, ts = session_traffic(SESS_GROW_BATCHES)
+    broker, ex, secs = run_session(torch, plan_json, url_idx, uid, ts, DEVICE, SESS_GROW_STORE,
+                                   SESS_GROW_SLOTS, path="11g")
+    q = ex.query
+    require(q.session_slots >= 32 and q.session_grows >= 3,
+            f"11g: session slots {q.session_slots} after {q.session_grows} doublings")
+    require(q.grows >= 1 and q.store_capacity > SESS_GROW_STORE,
+            f"11g: store at {q.store_capacity} slots after {q.grows} grows")
+    require(int(q.state["overflow"]) == 0, "11g: store overflowed")
+    got = sink_records(broker, "SESSIONS")
+    require(got == want, f"11g: sink differs from phase 11's ({len(got)} vs {len(want)} records)")
+    print(f"[11g] growth: {len(ts)} events in {secs:.3f} s; session slots {SESS_GROW_SLOTS} -> "
+          f"{q.session_slots} in {q.session_grows} restarts; store {SESS_GROW_STORE} -> {q.store_capacity} "
+          f"slots in {q.grows} grows (host rebuild s {[round(x, 4) for x in q.rebuild_seconds]}); "
+          f"{len(got)} sink records equal phase 11's, overflow 0")
+    return dict(session_slots=q.session_slots, restarts=q.session_grows, grows=q.grows,
+                rebuild_seconds=q.rebuild_seconds, seconds=secs)
+
+
+def _session_head(torch, plan_json, warm=8, n_batches=4):
+    """Phase 11's query after its first ``warm`` batches; returns the drive
+    of the breakdown's window: the next ``n_batches`` batches, in wall
+    seconds (production left out)."""
+    from ksql_tpu_torch.runner import run_until_quiescent, start_plan
+    from ksql_tpu_torch.runtime.topics import Broker
+
+    url_idx, uid, ts = session_traffic(warm + n_batches)
+    broker = Broker()
+    h = start_plan(plan_json, broker, device=DEVICE, capacity=SESS_ROWS, store_capacity=SESS_STORE,
+                   session_slots=SESS_SLOTS)
+    cut = warm * SESS_ROWS
+    produce_pageviews(broker, url_idx[:cut], ts[:cut], uid[:cut])
+    run_until_quiescent(h)
+    produce_pageviews(broker, url_idx[cut:], ts[cut:], uid[cut:])
+
+    def drive():
+        t0 = time.perf_counter()
+        run_until_quiescent(h)
+        h.executor.drain()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    return drive
+
+
+def make_session_case(torch, plan_json, seed, dev, n=None, store=SESS_STORE, slots=SESS_2W_SLOTS,
+                      warm=SESS_2W_WARM):
+    """Phase 2w's case: BASELINE #5's query on ``dev`` after phase 11's
+    first ``warm`` batches (of ``n`` rows, SESS_ROWS unless given, into a
+    ``store``-slot store with ``slots`` session slots), and the next batch
+    with 5% null keys, 2% rows 9-11 minutes late and 1% repeated
+    timestamps.  Returns the query, the batch's arrays and its tensors
+    after its pre-ops: reprs, valid, active, row_valid, ts."""
+    from ksql_tpu_torch.common.batch import HostBatch
+    from ksql_tpu_torch.compiler.torch_expr import _repr64
+    from ksql_tpu_torch.execution.steps import plan_from_json
+    from ksql_tpu_torch.runtime.lowering import TorchCompiledQuery
+
+    n = n or SESS_ROWS
+    url_idx, uid, ts = session_traffic(warm + 1, n)
+    q = TorchCompiledQuery(plan_from_json(plan_json), capacity=n, store_capacity=store,
+                           device=dev, session_slots=slots)
+    schema = q.source.schema
+
+    def rows(lo, urls):
+        return [{"URL": u, "USER_ID": int(i), "VIEWTIME": int(t)}
+                for u, i, t in zip(urls, uid[lo:lo + n].tolist(), ts[lo:lo + n].tolist())]
+
+    for b in range(warm):
+        lo = b * n
+        q.process(HostBatch.from_rows(schema, rows(lo, [f"/page/{u}" for u in url_idx[lo:lo + n]]),
+                                      timestamps=ts[lo:lo + n].tolist()))
+    rng = np.random.default_rng(seed + 40)
+    lo = warm * n
+    t9 = ts[lo:].copy()
+    late = rng.random(n) < 0.02
+    t9[late] -= rng.integers(9 * 60_000, 11 * 60_000, int(late.sum()))
+    dup = np.nonzero(rng.random(n) < 0.01)[0]
+    dup = dup[dup > 0]
+    t9[dup] = t9[dup - 1]
+    ts[lo:] = t9
+    null = rng.random(n) < 0.05
+    urls = [None if z else f"/page/{u}" for z, u in zip(null.tolist(), url_idx[lo:].tolist())]
+    arrays = q.upload(q.layout.encode(HostBatch.from_rows(schema, rows(lo, urls), timestamps=t9.tolist())))
+    env = q._source_env(arrays)
+    env, active = q._apply_ops(q.pre_ops, env, arrays["row_valid"], n)
+    keys = q._key_cols(env, n, dev)
+    return q, arrays, {
+        "reprs": torch.stack([_repr64(kc) for kc in keys]).contiguous(),
+        "valid": torch.stack([kc.valid for kc in keys]).contiguous(),
+        "active": active.contiguous(), "row_valid": arrays["row_valid"], "ts": arrays["ts"],
+        "late": int(late.sum()), "dups": int(dup.size), "nulls": int(null.sum()),
+    }
+
+
+def _argsort_lsd(torch, k1, k2):
+    """K13's yardstick: two stable torch.argsort calls, least significant
+    key first."""
+    o = torch.argsort(k2, stable=True)
+    return o[torch.argsort(k1[o], stable=True)]
+
+
+def phase_session_kernels(torch, plan_json, seed, case=None, timed=True):
+    """BASELINE #5's kernels against their twins at its shapes, on phase
+    2w's case (``make_session_case``, or ``case``): K1's session mode,
+    K14's prologue (under a 9.5 min grace), K13 on the rows, K14 first and
+    items, K13 on the items, K15, K16 delete, K2 and K16 write; everything
+    exact, masked lanes and the dump slot included.  Returns ``{kernel:
+    {mode: record}}`` and K2's and K13-on-rows' records at these shapes
+    (with ``timed`` False it compares only, and returns nothing)."""
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.ops import session as sess
+
+    dev = torch.device(DEVICE)
+    q, arrays, c = case or make_session_case(torch, plan_json, seed, dev)
+    meas = measure if timed else (lambda *_a, **_k: {})
+    n, cap, S = q.capacity, q.store_capacity, q.session_slots
+    m = n * (S + 1)
+    store = q.state
+    k = c["reprs"].shape[0]
+    comps = q.store_layout.components
+    cb = sum(np.dtype(x.dtype).itemsize for x in comps)  # component bytes an item
+    recs: dict = {}
+    extra: dict = {}
+
+    def done(kernel, mode, rec, what):
+        if timed:
+            recs.setdefault(kernel, {})[mode] = dict(rec, max_abs_err=0.0)
+            _report("2w", f"{kernel}[{mode}] ({what})", recs[kernel][mode])
+
+    # ---- K1, session mode
+    args = (c["reprs"], c["valid"], c["active"])
+    got, want = hs.session_prologue(*args), hs.session_prologue_plain(*args)
+    _assert_tree(torch, "row_prologue[session]", got, want)
+    done("row_prologue", "session", meas(
+        torch, "row_prologue", lambda: hs.session_prologue(*args),
+        lambda: hs.session_prologue_plain(*args), n * (9 * k + 1) + n * 9, n * 30 * (k + 1)),
+        f"{n} rows, {c['nulls']} null keys; no single PyTorch call")
+    act1, khash = got
+    # ---- K14 prologue
+    pro = (c["row_valid"], c["ts"], act1, store["max_ts"], SESS_2W_GRACE_MS, SESS_GAP_MS)
+    got, want = sess.session_prologue(*pro), sess.session_prologue_plain(*pro)
+    _assert_tree(torch, "session_items[prologue]", got, want)
+    active, scal = got
+    dropped = int((act1 & ~active).sum())
+    require(not timed or 0 < dropped < c["late"], f"2w: {dropped} of {c['late']} late rows dropped")
+    done("session_items", "prologue", meas(
+        torch, "session_items", lambda: sess.session_prologue(*pro),
+        lambda: sess.session_prologue_plain(*pro), n * 11 + 8 + 16, n * 8),
+        f"{dropped} of {c['late']} late rows dropped; one block; no single PyTorch call")
+    ts = c["ts"]
+    contribs = [torch.where(active, ts, torch.full_like(ts, np.iinfo(np.int64).min)), active.long()]
+    # ---- K13 on the rows
+    khs = torch.where(active, khash, torch.zeros_like(khash))
+    zeros = torch.zeros_like(khs)
+    order0 = sess.seg_sort(khs, zeros)
+    _assert_equal(torch, "seg_sort[rows]", order0, sess.seg_sort_plain(khs, zeros))
+    extra["seg_sort_rows"] = meas(
+        torch, "seg_sort", lambda: sess.seg_sort(khs, zeros), lambda: sess.seg_sort_plain(khs, zeros),
+        n * 20, n * 14 * 5, library=lambda: _argsort_lsd(torch, khs, zeros))
+    if timed:
+        _report("2w", f"seg_sort[rows] ({n} rows; yardstick two stable torch.argsort)",
+                dict(extra["seg_sort_rows"], max_abs_err=0.0))
+    # ---- K14 first, items
+    first = sess.session_first(order0, khash, active)
+    _assert_equal(torch, "session_items[first]", first, sess.session_first_plain(order0, khash, active))
+    n_first = int(first.sum())
+    done("session_items", "first", meas(
+        torch, "session_items", lambda: sess.session_first(order0, khash, active),
+        lambda: sess.session_first_plain(order0, khash, active), n * 13 + n, n * 6),
+        f"{n_first} first rows; no single PyTorch call")
+    it_args = (store, cap, S, khash, active, first, ts, c["reprs"], contribs, SESS_GAP_MS,
+               SESS_2W_GRACE_MS, scal)
+    items = sess.session_items(*it_args)
+    _assert_tree(torch, "session_items[items]", items, sess.session_items_plain(*it_args))
+    found = int((items["slot"][n:] != cap).sum())
+    alive = int(items["alive"].sum())
+    done("session_items", "items", meas(
+        torch, "session_items", lambda: sess.session_items(*it_args),
+        lambda: sess.session_items_plain(*it_args),
+        n * (19 + 8 * k + cb) + n_first * S * 17 + found * (16 + 8 * k + cb) + m * (29 + 8 * k + cb),
+        m * 40, plain_reps=5),
+        f"{m} items, S = {S}: {found} stored sessions found, {alive} alive; no single PyTorch call")
+    # ---- K13 on the items
+    perm = sess.seg_sort(items["kh"], items["start"])
+    _assert_equal(torch, "seg_sort[items]", perm, sess.seg_sort_plain(items["kh"], items["start"]))
+    done("seg_sort", "items", meas(
+        torch, "seg_sort", lambda: sess.seg_sort(items["kh"], items["start"]),
+        lambda: sess.seg_sort_plain(items["kh"], items["start"]), m * 20,
+        m * int(np.ceil(np.log2(m))) * 5, library=lambda: _argsort_lsd(torch, items["kh"], items["start"])),
+        f"{m} items; yardstick two stable torch.argsort")
+    # ---- K15
+    mg_args = (items, perm, n, S, SESS_GAP_MS, comps, cap)
+    merged = sess.session_merge(*mg_args)
+    want = sess.session_merge_plain(*mg_args)
+    sf = want["segfirst"].long()
+    for key in sess.MERGE_ITEM_KEYS + ("sess_ovf",):
+        _assert_tree(torch, f"session_merge.{key}", merged[key], want[key])
+    for key in sess.MERGE_SEG_KEYS:
+        g, w = merged[key], want[key]
+        pick = (lambda x: x[..., sf]) if key != "seg_comps" else (lambda xs: [x[sf] for x in xs])
+        _assert_tree(torch, f"session_merge.{key}[segfirst]", pick(g), pick(w))
+    require(not timed or int(want["sess_ovf"]) == 0,
+            f"2w: {int(want['sess_ovf'])} sessions over {S} slots")
+    nseg = int((want["segfirst"] == torch.arange(m, device=dev, dtype=torch.int32)).sum())
+    n_ins = int(want["ins_act"].sum())
+    run_len = torch.unique_consecutive(want["kh"], return_counts=True)[1]
+    done("session_merge", "session", meas(
+        torch, "session_merge", lambda: sess.session_merge(*mg_args),
+        lambda: sess.session_merge_plain(*mg_args),
+        m * (4 + 29 + 8 * k + cb) + m * (30 + 8 * k + cb + 19 + 8 * k) + nseg * (26 + 8 * k + cb) + 8,
+        m * 30, plain_reps=5),
+        f"{m} items, {nseg} segments, {n_ins} inserts, longest key run {int(run_len.max())} items; "
+        "no single PyTorch call")
+    # ---- K16 delete, K2, K16 write on two copies of the store
+    sk, sp = _clone(store), _clone(store)
+    snap = _clone(store)
+    sess.session_delete(sk, cap, merged)
+    sess.session_delete_plain(sp, cap, want)
+    _assert_tree(torch, "session_write[delete]", sk, sp)
+    n_del = int((~want["isrow"] & want["alive"]).sum())
+
+    def reset_delete():
+        for s in (sk, sp):
+            s["occ"].copy_(snap["occ"])
+            s["grave"].copy_(snap["grave"])
+
+    done("session_write", "delete", meas(
+        torch, "session_write", lambda: sess.session_delete(sk, cap, merged),
+        lambda: sess.session_delete_plain(sp, cap, want), m * 2 + n_del * 6 + 2, m * 3,
+        reset=reset_delete), f"{n_del} stored sessions merged away; no single PyTorch call")
+    reset_delete()
+    sess.session_delete(sk, cap, merged)
+    sess.session_delete_plain(sp, cap, want)
+    snap_del = _clone(sk)
+    z32 = torch.zeros(m, dtype=torch.int32, device=dev)
+    scratch = hs.init_scratch(cap, dev)
+    ins_args = (cap, merged["base"], merged["kh"], merged["rank"], merged["ins_reprs"], z32, merged["ins_act"])
+    ins_k = hs.probe_insert(sk, scratch, *ins_args)
+    ins_p = hs.probe_insert_plain(sp, *ins_args)
+    _assert_equal(torch, "probe_insert[session] slots", ins_k, ins_p)
+    _assert_tree(torch, "probe_insert[session] store", sk, sp)
+    # inserts that claim an empty slot (the others resolve on a slot, live or
+    # a grave, that holds their (khash, rank))
+    ins_slots = ins_p[want["ins_act"] & (ins_p != cap)].long()
+    n_new = int((~(snap_del["occ"][ins_slots] | snap_del["grave"][ins_slots])).sum())
+
+    def reset_insert():
+        for s in (sk, sp):
+            _restore(s, snap_del)
+
+    extra["probe_insert_session"] = meas(
+        torch, "probe_insert", lambda: hs.probe_insert(sk, scratch, *ins_args),
+        lambda: hs.probe_insert_plain(sp, *ins_args),
+        # every item's active flag and slot; an insert's base, kh, rank,
+        # key reprs and knull, its probe (occ, grave, khash, wstart) and its
+        # occ, grave, key and knull writes; a claim's khash and wstart
+        m * (1 + 4) + n_ins * ((24 + 8 * k) + 18 + (6 + 8 * k)) + n_new * 16, m * 20,
+        reset=reset_insert, plain_reps=5)
+    if timed:
+        _report("2w", f"probe_insert at the session shapes ({n_ins} inserts of {m} items, "
+                f"{n_new} claim a slot)",
+                dict(extra["probe_insert_session"], max_abs_err=0.0))
+    reset_insert()
+    hs.probe_insert(sk, scratch, *ins_args)
+    hs.probe_insert_plain(sp, *ins_args)
+    snap_ins = _clone(sk)
+    lanes_k = sess.session_write(sk, cap, merged, ins_k, scal)
+    lanes_p = sess.session_write_plain(sp, cap, want, ins_p, scal)
+    _assert_tree(torch, "session_write[write] lanes", lanes_k, lanes_p)
+    _assert_tree(torch, "session_write[write] store", sk, sp)
+    n_emit = int(lanes_p["mask"].sum())
+    n_tomb = int((lanes_p["mask"] & lanes_p["tombstone"]).sum())
+
+    def reset_write():
+        for s in (sk, sp):
+            _restore(s, snap_ins)
+
+    done("session_write", "write", meas(
+        torch, "session_write", lambda: sess.session_write(sk, cap, merged, ins_k, scal),
+        lambda: sess.session_write_plain(sp, cap, want, ins_p, scal),
+        m * (4 + 24 + 8 * k + cb) + nseg * (26 + 8 * k + cb) + 2 * m * (34 + 8 * k + cb)
+        + n_ins * (17 + cb) + 16, m * 20, reset=reset_write, plain_reps=5),
+        f"{2 * m} lanes, {n_emit} emitted ({n_tomb} tombstones), {n_ins} sessions written; "
+        "no single PyTorch call")
+    return (recs, extra) if timed else None
+
+
 # ------------------------------------------------------------------ main
 REPLACES = {
-    "row_prologue": "ksql_tpu/ops/hash_store.py:48 (mix64), :58 (combine_hash); ksql_tpu/runtime/lowering.py:3802 (pre_exchange), :2284 (_trace_table_step key hash); ksql_tpu/ops/window.py:63 (hopping_starts), :82 (expand)",
+    "row_prologue": "ksql_tpu/ops/hash_store.py:48 (mix64), :58 (combine_hash); ksql_tpu/runtime/lowering.py:3802 (pre_exchange), :2284 (_trace_table_step key hash), :3483 (pre_session_exchange key hash); ksql_tpu/ops/window.py:63 (hopping_starts), :82 (expand)",
     "probe_insert": "ksql_tpu/ops/hash_store.py:126 (probe_insert)",
     "fold_and_mark": "ksql_tpu/ops/hash_store.py:502 (scatter_combine), :567 (winners_per_slot)",
     "evict": "ksql_tpu/runtime/lowering.py:4239 (_trace_evict)",
@@ -2018,11 +2486,21 @@ REPLACES = {
     "ss_insert": "ksql_tpu/runtime/lowering.py:3052 (_trace_ss_step: running maxima, pads, admission, "
                  "ss_lost and the ring insert, :3104-3127 and :3169-3210)",
     "ss_expire": "ksql_tpu/runtime/lowering.py:3213 (_trace_ss_expire)",
+    "seg_sort": "ksql_tpu/runtime/lowering.py:3537 (post_session_exchange: the jnp.lexsort of the rows "
+                "and of the items, :3557 and :3618)",
+    "session_items": "ksql_tpu/runtime/lowering.py:3483 (pre_session_exchange: the late drop), :3537 "
+                     "(post_session_exchange: first_occ and the stored-session gather, :3557-3617)",
+    "session_merge": "ksql_tpu/runtime/lowering.py:3537 (post_session_exchange: the sort-apply, "
+                     "segmented scan, segment folds and rank, :3618-3715)",
+    "session_write": "ksql_tpu/runtime/lowering.py:3537 (post_session_exchange: the deletes, the store "
+                     "writes and the emission lanes, :3696-3799)",
 }
 #: the record each kernel's JSON entry carries; the other modes ride along
 MAIN_MODE = {"row_prologue": "tumbling", "evict": "tumbling", "combine_windows": "sliced",
              "sliced_fold": "sliced", "member_lanes": "sliced", "probe_find": "join",
-             "table_upsert": "join", "ss_match": "write", "ss_insert": "write", "ss_expire": "ss"}
+             "table_upsert": "join", "ss_match": "write", "ss_insert": "write", "ss_expire": "ss",
+             "seg_sort": "items", "session_items": "items", "session_merge": "session",
+             "session_write": "write"}
 
 
 def kernel_records(wrappers, recs) -> list:
@@ -2071,6 +2549,14 @@ def main() -> int:
     for name, modes in phase_ss_kernels(torch, args.seed).items():
         recs.setdefault(name, {}).update(modes)
     ss_s = time.perf_counter() - t_ss
+    with open("ksql_tpu_torch/plans/pv_sessions.json") as f:
+        sess_json = json.load(f)
+    # the session phases (2w, 11, 11g, 11b), timed together
+    t_sess = time.perf_counter()
+    sess_recs, sess_extra = phase_session_kernels(torch, sess_json, args.seed)
+    for name, modes in sess_recs.items():
+        recs.setdefault(name, {}).update(modes)
+    sess_s = time.perf_counter() - t_sess
     with open("ksql_tpu_torch/plans/pv_counts_tumbling.json") as f:
         plan_json = json.load(f)
     with open("ksql_tpu_torch/plans/pv_stats_hopping.json") as f:
@@ -2091,8 +2577,13 @@ def main() -> int:
     e2e["ss_join"] = phase_ss_e2e(torch, ss_json, args.seed)
     e2e["ss_growth"] = phase_ss_growth(torch, ss_json, args.seed)
     ss_s += time.perf_counter() - t_ss
+    t_sess = time.perf_counter()
+    e2e["session"], sess_head = phase_session_e2e(torch, sess_json, args.seed)
+    e2e["session_growth"] = phase_session_growth(torch, sess_json, args.seed, sess_head)
+    e2e["session_kernels_extra"] = sess_extra
+    sess_s += time.perf_counter() - t_sess
     require(sorted(PATH_LAUNCHES) == sorted(PATH_KERNELS), f"paths run: {sorted(PATH_LAUNCHES)}")
-    for w in wrappers:  # every kernel of K1-K12 is on some path, in every mode
+    for w in wrappers:  # every kernel of K1-K16 is on some path, in every mode
         for mode in w.__dict__.get("mode_launches", {"all": 0}):
             require(sum(PATH_LAUNCHES[p][w.__name__][mode] for p in PATH_LAUNCHES) > 0,
                     f"kernel {w.__name__}[{mode}] was launched on no path")
@@ -2107,9 +2598,13 @@ def main() -> int:
     t_ss = time.perf_counter()
     e2e["ss_breakdown"] = phase_breakdown(torch, _ss_head(torch, ss_json, args.seed), 4, "10b")
     ss_s += time.perf_counter() - t_ss
+    t_sess = time.perf_counter()
+    e2e["session_breakdown"] = phase_breakdown(torch, _session_head(torch, sess_json), 4, "11b")
+    sess_s += time.perf_counter() - t_sess
     kernels = kernel_records(wrappers, recs)
     print(f"e2e: {json.dumps(e2e)}")
-    print(f"total seconds {time.perf_counter() - t_start:.1f} (phases 2s, 10, 10g and 10b: {ss_s:.1f})")
+    print(f"total seconds {time.perf_counter() - t_start:.1f} (phases 2s, 10, 10g and 10b: {ss_s:.1f}; "
+          f"phases 2w, 11, 11g and 11b: {sess_s:.1f})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -23,7 +23,12 @@
 //      null-key bitmask (combine_hash([repr]), which is also what the
 //      stream side probes with), window 0, no grace cut; it reads no ts
 //      and writes only active, khash and base (ts, max_ts, wstart, knull
-//      and c0 may be null).
+//      and c0 may be null);
+//   4  session (runtime/lowering.py:pre_session_exchange): the hash
+//      combine_hash(reprs + [0]), whose last part is 0 whatever the key's
+//      validity, and active = active AND every key column valid; it reads
+//      no ts and writes only active and khash (the session step's own
+//      prologue, csrc/session_items.cu, does the late drop).
 // Then the probe's base slot and the watermark contribution c0.
 //
 // Bound: memory.  Per row it reads 9k+9 bytes and writes 33 per lane, about
@@ -92,6 +97,11 @@ __global__ void row_prologue_kernel(
     active_out[i] = act_row;
     khash[i] = static_cast<int64_t>(h);
     base[i] = static_cast<int32_t>(ksql::mix64(h) & static_cast<uint64_t>(mask));
+    return;
+  }
+  if (mode == 4) {  // session: the last part is 0, not the null bitmask
+    active_out[i] = act_row;
+    khash[i] = static_cast<int64_t>(ksql::mix64(h ^ ksql::kGold));
     return;
   }
   h = ksql::mix64(h ^ (static_cast<uint64_t>(static_cast<int64_t>(kn)) + ksql::kGold));

@@ -69,6 +69,21 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "ss_expire": {"ksql_ss_expire": [
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
         _I, _P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P]},
+    "seg_sort": {"ksql_seg_sort": [_P, _P, _I, _P, _P, _P]},
+    "session_items": {
+        "ksql_session_prologue": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P],
+        "ksql_session_first": [_P, _P, _P, _I, _P, _P],
+        "ksql_session_items": [
+            _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+            _P, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "session_merge": {"ksql_session_merge": [
+        _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, *[_P] * 20, _P]},
+    "session_write": {
+        "ksql_session_delete": [_P, _P, _I, _P, _P, _P, _I, _P],
+        "ksql_session_write": [
+            _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, *[_P] * 12, _P, _P, *[_P] * 6, _P],
+    },
 }
 KERNELS = tuple(SIGNATURES)
 

@@ -267,8 +267,9 @@ def row_prologue(key_reprs: torch.Tensor, key_valid: torch.Tensor,
 
 
 #: K1's modes by kernel code: ``tumbling`` also serves unwindowed plans,
-#: ``table`` (:func:`table_prologue`) hashes a join table's changelog keys
-ROW_PROLOGUE_MODES = ("tumbling", "sliced", "expansion", "table")
+#: ``table`` (:func:`table_prologue`) hashes a join table's changelog keys,
+#: ``session`` (:func:`session_prologue`) a session aggregation's group keys
+ROW_PROLOGUE_MODES = ("tumbling", "sliced", "expansion", "table", "session")
 row_prologue.launches = 0
 row_prologue.mode_launches = dict.fromkeys(ROW_PROLOGUE_MODES, 0)
 
@@ -315,6 +316,45 @@ def table_prologue(key_reprs: torch.Tensor, key_valid: torch.Tensor,
     return act, khash, base
 
 
+def session_prologue_plain(key_reprs, key_valid, active):
+    """Plain twin of K1's session mode — see :func:`session_prologue`."""
+    k = key_reprs.shape[0]
+    khash = combine_hash([key_reprs[i] for i in range(k)] + [torch.zeros_like(key_reprs[0])])
+    return active & key_valid.all(0), khash
+
+
+def session_prologue(key_reprs: torch.Tensor, key_valid: torch.Tensor, active: torch.Tensor):
+    """K1's session mode (replaces the key hash and null-key drop of
+    ``runtime/lowering.py:pre_session_exchange``): the group hash
+    ``combine_hash(reprs + [0])``, whose last part is 0 whatever the key's
+    validity, and the rows among ``active`` whose key columns are all
+    valid (a null-key row never reaches a session).  No window, grace cut,
+    base slot or watermark: the session step's own prologue
+    (``ops/session.py``) does the late drop.
+
+    Returns ``(active, khash)`` per row.  Counts on :func:`row_prologue`'s
+    counters (it is K1's fifth mode)."""
+    if not key_reprs.is_cuda:
+        return session_prologue_plain(key_reprs, key_valid, active)
+    k, n = key_reprs.shape
+    _expect(key_reprs, torch.int64, (k, n))
+    _expect(key_valid, torch.bool, (k, n))
+    _expect(active, torch.bool, (n,))
+    dev = active.device
+    act = torch.empty(n, dtype=torch.bool, device=dev)
+    khash = torch.empty(n, dtype=torch.int64, device=dev)
+    fn = cuda.lib("row_prologue")
+    cuda.check("row_prologue", fn(
+        key_reprs.data_ptr(), key_valid.data_ptr(), k, n, None,
+        active.data_ptr(), 4, 0, 0, 0, 0, 0, 1, None, 0, None,
+        None, None, act.data_ptr(), khash.data_ptr(), None, None,
+        _stream(dev),
+    ))
+    row_prologue.launches += 1
+    row_prologue.mode_launches["session"] += 1
+    return act, khash
+
+
 # ----------------------------------------------------- K2: probe_insert
 def probe_insert_plain(store, capacity, base, khash, wstart, key_reprs,
                        knull, active) -> torch.Tensor:
@@ -353,6 +393,8 @@ def probe_insert_plain(store, capacity, base, khash, wstart, key_reprs,
         done = done | winner
         # used-by-other: advance; claim losers re-examine the same slot
         offset = offset + (~done & active & c_used & ~c_match).to(torch.int32)
+        if not bool((active & ~done).any()):
+            break  # the later rounds change nothing (no row wins in them)
     _dump_khash(kh, ws, khash, wstart, won_round, dump)
     store["overflow"] += (active & ~done).sum()
     d = done.nonzero().squeeze(1)
@@ -622,6 +664,8 @@ def probe_find_plain(store, capacity, khash, wstart, active) -> torch.Tensor:
         slots = torch.where(newly, ci.to(torch.int32), slots)
         done = done | newly | ~c_used
         offset = offset + (~done & active).to(torch.int32)
+        if bool((done | ~active).all()):
+            break
     return torch.where(active, slots, torch.full_like(slots, dump))
 
 

@@ -37,7 +37,7 @@ def start_plan(plan_json: Dict[str, Any], broker: Broker, *, device=None,
                capacity: int = 4096, store_capacity: int = 1 << 17,
                sliced: Optional[bool] = None, slice_ring_max: int = 512,
                table_store_capacity: int = 1 << 16, ss_buffer_capacity: int = 2048,
-               ss_out_capacity: Optional[int] = None) -> QueryHandle:
+               ss_out_capacity: Optional[int] = None, session_slots: int = 4) -> QueryHandle:
     """Build the executor of the query ``plan_json`` (``plan_to_json``
     output) and a consumer of its source topics in ``broker``, sorted and
     from their start (topics that do not exist yet are created).
@@ -54,12 +54,15 @@ def start_plan(plan_json: Dict[str, Any], broker: Broker, *, device=None,
     ``max(ss_buffer_capacity, capacity)`` entries and writes at most
     ``ss_out_capacity`` matches a batch (default ``max(64, 2 * capacity)``);
     both grow.  Call ``drain`` once per tick: it closes the join's windows,
-    and ``flush_time`` past the last record closes the rest."""
+    and ``flush_time`` past the last record closes the rest.  A SESSION
+    aggregation tracks ``session_slots`` sessions per key at first (the
+    reference's default is 4); the count doubles when a batch needs more."""
     executor = TorchDeviceExecutor(
         plan_from_json(plan_json), broker, device=device, batch_size=capacity,
         store_capacity=store_capacity, sliced=sliced,
         slice_ring_max=slice_ring_max, table_store_capacity=table_store_capacity,
         ss_buffer_capacity=ss_buffer_capacity, ss_out_capacity=ss_out_capacity,
+        session_slots=session_slots,
     )
     for t in executor.source_topics:
         broker.create_topic(t)

@@ -55,6 +55,7 @@ class TorchDeviceExecutor:
         table_store_capacity: int = 1 << 16,
         ss_buffer_capacity: int = 2048,
         ss_out_capacity: Optional[int] = None,
+        session_slots: int = 4,
         on_error: Optional[Callable[[str, Exception], None]] = None,
     ):
         self.plan = plan
@@ -63,7 +64,7 @@ class TorchDeviceExecutor:
             plan, capacity=batch_size, store_capacity=store_capacity, device=device,
             sliced=sliced, slice_ring_max=slice_ring_max,
             table_store_capacity=table_store_capacity, ss_buffer_capacity=ss_buffer_capacity,
-            ss_out_capacity=ss_out_capacity,
+            ss_out_capacity=ss_out_capacity, session_slots=session_slots,
         )
         self.query.pipeline = batch_size > 1
         self.source_step = self.query.source

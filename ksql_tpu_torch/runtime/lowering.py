@@ -7,6 +7,9 @@ the plan shapes of this slice:
     chains) → Filter*/Select*] → [GroupBy → Aggregate (unwindowed,
     TUMBLING or HOPPING) → TableSelect*] → Sink
 
+    Source → Filter*/Select* → GroupBy → Aggregate (SESSION, EMIT
+    CHANGES) → TableSelect* → Sink
+
     (Source → Filter*/Select*/SelectKey*) x 2 → StreamStreamJoin (INNER,
     LEFT, RIGHT or FULL OUTER, WITHIN, with or without GRACE) →
     Filter*/Select* → Sink
@@ -25,27 +28,38 @@ ss_expire).  HOPPING aggregation takes the reference's two routes: stream
 slicing (one slice per row into a per-key ring of slice partials, a
 per-window monoid combine at emission; the default when eligible) and the
 k-fold expansion (``sliced=False``, or when slicing is ineligible, with
-the reference's reason in ``windowing_fallback``).  Every other shape raises
-:class:`DeviceUnsupported` at construction: session windows, FULL/RIGHT
-stream-table joins, an aggregation over a stream-stream join, table-table
-and foreign-key joins, flat-maps, PARTITION BY outside a join's input
-side, EMIT FINAL, HAVING, table aggregation, vector and arg-set
-aggregates, window families.
+the reference's reason in ``windowing_fallback``).  SESSION aggregation
+keeps each key's sessions in slots ``(key hash, rank)``: a batch's rows
+are sorted with the stored sessions of their keys and merged where they
+lie within the gap (K1's session mode, K13 seg_sort, K14 session_items,
+K15 session_merge, K16 session_write and K2); a batch that needs more
+than ``session_slots`` sessions for a key doubles them and starts again
+before it writes anything.  Every other shape raises
+:class:`DeviceUnsupported` at construction: SESSION windows over a join,
+FULL/RIGHT stream-table joins, an aggregation over a stream-stream join,
+table-table and foreign-key joins, flat-maps, PARTITION BY outside a
+join's input side, EMIT FINAL (over SESSION windows too), HAVING (over
+SESSION windows too), table aggregation, vector and arg-set aggregates,
+window families, pull queries.
 
 Where the reference traces one jitted step, the port runs eagerly: the
 expression phases are torch tensor ops, and the keyed store goes through
 the CUDA kernels of ``ops/hash_store.py`` (K1 row_prologue, K2
 probe_insert, K3 fold_and_mark, K4 evict, K8 probe_find, K9
 table_upsert), ``ops/slicing.py`` (K5 sliced_fold, K6 combine_windows,
-K7 member_lanes) and ``ops/ss_join.py`` (K10 ss_match, K11 ss_insert, K12
-ss_expire).  The stores are updated IN PLACE; every emitted lane is a
-fresh tensor (a K6, K8, K10 or K12 gather or a batch column), never a view
-of a store column, so a pipelined batch's emits stay valid while the next
-batch, or a table batch, mutates the stores.
+K7 member_lanes), ``ops/ss_join.py`` (K10 ss_match, K11 ss_insert, K12
+ss_expire) and ``ops/session.py`` (K13 seg_sort, K14 session_items, K15
+session_merge, K16 session_write).  The stores are updated IN PLACE;
+every emitted lane is a fresh tensor (a K6, K8, K10, K12 or K16 gather or
+a batch column), never a view of a store column, so a pipelined batch's
+emits stay valid while the next batch, or a table batch, mutates the
+stores (a session batch returns its emits at once: it is never
+pipelined).
 
 Semantics are the reference's, including its documented deltas from the
 row oracle: EMIT CHANGES coalesces to one change per key per micro-batch,
-and late-record grace is judged against the stream time at batch start.
+and late-record grace is judged against the stream time at batch start
+(for SESSION windows, against the running stream time in arrival order).
 """
 
 from __future__ import annotations
@@ -74,6 +88,7 @@ from ksql_tpu_torch.compiler.torch_expr import (
 from ksql_tpu_torch.execution import expressions as ex
 from ksql_tpu_torch.execution import steps as st
 from ksql_tpu_torch.ops import hash_store as hs
+from ksql_tpu_torch.ops import session as sess
 from ksql_tpu_torch.ops import slicing
 from ksql_tpu_torch.ops import ss_join as ssj
 from ksql_tpu_torch.ops import window as W
@@ -188,7 +203,7 @@ class TorchCompiledQuery:
                  store_capacity: int = 1 << 17, device=None,
                  sliced: Optional[bool] = None, slice_ring_max: int = 512,
                  table_store_capacity: int = 1 << 16, ss_buffer_capacity: int = 2048,
-                 ss_out_capacity: Optional[int] = None):
+                 ss_out_capacity: Optional[int] = None, session_slots: int = 4):
         self.device = resolve_device(device)
         self.plan = plan
         self.capacity = capacity
@@ -219,14 +234,24 @@ class TorchCompiledQuery:
         self.retention_ms: Optional[int] = None
         #: hopping windows expand each batch k-fold (the expansion route)
         self.expansion = 1
+        self.session = self.window is not None and self.window.window_type == WindowType.SESSION
+        if self.session and self.join is not None:
+            raise DeviceUnsupported("SESSION windows over a join on device")
+        #: concurrent sessions tracked per key (doubles on ``sess_ovf``), the
+        #: doublings, and the inactivity gap
+        self.session_slots = session_slots
+        self.session_grows = 0
+        self.gap_ms = self.window.gap_ms if self.session else 0
         if self.window is not None:
             wt = self.window.window_type
-            if wt not in (WindowType.TUMBLING, WindowType.HOPPING):
+            if wt not in (WindowType.TUMBLING, WindowType.HOPPING, WindowType.SESSION):
                 raise DeviceUnsupported(f"{wt.value} windows on device")
-            self.size_ms = self.window.size_ms
             grace = self.window.grace_ms
             self.grace_ms = grace if grace is not None else DEFAULT_GRACE_MS
-            # windowed-store retention (KS: max(explicit retention, size+grace))
+        if self.window is not None and not self.session:
+            self.size_ms = self.window.size_ms
+            # windowed-store retention (KS: max(explicit retention, size+grace));
+            # a session store has none (its sessions expire as they merge)
             self.retention_ms = max(self.window.retention_ms or 0, self.size_ms + self.grace_ms)
             if wt == WindowType.HOPPING:
                 self.advance_ms = self.window.advance_ms
@@ -441,10 +466,13 @@ class TorchCompiledQuery:
             c = TorchExprCompiler(probe, 0, "cpu")
             arg_types = [c.compile(a).sql_type for a in call.args]
             kind, result_type = resolve_udaf(call.function, arg_types)
+            device = compile_device_agg(kind, arg_types, result_type)
+            if self.session and any(comp.width > 1 for comp in device.components):
+                # the segment merge folds components pairwise; vector state
+                # has no pairwise combine
+                raise DeviceUnsupported(f"{call.function} over SESSION windows on device")
             self.agg_specs.append(_AggSpec(
-                call.function, tuple(call.args),
-                compile_device_agg(kind, arg_types, result_type),
-                f"KSQL_AGG_VARIABLE_{i}",
+                call.function, tuple(call.args), device, f"KSQL_AGG_VARIABLE_{i}",
             ))
         self.key_types = [c.type for c in self.agg.schema.key_columns]
         if len(self.key_types) > 16:
@@ -738,6 +766,10 @@ class TorchCompiledQuery:
 
     def _init_agg_state(self, dev) -> Dict[str, torch.Tensor]:
         state = hs.init_store(self.store_layout, dev)
+        if self.session:
+            # each slot is one session (khash, rank): its bounds
+            state["sess_start"] = torch.zeros(self.store_capacity + 1, dtype=torch.int64, device=dev)
+            state["sess_end"] = torch.zeros(self.store_capacity + 1, dtype=torch.int64, device=dev)
         if self.sliced:
             c1 = self.store_capacity + 1
             # absolute slice index per ring cell (-1 = empty): a combine
@@ -827,6 +859,8 @@ class TorchCompiledQuery:
             batch_max = torch.where(active, ts, torch.full_like(ts, _I64_MIN)).max()
             torch.maximum(state["max_ts"], batch_max, out=state["max_ts"])
             return emits
+        if self.session:
+            return self._session_step(arrays)
         return self.post_exchange(self.pre_exchange(arrays))
 
     def pre_exchange(self, arrays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -901,6 +935,106 @@ class TorchCompiledQuery:
             # host mirror of the stream clock (rides the load readback)
             emits["smax_ts"] = store["max_ts"].clone()
         return emits
+
+    # --------------------------------------------------- SESSION aggregation
+    def _session_step(self, arrays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One SESSION batch (the reference's ``_trace_session_step``): the
+        per-row phase, then the state-owning phase, which restarts itself
+        from the gather when the key's session slots run out."""
+        return self.post_session_exchange(self.pre_session_exchange(arrays))
+
+    def pre_session_exchange(self, arrays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Per-row phase of the SESSION step (the reference's
+        ``pre_session_exchange``): transforms, the group hash and null-key
+        drop (K1's session mode), the late drop against the running stream
+        time in arrival order (K14's prologue), the contributions
+        (component 0 the ts watermark).  A multi-chip path would cut here."""
+        n = self.capacity
+        env = self._source_env(arrays)
+        env, active = self._apply_ops(self.pre_ops, env, arrays["row_valid"], n)
+        ts = arrays["ts"]
+        key_cols = self._key_cols(env, n, ts.device)
+        reprs = torch.stack([_repr64(kc) for kc in key_cols]).contiguous()
+        valid = torch.stack([kc.valid for kc in key_cols]).contiguous()
+        active, khash = hs.session_prologue(reprs, valid, active.contiguous())
+        active, scal = sess.session_prologue(arrays["row_valid"], ts, active, self.state["max_ts"],
+                                             self.grace_ms, self.gap_ms)
+        contribs = [torch.where(active, ts, torch.full_like(ts, _I64_MIN))]
+        c = TorchExprCompiler(env, n, ts.device, self.dictionary)
+        for spec in self.agg_specs:
+            contribs.extend(spec.device.contribs([c.compile(e) for e in spec.arg_exprs], active))
+        return {"khash": khash, "ts": ts, "active": active, "scal": scal, "reprs": reprs,
+                "contribs": [x.contiguous() for x in contribs]}
+
+    def post_session_exchange(self, payload: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """State-owning phase of the SESSION step (the reference's
+        ``post_session_exchange``): the first active row per key (K13 on the
+        rows, K14 first); the stored sessions of those keys gathered (K14
+        items), sorted with the rows by (key, start) (K13) and merged (K15);
+        then, once ``sess_ovf`` (read with one sync) is 0, the deletes
+        (K16), the insert of the merged set (K2) and its write with the
+        emission lanes (K16).  On ``sess_ovf > 0`` nothing has been written:
+        ``session_slots`` doubles and the batch starts again from the
+        gather (the probe identities ``(khash, rank)`` stay valid)."""
+        store = self.state
+        cap = self.store_capacity
+        khash, ts, active = payload["khash"], payload["ts"], payload["active"]
+        scal, reprs, contribs = payload["scal"], payload["reprs"], payload["contribs"]
+        n = ts.shape[0]
+        khs = torch.where(active, khash, torch.zeros_like(khash))
+        order0 = sess.seg_sort(khs, torch.zeros_like(khs))
+        first_occ = sess.session_first(order0, khash, active)
+        comps = self.store_layout.components
+        while True:
+            S = self.session_slots
+            items = sess.session_items(store, cap, S, khash, active, first_occ, ts, reprs,
+                                       contribs, self.gap_ms, self.grace_ms, scal)
+            perm = sess.seg_sort(items["kh"], items["start"])
+            merged = sess.session_merge(items, perm, n, S, self.gap_ms, comps, cap)
+            if self._read_sess_ovf(merged) == 0:
+                break
+            # more concurrent sessions per key than tracked slots
+            self.session_slots *= 2
+            self.session_grows += 1
+        m = perm.shape[0]
+        sess.session_delete(store, cap, merged)
+        ins_slots = hs.probe_insert(
+            store, self.scratch, cap, merged["base"], merged["kh"], merged["rank"],
+            merged["ins_reprs"], torch.zeros(m, dtype=torch.int32, device=ts.device),
+            merged["ins_act"],
+        )
+        lanes = sess.session_write(store, cap, merged, ins_slots, scal)
+        mask = lanes["mask"]
+        nn = 2 * m
+        out_env: Dict[str, DCol] = {}
+        for k, col in enumerate(self.agg.schema.key_columns):
+            out_env[col.name] = DCol(decode_key64(lanes["keys"][k], torch_dtype(col.type)), mask,
+                                     col.type)
+        lane_comps = lanes["comps"]
+        for spec, start in zip(self.agg_specs, self._spec_comp_starts()):
+            data, valid = spec.device.finalize(
+                [lane_comps[start + t] for t in range(len(spec.device.components))])
+            out_env[spec.out_name] = DCol(data, valid & mask, spec.device.result_type)
+        out_ts = lane_comps[0]
+        ones = torch.ones(nn, dtype=torch.bool, device=ts.device)
+        out_env["ROWTIME"] = DCol(out_ts, ones, T.BIGINT)
+        out_env["WINDOWSTART"] = DCol(lanes["ws"], ones, T.BIGINT)
+        out_env["WINDOWEND"] = DCol(lanes["we"], ones, T.BIGINT)
+        out_env, mask = self._apply_ops(self.post_ops, out_env, mask, nn)
+        emits = self._pack_emits(out_env, mask, out_ts)
+        emits["tombstone"] = lanes["tombstone"]
+        emits["ord_a"] = lanes["ord_a"]
+        emits["ord_b"] = lanes["ord_b"]
+        emits["sess_ovf"] = merged["sess_ovf"]
+        emits["occupancy"] = (store["occ"] | store["grave"]).sum()
+        emits["graves"] = store["grave"].sum()
+        emits["overflow"] = store["overflow"].clone()
+        return emits
+
+    def _read_sess_ovf(self, merged: Dict[str, object]) -> int:
+        """The one host read of a session batch: how many merged sessions
+        did not fit the key's ``session_slots`` (syncs with the card)."""
+        return int(merged["sess_ovf"])
 
     def _spec_comp_starts(self) -> List[int]:
         """Starting store-component index of each aggregate spec
@@ -1326,7 +1460,9 @@ class TorchCompiledQuery:
             self._batches += 1
             if self.retention_ms is not None and self._batches % self.EVICT_INTERVAL == 0:
                 self._evict()
-        if self.pipeline:
+        if self.pipeline and not self.session:
+            # a session batch's emits return at once (the reference never
+            # pipelines sessions)
             emits, self._pending_emits = self._pending_emits, emits
             if emits is None:
                 return []
@@ -1419,6 +1555,7 @@ class TorchCompiledQuery:
         ts = host("emit_ts")
         ws = host("ws") if "ws" in emits else None
         we = host("we") if "we" in emits else None
+        tomb = host("tombstone") if "tombstone" in emits else None
         out: List[SinkEmit] = []
         key_names = [c.name for c in schema.key_columns]
         val_names = [c.name for c in schema.value_columns]
@@ -1429,8 +1566,11 @@ class TorchCompiledQuery:
                 # key passthrough of a null-key record: the oracle carries
                 # an empty key tuple, which the sink writes as a null key
                 key = ()
-            row = {kn: cols[kn][j] for kn in key_names}
-            row.update({vn: cols[vn][j] for vn in val_names})
+            if tomb is not None and tomb[j]:
+                row = None  # a session merged away
+            else:
+                row = {kn: cols[kn][j] for kn in key_names}
+                row.update({vn: cols[vn][j] for vn in val_names})
             window = (int(ws[j]), int(we[j])) if ws is not None else None
             out.append(SinkEmit(key, row, int(ts[j]), window))
         if not ordered:

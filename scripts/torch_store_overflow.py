@@ -19,8 +19,17 @@ cumulative ``overflow``.  ``chip_smoke.py`` phase 9g's sizes are
 ``--capacity 16384 --batch 4096``; phase 9's are ``--capacity 262144
 --batch 65536``.
 
+With ``--session`` it runs BASELINE #5's plan (``pv_sessions.json``) over
+``--batches`` batches of ``--batch`` records of ``chip_smoke.py``'s session
+traffic (bench.py's ``_pv_batches``) from a store of ``--capacity`` slots
+and ``--slots`` session slots, both growing by the reference's rules, and
+prints per batch the store's slots, grows, load, cumulative ``overflow``
+and the session slots.  ``chip_smoke.py`` phase 11g's sizes are
+``--capacity 16384 --batch 8192 --batches 8 --slots 4``.
+
     python3 scripts/torch_store_overflow.py --capacity 1048576 --batch 65536 --new 1.0 --seed 0
     python3 scripts/torch_store_overflow.py --table --users 100000 --capacity 16384 --batch 4096
+    python3 scripts/torch_store_overflow.py --session --capacity 16384 --batch 8192 --batches 8 --slots 4
 """
 
 import argparse
@@ -96,6 +105,31 @@ def load_table(args) -> None:
         }), flush=True)
 
 
+def load_sessions(args) -> None:
+    import chip_smoke
+    from ksql_tpu_torch.common.batch import HostBatch
+    from ksql_tpu_torch.execution.steps import plan_from_json
+    from ksql_tpu_torch.runtime.lowering import TorchCompiledQuery
+
+    with open(os.path.join(ROOT, "ksql_tpu_torch", "plans", "pv_sessions.json")) as f:
+        plan = plan_from_json(json.load(f))
+    n = args.batch
+    q = TorchCompiledQuery(plan, capacity=n, store_capacity=args.capacity, device=args.device,
+                           session_slots=args.slots)
+    url_idx, uid, ts = chip_smoke.session_traffic(args.batches, n)
+    for b in range(args.batches):
+        s = slice(b * n, (b + 1) * n)
+        rows = [{"URL": f"/page/{u}", "USER_ID": int(i), "VIEWTIME": int(t)}
+                for u, i, t in zip(url_idx[s].tolist(), uid[s].tolist(), ts[s].tolist())]
+        q.process(HostBatch.from_rows(q.source.schema, rows, timestamps=ts[s].tolist()))
+        print(json.dumps({
+            "batch": b, "slots": q.store_capacity, "grows": q.grows,
+            "load": round(int((q.state["occ"] | q.state["grave"]).sum()) / q.store_capacity, 4),
+            "overflow": int(q.state["overflow"]), "session_slots": q.session_slots,
+            "session_restarts": q.session_grows,
+        }), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--capacity", type=int, default=1 << 20, help="(first) store slots")
@@ -108,8 +142,11 @@ def main() -> None:
     ap.add_argument("--users", type=int, default=100_000, help="--table: distinct keys")
     ap.add_argument("--query-batch", type=int, default=1 << 16,
                     help="--table: the query's batch capacity (the load check's headroom)")
+    ap.add_argument("--session", action="store_true", help="run BASELINE #5's session plan")
+    ap.add_argument("--batches", type=int, default=8, help="--session: batches")
+    ap.add_argument("--slots", type=int, default=4, help="--session: first session slots")
     args = ap.parse_args()
-    (load_table if args.table else fill_store)(args)
+    (load_sessions if args.session else load_table if args.table else fill_store)(args)
 
 
 if __name__ == "__main__":

@@ -88,7 +88,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         plan = json.load(f)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_plan(plan, Broker())
-    for name in ("enriched_join.json", "ss_join_grace.json"):
+    for name in ("enriched_join.json", "ss_join_grace.json", "pv_sessions.json"):
         with open(os.path.join(PKG, "plans", name)) as f:
             join_plan = json.load(f)
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -9,9 +9,12 @@ fixture.  Run them on the card with
 Ints, bools, hashes and slots must be equal; float64 sums agree to rtol
 1e-12 (atomic fold order is not fixed).  The sliced stores come from
 ``chip_smoke.make_sliced_case``, the stream-stream join steps from
-``chip_smoke.make_ss_case``: the generators of the chip check's own
-kernel phases.
+``chip_smoke.make_ss_case``, the session steps from
+``chip_smoke.make_session_case`` (checked by phase 2w's own chain): the
+generators of the chip check's own kernel phases.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ import torch
 
 import chip_smoke
 from ksql_tpu_torch.ops import hash_store as hs
+from ksql_tpu_torch.ops import session as sess
 from ksql_tpu_torch.ops import slicing
 from ksql_tpu_torch.ops import ss_join as ssj
 
@@ -405,3 +409,84 @@ def test_ss_expire_kernel_matches_twin(dev, deferred):
     _same_tree(outs[0], outs[1])
     _same_tree(rings[0], rings[1])
     assert bool(outs[1]["mask"].any()) == deferred
+
+
+# ------------------------------------------------- session (K1, K13-K16)
+def test_session_mode_kernel_matches_twin(dev):
+    # tolerance: exact (the hash bits and the active mask)
+    reprs, valid, _ts, active, _max_ts = _prologue_inputs(dev, 5000, 2, 9)
+    modes = dict(hs.row_prologue.mode_launches)
+    got = hs.session_prologue(reprs, valid, active)
+    assert hs.row_prologue.mode_launches == {**modes, "session": modes["session"] + 1}
+    _same_tree(got, hs.session_prologue_plain(reprs, valid, active))
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 70_000])
+def test_seg_sort_kernel_matches_twin(dev, n):
+    # tolerance: exact (the permutation; equal key pairs keep index order)
+    rng = np.random.default_rng(n)
+    k1 = torch.from_numpy(rng.choice(np.array([I64.min, -1, 0, 1, 1 << 62, I64.max]), n)).to(dev)
+    k2 = torch.from_numpy(rng.integers(-3, 3, n)).to(dev)
+    before = sess.seg_sort.launches
+    got = sess.seg_sort(k1, k2)
+    assert sess.seg_sort.launches == before + 1
+    _same(got, sess.seg_sort_plain(k1, k2))
+
+
+@pytest.mark.parametrize("n,slots", [(2048, 8), (1024, 2)])
+def test_session_kernels_match_twins(dev, n, slots):
+    # tolerance: exact (every item column, every segment value read through
+    # segfirst, every emission lane, the whole store and its dump slot);
+    # chip_smoke's phase 2w chain at a smaller store, on its own case
+    with open("ksql_tpu_torch/plans/pv_sessions.json") as f:
+        plan = json.load(f)
+    case = chip_smoke.make_session_case(torch, plan, 3, dev, n=n, store=1 << 14, slots=slots, warm=4)
+    before = {w.__name__: w.launches for w in sess.KERNEL_WRAPPERS}
+    chip_smoke.phase_session_kernels(torch, plan, 3, case=case, timed=False)
+    assert all(w.launches > before[w.__name__] for w in sess.KERNEL_WRAPPERS)
+
+
+@pytest.mark.parametrize("ncomp,k", [(2, 1), (4, 2), (6, 3)])
+def test_session_merge_kernel_matches_twin_at_each_width(dev, ncomp, k):
+    # tolerance: exact (every sorted item column, and every segment value
+    # read through segfirst; float64 sums add in item order on both sides).
+    # Up to 4 components and 2 keys K15 folds in registers, wider in local
+    # memory: both variants run here, on long runs of few keys.
+    rng = np.random.default_rng(100 * ncomp + k)
+    n, slots, gap, cap = 512, 3, 1_000, 1 << 12
+    m = n * (slots + 1)
+    pool = np.array([-5, 3, 1 << 62, (1 << 62) + 7, I64.max - 1], dtype=np.int64)
+    kh = pool[rng.integers(0, pool.size, m)]
+    start = rng.integers(0, 2_000_000, m)
+    specs = [("add", "int64", 0), ("min", "int32", 2**31 - 1), ("max", "float64", -np.inf),
+             ("add", "float64", 0.0), ("min", "float64", np.inf), ("max", "int32", -(2**31))][:ncomp]
+    comps, cols = [], []
+    for combine, dtype, init in specs:
+        comps.append(hs.AggComponent(combine, dtype, init))
+        if dtype == "float64":
+            v = rng.normal(size=m) * 1e3
+            v[rng.random(m) < 0.05] = np.nan
+            v[rng.random(m) < 0.05] = -0.0
+            v[rng.random(m) < 0.05] = 0.0
+        else:
+            v = rng.integers(-1000, 1000, m).astype(dtype)
+        cols.append(torch.from_numpy(v).to(dev))
+    items = {
+        "kh": torch.from_numpy(kh).to(dev), "start": torch.from_numpy(start).to(dev),
+        "end": torch.from_numpy(start + rng.integers(0, 2 * gap, m)).to(dev),
+        "alive": torch.from_numpy(rng.random(m) < 0.8).to(dev),
+        "slot": torch.from_numpy(rng.integers(0, cap + 1, m).astype(np.int32)).to(dev),
+        "reprs": torch.from_numpy(rng.integers(-50, 50, (k, m))).to(dev), "comps": cols,
+    }
+    perm = sess.seg_sort_plain(items["kh"], items["start"])
+    before = sess.session_merge.launches
+    got = sess.session_merge(items, perm, n, slots, gap, comps, cap)
+    assert sess.session_merge.launches == before + 1
+    want = sess.session_merge_plain(items, perm, n, slots, gap, comps, cap)
+    for key in sess.MERGE_ITEM_KEYS + ("sess_ovf",):
+        _same_tree(got[key], want[key])
+    sf = want["segfirst"].long()
+    for key in sess.MERGE_SEG_KEYS:
+        pick = (lambda xs: [x[sf] for x in xs]) if key == "seg_comps" else (lambda x: x[..., sf])
+        _same_tree(pick(got[key]), pick(want[key]))
+    assert int(want["sess_ovf"]) > 0

@@ -275,8 +275,10 @@ UNSUPPORTED = {
     "hopping_emit_final": "CREATE TABLE C AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
                           "WINDOW HOPPING (SIZE 1 HOUR, ADVANCE BY 20 MINUTES, GRACE PERIOD 0 SECONDS) "
                           "GROUP BY URL EMIT FINAL;",
+    # SESSION windows run on the port (tests/test_torch_session.py); HAVING
+    # over them stays refused, as the reference refuses it
     "session": "CREATE TABLE C AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
-               "WINDOW SESSION (5 MINUTES) GROUP BY URL;",
+               "WINDOW SESSION (5 MINUTES) GROUP BY URL HAVING COUNT(*) > 1;",
     "emit_final": "CREATE TABLE C AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
                   "WINDOW TUMBLING (SIZE 1 HOUR, GRACE PERIOD 0 SECONDS) GROUP BY URL EMIT FINAL;",
     "having": "CREATE TABLE C AS SELECT USER_ID, COUNT(*) AS CNT FROM PAGE_VIEWS "

@@ -2,13 +2,14 @@
 
 ``ksql_tpu_torch/plans/pv_counts_tumbling.json`` (BASELINE #1),
 ``pv_stats_hopping.json`` (BASELINE #2), ``enriched_join.json``
-(BASELINE #3) and ``ss_join_grace.json`` (BASELINE #4) are the serialized
-physical plans that ``chip_smoke.py`` runs (the port has no SQL front end
-yet): each must equal ``plan_to_json`` of the plan the reference engine
-builds from the bench's DDL (``bench.py``'s tumbling COUNT(*) and hopping
-SUM/AVG/MIN/MAX over the page-view stream, its clicks-users LEFT JOIN and
-its stream-stream LEFT JOIN with GRACE), and the port's decoder must read
-it back to the same JSON.
+(BASELINE #3), ``ss_join_grace.json`` (BASELINE #4) and ``pv_sessions.json``
+(BASELINE #5) are the serialized physical plans that ``chip_smoke.py``
+runs (the port has no SQL front end yet): each must equal ``plan_to_json``
+of the plan the reference engine builds from the bench's DDL
+(``bench.py``'s tumbling COUNT(*) and hopping SUM/AVG/MIN/MAX over the
+page-view stream, its clicks-users LEFT JOIN, its stream-stream LEFT JOIN
+with GRACE and its SESSION COUNT(*)), and the port's decoder must read it
+back to the same JSON.
 """
 
 import json
@@ -43,6 +44,11 @@ CTAS = {
         "LEFT JOIN RIGHTS R WITHIN 10 SECONDS GRACE PERIOD 1 SECOND "
         "ON L.ID = R.ID EMIT CHANGES;"
     ),
+    # bench.py:674-675, bench_session
+    "pv_sessions.json": (
+        "CREATE TABLE SESSIONS AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
+        "WINDOW SESSION (30 SECONDS) GROUP BY URL EMIT CHANGES;"
+    ),
 }
 #: the DDL each plan's query reads (bench.py:149, :541-546)
 DDL = {
@@ -54,13 +60,15 @@ DDL = {
         "CREATE STREAM CLICKS (USER_ID BIGINT, URL STRING) "
         "WITH (KAFKA_TOPIC='clicks', VALUE_FORMAT='JSON');",
     ],
+    "pv_sessions.json": [bench.PV_DDL],
     "ss_join_grace.json": [
         "CREATE STREAM LEFTS (ID BIGINT KEY, V BIGINT) WITH (KAFKA_TOPIC='lt', VALUE_FORMAT='JSON');",
         "CREATE STREAM RIGHTS (ID BIGINT KEY, V BIGINT) WITH (KAFKA_TOPIC='rt', VALUE_FORMAT='JSON');",
     ],
 }
 SINKS = {"pv_counts_tumbling.json": "PV_COUNTS", "pv_stats_hopping.json": "PV_STATS",
-         "enriched_join.json": "ENRICHED", "ss_join_grace.json": "J"}
+         "enriched_join.json": "ENRICHED", "ss_join_grace.json": "J",
+         "pv_sessions.json": "SESSIONS"}
 
 
 def _committed(name):
@@ -111,3 +119,11 @@ def test_ss_join_plan_file_equals_reference_engine_plan():
 
 def test_port_decodes_ss_join_plan_file_losslessly():
     _check_decodes("ss_join_grace.json")
+
+
+def test_session_plan_file_equals_reference_engine_plan():
+    _check_equals_reference("pv_sessions.json")
+
+
+def test_port_decodes_session_plan_file_losslessly():
+    _check_decodes("pv_sessions.json")
