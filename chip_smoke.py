@@ -64,8 +64,8 @@ Phases, in this order; any failure exits non-zero and prints no result:
 9. BASELINE #3 end to end (``ksql_tpu_torch/plans/enriched_join.json``,
    CLICKS LEFT JOIN USERS WHERE REGION <> 'excluded') through
    ``start_plan``/``run_until_quiescent``: 100,000 USERS into a 2^18-slot
-   table store, 16 x 65,536 CLICKS, then 8 more batches with 4,096 USERS
-   changes before every fourth; the sink must equal a dict join replayed
+   table store, 8 x 65,536 CLICKS, then 4 more batches with 4,096 USERS
+   changes before every second; the sink must equal a dict join replayed
    in the executor's order, record for record, with no overflow.
 9g. Table growth: the users in ticks of 4,096 into a 2^14-slot table
    store, which must double to 2^18 while they load; then one click batch
@@ -110,15 +110,52 @@ Phases, in this order; any failure exits non-zero and prints no result:
 11g. Both growths: phase 11's first 8 batches with 4 session slots (the
    reference's default) and a 2^14-slot store: the slots must reach 32, the
    store must grow, and the sink must equal phase 11's.
+2f. The EMIT FINAL and HAVING kernels against their twins at the
+   flagship's shapes (a 65,536-row batch with 2% late rows, its 65,536
+   tumbling lanes and 196,608 k = 3 hopping lanes; a 2^20-slot store 70%
+   full, 20% of it dirty and 5% emitted, windows whose close and horizon
+   fall before, inside and after the batch's stream times): K1 without its
+   grace cut, K17 suppress_clock on both lane layouts, K18 suppress_close,
+   K19 having_verdict and K4's suppress mode; then K17 and K18 at the
+   shapes the main paths give them: phase 12h's (16,384 rows, 15 min
+   advance, 65,536 k = 4 lanes) and phase 12g's (2^20 rows, tumbling); all
+   exact.  No single PyTorch call computes any of them, so there is no
+   yardstick.
+12. BASELINE #1 with EMIT FINAL (``ksql_tpu_torch/plans/pv_counts_final.json``,
+   no grace) through ``run_plan`` over phase 3's traffic, then
+   ``flush_time(last ts + 1 h)``: the sink must equal a numpy model of the
+   reference's rule (a window emits in the batch whose stream times first
+   reach its close if one of them is within its horizon, is evicted
+   unemitted otherwise, and the flush emits the windows still open), each
+   window once, by window start then first touch.  Prints events/s and
+   the p50/p99 of the batches that close windows and of those that do not,
+   and the run's breakdown (12b: the plan is never pipelined, so the
+   breakdown's synchronized device steps change no overlap).
+12g. EMIT FINAL growth: phase 4's 48 h traffic shape in 1,310,720 records
+   (a 2^20-row batch, then a quarter batch) from a 2^20-slot store: K4's
+   suppress mode, a compaction and a grow to 2^21 that carries ``born``
+   and ``emitted``; the sink must equal the numpy model.
+12h. BASELINE #2 with EMIT FINAL (``pv_stats_hopping_final.json``) over
+   phase 8's traffic on the expansion route (the reference's reason),
+   then a flush: the sink must equal the port's CPU run, each window once.
+13. ksqlDB's possible_fraud query (``possible_fraud.json``, HAVING
+   COUNT(*) > 3 per URL and minute) over phase 3's traffic with USER_ID
+   drawn as bench.py does: the sink must equal a numpy count, no
+   tombstone.
+13r. A HAVING verdict that flips both ways (``pv_having_retract.json``,
+   AVG(USER_ID) > 500) on the first 4 batches of the same traffic:
+   retraction tombstones, and the sink equal to the port's CPU run over
+   the same batches.
 5. Launch counters, per path: the counts (per kernel, and per mode for K1,
-   K4, K6, K10, K11, K14 and K16) are set to 0 just before each of phases
-   3, 4, 6, 7, 8, 9, 9g, 10, 10g, 11 and 11g drives the runner on the card
-   and read just after it; each phase must have launched every kernel of
-   its route in the route's modes (``PATH_KERNELS``), and no kernel or
-   mode outside it.  Then short profiled re-runs split a batch's time into
+   K4, K6, K10, K11, K14, K16 and K17) are set to 0 just before each of
+   phases 3, 4, 6, 7, 8, 9, 9g, 10, 10g, 11, 11g, 12, 12g, 12h, 13 and 13r
+   drives the runner on the card (and, for 12-12h, its flush) and read
+   just after it; each phase must have launched every kernel of its route
+   in the route's modes (``PATH_KERNELS``), and no kernel or mode outside
+   it.  Then short profiled re-runs split a batch's time into
    host stages and the card's busy share, for the flagship (3b), BASELINE
    #2 (6b), BASELINE #3 (9b), BASELINE #4 (10b) and BASELINE #5 (11b, with
-   the share of its one ``sess_ovf`` read).
+   the share of its one ``sess_ovf`` read); phase 12 carries its own (12b).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON record, and the line before that the card's name and
@@ -205,6 +242,9 @@ KERNEL_FUNCS = {
     "session_items": ("prologue_kernel", "first_kernel", "items_kernel"),
     "session_merge": ("permute_kernel", "runs_kernel", "finish_kernel"),
     "session_write": ("delete_kernel", "write_kernel", "dump_kernel"),
+    "suppress_clock": ("clock_kernel",),
+    "suppress_close": ("born_kernel", "close_kernel"),
+    "having_verdict": ("verdict_kernel", "dump_kernel"),
 }
 
 
@@ -1305,6 +1345,12 @@ _SS = {"ss_match": ("count", "write"), "ss_insert": ("prologue", "write"), "ss_e
 _SESSION = {"row_prologue": "session", "seg_sort": None,
             "session_items": ("prologue", "first", "items"), "session_merge": None,
             "session_write": ("delete", "write"), "probe_insert": None}
+#: EMIT FINAL: K1 without its grace cut, K17, K2, K3 and K18 per batch; K6
+#: gathers the windows a batch or the flush closes
+_FINAL = {"row_prologue": "tumbling", "suppress_clock": "tumbling", "probe_insert": None,
+          "fold_and_mark": None, "suppress_close": None, "combine_windows": "gather"}
+#: HAVING retraction: the tumbling path, and K19 per batch
+_HAVING = {**_TUMBLING, "having_verdict": None}
 PATH_KERNELS = {
     "3": _TUMBLING,
     "4": {**_TUMBLING, "evict": "tumbling"},
@@ -1317,6 +1363,11 @@ PATH_KERNELS = {
     "10g": _SS,
     "11": _SESSION,
     "11g": _SESSION,
+    "12": _FINAL,
+    "12g": {**_FINAL, "evict": "suppress"},
+    "12h": {**_FINAL, "row_prologue": "expansion", "suppress_clock": "expansion"},
+    "13": _HAVING,
+    "13r": _HAVING,
 }
 #: per phase, each kernel's launches in that phase's card run, by mode
 PATH_LAUNCHES: dict = {}
@@ -1327,9 +1378,10 @@ def _wrappers():
     from ksql_tpu_torch.ops import session
     from ksql_tpu_torch.ops import slicing
     from ksql_tpu_torch.ops import ss_join
+    from ksql_tpu_torch.ops import suppress
 
     return (hs.KERNEL_WRAPPERS + slicing.KERNEL_WRAPPERS + ss_join.KERNEL_WRAPPERS
-            + session.KERNEL_WRAPPERS)
+            + session.KERNEL_WRAPPERS + suppress.KERNEL_WRAPPERS)
 
 
 def zero_launches() -> None:
@@ -1385,14 +1437,16 @@ def _timed_batches(torch, batch_seconds):
 
 
 def run_main_path(torch, plan_json, url_idx, ts, device, store, batch_seconds=None, rows=None,
-                  user_ids=None, path=None, **run_kw):
+                  user_ids=None, path=None, finish=None, **run_kw):
     """``run_plan`` over freshly produced page-view records (``run_kw``:
-    ``sliced``).  With a ``batch_seconds`` list, each micro-batch
-    (assembly, encode, device step, emit decode, produce) is timed on the
-    host clock up to a ``torch.cuda.synchronize()``.  With a ``path`` (a
-    phase of ``PATH_KERNELS``), the launch counts are set to 0 just before
-    ``run_plan`` and read just after it into ``PATH_LAUNCHES[path]``, and
-    every kernel of the path must have launched."""
+    ``sliced``), then ``finish(executor)`` when given (an EMIT FINAL
+    query's ``flush_time``).  With a ``batch_seconds`` list, each
+    micro-batch (assembly, encode, device step, emit decode, produce) is
+    timed on the host clock up to a ``torch.cuda.synchronize()``.  With a
+    ``path`` (a phase of ``PATH_KERNELS``), the launch counts are set to 0
+    just before ``run_plan`` and read just after it (and ``finish``) into
+    ``PATH_LAUNCHES[path]``, and every kernel of the path must have
+    launched."""
     from ksql_tpu_torch.runner import run_plan
     from ksql_tpu_torch.runtime.topics import Broker
 
@@ -1405,6 +1459,8 @@ def run_main_path(torch, plan_json, url_idx, ts, device, store, batch_seconds=No
         t0 = time.perf_counter()
         ex = run_plan(plan_json, broker, device=device, capacity=rows or N_ROWS,
                       store_capacity=store, **run_kw)
+        if finish is not None:
+            finish(ex)
         if device != "cpu":
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -1670,9 +1726,11 @@ def phase_hop_long(torch, plan_json, seed):
 
 
 # ------------------------------------------------------------- phase 9
-JOIN_BATCHES = 16
-#: the second part: stream batches with USERS changes before every fourth
-JOIN_CHANGE_BATCHES = 8
+JOIN_BATCHES = 8  # cut from 16 to keep the whole script inside its time
+#: the second part: stream batches with USERS changes before every
+#: JOIN_CHANGE_EVERY-th (cut from 8 batches, a change before every fourth)
+JOIN_CHANGE_BATCHES = 4
+JOIN_CHANGE_EVERY = 2
 JOIN_CHANGES = 4096
 #: phase 9g: users arrive in ticks of GROW_TICK records into a table store
 #: of GROW_STORE slots, which doubles four times to JOIN_STORE (sizes and
@@ -1754,9 +1812,9 @@ def user_changes(rng, users, n, next_key):
 def phase_join_e2e(torch, plan_json, seed):
     """BASELINE #3 end to end through ``start_plan``/``run_until_quiescent``
     at ``bench.py:534``'s widths: 100,000 USERS (REGION r{k % 50}) into a
-    2^18-slot table store, then 16 x 65,536 CLICKS (USER_ID
+    2^18-slot table store, then JOIN_BATCHES (8) x 65,536 CLICKS (USER_ID
     uniform in 0..199,999, URL /u/{uid % 997}); then JOIN_CHANGE_BATCHES
-    (8) more stream batches with 4,096 USERS changes before every fourth.  The
+    (4) more stream batches with 4,096 USERS changes before every second.  The
     sink must equal a dict join replayed in the executor's order, record
     for record, and nothing may overflow."""
     from ksql_tpu_torch.runner import run_until_quiescent, start_plan
@@ -1790,7 +1848,7 @@ def phase_join_e2e(torch, plan_json, seed):
         next_key, t, changes = JOIN_USERS, int(ts[-1]), 0
         t1 = time.perf_counter()
         for b in range(change_batches):
-            if b % 4 == 0:
+            if b % JOIN_CHANGE_EVERY == 0:
                 ids, regions, next_key = user_changes(rng, users, JOIN_CHANGES, next_key)
                 produce_users(broker, ids, regions, t)
                 run_until_quiescent(h)
@@ -2471,11 +2529,508 @@ def phase_session_kernels(torch, plan_json, seed, case=None, timed=True):
 
 
 # ------------------------------------------------------------------ main
+# ------------------------------------------------------ phase 2f, 12-13r
+FINAL_GRACE_MS = 10 * 60_000  # phase 2f's grace: windows close 10 min after their end
+FINAL_RETENTION_MS = 3 * HOUR_MS  # phase 2f's horizon: 3 h past the window start
+FINAL_ADVANCE_MS = 20 * 60_000  # phase 2f's expansion lanes: 1 h windows, k = 3
+HOP_ADVANCE_MS = 15 * 60_000  # BASELINE #2's advance (pv_stats_hopping_final.json): k = 4
+FINAL_GROW_ROWS = 1 << 20  # phase 12g's batch (see phase_final_growth)
+FINAL_GROW_RECORDS = (1 << 20) + (1 << 18)  # a full batch, then a quarter batch
+HAVING_MIN_MS = 60_000  # possible_fraud's window
+HAVING_RETRACT_BATCHES = 4  # phase 13r's depth, on the card and in the CPU run
+PV_STEP_MS = 17  # bench.py:139: phases 12 and 13 space their records as phase 3 does
+
+
+def make_suppress_case(torch, rng, dev, n=N_ROWS, capacity=STORE, advance=FINAL_ADVANCE_MS):
+    """Phase 2f's inputs: a batch of ``n`` rows 17 ms apart with 2% of them
+    up to 90 min late and 1% padding, its tumbling lanes and its k = 1 h /
+    ``advance`` hopping lanes (with 10% inactive); a ``capacity``-slot EMIT
+    FINAL store 70% full, 20% of the occupied slots dirty and 5% emitted,
+    whose window starts put their close (end + 10 min) and horizon (start +
+    3 h) before, inside and after the batch's stream times; the rows' slots
+    and the hopping lanes' slots (10% of each overflowed into the dump
+    slot); and, when the store holds ``n`` live slots, HAVING verdicts and
+    a HAVING lane set (one masked lane per slot, 60% masked)."""
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.ops import window as W
+
+    t0 = TS0 + 5 * HOUR_MS
+    ts_np = t0 + np.arange(n, dtype=np.int64) * 17
+    late = rng.random(n) < 0.02
+    ts_np[late] -= rng.integers(0, 90 * 60_000, int(late.sum()))
+    row_valid_np = rng.random(n) > 0.01
+    ts = torch.from_numpy(ts_np).to(dev)
+    row_valid = torch.from_numpy(row_valid_np).to(dev)
+    act_rows = row_valid & torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    tws = ts - torch.remainder(ts, HOUR_MS)
+    hws, in_win = W.hopping_starts(ts, HOUR_MS, advance)
+    hact = W.expand(act_rows, HOUR_MS // advance) & in_win
+    c1 = capacity + 1
+    occ = rng.random(c1) < 0.7
+    occ[-1] = False
+    dirty = occ & (rng.random(c1) < 0.2)
+    emitted = occ & (rng.random(c1) < 0.05)
+    wst = (t0 - t0 % HOUR_MS) + rng.integers(-5, 3, c1) * HOUR_MS
+    born = np.where(occ, rng.integers(0, 1 << 40, c1), np.iinfo(np.int64).max)
+    layout = hs.StoreLayout(capacity, 1, (
+        hs.AggComponent("max", "int64", np.iinfo(np.int64).min),
+        hs.AggComponent("add", "int64", 0),
+    ), windowed=True)
+    store = {k: v.to(dev) for k, v in hs.init_store(layout, "cpu").items()}
+    for name, arr in (("occ", occ), ("dirty", dirty), ("emitted", emitted), ("wstart", wst),
+                      ("born", born)):
+        store[name] = torch.from_numpy(arr).to(dev)
+    store["grave"] = torch.from_numpy(~occ & (rng.random(c1) < 0.05)).to(dev)
+    store["a0"] = torch.from_numpy(np.where(occ, wst + rng.integers(0, HOUR_MS, c1),
+                                            np.iinfo(np.int64).min)).to(dev)
+    store["a1"] = torch.from_numpy(np.where(occ, rng.integers(1, 1000, c1), 0)).to(dev)
+    store["max_ts"].fill_(t0 - 30 * 60_000)
+    store["emit_clock"] = torch.tensor(t0 - 60_000, dtype=torch.int64, device=dev)
+    store["row_clock"] = torch.tensor(1 << 30, dtype=torch.int64, device=dev)
+    live = np.nonzero(occ)[0]
+    slots_np = rng.choice(live, n).astype(np.int32)
+    slots_np[rng.random(n) < 0.1] = capacity
+    case = dict(ts=ts, row_valid=row_valid, act_rows=act_rows, tws=tws, hws=hws.contiguous(),
+                hact=hact.contiguous(), layout=layout, store=store,
+                slots=torch.from_numpy(slots_np).to(dev))
+    if n <= live.size:
+        winners = rng.choice(live, n, replace=False).astype(np.int32)
+        mask_np = rng.random(n) < 0.6
+        hslots = np.where(mask_np, winners, rng.choice(live, n).astype(np.int32))
+        hslots[~mask_np & (rng.random(n) < 0.3)] = capacity
+        case.update(
+            hpass=torch.from_numpy(rng.random(c1) < 0.5).to(dev),
+            hslots=torch.from_numpy(hslots).to(dev), hmask=torch.from_numpy(mask_np).to(dev),
+            hdata=torch.from_numpy(rng.random(n) < 0.5).to(dev),
+            hvalid=torch.from_numpy(rng.random(n) > 0.05).to(dev))
+    lane_slots = rng.choice(live, hact.shape[0]).astype(np.int32)
+    lane_slots[rng.random(hact.shape[0]) < 0.1] = capacity
+    case["hop_slots"] = torch.from_numpy(lane_slots).to(dev)
+    return case
+
+
+def _check_suppress_clock(torch, c, mode, grace):
+    """K17 on ``c``'s tumbling (``mode`` "tumbling") or hopping lanes
+    against its twin, exact; returns its outputs, its measure record and
+    what it saw."""
+    from ksql_tpu_torch.ops import suppress as sup
+
+    ws, act = (c["tws"], c["act_rows"]) if mode == "tumbling" else (c["hws"], c["hact"])
+    store = c["store"]
+    args = (c["ts"], ws, act, c["row_valid"], store["max_ts"], store["emit_clock"], HOUR_MS, grace)
+    got, want = sup.suppress_clock(*args), sup.suppress_clock_plain(*args)
+    _assert_tree(torch, f"suppress_clock[{mode}]", list(got), list(want))
+    require(bool((torch.sort(got[2]).values == got[2]).all()),
+            "suppress_clock: the emission clock is not non-decreasing")
+    n, lanes = c["ts"].shape[0], act.shape[0]
+    cut = int(act.sum() - got[0].sum())
+    require(cut > 0, f"suppress_clock[{mode}]: the late rows should be cut")
+    rec = measure(torch, "suppress_clock", lambda: sup.suppress_clock(*args),
+                  lambda: sup.suppress_clock_plain(*args),
+                  lanes * (8 + 1 + 1 + 8) + n * (8 + 1 + 8), lanes * 6 + n * 3)
+    return got, rec, f"{n} rows, {lanes} lanes, {cut} late lanes cut"
+
+
+def _check_suppress_close(torch, c, slots, active, cm_emit, grace):
+    """K18 on ``c``'s store for the lanes ``slots``/``active`` and K17's
+    ``cm_emit`` against its twin, exact; returns the store after it, its
+    measure record, what it saw and how many candidates keep waiting."""
+    from ksql_tpu_torch.ops import suppress as sup
+
+    s0, layout = _clone(c["store"]), c["layout"]
+    capacity = layout.capacity
+    sk, sp = _clone(s0), _clone(s0)
+    args = (layout, slots, active, cm_emit, HOUR_MS, grace, FINAL_RETENTION_MS)
+    got = sup.suppress_close(sk, *args)
+    want = sup.suppress_close_plain(sp, *args)
+    _assert_equal(torch, "suppress_close.suppress_emit", got, want)
+    for key in s0:
+        _assert_equal(torch, f"suppress_close.{key}", sk[key], sp[key])
+    cand = s0["occ"] & s0["dirty"] & ~s0["emitted"]
+    n_emit = int(got.sum())
+    n_evict = int((s0["occ"] & ~sk["occ"]).sum())
+    n_cand = int(cand.sum())
+    require(n_emit > 0 and n_evict > 0,
+            f"suppress_close: data should emit ({n_emit}) and evict ({n_evict})")
+    lanes, n = active.shape[0], cm_emit.shape[0]
+    touched = int(torch.unique(slots[active]).numel())
+    work = _clone(s0)
+    ncomp_b = 16
+    rec = measure(
+        torch, "suppress_close", lambda: sup.suppress_close(work, *args),
+        lambda: sup.suppress_close_plain(work, *args),
+        lanes * (4 + 1) + touched * 16 + (capacity + 1) * (3 + 1) + n * 8 + n_cand * 8
+        + n_emit * 2 + n_evict * (3 + 8 + ncomp_b), (capacity + 1) * 4 + n_cand * 17 * 3,
+        reset=lambda: _restore(work, s0))
+    return sk, rec, (f"{lanes} lanes, {capacity + 1} slots, {n_cand} candidates: {n_emit} emit, "
+                     f"{n_evict} evicted"), n_cand - n_emit - n_evict
+
+
+def phase_suppress_kernels(torch, seed, n=N_ROWS, capacity=STORE):
+    """Phase 2f: K17 (tumbling lanes and k = 3 expansion lanes), K18, K19,
+    K4's suppress mode and K1 without its grace cut against their twins on
+    ``make_suppress_case`` at the flagship's shapes; then K17 and K18 at
+    the shapes the main paths give them: phase 12h's (HOP_ROWS rows, 15 min
+    advance, k = 4: K17's expansion mode and K18 over its lanes) and phase
+    12g's (FINAL_GROW_ROWS rows: K17's tumbling mode and K18).  All exact.
+    Returns ``({kernel: {mode: record}}, {shape: record})``."""
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.ops import suppress as sup
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 11)
+    c = make_suppress_case(torch, rng, dev, n, capacity)
+    layout = c["layout"]
+    recs: dict = {}
+    extra: dict = {}
+    grace = FINAL_GRACE_MS
+
+    def done(kernel, mode, rec, what, tag=None):
+        rec = dict(rec, max_abs_err=0.0)
+        if tag is None:
+            recs.setdefault(kernel, {})[mode] = rec
+        else:
+            extra[f"{kernel}[{mode}]@{tag}"] = rec
+        where = "" if tag is None else f" at phase {tag}'s shape"
+        _report("2f", f"{kernel}[{mode}]{where} ({what}; no single PyTorch call computes it)", rec)
+
+    # ---- K1 without its grace cut (the EMIT FINAL route's tumbling mode)
+    keys = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, (1, n))).to(dev)
+    kvalid = torch.from_numpy(rng.random((1, n)) > 0.01).to(dev)
+    for adv in (0, 20 * 60_000):
+        args = (keys, kvalid, c["ts"], c["act_rows"], HOUR_MS, grace, None, capacity)
+        _assert_tree(torch, f"row_prologue[no cut, advance {adv}]",
+                     list(hs.row_prologue(*args, advance_ms=adv)),
+                     list(hs.row_prologue_plain(*args, advance_ms=adv)))
+
+    # ---- K17 on the tumbling lanes and on the k = 3 expansion lanes
+    cm_emit = None
+    for mode in ("tumbling", "expansion"):
+        got, rec, what = _check_suppress_clock(torch, c, mode, grace)
+        done("suppress_clock", mode, rec, what)
+        if mode == "tumbling":
+            cm_emit = got[2]
+
+    # ---- K18: the born scatter and the close decision over 2^20 slots
+    sk, rec, what, waiting = _check_suppress_close(torch, c, c["slots"], c["act_rows"], cm_emit, grace)
+    require(waiting > 0, "suppress_close: some candidates should keep waiting")
+    done("suppress_close", "tumbling", rec, what)
+    ncomp_b = 16
+
+    # ---- K17 and K18 at the main paths' shapes: 12h (k = 4), 12g (2^20 rows)
+    for tag, rows, mode in (("12h", HOP_ROWS, "expansion"), ("12g", FINAL_GROW_ROWS, "tumbling")):
+        cs = make_suppress_case(torch, np.random.default_rng(seed + 12), dev, rows, capacity,
+                                advance=HOP_ADVANCE_MS)
+        got, rec, what = _check_suppress_clock(torch, cs, mode, grace)
+        done("suppress_clock", mode, rec, what, tag)
+        slots = cs["hop_slots"] if mode == "expansion" else cs["slots"]
+        _sk, rec, what, _w = _check_suppress_close(torch, cs, slots, got[0], got[2], grace)
+        done("suppress_close", "tumbling", rec, what, tag)
+        del cs, _sk
+
+    # ---- K19: one HAVING filter's verdicts over 65,536 lanes
+    hp0 = c["hpass"]
+    hk, hpl = hp0.clone(), hp0.clone()
+    hargs = (c["hslots"], c["hmask"], c["hdata"], c["hvalid"])
+    got = sup.having_verdict(hk, *hargs)
+    want = sup.having_verdict_plain(hpl, *hargs)
+    _assert_tree(torch, "having_verdict", list(got), list(want))
+    _assert_equal(torch, "having_verdict.hpass", hk, hpl)
+    n_tomb = int(got[1].sum())
+    require(n_tomb > 0 and bool(got[0].any()), "having_verdict: data should pass and retract")
+    masked = int(c["hmask"].sum())
+    hw = hp0.clone()
+    done("having_verdict", "tumbling", measure(
+        torch, "having_verdict", lambda: sup.having_verdict(hw, *hargs),
+        lambda: sup.having_verdict_plain(hw, *hargs),
+        n * (4 + 1 + 1 + 1) + masked * 1 + n * 2 + masked * 1 + 1, n * 8,
+        reset=lambda: hw.copy_(hp0)),
+        f"{n} lanes, {masked} masked, {n_tomb} tombstones")
+
+    # ---- K4's suppress mode: the store after K18, the stream time 4 h on
+    e0 = _clone(sk)
+    e0["max_ts"].fill_(int(cm_emit[-1]) + 4 * HOUR_MS)
+    ek, ep = _clone(e0), _clone(e0)
+    hs.evict(ek, layout, FINAL_RETENTION_MS, suppress=True)
+    hs.evict_plain(ep, layout, FINAL_RETENTION_MS, suppress=True)
+    for key in e0:
+        _assert_equal(torch, f"evict[suppress].{key}", ek[key], ep[key])
+    expired = int((e0["occ"] & ~ek["occ"]).sum())
+    kept = int((e0["occ"] & e0["dirty"] & ek["occ"]).sum())
+    require(expired > 0 and kept > 0, "evict[suppress]: data should expire slots and keep dirty ones")
+    occ_n = int(e0["occ"].sum())
+    work = _clone(e0)
+    done("evict", "suppress", measure(
+        torch, "evict", lambda: hs.evict(work, layout, FINAL_RETENTION_MS, suppress=True),
+        lambda: hs.evict_plain(work, layout, FINAL_RETENTION_MS, suppress=True),
+        (capacity + 1) + occ_n * 9 + expired * (3 + 8 + 1 + ncomp_b), (capacity + 1) * 5,
+        reset=lambda: _restore(work, e0)),
+        f"{expired} slots expired, {kept} dirty past retention kept")
+    return recs, extra
+
+
+def final_reference(url_idx, ts, rows, flush_to, size=HOUR_MS, grace=0, retention=HOUR_MS):
+    """The sink of an EMIT FINAL tumbling COUNT(*) per URL, by numpy, for
+    non-decreasing timestamps with every row valid (the per-row stream
+    time is then the row's own ts): a window emits in the batch of the
+    first row at or past its close (end + grace) if that row's ts is at or
+    before its horizon (start + retention), is evicted unemitted there if
+    not, and emits at the flush when no row reaches its close (and the
+    flush does).  Within a batch, and at the flush, by window start, then
+    by the first row of the (URL, window).  Returns the records (key, value
+    dict, ts, window), the decision batch of each window start and the
+    emitted and evicted window counts."""
+    n = ts.size
+    ws = ts - ts % size
+    order = np.lexsort((np.arange(n), url_idx, ws))
+    w_s, u_s, t_s = ws[order], url_idx[order], ts[order]
+    head = np.ones(n, bool)
+    head[1:] = (w_s[1:] != w_s[:-1]) | (u_s[1:] != u_s[:-1])
+    idx = np.nonzero(head)[0]
+    cnt = np.diff(np.append(idx, n))
+    maxts = np.maximum.reduceat(t_s, idx)
+    first = order[idx]
+    win, url = w_s[idx], u_s[idx]
+    pos = np.searchsorted(ts, win + size + grace)
+    decided = pos < n
+    emit = decided & (ts[np.minimum(pos, n - 1)] <= win + retention)
+    flushed = ~decided & (win + size + grace <= flush_to)
+    batch = np.where(decided, pos // rows, -1)
+    out = []
+    for sel in [emit & (batch == b) for b in range(-(-n // rows))] + [flushed]:
+        for j in np.nonzero(sel)[0][np.lexsort((first[sel], win[sel]))]:
+            out.append((f"/page/{url[j]}", {"CNT": int(cnt[j])}, int(maxts[j]),
+                        (int(win[j]), int(win[j]) + size)))
+    closing = set(batch[decided].tolist())
+    return out, closing, int(emit.sum()), int((decided & ~emit).sum())
+
+
+def check_final_sink(broker, topic, url_idx, ts, rows, flush_to, label):
+    """The card's sink against :func:`final_reference`, record for record;
+    every (key, window) at most once."""
+    got = [(k, json.loads(v), t, tuple(w)) for k, v, t, w in sink_records(broker, topic)]
+    want, closing, n_emit, n_evict = final_reference(url_idx, ts, rows, flush_to)
+    require(len({(k, w) for k, _v, _t, w in got}) == len(got), f"{label}: a window emitted twice")
+    require(got == want, f"{label}: the sink differs from the numpy EMIT FINAL reference "
+            f"({len(got)} records vs {len(want)}, first difference at "
+            f"{next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))})")
+    return closing, n_emit, n_evict
+
+
+def phase_final_e2e(torch, final_json, seed):
+    """Phase 12: BASELINE #1 with EMIT FINAL and no grace
+    (``ksql_tpu_torch/plans/pv_counts_final.json``) over phase 3's traffic
+    (16 x 65,536 records of 50,000 zipf(1.3) URLs, 17 ms apart) into 2^20
+    slots, then ``flush_time(last ts + 1 h)``: the sink must equal
+    :func:`final_reference` record for record.  Its breakdown (12b) is
+    taken on this run: an EMIT FINAL plan is never pipelined, so the
+    breakdown's synchronized device steps change no overlap, and its
+    16 batches include those that emit.  Returns the phase's record and
+    the breakdown."""
+    rng = np.random.default_rng(seed + 1)
+    n = N_BATCHES * N_ROWS
+    url_idx = rng.zipf(1.3, size=n).astype(np.int64) % N_URLS
+    ts = TS0 + np.arange(n, dtype=np.int64) * PV_STEP_MS
+    flush_to = int(ts[-1]) + HOUR_MS
+    torch.cuda.reset_peak_memory_stats()
+    batch_s = []
+    run = []
+
+    def drive():
+        run.append(run_main_path(torch, final_json, url_idx, ts, DEVICE, STORE, batch_s, path="12",
+                                 finish=lambda e: e.flush_time(flush_to)))
+        return run[0][2]
+
+    breakdown = phase_breakdown(torch, drive, N_BATCHES, "12b")
+    broker, ex, secs = run[0]
+    peak = torch.cuda.max_memory_allocated()
+    q = ex.query
+    require(q.suppress and not q.pipeline and q.grace_ms == 0, "12: not the EMIT FINAL route")
+    require(int(q.state["overflow"]) == 0, "12: store overflowed")
+    closing, n_emit, n_evict = check_final_sink(broker, "PV_COUNTS_FINAL", url_idx, ts, N_ROWS,
+                                                flush_to, "12")
+    require(n_emit > 0 and n_evict > 0, f"12: {n_emit} windows emitted in a batch, {n_evict} evicted")
+    ms = np.array(batch_s) * 1e3
+    close_ms = ms[sorted(closing)]
+    open_ms = np.delete(ms, sorted(closing))
+    pc = np.percentile(close_ms, [50, 99])
+    po = np.percentile(open_ms, [50, 99])
+    rec = len(sink_records(broker, "PV_COUNTS_FINAL"))
+    print(f"[12] EMIT FINAL flagship: {n} events in {secs:.3f} s = {n / secs:.1f} events/s (flush "
+          f"included, under 12b's timers and profiler); {rec} sink records equal the numpy "
+          f"reference, each window once ({n_emit} "
+          f"emitted in a batch, {n_evict} evicted unemitted past their horizon, the rest at the "
+          f"flush); {len(close_ms)} batches close windows: p50 {pc[0]:.3f} ms p99 {pc[1]:.3f} ms; "
+          f"{len(open_ms)} do not: p50 {po[0]:.3f} ms p99 {po[1]:.3f} ms; peak device memory "
+          f"{peak} B; overflow 0")
+    return dict(events_per_s=n / secs, closing_p50_ms=pc[0], closing_p99_ms=pc[1],
+                open_p50_ms=po[0], open_p99_ms=po[1], sink_records=rec, emitted_in_batch=n_emit,
+                evicted=n_evict, peak_bytes=peak), breakdown
+
+
+def phase_final_growth(torch, final_json, seed):
+    """Phase 12g: phase 4's 48 h traffic shape (an hour-local pool of URLs,
+    each seen GROWTH_REPEATS times an hour on average; ~160,000 (URL, hour)
+    keys) on the EMIT FINAL plan, from a 2^20-slot store.  An EMIT FINAL
+    batch is never pipelined, so the load check's headroom is one batch,
+    and the windows leave retention an hour after they start: at phase 4's
+    131,072-row batches the store would never pass its trigger.  With
+    batches of 2^20 rows the first check passes it: K4's suppress mode
+    frees the emitted windows, the compaction drops the graves, and the
+    store grows to 2^21 carrying ``born`` and ``emitted``; the last
+    quarter batch runs on the grown store.  The sink must equal
+    :func:`final_reference`."""
+    rng = np.random.default_rng(seed + 2)
+    n = FINAL_GROW_RECORDS
+    ts = TS0 - TS0 % HOUR_MS + (np.arange(n, dtype=np.int64) * (48 * HOUR_MS)) // n
+    hour = (ts - ts[0]) // HOUR_MS
+    pool = max(1, n // 48 // GROWTH_REPEATS)
+    url_idx = hour * pool + rng.integers(0, pool, n)
+    flush_to = int(ts[-1]) + HOUR_MS
+    torch.cuda.reset_peak_memory_stats()
+    broker, ex, secs = run_main_path(torch, final_json, url_idx, ts, DEVICE, STORE,
+                                     rows=FINAL_GROW_ROWS, path="12g",
+                                     finish=lambda e: e.flush_time(flush_to))
+    q = ex.query
+    require(q.evictions >= 1, "12g: the retention pass never ran")
+    require(q.grows >= 1 and q.store_capacity == 2 * STORE, f"12g: store at {q.store_capacity} slots")
+    require(int(q.state["overflow"]) == 0, "12g: store overflowed")
+    _closing, n_emit, n_evict = check_final_sink(broker, "PV_COUNTS_FINAL", url_idx, ts,
+                                                 FINAL_GROW_ROWS, flush_to, "12g")
+    rec = len(sink_records(broker, "PV_COUNTS_FINAL"))
+    print(f"[12g] EMIT FINAL growth: {n} events in batches of {FINAL_GROW_ROWS} in {secs:.3f} s; "
+          f"{q.evictions} retention passes, {q.compactions} compactions, {q.grows} grows -> "
+          f"{q.store_capacity} slots; host rebuild seconds {[round(x, 4) for x in q.rebuild_seconds]}; "
+          f"{rec} sink records ({n_emit} emitted in a batch, {n_evict} evicted) equal the numpy "
+          f"reference; peak device memory {torch.cuda.max_memory_allocated()} B; overflow 0")
+    return dict(seconds=secs, grows=q.grows, rebuild_s=q.rebuild_seconds, sink_records=rec)
+
+
+def phase_final_hop(torch, hop_final_json, seed):
+    """Phase 12h: BASELINE #2 with EMIT FINAL
+    (``ksql_tpu_torch/plans/pv_stats_hopping_final.json``) over phase 8's
+    traffic into 2^20 slots: the expansion route (the reference's reason),
+    then ``flush_time(last ts + 1 h)``; the sink must equal the port's CPU
+    run."""
+    url_idx, uid, ts = hop_traffic(seed)
+    n = url_idx.size
+    flush_to = int(ts[-1]) + HOUR_MS
+    batch_s = []
+    broker, ex, secs = run_main_path(torch, hop_final_json, url_idx, ts, DEVICE, STORE, batch_s,
+                                     rows=HOP_ROWS, user_ids=uid, path="12h",
+                                     finish=lambda e: e.flush_time(flush_to))
+    q = ex.query
+    require(not q.sliced and q.expansion == 4 and "EMIT FINAL" in (q.windowing_fallback or ""),
+            "12h: expected the expansion route with the EMIT FINAL reason")
+    require(int(q.state["overflow"]) == 0, "12h: store overflowed")
+    cpu_broker, _ex, cpu_secs = run_main_path(torch, hop_final_json, url_idx, ts, "cpu", STORE,
+                                              rows=HOP_ROWS, user_ids=uid,
+                                              finish=lambda e: e.flush_time(flush_to))
+    got = sink_records(broker, "PV_STATS_FINAL")
+    require(got == sink_records(cpu_broker, "PV_STATS_FINAL"), "12h: card sink differs from the CPU run")
+    require(len({(k, w) for k, _v, _t, w in got}) == len(got), "12h: a window emitted twice")
+    p50, p99 = np.percentile(np.array(batch_s) * 1e3, [50, 99])
+    print(f"[12h] BASELINE #2 EMIT FINAL, expansion route: {n} events in {secs:.3f} s = "
+          f"{n / secs:.1f} events/s; batch p50 {p50:.3f} ms p99 {p99:.3f} ms; {len(got)} sink records, "
+          f"each window once, equal the CPU run ({cpu_secs:.3f} s); overflow 0")
+    return dict(events_per_s=n / secs, p50_ms=p50, p99_ms=p99, sink_records=len(got))
+
+
+def having_traffic(seed, n_batches=N_BATCHES):
+    """Phase 3's URLs and timestamps, with USER_ID uniform in 1..999 as
+    ``bench.py:_pv_batches`` draws it."""
+    rng = np.random.default_rng(seed + 1)
+    n = n_batches * N_ROWS
+    url_idx = rng.zipf(1.3, size=n).astype(np.int64) % N_URLS
+    uid = np.random.default_rng(seed + 13).integers(1, 1000, n)
+    return url_idx, uid, TS0 + np.arange(n, dtype=np.int64) * PV_STEP_MS
+
+
+def fraud_reference(url_idx, ts, rows, limit=3):
+    """possible_fraud's sink by numpy: per batch, one row per (URL, minute)
+    the batch touched whose count so far passes ``limit``, with that count
+    and the window's last ts so far, in ts order (every row valid,
+    timestamps increasing: no tombstone can occur)."""
+    n = ts.size
+    key = (ts - ts % HAVING_MIN_MS) * N_URLS + url_idx
+    out = []
+    counts: dict = {}
+    for b in range(0, n, rows):
+        k, t = key[b:b + rows], ts[b:b + rows]
+        uk, inv = np.unique(k, return_inverse=True)
+        c = np.bincount(inv)
+        last = np.zeros(uk.size, np.int64)
+        last[inv] = t  # timestamps increase: the last write is the max
+        rows_b = []
+        for kk, cc, tt in zip(uk.tolist(), c.tolist(), last.tolist()):
+            total = counts.get(kk, 0) + cc
+            counts[kk] = total
+            if total > limit:
+                ws = kk // N_URLS
+                rows_b.append((tt, f"/page/{kk % N_URLS}", total, ws))
+        rows_b.sort()
+        out += [(u, {"CNT": cnt}, tt, (ws, ws + HAVING_MIN_MS)) for tt, u, cnt, ws in rows_b]
+    return out
+
+
+def phase_having_e2e(torch, fraud_json, retract_json, seed):
+    """Phases 13 and 13r: ksqlDB's possible_fraud query over the page views
+    (``ksql_tpu_torch/plans/possible_fraud.json``, COUNT(*) > 3 per URL and
+    minute) on phase 3's traffic: the sink must equal
+    :func:`fraud_reference` with no tombstone; then a verdict that flips
+    both ways (``pv_having_retract.json``, AVG(USER_ID) > 500) on the same
+    traffic, cut to its first HAVING_RETRACT_BATCHES batches: the sink must
+    hold retraction tombstones and equal the port's CPU run over the same
+    batches record for record."""
+    url_idx, uid, ts = having_traffic(seed)
+    n = url_idx.size
+    out = {}
+    # 13r runs the first HAVING_RETRACT_BATCHES batches of it
+    k = HAVING_RETRACT_BATCHES * N_ROWS
+    r_url, r_uid, r_ts = url_idx[:k], uid[:k], ts[:k]
+    batch_s = []
+    broker, ex, secs = run_main_path(torch, fraud_json, url_idx, ts, DEVICE, STORE, batch_s,
+                                     user_ids=uid, path="13")
+    q = ex.query
+    require("hpass" in q.state and q.pipeline, "13: not the HAVING retraction route")
+    require(int(q.state["overflow"]) == 0 and q.grows == 0, "13: store overflowed or grew")
+    got = [(k, None if v is None else json.loads(v), t, tuple(w))
+           for k, v, t, w in sink_records(broker, "POSSIBLE_FRAUD")]
+    want = fraud_reference(url_idx, ts, N_ROWS)
+    require(got == want, f"13: the sink differs from the numpy reference ({len(got)} vs {len(want)})")
+    p50, p99 = np.percentile(np.array(batch_s) * 1e3, [50, 99])
+    slots = int(q.state["occ"].sum())
+    print(f"[13] possible_fraud (HAVING COUNT(*) > 3): {n} events in {secs:.3f} s = {n / secs:.1f} "
+          f"events/s; batch p50 {p50:.3f} ms p99 {p99:.3f} ms; {len(got)} sink records equal the numpy "
+          f"reference, 0 tombstones; {slots} (URL, minute) slots of {q.store_capacity}")
+    out["possible_fraud"] = dict(events_per_s=n / secs, p50_ms=p50, p99_ms=p99, sink_records=len(got),
+                                 slots=slots)
+    batch_s = []
+    broker, ex, secs = run_main_path(torch, retract_json, r_url, r_ts, DEVICE, STORE, batch_s,
+                                     user_ids=r_uid, path="13r")
+    got = sink_records(broker, "PV_HAVING_RETRACT")
+    tombs = sum(v is None for _k, v, _t, _w in got)
+    require(tombs > 0, "13r: the flipping verdict emitted no tombstone")
+    cpu_broker, _ex, cpu_secs = run_main_path(torch, retract_json, r_url, r_ts, "cpu", STORE,
+                                              user_ids=r_uid)
+    require(got == sink_records(cpu_broker, "PV_HAVING_RETRACT"),
+            f"13r: card sink differs from the CPU run over {HAVING_RETRACT_BATCHES} batches")
+    p50, p99 = np.percentile(np.array(batch_s) * 1e3, [50, 99])
+    print(f"[13r] HAVING AVG(USER_ID) > 500: {r_ts.size} events in {secs:.3f} s = {r_ts.size / secs:.1f} "
+          f"events/s; batch "
+          f"p50 {p50:.3f} ms p99 {p99:.3f} ms; {len(got)} sink records ({tombs} retraction tombstones) "
+          f"equal the CPU run ({cpu_secs:.3f} s)")
+    out["having_retract"] = dict(events_per_s=r_ts.size / secs, p50_ms=p50, p99_ms=p99, sink_records=len(got),
+                                 tombstones=tombs, cpu_s=cpu_secs)
+    return out
+
+
 REPLACES = {
     "row_prologue": "ksql_tpu/ops/hash_store.py:48 (mix64), :58 (combine_hash); ksql_tpu/runtime/lowering.py:3802 (pre_exchange), :2284 (_trace_table_step key hash), :3483 (pre_session_exchange key hash); ksql_tpu/ops/window.py:63 (hopping_starts), :82 (expand)",
     "probe_insert": "ksql_tpu/ops/hash_store.py:126 (probe_insert)",
     "fold_and_mark": "ksql_tpu/ops/hash_store.py:502 (scatter_combine), :567 (winners_per_slot)",
-    "evict": "ksql_tpu/runtime/lowering.py:4239 (_trace_evict)",
+    "evict": "ksql_tpu/runtime/lowering.py:4239 (_trace_evict; the suppress guard and hpass clear, "
+             ":4262-4273)",
     "sliced_fold": "ksql_tpu/runtime/lowering.py:1988 (_sliced_scatter)",
     "combine_windows": "ksql_tpu/runtime/lowering.py:2036 (_combine_windows), :4073 (_finalized_env gather)",
     "member_lanes": "ksql_tpu/runtime/lowering.py:2116 (_sliced_member_emits)",
@@ -2494,6 +3049,11 @@ REPLACES = {
                      "segmented scan, segment folds and rank, :3618-3715)",
     "session_write": "ksql_tpu/runtime/lowering.py:3537 (post_session_exchange: the deletes, the store "
                      "writes and the emission lanes, :3696-3799)",
+    "suppress_clock": "ksql_tpu/runtime/lowering.py:3802 (pre_exchange: the suppress lanes, the running "
+                      "stream times and the late cut, :3906-3931)",
+    "suppress_close": "ksql_tpu/runtime/lowering.py:3953 (post_exchange: the suppress branch, :3997-4041)",
+    "having_verdict": "ksql_tpu/runtime/lowering.py:4147 (_emit_agg: the HAVING verdict and retraction, "
+                      ":4164-4199)",
 }
 #: the record each kernel's JSON entry carries; the other modes ride along
 MAIN_MODE = {"row_prologue": "tumbling", "evict": "tumbling", "combine_windows": "sliced",
@@ -2557,6 +3117,12 @@ def main() -> int:
     for name, modes in sess_recs.items():
         recs.setdefault(name, {}).update(modes)
     sess_s = time.perf_counter() - t_sess
+    # the EMIT FINAL and HAVING phases (2f, 12-13r), timed together
+    t_final = time.perf_counter()
+    final_recs, final_extra = phase_suppress_kernels(torch, args.seed)
+    for name, modes in final_recs.items():
+        recs.setdefault(name, {}).update(modes)
+    final_s = time.perf_counter() - t_final
     with open("ksql_tpu_torch/plans/pv_counts_tumbling.json") as f:
         plan_json = json.load(f)
     with open("ksql_tpu_torch/plans/pv_stats_hopping.json") as f:
@@ -2582,8 +3148,20 @@ def main() -> int:
     e2e["session_growth"] = phase_session_growth(torch, sess_json, args.seed, sess_head)
     e2e["session_kernels_extra"] = sess_extra
     sess_s += time.perf_counter() - t_sess
+    t_final = time.perf_counter()
+    plans = {}
+    for name in ("pv_counts_final", "pv_stats_hopping_final", "possible_fraud", "pv_having_retract"):
+        with open(f"ksql_tpu_torch/plans/{name}.json") as f:
+            plans[name] = json.load(f)
+    e2e["suppress_kernels_extra"] = final_extra
+    e2e["emit_final"], e2e["emit_final_breakdown"] = phase_final_e2e(torch, plans["pv_counts_final"],
+                                                                     args.seed)
+    e2e["emit_final_growth"] = phase_final_growth(torch, plans["pv_counts_final"], args.seed)
+    e2e["emit_final_hopping"] = phase_final_hop(torch, plans["pv_stats_hopping_final"], args.seed)
+    e2e.update(phase_having_e2e(torch, plans["possible_fraud"], plans["pv_having_retract"], args.seed))
+    final_s += time.perf_counter() - t_final
     require(sorted(PATH_LAUNCHES) == sorted(PATH_KERNELS), f"paths run: {sorted(PATH_LAUNCHES)}")
-    for w in wrappers:  # every kernel of K1-K16 is on some path, in every mode
+    for w in wrappers:  # every kernel of K1-K19 is on some path, in every mode
         for mode in w.__dict__.get("mode_launches", {"all": 0}):
             require(sum(PATH_LAUNCHES[p][w.__name__][mode] for p in PATH_LAUNCHES) > 0,
                     f"kernel {w.__name__}[{mode}] was launched on no path")
@@ -2604,7 +3182,7 @@ def main() -> int:
     kernels = kernel_records(wrappers, recs)
     print(f"e2e: {json.dumps(e2e)}")
     print(f"total seconds {time.perf_counter() - t_start:.1f} (phases 2s, 10, 10g and 10b: {ss_s:.1f}; "
-          f"phases 2w, 11, 11g and 11b: {sess_s:.1f})")
+          f"phases 2w, 11, 11g and 11b: {sess_s:.1f}; phases 2f, 12 (with 12b) to 13r: {final_s:.1f})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

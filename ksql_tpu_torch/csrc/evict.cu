@@ -1,9 +1,13 @@
 // K4 evict: the windowed store's retention pass.
 //
-// Replaces runtime/lowering.py:_trace_evict (B7), its non-suppress
-// branches.  A windowed slot whose window start plus retention is below the
-// stream time (read from device memory) is expired: occ off, grave on,
-// dirty off, and every aggregate component reset to its init value.  On a
+// Replaces runtime/lowering.py:_trace_evict (B7).  A windowed slot whose
+// window start plus retention is below the stream time (read from device
+// memory) is expired: occ off, grave on, dirty off, and every aggregate
+// component reset to its init value.  Under EMIT FINAL (suppress) a slot
+// that is still dirty (its window has not emitted its final result) is
+// kept until a flush, and an expired slot's born resets to INT64_MAX and
+// its emitted bit to false; under HAVING retraction an expired slot's
+// hpass verdict clears (hpass, born and emitted may be null).  On a
 // sliced store (ring > 0: one slot per group key, a ring of slice partials
 // per component) a slot expires once its newest slice start `slast` left
 // the retention; its `slast` resets to -2^62, its `slice_id` row to -1 and
@@ -34,14 +38,22 @@ __global__ void evict_kernel(Comps c, bool* __restrict__ occ,
                              int64_t* __restrict__ slast,
                              int64_t* __restrict__ slice_id, int64_t ring,
                              const int64_t* __restrict__ max_ts,
-                             int64_t retention, int64_t slots) {
+                             int64_t retention, int64_t slots, int64_t suppress,
+                             bool* __restrict__ hpass, int64_t* __restrict__ born,
+                             bool* __restrict__ emitted) {
   int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (s >= slots || !occ[s]) return;
   const int64_t start = ring > 0 ? slast[s] : wstart[s];
   if (!(ksql::wadd(start, retention) < *max_ts)) return;
+  if (suppress && dirty[s]) return;
   occ[s] = false;
   grave[s] = true;
   dirty[s] = false;
+  if (hpass != nullptr) hpass[s] = false;
+  if (born != nullptr) {
+    born[s] = INT64_MAX;
+    emitted[s] = false;
+  }
   const int64_t cells = ring > 0 ? ring : 1;
   if (ring > 0) {
     slast[s] = -(1LL << 62);
@@ -60,7 +72,8 @@ extern "C" int ksql_evict(const int64_t* comps, int64_t count, void* occ,
                           void* grave, void* dirty, const void* wstart,
                           void* slast, void* slice_id, int64_t ring,
                           const void* max_ts, int64_t retention,
-                          int64_t capacity, void* stream) {
+                          int64_t capacity, int64_t suppress, void* hpass,
+                          void* born, void* emitted, void* stream) {
   if (count > KSQL_MAX_COMPS) return static_cast<int>(cudaErrorInvalidValue);
   Comps c{};
   for (int64_t j = 0; j < count; ++j) {
@@ -76,6 +89,8 @@ extern "C" int ksql_evict(const int64_t* comps, int64_t count, void* occ,
       c, static_cast<bool*>(occ), static_cast<bool*>(grave),
       static_cast<bool*>(dirty), static_cast<const int64_t*>(wstart),
       static_cast<int64_t*>(slast), static_cast<int64_t*>(slice_id), ring,
-      static_cast<const int64_t*>(max_ts), retention, slots);
+      static_cast<const int64_t*>(max_ts), retention, slots, suppress,
+      static_cast<bool*>(hpass), static_cast<int64_t*>(born),
+      static_cast<bool*>(emitted));
   return static_cast<int>(cudaGetLastError());
 }

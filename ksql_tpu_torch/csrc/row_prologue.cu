@@ -7,7 +7,9 @@
 // the group hash folded over the key reprs and the bitmask, and per mode
 //   0  unwindowed / TUMBLING: window start (floor remainder, like
 //      jnp.remainder) and the grace cut against the stream time at batch
-//      start (read from device memory, so the host never syncs);
+//      start (read from device memory, so the host never syncs; a null
+//      max_ts skips the cut: under EMIT FINAL, K17 cuts against the
+//      running stream time instead);
 //   1  sliced HOPPING: the slice start; admission while the newest
 //      advance-aligned window over the row is open at batch start, and the
 //      ring-wrap horizon cut against batch_max = max(max_ts, max ts over
@@ -16,8 +18,9 @@
 //      (the sliced store keys by group key only);
 //   2  k-fold HOPPING expansion: the row's k lanes h*n + i (hop-major, as
 //      jnp.tile lays them out), each with its window start, in-window test
-//      and tumbling-style grace cut; hash and knull are computed once per
-//      row and repeated to each lane;
+//      and tumbling-style grace cut (none when max_ts is null, as in mode
+//      0); hash and knull are computed once per row and repeated to each
+//      lane;
 //   3  table: a join table's changelog key (runtime/lowering.py:
 //      _trace_table_step), hashed over the key reprs alone, without the
 //      null-key bitmask (combine_hash([repr]), which is also what the
@@ -106,7 +109,8 @@ __global__ void row_prologue_kernel(
   }
   h = ksql::mix64(h ^ (static_cast<uint64_t>(static_cast<int64_t>(kn)) + ksql::kGold));
   const int64_t t = ts[i];
-  const int64_t clock = *max_ts;
+  const bool cut = max_ts != nullptr;
+  const int64_t clock = cut ? *max_ts : 0;
 
   if (mode == 2) {
     const int64_t first = t - ksql::floor_mod(t, advance_ms);
@@ -114,7 +118,7 @@ __global__ void row_prologue_kernel(
       const int64_t ws = ksql::wadd(first, -ksql::wmul(hop, advance_ms));
       const bool in_win = ws >= 0 && ksql::wadd(ws, size_ms) > t;
       const bool act = act_row && in_win &&
-                       ksql::wadd(ksql::wadd(ws, size_ms), grace_ms) > clock;
+                       (!cut || ksql::wadd(ksql::wadd(ws, size_ms), grace_ms) > clock);
       const int64_t lane = hop * n + i;
       const uint64_t probe = ksql::mix64(h ^ (static_cast<uint64_t>(ws) * ksql::kGold));
       wstart[lane] = ws;
@@ -139,7 +143,7 @@ __global__ void row_prologue_kernel(
   } else if (mode == 0 && size_ms > 0) {
     ws = t - ksql::floor_mod(t, size_ms);
     probe_w = ws;
-    act = act && ksql::wadd(ksql::wadd(ws, size_ms), grace_ms) > clock;
+    act = act && (!cut || ksql::wadd(ksql::wadd(ws, size_ms), grace_ms) > clock);
   }
   const uint64_t probe = ksql::mix64(h ^ (static_cast<uint64_t>(probe_w) * ksql::kGold));
   wstart[i] = ws;

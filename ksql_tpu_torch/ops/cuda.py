@@ -43,7 +43,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "probe_insert": {"ksql_probe_insert": [
         _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P]},
     "fold_and_mark": {"ksql_fold_and_mark": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P]},
-    "evict": {"ksql_evict": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P]},
+    "evict": {"ksql_evict": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P]},
     "sliced_fold": {"ksql_sliced_fold": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]},
     "combine_windows": {"ksql_combine_windows": [
         _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
@@ -84,6 +84,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "ksql_session_write": [
             _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, *[_P] * 12, _P, _P, *[_P] * 6, _P],
     },
+    "suppress_clock": {"ksql_suppress_clock": [
+        _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P]},
+    "suppress_close": {"ksql_suppress_close": [
+        _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P]},
+    "having_verdict": {"ksql_having_verdict": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P]},
 }
 KERNELS = tuple(SIGNATURES)
 

@@ -11,6 +11,9 @@ absorbs writes from inactive and overflowed rows):
 * ``a<j>`` — aggregate components (``ops/device_aggs.py``); a sliced
   hopping store widens each to ``[capacity + 1, ring]`` and adds
   ``slice_id`` and ``slast`` (``ops/slicing.py``)
+* under EMIT FINAL: ``born`` int64 (first-touch order), ``emitted`` bool,
+  and the scalars ``emit_clock`` and ``row_clock`` (``ops/suppress.py``);
+  under HAVING retraction: ``hpass`` bool (the slot's last verdict)
 
 The store is updated IN PLACE (the reference's functions return a new
 store; PyTorch lets the port keep one set of device buffers).
@@ -54,6 +57,7 @@ from ksql_tpu_torch.ops.window import (
 MAX_PROBES = 32
 INT32_MAX = np.iinfo(np.int32).max
 INT64_MIN = np.iinfo(np.int64).min
+INT64_MAX = np.iinfo(np.int64).max
 
 _M1 = int(np.array(0xBF58476D1CE4E5B9, dtype=np.uint64).view(np.int64))
 _M2 = int(np.array(0x94D049BB133111EB, dtype=np.uint64).view(np.int64))
@@ -181,7 +185,8 @@ def row_prologue_plain(key_reprs, key_valid, ts, active, size_ms, grace_ms,
         wstart, in_win = hopping_starts(ts, size_ms, advance_ms)
         knull, khash, ts = expand(knull, hops), expand(khash, hops), expand(ts, hops)
         active = expand(active, hops) & in_win & (knull == 0)
-        active = active & (wstart + size_ms + grace_ms > max_ts)
+        if max_ts is not None:
+            active = active & (wstart + size_ms + grace_ms > max_ts)
         base = slot_base(khash, wstart, capacity)
     else:
         if size_ms:
@@ -189,7 +194,7 @@ def row_prologue_plain(key_reprs, key_valid, ts, active, size_ms, grace_ms,
         else:
             wstart = torch.zeros(n, dtype=torch.int64, device=ts.device)
         active = active & (knull == 0)
-        if size_ms:
+        if size_ms and max_ts is not None:
             active = active & (wstart + size_ms + grace_ms > max_ts)
         base = slot_base(khash, wstart, capacity)
     c0 = torch.where(active, ts, torch.full_like(ts, INT64_MIN))
@@ -206,8 +211,11 @@ def row_prologue(key_reprs: torch.Tensor, key_valid: torch.Tensor,
 
     ``key_reprs`` int64[k, n] and ``key_valid`` bool[k, n] are the group
     key columns' 64-bit reprs and valid bits; ``max_ts`` is the store's
-    stream time at batch start (a device scalar).  Three modes (a fourth,
-    for join tables, is :func:`table_prologue`):
+    stream time at batch start (a device scalar), or None on the EMIT
+    FINAL route, where the tumbling and expansion modes skip their grace
+    cut (K17 ``ops/suppress.py:suppress_clock`` cuts against the running
+    stream time instead).  Three modes (a fourth, for join tables, is
+    :func:`table_prologue`):
 
     * ``advance_ms == 0``: unwindowed (``size_ms == 0``: no window start, no
       grace cut) or TUMBLING (window start, grace cut against ``max_ts``);
@@ -236,7 +244,8 @@ def row_prologue(key_reprs: torch.Tensor, key_valid: torch.Tensor,
     _expect(key_valid, torch.bool, (k, n))
     _expect(ts, torch.int64, (n,))
     _expect(active, torch.bool, (n,))
-    _expect(max_ts, torch.int64, ())
+    if max_ts is not None or (advance_ms and slice_ring):
+        _expect(max_ts, torch.int64, ())
     if advance_ms and slice_ring:
         mode, hops = 1, 1
     elif advance_ms:
@@ -256,7 +265,8 @@ def row_prologue(key_reprs: torch.Tensor, key_valid: torch.Tensor,
     cuda.check("row_prologue", fn(
         key_reprs.data_ptr(), key_valid.data_ptr(), k, n, ts.data_ptr(),
         active.data_ptr(), mode, int(size_ms), int(advance_ms), int(grace_ms),
-        int(slice_width), int(slice_ring), hops, max_ts.data_ptr(),
+        int(slice_width), int(slice_ring), hops,
+        None if max_ts is None else max_ts.data_ptr(),
         capacity - 1, batch_max.data_ptr(), wstart.data_ptr(),
         knull.data_ptr(), act.data_ptr(), khash.data_ptr(), base.data_ptr(),
         c0.data_ptr(), _stream(dev),
@@ -580,7 +590,8 @@ fold_and_mark.launches = 0
 SLAST_NONE = -(2 ** 62)
 
 
-def evict_plain(store, layout: StoreLayout, retention_ms: int, sliced: bool = False) -> None:
+def evict_plain(store, layout: StoreLayout, retention_ms: int, sliced: bool = False,
+                suppress: bool = False) -> None:
     """Plain twin of K4 — see :func:`evict`."""
     if sliced:
         expired = store["occ"] & (store["slast"] + retention_ms < store["max_ts"])
@@ -588,25 +599,36 @@ def evict_plain(store, layout: StoreLayout, retention_ms: int, sliced: bool = Fa
         store["slice_id"].masked_fill_(expired[:, None], -1)
     else:
         expired = store["occ"] & (store["wstart"] + retention_ms < store["max_ts"])
+    if suppress:
+        expired &= ~store["dirty"]
     store["occ"] &= ~expired
     store["grave"] |= expired
     store["dirty"] &= ~expired
+    if "hpass" in store:
+        store["hpass"] &= ~expired
+    if "born" in store:
+        store["born"].masked_fill_(expired, INT64_MAX)
+        store["emitted"] &= ~expired
     for j, comp in enumerate(layout.components):
         col = store[f"a{j}"]
         col.masked_fill_(expired[:, None] if col.dim() == 2 else expired, comp.init)
 
 
 def evict(store: Dict[str, torch.Tensor], layout: StoreLayout, retention_ms: int,
-          sliced: bool = False) -> None:
-    """K4 (replaces ``runtime/lowering.py:_trace_evict``, non-suppress
-    branches): free the slots that left retention, in place, resetting
-    their components to init.  A windowed slot expires when its window
-    start plus retention is below the stream time; a sliced slot (one per
-    group key, ``sliced=True``) when its newest slice start ``slast`` is,
-    and then also drops its ring (``slice_id`` -1, ``slast`` reset)."""
+          sliced: bool = False, suppress: bool = False) -> None:
+    """K4 (replaces ``runtime/lowering.py:_trace_evict``): free the slots
+    that left retention, in place, resetting their components to init.  A
+    windowed slot expires when its window start plus retention is below the
+    stream time; a sliced slot (one per group key, ``sliced=True``) when
+    its newest slice start ``slast`` is, and then also drops its ring
+    (``slice_id`` -1, ``slast`` reset).  Under EMIT FINAL
+    (``suppress=True``) a slot still ``dirty`` (its final result not
+    emitted yet) stays until a flush, and an expired slot's ``born`` and
+    ``emitted`` reset; a store with HAVING verdicts (``hpass``) clears an
+    expired slot's verdict, in every mode."""
     occ = store["occ"]
     if not occ.is_cuda:
-        evict_plain(store, layout, retention_ms, sliced)
+        evict_plain(store, layout, retention_ms, sliced, suppress)
         return
     c1 = layout.capacity + 1
     ring = layout.components[0].width if sliced else 0
@@ -617,6 +639,14 @@ def evict(store: Dict[str, torch.Tensor], layout: StoreLayout, retention_ms: int
     if sliced:
         _expect(store["slast"], torch.int64, (c1,))
         _expect(store["slice_id"], torch.int64, (c1, ring))
+    hpass, born, emitted = store.get("hpass"), store.get("born"), store.get("emitted")
+    if hpass is not None:
+        _expect(hpass, torch.bool, (c1,))
+    if suppress and (born is None or emitted is None):
+        raise ValueError("evict: the suppress mode needs born and emitted")
+    if born is not None:
+        _expect(born, torch.int64, (c1,))
+        _expect(emitted, torch.bool, (c1,))
     desc: List[int] = []
     for j, comp in enumerate(layout.components):
         col = store[f"a{j}"]
@@ -629,17 +659,21 @@ def evict(store: Dict[str, torch.Tensor], layout: StoreLayout, retention_ms: int
         store["wstart"].data_ptr(),
         store["slast"].data_ptr() if sliced else None,
         store["slice_id"].data_ptr() if sliced else None, ring,
-        store["max_ts"].data_ptr(), int(retention_ms), layout.capacity,
+        store["max_ts"].data_ptr(), int(retention_ms), layout.capacity, int(suppress),
+        None if hpass is None else hpass.data_ptr(),
+        None if born is None else born.data_ptr(),
+        None if emitted is None else emitted.data_ptr(),
         _stream(occ.device),
     ))
     evict.launches += 1
-    evict.mode_launches["sliced" if sliced else "tumbling"] += 1
+    evict.mode_launches["suppress" if suppress else "sliced" if sliced else "tumbling"] += 1
 
 
 evict.launches = 0
 #: ``tumbling``: one slot per (key, window), as the tumbling and expansion
-#: stores keep; ``sliced``: one slot per key with its slice ring
-evict.mode_launches = {"tumbling": 0, "sliced": 0}
+#: stores keep; ``sliced``: one slot per key with its slice ring;
+#: ``suppress``: an EMIT FINAL store, whose unemitted windows stay
+evict.mode_launches = {"tumbling": 0, "sliced": 0, "suppress": 0}
 
 
 # ------------------------------------------------- K8: probe_find (join)

@@ -8,7 +8,11 @@ to the batch size, stepped through :class:`TorchCompiledQuery`, and the
 resulting SinkEmits are written to the sink topic.  Batched mode double-buffers: a batch's
 emissions are decoded when the next batch runs, or at :meth:`drain`.
 Batch size 1 is the per-record mode (one change per record, the
-reference's cache-off parity).
+reference's cache-off parity).  An EMIT FINAL (suppress) plan is never
+pipelined: a batch's closed windows go out with the batch, and
+:meth:`flush_time` closes the windows left at the end of the input (the
+reference also never steps such a plan per record; its batch size is the
+engine's).
 
 A join's table topics buffer per probe.  Stream and table records keep
 their arrival order across the two sides: a table record first runs the
@@ -66,7 +70,7 @@ class TorchDeviceExecutor:
             table_store_capacity=table_store_capacity, ss_buffer_capacity=ss_buffer_capacity,
             ss_out_capacity=ss_out_capacity, session_slots=session_slots,
         )
-        self.query.pipeline = batch_size > 1
+        self.query.pipeline = batch_size > 1 and not self.query.suppress
         self.source_step = self.query.source
         #: a stream-stream join's right side
         self.right_step = self.query.right_source
@@ -220,7 +224,8 @@ class TorchDeviceExecutor:
 
     def flush_time(self, stream_time: int) -> List[SinkEmit]:
         """Advance event time explicitly (end-of-input flush): drain, then
-        close what the new stream time closes."""
+        close what the new stream time closes (a stream-stream join's
+        windows, or an EMIT FINAL query's)."""
         out = self.drain()
         self.stream_time = max(self.stream_time, stream_time)
         emits = self.query.flush(self.stream_time)

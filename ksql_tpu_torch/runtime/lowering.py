@@ -5,7 +5,8 @@ the plan shapes of this slice:
 
     Source → Filter*/Select* → [StreamTableJoin (INNER or LEFT, n-way
     chains) → Filter*/Select*] → [GroupBy → Aggregate (unwindowed,
-    TUMBLING or HOPPING) → TableSelect*] → Sink
+    TUMBLING or HOPPING) → (TableSelect | TableFilter)* → [Suppress]] →
+    Sink
 
     Source → Filter*/Select* → GroupBy → Aggregate (SESSION, EMIT
     CHANGES) → TableSelect* → Sink
@@ -34,12 +35,20 @@ are sorted with the stored sessions of their keys and merged where they
 lie within the gap (K1's session mode, K13 seg_sort, K14 session_items,
 K15 session_merge, K16 session_write and K2); a batch that needs more
 than ``session_slots`` sessions for a key doubles them and starts again
-before it writes anything.  Every other shape raises
-:class:`DeviceUnsupported` at construction: SESSION windows over a join,
-FULL/RIGHT stream-table joins, an aggregation over a stream-stream join,
-table-table and foreign-key joins, flat-maps, PARTITION BY outside a
-join's input side, EMIT FINAL (over SESSION windows too), HAVING (over
-SESSION windows too), table aggregation, vector and arg-set aggregates,
+before it writes anything.  EMIT FINAL (a TableSuppress over a TUMBLING or
+HOPPING aggregation; HOPPING takes the expansion route) emits each window
+once, when the running stream time reaches its close: K17 suppress_clock
+keeps the running clocks, K18 suppress_close decides per slot, the closed
+slots are gathered and decoded by ``_emit_slots`` before the retention
+pass, and ``flush`` closes the rest; with no GRACE its grace is 0.  HAVING
+over an EMIT CHANGES aggregation keeps each slot's last verdict
+(``hpass``) and emits a tombstone when a slot stops passing (K19
+having_verdict); under EMIT FINAL it filters at emission.  Every other
+shape raises :class:`DeviceUnsupported` at construction: SESSION windows
+over a join, FULL/RIGHT stream-table joins, an aggregation over a
+stream-stream join, table-table and foreign-key joins, flat-maps,
+PARTITION BY outside a join's input side, EMIT FINAL or HAVING over
+SESSION windows, table aggregation, vector and arg-set aggregates,
 window families, pull queries.
 
 Where the reference traces one jitted step, the port runs eagerly: the
@@ -48,10 +57,12 @@ the CUDA kernels of ``ops/hash_store.py`` (K1 row_prologue, K2
 probe_insert, K3 fold_and_mark, K4 evict, K8 probe_find, K9
 table_upsert), ``ops/slicing.py`` (K5 sliced_fold, K6 combine_windows,
 K7 member_lanes), ``ops/ss_join.py`` (K10 ss_match, K11 ss_insert, K12
-ss_expire) and ``ops/session.py`` (K13 seg_sort, K14 session_items, K15
-session_merge, K16 session_write).  The stores are updated IN PLACE;
-every emitted lane is a fresh tensor (a K6, K8, K10, K12 or K16 gather or
-a batch column), never a view of a store column, so a pipelined batch's
+ss_expire), ``ops/session.py`` (K13 seg_sort, K14 session_items, K15
+session_merge, K16 session_write) and ``ops/suppress.py`` (K17
+suppress_clock, K18 suppress_close, K19 having_verdict).  The stores are
+updated IN PLACE; every emitted lane is a fresh tensor (a K6, K8, K10,
+K12, K16 or K19 output or a batch column), never a view of a store
+column, so a pipelined batch's
 emits stay valid while the next batch, or a table batch, mutates the
 stores (a session batch returns its emits at once: it is never
 pipelined).
@@ -91,6 +102,7 @@ from ksql_tpu_torch.ops import hash_store as hs
 from ksql_tpu_torch.ops import session as sess
 from ksql_tpu_torch.ops import slicing
 from ksql_tpu_torch.ops import ss_join as ssj
+from ksql_tpu_torch.ops import suppress as sup
 from ksql_tpu_torch.ops import window as W
 from ksql_tpu_torch.ops.device_aggs import DeviceAgg, compile_device_agg, resolve_udaf
 from ksql_tpu_torch.parser.ast_nodes import JoinType, WindowType
@@ -98,7 +110,8 @@ from ksql_tpu_torch.runtime.device import BatchLayout, DictionaryServer, decode_
 from ksql_tpu_torch.runtime.sink import SinkEmit
 from ksql_tpu_torch.state import resolve_device, state_from_numpy, state_to_numpy
 
-#: the reference's legacy default grace for EMIT CHANGES windows (24 h)
+#: the reference's legacy default grace for EMIT CHANGES windows (24 h);
+#: EMIT FINAL windows default to no grace
 DEFAULT_GRACE_MS = 24 * 3600 * 1000
 _I64_MIN = np.iinfo(np.int64).min
 _I64_MAX = np.iinfo(np.int64).max
@@ -188,7 +201,8 @@ class TorchCompiledQuery:
     ``process_table(HostBatch, deletes, idx)`` folds a table-changelog
     batch into join probe ``idx``'s store; ``process_ss(HostBatch, side)``
     runs a batch of one side of a stream-stream join, ``ss_expire_host()``
-    and ``flush(stream_time)`` close its windows; ``state`` is the dict of device
+    and ``flush(stream_time)`` close its windows (``flush`` also closes an
+    EMIT FINAL store's windows); ``state`` is the dict of device
     tensors (the reference's state pytree, same keys, nesting and
     dtypes).  ``device`` defaults to ``cuda`` and raises when there is no
     card; tests pass ``device="cpu"``, which runs the kernels' plain twins.
@@ -209,7 +223,10 @@ class TorchCompiledQuery:
         self.capacity = capacity
         self.dictionary = DictionaryServer()
         self.sink: Optional[st.ExecutionStep] = None
-        self.post_ops: List[st.ExecutionStep] = []  # TableSelect (after the aggregate)
+        #: EMIT FINAL: windows emit once, when they close (TableSuppress)
+        self.suppress = False
+        #: TableSelect/TableFilter (HAVING) after the aggregate
+        self.post_ops: List[st.ExecutionStep] = []
         self.agg: Optional[st.ExecutionStep] = None
         self.group: Optional[st.ExecutionStep] = None
         self.pre_ops: List[st.ExecutionStep] = []  # StreamFilter/StreamSelect
@@ -235,8 +252,15 @@ class TorchCompiledQuery:
         #: hopping windows expand each batch k-fold (the expansion route)
         self.expansion = 1
         self.session = self.window is not None and self.window.window_type == WindowType.SESSION
+        if self.session and self.suppress:
+            raise DeviceUnsupported("EMIT FINAL SESSION windows on device")
         if self.session and self.join is not None:
             raise DeviceUnsupported("SESSION windows over a join on device")
+        if self.session:
+            for op in self.post_ops:
+                if not isinstance(op, st.TableSelect):
+                    # the session emission lanes run TableSelects only
+                    raise DeviceUnsupported(f"{type(op).__name__} over SESSION")
         #: concurrent sessions tracked per key (doubles on ``sess_ovf``), the
         #: doublings, and the inactivity gap
         self.session_slots = session_slots
@@ -247,7 +271,9 @@ class TorchCompiledQuery:
             if wt not in (WindowType.TUMBLING, WindowType.HOPPING, WindowType.SESSION):
                 raise DeviceUnsupported(f"{wt.value} windows on device")
             grace = self.window.grace_ms
-            self.grace_ms = grace if grace is not None else DEFAULT_GRACE_MS
+            if grace is None:
+                grace = 0 if self.suppress else DEFAULT_GRACE_MS
+            self.grace_ms = grace
         if self.window is not None and not self.session:
             self.size_ms = self.window.size_ms
             # windowed-store retention (KS: max(explicit retention, size+grace));
@@ -321,10 +347,9 @@ class TorchCompiledQuery:
         self.sink = cur
         cur = cur.source
         if isinstance(cur, st.TableSuppress):
-            raise DeviceUnsupported("EMIT FINAL on device")
+            self.suppress = True
+            cur = cur.source
         while isinstance(cur, (st.TableSelect, st.TableFilter)):
-            if isinstance(cur, st.TableFilter):
-                raise DeviceUnsupported("HAVING / table filter on device")
             self.post_ops.append(cur)
             cur = cur.source
         self.post_ops.reverse()
@@ -335,6 +360,11 @@ class TorchCompiledQuery:
                 raise DeviceUnsupported(f"aggregate over {type(cur).__name__}")
             self.group = cur
             cur = cur.source
+        elif isinstance(cur, st.TableAggregate):
+            raise DeviceUnsupported("suppress over a table aggregation" if self.suppress
+                                    else "table aggregation on device")
+        elif self.suppress:
+            raise DeviceUnsupported("suppress without aggregation")
         elif self.post_ops:
             raise DeviceUnsupported("table transforms without aggregation on device")
         while isinstance(cur, (st.StreamFilter, st.StreamSelect)):
@@ -398,7 +428,7 @@ class TorchCompiledQuery:
         """A stream-stream windowed join: each side runs its own pre-op
         chain into its own ring buffer on the card; each incoming batch
         matches the other side's buffer over the WITHIN window."""
-        if self.agg is not None or self.post_ops:
+        if self.agg is not None or self.post_ops or self.suppress:
             raise DeviceUnsupported("aggregation over a stream-stream join on device")
         self.ss_join = cur
         self.mid_ops = self.pre_ops
@@ -490,12 +520,30 @@ class TorchCompiledQuery:
             comps = [dataclasses.replace(c, width=self.slice_ring) for c in comps]
         return comps
 
+    def _having_retract(self) -> bool:
+        """Whether this query keeps per-slot HAVING verdicts (``hpass``) to
+        emit retraction tombstones: an EMIT CHANGES aggregation with a
+        HAVING filter (EMIT FINAL filters at emission instead, and HAVING
+        over SESSION windows is refused)."""
+        return (not self.suppress and not self.session
+                and any(isinstance(op, st.TableFilter) for op in self.post_ops))
+
     def _slice_ineligibility(self, ring_max: int) -> Optional[str]:
         """Why this hopping aggregation must keep the k-fold expansion
-        route (None = sliced-eligible), in the reference's words.  (Its
-        EMIT FINAL and HAVING reasons cannot arise: the port refuses both
-        shapes in ``_analyze``.)"""
+        route (None = sliced-eligible), in the reference's words and
+        order: EMIT FINAL, HAVING retraction, then the aggregates and the
+        window's shape."""
         w = self.window
+        if self.suppress:
+            return (
+                "EMIT FINAL hopping windows keep the expansion path "
+                "(per-window close tracking on slices pending)"
+            )
+        if self._having_retract():
+            return (
+                "HAVING retraction over hopping windows keeps the "
+                "expansion path (per-window verdict state)"
+            )
         for spec in self.agg_specs:
             if any(c.combine not in _DECOMPOSABLE for c in spec.device.components):
                 return (
@@ -766,6 +814,20 @@ class TorchCompiledQuery:
 
     def _init_agg_state(self, dev) -> Dict[str, torch.Tensor]:
         state = hs.init_store(self.store_layout, dev)
+        c1 = self.store_capacity + 1
+        if self._having_retract():
+            # each slot's last HAVING verdict: pass -> fail emits a tombstone
+            state["hpass"] = torch.zeros(c1, dtype=torch.bool, device=dev)
+        if self.suppress:
+            # EMIT FINAL: the emission clock (stream time over every raw
+            # source row), each slot's first touch in lane order (ties in
+            # window end emit in creation order), the lanes seen so far, and
+            # whether the slot's final result went out (a late record in
+            # grace re-dirties an emitted slot, which never emits again)
+            state["emit_clock"] = torch.tensor(_I64_MIN, dtype=torch.int64, device=dev)
+            state["born"] = torch.full((c1,), _I64_MAX, dtype=torch.int64, device=dev)
+            state["row_clock"] = torch.zeros((), dtype=torch.int64, device=dev)
+            state["emitted"] = torch.zeros(c1, dtype=torch.bool, device=dev)
         if self.session:
             # each slot is one session (khash, rank): its bounds
             state["sess_start"] = torch.zeros(self.store_capacity + 1, dtype=torch.int64, device=dev)
@@ -866,7 +928,10 @@ class TorchCompiledQuery:
     def pre_exchange(self, arrays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Per-row phase: transforms, window assignment (the k-fold hopping
         expansion included), group-key hashing, aggregate contributions
-        (K1 does the fixed per-row part)."""
+        (K1 does the fixed per-row part).  Under EMIT FINAL, K1 skips its
+        grace cut against the stream time at batch start: K17 cuts against
+        the running stream time in lane order and also gives the emission
+        clock of every raw row (``cm_emit``)."""
         n = self.capacity
         env = self._source_env(arrays)
         env, active = self._apply_ops(self.pre_ops, env, arrays["row_valid"], n)
@@ -877,11 +942,18 @@ class TorchCompiledQuery:
         key_cols = self._key_cols(env, n, ts.device)
         reprs = torch.stack([_repr64(kc) for kc in key_cols])
         valid = torch.stack([kc.valid for kc in key_cols])
+        state = self.state
         wstart, knull, active, khash, base, c0 = hs.row_prologue(
             reprs, valid, ts, active, self.size_ms, self.grace_ms,
-            self.state["max_ts"], self.store_capacity, advance_ms=self.advance_ms,
-            slice_width=self.slice_width, slice_ring=self.slice_ring,
+            None if self.suppress else state["max_ts"], self.store_capacity,
+            advance_ms=self.advance_ms, slice_width=self.slice_width,
+            slice_ring=self.slice_ring,
         )
+        payload = {}
+        if self.suppress:
+            active, c0, payload["cm_emit"] = sup.suppress_clock(
+                ts, wstart, active, arrays["row_valid"], state["max_ts"], state["emit_clock"],
+                self.size_ms, self.grace_ms)
         k = self.expansion
         if k > 1:
             # the expansion route: lane h·n + i is row i's hop h
@@ -894,13 +966,16 @@ class TorchCompiledQuery:
         c = TorchExprCompiler(env, nn, ts.device, self.dictionary)
         for spec in self.agg_specs:
             contribs.extend(spec.device.contribs([c.compile(e) for e in spec.arg_exprs], active))
-        return {"khash": khash, "wstart": wstart, "knull": knull, "ts": ts,
-                "active": active, "base": base, "reprs": reprs, "contribs": contribs}
+        payload.update(khash=khash, wstart=wstart, knull=knull, ts=ts, active=active, base=base,
+                       reprs=reprs, contribs=contribs)
+        return payload
 
     def post_exchange(self, payload: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """State-owning phase: probe/insert (K2), fold (K3, or the sliced
         ring fold K5), emission of one change per touched key (per touched
-        (key, window) on the hopping routes)."""
+        (key, window) on the hopping routes).  Under EMIT FINAL nothing is
+        emitted here: K18 decides which windows the batch closes and
+        returns them in ``suppress_emit`` (``process_arrays`` emits them)."""
         store = self.state
         active = payload["active"]
         nn = active.shape[0]
@@ -922,7 +997,13 @@ class TorchCompiledQuery:
             winners = hs.fold_and_mark(
                 store, self.scratch, self.store_layout, slots, payload["contribs"], active
             )
-            emits = self._emit_agg(slots, winners, nn)
+            if self.suppress:
+                emits = {"emit_mask": torch.zeros(nn, dtype=torch.bool, device=active.device),
+                         "suppress_emit": sup.suppress_close(
+                             store, self.store_layout, slots, active, payload["cm_emit"],
+                             self.size_ms, self.grace_ms, self.retention_ms)}
+            else:
+                emits = self._emit_agg(slots, winners, nn)
         ts = payload["ts"]
         batch_max = torch.where(active, ts, torch.full_like(ts, _I64_MIN)).max()
         torch.maximum(store["max_ts"], batch_max, out=store["max_ts"])
@@ -1117,10 +1198,24 @@ class TorchCompiledQuery:
         return env, row_ts
 
     def _emit_agg(self, slots: torch.Tensor, mask: torch.Tensor, nn: int) -> Dict[str, torch.Tensor]:
+        """One change per touched slot (``mask``: K3's winners), through
+        the post-aggregation ops; with HAVING retraction each filter's
+        verdict goes through K19, and the slots that stop passing emit
+        tombstones."""
         view = slicing.combine_windows(self.state, self.store_layout, len(self.key_types), slots)
         env, row_ts = self._finalized_env(view, nn)
-        env, mask = self._apply_ops(self.post_ops, env, mask, nn)
-        return self._pack_emits(env, mask, row_ts)
+        tomb = None
+        hpass = self.state.get("hpass")
+        for op in self.post_ops:
+            if hpass is not None and isinstance(op, st.TableFilter):
+                pred = TorchExprCompiler(env, nn, mask.device, self.dictionary).compile(op.predicate)
+                mask, tomb = sup.having_verdict(hpass, slots, mask, pred.data, pred.valid, tomb)
+            else:
+                env, mask = self._apply_ops([op], env, mask, nn)
+        emits = self._pack_emits(env, mask, row_ts)
+        if tomb is not None:
+            emits["tombstone"] = tomb
+        return emits
 
     def _pack_emits(self, env: Dict[str, DCol], mask: torch.Tensor, ts: torch.Tensor,
                     schema: Optional[LogicalSchema] = None) -> Dict[str, torch.Tensor]:
@@ -1141,7 +1236,8 @@ class TorchCompiledQuery:
         # sliced slots are per KEY: a slot expires only once its NEWEST
         # slice left the retention (stale ring cells recycle in place at
         # the next wrap)
-        hs.evict(self.state, self.store_layout, self.retention_ms, sliced=self.sliced)
+        hs.evict(self.state, self.store_layout, self.retention_ms, sliced=self.sliced,
+                 suppress=self.suppress)
         self.evictions += 1
 
     # ------------------------------------------- join table stores (device)
@@ -1437,29 +1533,78 @@ class TorchCompiledQuery:
         return self.process_arrays(self.layout.encode(batch))
 
     def flush(self, stream_time: Optional[int] = None) -> List[SinkEmit]:
-        """Advance the stream time to ``stream_time`` (when given) and emit
-        what closes: a stream-stream join's expiry (the reference's
-        ``flush``/``ss_flush``).  No other shape the port runs closes on
-        time alone (EMIT FINAL is refused)."""
-        if self.ss_join is None:
+        """Advance the stream time to ``stream_time`` (when given, else the
+        store's ``max_ts``) and emit what closes on time alone (the
+        reference's ``flush``/``ss_flush``): a stream-stream join's expiry,
+        or an EMIT FINAL store's windows.  The latter is a host scan of the
+        store with no horizon test: every dirty window not yet emitted whose
+        close (end + grace) is at or before ``stream_time`` emits, in
+        ``_emit_slots``' order, and is marked clean and emitted;
+        ``emit_clock`` advances to ``stream_time`` even when nothing
+        closes.  Other shapes emit nothing."""
+        if self.ss_join is not None:
+            if stream_time is not None:
+                max_ts = self.state["max_ts"]
+                torch.clamp_min(max_ts, stream_time, out=max_ts)
+            return self.ss_expire_host()
+        if not self.suppress:
             return []
-        if stream_time is not None:
-            max_ts = self.state["max_ts"]
-            torch.clamp_min(max_ts, stream_time, out=max_ts)
-        return self.ss_expire_host()
+        state = self.state
+        if stream_time is None:
+            stream_time = int(state["max_ts"])
+        occ, dirty, emitted, ws = (state[k].cpu().numpy()
+                                   for k in ("occ", "dirty", "emitted", "wstart"))
+        closed = occ & dirty & ~emitted & (ws + self.size_ms + self.grace_ms <= stream_time)
+        torch.clamp_min(state["emit_clock"], stream_time, out=state["emit_clock"])
+        idx = np.nonzero(closed)[0]
+        if idx.size == 0:
+            return []
+        result = self._emit_slots(idx)
+        slots = torch.from_numpy(idx).to(self.device)
+        state["dirty"][slots] = False
+        state["emitted"][slots] = True
+        return result
+
+    def _emit_slots(self, idx: np.ndarray) -> List[SinkEmit]:
+        """Emit the store slots ``idx`` (the windows an EMIT FINAL batch or
+        flush closes): ordered by window start (every window has the same
+        size, so by window end), then by first touch (``born``), gathered
+        (K6's plain mode), finalized, through the post-aggregation ops
+        (HAVING as a plain filter) and decoded in that order."""
+        if idx.size == 0:
+            return []
+        dev_idx = torch.from_numpy(idx).to(self.device)
+        ws, born = torch.stack([self.state["wstart"][dev_idx],
+                                self.state["born"][dev_idx]]).cpu().numpy()
+        idx = idx[np.lexsort((born, ws))]
+        slots = torch.from_numpy(idx.astype(np.int32)).to(self.device)
+        view = slicing.combine_windows(self.state, self.store_layout, len(self.key_types), slots)
+        env, row_ts = self._finalized_env(view, idx.size)
+        mask = torch.ones(idx.size, dtype=torch.bool, device=self.device)
+        env, mask = self._apply_ops(self.post_ops, env, mask, idx.size)
+        return self._decode_emits(self._pack_emits(env, mask, row_ts), sort=False)
 
     def upload(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
 
     def process_arrays(self, arrays: Dict[str, np.ndarray]) -> List[SinkEmit]:
-        """One encoded micro-batch through the device step."""
+        """One encoded micro-batch through the device step.  Under EMIT
+        FINAL the windows the step closed are emitted before the retention
+        pass and the load check, which remap or reset slots; such a batch
+        is never pipelined."""
         if self.sliced:
             self.ensure_ring_for(arrays["ts"], arrays["row_valid"])
         emits = self._step(self.upload(arrays))
+        result: Optional[List[SinkEmit]] = None
+        if self.suppress:
+            result = self._emit_slots(emits["suppress_emit"].nonzero().squeeze(1).cpu().numpy())
         if self.agg is not None:
             self._batches += 1
             if self.retention_ms is not None and self._batches % self.EVICT_INTERVAL == 0:
                 self._evict()
+        if result is not None:
+            self._react_to_load(emits)
+            return result
         if self.pipeline and not self.session:
             # a session batch's emits return at once (the reference never
             # pipelines sessions)
@@ -1533,7 +1678,11 @@ class TorchCompiledQuery:
             self.grows += 1
         return live
 
-    def _decode_emits(self, emits: Dict[str, torch.Tensor]) -> List[SinkEmit]:
+    def _decode_emits(self, emits: Dict[str, torch.Tensor], sort: bool = True) -> List[SinkEmit]:
+        """The emitted lanes as SinkEmits, in the reference's order: by
+        ``ord_a``/``ord_b`` when present, else by (ts, window start) unless
+        ``sort`` is False (the lanes are already in emission order).  A
+        tombstone lane decodes with ``row = None``."""
         idx_dev = emits["emit_mask"].nonzero().squeeze(1)
         if idx_dev.numel() == 0:
             return []
@@ -1567,13 +1716,13 @@ class TorchCompiledQuery:
                 # an empty key tuple, which the sink writes as a null key
                 key = ()
             if tomb is not None and tomb[j]:
-                row = None  # a session merged away
+                row = None  # a session merged away, or a HAVING retraction
             else:
                 row = {kn: cols[kn][j] for kn in key_names}
                 row.update({vn: cols[vn][j] for vn in val_names})
             window = (int(ws[j]), int(we[j])) if ws is not None else None
             out.append(SinkEmit(key, row, int(ts[j]), window))
-        if not ordered:
+        if sort and not ordered:
             # ts-major, window-start-minor: the reference's emission order
             out.sort(key=lambda e: (e.ts, e.window or (0, 0)))
         return out

@@ -10,7 +10,8 @@ Ints, bools, hashes and slots must be equal; float64 sums agree to rtol
 1e-12 (atomic fold order is not fixed).  The sliced stores come from
 ``chip_smoke.make_sliced_case``, the stream-stream join steps from
 ``chip_smoke.make_ss_case``, the session steps from
-``chip_smoke.make_session_case`` (checked by phase 2w's own chain): the
+``chip_smoke.make_session_case`` (checked by phase 2w's own chain), the
+EMIT FINAL and HAVING steps from ``chip_smoke.make_suppress_case``: the
 generators of the chip check's own kernel phases.
 """
 
@@ -25,6 +26,7 @@ from ksql_tpu_torch.ops import hash_store as hs
 from ksql_tpu_torch.ops import session as sess
 from ksql_tpu_torch.ops import slicing
 from ksql_tpu_torch.ops import ss_join as ssj
+from ksql_tpu_torch.ops import suppress as sup
 
 pytestmark = pytest.mark.gpu
 I64 = np.iinfo(np.int64)
@@ -490,3 +492,84 @@ def test_session_merge_kernel_matches_twin_at_each_width(dev, ncomp, k):
         pick = (lambda xs: [x[sf] for x in xs]) if key == "seg_comps" else (lambda x: x[..., sf])
         _same_tree(pick(got[key]), pick(want[key]))
     assert int(want["sess_ovf"]) > 0
+
+
+def _suppress_case(dev, n, cap, seed, advance=chip_smoke.FINAL_ADVANCE_MS):
+    return chip_smoke.make_suppress_case(torch, np.random.default_rng(seed), dev, n, cap, advance)
+
+
+# K17 scans tiles of 4,096 items: one row, partial tiles, a tile and one
+# more, the flagship's shapes, phase 12h's (k = 4) and phase 12g's (2^20 rows)
+@pytest.mark.parametrize("n,cap,advance", [
+    (1, 1 << 10, chip_smoke.FINAL_ADVANCE_MS), (5000, 1 << 14, chip_smoke.FINAL_ADVANCE_MS),
+    (4097, 1 << 14, chip_smoke.HOP_ADVANCE_MS), (1 << 16, 1 << 20, chip_smoke.FINAL_ADVANCE_MS),
+    (1 << 14, 1 << 20, chip_smoke.HOP_ADVANCE_MS), (1 << 20, 1 << 20, chip_smoke.HOP_ADVANCE_MS)])
+def test_suppress_clock_kernel_matches_twin(dev, n, cap, advance):
+    c = _suppress_case(dev, n, cap, 3, advance)
+    st = c["store"]
+    for mode, ws, act in (("tumbling", c["tws"], c["act_rows"]), ("expansion", c["hws"], c["hact"])):
+        args = (c["ts"], ws, act, c["row_valid"], st["max_ts"], st["emit_clock"], HOUR,
+                chip_smoke.FINAL_GRACE_MS)
+        before = dict(sup.suppress_clock.mode_launches)
+        got = sup.suppress_clock(*args)
+        assert sup.suppress_clock.mode_launches[mode] == before[mode] + 1
+        _same_tree(list(got), list(sup.suppress_clock_plain(*args)))
+        assert torch.equal(torch.sort(got[2]).values, got[2])
+
+
+@pytest.mark.parametrize("n,cap", [(5000, 1 << 14), (1 << 16, 1 << 20), (1 << 20, 1 << 20)])
+def test_suppress_close_kernel_matches_twin(dev, n, cap):
+    c = _suppress_case(dev, n, cap, 4)
+    st = c["store"]
+    cm = sup.suppress_clock_plain(c["ts"], c["tws"], c["act_rows"], c["row_valid"], st["max_ts"],
+                                  st["emit_clock"], HOUR, chip_smoke.FINAL_GRACE_MS)[2]
+    sk = {k: v.clone() for k, v in st.items()}
+    sp = {k: v.clone() for k, v in st.items()}
+    args = (c["layout"], c["slots"], c["act_rows"], cm, HOUR, chip_smoke.FINAL_GRACE_MS,
+            chip_smoke.FINAL_RETENTION_MS)
+    before = sup.suppress_close.launches
+    got = sup.suppress_close(sk, *args)
+    assert sup.suppress_close.launches == before + 1
+    _same(got, sup.suppress_close_plain(sp, *args))
+    _same_tree(sk, sp)
+    assert bool(got.any()) and bool((st["occ"] & ~sk["occ"]).any())
+
+
+@pytest.mark.parametrize("tomb", [False, True])
+def test_having_verdict_kernel_matches_twin(dev, tomb):
+    c = _suppress_case(dev, 1 << 16, 1 << 20, 5)
+    t = torch.from_numpy(np.random.default_rng(7).random(1 << 16) < 0.1).to(dev) if tomb else None
+    hk, hp = c["hpass"].clone(), c["hpass"].clone()
+    args = (c["hslots"], c["hmask"], c["hdata"], c["hvalid"], t)
+    before = sup.having_verdict.launches
+    got = sup.having_verdict(hk, *args)
+    assert sup.having_verdict.launches == before + 1
+    _same_tree(list(got), list(sup.having_verdict_plain(hp, *args)))
+    _same(hk, hp)
+
+
+@pytest.mark.parametrize("suppress", [True, False])
+def test_evict_kernel_suppress_and_hpass_match_twin(dev, suppress):
+    c = _suppress_case(dev, 1 << 16, 1 << 20, 6)
+    e0 = {k: v.clone() for k, v in c["store"].items()}
+    e0["max_ts"].fill_(int(c["ts"].max()) + 4 * HOUR)
+    if not suppress:  # a HAVING store: hpass, no born or emitted
+        del e0["born"], e0["emitted"]
+        e0["hpass"] = c["hpass"].clone()
+    ek = {k: v.clone() for k, v in e0.items()}
+    ep = {k: v.clone() for k, v in e0.items()}
+    mode = "suppress" if suppress else "tumbling"
+    before = hs.evict.mode_launches[mode]
+    hs.evict(ek, c["layout"], chip_smoke.FINAL_RETENTION_MS, suppress=suppress)
+    assert hs.evict.mode_launches[mode] == before + 1
+    hs.evict_plain(ep, c["layout"], chip_smoke.FINAL_RETENTION_MS, suppress=suppress)
+    _same_tree(ek, ep)
+    assert bool((e0["occ"] & ~ek["occ"]).any())
+
+
+@pytest.mark.parametrize("advance", [0, 20 * 60_000])
+def test_row_prologue_without_grace_cut_matches_twin(dev, advance):
+    reprs, valid, ts, active, _max_ts = _prologue_inputs(dev, 5000, 2, 9)
+    args = (reprs, valid, ts, active, HOUR, 0, None, 1 << 12)
+    _same_tree(list(hs.row_prologue(*args, advance_ms=advance)),
+               list(hs.row_prologue_plain(*args, advance_ms=advance)))

@@ -131,8 +131,10 @@ def assert_same_lanes(ref_lanes, port_lanes, where):
 
 
 def run_parity(ddl, query, batches, capacity, store, pipeline=False,
-               evict_interval=None, handoff_at=None, **query_kw):
-    """``query_kw`` (``sliced``, ``slice_ring_max``) goes to both queries."""
+               evict_interval=None, handoff_at=None, flush_to=None, **query_kw):
+    """``query_kw`` (``sliced``, ``slice_ring_max``) goes to both queries;
+    ``flush_to`` ends the run with ``flush(flush_to)`` on both (EMIT
+    FINAL's end-of-input close), compared as every step is."""
     engine, plan, schema = plan_for(ddl, query)
     ref_q = CompiledDeviceQuery(plan, engine.registry, capacity=capacity, store_capacity=store,
                                 **query_kw)
@@ -180,6 +182,12 @@ def run_parity(ddl, query, batches, capacity, store, pipeline=False,
         want, got = ref_q.flush_pipeline(), port_q.flush_pipeline()
         assert _as_tuples(got) == _as_tuples(want)
         assert_same_lanes(ref_lanes, port_lanes, "flush")
+        n_emits += len(want)
+    if flush_to is not None:
+        want, got = ref_q.flush(flush_to), port_q.flush(flush_to)
+        assert _as_tuples(got) == _as_tuples(want), "flush_to"
+        assert_same_state(ref_q, port_q, "flush_to")
+        assert_same_lanes(ref_lanes, port_lanes, "flush_to")
         n_emits += len(want)
     assert n_emits > 0
     return ref_q, port_q
@@ -271,26 +279,49 @@ def test_overflow_raises_like_reference():
     assert_same_state(ref_q, port_q, "overflow")
 
 
+#: two keyed streams for the stream-stream join cases (ss_join_grace's DDL)
+SS_DDL = (
+    "CREATE STREAM LEFTS (ID BIGINT KEY, V BIGINT) WITH (KAFKA_TOPIC='lt', VALUE_FORMAT='JSON');"
+    "CREATE STREAM RIGHTS (ID BIGINT KEY, V BIGINT) WITH (KAFKA_TOPIC='rt', VALUE_FORMAT='JSON');"
+)
+SS_AGG = ("CREATE TABLE C AS SELECT L.ID, COUNT(*) AS CNT FROM LEFTS L JOIN RIGHTS R "
+          "WITHIN 10 SECONDS ON L.ID = R.ID ")
 UNSUPPORTED = {
-    "hopping_emit_final": "CREATE TABLE C AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
-                          "WINDOW HOPPING (SIZE 1 HOUR, ADVANCE BY 20 MINUTES, GRACE PERIOD 0 SECONDS) "
-                          "GROUP BY URL EMIT FINAL;",
+    # TUMBLING and HOPPING EMIT FINAL and HAVING over EMIT CHANGES run on the
+    # port (tests/test_torch_emit_final.py, test_torch_having.py); these
+    # cases keep shapes that both packages refuse
+    "hopping_emit_final": SS_AGG + "WINDOW HOPPING (SIZE 1 HOUR, ADVANCE BY 20 MINUTES) "
+                                   "GROUP BY L.ID EMIT FINAL;",
     # SESSION windows run on the port (tests/test_torch_session.py); HAVING
     # over them stays refused, as the reference refuses it
     "session": "CREATE TABLE C AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
                "WINDOW SESSION (5 MINUTES) GROUP BY URL HAVING COUNT(*) > 1;",
     "emit_final": "CREATE TABLE C AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
-                  "WINDOW TUMBLING (SIZE 1 HOUR, GRACE PERIOD 0 SECONDS) GROUP BY URL EMIT FINAL;",
-    "having": "CREATE TABLE C AS SELECT USER_ID, COUNT(*) AS CNT FROM PAGE_VIEWS "
-              "GROUP BY USER_ID HAVING COUNT(*) > 3;",
+                  "WINDOW SESSION (5 MINUTES) GROUP BY URL EMIT FINAL;",
+    "having": SS_AGG + "GROUP BY L.ID HAVING COUNT(*) > 3;",
     "collect_list": "CREATE TABLE C AS SELECT URL, COLLECT_LIST(USER_ID) AS CL FROM PAGE_VIEWS GROUP BY URL;",
     "partition_by": "CREATE STREAM S AS SELECT URL, USER_ID FROM PAGE_VIEWS PARTITION BY USER_ID;",
     "function": "CREATE STREAM S AS SELECT URL, ABS(LATENCY) AS A FROM PAGE_VIEWS;",
 }
+#: the cases over the two keyed streams
+UNSUPPORTED_SS = ("hopping_emit_final", "having")
 
 
 @pytest.mark.parametrize("name", list(UNSUPPORTED))
 def test_unsupported_plan_raises(name):
-    _engine, plan, _schema = plan_for(DDL, UNSUPPORTED[name])
+    _engine, plan, _schema = plan_for(SS_DDL if name in UNSUPPORTED_SS else DDL, UNSUPPORTED[name])
     with pytest.raises(DeviceUnsupported):
         TorchCompiledQuery(plan_from_json(plan_to_json(plan)), capacity=8, store_capacity=16, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["hopping_emit_final", "session", "emit_final", "having"])
+def test_refusal_message_is_the_references(name):
+    # the EMIT FINAL and HAVING shapes still refused: the reference refuses
+    # them too, with the same words
+    engine, plan, _schema = plan_for(SS_DDL if name in UNSUPPORTED_SS else DDL, UNSUPPORTED[name])
+    with pytest.raises(Exception) as ref_err:
+        CompiledDeviceQuery(plan, engine.registry, capacity=8, store_capacity=16)
+    with pytest.raises(DeviceUnsupported) as port_err:
+        TorchCompiledQuery(plan_from_json(plan_to_json(plan)), capacity=8, store_capacity=16,
+                           device="cpu")
+    assert str(port_err.value) == str(ref_err.value)

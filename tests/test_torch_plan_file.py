@@ -2,18 +2,24 @@
 
 ``ksql_tpu_torch/plans/pv_counts_tumbling.json`` (BASELINE #1),
 ``pv_stats_hopping.json`` (BASELINE #2), ``enriched_join.json``
-(BASELINE #3), ``ss_join_grace.json`` (BASELINE #4) and ``pv_sessions.json``
-(BASELINE #5) are the serialized physical plans that ``chip_smoke.py``
-runs (the port has no SQL front end yet): each must equal ``plan_to_json``
-of the plan the reference engine builds from the bench's DDL
-(``bench.py``'s tumbling COUNT(*) and hopping SUM/AVG/MIN/MAX over the
-page-view stream, its clicks-users LEFT JOIN, its stream-stream LEFT JOIN
-with GRACE and its SESSION COUNT(*)), and the port's decoder must read it
-back to the same JSON.
+(BASELINE #3), ``ss_join_grace.json`` (BASELINE #4), ``pv_sessions.json``
+(BASELINE #5), ``pv_counts_final.json`` and ``pv_stats_hopping_final.json``
+(BASELINE #1 and #2 with EMIT FINAL), ``possible_fraud.json`` (ksqlDB's
+HAVING example over the page views) and ``pv_having_retract.json`` (a
+HAVING predicate that flips both ways) are the serialized physical plans
+that ``chip_smoke.py`` runs (the port has no SQL front end yet): each must
+equal ``plan_to_json`` of the plan the reference engine builds from the
+bench's DDL (``bench.py``'s tumbling COUNT(*) and hopping
+SUM/AVG/MIN/MAX over the page-view stream, its clicks-users LEFT JOIN, its
+stream-stream LEFT JOIN with GRACE and its SESSION COUNT(*), and the
+EMIT FINAL and HAVING variants), and the port's decoder must read it back
+to the same JSON.
 """
 
 import json
 import os
+
+import pytest
 
 import bench
 from ksql_tpu.execution.steps import plan_to_json
@@ -49,6 +55,28 @@ CTAS = {
         "CREATE TABLE SESSIONS AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
         "WINDOW SESSION (30 SECONDS) GROUP BY URL EMIT CHANGES;"
     ),
+    # BASELINE #1 as tests/test_device_parity.py::test_emit_final_tumbling
+    # runs it: no grace, EMIT FINAL
+    "pv_counts_final.json": (
+        "CREATE TABLE PV_COUNTS_FINAL AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
+        "WINDOW TUMBLING (SIZE 1 HOUR, GRACE PERIOD 0 SECONDS) GROUP BY URL EMIT FINAL;"
+    ),
+    # BASELINE #2 with EMIT FINAL (grace 0 by default)
+    "pv_stats_hopping_final.json": (
+        "CREATE TABLE PV_STATS_FINAL AS SELECT URL, SUM(USER_ID) AS S, AVG(USER_ID) AS A, "
+        "MIN(USER_ID) AS MN, MAX(USER_ID) AS MX FROM PAGE_VIEWS "
+        "WINDOW HOPPING (SIZE 1 HOUR, ADVANCE BY 15 MINUTES) GROUP BY URL EMIT FINAL;"
+    ),
+    # ksqlDB's possible_fraud example (COUNT(*) > 3 per minute), per URL
+    "possible_fraud.json": (
+        "CREATE TABLE POSSIBLE_FRAUD AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
+        "WINDOW TUMBLING (SIZE 1 MINUTE) GROUP BY URL HAVING COUNT(*) > 3 EMIT CHANGES;"
+    ),
+    # a verdict that flips both ways on the page views: retraction tombstones
+    "pv_having_retract.json": (
+        "CREATE TABLE PV_HAVING_RETRACT AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
+        "WINDOW TUMBLING (SIZE 1 MINUTE) GROUP BY URL HAVING AVG(USER_ID) > 500 EMIT CHANGES;"
+    ),
 }
 #: the DDL each plan's query reads (bench.py:149, :541-546)
 DDL = {
@@ -61,6 +89,10 @@ DDL = {
         "WITH (KAFKA_TOPIC='clicks', VALUE_FORMAT='JSON');",
     ],
     "pv_sessions.json": [bench.PV_DDL],
+    "pv_counts_final.json": [bench.PV_DDL],
+    "pv_stats_hopping_final.json": [bench.PV_DDL],
+    "possible_fraud.json": [bench.PV_DDL],
+    "pv_having_retract.json": [bench.PV_DDL],
     "ss_join_grace.json": [
         "CREATE STREAM LEFTS (ID BIGINT KEY, V BIGINT) WITH (KAFKA_TOPIC='lt', VALUE_FORMAT='JSON');",
         "CREATE STREAM RIGHTS (ID BIGINT KEY, V BIGINT) WITH (KAFKA_TOPIC='rt', VALUE_FORMAT='JSON');",
@@ -68,7 +100,9 @@ DDL = {
 }
 SINKS = {"pv_counts_tumbling.json": "PV_COUNTS", "pv_stats_hopping.json": "PV_STATS",
          "enriched_join.json": "ENRICHED", "ss_join_grace.json": "J",
-         "pv_sessions.json": "SESSIONS"}
+         "pv_sessions.json": "SESSIONS", "pv_counts_final.json": "PV_COUNTS_FINAL",
+         "pv_stats_hopping_final.json": "PV_STATS_FINAL", "possible_fraud.json": "POSSIBLE_FRAUD",
+         "pv_having_retract.json": "PV_HAVING_RETRACT"}
 
 
 def _committed(name):
@@ -127,3 +161,18 @@ def test_session_plan_file_equals_reference_engine_plan():
 
 def test_port_decodes_session_plan_file_losslessly():
     _check_decodes("pv_sessions.json")
+
+
+#: the EMIT FINAL and HAVING plans of chip_smoke.py's phases 12-13r
+FINAL_AND_HAVING = ("pv_counts_final.json", "pv_stats_hopping_final.json",
+                    "possible_fraud.json", "pv_having_retract.json")
+
+
+@pytest.mark.parametrize("name", FINAL_AND_HAVING)
+def test_final_and_having_plan_files_equal_reference_engine_plans(name):
+    _check_equals_reference(name)
+
+
+@pytest.mark.parametrize("name", FINAL_AND_HAVING)
+def test_port_decodes_final_and_having_plan_files_losslessly(name):
+    _check_decodes(name)
