@@ -30,12 +30,12 @@ Phases, in this order; any failure exits non-zero and prints no result:
    dim 1 for K6, none for K5 and K7.
 3. End to end: ``run_plan`` on the flagship plan
    (``ksql_tpu_torch/plans/pv_counts_tumbling.json``, tumbling COUNT(*)
-   GROUP BY URL) over 16 x 65,536 JSON records of 50,000 zipf(1.3) URLs.
+   GROUP BY URL) over 8 x 65,536 JSON records of 50,000 zipf(1.3) URLs.
    The sink must equal the port's own ``device="cpu"`` run record for
    record, the last count per (URL, window) must equal a dict count of the
    records, and the store must not overflow.  Prints events/s, p50/p99
    batch time and peak device memory.
-4. Growth: 20 x 131,072 records over 48 h of event time, ~330,000
+4. Growth: 10 x 131,072 records over 48 h of event time, ~330,000
    (URL, window) keys, from a 2^20-slot store: the load trigger must run the
    retention pass (K4), which frees the windows past retention, and grow
    the store to 2^21 slots with zero overflow and exact counts.
@@ -47,7 +47,7 @@ Phases, in this order; any failure exits non-zero and prints no result:
    route must be sliced (ring 102, k 4), the sink must equal the port's
    ``device="cpu"`` run, the last value per (URL, window) a numpy dict
    reference, and nothing may overflow.
-7. Hopping long span, sliced: 72 x 16,384 records over 48 h, 500 hot URLs
+7. Hopping long span, sliced: 72 x 8,192 records over 48 h, 500 hot URLs
    in every hour and an hour-local pool of 2,000 URLs per hour: at least
    one retention pass (K4) must free keys, the ring must be resized, the
    store must grow, values must equal the dict reference.
@@ -122,7 +122,7 @@ Phases, in this order; any failure exits non-zero and prints no result:
    exact.  No single PyTorch call computes any of them, so there is no
    yardstick.
 12. BASELINE #1 with EMIT FINAL (``ksql_tpu_torch/plans/pv_counts_final.json``,
-   no grace) through ``run_plan`` over phase 3's traffic, then
+   no grace) through ``run_plan`` over phase 3's traffic at 16 batches, then
    ``flush_time(last ts + 1 h)``: the sink must equal a numpy model of the
    reference's rule (a window emits in the batch whose stream times first
    reach its close if one of them is within its horizon, is evicted
@@ -139,23 +139,51 @@ Phases, in this order; any failure exits non-zero and prints no result:
    phase 8's traffic on the expansion route (the reference's reason),
    then a flush: the sink must equal the port's CPU run, each window once.
 13. ksqlDB's possible_fraud query (``possible_fraud.json``, HAVING
-   COUNT(*) > 3 per URL and minute) over phase 3's traffic with USER_ID
+   COUNT(*) > 3 per URL and minute) over phase 3's 8 batches with USER_ID
    drawn as bench.py does: the sink must equal a numpy count, no
    tombstone.
 13r. A HAVING verdict that flips both ways (``pv_having_retract.json``,
    AVG(USER_ID) > 500) on the first 4 batches of the same traffic:
    retraction tombstones, and the sink equal to the port's CPU run over
    the same batches.
+2v. The vector aggregates' kernels against their twins at phase 14's
+   shapes (a 4,096-row batch of its traffic into a 2^16-slot pv_vectors
+   store half full: collect lists below, at and past their 1,000 cap, sets
+   of distinct ids, LATEST_BY_OFFSET(n)'s ring mid-wrap, sorted top-3s,
+   a populated dump row; 2% of the rows overflowed, 1% inactive): K20
+   ``vec_collect`` (append, set, ring), K21 ``vec_topk`` (plain,
+   distinct; and over DOUBLE with -0.0, +0.0, NaN and -inf), K6's wide
+   gather of the winners' width-K rows, K13 on the first-occurrence order
+   and K4 over width-K columns; then K20's hist mode and K22 ``vec_hist``
+   on a 2^15-slot pv_user_pages store (up to 300 URLs a map, some at the
+   1,000 cap).  All exact, the dump row included.  Yardstick:
+   ``index_select`` of the K-wide rows for K6, two stable torch.argsort
+   for K13; no single PyTorch call computes K20-K22.
+14. Vector aggregates end to end (``ksql_tpu_torch/plans/pv_vectors.json``:
+   COLLECT_LIST, COLLECT_SET, TOPK, TOPKDISTINCT, EARLIEST_BY_OFFSET(n)
+   and LATEST_BY_OFFSET(n) of USER_ID per URL and hour) through
+   ``run_plan`` over phase 6's traffic in 64 batches of 4,096 (larger
+   batches overflow the store that the 256 MiB state budget clamps to
+   8,192 slots before the first sampled load check): the sink must equal
+   the port's CPU run record for record, the last value per (URL, hour) a
+   dict model (the first 1,000 ids, the first 1,000 distinct, the 3
+   largest with and without repeats, the first and last 3), the store
+   must grow and not overflow.
+14h. ``pv_user_pages.json`` (HISTOGRAM(URL) per USER_ID and hour) over the
+   same traffic: the sink must equal the CPU run, the last map per
+   (USER_ID, hour) a count of its URLs.
+14b. Phase 14's first 8 batches re-run under the breakdown's timers.
 5. Launch counters, per path: the counts (per kernel, and per mode for K1,
-   K4, K6, K10, K11, K14, K16 and K17) are set to 0 just before each of
-   phases 3, 4, 6, 7, 8, 9, 9g, 10, 10g, 11, 11g, 12, 12g, 12h, 13 and 13r
-   drives the runner on the card (and, for 12-12h, its flush) and read
+   K4, K6, K10, K11, K14, K16, K17, K20 and K21) are set to 0 just before each of
+   phases 3, 4, 6, 7, 8, 9, 9g, 10, 10g, 11, 11g, 12, 12g, 12h, 13, 13r, 14
+   and 14h drives the runner on the card (and, for 12-12h, its flush) and read
    just after it; each phase must have launched every kernel of its route
    in the route's modes (``PATH_KERNELS``), and no kernel or mode outside
    it.  Then short profiled re-runs split a batch's time into
    host stages and the card's busy share, for the flagship (3b), BASELINE
-   #2 (6b), BASELINE #3 (9b), BASELINE #4 (10b) and BASELINE #5 (11b, with
-   the share of its one ``sess_ovf`` read); phase 12 carries its own (12b).
+   #2 (6b), BASELINE #3 (9b), BASELINE #4 (10b), BASELINE #5 (11b, with
+   the share of its one ``sess_ovf`` read) and pv_vectors (14b); phase 12
+   carries its own (12b).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON record, and the line before that the card's name and
@@ -166,6 +194,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -178,10 +207,14 @@ INT_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores (NVIDIA 
 N_ROWS = 1 << 16
 STORE = 1 << 20
 N_BATCHES = 16
+#: phase 3's depth, cut from 16 for the script's time (PERF.md §4)
+FLAGSHIP_BATCHES = 8
 N_URLS = 50_000
 GROWTH_ROWS = 1 << 17
-GROWTH_BATCHES = 20
-GROWTH_REPEATS = 8
+#: phase 4: 10 batches, each URL of an hour's pool seen 4 times (cut from
+#: 20 batches and 8 views for the script's time: the same ~330,000 keys)
+GROWTH_BATCHES = 10
+GROWTH_REPEATS = 4
 HOP_ROWS = 1 << 14  # BASELINE #2's batch: CAPACITY // 4 (bench.py:217)
 HOP_STORE = 1 << 16
 HOP_RING = 102  # (1 h + 24 h grace) / 15 min + 2
@@ -231,7 +264,7 @@ KERNEL_FUNCS = {
     "fold_and_mark": ("fold_kernel", "winners_kernel"),
     "evict": ("evict_kernel",),
     "sliced_fold": ("slice_reset_kernel", "slice_fold_kernel"),
-    "combine_windows": ("combine_kernel",),
+    "combine_windows": ("combine_kernel", "wide_gather_kernel"),
     "member_lanes": ("lane_claim_kernel", "lane_winner_kernel"),
     "probe_find": ("probe_find_kernel",),
     "table_upsert": ("claim_kernel", "upsert_kernel", "dump_kernel"),
@@ -245,6 +278,11 @@ KERNEL_FUNCS = {
     "suppress_clock": ("clock_kernel",),
     "suppress_close": ("born_kernel", "close_kernel"),
     "having_verdict": ("verdict_kernel", "dump_kernel"),
+    "vec_collect": ("collect_prologue_kernel", "collect_first_kernel", "collect_place_kernel",
+                    "collect_finish_kernel"),
+    "vec_topk": ("topk_keys_kernel", "topk_dedup_kernel", "topk_gather_kernel", "topk_pstar_kernel",
+                 "topk_top_kernel", "topk_dump_kernel"),
+    "vec_hist": ("hist_count_kernel",),
 }
 
 
@@ -1351,6 +1389,9 @@ _FINAL = {"row_prologue": "tumbling", "suppress_clock": "tumbling", "probe_inser
           "fold_and_mark": None, "suppress_close": None, "combine_windows": "gather"}
 #: HAVING retraction: the tumbling path, and K19 per batch
 _HAVING = {**_TUMBLING, "having_verdict": None}
+#: vector aggregates: the tumbling path with K6 gathering the width-K state,
+#: K13 for the vector orders, and K4 at each grow's retention pass
+_VECTOR = {**_TUMBLING, "combine_windows": "wide", "seg_sort": None, "evict": "tumbling"}
 PATH_KERNELS = {
     "3": _TUMBLING,
     "4": {**_TUMBLING, "evict": "tumbling"},
@@ -1368,6 +1409,8 @@ PATH_KERNELS = {
     "12h": {**_FINAL, "row_prologue": "expansion", "suppress_clock": "expansion"},
     "13": _HAVING,
     "13r": _HAVING,
+    "14": {**_VECTOR, "vec_collect": ("append", "set", "ring"), "vec_topk": ("plain", "distinct")},
+    "14h": {**_VECTOR, "vec_collect": "hist", "vec_hist": None},
 }
 #: per phase, each kernel's launches in that phase's card run, by mode
 PATH_LAUNCHES: dict = {}
@@ -1379,9 +1422,10 @@ def _wrappers():
     from ksql_tpu_torch.ops import slicing
     from ksql_tpu_torch.ops import ss_join
     from ksql_tpu_torch.ops import suppress
+    from ksql_tpu_torch.ops import vector
 
     return (hs.KERNEL_WRAPPERS + slicing.KERNEL_WRAPPERS + ss_join.KERNEL_WRAPPERS
-            + session.KERNEL_WRAPPERS + suppress.KERNEL_WRAPPERS)
+            + session.KERNEL_WRAPPERS + suppress.KERNEL_WRAPPERS + vector.KERNEL_WRAPPERS)
 
 
 def zero_launches() -> None:
@@ -1474,7 +1518,7 @@ def run_main_path(torch, plan_json, url_idx, ts, device, store, batch_seconds=No
 
 def phase_e2e(torch, plan_json, seed):
     rng = np.random.default_rng(seed + 1)
-    n = N_BATCHES * N_ROWS
+    n = FLAGSHIP_BATCHES * N_ROWS
     url_idx = rng.zipf(1.3, size=n).astype(np.int64) % N_URLS
     ts = TS0 + np.arange(n, dtype=np.int64) * 17
     torch.cuda.reset_peak_memory_stats()
@@ -1564,8 +1608,9 @@ def phase_growth(torch, plan_json, seed):
     about 0.3 full: the reference's 32-probe limit loses rows from about
     0.47 load at 65,536-row batches (see PERF.md), so the store must grow
     before that.  Each hour of event time has its own pool of URLs, each
-    viewed GROWTH_REPEATS times on average, so a batch adds ~1.6% of the
-    store in new (URL, window) keys."""
+    viewed GROWTH_REPEATS times on average, so a batch adds ~3% of the
+    store in new (URL, window) keys; the trigger passes at the drain's
+    check, over the last batch's ~320,000 keys."""
     rng = np.random.default_rng(seed + 2)
     n = GROWTH_BATCHES * GROWTH_ROWS
     ts = TS0 - TS0 % HOUR_MS + (np.arange(n, dtype=np.int64) * (48 * HOUR_MS)) // n
@@ -1590,6 +1635,7 @@ def phase_growth(torch, plan_json, seed):
 # ------------------------------------------------------------- phase 6-8
 HOP_BATCHES = 16
 LONG_BATCHES = 72  # past EVICT_INTERVAL (64): the cadence retention pass runs
+LONG_ROWS = 8192  # phase 7's batch, cut from 16,384 for the script's time (PERF.md §4)
 HOT_URLS = 500
 POOL_URLS = 2000
 
@@ -1677,7 +1723,7 @@ def phase_hop_e2e(torch, plan_json, seed, sliced, tag):
 
 
 def phase_hop_long(torch, plan_json, seed):
-    """72 x 16,384 records over 48 h (a batch spans 40 min): 500 hot URLs in
+    """72 x 8,192 records over 48 h (a batch spans 40 min): 500 hot URLs in
     every hour, so their ring cells wrap after 25.5 h, and an hour-local
     pool of 2,000 URLs per hour that goes cold and passes the 25 h
     retention.  The ring must be resized (more than 25 h of event time
@@ -1686,7 +1732,7 @@ def phase_hop_long(torch, plan_json, seed):
     from ksql_tpu_torch.runtime.lowering import TorchCompiledQuery
 
     rng = np.random.default_rng(seed + 4)
-    n = LONG_BATCHES * HOP_ROWS
+    n = LONG_BATCHES * LONG_ROWS
     ts = TS0 - TS0 % HOUR_MS + (np.arange(n, dtype=np.int64) * (48 * HOUR_MS)) // n
     hour = (ts - ts[0]) // HOUR_MS
     hot = rng.random(n) < 0.25
@@ -1705,7 +1751,7 @@ def phase_hop_long(torch, plan_json, seed):
     try:
         torch.cuda.reset_peak_memory_stats()
         broker, ex, secs = run_main_path(torch, plan_json, url_idx, ts, DEVICE, STORE,
-                                         rows=HOP_ROWS, user_ids=uid, path="7")
+                                         rows=LONG_ROWS, user_ids=uid, path="7")
     finally:
         TorchCompiledQuery._evict = evict
     q = ex.query
@@ -2536,8 +2582,10 @@ FINAL_ADVANCE_MS = 20 * 60_000  # phase 2f's expansion lanes: 1 h windows, k = 3
 HOP_ADVANCE_MS = 15 * 60_000  # BASELINE #2's advance (pv_stats_hopping_final.json): k = 4
 FINAL_GROW_ROWS = 1 << 20  # phase 12g's batch (see phase_final_growth)
 FINAL_GROW_RECORDS = (1 << 20) + (1 << 18)  # a full batch, then a quarter batch
+FINAL_GROW_REPEATS = 8  # phase 12g: each URL of an hour's pool seen 8 times
 HAVING_MIN_MS = 60_000  # possible_fraud's window
 HAVING_RETRACT_BATCHES = 4  # phase 13r's depth, on the card and in the CPU run
+HAVING_BATCHES = 8  # phase 13's depth, cut from 16 for the script's time (PERF.md §4)
 PV_STEP_MS = 17  # bench.py:139: phases 12 and 13 space their records as phase 3 does
 
 
@@ -2820,7 +2868,8 @@ def check_final_sink(broker, topic, url_idx, ts, rows, flush_to, label):
 def phase_final_e2e(torch, final_json, seed):
     """Phase 12: BASELINE #1 with EMIT FINAL and no grace
     (``ksql_tpu_torch/plans/pv_counts_final.json``) over phase 3's traffic
-    (16 x 65,536 records of 50,000 zipf(1.3) URLs, 17 ms apart) into 2^20
+    at 16 batches (16 x 65,536 records of 50,000 zipf(1.3) URLs, 17 ms
+    apart) into 2^20
     slots, then ``flush_time(last ts + 1 h)``: the sink must equal
     :func:`final_reference` record for record.  Its breakdown (12b) is
     taken on this run: an EMIT FINAL plan is never pipelined, so the
@@ -2870,7 +2919,7 @@ def phase_final_e2e(torch, final_json, seed):
 
 def phase_final_growth(torch, final_json, seed):
     """Phase 12g: phase 4's 48 h traffic shape (an hour-local pool of URLs,
-    each seen GROWTH_REPEATS times an hour on average; ~160,000 (URL, hour)
+    each seen FINAL_GROW_REPEATS times an hour on average; ~160,000 (URL, hour)
     keys) on the EMIT FINAL plan, from a 2^20-slot store.  An EMIT FINAL
     batch is never pipelined, so the load check's headroom is one batch,
     and the windows leave retention an hour after they start: at phase 4's
@@ -2884,7 +2933,7 @@ def phase_final_growth(torch, final_json, seed):
     n = FINAL_GROW_RECORDS
     ts = TS0 - TS0 % HOUR_MS + (np.arange(n, dtype=np.int64) * (48 * HOUR_MS)) // n
     hour = (ts - ts[0]) // HOUR_MS
-    pool = max(1, n // 48 // GROWTH_REPEATS)
+    pool = max(1, n // 48 // FINAL_GROW_REPEATS)
     url_idx = hour * pool + rng.integers(0, pool, n)
     flush_to = int(ts[-1]) + HOUR_MS
     torch.cuda.reset_peak_memory_stats()
@@ -2982,7 +3031,7 @@ def phase_having_e2e(torch, fraud_json, retract_json, seed):
     traffic, cut to its first HAVING_RETRACT_BATCHES batches: the sink must
     hold retraction tombstones and equal the port's CPU run over the same
     batches record for record."""
-    url_idx, uid, ts = having_traffic(seed)
+    url_idx, uid, ts = having_traffic(seed, HAVING_BATCHES)
     n = url_idx.size
     out = {}
     # 13r runs the first HAVING_RETRACT_BATCHES batches of it
@@ -3025,6 +3074,449 @@ def phase_having_e2e(torch, fraud_json, retract_json, seed):
     return out
 
 
+# ------------------------------------------------------- phase 2v, 14-14b
+VEC_ROWS = 4096  # phase 14's batch: 16,384 and 8,192 overflow the clamped store (PERF.md §4)
+VEC_BATCHES = 64  # 64 x 4,096 = phase 6's 16 x 16,384 records
+VEC_STORE = 1 << 16  # phase 2v's store: the size phase 14 grows to
+HIST_STORE = 1 << 15  # phase 2v's histogram store: the size phase 14h grows to
+VEC_FILL = 0.5  # phase 2v's stores are half full
+_PLANS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ksql_tpu_torch", "plans")
+VEC_PLAN = os.path.join(_PLANS, "pv_vectors.json")
+HIST_PLAN = os.path.join(_PLANS, "pv_user_pages.json")
+VEC_BREAKDOWN_BATCHES = 8  # phase 14b's re-run
+
+
+def vector_traffic(seed, n_batches=VEC_BATCHES):
+    """Phase 6's traffic (``bench.py:119-146``: 50,000 URLs zipf(1.3),
+    USER_ID 1..999, 17 ms apart; the same draws as :func:`hop_traffic`) in
+    ``n_batches`` batches of VEC_ROWS."""
+    return _pv_draw(np.random.default_rng(seed + 3), n_batches * VEC_ROWS)
+
+
+def _pv_draw(rng, n):
+    """``n`` records of phase 6's traffic shape: (URL index, USER_ID, ts)."""
+    url_idx = rng.zipf(1.3, size=n).astype(np.int64) % N_URLS
+    return url_idx, rng.integers(1, 1000, n), TS0 + np.arange(n, dtype=np.int64) * 17
+
+
+def _bits(torch, t):
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+def _assert_store(torch, name, got, want, keys):
+    for k in keys:
+        _assert_equal(torch, f"{name}.{k}", _bits(torch, got[k]), _bits(torch, want[k]))
+
+
+def _vector_query(torch, plan_path, rows, capacity, dev):
+    """The plan's query, its store layout at ``capacity`` slots (the budget
+    clamp is for a fresh query; a grown store holds more) and a fresh
+    store."""
+    import dataclasses
+
+    from ksql_tpu_torch.execution.steps import plan_from_json
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.runtime.lowering import TorchCompiledQuery
+
+    with open(plan_path) as f:
+        q = TorchCompiledQuery(plan_from_json(json.load(f)), capacity=rows,
+                               store_capacity=capacity, device=dev)
+    layout = dataclasses.replace(q.store_layout, capacity=capacity)
+    return q, layout, hs.init_store(layout, dev)
+
+
+def make_vector_case(torch, rng, dev, n=VEC_ROWS, capacity=VEC_STORE):
+    """Phase 2v's pv_vectors case: a ``capacity``-slot store, VEC_FILL of its
+    slots holding vector state — collect lists below, at and past their cap
+    of 1,000, sets of distinct ids, E3/L3 counts up to 10 (L3's ring
+    mid-wrap), sorted top-3s with absent entries — and a populated dump row;
+    one batch of ``n`` rows of phase 14's traffic whose URLs map onto the
+    filled slots (hot URLs repeat within the batch), 2% of the rows
+    overflowed to the dump slot and 1% inactive.  Returns the query, layout,
+    store, slots, per-component contributions and the group starts."""
+    from ksql_tpu_torch.common import types as T
+    from ksql_tpu_torch.compiler.torch_expr import DCol
+
+    q, layout, store = _vector_query(torch, VEC_PLAN, n, capacity, dev)
+    c1 = capacity + 1
+    filled = rng.choice(capacity, int(capacity * VEC_FILL), replace=False)
+    starts = q._spec_comp_starts()
+    for spec, j in zip(q.agg_specs, starts):
+        comps = spec.device.components
+        K = comps[-1].width
+        if comps[0].combine == "vec_count":
+            if K == 1000:
+                cnt = np.where(rng.random(c1) < 0.6, rng.integers(1, 50, c1),
+                               rng.choice([500, 999, 1000, 1001, 2500], c1))
+            else:
+                cnt = rng.integers(0, 11, c1)
+            cnt[np.setdiff1d(np.arange(capacity), filled)] = 0
+            cnt[capacity] = 0
+            if comps[1].mode == "set":
+                # distinct ids: an offset plus 2 t modulo 999 (2 and 999 are coprime)
+                cnt = np.minimum(cnt, 999)
+                data = (rng.integers(0, 999, (c1, 1)) + 2 * np.arange(K)[None, :]) % 999 + 1
+            else:
+                data = rng.integers(1, 1000, (c1, K))
+            held = np.arange(K)[None, :] < np.minimum(cnt, K)[:, None]
+            held[capacity] = True  # the dump row holds whatever was aimed at it
+            store[f"a{j}"].copy_(torch.from_numpy(cnt.astype(np.int64)))
+            store[f"a{j + 1}"].copy_(torch.from_numpy(np.where(held, data, 0).astype(np.int64)))
+            store[f"a{j + 2}"].copy_(torch.from_numpy(held.astype(np.int8)))
+        else:  # TOPK / TOPKDISTINCT: sorted descending, absent entries at the floor
+            cnt = rng.integers(0, 6, c1)
+            top = -np.sort(-rng.integers(1, 1000, (c1, K)), axis=1)
+            top = np.where(np.arange(K)[None, :] < cnt[:, None], top, np.iinfo(np.int64).min)
+            store[f"a{j}"].copy_(torch.from_numpy(cnt.astype(np.int32)))
+            store[f"a{j + 1}"].copy_(torch.from_numpy(top.astype(np.int64)))
+    url_idx, uid, ts = _pv_draw(rng, n)
+    slots = filled[(url_idx * 2654435761) % filled.size].astype(np.int32)
+    over = rng.random(n) < 0.02
+    slots[over] = capacity
+    active = torch.from_numpy(rng.random(n) > 0.01).to(dev)
+    slots = torch.from_numpy(slots).to(dev)
+    uid_t = torch.from_numpy(uid.astype(np.int64)).to(dev)
+    col = DCol(uid_t, torch.ones(n, dtype=torch.bool, device=dev), T.BIGINT)
+    contribs = [torch.from_numpy(ts).to(dev)]
+    for spec in q.agg_specs:
+        contribs.extend(spec.device.contribs([col], active))
+    return dict(q=q, layout=layout, store=store, slots=slots, contribs=contribs, starts=starts,
+                active=active)
+
+
+def make_hist_case(torch, rng, dev, n=VEC_ROWS, capacity=HIST_STORE):
+    """Phase 2v's pv_user_pages case: a ``capacity``-slot HISTOGRAM store,
+    VEC_FILL of it holding up to 300 entries a slot (a few at the cap of
+    1,000) of URL codes with counts, a populated dump row; one batch of
+    phase 14h's traffic: (USER_ID, hour) slots, URL codes, 2% overflowed."""
+    from ksql_tpu_torch.common import types as T
+    from ksql_tpu_torch.common.batch import stable_hash64
+    from ksql_tpu_torch.compiler.torch_expr import DCol
+
+    q, layout, store = _vector_query(torch, HIST_PLAN, n, capacity, dev)
+    (j,) = q._spec_comp_starts()
+    K = layout.components[j + 1].width
+    c1 = capacity + 1
+    filled = rng.choice(capacity, int(capacity * VEC_FILL), replace=False)
+    codes = np.array([stable_hash64(f"/page/{i}") for i in range(2000)], np.int64)
+    cnt = np.zeros(c1, np.int64)
+    cnt[filled] = np.where(rng.random(filled.size) < 0.02, K, rng.integers(1, 300, filled.size))
+    cnt[capacity] = 0
+    held = np.arange(K)[None, :] < cnt[:, None]
+    held[capacity] = True
+    # distinct codes: an offset plus 7 t modulo 2,000 (7 and 2,000 are coprime)
+    data = codes[(rng.integers(0, 2000, (c1, 1)) + 7 * np.arange(K)[None, :]) % 2000]
+    store[f"a{j}"].copy_(torch.from_numpy(cnt))
+    store[f"a{j + 1}"].copy_(torch.from_numpy(np.where(held, data, 0)))
+    store[f"a{j + 2}"].copy_(torch.from_numpy(held.astype(np.int8)))
+    store[f"a{j + 3}"].copy_(torch.from_numpy(np.where(held, rng.integers(1, 50, (c1, K)), 0)))
+    url_idx, uid, ts = _pv_draw(rng, n)
+    slots = filled[(uid * 40503) % filled.size].astype(np.int32)
+    slots[rng.random(n) < 0.02] = capacity
+    url_codes = codes[url_idx % codes.size]
+    active = torch.from_numpy(rng.random(n) > 0.01).to(dev)
+    col = DCol(torch.from_numpy(url_codes).to(dev), torch.ones(n, dtype=torch.bool, device=dev),
+               T.STRING)
+    contribs = [torch.from_numpy(ts).to(dev)] + q.agg_specs[0].device.contribs([col], active)
+    return dict(q=q, layout=layout, store=store, slots=torch.from_numpy(slots).to(dev),
+                contribs=contribs, j=j)
+
+
+def _changed_cells(torch, before, after, keys):
+    """Cells of the listed columns that a fold changed (its writes)."""
+    return sum(int((_bits(torch, before[k]) != _bits(torch, after[k])).sum()) for k in keys)
+
+
+def phase_vector_kernels(torch, seed):
+    """Phase 2v: K20 (append, set, ring, hist), K21 (plain, distinct), K22,
+    K6's wide gather, K13 on the first-occurrence order and K4 over width-K
+    columns against their twins on ``make_vector_case`` and
+    ``make_hist_case``, and K21 over doubles with -0.0, +0.0, NaN and the
+    floor; all exact, the dump row included.  Returns ``({kernel: {mode:
+    record}}, extra records)``."""
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.ops import session as sess
+    from ksql_tpu_torch.ops import slicing
+    from ksql_tpu_torch.ops import vector as vec
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 17)
+    c = make_vector_case(torch, rng, dev)
+    layout, store, slots, contribs = c["layout"], c["store"], c["slots"], c["contribs"]
+    n, cap = slots.shape[0], layout.capacity
+    recs: dict = {}
+    extra: dict = {}
+    s_np = slots.cpu().numpy()
+    touched = np.unique(s_np[s_np != cap])
+
+    def done(kernel, mode, rec, what):
+        recs.setdefault(kernel, {})[mode] = dict(rec, max_abs_err=0.0)
+        if rec["library_ms"] is None:
+            what += "; no single PyTorch call computes it"
+        _report("2v", f"{kernel}[{mode}] ({what})", recs[kernel][mode])
+
+    def group_keys(j, size):
+        return [f"a{j + t}" for t in range(size)]
+
+    def check_fold(name, j, size, fn, plain):
+        keys = group_keys(j, size)
+        saved = {k: store[k].clone() for k in keys}
+        work = {k: store[k].clone() for k in keys}
+        twin = {k: store[k].clone() for k in keys}
+        fn(work)
+        plain(twin)
+        torch.cuda.synchronize()
+        _assert_store(torch, name, work, twin, keys)
+        return saved, work, (lambda: [work[k].copy_(saved[k]) for k in keys])
+
+    # ---- K20 append / set / ring (CL, CS, L3; E3 checked, timed with CL)
+    names = [s.fname for s in c["q"].agg_specs]
+    for fname, mode in (("COLLECT_LIST", "append"), ("COLLECT_SET", "set"),
+                        ("LATEST_BY_OFFSET", "ring"), ("EARLIEST_BY_OFFSET", "append")):
+        j = c["starts"][names.index(fname)]
+        K = layout.components[j + 1].width
+        saved, work, reset = check_fold(
+            f"vec_collect[{mode}:{fname}]", j, 3,
+            lambda s: vec.vec_collect(s, layout, j, contribs, slots, mode),
+            lambda s: vec.vec_collect_plain(s, layout, j, contribs, slots, mode))
+        if fname == "EARLIEST_BY_OFFSET":
+            print(f"[2v] vec_collect[append] EARLIEST_BY_OFFSET(USER_ID, 3): exact")
+            continue
+        cnt = saved[f"a{j}"][torch.from_numpy(touched).to(dev)].clamp(max=K)
+        scan = int(cnt.sum()) * 9 if mode == "set" else 0
+        writes = _changed_cells(torch, saved, work, group_keys(j + 1, 2))
+        done("vec_collect", mode, measure(
+            torch, "vec_collect", lambda: vec.vec_collect(work, layout, j, contribs, slots, mode),
+            lambda: vec.vec_collect_plain(work, layout, j, contribs, slots, mode),
+            n * 21 + touched.size * 16 + scan + writes * 9, n * 40, reset=reset, plain_reps=10),
+            f"{fname}, K = {K}: {n} rows into {touched.size} slots, {writes} cells written")
+    # ---- K13 on the first-occurrence order (COLLECT_SET's, as K20 sorts it)
+    j = c["starts"][names.index("COLLECT_SET")]
+    eff0 = torch.where((contribs[j] > 0) & (slots != cap), slots, torch.full_like(slots, cap))
+    k1 = eff0.long() * 2 + contribs[j + 2].long()
+    k2 = contribs[j + 1].long()
+    _assert_equal(torch, "seg_sort[vector]", sess.seg_sort(k1, k2), sess.seg_sort_plain(k1, k2))
+    extra["seg_sort_vector"] = dict(measure(
+        torch, "seg_sort", lambda: sess.seg_sort(k1, k2), lambda: sess.seg_sort_plain(k1, k2),
+        n * 20, n * int(np.ceil(np.log2(n))) * 5, library=lambda: _argsort_lsd(torch, k1, k2)),
+        max_abs_err=0.0)
+    _report("2v", f"seg_sort[vector] ({n} rows, (slot, bit, value); yardstick two stable torch.argsort)",
+            extra["seg_sort_vector"])
+    # ---- K21 plain / distinct (TK, TD)
+    for fname, mode in (("TOPK", "plain"), ("TOPKDISTINCT", "distinct")):
+        j = c["starts"][names.index(fname)] + 1
+        K = layout.components[j].width
+        saved, work, reset = check_fold(
+            f"vec_topk[{mode}]", j, 1, lambda s: vec.vec_topk(s, layout, j, contribs[j], slots),
+            lambda s: vec.vec_topk_plain(s, layout, j, contribs[j], slots))
+        done("vec_topk", mode, measure(
+            torch, "vec_topk", lambda: vec.vec_topk(work, layout, j, contribs[j], slots),
+            lambda: vec.vec_topk_plain(work, layout, j, contribs[j], slots),
+            n * 12 + touched.size * K * 16, n * 40, reset=reset, plain_reps=10),
+            f"{fname}(USER_ID, {K}): {n} rows into {touched.size} slots")
+    _check_topk_doubles(torch, rng, dev)
+    # ---- K6's wide gather over the winners
+    rowidx = torch.arange(n, dtype=torch.int32, device=dev)
+    first = torch.full((cap + 1,), n, dtype=torch.int32, device=dev)
+    first.scatter_reduce_(0, torch.where(c["active"], slots, cap).long(), rowidx, "amin")
+    winners = c["active"] & (slots != cap) & (first[slots.long()] == rowidx)  # K3's winners
+    got = slicing.combine_windows(store, layout, 1, slots, mask=winners)
+    want = slicing.combine_windows_plain(store, layout, 1, slots, mask=winners)
+    for k in want:
+        g, w = got[k], want[k]
+        if g.dim() == 2:
+            g, w = g[winners], w[winners]
+        _assert_equal(torch, f"combine_windows[wide].{k}", _bits(torch, g), _bits(torch, w))
+    wide = [store[f"a{j}"] for j, comp in enumerate(layout.components) if comp.width > 1]
+    row_bytes = sum(w.shape[1] * w.element_size() for w in wide)
+    lanes = int(winners.sum())
+    sel = slots[winners].long()
+    done("combine_windows", "wide", measure(
+        torch, "combine_windows", lambda: slicing.combine_windows(store, layout, 1, slots, mask=winners),
+        lambda: slicing.combine_windows_plain(store, layout, 1, slots, mask=winners),
+        n * 5 + lanes * row_bytes * 2 + n * 60, 0,
+        library=lambda: [torch.index_select(w, 0, sel) for w in wide]),
+        f"{lanes} of {n} lanes gather {row_bytes} B of vector state; yardstick index_select of the "
+        "K-wide rows")
+    # ---- K4 over width-K columns
+    ev = {k: v.clone() for k, v in store.items()}
+    ev["occ"][torch.from_numpy(touched).to(dev)] = True
+    ev["wstart"].copy_(torch.from_numpy(rng.integers(0, 10, cap + 1) * HOUR_MS).to(dev))
+    ev["max_ts"].fill_(9 * HOUR_MS)
+    twin = {k: v.clone() for k, v in ev.items()}
+    hs.evict(ev, layout, HOUR_MS)
+    hs.evict_plain(twin, layout, HOUR_MS)
+    torch.cuda.synchronize()
+    _assert_store(torch, "evict[vector]", ev, twin, list(twin))
+    print(f"[2v] evict over width-K columns ({int(twin['grave'].sum())} slots expire): exact")
+    del ev, twin
+    # ---- K20 hist + K22 (pv_user_pages)
+    h = make_hist_case(torch, rng, dev)
+    hl, hst, hslots, hc, j = h["layout"], h["store"], h["slots"], h["contribs"], h["j"]
+    keys = [f"a{j + t}" for t in range(4)]
+    saved = {k: hst[k].clone() for k in keys}
+    work = {k: hst[k].clone() for k in keys}
+    twin = {k: hst[k].clone() for k in keys}
+    vec.vec_collect(work, hl, j, hc, hslots, "hist")
+    vec.vec_collect_plain(twin, hl, j, hc, hslots, "hist")
+    _assert_store(torch, "vec_collect[hist]", work, twin, keys)
+    after1 = {k: work[k].clone() for k in keys}
+    vec.vec_hist(work, hl, j, hc, hslots)
+    vec.vec_hist_plain(twin, hl, j, hc, hslots)
+    _assert_store(torch, "vec_hist", work, twin, keys)
+    hs_np = hslots.cpu().numpy()
+    htouched = np.unique(hs_np[hs_np != hl.capacity])
+    hcnt = int(saved[f"a{j}"][torch.from_numpy(htouched).to(dev)].clamp(max=1000).sum())
+    writes = _changed_cells(torch, saved, after1, keys[1:3])
+
+    def reset1():
+        for k in keys:
+            work[k].copy_(saved[k])
+
+    def reset2():
+        for k in keys:
+            work[k].copy_(after1[k])
+
+    done("vec_collect", "hist", measure(
+        torch, "vec_collect", lambda: vec.vec_collect(work, hl, j, hc, hslots, "hist"),
+        lambda: vec.vec_collect_plain(work, hl, j, hc, hslots, "hist"),
+        n * 21 + htouched.size * 16 + hcnt * 9 + writes * 9, n * 40, reset=reset1, plain_reps=10),
+        f"HISTOGRAM(URL): {n} rows into {htouched.size} slots, {writes} entries appended")
+    bumped = _changed_cells(torch, after1, twin, keys[3:])
+    done("vec_hist", "hist", measure(
+        torch, "vec_hist", lambda: vec.vec_hist(work, hl, j, hc, hslots),
+        lambda: vec.vec_hist_plain(work, hl, j, hc, hslots),
+        n * 21 + htouched.size * 8 + hcnt * 9 + bumped * 16, n * 40, reset=reset2, plain_reps=10),
+        f"{n} rows' counts into {bumped} entries")
+    return recs, extra
+
+
+def _check_topk_doubles(torch, rng, dev, capacity=1 << 10, n=VEC_ROWS, K=3):
+    """K21 over DOUBLE values with -0.0, +0.0, NaN and the -inf floor, both
+    modes, against the twin; exact (bits)."""
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.ops import vector as vec
+
+    pool = np.array([-0.0, 0.0, np.nan, -np.inf, 1.5, -2.0, 7.25, 1e300], np.float64)
+    for mode in ("", "distinct"):
+        layout = hs.StoreLayout(capacity, 1, (
+            hs.AggComponent("add", "int32", 0),
+            hs.AggComponent("topk", "float64", float("-inf"), width=K, mode=mode)))
+        col = torch.from_numpy(-np.sort(-pool[rng.integers(0, pool.size, (capacity + 1, K))],
+                                        axis=1)).to(dev)
+        vals = torch.from_numpy(pool[rng.integers(0, pool.size, n)]).to(dev)
+        slots = torch.from_numpy(rng.integers(0, capacity + 1, n).astype(np.int32)).to(dev)
+        got, want = {"a1": col.clone()}, {"a1": col.clone()}
+        vec.vec_topk(got, layout, 1, vals, slots)
+        vec.vec_topk_plain(want, layout, 1, vals, slots)
+        _assert_store(torch, f"vec_topk[{mode or 'plain'}:DOUBLE]", got, want, ["a1"])
+    print("[2v] vec_topk over DOUBLE (-0.0, +0.0, NaN, -inf), plain and distinct: exact (bits)")
+
+
+def vector_batch_loads(url_idx, ts, clamp=8192):
+    """Per batch size, the load of pv_vectors' budget-clamped store when
+    batch 4 inserts: the pipelined executor's first load check (batch 4)
+    reads batch 3's occupancy, so nothing can grow the store before."""
+    key = url_idx * (1 << 20) + ts // HOUR_MS
+    return {rows: len(np.unique(key[: 4 * rows])) / clamp for rows in (16384, 8192, VEC_ROWS)}
+
+
+def vector_reference(url_idx, uid, ts):
+    """A dict model of pv_vectors: per (URL, hour) in arrival order, CL the
+    first 1,000 USER_IDs, CS the first 1,000 distinct, TK/TD the 3 largest
+    with and without repeats, E3/L3 the first and last 3."""
+    groups: dict = {}
+    for u, x, t in zip(url_idx.tolist(), uid.tolist(), ts.tolist()):
+        groups.setdefault((f"/page/{u}", t - t % HOUR_MS), []).append(x)
+    out = {}
+    for k, xs in groups.items():
+        distinct = list(dict.fromkeys(xs))
+        out[k] = {"CL": xs[:1000], "CS": distinct[:1000], "TK": sorted(xs, reverse=True)[:3],
+                  "TD": sorted(distinct, reverse=True)[:3], "E3": xs[:3], "L3": xs[-3:]}
+    return out
+
+
+def last_values(broker, topic):
+    """The last sink value per (key, window start), decoded."""
+    return {(k, w[0]): json.loads(v) for k, v, _t, w in sink_records(broker, topic)}
+
+
+def _vector_e2e(torch, plan_json, topic, url_idx, uid, ts, tag):
+    """One vector plan end to end on the card (launches held to
+    ``PATH_KERNELS[tag]``) and on the CPU; the sinks must be equal."""
+    n = url_idx.size
+    torch.cuda.reset_peak_memory_stats()
+    batch_s = []
+    broker, ex, secs = run_main_path(torch, plan_json, url_idx, ts, DEVICE, STORE, batch_s,
+                                     rows=VEC_ROWS, user_ids=uid, path=tag)
+    peak = torch.cuda.max_memory_allocated()
+    q = ex.query
+    require(any(c.width > 1 for c in q.store_layout.components) and not q.sliced,
+            f"{tag}: not the vector route")
+    require(int(q.state["overflow"]) == 0, f"{tag}: store overflowed")
+    cpu_broker, _ex, cpu_secs = run_main_path(torch, plan_json, url_idx, ts, "cpu", STORE,
+                                              rows=VEC_ROWS, user_ids=uid)
+    sink = sink_records(broker, topic)
+    require(sink == sink_records(cpu_broker, topic), f"{tag}: card sink differs from the CPU run")
+    p50, p99 = np.percentile(np.array(batch_s) * 1e3, [50, 99])
+    rec = dict(events_per_s=n / secs, p50_ms=p50, p99_ms=p99, peak_bytes=peak, grows=q.grows,
+               store_slots=q.store_capacity, rebuild_s=list(q.rebuild_seconds), sink_records=len(sink),
+               cpu_s=cpu_secs)
+    return broker, q, rec
+
+
+def phase_vector_e2e(torch, vec_json, hist_json, seed):
+    """Phases 14 and 14h: pv_vectors.json and pv_user_pages.json through
+    ``run_plan`` over phase 6's traffic in VEC_BATCHES batches of VEC_ROWS
+    records.  Each sink must equal the port's CPU run record for record,
+    with no overflow; 14's store must grow, its last value per (URL, hour)
+    equal :func:`vector_reference`, 14h's last map per (USER_ID, hour) a
+    count of the URLs."""
+    url_idx, uid, ts = vector_traffic(seed)
+    n = url_idx.size
+    out = {}
+    broker, q, rec = _vector_e2e(torch, vec_json, "PV_VECTORS", url_idx, uid, ts, "14")
+    require(q.grows >= 1, f"14: the store did not grow ({q.store_capacity} slots)")
+    got = last_values(broker, "PV_VECTORS")
+    want = vector_reference(url_idx, uid, ts)
+    require(got == want, f"14: the last values differ from the dict model ({len(got)} vs {len(want)} keys)")
+    hot = max(want.values(), key=lambda v: len(v["CS"]))
+    loads = vector_batch_loads(url_idx, ts)
+    print("[14] load of the 8,192-slot store when batch 4 inserts, by batch size: "
+          + ", ".join(f"{r} rows {x:.3f}" for r, x in loads.items()))
+    print(f"[14] pv_vectors: {n} events in batches of {VEC_ROWS}, {len(want)} (URL, hour) keys, "
+          f"{rec['sink_records']} sink records; {rec['events_per_s']:.1f} events/s; batch p50 "
+          f"{rec['p50_ms']:.3f} ms p99 {rec['p99_ms']:.3f} ms; peak device memory {rec['peak_bytes']} B; "
+          f"store {q.store_capacity} slots after {q.grows} grows (host rebuild s "
+          f"{[round(x, 4) for x in q.rebuild_seconds]}); the widest set holds {len(hot['CS'])} ids; "
+          f"sink equals the CPU run ({rec['cpu_s']:.3f} s), last values equal the dict model, overflow 0")
+    out["vectors"] = dict(rec, keys=len(want), batch4_loads=loads)
+    broker, q, rec = _vector_e2e(torch, hist_json, "USER_PAGES", url_idx, uid, ts, "14h")
+    got = {k: v["PAGES"] for k, v in last_values(broker, "USER_PAGES").items()}
+    want: dict = {}
+    for u, x, t in zip(url_idx.tolist(), uid.tolist(), ts.tolist()):
+        m = want.setdefault((x, t - t % HOUR_MS), {})
+        m[f"/page/{u}"] = m.get(f"/page/{u}", 0) + 1
+    require(got == want, f"14h: the last maps differ from the URL counts ({len(got)} vs {len(want)} keys)")
+    widest = max(len(m) for m in want.values())
+    print(f"[14h] pv_user_pages: {n} events, {len(want)} (USER_ID, hour) keys, up to {widest} URLs a "
+          f"map, {rec['sink_records']} sink records; {rec['events_per_s']:.1f} events/s; batch p50 "
+          f"{rec['p50_ms']:.3f} ms p99 {rec['p99_ms']:.3f} ms; peak device memory {rec['peak_bytes']} B; "
+          f"store {q.store_capacity} slots after {q.grows} grows (host rebuild s "
+          f"{[round(x, 4) for x in q.rebuild_seconds]}); sink equals the CPU run ({rec['cpu_s']:.3f} s), "
+          "maps equal the URL counts, overflow 0")
+    out["user_pages"] = dict(rec, keys=len(want), widest_map=widest)
+    return out
+
+
+def _vector_head(torch, vec_json, seed, n_batches=VEC_BREAKDOWN_BATCHES):
+    """Phase 14b's drive: phase 14's first ``n_batches`` batches."""
+    url_idx, uid, ts = vector_traffic(seed)
+    k = n_batches * VEC_ROWS
+    return lambda: run_main_path(torch, vec_json, url_idx[:k], ts[:k], DEVICE, STORE, rows=VEC_ROWS,
+                                 user_ids=uid[:k])[2]
+
+
 REPLACES = {
     "row_prologue": "ksql_tpu/ops/hash_store.py:48 (mix64), :58 (combine_hash); ksql_tpu/runtime/lowering.py:3802 (pre_exchange), :2284 (_trace_table_step key hash), :3483 (pre_session_exchange key hash); ksql_tpu/ops/window.py:63 (hopping_starts), :82 (expand)",
     "probe_insert": "ksql_tpu/ops/hash_store.py:126 (probe_insert)",
@@ -3054,13 +3546,17 @@ REPLACES = {
     "suppress_close": "ksql_tpu/runtime/lowering.py:3953 (post_exchange: the suppress branch, :3997-4041)",
     "having_verdict": "ksql_tpu/runtime/lowering.py:4147 (_emit_agg: the HAVING verdict and retraction, "
                       ":4164-4199)",
+    "vec_collect": "ksql_tpu/ops/hash_store.py:292 (_vec_collect), :271 (_batch_membership), :248 "
+                   "(_slot_ranks), :403 (_vec_hist phase 1)",
+    "vec_topk": "ksql_tpu/ops/hash_store.py:457 (_vec_topk), :260 (_sort_desc), :264 (_desc_key)",
+    "vec_hist": "ksql_tpu/ops/hash_store.py:403 (_vec_hist phase 2)",
 }
 #: the record each kernel's JSON entry carries; the other modes ride along
 MAIN_MODE = {"row_prologue": "tumbling", "evict": "tumbling", "combine_windows": "sliced",
              "sliced_fold": "sliced", "member_lanes": "sliced", "probe_find": "join",
              "table_upsert": "join", "ss_match": "write", "ss_insert": "write", "ss_expire": "ss",
              "seg_sort": "items", "session_items": "items", "session_merge": "session",
-             "session_write": "write"}
+             "session_write": "write", "vec_collect": "append", "vec_topk": "plain", "vec_hist": "hist"}
 
 
 def kernel_records(wrappers, recs) -> list:
@@ -3123,6 +3619,12 @@ def main() -> int:
     for name, modes in final_recs.items():
         recs.setdefault(name, {}).update(modes)
     final_s = time.perf_counter() - t_final
+    # the vector aggregates' phases (2v, 14, 14h, 14b), timed together
+    t_vec = time.perf_counter()
+    vec_recs, vec_extra = phase_vector_kernels(torch, args.seed)
+    for name, modes in vec_recs.items():
+        recs.setdefault(name, {}).update(modes)
+    vec_s = time.perf_counter() - t_vec
     with open("ksql_tpu_torch/plans/pv_counts_tumbling.json") as f:
         plan_json = json.load(f)
     with open("ksql_tpu_torch/plans/pv_stats_hopping.json") as f:
@@ -3160,8 +3662,16 @@ def main() -> int:
     e2e["emit_final_hopping"] = phase_final_hop(torch, plans["pv_stats_hopping_final"], args.seed)
     e2e.update(phase_having_e2e(torch, plans["possible_fraud"], plans["pv_having_retract"], args.seed))
     final_s += time.perf_counter() - t_final
+    t_vec = time.perf_counter()
+    with open(VEC_PLAN) as f:
+        vec_json = json.load(f)
+    with open(HIST_PLAN) as f:
+        hist_json = json.load(f)
+    e2e["vector_kernels_extra"] = vec_extra
+    e2e.update(phase_vector_e2e(torch, vec_json, hist_json, args.seed))
+    vec_s += time.perf_counter() - t_vec
     require(sorted(PATH_LAUNCHES) == sorted(PATH_KERNELS), f"paths run: {sorted(PATH_LAUNCHES)}")
-    for w in wrappers:  # every kernel of K1-K19 is on some path, in every mode
+    for w in wrappers:  # every kernel of K1-K22 is on some path, in every mode
         for mode in w.__dict__.get("mode_launches", {"all": 0}):
             require(sum(PATH_LAUNCHES[p][w.__name__][mode] for p in PATH_LAUNCHES) > 0,
                     f"kernel {w.__name__}[{mode}] was launched on no path")
@@ -3179,10 +3689,15 @@ def main() -> int:
     t_sess = time.perf_counter()
     e2e["session_breakdown"] = phase_breakdown(torch, _session_head(torch, sess_json), 4, "11b")
     sess_s += time.perf_counter() - t_sess
+    t_vec = time.perf_counter()
+    e2e["vector_breakdown"] = phase_breakdown(torch, _vector_head(torch, vec_json, args.seed),
+                                              VEC_BREAKDOWN_BATCHES, "14b")
+    vec_s += time.perf_counter() - t_vec
     kernels = kernel_records(wrappers, recs)
     print(f"e2e: {json.dumps(e2e)}")
     print(f"total seconds {time.perf_counter() - t_start:.1f} (phases 2s, 10, 10g and 10b: {ss_s:.1f}; "
-          f"phases 2w, 11, 11g and 11b: {sess_s:.1f}; phases 2f, 12 (with 12b) to 13r: {final_s:.1f})")
+          f"phases 2w, 11, 11g and 11b: {sess_s:.1f}; phases 2f, 12 (with 12b) to 13r: {final_s:.1f}; "
+          f"phases 2v, 14, 14h and 14b: {vec_s:.1f})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,7 +16,7 @@ fused it on the TPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -61,11 +61,19 @@ def torch_dtype(t: SqlType) -> torch.dtype:
 
 @dataclasses.dataclass
 class DCol:
-    """A device column: fixed-width data + validity, typed."""
+    """A device column: fixed-width data + validity, typed.
+
+    A vector aggregate's output (COLLECT_LIST, TOPK, ...) has 2-D ``data``
+    (rows, K) with ``valid`` marking the present entries and
+    ``elem_valid`` the non-null ones; a map (HISTOGRAM) adds ``aux``, the
+    per-entry counts decoded as the map's values.  Such columns pass
+    through to the sink only."""
 
     data: torch.Tensor
     valid: torch.Tensor  # bool, same shape
     sql_type: SqlType
+    elem_valid: Optional[torch.Tensor] = None
+    aux: Optional[torch.Tensor] = None
 
     @property
     def hashed(self) -> bool:

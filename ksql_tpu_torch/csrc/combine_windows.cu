@@ -17,6 +17,14 @@
 // Key reprs and the null-key bits are gathered at the slot in both modes.
 // Every output is a fresh tensor, never a view of the store.
 //
+// Wide mode (the vector aggregates' width-K columns, ops/vector.py): each
+// such column's row of `row_bytes` at the lane's slot is copied into the
+// lane's row of its output, one warp a lane, 8-, 4-, 2- or 1-byte words as
+// the row's size allows — only for lanes whose `mask` is set (K3's
+// winners: the lanes that may emit; every lane without a mask).  The
+// other lanes' rows are left unwritten: a 16,384-lane batch of COLLECT_LIST
+// would otherwise move 16,384 x 9,000 bytes where ~2,300 lanes emit.
+//
 // Bound: memory.  Per lane it reads the slot (and w), spw * (8 + J*cell)
 // bytes of ring cells and 12 + 8k bytes of keys, and writes J cells + 12 +
 // 8k: at BASELINE #2 (65,536 lanes, S = 4, J = 8 at 7 bytes on average)
@@ -134,6 +142,42 @@ __global__ void combine_kernel(Comps c, Keys keys,
   for (int64_t i = 0; i < keys.count; ++i) keys.out[i][l] = keys.col[i][slot];
 }
 
+struct Wide {
+  const char* col[KSQL_MAX_COMPS];
+  char* out[KSQL_MAX_COMPS];
+  int64_t row_bytes[KSQL_MAX_COMPS];
+  int64_t count;
+};
+
+template <typename W>
+__device__ __forceinline__ void copy_row(const char* src, char* dst, int64_t words, int lane) {
+  const W* s = reinterpret_cast<const W*>(src);
+  W* d = reinterpret_cast<W*>(dst);
+  for (int64_t t = lane; t < words; t += 32) d[t] = s[t];
+}
+
+__global__ void wide_gather_kernel(Wide w, const int32_t* __restrict__ slot_lane,
+                                   const bool* __restrict__ mask, int64_t nn) {
+  const int64_t l = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (l >= nn || (mask != nullptr && !mask[l])) return;
+  const int64_t slot = slot_lane[l];
+  for (int64_t j = 0; j < w.count; ++j) {
+    const int64_t rb = w.row_bytes[j];
+    const char* src = w.col[j] + slot * rb;
+    char* dst = w.out[j] + l * rb;
+    if (rb % 8 == 0) {
+      copy_row<int64_t>(src, dst, rb / 8, lane);
+    } else if (rb % 4 == 0) {
+      copy_row<int32_t>(src, dst, rb / 4, lane);
+    } else if (rb % 2 == 0) {
+      copy_row<int16_t>(src, dst, rb / 2, lane);
+    } else {
+      copy_row<int8_t>(src, dst, rb, lane);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int ksql_combine_windows(
@@ -141,8 +185,9 @@ extern "C" int ksql_combine_windows(
     const int64_t* keys_out, int64_t nkeys, const void* knull_in,
     void* knull_out, const void* wstart_in, void* wstart_out,
     const void* slice_id, const void* slot_lane, const void* w_lane,
-    int64_t nn, int64_t ring, int64_t spw, int64_t width, void* stream) {
-  if (count > KSQL_MAX_COMPS || nkeys > KSQL_MAX_KEYS) {
+    int64_t nn, int64_t ring, int64_t spw, int64_t width, const int64_t* wide,
+    int64_t nwide, const void* mask, void* stream) {
+  if (count > KSQL_MAX_COMPS || nkeys > KSQL_MAX_KEYS || nwide > KSQL_MAX_COMPS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Comps c{};
@@ -167,5 +212,19 @@ extern "C" int ksql_combine_windows(
       static_cast<int64_t*>(wstart_out), static_cast<const int64_t*>(slice_id),
       static_cast<const int32_t*>(slot_lane), static_cast<const int64_t*>(w_lane),
       nn, ring, spw, width);
+  if (nwide > 0) {
+    Wide w{};
+    for (int64_t j = 0; j < nwide; ++j) {
+      w.col[j] = reinterpret_cast<const char*>(wide[3 * j]);
+      w.out[j] = reinterpret_cast<char*>(wide[3 * j + 1]);
+      w.row_bytes[j] = wide[3 * j + 2];
+    }
+    w.count = nwide;
+    const int64_t lanes_per_block = threads / 32;
+    const int64_t blocks = (nn + lanes_per_block - 1) / lanes_per_block;
+    wide_gather_kernel<<<static_cast<int>(blocks < 1 ? 1 : blocks), threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        w, static_cast<const int32_t*>(slot_lane), static_cast<const bool*>(mask), nn);
+  }
   return static_cast<int>(cudaGetLastError());
 }

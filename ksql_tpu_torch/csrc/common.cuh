@@ -29,8 +29,9 @@ __device__ __forceinline__ uint64_t mix64(uint64_t h) {
   return h;
 }
 
-// store component dtype codes (ops/hash_store.py:_DTYPE_CODES)
-enum Dtype : int64_t { kInt32 = 0, kInt64 = 1, kFloat64 = 2 };
+// store component dtype codes (ops/hash_store.py:_DTYPE_CODES); int8 is a
+// vector element type (null bits, BOOLEAN values), never folded by K3
+enum Dtype : int64_t { kInt32 = 0, kInt64 = 1, kFloat64 = 2, kInt8 = 3 };
 // combine codes (ops/hash_store.py:_COMBINE_CODES)
 enum Combine : int64_t { kAdd = 0, kMin = 1, kMax = 2 };
 
@@ -129,6 +130,8 @@ __device__ __forceinline__ void store_init(void* col, int64_t cell,
                                            int64_t dtype, int64_t bits) {
   if (dtype == kInt32) {
     static_cast<int32_t*>(col)[cell] = static_cast<int32_t>(bits);
+  } else if (dtype == kInt8) {
+    static_cast<int8_t*>(col)[cell] = static_cast<int8_t>(bits);
   } else {
     static_cast<int64_t*>(col)[cell] = bits;  // int64 / float64 bits
   }
@@ -219,6 +222,70 @@ __device__ __forceinline__ void thread_chunk(int64_t n, int64_t* lo, int64_t* hi
   const int64_t a = static_cast<int64_t>(threadIdx.x) * per;
   *lo = a < n ? a : n;
   *hi = *lo + per < n ? *lo + per : n;
+}
+
+// ---- vector aggregate elements (ops/vector.py): values of 1, 4 or 8 bytes
+// (int8, int32, int64 or float64) carried as int64 — ints sign-extended,
+// doubles as their bits (`isfloat`).
+
+__device__ __forceinline__ int64_t load_elem(const void* p, int64_t i, int64_t esize) {
+  if (esize == 8) return static_cast<const int64_t*>(p)[i];
+  if (esize == 4) return static_cast<const int32_t*>(p)[i];
+  return static_cast<const int8_t*>(p)[i];
+}
+
+__device__ __forceinline__ void store_elem(void* p, int64_t i, int64_t esize, int64_t v) {
+  if (esize == 8) {
+    static_cast<int64_t*>(p)[i] = v;
+  } else if (esize == 4) {
+    static_cast<int32_t*>(p)[i] = static_cast<int32_t>(v);
+  } else {
+    static_cast<int8_t*>(p)[i] = static_cast<int8_t>(v);
+  }
+}
+
+__device__ __forceinline__ double as_f64(int64_t bits) {
+  return __longlong_as_double(static_cast<long long>(bits));
+}
+
+// The reference's `==` on two elements: IEEE for doubles (-0.0 == +0.0,
+// NaN equals nothing), bitwise for ints.
+__device__ __forceinline__ bool elem_eq(int64_t a, int64_t b, int64_t isfloat) {
+  return isfloat ? as_f64(a) == as_f64(b) : a == b;
+}
+
+// An int64 key whose ascending order is XLA's sort order of the elements:
+// the value for ints; for doubles the IEEE total order with -0.0 made +0.0
+// and every NaN the largest key (lax.sort canonicalizes zeros and NaNs).
+__device__ __forceinline__ int64_t sort_key(int64_t bits, int64_t isfloat) {
+  if (!isfloat) return bits;
+  const double v = as_f64(bits);
+  if (v != v) return INT64_MAX;
+  if (v == 0.0) return 0;
+  return bits >= 0 ? bits : (bits ^ INT64_MAX);
+}
+
+// sort_key of the reference's `_desc_key` (~v for ints, -v for doubles).
+__device__ __forceinline__ int64_t desc_key(int64_t bits, int64_t isfloat) {
+  if (!isfloat) return ~bits;
+  return sort_key(static_cast<int64_t>(static_cast<uint64_t>(bits) ^ (1ull << 63)), 1);
+}
+
+// First sorted position q in [0, n) whose key key[perm[q]] is >= k (lower)
+// or > k (upper): the keys read through the permutation are ascending.
+__device__ __forceinline__ int64_t bound_of(const int32_t* perm, const int64_t* key, int64_t n,
+                                            int64_t k, bool upper) {
+  int64_t lo = 0, hi = n;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) / 2;
+    const int64_t v = key[perm[mid]];
+    if (v < k || (upper && v == k)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
 }
 
 inline int blocks_for(int64_t n, int threads) {

@@ -11,8 +11,10 @@
 // sliced store (ring > 0: one slot per group key, a ring of slice partials
 // per component) a slot expires once its newest slice start `slast` left
 // the retention; its `slast` resets to -2^62, its `slice_id` row to -1 and
-// every ring cell of every component to its init.  The pass runs every 64
-// batches and when the store passes its load threshold.
+// every ring cell of every component to its init.  A component of width K
+// (the slice ring, or a vector aggregate's K elements, ops/vector.py)
+// resets all K cells of the slot's row.  The pass runs every 64 batches and
+// when the store passes its load threshold.
 //
 // Bound: memory.  One elementwise pass over C+1 slots: it reads occ and
 // wstart (or slast), 9 bytes a slot, and writes only the expired slots'
@@ -29,6 +31,7 @@ struct Comps {
   void* col[KSQL_MAX_COMPS];
   int64_t dtype[KSQL_MAX_COMPS];
   int64_t init_bits[KSQL_MAX_COMPS];  // the init value's bit pattern
+  int64_t width[KSQL_MAX_COMPS];      // cells per slot (ring or vector width)
   int64_t count;
 };
 
@@ -54,12 +57,12 @@ __global__ void evict_kernel(Comps c, bool* __restrict__ occ,
     born[s] = INT64_MAX;
     emitted[s] = false;
   }
-  const int64_t cells = ring > 0 ? ring : 1;
   if (ring > 0) {
     slast[s] = -(1LL << 62);
     for (int64_t p = 0; p < ring; ++p) slice_id[s * ring + p] = -1;
   }
   for (int64_t j = 0; j < c.count; ++j) {
+    const int64_t cells = c.width[j];
     for (int64_t p = 0; p < cells; ++p) {
       ksql::store_init(c.col[j], s * cells + p, c.dtype[j], c.init_bits[j]);
     }
@@ -77,9 +80,10 @@ extern "C" int ksql_evict(const int64_t* comps, int64_t count, void* occ,
   if (count > KSQL_MAX_COMPS) return static_cast<int>(cudaErrorInvalidValue);
   Comps c{};
   for (int64_t j = 0; j < count; ++j) {
-    c.col[j] = reinterpret_cast<void*>(comps[3 * j]);
-    c.dtype[j] = comps[3 * j + 1];
-    c.init_bits[j] = comps[3 * j + 2];
+    c.col[j] = reinterpret_cast<void*>(comps[4 * j]);
+    c.dtype[j] = comps[4 * j + 1];
+    c.init_bits[j] = comps[4 * j + 2];
+    c.width[j] = comps[4 * j + 3];
   }
   c.count = count;
   const int64_t slots = capacity + 1;

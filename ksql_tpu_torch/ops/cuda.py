@@ -46,7 +46,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "evict": {"ksql_evict": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P]},
     "sliced_fold": {"ksql_sliced_fold": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]},
     "combine_windows": {"ksql_combine_windows": [
-        _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+        _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P]},
     "member_lanes": {"ksql_member_lanes": [
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P]},
     "probe_find": {"ksql_probe_find": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P]},
@@ -89,6 +89,18 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "suppress_close": {"ksql_suppress_close": [
         _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P]},
     "having_verdict": {"ksql_having_verdict": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P]},
+    "vec_collect": {
+        "ksql_vec_collect_prologue": [
+            _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+        "ksql_vec_collect_first": [_P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _P],
+        "ksql_vec_collect_place": [_I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    },
+    "vec_topk": {
+        "ksql_vec_topk_keys": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P],
+        "ksql_vec_topk_dedup": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+        "ksql_vec_topk_merge": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    },
+    "vec_hist": {"ksql_vec_hist": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P]},
 }
 KERNELS = tuple(SIGNATURES)
 

@@ -1,16 +1,22 @@
 """Device aggregates as scatter-combined state components.
 
-The port of ``ksql_tpu/ops/device_aggs.py`` for the scalar families of this
-slice: COUNT(*), COUNT, SUM (INTEGER, BIGINT, DOUBLE), AVG, MIN and MAX.
-Each decomposes into 'add'/'min'/'max' state components that
-``hash_store.fold_and_mark`` folds, per-row contributions (inactive rows
-contribute the identity), and a ``finalize`` from slot state to the output
-column.  Every other aggregate, and any DECIMAL argument or result, raises
-:class:`DeviceUnsupported`.
+The port of ``ksql_tpu/ops/device_aggs.py`` for the families the port
+runs: COUNT(*), COUNT, SUM (INTEGER, BIGINT, DOUBLE), AVG, MIN and MAX,
+which decompose into 'add'/'min'/'max' state components that
+``hash_store.fold_and_mark`` folds; and the vector families COLLECT_LIST,
+COLLECT_SET, EARLIEST_BY_OFFSET(x, n[, ignoreNulls]),
+LATEST_BY_OFFSET(x, n[, ignoreNulls]), TOPK, TOPKDISTINCT, HISTOGRAM and
+ATTR (and the ``collect_all_valid`` kind), whose width-K groups
+``ops/vector.py`` folds.  Each has per-row contributions (inactive rows
+contribute the identity) and a ``finalize`` from slot state to the output
+column: ``(data, valid)``, for an ARRAY ``(data [n, K], present [n, K],
+element valid [n, K])`` and for a MAP ``(keys [n, K], valid, present
+[n, K], counts [n, K])``.  Every other aggregate, and any DECIMAL argument
+or result, raises :class:`DeviceUnsupported`.
 
 ``resolve_udaf`` stands in for the reference's function registry lookup
-(``functions/udafs.py``): it maps a call to its device kind and SQL result
-type.
+(``functions/udafs.py``): it maps a call to its device kind, SQL result
+type and number of trailing literal parameters.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 from ksql_tpu_torch.common import types as T
 from ksql_tpu_torch.common.types import SqlBaseType, SqlType
 from ksql_tpu_torch.compiler.torch_expr import DCol, DeviceUnsupported
-from ksql_tpu_torch.ops.hash_store import AggComponent
+from ksql_tpu_torch.ops.hash_store import _DTYPES, AggComponent
 
 _I64_MAX = np.iinfo(np.int64).max
 _I32_MAX = np.iinfo(np.int32).max
@@ -32,6 +38,18 @@ _NUMERIC = (SqlBaseType.INTEGER, SqlBaseType.BIGINT, SqlBaseType.DOUBLE)
 _ORDERED = _NUMERIC + (
     SqlBaseType.BOOLEAN, SqlBaseType.TIMESTAMP, SqlBaseType.DATE, SqlBaseType.TIME,
 )
+#: TOPK/TOPKDISTINCT's first parameter (``functions/udafs.py`` COMPARABLE)
+_COMPARABLE = _ORDERED + (SqlBaseType.DECIMAL, SqlBaseType.STRING, SqlBaseType.BYTES)
+_NESTED = (SqlBaseType.ARRAY, SqlBaseType.MAP, SqlBaseType.STRUCT)
+#: hard ceiling on per-key vector state width (collect/topk); wider caps
+#: are refused rather than blow up device memory
+MAX_VEC_WIDTH = 4096
+#: COLLECT_LIST/COLLECT_SET's cap (``functions/udafs.py`` ``_COLLECT_LIMIT``,
+#: ksqlDB's CollectListUdaf LIMIT default) and HISTOGRAM's entry cap
+#: (HistogramUdaf); the ``ksql.functions.<name>.limit`` override is the
+#: engine's, which the port does not have
+COLLECT_LIMIT = 1000
+HIST_LIMIT = 1000
 
 
 @dataclasses.dataclass
@@ -42,26 +60,46 @@ class DeviceAgg:
     components: Tuple[AggComponent, ...]
     # (args, row_active) -> per-component contribution tensors
     contribs: Callable[[Sequence[DCol], torch.Tensor], List[torch.Tensor]]
-    # component slot tensors -> (data, valid)
-    finalize: Callable[[Sequence[torch.Tensor]], Tuple[torch.Tensor, torch.Tensor]]
+    # component slot tensors -> (data, valid), or the 3-/4-tuples of the
+    # ARRAY and MAP results (module docstring)
+    finalize: Callable[[Sequence[torch.Tensor]], Tuple[torch.Tensor, ...]]
     result_type: SqlType
 
 
-def resolve_udaf(name: str, arg_types: Sequence[SqlType]) -> Tuple[str, SqlType]:
-    """(device kind, result type) of an aggregate call."""
+def resolve_udaf(name: str, arg_types: Sequence[SqlType]) -> Tuple[str, SqlType, int]:
+    """(device kind, result type, number of trailing literal parameters)
+    of an aggregate call."""
     fn = name.upper()
-    if any(t.base == SqlBaseType.DECIMAL for t in arg_types):
+    bases = [t.base for t in arg_types]
+    if SqlBaseType.DECIMAL in bases:
         raise DeviceUnsupported(f"DECIMAL aggregation {fn} on device")
     if fn == "COUNT" and not arg_types:
-        return "count_star", T.BIGINT
+        return "count_star", T.BIGINT, 0
     if fn == "COUNT" and len(arg_types) == 1:
-        return "count", T.BIGINT
-    if fn == "SUM" and len(arg_types) == 1 and arg_types[0].base in _NUMERIC:
-        return "sum", arg_types[0]  # SumKudaf: SUM(INT)->INT, SUM(BIGINT)->BIGINT
-    if fn == "AVG" and len(arg_types) == 1 and arg_types[0].base in _NUMERIC:
-        return "avg", T.DOUBLE
-    if fn in ("MIN", "MAX") and len(arg_types) == 1 and arg_types[0].base in _ORDERED:
-        return fn.lower(), arg_types[0]
+        return "count", T.BIGINT, 0
+    if fn == "SUM" and len(arg_types) == 1 and bases[0] in _NUMERIC:
+        return "sum", arg_types[0], 0  # SumKudaf: SUM(INT)->INT, SUM(BIGINT)->BIGINT
+    if fn == "AVG" and len(arg_types) == 1 and bases[0] in _NUMERIC:
+        return "avg", T.DOUBLE, 0
+    if fn in ("MIN", "MAX") and len(arg_types) == 1 and bases[0] in _ORDERED:
+        return fn.lower(), arg_types[0], 0
+    if fn in ("COLLECT_LIST", "COLLECT_SET") and len(arg_types) == 1:
+        return "collect", SqlType.array(arg_types[0]), 0
+    if fn in ("TOPK", "TOPKDISTINCT") and len(arg_types) == 2 and bases[0] in _COMPARABLE \
+            and bases[1] == SqlBaseType.INTEGER:
+        return "topk", SqlType.array(arg_types[0]), 1
+    if fn == "TOPK" and 3 <= len(arg_types) <= 6 and bases[-1] == SqlBaseType.INTEGER:
+        # TOPK(sort_col, col0..colN, k): the reference has no device kind
+        raise DeviceUnsupported(f"UDAF {name} on device")
+    if fn == "HISTOGRAM" and bases == [SqlBaseType.STRING]:
+        return "histogram", SqlType.map(T.STRING, T.BIGINT), 0
+    if fn in ("EARLIEST_BY_OFFSET", "LATEST_BY_OFFSET") and len(arg_types) in (2, 3) \
+            and bases[1] == SqlBaseType.INTEGER \
+            and (len(arg_types) == 2 or bases[2] == SqlBaseType.BOOLEAN):
+        # (x, n[, ignoreNulls]): the first/last n values as an array
+        return "collect", SqlType.array(arg_types[0]), len(arg_types) - 1
+    if fn == "ATTR" and len(arg_types) == 1:
+        return "attr", arg_types[0], 0
     raise DeviceUnsupported(f"aggregate {fn}({', '.join(map(str, arg_types))}) on device")
 
 
@@ -77,9 +115,207 @@ def _ones(x: torch.Tensor) -> torch.Tensor:
     return torch.ones(x.shape, dtype=torch.bool, device=x.device)
 
 
-def compile_device_agg(kind: str, arg_types: Sequence[SqlType],
-                       result_type: SqlType) -> DeviceAgg:
-    """Build the device decomposition for one aggregation call."""
+def _vec_dtype(t: SqlType) -> str:
+    """Element storage dtype of vector state (strings, bytes and nested
+    values carry their int64 dictionary codes, booleans int8)."""
+    if t.base in (SqlBaseType.DOUBLE, SqlBaseType.DECIMAL):
+        return "float64"
+    if t.base == SqlBaseType.BOOLEAN:
+        return "int8"
+    if t.base == SqlBaseType.INTEGER:
+        return "int32"
+    return "int64"
+
+
+def _where(cond: torch.Tensor, x: torch.Tensor, other, dtype: torch.dtype) -> torch.Tensor:
+    return torch.where(cond, x.to(dtype), torch.tensor(other, dtype=dtype, device=cond.device))
+
+
+def _collect_finalize(K: int, ring: bool):
+    """COLLECT_LIST/SET and EARLIEST/LATEST(n): ``(data, present,
+    element valid)``, the ring rotated to arrival order."""
+    def finalize(comps):
+        count, data, vbits = comps
+        arange = torch.arange(K, dtype=torch.int32, device=count.device)
+        if ring:
+            start = torch.where(count > K, torch.remainder(count, K), torch.zeros_like(count))
+            idx = (start.to(torch.int32)[:, None] + arange[None, :]) % K
+            data = torch.gather(data, 1, idx.long())
+            vbits = torch.gather(vbits, 1, idx.long())
+        present = arange[None, :] < torch.clamp(count, max=K).to(torch.int32)[:, None]
+        return data, present, (vbits != 0) & present
+
+    return finalize
+
+
+def _compile_vector_agg(kind: str, arg_types: Sequence[SqlType], result_type: SqlType,
+                        fname: str, literals: Sequence[object]) -> DeviceAgg:
+    """The vector families: ``collect``, ``topk``, ``histogram``/``attr``
+    and ``collect_all_valid`` (reference ``ops/device_aggs.py:326-560``)."""
+    t = arg_types[0]
+    fn = fname.upper()
+    if kind == "collect":
+        # nested element types ride as opaque int64 dictionary codes, like
+        # strings: emission decodes the elements through the dictionary
+        ignore_nulls = True
+        if fn in ("COLLECT_LIST", "COLLECT_SET"):
+            K, collect_nulls = COLLECT_LIMIT, True
+            mode = "append" if fn == "COLLECT_LIST" else "set"
+        elif fn in ("EARLIEST_BY_OFFSET", "LATEST_BY_OFFSET"):
+            K = literals[0] if literals else None
+            mode = "append" if fn.startswith("EARLIEST") else "ring"
+            collect_nulls = False
+            if len(literals) > 1 and literals[1] is not None:
+                ignore_nulls = bool(literals[1])
+            elif len(literals) > 1:
+                raise DeviceUnsupported(f"{fname} dynamic ignoreNulls on device")
+        else:
+            raise DeviceUnsupported(f"{fname} on device")
+        if not isinstance(K, int) or K <= 0 or K > MAX_VEC_WIDTH:
+            raise DeviceUnsupported(f"{fname} cap {K!r} on device")
+        vdt = _vec_dtype(t)
+        tdt = _DTYPES[vdt]
+
+        def contribs(args, act):
+            v = args[0]
+            cand = act if collect_nulls or not ignore_nulls else act & v.valid
+            return [cand.to(torch.int64), _where(cand & v.valid, v.data, 0, tdt),
+                    (cand & v.valid).to(torch.int8)]
+
+        return DeviceAgg(
+            components=(
+                AggComponent("vec_count", "int64", 0),
+                AggComponent("vec_data", vdt, 0, width=K, mode=mode),
+                AggComponent("vec_valid", "int8", 0, width=K),
+            ),
+            contribs=contribs,
+            finalize=_collect_finalize(K, mode == "ring"),
+            result_type=result_type,
+        )
+    if kind == "topk":
+        # TOPK / TOPKDISTINCT over numerics and temporals: width-k sorted
+        # state, the dtype floor marking an empty entry
+        if t.base in (SqlBaseType.STRING, SqlBaseType.BYTES):
+            raise DeviceUnsupported("string ordering on device")
+        if t.base in _NESTED:
+            raise DeviceUnsupported(f"{fname} over nested types on device")
+        k = literals[0] if literals else None
+        if not isinstance(k, int) or k <= 0 or k > 256:
+            raise DeviceUnsupported(f"{fname} k {k!r} on device")
+        vdt = _vec_dtype(t)
+        tdt = _DTYPES[vdt]
+        sentinel = float("-inf") if vdt == "float64" else int(np.iinfo(vdt).min)
+        distinct = fn == "TOPKDISTINCT"
+
+        def tk_contribs(args, act):
+            ok = act & args[0].valid
+            return [ok.to(torch.int32), _where(ok, args[0].data, sentinel, tdt)]
+
+        def tk_finalize(comps):
+            count, data = comps
+            if distinct:
+                # the distinct count is not kept: dtype-floor values (-inf,
+                # the int min) read as absent, the reference's documented edge
+                present = data != torch.tensor(sentinel, dtype=data.dtype, device=data.device)
+            else:
+                arange = torch.arange(k, dtype=torch.int32, device=count.device)
+                present = arange[None, :] < torch.clamp(count, max=k).to(torch.int32)[:, None]
+            return data, present, present
+
+        return DeviceAgg(
+            components=(
+                AggComponent("add", "int32", 0),
+                AggComponent("topk", vdt, sentinel, width=k, mode="distinct" if distinct else ""),
+            ),
+            contribs=tk_contribs,
+            finalize=tk_finalize,
+            result_type=result_type,
+        )
+    if kind in ("histogram", "attr"):
+        # per-slot (value code, count) pairs: distinct values append
+        # set-style (capped at HIST_LIMIT), every occurrence adds its head
+        # to its value's count
+        is_attr = kind == "attr"
+        f64_repr = t.base in (SqlBaseType.DOUBLE, SqlBaseType.DECIMAL)
+        K = HIST_LIMIT
+
+        def code64(v):
+            if f64_repr:  # the bits keep doubles exact in the code column
+                return v.data.to(torch.float64).view(torch.int64)
+            return v.data.to(torch.int64)
+
+        def h_contribs(args, act):
+            v = args[0]
+            # HISTOGRAM skips null values; ATTR counts them as an entry
+            cand = act if is_attr else act & v.valid
+            head = cand.to(torch.int64)
+            return [head, _where(cand & v.valid, code64(v), 0, torch.int64),
+                    (cand & v.valid).to(torch.int8), head]
+
+        def h_finalize(comps):
+            cnt, data, vbits, nums = comps
+            arange = torch.arange(K, dtype=torch.int32, device=cnt.device)
+            live = (arange[None, :] < torch.clamp(cnt, max=K).to(torch.int32)[:, None]) & (nums > 0)
+            if is_attr:
+                # the single live entry's value; NULL with 0 or 2+ live
+                # entries (Attr.java map())
+                n_live = live.sum(1)
+                pick = torch.argmax(live.to(torch.int8), 1)
+                rows = torch.arange(cnt.shape[0], device=cnt.device)
+                val = data[rows, pick]
+                if f64_repr:
+                    val = val.view(torch.float64)
+                return val, (n_live == 1) & (vbits[rows, pick] != 0)
+            return data, torch.ones(cnt.shape[0], dtype=torch.bool, device=cnt.device), live, nums
+
+        return DeviceAgg(
+            components=(
+                AggComponent("vec_count", "int64", 0, mode="hist"),
+                AggComponent("vec_data", "int64", 0, width=K, mode="hist"),
+                AggComponent("vec_valid", "int8", 0, width=K),
+                AggComponent("hist_count", "int64", 0, width=K),
+            ),
+            contribs=h_contribs,
+            finalize=h_finalize,
+            result_type=result_type,
+        )
+    if kind == "collect_all_valid":
+        # GenericVarArgUdaf/ObjVarColArgUdaf: append the FIRST argument's
+        # value when EVERY argument is non-null
+        K = COLLECT_LIMIT
+        vdt = _vec_dtype(t)
+        tdt = _DTYPES[vdt]
+
+        def cav_contribs(args, act):
+            cand = act
+            for a in args:
+                cand = cand & a.valid
+            return [cand.to(torch.int64), _where(cand, args[0].data, 0, tdt), cand.to(torch.int8)]
+
+        return DeviceAgg(
+            components=(
+                AggComponent("vec_count", "int64", 0),
+                AggComponent("vec_data", vdt, 0, width=K, mode="append"),
+                AggComponent("vec_valid", "int8", 0, width=K),
+            ),
+            contribs=cav_contribs,
+            finalize=_collect_finalize(K, False),
+            result_type=result_type,
+        )
+    raise DeviceUnsupported(f"aggregate kind {kind} on device")
+
+
+VECTOR_KINDS = ("collect", "topk", "histogram", "attr", "collect_all_valid")
+
+
+def compile_device_agg(kind: str, arg_types: Sequence[SqlType], result_type: SqlType,
+                       fname: str = "", literals: Sequence[object] = ()) -> DeviceAgg:
+    """Build the device decomposition for one aggregation call.  ``fname``
+    tells families of one kind apart; ``literals`` are the values of the
+    trailing literal parameters (TOPK's k, EARLIEST/LATEST's n and
+    ignoreNulls; None where not a literal)."""
+    if kind in VECTOR_KINDS:
+        return _compile_vector_agg(kind, arg_types, result_type, fname, literals)
     if kind == "count_star":
         return DeviceAgg(
             components=(AggComponent("add", "int64", 0),),

@@ -21,7 +21,7 @@ store; PyTorch lets the port keep one set of device buffers).
 Four hand-written CUDA kernels (``csrc/``) carry the per-batch work of an
 aggregation: ``row_prologue`` (K1), ``probe_insert`` (K2),
 ``fold_and_mark`` (K3) and ``evict`` (K4); the sliced route's K5-K7 live in
-``ops/slicing.py``.  A stream-table join keeps each table in a store of
+``ops/slicing.py``, the vector aggregates' K20-K22 in ``ops/vector.py``.  A stream-table join keeps each table in a store of
 the same layout (one key, no components, plus ``v_<col>``/``m_<col>``
 value columns): K1's table mode (``table_prologue``) and K2 insert its
 changelog, K9
@@ -63,22 +63,39 @@ _M1 = int(np.array(0xBF58476D1CE4E5B9, dtype=np.uint64).view(np.int64))
 _M2 = int(np.array(0x94D049BB133111EB, dtype=np.uint64).view(np.int64))
 _GOLD = int(np.array(0x9E3779B97F4A7C15, dtype=np.uint64).view(np.int64))
 
-_DTYPES = {"int32": torch.int32, "int64": torch.int64, "float64": torch.float64}
-#: dtype / combine codes shared with csrc/common.cuh
-_DTYPE_CODES = {"int32": 0, "int64": 1, "float64": 2}
+_DTYPES = {"int8": torch.int8, "int32": torch.int32, "int64": torch.int64,
+           "float64": torch.float64}
+#: dtype / combine codes shared with csrc/common.cuh (int8 is a vector
+#: component's element type only: the scalar folds never see it)
+_DTYPE_CODES = {"int32": 0, "int64": 1, "float64": 2, "int8": 3}
 _COMBINE_CODES = {"add": 0, "min": 1, "max": 2}
+#: the combines K3 folds; the vector kinds go through ``ops/vector.py``
+SCALAR_COMBINES = ("add", "min", "max")
 
 
 @dataclasses.dataclass(frozen=True)
 class AggComponent:
-    """One scatter-combined state column of an aggregate."""
+    """One scatter-combined state column of an aggregate.
 
-    combine: str  # 'add' | 'min' | 'max'
+    ``width`` > 1 is a ``[capacity + 1, width]`` column: the slice ring of
+    a sliced hopping store, or per-slot VECTOR state (``ops/vector.py``):
+
+    * ``vec_count`` — scalar int64 count heading a collect group; the two
+      following components are ``vec_data`` (values) and ``vec_valid``
+      (per-element null bits, int8), both width K.  ``mode`` on the
+      vec_data component selects the fold: 'append' (COLLECT_LIST,
+      EARLIEST_BY_OFFSET(n), capped at K), 'ring' (LATEST_BY_OFFSET(n)),
+      'set' (COLLECT_SET); a histogram group (``mode='hist'`` on its
+      vec_count) adds a fourth, ``hist_count`` (int64 per-element counts).
+    * ``topk`` — a self-contained width-K descending top-K; ``mode=
+      'distinct'`` dedups values (TOPKDISTINCT).
+    """
+
+    combine: str  # 'add' | 'min' | 'max' | 'vec_count' | 'vec_data' | 'vec_valid' | 'hist_count' | 'topk'
     dtype: str  # numpy dtype name
     init: float  # fill value for empty slots
-    #: cells per slot: 1, or the slice ring of a sliced hopping store
-    #: (a ``[capacity + 1, width]`` column)
     width: int = 1
+    mode: str = ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -495,17 +512,17 @@ def fold_and_mark_plain(store, layout: StoreLayout, slots, contribs,
     capacity = layout.capacity
     s = slots.long()
     for j, comp in enumerate(layout.components):
+        if comp.combine not in SCALAR_COMBINES:
+            continue  # a vector group (ops/vector.py)
         col = store[f"a{j}"]
         c = contribs[j].to(col.dtype)
         if comp.combine == "add":
             col.index_add_(0, s, c)
-        elif comp.combine in ("min", "max"):
+        else:
             before = col.clone() if col.is_floating_point() else None
             col.scatter_reduce_(0, s, c, "amin" if comp.combine == "min" else "amax")
             if before is not None:
                 _xla_signed_zero(col, before, s, c, comp.combine)
-        else:
-            raise ValueError(comp.combine)
     store["dirty"][s] = True
     store["dirty"][capacity] = False
     n = s.shape[0]
@@ -551,7 +568,8 @@ def fold_and_mark(store: Dict[str, torch.Tensor], scratch: Dict[str, torch.Tenso
     branches with its ``dirty`` marking, and ``winners_per_slot``): fold
     each row's contributions into its slot in place, mark touched slots
     dirty, and return the bool mask of one representative (lowest) row per
-    touched slot.  Inactive rows must carry identity contributions."""
+    touched slot.  Inactive rows must carry identity contributions.  The
+    vector groups' components are left to ``ops/vector.py``."""
     if not slots.is_cuda:
         return fold_and_mark_plain(store, layout, slots, contribs, active)
     n = slots.shape[0]
@@ -563,7 +581,9 @@ def fold_and_mark(store: Dict[str, torch.Tensor], scratch: Dict[str, torch.Tenso
     _expect(scratch["first"], torch.int32, (c1,))
     desc: List[int] = []
     keep = []  # the cast contributions must outlive the launch below
-    for j, comp in enumerate(layout.components):
+    scalar = [(j, comp) for j, comp in enumerate(layout.components)
+              if comp.combine in SCALAR_COMBINES]
+    for j, comp in scalar:
         col = store[f"a{j}"]
         c = contribs[j].to(col.dtype).contiguous()
         _expect(col, _DTYPES[comp.dtype], (c1,))
@@ -574,7 +594,7 @@ def fold_and_mark(store: Dict[str, torch.Tensor], scratch: Dict[str, torch.Tenso
     winners = torch.empty(n, dtype=torch.bool, device=slots.device)
     fn = cuda.lib("fold_and_mark")
     cuda.check("fold_and_mark", fn(
-        cuda.host_i64(desc), len(layout.components), slots.data_ptr(),
+        cuda.host_i64(desc), len(scalar), slots.data_ptr(),
         active.data_ptr(), n, capacity, store["dirty"].data_ptr(),
         scratch["first"].data_ptr(), winners.data_ptr(), _stream(slots.device),
     ))
@@ -621,7 +641,8 @@ def evict(store: Dict[str, torch.Tensor], layout: StoreLayout, retention_ms: int
     windowed slot expires when its window start plus retention is below the
     stream time; a sliced slot (one per group key, ``sliced=True``) when
     its newest slice start ``slast`` is, and then also drops its ring
-    (``slice_id`` -1, ``slast`` reset).  Under EMIT FINAL
+    (``slice_id`` -1, ``slast`` reset).  A width-K component (a slice ring
+    or vector state) resets every cell of the slot's row.  Under EMIT FINAL
     (``suppress=True``) a slot still ``dirty`` (its final result not
     emitted yet) stays until a flush, and an expired slot's ``born`` and
     ``emitted`` reset; a store with HAVING verdicts (``hpass``) clears an
@@ -650,8 +671,8 @@ def evict(store: Dict[str, torch.Tensor], layout: StoreLayout, retention_ms: int
     desc: List[int] = []
     for j, comp in enumerate(layout.components):
         col = store[f"a{j}"]
-        _expect(col, _DTYPES[comp.dtype], (c1, ring) if sliced else (c1,))
-        desc += [col.data_ptr(), _DTYPE_CODES[comp.dtype], init_bits(comp)]
+        _expect(col, _DTYPES[comp.dtype], (c1,) if comp.width == 1 else (c1, comp.width))
+        desc += [col.data_ptr(), _DTYPE_CODES[comp.dtype], init_bits(comp), comp.width]
     fn = cuda.lib("evict")
     cuda.check("evict", fn(
         cuda.host_i64(desc), len(layout.components), occ.data_ptr(),
@@ -851,9 +872,11 @@ table_upsert.launches = 0
 
 def init_bits(comp: AggComponent) -> int:
     """The bit pattern of a component's init value, as the kernels take it
-    (int32 sign-extended, int64 and float64 as their 64 bits)."""
+    (int8 and int32 sign-extended, int64 and float64 as their 64 bits)."""
     init = np.array([comp.init], dtype=comp.dtype)
-    return int(init.view(np.int32 if comp.dtype == "int32" else np.int64)[0])
+    if comp.dtype in ("int8", "int32"):
+        return int(init[0])
+    return int(init.view(np.int64)[0])
 
 
 KERNEL_WRAPPERS = (row_prologue, probe_insert, fold_and_mark, evict, probe_find, table_upsert)

@@ -15,7 +15,8 @@ Three hand-written CUDA kernels (``csrc/``) carry the work: K5
 emission gather of every other aggregate route, S = 1, no ring) and K7
 ``member_lanes``.  As in ``ops/hash_store.py``, each wrapper launches its
 kernel for CUDA tensors and counts the launch in ``<wrapper>.launches``
-(K6 also in ``combine_windows.mode_launches``, ``gather`` or ``sliced``);
+(K6 also in ``combine_windows.mode_launches``, ``gather``, ``sliced`` or
+``wide``);
 for CPU tensors it runs the plain torch twin beside it (``*_plain``),
 which is also the kernel's oracle on the card.
 """
@@ -147,13 +148,20 @@ sliced_fold.launches = 0
 
 # --------------------------------------------------- K6: combine_windows
 def combine_windows_plain(store, layout: StoreLayout, num_keys: int, slot_lane,
-                          w_lane=None, spw: int = 1, width: int = 0):
-    """Plain twin of K6 — see :func:`combine_windows`."""
+                          w_lane=None, spw: int = 1, width: int = 0, mask=None):
+    """Plain twin of K6 — see :func:`combine_windows`.  The wide columns'
+    rows of lanes outside ``mask`` are zeros."""
     idx = slot_lane.long()
     out: Dict[str, torch.Tensor] = {}
     if w_lane is None:
-        for j in range(len(layout.components)):
-            out[f"a{j}"] = store[f"a{j}"][idx]
+        for j, comp in enumerate(layout.components):
+            col = store[f"a{j}"]
+            if comp.width == 1 or mask is None:
+                out[f"a{j}"] = col[idx]
+            else:
+                wide = torch.zeros((idx.shape[0], comp.width), dtype=col.dtype, device=col.device)
+                wide[mask] = col[idx[mask]]
+                out[f"a{j}"] = wide
         out["wstart"] = store["wstart"][idx]
     else:
         ring = layout.components[0].width
@@ -186,7 +194,7 @@ def combine_windows_plain(store, layout: StoreLayout, num_keys: int, slot_lane,
 def combine_windows(store: Dict[str, torch.Tensor], layout: StoreLayout,
                     num_keys: int, slot_lane: torch.Tensor,
                     w_lane: Optional[torch.Tensor] = None, spw: int = 1,
-                    width: int = 0) -> Dict[str, torch.Tensor]:
+                    width: int = 0, mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """K6 (replaces ``runtime/lowering.py:_combine_windows`` and the gather
     of ``_finalized_env``): per emission lane, the store's state at
     ``slot_lane`` in fresh tensors — ``a<j>``, ``key<i>``, ``knull`` and
@@ -199,9 +207,12 @@ def combine_windows(store: Dict[str, torch.Tensor], layout: StoreLayout,
     ring)``; a cell whose ``slice_id`` is not ``w + t`` reads as the init.
     ``wstart`` is ``w_lane * width``.  Without ``w_lane`` it is the plain
     gather (S = 1, no ring) of the tumbling, unwindowed and expansion
-    routes."""
+    routes; there a vector aggregate's width-K column (``ops/vector.py``)
+    is gathered whole per lane (K6's wide mode, counted as ``wide``), for
+    the lanes of ``mask`` only when one is given (K3's winners: the rows
+    of the other lanes are left unspecified)."""
     if not slot_lane.is_cuda:
-        return combine_windows_plain(store, layout, num_keys, slot_lane, w_lane, spw, width)
+        return combine_windows_plain(store, layout, num_keys, slot_lane, w_lane, spw, width, mask)
     nn = slot_lane.shape[0]
     c1 = layout.capacity + 1
     ring = layout.components[0].width if w_lane is not None else 0
@@ -209,16 +220,26 @@ def combine_windows(store: Dict[str, torch.Tensor], layout: StoreLayout,
     if w_lane is not None:
         _expect(w_lane, torch.int64, (nn,))
         _expect(store["slice_id"], torch.int64, (c1, ring))
+    if mask is not None:
+        _expect(mask, torch.bool, (nn,))
     dev = slot_lane.device
     out: Dict[str, torch.Tensor] = {}
     desc: List[int] = []
+    wide: List[int] = []
     for j, comp in enumerate(layout.components):
         col = store[f"a{j}"]
+        if not ring and comp.width > 1:
+            _expect(col, hs._DTYPES[comp.dtype], (c1, comp.width))
+            o = torch.empty((nn, comp.width), dtype=col.dtype, device=dev)
+            out[f"a{j}"] = o
+            wide += [col.data_ptr(), o.data_ptr(), comp.width * col.element_size()]
+            continue
         _expect(col, hs._DTYPES[comp.dtype], (c1, ring) if ring else (c1,))
         o = torch.empty(nn, dtype=col.dtype, device=dev)
         out[f"a{j}"] = o
-        desc += [col.data_ptr(), o.data_ptr(),
-                 hs._COMBINE_CODES[comp.combine] * 3 + hs._DTYPE_CODES[comp.dtype],
+        # a vector group's scalar head (vec_count) is gathered as it is
+        combine = hs._COMBINE_CODES.get(comp.combine, 0)
+        desc += [col.data_ptr(), o.data_ptr(), combine * 3 + hs._DTYPE_CODES[comp.dtype],
                  hs.init_bits(comp)]
     keys_in, keys_out = [], []
     for i in range(num_keys):
@@ -233,21 +254,23 @@ def combine_windows(store: Dict[str, torch.Tensor], layout: StoreLayout,
         out[name] = torch.empty(nn, dtype=dt, device=dev)
     fn = cuda.lib("combine_windows")
     cuda.check("combine_windows", fn(
-        cuda.host_i64(desc), len(layout.components), cuda.host_i64(keys_in),
+        cuda.host_i64(desc), len(desc) // 4, cuda.host_i64(keys_in),
         cuda.host_i64(keys_out), num_keys, store["knull"].data_ptr(),
         out["knull"].data_ptr(), store["wstart"].data_ptr(),
         out["wstart"].data_ptr(),
         store["slice_id"].data_ptr() if ring else None, slot_lane.data_ptr(),
         w_lane.data_ptr() if ring else None, nn, ring, int(spw), int(width),
+        cuda.host_i64(wide), len(wide) // 3, None if mask is None else mask.data_ptr(),
         _stream(dev),
     ))
     combine_windows.launches += 1
-    combine_windows.mode_launches["sliced" if ring else "gather"] += 1
+    combine_windows.mode_launches["sliced" if ring else "wide" if wide else "gather"] += 1
     return out
 
 
 combine_windows.launches = 0
-combine_windows.mode_launches = {"gather": 0, "sliced": 0}
+#: ``wide``: a plain gather whose layout holds width-K vector columns
+combine_windows.mode_launches = {"gather": 0, "sliced": 0, "wide": 0}
 
 
 # ------------------------------------------------------ K7: member_lanes

@@ -15,8 +15,11 @@ the plan shapes of this slice:
     LEFT, RIGHT or FULL OUTER, WITHIN, with or without GRACE) →
     Filter*/Select* → Sink
 
-with COUNT(*), COUNT, SUM, AVG, MIN and MAX (``ops/device_aggs.py``), plus
-the stateless filter/project pipelines.  Each table of a stream-table join
+with COUNT(*), COUNT, SUM, AVG, MIN and MAX and the vector aggregates
+COLLECT_LIST, COLLECT_SET, EARLIEST/LATEST_BY_OFFSET(n), TOPK, TOPKDISTINCT,
+HISTOGRAM and ATTR (``ops/device_aggs.py``; the vector state is folded by
+``ops/vector.py``'s K20-K22 after K3, on the unwindowed, TUMBLING and
+HOPPING-expansion routes), plus the stateless filter/project pipelines.  Each table of a stream-table join
 is materialized into its own keyed store on the card (``jtab``, inner
 probes of a chain ``jtab<i>``): ``process_table`` folds a changelog batch
 into it (K1 table mode, K2, K9 table_upsert) and every stream row probes
@@ -48,8 +51,9 @@ shape raises :class:`DeviceUnsupported` at construction: SESSION windows
 over a join, FULL/RIGHT stream-table joins, an aggregation over a
 stream-stream join, table-table and foreign-key joins, flat-maps,
 PARTITION BY outside a join's input side, EMIT FINAL or HAVING over
-SESSION windows, table aggregation, vector and arg-set aggregates,
-window families, pull queries.
+SESSION windows, table aggregation, vector aggregates over SESSION
+windows or under EMIT FINAL, arg-set aggregates, window families, pull
+queries.
 
 Where the reference traces one jitted step, the port runs eagerly: the
 expression phases are torch tensor ops, and the keyed store goes through
@@ -58,8 +62,9 @@ probe_insert, K3 fold_and_mark, K4 evict, K8 probe_find, K9
 table_upsert), ``ops/slicing.py`` (K5 sliced_fold, K6 combine_windows,
 K7 member_lanes), ``ops/ss_join.py`` (K10 ss_match, K11 ss_insert, K12
 ss_expire), ``ops/session.py`` (K13 seg_sort, K14 session_items, K15
-session_merge, K16 session_write) and ``ops/suppress.py`` (K17
-suppress_clock, K18 suppress_close, K19 having_verdict).  The stores are
+session_merge, K16 session_write), ``ops/suppress.py`` (K17
+suppress_clock, K18 suppress_close, K19 having_verdict) and
+``ops/vector.py`` (K20 vec_collect, K21 vec_topk, K22 vec_hist).  The stores are
 updated IN PLACE; every emitted lane is a fresh tensor (a K6, K8, K10,
 K12, K16 or K19 output or a batch column), never a view of a store
 column, so a pipelined batch's
@@ -103,6 +108,7 @@ from ksql_tpu_torch.ops import session as sess
 from ksql_tpu_torch.ops import slicing
 from ksql_tpu_torch.ops import ss_join as ssj
 from ksql_tpu_torch.ops import suppress as sup
+from ksql_tpu_torch.ops import vector as vec
 from ksql_tpu_torch.ops import window as W
 from ksql_tpu_torch.ops.device_aggs import DeviceAgg, compile_device_agg, resolve_udaf
 from ksql_tpu_torch.parser.ast_nodes import JoinType, WindowType
@@ -495,12 +501,26 @@ class TorchCompiledQuery:
                 raise DeviceUnsupported("DISTINCT aggregation on device")
             c = TorchExprCompiler(probe, 0, "cpu")
             arg_types = [c.compile(a).sql_type for a in call.args]
-            kind, result_type = resolve_udaf(call.function, arg_types)
-            device = compile_device_agg(kind, arg_types, result_type)
+            kind, result_type, n_lits = resolve_udaf(call.function, arg_types)
+            # the values of the trailing literal parameters (TOPK's k,
+            # EARLIEST/LATEST's n and ignoreNulls); None: not a literal
+            lits: List[object] = []
+            for a in call.args[len(call.args) - n_lits:] if n_lits else ():
+                if isinstance(a, (ex.IntegerLiteral, ex.LongLiteral)):
+                    lits.append(int(a.value))
+                elif isinstance(a, ex.BooleanLiteral):
+                    lits.append(bool(a.value))
+                else:
+                    lits.append(None)
+            device = compile_device_agg(kind, arg_types, result_type, fname=call.function,
+                                        literals=lits)
             if self.session and any(comp.width > 1 for comp in device.components):
                 # the segment merge folds components pairwise; vector state
                 # has no pairwise combine
                 raise DeviceUnsupported(f"{call.function} over SESSION windows on device")
+            if self.suppress and any(comp.width > 1 for comp in device.components):
+                # K18 resets an evicted window's scalar components only
+                raise DeviceUnsupported(f"{call.function} under EMIT FINAL on device")
             self.agg_specs.append(_AggSpec(
                 call.function, tuple(call.args), device, f"KSQL_AGG_VARIABLE_{i}",
             ))
@@ -997,6 +1017,7 @@ class TorchCompiledQuery:
             winners = hs.fold_and_mark(
                 store, self.scratch, self.store_layout, slots, payload["contribs"], active
             )
+            vec.fold_vectors(store, self.store_layout, slots, payload["contribs"])
             if self.suppress:
                 emits = {"emit_mask": torch.zeros(nn, dtype=torch.bool, device=active.device),
                          "suppress_emit": sup.suppress_close(
@@ -1185,9 +1206,17 @@ class TorchCompiledQuery:
         for i, j in enumerate(indices):
             spec = self.agg_specs[j]
             comps = [view[f"a{starts[j] + t}"] for t in range(len(spec.device.components))]
-            data, valid = spec.device.finalize(comps)
+            fin = spec.device.finalize(comps)
             out_name = spec.out_name if agg_map is None else f"KSQL_AGG_VARIABLE_{i}"
-            env[out_name] = DCol(data, valid, spec.device.result_type)
+            rt = spec.device.result_type
+            if len(fin) == 4:  # a map: (keys [n, K], row valid, present, counts)
+                data, _valid, present, counts = fin
+                env[out_name] = DCol(data, present, rt, elem_valid=present, aux=counts)
+            elif len(fin) == 3:  # an array: (data [n, K], present, element valid)
+                data, present, ev = fin
+                env[out_name] = DCol(data, present, rt, elem_valid=ev)
+            else:
+                env[out_name] = DCol(fin[0], fin[1], rt)
         ones = torch.ones(nn, dtype=torch.bool, device=row_ts.device)
         env["ROWTIME"] = DCol(row_ts, ones, T.BIGINT)
         if self.window is not None:
@@ -1202,7 +1231,10 @@ class TorchCompiledQuery:
         the post-aggregation ops; with HAVING retraction each filter's
         verdict goes through K19, and the slots that stop passing emit
         tombstones."""
-        view = slicing.combine_windows(self.state, self.store_layout, len(self.key_types), slots)
+        # vector state is gathered for the winners only (K6's wide mode):
+        # no other lane emits
+        view = slicing.combine_windows(self.state, self.store_layout, len(self.key_types), slots,
+                                       mask=mask)
         env, row_ts = self._finalized_env(view, nn)
         tomb = None
         hpass = self.state.get("hpass")
@@ -1227,6 +1259,10 @@ class TorchCompiledQuery:
                 raise DeviceUnsupported(f"sink column {col.name} not computed on device")
             out[f"v_{col.name}"] = d.data
             out[f"m_{col.name}"] = d.valid
+            if d.data.dim() == 2:  # a vector column: its element null bits
+                out[f"e_{col.name}"] = d.elem_valid if d.elem_valid is not None else d.valid
+                if d.aux is not None:  # a map column: its per-entry counts
+                    out[f"c_{col.name}"] = d.aux
         if self.window is not None and "WINDOWSTART" in env:
             out["ws"] = env["WINDOWSTART"].data
             out["we"] = env["WINDOWEND"].data
@@ -1698,6 +1734,9 @@ class TorchCompiledQuery:
 
         cols: Dict[str, list] = {}
         for col in schema.columns():
+            if emits[f"v_{col.name}"].dim() == 2:
+                cols[col.name] = self._decode_vectors(emits, host, col)
+                continue
             cols[col.name] = decode_value(
                 host(f"v_{col.name}"), host(f"m_{col.name}"), col.type, self.dictionary
             )
@@ -1726,6 +1765,31 @@ class TorchCompiledQuery:
             # ts-major, window-start-minor: the reference's emission order
             out.sort(key=lambda e: (e.ts, e.window or (0, 0)))
         return out
+
+
+    def _decode_vectors(self, emits: Dict[str, torch.Tensor], host, col) -> list:
+        """An ARRAY column's emitted lanes as lists of their present
+        elements, or a MAP column's (``c_<col>``) as dicts of present key →
+        count, in entry order; string elements decode through the
+        dictionary (the reference's ``_decode_emits``)."""
+        data, present = host(f"v_{col.name}"), host(f"m_{col.name}")
+        flat = present.reshape(-1)
+        bounds = np.cumsum(present.sum(axis=1))[:-1]
+        if f"c_{col.name}" in emits:
+            keys = decode_value(data.reshape(-1)[flat], np.ones(int(flat.sum()), bool),
+                                col.type.key or col.type.element, self.dictionary)
+            counts = host(f"c_{col.name}").reshape(-1)[flat]
+            return [dict(zip(kp, (int(x) for x in vp)))
+                    for kp, vp in zip(np.split(np.asarray(keys, object), bounds),
+                                      np.split(counts, bounds))]
+        elems = decode_value(data.reshape(-1)[flat], host(f"e_{col.name}").reshape(-1)[flat],
+                             col.type.element, self.dictionary)
+        # an element-wise object array: equal-length list elements must not
+        # become a 2-D array
+        objs = np.empty(len(elems), object)
+        for i, v in enumerate(elems):
+            objs[i] = v
+        return [list(part) for part in np.split(objs, bounds)]
 
 
 def _probe_env(types) -> Dict[str, DCol]:

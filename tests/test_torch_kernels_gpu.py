@@ -573,3 +573,59 @@ def test_row_prologue_without_grace_cut_matches_twin(dev, advance):
     args = (reprs, valid, ts, active, HOUR, 0, None, 1 << 12)
     _same_tree(list(hs.row_prologue(*args, advance_ms=advance)),
                list(hs.row_prologue_plain(*args, advance_ms=advance)))
+
+
+def _bits(t):
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_vector_kernels_match_twins(dev, seed):
+    # K20 (append, set, ring), K21 (plain, distinct) and K6's wide gather on
+    # phase 2v's pv_vectors case, K20 hist and K22 on its histogram case;
+    # exact, the dump row included
+    from ksql_tpu_torch.ops import vector as vec
+
+    rng = np.random.default_rng(seed)
+    c = chip_smoke.make_vector_case(torch, rng, dev, n=2048, capacity=1 << 13)
+    layout, store, slots, contribs = c["layout"], c["store"], c["slots"], c["contribs"]
+    j = 1
+    while j < len(layout.components):
+        comp = layout.components[j]
+        size = 3 if comp.combine == "vec_count" else 1
+        keys = [f"a{j + t}" for t in range(size)]
+        got = {k: store[k].clone() for k in keys}
+        want = {k: store[k].clone() for k in keys}
+        if size == 3:
+            mode = layout.components[j + 1].mode
+            before = vec.vec_collect.mode_launches[mode]
+            vec.vec_collect(got, layout, j, contribs, slots, mode)
+            assert vec.vec_collect.mode_launches[mode] == before + 1
+            vec.vec_collect_plain(want, layout, j, contribs, slots, mode)
+        elif comp.combine == "topk":
+            vec.vec_topk(got, layout, j, contribs[j], slots)
+            vec.vec_topk_plain(want, layout, j, contribs[j], slots)
+        for k in keys:
+            _same(_bits(got[k]), _bits(want[k]))
+        j += size
+    mask = torch.from_numpy(rng.random(slots.shape[0]) < 0.3).to(dev)
+    got = slicing.combine_windows(store, layout, 1, slots, mask=mask)
+    want = slicing.combine_windows_plain(store, layout, 1, slots, mask=mask)
+    for k in want:
+        g, w = got[k], want[k]
+        if g.dim() == 2:
+            g, w = g[mask], w[mask]
+        _same(_bits(g), _bits(w))
+    h = chip_smoke.make_hist_case(torch, rng, dev, n=2048, capacity=1 << 12)
+    keys = [f"a{h['j'] + t}" for t in range(4)]
+    got = {k: h["store"][k].clone() for k in keys}
+    want = {k: h["store"][k].clone() for k in keys}
+    vec.fold_vectors(got, h["layout"], h["slots"], h["contribs"])
+    vec.vec_collect_plain(want, h["layout"], h["j"], h["contribs"], h["slots"], "hist")
+    vec.vec_hist_plain(want, h["layout"], h["j"], h["contribs"], h["slots"])
+    for k in keys:
+        _same(got[k], want[k])
+
+
+def test_vector_topk_over_doubles_matches_twin(dev):
+    chip_smoke._check_topk_doubles(torch, np.random.default_rng(4), dev, capacity=1 << 9, n=4096)

@@ -299,7 +299,10 @@ UNSUPPORTED = {
     "emit_final": "CREATE TABLE C AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
                   "WINDOW SESSION (5 MINUTES) GROUP BY URL EMIT FINAL;",
     "having": SS_AGG + "GROUP BY L.ID HAVING COUNT(*) > 3;",
-    "collect_list": "CREATE TABLE C AS SELECT URL, COLLECT_LIST(USER_ID) AS CL FROM PAGE_VIEWS GROUP BY URL;",
+    # vector aggregates run on the port (tests/test_torch_vector_aggs.py);
+    # over SESSION windows both packages refuse them
+    "collect_list": "CREATE TABLE C AS SELECT URL, COLLECT_LIST(USER_ID) AS CL FROM PAGE_VIEWS "
+                    "WINDOW SESSION (5 MINUTES) GROUP BY URL;",
     "partition_by": "CREATE STREAM S AS SELECT URL, USER_ID FROM PAGE_VIEWS PARTITION BY USER_ID;",
     "function": "CREATE STREAM S AS SELECT URL, ABS(LATENCY) AS A FROM PAGE_VIEWS;",
 }
@@ -314,10 +317,11 @@ def test_unsupported_plan_raises(name):
         TorchCompiledQuery(plan_from_json(plan_to_json(plan)), capacity=8, store_capacity=16, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["hopping_emit_final", "session", "emit_final", "having"])
+@pytest.mark.parametrize("name", ["hopping_emit_final", "session", "emit_final", "having",
+                                  "collect_list"])
 def test_refusal_message_is_the_references(name):
-    # the EMIT FINAL and HAVING shapes still refused: the reference refuses
-    # them too, with the same words
+    # the EMIT FINAL, HAVING and vector-over-SESSION shapes still refused:
+    # the reference refuses them too, with the same words
     engine, plan, _schema = plan_for(SS_DDL if name in UNSUPPORTED_SS else DDL, UNSUPPORTED[name])
     with pytest.raises(Exception) as ref_err:
         CompiledDeviceQuery(plan, engine.registry, capacity=8, store_capacity=16)

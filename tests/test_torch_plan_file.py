@@ -5,14 +5,17 @@
 (BASELINE #3), ``ss_join_grace.json`` (BASELINE #4), ``pv_sessions.json``
 (BASELINE #5), ``pv_counts_final.json`` and ``pv_stats_hopping_final.json``
 (BASELINE #1 and #2 with EMIT FINAL), ``possible_fraud.json`` (ksqlDB's
-HAVING example over the page views) and ``pv_having_retract.json`` (a
-HAVING predicate that flips both ways) are the serialized physical plans
+HAVING example over the page views), ``pv_having_retract.json`` (a
+HAVING predicate that flips both ways), ``pv_vectors.json`` (COLLECT_LIST,
+COLLECT_SET, TOPK, TOPKDISTINCT, EARLIEST/LATEST_BY_OFFSET(n)) and
+``pv_user_pages.json`` (HISTOGRAM) are the serialized physical plans
 that ``chip_smoke.py`` runs (the port has no SQL front end yet): each must
 equal ``plan_to_json`` of the plan the reference engine builds from the
 bench's DDL (``bench.py``'s tumbling COUNT(*) and hopping
 SUM/AVG/MIN/MAX over the page-view stream, its clicks-users LEFT JOIN, its
-stream-stream LEFT JOIN with GRACE and its SESSION COUNT(*), and the
-EMIT FINAL and HAVING variants), and the port's decoder must read it back
+stream-stream LEFT JOIN with GRACE and its SESSION COUNT(*), the EMIT
+FINAL and HAVING variants and the vector aggregates over the page views),
+and the port's decoder must read it back
 to the same JSON.
 """
 
@@ -77,6 +80,20 @@ CTAS = {
         "CREATE TABLE PV_HAVING_RETRACT AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
         "WINDOW TUMBLING (SIZE 1 MINUTE) GROUP BY URL HAVING AVG(USER_ID) > 500 EMIT CHANGES;"
     ),
+    # the vector aggregates over the page views: every collect mode but
+    # the histogram's, both top-K modes
+    "pv_vectors.json": (
+        "CREATE TABLE PV_VECTORS AS SELECT URL, "
+        "COLLECT_LIST(USER_ID) AS CL, COLLECT_SET(USER_ID) AS CS, "
+        "TOPK(USER_ID, 3) AS TK, TOPKDISTINCT(USER_ID, 3) AS TD, "
+        "EARLIEST_BY_OFFSET(USER_ID, 3) AS E3, LATEST_BY_OFFSET(USER_ID, 3) AS L3 "
+        "FROM PAGE_VIEWS WINDOW TUMBLING (SIZE 1 HOUR) GROUP BY URL EMIT CHANGES;"
+    ),
+    # each user's pages an hour: the histogram over dictionary-coded strings
+    "pv_user_pages.json": (
+        "CREATE TABLE USER_PAGES AS SELECT USER_ID, HISTOGRAM(URL) AS PAGES "
+        "FROM PAGE_VIEWS WINDOW TUMBLING (SIZE 1 HOUR) GROUP BY USER_ID EMIT CHANGES;"
+    ),
 }
 #: the DDL each plan's query reads (bench.py:149, :541-546)
 DDL = {
@@ -93,6 +110,8 @@ DDL = {
     "pv_stats_hopping_final.json": [bench.PV_DDL],
     "possible_fraud.json": [bench.PV_DDL],
     "pv_having_retract.json": [bench.PV_DDL],
+    "pv_vectors.json": [bench.PV_DDL],
+    "pv_user_pages.json": [bench.PV_DDL],
     "ss_join_grace.json": [
         "CREATE STREAM LEFTS (ID BIGINT KEY, V BIGINT) WITH (KAFKA_TOPIC='lt', VALUE_FORMAT='JSON');",
         "CREATE STREAM RIGHTS (ID BIGINT KEY, V BIGINT) WITH (KAFKA_TOPIC='rt', VALUE_FORMAT='JSON');",
@@ -102,7 +121,8 @@ SINKS = {"pv_counts_tumbling.json": "PV_COUNTS", "pv_stats_hopping.json": "PV_ST
          "enriched_join.json": "ENRICHED", "ss_join_grace.json": "J",
          "pv_sessions.json": "SESSIONS", "pv_counts_final.json": "PV_COUNTS_FINAL",
          "pv_stats_hopping_final.json": "PV_STATS_FINAL", "possible_fraud.json": "POSSIBLE_FRAUD",
-         "pv_having_retract.json": "PV_HAVING_RETRACT"}
+         "pv_having_retract.json": "PV_HAVING_RETRACT", "pv_vectors.json": "PV_VECTORS",
+         "pv_user_pages.json": "USER_PAGES"}
 
 
 def _committed(name):
@@ -175,4 +195,18 @@ def test_final_and_having_plan_files_equal_reference_engine_plans(name):
 
 @pytest.mark.parametrize("name", FINAL_AND_HAVING)
 def test_port_decodes_final_and_having_plan_files_losslessly(name):
+    _check_decodes(name)
+
+
+#: the vector-aggregate plans of chip_smoke.py's phases 14 and 14h
+VECTORS = ("pv_vectors.json", "pv_user_pages.json")
+
+
+@pytest.mark.parametrize("name", VECTORS)
+def test_vector_plan_files_equal_reference_engine_plans(name):
+    _check_equals_reference(name)
+
+
+@pytest.mark.parametrize("name", VECTORS)
+def test_port_decodes_vector_plan_files_losslessly(name):
     _check_decodes(name)
