@@ -41,7 +41,7 @@ Phases, in this order; any failure exits non-zero and prints no result:
    the store to 2^21 slots with zero overflow and exact counts.
 6. Hopping end to end, sliced: ``run_plan`` on BASELINE #2's plan
    (``ksql_tpu_torch/plans/pv_stats_hopping.json``, SUM/AVG/MIN/MAX of
-   USER_ID over HOPPING 1 h / 15 min windows GROUP BY URL) over 16 x 16,384
+   USER_ID over HOPPING 1 h / 15 min windows GROUP BY URL) over 8 x 16,384
    JSON records of 50,000 zipf(1.3) URLs, 17 ms apart; the store is asked
    for 2^20 slots, clamped to 2^15 by the state budget, and grows.  The
    route must be sliced (ring 102, k 4), the sink must equal the port's
@@ -139,7 +139,7 @@ Phases, in this order; any failure exits non-zero and prints no result:
    phase 8's traffic on the expansion route (the reference's reason),
    then a flush: the sink must equal the port's CPU run, each window once.
 13. ksqlDB's possible_fraud query (``possible_fraud.json``, HAVING
-   COUNT(*) > 3 per URL and minute) over phase 3's 8 batches with USER_ID
+   COUNT(*) > 3 per URL and minute) over phase 3's first 4 batches with USER_ID
    drawn as bench.py does: the sink must equal a numpy count, no
    tombstone.
 13r. A HAVING verdict that flips both ways (``pv_having_retract.json``,
@@ -162,7 +162,7 @@ Phases, in this order; any failure exits non-zero and prints no result:
 14. Vector aggregates end to end (``ksql_tpu_torch/plans/pv_vectors.json``:
    COLLECT_LIST, COLLECT_SET, TOPK, TOPKDISTINCT, EARLIEST_BY_OFFSET(n)
    and LATEST_BY_OFFSET(n) of USER_ID per URL and hour) through
-   ``run_plan`` over phase 6's traffic in 64 batches of 4,096 (larger
+   ``run_plan`` over phase 6's traffic in 32 batches of 4,096 (larger
    batches overflow the store that the 256 MiB state budget clamps to
    8,192 slots before the first sampled load check): the sink must equal
    the port's CPU run record for record, the last value per (URL, hour) a
@@ -173,10 +173,46 @@ Phases, in this order; any failure exits non-zero and prints no result:
    same traffic: the sink must equal the CPU run, the last map per
    (USER_ID, hour) a count of its URLs.
 14b. Phase 14's first 8 batches re-run under the breakdown's timers.
+2t. The table aggregation's kernels against their twins at its shapes: K8's
+   find mode (65,536 rows over 2^17 slots 70% full, 5% graves, about half
+   found); K23 ``vec_remove`` on 4,096 undo rows into phase 16's store at
+   2^15 slots (COLLECT_LIST(ID) lists below, at and past their 1,000 cap,
+   ids repeated in a list and in the batch, a populated dump row, 2%
+   missed rows) and over a side store of DOUBLE lists with -0.0, +0.0 and
+   NaN; K20's hist mode and K22 with the undo side's negative heads on the
+   same store's HISTOGRAM(STATUS); K3 on phase 15's negated contributions
+   (65,536 rows into 50 region slots).  All exact but K3's float sums
+   (rtol 1e-12).  No single PyTorch call computes K8's walk, K20, K22 or
+   K23; K3's yardstick is ``index_add_`` per component.
+15. ``users_by_region.json`` (COUNT, SUM, AVG, STDDEV_SAMPLE of AMT per
+   REGION over the USERS table) through the runner: 100,000 users over 50
+   regions (BASELINE #3's users and regions), run to the end, then 4 x
+   65,536 changes (70% new AMT in the same region, 20% a move, 10%
+   deletes, re-inserts), in 65,536-change batches (p50/p99 over these):
+   the sink must equal the CPU run, the last C/S/A/SD per region numpy
+   over the final table; no overflow.
+16. ``customer_orders.json`` (COUNT, SUM(AMOUNT), COLLECT_LIST(ID),
+   HISTOGRAM(STATUS) per CUSTOMER_ID, WHERE STATUS <> 'CANCELLED') over 32
+   x 4,096 changes of zipf customers' orders (new, NEW -> SHIPPED ->
+   DELIVERED, some CANCELLED, deletes; 2% of the changes change again an
+   order already changed in the batch): the sink must equal the CPU run,
+   the last value per customer a Python model of the reference's batch
+   rule, and N/TOTAL the final table, BY_STATUS (and ORDER_IDS below the
+   cap) too where no order changed twice in a batch; some second change
+   must leave the batch rule's phantom; the clamped store must grow, no
+   overflow.
+17. ``big_spenders.json`` (a table transform: the USERS with AMT > 500)
+   over phase 15's changes, the load apart as there: the sink must equal
+   the CPU run and the per-change rule (a passing new row emits, a
+   failing or deleted one whose old row passed emits a tombstone), the
+   last rows AMT > 500 over the final table.
+15b. Phase 15's load, then 2 of its update batches under the breakdown's
+   timers (JSON, encode, undo side, apply side, emit decode, produce, the
+   card's busy share).
 5. Launch counters, per path: the counts (per kernel, and per mode for K1,
-   K4, K6, K10, K11, K14, K16, K17, K20 and K21) are set to 0 just before each of
-   phases 3, 4, 6, 7, 8, 9, 9g, 10, 10g, 11, 11g, 12, 12g, 12h, 13, 13r, 14
-   and 14h drives the runner on the card (and, for 12-12h, its flush) and read
+   K4, K6, K8, K10, K11, K14, K16, K17, K20 and K21) are set to 0 just before each of
+   phases 3, 4, 6, 7, 8, 9, 9g, 10, 10g, 11, 11g, 12, 12g, 12h, 13, 13r, 14,
+   14h, 15, 16 and 17 drives the runner on the card (and, for 12-12h, its flush) and read
    just after it; each phase must have launched every kernel of its route
    in the route's modes (``PATH_KERNELS``), and no kernel or mode outside
    it.  Then short profiled re-runs split a batch's time into
@@ -266,7 +302,7 @@ KERNEL_FUNCS = {
     "sliced_fold": ("slice_reset_kernel", "slice_fold_kernel"),
     "combine_windows": ("combine_kernel", "wide_gather_kernel"),
     "member_lanes": ("lane_claim_kernel", "lane_winner_kernel"),
-    "probe_find": ("probe_find_kernel",),
+    "probe_find": ("probe_find_kernel", "find_slots_kernel"),
     "table_upsert": ("claim_kernel", "upsert_kernel", "dump_kernel"),
     "ss_match": ("match_count_kernel", "match_scan_kernel", "match_write_kernel"),
     "ss_insert": ("insert_prologue_kernel", "insert_write_kernel"),
@@ -283,6 +319,8 @@ KERNEL_FUNCS = {
     "vec_topk": ("topk_keys_kernel", "topk_dedup_kernel", "topk_gather_kernel", "topk_pstar_kernel",
                  "topk_top_kernel", "topk_dump_kernel"),
     "vec_hist": ("hist_count_kernel",),
+    "vec_remove": ("remove_keys_kernel", "remove_claim_kernel", "remove_compact_kernel",
+                   "remove_dump_kernel"),
 }
 
 
@@ -1375,7 +1413,7 @@ _SLICED = {"row_prologue": "sliced", "probe_insert": None, "sliced_fold": None,
            "member_lanes": None, "combine_windows": "sliced", "evict": "sliced"}
 #: a stream-table join: K8 per stream batch; K1 (table mode), K2 and K9 per
 #: table batch
-_JOIN = {"probe_find": None, "row_prologue": "table", "probe_insert": None, "table_upsert": None}
+_JOIN = {"probe_find": "join", "row_prologue": "table", "probe_insert": None, "table_upsert": None}
 #: a stream-stream join: K10 and K11 in both modes per batch, K12 per tick
 _SS = {"ss_match": ("count", "write"), "ss_insert": ("prologue", "write"), "ss_expire": None}
 #: a session aggregation: K1's session mode, K13 twice, K14 in its three
@@ -1392,6 +1430,10 @@ _HAVING = {**_TUMBLING, "having_verdict": None}
 #: vector aggregates: the tumbling path with K6 gathering the width-K state,
 #: K13 for the vector orders, and K4 at each grow's retention pass
 _VECTOR = {**_TUMBLING, "combine_windows": "wide", "seg_sort": None, "evict": "tumbling"}
+#: a table aggregation: per side K1 (unwindowed), K3 and K6; K8's find mode
+#: on the undo side, K2 on the apply side
+_TABLE_AGG = {"row_prologue": "tumbling", "probe_find": "find", "probe_insert": None,
+              "fold_and_mark": None, "combine_windows": "gather"}
 PATH_KERNELS = {
     "3": _TUMBLING,
     "4": {**_TUMBLING, "evict": "tumbling"},
@@ -1411,6 +1453,13 @@ PATH_KERNELS = {
     "13r": _HAVING,
     "14": {**_VECTOR, "vec_collect": ("append", "set", "ring"), "vec_topk": ("plain", "distinct")},
     "14h": {**_VECTOR, "vec_collect": "hist", "vec_hist": None},
+    "15": _TABLE_AGG,
+    # COLLECT_LIST and HISTOGRAM: K23 before K20 on the undo side, K20
+    # (append, hist) and K22 on both, K13 for their orders, K6's wide gather
+    "16": {**_TABLE_AGG, "combine_windows": "wide", "seg_sort": None,
+           "vec_collect": ("append", "hist"), "vec_hist": None, "vec_remove": None},
+    # a table transform: expression ops only, no kernel
+    "17": {},
 }
 #: per phase, each kernel's launches in that phase's card run, by mode
 PATH_LAUNCHES: dict = {}
@@ -1560,7 +1609,8 @@ def phase_breakdown(torch, drive, n_batches, tag):
             out = fn(*a, **k)
             if sync:
                 torch.cuda.synchronize()
-            acc[stage] = acc.get(stage, 0.0) + time.perf_counter() - t0
+            label = stage(*a, **k) if callable(stage) else stage
+            acc[label] = acc.get(label, 0.0) + time.perf_counter() - t0
             return out
         return wrapper
 
@@ -1574,6 +1624,8 @@ def phase_breakdown(torch, drive, n_batches, tag):
         (TorchCompiledQuery, "_ss_write", "ss match + insert write + emission", True),
         (TorchCompiledQuery, "_ss_expire", "ss expiry", True),
         (TorchCompiledQuery, "_read_sess_ovf", "of which the sess_ovf read", False),
+        (TorchCompiledQuery, "_ta_side",
+         lambda self, arrays, undo: "undo side" if undo else "apply side", True),
         (TorchCompiledQuery, "_react_to_load", "load check", False),
         (TorchCompiledQuery, "_decode_emits", "emit decode", False),
         (SinkWriter, "produce", "sink produce", False),
@@ -1633,7 +1685,7 @@ def phase_growth(torch, plan_json, seed):
 
 
 # ------------------------------------------------------------- phase 6-8
-HOP_BATCHES = 16
+HOP_BATCHES = 8  # phases 6, 8 and 12h, cut from 16 for the script's time (PERF.md §4)
 LONG_BATCHES = 72  # past EVICT_INTERVAL (64): the cadence retention pass runs
 LONG_ROWS = 8192  # phase 7's batch, cut from 16,384 for the script's time (PERF.md §4)
 HOT_URLS = 500
@@ -2585,7 +2637,7 @@ FINAL_GROW_RECORDS = (1 << 20) + (1 << 18)  # a full batch, then a quarter batch
 FINAL_GROW_REPEATS = 8  # phase 12g: each URL of an hour's pool seen 8 times
 HAVING_MIN_MS = 60_000  # possible_fraud's window
 HAVING_RETRACT_BATCHES = 4  # phase 13r's depth, on the card and in the CPU run
-HAVING_BATCHES = 8  # phase 13's depth, cut from 16 for the script's time (PERF.md §4)
+HAVING_BATCHES = 4  # phase 13's depth, cut from 16 and 8 for the script's time (PERF.md §4)
 PV_STEP_MS = 17  # bench.py:139: phases 12 and 13 space their records as phase 3 does
 
 
@@ -3076,7 +3128,7 @@ def phase_having_e2e(torch, fraud_json, retract_json, seed):
 
 # ------------------------------------------------------- phase 2v, 14-14b
 VEC_ROWS = 4096  # phase 14's batch: 16,384 and 8,192 overflow the clamped store (PERF.md §4)
-VEC_BATCHES = 64  # 64 x 4,096 = phase 6's 16 x 16,384 records
+VEC_BATCHES = 32  # 32 x 4,096 = phase 6's 8 x 16,384 records (cut from 64 for the script's time)
 VEC_STORE = 1 << 16  # phase 2v's store: the size phase 14 grows to
 HIST_STORE = 1 << 15  # phase 2v's histogram store: the size phase 14h grows to
 VEC_FILL = 0.5  # phase 2v's stores are half full
@@ -3516,6 +3568,741 @@ def _vector_head(torch, vec_json, seed, n_batches=VEC_BREAKDOWN_BATCHES):
     return lambda: run_main_path(torch, vec_json, url_idx[:k], ts[:k], DEVICE, STORE, rows=VEC_ROWS,
                                  user_ids=uid[:k])[2]
 
+# ----------------------------------------------- phases 2t, 15-17 (B19)
+TA_USERS = 100_000  # BASELINE #3's USERS table (bench.py:556)
+TA_REGIONS = 50  # bench.py:563: user k's region is k % 50
+TA_ROWS = 1 << 16  # phases 15 and 17: 65,536-change batches (bench.py CAPACITY)
+TA_UPDATE_BATCHES = 4  # phases 15 and 17: the update batches after the load
+TA_STORE = 1 << 19  # phase 15's store: the load check wants 4 batches of headroom below 0.75
+ORDERS_ROWS = 4096  # phase 16's batch (phase_customer_orders says why)
+ORDERS_BATCHES = 32
+ORDER_CUSTOMERS = 10_000
+ORDERS_TWICE = 0.02  # phase 16: the share of changes that change an order again in its batch
+ORDERS_STORE = 1 << 17  # asked for; the state budget clamps it to 8,192 slots
+FIND_ROWS = 1 << 16  # phase 2t's K8 find mode: 65,536 rows
+FIND_STORE = 1 << 17  # over 2^17 slots
+UNDO_ROWS = ORDERS_ROWS  # phase 2t's K23: phase 16's batch
+UNDO_STORE = 1 << 15  # into phase 16's store at the size it grows to
+USERS_PLAN = os.path.join(_PLANS, "users_by_region.json")
+ORDERS_PLAN = os.path.join(_PLANS, "customer_orders.json")
+SPENDERS_PLAN = os.path.join(_PLANS, "big_spenders.json")
+STATUSES = ("NEW", "SHIPPED", "DELIVERED")
+TA_BREAKDOWN_BATCHES = 2  # phase 15b: the first update batches of phase 15
+
+
+def make_find_case(torch, hs, rng, dev, n=FIND_ROWS, capacity=FIND_STORE):
+    """Phase 2t's K8 find-mode case: a store 70% full of group keys (window
+    0), 5% of them graves, and ``n`` rows whose group hashes are half
+    stored keys (some of them graves now), half absent; 1% inactive.
+    Returns the store (tensors), the rows' khash, base and active, and the
+    store as numpy."""
+    st = {k: v.numpy().copy() for k, v in hs.init_store(hs.StoreLayout(capacity, 1, ()), "cpu").items()}
+    keys = rng.integers(-(2 ** 62), 2 ** 62, int(capacity * 0.7))
+    slots = fill_store(hs, st["occ"], st["khash"], st["wstart"], capacity, keys,
+                       np.zeros(keys.size, np.int64))
+    graves = slots[rng.random(keys.size) < 0.05]
+    st["occ"][graves] = False
+    st["grave"][graves] = True
+    khash = np.where(rng.random(n) < 0.5, rng.choice(keys, n), rng.integers(-(2 ** 62), 2 ** 62, n))
+    store = {k: torch.from_numpy(v).to(dev) for k, v in st.items()}
+    kh = torch.from_numpy(khash.astype(np.int64)).to(dev)
+    base = hs.slot_base(kh, torch.zeros_like(kh), capacity)
+    active = torch.from_numpy(rng.random(n) > 0.01).to(dev)
+    return store, kh, base, active, st
+
+
+def find_walk(hs, st, capacity, khash, active):
+    """K8 find mode's walk replayed in numpy: the slots it reads (the
+    data-dependent part of its bound)."""
+    mask = capacity - 1
+    cand = hs.np_mix64(khash) & mask
+    todo = np.nonzero(active)[0]
+    reads = 0
+    for _ in range(32):
+        if not todo.size:
+            break
+        c = cand[todo]
+        reads += c.size
+        done = (st["occ"][c] & (st["khash"][c] == khash[todo])) | ~(st["occ"][c] | st["grave"][c])
+        todo = todo[~done]
+        cand[todo] = (cand[todo] + 1) & mask
+    return reads
+
+
+def make_orders_case(torch, rng, dev, n=UNDO_ROWS, capacity=UNDO_STORE):
+    """Phase 2t's customer_orders case: a ``capacity``-slot store, half of
+    it holding groups — COUNT, SUM, COLLECT_LIST(ID) lists below, at and
+    past their cap of 1,000 (with repeated ids), HISTOGRAM(STATUS) maps —
+    and a populated dump row; an undo batch of ``n`` rows, the undo side's
+    contributions (negated, or COLLECT_LIST's and HISTOGRAM's undo heads)
+    of old rows whose ids and statuses the slots mostly hold (some twice in
+    the batch, some not at all), 2% missed (the dump slot), 1% inactive.
+    Returns the query, layout, store, slots and contributions."""
+    from ksql_tpu_torch.common import types as T
+    from ksql_tpu_torch.common.batch import stable_hash64
+    from ksql_tpu_torch.compiler.torch_expr import DCol
+
+    q, layout, store = _vector_query(torch, ORDERS_PLAN, n, capacity, dev)
+    c1 = capacity + 1
+    K = layout.components[4].width
+    filled = rng.choice(capacity, capacity // 2, replace=False)
+    cnt = np.zeros(c1, np.int64)
+    cnt[filled] = np.where(rng.random(filled.size) < 0.7, rng.integers(1, 60, filled.size),
+                           rng.choice([500, 999, 1000, 1001, 2500], filled.size))
+    cnt[capacity] = 7
+    ids = rng.integers(0, 1 << 40, (c1, K))
+    dup = rng.random(c1) < 0.1
+    ids[dup, 3] = ids[dup, 0]
+    ids[dup, 7] = ids[dup, 0]
+    held = np.arange(K)[None, :] < np.minimum(cnt, K)[:, None]
+    codes = np.array([stable_hash64(s) for s in STATUSES], np.int64)
+    hcnt = np.zeros(c1, np.int64)
+    hcnt[filled] = rng.integers(1, 4, filled.size)
+    hcnt[capacity] = 2
+    hdata = np.zeros((c1, K), np.int64)
+    hdata[:, :3] = codes[np.argsort(rng.random((c1, 3)), axis=1)]
+    hheld = np.arange(K)[None, :] < hcnt[:, None]
+    sums = {1: np.where(cnt > 0, cnt, 0), 2: rng.integers(100, 100_000, c1) / 4.0}
+    for j, v in sums.items():
+        store[f"a{j}"].copy_(torch.from_numpy(v.astype(np.float64 if j == 2 else np.int64)))
+    store["a3"].copy_(torch.from_numpy(cnt))
+    store["a4"].copy_(torch.from_numpy(np.where(held, ids, 0)))
+    store["a5"].copy_(torch.from_numpy(held.astype(np.int8)))
+    store["a6"].copy_(torch.from_numpy(hcnt))
+    store["a7"].copy_(torch.from_numpy(np.where(hheld, hdata, 0)))
+    store["a8"].copy_(torch.from_numpy(hheld.astype(np.int8)))
+    store["a9"].copy_(torch.from_numpy(np.where(hheld, rng.integers(1, 30, (c1, K)), 0)))
+    # undo rows: a zipf-ish share of the slots, an id each slot holds (85%:
+    # repeats in the batch claim successive occurrences) or an absent one
+    slots = filled[(rng.zipf(1.3, n) % 100_003) * 2654435761 % filled.size].astype(np.int64)
+    pos = (rng.random(n) * np.minimum(cnt[slots], K)).astype(np.int64)
+    oid = np.where(rng.random(n) < 0.85, ids[slots, pos], rng.integers(0, 1 << 40, n))
+    status = codes[rng.integers(0, 3, n)]
+    slots[rng.random(n) < 0.02] = capacity
+    active = torch.from_numpy(rng.random(n) > 0.01).to(dev)
+    args = {
+        "AMOUNT": DCol(torch.from_numpy(rng.integers(100, 100_000, n) / 4.0).to(dev),
+                       torch.ones(n, dtype=torch.bool, device=dev), T.DOUBLE),
+        "ID": DCol(torch.from_numpy(oid).to(dev), torch.ones(n, dtype=torch.bool, device=dev), T.BIGINT),
+        "STATUS": DCol(torch.from_numpy(status).to(dev), torch.ones(n, dtype=torch.bool, device=dev),
+                       T.STRING),
+    }
+    contribs = [torch.from_numpy(rng.integers(0, 1 << 40, n)).to(dev)]
+    for spec in q.agg_specs:
+        cols = [args[e.name] for e in spec.arg_exprs]
+        if spec.device.undo_contribs is not None:
+            contribs.extend(spec.device.undo_contribs(cols, active))
+        else:
+            contribs.extend(-x for x in spec.device.contribs(cols, active))
+    return dict(q=q, layout=layout, store=store, slots=torch.from_numpy(slots.astype(np.int32)).to(dev),
+                contribs=contribs, active=active)
+
+
+def check_remove_doubles(torch, rng, dev, capacity=1 << 10, n=UNDO_ROWS, K=1000):
+    """K23 over a COLLECT_LIST of DOUBLE with -0.0, +0.0, NaN: lists below,
+    at and past the cap, undo values taken from the slots (±0.0 match each
+    other, a NaN nothing), a populated dump row; exact (bits)."""
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.ops import vector as vec
+
+    layout = hs.StoreLayout(capacity, 1, (
+        hs.AggComponent("max", "int64", 0), hs.AggComponent("vec_count", "int64", 0),
+        hs.AggComponent("vec_data", "float64", 0, width=K, mode="append"),
+        hs.AggComponent("vec_valid", "int8", 0, width=K)))
+    pool = np.array([-0.0, 0.0, np.nan, 1.5, -2.0, 7.25, 1e300], np.float64)
+    c1 = capacity + 1
+    cnt = rng.choice([0, 3, 40, 999, 1000, 1001, 3000], c1).astype(np.int64)
+    data = pool[rng.integers(0, pool.size, (c1, K))]
+    vbit = (rng.random((c1, K)) < 0.9).astype(np.int8)
+    slots = rng.integers(0, c1, n)
+    vals = np.where(rng.random(n) < 0.8, data[slots, rng.integers(0, 40, n)], pool[rng.integers(0, 7, n)])
+    store = {"a1": torch.from_numpy(cnt).to(dev), "a2": torch.from_numpy(data).to(dev),
+             "a3": torch.from_numpy(vbit).to(dev)}
+    contribs = [None, torch.from_numpy(-(rng.random(n) < 0.95).astype(np.int64)).to(dev),
+                torch.from_numpy(vals).to(dev), torch.ones(n, dtype=torch.int8, device=dev)]
+    sl = torch.from_numpy(slots.astype(np.int32)).to(dev)
+    got = {k: v.clone() for k, v in store.items()}
+    vec.vec_remove(got, layout, 1, contribs, sl)
+    vec.vec_remove_plain(store, layout, 1, contribs, sl)
+    torch.cuda.synchronize()
+    _assert_store(torch, "vec_remove[DOUBLE]", got, store, list(store))
+    print("[2t] vec_remove over DOUBLE (-0.0, +0.0, NaN; lists below, at and past 1,000): exact (bits)")
+
+
+def phase_table_agg_kernels(torch, seed):
+    """Phase 2t: K8's find mode, K23 vec_remove, K20 hist + K22 with the
+    undo side's negative heads and K3 on negated contributions, against
+    their twins at the slice's shapes.  Returns ``({kernel: {mode:
+    record}}, extra records)``."""
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.ops import vector as vec
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 40)
+    recs: dict = {}
+    extra: dict = {}
+
+    def done(kernel, mode, rec, what, into=None):
+        rec = dict(rec, max_abs_err=rec.get("max_abs_err", 0.0))
+        if into is None:
+            recs.setdefault(kernel, {})[mode] = rec
+        else:
+            extra[into] = rec
+        if rec["library_ms"] is None:
+            what += "; no single PyTorch call computes it"
+        _report("2t", f"{kernel}[{mode}] ({what})", rec)
+
+    # ---- K8 find mode
+    store, kh, base, active, st = make_find_case(torch, hs, rng, dev)
+    n, cap = kh.shape[0], store["occ"].shape[0] - 1
+    got = hs.probe_find_slots(store, cap, kh, base, active)
+    want = hs.probe_find_plain(store, cap, kh, torch.zeros_like(kh), active)
+    _assert_equal(torch, "probe_find[find]", got, want)
+    found = int((want != cap).sum())
+    require(0.3 * n < found < 0.7 * n, f"probe_find[find]: {found} of {n} rows found, about half expected")
+    reads = find_walk(hs, st, cap, kh.cpu().numpy(), active.cpu().numpy())
+    done("probe_find", "find", measure(
+        torch, "probe_find", lambda: hs.probe_find_slots(store, cap, kh, base, active),
+        lambda: hs.probe_find_plain(store, cap, kh, torch.zeros_like(kh), active),
+        n * (8 + 4 + 1) + n * 4 + reads * 18, reads * 6, plain_reps=10),
+        f"{n} rows over {cap} slots 70% full, {found} found, {reads} slot reads")
+    del store, st
+
+    # ---- K23, K20 hist and K22 on the undo side of phase 16's store
+    c = make_orders_case(torch, rng, dev)
+    layout, ostore, slots, contribs = c["layout"], c["store"], c["slots"], c["contribs"]
+    n, cap = slots.shape[0], layout.capacity
+    s_np = slots.cpu().numpy()
+    touched = np.unique(s_np[s_np != cap])
+    keys = [f"a{j}" for j in (3, 4, 5)]
+    K = layout.components[4].width
+    # K23's bound from this case's counts: per removing slot its count and
+    # its first min(count, K) cells (8-byte id + null bit) each way, and the
+    # dump row's rewrite (min(count, K) cells read, all K written) when some
+    # row of the batch is not its slot's lowest undo row
+    removing = (contribs[3].cpu().numpy() < 0) & (s_np != cap)
+    held = np.minimum(ostore["a3"].cpu().numpy(), K)
+    rslots = np.unique(s_np[removing])
+    remove_bytes = n * (8 + 8 + 1 + 4) + rslots.size * 16 + 2 * 9 * int(held[rslots].sum())
+    if rslots.size < n:
+        remove_bytes += 8 + 9 * (int(held[cap]) + K)
+    saved = {k: ostore[k].clone() for k in keys}
+    work = {k: ostore[k].clone() for k in keys}
+    twin = {k: ostore[k].clone() for k in keys}
+    vec.vec_remove(work, layout, 3, contribs, slots)
+    vec.vec_remove_plain(twin, layout, 3, contribs, slots)
+    torch.cuda.synchronize()
+    _assert_store(torch, "vec_remove", work, twin, keys)
+    removed = int((saved["a3"] - twin["a3"]).sum())
+    capped = int((saved["a3"][torch.from_numpy(touched).to(dev)] >= 1000).sum())
+    require(removed > 0 and capped > 0, f"vec_remove: {removed} entries removed, {capped} slots at the cap")
+    done("vec_remove", "remove", measure(
+        torch, "vec_remove", lambda: vec.vec_remove(work, layout, 3, contribs, slots),
+        lambda: vec.vec_remove_plain(work, layout, 3, contribs, slots), remove_bytes, n * 40,
+        reset=lambda: [work[k].copy_(saved[k]) for k in keys], plain_reps=10),
+        f"COLLECT_LIST(ID), K = {K}: {n} undo rows into {touched.size} slots ({capped} at or past "
+        f"the cap; {rslots.size} with a removing row, {int(held[rslots].sum())} cells held), "
+        f"{removed} entries removed")
+    check_remove_doubles(torch, rng, dev)
+    hkeys = [f"a{j}" for j in (6, 7, 8, 9)]
+    hsaved = {k: ostore[k].clone() for k in hkeys}
+    work = {k: ostore[k].clone() for k in hkeys}
+    twin = {k: ostore[k].clone() for k in hkeys}
+    require(bool((contribs[6] <= 0).all()) and bool((contribs[6] < 0).any()),
+            "hist undo: the heads must be negative")
+    vec.vec_collect(work, layout, 6, contribs, slots, "hist")
+    vec.vec_collect_plain(twin, layout, 6, contribs, slots, "hist")
+    _assert_store(torch, "vec_collect[hist, undo]", work, twin, hkeys)
+    after1 = {k: work[k].clone() for k in hkeys}
+    vec.vec_hist(work, layout, 6, contribs, slots)
+    vec.vec_hist_plain(twin, layout, 6, contribs, slots)
+    _assert_store(torch, "vec_hist[undo]", work, twin, hkeys)
+    bumped = _changed_cells(torch, after1, twin, hkeys[3:])
+    done("vec_collect", "hist", measure(
+        torch, "vec_collect", lambda: vec.vec_collect(work, layout, 6, contribs, slots, "hist"),
+        lambda: vec.vec_collect_plain(work, layout, 6, contribs, slots, "hist"),
+        n * 21 + touched.size * (16 + 3 * 9), n * 40,
+        reset=lambda: [work[k].copy_(hsaved[k]) for k in hkeys], plain_reps=10),
+        f"HISTOGRAM(STATUS) undo: {n} rows with heads <= 0 into {touched.size} slots, nothing appended",
+        into="vec_collect_hist_undo")
+    done("vec_hist", "hist", measure(
+        torch, "vec_hist", lambda: vec.vec_hist(work, layout, 6, contribs, slots),
+        lambda: vec.vec_hist_plain(work, layout, 6, contribs, slots),
+        n * 21 + touched.size * (8 + 3 * 9) + bumped * 16, n * 40,
+        reset=lambda: [work[k].copy_(after1[k]) for k in hkeys], plain_reps=10),
+        f"HISTOGRAM(STATUS) undo: {n} negative heads into {bumped} entries", into="vec_hist_undo")
+    del c, ostore, work, twin, saved, hsaved, after1
+
+    # ---- K3 on the undo side of phase 15: 65,536 negated rows into 50 regions
+    q, ulayout, ustore = _vector_query(torch, USERS_PLAN, TA_ROWS, TA_STORE, dev)
+    n = TA_ROWS
+    region_slots = rng.choice(TA_STORE, TA_REGIONS, replace=False)
+    for j, comp in enumerate(ulayout.components):
+        if comp.combine == "add":
+            v = rng.integers(2000, 3000, TA_STORE + 1)
+            ustore[f"a{j}"].copy_(torch.from_numpy(v.astype(np.float64 if comp.dtype == "float64"
+                                                            else comp.dtype)))
+    slots = region_slots[rng.integers(0, TA_REGIONS, n)].astype(np.int32)
+    slots[rng.random(n) < 0.01] = TA_STORE  # old rows whose group is gone
+    slots = torch.from_numpy(slots).to(dev)
+    active = torch.from_numpy(rng.random(n) > 0.001).to(dev)
+    from ksql_tpu_torch.common import types as T
+    from ksql_tpu_torch.compiler.torch_expr import DCol
+
+    amt = DCol(torch.from_numpy(rng.integers(0, 1001, n).astype(np.int32)).to(dev),
+               torch.ones(n, dtype=torch.bool, device=dev), T.INTEGER)
+    ts = torch.from_numpy(TS0 + np.arange(n, dtype=np.int64) * 17).to(dev)
+    contribs = [torch.where(active, ts, torch.full_like(ts, np.iinfo(np.int64).min))]  # never negated
+    for spec in q.agg_specs:
+        contribs.extend(-x for x in spec.device.contribs([amt] * len(spec.arg_exprs), active))
+    keys = [f"a{j}" for j in range(len(ulayout.components))] + ["dirty"]
+    base_st = {k: ustore[k].clone() for k in keys}
+    kst, pst = _clone(base_st), _clone(base_st)
+    scratch = hs.init_scratch(TA_STORE, dev)
+    w_k = hs.fold_and_mark(kst, scratch, ulayout, slots, contribs, active)
+    w_p = hs.fold_and_mark_plain(pst, ulayout, slots, contribs, active)
+    _assert_equal(torch, "fold_and_mark[undo].winners", w_k, w_p)
+    err = 0.0
+    for k in keys:
+        err = max(err, _assert_equal(torch, f"fold_and_mark[undo].{k}", kst[k], pst[k], rtol=1e-12))
+    n_comp = len(ulayout.components)
+    rec = measure(torch, "fold_and_mark", lambda: hs.fold_and_mark(kst, scratch, ulayout, slots, contribs, active),
+                  lambda: hs.fold_and_mark_plain(kst, ulayout, slots, contribs, active),
+                  n * (4 + 1 + 1 + 8 * n_comp) + TA_REGIONS * (8 * n_comp + 1), n * n_comp,
+                  reset=lambda: _restore(kst, base_st),
+                  library=lambda: [kst[f"a{j}"].index_add_(0, slots.long(), contribs[j].to(kst[f"a{j}"].dtype))
+                                   for j in range(1, n_comp)])
+    rec["max_abs_err"] = err
+    done("fold_and_mark", "undo", rec,
+         f"{n} negated rows into {TA_REGIONS} region slots (1% missed: the dump slot), {n_comp} components; "
+         "yardstick index_add_ per component", into="fold_and_mark_undo")
+    return recs, extra
+
+
+# -------------------------------------------------------- phase 15/17 data
+def users_traffic(seed, n_updates=TA_UPDATE_BATCHES * TA_ROWS):
+    """Phases 15 and 17's changelog of USERS (ID INT PRIMARY KEY, REGION,
+    AMT): the 100,000 users inserted (region ``k % 50``, AMT uniform
+    0..1,000), then ``n_updates`` changes of uniformly drawn users: 70% a
+    new AMT in the same region, 20% a move to another region with a new
+    AMT, 10% a delete; a change to a deleted user re-inserts it.  Returns
+    ``(records, final)``: records ``(key, value dict or None)`` in order,
+    and the final table ``(region, amt, live)`` as numpy."""
+    rng = np.random.default_rng(seed + 30)
+    region = np.arange(TA_USERS) % TA_REGIONS
+    amt = rng.integers(0, 1001, TA_USERS)
+    live = np.ones(TA_USERS, bool)
+    recs = [(k, {"REGION": f"r{region[k]}", "AMT": int(amt[k])}) for k in range(TA_USERS)]
+    ids = rng.integers(0, TA_USERS, n_updates)
+    op = rng.random(n_updates)
+    new_amt = rng.integers(0, 1001, n_updates)
+    new_reg = rng.integers(1, TA_REGIONS, n_updates)
+    for i in range(n_updates):
+        k = int(ids[i])
+        if live[k] and op[i] >= 0.9:
+            live[k] = False
+            recs.append((k, None))
+            continue
+        if not live[k] or op[i] >= 0.7:  # a re-insert or a move: another region
+            region[k] = (region[k] + new_reg[i]) % TA_REGIONS
+        live[k] = True
+        amt[k] = new_amt[i]
+        recs.append((k, {"REGION": f"r{region[k]}", "AMT": int(amt[k])}))
+    return recs, (region, amt, live)
+
+
+def produce_changes(broker, topic, recs, first=0):
+    """The changelog records of ``recs`` ((key, value dict or None)) on
+    ``topic``, 17 ms apart from change number ``first`` on, a tombstone for
+    None."""
+    from ksql_tpu_torch.runtime.topics import Record
+
+    t = broker.create_topic(topic)
+    for i, (k, v) in enumerate(recs, start=first):
+        value = None if v is None else json.dumps(v, separators=(",", ":"))
+        t.produce(Record(key=k, value=value, timestamp=TS0 + 17 * i, partition=0))
+
+
+def run_table_path(torch, plan_json, topic, recs, device, rows, store, batch_seconds=None, path=None,
+                   load=0):
+    """The runner over a table source's changelog: ``start_plan``, then
+    the first ``load`` changes run to the end and drained, then the rest
+    (so no batch holds both), as ``run_plan`` does in one go when ``load``
+    is 0.  With ``batch_seconds`` each change batch is timed to a
+    ``torch.cuda.synchronize()``; with a ``path`` the launch counts are set
+    to 0 just before and read just after, and held to
+    ``PATH_KERNELS[path]``.  Returns the broker, the executor, the seconds
+    and the number of batches the load ran in."""
+    from ksql_tpu_torch.runner import run_until_quiescent, start_plan
+    from ksql_tpu_torch.runtime.device_executor import TorchDeviceExecutor
+    from ksql_tpu_torch.runtime.topics import Broker
+
+    broker = Broker()
+    produce_changes(broker, topic, recs[:load] if load else recs)
+    load_batches = 0
+    run_changes = TorchDeviceExecutor._run_change_batch
+    if batch_seconds is not None:
+        def timed(self):
+            t0 = time.perf_counter()
+            out = run_changes(self)
+            torch.cuda.synchronize()
+            batch_seconds.append(time.perf_counter() - t0)
+            return out
+        TorchDeviceExecutor._run_change_batch = timed
+    try:
+        if path is not None:
+            zero_launches()
+        t0 = time.perf_counter()
+        h = start_plan(plan_json, broker, device=device, capacity=rows, store_capacity=store)
+        if load:
+            run_until_quiescent(h)
+            h.executor.drain()
+            load_batches = len(batch_seconds or ())
+            produce_changes(broker, topic, recs[load:], first=load)
+        run_until_quiescent(h)
+        h.executor.drain()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        TorchDeviceExecutor._run_change_batch = run_changes
+    if path is not None:
+        PATH_LAUNCHES[path] = read_launches()
+        check_path_launches(path, PATH_LAUNCHES[path])
+    return broker, h.executor, secs, load_batches
+
+
+def _table_e2e(torch, plan_json, topic, sink, recs, rows, store, tag, load=0):
+    """A table-source plan on the card (launches held to ``PATH_KERNELS
+    [tag]``) and on the CPU; the sinks must be equal record for record.
+    With a ``load`` (see :func:`run_table_path`) the batch p50/p99 are
+    those of the batches after it."""
+    torch.cuda.reset_peak_memory_stats()
+    batch_s = []
+    broker, ex, secs, n_load = run_table_path(torch, plan_json, topic, recs, DEVICE, rows, store,
+                                              batch_s, path=tag, load=load)
+    peak = torch.cuda.max_memory_allocated()
+    q = ex.query
+    if q.table_agg:
+        require(int(q.state["overflow"]) == 0, f"{tag}: store overflowed")
+    cpu_broker, _ex, cpu_secs, _n = run_table_path(torch, plan_json, topic, recs, "cpu", rows, store,
+                                                   load=load)
+    got = sink_records(broker, sink)
+    require(got == sink_records(cpu_broker, sink), f"{tag}: card sink differs from the CPU run")
+    p50, p99 = np.percentile(np.array(batch_s[n_load:]) * 1e3, [50, 99])
+    rec = dict(events_per_s=len(recs) / secs, p50_ms=p50, p99_ms=p99, peak_bytes=peak,
+               batches=len(batch_s), load_batches=n_load, sink_records=len(got), cpu_s=cpu_secs,
+               grows=q.grows, store_slots=q.store_capacity, rebuild_s=list(q.rebuild_seconds))
+    return broker, q, rec
+
+
+def phase_users_by_region(torch, plan_json, seed):
+    """Phase 15: users_by_region.json (COUNT, SUM, AVG, STDDEV_SAMPLE of
+    AMT per REGION over the USERS table) through ``run_plan`` over
+    :func:`users_traffic` in 65,536-change batches: the sink must equal the
+    CPU run record for record, the last C/S/A/SD per region the numpy
+    aggregates of the final table (C and S exact, A and SD to rtol 1e-12:
+    the sums of integer AMT are exact in float64 in any order), no
+    overflow."""
+    recs, (region, amt, live) = users_traffic(seed)
+    broker, q, rec = _table_e2e(torch, plan_json, "u", "USERS_BY_REGION", recs, TA_ROWS, TA_STORE, "15",
+                                load=TA_USERS)
+    got = {json.loads(k) if k.startswith('"') else k: json.loads(v)
+           for k, v, _t, _w in sink_records(broker, "USERS_BY_REGION") if v is not None}
+    for r in range(TA_REGIONS):
+        a = amt[live & (region == r)].astype(np.float64)
+        n = a.size
+        s, ss = a.sum(), (a * a).sum()
+        sd = np.sqrt(max((ss - s * s / n) / (n - 1), 0.0))
+        g = got.get(f"r{r}")
+        require(g is not None and g["C"] == n and g["S"] == int(s),
+                f"15: region r{r}: {g} vs C {n} S {int(s)}")
+        require(np.isclose(g["A"], s / n, rtol=1e-12, atol=0) and np.isclose(g["SD"], sd, rtol=1e-12, atol=0),
+                f"15: region r{r}: A {g['A']} SD {g['SD']} vs {s / n} {sd}")
+    print(f"[15] users_by_region: {len(recs)} changes ({TA_USERS} inserts in {rec['load_batches']} "
+          f"batches, then {len(recs) - TA_USERS} updates, moves, deletes and re-inserts in "
+          f"{rec['batches'] - rec['load_batches']} batches of {TA_ROWS}); {rec['sink_records']} sink "
+          f"records; {rec['events_per_s']:.1f} events/s; update batch p50 {rec['p50_ms']:.3f} ms p99 "
+          f"{rec['p99_ms']:.3f} ms; peak device memory {rec['peak_bytes']} B; "
+          f"sink equals the CPU run ({rec['cpu_s']:.3f} s), C/S/A/SD per region equal numpy over the final "
+          "table, overflow 0")
+    return rec
+
+
+def phase_big_spenders(torch, plan_json, seed):
+    """Phase 17: big_spenders.json (ID, REGION, AMT of the USERS with AMT >
+    500) over phase 15's changelog: the sink must equal the CPU run, and
+    the per-change rule: a change whose new row passes emits it, one whose
+    old row passed while its new row fails or is a delete emits a
+    tombstone, any other emits nothing; the last value per key is then the
+    final table's filter."""
+    recs, (region, amt, live) = users_traffic(seed)
+    broker, q, rec = _table_e2e(torch, plan_json, "u", "BIG_SPENDERS", recs, TA_ROWS, TA_STORE, "17",
+                                load=TA_USERS)
+    require(q.table_mode, "17: not a table transform")
+    want, table = [], {}
+    for k, v in recs:
+        old = table.get(k)
+        if v is None:
+            table.pop(k, None)
+        else:
+            table[k] = v
+        if v is not None and v["AMT"] > 500:
+            want.append((k, {"REGION": v["REGION"], "AMT": v["AMT"]}))
+        elif old is not None and old["AMT"] > 500:
+            want.append((k, None))
+    got = [(int(k), None if v is None else json.loads(v))
+           for k, v, _t, _w in sink_records(broker, "BIG_SPENDERS")]
+    require(got == want, f"17: the sink differs from the per-change rule ({len(got)} vs {len(want)} records)")
+    last = {}
+    for k, v in got:
+        last[k] = v
+    final = {k: {"REGION": f"r{region[k]}", "AMT": int(amt[k])}
+             for k in np.nonzero(live & (amt > 500))[0].tolist()}
+    require({k: v for k, v in last.items() if v is not None} == final,
+            "17: the last values differ from AMT > 500 over the final table")
+    tombs = sum(v is None for _k, v in got)
+    print(f"[17] big_spenders: {len(recs)} changes, {rec['sink_records']} sink records ({tombs} tombstones); "
+          f"{rec['events_per_s']:.1f} events/s; update batch p50 {rec['p50_ms']:.3f} ms p99 "
+          f"{rec['p99_ms']:.3f} ms over {rec['batches'] - rec['load_batches']} batches; "
+          f"peak device memory {rec['peak_bytes']} B; sink equals the CPU run ({rec['cpu_s']:.3f} s) and the "
+          "per-change rule, final rows equal AMT > 500 over the final table")
+    return dict(rec, tombstones=tombs)
+
+
+# ------------------------------------------------------- phase 16 data
+def orders_traffic(seed, n_batches=ORDERS_BATCHES, rows=ORDERS_ROWS, twice=ORDERS_TWICE):
+    """Phase 16's changelog of ORDERS (ID, CUSTOMER_ID, STATUS, AMOUNT), in
+    batches of ``rows``: 40% new orders (NEW) of zipf(1.3) customers,
+    amounts in quarters (so float sums are exact in any order); 50% a
+    status move of a live order (NEW -> SHIPPED, or CANCELLED one time in
+    ten; SHIPPED -> DELIVERED; a DELIVERED or CANCELLED order is deleted);
+    10% a delete.  A change is mostly of an order the batch has not changed
+    yet; a ``twice`` share of them changes again an order the batch has
+    already changed (one that lived before the batch), where the
+    reference's batch rule (undo every old row, then apply every new one)
+    can leave its customer's list and map apart from the final table (ROADMAP
+    C6).  Returns the batches of ``(key, old, new)`` and the customers of
+    the orders changed twice in a batch."""
+    rng = np.random.default_rng(seed + 31)
+    orders: dict = {}
+    ids: list = []
+    where: dict = {}
+    next_id = 0
+    out = []
+    again: set = set()
+
+    def drop(k):
+        i = where.pop(k)
+        last = ids.pop()
+        if last != k:
+            ids[i] = last
+            where[last] = i
+        return orders.pop(k)
+
+    for _ in range(n_batches):
+        batch, touched, moved = [], set(), []
+        for _ in range(rows):
+            r = rng.random()
+            k = None
+            if r >= 0.4 and moved and rng.random() < twice:
+                cand = moved[int(rng.integers(0, len(moved)))]
+                if cand in orders:  # not deleted earlier in the batch
+                    k = cand
+                    again.add(orders[k]["CUSTOMER_ID"])
+            if k is None and r >= 0.4 and ids:
+                for _try in range(4):
+                    cand = ids[int(rng.integers(0, len(ids)))]
+                    if cand not in touched:
+                        k = cand
+                        break
+            if k is None:
+                k, next_id = next_id, next_id + 1
+                new = {"CUSTOMER_ID": int(rng.zipf(1.3)) % ORDER_CUSTOMERS, "STATUS": "NEW",
+                       "AMOUNT": int(rng.integers(100, 100_000)) / 4}
+                orders[k] = new
+                where[k] = len(ids)
+                ids.append(k)
+                batch.append((k, None, new))
+            else:
+                old = orders[k]
+                st = old["STATUS"]
+                if r >= 0.9 or st in ("DELIVERED", "CANCELLED"):
+                    batch.append((k, drop(k), None))
+                else:
+                    if st == "SHIPPED":
+                        nxt = "DELIVERED"
+                    else:  # NEW
+                        nxt = "CANCELLED" if rng.random() < 0.1 else "SHIPPED"
+                    new = dict(old, STATUS=nxt)
+                    orders[k] = new
+                    batch.append((k, old, new))
+                moved.append(k)
+            touched.add(k)
+        out.append(batch)
+    return out, again
+
+
+def orders_model(batches, K=1000):
+    """customer_orders by the reference's batch rule, in Python: per batch
+    every old row that passed the WHERE is undone at its customer if the
+    customer has a group — N and TOTAL drop; its id, the r-th of the batch
+    for that id, leaves its customer's list (entries past min(count, 1,000)
+    are not looked at; the count, which runs past 1,000, drops by the
+    entries removed); its status's count drops where the map holds it —
+    then every passing new row is applied: N and TOTAL rise, its id is
+    appended where the count is below 1,000 (the count rises anyway), its
+    status joins the map where new and its count rises.  Returns per
+    customer (N, TOTAL, ORDER_IDS as emitted, BY_STATUS as emitted, the
+    largest list count seen)."""
+    groups: dict = {}
+
+    def passes(row):
+        return row is not None and row["STATUS"] != "CANCELLED"
+
+    for batch in batches:
+        undo: dict = {}
+        for k, old, _new in batch:
+            if passes(old) and old["CUSTOMER_ID"] in groups:
+                undo.setdefault(old["CUSTOMER_ID"], []).append((k, old))
+        for cust, rows in undo.items():
+            g = groups[cust]
+            cells = g["cells"][: min(g["c"], K)]
+            seen: dict = {}
+            gone = set()
+            for k, old in rows:
+                g["n"] -= 1
+                g["total"] -= old["AMOUNT"]
+                r = seen.get(k, 0)
+                seen[k] = r + 1
+                hits = [p for p, v in enumerate(cells) if v == k]
+                if r < len(hits):
+                    gone.add(hits[r])
+                st = old["STATUS"]
+                if st in g["hist"]:
+                    g["hist"][st] -= 1
+            kept = [v for p, v in enumerate(cells) if p not in gone]
+            g["cells"] = kept
+            g["c"] -= len(gone)
+        for k, _old, new in batch:
+            if not passes(new):
+                continue
+            g = groups.setdefault(new["CUSTOMER_ID"], {"n": 0, "total": 0.0, "cells": [], "c": 0,
+                                                       "hist": {}, "max_c": 0})
+            g["n"] += 1
+            g["total"] += new["AMOUNT"]
+            if g["c"] < K:
+                # a list compacted past the cap keeps zero (null) cells
+                g["cells"] += [None] * (g["c"] - len(g["cells"])) + [k]
+            g["c"] += 1
+            g["max_c"] = max(g["max_c"], g["c"])
+            g["hist"][new["STATUS"]] = g["hist"].get(new["STATUS"], 0) + 1
+    out = {}
+    for cust, g in groups.items():
+        m = min(g["c"], K)
+        ids = (g["cells"] + [None] * m)[:m]
+        out[cust] = (g["n"], g["total"], ids, {s: c for s, c in g["hist"].items() if c > 0}, g["max_c"])
+    return out
+
+
+def phase_customer_orders(torch, plan_json, seed):
+    """Phase 16: customer_orders.json (COUNT, SUM(AMOUNT), COLLECT_LIST(ID)
+    and HISTOGRAM(STATUS) of the orders that are not CANCELLED, per
+    CUSTOMER_ID) through ``run_plan`` over :func:`orders_traffic` in
+    batches of 4,096: the state budget clamps this ~26 KB-a-slot store to
+    8,192 slots, and a table aggregation checks its load after every batch
+    with four batches of headroom, so it grows at once; a 4,096-change
+    batch of new customers stays below 0.5 load before that check (ROADMAP
+    C1: K2 loses rows from about 0.47).  The sink must equal the CPU run
+    record for record; the last value per customer must equal
+    :func:`orders_model`, and N and TOTAL the final table's; BY_STATUS,
+    and ORDER_IDS as a multiset where the list never passed its cap, too,
+    for the customers with no order changed twice in a batch (the batch
+    rule's phantom, ROADMAP C6); the store must grow and not overflow."""
+    batches, again = orders_traffic(seed)
+    twice = sum(len(b) - len({k for k, _o, _n in b}) for b in batches)
+    require(twice > 0, "16: no order changed twice in a batch")
+    recs = []
+    for batch in batches:
+        recs += [(k, None if new is None else dict(new)) for k, _old, new in batch]
+    # the clamped store's load once batch 1 has inserted (its first load check)
+    load = len({new["CUSTOMER_ID"] for _k, _old, new in batches[0] if new is not None}) / 8192
+    broker, q, rec = _table_e2e(torch, plan_json, "orders", "CUSTOMER_ORDERS", recs, ORDERS_ROWS,
+                                ORDERS_STORE, "16")
+    require(q.grows >= 1, f"16: the store did not grow ({q.store_capacity} slots)")
+    got = {int(k): json.loads(v) for k, v, _t, _w in sink_records(broker, "CUSTOMER_ORDERS")
+           if v is not None}
+    model = orders_model(batches)
+    require(set(got) == set(model), f"16: {len(got)} customers in the sink, {len(model)} in the model")
+    final: dict = {}
+    table: dict = {}
+    for k, v in recs:
+        if v is None:
+            table.pop(k, None)
+        else:
+            table[k] = v
+    for k, v in table.items():
+        if v["STATUS"] != "CANCELLED":
+            f = final.setdefault(v["CUSTOMER_ID"], [0, 0.0, [], {}])
+            f[0] += 1
+            f[1] += v["AMOUNT"]
+            f[2].append(k)
+            f[3][v["STATUS"]] = f[3].get(v["STATUS"], 0) + 1
+    capped = phantoms = 0
+    for cust, (n, total, ids, hist, max_c) in model.items():
+        g = got[cust]
+        require((g["N"], g["TOTAL"], g["ORDER_IDS"], g["BY_STATUS"]) == (n, total, ids, hist),
+                f"16: customer {cust}: sink {g['N']}, {g['TOTAL']}, {len(g['ORDER_IDS'])} ids vs the "
+                f"model's {n}, {total}, {len(ids)}")
+        fn, ftotal, fids, fhist = final.get(cust, [0, 0.0, [], {}])
+        require((n, total) == (fn, ftotal), f"16: customer {cust}: N/TOTAL differ from the final table")
+        capped += max_c > 1000
+        if cust in again:
+            phantoms += (hist, sorted(ids, key=str)) != (fhist, sorted(fids, key=str))
+            continue
+        require(hist == fhist, f"16: customer {cust}: BY_STATUS differs from the final table")
+        if max_c <= 1000:
+            require(sorted(ids) == sorted(fids), f"16: customer {cust}: ORDER_IDS differ from the table's")
+    require(phantoms > 0, "16: no second change left the batch rule's phantom")
+    widest = max(len(v[2]) for v in model.values())
+    print(f"[16] load of the 8,192-slot store when batch 1 has inserted: {load:.3f}")
+    print(f"[16] customer_orders: {len(recs)} changes in {rec['batches']} batches of {ORDERS_ROWS}, "
+          f"{len(model)} customers ({capped} whose list passed the 1,000 cap), the longest list {widest}; "
+          f"{twice} second changes of an order in its batch, at {len(again)} customers ({phantoms} of "
+          "them keep the batch rule's phantom in their list or map); "
+          f"{rec['sink_records']} sink records; {rec['events_per_s']:.1f} events/s; batch p50 "
+          f"{rec['p50_ms']:.3f} ms p99 {rec['p99_ms']:.3f} ms; peak device memory {rec['peak_bytes']} B; "
+          f"store {q.store_capacity} slots after {q.grows} grows (host rebuild s "
+          f"{[round(x, 4) for x in q.rebuild_seconds]}); sink equals the CPU run ({rec['cpu_s']:.3f} s), "
+          "the last values the batch-rule model, N/TOTAL the final table (and BY_STATUS, ORDER_IDS below "
+          "the cap, where no order changed twice in a batch), overflow 0")
+    return dict(rec, customers=len(model), capped=capped, batch1_load=load, twice=twice,
+                twice_customers=len(again), phantoms=phantoms)
+
+
+def _users_head(torch, plan_json, seed, n_batches=TA_BREAKDOWN_BATCHES):
+    """Phase 15b's drive: phase 15's load, then its first ``n_batches``
+    update batches timed as the breakdown's window."""
+    from ksql_tpu_torch.runner import run_until_quiescent, start_plan
+    from ksql_tpu_torch.runtime.topics import Broker
+
+    recs, _final = users_traffic(seed, n_updates=n_batches * TA_ROWS)
+    broker = Broker()
+    h = start_plan(plan_json, broker, device=DEVICE, capacity=TA_ROWS, store_capacity=TA_STORE)
+    produce_changes(broker, "u", recs[:TA_USERS])  # the load, run before the window
+    run_until_quiescent(h)
+    h.executor.drain()
+    produce_changes(broker, "u", recs[TA_USERS:], first=TA_USERS)
+
+    def drive():
+        t0 = time.perf_counter()
+        run_until_quiescent(h)
+        h.executor.drain()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    return drive
+
 
 REPLACES = {
     "row_prologue": "ksql_tpu/ops/hash_store.py:48 (mix64), :58 (combine_hash); ksql_tpu/runtime/lowering.py:3802 (pre_exchange), :2284 (_trace_table_step key hash), :3483 (pre_session_exchange key hash); ksql_tpu/ops/window.py:63 (hopping_starts), :82 (expand)",
@@ -3526,7 +4313,8 @@ REPLACES = {
     "sliced_fold": "ksql_tpu/runtime/lowering.py:1988 (_sliced_scatter)",
     "combine_windows": "ksql_tpu/runtime/lowering.py:2036 (_combine_windows), :4073 (_finalized_env gather)",
     "member_lanes": "ksql_tpu/runtime/lowering.py:2116 (_sliced_member_emits)",
-    "probe_find": "ksql_tpu/ops/hash_store.py:210 (probe_find); ksql_tpu/runtime/lowering.py:2986 (_apply_join gather)",
+    "probe_find": "ksql_tpu/ops/hash_store.py:210 (probe_find); ksql_tpu/runtime/lowering.py:2986 (_apply_join "
+                  "gather), :2395-2397 (_ta_side's find-only probe)",
     "table_upsert": "ksql_tpu/runtime/lowering.py:2284 (_trace_table_step, after its probe_insert)",
     "ss_match": "ksql_tpu/runtime/lowering.py:3052 (_trace_ss_step: the match mask, nonzero compaction, "
                 "gathers and any(axis=0), :3073-3170)",
@@ -3550,13 +4338,15 @@ REPLACES = {
                    "(_slot_ranks), :403 (_vec_hist phase 1)",
     "vec_topk": "ksql_tpu/ops/hash_store.py:457 (_vec_topk), :260 (_sort_desc), :264 (_desc_key)",
     "vec_hist": "ksql_tpu/ops/hash_store.py:403 (_vec_hist phase 2)",
+    "vec_remove": "ksql_tpu/ops/hash_store.py:337 (_vec_remove)",
 }
 #: the record each kernel's JSON entry carries; the other modes ride along
 MAIN_MODE = {"row_prologue": "tumbling", "evict": "tumbling", "combine_windows": "sliced",
              "sliced_fold": "sliced", "member_lanes": "sliced", "probe_find": "join",
              "table_upsert": "join", "ss_match": "write", "ss_insert": "write", "ss_expire": "ss",
              "seg_sort": "items", "session_items": "items", "session_merge": "session",
-             "session_write": "write", "vec_collect": "append", "vec_topk": "plain", "vec_hist": "hist"}
+             "session_write": "write", "vec_collect": "append", "vec_topk": "plain", "vec_hist": "hist",
+             "vec_remove": "remove"}
 
 
 def kernel_records(wrappers, recs) -> list:
@@ -3625,6 +4415,12 @@ def main() -> int:
     for name, modes in vec_recs.items():
         recs.setdefault(name, {}).update(modes)
     vec_s = time.perf_counter() - t_vec
+    # the table aggregation's phases (2t, 15, 16, 17, 15b), timed together
+    t_ta = time.perf_counter()
+    ta_recs, ta_extra = phase_table_agg_kernels(torch, args.seed)
+    for name, modes in ta_recs.items():
+        recs.setdefault(name, {}).update(modes)
+    ta_s = time.perf_counter() - t_ta
     with open("ksql_tpu_torch/plans/pv_counts_tumbling.json") as f:
         plan_json = json.load(f)
     with open("ksql_tpu_torch/plans/pv_stats_hopping.json") as f:
@@ -3670,18 +4466,28 @@ def main() -> int:
     e2e["vector_kernels_extra"] = vec_extra
     e2e.update(phase_vector_e2e(torch, vec_json, hist_json, args.seed))
     vec_s += time.perf_counter() - t_vec
+    t_ta = time.perf_counter()
+    ta_plans = {}
+    for name, path in (("users", USERS_PLAN), ("orders", ORDERS_PLAN), ("spenders", SPENDERS_PLAN)):
+        with open(path) as f:
+            ta_plans[name] = json.load(f)
+    e2e["table_agg_kernels_extra"] = ta_extra
+    e2e["users_by_region"] = phase_users_by_region(torch, ta_plans["users"], args.seed)
+    e2e["customer_orders"] = phase_customer_orders(torch, ta_plans["orders"], args.seed)
+    e2e["big_spenders"] = phase_big_spenders(torch, ta_plans["spenders"], args.seed)
+    ta_s += time.perf_counter() - t_ta
     require(sorted(PATH_LAUNCHES) == sorted(PATH_KERNELS), f"paths run: {sorted(PATH_LAUNCHES)}")
-    for w in wrappers:  # every kernel of K1-K22 is on some path, in every mode
+    for w in wrappers:  # every kernel of K1-K23 is on some path, in every mode
         for mode in w.__dict__.get("mode_launches", {"all": 0}):
             require(sum(PATH_LAUNCHES[p][w.__name__][mode] for p in PATH_LAUNCHES) > 0,
                     f"kernel {w.__name__}[{mode}] was launched on no path")
     url_idx, ts = _flagship_head(args.seed)
     e2e["breakdown"] = phase_breakdown(
         torch, lambda: run_main_path(torch, plan_json, url_idx, ts, DEVICE, STORE)[2], 4, "3b")
-    url_idx, uid, ts = hop_traffic(args.seed, n_batches=8)
+    url_idx, uid, ts = hop_traffic(args.seed, n_batches=4)
     e2e["hopping_breakdown"] = phase_breakdown(
         torch, lambda: run_main_path(torch, hop_json, url_idx, ts, DEVICE, STORE, rows=HOP_ROWS,
-                                     user_ids=uid)[2], 8, "6b")
+                                     user_ids=uid)[2], 4, "6b")
     e2e["join_breakdown"] = phase_breakdown(torch, _join_head(torch, join_json, args.seed), 4, "9b")
     t_ss = time.perf_counter()
     e2e["ss_breakdown"] = phase_breakdown(torch, _ss_head(torch, ss_json, args.seed), 4, "10b")
@@ -3693,11 +4499,15 @@ def main() -> int:
     e2e["vector_breakdown"] = phase_breakdown(torch, _vector_head(torch, vec_json, args.seed),
                                               VEC_BREAKDOWN_BATCHES, "14b")
     vec_s += time.perf_counter() - t_vec
+    t_ta = time.perf_counter()
+    e2e["users_by_region_breakdown"] = phase_breakdown(
+        torch, _users_head(torch, ta_plans["users"], args.seed), TA_BREAKDOWN_BATCHES, "15b")
+    ta_s += time.perf_counter() - t_ta
     kernels = kernel_records(wrappers, recs)
     print(f"e2e: {json.dumps(e2e)}")
     print(f"total seconds {time.perf_counter() - t_start:.1f} (phases 2s, 10, 10g and 10b: {ss_s:.1f}; "
           f"phases 2w, 11, 11g and 11b: {sess_s:.1f}; phases 2f, 12 (with 12b) to 13r: {final_s:.1f}; "
-          f"phases 2v, 14, 14h and 14b: {vec_s:.1f})")
+          f"phases 2v, 14, 14h and 14b: {vec_s:.1f}; phases 2t, 15, 16, 17 and 15b: {ta_s:.1f})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -29,6 +29,27 @@ __device__ __forceinline__ uint64_t mix64(uint64_t h) {
   return h;
 }
 
+// The find-only walk of ops/hash_store.py:probe_find from `base`: at most
+// KSQL_MAX_PROBES candidates (base + off) & mask; a LIVE slot (occ) whose
+// khash and wstart match ends it found; a truly empty slot (neither occ
+// nor grave) ends it absent; graves and other keys are walked past.
+// Returns the slot, or -1 when the key is absent or still unresolved after
+// the last round.
+__device__ __forceinline__ int64_t find_slot(const bool* __restrict__ occ,
+                                             const bool* __restrict__ grave,
+                                             const int64_t* __restrict__ kh,
+                                             const int64_t* __restrict__ ws,
+                                             int64_t mask, int64_t base,
+                                             int64_t khash, int64_t wstart) {
+  for (int64_t off = 0; off < KSQL_MAX_PROBES; ++off) {
+    const int64_t cand = (base + off) & mask;
+    const bool live = occ[cand];
+    if (live && kh[cand] == khash && ws[cand] == wstart) return cand;
+    if (!live && !grave[cand]) return -1;  // truly empty: the key is absent
+  }
+  return -1;
+}
+
 // store component dtype codes (ops/hash_store.py:_DTYPE_CODES); int8 is a
 // vector element type (null bits, BOOLEAN values), never folded by K3
 enum Dtype : int64_t { kInt32 = 0, kInt64 = 1, kFloat64 = 2, kInt8 = 3 };

@@ -1,5 +1,6 @@
 // K8 probe_find: the stream side of a stream-table join, one launch per
-// join probe per batch.
+// join probe per batch (join mode); and the undo side of a table
+// aggregation, one launch per change batch (find mode, below).
 //
 // Replaces ops/hash_store.py:probe_find (B12) and the gather of
 // runtime/lowering.py:_apply_join.  One thread per stream row:
@@ -47,15 +48,10 @@ __global__ void probe_find_kernel(
         ksql::mix64(ksql::kGold ^ (static_cast<uint64_t>(krepr[i]) + ksql::kGold));
     const int64_t hs = static_cast<int64_t>(h);
     const int64_t base = static_cast<int64_t>(ksql::mix64(h) & static_cast<uint64_t>(mask));
-    for (int64_t off = 0; off < KSQL_MAX_PROBES; ++off) {
-      const int64_t cand = (base + off) & mask;
-      const bool live = occ[cand];
-      if (live && kh[cand] == hs && ws[cand] == 0) {
-        slot = cand;
-        found = true;
-        break;
-      }
-      if (!live && !grave[cand]) break;  // truly empty: the key is absent
+    const int64_t at = ksql::find_slot(occ, grave, kh, ws, mask, base, hs, 0);
+    if (at >= 0) {
+      slot = at;
+      found = true;
     }
   }
   for (int64_t j = 0; j < g.count; ++j) {
@@ -66,7 +62,45 @@ __global__ void probe_find_kernel(
   found_out[i] = found;
 }
 
+// Find mode (replaces ops/hash_store.py:probe_find with window 0, called
+// by runtime/lowering.py:_ta_side on the undo side): one thread a row,
+// given the group hash and base slot K1 computed (its unwindowed mode);
+// a row that is inactive, absent or unresolved after 32 rounds reads the
+// dump slot C.  No gather: the undo side folds into the slots.
+//
+// Bound: memory and dependent-read latency, as the join mode: 13 bytes a
+// row in, 4 out, and 18 bytes a probe from the store (L2-resident for a
+// table aggregation's store of group keys).
+__global__ void find_slots_kernel(const bool* __restrict__ occ, const bool* __restrict__ grave,
+                                  const int64_t* __restrict__ kh, const int64_t* __restrict__ ws,
+                                  int64_t capacity, const int64_t* __restrict__ khash,
+                                  const int32_t* __restrict__ base,
+                                  const bool* __restrict__ active, int64_t n,
+                                  int32_t* __restrict__ slots) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int64_t slot = -1;
+  if (active[i]) {
+    slot = ksql::find_slot(occ, grave, kh, ws, capacity - 1, base[i], khash[i], 0);
+  }
+  slots[i] = static_cast<int32_t>(slot < 0 ? capacity : slot);
+}
+
 }  // namespace
+
+extern "C" int ksql_probe_find_slots(
+    const void* occ, const void* grave, const void* kh, const void* ws, int64_t capacity,
+    const void* khash, const void* base, const void* active, int64_t n, void* slots,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = 256;
+  find_slots_kernel<<<ksql::blocks_for(n, threads), threads, 0, st>>>(
+      static_cast<const bool*>(occ), static_cast<const bool*>(grave),
+      static_cast<const int64_t*>(kh), static_cast<const int64_t*>(ws), capacity,
+      static_cast<const int64_t*>(khash), static_cast<const int32_t*>(base),
+      static_cast<const bool*>(active), n, static_cast<int32_t*>(slots));
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int ksql_probe_find(
     const void* occ, const void* grave, const void* kh, const void* ws,

@@ -49,7 +49,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P]},
     "member_lanes": {"ksql_member_lanes": [
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P]},
-    "probe_find": {"ksql_probe_find": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P]},
+    "probe_find": {
+        "ksql_probe_find": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
+        "ksql_probe_find_slots": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P],
+    },
     "table_upsert": {"ksql_table_upsert": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P]},
     "ss_match": {
         "ksql_ss_match_count": [
@@ -101,6 +104,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "ksql_vec_topk_merge": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     },
     "vec_hist": {"ksql_vec_hist": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P]},
+    "vec_remove": {
+        "ksql_vec_remove_keys": [_P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P],
+        "ksql_vec_remove_claim": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+        "ksql_vec_remove_apply": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    },
 }
 KERNELS = tuple(SIGNATURES)
 

@@ -1,9 +1,10 @@
 """Device aggregates as scatter-combined state components.
 
 The port of ``ksql_tpu/ops/device_aggs.py`` for the families the port
-runs: COUNT(*), COUNT, SUM (INTEGER, BIGINT, DOUBLE), AVG, MIN and MAX,
-which decompose into 'add'/'min'/'max' state components that
-``hash_store.fold_and_mark`` folds; and the vector families COLLECT_LIST,
+runs: COUNT(*), COUNT, SUM (INTEGER, BIGINT, DOUBLE), AVG, STDDEV_SAMPLE,
+STDDEV_POP, CORRELATION, MIN and MAX, which decompose into 'add'/'min'/'max'
+state components that ``hash_store.fold_and_mark`` folds; and the vector
+families COLLECT_LIST,
 COLLECT_SET, EARLIEST_BY_OFFSET(x, n[, ignoreNulls]),
 LATEST_BY_OFFSET(x, n[, ignoreNulls]), TOPK, TOPKDISTINCT, HISTOGRAM and
 ATTR (and the ``collect_all_valid`` kind), whose width-K groups
@@ -14,6 +15,13 @@ element valid [n, K])`` and for a MAP ``(keys [n, K], valid, present
 [n, K], counts [n, K])``.  Every other aggregate, and any DECIMAL argument
 or result, raises :class:`DeviceUnsupported`.
 
+A table aggregation undoes a source row's old contributions before it
+applies the new row's: the all-'add' families by negating their
+contributions, COLLECT_LIST, HISTOGRAM and ATTR by their ``undo_contribs``
+(a negative head: COLLECT_LIST's removes the first stored occurrence of
+the value, ``ops/vector.py:vec_remove``; HISTOGRAM's decrements the
+value's count).
+
 ``resolve_udaf`` stands in for the reference's function registry lookup
 (``functions/udafs.py``): it maps a call to its device kind, SQL result
 type and number of trailing literal parameters.
@@ -22,7 +30,7 @@ type and number of trailing literal parameters.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +38,7 @@ import torch
 from ksql_tpu_torch.common import types as T
 from ksql_tpu_torch.common.types import SqlBaseType, SqlType
 from ksql_tpu_torch.compiler.torch_expr import DCol, DeviceUnsupported
-from ksql_tpu_torch.ops.hash_store import _DTYPES, AggComponent
+from ksql_tpu_torch.ops.hash_store import _DTYPES, AggComponent, xla_minmax
 
 _I64_MAX = np.iinfo(np.int64).max
 _I32_MAX = np.iinfo(np.int32).max
@@ -64,6 +72,9 @@ class DeviceAgg:
     # ARRAY and MAP results (module docstring)
     finalize: Callable[[Sequence[torch.Tensor]], Tuple[torch.Tensor, ...]]
     result_type: SqlType
+    #: a table aggregation's undo contributions, where negating ``contribs``
+    #: does not invert the fold (the vector families); None: negate
+    undo_contribs: Optional[Callable[[Sequence[DCol], torch.Tensor], List[torch.Tensor]]] = None
 
 
 def resolve_udaf(name: str, arg_types: Sequence[SqlType]) -> Tuple[str, SqlType, int]:
@@ -81,6 +92,11 @@ def resolve_udaf(name: str, arg_types: Sequence[SqlType]) -> Tuple[str, SqlType,
         return "sum", arg_types[0], 0  # SumKudaf: SUM(INT)->INT, SUM(BIGINT)->BIGINT
     if fn == "AVG" and len(arg_types) == 1 and bases[0] in _NUMERIC:
         return "avg", T.DOUBLE, 0
+    if fn in ("STDDEV_SAMPLE", "STDDEV_POP") and len(arg_types) == 1 and bases[0] in _NUMERIC:
+        # STDDEV_SAMP returns the sample VARIANCE and has no device kind
+        return "stddev", T.DOUBLE, 0
+    if fn == "CORRELATION" and len(arg_types) == 2 and all(b in _NUMERIC for b in bases):
+        return "correlation", T.DOUBLE, 0
     if fn in ("MIN", "MAX") and len(arg_types) == 1 and bases[0] in _ORDERED:
         return fn.lower(), arg_types[0], 0
     if fn in ("COLLECT_LIST", "COLLECT_SET") and len(arg_types) == 1:
@@ -182,6 +198,15 @@ def _compile_vector_agg(kind: str, arg_types: Sequence[SqlType], result_type: Sq
             return [cand.to(torch.int64), _where(cand & v.valid, v.data, 0, tdt),
                     (cand & v.valid).to(torch.int8)]
 
+        undo_contribs = None
+        if fn == "COLLECT_LIST":
+            # a negative head removes the first stored occurrence of the
+            # value (CollectListUdaf.undo)
+            def undo_contribs(args, act):
+                v = args[0]
+                return [-act.to(torch.int64), _where(act & v.valid, v.data, 0, tdt),
+                        (act & v.valid).to(torch.int8)]
+
         return DeviceAgg(
             components=(
                 AggComponent("vec_count", "int64", 0),
@@ -191,6 +216,7 @@ def _compile_vector_agg(kind: str, arg_types: Sequence[SqlType], result_type: Sq
             contribs=contribs,
             finalize=_collect_finalize(K, mode == "ring"),
             result_type=result_type,
+            undo_contribs=undo_contribs,
         )
     if kind == "topk":
         # TOPK / TOPKDISTINCT over numerics and temporals: width-k sorted
@@ -244,11 +270,13 @@ def _compile_vector_agg(kind: str, arg_types: Sequence[SqlType], result_type: Sq
                 return v.data.to(torch.float64).view(torch.int64)
             return v.data.to(torch.int64)
 
-        def h_contribs(args, act):
+        def h_contribs(args, act, sign=1):
             v = args[0]
             # HISTOGRAM skips null values; ATTR counts them as an entry
             cand = act if is_attr else act & v.valid
-            head = cand.to(torch.int64)
+            # the head is also each entry's count increment: signed, so a
+            # table aggregation's undo decrements in place
+            head = cand.to(torch.int64) * sign
             return [head, _where(cand & v.valid, code64(v), 0, torch.int64),
                     (cand & v.valid).to(torch.int8), head]
 
@@ -278,6 +306,7 @@ def _compile_vector_agg(kind: str, arg_types: Sequence[SqlType], result_type: Sq
             contribs=h_contribs,
             finalize=h_finalize,
             result_type=result_type,
+            undo_contribs=lambda args, act: h_contribs(args, act, sign=-1),
         )
     if kind == "collect_all_valid":
         # GenericVarArgUdaf/ObjVarColArgUdaf: append the FIRST argument's
@@ -305,6 +334,76 @@ def _compile_vector_agg(kind: str, arg_types: Sequence[SqlType], result_type: Sq
     raise DeviceUnsupported(f"aggregate kind {kind} on device")
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root, as XLA and CUDA take it: torch's
+    vectorized CPU float64 sqrt is off by one unit in the last place for
+    some inputs, numpy's is not."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.from_numpy(np.sqrt(x.numpy()))
+
+
+def _stddev_agg(fname: str) -> DeviceAgg:
+    """STDDEV_SAMPLE / STDDEV_POP: (sum, sum of squares, n); the result is
+    the reference's ``_stddev_samp`` / ``_stddev_pop`` (``functions/udafs.py``)."""
+    pop = fname.upper() == "STDDEV_POP"
+
+    def contribs(args, act):
+        ok = act & args[0].valid
+        x = _where(ok, args[0].data, 0.0, torch.float64)
+        return [x, x * x, ok.to(torch.int64)]
+
+    def finalize(comps):
+        s, ss, n = comps
+        nf = n.to(torch.float64)
+        one = torch.ones_like(nf)
+        zero = torch.zeros_like(nf)
+        mean_sq = s * s / torch.where(n == 0, one, nf)
+        if pop:
+            var = (ss - mean_sq) / torch.where(n == 0, one, nf)
+            return _sqrt(xla_minmax(var, zero, "max")), n >= 1
+        var = (ss - mean_sq) / torch.where(n < 2, one, nf - 1.0)
+        out = torch.where(n == 1, zero, _sqrt(xla_minmax(var, zero, "max")))
+        return out, n >= 1
+
+    return DeviceAgg(
+        components=(AggComponent("add", "float64", 0.0), AggComponent("add", "float64", 0.0),
+                    AggComponent("add", "int64", 0)),
+        contribs=contribs,
+        finalize=finalize,
+        result_type=T.DOUBLE,
+    )
+
+
+def _correlation_agg() -> DeviceAgg:
+    """CORRELATION(x, y): (n, sx, sy, sxx, syy, sxy) over the rows where both
+    are non-null; NaN when either variance is 0 (the reference's)."""
+    def contribs(args, act):
+        ok = act & args[0].valid & args[1].valid
+        x = _where(ok, args[0].data, 0.0, torch.float64)
+        y = _where(ok, args[1].data, 0.0, torch.float64)
+        return [ok.to(torch.int64), x, y, x * x, y * y, x * y]
+
+    def finalize(comps):
+        n, sx, sy, sxx, syy, sxy = comps
+        nf = torch.where(n == 0, torch.ones_like(sx), n.to(torch.float64))
+        cov = sxy - sx * sy / nf
+        vx = sxx - sx * sx / nf
+        vy = syy - sy * sy / nf
+        denom = _sqrt(xla_minmax(vx * vy, torch.zeros_like(vx), "max"))
+        out = torch.where(denom > 0, cov / torch.where(denom == 0, torch.ones_like(denom), denom),
+                          torch.full_like(cov, float("nan")))
+        return out, n > 0
+
+    return DeviceAgg(
+        components=tuple(AggComponent("add", "int64" if i == 0 else "float64", 0)
+                         for i in range(6)),
+        contribs=contribs,
+        finalize=finalize,
+        result_type=T.DOUBLE,
+    )
+
+
 VECTOR_KINDS = ("collect", "topk", "histogram", "attr", "collect_all_valid")
 
 
@@ -316,6 +415,10 @@ def compile_device_agg(kind: str, arg_types: Sequence[SqlType], result_type: Sql
     ignoreNulls; None where not a literal)."""
     if kind in VECTOR_KINDS:
         return _compile_vector_agg(kind, arg_types, result_type, fname, literals)
+    if kind == "stddev":
+        return _stddev_agg(fname)
+    if kind == "correlation":
+        return _correlation_agg()
     if kind == "count_star":
         return DeviceAgg(
             components=(AggComponent("add", "int64", 0),),

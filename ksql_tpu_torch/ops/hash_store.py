@@ -26,7 +26,8 @@ the same layout (one key, no components, plus ``v_<col>``/``m_<col>``
 value columns): K1's table mode (``table_prologue``) and K2 insert its
 changelog, K9
 ``table_upsert`` writes the last row per key, and K8 ``probe_find`` looks
-the stream rows up and gathers the table's columns.
+the stream rows up and gathers the table's columns; K8's find-only mode
+(``probe_find_slots``) finds a table aggregation's old groups.
 Each wrapper below launches its kernel for CUDA tensors and counts the
 launch in ``<wrapper>.launches`` (a wrapper with several modes also in
 ``<wrapper>.mode_launches[mode]``); for CPU tensors it runs the plain torch
@@ -774,7 +775,7 @@ def probe_find(store: Dict[str, torch.Tensor], capacity: int, krepr: torch.Tenso
         desc += [v.data_ptr(), vo.data_ptr(), v.element_size(), m.data_ptr(), mo.data_ptr()]
     key = torch.empty(n, dtype=torch.int64, device=dev)
     found = torch.empty(n, dtype=torch.bool, device=dev)
-    fn = cuda.lib("probe_find")
+    fn = cuda.lib("probe_find", "ksql_probe_find")
     cuda.check("probe_find", fn(
         store["occ"].data_ptr(), store["grave"].data_ptr(),
         store["khash"].data_ptr(), store["wstart"].data_ptr(),
@@ -783,10 +784,45 @@ def probe_find(store: Dict[str, torch.Tensor], capacity: int, krepr: torch.Tenso
         key.data_ptr(), found.data_ptr(), _stream(dev),
     ))
     probe_find.launches += 1
+    probe_find.mode_launches["join"] += 1
     return out, key, found
 
 
+def probe_find_slots(store: Dict[str, torch.Tensor], capacity: int, khash: torch.Tensor,
+                     base: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """K8's find-only mode (replaces ``ops/hash_store.py:probe_find`` with
+    window 0, the undo side of ``runtime/lowering.py:_ta_side``): per row
+    the live slot of its group hash ``khash`` (walked from ``base``, K1's
+    unwindowed probe start), or the dump slot ``capacity`` when the row is
+    not ``active``, its key is absent, or 32 rounds did not resolve it.
+    Only LIVE slots match; a truly empty slot ends the walk, graves are
+    walked past.  Returns int32 slots; gathers nothing."""
+    if not khash.is_cuda:
+        return probe_find_plain(store, capacity, khash, torch.zeros_like(khash), active)
+    n = khash.shape[0]
+    c1 = capacity + 1
+    for name, dt in (("occ", torch.bool), ("grave", torch.bool),
+                     ("khash", torch.int64), ("wstart", torch.int64)):
+        _expect(store[name], dt, (c1,))
+    _expect(khash, torch.int64, (n,))
+    _expect(base, torch.int32, (n,))
+    _expect(active, torch.bool, (n,))
+    slots = torch.empty(n, dtype=torch.int32, device=khash.device)
+    cuda.check("probe_find", cuda.lib("probe_find", "ksql_probe_find_slots")(
+        store["occ"].data_ptr(), store["grave"].data_ptr(), store["khash"].data_ptr(),
+        store["wstart"].data_ptr(), capacity, khash.data_ptr(), base.data_ptr(),
+        active.data_ptr(), n, slots.data_ptr(), _stream(khash.device),
+    ))
+    probe_find.launches += 1
+    probe_find.mode_launches["find"] += 1
+    return slots
+
+
 probe_find.launches = 0
+#: ``join``: a stream-table join's lookup and gather (:func:`probe_find`);
+#: ``find``: the find-only walk of a table aggregation's undo side
+#: (:func:`probe_find_slots`)
+probe_find.mode_launches = {"join": 0, "find": 0}
 
 
 # ----------------------------------------------- K9: table_upsert (join)

@@ -1,9 +1,9 @@
 """Vector aggregates on the card: the collect, top-K and histogram folds.
 
 The port of the vector branches of ``ksql_tpu/ops/hash_store.py``'s
-``scatter_combine`` (B18): ``_vec_collect`` with ``_batch_membership`` and
-``_slot_ranks``, ``_vec_hist`` and ``_vec_topk`` (with ``_sort_desc`` and
-``_desc_key``).  A vector aggregate keeps per slot a group of components
+``scatter_combine`` (B18, and B19's ``_vec_remove``): ``_vec_collect`` with
+``_batch_membership`` and ``_slot_ranks``, ``_vec_hist``, ``_vec_topk``
+(with ``_sort_desc`` and ``_desc_key``) and ``_vec_remove``.  A vector aggregate keeps per slot a group of components
 (``hash_store.AggComponent``): a collect group is ``vec_count`` (int64,
 the logical count), ``vec_data`` (``[capacity + 1, K]`` values) and
 ``vec_valid`` (``[capacity + 1, K]`` int8 element null bits); a histogram
@@ -13,7 +13,7 @@ empty entry.  :func:`fold_vectors` walks a layout's component list as the
 reference does (groups of 3 for collect, 4 for a histogram, 1 for a
 top-K) after K3 has folded the scalar components.
 
-Three hand-written CUDA kernels (``csrc/``) carry the folds, with K13
+Four hand-written CUDA kernels (``csrc/``) carry the folds, with K13
 ``seg_sort`` (``ops/session.py``) for the orders:
 
 * K20 ``vec_collect`` (modes ``append``, ``set``, ``ring`` and ``hist``,
@@ -27,7 +27,12 @@ Three hand-written CUDA kernels (``csrc/``) carry the folds, with K13
   then per slot-run winner the merge of its first K candidates with the
   stored K, sorted as XLA sorts.
 * K22 ``vec_hist``: the histogram's phase 2, each row's signed head
-  ``atomicAdd``-ed at its value's entry.
+  ``atomicAdd``-ed at its value's entry (negative on a table
+  aggregation's undo side).
+* K23 ``vec_remove``: COLLECT_LIST's undo in a table aggregation
+  (``_vec_remove``): K13 ranks the undo rows of each (slot, value, bit),
+  each claims its stored occurrence, and a block per touched slot
+  compacts the slot's row left.
 
 As in ``ops/hash_store.py``, each wrapper launches its kernels for CUDA
 tensors and counts the call in ``<wrapper>.launches`` and
@@ -176,6 +181,62 @@ def vec_collect_plain(store, layout: StoreLayout, j: int, contribs, slots, mode:
     _set_last(vbit_col, tgt_slot, vbits, tgt_pos)
     # append/set/ring keep the logical total past K; hist counts its writes
     cnt_col.index_add_(0, eff, (write if mode == "hist" else new).to(cnt_col.dtype))
+
+
+def vec_remove_plain(store, layout: StoreLayout, j: int, contribs, slots) -> None:
+    """Plain twin of K23 — see :func:`vec_remove`.  Step for step the
+    reference's ``_vec_remove``."""
+    K = layout.components[j + 1].width
+    dump = layout.capacity
+    cnt_col, data_col, vbit_col = store[f"a{j}"], store[f"a{j + 1}"], store[f"a{j + 2}"]
+    head = contribs[j]
+    vals = contribs[j + 1].to(data_col.dtype)
+    vbits = contribs[j + 2].to(vbit_col.dtype)
+    n = vals.shape[0]
+    dev = vals.device
+    pos_idx = torch.arange(K, device=dev)
+    rowidx = torch.arange(n, device=dev)
+    removing = (head < 0) & (slots != dump)
+    eff = torch.where(removing, slots, torch.full_like(slots, dump)).long()
+    # rank among the undo rows of one (slot, value, bit): the r-th claims
+    # the r-th stored occurrence (runs by IEEE ==: ±0.0 one run, NaN alone)
+    order = _lexsort([rowidx, vbits, vals, eff])
+    so_eff, so_v, so_b = eff[order], vals[order], vbits[order]
+    new_run = torch.ones(n, dtype=torch.bool, device=dev)
+    new_run[1:] = (so_eff[1:] != so_eff[:-1]) | (so_v[1:] != so_v[:-1]) | (so_b[1:] != so_b[:-1])
+    run_start = torch.cummax(torch.where(new_run, rowidx, torch.zeros_like(rowidx)), 0).values
+    row_rank = torch.empty_like(rowidx)
+    row_rank[order] = rowidx - run_start
+    occ = pos_idx[None, :] < torch.clamp(cnt_col[eff], max=K)[:, None]
+    match = (data_col[eff] == vals[:, None]) & (vbit_col[eff] == vbits[:, None]) & occ
+    pos_rank = torch.cumsum(match.to(torch.int64), 1) - 1
+    claim = match & (pos_rank == row_rank[:, None]) & removing[:, None]
+    # the slot's lowest undo row gathers every claim of the slot
+    first = torch.full((dump + 1,), n, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, eff, torch.where(removing, rowidx, torch.full_like(rowidx, n)), "amin")
+    wrow = torch.where(removing, first[eff], torch.full_like(rowidx, n))
+    rem = torch.zeros((n + 1, K), dtype=torch.int32, device=dev)
+    rem.index_add_(0, wrow, claim.to(torch.int32))
+    rem = rem[:n] > 0
+    is_winner = removing & (first[eff] == rowidx)
+    # a winner rewrites its slot compacted; every other row the dump row's
+    # compaction (no claims: its cells past min(count, K) become 0)
+    effw = torch.where(is_winner, slots, torch.full_like(slots, dump)).long()
+    cnt_w = torch.clamp(cnt_col[effw], max=K)
+    cur_d = data_col[effw]
+    cur_b = vbit_col[effw]
+    keep = ~rem & (pos_idx[None, :] < cnt_w[:, None])
+    new_pos = torch.cumsum(keep.to(torch.int64), 1) - 1
+    tgt_pos = torch.where(keep, new_pos, torch.full_like(new_pos, K - 1))
+    # a scatter-ADD into zeros, as the reference's: a stored -0.0 comes back +0.0
+    out_d = torch.zeros((n, K), dtype=cur_d.dtype, device=dev)
+    out_d.scatter_add_(1, tgt_pos, torch.where(keep, cur_d, torch.zeros_like(cur_d)))
+    out_b = torch.zeros((n, K), dtype=cur_b.dtype, device=dev)
+    out_b.scatter_add_(1, tgt_pos, torch.where(keep, cur_b, torch.zeros_like(cur_b)))
+    n_removed = (rem & (pos_idx[None, :] < cnt_w[:, None])).sum(1)
+    _set_last(data_col, effw, out_d)
+    _set_last(vbit_col, effw, out_b)
+    cnt_col.index_add_(0, effw, -n_removed.to(cnt_col.dtype))
 
 
 def vec_hist_plain(store, layout: StoreLayout, j: int, contribs, slots) -> None:
@@ -391,17 +452,71 @@ def vec_topk(store: Dict[str, torch.Tensor], layout: StoreLayout, j: int,
 vec_topk.launches = 0
 vec_topk.mode_launches = {"plain": 0, "distinct": 0}
 
-KERNEL_WRAPPERS = (vec_collect, vec_topk, vec_hist)
+def vec_remove(store: Dict[str, torch.Tensor], layout: StoreLayout, j: int,
+               contribs: Sequence[torch.Tensor], slots: torch.Tensor) -> None:
+    """K23 (replaces ``ops/hash_store.py:_vec_remove``, COLLECT_LIST's undo
+    in a table aggregation): remove stored occurrences from the collect
+    group at component ``j``, in place, before K20 folds the same rows.  A
+    row removes when its head ``contribs[j] < 0`` and its slot is real; the
+    r-th such row of a (slot, value, null bit) — in row order, values
+    equal by IEEE ``==`` (±0.0 alike, a NaN equal to nothing) — claims the
+    r-th equal entry among the slot's first ``min(count, K)``.  Each
+    touched slot drops its claimed entries, shifts the rest left in order
+    and zeroes the tail; its count (the logical one, which may exceed K)
+    falls by the entries removed.  When some row of the batch is not the
+    lowest undo row of its slot, the dump row is rewritten as well: its
+    entries past ``min(count, K)`` become 0.  Every rewritten double goes
+    through an add to +0.0, so a stored -0.0 comes back +0.0."""
+    if not slots.is_cuda:
+        vec_remove_plain(store, layout, j, contribs, slots)
+        return
+    K = layout.components[j + 1].width
+    c1 = layout.capacity + 1
+    n = slots.shape[0]
+    cnt, data, vbit = store[f"a{j}"], store[f"a{j + 1}"], store[f"a{j + 2}"]
+    _expect(cnt, torch.int64, (c1,))
+    _expect(data, data.dtype, (c1, K))
+    _expect(vbit, torch.int8, (c1, K))
+    _expect(slots, torch.int32, (n,))
+    head = contribs[j].to(torch.int64).contiguous()
+    vals = contribs[j + 1].to(data.dtype).contiguous()
+    vbits = contribs[j + 2].to(torch.int8).contiguous()
+    esize, isfloat = _elem(data)
+    dev = slots.device
+    st = _stream(dev)
+    k1 = torch.empty(n, dtype=torch.int64, device=dev)
+    k2 = torch.empty(n, dtype=torch.int64, device=dev)
+    cuda.check("vec_remove", cuda.lib("vec_remove", "ksql_vec_remove_keys")(
+        head.data_ptr(), vals.data_ptr(), vbits.data_ptr(), esize, isfloat, slots.data_ptr(), n,
+        layout.capacity, k1.data_ptr(), k2.data_ptr(), st))
+    perm = seg_sort(k1, k2)
+    claim = torch.empty(n, dtype=torch.int32, device=dev)
+    cuda.check("vec_remove", cuda.lib("vec_remove", "ksql_vec_remove_claim")(
+        perm.data_ptr(), n, k1.data_ptr(), k2.data_ptr(), cnt.data_ptr(), data.data_ptr(),
+        vbit.data_ptr(), esize, isfloat, K, layout.capacity, vals.data_ptr(), vbits.data_ptr(),
+        claim.data_ptr(), st))
+    winners = torch.zeros(1, dtype=torch.int64, device=dev)
+    cuda.check("vec_remove", cuda.lib("vec_remove", "ksql_vec_remove_apply")(
+        perm.data_ptr(), n, k1.data_ptr(), claim.data_ptr(), cnt.data_ptr(), data.data_ptr(),
+        vbit.data_ptr(), esize, isfloat, K, layout.capacity, winners.data_ptr(), st))
+    vec_remove.launches += 1
+
+
+vec_remove.launches = 0
+
+KERNEL_WRAPPERS = (vec_collect, vec_topk, vec_hist, vec_remove)
 
 
 # -------------------------------------------------------------- the driver
 def fold_vectors(store: Dict[str, torch.Tensor], layout: StoreLayout, slots: torch.Tensor,
-                 contribs: Sequence[torch.Tensor]) -> None:
+                 contribs: Sequence[torch.Tensor], vec_undo: bool = False) -> None:
     """The vector branches of the reference's ``scatter_combine``, walking
     the component list as it does: a ``vec_count`` heads a collect group
     (3 components) or, in ``hist`` mode, a histogram group (4); a ``topk``
     stands alone.  The scalar components are K3's; a layout without
-    vector groups folds nothing here."""
+    vector groups folds nothing here.  ``vec_undo`` (a table aggregation's
+    undo side) runs K23's removal on each collect group before K20; a
+    histogram's undo is its negative heads, which K20 skips and K22 adds."""
     comps: List = list(layout.components)
     j = 0
     while j < len(comps):
@@ -411,6 +526,8 @@ def fold_vectors(store: Dict[str, torch.Tensor], layout: StoreLayout, slots: tor
             vec_hist(store, layout, j, contribs, slots)
             j += 4
         elif comp.combine == "vec_count":
+            if vec_undo:
+                vec_remove(store, layout, j, contribs, slots)
             vec_collect(store, layout, j, contribs, slots, comps[j + 1].mode)
             j += 3
         elif comp.combine == "topk":

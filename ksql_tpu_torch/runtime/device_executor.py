@@ -1,7 +1,8 @@
 """TorchDeviceExecutor — runs a persistent query on the port's device path.
 
 The port of ``ksql_tpu/runtime/device_executor.py``'s ``DeviceExecutor``,
-stream-row, stream-table-join and stream-stream-join branches: records
+stream-row, stream-table-join, stream-stream-join and table-change
+branches: records
 are deserialized with the shared source decoder (the Python JSON path;
 the reference's native C++ ingest is not ported yet), micro-batched up
 to the batch size, stepped through :class:`TorchCompiledQuery`, and the
@@ -19,6 +20,11 @@ their arrival order across the two sides: a table record first runs the
 pending stream rows, a stream row first runs the pending table batches,
 and a table batch runs synchronously (it updates the table store in
 place; the pipelined stream emits it may overtake are fresh tensors).
+
+A table aggregation or table transform (a CTAS over a table source)
+buffers its source's changes — each key's old row beside its new one —
+and runs them through ``process_table_changes`` a batch at a time; its
+emissions return at once.
 
 A stream-stream join buffers each side's rows on its own, and keeps their
 arrival order the same way: a left record runs the pending right rows
@@ -92,6 +98,9 @@ class TorchDeviceExecutor:
         self._rts: List[int] = []
         self._rparts: List[int] = []
         self._roffs: List[int] = []
+        #: a table aggregation's or table transform's pending source changes:
+        #: (key, old row, new row, ts, partition, offset)
+        self._changes: List[tuple] = []
 
     @property
     def source_topics(self) -> List[str]:
@@ -106,6 +115,9 @@ class TorchDeviceExecutor:
         full.  Call :meth:`drain` at the end of a poll tick."""
         if topic in self._join_topics:
             return self._buffer_table_record(self._join_topics[topic], record)
+        q = self.query
+        if (q.table_agg or q.table_mode) and topic == self.source_step.topic:
+            return self._buffer_change(record)
         out: List[SinkEmit] = []
         if topic == self.source_step.topic:
             out.extend(self._buffer_stream_record(record))
@@ -184,6 +196,45 @@ class TorchDeviceExecutor:
             self._run_table_batch(idx)
         return out
 
+    def _buffer_change(self, record: Record) -> List[SinkEmit]:
+        """One record of a table aggregation's or table transform's source:
+        its change (the decoder tracks each key's old row) joins the batch,
+        which runs when full."""
+        ev = decode_source_record(self.source_step, record, self.on_error)
+        if ev is None:
+            return []
+        self.stream_time = max(self.stream_time, ev.ts)
+        self._changes.append((ev.key, ev.old, ev.new, ev.ts, record.partition, record.offset))
+        if len(self._changes) >= self.query.capacity:
+            return self._run_change_batch()
+        return []
+
+    def _run_change_batch(self) -> List[SinkEmit]:
+        """The buffered changes through ``process_table_changes`` in
+        micro-batches: each change's new row and old row (an absent row,
+        a delete's new one included, is empty, with ``has_new`` /
+        ``has_old`` False), writing each batch's emissions to the sink."""
+        changes, self._changes = self._changes, []
+        schema = self.source_step.schema
+        out: List[SinkEmit] = []
+        cap = self.query.capacity
+        for i in range(0, len(changes), cap):
+            chunk = changes[i : i + cap]
+            keys = [c[0] for c in chunk]
+            ts = [c[3] for c in chunk]
+            parts = [c[4] for c in chunk]
+            offs = [c[5] for c in chunk]
+            has_old = np.array([c[1] is not None for c in chunk], bool)
+            has_new = np.array([c[2] is not None for c in chunk], bool)
+            new_hb = HostBatch.from_rows(schema, [c[2] or {} for c in chunk], timestamps=ts,
+                                         partitions=parts, offsets=offs)
+            old_hb = HostBatch.from_rows(schema, [c[1] or {} for c in chunk], timestamps=ts,
+                                         partitions=parts, offsets=offs)
+            emits = self.query.process_table_changes(new_hb, old_hb, keys, has_new, has_old, ts)
+            self._dispatch(emits)
+            out.extend(emits)
+        return out
+
     def _run_table_batch(self, idx: Optional[int] = None) -> None:
         """Fold the buffered table changes (of probe ``idx``, or of every
         probe) into the table stores, synchronously."""
@@ -202,10 +253,12 @@ class TorchDeviceExecutor:
                 self.query.process_table(hb, np.asarray(buf["del"][i : i + cap], bool), idx=j)
 
     def drain(self) -> List[SinkEmit]:
-        """Flush the partial micro-batches (table changes first) and the
-        pipelined emissions; a stream-stream join then expires its rings
+        """Flush the partial micro-batches (a table source's changes, then
+        a join's table changes, first) and the pipelined emissions; a stream-stream join then expires its rings
         (the windows this tick closed emit their pads)."""
         out: List[SinkEmit] = []
+        if self._changes:
+            out.extend(self._run_change_batch())
         if any(b["rows"] for b in self._tbuf):
             self._run_table_batch()
         if self._rrows:

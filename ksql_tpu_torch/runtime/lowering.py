@@ -15,6 +15,11 @@ the plan shapes of this slice:
     LEFT, RIGHT or FULL OUTER, WITHIN, with or without GRACE) →
     Filter*/Select* → Sink
 
+    TableSource → (TableFilter | TableSelect)* → TableGroupBy →
+    TableAggregate → (TableSelect | TableFilter)* → Sink
+
+    TableSource → (TableFilter | TableSelect)+ → Sink
+
 with COUNT(*), COUNT, SUM, AVG, MIN and MAX and the vector aggregates
 COLLECT_LIST, COLLECT_SET, EARLIEST/LATEST_BY_OFFSET(n), TOPK, TOPKDISTINCT,
 HISTOGRAM and ATTR (``ops/device_aggs.py``; the vector state is folded by
@@ -38,7 +43,16 @@ are sorted with the stored sessions of their keys and merged where they
 lie within the gap (K1's session mode, K13 seg_sort, K14 session_items,
 K15 session_merge, K16 session_write and K2); a batch that needs more
 than ``session_slots`` sessions for a key doubles them and starts again
-before it writes anything.  EMIT FINAL (a TableSuppress over a TUMBLING or
+before it writes anything.  A table aggregation (a CTAS GROUP BY over a
+table source) takes a batch of changes, each its key's old and new row
+(``process_table_changes``): it undoes every old row — negated
+contributions, or COLLECT_LIST's and HISTOGRAM's undo heads — at the group
+K8's find-only mode finds (K23 vec_remove takes COLLECT_LIST's entries
+out), emits the touched groups, then applies every new row as a stream
+aggregation does and emits again.  A table transform (filters and
+projections over a table source) runs the new rows through its pipeline
+and the old rows through its filter, and emits a tombstone where a change
+leaves the filter.  EMIT FINAL (a TableSuppress over a TUMBLING or
 HOPPING aggregation; HOPPING takes the expansion route) emits each window
 once, when the running stream time reaches its close: K17 suppress_clock
 keeps the running clocks, K18 suppress_close decides per slot, the closed
@@ -51,9 +65,10 @@ shape raises :class:`DeviceUnsupported` at construction: SESSION windows
 over a join, FULL/RIGHT stream-table joins, an aggregation over a
 stream-stream join, table-table and foreign-key joins, flat-maps,
 PARTITION BY outside a join's input side, EMIT FINAL or HAVING over
-SESSION windows, table aggregation, vector aggregates over SESSION
-windows or under EMIT FINAL, arg-set aggregates, window families, pull
-queries.
+SESSION windows, suppress over a table aggregation, aggregates whose state
+does not invert (MIN, MAX, TOPK, COLLECT_SET, ...) over a table
+aggregation, vector aggregates over SESSION windows or under EMIT FINAL,
+arg-set aggregates, window families, pull queries.
 
 Where the reference traces one jitted step, the port runs eagerly: the
 expression phases are torch tensor ops, and the keyed store goes through
@@ -64,7 +79,8 @@ K7 member_lanes), ``ops/ss_join.py`` (K10 ss_match, K11 ss_insert, K12
 ss_expire), ``ops/session.py`` (K13 seg_sort, K14 session_items, K15
 session_merge, K16 session_write), ``ops/suppress.py`` (K17
 suppress_clock, K18 suppress_close, K19 having_verdict) and
-``ops/vector.py`` (K20 vec_collect, K21 vec_topk, K22 vec_hist).  The stores are
+``ops/vector.py`` (K20 vec_collect, K21 vec_topk, K22 vec_hist, K23
+vec_remove).  The stores are
 updated IN PLACE; every emitted lane is a fresh tensor (a K6, K8, K10,
 K12, K16 or K19 output or a batch column), never a view of a store
 column, so a pipelined batch's
@@ -248,6 +264,11 @@ class TorchCompiledQuery:
         self.ss_join: Optional[st.StreamStreamJoin] = None
         self.right_source: Optional[st.StreamSource] = None
         self.right_pre_ops: List[st.ExecutionStep] = []
+        #: a table aggregation over a table source (changes undo and apply:
+        #: ``process_table_changes``), or a table transform (a
+        #: TableFilter/TableSelect chain over a table source, ``pre_ops``)
+        self.table_agg = False
+        self.table_mode = False
         self._analyze(plan.physical_plan)
 
         self.window = getattr(self.agg, "window", None) if self.agg is not None else None
@@ -367,12 +388,40 @@ class TorchCompiledQuery:
             self.group = cur
             cur = cur.source
         elif isinstance(cur, st.TableAggregate):
-            raise DeviceUnsupported("suppress over a table aggregation" if self.suppress
-                                    else "table aggregation on device")
+            # table aggregation: every source change undoes the old row's
+            # contributions at its old group key and applies the new row's
+            # at its new key (KudafUndoAggregator + KudafAggregator)
+            if self.suppress:
+                raise DeviceUnsupported("suppress over a table aggregation")
+            self.agg = cur
+            self.table_agg = True
+            cur = cur.source
+            if not isinstance(cur, st.TableGroupBy):
+                raise DeviceUnsupported(f"table aggregate over {type(cur).__name__}")
+            self.group = cur
+            cur = cur.source
+            while isinstance(cur, (st.TableFilter, st.TableSelect)):
+                self.pre_ops.append(cur)
+                cur = cur.source
+            self.pre_ops.reverse()
+            if not isinstance(cur, st.TableSource):
+                raise DeviceUnsupported(f"table aggregate source {type(cur).__name__} on device")
+            self.source = cur
+            return
         elif self.suppress:
             raise DeviceUnsupported("suppress without aggregation")
         elif self.post_ops:
-            raise DeviceUnsupported("table transforms without aggregation on device")
+            # a table-to-table transform (CTAS without aggregation): the
+            # TableFilter/TableSelect chain runs as a stateless pipeline
+            # over each change's new row, and a verdict over its old row
+            # decides the tombstones on the host
+            if not isinstance(cur, st.TableSource):
+                raise DeviceUnsupported(
+                    f"table transforms without aggregation over {type(cur).__name__}")
+            self.table_mode = True
+            self.pre_ops, self.post_ops = self.post_ops, []
+            self.source = cur
+            return
         while isinstance(cur, (st.StreamFilter, st.StreamSelect)):
             self.pre_ops.append(cur)
             cur = cur.source
@@ -521,6 +570,11 @@ class TorchCompiledQuery:
             if self.suppress and any(comp.width > 1 for comp in device.components):
                 # K18 resets an evicted window's scalar components only
                 raise DeviceUnsupported(f"{call.function} under EMIT FINAL on device")
+            if self.table_agg and device.undo_contribs is None and any(
+                    comp.combine != "add" for comp in device.components):
+                # a retraction needs state that inverts: the all-'add'
+                # families negate, COLLECT_LIST and HISTOGRAM have undo heads
+                raise DeviceUnsupported(f"{call.function} over a table aggregation on device")
             self.agg_specs.append(_AggSpec(
                 call.function, tuple(call.args), device, f"KSQL_AGG_VARIABLE_{i}",
             ))
@@ -1226,16 +1280,23 @@ class TorchCompiledQuery:
             env["WINDOWEND"] = DCol(ws + size, ones, T.BIGINT)
         return env, row_ts
 
-    def _emit_agg(self, slots: torch.Tensor, mask: torch.Tensor, nn: int) -> Dict[str, torch.Tensor]:
+    def _emit_agg(self, slots: torch.Tensor, mask: torch.Tensor, nn: int,
+                  ts_override: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """One change per touched slot (``mask``: K3's winners), through
         the post-aggregation ops; with HAVING retraction each filter's
         verdict goes through K19, and the slots that stop passing emit
-        tombstones."""
+        tombstones.  ``ts_override``: a table change's emission carries
+        the change's timestamp, not the slot's watermark.  Every lane is
+        a fresh tensor (K6 gathers), so the store may change after."""
         # vector state is gathered for the winners only (K6's wide mode):
         # no other lane emits
         view = slicing.combine_windows(self.state, self.store_layout, len(self.key_types), slots,
                                        mask=mask)
         env, row_ts = self._finalized_env(view, nn)
+        if ts_override is not None:
+            row_ts = ts_override
+            env["ROWTIME"] = DCol(ts_override, torch.ones(nn, dtype=torch.bool, device=mask.device),
+                                  T.BIGINT)
         tomb = None
         hpass = self.state.get("hpass")
         for op in self.post_ops:
@@ -1275,6 +1336,124 @@ class TorchCompiledQuery:
         hs.evict(self.state, self.store_layout, self.retention_ms, sliced=self.sliced,
                  suppress=self.suppress)
         self.evictions += 1
+
+    # ------------------------------------------------- table aggregation
+    def _ta_side(self, arrays: Dict[str, torch.Tensor], undo: bool):
+        """One side of a table-aggregation batch (the reference's
+        ``_ta_side`` and its ``_emit_agg``): the pre-ops, the group hash
+        (K1, unwindowed), the contributions — negated on the undo side, or
+        the spec's ``undo_contribs``; the ts watermark never — then the
+        undo side finds its old groups (K8's find mode: a missing group
+        means the old row never aggregated, and the row folds into the dump
+        slot) while the apply side inserts (K2); K3 folds the scalars and
+        marks one winner per slot, the vector groups fold after it (K23's
+        removal first on the undo side), and the winners emit with the
+        change's timestamp.  Returns ``(emits, rows that reached a group,
+        ts)``."""
+        n = self.capacity
+        cap = self.store_capacity
+        store = self.state
+        env = self._source_env(arrays)
+        env, active = self._apply_ops(self.pre_ops, env, arrays["row_valid"], n)
+        ts = arrays["ts"]
+        key_cols = self._key_cols(env, n, ts.device)
+        reprs = torch.stack([_repr64(kc) for kc in key_cols]).contiguous()
+        valid = torch.stack([kc.valid for kc in key_cols]).contiguous()
+        _ws, knull, active, khash, base, c0 = hs.row_prologue(
+            reprs, valid, ts, active.contiguous(), 0, 0, store["max_ts"], cap)
+        contribs = [c0]
+        c = TorchExprCompiler(env, n, ts.device, self.dictionary)
+        for spec in self.agg_specs:
+            args = [c.compile(e) for e in spec.arg_exprs]
+            if undo and spec.device.undo_contribs is not None:
+                contribs.extend(spec.device.undo_contribs(args, active))
+            else:
+                cs = spec.device.contribs(args, active)
+                contribs.extend([-x for x in cs] if undo else cs)
+        if undo:
+            slots = hs.probe_find_slots(store, cap, khash, base, active)
+            reached = active & (slots != cap)
+        else:
+            zeros64 = torch.zeros(n, dtype=torch.int64, device=ts.device)
+            slots = hs.probe_insert(store, self.scratch, cap, base, khash, zeros64, reprs, knull,
+                                    active)
+            reached = active
+        slots = torch.where(reached, slots, torch.full_like(slots, cap))
+        # K3 folds every active row (a missed undo row into the dump slot, as
+        # the reference's full scatter does); its winners are the reached rows'
+        winners = hs.fold_and_mark(store, self.scratch, self.store_layout, slots, contribs, active)
+        vec.fold_vectors(store, self.store_layout, slots, contribs, vec_undo=undo)
+        return self._emit_agg(slots, winners, n, ts_override=ts), reached, ts
+
+    def _table_agg_step(self, a_new: Dict[str, torch.Tensor],
+                        a_old: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One batch of table changes (the reference's
+        ``_trace_table_agg_step``): undo every old row, emitting one change
+        per touched group as the store stands between the two sides, then
+        apply every new row and emit again; the ``2n`` lanes are the undo
+        side's, then the apply side's."""
+        e_old, act_old, ts_old = self._ta_side(a_old, undo=True)
+        e_new, act_new, ts_new = self._ta_side(a_new, undo=False)
+        emits = {k: torch.cat([e_old[k], e_new[k]]) for k in e_old}
+        store = self.state
+        neg = torch.full_like(ts_old, _I64_MIN)
+        batch_max = torch.maximum(torch.where(act_old, ts_old, neg).max(),
+                                  torch.where(act_new, ts_new, neg).max())
+        torch.maximum(store["max_ts"], batch_max, out=store["max_ts"])
+        emits["occupancy"] = (store["occ"] | store["grave"]).sum()
+        emits["graves"] = store["grave"].sum()
+        emits["overflow"] = store["overflow"].clone()
+        return emits
+
+    def _verdict(self, arrays: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The table transform's filter verdict over a batch of OLD rows
+        (the reference's ``_trace_verdict``): expression ops only."""
+        env = self._source_env(arrays)
+        _env, active = self._apply_ops(self.pre_ops, env, arrays["row_valid"], self.capacity)
+        return active
+
+    def process_table_changes(self, new_batch: HostBatch, old_batch: HostBatch,
+                              keys: List[tuple], has_new: np.ndarray, has_old: np.ndarray,
+                              ts: List[int]) -> List[SinkEmit]:
+        """One batch of a table source's changes (``len(keys)`` of them,
+        each its key's old and new row, absent where ``has_old`` /
+        ``has_new`` is False).  A table aggregation undoes and applies
+        them (:meth:`_table_agg_step`), checks the load and decodes the
+        lanes in order.  A table transform runs its pipeline over the new
+        rows and its verdict over the old ones: a change whose new row
+        passes emits it; one whose new row fails, or is a delete, while
+        its old row passed emits a tombstone (TableFilter's forwarding)."""
+        if self.table_agg:
+            a_new = self.layout.encode(new_batch)
+            a_old = self.layout.encode(old_batch)
+            for arrays, has in ((a_old, has_old), (a_new, has_new)):
+                pad = np.zeros(self.capacity, bool)
+                pad[: len(keys)] = has
+                arrays["row_valid"] = pad
+            emits = self._table_agg_step(self.upload(a_new), self.upload(a_old))
+            self._react_to_load(emits)
+            return self._decode_emits(emits, sort=False)
+        emits = self._step(self.upload(self.layout.encode(new_batch)))
+        old_ok = np.zeros(len(keys), bool)
+        if has_old.any():
+            verdict = self._verdict(self.upload(self.layout.encode(old_batch)))
+            old_ok = verdict.cpu().numpy()[: len(keys)] & has_old
+        emit_mask = emits["emit_mask"].cpu().numpy()
+        new_mask = emit_mask[: len(keys)] & has_new
+        rows = self._decode_emits(emits, sort=False)
+        by_index: Dict[int, SinkEmit] = {}
+        for pos, e in zip(np.nonzero(emit_mask)[0], rows):
+            if pos < len(keys):
+                by_index[int(pos)] = e
+        out: List[SinkEmit] = []
+        for i, key in enumerate(keys):
+            if new_mask[i]:
+                e = by_index.get(i)
+                if e is not None:
+                    out.append(SinkEmit(key, e.row, ts[i], e.window))
+            elif old_ok[i]:
+                out.append(SinkEmit(key, None, ts[i], None))
+        return out
 
     # ------------------------------------------- join table stores (device)
     def _jtab_key(self, idx: int) -> str:

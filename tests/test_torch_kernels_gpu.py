@@ -11,8 +11,10 @@ Ints, bools, hashes and slots must be equal; float64 sums agree to rtol
 ``chip_smoke.make_sliced_case``, the stream-stream join steps from
 ``chip_smoke.make_ss_case``, the session steps from
 ``chip_smoke.make_session_case`` (checked by phase 2w's own chain), the
-EMIT FINAL and HAVING steps from ``chip_smoke.make_suppress_case``: the
-generators of the chip check's own kernel phases.
+EMIT FINAL and HAVING steps from ``chip_smoke.make_suppress_case``, the
+table aggregation's undo side from ``chip_smoke.make_find_case`` and
+``make_orders_case``: the generators of the chip check's own kernel
+phases.
 """
 
 import json
@@ -629,3 +631,44 @@ def test_vector_kernels_match_twins(dev, seed):
 
 def test_vector_topk_over_doubles_matches_twin(dev):
     chip_smoke._check_topk_doubles(torch, np.random.default_rng(4), dev, capacity=1 << 9, n=4096)
+
+
+def test_probe_find_find_mode_matches_twin(dev):
+    # K8's find mode on phase 2t's store shape at 2^14 slots: graves, misses
+    rng = np.random.default_rng(5)
+    cap = 1 << 14
+    store, kh, base, active, _st = chip_smoke.make_find_case(torch, hs, rng, dev, n=20_000,
+                                                             capacity=cap)
+    before = hs.probe_find.mode_launches["find"]
+    got = hs.probe_find_slots(store, cap, kh, base, active)
+    assert hs.probe_find.mode_launches["find"] == before + 1
+    _same(got, hs.probe_find_plain(store, cap, kh, torch.zeros_like(kh), active))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_table_agg_undo_kernels_match_twins(dev, seed):
+    # the undo side's vector folds on phase 2t's customer_orders case: K23
+    # then K20 append on COLLECT_LIST(ID), K20 hist and K22 with negative
+    # heads on HISTOGRAM(STATUS); exact, the dump row included
+    from ksql_tpu_torch.ops import vector as vec
+
+    rng = np.random.default_rng(seed)
+    c = chip_smoke.make_orders_case(torch, rng, dev, n=2048, capacity=1 << 12)
+    layout, store, slots, contribs = c["layout"], c["store"], c["slots"], c["contribs"]
+    keys = [f"a{j}" for j in range(3, 10)]
+    got = {k: store[k].clone() for k in keys}
+    want = {k: store[k].clone() for k in keys}
+    before = vec.vec_remove.launches
+    vec.fold_vectors(got, layout, slots, contribs, vec_undo=True)
+    assert vec.vec_remove.launches == before + 1
+    vec.vec_remove_plain(want, layout, 3, contribs, slots)
+    vec.vec_collect_plain(want, layout, 3, contribs, slots, "append")
+    vec.vec_collect_plain(want, layout, 6, contribs, slots, "hist")
+    vec.vec_hist_plain(want, layout, 6, contribs, slots)
+    for k in keys:
+        _same(got[k], want[k])
+    assert bool((want["a3"] < store["a3"]).any())  # entries were removed
+
+
+def test_vec_remove_over_doubles_matches_twin(dev):
+    chip_smoke.check_remove_doubles(torch, np.random.default_rng(6), dev, capacity=1 << 8, n=2048)

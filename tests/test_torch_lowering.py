@@ -11,6 +11,7 @@ buffer, and a hand-over of mid-stream reference state.  ``run_parity`` is
 also the harness of the hopping cases (``test_torch_hopping.py``).
 """
 
+import dataclasses
 import json
 
 import jax
@@ -19,6 +20,7 @@ import pytest
 
 from ksql_tpu.common.batch import HostBatch as RHostBatch
 from ksql_tpu.engine.engine import KsqlEngine
+from ksql_tpu.execution import steps as rst
 from ksql_tpu.execution.steps import plan_to_json
 from ksql_tpu.runtime.lowering import CompiledDeviceQuery
 from ksql_tpu_torch.common.batch import HostBatch as PHostBatch
@@ -308,21 +310,61 @@ UNSUPPORTED = {
 }
 #: the cases over the two keyed streams
 UNSUPPORTED_SS = ("hopping_emit_final", "having")
+#: a table aggregation over USERS (tests/test_engine_device.py:121); table
+#: aggregations run on the port (tests/test_torch_table_agg.py), and the
+#: planner refuses MIN over a table and EMIT FINAL without a window before
+#: any device sees them, so these two cases are hand edits of its plan
+TABLE_DDL = ("CREATE TABLE USERS (ID INT PRIMARY KEY, REGION STRING, AMT INT) "
+             "WITH (kafka_topic='u', value_format='JSON');")
+TABLE_AGG = ("CREATE TABLE C AS SELECT REGION, COUNT(*) AS N, SUM(AMT) AS S FROM USERS "
+             "GROUP BY REGION;")
+
+
+def _edit_table_agg(edit):
+    engine, plan, schema = plan_for(TABLE_DDL, TABLE_AGG)
+    return engine, dataclasses.replace(plan, physical_plan=edit(plan.physical_plan)), schema
+
+
+def _min_over_table(sink):
+    """SUM(AMT) -> MIN(AMT) in the TableAggregate under the sink's select."""
+    select = sink.source
+    agg = select.source
+    calls = tuple(dataclasses.replace(c, function="MIN") if c.function.upper() == "SUM" else c
+                  for c in agg.aggregations)
+    return dataclasses.replace(sink, source=dataclasses.replace(
+        select, source=dataclasses.replace(agg, aggregations=calls)))
+
+
+def _suppress_over_table(sink):
+    return dataclasses.replace(sink, source=rst.TableSuppress(source=sink.source,
+                                                              schema=sink.source.schema))
+
+
+UNSUPPORTED["min_table_agg"] = lambda: _edit_table_agg(_min_over_table)
+UNSUPPORTED["suppress_table_agg"] = lambda: _edit_table_agg(_suppress_over_table)
+
+
+def _unsupported(name):
+    case = UNSUPPORTED[name]
+    if callable(case):
+        return case()
+    return plan_for(SS_DDL if name in UNSUPPORTED_SS else DDL, case)
 
 
 @pytest.mark.parametrize("name", list(UNSUPPORTED))
 def test_unsupported_plan_raises(name):
-    _engine, plan, _schema = plan_for(SS_DDL if name in UNSUPPORTED_SS else DDL, UNSUPPORTED[name])
+    _engine, plan, _schema = _unsupported(name)
     with pytest.raises(DeviceUnsupported):
         TorchCompiledQuery(plan_from_json(plan_to_json(plan)), capacity=8, store_capacity=16, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["hopping_emit_final", "session", "emit_final", "having",
-                                  "collect_list"])
+                                  "collect_list", "min_table_agg", "suppress_table_agg"])
 def test_refusal_message_is_the_references(name):
-    # the EMIT FINAL, HAVING and vector-over-SESSION shapes still refused:
-    # the reference refuses them too, with the same words
-    engine, plan, _schema = plan_for(SS_DDL if name in UNSUPPORTED_SS else DDL, UNSUPPORTED[name])
+    # the EMIT FINAL, HAVING, vector-over-SESSION and table-aggregation
+    # shapes still refused: the reference refuses them too, with the same
+    # words
+    engine, plan, _schema = _unsupported(name)
     with pytest.raises(Exception) as ref_err:
         CompiledDeviceQuery(plan, engine.registry, capacity=8, store_capacity=16)
     with pytest.raises(DeviceUnsupported) as port_err:

@@ -8,13 +8,16 @@
 HAVING example over the page views), ``pv_having_retract.json`` (a
 HAVING predicate that flips both ways), ``pv_vectors.json`` (COLLECT_LIST,
 COLLECT_SET, TOPK, TOPKDISTINCT, EARLIEST/LATEST_BY_OFFSET(n)) and
-``pv_user_pages.json`` (HISTOGRAM) are the serialized physical plans
+``pv_user_pages.json`` (HISTOGRAM), ``users_by_region.json`` and
+``customer_orders.json`` (table aggregations) and ``big_spenders.json``
+(a table transform) are the serialized physical plans
 that ``chip_smoke.py`` runs (the port has no SQL front end yet): each must
 equal ``plan_to_json`` of the plan the reference engine builds from the
 bench's DDL (``bench.py``'s tumbling COUNT(*) and hopping
 SUM/AVG/MIN/MAX over the page-view stream, its clicks-users LEFT JOIN, its
 stream-stream LEFT JOIN with GRACE and its SESSION COUNT(*), the EMIT
-FINAL and HAVING variants and the vector aggregates over the page views),
+FINAL and HAVING variants and the vector aggregates over the page views,
+and the reference's own USERS table and an ORDERS table),
 and the port's decoder must read it back
 to the same JSON.
 """
@@ -94,7 +97,25 @@ CTAS = {
         "CREATE TABLE USER_PAGES AS SELECT USER_ID, HISTOGRAM(URL) AS PAGES "
         "FROM PAGE_VIEWS WINDOW TUMBLING (SIZE 1 HOUR) GROUP BY USER_ID EMIT CHANGES;"
     ),
+    # a table aggregation: tests/test_engine_device.py:140's query over its USERS
+    "users_by_region.json": (
+        "CREATE TABLE USERS_BY_REGION AS SELECT REGION, COUNT(*) C, SUM(AMT) S, AVG(AMT) A, "
+        "STDDEV_SAMPLE(AMT) SD FROM USERS GROUP BY REGION;"
+    ),
+    # a customer's open orders: COLLECT_LIST's and HISTOGRAM's undo, a WHERE
+    "customer_orders.json": (
+        "CREATE TABLE CUSTOMER_ORDERS AS SELECT CUSTOMER_ID, COUNT(*) AS N, "
+        "SUM(AMOUNT) AS TOTAL, COLLECT_LIST(ID) AS ORDER_IDS, HISTOGRAM(STATUS) AS BY_STATUS "
+        "FROM ORDERS WHERE STATUS <> 'CANCELLED' GROUP BY CUSTOMER_ID EMIT CHANGES;"
+    ),
+    # a table transform: a filter and a projection over a table
+    "big_spenders.json": (
+        "CREATE TABLE BIG_SPENDERS AS SELECT ID, REGION, AMT FROM USERS WHERE AMT > 500;"
+    ),
 }
+#: tests/test_engine_device.py:121
+USERS_DDL = ("CREATE TABLE USERS (ID INT PRIMARY KEY, REGION STRING, AMT INT) "
+             "WITH (kafka_topic='u', value_format='JSON');")
 #: the DDL each plan's query reads (bench.py:149, :541-546)
 DDL = {
     "pv_counts_tumbling.json": [bench.PV_DDL],
@@ -116,13 +137,20 @@ DDL = {
         "CREATE STREAM LEFTS (ID BIGINT KEY, V BIGINT) WITH (KAFKA_TOPIC='lt', VALUE_FORMAT='JSON');",
         "CREATE STREAM RIGHTS (ID BIGINT KEY, V BIGINT) WITH (KAFKA_TOPIC='rt', VALUE_FORMAT='JSON');",
     ],
+    "users_by_region.json": [USERS_DDL],
+    "customer_orders.json": [
+        "CREATE TABLE ORDERS (ID BIGINT PRIMARY KEY, CUSTOMER_ID BIGINT, STATUS STRING, "
+        "AMOUNT DOUBLE) WITH (kafka_topic='orders', value_format='JSON');",
+    ],
+    "big_spenders.json": [USERS_DDL],
 }
 SINKS = {"pv_counts_tumbling.json": "PV_COUNTS", "pv_stats_hopping.json": "PV_STATS",
          "enriched_join.json": "ENRICHED", "ss_join_grace.json": "J",
          "pv_sessions.json": "SESSIONS", "pv_counts_final.json": "PV_COUNTS_FINAL",
          "pv_stats_hopping_final.json": "PV_STATS_FINAL", "possible_fraud.json": "POSSIBLE_FRAUD",
          "pv_having_retract.json": "PV_HAVING_RETRACT", "pv_vectors.json": "PV_VECTORS",
-         "pv_user_pages.json": "USER_PAGES"}
+         "pv_user_pages.json": "USER_PAGES", "users_by_region.json": "USERS_BY_REGION",
+         "customer_orders.json": "CUSTOMER_ORDERS", "big_spenders.json": "BIG_SPENDERS"}
 
 
 def _committed(name):
@@ -209,4 +237,19 @@ def test_vector_plan_files_equal_reference_engine_plans(name):
 
 @pytest.mark.parametrize("name", VECTORS)
 def test_port_decodes_vector_plan_files_losslessly(name):
+    _check_decodes(name)
+
+
+#: the table aggregation and table transform plans of chip_smoke.py's
+#: phases 15, 16 and 17
+TABLE_PLANS = ("users_by_region.json", "customer_orders.json", "big_spenders.json")
+
+
+@pytest.mark.parametrize("name", TABLE_PLANS)
+def test_table_plan_files_equal_reference_engine_plans(name):
+    _check_equals_reference(name)
+
+
+@pytest.mark.parametrize("name", TABLE_PLANS)
+def test_port_decodes_table_plan_files_losslessly(name):
     _check_decodes(name)
