@@ -64,7 +64,7 @@ Phases, in this order; any failure exits non-zero and prints no result:
 9. BASELINE #3 end to end (``ksql_tpu_torch/plans/enriched_join.json``,
    CLICKS LEFT JOIN USERS WHERE REGION <> 'excluded') through
    ``start_plan``/``run_until_quiescent``: 100,000 USERS into a 2^18-slot
-   table store, 8 x 65,536 CLICKS, then 4 more batches with 4,096 USERS
+   table store, 4 x 65,536 CLICKS, then 4 more batches with 4,096 USERS
    changes before every second; the sink must equal a dict join replayed
    in the executor's order, record for record, with no overflow.
 9g. Table growth: the users in ticks of 4,096 into a 2^14-slot table
@@ -80,7 +80,7 @@ Phases, in this order; any failure exits non-zero and prints no result:
 10. BASELINE #4 end to end (``ksql_tpu_torch/plans/ss_join_grace.json``,
    LEFTS LEFT JOIN RIGHTS WITHIN 10 SECONDS GRACE PERIOD 1 SECOND) through
    ``start_plan``: bench.py:610-665's traffic (20,000 keys, V = ID, a
-   record every 2 ms), 32 batches of 2,048 JSON records a side,
+   record every 2 ms), 16 batches of 2,048 JSON records a side,
    alternating, one a tick (``run_until_quiescent`` + ``drain``), rings of
    2^14, 8 x 2,048 match lanes, then ``flush_time``.  The sink must equal
    the port's CPU run record for record; its joined rows must equal a
@@ -162,7 +162,7 @@ Phases, in this order; any failure exits non-zero and prints no result:
 14. Vector aggregates end to end (``ksql_tpu_torch/plans/pv_vectors.json``:
    COLLECT_LIST, COLLECT_SET, TOPK, TOPKDISTINCT, EARLIEST_BY_OFFSET(n)
    and LATEST_BY_OFFSET(n) of USER_ID per URL and hour) through
-   ``run_plan`` over phase 6's traffic in 32 batches of 4,096 (larger
+   ``run_plan`` over phase 6's traffic in 16 batches of 4,096 (larger
    batches overflow the store that the 256 MiB state budget clamps to
    8,192 slots before the first sampled load check): the sink must equal
    the port's CPU run record for record, the last value per (URL, hour) a
@@ -192,7 +192,7 @@ Phases, in this order; any failure exits non-zero and prints no result:
    the sink must equal the CPU run, the last C/S/A/SD per region numpy
    over the final table; no overflow.
 16. ``customer_orders.json`` (COUNT, SUM(AMOUNT), COLLECT_LIST(ID),
-   HISTOGRAM(STATUS) per CUSTOMER_ID, WHERE STATUS <> 'CANCELLED') over 32
+   HISTOGRAM(STATUS) per CUSTOMER_ID, WHERE STATUS <> 'CANCELLED') over 16
    x 4,096 changes of zipf customers' orders (new, NEW -> SHIPPED ->
    DELIVERED, some CANCELLED, deletes; 2% of the changes change again an
    order already changed in the batch): the sink must equal the CPU run,
@@ -202,17 +202,53 @@ Phases, in this order; any failure exits non-zero and prints no result:
    must leave the batch rule's phantom; the clamped store must grow, no
    overflow.
 17. ``big_spenders.json`` (a table transform: the USERS with AMT > 500)
-   over phase 15's changes, the load apart as there: the sink must equal
+   over phase 15's load and its first 2 update batches, the load apart as
+   there: the sink must equal
    the CPU run and the per-change rule (a passing new row emits, a
    failing or deleted one whose old row passed emits a tombstone), the
    last rows AMT > 500 over the final table.
 15b. Phase 15's load, then 2 of its update batches under the breakdown's
    timers (JSON, encode, undo side, apply side, emit decode, produce, the
    card's busy share).
+2x. The table-table and foreign-key joins' kernels against their twins at
+   their full shapes: K8's gather mode and K9's side mode on 65,536 user
+   changes (a tenth on one hot id, 10% deletes, 1% padding) into a
+   2^18-slot user_accounts store holding 100,000 keys on each side (5%
+   of each side deleted); K8's live mode on 65,536 foreign keys
+   (5% null) against a 2^18-slot customers store (10% deleted, 5%
+   graves); K24 ``fk_fanout`` over a 2^18-slot orders store of 100,000
+   orders whose customers are zipf(1.3) over 10,000, for the hottest
+   customer and for one with no order (the dump row holds the hottest,
+   never live); K2 at phase 19's shapes, one order key and 1,024, into a
+   2^16-slot orders store of 16,384 orders with 5% graves and a full
+   probe chain (one key at a time too: the chain's own, which overflows,
+   a stored key, a grave's and one whose base lies in the chain).  All
+   exact.  Yardsticks: ``index_select`` per column for K8's gather,
+   ``nonzero`` + ``index_select`` for K24; no single PyTorch call
+   computes K8's walk, K9 or K2.
+18. ``user_accounts.json`` (USERS LEFT JOIN ACCOUNTS on the key) through
+   ``start_plan``: BASELINE #3's 100,000 users and 90,000 accounts loaded
+   apart, then 4 single-sided batches of 65,536 changes (users and
+   accounts in turn; 70% updates, 20% deletes, 10% re-inserts) into a
+   2^18-slot store (p50/p99 over these): the sink must equal a dict model
+   of the join change for change, no overflow, no grow.
+18b. Two more update batches on the same handle under the breakdown's
+   timers; the sink against the model again.
+18g. The same plan from a 2^14-slot store, 8 ticks of 4,096 changes
+   (users, then their accounts): the store must grow at least twice
+   (host rebuilds), the sink equal the dict model, no overflow.
+19. ``orders_enriched.json`` (ORDERS LEFT JOIN USERS on the order's
+   CUSTOMER_ID) one change a step (the reference refuses a batched
+   foreign-key join) into 2^16-slot stores: 10,000 users and 16,384 orders
+   (zipf(1.3) customers; the order count is cut by the per-record rule),
+   then 1,024 user changes (90% renames, 10% deletes; customers uniform,
+   the first the hottest, so each fans out through K24) and 1,024 order
+   changes (50% a new customer, 25% a new amount, 25% deletes): the sink
+   must equal a dict model change for change, no overflow.
 5. Launch counters, per path: the counts (per kernel, and per mode for K1,
-   K4, K6, K8, K10, K11, K14, K16, K17, K20 and K21) are set to 0 just before each of
+   K4, K6, K8, K9, K10, K11, K14, K16, K17, K20 and K21) are set to 0 just before each of
    phases 3, 4, 6, 7, 8, 9, 9g, 10, 10g, 11, 11g, 12, 12g, 12h, 13, 13r, 14,
-   14h, 15, 16 and 17 drives the runner on the card (and, for 12-12h, its flush) and read
+   14h, 15, 16, 17, 18, 18g and 19 drives the runner on the card (and, for 12-12h, its flush) and read
    just after it; each phase must have launched every kernel of its route
    in the route's modes (``PATH_KERNELS``), and no kernel or mode outside
    it.  Then short profiled re-runs split a batch's time into
@@ -302,7 +338,7 @@ KERNEL_FUNCS = {
     "sliced_fold": ("slice_reset_kernel", "slice_fold_kernel"),
     "combine_windows": ("combine_kernel", "wide_gather_kernel"),
     "member_lanes": ("lane_claim_kernel", "lane_winner_kernel"),
-    "probe_find": ("probe_find_kernel", "find_slots_kernel"),
+    "probe_find": ("probe_find_kernel", "find_slots_kernel", "gather_kernel"),
     "table_upsert": ("claim_kernel", "upsert_kernel", "dump_kernel"),
     "ss_match": ("match_count_kernel", "match_scan_kernel", "match_write_kernel"),
     "ss_insert": ("insert_prologue_kernel", "insert_write_kernel"),
@@ -321,6 +357,7 @@ KERNEL_FUNCS = {
     "vec_hist": ("hist_count_kernel",),
     "vec_remove": ("remove_keys_kernel", "remove_claim_kernel", "remove_compact_kernel",
                    "remove_dump_kernel"),
+    "fk_fanout": ("fanout_count_kernel", "fanout_scan_kernel", "fanout_write_kernel"),
 }
 
 
@@ -1413,7 +1450,7 @@ _SLICED = {"row_prologue": "sliced", "probe_insert": None, "sliced_fold": None,
            "member_lanes": None, "combine_windows": "sliced", "evict": "sliced"}
 #: a stream-table join: K8 per stream batch; K1 (table mode), K2 and K9 per
 #: table batch
-_JOIN = {"probe_find": "join", "row_prologue": "table", "probe_insert": None, "table_upsert": None}
+_JOIN = {"probe_find": "join", "row_prologue": "table", "probe_insert": None, "table_upsert": "join"}
 #: a stream-stream join: K10 and K11 in both modes per batch, K12 per tick
 _SS = {"ss_match": ("count", "write"), "ss_insert": ("prologue", "write"), "ss_expire": None}
 #: a session aggregation: K1's session mode, K13 twice, K14 in its three
@@ -1434,6 +1471,8 @@ _VECTOR = {**_TUMBLING, "combine_windows": "wide", "seg_sort": None, "evict": "t
 #: on the undo side, K2 on the apply side
 _TABLE_AGG = {"row_prologue": "tumbling", "probe_find": "find", "probe_insert": None,
               "fold_and_mark": None, "combine_windows": "gather"}
+#: a table-table join: K1's table mode, K2, K8's gather mode, K9's side mode
+_TT = {"row_prologue": "table", "probe_insert": None, "probe_find": "gather", "table_upsert": "side"}
 PATH_KERNELS = {
     "3": _TUMBLING,
     "4": {**_TUMBLING, "evict": "tumbling"},
@@ -1460,6 +1499,15 @@ PATH_KERNELS = {
            "vec_collect": ("append", "hist"), "vec_hist": None, "vec_remove": None},
     # a table transform: expression ops only, no kernel
     "17": {},
+    # a table-table join: per single-side batch K1's table mode, K2, K8's
+    # gather of the other side and K9's side mode
+    "18": _TT,
+    "18g": _TT,
+    # a foreign-key join, one change a step: a left change K1, K2, K8's live
+    # mode (old and new foreign key) and K9's side mode; a right change K1,
+    # K2, K9's side mode and K24's fan-out
+    "19": {"row_prologue": "table", "probe_insert": None, "probe_find": "live", "table_upsert": "side",
+           "fk_fanout": None},
 }
 #: per phase, each kernel's launches in that phase's card run, by mode
 PATH_LAUNCHES: dict = {}
@@ -1471,10 +1519,12 @@ def _wrappers():
     from ksql_tpu_torch.ops import slicing
     from ksql_tpu_torch.ops import ss_join
     from ksql_tpu_torch.ops import suppress
+    from ksql_tpu_torch.ops import table_join
     from ksql_tpu_torch.ops import vector
 
     return (hs.KERNEL_WRAPPERS + slicing.KERNEL_WRAPPERS + ss_join.KERNEL_WRAPPERS
-            + session.KERNEL_WRAPPERS + suppress.KERNEL_WRAPPERS + vector.KERNEL_WRAPPERS)
+            + session.KERNEL_WRAPPERS + suppress.KERNEL_WRAPPERS + vector.KERNEL_WRAPPERS
+            + table_join.KERNEL_WRAPPERS)
 
 
 def zero_launches() -> None:
@@ -1627,6 +1677,9 @@ def phase_breakdown(torch, drive, n_batches, tag):
         (TorchCompiledQuery, "_ta_side",
          lambda self, arrays, undo: "undo side" if undo else "apply side", True),
         (TorchCompiledQuery, "_react_to_load", "load check", False),
+        (TorchCompiledQuery, "_tt_step", "tt step", True),
+        (TorchCompiledQuery, "_fk_left", "fk left step", True),
+        (TorchCompiledQuery, "_fk_right", "fk right step", True),
         (TorchCompiledQuery, "_decode_emits", "emit decode", False),
         (SinkWriter, "produce", "sink produce", False),
     ]
@@ -1824,7 +1877,7 @@ def phase_hop_long(torch, plan_json, seed):
 
 
 # ------------------------------------------------------------- phase 9
-JOIN_BATCHES = 8  # cut from 16 to keep the whole script inside its time
+JOIN_BATCHES = 4  # cut from 16, then 8, to keep the whole script inside its time (PERF.md §4)
 #: the second part: stream batches with USERS changes before every
 #: JOIN_CHANGE_EVERY-th (cut from 8 batches, a change before every fourth)
 JOIN_CHANGE_BATCHES = 4
@@ -1910,7 +1963,7 @@ def user_changes(rng, users, n, next_key):
 def phase_join_e2e(torch, plan_json, seed):
     """BASELINE #3 end to end through ``start_plan``/``run_until_quiescent``
     at ``bench.py:534``'s widths: 100,000 USERS (REGION r{k % 50}) into a
-    2^18-slot table store, then JOIN_BATCHES (8) x 65,536 CLICKS (USER_ID
+    2^18-slot table store, then JOIN_BATCHES (4) x 65,536 CLICKS (USER_ID
     uniform in 0..199,999, URL /u/{uid % 997}); then JOIN_CHANGE_BATCHES
     (4) more stream batches with 4,096 USERS changes before every second.  The
     sink must equal a dict join replayed in the executor's order, record
@@ -2027,7 +2080,7 @@ def phase_join_growth(torch, plan_json, seed):
 
 
 # ------------------------------------------------------------- phase 10
-SS_BATCHES = 32  # a side; 64 batches wrap each 2^14 ring four times
+SS_BATCHES = 16  # a side (cut from 32 for the script's time); 32 batches wrap each 2^14 ring twice
 SS_GROW_BATCHES = 16  # a side
 SS_GROW_BUFFER = 512  # ss_buffer_capacity of phase 10g (B starts at SS_ROWS)
 SS_GROW_OUT = 64  # ss_out_capacity of phase 10g
@@ -2123,7 +2176,7 @@ def ss_sink_counts(records):
 def phase_ss_e2e(torch, plan_json, seed):
     """BASELINE #4 end to end (``ksql_tpu_torch/plans/ss_join_grace.json``,
     LEFTS LEFT JOIN RIGHTS WITHIN 10 SECONDS GRACE PERIOD 1 SECOND) at
-    bench.py's sizes: 32 batches a side of 2,048 records, alternating, one
+    bench.py's sizes: 16 batches a side of 2,048 records, alternating, one
     a tick, into rings of 2^14 entries with 8 x 2,048 match lanes, then a
     flush.  The sink must equal the port's CPU run record for record; the
     joined rows must equal a numpy count of the pairs, the padded rows the
@@ -3128,7 +3181,7 @@ def phase_having_e2e(torch, fraud_json, retract_json, seed):
 
 # ------------------------------------------------------- phase 2v, 14-14b
 VEC_ROWS = 4096  # phase 14's batch: 16,384 and 8,192 overflow the clamped store (PERF.md §4)
-VEC_BATCHES = 32  # 32 x 4,096 = phase 6's 8 x 16,384 records (cut from 64 for the script's time)
+VEC_BATCHES = 16  # 16 x 4,096 records (cut from 64 and 32 for the script's time)
 VEC_STORE = 1 << 16  # phase 2v's store: the size phase 14 grows to
 HIST_STORE = 1 << 15  # phase 2v's histogram store: the size phase 14h grows to
 VEC_FILL = 0.5  # phase 2v's stores are half full
@@ -3572,10 +3625,11 @@ def _vector_head(torch, vec_json, seed, n_batches=VEC_BREAKDOWN_BATCHES):
 TA_USERS = 100_000  # BASELINE #3's USERS table (bench.py:556)
 TA_REGIONS = 50  # bench.py:563: user k's region is k % 50
 TA_ROWS = 1 << 16  # phases 15 and 17: 65,536-change batches (bench.py CAPACITY)
-TA_UPDATE_BATCHES = 4  # phases 15 and 17: the update batches after the load
+TA_UPDATE_BATCHES = 4  # phase 15: the update batches after the load
+SPENDERS_UPDATE_BATCHES = 2  # phase 17's (cut from 4 for the script's time)
 TA_STORE = 1 << 19  # phase 15's store: the load check wants 4 batches of headroom below 0.75
 ORDERS_ROWS = 4096  # phase 16's batch (phase_customer_orders says why)
-ORDERS_BATCHES = 32
+ORDERS_BATCHES = 16  # cut from 32 for the script's time
 ORDER_CUSTOMERS = 10_000
 ORDERS_TWICE = 0.02  # phase 16: the share of changes that change an order again in its batch
 ORDERS_STORE = 1 << 17  # asked for; the state budget clamps it to 8,192 slots
@@ -4036,7 +4090,7 @@ def phase_big_spenders(torch, plan_json, seed):
     old row passed while its new row fails or is a delete emits a
     tombstone, any other emits nothing; the last value per key is then the
     final table's filter."""
-    recs, (region, amt, live) = users_traffic(seed)
+    recs, (region, amt, live) = users_traffic(seed, SPENDERS_UPDATE_BATCHES * TA_ROWS)
     broker, q, rec = _table_e2e(torch, plan_json, "u", "BIG_SPENDERS", recs, TA_ROWS, TA_STORE, "17",
                                 load=TA_USERS)
     require(q.table_mode, "17: not a table transform")
@@ -4304,8 +4358,813 @@ def _users_head(torch, plan_json, seed, n_batches=TA_BREAKDOWN_BATCHES):
     return drive
 
 
+# ------------------------------------------------ phases 2x, 18, 18g, 19
+TT_USERS = 100_000  # BASELINE #3's USERS (bench.py:556)
+TT_ACCOUNTS = 90_000  # ACCOUNTS holds 90% of the users: the LEFT join pads 10%
+TT_ROWS = 1 << 16  # phase 18's batch (bench.py CAPACITY)
+TT_STORE = 1 << 18  # bench.py:557's table store
+TT_UPDATE_BATCHES = 4  # phase 18's update batches after the load
+TT_BREAKDOWN_BATCHES = 2  # phase 18b: two more update batches under the breakdown's timers
+TT_GROW_TICK = 4096  # phase 18g: 4,096-change batches
+TT_GROW_TICKS = 8
+TT_GROW_STORE = 1 << 14
+TIERS = ("bronze", "silver", "gold", "platinum")
+FK_USERS = 10_000  # phase 19: customer_orders' 10,000 customers
+FK_ORDERS = 16_384  # cut by the per-record rule (PERF.md §4); K24's full size is phase 2x's
+FK_USER_CHANGES = 1024
+FK_ORDER_CHANGES = 1024
+FK_STORE = 1 << 16  # the load stays <= 0.5 (ROADMAP C1)
+FAN_STORE = 1 << 18  # phase 2x's K24: a 2^18-slot fkl
+FAN_ORDERS = 100_000
+USER_ACCOUNTS_PLAN = os.path.join(_PLANS, "user_accounts.json")
+ORDERS_ENRICHED_PLAN = os.path.join(_PLANS, "orders_enriched.json")
+
+
+def _join_query(plan_path, rows, store):
+    """The plan's query on the CPU at a batch of ``rows`` and join stores of
+    ``store`` slots: its layouts, kept columns and store builders."""
+    from ksql_tpu_torch.execution.steps import plan_from_json
+    from ksql_tpu_torch.runtime.lowering import TorchCompiledQuery
+
+    with open(plan_path) as f:
+        plan = plan_from_json(json.load(f))
+    return TorchCompiledQuery(plan, capacity=rows, device="cpu", table_store_capacity=store)
+
+
+def _random_values(rng, dtype, n):
+    if dtype == np.float64:
+        return np.round(rng.uniform(0, 10_000, n), 2)
+    if dtype == np.bool_:
+        return rng.random(n) < 0.5
+    return rng.integers(-(2 ** 30), 2 ** 30, n).astype(dtype)
+
+
+def _fill_side(rng, st, prefix, cols, slots):
+    """Random values (5% null) in ``slots`` of a side's kept columns."""
+    for c in cols:
+        v = st[f"{prefix}v_{c.name}"]
+        v[slots] = _random_values(rng, v.dtype, slots.size)
+        st[f"{prefix}m_{c.name}"][slots] = rng.random(slots.size) < 0.95
+
+
+def _place(torch, hs, st, capacity, ids):
+    """Insert the BIGINT keys ``ids`` (a key's repr is its value) into the
+    numpy store ``st`` with no probe limit; returns their slots."""
+    kh = hs.combine_hash([torch.from_numpy(ids.astype(np.int64))]).numpy()
+    slots = fill_store(hs, st["occ"], st["khash"], st["wstart"], capacity, kh, np.zeros(ids.size, np.int64))
+    st["key0"][slots] = ids
+    return slots
+
+
+def make_tt_case(torch, rng, dev, n=TT_ROWS, capacity=TT_STORE, users=TT_USERS, accounts=TT_ACCOUNTS):
+    """Phase 2x's table-table case: user_accounts' two-sided store of
+    ``capacity`` slots holding ``users`` users (side l) and ``accounts`` of
+    them with an account (side r), 5% of each side deleted (not live), a
+    populated dump row; and a batch of ``n`` user changes (80% of existing
+    users, 20% of new ids, a tenth of the batch on one hot id, 10%
+    deletes, 1% padding rows), which K1's table mode and K2 place on the
+    card.  Returns the query, the store, its scratch, the slots and the
+    batch's touched, delete, act and (data, valid) per kept column."""
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    q = _join_query(USER_ACCOUNTS_PLAN, n, capacity)
+    st = state_to_numpy(q._init_tt_store("cpu"))
+    slots = _place(torch, hs, st, capacity, np.arange(users, dtype=np.int64))
+    st["l_live"][slots] = rng.random(users) > 0.05
+    _fill_side(rng, st, "l_", q.tt_cols["l"], np.append(slots, capacity))
+    acc = slots[rng.permutation(users)[:accounts]]
+    st["r_live"][acc] = rng.random(accounts) > 0.05
+    _fill_side(rng, st, "r_", q.tt_cols["r"], np.append(acc, capacity))
+    store = state_from_numpy(st, dev)
+    keys = np.where(rng.random(n) < 0.8, rng.integers(0, users, n), rng.integers(users, users + n // 4, n))
+    keys[rng.random(n) < 0.1] = keys[0]
+    kr = torch.from_numpy(keys.astype(np.int64)).to(dev).reshape(1, n)
+    row_valid = torch.from_numpy(rng.random(n) > 0.01).to(dev)
+    touched, khash, base = hs.table_prologue(kr, torch.ones_like(kr, dtype=torch.bool), row_valid, capacity)
+    scratch = hs.init_table_scratch(capacity, dev)
+    slots_b = hs.probe_insert(store, scratch, capacity, base, khash, torch.zeros_like(khash), kr,
+                              torch.zeros(n, dtype=torch.int32, device=dev), touched)
+    values = {}
+    for c in q.tt_cols["l"]:
+        dt = st[f"l_v_{c.name}"].dtype
+        values[c.name] = (torch.from_numpy(_random_values(rng, dt, n)).to(dev),
+                          torch.from_numpy(rng.random(n) < 0.95).to(dev))
+    return dict(query=q, store=store, scratch=scratch, slots=slots_b, touched=touched,
+                delete=torch.from_numpy(rng.random(n) < 0.1).to(dev),
+                act=torch.from_numpy(rng.random(n) < 0.98).to(dev), values=values)
+
+
+def tt_side_cols(c):
+    """K9 side mode's columns of make_tt_case's batch into store side l."""
+    st = c["store"]
+    return [(st[f"l_v_{name}"], st[f"l_m_{name}"], d, v, True) for name, (d, v) in c["values"].items()]
+
+
+def make_fkr_case(torch, rng, dev, n=TT_ROWS, capacity=TT_STORE, users=TT_USERS):
+    """Phase 2x's K8 live-mode case: orders_enriched's right store (the
+    customers) of ``capacity`` slots holding ``users`` keys, 10% of them
+    deleted (found, not live), 5% graves; and ``n`` foreign keys: 70% of
+    stored customers, 25% absent, 5% null.  Returns the query, the store,
+    the keys' reprs and valid bits, and the store as numpy."""
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    q = _join_query(ORDERS_ENRICHED_PLAN, n, capacity)
+    st = state_to_numpy(q._init_fk_store("r", "cpu"))
+    ids = np.arange(users, dtype=np.int64)
+    slots = _place(torch, hs, st, capacity, ids)
+    st["live"][slots] = rng.random(users) > 0.1
+    _fill_side(rng, st, "", q.fk_cols["r"], np.append(slots, capacity))
+    graves = slots[rng.random(users) < 0.05]
+    st["occ"][graves] = False
+    st["grave"][graves] = True
+    st["live"][graves] = False
+    fk = np.where(rng.random(n) < 0.7, rng.integers(0, users, n), rng.integers(users, 2 * users, n))
+    return dict(query=q, store=state_from_numpy(st, dev), st=st,
+                fk=torch.from_numpy(fk.astype(np.int64)).to(dev),
+                valid=torch.from_numpy(rng.random(n) > 0.05).to(dev))
+
+
+def make_fanout_case(torch, rng, dev, capacity=FAN_STORE, orders=FAN_ORDERS, customers=ORDER_CUSTOMERS):
+    """Phase 2x's K24 case: orders_enriched's left store of ``capacity``
+    slots holding ``orders`` orders whose customers are zipf(1.3) over
+    ``customers`` (phase 16's traffic), 5% of them deleted and 2% with a
+    null customer, and the dump row holding the hottest customer (never
+    live).  Returns the query, the store, the hottest customer and the
+    store as numpy."""
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    q = _join_query(ORDERS_ENRICHED_PLAN, 1, capacity)
+    st = state_to_numpy(q._init_fk_store("l", "cpu"))
+    slots = _place(torch, hs, st, capacity, np.arange(orders, dtype=np.int64))
+    cust = rng.zipf(1.3, orders).astype(np.int64) % customers
+    st["fkrepr"][slots] = cust
+    st["fkvalid"][slots] = rng.random(orders) > 0.02
+    st["live"][slots] = rng.random(orders) > 0.05
+    _fill_side(rng, st, "", q.fk_cols["l"], np.append(slots, capacity))
+    hot = int(np.bincount(cust).argmax())
+    st["fkrepr"][capacity], st["fkvalid"][capacity] = hot, True
+    return dict(query=q, store=state_from_numpy(st, dev), st=st, hot=hot)
+
+
+def fanout_bytes(st, capacity, krepr, cols):
+    """K24's bound from the case's data: the bytes its function needs, the
+    three scanned columns (live, fkvalid, fkrepr: 10 bytes a slot) read
+    once, and per matching slot its key0 and columns read and its slot
+    number, key0 and columns written."""
+    match = st["live"] & st["fkvalid"] & (st["fkrepr"] == krepr)
+    m = int(match.sum())
+    row = sum(st[f"v_{c}"].itemsize + 1 for c in cols)
+    return (capacity + 1) * 10 + m * (8 + row) + m * (4 + 8 + row), m
+
+
+def side_bytes(slots, touched, delete, cols, capacity):
+    """K9 side mode's bound from the batch's data: per row its slot and its
+    touched, delete and act flags read; per upserting winner (the last
+    touched row of its slot) its columns read and its columns and live bit
+    written, per deleting winner its live bit; and the dump row's columns
+    from the highest row that does not upsert, read and written with its
+    live bit.  ``cols`` holds each column's element bytes."""
+    n = slots.size
+    rows = touched & (slots != capacity)
+    last = np.full(capacity + 1, -1)
+    np.maximum.at(last, slots[rows], np.nonzero(rows)[0])
+    winner = rows & (last[slots] == np.arange(n))
+    upserts = int((winner & ~delete).sum())
+    deletes = int((winner & delete).sum())
+    row = sum(b + 1 for b in cols)
+    dump = bool((~(winner & ~delete)).any())
+    return n * (4 + 3) + upserts * (row + 1 + row) + deletes + dump * (row + row + 1), upserts + deletes
+
+
+def make_fk_step_case(torch, hs, rng, dev, capacity=FK_STORE, orders=FK_ORDERS):
+    """Phase 2x's K2 case at phase 19's store: orders_enriched's left store
+    of ``capacity`` slots holding ``orders`` orders, 5% of their slots
+    graves, and a full probe chain (the MAX_PROBES + 2 slots from one new
+    key's base all used).  Returns the store and the key groups: the
+    chain's key, stored and grave keys, keys whose base lies in the chain
+    and new keys."""
+    from ksql_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    q = _join_query(ORDERS_ENRICHED_PLAN, 1, capacity)
+    st = state_to_numpy(q._init_fk_store("l", "cpu"))
+    ids = np.arange(orders, dtype=np.int64)
+    slots = _place(torch, hs, st, capacity, ids)
+    g = rng.random(orders) < 0.05
+    st["occ"][slots[g]] = False
+    st["grave"][slots[g]] = True
+    cand = np.arange(10 ** 6, 10 ** 6 + 400_000, dtype=np.int64)
+    kh = hs.combine_hash([torch.from_numpy(cand)])
+    base = hs.slot_base(kh, torch.zeros_like(kh), capacity).numpy()
+    run = (int(base[0]) + np.arange(hs.MAX_PROBES + 2)) & (capacity - 1)
+    free = run[~(st["occ"][run] | st["grave"][run])]
+    st["occ"][free] = True
+    st["khash"][free] = rng.integers(-(2 ** 62), 2 ** 62, free.size)
+    st["key0"][free] = rng.integers(2 * 10 ** 6, 3 * 10 ** 6, free.size)
+    in_run = cand[1:][np.isin(base[1:], run)][:16]
+    return dict(store=state_from_numpy(st, dev), chain=cand[:1], stored=ids[~g], graves=ids[g],
+                collide=in_run, new=np.arange(4 * 10 ** 6, 4 * 10 ** 6 + orders, dtype=np.int64))
+
+
+def fk_step_keys(rng, c, n):
+    """``n`` order keys for make_fk_step_case's store: one new order (as
+    most of phase 19's steps insert), or 40% stored keys, 10% graves'
+    keys, 30% new keys, 5% keys into the chain and the chain's own key
+    (which overflows), the rest repeats, in random order."""
+    if n == 1:
+        return c["new"][:1]
+    pick = lambda a, k: a[rng.integers(0, a.size, k)]
+    keys = np.concatenate([pick(c["stored"], int(0.4 * n)), pick(c["graves"], int(0.1 * n)),
+                           c["new"][: int(0.3 * n)], pick(c["collide"], int(0.05 * n)), c["chain"]])
+    return np.concatenate([keys, pick(keys, n - keys.size)])[rng.permutation(n)]
+
+
+def fk_step_args(torch, hs, keys, active, dev, capacity=FK_STORE):
+    """K2's arguments after the store and scratch for the order ``keys``,
+    placed as the join step places them (K1's table mode: window 0, null
+    bits 0; ``active`` the rows' valid bits)."""
+    n = keys.size
+    kr = torch.from_numpy(keys.astype(np.int64)).to(dev).reshape(1, n)
+    touched, khash, base = hs.table_prologue_plain(kr, torch.ones_like(kr, dtype=torch.bool),
+                                                   torch.from_numpy(active).to(dev), capacity)
+    return (capacity, base, khash, torch.zeros_like(khash), kr,
+            torch.zeros(n, dtype=torch.int32, device=dev), touched)
+
+
+def insert_bytes(slots, base, active, new_keys, capacity, max_probes):
+    """K2's bound from the batch's data (one key column): per row its base,
+    hash, window start, key repr, null bits and active flag read and its
+    slot written; per active row the probes of its walk, at least one per
+    slot from its base to its slot (MAX_PROBES when it overflowed), 18
+    bytes each (occ, grave, khash, wstart); per new key its slot's occ,
+    grave, khash, wstart, key0 and knull written."""
+    placed = active & (slots != capacity)
+    probes = int((((slots - base) & (capacity - 1)) + 1)[placed].sum())
+    probes += int((active & (slots == capacity)).sum()) * max_probes
+    n = slots.size
+    return n * (4 + 8 + 8 + 8 + 4 + 1) + n * 4 + probes * 18 + new_keys * (1 + 1 + 8 + 8 + 8 + 4), probes
+
+
+def phase_table_join_kernels(torch, seed):
+    """Phase 2x: K8's gather mode and K9's side mode on 65,536 user changes
+    into a 2^18-slot user_accounts store (100,000 keys on each side),
+    K8's live mode on 65,536 foreign keys against a 2^18-slot customers
+    store, and K24 over a 2^18-slot orders store (100,000 orders, zipf(1.3)
+    customers) for the hottest customer and for one that has none, and K2
+    at phase 19's shapes (one order key, and 1,024) into a 2^16-slot
+    orders store; each against its twin on the card.  Returns ``({kernel:
+    {mode or shape: record}}, extra records)``."""
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.ops import table_join as tj
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 50)
+    recs: dict = {}
+    extra: dict = {}
+
+    def done(kernel, mode, rec, what, into=None):
+        rec = dict(rec, max_abs_err=rec.get("max_abs_err", 0.0))
+        if into is None:
+            recs.setdefault(kernel, {})[mode] = rec
+        else:
+            extra[into] = rec
+        _report("2x", f"{kernel}[{mode}] ({what})", rec)
+
+    # ---- K8 gather mode: the accounts side at the user changes' slots
+    c = make_tt_case(torch, rng, dev, TT_ROWS, TT_STORE, TT_USERS, TT_USERS)
+    st, cap, slots = c["store"], TT_STORE, c["slots"]
+    n = slots.shape[0]
+    rcols = [col.name for col in c["query"].tt_cols["r"]]
+    got = hs.probe_gather(st, cap, slots, st["r_live"], rcols, "r_")
+    want = hs.probe_gather_plain(st, cap, slots, st["r_live"], rcols, "r_")
+    _assert_equal(torch, "probe_find[gather].o_live", got[1], want[1])
+    for k in want[0]:
+        _assert_equal(torch, f"probe_find[gather].{k}", got[0][k], want[0][k])
+    joined = int(want[1].sum())
+    require(0.5 * n < joined < 0.9 * n, f"probe_find[gather]: {joined} of {n} changes meet a live account")
+    gbytes = n * (4 + 1) + n * (1 + 9 * len(rcols)) * 2
+    done("probe_find", "gather", measure(
+        torch, "probe_find", lambda: hs.probe_gather(st, cap, slots, st["r_live"], rcols, "r_"),
+        lambda: hs.probe_gather_plain(st, cap, slots, st["r_live"], rcols, "r_"), gbytes, 0,
+        library=lambda: [st[f"r_{p}_{name}"].index_select(0, slots.long()) for name in rcols
+                         for p in ("v", "m")] + [st["r_live"].index_select(0, slots.long())]),
+        f"{n} user changes over {cap} slots, {joined} meet a live account, {len(rcols)} columns; "
+        "yardstick index_select per column")
+
+    # ---- K9 side mode: the user changes into side l
+    keys = ["l_live"] + [f"l_{p}_{name}" for name in c["values"] for p in ("v", "m")]
+    saved = {k: st[k].clone() for k in keys}
+
+    def side(plain):
+        args = (cap, slots, c["touched"], c["delete"], c["act"], tt_side_cols(c))
+        if plain:
+            hs.upsert_side_plain(st["l_live"], *args)
+        else:
+            hs.upsert_side(st["l_live"], c["scratch"], *args)
+
+    side(False)
+    work = {k: st[k].clone() for k in keys}
+    for k in keys:
+        st[k].copy_(saved[k])
+    side(True)
+    for k in keys:
+        _assert_equal(torch, f"table_upsert[side].{k}", work[k], st[k])
+    require(bool((c["scratch"]["last"] == -1).all()), "table_upsert[side]: last-writer cells not clean")
+    ncols = len(c["values"])
+    sbytes, winners = side_bytes(slots.cpu().numpy(), c["touched"].cpu().numpy(),
+                                 c["delete"].cpu().numpy(), [d.element_size() for d, _v in c["values"].values()],
+                                 cap)
+    done("table_upsert", "side", measure(
+        torch, "table_upsert", lambda: side(False), lambda: side(True), sbytes, 0,
+        reset=lambda: [st[k].copy_(saved[k]) for k in keys]),
+        f"{n} user changes into {winners} slots (the last change per key wins), {ncols} columns")
+    del c, st, saved, work
+
+    # ---- K8 live mode: foreign keys against the customers store
+    c = make_fkr_case(torch, rng, dev, TT_ROWS, TT_STORE, TT_USERS)
+    st, fk, valid = c["store"], c["fk"], c["valid"]
+    n = fk.shape[0]
+    cols = [col.name for col in c["query"].fk_cols["r"]]
+    args = (st, TT_STORE, fk, valid, valid, cols)
+    got = hs.probe_find(*args, live=st["live"])
+    want = hs.probe_find_gather_plain(*args, live=st["live"])
+    for k in want[0]:
+        _assert_equal(torch, f"probe_find[live].{k}", got[0][k], want[0][k])
+    _assert_equal(torch, "probe_find[live].key0", got[1], want[1])
+    _assert_equal(torch, "probe_find[live].found", got[2], want[2])
+    found = int(want[2].sum())
+    reads = find_walk_keys(torch, hs, c["st"], TT_STORE, fk.cpu().numpy(), valid.cpu().numpy())
+    done("probe_find", "live", measure(
+        torch, "probe_find", lambda: hs.probe_find(*args, live=st["live"]),
+        lambda: hs.probe_find_gather_plain(*args, live=st["live"]),
+        n * (8 + 1 + 1) + n * (8 + 1 + 9 * len(cols)) + reads * 18, reads * 6, plain_reps=10),
+        f"{n} foreign keys over {TT_STORE} slots, {found} found live, {reads} slot reads")
+    del c, st
+
+    # ---- K24: the hottest customer's orders, and a customer with none
+    c = make_fanout_case(torch, rng, dev, FAN_STORE, FAN_ORDERS)
+    st = c["store"]
+    lcols = [col.name for col in c["query"].fk_cols["l"]]
+    touched = torch.ones(1, dtype=torch.bool, device=dev)
+    for case, cust in (("hot", c["hot"]), ("none", ORDER_CUSTOMERS + 7)):
+        krepr = torch.tensor([cust], dtype=torch.int64, device=dev)
+        got = tj.fk_fanout(st, FAN_STORE, krepr, touched, lcols)
+        want = tj.fk_fanout_plain(st, FAN_STORE, krepr, touched, lcols)
+        _assert_equal(torch, f"fk_fanout[{case}].slots", got[0], want[0])
+        _assert_equal(torch, f"fk_fanout[{case}].key0", got[2], want[2])
+        for k in want[1]:
+            _assert_equal(torch, f"fk_fanout[{case}].{k}", got[1][k], want[1][k])
+        fbytes, m = fanout_bytes(c["st"], FAN_STORE, cust, lcols)
+        require(int(want[0].shape[0]) == m and (m > 0) == (case == "hot"),
+                f"fk_fanout[{case}]: {int(want[0].shape[0])} matches, numpy {m}")
+        require(FAN_STORE not in want[0].tolist(), "fk_fanout: the dump slot matched")
+
+        def library(krepr=krepr):
+            match = st["live"] & st["fkvalid"] & (st["fkrepr"] == krepr[0]) & touched[0]
+            idx = torch.nonzero(match).squeeze(1)
+            return [st[f"{p}_{name}"].index_select(0, idx) for name in lcols for p in ("v", "m")] + [
+                st["key0"].index_select(0, idx)]
+
+        done("fk_fanout", "fanout", measure(
+            torch, "fk_fanout", lambda krepr=krepr: tj.fk_fanout(st, FAN_STORE, krepr, touched, lcols),
+            lambda krepr=krepr: tj.fk_fanout_plain(st, FAN_STORE, krepr, touched, lcols), fbytes, 0,
+            library=library),
+            f"{FAN_ORDERS} orders over {FAN_STORE + 1} slots, customer {cust}: {m} matches in slot order; "
+            "yardstick nonzero + index_select", into=None if case == "hot" else "fk_fanout_none")
+    del c, st
+
+    # ---- K2 at phase 19's shapes: one order a step, and 1,024 orders,
+    # into its 2^16-slot store with graves and a full probe chain
+    c = make_fk_step_case(torch, hs, rng, dev)
+    store0 = c["store"]
+    scratch = hs.init_table_scratch(FK_STORE, dev)
+    one = np.ones(1, bool)
+    for shape, keys in (("chain", c["chain"]), ("stored", c["stored"][:1]), ("grave", c["graves"][:1]),
+                        ("collide", c["collide"][:1])):
+        got = _check_insert(torch, hs, f"probe_insert[1, {shape}]", store0, scratch,
+                            fk_step_args(torch, hs, keys, one, dev))
+        require((int(got["overflow"]) > int(store0["overflow"])) == (shape == "chain"),
+                f"probe_insert[1, {shape}]: overflow {int(got['overflow'])}, before {int(store0['overflow'])}")
+    for n in (1, 1024):
+        args = fk_step_args(torch, hs, fk_step_keys(rng, c, n), rng.random(n) > 0.05 if n > 1 else one, dev)
+        got = _check_insert(torch, hs, f"probe_insert[{n}]", store0, scratch, args)
+        new_keys = int((got["occ"] & ~store0["occ"] & ~store0["grave"]).sum())
+        ibytes, probes = insert_bytes(got["slots"], args[1].cpu().numpy(), args[6].cpu().numpy(), new_keys,
+                                      FK_STORE, hs.MAX_PROBES)
+        if n > 1:
+            require(int(got["overflow"]) > int(store0["overflow"]) and new_keys > 0
+                    and int((store0["grave"] & ~got["grave"]).sum()) > 0,
+                    f"probe_insert[{n}]: the batch should overflow, claim new slots and reclaim graves")
+        work = _clone(store0)
+        done("probe_insert", f"per_record_{n}", measure(
+            torch, "probe_insert", lambda args=args: hs.probe_insert(work, scratch, *args),
+            lambda args=args: hs.probe_insert_plain(work, *args), ibytes, n * 40,
+            reset=lambda: _restore(work, store0), plain_reps=10),
+            f"{n} order key{'s' if n > 1 else ''} into {FK_STORE} slots ({FK_ORDERS} orders, 5% graves, "
+            f"a full probe chain), {new_keys} new, {probes} probes, overflow "
+            f"{int(got['overflow']) - int(store0['overflow'])}")
+    return recs, extra
+
+
+def _check_insert(torch, hs, name, store0, scratch, args):
+    """K2 on a copy of ``store0`` against its twin on another: the slots
+    and every store column equal, the claim cells clean after.  Returns
+    the kernel's store with its ``slots`` (numpy)."""
+    sk, sp = _clone(store0), _clone(store0)
+    slots_k = hs.probe_insert(sk, scratch, *args)
+    slots_p = hs.probe_insert_plain(sp, *args)
+    _assert_equal(torch, f"{name}.slots", slots_k, slots_p)
+    for key in store0:
+        _assert_equal(torch, f"{name}.{key}", sk[key], sp[key])
+    require(bool((scratch["claim"] == hs.INT32_MAX).all()), f"{name}: claim cells not clean")
+    return dict(sk, slots=slots_k.cpu().numpy())
+
+
+def find_walk_keys(torch, hs, st, capacity, krepr, look):
+    """K8's walk over BIGINT keys replayed in numpy: the slots it reads."""
+    kh = hs.combine_hash([torch.from_numpy(krepr)]).numpy()
+    return find_walk(hs, st, capacity, kh, look)
+
+
+def accounts_traffic(seed, n_blocks=None, rows=None):
+    """Phase 18's changelogs: the load (USERS 0..99,999 named ``user<k>``
+    in region ``k % 50`` as BASELINE #3's, then ACCOUNTS for 90,000 of them
+    with a BALANCE and a TIER), and ``n_blocks`` blocks of ``rows`` changes,
+    users in the even blocks and accounts in the odd ones: 70% an update of
+    a live row, 20% a delete, 10% a re-insert of a deleted one (an update
+    when none is deleted).  Returns ``(load, blocks)``, each a list of
+    (topic, key, value dict or None)."""
+    n_blocks = n_blocks or TT_UPDATE_BATCHES + TT_BREAKDOWN_BATCHES
+    rows = rows or TT_ROWS
+    rng = np.random.default_rng(seed + 60)
+
+    def user(k):
+        return {"NAME": f"user{k}-{int(rng.integers(0, 1000))}", "REGION": f"r{int(rng.integers(0, N_REGIONS))}"}
+
+    def account(_k=None):
+        return {"BALANCE": float(np.round(rng.uniform(0, 100_000), 2)),
+                "TIER": TIERS[int(rng.integers(0, len(TIERS)))]}
+
+    acc_ids = rng.permutation(TT_USERS)[:TT_ACCOUNTS]
+    load = [("users", k, {"NAME": f"user{k}", "REGION": f"r{k % N_REGIONS}"}) for k in range(TT_USERS)]
+    load += [("accounts", int(k), account()) for k in acc_ids]
+    # per side its keys, live first: live[:n_live[side]] are live
+    keys = {"users": list(range(TT_USERS)), "accounts": [int(k) for k in acc_ids]}
+    pos = {side: {k: i for i, k in enumerate(ks)} for side, ks in keys.items()}
+    n_live = {side: len(ks) for side, ks in keys.items()}
+    make = {"users": user, "accounts": account}
+
+    def swap(side, i, j):
+        ks = keys[side]
+        ks[i], ks[j] = ks[j], ks[i]
+        pos[side][ks[i]], pos[side][ks[j]] = i, j
+
+    blocks = []
+    for b in range(n_blocks):
+        side = ("users", "accounts")[b % 2]
+        ks, block = keys[side], []
+        for op in rng.random(rows):
+            n = n_live[side]
+            if (op >= 0.9 and n < len(ks)) or n == 0:  # a re-insert
+                i = int(rng.integers(n, len(ks)))
+                k = ks[i]
+                swap(side, i, n)
+                n_live[side] += 1
+                block.append((side, k, make[side](k)))
+                continue
+            i = int(rng.integers(0, n))
+            k = ks[i]
+            if 0.7 <= op < 0.9:  # a delete
+                swap(side, i, n - 1)
+                n_live[side] -= 1
+                block.append((side, k, None))
+            else:
+                block.append((side, k, make[side](k)))
+        blocks.append(block)
+    return load, blocks
+
+
+def accounts_model(recs, first=0):
+    """USER_ACCOUNTS by a plain dict, change by change: a user change emits
+    its row beside the user's live account (nulls without one), or a
+    tombstone for a delete; an account change emits the user's row with
+    the new account (nulls for a delete) when the user is live, nothing
+    otherwise.  Returns (key, value dict or None, ts) per emit, with
+    phase 18's timestamps (17 ms a change from change ``first`` on)."""
+    users, accounts, out = {}, {}, []
+    for i, (topic, k, v) in enumerate(recs, start=first):
+        ts = TS0 + 17 * i
+        if topic == "users":
+            old = users.pop(k, None)
+            if v is not None:
+                users[k] = v
+                a = accounts.get(k, {})
+                out.append((k, {**v, "BALANCE": a.get("BALANCE"), "TIER": a.get("TIER")}, ts))
+            elif old is not None:
+                out.append((k, None, ts))
+        else:
+            accounts.pop(k, None)
+            if v is not None:
+                accounts[k] = v
+            if k in users:
+                a = v or {}
+                out.append((k, {**users[k], "BALANCE": a.get("BALANCE"), "TIER": a.get("TIER")}, ts))
+    return out
+
+
+def produce_table_changes(broker, recs, first=0):
+    """Changelog records ``(topic, key, value dict or None)`` on their
+    topics, 17 ms apart from change number ``first`` on."""
+    from ksql_tpu_torch.runtime.topics import Record
+
+    for i, (topic, k, v) in enumerate(recs, start=first):
+        value = None if v is None else json.dumps(v, separators=(",", ":"))
+        broker.create_topic(topic).produce(Record(key=k, value=value, timestamp=TS0 + 17 * i, partition=0))
+
+
+def _timed_side_batches(torch, seconds):
+    """Patch the executor's join change batch to append its synchronized
+    wall seconds to ``seconds``; returns the undo."""
+    from ksql_tpu_torch.runtime.device_executor import TorchDeviceExecutor
+
+    run = TorchDeviceExecutor._run_side_batch
+
+    def timed(self):
+        t0 = time.perf_counter()
+        out = run(self)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    TorchDeviceExecutor._run_side_batch = timed
+    return lambda: setattr(TorchDeviceExecutor, "_run_side_batch", run)
+
+
+def join_sink(broker, topic, first=0):
+    """A join's sink from record ``first`` on, as (key, value dict or None,
+    ts)."""
+    return [(int(r.key), None if r.value is None else json.loads(r.value), r.timestamp)
+            for r in broker.topic(topic).all_records()[first:]]
+
+
+def feed_blocks(h, broker, blocks, first, tick=None):
+    """Produce each block (in ticks of ``tick`` changes) and poll it
+    through the runner, draining at the end of each tick."""
+    from ksql_tpu_torch.runner import run_until_quiescent
+
+    i = first
+    for block in blocks:
+        for start in range(0, len(block), tick or len(block)):
+            part = block[start:start + (tick or len(block))]
+            produce_table_changes(broker, part, first=i)
+            i += len(part)
+            run_until_quiescent(h)
+            h.executor.drain()
+    return i
+
+
+def phase_user_accounts(torch, plan_json, seed):
+    """Phase 18 (and 18b): user_accounts.json (USERS LEFT JOIN ACCOUNTS on
+    the key) through ``start_plan``: the load of 100,000 users and 90,000
+    accounts run apart, then TT_UPDATE_BATCHES single-sided update
+    batches of 65,536 changes (p50/p99 over these) into a 2^18-slot store:
+    the sink must equal the dict model change for change, with no
+    overflow.  Then 18b: two more update batches under the breakdown's
+    timers, and the sink against the model again."""
+    from ksql_tpu_torch.runner import start_plan
+    from ksql_tpu_torch.runtime.topics import Broker
+
+    load, blocks = accounts_traffic(seed)
+    broker = Broker()
+    torch.cuda.reset_peak_memory_stats()
+    h = start_plan(plan_json, broker, device=DEVICE, capacity=TT_ROWS, table_store_capacity=TT_STORE)
+    zero_launches()
+    t0 = time.perf_counter()
+    nxt = feed_blocks(h, broker, [[r for r in load if r[0] == "users"], [r for r in load if r[0] == "accounts"]], 0)
+    load_s = time.perf_counter() - t0
+    batch_s = []
+    undo = _timed_side_batches(torch, batch_s)
+    try:
+        t1 = time.perf_counter()
+        nxt = feed_blocks(h, broker, blocks[:TT_UPDATE_BATCHES], nxt)
+        torch.cuda.synchronize()
+        upd_s = time.perf_counter() - t1
+    finally:
+        undo()
+    PATH_LAUNCHES["18"] = read_launches()
+    check_path_launches("18", PATH_LAUNCHES["18"])
+    peak = torch.cuda.max_memory_allocated()
+    q = h.executor.query
+    require(int(q.state["ttab"]["overflow"]) == 0, "18: store overflowed")
+    require(q.table_grows == 0, f"18: the store grew {q.table_grows} times")
+    # the model over phase 18's changes and 18b's, in one pass: 18's emits
+    # are those before 18b's first change
+    want = accounts_model(load + [r for b in blocks for r in b])
+    end_ts = TS0 + 17 * nxt
+    n18 = sum(1 for _k, _v, ts in want if ts < end_ts)
+    got = join_sink(broker, "USER_ACCOUNTS")
+    require(got == want[:n18], f"18: the sink differs from the dict model ({len(got)} vs {n18} records)")
+    n_upd = TT_UPDATE_BATCHES * TT_ROWS
+    require(len(batch_s) == TT_UPDATE_BATCHES, f"18: {len(batch_s)} update batches ran")
+    p50, p99 = np.percentile(np.array(batch_s) * 1e3, [50, 99])
+    pads = sum(1 for _k, v, _t in got if v is not None and v["BALANCE"] is None and v["TIER"] is None)
+    print(f"[18] user_accounts: load {len(load)} changes in {load_s:.3f} s, then {n_upd} changes in "
+          f"{TT_UPDATE_BATCHES} single-sided batches of {TT_ROWS} in {upd_s:.3f} s = {n_upd / upd_s:.1f} "
+          f"changes/s; update batch p50 {p50:.3f} ms p99 {p99:.3f} ms; {len(got)} sink records ({pads} "
+          f"padded, {sum(v is None for _k, v, _t in got)} tombstones); peak device memory {peak} B; sink "
+          "equals the dict model change for change, overflow 0")
+    rec = dict(changes_per_s=n_upd / upd_s, p50_ms=p50, p99_ms=p99, load_s=load_s, peak_bytes=peak,
+               sink_records=len(got))
+
+    # ---- 18b: two more update batches under the breakdown's timers
+    more = blocks[TT_UPDATE_BATCHES:]
+
+    def drive():
+        t = time.perf_counter()
+        feed_blocks(h, broker, more, nxt)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    breakdown = phase_breakdown(torch, drive, len(more), "18b")
+    require(join_sink(broker, "USER_ACCOUNTS", n18) == want[n18:], "18b: the sink differs from the dict model")
+    require(int(q.state["ttab"]["overflow"]) == 0, "18b: store overflowed")
+    return rec, breakdown
+
+
+def phase_tt_growth(torch, plan_json, seed):
+    """Phase 18g: user_accounts.json from a 2^14-slot store, in ticks of
+    4,096 changes (users, then their accounts, alternating; each tick
+    polled and drained) at phase 18's batch size, so the load check
+    doubles the two-sided store while they load (host rebuilds on card
+    tensors); the sink must equal the dict model, no overflow."""
+    from ksql_tpu_torch.runner import start_plan
+    from ksql_tpu_torch.runtime.topics import Broker
+
+    rng = np.random.default_rng(seed + 61)
+    blocks = []
+    for t in range(TT_GROW_TICKS // 2):
+        ids = np.arange(t * TT_GROW_TICK, (t + 1) * TT_GROW_TICK)
+        blocks.append([("users", int(k), {"NAME": f"user{k}", "REGION": f"r{k % N_REGIONS}"}) for k in ids])
+        blocks.append([("accounts", int(k), {"BALANCE": float(np.round(rng.uniform(0, 100_000), 2)),
+                                             "TIER": TIERS[int(rng.integers(0, len(TIERS)))]})
+                       for k in ids if rng.random() < 0.9])
+    broker = Broker()
+    h = start_plan(plan_json, broker, device=DEVICE, capacity=TT_ROWS, table_store_capacity=TT_GROW_STORE)
+    zero_launches()
+    t0 = time.perf_counter()
+    feed_blocks(h, broker, blocks, 0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    PATH_LAUNCHES["18g"] = read_launches()
+    check_path_launches("18g", PATH_LAUNCHES["18g"])
+    q = h.executor.query
+    require(q.table_grows >= 2, f"18g: the store grew {q.table_grows} times ({q.tt_store_capacity} slots)")
+    require(int(q.state["ttab"]["overflow"]) == 0, "18g: store overflowed")
+    recs = [r for b in blocks for r in b]
+    got = join_sink(broker, "USER_ACCOUNTS")
+    require(got == accounts_model(recs), f"18g: the sink differs from the dict model ({len(got)} records)")
+    print(f"[18g] tt store growth: {len(recs)} changes in {len(blocks)} ticks in {secs:.3f} s; {q.table_grows} "
+          f"grows {TT_GROW_STORE} -> {q.tt_store_capacity} slots (host rebuild s "
+          f"{[round(x, 4) for x in q.table_rebuild_seconds]}); {len(got)} sink records equal the dict model, "
+          "overflow 0")
+    return dict(grows=q.table_grows, rebuild_seconds=q.table_rebuild_seconds, seconds=secs)
+
+
+def orders_enriched_traffic(seed):
+    """Phase 19's changelogs: USERS 0..9,999 (BASELINE #3's names and
+    regions), ORDERS 0..16,383 of zipf(1.3) customers (phase 16's traffic:
+    a status, an amount in cents), then FK_USER_CHANGES user changes (90%
+    a rename, 10% a delete; a change of a deleted user re-inserts it), then
+    FK_ORDER_CHANGES order changes (50% a move to another customer, 25% a
+    new amount, 25% a delete; a change of a deleted order re-inserts it).
+    The user changes draw their customers uniformly, the first one the
+    hottest.
+    Returns four lists of (topic, key, value dict or None)."""
+    rng = np.random.default_rng(seed + 62)
+    users = [("users", k, {"NAME": f"user{k}", "REGION": f"r{k % N_REGIONS}"}) for k in range(FK_USERS)]
+    cust = rng.zipf(1.3, FK_ORDERS).astype(np.int64) % FK_USERS
+    orders = {k: {"CUSTOMER_ID": int(cust[k]), "STATUS": STATUSES[int(rng.integers(0, 3))],
+                  "AMOUNT": float(rng.integers(100, 100_000)) / 100} for k in range(FK_ORDERS)}
+    load = [("orders", k, dict(v)) for k, v in orders.items()]
+    live = set(range(FK_USERS))
+    uchanges = []
+    # customers drawn uniformly, the first change the hottest customer's
+    # (a fifth or so of the orders): each change fans out over its orders
+    picks = rng.integers(0, FK_USERS, FK_USER_CHANGES)
+    picks[0] = np.bincount(cust).argmax()
+    for k in picks.tolist():
+        if k in live and rng.random() < 0.1:
+            live.discard(k)
+            uchanges.append(("users", k, None))
+        else:
+            live.add(k)
+            uchanges.append(("users", k, {"NAME": f"user{k}-{int(rng.integers(0, 1000))}",
+                                          "REGION": f"r{k % N_REGIONS}"}))
+    ochanges = []
+    for k in rng.integers(0, FK_ORDERS, FK_ORDER_CHANGES).tolist():
+        op = rng.random()
+        if k in orders and op >= 0.75:
+            del orders[k]
+            ochanges.append(("orders", k, None))
+            continue
+        v = dict(orders.get(k) or {"CUSTOMER_ID": int(cust[k]), "STATUS": "NEW", "AMOUNT": 1.0})
+        if op < 0.5:
+            v["CUSTOMER_ID"] = int(rng.zipf(1.3) % FK_USERS)
+        else:
+            v["AMOUNT"] = float(rng.integers(100, 100_000)) / 100
+        orders[k] = v
+        ochanges.append(("orders", k, v))
+    return users, load, uchanges, ochanges
+
+
+def orders_enriched_model(recs):
+    """ORDERS_ENRICHED by a plain dict, change by change (LEFT join on the
+    foreign key): an order change emits its row beside its customer's
+    live row (nulls without one), or a tombstone for a delete; a customer
+    change re-emits every live order of that customer with the new
+    customer row (nulls for a delete), in the order of the repr of the
+    order's key.  Returns (key, value dict or None, ts) per emit."""
+    users, orders, by_cust, out = {}, {}, {}, []
+    for i, (topic, k, v) in enumerate(recs):
+        ts = TS0 + 17 * i
+        if topic == "users":
+            users.pop(k, None)
+            if v is not None:
+                users[k] = v
+            u = v or {}
+            for o in sorted(by_cust.get(k, ()), key=lambda o: repr((o, (o,)))):
+                row = orders[o]
+                out.append((o, {"AMOUNT": row["AMOUNT"], "STATUS": row["STATUS"], "NAME": u.get("NAME"),
+                                "REGION": u.get("REGION")}, ts))
+            continue
+        old = orders.pop(k, None)
+        if old is not None:
+            by_cust[old["CUSTOMER_ID"]].discard(k)
+        if v is None:
+            if old is not None:
+                out.append((k, None, ts))
+            continue
+        orders[k] = v
+        by_cust.setdefault(v["CUSTOMER_ID"], set()).add(k)
+        u = users.get(v["CUSTOMER_ID"], {})
+        out.append((k, {"AMOUNT": v["AMOUNT"], "STATUS": v["STATUS"], "NAME": u.get("NAME"),
+                        "REGION": u.get("REGION")}, ts))
+    return out
+
+
+def phase_orders_enriched(torch, plan_json, seed):
+    """Phase 19: orders_enriched.json (ORDERS LEFT JOIN USERS on the
+    order's CUSTOMER_ID) one change a step (the reference refuses a
+    batched foreign-key join) into 2^16-slot stores: 10,000 users, 16,384
+    orders, then 1,024 user changes (each fans out over that customer's
+    orders through K24) and 1,024 order changes; the sink must equal the
+    dict model change for change, no overflow.  Prints records/s and the
+    p50/p99 step."""
+    from ksql_tpu_torch.runner import start_plan
+    from ksql_tpu_torch.runtime.topics import Broker
+
+    users, load, uchanges, ochanges = orders_enriched_traffic(seed)
+    broker = Broker()
+    h = start_plan(plan_json, broker, device=DEVICE, capacity=1, table_store_capacity=FK_STORE)
+    step_s: list = []
+    zero_launches()
+    undo = _timed_side_batches(torch, step_s)
+    t0 = time.perf_counter()
+    try:
+        nxt = feed_blocks(h, broker, [users, load], 0)
+        n_load = len(step_s)
+        t1 = time.perf_counter()
+        feed_blocks(h, broker, [uchanges, ochanges], nxt)
+        torch.cuda.synchronize()
+        chg_s = time.perf_counter() - t1
+    finally:
+        undo()
+    secs = time.perf_counter() - t0
+    PATH_LAUNCHES["19"] = read_launches()
+    check_path_launches("19", PATH_LAUNCHES["19"])
+    q = h.executor.query
+    require(int(q.state["fkl"]["overflow"]) + int(q.state["fkr"]["overflow"]) == 0, "19: a store overflowed")
+    recs = users + load + uchanges + ochanges
+    got = join_sink(broker, "ORDERS_ENRICHED")
+    want = orders_enriched_model(recs)
+    require(got == want, f"19: the sink differs from the dict model ({len(got)} vs {len(want)} records)")
+    n_fan = sum(1 for _k, _v, t in got if (t - TS0) // 17 in range(len(users) + len(load),
+                                                                    len(users) + len(load) + len(uchanges)))
+    p50, p99 = np.percentile(np.array(step_s[n_load:]) * 1e3, [50, 99])
+    n = len(recs)
+    print(f"[19] orders_enriched: {n} changes one a step in {secs:.3f} s = {n / secs:.1f} records/s "
+          f"({FK_USERS} users and {FK_ORDERS} orders, then {len(uchanges)} user changes fanning out to "
+          f"{n_fan} rows and {len(ochanges)} order changes in {chg_s:.3f} s); change step p50 {p50:.3f} ms "
+          f"p99 {p99:.3f} ms; {len(got)} sink records equal the dict model, overflow 0, "
+          f"{q.fk_store_capacity} slots")
+    return dict(records_per_s=n / secs, p50_ms=p50, p99_ms=p99, change_s=chg_s, fanned_out=n_fan,
+                sink_records=len(got), grows=q.table_grows)
+
+
 REPLACES = {
-    "row_prologue": "ksql_tpu/ops/hash_store.py:48 (mix64), :58 (combine_hash); ksql_tpu/runtime/lowering.py:3802 (pre_exchange), :2284 (_trace_table_step key hash), :3483 (pre_session_exchange key hash); ksql_tpu/ops/window.py:63 (hopping_starts), :82 (expand)",
+    "row_prologue": "ksql_tpu/ops/hash_store.py:48 (mix64), :58 (combine_hash); ksql_tpu/runtime/lowering.py:3802 (pre_exchange), :2284 (_trace_table_step key hash), :3483 (pre_session_exchange key hash), :2807/:2526/:2605 (_trace_tt_step/_trace_fk_left/_trace_fk_right key hash); ksql_tpu/ops/window.py:63 (hopping_starts), :82 (expand)",
     "probe_insert": "ksql_tpu/ops/hash_store.py:126 (probe_insert)",
     "fold_and_mark": "ksql_tpu/ops/hash_store.py:502 (scatter_combine), :567 (winners_per_slot)",
     "evict": "ksql_tpu/runtime/lowering.py:4239 (_trace_evict; the suppress guard and hpass clear, "
@@ -4314,8 +5173,10 @@ REPLACES = {
     "combine_windows": "ksql_tpu/runtime/lowering.py:2036 (_combine_windows), :4073 (_finalized_env gather)",
     "member_lanes": "ksql_tpu/runtime/lowering.py:2116 (_sliced_member_emits)",
     "probe_find": "ksql_tpu/ops/hash_store.py:210 (probe_find); ksql_tpu/runtime/lowering.py:2986 (_apply_join "
-                  "gather), :2395-2397 (_ta_side's find-only probe)",
-    "table_upsert": "ksql_tpu/runtime/lowering.py:2284 (_trace_table_step, after its probe_insert)",
+                  "gather), :2395-2397 (_ta_side's find-only probe), :2760 (_tt_joined_env's gathers), "
+                  ":2554 (_trace_fk_left's right_of)",
+    "table_upsert": "ksql_tpu/runtime/lowering.py:2284 (_trace_table_step, after its probe_insert), :2448 "
+                    "(_upsert_side, with _trace_fk_left's fkrepr/fkvalid writes)",
     "ss_match": "ksql_tpu/runtime/lowering.py:3052 (_trace_ss_step: the match mask, nonzero compaction, "
                 "gathers and any(axis=0), :3073-3170)",
     "ss_insert": "ksql_tpu/runtime/lowering.py:3052 (_trace_ss_step: running maxima, pads, admission, "
@@ -4339,6 +5200,8 @@ REPLACES = {
     "vec_topk": "ksql_tpu/ops/hash_store.py:457 (_vec_topk), :260 (_sort_desc), :264 (_desc_key)",
     "vec_hist": "ksql_tpu/ops/hash_store.py:403 (_vec_hist phase 2)",
     "vec_remove": "ksql_tpu/ops/hash_store.py:337 (_vec_remove)",
+    "fk_fanout": "ksql_tpu/runtime/lowering.py:2605 (_trace_fk_right: the match scan and the lenv/lkey lanes, "
+                 ":2640-2672)",
 }
 #: the record each kernel's JSON entry carries; the other modes ride along
 MAIN_MODE = {"row_prologue": "tumbling", "evict": "tumbling", "combine_windows": "sliced",
@@ -4346,13 +5209,14 @@ MAIN_MODE = {"row_prologue": "tumbling", "evict": "tumbling", "combine_windows":
              "table_upsert": "join", "ss_match": "write", "ss_insert": "write", "ss_expire": "ss",
              "seg_sort": "items", "session_items": "items", "session_merge": "session",
              "session_write": "write", "vec_collect": "append", "vec_topk": "plain", "vec_hist": "hist",
-             "vec_remove": "remove"}
+             "vec_remove": "remove", "fk_fanout": "fanout"}
 
 
 def kernel_records(wrappers, recs) -> list:
     """The ``kernels`` line: per kernel its main mode's phase-2 record, its
-    launches over the main-path phases (in all, by mode and by phase) and
-    its other modes' records, each with its launches."""
+    launches over the main-path phases (in all, by mode and by phase), its
+    other modes' records, each with its launches, and its records at other
+    shapes of a path (``shapes``: K2 at phase 19's)."""
     kernels = []
     for w in wrappers:
         name = w.__name__
@@ -4363,7 +5227,9 @@ def kernel_records(wrappers, recs) -> list:
             "name": name, "route": "cuda", "source": f"ksql_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": sum(by_mode.values()),
             **recs[name][main_mode], "mode": main_mode,
-            "modes": {m: {**r, "launches": by_mode[m]} for m, r in recs[name].items() if m != main_mode},
+            "modes": {m: {**r, "launches": by_mode[m]} for m, r in recs[name].items()
+                      if m != main_mode and m in by_mode},
+            "shapes": {m: r for m, r in recs[name].items() if m != main_mode and m not in by_mode},
             "launches_by_mode": by_mode, "launches_by_path": by_path,
         })
     return kernels
@@ -4421,6 +5287,12 @@ def main() -> int:
     for name, modes in ta_recs.items():
         recs.setdefault(name, {}).update(modes)
     ta_s = time.perf_counter() - t_ta
+    # the table-table and foreign-key joins' phases (2x, 18, 18b, 18g, 19), timed together
+    t_tj = time.perf_counter()
+    tj_recs, tj_extra = phase_table_join_kernels(torch, args.seed)
+    for name, modes in tj_recs.items():
+        recs.setdefault(name, {}).update(modes)
+    tj_s = time.perf_counter() - t_tj
     with open("ksql_tpu_torch/plans/pv_counts_tumbling.json") as f:
         plan_json = json.load(f)
     with open("ksql_tpu_torch/plans/pv_stats_hopping.json") as f:
@@ -4476,8 +5348,18 @@ def main() -> int:
     e2e["customer_orders"] = phase_customer_orders(torch, ta_plans["orders"], args.seed)
     e2e["big_spenders"] = phase_big_spenders(torch, ta_plans["spenders"], args.seed)
     ta_s += time.perf_counter() - t_ta
+    t_tj = time.perf_counter()
+    with open(USER_ACCOUNTS_PLAN) as f:
+        accounts_json = json.load(f)
+    with open(ORDERS_ENRICHED_PLAN) as f:
+        enriched_json = json.load(f)
+    e2e["table_join_kernels_extra"] = tj_extra
+    e2e["user_accounts"], e2e["user_accounts_breakdown"] = phase_user_accounts(torch, accounts_json, args.seed)
+    e2e["tt_growth"] = phase_tt_growth(torch, accounts_json, args.seed)
+    e2e["orders_enriched"] = phase_orders_enriched(torch, enriched_json, args.seed)
+    tj_s += time.perf_counter() - t_tj
     require(sorted(PATH_LAUNCHES) == sorted(PATH_KERNELS), f"paths run: {sorted(PATH_LAUNCHES)}")
-    for w in wrappers:  # every kernel of K1-K23 is on some path, in every mode
+    for w in wrappers:  # every kernel of K1-K24 is on some path, in every mode
         for mode in w.__dict__.get("mode_launches", {"all": 0}):
             require(sum(PATH_LAUNCHES[p][w.__name__][mode] for p in PATH_LAUNCHES) > 0,
                     f"kernel {w.__name__}[{mode}] was launched on no path")
@@ -4507,7 +5389,8 @@ def main() -> int:
     print(f"e2e: {json.dumps(e2e)}")
     print(f"total seconds {time.perf_counter() - t_start:.1f} (phases 2s, 10, 10g and 10b: {ss_s:.1f}; "
           f"phases 2w, 11, 11g and 11b: {sess_s:.1f}; phases 2f, 12 (with 12b) to 13r: {final_s:.1f}; "
-          f"phases 2v, 14, 14h and 14b: {vec_s:.1f}; phases 2t, 15, 16, 17 and 15b: {ta_s:.1f})")
+          f"phases 2v, 14, 14h and 14b: {vec_s:.1f}; phases 2t, 15, 16, 17 and 15b: {ta_s:.1f}; "
+          f"phases 2x, 18, 18b, 18g and 19: {tj_s:.1f})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -50,10 +50,14 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "member_lanes": {"ksql_member_lanes": [
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P]},
     "probe_find": {
-        "ksql_probe_find": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
+        "ksql_probe_find": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
         "ksql_probe_find_slots": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P],
+        "ksql_probe_gather": [_P, _I, _P, _I, _P, _I, _P, _P],
     },
-    "table_upsert": {"ksql_table_upsert": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P]},
+    "table_upsert": {
+        "ksql_table_upsert": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P],
+        "ksql_table_upsert_side": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P],
+    },
     "ss_match": {
         "ksql_ss_match_count": [
             _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -108,6 +112,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "ksql_vec_remove_keys": [_P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P],
         "ksql_vec_remove_claim": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
         "ksql_vec_remove_apply": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    },
+    "fk_fanout": {
+        "ksql_fk_fanout_count": [_P, _P, _P, _I, _P, _P, _P, _P, _P],
+        "ksql_fk_fanout_write": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     },
 }
 KERNELS = tuple(SIGNATURES)

@@ -27,7 +27,13 @@ value columns): K1's table mode (``table_prologue``) and K2 insert its
 changelog, K9
 ``table_upsert`` writes the last row per key, and K8 ``probe_find`` looks
 the stream rows up and gathers the table's columns; K8's find-only mode
-(``probe_find_slots``) finds a table aggregation's old groups.
+(``probe_find_slots``) finds a table aggregation's old groups.  A
+table-table join keeps both tables in one such store (``{side}_v_<col>``,
+``{side}_m_<col>`` and ``{side}_live`` per side): K8's gather mode
+(``probe_gather``) reads the other side at the slots K2 gave a batch of
+changes, and K9's side mode (``upsert_side``) writes a side; a foreign-key
+join's stores use the same two, and K8's live mode (``probe_find`` with a
+``live`` column) finds a left change's right row.
 Each wrapper below launches its kernel for CUDA tensors and counts the
 launch in ``<wrapper>.launches`` (a wrapper with several modes also in
 ``<wrapper>.mode_launches[mode]``); for CPU tensors it runs the plain torch
@@ -41,7 +47,7 @@ or an exception.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -725,13 +731,15 @@ def probe_find_plain(store, capacity, khash, wstart, active) -> torch.Tensor:
     return torch.where(active, slots, torch.full_like(slots, dump))
 
 
-def probe_find_gather_plain(store, capacity, krepr, kvalid, active, cols):
+def probe_find_gather_plain(store, capacity, krepr, kvalid, active, cols, live=None):
     """Plain twin of K8 — see :func:`probe_find`."""
     look = active & kvalid
     khash = combine_hash([krepr])
     slots = probe_find_plain(store, capacity, khash, torch.zeros_like(khash), look)
     found = look & (slots != capacity)
     s = slots.long()
+    if live is not None:
+        found = found & live[s]
     out = {}
     for name in cols:
         out[f"v_{name}"] = store[f"v_{name}"][s]
@@ -740,10 +748,15 @@ def probe_find_gather_plain(store, capacity, krepr, kvalid, active, cols):
 
 
 def probe_find(store: Dict[str, torch.Tensor], capacity: int, krepr: torch.Tensor,
-               kvalid: torch.Tensor, active: torch.Tensor, cols: Sequence[str]):
+               kvalid: torch.Tensor, active: torch.Tensor, cols: Sequence[str],
+               live: Optional[torch.Tensor] = None):
     """K8 (replaces ``ops/hash_store.py:probe_find`` and the gather of
     ``runtime/lowering.py:_apply_join``): look each stream row's join key
-    up in a table store and gather the table's columns.
+    up in a table store and gather the table's columns.  With a ``live``
+    column (bool, ``capacity + 1``: the live mode, which replaces the
+    ``probe_find`` and gathers of ``runtime/lowering.py:_trace_fk_left``'s
+    ``right_of``) a row is found only where its slot is live: a deleted
+    key keeps its slot, whose values are still gathered.
 
     ``krepr`` int64[n] is the key's 64-bit repr, ``kvalid`` its valid bit;
     a row is looked up when it is ``active`` with a valid key.  Returns
@@ -752,13 +765,15 @@ def probe_find(store: Dict[str, torch.Tensor], capacity: int, krepr: torch.Tenso
     the slot's ``key0`` repr and ``found``.  A row not found reads the
     dump slot, as the reference does.  Every lane is a fresh tensor."""
     if not krepr.is_cuda:
-        return probe_find_gather_plain(store, capacity, krepr, kvalid, active, cols)
+        return probe_find_gather_plain(store, capacity, krepr, kvalid, active, cols, live)
     n = krepr.shape[0]
     c1 = capacity + 1
     for name, dt in (("occ", torch.bool), ("grave", torch.bool),
                      ("khash", torch.int64), ("wstart", torch.int64),
                      ("key0", torch.int64)):
         _expect(store[name], dt, (c1,))
+    if live is not None:
+        _expect(live, torch.bool, (c1,))
     _expect(krepr, torch.int64, (n,))
     _expect(kvalid, torch.bool, (n,))
     _expect(active, torch.bool, (n,))
@@ -779,13 +794,61 @@ def probe_find(store: Dict[str, torch.Tensor], capacity: int, krepr: torch.Tenso
     cuda.check("probe_find", fn(
         store["occ"].data_ptr(), store["grave"].data_ptr(),
         store["khash"].data_ptr(), store["wstart"].data_ptr(),
-        store["key0"].data_ptr(), capacity, cuda.host_i64(desc), len(cols),
-        krepr.data_ptr(), kvalid.data_ptr(), active.data_ptr(), n,
-        key.data_ptr(), found.data_ptr(), _stream(dev),
+        store["key0"].data_ptr(), None if live is None else live.data_ptr(), capacity,
+        cuda.host_i64(desc), len(cols), krepr.data_ptr(), kvalid.data_ptr(),
+        active.data_ptr(), n, key.data_ptr(), found.data_ptr(), _stream(dev),
     ))
     probe_find.launches += 1
-    probe_find.mode_launches["join"] += 1
+    probe_find.mode_launches["join" if live is None else "live"] += 1
     return out, key, found
+
+
+def probe_gather_plain(store, capacity, slots, live, cols, prefix=""):
+    """Plain twin of K8's gather mode — see :func:`probe_gather`."""
+    s = slots.long()
+    o_live = live[s] & (slots != capacity)
+    out = {}
+    for name in cols:
+        out[f"v_{name}"] = store[f"{prefix}v_{name}"][s]
+        out[f"m_{name}"] = store[f"{prefix}m_{name}"][s] & o_live
+    return out, o_live
+
+
+def probe_gather(store: Dict[str, torch.Tensor], capacity: int, slots: torch.Tensor,
+                 live: torch.Tensor, cols: Sequence[str], prefix: str = ""):
+    """K8's gather mode (replaces the gathers of ``runtime/lowering.py:
+    _tt_joined_env``: ``tt[{other}_v_*][slots]``, ``{other}_live[slots] &
+    found``): the other side's columns ``{prefix}v_<col>`` /
+    ``{prefix}m_<col>`` of a table-table join store at the ``slots`` K2
+    gave a batch of changes (no walk; the dump slot ``capacity`` for a row
+    K2 did not place).  Returns ``(lanes, o_live)``: per column ``v_<col>``
+    and ``m_<col>`` AND ``o_live``, where ``o_live`` is the slot's
+    ``live`` bit for a placed row.  Every lane is a fresh tensor."""
+    if not slots.is_cuda:
+        return probe_gather_plain(store, capacity, slots, live, cols, prefix)
+    n = slots.shape[0]
+    c1 = capacity + 1
+    _expect(slots, torch.int32, (n,))
+    _expect(live, torch.bool, (c1,))
+    dev = slots.device
+    out: Dict[str, torch.Tensor] = {}
+    desc: List[int] = []
+    for name in cols:
+        v, m = store[f"{prefix}v_{name}"], store[f"{prefix}m_{name}"]
+        _expect(v, v.dtype, (c1,))
+        _expect(m, torch.bool, (c1,))
+        vo = torch.empty(n, dtype=v.dtype, device=dev)
+        mo = torch.empty(n, dtype=torch.bool, device=dev)
+        out[f"v_{name}"], out[f"m_{name}"] = vo, mo
+        desc += [v.data_ptr(), vo.data_ptr(), v.element_size(), m.data_ptr(), mo.data_ptr()]
+    o_live = torch.empty(n, dtype=torch.bool, device=dev)
+    cuda.check("probe_find", cuda.lib("probe_find", "ksql_probe_gather")(
+        live.data_ptr(), capacity, cuda.host_i64(desc), len(cols), slots.data_ptr(), n,
+        o_live.data_ptr(), _stream(dev),
+    ))
+    probe_find.launches += 1
+    probe_find.mode_launches["gather"] += 1
+    return out, o_live
 
 
 def probe_find_slots(store: Dict[str, torch.Tensor], capacity: int, khash: torch.Tensor,
@@ -821,8 +884,11 @@ def probe_find_slots(store: Dict[str, torch.Tensor], capacity: int, khash: torch
 probe_find.launches = 0
 #: ``join``: a stream-table join's lookup and gather (:func:`probe_find`);
 #: ``find``: the find-only walk of a table aggregation's undo side
-#: (:func:`probe_find_slots`)
-probe_find.mode_launches = {"join": 0, "find": 0}
+#: (:func:`probe_find_slots`); ``gather``: a table-table join's other side
+#: at the changes' slots (:func:`probe_gather`); ``live``: a foreign-key
+#: join's right-row lookup, found only where live (:func:`probe_find` with
+#: ``live``)
+probe_find.mode_launches = {"join": 0, "find": 0, "gather": 0, "live": 0}
 
 
 # ----------------------------------------------- K9: table_upsert (join)
@@ -893,17 +959,97 @@ def table_upsert(store: Dict[str, torch.Tensor], scratch: Dict[str, torch.Tensor
         _expect(data, v.dtype, (n,))
         _expect(valid, torch.bool, (n,))
         keep.append(data)
-        desc += [v.data_ptr(), data.data_ptr(), v.element_size(), m.data_ptr(), valid.data_ptr()]
-    fn = cuda.lib("table_upsert")
+        desc += [v.data_ptr(), data.data_ptr(), v.element_size(), m.data_ptr(), valid.data_ptr(), 0]
+    fn = cuda.lib("table_upsert", "ksql_table_upsert")
     cuda.check("table_upsert", fn(
         store["occ"].data_ptr(), store["grave"].data_ptr(), capacity,
         cuda.host_i64(desc), len(values), slots.data_ptr(), active.data_ptr(),
         delete.data_ptr(), n, scratch["last"].data_ptr(), _stream(slots.device),
     ))
     table_upsert.launches += 1
+    table_upsert.mode_launches["join"] += 1
+
+
+#: a column :func:`upsert_side` writes: (store values, store valid bits,
+#: the batch's values, their valid bits, whether the valid bits take the
+#: side's filter verdict ``act``)
+SideColumn = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, bool]
+
+
+def upsert_side_plain(live, capacity, slots, touched, delete, act, cols) -> None:
+    """Plain twin of K9's side mode — see :func:`upsert_side`."""
+    n = slots.shape[0]
+    dump = capacity
+    s = slots.long()
+    rowidx = torch.arange(n, dtype=torch.int32, device=slots.device)
+    last = torch.full((capacity + 1,), -1, dtype=torch.int32, device=slots.device)
+    last.scatter_reduce_(0, torch.where(touched, s, dump), rowidx, "amax")
+    winner = touched & (s != dump) & (last[s] == rowidx)
+    up = winner & ~delete
+    rest = (~up).nonzero()
+    for v, m, data, valid, use_act in cols:
+        data = data.to(v.dtype)
+        valid = valid & act if use_act else valid
+        v[s[up]] = data[up]
+        m[s[up]] = valid[up]
+        if rest.numel():  # the highest non-upserting row's values
+            v[dump] = data[int(rest[-1])]
+            m[dump] = valid[int(rest[-1])]
+    live[s[up]] = True
+    live[s[winner & delete]] = False
+    live[dump] = False
+
+
+def upsert_side(live: torch.Tensor, scratch: Dict[str, torch.Tensor], capacity: int,
+                slots: torch.Tensor, touched: torch.Tensor, delete: torch.Tensor,
+                act: torch.Tensor, cols: Sequence[SideColumn]) -> None:
+    """K9's side mode (replaces ``runtime/lowering.py:_upsert_side``, with
+    the fkrepr/fkvalid writes of ``_trace_fk_left`` riding along): fold one
+    side's batch of a table-table or foreign-key join's changes, whose rows
+    K2 has given ``slots``, into that side's columns of the join store in
+    place.  Per slot the LAST row among the ``touched`` rows (a valid key)
+    with a real slot wins; an upserting winner (``~delete``) writes every
+    column of ``cols`` and ``live[slot] = True``, a deleting winner
+    ``live[slot] = False`` (the slot keeps its key, occ and grave are not
+    touched).  A column flagged with ``act`` writes ``valid & act`` as its
+    valid bits.  Every other row writes the dump row, the highest such row
+    last, as the reference's scatter leaves it; ``live[capacity]`` ends
+    False."""
+    if not slots.is_cuda:
+        upsert_side_plain(live, capacity, slots, touched, delete, act, cols)
+        return
+    n = slots.shape[0]
+    c1 = capacity + 1
+    _expect(live, torch.bool, (c1,))
+    _expect(scratch["last"], torch.int32, (c1,))
+    _expect(slots, torch.int32, (n,))
+    for t in (touched, delete, act):
+        _expect(t, torch.bool, (n,))
+    desc: List[int] = []
+    keep = []  # the cast and contiguous columns must outlive the launch below
+    for v, m, data, valid, use_act in cols:
+        data = data.to(v.dtype).contiguous()
+        valid = valid.contiguous()
+        _expect(v, v.dtype, (c1,))
+        _expect(m, torch.bool, (c1,))
+        _expect(data, v.dtype, (n,))
+        _expect(valid, torch.bool, (n,))
+        keep += [data, valid]
+        desc += [v.data_ptr(), data.data_ptr(), v.element_size(), m.data_ptr(), valid.data_ptr(),
+                 int(use_act)]
+    cuda.check("table_upsert", cuda.lib("table_upsert", "ksql_table_upsert_side")(
+        live.data_ptr(), capacity, cuda.host_i64(desc), len(cols), slots.data_ptr(),
+        touched.data_ptr(), delete.data_ptr(), act.data_ptr(), n, scratch["last"].data_ptr(),
+        _stream(slots.device),
+    ))
+    table_upsert.launches += 1
+    table_upsert.mode_launches["side"] += 1
 
 
 table_upsert.launches = 0
+#: ``join``: a stream-table join's table changelog (:func:`table_upsert`);
+#: ``side``: one side of a table-table or foreign-key join (:func:`upsert_side`)
+table_upsert.mode_launches = {"join": 0, "side": 0}
 
 
 def init_bits(comp: AggComponent) -> int:

@@ -26,6 +26,14 @@ buffers its source's changes — each key's old row beside its new one —
 and runs them through ``process_table_changes`` a batch at a time; its
 emissions return at once.
 
+A table-table join (or a foreign-key join) buffers both tables' changes in
+one buffer of single-side batches: a change of the other side first runs
+the pending batch, which keeps the order across the sides.  A batch runs
+through ``process_tt`` (``process_fk``) and returns its emissions at
+once.  A foreign-key join runs one change a step (batch size 1): a right
+change fans out over the whole left store, which a batched step cannot
+order, and is refused in batched mode.
+
 A stream-stream join buffers each side's rows on its own, and keeps their
 arrival order the same way: a left record runs the pending right rows
 first, a right record the pending left rows.  Its batches return their
@@ -101,18 +109,36 @@ class TorchDeviceExecutor:
         #: a table aggregation's or table transform's pending source changes:
         #: (key, old row, new row, ts, partition, offset)
         self._changes: List[tuple] = []
+        #: a table-table or foreign-key join: each side's table source by
+        #: topic and the pending single-side batch of changes, (side, key,
+        #: old row, new row, ts, partition, offset)
+        q = self.query
+        self._side_sources = {}
+        if q.tt_join is not None:
+            self._side_sources = {q.tt_left_source.topic: ("l", q.tt_left_source),
+                                  q.tt_right_source.topic: ("r", q.tt_right_source)}
+        if q.fk_join is not None:
+            if batch_size > 1:
+                # a right change fans out store-wide: per-record only
+                raise DeviceUnsupported("batched fk join on device")
+            self._side_sources = {q.fk_left_source.topic: ("l", q.fk_left_source),
+                                  q.fk_right_source.topic: ("r", q.fk_right_source)}
+        self._side_buf: List[tuple] = []
 
     @property
     def source_topics(self) -> List[str]:
         """The topics :meth:`process` routes, sorted (the reference
         engine's subscription order): the stream source, each join table's
-        changelog and a stream-stream join's right stream."""
+        changelog, a stream-stream join's right stream and both tables of a
+        table-table or foreign-key join."""
         right = [self.right_step.topic] if self.right_step is not None else []
-        return sorted({self.source_step.topic, *self._join_topics, *right})
+        return sorted({self.source_step.topic, *self._join_topics, *right, *self._side_sources})
 
     def process(self, topic: str, record: Record) -> List[SinkEmit]:
         """Buffer one record; runs the device step when the micro-batch is
         full.  Call :meth:`drain` at the end of a poll tick."""
+        if topic in self._side_sources:  # before table_mode: a tt join sets it
+            return self._buffer_side_change(*self._side_sources[topic], record)
         if topic in self._join_topics:
             return self._buffer_table_record(self._join_topics[topic], record)
         q = self.query
@@ -209,6 +235,37 @@ class TorchDeviceExecutor:
             return self._run_change_batch()
         return []
 
+    def _buffer_side_change(self, side: str, step, record: Record) -> List[SinkEmit]:
+        """One change of a table-table or foreign-key join's table ``side``:
+        a pending batch of the other side runs first; the batch runs when
+        full (at once for a foreign-key join)."""
+        ev = decode_source_record(step, record, self.on_error)
+        if ev is None:
+            return []
+        self.stream_time = max(self.stream_time, ev.ts)
+        out = self._run_side_batch() if self._side_buf and self._side_buf[0][0] != side else []
+        self._side_buf.append((side, ev.key, ev.old, ev.new, ev.ts, record.partition, record.offset))
+        if len(self._side_buf) >= self.query.capacity:
+            out.extend(self._run_side_batch())
+        return out
+
+    def _run_side_batch(self) -> List[SinkEmit]:
+        """The pending single-side changes through ``process_tt`` or
+        ``process_fk`` in micro-batches, writing each one's emissions."""
+        buf, self._side_buf = self._side_buf, []
+        q = self.query
+        step = q.process_tt if q.tt_join is not None else q.process_fk
+        sources = dict(self._side_sources.values())
+        out: List[SinkEmit] = []
+        cap = q.capacity
+        for i in range(0, len(buf), cap):
+            chunk = buf[i : i + cap]
+            side = chunk[0][0]
+            emits = step(side, *_change_batches(sources[side].schema, [c[1:] for c in chunk]))
+            self._dispatch(emits)
+            out.extend(emits)
+        return out
+
     def _run_change_batch(self) -> List[SinkEmit]:
         """The buffered changes through ``process_table_changes`` in
         micro-batches: each change's new row and old row (an absent row,
@@ -257,6 +314,8 @@ class TorchDeviceExecutor:
         a join's table changes, first) and the pipelined emissions; a stream-stream join then expires its rings
         (the windows this tick closed emit their pads)."""
         out: List[SinkEmit] = []
+        if self._side_buf:
+            out.extend(self._run_side_batch())
         if self._changes:
             out.extend(self._run_change_batch())
         if any(b["rows"] for b in self._tbuf):
@@ -315,6 +374,32 @@ class TorchDeviceExecutor:
     def _dispatch(self, emits: List[SinkEmit]) -> None:
         for e in emits:
             self.sink_writer.produce(e)
+
+
+def _change_batches(schema, changes):
+    """``(new rows, old rows, deletes, has_old)`` of join changes ``(key,
+    old, new, ts, partition, offset)``: a delete's new row is its key
+    alone, so that every change probes with its key (the reference's
+    ``_change_batches``)."""
+
+    def as_row(key, row):
+        if row is not None:
+            return row
+        r = {c.name: None for c in schema.columns()}
+        for c, v in zip(schema.key_columns, key):
+            r[c.name] = v
+        return r
+
+    ts = [c[3] for c in changes]
+    parts = [c[4] for c in changes]
+    offs = [c[5] for c in changes]
+    new_hb = HostBatch.from_rows(schema, [as_row(c[0], c[2]) for c in changes], timestamps=ts,
+                                 partitions=parts, offsets=offs)
+    old_hb = HostBatch.from_rows(schema, [c[1] or {} for c in changes], timestamps=ts,
+                                 partitions=parts, offsets=offs)
+    deletes = np.array([c[2] is None for c in changes], np.int32)
+    has_old = np.array([c[1] is not None for c in changes], bool)
+    return new_hb, old_hb, deletes, has_old
 
 
 def _table_buffer() -> dict:

@@ -20,6 +20,14 @@ the plan shapes of this slice:
 
     TableSource → (TableFilter | TableSelect)+ → Sink
 
+    (TableSource → (TableSelect | TableFilter)*) x 2 → TableTableJoin
+    (INNER, LEFT, RIGHT or FULL OUTER, on the key) → (TableSelect |
+    TableFilter)* → Sink
+
+    (TableSource → (TableSelect | TableFilter)*) x 2 →
+    ForeignKeyTableTableJoin (INNER or LEFT) → (TableSelect |
+    TableFilter)+ → Sink
+
 with COUNT(*), COUNT, SUM, AVG, MIN and MAX and the vector aggregates
 COLLECT_LIST, COLLECT_SET, EARLIEST/LATEST_BY_OFFSET(n), TOPK, TOPKDISTINCT,
 HISTOGRAM and ATTR (``ops/device_aggs.py``; the vector state is folded by
@@ -52,7 +60,18 @@ out), emits the touched groups, then applies every new row as a stream
 aggregation does and emits again.  A table transform (filters and
 projections over a table source) runs the new rows through its pipeline
 and the old rows through its filter, and emits a tombstone where a change
-leaves the filter.  EMIT FINAL (a TableSuppress over a TUMBLING or
+leaves the filter.  A table-table join keeps both tables in ONE store
+keyed by the key (``ttab``: each side's columns and liveness); a batch of
+one side's changes (``process_tt``) is placed by K1's table mode and K2,
+reads the other side at its slots (K8's gather mode) before K9's side mode
+writes it, and runs the post-join chain over each change's new row and
+its verdict over the old one.  A foreign-key join keeps each table in a
+store of its own (``fkl``, whose rows also hold their foreign key, and
+``fkr``), one change a step (``process_fk``): a left change finds the right
+row of its old and new foreign key (K8's live mode), a right change is
+written (K9's side mode) and then fans out over every live left row of
+that foreign key (K24 fk_fanout, ``ops/table_join.py``), whose emits go
+out in the reference's host order.  EMIT FINAL (a TableSuppress over a TUMBLING or
 HOPPING aggregation; HOPPING takes the expansion route) emits each window
 once, when the running stream time reaches its close: K17 suppress_clock
 keeps the running clocks, K18 suppress_close decides per slot, the closed
@@ -63,7 +82,8 @@ over an EMIT CHANGES aggregation keeps each slot's last verdict
 having_verdict); under EMIT FINAL it filters at emission.  Every other
 shape raises :class:`DeviceUnsupported` at construction: SESSION windows
 over a join, FULL/RIGHT stream-table joins, an aggregation over a
-stream-stream join, table-table and foreign-key joins, flat-maps,
+stream-stream join, table-table and foreign-key joins over one topic,
+RIGHT and FULL OUTER foreign-key joins, flat-maps,
 PARTITION BY outside a join's input side, EMIT FINAL or HAVING over
 SESSION windows, suppress over a table aggregation, aggregates whose state
 does not invert (MIN, MAX, TOPK, COLLECT_SET, ...) over a table
@@ -80,9 +100,9 @@ ss_expire), ``ops/session.py`` (K13 seg_sort, K14 session_items, K15
 session_merge, K16 session_write), ``ops/suppress.py`` (K17
 suppress_clock, K18 suppress_close, K19 having_verdict) and
 ``ops/vector.py`` (K20 vec_collect, K21 vec_topk, K22 vec_hist, K23
-vec_remove).  The stores are
+vec_remove) and ``ops/table_join.py`` (K24 fk_fanout).  The stores are
 updated IN PLACE; every emitted lane is a fresh tensor (a K6, K8, K10,
-K12, K16 or K19 output or a batch column), never a view of a store
+K12, K16, K19 or K24 output or a batch column), never a view of a store
 column, so a pipelined batch's
 emits stay valid while the next batch, or a table batch, mutates the
 stores (a session batch returns its emits at once: it is never
@@ -124,12 +144,13 @@ from ksql_tpu_torch.ops import session as sess
 from ksql_tpu_torch.ops import slicing
 from ksql_tpu_torch.ops import ss_join as ssj
 from ksql_tpu_torch.ops import suppress as sup
+from ksql_tpu_torch.ops import table_join as tj
 from ksql_tpu_torch.ops import vector as vec
 from ksql_tpu_torch.ops import window as W
 from ksql_tpu_torch.ops.device_aggs import DeviceAgg, compile_device_agg, resolve_udaf
 from ksql_tpu_torch.parser.ast_nodes import JoinType, WindowType
 from ksql_tpu_torch.runtime.device import BatchLayout, DictionaryServer, decode_value
-from ksql_tpu_torch.runtime.sink import SinkEmit
+from ksql_tpu_torch.runtime.sink import SinkEmit, _hashable
 from ksql_tpu_torch.state import resolve_device, state_from_numpy, state_to_numpy
 
 #: the reference's legacy default grace for EMIT CHANGES windows (24 h);
@@ -269,6 +290,18 @@ class TorchCompiledQuery:
         #: TableFilter/TableSelect chain over a table source, ``pre_ops``)
         self.table_agg = False
         self.table_mode = False
+        #: a primary-key table-table join (``table_mode`` too) or a
+        #: foreign-key table-table join, each side's table source and the
+        #: TableFilter/TableSelect ops between it and the join (``pre_ops``
+        #: are then the post-join chain)
+        self.tt_join: Optional[st.TableTableJoin] = None
+        self.fk_join: Optional[st.ForeignKeyTableTableJoin] = None
+        self.tt_left_source = self.tt_right_source = None
+        self.tt_left_ops: List[st.ExecutionStep] = []
+        self.tt_right_ops: List[st.ExecutionStep] = []
+        self.fk_left_source = self.fk_right_source = None
+        self.fk_left_ops: List[st.ExecutionStep] = []
+        self.fk_right_ops: List[st.ExecutionStep] = []
         self._analyze(plan.physical_plan)
 
         self.window = getattr(self.agg, "window", None) if self.agg is not None else None
@@ -319,6 +352,9 @@ class TorchCompiledQuery:
         self.table_store_capacity = 0
         if self.join is not None:
             self._build_table_layouts(table_store_capacity)
+        self.tt_store_capacity = self.fk_store_capacity = 0
+        if self.tt_join is not None or self.fk_join is not None:
+            self._build_tt_layouts(table_store_capacity)
         if self.ss_join is not None:
             self._setup_ss_join(ss_buffer_capacity, ss_out_capacity)
 
@@ -410,11 +446,18 @@ class TorchCompiledQuery:
             return
         elif self.suppress:
             raise DeviceUnsupported("suppress without aggregation")
-        elif self.post_ops:
+        elif self.post_ops or isinstance(cur, st.TableTableJoin):
             # a table-to-table transform (CTAS without aggregation): the
             # TableFilter/TableSelect chain runs as a stateless pipeline
             # over each change's new row, and a verdict over its old row
-            # decides the tombstones on the host
+            # decides the tombstones on the host; over a table-table join
+            # it is the post-join chain of each side's changes
+            if isinstance(cur, st.TableTableJoin):
+                self._analyze_tt_join(cur)
+                return
+            if isinstance(cur, st.ForeignKeyTableTableJoin):
+                self._analyze_fk_join(cur)
+                return
             if not isinstance(cur, st.TableSource):
                 raise DeviceUnsupported(
                     f"table transforms without aggregation over {type(cur).__name__}")
@@ -478,6 +521,60 @@ class TorchCompiledQuery:
         self.pre_ops = list(deepest.between_ops)
         deepest.between_ops = []
         self.join = self.join_chain[-1].step
+
+    @staticmethod
+    def _table_side(cur: st.ExecutionStep) -> Tuple[st.ExecutionStep, List[st.ExecutionStep]]:
+        """A join side: its source below the TableSelect/TableFilter ops,
+        and those ops in plan order."""
+        ops: List[st.ExecutionStep] = []
+        while isinstance(cur, (st.TableSelect, st.TableFilter)):
+            ops.append(cur)
+            cur = cur.source
+        ops.reverse()
+        return cur, ops
+
+    def _analyze_tt_join(self, join: st.TableTableJoin) -> None:
+        """A primary-key table-table join: both tables materialize into ONE
+        two-sided store keyed by the key; each change joins against the
+        resident other side and flows through the post-join chain."""
+        if join.join_type not in (JoinType.INNER, JoinType.LEFT, JoinType.RIGHT, JoinType.OUTER):
+            raise DeviceUnsupported(f"{join.join_type} table-table join on device")
+        self.table_mode = True
+        self.tt_join = join
+        self.pre_ops, self.post_ops = self.post_ops, []
+        for side in ("left", "right"):
+            src, ops = self._table_side(getattr(join, side))
+            setattr(self, f"tt_{side}_ops", ops)
+            if not isinstance(src, st.TableSource):
+                raise DeviceUnsupported(
+                    f"table-table join {side} source {type(src).__name__} on device")
+            setattr(self, f"tt_{side}_source", src)
+        if self.tt_left_source.topic == self.tt_right_source.topic:
+            # a self-join's per-record side interleaving cannot be routed
+            # topic -> side
+            raise DeviceUnsupported("same-topic table-table join on device")
+        self.source = self.tt_left_source
+
+    def _analyze_fk_join(self, join: st.ForeignKeyTableTableJoin) -> None:
+        """A foreign-key table-table join: the left table keyed by its own
+        key, joined on fk(left) = key(right); a right change fans out to
+        every left row with that foreign key (K24's scan of the left
+        store)."""
+        if join.join_type not in (JoinType.INNER, JoinType.LEFT):
+            raise DeviceUnsupported(f"{join.join_type} foreign-key join on device")
+        self.fk_join = join
+        self.pre_ops, self.post_ops = self.post_ops, []
+        for side in ("left", "right"):
+            src, ops = self._table_side(getattr(join, side))
+            setattr(self, f"fk_{side}_ops", ops)
+            if not isinstance(src, st.TableSource):
+                raise DeviceUnsupported(f"fk join {side} source {type(src).__name__} on device")
+            setattr(self, f"fk_{side}_source", src)
+        if self.fk_left_source.topic == self.fk_right_source.topic:
+            raise DeviceUnsupported("same-topic fk join on device")
+        if len(join.left.schema.key_columns) != 1:
+            raise DeviceUnsupported("multi-column fk-join left key on device")
+        self.source = self.fk_left_source
 
     def _analyze_ss_join(self, cur: st.StreamStreamJoin) -> None:
         """A stream-stream windowed join: each side runs its own pre-op
@@ -796,6 +893,38 @@ class TorchCompiledQuery:
             jspec.capacity = table_store_capacity
         self.table_store_capacity = table_store_capacity
 
+    def _build_tt_layouts(self, table_store_capacity: int) -> None:
+        """Each side's ingress of a table-table or foreign-key join (its
+        ops' columns, its key, the foreign key on an fk join's left side,
+        and what the post-join chain and the sink read when the side has
+        no ops), sharing the dictionary, and the columns each side keeps
+        in its store: those of its post-op schema the chain or the sink
+        reads."""
+        join = self.tt_join if self.tt_join is not None else self.fk_join
+        prefix = "tt" if self.tt_join is not None else "fk"
+        down = _refs_of_ops(self.pre_ops)
+        down.update(c.name for c in self._emit_schema().columns())
+        down.update(c.name for c in join.schema.key_columns)
+        layouts, cols = {}, {}
+        for side, name in (("l", "left"), ("r", "right")):
+            src = getattr(self, f"{prefix}_{name}_source")
+            ops = getattr(self, f"{prefix}_{name}_ops")
+            needed = _refs_of_ops(ops)
+            if self.tt_join is not None:
+                needed.update(ex.referenced_columns(getattr(join, f"{name}_key")))
+            elif side == "l":
+                needed.update(ex.referenced_columns(join.foreign_key_expression))
+            if not ops:
+                needed.update(down)
+            needed &= {c.name for c in src.schema.columns()}
+            needed.update(c.name for c in src.schema.key_columns)
+            layouts[side] = BatchLayout(src.schema, sorted(needed), self.capacity, self.dictionary)
+            post = ops[-1].schema if ops else src.schema
+            cols[side] = [c for c in post.columns() if c.name in down]
+        setattr(self, f"{prefix}_layouts", layouts)
+        setattr(self, f"{prefix}_cols", cols)
+        setattr(self, f"{prefix}_store_capacity", table_store_capacity)
+
     def _check_compiles(self) -> None:
         """Compile every expression of the plan on empty CPU columns, so an
         expression the port does not lower raises DeviceUnsupported here,
@@ -804,6 +933,12 @@ class TorchCompiledQuery:
         ts = torch.zeros(0, dtype=torch.int64)
         if self.ss_join is not None:
             self._check_ss_compiles(active, ts)
+            return
+        if self.tt_join is not None:
+            self._check_tt_compiles(active, ts)
+            return
+        if self.fk_join is not None:
+            self._check_fk_compiles(active, ts)
             return
         types = {spec.name: spec.sql_type for spec in self.layout.specs}
         env = _probe_env({**types, **PSEUDOCOLUMNS})
@@ -866,6 +1001,11 @@ class TorchCompiledQuery:
         if tables:
             for i in range(len(self.join_chain)):
                 state[self._jtab_key(i)] = self._init_table_store(i, dev)
+        if self.tt_join is not None:
+            state["ttab"] = self._init_tt_store(dev)
+        if self.fk_join is not None:
+            state["fkl"] = self._init_fk_store("l", dev)
+            state["fkr"] = self._init_fk_store("r", dev)
         return state
 
     def _init_ss_rings(self, dev) -> Dict[str, torch.Tensor]:
@@ -929,6 +1069,10 @@ class TorchCompiledQuery:
             self._jtab_key(i): hs.init_table_scratch(jspec.capacity, self.device)
             for i, jspec in enumerate(self.join_chain)
         }
+        for key in ("ttab", "fkl", "fkr"):
+            if key in value:
+                self.jscratch[key] = hs.init_table_scratch(value[key]["occ"].shape[0] - 1,
+                                                           self.device)
         if self.store_layout is not None:
             self.scratch = hs.init_scratch(self.store_capacity, self.device)
             if self.sliced:
@@ -1455,6 +1599,379 @@ class TorchCompiledQuery:
                 out.append(SinkEmit(key, None, ts[i], None))
         return out
 
+    # ------------------------------- table-table and foreign-key joins
+    def _init_tt_store(self, device=None) -> Dict[str, torch.Tensor]:
+        """The two-sided store of a primary-key table-table join: one slot
+        per key holds BOTH tables' rows, ``{side}_v_<col>`` /
+        ``{side}_m_<col>`` per kept column, and each side's liveness
+        ``{side}_live`` (a deleted row keeps its slot, not live)."""
+        cap = self.tt_store_capacity
+        dev = self.device if device is None else device
+        s = hs.init_store(hs.StoreLayout(capacity=cap, num_keys=1, components=()), dev)
+        for side in ("l", "r"):
+            s[f"{side}_live"] = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+            for col in self.tt_cols[side]:
+                s[f"{side}_v_{col.name}"] = torch.zeros(cap + 1, dtype=torch_dtype(col.type), device=dev)
+                s[f"{side}_m_{col.name}"] = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+        return s
+
+    def _init_fk_store(self, side: str, device=None) -> Dict[str, torch.Tensor]:
+        """One side's store of a foreign-key join, keyed by the side's own
+        key: ``live`` and its kept columns; the left side also holds each
+        row's foreign key repr and valid bit (``fkrepr``, ``fkvalid``),
+        which K24 scans on a right change."""
+        cap = self.fk_store_capacity
+        dev = self.device if device is None else device
+        s = hs.init_store(hs.StoreLayout(capacity=cap, num_keys=1, components=()), dev)
+        s["live"] = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+        if side == "l":
+            s["fkrepr"] = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+            s["fkvalid"] = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+        for col in self.fk_cols[side]:
+            s[f"v_{col.name}"] = torch.zeros(cap + 1, dtype=torch_dtype(col.type), device=dev)
+            s[f"m_{col.name}"] = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+        return s
+
+    def _side_env(self, arrays: Dict[str, torch.Tensor], layout: BatchLayout,
+                  ops: Sequence[st.ExecutionStep]) -> Tuple[Dict[str, DCol], torch.Tensor]:
+        """A join side's change rows through the side's own ops."""
+        env = self._source_env(arrays, layout)
+        return self._apply_ops(ops, env, arrays["row_valid"], arrays["ts"].shape[0])
+
+    def _tt_side(self, side: str):
+        """(layout, ops, key expression) of one side of the tt join."""
+        if side == "l":
+            return self.tt_layouts["l"], self.tt_left_ops, self.tt_join.left_key
+        return self.tt_layouts["r"], self.tt_right_ops, self.tt_join.right_key
+
+    def _tt_joined_env(self, side: str, env_s: Dict[str, DCol], present_s: torch.Tensor,
+                       lanes: Dict[str, torch.Tensor], o_live: torch.Tensor,
+                       n: int) -> Tuple[Dict[str, DCol], torch.Tensor]:
+        """(joined env, join-valid mask) of one side's change rows against
+        the other side's ``lanes`` (K8's gather, valid bits already AND
+        ``o_live``)."""
+        other = "r" if side == "l" else "l"
+        env: Dict[str, DCol] = {}
+        for col in self.tt_cols[side]:
+            d = env_s.get(col.name)
+            if d is None:
+                raise DeviceUnsupported(f"join column {col.name} not on device")
+            env[col.name] = DCol(d.data, d.valid & present_s, col.type)
+        for col in self.tt_cols[other]:
+            env[col.name] = DCol(lanes[f"v_{col.name}"], lanes[f"m_{col.name}"], col.type)
+        l_p, r_p = (present_s, o_live) if side == "l" else (o_live, present_s)
+        jt = self.tt_join.join_type
+        if jt == JoinType.INNER:
+            jok = l_p & r_p
+        elif jt == JoinType.LEFT:
+            jok = l_p
+        elif jt == JoinType.RIGHT:
+            jok = r_p
+        else:  # OUTER
+            jok = l_p | r_p
+        # the result's key column carries the key (valid even when only the
+        # other side is present: the change key is always known)
+        key_expr = self._tt_side(side)[2]
+        kcol = TorchExprCompiler(env_s, n, present_s.device, self.dictionary).compile(key_expr)
+        for out_key in self.tt_join.schema.key_columns:
+            env[out_key.name] = kcol
+        return env, jok
+
+    def _check_tt_compiles(self, active: torch.Tensor, ts: torch.Tensor) -> None:
+        for side, other in (("l", "r"), ("r", "l")):
+            layout, ops, _key = self._tt_side(side)
+            types = {spec.name: spec.sql_type for spec in layout.specs}
+            env, act = self._apply_ops(ops, _probe_env({**types, **PSEUDOCOLUMNS}), active, 0)
+            lanes = _probe_lanes(self.tt_cols[other])
+            jenv, jok = self._tt_joined_env(side, env, act, lanes, active, 0)
+            fenv, fok = self._apply_ops(self.pre_ops, jenv, jok, 0)
+            self._pack_emits(fenv, fok, ts)
+
+    def _tt_step(self, side: str, a_new: Dict[str, torch.Tensor],
+                 a_old: Dict[str, torch.Tensor]):
+        """One batch of side ``side``'s changes (the reference's
+        ``_trace_tt_step``): K1's table mode hashes the change key from the
+        NEW rows (deletes are key-only new rows); K2 places every change
+        with a valid key; K8's gather mode reads the OTHER side at those
+        slots before the side is updated (the old and the new rows share
+        it); the post-join chain runs over the new rows and its verdict
+        over the old ones; K9's side mode writes the side (the last change
+        per key wins; a delete clears its liveness).  Returns ``(emits,
+        occupancy, overflow)``, the last two device scalars."""
+        n = self.capacity
+        cap = self.tt_store_capacity
+        tt = self.state["ttab"]
+        layout, ops, key_expr = self._tt_side(side)
+        other = "r" if side == "l" else "l"
+        env_new, act_new = self._side_env(a_new, layout, ops)
+        env_old, act_old = self._side_env(a_old, layout, ops)
+        delete = a_new["delete"] != 0
+        dev = delete.device
+        kcol = TorchExprCompiler(env_new, n, dev, self.dictionary).compile(key_expr)
+        _krepr, touched, slots = self._place_changes("ttab", kcol, a_new["row_valid"])
+        lanes, o_live = hs.probe_gather(tt, cap, slots, tt[f"{other}_live"],
+                                        [c.name for c in self.tt_cols[other]], f"{other}_")
+        jenv_old, jok_old = self._tt_joined_env(side, env_old, act_old & a_old["row_valid"],
+                                                lanes, o_live, n)
+        jenv_new, jok_new = self._tt_joined_env(side, env_new, act_new & a_new["row_valid"] & ~delete,
+                                                lanes, o_live, n)
+        fenv_new, fok_new = self._apply_ops(self.pre_ops, jenv_new, jok_new, n)
+        _, fok_old = self._apply_ops(self.pre_ops, jenv_old, jok_old, n)
+        hs.upsert_side(tt[f"{side}_live"], self.jscratch["ttab"], cap, slots, touched, delete,
+                       act_new, [(tt[f"{side}_v_{c.name}"], tt[f"{side}_m_{c.name}"],
+                                  env_new[c.name].data, env_new[c.name].valid, True)
+                                 for c in self.tt_cols[side]])
+        emits = self._pack_emits(fenv_new, fok_new | fok_old, a_new["ts"])
+        emits["tombstone"] = ~fok_new
+        return emits, (tt["occ"] | tt["grave"]).sum(), tt["overflow"]
+
+    def _join_arrays(self, layout: BatchLayout, new_batch: HostBatch, old_batch: HostBatch,
+                     deletes: np.ndarray, has_old: np.ndarray):
+        """A batch of join changes as device arrays: the new rows (a
+        delete's key-only) with the int32 ``delete`` flags, the old rows
+        with ``row_valid`` = ``has_old``."""
+        a_new = layout.encode(new_batch)
+        pad = np.zeros(self.capacity, np.int32)
+        pad[: len(deletes)] = deletes
+        a_new["delete"] = pad
+        a_old = layout.encode(old_batch)
+        ho = np.zeros(self.capacity, bool)
+        ho[: len(has_old)] = has_old
+        a_old["row_valid"] = ho
+        return self.upload(a_new), self.upload(a_old)
+
+    def process_tt(self, side: str, new_batch: HostBatch, old_batch: HostBatch,
+                   deletes: np.ndarray, has_old: np.ndarray) -> List[SinkEmit]:
+        """Host entry for one single-side batch of table-table join
+        changes: the step, the overflow check, the load check (it doubles
+        the store when the next batch could pass 0.75) and the emitted
+        rows and tombstones, unsorted."""
+        a_new, a_old = self._join_arrays(self.tt_layouts[side], new_batch, old_batch, deletes,
+                                         has_old)
+        ov_before = self.state["ttab"]["overflow"].clone()
+        emits, occupancy, overflow = self._tt_step(side, a_new, a_old)
+        grew, occupancy = _read_load(overflow, ov_before, occupancy)
+        if grew:
+            raise QueryRuntimeException(
+                f"device table-table join store overflowed; capacity={self.tt_store_capacity}")
+        if occupancy + self.capacity > 0.75 * self.tt_store_capacity:
+            self._grow_tt()
+        return self._decode_emits(emits, sort=False)
+
+    def _rebuild_join_store(self, key: str, init) -> None:
+        """Host rebuild of a join store into ``init("cpu")``'s fresh arrays
+        (the store's new capacity): every occupied slot re-inserts, a
+        deleted key's slot (not live) included."""
+        t0 = time.perf_counter()
+        new = state_to_numpy(init("cpu"))
+        _rebuild_keyed_store(state_to_numpy(self.state[key]), new, new["occ"].shape[0] - 1)
+        self.state = {**self.state, key: state_from_numpy(new, self.device)}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.table_rebuild_seconds.append(time.perf_counter() - t0)
+
+    def _grow_tt(self, factor: int = 2) -> None:
+        """Double the two-sided store (host rebuild)."""
+        self.tt_store_capacity *= factor
+        self._rebuild_join_store("ttab", self._init_tt_store)
+        self.table_grows += 1
+
+    def _fk_side(self, side: str):
+        """(layout, ops, key column) of one side of the fk join."""
+        if side == "l":
+            return self.fk_layouts["l"], self.fk_left_ops, self.fk_join.left.schema.key_columns[0]
+        return self.fk_layouts["r"], self.fk_right_ops, self.fk_join.right.schema.key_columns[0]
+
+    def _fk_joined(self, lenv: Dict[str, DCol], l_present: torch.Tensor,
+                   renv: Dict[str, DCol], r_present: torch.Tensor) -> Tuple[Dict[str, DCol], torch.Tensor]:
+        """Joined env + join-valid mask: INNER needs both sides, LEFT pads
+        the right side."""
+        env: Dict[str, DCol] = {}
+        for col in self.fk_cols["l"]:
+            d = lenv[col.name]
+            env[col.name] = DCol(d.data, d.valid & l_present, col.type)
+        for col in self.fk_cols["r"]:
+            d = renv[col.name]
+            env[col.name] = DCol(d.data, d.valid & r_present, col.type)
+        jok = l_present & r_present if self.fk_join.join_type == JoinType.INNER else l_present
+        return env, jok
+
+    def _check_fk_compiles(self, active: torch.Tensor, ts: torch.Tensor) -> None:
+        envs = {}
+        for side in ("l", "r"):
+            layout, ops, _key = self._fk_side(side)
+            types = {spec.name: spec.sql_type for spec in layout.specs}
+            envs[side], _ = self._apply_ops(ops, _probe_env({**types, **PSEUDOCOLUMNS}), active, 0)
+        TorchExprCompiler(envs["l"], 0, "cpu").compile(self.fk_join.foreign_key_expression)
+        lkey = envs["l"][self._fk_side("l")[2].name]
+        envs["r"][self._fk_side("r")[2].name]  # the right key reaches the right store
+        stored = {side: _probe_env({c.name: c.type for c in self.fk_cols[side]}) for side in "lr"}
+        for lenv, renv in ((envs["l"], stored["r"]), (stored["l"], envs["r"])):
+            jenv, jok = self._fk_joined(lenv, active, renv, active)
+            for out_key in self.fk_join.schema.key_columns:
+                jenv[out_key.name] = lkey
+            fenv, fok = self._apply_ops(self.pre_ops, jenv, jok, 0)
+            self._pack_emits(fenv, fok, ts)
+
+    def _place_changes(self, key: str, kcol: DCol, row_valid: torch.Tensor):
+        """A batch of join changes' key ``kcol`` through K1's table mode and
+        K2 into the join store ``key`` (window 0, null bits 0, the
+        reference's arguments): ``(key repr, touched, slots)``, touched
+        being the rows with a valid key."""
+        n = self.capacity
+        store = self.state[key]
+        cap = store["occ"].shape[0] - 1
+        krepr = _repr64(kcol).reshape(1, n).contiguous()
+        touched, khash, base = hs.table_prologue(krepr, kcol.valid.reshape(1, n).contiguous(),
+                                                 row_valid, cap)
+        dev = touched.device
+        slots = hs.probe_insert(store, self.jscratch[key], cap, base, khash,
+                                torch.zeros(n, dtype=torch.int64, device=dev), krepr,
+                                torch.zeros(n, dtype=torch.int32, device=dev), touched)
+        return krepr[0], touched, slots
+
+    def _fk_write(self, side: str, env_new: Dict[str, DCol], act_new: torch.Tensor,
+                  touched: torch.Tensor, slots: torch.Tensor, delete: torch.Tensor,
+                  extra: Sequence[hs.SideColumn] = ()) -> None:
+        """K9's side mode into the side's store (``extra``: the left
+        side's foreign key repr and valid bit, at the same targets)."""
+        key = "fkl" if side == "l" else "fkr"
+        store = self.state[key]
+        cols = [(store[f"v_{c.name}"], store[f"m_{c.name}"], env_new[c.name].data,
+                 env_new[c.name].valid, True) for c in self.fk_cols[side]]
+        hs.upsert_side(store["live"], self.jscratch[key], self.fk_store_capacity, slots, touched,
+                       delete, act_new, cols + list(extra))
+
+    def _fk_left(self, a_new: Dict[str, torch.Tensor], a_old: Dict[str, torch.Tensor]):
+        """One batch of LEFT-table changes (the reference's
+        ``_trace_fk_left``): K1 + K2 place each change in ``fkl``; K8's live
+        mode finds the right row of the old and of the new foreign key
+        (a deleted right row is found, not live); the chain runs over the
+        joined rows; K9's side mode writes the left rows with their
+        foreign keys; a left delete tombstones only through a chain with
+        no TableFilter.  Returns ``(emits, occupancy, overflow)``."""
+        n = self.capacity
+        cap = self.fk_store_capacity
+        fkl, fkr = self.state["fkl"], self.state["fkr"]
+        layout, ops, _key = self._fk_side("l")
+        env_new, act_new = self._side_env(a_new, layout, ops)
+        delete = a_new["delete"] != 0
+        kcol = env_new[self._fk_side("l")[2].name]
+        _krepr, touched, slots = self._place_changes("fkl", kcol, a_new["row_valid"])
+        dev = touched.device
+        fk_expr = self.fk_join.foreign_key_expression
+        fk_new = TorchExprCompiler(env_new, n, dev, self.dictionary).compile(fk_expr)
+        rcols = [c.name for c in self.fk_cols["r"]]
+
+        def right_of(fk: DCol):
+            valid = fk.valid.contiguous()
+            lanes, _key0, found = hs.probe_find(fkr, cap, _repr64(fk).contiguous(), valid, valid,
+                                                rcols, live=fkr["live"])
+            return {c.name: DCol(lanes[f"v_{c.name}"], lanes[f"m_{c.name}"], c.type)
+                    for c in self.fk_cols["r"]}, found
+
+        renv_new, rok_new = right_of(fk_new)
+        jenv_new, jok_new = self._fk_joined(env_new, act_new & a_new["row_valid"] & ~delete,
+                                            renv_new, rok_new)
+        for out_key in self.fk_join.schema.key_columns:
+            # the result key is the left key: valid for delete rows too
+            jenv_new[out_key.name] = kcol
+        fenv_new, fok_new = self._apply_ops(self.pre_ops, jenv_new, jok_new, n)
+        env_old, act_old = self._side_env(a_old, layout, ops)
+        has_old = a_old["row_valid"]
+        fk_old = TorchExprCompiler(env_old, n, dev, self.dictionary).compile(fk_expr)
+        renv_old, rok_old = right_of(fk_old)
+        jenv_old, jok_old = self._fk_joined(env_old, act_old & has_old, renv_old, rok_old)
+        for out_key in self.fk_join.schema.key_columns:
+            jenv_old[out_key.name] = kcol
+        emit = fok_new | self._apply_ops(self.pre_ops, jenv_old, jok_old, n)[1]
+        if not any(isinstance(op, st.TableFilter) for op in self.pre_ops):
+            # a left delete forwards a (null, null) change, which reaches
+            # the sink as a tombstone only through a filter-free chain
+            emit = emit | (a_new["row_valid"] & delete & has_old)
+        self._fk_write("l", env_new, act_new, touched, slots, delete,
+                       [(fkl["fkrepr"], fkl["fkvalid"], _repr64(fk_new), fk_new.valid, False)])
+        emits = self._pack_emits(fenv_new, emit, a_new["ts"])
+        emits["tombstone"] = ~fok_new
+        return emits, (fkl["occ"] | fkl["grave"]).sum(), fkl["overflow"] + fkr["overflow"]
+
+    def _fk_right(self, a_new: Dict[str, torch.Tensor], a_old: Dict[str, torch.Tensor]):
+        """One RIGHT-table change, per record (the reference's
+        ``_trace_fk_right``): K1 + K2 + K9's side mode update ``fkr``; K24
+        then finds every live left row whose foreign key is the change's
+        key, in slot order, and gathers it; the chain runs over those
+        lanes, the change's old and new right row broadcast to them; the
+        left key decodes by its type.  Returns ``(emits, occupancy,
+        overflow)``."""
+        fkl, fkr = self.state["fkl"], self.state["fkr"]
+        layout, ops, _key = self._fk_side("r")
+        env_new, act_new = self._side_env(a_new, layout, ops)
+        env_old, act_old = self._side_env(a_old, layout, ops)
+        delete = a_new["delete"] != 0
+        has_old = a_old["row_valid"]
+        krepr, touched, slots = self._place_changes("fkr", env_new[self._fk_side("r")[2].name],
+                                                    a_new["row_valid"])
+        # the store first: the fan-out reads left rows, and the old and new
+        # right values come from this change
+        self._fk_write("r", env_new, act_new, touched, slots, delete)
+        _lslots, llanes, lkey0 = tj.fk_fanout(fkl, self.fk_store_capacity, krepr, touched,
+                                              [c.name for c in self.fk_cols["l"]])
+        m = lkey0.shape[0]
+        matched = torch.ones(m, dtype=torch.bool, device=lkey0.device)
+        lenv = {c.name: DCol(llanes[f"v_{c.name}"], llanes[f"m_{c.name}"], c.type)
+                for c in self.fk_cols["l"]}
+
+        def bcast(env_side: Dict[str, DCol], present: torch.Tensor):
+            p = present[:1].expand(m)
+            return {c.name: DCol(env_side[c.name].data[:1].expand(m),
+                                 env_side[c.name].valid[:1].expand(m) & p, c.type)
+                    for c in self.fk_cols["r"]}, p
+
+        renv_old, r_old = bcast(env_old, act_old & has_old)
+        renv_new, r_new = bcast(env_new, act_new & a_new["row_valid"] & ~delete)
+        jenv_old, jok_old = self._fk_joined(lenv, matched, renv_old, r_old)
+        jenv_new, jok_new = self._fk_joined(lenv, matched, renv_new, r_new)
+        lkey_t = self._fk_side("l")[2].type
+        lkey = DCol(decode_key64(lkey0, torch_dtype(lkey_t)), matched, lkey_t)
+        for out_key in self.fk_join.schema.key_columns:
+            jenv_old[out_key.name] = lkey
+            jenv_new[out_key.name] = lkey
+        fenv_new, fok_new = self._apply_ops(self.pre_ops, jenv_new, jok_new, m)
+        _, fok_old = self._apply_ops(self.pre_ops, jenv_old, jok_old, m)
+        emits = self._pack_emits(fenv_new, fok_new | fok_old, a_new["ts"][:1].expand(m))
+        emits["tombstone"] = ~fok_new
+        return emits, (fkr["occ"] | fkr["grave"]).sum(), fkl["overflow"] + fkr["overflow"]
+
+    def process_fk(self, side: str, new_batch: HostBatch, old_batch: HostBatch,
+                   deletes: np.ndarray, has_old: np.ndarray) -> List[SinkEmit]:
+        """Host entry for one single-side batch of foreign-key join changes
+        (a right change runs alone: its fan-out is store-wide): the step,
+        the overflow check, the load check of the side's store (both
+        stores double together) and the emits; a right change's in the
+        reference's order, by the repr of the left key."""
+        a_new, a_old = self._join_arrays(self.fk_layouts[side], new_batch, old_batch, deletes,
+                                         has_old)
+        ov_before = self.state["fkl"]["overflow"] + self.state["fkr"]["overflow"]
+        step = self._fk_left if side == "l" else self._fk_right
+        emits, occupancy, overflow = step(a_new, a_old)
+        grew, occupancy = _read_load(overflow, ov_before, occupancy)
+        if grew:
+            raise QueryRuntimeException(
+                f"device fk-join store overflowed; capacity={self.fk_store_capacity}")
+        if occupancy + self.capacity > 0.75 * self.fk_store_capacity:
+            self._grow_fk()
+        out = self._decode_emits(emits, sort=False)
+        if side == "r":
+            out.sort(key=lambda e: repr((_hashable(e.key[0] if len(e.key) == 1 else e.key), e.key)))
+        return out
+
+    def _grow_fk(self, factor: int = 2) -> None:
+        """Double both fk stores together (host rebuilds)."""
+        self.fk_store_capacity *= factor
+        self._rebuild_join_store("fkl", lambda dev: self._init_fk_store("l", dev))
+        self._rebuild_join_store("fkr", lambda dev: self._init_fk_store("r", dev))
+        self.table_grows += 1
+
     # ------------------------------------------- join table stores (device)
     def _jtab_key(self, idx: int) -> str:
         """State key of probe ``idx``: the outermost store is ``jtab``, the
@@ -1553,18 +2070,11 @@ class TorchCompiledQuery:
         """Double one join table store (host rebuild)."""
         if idx < 0:
             idx += len(self.join_chain)
-        t0 = time.perf_counter()
         jspec = self.join_chain[idx]
         jspec.capacity *= factor
         if idx == len(self.join_chain) - 1:
             self.table_store_capacity = jspec.capacity
-        key = self._jtab_key(idx)
-        new = state_to_numpy(self._init_table_store(idx, "cpu"))
-        _rebuild_keyed_store(state_to_numpy(self.state[key]), new, jspec.capacity)
-        self.state = {**self.state, key: state_from_numpy(new, self.device)}
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.table_rebuild_seconds.append(time.perf_counter() - t0)
+        self._rebuild_join_store(self._jtab_key(idx), lambda dev: self._init_table_store(idx, dev))
         self.table_grows += 1
 
     # ------------------------------------- stream-stream join (device)
@@ -1969,6 +2479,22 @@ class TorchCompiledQuery:
         for i, v in enumerate(elems):
             objs[i] = v
         return [list(part) for part in np.split(objs, bounds)]
+
+
+def _read_load(overflow: torch.Tensor, before: torch.Tensor, occupancy: torch.Tensor) -> Tuple[bool, int]:
+    """(whether ``overflow`` passed ``before``, the occupancy) of a join
+    step, read back in one transfer."""
+    grew, occ = torch.stack([overflow - before, occupancy]).tolist()
+    return grew > 0, occ
+
+
+def _probe_lanes(cols) -> Dict[str, torch.Tensor]:
+    """Empty gathered lanes (``v_<col>``/``m_<col>``) of ``cols``."""
+    out = {}
+    for c in cols:
+        out[f"v_{c.name}"] = torch.zeros(0, dtype=torch_dtype(c.type))
+        out[f"m_{c.name}"] = torch.zeros(0, dtype=torch.bool)
+    return out
 
 
 def _probe_env(types) -> Dict[str, DCol]:

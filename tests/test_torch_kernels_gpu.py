@@ -13,8 +13,9 @@ Ints, bools, hashes and slots must be equal; float64 sums agree to rtol
 ``chip_smoke.make_session_case`` (checked by phase 2w's own chain), the
 EMIT FINAL and HAVING steps from ``chip_smoke.make_suppress_case``, the
 table aggregation's undo side from ``chip_smoke.make_find_case`` and
-``make_orders_case``: the generators of the chip check's own kernel
-phases.
+``make_orders_case``, the table-table and foreign-key joins' from
+``make_tt_case``, ``make_fkr_case`` and ``make_fanout_case``: the
+generators of the chip check's own kernel phases.
 """
 
 import json
@@ -96,7 +97,9 @@ def _store(dev, capacity, fill, graves, seed):
     return layout, {k: torch.from_numpy(v).to(dev) for k, v in st.items()}
 
 
-@pytest.mark.parametrize("capacity,fill,graves,n", [(1 << 12, 1500, 200, 2048), (1 << 7, 60, 20, 512)])
+# n = 1 and 1,024: a foreign-key join's per-record step and a batch beside it
+@pytest.mark.parametrize("capacity,fill,graves,n", [(1 << 12, 1500, 200, 2048), (1 << 7, 60, 20, 512),
+                                                    (1 << 12, 1500, 200, 1024), (1 << 10, 400, 50, 1)])
 def test_probe_insert_and_fold_kernels_match_twins(dev, capacity, fill, graves, n):
     layout, st = _store(dev, capacity, fill, graves, seed=capacity)
     rng = np.random.default_rng(1)
@@ -672,3 +675,82 @@ def test_table_agg_undo_kernels_match_twins(dev, seed):
 
 def test_vec_remove_over_doubles_matches_twin(dev):
     chip_smoke.check_remove_doubles(torch, np.random.default_rng(6), dev, capacity=1 << 8, n=2048)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_probe_gather_and_upsert_side_match_twins(dev, seed):
+    # K8's gather mode and K9's side mode on phase 2x's user_accounts case
+    # at 2^14 slots: the dump slot (padding rows), a hot key, deletes; the
+    # dump row and the last-writer cells after the call
+    rng = np.random.default_rng(seed + 20)
+    cap = 1 << 14
+    c = chip_smoke.make_tt_case(torch, rng, dev, n=4096, capacity=cap, users=6000, accounts=5400)
+    st, slots = c["store"], c["slots"]
+    rcols = [col.name for col in c["query"].tt_cols["r"]]
+    before = dict(hs.probe_find.mode_launches)
+    lanes, o_live = hs.probe_gather(st, cap, slots, st["r_live"], rcols, "r_")
+    assert hs.probe_find.mode_launches["gather"] == before["gather"] + 1
+    want, want_live = hs.probe_gather_plain(st, cap, slots, st["r_live"], rcols, "r_")
+    _same(o_live, want_live)
+    for k in want:
+        _same(lanes[k], want[k])
+    assert bool((slots == cap).any()) and bool(o_live.any())
+    keys = ["l_live"] + [k for k in st if k.startswith("l_v_") or k.startswith("l_m_")]
+    saved = {k: st[k].clone() for k in keys}
+    args = (cap, slots, c["touched"], c["delete"], c["act"], chip_smoke.tt_side_cols(c))
+    before = hs.table_upsert.mode_launches["side"]
+    hs.upsert_side(st["l_live"], c["scratch"], *args)
+    assert hs.table_upsert.mode_launches["side"] == before + 1
+    got = {k: st[k].clone() for k in keys}
+    for k in keys:
+        st[k].copy_(saved[k])
+    hs.upsert_side_plain(st["l_live"], *args)
+    for k in keys:
+        _same(got[k], st[k])
+    assert bool((c["scratch"]["last"] == -1).all())
+    assert not bool(got["l_live"][cap])
+
+
+def test_probe_find_live_mode_matches_twin(dev):
+    # K8's join mode with a liveness column: deleted keys found, not live
+    rng = np.random.default_rng(22)
+    cap = 1 << 14
+    c = chip_smoke.make_fkr_case(torch, rng, dev, n=20_000, capacity=cap, users=6000)
+    st, fk, valid = c["store"], c["fk"], c["valid"]
+    cols = [col.name for col in c["query"].fk_cols["r"]]
+    before = hs.probe_find.mode_launches["live"]
+    got = hs.probe_find(st, cap, fk, valid, valid, cols, live=st["live"])
+    assert hs.probe_find.mode_launches["live"] == before + 1
+    want = hs.probe_find_gather_plain(st, cap, fk, valid, valid, cols, live=st["live"])
+    for g, w in zip(got[1:], want[1:]):
+        _same(g, w)
+    for k in want[0]:
+        _same(got[0][k], want[0][k])
+    plain_found = hs.probe_find_gather_plain(st, cap, fk, valid, valid, cols)[2]
+    assert bool((plain_found & ~want[2]).any())  # some found keys are not live
+
+
+@pytest.mark.parametrize("case", ["hot", "none", "untouched", "small"])
+def test_fk_fanout_matches_twin_in_slot_order(dev, case):
+    # K24 on phase 2x's orders store (zipf customers, deletes, null
+    # customers, a dump row holding the hottest customer, never live)
+    from ksql_tpu_torch.ops import table_join as tj
+
+    rng = np.random.default_rng(23)
+    cap, orders = (1 << 10, 500) if case == "small" else (1 << 16, 30_000)
+    c = chip_smoke.make_fanout_case(torch, rng, dev, capacity=cap, orders=orders)
+    st = c["store"]
+    cols = [col.name for col in c["query"].fk_cols["l"]]
+    cust = chip_smoke.ORDER_CUSTOMERS + 3 if case == "none" else c["hot"]
+    krepr = torch.tensor([cust, 0], dtype=torch.int64, device=dev)
+    touched = torch.tensor([case != "untouched", True], device=dev)
+    before = tj.fk_fanout.launches
+    got = tj.fk_fanout(st, cap, krepr, touched, cols)
+    assert tj.fk_fanout.launches == before + 1
+    want = tj.fk_fanout_plain(st, cap, krepr, touched, cols)
+    _same(got[0], want[0])
+    _same(got[2], want[2])
+    for k in want[1]:
+        _same(got[1][k], want[1][k])
+    assert (want[0].numel() > 0) == (case in ("hot", "small"))
+    assert bool((want[0][1:] > want[0][:-1]).all()) and cap not in want[0].tolist()

@@ -9,15 +9,17 @@ HAVING example over the page views), ``pv_having_retract.json`` (a
 HAVING predicate that flips both ways), ``pv_vectors.json`` (COLLECT_LIST,
 COLLECT_SET, TOPK, TOPKDISTINCT, EARLIEST/LATEST_BY_OFFSET(n)) and
 ``pv_user_pages.json`` (HISTOGRAM), ``users_by_region.json`` and
-``customer_orders.json`` (table aggregations) and ``big_spenders.json``
-(a table transform) are the serialized physical plans
+``customer_orders.json`` (table aggregations), ``big_spenders.json``
+(a table transform), ``user_accounts.json`` (a table-table join) and
+``orders_enriched.json`` (a foreign-key join) are the serialized physical plans
 that ``chip_smoke.py`` runs (the port has no SQL front end yet): each must
 equal ``plan_to_json`` of the plan the reference engine builds from the
 bench's DDL (``bench.py``'s tumbling COUNT(*) and hopping
 SUM/AVG/MIN/MAX over the page-view stream, its clicks-users LEFT JOIN, its
 stream-stream LEFT JOIN with GRACE and its SESSION COUNT(*), the EMIT
 FINAL and HAVING variants and the vector aggregates over the page views,
-and the reference's own USERS table and an ORDERS table),
+the reference's own USERS table and an ORDERS table, and BASELINE #3's
+USERS joined to an ACCOUNTS table and from customer_orders' ORDERS),
 and the port's decoder must read it back
 to the same JSON.
 """
@@ -112,10 +114,28 @@ CTAS = {
     "big_spenders.json": (
         "CREATE TABLE BIG_SPENDERS AS SELECT ID, REGION, AMT FROM USERS WHERE AMT > 500;"
     ),
+    # a primary-key table-table join: a user's profile beside their account
+    "user_accounts.json": (
+        "CREATE TABLE USER_ACCOUNTS AS SELECT U.ID, U.NAME, U.REGION, A.BALANCE, A.TIER "
+        "FROM USERS U LEFT JOIN ACCOUNTS A ON U.ID = A.ID;"
+    ),
+    # a foreign-key table-table join: orders beside their customer
+    "orders_enriched.json": (
+        "CREATE TABLE ORDERS_ENRICHED AS SELECT O.ID, O.AMOUNT, O.STATUS, U.NAME, U.REGION "
+        "FROM ORDERS O LEFT JOIN USERS U ON O.CUSTOMER_ID = U.ID;"
+    ),
 }
 #: tests/test_engine_device.py:121
 USERS_DDL = ("CREATE TABLE USERS (ID INT PRIMARY KEY, REGION STRING, AMT INT) "
              "WITH (kafka_topic='u', value_format='JSON');")
+#: BASELINE #3's USERS (bench.py:541-543)
+BASELINE3_USERS_DDL = ("CREATE TABLE USERS (ID BIGINT PRIMARY KEY, NAME STRING, REGION STRING) "
+                       "WITH (KAFKA_TOPIC='users', VALUE_FORMAT='JSON');")
+ACCOUNTS_DDL = ("CREATE TABLE ACCOUNTS (ID BIGINT PRIMARY KEY, BALANCE DOUBLE, TIER STRING) "
+                "WITH (KAFKA_TOPIC='accounts', VALUE_FORMAT='JSON');")
+#: customer_orders.json's ORDERS
+ORDERS_DDL = ("CREATE TABLE ORDERS (ID BIGINT PRIMARY KEY, CUSTOMER_ID BIGINT, STATUS STRING, "
+              "AMOUNT DOUBLE) WITH (kafka_topic='orders', value_format='JSON');")
 #: the DDL each plan's query reads (bench.py:149, :541-546)
 DDL = {
     "pv_counts_tumbling.json": [bench.PV_DDL],
@@ -138,11 +158,10 @@ DDL = {
         "CREATE STREAM RIGHTS (ID BIGINT KEY, V BIGINT) WITH (KAFKA_TOPIC='rt', VALUE_FORMAT='JSON');",
     ],
     "users_by_region.json": [USERS_DDL],
-    "customer_orders.json": [
-        "CREATE TABLE ORDERS (ID BIGINT PRIMARY KEY, CUSTOMER_ID BIGINT, STATUS STRING, "
-        "AMOUNT DOUBLE) WITH (kafka_topic='orders', value_format='JSON');",
-    ],
+    "customer_orders.json": [ORDERS_DDL],
     "big_spenders.json": [USERS_DDL],
+    "user_accounts.json": [BASELINE3_USERS_DDL, ACCOUNTS_DDL],
+    "orders_enriched.json": [ORDERS_DDL, BASELINE3_USERS_DDL],
 }
 SINKS = {"pv_counts_tumbling.json": "PV_COUNTS", "pv_stats_hopping.json": "PV_STATS",
          "enriched_join.json": "ENRICHED", "ss_join_grace.json": "J",
@@ -150,7 +169,8 @@ SINKS = {"pv_counts_tumbling.json": "PV_COUNTS", "pv_stats_hopping.json": "PV_ST
          "pv_stats_hopping_final.json": "PV_STATS_FINAL", "possible_fraud.json": "POSSIBLE_FRAUD",
          "pv_having_retract.json": "PV_HAVING_RETRACT", "pv_vectors.json": "PV_VECTORS",
          "pv_user_pages.json": "USER_PAGES", "users_by_region.json": "USERS_BY_REGION",
-         "customer_orders.json": "CUSTOMER_ORDERS", "big_spenders.json": "BIG_SPENDERS"}
+         "customer_orders.json": "CUSTOMER_ORDERS", "big_spenders.json": "BIG_SPENDERS",
+         "user_accounts.json": "USER_ACCOUNTS", "orders_enriched.json": "ORDERS_ENRICHED"}
 
 
 def _committed(name):
@@ -252,4 +272,19 @@ def test_table_plan_files_equal_reference_engine_plans(name):
 
 @pytest.mark.parametrize("name", TABLE_PLANS)
 def test_port_decodes_table_plan_files_losslessly(name):
+    _check_decodes(name)
+
+
+#: the table-table and foreign-key join plans of chip_smoke.py's phases 18
+#: and 19
+JOIN_PLANS = ("user_accounts.json", "orders_enriched.json")
+
+
+@pytest.mark.parametrize("name", JOIN_PLANS)
+def test_table_join_plan_files_equal_reference_engine_plans(name):
+    _check_equals_reference(name)
+
+
+@pytest.mark.parametrize("name", JOIN_PLANS)
+def test_port_decodes_table_join_plan_files_losslessly(name):
     _check_decodes(name)
