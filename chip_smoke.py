@@ -245,10 +245,34 @@ Phases, in this order; any failure exits non-zero and prints no result:
    the first the hottest, so each fans out through K24) and 1,024 order
    changes (50% a new customer, 25% a new amount, 25% deletes): the sink
    must equal a dict model change for change, no overflow.
+2p. K25 ``tap_residual`` against its twin, exact, over PAGE_VIEWS-shaped
+   columns (bench.py:119-146's traffic: zipf(1.3) URLs over 50,000,
+   USER_ID 0..999, 17 ms apart, 5% NULLs in each column, 2% null rows,
+   3% inactive lanes, partial LIMIT budgets): the ``USER_ID % N = i``
+   family at 256 lanes x 4,096 rows (bench_push_fanout's widest tap count,
+   the registry's poll size) and at 4,096 lanes x 8,192 rows (the fused
+   capacity's and the ring's maxima), both timed; then the corpus
+   families (``URL = k AND VIEWTIME >= t``, ranges, NOT, IS NULL OR,
+   ``<>``, [NOT] BETWEEN, [NOT] IN, a division by a column with zeros) at
+   64 lanes x 4,096 rows each.  No single PyTorch call computes it: no yardstick.
+20. Standalone fan-out, BASELINE config 8 (bench.py:881-1020) at its full
+   size: one shared pipeline over PAGE_VIEWS (the identity plan per record,
+   ``capacity=1``) through ``start_push_registry``; 256 ``USER_ID % 256 = i``
+   taps, 16 ``URL = '/page/k' AND VIEWTIME >= t`` taps, 4 LIMIT 100 taps and
+   one LIKE tap (host); 10,000 events produced 1,024 a round, every session
+   polled after each round.  Every session's rows must equal a numpy model
+   of its filter and projection and the port's ``device="cpu"`` run; every
+   fused tap's spans must come from K25, none from the host path.  Prints
+   delivered rows/s, p50/p99 poll-round ms and the K25 launches.
+21. Listener fan-out: PV_STREAM (``pv_stream.json``) run by ``start_plan``
+   at capacity 4,096 and registered as the upstream; phase 20's taps over
+   PV_STREAM; 16 rounds of 4,096 records.  Every span must come from the
+   upstream's device emit blocks; the same model and CPU-run checks, the
+   same numbers.
 5. Launch counters, per path: the counts (per kernel, and per mode for K1,
    K4, K6, K8, K9, K10, K11, K14, K16, K17, K20 and K21) are set to 0 just before each of
    phases 3, 4, 6, 7, 8, 9, 9g, 10, 10g, 11, 11g, 12, 12g, 12h, 13, 13r, 14,
-   14h, 15, 16, 17, 18, 18g and 19 drives the runner on the card (and, for 12-12h, its flush) and read
+   14h, 15, 16, 17, 18, 18g, 19, 20 and 21 drives the runner on the card (and, for 12-12h, its flush) and read
    just after it; each phase must have launched every kernel of its route
    in the route's modes (``PATH_KERNELS``), and no kernel or mode outside
    it.  Then short profiled re-runs split a batch's time into
@@ -265,6 +289,7 @@ power limit as ``nvidia-smi`` reports them.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -358,6 +383,7 @@ KERNEL_FUNCS = {
     "vec_remove": ("remove_keys_kernel", "remove_claim_kernel", "remove_compact_kernel",
                    "remove_dump_kernel"),
     "fk_fanout": ("fanout_count_kernel", "fanout_scan_kernel", "fanout_write_kernel"),
+    "tap_residual": ("lanes_kernel", "clip_kernel"),
 }
 
 
@@ -380,16 +406,23 @@ def kernel_device_ms(torch, name, fn, reset=None, reps=REPS) -> float:
             reset()
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if reset is not None:
-                reset()
-            fn()
-        torch.cuda.synchronize()
     # a function name not preceded by a letter or "_" (slice_fold_kernel is
     # not fold_kernel), demangled or not
     pats = [re.compile(rf"(?<![A-Za-z_]){f}") for f in KERNEL_FUNCS[name]]
-    total = sum(_device_us(e) for e in prof.key_averages() if any(p.search(e.key) for p in pats))
+    # a trace can come back without a microsecond-long kernel's records
+    # (seen once for K14's first mode on the H100): profile again, at most
+    # three times in all
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if reset is not None:
+                    reset()
+                fn()
+            torch.cuda.synchronize()
+        total = sum(_device_us(e) for e in prof.key_averages() if any(p.search(e.key) for p in pats))
+        if total > 0:
+            break
+        print(f"[profile] {name}: trace {attempt} of 3 held no device time for its kernels")
     require(total > 0, f"{name}: the profiler saw no device time for its kernels")
     return total / reps / 1e3
 
@@ -1508,6 +1541,10 @@ PATH_KERNELS = {
     # K2, K9's side mode and K24's fan-out
     "19": {"row_prologue": "table", "probe_insert": None, "probe_find": "live", "table_upsert": "side",
            "fk_fanout": None},
+    # push taps: the identity pipeline (standalone, per record) and the
+    # stateless upstream (listener) launch no kernel; K25 per family a span
+    "20": {"tap_residual": None},
+    "21": {"tap_residual": None},
 }
 #: per phase, each kernel's launches in that phase's card run, by mode
 PATH_LAUNCHES: dict = {}
@@ -1520,11 +1557,12 @@ def _wrappers():
     from ksql_tpu_torch.ops import ss_join
     from ksql_tpu_torch.ops import suppress
     from ksql_tpu_torch.ops import table_join
+    from ksql_tpu_torch.ops import tap_residual
     from ksql_tpu_torch.ops import vector
 
     return (hs.KERNEL_WRAPPERS + slicing.KERNEL_WRAPPERS + ss_join.KERNEL_WRAPPERS
             + session.KERNEL_WRAPPERS + suppress.KERNEL_WRAPPERS + vector.KERNEL_WRAPPERS
-            + table_join.KERNEL_WRAPPERS)
+            + table_join.KERNEL_WRAPPERS + tap_residual.KERNEL_WRAPPERS)
 
 
 def zero_launches() -> None:
@@ -5163,6 +5201,383 @@ def phase_orders_enriched(torch, plan_json, seed):
                 sink_records=len(got), grows=q.table_grows)
 
 
+# ------------------------------------------------- phases 2p, 20, 21: push taps
+TAP_LANES = 256  # bench_push_fanout's widest tap count (bench.py:971)
+TAP_ROWS = 4096  # the registry's rows a poll (ksql.push.registry.max.poll.rows)
+TAP_MAX_LANES = 4096  # the fused capacity's maximum
+TAP_MAX_ROWS = 8192  # the ring's size
+TAP_CORPUS_LANES = 64  # lanes of each of 2p's corpus families (cut from 256 for the script's time)
+TAP_NULLS = 0.05
+FANOUT_EVENTS = 10_000  # bench.py:985's count at 256 taps
+FANOUT_ROUND = 1024  # bench.py:922, events produced between poll rounds
+FANOUT_URL_TAPS = 16
+FANOUT_LIMIT_TAPS = 4
+FANOUT_LIMIT = 100
+LISTENER_ROUND = 4096  # the upstream's capacity and a listener advance's poll
+LISTENER_ROUNDS = 16
+PV_STREAM_PLAN = os.path.join(_PLANS, "pv_stream.json")
+
+
+def tap_template(kind, source):
+    """The committed tap template ``tap_<kind>_<source>.json`` (kind: mod,
+    url or like; source: page_views or pv_stream)."""
+    with open(os.path.join(_PLANS, f"tap_{kind}_{source}.json")) as f:
+        return json.load(f)
+
+
+def tap_plan(template, values):
+    """A session's plan JSON: the template with each literal whose value is
+    a key of ``values`` set to its value, as the reference's parser types
+    it (an integer outside int32 is a LongLiteral)."""
+    def walk(o):
+        if isinstance(o, dict):
+            if o.get("node") in ("IntegerLiteral", "LongLiteral", "StringLiteral"):
+                v = o["fields"]["value"]
+                if v in values:
+                    new = values[v]
+                    node = ("StringLiteral" if isinstance(new, str) else
+                            "IntegerLiteral" if -(1 << 31) <= new < (1 << 31) else "LongLiteral")
+                    return {"fields": {"value": new}, "node": node}
+                return o
+            return {k: walk(x) for k, x in o.items()}
+        if isinstance(o, list):
+            return [walk(x) for x in o]
+        return o
+
+    return walk(template)
+
+
+def _pv_columns(rng, n, nulls=TAP_NULLS):
+    """PAGE_VIEWS-shaped values (bench.py:119-146): zipf(1.3) URL indexes
+    over 50,000, USER_ID 0..999, VIEWTIME 17 ms apart; each column NULL
+    with probability ``nulls`` (None in the object arrays)."""
+    url = rng.zipf(1.3, size=n).astype(np.int64) % N_URLS
+    uid = rng.integers(0, 1000, n).astype(object)
+    vt = (TS0 + 17 * np.arange(n, dtype=np.int64)).astype(object)
+    urls = np.array([f"/page/{k}" for k in url], dtype=object)
+    for col in (urls, uid, vt):
+        col[rng.random(n) < nulls] = None
+    return urls, uid, vt
+
+
+def _corpus_predicates(pex):
+    """2p's corpus families over PAGE_VIEWS: per family a function of the
+    lane's index to its predicate (port expressions)."""
+    C = pex.ColumnRef
+    op = pex.CompareOp
+
+    def lit(v):
+        if isinstance(v, str):
+            return pex.StringLiteral(v)
+        return pex.IntegerLiteral(v) if -(1 << 31) <= v < (1 << 31) else pex.LongLiteral(v)
+
+    def cmp(o, a, b):
+        return pex.Comparison(op[o], a, b)
+
+    def both(a, b, how="AND"):
+        return pex.LogicalBinary(pex.LogicOp[how], a, b)
+
+    return {
+        "url_and_time": lambda i: both(cmp("EQ", C("URL"), lit(f"/page/{i % 40}")),
+                                       cmp("GTE", C("VIEWTIME"), lit(TS0 + 17 * 8 * i))),
+        "range": lambda i: both(cmp("GT", C("USER_ID"), lit(i)), cmp("LTE", C("USER_ID"), lit(i + 300))),
+        "not": lambda i: pex.Not(cmp("LT", C("VIEWTIME"), lit(TS0 + 17 * 16 * i))),
+        "null_or": lambda i: both(pex.IsNull(C("USER_ID")), cmp("EQ", C("URL"), lit(f"/page/{i}")), "OR"),
+        "neq": lambda i: cmp("NEQ", C("URL"), lit(f"/page/{i % 8}")),
+        "between": lambda i: pex.Between(C("USER_ID"), lit(i), lit(i + 99)),
+        "not_between": lambda i: pex.Between(C("USER_ID"), lit(i), lit(i + 899), negated=True),
+        "in": lambda i: pex.InList(C("USER_ID"), (lit(i), lit(i + 1), lit(999 - i))),
+        "not_in": lambda i: pex.InList(C("USER_ID"), (lit(i), lit(2 * i)), negated=True),
+        "div": lambda i: cmp("GT", pex.ArithmeticBinary(pex.ArithOp.DIVIDE, C("VIEWTIME"), C("USER_ID")),
+                             lit(TS0 // (i + 1))),
+    }
+
+
+def predicate_plans(pred, lanes):
+    """``lanes`` port plans of the mod template with its filter's predicate
+    replaced by ``pred(i)`` for lane i."""
+    from ksql_tpu_torch.execution.steps import plan_from_json
+
+    base = plan_from_json(tap_template("mod", "page_views"))
+    sel = base.physical_plan
+    return [dataclasses.replace(base, physical_plan=dataclasses.replace(
+        sel, source=dataclasses.replace(sel.source, predicate=pred(i)))) for i in range(lanes)]
+
+
+def corpus_plans(lanes=TAP_CORPUS_LANES):
+    """2p's corpus families: per family ``lanes`` port plans."""
+    from ksql_tpu_torch.execution import expressions as pex
+
+    return {name: predicate_plans(pred, lanes) for name, pred in _corpus_predicates(pex).items()}
+
+
+def mod_plans(lanes):
+    """The ``USER_ID % lanes = i`` family (the bench's tap, the template's
+    predicate with its modulus set to ``lanes``)."""
+    from ksql_tpu_torch.execution import expressions as pex
+
+    return predicate_plans(lambda i: pex.Comparison(pex.CompareOp.EQ, pex.ArithmeticBinary(
+        pex.ArithOp.MODULUS, pex.ColumnRef("USER_ID"), pex.IntegerLiteral(lanes)),
+        pex.IntegerLiteral(i)), lanes)
+
+
+def tap_group(torch, plans, lanes):
+    """A K25 family of ``lanes`` lanes from port plans of one structure (the
+    first ``lanes`` of them, cycled), as the registry packs it; returns the
+    family (``server.tap_kernel._LaneGroup``)."""
+    from ksql_tpu_torch.execution.steps import plan_from_json
+    from ksql_tpu_torch.server import push_registry as preg
+    from ksql_tpu_torch.server import tap_kernel as tk
+
+    group = None
+    for k in range(lanes):
+        p = plans[k % len(plans)]
+        chain = preg.residual_chain(p if not isinstance(p, dict) else plan_from_json(p))
+        spec = tk.classify_residual(chain[:-1], chain[-1].schema)
+        if group is None:
+            types = tk._col_types(spec.col_names, {c.name: c.type for c in chain[-1].schema.columns()})
+            group = tk._LaneGroup(spec, types, lanes)
+        require(spec.signature == group.signature, "tap_group: one family")
+        require(group.add(f"t{k}", spec), "tap_group: a lane")
+    return group
+
+
+def make_tap_case(torch, rng, dev, group, rows):
+    """K25's arguments for ``group`` over ``rows`` PAGE_VIEWS rows (2% of
+    them null rows, the last 1% padding), 3% of the lanes inactive, a
+    tenth with a LIMIT budget of 0-50."""
+    from ksql_tpu_torch.common.batch import stable_hash64
+
+    lanes = group.capacity
+    urls, uid, vt = _pv_columns(rng, rows)
+    host = {
+        "URL": (np.array([0 if u is None else stable_hash64(u) for u in urls], np.int64),
+                np.array([u is not None for u in urls])),
+        "USER_ID": (np.array([0 if u is None else u for u in uid], np.int64),
+                    np.array([u is not None for u in uid])),
+        "VIEWTIME": (np.array([0 if v is None else v for v in vt], np.int64),
+                     np.array([v is not None for v in vt])),
+        "ROWTIME": (TS0 + 17 * np.arange(rows, dtype=np.int64), np.ones(rows, bool)),
+    }
+    datas = [torch.from_numpy(host[c][0]).to(dev) for c in group.rep.col_names]
+    valids = [torch.from_numpy(host[c][1]).to(dev) for c in group.rep.col_names]
+    row_valid = rng.random(rows) >= 0.02
+    row_valid[rows - rows // 100:] = False
+    for k in np.nonzero(rng.random(lanes) < 0.03)[0]:
+        group.remove(f"t{k}")
+    limits = np.where(rng.random(lanes) < 0.1, rng.integers(0, 51, lanes), 1 << 62).astype(np.int64)
+    P_i, P_f, active = group.device_params(dev)
+    return (datas, valids, P_i, P_f, active, torch.from_numpy(row_valid).to(dev),
+            torch.from_numpy(limits).to(dev))
+
+
+def _tap_bytes_ops(prog, args):
+    """K25's bytes and operations: each column that the program loads, its
+    data and validity, and each parameter that it reads, once; row_valid;
+    per lane its active flag and limit read and its count written; the
+    masks written; one operation per instruction, lane and row."""
+    from ksql_tpu_torch.ops.tap_residual import OP_COL, OP_PARAM_F, OP_PARAM_I
+
+    datas, valids, P_i, P_f, active, row_valid, limits = args
+    lanes, rows = P_i.shape[0], datas[0].shape[0]
+    read = {op: {int(a) for o, a, _, _ in prog.code if o == op} for op in (OP_COL, OP_PARAM_I, OP_PARAM_F)}
+    col = sum(datas[c].element_size() * rows + rows for c in read[OP_COL])
+    params = 8 * (len(read[OP_PARAM_I]) + len(read[OP_PARAM_F]))
+    per_lane = params + 1 + 8 + 8  # params, active, limit, count
+    return col + rows + lanes * per_lane + lanes * rows, lanes * rows * prog.n_instr
+
+
+def _check_tap(torch, tr, group, args, tag):
+    prog = group.program()
+    before = tr.lane_masks.launches
+    got = tr.lane_masks(prog, *args)
+    require(tr.lane_masks.launches == before + 1, f"{tag}: K25 counted no launch")
+    want = tr.lane_masks_plain(prog.spec, prog.col_types, *args)
+    _assert_equal(torch, f"{tag}.masks", got[0], want[0])
+    _assert_equal(torch, f"{tag}.counts", got[1], want[1])
+    return prog, int(want[1].sum())
+
+
+def phase_tap_kernels(torch, seed):
+    """Phase 2p: K25 against its twin on the card, exact.  Returns ``{shape:
+    record}``."""
+    from ksql_tpu_torch.ops import tap_residual as tr
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 60)
+    recs = {}
+    for lanes, rows in ((TAP_LANES, TAP_ROWS), (TAP_MAX_LANES, TAP_MAX_ROWS)):
+        group = tap_group(torch, mod_plans(lanes), lanes)
+        args = make_tap_case(torch, rng, dev, group, rows)
+        prog, matched = _check_tap(torch, tr, group, args, f"tap_residual[{lanes}x{rows}]")
+        require(matched > 0, f"2p: no row matched at {lanes} x {rows}")
+        nbytes, ops = _tap_bytes_ops(prog, args)
+        rec = measure(torch, "tap_residual", lambda: tr.lane_masks(prog, *args),
+                      lambda: tr.lane_masks_plain(prog.spec, prog.col_types, *args), nbytes, ops)
+        rec.update(max_abs_err=0.0, lanes=lanes, rows=rows, matched=matched, n_instr=prog.n_instr)
+        recs[f"{lanes}x{rows}"] = rec
+        _report("2p", f"tap_residual[{lanes} lanes x {rows} rows, {prog.n_instr} instructions, "
+                f"{matched} matches]", rec)
+    for name, plans in corpus_plans().items():
+        group = tap_group(torch, plans, TAP_CORPUS_LANES)
+        args = make_tap_case(torch, rng, dev, group, TAP_ROWS)
+        prog, matched = _check_tap(torch, tr, group, args, f"tap_residual[{name}]")
+        print(f"[2p] tap_residual[{name}] ({TAP_CORPUS_LANES} lanes x {TAP_ROWS} rows, {prog.n_instr} "
+              f"instructions, stack {prog.max_depth}): exact, {matched} matches")
+    return recs
+
+
+def fanout_traffic(seed, n):
+    """Phases 20 and 21's events: bench_push_fanout's payload (bench.py:
+    940-944, USER_ID 1 + i % 999, VIEWTIME 17 ms apart) with bench.py:119-
+    146's zipf(1.3) URLs and 5% NULL USER_IDs."""
+    rng = np.random.default_rng(seed + 70)
+    url = rng.zipf(1.3, size=n).astype(np.int64) % N_URLS
+    uid = [None if rng.random() < TAP_NULLS else 1 + i % 999 for i in range(n)]
+    vt = TS0 + 17 * np.arange(n, dtype=np.int64)
+    return [f"/page/{k}" for k in url], uid, [int(v) for v in vt]
+
+
+def fanout_taps(n):
+    """Phase 20's taps: (kind, template values, LIMIT, model row filter,
+    projected columns)."""
+    taps = [("mod", {0: i}, None, (lambda i: lambda u, d, v: d is not None and d % 256 == i)(i),
+             ("URL", "VIEWTIME")) for i in range(TAP_LANES)]
+    for k in range(FANOUT_URL_TAPS):
+        t = TS0 + 17 * (k * n // (2 * FANOUT_URL_TAPS))
+        taps.append(("url", {"/page/0": f"/page/{k}", 0: t}, None,
+                     (lambda k, t: lambda u, d, v: u == f"/page/{k}" and v >= t)(k, t), ("URL", "USER_ID")))
+    for i in range(FANOUT_LIMIT_TAPS):
+        taps.append(("mod", {0: i + 1}, FANOUT_LIMIT,
+                     (lambda i: lambda u, d, v: d is not None and d % 256 == i)(i + 1), ("URL", "VIEWTIME")))
+    taps.append(("like", {}, None, lambda u, d, v: u.startswith("/page/1"), ("URL", "USER_ID")))
+    return taps
+
+
+def fanout_model(taps, urls, uids, vts):
+    out = []
+    for _kind, _vals, limit, keep, cols in taps:
+        rows = []
+        for u, d, v in zip(urls, uids, vts):
+            if keep(u, d, v):
+                row = {"URL": u, "USER_ID": d, "VIEWTIME": v}
+                rows.append({c: row[c] for c in cols})
+        out.append(rows[:limit] if limit is not None else rows)
+    return out
+
+
+def run_fanout(torch, source, n, round_size, device, seed, upstream=None):
+    """Open phase 20's taps over ``source`` (PAGE_VIEWS, or PV_STREAM from
+    the upstream plan run at ``round_size``), produce ``n`` events in
+    rounds of ``round_size``, polling every session after each round, then
+    until quiet.  Returns (sessions, taps, registry, stats)."""
+    from ksql_tpu_torch.runner import start_plan, start_push_registry
+    from ksql_tpu_torch.runtime.topics import Broker, Record
+    from ksql_tpu_torch.server.push_session import PushQuerySession
+
+    broker = Broker()
+    broker.create_topic("page_views")
+    reg = start_push_registry(broker, device=device)
+    if upstream is not None:
+        h = start_plan(upstream, broker, device=device, capacity=round_size)
+        reg.register_upstream("PV_STREAM", h)
+    urls, uids, vts = fanout_traffic(seed, n)
+    taps = fanout_taps(n)
+    templates = {k: tap_template(k, source) for k in ("mod", "url", "like")}
+    sessions = [PushQuerySession(reg, tap_plan(templates[kind], vals), limit)
+                for kind, vals, limit, _keep, _cols in taps]
+    topic = broker.topic("page_views")
+    rounds = []
+    t0 = time.perf_counter()
+    for lo in range(0, n, round_size):
+        for i in range(lo, min(n, lo + round_size)):
+            topic.produce(Record(key=None, value=json.dumps(
+                {"URL": urls[i], "USER_ID": uids[i], "VIEWTIME": vts[i]}), timestamp=vts[i]))
+        t1 = time.perf_counter()
+        for s in sessions:
+            s.poll()
+        rounds.append(time.perf_counter() - t1)
+    while sum(len(s.poll()) for s in sessions):
+        pass
+    secs = time.perf_counter() - t0
+    want = fanout_model(taps, urls, uids, vts)
+    for k, (s, w) in enumerate(zip(sessions, want)):
+        got = [r for r in s.rows if "__gap__" not in r]
+        require(len(got) == len(s.rows), f"{source}: session {k} took a gap marker")
+        require(got == w, f"{source}: session {k} ({taps[k][0]} {taps[k][1]}) delivered {len(got)} rows, "
+                f"the numpy model {len(w)}")
+    delivered = sum(len(s.rows) for s in sessions)
+    p50, p99 = np.percentile(np.array(rounds) * 1e3, [50, 99])
+    return sessions, taps, reg, dict(rows_per_s=delivered / secs, delivered=delivered, seconds=secs,
+                                     round_p50_ms=p50, round_p99_ms=p99, rounds=len(rounds))
+
+
+def _check_fanout(tag, sessions, reg):
+    pipe = next(iter(reg.pipelines.values()))
+    kernel = pipe.kernel
+    fused = [s.tap for s in sessions if s.tap.fused]
+    require(len(fused) == len(sessions) - 1, f"{tag}: {len(fused)} fused taps of {len(sessions)}")
+    for tap in fused:
+        require(tap.fused_spans > 0 and tap.host_spans == 0,
+                f"{tag}: fused tap {tap.id} had {tap.fused_spans} K25 spans, {tap.host_spans} host spans")
+    require(reg.stats()["residual"]["host-taps"] == 1, f"{tag}: the LIKE tap is not on the host")
+    return pipe, kernel
+
+
+def phase_push_fanout(torch, seed, n=FANOUT_EVENTS):
+    """Phase 20: the standalone fan-out on the card, its launches on this
+    path counted; then the port's CPU run of the same."""
+    from ksql_tpu_torch.ops import tap_residual as tr
+
+    zero_launches()
+    sessions, taps, reg, stats = run_fanout(torch, "page_views", n, FANOUT_ROUND, DEVICE, seed)
+    PATH_LAUNCHES["20"] = read_launches()
+    check_path_launches("20", PATH_LAUNCHES["20"])
+    pipe, kernel = _check_fanout("20", sessions, reg)
+    launches = PATH_LAUNCHES["20"]["tap_residual"]["all"]
+    require(launches == kernel.evaluations * len(kernel.groups),
+            f"20: {launches} K25 launches for {kernel.evaluations} spans of {len(kernel.groups)} families")
+    require(pipe.mode == "standalone" and pipe.executor.query.capacity == 1, "20: not per record")
+    cpu_sessions, _, _, cpu_stats = run_fanout(torch, "page_views", n, FANOUT_ROUND, "cpu", seed)
+    require([s.rows for s in sessions] == [s.rows for s in cpu_sessions], "20: card rows differ from the CPU run")
+    print(f"[20] standalone fan-out: {len(sessions)} sessions ({sum(s.tap.fused for s in sessions)} fused in "
+          f"{len(kernel.groups)} families), {n} events in {stats['rounds']} rounds of {FANOUT_ROUND}: "
+          f"{stats['delivered']} rows delivered in {stats['seconds']:.3f} s = {stats['rows_per_s']:.1f} rows/s; "
+          f"poll round p50 {stats['round_p50_ms']:.3f} ms p99 {stats['round_p99_ms']:.3f} ms; K25 launches "
+          f"{launches} over {kernel.evaluations} spans; every session equals the numpy model and the CPU run "
+          f"({cpu_stats['seconds']:.3f} s)")
+    return dict(stats, k25_launches=launches, spans=kernel.evaluations, cpu_seconds=cpu_stats["seconds"])
+
+
+def phase_push_listener(torch, seed, rounds=LISTENER_ROUNDS):
+    """Phase 21: the listener fan-out over PV_STREAM on the card, then the
+    port's CPU run of the same."""
+    with open(PV_STREAM_PLAN) as f:
+        upstream = json.load(f)
+    n = rounds * LISTENER_ROUND
+    zero_launches()
+    sessions, taps, reg, stats = run_fanout(torch, "pv_stream", n, LISTENER_ROUND, DEVICE, seed,
+                                            upstream=upstream)
+    PATH_LAUNCHES["21"] = read_launches()
+    check_path_launches("21", PATH_LAUNCHES["21"])
+    pipe, kernel = _check_fanout("21", sessions, reg)
+    require(pipe.mode == "listener", "21: the pipeline is not a listener")
+    require(kernel.block_spans == kernel.evaluations > 0,
+            f"21: {kernel.block_spans} of {kernel.evaluations} spans came from device emit blocks")
+    launches = PATH_LAUNCHES["21"]["tap_residual"]["all"]
+    cpu_sessions, _, _, cpu_stats = run_fanout(torch, "pv_stream", n, LISTENER_ROUND, "cpu", seed,
+                                               upstream=upstream)
+    require([s.rows for s in sessions] == [s.rows for s in cpu_sessions], "21: card rows differ from the CPU run")
+    print(f"[21] listener fan-out over PV_STREAM: {len(sessions)} sessions, {n} records in {rounds} rounds of "
+          f"{LISTENER_ROUND}: {stats['delivered']} rows delivered in {stats['seconds']:.3f} s = "
+          f"{stats['rows_per_s']:.1f} rows/s; poll round p50 {stats['round_p50_ms']:.3f} ms p99 "
+          f"{stats['round_p99_ms']:.3f} ms; K25 launches {launches} over {kernel.evaluations} spans, "
+          f"{kernel.block_spans} from device blocks; every session equals the numpy model and the CPU run "
+          f"({cpu_stats['seconds']:.3f} s)")
+    return dict(stats, k25_launches=launches, spans=kernel.evaluations, block_spans=kernel.block_spans,
+                cpu_seconds=cpu_stats["seconds"])
+
+
 REPLACES = {
     "row_prologue": "ksql_tpu/ops/hash_store.py:48 (mix64), :58 (combine_hash); ksql_tpu/runtime/lowering.py:3802 (pre_exchange), :2284 (_trace_table_step key hash), :3483 (pre_session_exchange key hash), :2807/:2526/:2605 (_trace_tt_step/_trace_fk_left/_trace_fk_right key hash); ksql_tpu/ops/window.py:63 (hopping_starts), :82 (expand)",
     "probe_insert": "ksql_tpu/ops/hash_store.py:126 (probe_insert)",
@@ -5202,6 +5617,8 @@ REPLACES = {
     "vec_remove": "ksql_tpu/ops/hash_store.py:337 (_vec_remove)",
     "fk_fanout": "ksql_tpu/runtime/lowering.py:2605 (_trace_fk_right: the match scan and the lenv/lkey lanes, "
                  ":2640-2672)",
+    "tap_residual": "ksql_tpu/server/tap_kernel.py:265 (_lane_fn), vmapped over the lanes in :414-433 "
+                    "(_LaneGroup.fn, _trace_group)",
 }
 #: the record each kernel's JSON entry carries; the other modes ride along
 MAIN_MODE = {"row_prologue": "tumbling", "evict": "tumbling", "combine_windows": "sliced",
@@ -5209,7 +5626,7 @@ MAIN_MODE = {"row_prologue": "tumbling", "evict": "tumbling", "combine_windows":
              "table_upsert": "join", "ss_match": "write", "ss_insert": "write", "ss_expire": "ss",
              "seg_sort": "items", "session_items": "items", "session_merge": "session",
              "session_write": "write", "vec_collect": "append", "vec_topk": "plain", "vec_hist": "hist",
-             "vec_remove": "remove", "fk_fanout": "fanout"}
+             "vec_remove": "remove", "fk_fanout": "fanout", "tap_residual": "256x4096"}
 
 
 def kernel_records(wrappers, recs) -> list:
@@ -5293,6 +5710,10 @@ def main() -> int:
     for name, modes in tj_recs.items():
         recs.setdefault(name, {}).update(modes)
     tj_s = time.perf_counter() - t_tj
+    # the push taps' phases (2p, 20, 21), timed together
+    t_tap = time.perf_counter()
+    recs["tap_residual"] = phase_tap_kernels(torch, args.seed)
+    tap_s = time.perf_counter() - t_tap
     with open("ksql_tpu_torch/plans/pv_counts_tumbling.json") as f:
         plan_json = json.load(f)
     with open("ksql_tpu_torch/plans/pv_stats_hopping.json") as f:
@@ -5358,8 +5779,12 @@ def main() -> int:
     e2e["tt_growth"] = phase_tt_growth(torch, accounts_json, args.seed)
     e2e["orders_enriched"] = phase_orders_enriched(torch, enriched_json, args.seed)
     tj_s += time.perf_counter() - t_tj
+    t_tap = time.perf_counter()
+    e2e["push_fanout"] = phase_push_fanout(torch, args.seed)
+    e2e["push_listener"] = phase_push_listener(torch, args.seed)
+    tap_s += time.perf_counter() - t_tap
     require(sorted(PATH_LAUNCHES) == sorted(PATH_KERNELS), f"paths run: {sorted(PATH_LAUNCHES)}")
-    for w in wrappers:  # every kernel of K1-K24 is on some path, in every mode
+    for w in wrappers:  # every kernel of K1-K25 is on some path, in every mode
         for mode in w.__dict__.get("mode_launches", {"all": 0}):
             require(sum(PATH_LAUNCHES[p][w.__name__][mode] for p in PATH_LAUNCHES) > 0,
                     f"kernel {w.__name__}[{mode}] was launched on no path")
@@ -5390,7 +5815,7 @@ def main() -> int:
     print(f"total seconds {time.perf_counter() - t_start:.1f} (phases 2s, 10, 10g and 10b: {ss_s:.1f}; "
           f"phases 2w, 11, 11g and 11b: {sess_s:.1f}; phases 2f, 12 (with 12b) to 13r: {final_s:.1f}; "
           f"phases 2v, 14, 14h and 14b: {vec_s:.1f}; phases 2t, 15, 16, 17 and 15b: {ta_s:.1f}; "
-          f"phases 2x, 18, 18b, 18g and 19: {tj_s:.1f})")
+          f"phases 2x, 18, 18b, 18g and 19: {tj_s:.1f}; phases 2p, 20 and 21: {tap_s:.1f})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

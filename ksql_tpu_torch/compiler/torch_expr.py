@@ -7,7 +7,8 @@ hash-encoded (``runtime/device.py``): ``data`` holds the stable 64-bit hash,
 so equality and GROUP BY work on the card.
 
 This slice covers column references, literals, comparison, arithmetic,
-AND/OR/NOT and IS [NOT] NULL.  Every other node raises
+AND/OR/NOT, IS [NOT] NULL, BETWEEN and IN (rewritten into comparisons
+and ORs, as the reference does).  Every other node raises
 :class:`DeviceUnsupported`.  The tensors live on the compiler's ``device``;
 the arithmetic is elementwise torch and runs eagerly on the card, as XLA
 fused it on the TPU.
@@ -98,15 +99,64 @@ def const_col(value, sql_type: SqlType, n: int, device) -> DCol:
     )
 
 
-def _promote(a: DCol, b: DCol) -> tuple:
-    """Numeric promotion for binary ops; returns (a', b', result_type)."""
-    ta, tb = a.sql_type.base, b.sql_type.base
-    if ta not in _NUM_ORDER or tb not in _NUM_ORDER:
-        raise DeviceUnsupported(f"arithmetic on {ta}/{tb}")
-    out = _NUM_ORDER[max(_NUM_ORDER.index(ta), _NUM_ORDER.index(tb))]
+def promoted_type(ta: SqlType, tb: SqlType) -> SqlType:
+    """The type a binary numeric op computes in: the wider operand's, a
+    DECIMAL as DOUBLE.  Raises for a non-numeric operand."""
+    a, b = ta.base, tb.base
+    if a not in _NUM_ORDER or b not in _NUM_ORDER:
+        raise DeviceUnsupported(f"arithmetic on {a}/{b}")
+    out = _NUM_ORDER[max(_NUM_ORDER.index(a), _NUM_ORDER.index(b))]
     if out == SqlBaseType.DECIMAL:
         out = SqlBaseType.DOUBLE  # device DECIMAL = f64 (documented deviation)
-    t = SqlType.of(out)
+    return SqlType.of(out)
+
+
+_EQUALITY = (
+    ex.CompareOp.EQ,
+    ex.CompareOp.NEQ,
+    ex.CompareOp.IS_DISTINCT_FROM,
+    ex.CompareOp.IS_NOT_DISTINCT_FROM,
+)
+
+
+def compare_type(ta: SqlType, tb: SqlType, op) -> SqlType:
+    """The type a comparison's operands meet in: two numerics in
+    :func:`promoted_type`, anything else in the type both must share
+    (STRING and BYTES by their hashes, so under equality only).  Raises
+    for what the card cannot compare."""
+    a, b = ta.base, tb.base
+    if a in _HASHED or b in _HASHED:
+        if a != b:
+            raise DeviceUnsupported(f"compare {a} vs {b}")
+        if op not in _EQUALITY:
+            raise DeviceUnsupported("string ordering on device")
+        return ta
+    if ta.is_numeric() and tb.is_numeric():
+        return promoted_type(ta, tb)
+    if a == b:  # BOOLEAN, TIME/DATE/TIMESTAMP
+        return ta
+    raise DeviceUnsupported(f"compare {a} vs {b}")
+
+
+def between_expr(e: ex.Between) -> ex.Expression:
+    """BETWEEN as the compilers evaluate it: ``value >= lower AND value <=
+    upper``, under NOT when negated."""
+    lo = ex.Comparison(ex.CompareOp.GTE, e.value, e.lower)
+    hi = ex.Comparison(ex.CompareOp.LTE, e.value, e.upper)
+    both = ex.LogicalBinary(ex.LogicOp.AND, lo, hi)
+    return ex.Not(both) if e.negated else both
+
+
+def in_list_terms(e: ex.InList) -> list:
+    """IN's items as the equalities ``value = item`` that the compilers OR
+    together, left to right (the OR is negated for NOT IN; no item is
+    FALSE)."""
+    return [ex.Comparison(ex.CompareOp.EQ, e.value, item) for item in e.items]
+
+
+def _promote(a: DCol, b: DCol) -> tuple:
+    """Numeric promotion for binary ops; returns (a', b', result_type)."""
+    t = promoted_type(a.sql_type, b.sql_type)
     dt = torch_dtype(t)
     return a.data.to(dt), b.data.to(dt), t
 
@@ -258,26 +308,8 @@ class TorchExprCompiler:
     def _c_Comparison(self, e) -> DCol:
         a, b = self.compile(e.left), self.compile(e.right)
         op = e.op
-        ta, tb = a.sql_type.base, b.sql_type.base
-        if ta in _HASHED or tb in _HASHED:
-            if ta != tb:
-                raise DeviceUnsupported(f"compare {ta} vs {tb}")
-            if op not in (
-                ex.CompareOp.EQ,
-                ex.CompareOp.NEQ,
-                ex.CompareOp.IS_DISTINCT_FROM,
-                ex.CompareOp.IS_NOT_DISTINCT_FROM,
-            ):
-                raise DeviceUnsupported("string ordering on device")
-            da, db = a.data, b.data
-        elif ta == SqlBaseType.BOOLEAN and tb == SqlBaseType.BOOLEAN:
-            da, db = a.data, b.data
-        elif a.sql_type.is_numeric() and b.sql_type.is_numeric():
-            da, db, _ = _promote(a, b)
-        elif ta == tb:  # TIME/DATE/TIMESTAMP
-            da, db = a.data, b.data
-        else:
-            raise DeviceUnsupported(f"compare {ta} vs {tb}")
+        dt = torch_dtype(compare_type(a.sql_type, b.sql_type, op))
+        da, db = a.data.to(dt), b.data.to(dt)
         valid = a.valid & b.valid
         if op in (ex.CompareOp.EQ, ex.CompareOp.IS_NOT_DISTINCT_FROM):
             out = da == db
@@ -326,3 +358,23 @@ class TorchExprCompiler:
     def _c_IsNotNull(self, e) -> DCol:
         v = self.compile(e.operand)
         return DCol(v.valid, self._const(True, T.BOOLEAN).data, T.BOOLEAN)
+
+    def _c_Between(self, e) -> DCol:
+        return self.compile(between_expr(e))
+
+    def _c_InList(self, e) -> DCol:
+        self.compile(e.value)  # an unsupported operand refuses the list
+        hit = None
+        for term in in_list_terms(e):
+            c = self.compile(term)
+            hit = c if hit is None else self._or(hit, c)
+        if hit is None:
+            return self._const(False, T.BOOLEAN)
+        if e.negated:
+            hit = DCol(~hit.data, hit.valid, T.BOOLEAN)
+        return hit
+
+    def _or(self, a: DCol, b: DCol) -> DCol:
+        av = a.valid & a.data
+        bv = b.valid & b.data
+        return DCol(av | bv, (a.valid & b.valid) | av | bv, T.BOOLEAN)

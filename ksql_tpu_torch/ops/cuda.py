@@ -117,6 +117,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "ksql_fk_fanout_count": [_P, _P, _P, _I, _P, _P, _P, _P, _P],
         "ksql_fk_fanout_write": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     },
+    "tap_residual": {"ksql_tap_residual": [
+        _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P]},
 }
 KERNELS = tuple(SIGNATURES)
 

@@ -8,13 +8,18 @@ the plan (a join reads its tables' changelog topics too), from the start;
 ``run_until_quiescent`` drives the records produced so far through
 the device path and writes the sink topic, and may be called again after
 more records are produced; ``run_plan`` is the two, once, plus the final
-``drain``.
+``drain``; ``poll_once`` is one poll tick of a started query.
+
+``start_push_registry`` is the entry point of push queries: it returns a
+:class:`~ksql_tpu_torch.server.push_registry.PushRegistry`, on which
+``ksql_tpu_torch.server.push_session.PushQuerySession`` opens push
+sessions as taps over shared pipelines.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
 
 from ksql_tpu_torch.execution.steps import plan_from_json
 from ksql_tpu_torch.runtime.device_executor import TorchDeviceExecutor
@@ -31,6 +36,47 @@ class QueryHandle:
 
     executor: TorchDeviceExecutor
     consumer: Consumer
+    #: push subscribers of the query's emissions, and of its emission
+    #: batches (``QueryHandle.push_listeners`` of the reference engine)
+    push_listeners: List[Callable] = field(default_factory=list)
+    push_batch_listeners: List[Callable] = field(default_factory=list)
+
+    def subscribe(self, cb: Callable, batch_cb: Optional[Callable] = None) -> Callable[[], None]:
+        """Fan the query's emissions out to ``cb(emit)``, and each emission
+        batch to ``batch_cb(emits, block)`` before its emissions, where
+        ``block`` holds the batch's scalar emit columns on the device (or
+        is None when it is not aligned with ``emits``): the reference's
+        ``engine.register_push_tap``.  Returns the unsubscribe."""
+        ex = self.executor
+        ex.emit_callback = self._fan_out
+        ex.batch_emit_callback = self._fan_out_batch
+        self.push_listeners.append(cb)
+        if batch_cb is not None:
+            self.push_batch_listeners.append(batch_cb)
+        ex.query.collect_raw_emits = bool(self.push_batch_listeners)
+
+        def unsubscribe():
+            if cb in self.push_listeners:
+                self.push_listeners.remove(cb)
+            if batch_cb in self.push_batch_listeners:
+                self.push_batch_listeners.remove(batch_cb)
+            # the last batch listener gone: no more device gathers
+            ex.query.collect_raw_emits = bool(self.push_batch_listeners)
+
+        return unsubscribe
+
+    def _fan_out(self, emit) -> None:
+        for cb in list(self.push_listeners):
+            cb(emit)
+
+    def _fan_out_batch(self, emits) -> None:
+        if not self.push_batch_listeners:
+            return
+        blk = self.executor.query.last_raw_block
+        if blk is not None and (blk["n"] != len(emits) or blk["emits_id"] != id(emits)):
+            blk = None  # another decode's block: the host path
+        for bcb in list(self.push_batch_listeners):
+            bcb(emits, blk)
 
 
 def start_plan(plan_json: Dict[str, Any], broker: Broker, *, device=None,
@@ -82,6 +128,28 @@ def run_until_quiescent(handle: QueryHandle) -> int:
         taken += len(polled)
         for topic, record in polled:
             handle.executor.process(topic, record)
+
+
+def poll_once(handle: QueryHandle, max_records: int = 4096) -> int:
+    """One poll tick of a started query (the reference engine's
+    ``poll_once``): at most ``max_records`` records through its executor,
+    then ``drain``.  Returns the records taken."""
+    polled = handle.consumer.poll(max_records)
+    for topic, record in polled:
+        handle.executor.process(topic, record)
+    handle.executor.drain()
+    return len(polled)
+
+
+def start_push_registry(broker: Broker, *, device=None, **kw):
+    """The push registry over ``broker`` (keyword arguments: those of
+    :class:`~ksql_tpu_torch.server.push_registry.PushRegistry`, the
+    reference's ``ksql.push.registry.*`` defaults).  ``device`` defaults
+    to ``cuda`` and raises when there is no card."""
+    from ksql_tpu_torch.server.push_registry import PushRegistry
+    from ksql_tpu_torch.state import resolve_device
+
+    return PushRegistry(broker, device=resolve_device(device), **kw)
 
 
 def run_plan(plan_json: Dict[str, Any], broker: Broker, **kw) -> TorchDeviceExecutor:

@@ -75,9 +75,16 @@ class TorchDeviceExecutor:
         ss_out_capacity: Optional[int] = None,
         session_slots: int = 4,
         on_error: Optional[Callable[[str, Exception], None]] = None,
+        emit_callback: Optional[Callable[[SinkEmit], None]] = None,
+        batch_emit_callback: Optional[Callable[[List[SinkEmit]], None]] = None,
     ):
         self.plan = plan
         self.on_error = on_error or (lambda where, e: None)
+        #: called with each emission before the sink writes it, and with
+        #: each dispatched batch before its emissions (the push registry's
+        #: seams; ``device_executor.py:861-868`` of the reference)
+        self.emit_callback = emit_callback
+        self.batch_emit_callback = batch_emit_callback
         self.query = TorchCompiledQuery(
             plan, capacity=batch_size, store_capacity=store_capacity, device=device,
             sliced=sliced, slice_ring_max=slice_ring_max,
@@ -372,7 +379,13 @@ class TorchDeviceExecutor:
         return out
 
     def _dispatch(self, emits: List[SinkEmit]) -> None:
+        if not emits:
+            return
+        if self.batch_emit_callback is not None:
+            self.batch_emit_callback(emits)
         for e in emits:
+            if self.emit_callback is not None:
+                self.emit_callback(e)
             self.sink_writer.produce(e)
 
 

@@ -118,7 +118,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -302,6 +302,10 @@ class TorchCompiledQuery:
         self.fk_left_source = self.fk_right_source = None
         self.fk_left_ops: List[st.ExecutionStep] = []
         self.fk_right_ops: List[st.ExecutionStep] = []
+        #: keep each decoded batch's scalar emit columns, on the device, in
+        #: ``last_raw_block`` (the push registry's listener mode)
+        self.collect_raw_emits = False
+        self.last_raw_block: Optional[Dict[str, Any]] = None
         self._analyze(plan.physical_plan)
 
         self.window = getattr(self.agg, "window", None) if self.agg is not None else None
@@ -2452,7 +2456,27 @@ class TorchCompiledQuery:
             out.append(SinkEmit(key, row, int(ts[j]), window))
         if sort and not ordered:
             # ts-major, window-start-minor: the reference's emission order
-            out.sort(key=lambda e: (e.ts, e.window or (0, 0)))
+            if self.collect_raw_emits:
+                # keep the permutation: the raw block below stays row-aligned
+                order = sorted(range(len(out)), key=lambda j: (out[j].ts, out[j].window or (0, 0)))
+                out = [out[j] for j in order]
+                idx_dev = idx_dev[torch.as_tensor(order, dtype=torch.int64, device=idx_dev.device)]
+            else:
+                out.sort(key=lambda e: (e.ts, e.window or (0, 0)))
+        if self.collect_raw_emits:
+            # the push registry's handoff: the batch's scalar emit columns
+            # gathered on the device in final emit order (2-D columns are
+            # skipped: a span that needs one is columnarized on the host)
+            self.last_raw_block = {
+                "cols": {c.name: (emits[f"v_{c.name}"][idx_dev], emits[f"m_{c.name}"][idx_dev])
+                         for c in schema.columns() if emits[f"v_{c.name}"].dim() == 1},
+                "ts": emits["emit_ts"][idx_dev],
+                "row_none": np.fromiter((e.row is None for e in out), bool, count=len(out)),
+                "n": len(out),
+                # the emit list this block is aligned with (the dispatcher
+                # checks it)
+                "emits_id": id(out),
+            }
         return out
 
 

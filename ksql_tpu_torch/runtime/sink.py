@@ -155,8 +155,12 @@ class SinkWriter:
         self.defaults = dict(getattr(sink_step, "value_defaults", ()) or ())
         if any(not isinstance(n, str) for n in self.defaults):
             raise SerdeException("nested-path sink defaults are not supported by the port")
+        #: False mutes the sink (a push pipeline's ring is its only output)
+        self.enabled = True
 
     def produce(self, e: SinkEmit) -> None:
+        if not self.enabled:
+            return
         schema = self.sink_step.schema
         row = e.row
         if row is not None and self.defaults:

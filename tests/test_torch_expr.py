@@ -90,6 +90,13 @@ SUPPORTED = {
     "not": rex.Not(c("F")),
     "is_null": rex.IsNull(c("D")),
     "is_not_null": rex.IsNotNull(c("S")),
+    "between": rex.Between(c("I"), rex.IntegerLiteral(0), rex.IntegerLiteral(5)),
+    "not_between_mixed": rex.Between(c("D"), c("I"), rex.DoubleLiteral(3.5), negated=True),
+    "between_cols": rex.Between(c("B"), c("I"), rex.LongLiteral(2**40)),
+    "in_list": rex.InList(c("I"), (rex.IntegerLiteral(1), c("B"), rex.IntegerLiteral(7))),
+    "not_in_list": rex.InList(c("D"), (rex.DoubleLiteral(0.0), c("I")), negated=True),
+    "in_strings": rex.InList(c("S"), (rex.StringLiteral("s1"), c("S2"))),
+    "in_empty": rex.InList(c("I"), ()),
 }
 
 
@@ -130,8 +137,11 @@ def test_key_repr_matches_reference_and_decodes(name):
 
 UNSUPPORTED = {
     "cast": rex.Cast(c("I"), RT.DOUBLE),
-    "between": rex.Between(c("I"), rex.IntegerLiteral(0), rex.IntegerLiteral(5)),
-    "in_list": rex.InList(c("I"), (rex.IntegerLiteral(1),)),
+    # BETWEEN and IN lower: over strings they need ordering, and
+    # a string against a number does not compare
+    "between": rex.Between(c("S"), rex.StringLiteral("a"), rex.StringLiteral("z")),
+    "in_list": rex.InList(c("S"), (rex.IntegerLiteral(1),)),
+    "between_null_bound": rex.Between(c("B"), rex.NullLiteral(), c("I")),
     "searched_case": rex.SearchedCase((rex.WhenClause(c("F"), c("I")),), None),
     "function": rex.FunctionCall("ABS", (c("D"),)),
     "like": rex.Like(c("S"), rex.StringLiteral("s%")),

@@ -3,8 +3,8 @@
 * No module under ``ksql_tpu_torch/``, and not ``chip_smoke.py`` or
   ``scripts/torch_store_overflow.py``, imports ``jax`` or ``ksql_tpu`` (an
   AST scan of every import statement).
-* A fresh interpreter that imports the port and runs ``run_plan`` on the
-  CPU never loads ``jax``.
+* A fresh interpreter that imports the port and runs ``run_plan``, or a
+  push registry's taps, on the CPU never loads ``jax``.
 * Without ``device=``, the entry points run on CUDA and raise when there is
   no card; ``chip_smoke.py`` exits non-zero without a card, and from a
   directory holding nothing else of the repository, printing no result.
@@ -95,6 +95,33 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
             start_plan(join_plan, Broker())
     with pytest.raises(RuntimeError, match="CUDA"):
         state_from_numpy({})
+    from ksql_tpu_torch.runner import start_push_registry
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        start_push_registry(Broker())
+
+
+def test_push_taps_on_cpu_never_load_jax():
+    r = _run("""
+        import json, sys
+        from ksql_tpu_torch.runner import start_push_registry
+        from ksql_tpu_torch.runtime.topics import Broker, Record
+        from ksql_tpu_torch.server.push_session import PushQuerySession
+        tmpl = json.load(open("ksql_tpu_torch/plans/tap_mod_page_views.json"))
+        b = Broker()
+        t = b.create_topic("page_views")
+        reg = start_push_registry(b, device="cpu")
+        sessions = [PushQuerySession(reg, tmpl), PushQuerySession(reg, tmpl)]
+        for i in range(600):
+            t.produce(Record(None, json.dumps({"URL": "/p", "USER_ID": i, "VIEWTIME": i}), i))
+        rows = [s.poll() for s in sessions]
+        assert [len(r) for r in rows] == [3, 3], rows
+        assert reg.stats()["residual"]["kernel-evals-total"] == 1
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ksql_tpu"))
+        print("LOADED", loaded)
+    """)
+    assert r.returncode == 0, r.stderr
+    assert "LOADED []" in r.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "script_alone"])

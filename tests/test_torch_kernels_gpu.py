@@ -14,8 +14,10 @@ Ints, bools, hashes and slots must be equal; float64 sums agree to rtol
 EMIT FINAL and HAVING steps from ``chip_smoke.make_suppress_case``, the
 table aggregation's undo side from ``chip_smoke.make_find_case`` and
 ``make_orders_case``, the table-table and foreign-key joins' from
-``make_tt_case``, ``make_fkr_case`` and ``make_fanout_case``: the
-generators of the chip check's own kernel phases.
+``make_tt_case``, ``make_fkr_case`` and ``make_fanout_case``, the push
+taps' from ``make_tap_case`` over ``tap_group``s of the committed tap
+template and of ``corpus_plans``: the generators of the chip check's own
+kernel phases.
 """
 
 import json
@@ -25,6 +27,7 @@ import pytest
 import torch
 
 import chip_smoke
+from ksql_tpu_torch.execution import expressions as pex
 from ksql_tpu_torch.ops import hash_store as hs
 from ksql_tpu_torch.ops import session as sess
 from ksql_tpu_torch.ops import slicing
@@ -754,3 +757,32 @@ def test_fk_fanout_matches_twin_in_slot_order(dev, case):
         _same(got[1][k], want[1][k])
     assert (want[0].numel() > 0) == (case in ("hot", "small"))
     assert bool((want[0][1:] > want[0][:-1]).all()) and cap not in want[0].tolist()
+
+
+@pytest.mark.parametrize("lanes,rows", [(256, 4096), (3, 1000), (40, 257)])
+def test_tap_residual_matches_twin(dev, lanes, rows):
+    from ksql_tpu_torch.ops import tap_residual as tr
+
+    group = chip_smoke.tap_group(torch, chip_smoke.mod_plans(lanes), lanes)
+    args = chip_smoke.make_tap_case(torch, np.random.default_rng(lanes), dev, group, rows)
+    prog = group.program()
+    before = tr.lane_masks.launches
+    got = tr.lane_masks(prog, *args)
+    assert tr.lane_masks.launches == before + 1
+    want = tr.lane_masks_plain(prog.spec, prog.col_types, *args)
+    _same(got[0], want[0])
+    _same(got[1], want[1])
+    assert int(want[1].sum()) > 0
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke._corpus_predicates(pex)))
+def test_tap_residual_corpus_families_match_twin(dev, name):
+    from ksql_tpu_torch.ops import tap_residual as tr
+
+    group = chip_smoke.tap_group(torch, chip_smoke.corpus_plans(64)[name], 64)
+    args = chip_smoke.make_tap_case(torch, np.random.default_rng(7), dev, group, 2000)
+    prog = group.program()
+    got = tr.lane_masks(prog, *args)
+    want = tr.lane_masks_plain(prog.spec, prog.col_types, *args)
+    _same(got[0], want[0])
+    _same(got[1], want[1])

@@ -22,6 +22,17 @@ the reference's own USERS table and an ORDERS table, and BASELINE #3's
 USERS joined to an ACCOUNTS table and from customer_orders' ORDERS),
 and the port's decoder must read it back
 to the same JSON.
+
+The push taps' plans (chip_smoke.py's phases 20 and 21) are held the same
+way: ``pv_stream.json`` (the upstream CSAS over the page views),
+``pv_identity.json`` (``SELECT * FROM PAGE_VIEWS EMIT CHANGES`` as the
+reference's standalone pipeline plans and wraps it, which the port's
+``identity_plan`` must also build) and the ``tap_<kind>_<source>.json``
+templates (the bench's ``USER_ID % 256 = i`` tap, a ``URL = k AND
+VIEWTIME >= t`` tap and a LIKE tap over PAGE_VIEWS and over PV_STREAM),
+each equal to the reference's plan of its push query; and chip_smoke's
+rewrite of a template's literals must equal the reference's plan of the
+query with those literals.
 """
 
 import json
@@ -30,9 +41,12 @@ import os
 import pytest
 
 import bench
+import chip_smoke
+from ksql_tpu.analyzer.analyzer import analyze_query
 from ksql_tpu.execution.steps import plan_to_json
 from ksql_tpu_torch.execution import expressions as pex
 from ksql_tpu_torch.execution.steps import PLAN_FORMAT_VERSION, plan_from_json
+from ksql_tpu_torch.server.push_registry import identity_plan, residual_chain
 
 PLANS = os.path.join(os.path.dirname(__file__), os.pardir, "ksql_tpu_torch", "plans")
 CTAS = {
@@ -288,3 +302,89 @@ def test_table_join_plan_files_equal_reference_engine_plans(name):
 @pytest.mark.parametrize("name", JOIN_PLANS)
 def test_port_decodes_table_join_plan_files_losslessly(name):
     _check_decodes(name)
+
+
+PV_STREAM = "CREATE STREAM PV_STREAM AS SELECT URL, USER_ID, VIEWTIME FROM PAGE_VIEWS EMIT CHANGES;"
+CTAS["pv_stream.json"] = PV_STREAM
+DDL["pv_stream.json"] = [bench.PV_DDL]
+SINKS["pv_stream.json"] = "PV_STREAM"
+
+
+def test_upstream_plan_file_equals_reference_engine_plan():
+    _check_equals_reference("pv_stream.json")
+
+
+def test_port_decodes_upstream_plan_file_losslessly():
+    _check_decodes("pv_stream.json")
+
+
+#: the push queries of the tap templates
+TAP_SQL = {
+    "mod": "SELECT URL, VIEWTIME FROM {S} WHERE USER_ID % 256 = {i} EMIT CHANGES;",
+    "url": "SELECT URL, USER_ID FROM {S} WHERE URL = '{k}' AND VIEWTIME >= {t} EMIT CHANGES;",
+    "like": "SELECT URL, USER_ID FROM {S} WHERE URL LIKE '/page/1%' EMIT CHANGES;",
+}
+TEMPLATE_ARGS = {"i": 0, "k": "/page/0", "t": 0}
+SOURCES = ("PAGE_VIEWS", "PV_STREAM")
+
+
+def _push_plan(sql, query_id="transient_tap"):
+    """plan_to_json of the reference's plan of a push query over the page
+    views or PV_STREAM."""
+    engine = bench._engine()
+    engine.execute_sql(bench.PV_DDL)
+    engine.execute_sql(PV_STREAM)
+    a = analyze_query(engine.parse(sql)[0].statement, engine.metastore, engine.registry)
+    plan = engine.planner.plan(a, query_id).plan
+    return engine, plan
+
+
+def _tap_file(kind, source):
+    return f"tap_{kind}_{source.lower()}.json"
+
+
+@pytest.mark.parametrize("source", SOURCES)
+@pytest.mark.parametrize("kind", sorted(TAP_SQL))
+def test_tap_template_files_equal_reference_plans(kind, source):
+    _, plan = _push_plan(TAP_SQL[kind].format(S=source, **TEMPLATE_ARGS))
+    assert _committed(_tap_file(kind, source)) == json.loads(json.dumps(plan_to_json(plan)))
+
+
+@pytest.mark.parametrize("source", SOURCES)
+@pytest.mark.parametrize("kind", sorted(TAP_SQL))
+def test_port_decodes_tap_template_files_losslessly(kind, source):
+    obj = _committed(_tap_file(kind, source))
+    plan = plan_from_json(obj)
+    assert {"version": PLAN_FORMAT_VERSION, "plan": pex.encode(plan)} == obj
+    chain = residual_chain(plan)
+    assert chain is not None and chain[-1].source_name == source
+
+
+@pytest.mark.parametrize("source", SOURCES)
+@pytest.mark.parametrize("i", [0, 17, 255])
+def test_mod_tap_rewrite_equals_reference_plan(i, source):
+    _, plan = _push_plan(TAP_SQL["mod"].format(S=source, i=i))
+    got = chip_smoke.tap_plan(_committed(_tap_file("mod", source)), {0: i})
+    assert got == json.loads(json.dumps(plan_to_json(plan)))
+
+
+@pytest.mark.parametrize("k,t", [("/page/5", 17), ("/page/12", 1_700_000_170_000)])
+def test_url_tap_rewrite_equals_reference_plan(k, t):
+    """A VIEWTIME bound past int32 is a LongLiteral, as the parser types it."""
+    _, plan = _push_plan(TAP_SQL["url"].format(S="PAGE_VIEWS", k=k, t=t))
+    got = chip_smoke.tap_plan(_committed(_tap_file("url", "PAGE_VIEWS")), {"/page/0": k, 0: t})
+    assert got == json.loads(json.dumps(plan_to_json(plan)))
+
+
+def test_identity_plan_file_equals_reference_standalone_plan():
+    """The reference's standalone pipeline plans ``SELECT *`` over the
+    source and wraps it in a throwaway sink; the port's ``identity_plan``
+    builds the same plan from the tap's source step."""
+    qid = "pushreg_1_page_views"
+    engine, plan = _push_plan("SELECT * FROM PAGE_VIEWS EMIT CHANGES;", qid)
+    wrapped = json.loads(json.dumps(plan_to_json(engine._wrap_transient_plan(plan, qid))))
+    committed = _committed("pv_identity.json")
+    assert committed == wrapped
+    assert {"version": PLAN_FORMAT_VERSION, "plan": pex.encode(plan_from_json(committed))} == committed
+    source = residual_chain(plan_from_json(_committed(_tap_file("mod", "PAGE_VIEWS"))))[-1]
+    assert {"version": PLAN_FORMAT_VERSION, "plan": pex.encode(identity_plan(source, qid))} == committed
