@@ -64,8 +64,8 @@ Phases, in this order; any failure exits non-zero and prints no result:
 9. BASELINE #3 end to end (``ksql_tpu_torch/plans/enriched_join.json``,
    CLICKS LEFT JOIN USERS WHERE REGION <> 'excluded') through
    ``start_plan``/``run_until_quiescent``: 100,000 USERS into a 2^18-slot
-   table store, 4 x 65,536 CLICKS, then 4 more batches with 4,096 USERS
-   changes before every second; the sink must equal a dict join replayed
+   table store, 4 x 65,536 CLICKS, then 2 more batches with 4,096 USERS
+   changes before the second; the sink must equal a dict join replayed
    in the executor's order, record for record, with no overflow.
 9g. Table growth: the users in ticks of 4,096 into a 2^14-slot table
    store, which must double to 2^18 while they load; then one click batch
@@ -101,7 +101,7 @@ Phases, in this order; any failure exits non-zero and prints no result:
    calls for K13; no single PyTorch call computes K14-K16.
 11. BASELINE #5 end to end (``ksql_tpu_torch/plans/pv_sessions.json``,
    COUNT(*) per URL over SESSION (30 SECONDS)) through ``run_plan`` at
-   bench.py:668-692's sizes: 16 x 8,192 JSON records of bench.py's
+   bench.py:668-692's sizes (8 batches, half its 16): 8 x 8,192 JSON records of bench.py's
    ``_pv_batches`` traffic (seed 7, zipf(1.3) over 50,000 URLs, 17 ms
    apart), a 2^20-slot store, 16 session slots.  The sink must equal the
    port's CPU run record for record, the live sessions at the end a numpy
@@ -162,7 +162,7 @@ Phases, in this order; any failure exits non-zero and prints no result:
 14. Vector aggregates end to end (``ksql_tpu_torch/plans/pv_vectors.json``:
    COLLECT_LIST, COLLECT_SET, TOPK, TOPKDISTINCT, EARLIEST_BY_OFFSET(n)
    and LATEST_BY_OFFSET(n) of USER_ID per URL and hour) through
-   ``run_plan`` over phase 6's traffic in 16 batches of 4,096 (larger
+   ``run_plan`` over phase 6's traffic in 8 batches of 4,096 (larger
    batches overflow the store that the 256 MiB state budget clamps to
    8,192 slots before the first sampled load check): the sink must equal
    the port's CPU run record for record, the last value per (URL, hour) a
@@ -192,7 +192,7 @@ Phases, in this order; any failure exits non-zero and prints no result:
    the sink must equal the CPU run, the last C/S/A/SD per region numpy
    over the final table; no overflow.
 16. ``customer_orders.json`` (COUNT, SUM(AMOUNT), COLLECT_LIST(ID),
-   HISTOGRAM(STATUS) per CUSTOMER_ID, WHERE STATUS <> 'CANCELLED') over 16
+   HISTOGRAM(STATUS) per CUSTOMER_ID, WHERE STATUS <> 'CANCELLED') over 8
    x 4,096 changes of zipf customers' orders (new, NEW -> SHIPPED ->
    DELIVERED, some CANCELLED, deletes; 2% of the changes change again an
    order already changed in the batch): the sink must equal the CPU run,
@@ -239,10 +239,10 @@ Phases, in this order; any failure exits non-zero and prints no result:
    (host rebuilds), the sink equal the dict model, no overflow.
 19. ``orders_enriched.json`` (ORDERS LEFT JOIN USERS on the order's
    CUSTOMER_ID) one change a step (the reference refuses a batched
-   foreign-key join) into 2^16-slot stores: 10,000 users and 16,384 orders
-   (zipf(1.3) customers; the order count is cut by the per-record rule),
-   then 1,024 user changes (90% renames, 10% deletes; customers uniform,
-   the first the hottest, so each fans out through K24) and 1,024 order
+   foreign-key join) into 2^16-slot stores: 2,500 users and 4,096 orders
+   (zipf(1.3) customers; both counts are cut by the per-record rule),
+   then 512 user changes (90% renames, 10% deletes; customers uniform,
+   the first the hottest, so each fans out through K24) and 512 order
    changes (50% a new customer, 25% a new amount, 25% deletes): the sink
    must equal a dict model change for change, no overflow.
 2p. K25 ``tap_residual`` against its twin, exact, over PAGE_VIEWS-shaped
@@ -253,8 +253,11 @@ Phases, in this order; any failure exits non-zero and prints no result:
    the registry's poll size) and at 4,096 lanes x 8,192 rows (the fused
    capacity's and the ring's maxima), both timed; then the corpus
    families (``URL = k AND VIEWTIME >= t``, ranges, NOT, IS NULL OR,
-   ``<>``, [NOT] BETWEEN, [NOT] IN, a division by a column with zeros) at
-   64 lanes x 4,096 rows each.  No single PyTorch call computes it: no yardstick.
+   ``<>``, [NOT] BETWEEN, [NOT] IN, a division by a column with zeros, and
+   the CAST and CASE families: a double truncated to INT, a BIGINT to
+   DECIMAL(4, 1), a TIMESTAMP floored to its DATE; searched CASE with and
+   without ELSE over mixed numeric results) at 64 lanes x 4,096 rows each.
+   No single PyTorch call computes it: no yardstick.
 20. Standalone fan-out, BASELINE config 8 (bench.py:881-1020) at its full
    size: one shared pipeline over PAGE_VIEWS (the identity plan per record,
    ``capacity=1``) through ``start_push_registry``; 256 ``USER_ID % 256 = i``
@@ -269,10 +272,40 @@ Phases, in this order; any failure exits non-zero and prints no result:
    PV_STREAM; 16 rounds of 4,096 records.  Every span must come from the
    upstream's device emit blocks; the same model and CPU-run checks, the
    same numbers.
+2a. The offsets' argset modes against their twins, exact by their bits
+   (every component, the dump slot included): K3's argset mode at the
+   flagship's shapes (65,536 rows after K3's fold into a 2^20-slot store
+   70% full with graves; EARLIEST over a DOUBLE and LATEST(x, false) over a
+   BIGINT; 3% inactive rows and 1% overflowed rows aimed at the dump, a
+   tenth of the held slots never a candidate, NULLs ignored and kept,
+   -0.0, +0.0, NaN and inf payloads); K15's argset mode at phase 2w's
+   shapes (8,192 rows and 32 session slots: 270,336 items in K14's
+   layout, the same components; once more, untimed, with the orders
+   modulo 50, so tied winners' payloads are summed).  Yardstick for K3: ``index_put_`` of the
+   payloads, whose duplicate-index order is unspecified, so it cannot keep
+   the dump rule; none for K15.
+22. ksqlDB's quickstart view (``current_location.json``: LATEST_BY_OFFSET of
+   LATITUDE and LONGITUDE per PROFILEID) over 8 x 65,536 JSON records of
+   300,000 uniform profile ids with 2% NULL latitudes into a 2^20-slot
+   store: the sink must equal the CPU run record for record, the last
+   LA/LO per profile the last non-NULL value in arrival order (numpy), no
+   overflow.  Prints events/s, p50/p99 batch time, peak device memory.
+23. ``pv_offsets.json`` (EARLIEST_BY_OFFSET(USER_ID),
+   LATEST_BY_OFFSET(CAST(USER_ID AS DOUBLE) * 0.1, false), SUM(CASE ...),
+   MAX(ABS(USER_ID - 500)), SUM(CAST(USER_ID AS DECIMAL(10, 2))) per URL
+   and hour) over the flagship's 8 x 65,536 records with 2% NULL
+   USER_IDs: the sink must equal the CPU run, every final value per (URL,
+   hour) a numpy model, the DECIMAL sums exactly; no overflow.
+23h. Its HOPPING 1 h / 15 min variant over phase 8's 8 x 16,384 on the
+   expansion route (it prints the reference's reason), the same checks
+   per (URL, window).
+23s. Its SESSION (30 s) variant over 4 x 8,192 records (phase 11's batch,
+   half its 8 batches), 16 session slots: the same checks over each live
+   session (a numpy split of each URL's timestamps at 30 s gaps).
 5. Launch counters, per path: the counts (per kernel, and per mode for K1,
-   K4, K6, K8, K9, K10, K11, K14, K16, K17, K20 and K21) are set to 0 just before each of
+   K3, K4, K6, K8, K9, K10, K11, K14, K15, K16, K17, K20 and K21) are set to 0 just before each of
    phases 3, 4, 6, 7, 8, 9, 9g, 10, 10g, 11, 11g, 12, 12g, 12h, 13, 13r, 14,
-   14h, 15, 16, 17, 18, 18g, 19, 20 and 21 drives the runner on the card (and, for 12-12h, its flush) and read
+   14h, 15, 16, 17, 18, 18g, 19, 20, 21, 22, 23, 23h and 23s drives the runner on the card (and, for 12-12h, its flush) and read
    just after it; each phase must have launched every kernel of its route
    in the route's modes (``PATH_KERNELS``), and no kernel or mode outside
    it.  Then short profiled re-runs split a batch's time into
@@ -319,6 +352,10 @@ DEVICE = "cuda"
 TS0 = 1_700_000_000_000
 HOUR_MS = 3_600_000
 REPS = 50
+#: calls a twin is timed over (its median; cut from 50 for the script's time)
+PLAIN_REPS = 10
+#: batches of the breakdown re-runs 3b, 6b, 9b, 10b and 11b (cut from 4 for the script's time)
+BREAKDOWN_BATCHES = 2
 
 
 def fail(msg: str) -> None:
@@ -358,7 +395,7 @@ def time_events(torch, fn, reset=None, reps=REPS, warmup=3) -> float:
 KERNEL_FUNCS = {
     "row_prologue": ("row_prologue_kernel", "batch_max_kernel"),
     "probe_insert": ("init_kernel", "round_a_kernel", "round_b_kernel", "write_kernel", "fixup_kernel"),
-    "fold_and_mark": ("fold_kernel", "winners_kernel"),
+    "fold_and_mark": ("fold_kernel", "winners_kernel", "argset_kernel", "argset_dump_kernel"),
     "evict": ("evict_kernel",),
     "sliced_fold": ("slice_reset_kernel", "slice_fold_kernel"),
     "combine_windows": ("combine_kernel", "wide_gather_kernel"),
@@ -539,7 +576,7 @@ def _assert_equal(torch, name, a, b, rtol=0.0):
     return 0.0
 
 
-def measure(torch, name, fn, plain, bytes_moved, ops, reset=None, library=None, plain_reps=REPS):
+def measure(torch, name, fn, plain, bytes_moved, ops, reset=None, library=None, plain_reps=PLAIN_REPS):
     """One kernel record: device ms (profiler), call ms (CUDA events),
     the twin's ms, the bound and the library yardstick's ms (or None)."""
     ms = kernel_device_ms(torch, name, fn, reset)
@@ -1477,7 +1514,7 @@ def check_counts(broker, url_idx, ts, label):
 
 #: the kernels each main-path phase must launch, with the mode (None: the
 #: kernel has one) its route runs them in; a phase may launch no other
-_TUMBLING = {"row_prologue": "tumbling", "probe_insert": None, "fold_and_mark": None,
+_TUMBLING = {"row_prologue": "tumbling", "probe_insert": None, "fold_and_mark": "fold",
              "combine_windows": "gather"}
 _SLICED = {"row_prologue": "sliced", "probe_insert": None, "sliced_fold": None,
            "member_lanes": None, "combine_windows": "sliced", "evict": "sliced"}
@@ -1489,12 +1526,12 @@ _SS = {"ss_match": ("count", "write"), "ss_insert": ("prologue", "write"), "ss_e
 #: a session aggregation: K1's session mode, K13 twice, K14 in its three
 #: modes, K15, K16 delete, K2 and K16 write per batch
 _SESSION = {"row_prologue": "session", "seg_sort": None,
-            "session_items": ("prologue", "first", "items"), "session_merge": None,
+            "session_items": ("prologue", "first", "items"), "session_merge": "merge",
             "session_write": ("delete", "write"), "probe_insert": None}
 #: EMIT FINAL: K1 without its grace cut, K17, K2, K3 and K18 per batch; K6
 #: gathers the windows a batch or the flush closes
 _FINAL = {"row_prologue": "tumbling", "suppress_clock": "tumbling", "probe_insert": None,
-          "fold_and_mark": None, "suppress_close": None, "combine_windows": "gather"}
+          "fold_and_mark": "fold", "suppress_close": None, "combine_windows": "gather"}
 #: HAVING retraction: the tumbling path, and K19 per batch
 _HAVING = {**_TUMBLING, "having_verdict": None}
 #: vector aggregates: the tumbling path with K6 gathering the width-K state,
@@ -1503,7 +1540,7 @@ _VECTOR = {**_TUMBLING, "combine_windows": "wide", "seg_sort": None, "evict": "t
 #: a table aggregation: per side K1 (unwindowed), K3 and K6; K8's find mode
 #: on the undo side, K2 on the apply side
 _TABLE_AGG = {"row_prologue": "tumbling", "probe_find": "find", "probe_insert": None,
-              "fold_and_mark": None, "combine_windows": "gather"}
+              "fold_and_mark": "fold", "combine_windows": "gather"}
 #: a table-table join: K1's table mode, K2, K8's gather mode, K9's side mode
 _TT = {"row_prologue": "table", "probe_insert": None, "probe_find": "gather", "table_upsert": "side"}
 PATH_KERNELS = {
@@ -1545,6 +1582,13 @@ PATH_KERNELS = {
     # stateless upstream (listener) launch no kernel; K25 per family a span
     "20": {"tap_residual": None},
     "21": {"tap_residual": None},
+    # the offsets: K3's fold, then its argset mode for the payloads
+    "22": {**_TUMBLING, "fold_and_mark": ("fold", "argset")},
+    "23": {**_TUMBLING, "fold_and_mark": ("fold", "argset")},
+    # ... with K1's expansion mode (the offsets do not slice)
+    "23h": {**_TUMBLING, "row_prologue": "expansion", "fold_and_mark": ("fold", "argset")},
+    # a session aggregation with K15's argset mode
+    "23s": {**_SESSION, "session_merge": "argset"},
 }
 #: per phase, each kernel's launches in that phase's card run, by mode
 PATH_LAUNCHES: dict = {}
@@ -1918,7 +1962,7 @@ def phase_hop_long(torch, plan_json, seed):
 JOIN_BATCHES = 4  # cut from 16, then 8, to keep the whole script inside its time (PERF.md §4)
 #: the second part: stream batches with USERS changes before every
 #: JOIN_CHANGE_EVERY-th (cut from 8 batches, a change before every fourth)
-JOIN_CHANGE_BATCHES = 4
+JOIN_CHANGE_BATCHES = 2  # cut from 4 for the script's time
 JOIN_CHANGE_EVERY = 2
 JOIN_CHANGES = 4096
 #: phase 9g: users arrive in ticks of GROW_TICK records into a table store
@@ -2290,11 +2334,11 @@ def _ss_head(torch, plan_json, seed, warm=8, n_batches=4):
 SESS_ROWS = 8192  # BASELINE #5's batch: min(8192, CAPACITY) (bench.py:677)
 SESS_STORE = 1 << 20  # bench.py:678 (STORE)
 SESS_SLOTS = 16  # bench.py:679: session_slots presized for the zipf tail
-SESS_BATCHES = 16
+SESS_BATCHES = 8  # phase 11's depth, cut from 16 for the script's time
 SESS_GAP_MS = 30_000
 SESS_STEP_MS = 17  # bench.py:139, a record every 17 ms
 #: phase 11's batches replayed through the CPU twins for the sink check
-SESS_CPU_BATCHES = 16
+SESS_CPU_BATCHES = 8
 SESS_GROW_BATCHES = 8
 #: phase 11g's store: grows at least once, clear of the overflow defect of
 #: ROADMAP C (scripts/torch_store_overflow.py --session counts it)
@@ -2375,7 +2419,7 @@ def run_session(torch, plan_json, url_idx, uid, ts, device, store, slots, log=No
 def phase_session_e2e(torch, plan_json, seed):
     """BASELINE #5 end to end (``ksql_tpu_torch/plans/pv_sessions.json``,
     COUNT(*) per URL over SESSION (30 SECONDS)) through ``run_plan`` at
-    bench.py's sizes: 16 x 8,192 records, a 2^20-slot store, 16 session
+    bench.py's sizes (SESS_BATCHES, 8 of its 16): 8 x 8,192 records, a 2^20-slot store, 16 session
     slots.  The sink must equal the port's CPU run record for record (over
     the first SESS_CPU_BATCHES batches); the live sessions at the end must
     equal the numpy sessions; no overflow; the session slots must grow.
@@ -2636,10 +2680,10 @@ def phase_session_kernels(torch, plan_json, seed, case=None, timed=True):
     nseg = int((want["segfirst"] == torch.arange(m, device=dev, dtype=torch.int32)).sum())
     n_ins = int(want["ins_act"].sum())
     run_len = torch.unique_consecutive(want["kh"], return_counts=True)[1]
-    done("session_merge", "session", meas(
+    done("session_merge", "merge", meas(
         torch, "session_merge", lambda: sess.session_merge(*mg_args),
         lambda: sess.session_merge_plain(*mg_args),
-        m * (4 + 29 + 8 * k + cb) + m * (30 + 8 * k + cb + 19 + 8 * k) + nseg * (26 + 8 * k + cb) + 8,
+        merge_bytes(m, nseg, k, cb),
         m * 30, plain_reps=5),
         f"{m} items, {nseg} segments, {n_ins} inserts, longest key run {int(run_len.max())} items; "
         "no single PyTorch call")
@@ -3219,14 +3263,14 @@ def phase_having_e2e(torch, fraud_json, retract_json, seed):
 
 # ------------------------------------------------------- phase 2v, 14-14b
 VEC_ROWS = 4096  # phase 14's batch: 16,384 and 8,192 overflow the clamped store (PERF.md §4)
-VEC_BATCHES = 16  # 16 x 4,096 records (cut from 64 and 32 for the script's time)
+VEC_BATCHES = 8  # 8 x 4,096 records (cut from 64, 32 and 16 for the script's time; still 2 grows)
 VEC_STORE = 1 << 16  # phase 2v's store: the size phase 14 grows to
 HIST_STORE = 1 << 15  # phase 2v's histogram store: the size phase 14h grows to
 VEC_FILL = 0.5  # phase 2v's stores are half full
 _PLANS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ksql_tpu_torch", "plans")
 VEC_PLAN = os.path.join(_PLANS, "pv_vectors.json")
 HIST_PLAN = os.path.join(_PLANS, "pv_user_pages.json")
-VEC_BREAKDOWN_BATCHES = 8  # phase 14b's re-run
+VEC_BREAKDOWN_BATCHES = 4  # phase 14b's re-run (cut from 8 with phase 14)
 
 
 def vector_traffic(seed, n_batches=VEC_BATCHES):
@@ -3663,11 +3707,11 @@ def _vector_head(torch, vec_json, seed, n_batches=VEC_BREAKDOWN_BATCHES):
 TA_USERS = 100_000  # BASELINE #3's USERS table (bench.py:556)
 TA_REGIONS = 50  # bench.py:563: user k's region is k % 50
 TA_ROWS = 1 << 16  # phases 15 and 17: 65,536-change batches (bench.py CAPACITY)
-TA_UPDATE_BATCHES = 4  # phase 15: the update batches after the load
+TA_UPDATE_BATCHES = 2  # phase 15: the update batches after the load (cut from 4)
 SPENDERS_UPDATE_BATCHES = 2  # phase 17's (cut from 4 for the script's time)
 TA_STORE = 1 << 19  # phase 15's store: the load check wants 4 batches of headroom below 0.75
 ORDERS_ROWS = 4096  # phase 16's batch (phase_customer_orders says why)
-ORDERS_BATCHES = 16  # cut from 32 for the script's time
+ORDERS_BATCHES = 8  # cut from 32 and 16 for the script's time (still 2 grows)
 ORDER_CUSTOMERS = 10_000
 ORDERS_TWICE = 0.02  # phase 16: the share of changes that change an order again in its batch
 ORDERS_STORE = 1 << 17  # asked for; the state budget clamps it to 8,192 slots
@@ -4401,16 +4445,17 @@ TT_USERS = 100_000  # BASELINE #3's USERS (bench.py:556)
 TT_ACCOUNTS = 90_000  # ACCOUNTS holds 90% of the users: the LEFT join pads 10%
 TT_ROWS = 1 << 16  # phase 18's batch (bench.py CAPACITY)
 TT_STORE = 1 << 18  # bench.py:557's table store
-TT_UPDATE_BATCHES = 4  # phase 18's update batches after the load
+TT_UPDATE_BATCHES = 2  # phase 18's update batches after the load (cut from 4)
 TT_BREAKDOWN_BATCHES = 2  # phase 18b: two more update batches under the breakdown's timers
 TT_GROW_TICK = 4096  # phase 18g: 4,096-change batches
 TT_GROW_TICKS = 8
 TT_GROW_STORE = 1 << 14
 TIERS = ("bronze", "silver", "gold", "platinum")
-FK_USERS = 10_000  # phase 19: customer_orders' 10,000 customers
-FK_ORDERS = 16_384  # cut by the per-record rule (PERF.md §4); K24's full size is phase 2x's
-FK_USER_CHANGES = 1024
-FK_ORDER_CHANGES = 1024
+FK_USERS = 2_500  # phase 19's customers (cut from 10,000 by the per-record rule, PERF.md §4)
+FK_ORDERS = 4_096  # cut from 16,384 by the per-record rule (PERF.md §4); K24's full size is phase 2x's
+FK_STEP_ORDERS = 16_384  # phase 2x's K2 case: the orders store of phase 19 before its cut
+FK_USER_CHANGES = 512  # cut from 1,024 for the script's time
+FK_ORDER_CHANGES = 512  # cut from 1,024 for the script's time
 FK_STORE = 1 << 16  # the load stays <= 0.5 (ROADMAP C1)
 FAN_STORE = 1 << 18  # phase 2x's K24: a 2^18-slot fkl
 FAN_ORDERS = 100_000
@@ -4577,7 +4622,7 @@ def side_bytes(slots, touched, delete, cols, capacity):
     return n * (4 + 3) + upserts * (row + 1 + row) + deletes + dump * (row + row + 1), upserts + deletes
 
 
-def make_fk_step_case(torch, hs, rng, dev, capacity=FK_STORE, orders=FK_ORDERS):
+def make_fk_step_case(torch, hs, rng, dev, capacity=FK_STORE, orders=FK_STEP_ORDERS):
     """Phase 2x's K2 case at phase 19's store: orders_enriched's left store
     of ``capacity`` slots holding ``orders`` orders, 5% of their slots
     graves, and a full probe chain (the MAX_PROBES + 2 slots from one new
@@ -4800,7 +4845,7 @@ def phase_table_join_kernels(torch, seed):
             torch, "probe_insert", lambda args=args: hs.probe_insert(work, scratch, *args),
             lambda args=args: hs.probe_insert_plain(work, *args), ibytes, n * 40,
             reset=lambda: _restore(work, store0), plain_reps=10),
-            f"{n} order key{'s' if n > 1 else ''} into {FK_STORE} slots ({FK_ORDERS} orders, 5% graves, "
+            f"{n} order key{'s' if n > 1 else ''} into {FK_STORE} slots ({FK_STEP_ORDERS} orders, 5% graves, "
             f"a full probe chain), {new_keys} new, {probes} probes, overflow "
             f"{int(got['overflow']) - int(store0['overflow'])}")
     return recs, extra
@@ -5155,9 +5200,9 @@ def orders_enriched_model(recs):
 def phase_orders_enriched(torch, plan_json, seed):
     """Phase 19: orders_enriched.json (ORDERS LEFT JOIN USERS on the
     order's CUSTOMER_ID) one change a step (the reference refuses a
-    batched foreign-key join) into 2^16-slot stores: 10,000 users, 16,384
-    orders, then 1,024 user changes (each fans out over that customer's
-    orders through K24) and 1,024 order changes; the sink must equal the
+    batched foreign-key join) into 2^16-slot stores: 2,500 users, 4,096
+    orders, then 512 user changes (each fans out over that customer's
+    orders through K24) and 512 order changes; the sink must equal the
     dict model change for change, no overflow.  Prints records/s and the
     p50/p99 step."""
     from ksql_tpu_torch.runner import start_plan
@@ -5263,6 +5308,8 @@ def _pv_columns(rng, n, nulls=TAP_NULLS):
 def _corpus_predicates(pex):
     """2p's corpus families over PAGE_VIEWS: per family a function of the
     lane's index to its predicate (port expressions)."""
+    from ksql_tpu_torch.common import types as PT
+
     C = pex.ColumnRef
     op = pex.CompareOp
 
@@ -5290,6 +5337,22 @@ def _corpus_predicates(pex):
         "not_in": lambda i: pex.InList(C("USER_ID"), (lit(i), lit(2 * i)), negated=True),
         "div": lambda i: cmp("GT", pex.ArithmeticBinary(pex.ArithOp.DIVIDE, C("VIEWTIME"), C("USER_ID")),
                              lit(TS0 // (i + 1))),
+        # CAST: a double truncated to INT, a BIGINT to DECIMAL(4, 1) (NULL
+        # past its precision), a TIMESTAMP floored to its DATE
+        "cast": lambda i: both(both(
+            cmp("GT", pex.Cast(pex.ArithmeticBinary(pex.ArithOp.MULTIPLY, pex.Cast(C("USER_ID"), PT.DOUBLE),
+                                                    pex.DoubleLiteral(1.5)), PT.INTEGER), lit(i)),
+            cmp("LT", pex.Cast(C("USER_ID"), PT.SqlType.decimal(4, 1)), lit(900 - i))),
+            cmp("GTE", pex.Cast(pex.Cast(C("VIEWTIME"), PT.TIMESTAMP), PT.DATE),
+                pex.Cast(lit(TS0 // 86_400_000 - (i % 2)), PT.DATE))),
+        # CASE: searched with and without ELSE over mixed numeric results
+        "case": lambda i: both(
+            cmp("GT", pex.SearchedCase((pex.WhenClause(cmp("EQ", C("URL"), lit(f"/page/{i}")), lit(5000)),
+                                        pex.WhenClause(pex.IsNull(C("USER_ID")), lit(-1))),
+                                       C("USER_ID")), lit(3 * i)),
+            pex.Not(cmp("EQ", pex.SearchedCase((pex.WhenClause(cmp("GT", C("USER_ID"), lit(i)),
+                                                               pex.DoubleLiteral(0.5)),), None),
+                        pex.DoubleLiteral(0.5))), "OR"),
     }
 
 
@@ -5578,10 +5641,462 @@ def phase_push_listener(torch, seed, rounds=LISTENER_ROUNDS):
                 cpu_seconds=cpu_stats["seconds"])
 
 
+# ---------------------------------------- phases 2a, 22-23s (B3 argset)
+ARGSET_FILL = 0.7  # phase 2a's store: 70% of the slots hold a window, with graves
+ARGSET_NEVER = 0.1  # of the held slots, the share that never had a candidate (init order)
+RIDER_ROWS = 1 << 16  # phase 22: 8 x 65,536 location records
+RIDER_BATCHES = 8
+RIDER_PROFILES = 300_000  # uniform profile ids: 0.29 load of 2^20 slots
+RIDER_NULLS = 0.02  # the share of NULL latitudes
+OFFSET_NULLS = 0.02  # phases 23-23s: the share of NULL USER_IDs
+OFFSET_BATCHES = 8  # phase 23: the flagship's 8 x 65,536
+OFFSET_HOP_BATCHES = 8  # phase 23h: phase 8's 8 x 16,384, k = 4
+OFFSET_SESS_BATCHES = 4  # phase 23s: 4 x 8,192 (phase 11's batch, half its depth)
+CURRENT_LOCATION_PLAN = os.path.join(_PLANS, "current_location.json")
+OFFSETS_PLAN = os.path.join(_PLANS, "pv_offsets.json")
+OFFSETS_HOP_PLAN = os.path.join(_PLANS, "pv_offsets_hopping.json")
+OFFSETS_SESS_PLAN = os.path.join(_PLANS, "pv_offsets_session.json")
+I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def argset_components(hs):
+    """The offset aggregates' store components (ops/device_aggs.py): the ts
+    watermark, then EARLIEST (int64 min order, a float64 value and its
+    valid bit) and LATEST (int64 max order, an int64 value, its valid bit)."""
+    A = hs.AggComponent
+    return (A("max", "int64", I64_MIN), A("min", "int64", I64_MAX), A("argset", "float64", 0),
+            A("argset", "int32", 0), A("max", "int64", I64_MIN), A("argset", "int64", 0),
+            A("argset", "int32", 0))
+
+
+def _payload_doubles(rng, n):
+    v = rng.normal(0, 100, n)
+    sp = np.array([-0.0, 0.0, np.nan, -np.nan, np.inf])
+    pick = rng.random(n) < 0.1
+    v[pick] = sp[rng.integers(0, sp.size, int(pick.sum()))]
+    return v
+
+
+def make_argset_case(torch, hs, rng, dev, n=N_ROWS, capacity=STORE):
+    """Phase 2a's K3 case, after K3's fold settled the orders: a store of
+    ``capacity`` slots, 70% of them holding a window (5% graves; a tenth of
+    the held slots never had a candidate, so their orders are the init),
+    the others' orders sequence numbers of earlier batches and their
+    payloads set; a batch of ``n`` rows whose sequence numbers continue
+    them, zipf(1.3) over the held slots, 3% inactive (aimed at the dump,
+    identity contributions), 1% active but overflowed (the dump), and
+    NULL values where EARLIEST ignores them and LATEST(x, false) does not
+    (a row there is no candidate, or a candidate with a NULL payload);
+    float payloads with -0.0, +0.0, NaN and inf.  Returns (store, scratch,
+    layout, slots, contribs) on ``dev``."""
+    comps = argset_components(hs)
+    layout = hs.StoreLayout(capacity=capacity, num_keys=1, components=comps, windowed=True)
+    st = hs.init_store(layout, "cpu")
+    held = np.nonzero(rng.random(capacity) < ARGSET_FILL)[0]
+    st["occ"][torch.from_numpy(held)] = True
+    graves = np.nonzero(rng.random(capacity) < 0.05)[0]
+    graves = graves[~np.isin(graves, held)]
+    st["grave"][torch.from_numpy(graves)] = True
+    seq0 = 1 << 40
+    seen = held[rng.random(held.size) >= ARGSET_NEVER]
+    old = rng.choice(seq0, 2 * seen.size, replace=False)
+    for j, vals in ((1, old[: seen.size]), (4, old[seen.size:])):
+        st[f"a{j}"][torch.from_numpy(seen)] = torch.from_numpy(vals.astype(np.int64))
+    st["a2"][torch.from_numpy(seen)] = torch.from_numpy(_payload_doubles(rng, seen.size))
+    st["a3"][torch.from_numpy(seen)] = torch.from_numpy((rng.random(seen.size) < 0.9).astype(np.int32))
+    st["a5"][torch.from_numpy(seen)] = torch.from_numpy(rng.integers(-10**12, 10**12, seen.size))
+    st["a6"][torch.from_numpy(seen)] = torch.from_numpy((rng.random(seen.size) < 0.9).astype(np.int32))
+    slots = held[(rng.zipf(1.3, n) - 1) % held.size].astype(np.int32)
+    active = rng.random(n) >= 0.03
+    slots[~active] = capacity
+    slots[rng.random(n) < 0.01] = capacity  # overflowed: active, at the dump
+    seq = seq0 + np.arange(n, dtype=np.int64)
+    valid = rng.random(n) >= 0.1
+    e_cand = active & valid  # EARLIEST ignores NULLs
+    l_cand = active.copy()  # LATEST(x, false) takes them
+    x = _payload_doubles(rng, n)
+    y = rng.integers(-10**12, 10**12, n)
+    contribs = [
+        np.where(active, TS0 + np.arange(n), I64_MIN).astype(np.int64),
+        np.where(e_cand, seq, I64_MAX), np.where(e_cand, x, 0.0), (e_cand & valid).astype(np.int32),
+        np.where(l_cand, seq, I64_MIN), np.where(l_cand, y, 0), (l_cand & valid).astype(np.int32),
+    ]
+    contribs = [torch.from_numpy(c) for c in contribs]
+    slots_t = torch.from_numpy(slots)
+    hs.fold_and_mark_plain(st, layout, slots_t, contribs, torch.from_numpy(active))
+    store = {k: v.to(dev) for k, v in st.items()}
+    return (store, hs.init_scratch(capacity, dev), layout, slots_t.to(dev),
+            [c.to(dev) for c in contribs])
+
+
+def argset_bytes(slots, contribs, layout, hs, winners):
+    """K3 argset's bytes: per row its slot, each order component's
+    contribution and the order cell at its slot, and each payload's
+    contribution, all read once; per winning (row, payload) the payload
+    written (``winners``: payload component -> winning rows); the dump
+    cell of each payload written once."""
+    n = slots.shape[0]
+    pairs = hs.argset_pairs(layout)
+    total = 4 * n
+    for o in sorted({o for _j, o in pairs}):
+        total += 2 * n * contribs[o].element_size()
+    for j, _o in pairs:
+        total += (n + winners[j] + 1) * contribs[j].element_size()
+    return total
+
+
+def make_merge_case(torch, sess, hs, rng, dev, n=SESS_ROWS, slots=SESS_2W_SLOTS, keys=N_URLS, ties=False):
+    """Phase 2a's K15 case at phase 2w's shapes, in K14's item layout: n rows
+    of zipf(1.3) keys over 50,000 URLs, 17 ms apart, 3% inactive (dead),
+    then the S stored-session items of each row, alive for a key's first
+    row where a session was stored (half of them), starts up to 30 s
+    gaps apart, the other store items dead (key ``SENTINEL + index``, start
+    and end 0, as K14 leaves them).  The offsets' components: orders are
+    unique sequence numbers (a tenth of the items no candidate: the
+    init), payloads with -0.0, +0.0, NaN and inf; ``ties`` takes the orders
+    modulo 50, so a segment's alive items tie on its order and its payload
+    is their sum.  Returns (items, perm, components) on ``dev``."""
+    comps = argset_components(hs)
+    m = n * (slots + 1)
+    row_kh = (rng.zipf(1.3, n) % keys).astype(np.int64) * 7919 + 11
+    first = np.zeros(n, bool)
+    first[np.unique(row_kh, return_index=True)[1]] = True
+    kh = np.concatenate([row_kh, np.tile(row_kh, slots)])
+    start = np.concatenate([TS0 + np.arange(n, dtype=np.int64) * SESS_STEP_MS,
+                            TS0 - rng.integers(1, 40, n * slots) * SESS_GAP_MS])
+    end = start + rng.integers(0, SESS_GAP_MS, m)
+    end[:n] = start[:n]
+    alive = np.concatenate([rng.random(n) >= 0.03, np.tile(first, slots) & (rng.random(n * slots) < 0.5)])
+    dead = np.nonzero(~alive)[0]
+    kh[dead] = sess.SENTINEL + dead
+    start[dead] = 0
+    end[dead] = 0
+    seqs = rng.permutation(m * 4)[:m].astype(np.int64)
+    if ties:
+        seqs %= 50
+    nocand = rng.random(m) < 0.1
+    cols = [
+        end.copy(), np.where(nocand, I64_MAX, seqs), _payload_doubles(rng, m),
+        (rng.random(m) < 0.9).astype(np.int32), np.where(nocand, I64_MIN, seqs[::-1].copy()),
+        rng.integers(-10**12, 10**12, m), (rng.random(m) < 0.9).astype(np.int32),
+    ]
+    items = {
+        "kh": torch.from_numpy(kh).to(dev), "start": torch.from_numpy(start).to(dev),
+        "end": torch.from_numpy(end).to(dev), "alive": torch.from_numpy(alive).to(dev),
+        "slot": torch.from_numpy(rng.integers(0, SESS_STORE + 1, m).astype(np.int32)).to(dev),
+        "reprs": torch.from_numpy(row_kh[np.arange(m) % n][None, :].copy()).to(dev),
+        "comps": [torch.from_numpy(c).to(dev) for c in cols],
+    }
+    perm = sess.seg_sort_plain(items["kh"].cpu(), items["start"].cpu()).to(dev)
+    return items, perm, comps
+
+
+def merge_bytes(m, nseg, k, cb):
+    """K15's bytes over ``m`` items in ``nseg`` segments, ``k`` key columns
+    and ``cb`` component bytes an item: the permutation and each item
+    column read once, the sorted items and their per-item outputs written
+    once, the segment columns written once per segment, the overflow
+    count once."""
+    return m * (4 + 29 + 8 * k + cb) + m * (30 + 8 * k + cb + 19 + 8 * k) + nseg * (26 + 8 * k + cb) + 8
+
+
+def check_merge_argset(torch, sess, items, perm, comps, n, slots, capacity, what):
+    """K15's argset mode launched once (and counted) on the items, held to
+    its twin by the bits: every sorted item column, and every segment
+    value read through segfirst.  Returns the twin's outputs."""
+    before = sess.session_merge.mode_launches["argset"]
+    got = sess.session_merge(items, perm, n, slots, SESS_GAP_MS, comps, capacity)
+    require(sess.session_merge.mode_launches["argset"] == before + 1, f"{what} counted no launch")
+    want = sess.session_merge_plain(items, perm, n, slots, SESS_GAP_MS, comps, capacity)
+
+    def bits(x):
+        return x.view(torch.int64) if x.dtype == torch.float64 else x
+
+    sf = want["segfirst"].long()
+    for keys, pick in ((sess.MERGE_ITEM_KEYS + ("sess_ovf",), lambda x: x),
+                       (sess.MERGE_SEG_KEYS, lambda x: x[..., sf])):
+        for key in keys:
+            g, w = got[key], want[key]
+            for a, b in (zip(g, w) if isinstance(g, list) else ((g, w),)):
+                _assert_equal(torch, f"session_merge[argset].{key}", bits(pick(a)), bits(pick(b)))
+    return want
+
+
+def phase_argset_kernels(torch, seed):
+    """Phase 2a: K3's argset mode at the flagship's shapes and K15's argset
+    mode at 2w's, exact against their twins (every component, the dump
+    slot included; K15's sorted items and its segment values through
+    segfirst, also over tied orders).  Returns ``{kernel: {"argset": record}}``."""
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.ops import session as sess
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 70)
+    store, scratch, layout, slots, contribs = make_argset_case(torch, hs, rng, dev)
+    base = _clone(store)
+    want = _clone(store)
+    hs.fold_argset_plain(want, layout, slots, contribs)
+    before = hs.fold_and_mark.mode_launches["argset"]
+    hs.fold_argset(store, scratch, layout, slots, contribs)
+    require(hs.fold_and_mark.mode_launches["argset"] == before + 1, "2a: K3 argset counted no launch")
+    err = max(_assert_equal(torch, f"fold_and_mark[argset].{k}", store[k].view(torch.int64)
+                            if store[k].dtype == torch.float64 else store[k],
+                            want[k].view(torch.int64) if want[k].dtype == torch.float64 else want[k])
+              for k in store)
+    require(int((scratch["dump_row"] != -1).sum()) == 0, "2a: K3 argset left a dump cell set")
+    n = slots.shape[0]
+    cap = layout.capacity
+    per_payload = {j: int(((slots != cap) & (contribs[o] == want[f"a{o}"][slots.long()])).sum())
+                   for j, o in hs.argset_pairs(layout)}
+    winners = sum(per_payload.values())
+    lib_slots = torch.where(slots == cap, torch.zeros_like(slots), slots).long()
+    rec = measure(torch, "fold_and_mark", lambda: hs.fold_argset(store, scratch, layout, slots, contribs),
+                  lambda: hs.fold_argset_plain(store, layout, slots, contribs),
+                  argset_bytes(slots, contribs, layout, hs, per_payload), 0,
+                  reset=lambda: _restore(store, base),
+                  library=lambda: [store[f"a{j}"].index_put_((lib_slots,), contribs[j].to(store[f"a{j}"].dtype))
+                                   for j, _o in hs.argset_pairs(layout)])
+    rec.update(max_abs_err=err, rows=n, winners=winners)
+    _report("2a", f"fold_and_mark[argset] ({n} rows into {cap} + 1 slots, {winners} winning (row, "
+            "component) pairs; yardstick index_put_, whose duplicate order is unspecified, so it "
+            "cannot keep the dump rule)", rec)
+    out = {"fold_and_mark": {"argset": rec}}
+    for ties in (True, False):  # the case with ties is checked, the other also timed
+        items, perm, comps = make_merge_case(torch, sess, hs, rng, dev, ties=ties)
+        want = check_merge_argset(torch, sess, items, perm, comps, SESS_ROWS, SESS_2W_SLOTS, SESS_STORE,
+                                  "2a: K15 argset" + (" with tied orders" if ties else ""))
+    m = perm.shape[0]
+    segs = int(want["winner"].sum())
+    nseg = int((want["segfirst"] == torch.arange(m, device=dev, dtype=torch.int32)).sum())
+    cb = sum(c.element_size() for c in items["comps"])
+    rec = measure(torch, "session_merge",
+                  lambda: sess.session_merge(items, perm, SESS_ROWS, SESS_2W_SLOTS, SESS_GAP_MS, comps,
+                                             SESS_STORE),
+                  lambda: sess.session_merge_plain(items, perm, SESS_ROWS, SESS_2W_SLOTS, SESS_GAP_MS,
+                                                   comps, SESS_STORE),
+                  merge_bytes(m, nseg, items["reprs"].shape[0], cb), 0, plain_reps=3)
+    rec.update(max_abs_err=0.0, items=m, segments=segs)
+    _report("2a", f"session_merge[argset] ({m} items, {segs} segments, 7 components; no single "
+            "PyTorch call computes it)", rec)
+    out["session_merge"] = {"argset": rec}
+    print(f"[2a] seconds {time.perf_counter() - t0:.1f}")
+    return out
+
+
+def rider_traffic(seed, n_batches=RIDER_BATCHES, rows=RIDER_ROWS):
+    """Phase 22's records: profile ids uniform over RIDER_PROFILES, 2% NULL
+    latitudes, latitudes and longitudes uniform, 17 ms apart."""
+    rng = np.random.default_rng(seed + 80)
+    n = n_batches * rows
+    pid = rng.integers(0, RIDER_PROFILES, n)
+    lat = np.round(rng.uniform(-90, 90, n), 6)
+    lon = np.round(rng.uniform(-180, 180, n), 6)
+    null = rng.random(n) < RIDER_NULLS
+    return pid, lat, lon, null, TS0 + np.arange(n, dtype=np.int64) * 17
+
+
+def produce_riders(broker, pid, lat, lon, null, ts):
+    from ksql_tpu_torch.runtime.topics import Record
+
+    topic = broker.create_topic("locations")
+    for p, a, o, z, t in zip(pid.tolist(), lat.tolist(), lon.tolist(), null.tolist(), ts.tolist()):
+        la = "null" if z else repr(a)
+        topic.produce(Record(key=None, value=f'{{"PROFILEID":"p{p}","LATITUDE":{la},"LONGITUDE":{o!r}}}',
+                             timestamp=t))
+
+
+def _run_offsets(torch, plan_json, produce, device, rows, store, batch_s=None, path=None, **kw):
+    """``run_plan`` over freshly produced records (``produce(broker)``);
+    launches zeroed before and read after when ``path`` is given."""
+    from ksql_tpu_torch.runner import run_plan
+    from ksql_tpu_torch.runtime.topics import Broker
+
+    broker = Broker()
+    produce(broker)
+    undo = _timed_batches(torch, batch_s) if batch_s is not None else (lambda: None)
+    try:
+        if path is not None:
+            zero_launches()
+        t0 = time.perf_counter()
+        ex = run_plan(plan_json, broker, device=device, capacity=rows, store_capacity=store, **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        undo()
+    if path is not None:
+        PATH_LAUNCHES[path] = read_launches()
+        check_path_launches(path, PATH_LAUNCHES[path])
+    return broker, ex, secs
+
+
+def _offsets_e2e(torch, plan_json, produce, topic, n, rows, store, tag, **kw):
+    """One offsets plan on the card (launches held to ``PATH_KERNELS[tag]``)
+    and on the CPU: the sinks must be equal, nothing may overflow."""
+    torch.cuda.reset_peak_memory_stats()
+    batch_s = []
+    broker, ex, secs = _run_offsets(torch, plan_json, produce, DEVICE, rows, store, batch_s, tag, **kw)
+    peak = torch.cuda.max_memory_allocated()
+    q = ex.query
+    require(int(q.state["overflow"]) == 0, f"{tag}: store overflowed")
+    require(int(q.state["agg_seq"]) > 0, f"{tag}: the arrival sequence did not advance")
+    cpu_broker, _ex, cpu_secs = _run_offsets(torch, plan_json, produce, "cpu", rows, store, **kw)
+    sink = sink_records(broker, topic)
+    require(sink == sink_records(cpu_broker, topic), f"{tag}: card sink differs from the CPU run")
+    p50, p99 = np.percentile(np.array(batch_s) * 1e3, [50, 99])
+    return broker, q, dict(events_per_s=n / secs, p50_ms=p50, p99_ms=p99, peak_bytes=peak,
+                           sink_records=len(sink), cpu_s=cpu_secs, store_slots=q.store_capacity,
+                           grows=q.grows)
+
+
+def phase_current_location(torch, plan_json, seed):
+    """Phase 22: the ksqlDB quickstart's currentLocation
+    (``current_location.json``: LATEST_BY_OFFSET of LATITUDE and LONGITUDE
+    per PROFILEID) over 8 x 65,536 records of 300,000 uniform profile ids
+    with 2% NULL latitudes into a 2^20-slot store: the sink must equal the
+    CPU run record for record, the last LA/LO per profile the last non-NULL
+    value in arrival order, no overflow."""
+    t0 = time.perf_counter()
+    pid, lat, lon, null, ts = rider_traffic(seed)
+    n = pid.size
+    broker, q, rec = _offsets_e2e(
+        torch, plan_json, lambda b: produce_riders(b, pid, lat, lon, null, ts), "CURRENTLOCATION", n,
+        RIDER_ROWS, STORE, "22")
+    last = {}
+    for key, value, _t, _w in sink_records(broker, "CURRENTLOCATION"):
+        last[key] = json.loads(value)
+    want_la, want_lo = {}, {}
+    for p, a, o, z in zip(pid.tolist(), lat.tolist(), lon.tolist(), null.tolist()):
+        want_lo[f"p{p}"] = o
+        if not z:
+            want_la[f"p{p}"] = a
+    require(set(last) == set(want_lo), f"22: {len(last)} profiles in the sink, {len(want_lo)} sent")
+    bad = sum(1 for k, v in last.items() if v["LA"] != want_la.get(k) or v["LO"] != want_lo[k])
+    require(bad == 0, f"22: {bad} profiles' last LA/LO differ from the numpy model")
+    print(f"[22] current_location: {n} events in batches of {RIDER_ROWS}, {len(last)} profiles, "
+          f"{rec['sink_records']} sink records; {rec['events_per_s']:.1f} events/s; batch p50 "
+          f"{rec['p50_ms']:.3f} ms p99 {rec['p99_ms']:.3f} ms; peak device memory {rec['peak_bytes']} B; "
+          f"store {q.store_capacity} slots; sink equals the CPU run ({rec['cpu_s']:.3f} s), last "
+          f"LA/LO equal the numpy model, overflow 0; seconds {time.perf_counter() - t0:.1f}")
+    return dict(rec, profiles=len(last))
+
+
+def offsets_traffic(seed, n_batches, rows):
+    """Phase 6's traffic shape (50,000 URLs zipf(1.3), USER_ID 1..999, 17 ms
+    apart) with 2% NULL USER_IDs: (url_idx, uid or -1 for NULL, ts)."""
+    rng = np.random.default_rng(seed + 90)
+    n = n_batches * rows
+    url_idx = rng.zipf(1.3, n).astype(np.int64) % N_URLS
+    uid = rng.integers(1, 1000, n)
+    uid[rng.random(n) < OFFSET_NULLS] = -1
+    return url_idx, uid, TS0 + np.arange(n, dtype=np.int64) * 17
+
+
+def produce_offsets(broker, url_idx, uid, ts):
+    from ksql_tpu_torch.runtime.topics import Record
+
+    topic = broker.create_topic("page_views")
+    for u, x, t in zip(url_idx.tolist(), uid.tolist(), ts.tolist()):
+        xs = "null" if x < 0 else str(x)
+        topic.produce(Record(key=None, value=f'{{"URL":"/page/{u}","USER_ID":{xs},"VIEWTIME":{t}}}',
+                             timestamp=t))
+
+
+def offsets_model(groups):
+    """pv_offsets' final values per group from its USER_IDs in arrival
+    order (-1 for NULL): the first non-NULL id; the last record's id x 0.1
+    (NULLs kept); the ids over 500; max |id - 500| over the non-NULL ids;
+    their exact sum."""
+    out = {}
+    for k, xs in groups.items():
+        vals = [x for x in xs if x >= 0]
+        out[k] = {"FIRST_USER": vals[0] if vals else None,
+                  "LAST_SCORE": None if xs[-1] < 0 else float(xs[-1]) * 0.1,
+                  "HIGH_USERS": sum(1 for x in vals if x > 500),
+                  "MAX_DIST": max(abs(x - 500) for x in vals) if vals else None,
+                  "USER_SUM": sum(vals)}
+    return out
+
+
+def _check_offsets(last, want, tag):
+    require(set(last) == set(want), f"{tag}: {len(last)} keys in the sink, {len(want)} in the model")
+    bad = 0
+    for k, w in want.items():
+        g = dict(last[k])
+        g["USER_SUM"] = int(round(g["USER_SUM"] * 100))
+        if g != dict(w, USER_SUM=100 * w["USER_SUM"]):
+            bad += 1
+    require(bad == 0, f"{tag}: {bad} keys' final values differ from the numpy model")
+
+
+def phase_pv_offsets(torch, plans, seed):
+    """Phases 23, 23h and 23s: pv_offsets.json (EARLIEST/LATEST_BY_OFFSET,
+    a CASE in a SUM, MAX(ABS(...)), a DECIMAL SUM over a CAST, per URL and
+    hour) over the flagship's 8 x 65,536 records with 2% NULL USER_IDs;
+    its HOPPING variant over phase 8's 8 x 16,384 (the expansion route:
+    the offsets do not slice) and its SESSION variant over phase 11's
+    batch.  Each sink must equal the CPU run, every final value per (URL,
+    window) the numpy model (the DECIMAL sum exactly), nothing overflows."""
+    out = {}
+    for tag, name, rows, n_batches, store in (("23", "pv_offsets", N_ROWS, OFFSET_BATCHES, STORE),
+                                              ("23h", "pv_offsets_hopping", HOP_ROWS, OFFSET_HOP_BATCHES,
+                                               STORE),
+                                              ("23s", "pv_offsets_session", SESS_ROWS,
+                                               OFFSET_SESS_BATCHES, SESS_STORE)):
+        t0 = time.perf_counter()
+        url_idx, uid, ts = offsets_traffic(seed, n_batches, rows)
+        n = url_idx.size
+        topic = name.upper()
+        kw = {"sliced": None} if tag == "23h" else {}
+        if tag == "23s":
+            kw["session_slots"] = SESS_SLOTS
+        broker, q, rec = _offsets_e2e(torch, plans[name], lambda b: produce_offsets(b, url_idx, uid, ts),
+                                      topic, n, rows, store, tag, **kw)
+        groups: dict = {}
+        if tag == "23s":
+            last = {}
+            for key, value, _t, w in sink_records(broker, topic):
+                if value is None:
+                    last.pop((key, w[0], w[1]), None)
+                else:
+                    last[(key, w[0], w[1])] = json.loads(value)
+            order = np.lexsort((ts, url_idx))
+            u_s, t_s, x_s = url_idx[order], ts[order], uid[order]
+            new = np.ones(n, bool)
+            new[1:] = (u_s[1:] != u_s[:-1]) | (t_s[1:] - t_s[:-1] > SESS_GAP_MS)
+            starts = np.nonzero(new)[0]
+            for s_, e_ in zip(starts, np.append(starts[1:], n) - 1):
+                groups[(f"/page/{u_s[s_]}", int(t_s[s_]), int(t_s[e_]))] = x_s[s_:e_ + 1].tolist()
+        else:
+            last = {(k, w[0]): json.loads(v) for k, v, _t, w in sink_records(broker, topic)}
+            size, adv = HOUR_MS, (HOP_ADVANCE_MS if tag == "23h" else HOUR_MS)
+            for u, x, t in zip(url_idx.tolist(), uid.tolist(), ts.tolist()):
+                w = t - t % adv
+                while w > t - size:
+                    groups.setdefault((f"/page/{u}", w), []).append(x)
+                    w -= adv
+        _check_offsets(last, offsets_model(groups), tag)
+        route = ""
+        if tag == "23h":
+            require(not q.sliced and q.expansion == 4, "23h: not the expansion route")
+            route = f"; expansion route: {q.windowing_fallback}"
+            rec["windowing_fallback"] = q.windowing_fallback
+        print(f"[{tag}] {name}: {n} events in batches of {rows}, {len(groups)} groups, "
+              f"{rec['sink_records']} sink records; {rec['events_per_s']:.1f} events/s; batch p50 "
+              f"{rec['p50_ms']:.3f} ms p99 {rec['p99_ms']:.3f} ms; peak device memory {rec['peak_bytes']} B; "
+              f"store {q.store_capacity} slots after {q.grows} grows; sink equals the CPU run "
+              f"({rec['cpu_s']:.3f} s), final values equal the numpy model (DECIMAL sums exact), overflow 0"
+              f"{route}; seconds {time.perf_counter() - t0:.1f}")
+        out[name] = dict(rec, groups=len(groups))
+    return out
+
+
 REPLACES = {
     "row_prologue": "ksql_tpu/ops/hash_store.py:48 (mix64), :58 (combine_hash); ksql_tpu/runtime/lowering.py:3802 (pre_exchange), :2284 (_trace_table_step key hash), :3483 (pre_session_exchange key hash), :2807/:2526/:2605 (_trace_tt_step/_trace_fk_left/_trace_fk_right key hash); ksql_tpu/ops/window.py:63 (hopping_starts), :82 (expand)",
     "probe_insert": "ksql_tpu/ops/hash_store.py:126 (probe_insert)",
-    "fold_and_mark": "ksql_tpu/ops/hash_store.py:502 (scatter_combine), :567 (winners_per_slot)",
+    "fold_and_mark": "ksql_tpu/ops/hash_store.py:502 (scatter_combine; its argset branch :552-558 in the "
+                     "argset mode), :567 (winners_per_slot)",
     "evict": "ksql_tpu/runtime/lowering.py:4239 (_trace_evict; the suppress guard and hpass clear, "
              ":4262-4273)",
     "sliced_fold": "ksql_tpu/runtime/lowering.py:1988 (_sliced_scatter)",
@@ -5602,7 +6117,8 @@ REPLACES = {
     "session_items": "ksql_tpu/runtime/lowering.py:3483 (pre_session_exchange: the late drop), :3537 "
                      "(post_session_exchange: first_occ and the stored-session gather, :3557-3617)",
     "session_merge": "ksql_tpu/runtime/lowering.py:3537 (post_session_exchange: the sort-apply, "
-                     "segmented scan, segment folds and rank, :3618-3715)",
+                     "segmented scan, segment folds and rank, :3618-3715; the argset segment sum "
+                     ":3671-3694 in the argset mode)",
     "session_write": "ksql_tpu/runtime/lowering.py:3537 (post_session_exchange: the deletes, the store "
                      "writes and the emission lanes, :3696-3799)",
     "suppress_clock": "ksql_tpu/runtime/lowering.py:3802 (pre_exchange: the suppress lanes, the running "
@@ -5621,10 +6137,10 @@ REPLACES = {
                     "(_LaneGroup.fn, _trace_group)",
 }
 #: the record each kernel's JSON entry carries; the other modes ride along
-MAIN_MODE = {"row_prologue": "tumbling", "evict": "tumbling", "combine_windows": "sliced",
+MAIN_MODE = {"fold_and_mark": "fold", "row_prologue": "tumbling", "evict": "tumbling", "combine_windows": "sliced",
              "sliced_fold": "sliced", "member_lanes": "sliced", "probe_find": "join",
              "table_upsert": "join", "ss_match": "write", "ss_insert": "write", "ss_expire": "ss",
-             "seg_sort": "items", "session_items": "items", "session_merge": "session",
+             "seg_sort": "items", "session_items": "items", "session_merge": "merge",
              "session_write": "write", "vec_collect": "append", "vec_topk": "plain", "vec_hist": "hist",
              "vec_remove": "remove", "fk_fanout": "fanout", "tap_residual": "256x4096"}
 
@@ -5669,6 +6185,7 @@ def main() -> int:
     t_start = time.perf_counter()
     kind, smi = phase_device_and_build(torch)
     recs = {name: {"tumbling": rec} for name, rec in phase_kernels(torch, args.seed).items()}
+    recs["fold_and_mark"]["fold"] = recs["fold_and_mark"].pop("tumbling")
     for name, modes in phase_hop_kernels(torch, args.seed).items():
         recs.setdefault(name, {}).update(modes)
     for name, modes in phase_join_kernels(torch, args.seed).items():
@@ -5714,6 +6231,11 @@ def main() -> int:
     t_tap = time.perf_counter()
     recs["tap_residual"] = phase_tap_kernels(torch, args.seed)
     tap_s = time.perf_counter() - t_tap
+    # the offsets' phases (2a, 22, 23, 23h, 23s), timed together
+    t_off = time.perf_counter()
+    for name, modes in phase_argset_kernels(torch, args.seed).items():
+        recs.setdefault(name, {}).update(modes)
+    off_s = time.perf_counter() - t_off
     with open("ksql_tpu_torch/plans/pv_counts_tumbling.json") as f:
         plan_json = json.load(f)
     with open("ksql_tpu_torch/plans/pv_stats_hopping.json") as f:
@@ -5783,24 +6305,36 @@ def main() -> int:
     e2e["push_fanout"] = phase_push_fanout(torch, args.seed)
     e2e["push_listener"] = phase_push_listener(torch, args.seed)
     tap_s += time.perf_counter() - t_tap
+    t_off = time.perf_counter()
+    off_plans = {}
+    for name, path in (("current_location", CURRENT_LOCATION_PLAN), ("pv_offsets", OFFSETS_PLAN),
+                       ("pv_offsets_hopping", OFFSETS_HOP_PLAN), ("pv_offsets_session", OFFSETS_SESS_PLAN)):
+        with open(path) as f:
+            off_plans[name] = json.load(f)
+    e2e["current_location"] = phase_current_location(torch, off_plans["current_location"], args.seed)
+    e2e.update(phase_pv_offsets(torch, off_plans, args.seed))
+    off_s += time.perf_counter() - t_off
     require(sorted(PATH_LAUNCHES) == sorted(PATH_KERNELS), f"paths run: {sorted(PATH_LAUNCHES)}")
     for w in wrappers:  # every kernel of K1-K25 is on some path, in every mode
         for mode in w.__dict__.get("mode_launches", {"all": 0}):
             require(sum(PATH_LAUNCHES[p][w.__name__][mode] for p in PATH_LAUNCHES) > 0,
                     f"kernel {w.__name__}[{mode}] was launched on no path")
-    url_idx, ts = _flagship_head(args.seed)
+    url_idx, ts = _flagship_head(args.seed, BREAKDOWN_BATCHES)
     e2e["breakdown"] = phase_breakdown(
-        torch, lambda: run_main_path(torch, plan_json, url_idx, ts, DEVICE, STORE)[2], 4, "3b")
-    url_idx, uid, ts = hop_traffic(args.seed, n_batches=4)
+        torch, lambda: run_main_path(torch, plan_json, url_idx, ts, DEVICE, STORE)[2], BREAKDOWN_BATCHES, "3b")
+    url_idx, uid, ts = hop_traffic(args.seed, n_batches=BREAKDOWN_BATCHES)
     e2e["hopping_breakdown"] = phase_breakdown(
         torch, lambda: run_main_path(torch, hop_json, url_idx, ts, DEVICE, STORE, rows=HOP_ROWS,
-                                     user_ids=uid)[2], 4, "6b")
-    e2e["join_breakdown"] = phase_breakdown(torch, _join_head(torch, join_json, args.seed), 4, "9b")
+                                     user_ids=uid)[2], BREAKDOWN_BATCHES, "6b")
+    e2e["join_breakdown"] = phase_breakdown(torch, _join_head(torch, join_json, args.seed, BREAKDOWN_BATCHES),
+                                            BREAKDOWN_BATCHES, "9b")
     t_ss = time.perf_counter()
-    e2e["ss_breakdown"] = phase_breakdown(torch, _ss_head(torch, ss_json, args.seed), 4, "10b")
+    e2e["ss_breakdown"] = phase_breakdown(torch, _ss_head(torch, ss_json, args.seed, n_batches=BREAKDOWN_BATCHES),
+                                          BREAKDOWN_BATCHES, "10b")
     ss_s += time.perf_counter() - t_ss
     t_sess = time.perf_counter()
-    e2e["session_breakdown"] = phase_breakdown(torch, _session_head(torch, sess_json), 4, "11b")
+    e2e["session_breakdown"] = phase_breakdown(torch, _session_head(torch, sess_json, n_batches=BREAKDOWN_BATCHES),
+                                               BREAKDOWN_BATCHES, "11b")
     sess_s += time.perf_counter() - t_sess
     t_vec = time.perf_counter()
     e2e["vector_breakdown"] = phase_breakdown(torch, _vector_head(torch, vec_json, args.seed),
@@ -5815,7 +6349,8 @@ def main() -> int:
     print(f"total seconds {time.perf_counter() - t_start:.1f} (phases 2s, 10, 10g and 10b: {ss_s:.1f}; "
           f"phases 2w, 11, 11g and 11b: {sess_s:.1f}; phases 2f, 12 (with 12b) to 13r: {final_s:.1f}; "
           f"phases 2v, 14, 14h and 14b: {vec_s:.1f}; phases 2t, 15, 16, 17 and 15b: {ta_s:.1f}; "
-          f"phases 2x, 18, 18b, 18g and 19: {tj_s:.1f}; phases 2p, 20 and 21: {tap_s:.1f})")
+          f"phases 2x, 18, 18b, 18g and 19: {tj_s:.1f}; phases 2p, 20 and 21: {tap_s:.1f}; "
+          f"phases 2a, 22, 23, 23h and 23s: {off_s:.1f})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,18 +6,30 @@ three-valued logic riding the ``valid`` mask.  STRING/BYTES columns are
 hash-encoded (``runtime/device.py``): ``data`` holds the stable 64-bit hash,
 so equality and GROUP BY work on the card.
 
-This slice covers column references, literals, comparison, arithmetic,
+It covers column references, literals, comparison, arithmetic,
 AND/OR/NOT, IS [NOT] NULL, BETWEEN and IN (rewritten into comparisons
-and ORs, as the reference does).  Every other node raises
+and ORs, as the reference does), CAST, searched and simple CASE, struct
+field access (through the flattened ``ROOT->F.G`` path columns the batch
+layout extracts) and the device function table (``AS_VALUE``, ABS, ROUND,
+FLOOR, CEIL, EXP, LN, SQRT, SIGN, GREATEST, LEAST, COALESCE, IFNULL), with
+the reference's rules and refusals.  Every other node raises
 :class:`DeviceUnsupported`.  The tensors live on the compiler's ``device``;
 the arithmetic is elementwise torch and runs eagerly on the card, as XLA
 fused it on the TPU.
+
+Two of XLA's conversions are spelled out, since torch leaves them to the
+platform: a float to an integer saturates (NaN to 0), and float min/max
+let NaN win and put -0.0 below +0.0.  On the CPU, EXP, LN and SQRT take
+numpy's correctly rounded results (torch's vectorized float64 kernels are
+off by one unit in the last place for some inputs); XLA's CPU exp and log
+are not correctly rounded either, so those two agree with the reference to
+one unit in the last place, not bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -152,6 +164,44 @@ def in_list_terms(e: ex.InList) -> list:
     together, left to right (the OR is negated for NOT IN; no item is
     FALSE)."""
     return [ex.Comparison(ex.CompareOp.EQ, e.value, item) for item in e.items]
+
+
+def deref_root(e: "ex.Dereference"):
+    """The base expression under a Dereference chain."""
+    cur = e
+    while isinstance(cur, ex.Dereference):
+        cur = cur.base
+    return cur
+
+
+def deref_fields(e: "ex.Dereference"):
+    """Field path of a Dereference chain, outermost-last."""
+    chain = []
+    cur = e
+    while isinstance(cur, ex.Dereference):
+        chain.append(cur.field)
+        cur = cur.base
+    return tuple(reversed(chain))
+
+
+def deref_synth_name(root: str, fields) -> str:
+    """The flattened path column's name (shared by the batch layout that
+    extracts it and the compiler that resolves it)."""
+    return f"{root}->" + ".".join(fields)
+
+
+def saturating_int(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A float tensor converted to the integer ``dtype`` as XLA converts:
+    truncated toward zero by the conversion, saturated at the type's range,
+    NaN to 0 (torch's own conversion is undefined there)."""
+    info = torch.iinfo(dtype)
+    hi = float(info.max) + 1.0  # 2^31 or 2^63, exact in float64
+    inside = (x > -hi - 1.0) & (x < hi) if dtype == torch.int32 else (x >= -hi) & (x < hi)
+    safe = torch.where(inside, x, torch.zeros_like(x)).to(dtype)
+    big = torch.full_like(safe, info.max)
+    small = torch.full_like(safe, info.min)
+    return torch.where(x >= hi, big, torch.where(x <= -hi - (1.0 if dtype == torch.int32 else 0.0),
+                                                 small, safe))
 
 
 def _promote(a: DCol, b: DCol) -> tuple:
@@ -378,3 +428,275 @@ class TorchExprCompiler:
         av = a.valid & a.data
         bv = b.valid & b.data
         return DCol(av | bv, (a.valid & b.valid) | av | bv, T.BOOLEAN)
+
+    # -------------------------------------------------------------- struct
+    def _c_Dereference(self, e) -> DCol:
+        """Struct field access resolves to the flattened path column the
+        layout extracted at encode (``ROOT->F.G``)."""
+        root = deref_root(e)
+        if isinstance(root, ex.ColumnRef):
+            d = self.env.get(deref_synth_name(root.name, deref_fields(e)))
+            if d is not None:
+                return d
+        raise DeviceUnsupported("struct dereference without a path column")
+
+    # ---------------------------------------------------------------- cast
+    def _c_Cast(self, e) -> DCol:
+        v = self.compile(e.operand)
+        route = cast_route(v.sql_type, e.target)
+        if route == "same":
+            return DCol(v.data, v.valid, e.target)
+        if route == "numeric":
+            dst = e.target.base
+            dt = torch.float64 if dst == SqlBaseType.DECIMAL else torch_dtype(e.target)
+            data = v.data
+            if data.is_floating_point() and not dt.is_floating_point:
+                out = float_to_int(data, dt)
+            else:
+                out = data.to(dt)
+            valid = v.valid
+            if dst == SqlBaseType.DECIMAL and e.target.scale is not None:
+                # the reference's cast raises past the precision; the card nulls
+                out, within = decimal_round(out, e.target.precision, e.target.scale)
+                valid = valid & within
+            return DCol(out, valid, e.target)
+        if route == "relabel":
+            return DCol(v.data.to(torch_dtype(e.target)), v.valid, e.target)
+        return DCol(temporal_cast(route, v.data.to(torch.int64)), v.valid, e.target)
+
+    # --------------------------------------------------------- conditionals
+    def _c_SearchedCase(self, e) -> DCol:
+        results = [self.compile(w.result) for w in e.when_clauses]
+        default = self.compile(e.default) if e.default is not None else None
+        t = self._common_type([r.sql_type for r in results]
+                              + ([default.sql_type] if default else []))
+        dt = torch_dtype(t)
+        if default is not None:
+            out, valid = default.data.to(dt), default.valid
+        else:
+            out = torch.zeros(self.n, dtype=dt, device=self.device)
+            valid = torch.zeros(self.n, dtype=torch.bool, device=self.device)
+        taken = torch.zeros(self.n, dtype=torch.bool, device=self.device)
+        for w, r in zip(e.when_clauses, results):
+            c = self.compile(w.condition)
+            fire = ~taken & c.valid & c.data.to(torch.bool)
+            out = torch.where(fire, r.data.to(dt), out)
+            valid = torch.where(fire, r.valid, valid)
+            taken = taken | fire
+        return DCol(out, valid, t)
+
+    def _c_SimpleCase(self, e) -> DCol:
+        return self._c_SearchedCase(simple_case_expr(e))
+
+    def _common_type(self, types) -> SqlType:
+        return common_type(types)
+
+    # ------------------------------------------------------------ functions
+    def _c_FunctionCall(self, e) -> DCol:
+        fn = DEVICE_FUNCTIONS.get(e.name.upper())
+        if fn is None:
+            raise DeviceUnsupported(f"function {e.name} on device")
+        args = [self.compile(a) for a in e.args]
+        return fn(self, args)
+
+
+_DAY_MS = 86_400_000
+#: the temporal casts and their routes
+_TEMPORAL_ROUTES = {
+    (SqlBaseType.DATE, SqlBaseType.TIMESTAMP): "days_to_ms",
+    (SqlBaseType.TIMESTAMP, SqlBaseType.DATE): "ms_to_days",
+    (SqlBaseType.TIMESTAMP, SqlBaseType.TIME): "ms_to_time",
+}
+
+
+def float_to_int(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A float CAST to an integer: Java narrowing truncates toward zero,
+    saturated at the type's range."""
+    return saturating_int(torch.trunc(x), dtype)
+
+
+def decimal_round(x: torch.Tensor, precision, scale: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A CAST to DECIMAL(precision, scale) of f64 ``x``: the value rounded
+    HALF_UP to ``scale``, and the mask of values within the precision
+    (all of them when ``precision`` is None)."""
+    f = 10.0 ** scale
+    out = torch.where(x >= 0, torch.floor(x * f + 0.5), torch.ceil(x * f - 0.5)) / f
+    if precision is None:
+        return out, torch.ones_like(out, dtype=torch.bool)
+    return out, torch.abs(out) < 10.0 ** (precision - scale)
+
+
+def temporal_cast(route: str, x: torch.Tensor) -> torch.Tensor:
+    """The int64 temporal routes of :func:`cast_route`: DATE (epoch days)
+    to midnight ms, or ms to epoch days or to the time of day, floored
+    toward -inf for pre-epoch values."""
+    if route == "days_to_ms":
+        return x * _DAY_MS
+    days = torch.div(x, _DAY_MS, rounding_mode="floor")
+    return days if route == "ms_to_days" else x - days * _DAY_MS
+
+
+def cast_route(src_t: SqlType, target: SqlType) -> str:
+    """How the card casts ``src_t`` to ``target`` (the reference's
+    ``_c_Cast`` rules, shared with K25's program builder): ``same`` (a
+    relabel of the value), ``numeric`` (between the numerics: a float to
+    an integer truncated and saturated, an integer narrowed by wrapping, a
+    DECIMAL target rounded HALF_UP to its scale and NULL past its
+    precision), ``relabel`` (an integer to a temporal, TIME to TIMESTAMP:
+    a dtype conversion), ``days_to_ms``, ``ms_to_days``, ``ms_to_time``.
+    Raises for what the card does not cast, in the reference's words."""
+    src, dst = src_t.base, target.base
+    nested = (SqlBaseType.ARRAY, SqlBaseType.MAP, SqlBaseType.STRUCT)
+    if (src in nested or dst in nested) and src_t != target:
+        # nested values are opaque codes: a schema-changing cast needs
+        # element coercion
+        raise DeviceUnsupported(f"CAST {src} AS {dst} on device")
+    if src == dst and src == SqlBaseType.DECIMAL and src_t != target:
+        # DECIMAL(p,s) re-scaling needs exact arithmetic
+        raise DeviceUnsupported("DECIMAL rescale on device")
+    if src == dst:
+        return "same"
+    if src_t.is_numeric() and target.is_numeric():
+        return "numeric"
+    temporal = (SqlBaseType.TIMESTAMP, SqlBaseType.TIME, SqlBaseType.DATE)
+    if (dst in temporal and src in (SqlBaseType.INTEGER, SqlBaseType.BIGINT)) or (
+            dst == SqlBaseType.TIMESTAMP and src == SqlBaseType.TIME):
+        return "relabel"
+    route = _TEMPORAL_ROUTES.get((src, dst))
+    if route is None:
+        raise DeviceUnsupported(f"CAST {src} AS {dst} on device")
+    return route
+
+
+def simple_case_expr(e: ex.SimpleCase) -> ex.SearchedCase:
+    """A simple CASE as the compilers evaluate it: each WHEN ``v`` becomes
+    the condition ``operand = v``."""
+    whens = tuple(ex.WhenClause(ex.Comparison(ex.CompareOp.EQ, e.operand, w.condition), w.result)
+                  for w in e.when_clauses)
+    return ex.SearchedCase(whens, e.default)
+
+
+def common_type(types) -> SqlType:
+    """The type CASE and COALESCE compute in: the widest numeric (a DECIMAL
+    as DOUBLE) or the one shared base; raises for mixed bases."""
+    types = [t for t in types if t is not None]
+    if not types:
+        return T.STRING
+    out = types[0]
+    for t in types[1:]:
+        if t.base == out.base:
+            continue
+        if out.base in _NUM_ORDER and t.base in _NUM_ORDER:
+            nb = _NUM_ORDER[max(_NUM_ORDER.index(out.base), _NUM_ORDER.index(t.base))]
+            out = T.DOUBLE if nb == SqlBaseType.DECIMAL else SqlType.of(nb)
+        else:
+            raise DeviceUnsupported(f"mixed CASE types {out}/{t}")
+    return out
+
+
+# ----------------------------------------------------- device function lib
+def numpy_unary(op: str, x: torch.Tensor) -> torch.Tensor:
+    """``op`` (exp, log, sqrt) over float64 ``x``: numpy's result on the
+    CPU (torch's vectorized CPU float64 kernels are off by one unit in the
+    last place for some inputs; numpy's sqrt is correctly rounded, as
+    XLA's and CUDA's are), torch's own on the card."""
+    if x.is_cuda:
+        return getattr(torch, op)(x)
+    with np.errstate(all="ignore"):
+        return torch.from_numpy(getattr(np, op)(x.contiguous().numpy()))
+
+
+def _f_abs(c, args):
+    (v,) = args
+    return DCol(torch.abs(v.data), v.valid, v.sql_type)
+
+
+def _f_round(c, args):
+    # floor(x + 0.5): Java Math.round, -1.5 rounds UP to -1
+    v = args[0]
+    if len(args) == 1:
+        if not v.data.is_floating_point():
+            # ROUND of an integral is identity (no f64 round trip, which
+            # would lose precision above 2^53)
+            return DCol(v.data.to(torch.int64), v.valid, T.BIGINT)
+        out = torch.floor(v.data.to(torch.float64) + 0.5)
+        return DCol(saturating_int(out, torch.int64), v.valid, T.BIGINT)
+    s = args[1]
+    f = torch.pow(10.0, s.data.to(torch.float64))
+    out = torch.floor(v.data.to(torch.float64) * f + 0.5) / f
+    return DCol(out, v.valid & s.valid, T.DOUBLE)
+
+
+def _f_floor(c, args):
+    (v,) = args
+    return DCol(torch.floor(v.data.to(torch.float64)), v.valid, T.DOUBLE)
+
+
+def _f_ceil(c, args):
+    (v,) = args
+    return DCol(torch.ceil(v.data.to(torch.float64)), v.valid, T.DOUBLE)
+
+
+def _unary_f64(op: str):
+    def f(c, args):
+        (v,) = args
+        return DCol(numpy_unary(op, v.data.to(torch.float64)), v.valid, T.DOUBLE)
+
+    return f
+
+
+def _f_sign(c, args):
+    (v,) = args
+    s = torch.sign(v.data)
+    if s.is_floating_point():
+        return DCol(saturating_int(s, torch.int32), v.valid, T.INTEGER)
+    return DCol(s.to(torch.int32), v.valid, T.INTEGER)
+
+
+def _extremum(combine: str):
+    def f(c, args):
+        from ksql_tpu_torch.ops.hash_store import xla_minmax
+
+        out = args[0]
+        for v in args[1:]:
+            da, db, t = _promote(out, v)
+            r = xla_minmax(da, db, combine)
+            if r.is_floating_point():
+                # the NaN operand itself, as XLA returns it (torch's CPU
+                # kernel returns the platform's default NaN)
+                r = torch.where(torch.isnan(da), da, torch.where(torch.isnan(db), db, r))
+            out = DCol(r, out.valid & v.valid, t)
+        return out
+
+    return f
+
+
+def _f_coalesce(c, args):
+    t = common_type([a.sql_type for a in args])
+    dt = torch_dtype(t)
+    out = torch.zeros(c.n, dtype=dt, device=c.device)
+    valid = torch.zeros(c.n, dtype=torch.bool, device=c.device)
+    for v in args:
+        take = ~valid & v.valid
+        out = torch.where(take, v.data.to(dt), out)
+        valid = valid | v.valid
+    return DCol(out, valid, t)
+
+
+#: the functions the card evaluates, by name (the reference's
+#: ``_DEVICE_FUNCTIONS``, ``compiler/jax_expr.py:555``)
+DEVICE_FUNCTIONS: Dict[str, Callable] = {
+    "AS_VALUE": lambda c, args: args[0],  # key->value copy marker: identity
+    "ABS": _f_abs,
+    "ROUND": _f_round,
+    "FLOOR": _f_floor,
+    "CEIL": _f_ceil,
+    "EXP": _unary_f64("exp"),
+    "LN": _unary_f64("log"),
+    "SQRT": _unary_f64("sqrt"),
+    "SIGN": _f_sign,
+    "GREATEST": _extremum("max"),
+    "LEAST": _extremum("min"),
+    "COALESCE": _f_coalesce,
+    "IFNULL": _f_coalesce,
+}

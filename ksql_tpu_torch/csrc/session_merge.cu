@@ -33,6 +33,16 @@
 // with a key of -1 and a running end of INT64_MIN: the same unless a key
 // hash is exactly -1).
 //
+// argset mode (EARLIEST/LATEST_BY_OFFSET; :3671-3694 of the reference): an
+// argset component's segment value is the sum, in item order from +0, of
+// the values of the alive items whose order (the nearest order component
+// before it, an int64 min or max of unique sequence numbers) equals the
+// segment's final order and is not the init.  The walk carries it beside
+// the running order in a register: an alive item whose order is strictly
+// better than the running order restarts the sum at 0 + value, one that
+// ties adds its value, any other leaves it.  Starting from +0 is the
+// reference's segment_sum: a -0.0 payload comes out +0.0, NaN stays NaN.
+//
 // Bound: bytes, and the serial walk of the longest run.  Every item column
 // is read and written about twice (~100 bytes an item at one key and two
 // int64 components: ~53 MB at 532,480 items, ~16 us at 3.35 TB/s); the
@@ -47,6 +57,7 @@
 namespace {
 
 constexpr int64_t kI32Max = 2147483647;
+constexpr int64_t kArgset = 3;  // ops/hash_store.py _COMBINE_CODES
 
 struct MergeCols {
   const void* src[KSQL_MAX_COMPS];  // unsorted item components
@@ -99,7 +110,7 @@ __global__ void permute_kernel(const int32_t* __restrict__ perm, int64_t m, int6
 // item), as bits.
 __device__ __forceinline__ int64_t fold_identity(int64_t kind) {
   const int64_t combine = kind / 3, dtype = kind % 3;
-  if (combine == ksql::kAdd) return 0;
+  if (combine == ksql::kAdd || combine == kArgset) return 0;
   const bool is_min = combine == ksql::kMin;
   if (dtype == ksql::kInt32) return is_min ? kI32Max : -kI32Max - 1;
   if (dtype == ksql::kInt64) return is_min ? INT64_MAX : INT64_MIN;
@@ -244,11 +255,32 @@ __global__ void runs_kernel(const int32_t* __restrict__ perm, int64_t m, int64_t
         }
       }
     }
+    // the nearest order component's fold before and after this item, its
+    // contribution, its combine and its init (the argset payloads' key)
+    int64_t ord_before = 0, ord_item = 0, ord_kind = 0, ord_init = 0;
 #pragma unroll(MC <= kRegComps ? MC : 1)
     for (int j = 0; j < loop_bound<MC, kRegComps>(ncomp); ++j) {
       if (j < ncomp) {
-        const int64_t v = a ? load_bits(c.srt[j], q, c.kind[j] % 3) : c.init[j];
-        acc[j] = fold_bits(c.kind[j], acc[j], v);
+        const int64_t kind = c.kind[j];
+        if (kind / 3 == kArgset) {
+          if (a && ord_item != ord_init) {
+            const bool better = ord_kind / 3 == ksql::kMin ? ord_item < ord_before
+                                                           : ord_item > ord_before;
+            const int64_t v = load_bits(c.srt[j], q, kind % 3);
+            if (better) {
+              acc[j] = fold_bits(kind % 3, 0, v);  // restart: +0 + value
+            } else if (ord_item == ord_before) {
+              acc[j] = fold_bits(kind % 3, acc[j], v);
+            }
+          }
+        } else {
+          const int64_t v = a ? load_bits(c.srt[j], q, kind % 3) : c.init[j];
+          ord_before = acc[j];
+          ord_item = v;
+          ord_kind = kind;
+          ord_init = c.init[j];
+          acc[j] = fold_bits(kind, acc[j], v);
+        }
       }
     }
     o.segfirst[q] = static_cast<int32_t>(first);

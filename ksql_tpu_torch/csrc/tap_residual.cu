@@ -14,7 +14,15 @@
 // value NULL and MIN / -1 wrapping to MIN (remainder 0); float / is IEEE and
 // float % by 0 is NaN; a DECIMAL / or % by 0 is NULL.  A comparison is always
 // valid: a NULL operand makes it false, except IS [NOT] DISTINCT FROM.  AND
-// and OR are three-valued; NOT keeps the validity.
+// and OR are three-valued; NOT keeps the validity.  SELECT (CASE, its WHENs
+// nested from the last) pops a condition, an else and a then value and keeps
+// the then value where the condition is valid and true.  SQLCAST is a SQL
+// CAST's own arithmetic: a double to an integer truncated toward zero,
+// saturated at the type's range, NaN to 0 (XLA's conversion); a double to
+// DECIMAL(p, s) rounded HALF_UP at scale s (floor(x 10^s + 0.5) / 10^s, or
+// the ceil of x 10^s - 0.5 below 0, each operation rounded on its own, no
+// fused multiply-add) and NULL where |result| >= 10^(p - s); epoch days to
+// ms, and ms to epoch days and to time of day, both floored.
 //
 // Layout: one thread per (lane, row), rows along threadIdx.x (column loads
 // coalesce), lanes along blockIdx.y; the block reads its lane's parameters
@@ -42,8 +50,15 @@ namespace {
 enum Op : int32_t {
   kCol = 0, kParamI = 1, kParamF = 2, kConst = 3, kCast = 4, kAdd = 5, kSub = 6, kMul = 7,
   kDiv = 8, kMod = 9, kNeg = 10, kCmp = 11, kAnd = 12, kOr = 13, kNot = 14, kIsNull = 15,
-  kFilter = 16
+  kFilter = 16, kSelect = 17, kSqlCast = 18
 };
+// SQLCAST kinds (ops/tap_residual.py SC_*)
+enum CastKind : int32_t { kF2I = 0, kDecimal = 1, kDaysToMs = 2, kMsToDays = 3, kMsToTime = 4 };
+constexpr int64_t kDayMs = 86400000;
+// 10^0 .. 10^22, each exact in a double (DECIMAL casts take no other scale)
+__constant__ double kPow10[23] = {1e0,  1e1,  1e2,  1e3,  1e4,  1e5,  1e6,  1e7,
+                                  1e8,  1e9,  1e10, 1e11, 1e12, 1e13, 1e14, 1e15,
+                                  1e16, 1e17, 1e18, 1e19, 1e20, 1e21, 1e22};
 enum Dt : int32_t { kI32 = 0, kI64 = 1, kF64 = 2, kBool = 3 };
 
 struct TapProgram {
@@ -111,6 +126,42 @@ __device__ __forceinline__ int64_t arith(int32_t op, int32_t dt, bool dec, int64
   const int64_t safe = (zero || (x == lo && y == -1)) ? 1 : y;
   valid = valid && !zero;
   return op == kDiv ? x / safe : x % safe;
+}
+
+// a SQL CAST's arithmetic on value v (bits), its validity updated in place
+__device__ __forceinline__ int64_t sql_cast(int32_t kind, int32_t b, int32_t dt, int64_t v,
+                                            bool& valid) {
+  switch (kind) {
+    case kF2I: {
+      const double x = trunc(as_f(v));
+      if (dt == kI32) {
+        if (x != x) return 0;
+        if (x >= 2147483648.0) return INT32_MAX;
+        if (x <= -2147483649.0) return INT32_MIN;
+        return static_cast<int64_t>(static_cast<int32_t>(x));
+      }
+      if (x != x) return 0;
+      if (x >= 9223372036854775808.0) return INT64_MAX;
+      if (x < -9223372036854775808.0) return INT64_MIN;
+      return static_cast<int64_t>(x);
+    }
+    case kDecimal: {
+      const double x = as_f(v), f = kPow10[b / 64], limit = kPow10[b % 64];
+      const double scaled = __dmul_rn(x, f);
+      const double r = x >= 0.0 ? floor(__dadd_rn(scaled, 0.5)) : ceil(__dsub_rn(scaled, 0.5));
+      const double out = __ddiv_rn(r, f);
+      valid = valid && fabs(out) < limit;
+      return of_f(out);
+    }
+    case kDaysToMs:
+      return ksql::wmul(v, kDayMs);
+    default: {
+      // floored division by a day (toward -inf for pre-epoch values)
+      int64_t q = v / kDayMs;
+      if (v % kDayMs != 0 && v < 0) --q;
+      return kind == kMsToDays ? q : v - q * kDayMs;
+    }
+  }
 }
 
 __device__ __forceinline__ bool compare(int32_t code, int32_t dt, int64_t x, int64_t y) {
@@ -197,6 +248,22 @@ __device__ bool eval(const TapProgram& prog, const int64_t* __restrict__ pi,
         --sp;
         pass = pass && sb[sp] && sv[sp] != 0;
         break;
+      case kSelect: {
+        // stack: ..., then, else, condition
+        sp -= 2;
+        const bool fire = sb[sp + 1] && sv[sp + 1] != 0;
+        if (!fire) {
+          sv[sp - 1] = sv[sp];
+          sb[sp - 1] = sb[sp];
+        }
+        break;
+      }
+      case kSqlCast: {
+        bool v = sb[sp - 1];
+        sv[sp - 1] = sql_cast(a, b, dt, sv[sp - 1], v);
+        sb[sp - 1] = v;
+        break;
+      }
       default: {  // binary
         --sp;
         const int64_t x = sv[sp - 1], y = sv[sp];

@@ -7,13 +7,18 @@ of fused taps' matched rows run through it, as the reference's oracle
 ``FilterNode``/``SelectNode`` do.
 
 The copy covers the node types the tap corpus needs: literals, column
-references, arithmetic, comparison, AND/OR/NOT, IS [NOT] NULL, BETWEEN, IN
-and LIKE, with the reference's semantics (three-valued logic, Java integer
-division and modulus, a NULL operand makes a comparison false, an
-evaluation error yields NULL and reports through ``on_error``).  Function
-calls, CAST, CASE, struct/array/map nodes, lambdas, temporal literals and
-temporal-string coercions raise :class:`DeviceUnsupported` when compiled,
-so such a push session is refused at attach.
+references, arithmetic, comparison, AND/OR/NOT, IS [NOT] NULL, BETWEEN, IN,
+LIKE, searched and simple CASE, and CAST between the numeric types
+(DECIMAL included), BOOLEAN, the temporals and to STRING from a string,
+integer or boolean, with the reference's semantics (three-valued logic,
+Java integer division and modulus, a NULL operand makes a comparison false,
+Java's saturating double-to-integer and wrapping integer narrowing, DECIMAL
+rounded HALF_UP with an error past its precision, an evaluation error
+yields NULL and reports through ``on_error``).  Function calls, the other
+casts (string parsing, a double or temporal to STRING, nested types),
+struct/array/map nodes, lambdas, temporal literals and temporal-string
+coercions raise :class:`DeviceUnsupported` when compiled, so such a push
+session is refused at attach; function calls wait for the UDF library.
 """
 
 from __future__ import annotations
@@ -345,6 +350,58 @@ class ExpressionCompiler:
 
         return fn, T.BOOLEAN
 
+    # --------------------------------------------------------- conditionals
+    def _c_SearchedCase(self, e):
+        whens = [(self._compile(w.condition)[0], self._compile(w.result)) for w in e.when_clauses]
+        default = self._compile(e.default) if e.default is not None else None
+        out_t = next((t for _, (_, t) in whens if t is not None), None)
+        if out_t is None and default is not None:
+            out_t = default[1]
+        if out_t is None:
+            raise DeviceUnsupported("Invalid Case expression. All case branches have NULL type")
+        when_fns = [(c, rf) for c, (rf, _) in whens]
+        dfn = default[0] if default else (lambda r: None)
+
+        def fn(r):
+            for cond, res in when_fns:
+                if cond(r) is True:
+                    return res(r)
+            return dfn(r)
+
+        return fn, out_t
+
+    def _c_SimpleCase(self, e):
+        op_f, _ = self._compile(e.operand)
+        whens = [(self._compile(w.condition)[0], self._compile(w.result)) for w in e.when_clauses]
+        default = self._compile(e.default) if e.default is not None else None
+        out_t = next((t for _, (_, t) in whens if t is not None), None)
+        if out_t is None and default is not None:
+            out_t = default[1]
+        when_fns = [(c, rf) for c, (rf, _) in whens]
+        dfn = default[0] if default else (lambda r: None)
+
+        def fn(r):
+            v = op_f(r)
+            if v is not None:
+                for cond, res in when_fns:
+                    c = cond(r)
+                    if c is not None and _sql_equal(v, c):
+                        return res(r)
+            return dfn(r)
+
+        return fn, out_t
+
+    # ---------------------------------------------------------------- cast
+    def _c_Cast(self, e):
+        f, src_t = self._compile(e.operand)
+        caster = make_caster(src_t, e.target)
+
+        def fn(r):
+            v = f(r)
+            return None if v is None else caster(v)
+
+        return fn, e.target
+
     def _c_Like(self, e):
         vf, _ = self._compile(e.value)
         pf, _ = self._compile(e.pattern)
@@ -364,6 +421,74 @@ class ExpressionCompiler:
             return (not res) if negated else res
 
         return fn, T.BOOLEAN
+
+
+class _CastError(ArithmeticError):
+    """A cast the value cannot take (the reference's FunctionException):
+    the row's expression is NULL and the error reported."""
+
+
+def make_caster(src: Optional[SqlType], target: SqlType) -> Callable[[Any], Any]:
+    """The reference's ``make_caster`` for the casts this copy takes (module
+    docstring); raises :class:`DeviceUnsupported` for the others."""
+    tb = target.base
+    sb = src.base if src is not None else None
+    if sb is not None and sb == tb and tb != SqlBaseType.DECIMAL:
+        return lambda v: v
+    if tb == SqlBaseType.STRING and sb in (None, SqlBaseType.STRING, SqlBaseType.INTEGER,
+                                           SqlBaseType.BIGINT, SqlBaseType.BOOLEAN):
+        return lambda v: ("true" if v else "false") if isinstance(v, bool) else str(v)
+    numeric_src = sb is None or (src.is_numeric() if src is not None else False)
+    if tb in (SqlBaseType.INTEGER, SqlBaseType.BIGINT) and numeric_src:
+        bits = 32 if tb == SqlBaseType.INTEGER else 64
+        half, full = 1 << (bits - 1), 1 << bits
+
+        def to_int(v):
+            if isinstance(v, float):
+                # Java double->int/long saturates: NaN -> 0, past the range
+                # to MIN/MAX
+                if math.isnan(v):
+                    return 0
+                if v >= half:
+                    return half - 1
+                if v < -half:
+                    return -half
+                return math.trunc(v)
+            # integral narrowing (BIGINT/DECIMAL source) wraps
+            return (math.trunc(v) + half) % full - half
+        return to_int
+    if tb == SqlBaseType.DOUBLE and numeric_src:
+        return float
+    if tb == SqlBaseType.DECIMAL and numeric_src:
+        scale = target.scale or 0
+        precision = target.precision or scale
+        quantum = _decimal.Decimal(1).scaleb(-scale)
+        limit = _decimal.Decimal(10) ** (precision - scale)
+
+        def to_dec(v):
+            # HALF_UP = ties away from zero (Java BigDecimal)
+            out = _to_decimal(v).quantize(quantum, rounding=_decimal.ROUND_HALF_UP)
+            if abs(out) >= limit:
+                raise _CastError(
+                    f"Numeric field overflow: A field with precision {precision} "
+                    f"and scale {scale} must round to an absolute value less "
+                    f"than 10^{precision - scale}. Got {v}")
+            return out
+        return to_dec
+    if tb == SqlBaseType.TIMESTAMP and sb in (None, SqlBaseType.INTEGER, SqlBaseType.BIGINT,
+                                              SqlBaseType.TIME, SqlBaseType.DATE):
+        if sb == SqlBaseType.DATE:
+            return lambda v: int(v) * 86_400_000
+        return int
+    if tb in (SqlBaseType.DATE, SqlBaseType.TIME) and sb in (None, SqlBaseType.INTEGER,
+                                                             SqlBaseType.BIGINT,
+                                                             SqlBaseType.TIMESTAMP):
+        if sb != SqlBaseType.TIMESTAMP:
+            return int
+        if tb == SqlBaseType.DATE:
+            return lambda v: v // 86_400_000
+        return lambda v: v % 86_400_000
+    raise DeviceUnsupported(f"push residual CAST {sb.value if sb else 'NULL'} AS {tb.value}")
 
 
 def _java_int_div(a, b, int_out: bool):

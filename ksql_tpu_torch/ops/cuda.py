@@ -42,7 +42,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         _P, _P, _P, _P, _P, _P, _P]},
     "probe_insert": {"ksql_probe_insert": [
         _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P]},
-    "fold_and_mark": {"ksql_fold_and_mark": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P]},
+    "fold_and_mark": {
+        "ksql_fold_and_mark": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+        "ksql_fold_argset": [_P, _I, _P, _I, _I, _P, _P],
+    },
     "evict": {"ksql_evict": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P]},
     "sliced_fold": {"ksql_sliced_fold": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]},
     "combine_windows": {"ksql_combine_windows": [

@@ -1,19 +1,25 @@
 """Device aggregates as scatter-combined state components.
 
 The port of ``ksql_tpu/ops/device_aggs.py`` for the families the port
-runs: COUNT(*), COUNT, SUM (INTEGER, BIGINT, DOUBLE), AVG, STDDEV_SAMPLE,
-STDDEV_POP, CORRELATION, MIN and MAX, which decompose into 'add'/'min'/'max'
-state components that ``hash_store.fold_and_mark`` folds; and the vector
-families COLLECT_LIST,
+runs: COUNT(*), COUNT, SUM (INTEGER, BIGINT, DOUBLE, and DECIMAL as an int64
+accumulator of scaled units), AVG, STDDEV_SAMPLE, STDDEV_POP, CORRELATION,
+MIN and MAX (a DECIMAL as float64), which decompose into 'add'/'min'/'max'
+state components that ``hash_store.fold_and_mark`` folds; the scalar
+EARLIEST_BY_OFFSET(x[, ignoreNulls]) and LATEST_BY_OFFSET(x[, ignoreNulls]),
+an int64 min/max order over the arrival sequence followed by two 'argset'
+payloads (the value and its valid bit) that ``hash_store.fold_argset``
+writes from the row that won the order; and the vector families COLLECT_LIST,
 COLLECT_SET, EARLIEST_BY_OFFSET(x, n[, ignoreNulls]),
 LATEST_BY_OFFSET(x, n[, ignoreNulls]), TOPK, TOPKDISTINCT, HISTOGRAM and
 ATTR (and the ``collect_all_valid`` kind), whose width-K groups
 ``ops/vector.py`` folds.  Each has per-row contributions (inactive rows
-contribute the identity) and a ``finalize`` from slot state to the output
-column: ``(data, valid)``, for an ARRAY ``(data [n, K], present [n, K],
-element valid [n, K])`` and for a MAP ``(keys [n, K], valid, present
-[n, K], counts [n, K])``.  Every other aggregate, and any DECIMAL argument
-or result, raises :class:`DeviceUnsupported`.
+contribute the identity; the offsets' take the rows' arrival sequence
+``seq`` as a third argument) and a ``finalize`` from slot state to the
+output column: ``(data, valid)``, for an ARRAY ``(data [n, K], present
+[n, K], element valid [n, K])`` and for a MAP ``(keys [n, K], valid,
+present [n, K], counts [n, K])``.  Every other aggregate, a DECIMAL wider
+than 15 digits, and a DECIMAL SUM whose sum can pass 2^53 scaled units
+raise :class:`DeviceUnsupported` in the reference's words.
 
 A table aggregation undoes a source row's old contributions before it
 applies the new row's: the all-'add' families by negating their
@@ -37,17 +43,17 @@ import torch
 
 from ksql_tpu_torch.common import types as T
 from ksql_tpu_torch.common.types import SqlBaseType, SqlType
-from ksql_tpu_torch.compiler.torch_expr import DCol, DeviceUnsupported
+from ksql_tpu_torch.compiler.torch_expr import DCol, DeviceUnsupported, numpy_unary, saturating_int
 from ksql_tpu_torch.ops.hash_store import _DTYPES, AggComponent, xla_minmax
 
 _I64_MAX = np.iinfo(np.int64).max
 _I32_MAX = np.iinfo(np.int32).max
-_NUMERIC = (SqlBaseType.INTEGER, SqlBaseType.BIGINT, SqlBaseType.DOUBLE)
+_NUMERIC = (SqlBaseType.INTEGER, SqlBaseType.BIGINT, SqlBaseType.DOUBLE, SqlBaseType.DECIMAL)
 _ORDERED = _NUMERIC + (
     SqlBaseType.BOOLEAN, SqlBaseType.TIMESTAMP, SqlBaseType.DATE, SqlBaseType.TIME,
 )
 #: TOPK/TOPKDISTINCT's first parameter (``functions/udafs.py`` COMPARABLE)
-_COMPARABLE = _ORDERED + (SqlBaseType.DECIMAL, SqlBaseType.STRING, SqlBaseType.BYTES)
+_COMPARABLE = _ORDERED + (SqlBaseType.STRING, SqlBaseType.BYTES)
 _NESTED = (SqlBaseType.ARRAY, SqlBaseType.MAP, SqlBaseType.STRUCT)
 #: hard ceiling on per-key vector state width (collect/topk); wider caps
 #: are refused rather than blow up device memory
@@ -58,6 +64,11 @@ MAX_VEC_WIDTH = 4096
 #: engine's, which the port does not have
 COLLECT_LIMIT = 1000
 HIST_LIMIT = 1000
+#: DECIMAL SUM's exactness envelope: the number of max-magnitude addends a
+#: per-key sum is certified to absorb before its int64 accumulator could
+#: pass 2^53 scaled units (where the float64 finalize stops being exact);
+#: with 10^p bounding one addend, the card takes precision <= 12
+SUM_ACCUM_HEADROOM_ROWS = 1000
 
 
 @dataclasses.dataclass
@@ -66,8 +77,10 @@ class DeviceAgg:
     finalizer."""
 
     components: Tuple[AggComponent, ...]
-    # (args, row_active) -> per-component contribution tensors
-    contribs: Callable[[Sequence[DCol], torch.Tensor], List[torch.Tensor]]
+    # (args, row_active, seq) -> per-component contribution tensors; ``seq``,
+    # the rows' arrival sequence, is required by the offsets' 'argset'
+    # payloads and ignored by the others
+    contribs: Callable[..., List[torch.Tensor]]
     # component slot tensors -> (data, valid), or the 3-/4-tuples of the
     # ARRAY and MAP results (module docstring)
     finalize: Callable[[Sequence[torch.Tensor]], Tuple[torch.Tensor, ...]]
@@ -75,15 +88,27 @@ class DeviceAgg:
     #: a table aggregation's undo contributions, where negating ``contribs``
     #: does not invert the fold (the vector families); None: negate
     undo_contribs: Optional[Callable[[Sequence[DCol], torch.Tensor], List[torch.Tensor]]] = None
+    #: when set, |component 0| past this bound at emission means the
+    #: finalized value no longer round-trips its float64 carrier exactly
+    #: (DECIMAL SUM past 2^53 scaled units): the runtime raises instead
+    exact_abs_bound: Optional[int] = None
+
 
 
 def resolve_udaf(name: str, arg_types: Sequence[SqlType]) -> Tuple[str, SqlType, int]:
     """(device kind, result type, number of trailing literal parameters)
-    of an aggregate call."""
-    fn = name.upper()
+    of an aggregate call; a DECIMAL wider than 15 digits among the
+    arguments or the result is refused, as the reference refuses it."""
+    kind, result_type, n_lits = _resolve(name.upper(), arg_types)
+    for t in [*arg_types, result_type]:
+        if t.base == SqlBaseType.DECIMAL and (t.precision or 0) > 15:
+            # float64 carries <= 15 significant digits exactly
+            raise DeviceUnsupported("DECIMAL aggregation on device")
+    return kind, result_type, n_lits
+
+
+def _resolve(fn: str, arg_types: Sequence[SqlType]) -> Tuple[str, SqlType, int]:
     bases = [t.base for t in arg_types]
-    if SqlBaseType.DECIMAL in bases:
-        raise DeviceUnsupported(f"DECIMAL aggregation {fn} on device")
     if fn == "COUNT" and not arg_types:
         return "count_star", T.BIGINT, 0
     if fn == "COUNT" and len(arg_types) == 1:
@@ -99,6 +124,11 @@ def resolve_udaf(name: str, arg_types: Sequence[SqlType]) -> Tuple[str, SqlType,
         return "correlation", T.DOUBLE, 0
     if fn in ("MIN", "MAX") and len(arg_types) == 1 and bases[0] in _ORDERED:
         return fn.lower(), arg_types[0], 0
+    if fn in ("EARLIEST_BY_OFFSET", "LATEST_BY_OFFSET") and (
+            len(arg_types) == 1 or (len(arg_types) == 2 and bases[1] == SqlBaseType.BOOLEAN)):
+        # (x[, ignoreNulls]): the first/last value in arrival order
+        kind = "earliest" if fn.startswith("EARLIEST") else "latest"
+        return kind, arg_types[0], len(arg_types) - 1
     if fn in ("COLLECT_LIST", "COLLECT_SET") and len(arg_types) == 1:
         return "collect", SqlType.array(arg_types[0]), 0
     if fn in ("TOPK", "TOPKDISTINCT") and len(arg_types) == 2 and bases[0] in _COMPARABLE \
@@ -120,7 +150,7 @@ def resolve_udaf(name: str, arg_types: Sequence[SqlType]) -> Tuple[str, SqlType,
 
 
 def _minmax_dtype(t: SqlType):
-    if t.base == SqlBaseType.DOUBLE:
+    if t.base in (SqlBaseType.DOUBLE, SqlBaseType.DECIMAL):
         return torch.float64, float("inf")  # ±inf sentinels: data may hold ±F64_MAX
     if t.base == SqlBaseType.INTEGER:
         return torch.int32, _I32_MAX
@@ -192,7 +222,7 @@ def _compile_vector_agg(kind: str, arg_types: Sequence[SqlType], result_type: Sq
         vdt = _vec_dtype(t)
         tdt = _DTYPES[vdt]
 
-        def contribs(args, act):
+        def contribs(args, act, seq=None):
             v = args[0]
             cand = act if collect_nulls or not ignore_nulls else act & v.valid
             return [cand.to(torch.int64), _where(cand & v.valid, v.data, 0, tdt),
@@ -233,7 +263,7 @@ def _compile_vector_agg(kind: str, arg_types: Sequence[SqlType], result_type: Sq
         sentinel = float("-inf") if vdt == "float64" else int(np.iinfo(vdt).min)
         distinct = fn == "TOPKDISTINCT"
 
-        def tk_contribs(args, act):
+        def tk_contribs(args, act, seq=None):
             ok = act & args[0].valid
             return [ok.to(torch.int32), _where(ok, args[0].data, sentinel, tdt)]
 
@@ -270,7 +300,7 @@ def _compile_vector_agg(kind: str, arg_types: Sequence[SqlType], result_type: Sq
                 return v.data.to(torch.float64).view(torch.int64)
             return v.data.to(torch.int64)
 
-        def h_contribs(args, act, sign=1):
+        def h_contribs(args, act, seq=None, sign=1):
             v = args[0]
             # HISTOGRAM skips null values; ATTR counts them as an entry
             cand = act if is_attr else act & v.valid
@@ -315,7 +345,7 @@ def _compile_vector_agg(kind: str, arg_types: Sequence[SqlType], result_type: Sq
         vdt = _vec_dtype(t)
         tdt = _DTYPES[vdt]
 
-        def cav_contribs(args, act):
+        def cav_contribs(args, act, seq=None):
             cand = act
             for a in args:
                 cand = cand & a.valid
@@ -335,12 +365,8 @@ def _compile_vector_agg(kind: str, arg_types: Sequence[SqlType], result_type: Sq
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded square root, as XLA and CUDA take it: torch's
-    vectorized CPU float64 sqrt is off by one unit in the last place for
-    some inputs, numpy's is not."""
-    if x.is_cuda:
-        return torch.sqrt(x)
-    return torch.from_numpy(np.sqrt(x.numpy()))
+    """The correctly rounded square root, as XLA and CUDA take it."""
+    return numpy_unary("sqrt", x)
 
 
 def _stddev_agg(fname: str) -> DeviceAgg:
@@ -348,7 +374,7 @@ def _stddev_agg(fname: str) -> DeviceAgg:
     the reference's ``_stddev_samp`` / ``_stddev_pop`` (``functions/udafs.py``)."""
     pop = fname.upper() == "STDDEV_POP"
 
-    def contribs(args, act):
+    def contribs(args, act, seq=None):
         ok = act & args[0].valid
         x = _where(ok, args[0].data, 0.0, torch.float64)
         return [x, x * x, ok.to(torch.int64)]
@@ -378,7 +404,7 @@ def _stddev_agg(fname: str) -> DeviceAgg:
 def _correlation_agg() -> DeviceAgg:
     """CORRELATION(x, y): (n, sx, sy, sxx, syy, sxy) over the rows where both
     are non-null; NaN when either variance is 0 (the reference's)."""
-    def contribs(args, act):
+    def contribs(args, act, seq=None):
         ok = act & args[0].valid & args[1].valid
         x = _where(ok, args[0].data, 0.0, torch.float64)
         y = _where(ok, args[1].data, 0.0, torch.float64)
@@ -404,6 +430,75 @@ def _correlation_agg() -> DeviceAgg:
     )
 
 
+def _offset_agg(kind: str, t: SqlType) -> DeviceAgg:
+    """EARLIEST/LATEST_BY_OFFSET(x[, ignoreNulls]): an int64 min (earliest)
+    or max (latest) of the rows' arrival sequence, then the value and its
+    valid bit as 'argset' payloads, written by the row that won the order
+    (the sequence numbers are unique, so there are no ties).  A row is a
+    candidate when it is active and its value is non-NULL, or NULLs are
+    not ignored (ignoreNulls defaults to true)."""
+    if t.base in _NESTED:
+        raise DeviceUnsupported(f"{kind} over nested types on device")
+    vdt = _vec_dtype(t) if t.base in (SqlBaseType.DOUBLE, SqlBaseType.DECIMAL,
+                                      SqlBaseType.INTEGER) else "int64"
+    tdt = _DTYPES[vdt]
+    init = _I64_MAX if kind == "earliest" else -_I64_MAX - 1
+
+    def contribs(args, act, seq=None):
+        v = args[0]
+        ignore_nulls = args[1].data.to(torch.bool) if len(args) > 1 else torch.ones_like(act)
+        cand = act & (v.valid | ~ignore_nulls)
+        return [_where(cand, seq, init, torch.int64), _where(cand, v.data, 0, tdt),
+                (cand & v.valid).to(torch.int32)]
+
+    def finalize(comps):
+        return comps[1], (comps[0] != init) & (comps[2] != 0)
+
+    return DeviceAgg(
+        components=(
+            AggComponent("min" if kind == "earliest" else "max", "int64", init),
+            AggComponent("argset", vdt, 0),
+            AggComponent("argset", "int32", 0),
+        ),
+        contribs=contribs,
+        finalize=finalize,
+        result_type=t,
+    )
+
+
+def _decimal_sum_agg(t: SqlType) -> DeviceAgg:
+    """SUM over DECIMAL(p, s): the scaled unscaled value accumulates in
+    int64 (each <= 15-digit addend recovers exactly from its float64
+    carrier by rounding), so in-precision sums never drift; finalize
+    rescales.  Refused where 10^p addends could carry the sum past 2^53
+    scaled units within ``SUM_ACCUM_HEADROOM_ROWS`` rows; past that at run
+    time, ``exact_abs_bound`` stops the emission."""
+    if 10 ** int(t.precision or 0) * SUM_ACCUM_HEADROOM_ROWS > 2 ** 53:
+        raise DeviceUnsupported(
+            f"DECIMAL({t.precision},{t.scale}) SUM can exceed the "
+            "2^53-exact device envelope (int64 accumulator decodes "
+            "through float64)"
+        )
+    scale_f = float(10 ** (t.scale or 0))
+
+    def contribs(args, act, seq=None):
+        ok = act & args[0].valid
+        scaled = torch.round(args[0].data.to(torch.float64) * scale_f)
+        return [saturating_int(torch.where(ok, scaled, torch.zeros_like(scaled)), torch.int64)]
+
+    # the reference's compiled step divides by the constant scale as a
+    # multiplication by its reciprocal (XLA's algebraic simplifier): the same
+    # bits here; the emission quantizes to the scale either way
+    inv_scale = 1.0 / scale_f
+    return DeviceAgg(
+        components=(AggComponent("add", "int64", 0),),
+        contribs=contribs,
+        finalize=lambda comps: (comps[0].to(torch.float64) * inv_scale, _ones(comps[0])),
+        result_type=t,
+        exact_abs_bound=2 ** 53,
+    )
+
+
 VECTOR_KINDS = ("collect", "topk", "histogram", "attr", "collect_all_valid")
 
 
@@ -422,17 +517,21 @@ def compile_device_agg(kind: str, arg_types: Sequence[SqlType], result_type: Sql
     if kind == "count_star":
         return DeviceAgg(
             components=(AggComponent("add", "int64", 0),),
-            contribs=lambda args, act: [act.to(torch.int64)],
+            contribs=lambda args, act, seq=None: [act.to(torch.int64)],
             finalize=lambda comps: (comps[0], _ones(comps[0])),
             result_type=T.BIGINT,
         )
     if kind == "count":
         return DeviceAgg(
             components=(AggComponent("add", "int64", 0),),
-            contribs=lambda args, act: [(act & args[0].valid).to(torch.int64)],
+            contribs=lambda args, act, seq=None: [(act & args[0].valid).to(torch.int64)],
             finalize=lambda comps: (comps[0], _ones(comps[0])),
             result_type=T.BIGINT,
         )
+    if kind in ("latest", "earliest"):
+        return _offset_agg(kind, arg_types[0])
+    if kind == "sum" and result_type.base == SqlBaseType.DECIMAL:
+        return _decimal_sum_agg(result_type)
     if kind == "sum":
         t = result_type
         dt = {SqlBaseType.DOUBLE: torch.float64, SqlBaseType.INTEGER: torch.int32}.get(
@@ -440,7 +539,7 @@ def compile_device_agg(kind: str, arg_types: Sequence[SqlType], result_type: Sql
         )
         name = str(dt).replace("torch.", "")
 
-        def sum_contribs(args, act):
+        def sum_contribs(args, act, seq=None):
             ok = act & args[0].valid
             return [torch.where(ok, args[0].data.to(dt), torch.zeros((), dtype=dt, device=ok.device))]
 
@@ -459,7 +558,7 @@ def compile_device_agg(kind: str, arg_types: Sequence[SqlType], result_type: Sql
         else:
             fill = -sentinel if dt == torch.float64 else -sentinel - 1
 
-        def mm_contribs(args, act):
+        def mm_contribs(args, act, seq=None):
             ok = act & args[0].valid
             return [
                 torch.where(ok, args[0].data.to(dt), torch.tensor(fill, dtype=dt, device=ok.device)),
@@ -476,7 +575,7 @@ def compile_device_agg(kind: str, arg_types: Sequence[SqlType], result_type: Sql
             result_type=t,
         )
     if kind == "avg":
-        def avg_contribs(args, act):
+        def avg_contribs(args, act, seq=None):
             ok = act & args[0].valid
             zero = torch.zeros((), dtype=torch.float64, device=ok.device)
             return [torch.where(ok, args[0].data.to(torch.float64), zero), ok.to(torch.int64)]

@@ -20,7 +20,8 @@ store; PyTorch lets the port keep one set of device buffers).
 
 Four hand-written CUDA kernels (``csrc/``) carry the per-batch work of an
 aggregation: ``row_prologue`` (K1), ``probe_insert`` (K2),
-``fold_and_mark`` (K3) and ``evict`` (K4); the sliced route's K5-K7 live in
+``fold_and_mark`` (K3, whose ``argset`` mode writes the arg-min/max
+payloads after its fold) and ``evict`` (K4); the sliced route's K5-K7 live in
 ``ops/slicing.py``, the vector aggregates' K20-K22 in ``ops/vector.py``.  A stream-table join keeps each table in a store of
 the same layout (one key, no components, plus ``v_<col>``/``m_<col>``
 value columns): K1's table mode (``table_prologue``) and K2 insert its
@@ -75,7 +76,7 @@ _DTYPES = {"int8": torch.int8, "int32": torch.int32, "int64": torch.int64,
 #: dtype / combine codes shared with csrc/common.cuh (int8 is a vector
 #: component's element type only: the scalar folds never see it)
 _DTYPE_CODES = {"int32": 0, "int64": 1, "float64": 2, "int8": 3}
-_COMBINE_CODES = {"add": 0, "min": 1, "max": 2}
+_COMBINE_CODES = {"add": 0, "min": 1, "max": 2, "argset": 3}
 #: the combines K3 folds; the vector kinds go through ``ops/vector.py``
 SCALAR_COMBINES = ("add", "min", "max")
 
@@ -96,9 +97,14 @@ class AggComponent:
       vec_count) adds a fourth, ``hist_count`` (int64 per-element counts).
     * ``topk`` — a self-contained width-K descending top-K; ``mode=
       'distinct'`` dedups values (TOPKDISTINCT).
+
+    ``argset`` is a scalar payload of an arg-min/max (EARLIEST/LATEST_BY_
+    OFFSET): the row whose contribution to the nearest preceding order
+    component equals the slot's order after the fold writes it
+    (:func:`fold_argset`).
     """
 
-    combine: str  # 'add' | 'min' | 'max' | 'vec_count' | 'vec_data' | 'vec_valid' | 'hist_count' | 'topk'
+    combine: str  # 'add' | 'min' | 'max' | 'argset' | 'vec_count' | 'vec_data' | 'vec_valid' | 'hist_count' | 'topk'
     dtype: str  # numpy dtype name
     init: float  # fill value for empty slots
     width: int = 1
@@ -145,12 +151,18 @@ def init_store(layout: StoreLayout, device) -> Dict[str, torch.Tensor]:
     return store
 
 
+#: ``csrc/common.cuh``'s KSQL_MAX_COMPS: components a kernel descriptor holds
+KSQL_MAX_COMPS = 32
+
+
 def init_scratch(capacity: int, device) -> Dict[str, torch.Tensor]:
     """Per-store scratch the kernels keep clean between calls: the claim
-    cells of probe_insert and the first-row cells of fold_and_mark."""
+    cells of probe_insert, the first-row cells of fold_and_mark and the
+    dump-row cells (-1) of its argset mode, one an argset component."""
     return {
         "claim": torch.full((capacity + 1,), INT32_MAX, dtype=torch.int32, device=device),
         "first": torch.full((capacity + 1,), INT32_MAX, dtype=torch.int32, device=device),
+        "dump_row": torch.full((KSQL_MAX_COMPS,), -1, dtype=torch.int32, device=device),
     }
 
 
@@ -599,17 +611,98 @@ def fold_and_mark(store: Dict[str, torch.Tensor], scratch: Dict[str, torch.Tenso
         desc += [col.data_ptr(), c.data_ptr(),
                  _COMBINE_CODES[comp.combine] * 3 + _DTYPE_CODES[comp.dtype]]
     winners = torch.empty(n, dtype=torch.bool, device=slots.device)
-    fn = cuda.lib("fold_and_mark")
+    fn = cuda.lib("fold_and_mark", "ksql_fold_and_mark")
     cuda.check("fold_and_mark", fn(
         cuda.host_i64(desc), len(scalar), slots.data_ptr(),
         active.data_ptr(), n, capacity, store["dirty"].data_ptr(),
         scratch["first"].data_ptr(), winners.data_ptr(), _stream(slots.device),
     ))
     fold_and_mark.launches += 1
+    fold_and_mark.mode_launches["fold"] += 1
     return winners
 
 
 fold_and_mark.launches = 0
+#: ``fold``: the add/min/max folds and the winners; ``argset``: the
+#: arg-min/max payloads (:func:`fold_argset`)
+fold_and_mark.mode_launches = {"fold": 0, "argset": 0}
+
+
+def argset_pairs(layout: StoreLayout) -> List[Tuple[int, int]]:
+    """``(j, o)`` for each 'argset' component ``j``, ``o`` the nearest
+    order (add/min/max) component before it (``scatter_combine``'s
+    ``last_order``)."""
+    pairs, last = [], 0
+    for j, comp in enumerate(layout.components):
+        if comp.combine in SCALAR_COMBINES:
+            last = j
+        elif comp.combine == "argset":
+            pairs.append((j, last))
+    return pairs
+
+
+def fold_argset_plain(store, layout: StoreLayout, slots, contribs) -> None:
+    """Plain twin of K3's argset mode — see :func:`fold_argset`."""
+    capacity = layout.capacity
+    s = slots.long()
+    for j, o in argset_pairs(layout):
+        col = store[f"a{j}"]
+        c = contribs[j].to(col.dtype)
+        win = (s != capacity) & (contribs[o] == store[f"a{o}"][s])
+        w = win.nonzero().squeeze(1)
+        col[s[w]] = c[w]  # winners of one slot write the same payload
+        lost = (~win).nonzero().squeeze(1)
+        if lost.numel():
+            col[capacity] = c[lost[-1]]  # the highest row aimed at the dump
+
+
+def fold_argset(store: Dict[str, torch.Tensor], scratch: Dict[str, torch.Tensor],
+                layout: StoreLayout, slots: torch.Tensor,
+                contribs: Sequence[torch.Tensor]) -> None:
+    """K3's argset mode (replaces ``ops/hash_store.py:scatter_combine``'s
+    'argset' branch, :552-558): after :func:`fold_and_mark` has settled
+    each order component, for each 'argset' component ``j`` with ``o``
+    the nearest order component before it, a row whose slot is not the
+    dump and whose ``contribs[o]`` equals ``a{o}`` at its slot writes
+    ``contribs[j]`` there; every other row is aimed at the dump slot, which
+    keeps the payload of the highest such row (XLA's duplicate-index
+    ``.at[].set`` order).  Unlike the fold it covers inactive rows too:
+    they aim at the dump (their slot is the dump).  A slot that never had
+    a candidate keeps the init order, so every row there with an init
+    contribution writes the same zero payload.  The sequence numbers are
+    unique, so a real slot has no other ties.  In place; returns nothing."""
+    pairs = argset_pairs(layout)
+    if not pairs:
+        return
+    if not slots.is_cuda:
+        fold_argset_plain(store, layout, slots, contribs)
+        return
+    n = slots.shape[0]
+    capacity = layout.capacity
+    c1 = capacity + 1
+    _expect(slots, torch.int32, (n,))
+    _expect(scratch["dump_row"], torch.int32, (KSQL_MAX_COMPS,))
+    desc: List[int] = []
+    keep = []  # the cast contributions must outlive the launch below
+    for j, o in pairs:
+        comp, order = layout.components[j], layout.components[o]
+        col, ocol = store[f"a{j}"], store[f"a{o}"]
+        c = contribs[j].to(col.dtype).contiguous()
+        oc = contribs[o].to(ocol.dtype).contiguous()
+        _expect(col, _DTYPES[comp.dtype], (c1,))
+        _expect(ocol, _DTYPES[order.dtype], (c1,))
+        _expect(c, _DTYPES[comp.dtype], (n,))
+        _expect(oc, _DTYPES[order.dtype], (n,))
+        keep += [c, oc]
+        desc += [col.data_ptr(), c.data_ptr(), ocol.data_ptr(), oc.data_ptr(),
+                 _DTYPE_CODES[comp.dtype], _DTYPE_CODES[order.dtype]]
+    fn = cuda.lib("fold_and_mark", "ksql_fold_argset")
+    cuda.check("fold_and_mark", fn(
+        cuda.host_i64(desc), len(pairs), slots.data_ptr(), n, capacity,
+        scratch["dump_row"].data_ptr(), _stream(slots.device),
+    ))
+    fold_and_mark.launches += 1
+    fold_and_mark.mode_launches["argset"] += 1
 
 
 # ------------------------------------------------------------ K4: evict

@@ -25,7 +25,10 @@ reused as it is):
   :func:`session_items` (the stored-session gather into the item layout).
 * K15 ``session_merge``: the permutation applied to every item column,
   the segmented interval merge, the per-segment folds, each segment's
-  rank within its key and the slot-overflow count ``sess_ovf``.  It
+  rank within its key and the slot-overflow count ``sess_ovf``; its
+  ``argset`` mode also carries EARLIEST/LATEST_BY_OFFSET's payloads, the
+  sum over the segment of the payloads of the items whose order equals
+  the segment's (the reference's ``segment_sum`` of the winners).  It
   writes no store state, so the caller reads ``sess_ovf`` once, doubles
   ``S`` and starts again from the gather before anything is written (the
   reference re-runs a functional step instead).
@@ -346,6 +349,28 @@ def _segend(kh, end):
     return e
 
 
+def _seg_folds(comps, sf, components, alive, pos):
+    """Every component's per-segment fold; an 'argset' payload is the sum,
+    in item order from +0, of the values of the alive items whose order
+    (the nearest order component before it) equals the segment's and is
+    not the init (``post_session_exchange``'s argset branch, :3671-3694 of
+    the reference): -0.0 comes out +0.0, NaN stays NaN."""
+    out = []
+    last = 0
+    everyone = torch.ones_like(alive)
+    for j, (v, comp) in enumerate(zip(comps, components)):
+        if comp.combine != "argset":
+            out.append(_seg_fold(v, sf, comp, alive, pos))
+            last = j
+            continue
+        init = torch.tensor(components[last].init, dtype=comps[last].dtype, device=v.device)
+        order = torch.where(alive, comps[last], init)
+        winner = alive & (order == out[last][sf]) & (order != init)
+        payload = torch.where(winner, v, torch.zeros_like(v))
+        out.append(_seg_fold(payload, sf, AggComponent("add", comp.dtype, 0), everyone, pos))
+    return out
+
+
 def session_merge_plain(items: Items, perm, n, slots_per_key, gap, components, capacity):
     """Plain twin of K15 — see :func:`session_merge`."""
     p = perm.long()
@@ -391,7 +416,7 @@ def session_merge_plain(items: Items, perm, n, slots_per_key, gap, components, c
         "seg_minrow": seg_min(torch.where(isrow & alive, rowidx, torch.full_like(ar, INT64_MAX)),
                               INT64_MAX),
         "seg_reprs": seg_reprs,
-        "seg_comps": [_seg_fold(c, sf, comp, alive, pos) for c, comp in zip(comps, components)],
+        "seg_comps": _seg_folds(comps, sf, components, alive, pos),
         "winner": winner,
         "ins_act": winner & (rank < slots_per_key),
         "base": slot_base(kh, rank, capacity),
@@ -422,8 +447,10 @@ def session_merge(items: Items, perm: torch.Tensor, n: int, slots_per_key: int, 
     per item its segment's first position ``segfirst`` and the segment's
     rank within its key; ``winner`` (a boundary item of an alive segment),
     ``ins_act = winner & rank < S``, K2's base slot for ``(kh, rank)`` and
-    its key reprs; ``sess_ovf``, the winners with ``rank >= S``.  Writes no
-    state.  The sorted position 0 always opens a key and a segment (the
+    its key reprs; ``sess_ovf``, the winners with ``rank >= S``.  With an
+    'argset' component (the ``argset`` mode) the segment's payload is the
+    sum of its winners' values (:func:`_seg_folds`); its order component
+    must be an int64 min or max.  Writes no state.  The sorted position 0 always opens a key and a segment (the
     reference's formula agrees unless a key hash is exactly -1)."""
     if not perm.is_cuda:
         return session_merge_plain(items, perm, n, slots_per_key, gap, components, capacity)
@@ -451,7 +478,13 @@ def session_merge(items: Items, perm: torch.Tensor, n: int, slots_per_key: int, 
         "sess_ovf": torch.empty((), dtype=torch.int64, device=dev),
     }
     desc: List[int] = []
+    last = None
     for src, comp in zip(items["comps"], components):
+        if comp.combine == "argset" and (last is None or last.combine not in ("min", "max")
+                                         or last.dtype != "int64"):
+            raise ValueError("session_merge: an argset payload needs an int64 min/max order")
+        if comp.combine != "argset":
+            last = comp
         dt = _DTYPES[comp.dtype]
         _expect(src, dt, (m,))
         srt, seg = e(dt), e(dt)
@@ -472,10 +505,15 @@ def session_merge(items: Items, perm: torch.Tensor, n: int, slots_per_key: int, 
         _stream(dev),
     ))
     session_merge.launches += 1
+    argset = any(comp.combine == "argset" for comp in components)
+    session_merge.mode_launches["argset" if argset else "merge"] += 1
     return out
 
 
 session_merge.launches = 0
+#: ``merge``: add/min/max folds only; ``argset``: with EARLIEST/LATEST's
+#: payloads
+session_merge.mode_launches = {"merge": 0, "argset": 0}
 
 
 # ------------------------------------------------------ K16: session_write

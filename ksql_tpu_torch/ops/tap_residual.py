@@ -41,9 +41,15 @@ from ksql_tpu_torch.compiler.torch_expr import (
     DeviceUnsupported,
     TorchExprCompiler,
     between_expr,
+    cast_route,
+    common_type,
     compare_type,
+    decimal_round,
+    float_to_int,
     in_list_terms,
     promoted_type,
+    simple_case_expr,
+    temporal_cast,
     torch_dtype,
 )
 from ksql_tpu_torch.execution import expressions as ex
@@ -64,15 +70,31 @@ DT_I32, DT_I64, DT_F64, DT_BOOL = 0, 1, 2, 3
 _DT_OF = {torch.int32: DT_I32, torch.int64: DT_I64, torch.float64: DT_F64, torch.bool: DT_BOOL}
 _TORCH_OF = {v: k for k, v in _DT_OF.items()}
 
-#: opcodes; each instruction is ``(op, a, b, dt)``
+#: opcodes; each instruction is ``(op, a, b, dt)``.  OP_CAST is the typing
+#: conversion (widening, integer narrowing that wraps, to bool); OP_SQLCAST
+#: is a SQL CAST's own arithmetic (``a`` one of the SC_ kinds below);
+#: OP_SELECT pops a condition, an else and a then value and pushes the then
+#: value where the condition is valid and true (CASE, nested from its last
+#: WHEN)
 OP_COL, OP_PARAM_I, OP_PARAM_F, OP_CONST, OP_CAST = 0, 1, 2, 3, 4
 OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MOD = 5, 6, 7, 8, 9
 OP_NEG, OP_CMP, OP_AND, OP_OR, OP_NOT, OP_ISNULL, OP_FILTER = 10, 11, 12, 13, 14, 15, 16
+OP_SELECT, OP_SQLCAST = 17, 18
+#: OP_SQLCAST kinds: a float to an integer (truncated, saturated, NaN 0);
+#: a float to DECIMAL(p, s) (HALF_UP at scale s, NULL at or past 10^(p-s):
+#: ``b = s * 64 + (p - s)``); epoch days to ms; ms to epoch days and to
+#: time of day, both floored
+SC_F2I, SC_DECIMAL, SC_DAYS_TO_MS, SC_MS_TO_DAYS, SC_MS_TO_TIME = 0, 1, 2, 3, 4
+_SQLCAST_KINDS = {"days_to_ms": SC_DAYS_TO_MS, "ms_to_days": SC_MS_TO_DAYS, "ms_to_time": SC_MS_TO_TIME}
+_SQLCAST_ROUTES = {k: r for r, k in _SQLCAST_KINDS.items()}
+#: K25's DECIMAL casts take exact powers of ten only (10^0 .. 10^22)
+MAX_POW10 = 22
 #: stack effect (pops, pushes) of each opcode
 _EFFECT = {OP_COL: (0, 1), OP_PARAM_I: (0, 1), OP_PARAM_F: (0, 1), OP_CONST: (0, 1),
            OP_CAST: (1, 1), OP_ADD: (2, 1), OP_SUB: (2, 1), OP_MUL: (2, 1), OP_DIV: (2, 1),
            OP_MOD: (2, 1), OP_NEG: (1, 1), OP_CMP: (2, 1), OP_AND: (2, 1), OP_OR: (2, 1),
-           OP_NOT: (1, 1), OP_ISNULL: (1, 1), OP_FILTER: (1, 0)}
+           OP_NOT: (1, 1), OP_ISNULL: (1, 1), OP_FILTER: (1, 0), OP_SELECT: (3, 1),
+           OP_SQLCAST: (1, 1)}
 _ARITH_OPS = {ex.ArithOp.ADD: OP_ADD, ex.ArithOp.SUBTRACT: OP_SUB, ex.ArithOp.MULTIPLY: OP_MUL,
               ex.ArithOp.DIVIDE: OP_DIV, ex.ArithOp.MODULUS: OP_MOD}
 #: comparison codes (``a`` of OP_CMP)
@@ -215,6 +237,46 @@ class _Builder:
 
     def _c_Between(self, e, env):
         return self.compile(between_expr(e), env)
+
+    def _c_Cast(self, e, env):
+        """TorchExprCompiler._c_Cast's routes (``cast_route``), as code."""
+        c, t = self.compile(e.operand, env)
+        target = e.target
+        route = cast_route(t, target)
+        if route == "same":
+            return c, target
+        if route == "relabel":
+            return self._cast(c, t, _dt(target)), target
+        if route != "numeric":
+            return self._cast(c, t, DT_I64) + [(OP_SQLCAST, _SQLCAST_KINDS[route], 0, DT_I64)], target
+        d = DT_F64 if target.base == SqlBaseType.DECIMAL else _dt(target)
+        if _dt(t) == DT_F64 and d in (DT_I32, DT_I64):
+            c = c + [(OP_SQLCAST, SC_F2I, 0, d)]
+        else:
+            c = self._cast(c, t, d)
+        if target.base == SqlBaseType.DECIMAL and target.scale is not None:
+            if target.precision is None or target.scale > MAX_POW10 \
+                    or target.precision - target.scale > MAX_POW10:
+                raise DeviceUnsupported(f"CAST AS {target} in a fused residual")
+            whole = target.precision - target.scale
+            c = c + [(OP_SQLCAST, SC_DECIMAL, target.scale * 64 + whole, DT_F64)]
+        return c, target
+
+    def _c_SearchedCase(self, e, env):
+        """TorchExprCompiler._c_SearchedCase's typing; the WHENs nest from
+        the last: ``c1 ? r1 : (c2 ? r2 : default)``."""
+        results = [self.compile(w.result, env) for w in e.when_clauses]
+        default = self.compile(e.default, env) if e.default is not None else None
+        t = common_type([rt for _, rt in results] + ([default[1]] if default else []))
+        d = _dt(t)
+        code = self._cast(*default, d) if default else [(OP_CONST, 0, 0, d)]
+        for w, (rc, rt) in reversed(list(zip(e.when_clauses, results))):
+            cc, ct = self.compile(w.condition, env)
+            code = self._cast(rc, rt, d) + code + self._bool(cc, ct) + [(OP_SELECT, 0, 0, d)]
+        return code, t
+
+    def _c_SimpleCase(self, e, env):
+        return self._c_SearchedCase(simple_case_expr(e), env)
 
     def _c_InList(self, e, env):
         self.compile(e.value, env)  # an unsupported operand refuses the list
@@ -364,11 +426,29 @@ def run_program(prog: Program, datas, valids, P_i, P_f, active, row_valid, limit
         elif op == OP_FILTER:
             x, v = stack.pop()
             mask = mask & v & x
+        elif op == OP_SELECT:
+            (c, vc), (y, vy), (x, vx) = stack.pop(), stack.pop(), stack.pop()
+            fire = vc & c
+            stack.append((torch.where(fire, x, y), torch.where(fire, vx, vy)))
+        elif op == OP_SQLCAST:
+            x, v = stack.pop()
+            stack.append(_sql_cast(a, b, dt, x, v))
         else:
             (y, vy), (x, vx) = stack.pop(), stack.pop()
             stack.append(_binary(op, a, b, dt, x, vx, y, vy))
     masks = mask & active[:, None] & row_valid[None, :]
     return masks, torch.minimum(masks.sum(dim=1, dtype=torch.int64), limits)
+
+
+def _sql_cast(kind, b, dt, x, v):
+    """OP_SQLCAST in torch, through TorchExprCompiler._c_Cast's helpers."""
+    if kind == SC_F2I:
+        return float_to_int(x, _TORCH_OF[dt]), v
+    if kind == SC_DECIMAL:
+        whole, scale = b % 64, b // 64
+        out, within = decimal_round(x, scale + whole, scale)
+        return out, v & within
+    return temporal_cast(_SQLCAST_ROUTES[kind], x), v
 
 
 def _binary(op, a, b, dt, x, vx, y, vy):

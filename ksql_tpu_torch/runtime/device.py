@@ -72,6 +72,10 @@ class DictionaryServer:
 class ColumnSpec:
     name: str
     sql_type: SqlType
+    #: a struct-path column: (root column, field path) extracted at encode,
+    #: so a query that only reads scalar leaves of a STRUCT never carries
+    #: the struct to the card
+    path: Optional[Tuple[str, Tuple[str, ...]]] = None
 
     @property
     def hashed(self) -> bool:
@@ -88,6 +92,7 @@ class BatchLayout:
         columns: Sequence[str],
         capacity: int,
         dictionary: Optional[DictionaryServer] = None,
+        struct_paths: Sequence[Tuple[str, str, Tuple[str, ...], SqlType]] = (),
     ):
         self.schema = schema
         self.capacity = capacity
@@ -108,6 +113,8 @@ class BatchLayout:
                     f"DECIMAL({col.type.precision}) column {name} on device"
                 )
             self.specs.append(ColumnSpec(col.name, col.type))
+        for synth, root, path, leaf_t in struct_paths:
+            self.specs.append(ColumnSpec(synth, leaf_t, path=(root, tuple(path))))
 
     # ---------------------------------------------------------------- encode
     def encode(self, batch: HostBatch) -> Dict[str, np.ndarray]:
@@ -116,7 +123,10 @@ class BatchLayout:
             raise ValueError(f"batch of {n} rows exceeds capacity {cap}")
         out: Dict[str, np.ndarray] = {}
         for spec in self.specs:
-            values, valid = batch.column_or_pseudo(spec.name)
+            if spec.path is not None:
+                values, valid = _extract_path(batch, *spec.path)
+            else:
+                values, valid = batch.column_or_pseudo(spec.name)
             enc = encode_column(values, valid, spec.sql_type)
             if spec.hashed:
                 self.dictionary.learn(enc.hashes64, enc.dictionary)
@@ -166,6 +176,28 @@ class BatchLayout:
         out["partition"] = part
         return out
 
+
+
+def _extract_path(batch: HostBatch, root: str, fields: Tuple[str, ...]):
+    """The leaf at ``fields`` of each row's struct ``root`` (NULL where the
+    struct or a field on the way is NULL or not a struct); field names
+    match case-insensitively, an exact hit first."""
+    n = batch.num_rows
+    base_vals, base_valid = batch.column_or_pseudo(root)
+    values = np.empty(n, object)
+    valid = np.zeros(n, bool)
+    fus = [f.upper() for f in fields]
+    for i in range(n):
+        cur = base_vals[i] if base_valid[i] else None
+        for f, fu in zip(fields, fus):
+            if not isinstance(cur, dict):
+                cur = None
+                break
+            cur = cur.get(f) if f in cur else next(
+                (v for k, v in cur.items() if k.upper() == fu), None)
+        values[i] = cur
+        valid[i] = cur is not None
+    return values, valid
 
 
 def decode_value(

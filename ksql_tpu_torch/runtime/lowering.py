@@ -28,11 +28,17 @@ the plan shapes of this slice:
     ForeignKeyTableTableJoin (INNER or LEFT) → (TableSelect |
     TableFilter)+ → Sink
 
-with COUNT(*), COUNT, SUM, AVG, MIN and MAX and the vector aggregates
-COLLECT_LIST, COLLECT_SET, EARLIEST/LATEST_BY_OFFSET(n), TOPK, TOPKDISTINCT,
-HISTOGRAM and ATTR (``ops/device_aggs.py``; the vector state is folded by
-``ops/vector.py``'s K20-K22 after K3, on the unwindowed, TUMBLING and
-HOPPING-expansion routes), plus the stateless filter/project pipelines.  Each table of a stream-table join
+with COUNT(*), COUNT, SUM (DECIMAL too, in its 2^53 envelope), AVG, MIN and
+MAX, the scalar EARLIEST/LATEST_BY_OFFSET(x[, ignoreNulls]) (ordered by the
+arrival sequence ``agg_seq``, which advances by the batch capacity; their
+payloads are written by K3's argset mode after its fold, or by K15's argset
+mode in a session merge; a HOPPING query with them takes the expansion
+route) and the vector aggregates COLLECT_LIST, COLLECT_SET,
+EARLIEST/LATEST_BY_OFFSET(n), TOPK, TOPKDISTINCT, HISTOGRAM and ATTR
+(``ops/device_aggs.py``; the vector state is folded by ``ops/vector.py``'s
+K20-K22 after K3, on the unwindowed, TUMBLING and HOPPING-expansion
+routes), plus the stateless filter/project pipelines; a struct column
+read only through scalar field paths rides as its path columns.  Each table of a stream-table join
 is materialized into its own keyed store on the card (``jtab``, inner
 probes of a chain ``jtab<i>``): ``process_table`` folds a changelog batch
 into it (K1 table mode, K2, K9 table_upsert) and every stream row probes
@@ -88,7 +94,7 @@ PARTITION BY outside a join's input side, EMIT FINAL or HAVING over
 SESSION windows, suppress over a table aggregation, aggregates whose state
 does not invert (MIN, MAX, TOPK, COLLECT_SET, ...) over a table
 aggregation, vector aggregates over SESSION windows or under EMIT FINAL,
-arg-set aggregates, window families, pull queries.
+the offsets over a table aggregation, window families, pull queries.
 
 Where the reference traces one jitted step, the port runs eagerly: the
 expression phases are torch tensor ops, and the keyed store goes through
@@ -127,7 +133,7 @@ from ksql_tpu_torch.common import types as T
 from ksql_tpu_torch.common.batch import HostBatch
 from ksql_tpu_torch.common.errors import QueryRuntimeException
 from ksql_tpu_torch.common.schema import PSEUDOCOLUMNS, LogicalSchema
-from ksql_tpu_torch.common.types import SqlBaseType
+from ksql_tpu_torch.common.types import SqlBaseType, SqlType
 from ksql_tpu_torch.compiler.torch_expr import (
     DCol,
     DeviceUnsupported,
@@ -135,6 +141,9 @@ from ksql_tpu_torch.compiler.torch_expr import (
     _HASHED,
     _repr64,
     decode_key64,
+    deref_fields,
+    deref_root,
+    deref_synth_name,
     torch_dtype,
 )
 from ksql_tpu_torch.execution import expressions as ex
@@ -215,6 +224,66 @@ def _refs_of_ops(ops) -> set:
         for e in getattr(s, "key_expressions", ()):
             out.update(ex.referenced_columns(e))
     return out
+
+
+_NESTED_BASES = (SqlBaseType.ARRAY, SqlBaseType.MAP, SqlBaseType.STRUCT)
+
+
+def _collect_struct_paths(exprs, schema):
+    """(struct_paths, flattened_roots) for struct columns dereferenced to
+    scalar leaves (the reference's ``_collect_struct_paths``): each path
+    becomes a synthetic flat column ``ROOT->F.G``.  A struct whose every
+    use is a path drops from the layout; one also used whole keeps its
+    (dictionary-coded) column next to the path columns."""
+    paths: Dict[str, Tuple[str, Tuple[str, ...], SqlType]] = {}
+    bare_structs: set = set()
+    struct_cols = {c.name: c.type for c in schema.columns() if c.type.base == SqlBaseType.STRUCT}
+
+    def leaf_type(root: str, fields: Tuple[str, ...]) -> Optional[SqlType]:
+        t = struct_cols.get(root)
+        for f in fields:
+            if t is None or t.base != SqlBaseType.STRUCT:
+                return None
+            t = next((ft for fn, ft in (t.fields or ()) if fn.upper() == f.upper()), None)
+        if t is None or t.base in _NESTED_BASES:
+            return None
+        return t
+
+    def scan(node):
+        if isinstance(node, ex.Dereference):
+            cur = deref_root(node)
+            if isinstance(cur, ex.ColumnRef) and cur.name in struct_cols:
+                fields = deref_fields(node)
+                lt = leaf_type(cur.name, fields)
+                if lt is None:
+                    bare_structs.add(cur.name)
+                else:
+                    paths[deref_synth_name(cur.name, fields)] = (cur.name, fields, lt)
+                return
+            scan(cur)
+            return
+        if isinstance(node, ex.ColumnRef):
+            if node.name in struct_cols:
+                bare_structs.add(node.name)
+            return
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            for f in dataclasses.fields(node):
+                v = getattr(node, f.name)
+                if isinstance(v, ex.Expression):
+                    scan(v)
+                elif isinstance(v, (list, tuple)):
+                    for item in v:
+                        if isinstance(item, ex.Expression):
+                            scan(item)
+                        elif isinstance(item, tuple) and len(item) == 2 \
+                                and isinstance(item[1], ex.Expression):
+                            scan(item[1])
+
+    for e in exprs:
+        scan(e)
+    out = [(synth, root, fields, lt) for synth, (root, fields, lt) in sorted(paths.items())]
+    roots = {root for _s, root, _f, _t in out} - bare_structs
+    return out, roots
 
 
 def _rebuild_keyed_store(old: Dict[str, np.ndarray], new: Dict[str, np.ndarray],
@@ -363,6 +432,9 @@ class TorchCompiledQuery:
             self._setup_ss_join(ss_buffer_capacity, ss_out_capacity)
 
         self.store_layout: Optional[hs.StoreLayout] = None
+        #: EARLIEST/LATEST aggregates order by a global arrival sequence
+        #: (``agg_seq``, advanced by the batch capacity each batch)
+        self._needs_seq = False
         if self.agg is not None:
             comps = self._agg_components()
             # wide state (slice rings) shrinks the initial slot count to a
@@ -375,6 +447,7 @@ class TorchCompiledQuery:
                 capacity=store_capacity, num_keys=len(self.key_types),
                 components=tuple(comps), windowed=self.window is not None,
             )
+            self._needs_seq = any(c.combine == "argset" for c in comps)
         self.store_capacity = store_capacity
         self._state: Optional[Dict[str, torch.Tensor]] = None
         self.scratch: Dict[str, torch.Tensor] = {}
@@ -644,7 +717,11 @@ class TorchCompiledQuery:
         return self.sink.schema
 
     def _build_agg_specs(self) -> None:
-        types = {c.name: c.type for c in self._pre_agg_schema().columns()}
+        schema = self._pre_agg_schema()
+        types = {c.name: c.type for c in schema.columns()}
+        # struct leaves the arguments read ride as their path columns
+        args = [a for call in self.agg.aggregations for a in call.args]
+        types.update({synth: lt for synth, _r, _f, lt in _collect_struct_paths(args, schema)[0]})
         probe = _probe_env({**types, **PSEUDOCOLUMNS})
         for i, call in enumerate(self.agg.aggregations):
             if call.distinct:
@@ -854,20 +931,34 @@ class TorchCompiledQuery:
         self.ring_resizes += 1
 
     def _build_ingress_layout(self) -> None:
-        """The ingress BatchLayout: only the columns the pipeline reads."""
+        """The ingress BatchLayout: only the columns the pipeline reads; a
+        struct column read only through scalar field paths becomes its
+        path columns, extracted at encode (the struct never reaches the
+        card)."""
         needed = _refs_of_ops(self.pre_ops) | _refs_of_ops(self.mid_ops)
+        scope: List[ex.Expression] = []
+        for s_ in [*self.pre_ops, *self.mid_ops]:
+            if hasattr(s_, "predicate"):
+                scope.append(s_.predicate)
+            scope.extend(e_ for _n, e_ in getattr(s_, "selects", ()))
+            scope.extend(getattr(s_, "key_expressions", ()))
         if self.group is not None:
             for e in getattr(self.group, "group_by_expressions", ()):
                 needed.update(ex.referenced_columns(e))
+                scope.append(e)
         for spec in self.agg_specs:
             for e in spec.arg_exprs:
                 needed.update(ex.referenced_columns(e))
+                scope.append(e)
         src_schema = self.source.schema
         if self.agg is None:
             needed.update(c.name for c in self._emit_schema().columns())
         needed &= {c.name for c in src_schema.columns()}
         needed.update(c.name for c in src_schema.key_columns)
-        self.layout = BatchLayout(src_schema, sorted(needed), self.capacity, self.dictionary)
+        struct_paths, flattened_roots = _collect_struct_paths(scope, src_schema)
+        needed -= flattened_roots
+        self.layout = BatchLayout(src_schema, sorted(needed), self.capacity, self.dictionary,
+                                  struct_paths=struct_paths)
 
     def _build_table_layouts(self, table_store_capacity: int) -> None:
         """Table-side ingress of each probe: the table columns its pre-ops
@@ -966,8 +1057,9 @@ class TorchCompiledQuery:
             return
         self._key_cols(env, 0, "cpu")
         c = TorchExprCompiler(env, 0, "cpu")
+        seq = torch.zeros(0, dtype=torch.int64)
         for spec in self.agg_specs:
-            spec.device.contribs([c.compile(a) for a in spec.arg_exprs], active)
+            spec.device.contribs([c.compile(a) for a in spec.arg_exprs], active, seq)
         fin = {c2.name: c2.type for c2 in self.agg.schema.key_columns}
         fin.update({spec.out_name: spec.device.result_type for spec in self.agg_specs})
         fin["ROWTIME"] = T.BIGINT
@@ -1033,6 +1125,9 @@ class TorchCompiledQuery:
     def _init_agg_state(self, dev) -> Dict[str, torch.Tensor]:
         state = hs.init_store(self.store_layout, dev)
         c1 = self.store_capacity + 1
+        if self._needs_seq:
+            # the next row's arrival sequence number
+            state["agg_seq"] = torch.zeros((), dtype=torch.int64, device=dev)
         if self._having_retract():
             # each slot's last HAVING verdict: pass -> fail emits a tombstone
             state["hpass"] = torch.zeros(c1, dtype=torch.bool, device=dev)
@@ -1119,6 +1214,9 @@ class TorchCompiledQuery:
                 for p in _PSEUDO:
                     if p in env:
                         new_env[p] = env[p]
+                # struct path columns (``ROOT->F``) ride along as the
+                # pseudocolumns do: no select can name one
+                new_env.update({k: v for k, v in env.items() if "->" in k})
                 env = new_env
         return env, active
 
@@ -1145,7 +1243,10 @@ class TorchCompiledQuery:
             return emits
         if self.session:
             return self._session_step(arrays)
-        return self.post_exchange(self.pre_exchange(arrays))
+        emits = self.post_exchange(self.pre_exchange(arrays))
+        if self._needs_seq:
+            state["agg_seq"] += self.capacity
+        return emits
 
     def pre_exchange(self, arrays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Per-row phase: transforms, window assignment (the k-fold hopping
@@ -1184,10 +1285,17 @@ class TorchCompiledQuery:
             reprs = reprs.repeat(1, k)
             ts = W.expand(ts, k)
         nn = n * k
+        seq = None
+        if self._needs_seq:
+            # arrival sequence: one number a row, shared by its hopping
+            # copies, so per-(key, window) order follows arrival
+            seq = state["agg_seq"] + torch.arange(n, dtype=torch.int64, device=ts.device)
+            if k > 1:
+                seq = W.expand(seq, k)
         contribs = [c0]
         c = TorchExprCompiler(env, nn, ts.device, self.dictionary)
         for spec in self.agg_specs:
-            contribs.extend(spec.device.contribs([c.compile(e) for e in spec.arg_exprs], active))
+            contribs.extend(spec.device.contribs([c.compile(e) for e in spec.arg_exprs], active, seq))
         payload.update(khash=khash, wstart=wstart, knull=knull, ts=ts, active=active, base=base,
                        reprs=reprs, contribs=contribs)
         return payload
@@ -1219,6 +1327,7 @@ class TorchCompiledQuery:
             winners = hs.fold_and_mark(
                 store, self.scratch, self.store_layout, slots, payload["contribs"], active
             )
+            hs.fold_argset(store, self.scratch, self.store_layout, slots, payload["contribs"])
             vec.fold_vectors(store, self.store_layout, slots, payload["contribs"])
             if self.suppress:
                 emits = {"emit_mask": torch.zeros(nn, dtype=torch.bool, device=active.device),
@@ -1264,9 +1373,12 @@ class TorchCompiledQuery:
         active, scal = sess.session_prologue(arrays["row_valid"], ts, active, self.state["max_ts"],
                                              self.grace_ms, self.gap_ms)
         contribs = [torch.where(active, ts, torch.full_like(ts, _I64_MIN))]
+        seq = None
+        if self._needs_seq:
+            seq = self.state["agg_seq"] + torch.arange(n, dtype=torch.int64, device=ts.device)
         c = TorchExprCompiler(env, n, ts.device, self.dictionary)
         for spec in self.agg_specs:
-            contribs.extend(spec.device.contribs([c.compile(e) for e in spec.arg_exprs], active))
+            contribs.extend(spec.device.contribs([c.compile(e) for e in spec.arg_exprs], active, seq))
         return {"khash": khash, "ts": ts, "active": active, "scal": scal, "reprs": reprs,
                 "contribs": [x.contiguous() for x in contribs]}
 
@@ -1308,6 +1420,8 @@ class TorchCompiledQuery:
             merged["ins_act"],
         )
         lanes = sess.session_write(store, cap, merged, ins_slots, scal)
+        if self._needs_seq:
+            store["agg_seq"] += n
         mask = lanes["mask"]
         nn = 2 * m
         out_env: Dict[str, DCol] = {}
@@ -1363,18 +1477,25 @@ class TorchCompiledQuery:
             self.store_capacity, width, spw, member.advance_ms, member.size_ms,
             member.grace_ms, k, self.scratch,
         )
-        env, row_ts = self._combine_windows(slot_lane, w_lane, member)
-        return self._member_emit(env, row_ts, winner, member, slot_lane.shape[0])
+        exceeded: list = []
+        env, row_ts = self._combine_windows(slot_lane, w_lane, member, exceeded)
+        emits = self._member_emit(env, row_ts, winner, member, slot_lane.shape[0])
+        _add_dec_envelope(emits, exceeded[0])
+        return emits
 
     def _combine_windows(self, slot_lane: torch.Tensor, w_lane: torch.Tensor,
-                         member: _MemberSpec) -> Tuple[Dict[str, DCol], torch.Tensor]:
+                         member: _MemberSpec, exceeded: Optional[list] = None
+                         ) -> Tuple[Dict[str, DCol], torch.Tensor]:
         """Monoid-merge the covering slices of each (slot, window) lane (K6)
-        and finalize into an expression env over the aggregate schema."""
+        and finalize into an expression env over the aggregate schema;
+        ``exceeded`` (a list) receives the lanes' :meth:`_dec_exceeded`."""
         spw = W.slices_per_window(member.size_ms, self.slice_width)
         view = slicing.combine_windows(
             self.state, self.store_layout, len(self.key_types), slot_lane,
             w_lane, spw, self.slice_width,
         )
+        if exceeded is not None:
+            exceeded.append(self._dec_exceeded(view, member.agg_map))
         return self._finalized_env(view, slot_lane.shape[0], wsize_ms=member.size_ms,
                                    agg_schema=member.agg_schema, agg_map=member.agg_map)
 
@@ -1383,6 +1504,20 @@ class TorchCompiledQuery:
         """Post-aggregation ops + emission packing for one member."""
         env, mask = self._apply_ops(member.post_ops, env, mask, nn)
         return self._pack_emits(env, mask, row_ts, schema=member.sink_schema)
+
+    def _dec_exceeded(self, view: Dict[str, torch.Tensor],
+                      agg_map: Optional[List[int]] = None) -> Optional[torch.Tensor]:
+        """Per lane of ``view``, whether an accumulator with an
+        ``exact_abs_bound`` (DECIMAL SUM) passed it, so its finalized value
+        may have drifted; None when no aggregate has a bound."""
+        out = None
+        starts = self._spec_comp_starts()
+        for j in agg_map if agg_map is not None else range(len(self.agg_specs)):
+            bound = self.agg_specs[j].device.exact_abs_bound
+            if bound is not None:
+                hit = torch.abs(view[f"a{starts[j]}"]) > bound
+                out = hit if out is None else out | hit
+        return out
 
     def _finalized_env(self, view: Dict[str, torch.Tensor], nn: int,
                        wsize_ms: Optional[int] = None,
@@ -1456,6 +1591,7 @@ class TorchCompiledQuery:
         emits = self._pack_emits(env, mask, row_ts)
         if tomb is not None:
             emits["tombstone"] = tomb
+        _add_dec_envelope(emits, self._dec_exceeded(view))
         return emits
 
     def _pack_emits(self, env: Dict[str, DCol], mask: torch.Tensor, ts: torch.Tensor,
@@ -2311,7 +2447,9 @@ class TorchCompiledQuery:
         env, row_ts = self._finalized_env(view, idx.size)
         mask = torch.ones(idx.size, dtype=torch.bool, device=self.device)
         env, mask = self._apply_ops(self.post_ops, env, mask, idx.size)
-        return self._decode_emits(self._pack_emits(env, mask, row_ts), sort=False)
+        emits = self._pack_emits(env, mask, row_ts)
+        _add_dec_envelope(emits, self._dec_exceeded(view))
+        return self._decode_emits(emits, sort=False)
 
     def upload(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
@@ -2411,7 +2549,18 @@ class TorchCompiledQuery:
         """The emitted lanes as SinkEmits, in the reference's order: by
         ``ord_a``/``ord_b`` when present, else by (ts, window start) unless
         ``sort`` is False (the lanes are already in emission order).  A
-        tombstone lane decodes with ``row = None``."""
+        tombstone lane decodes with ``row = None``.  A DECIMAL SUM past
+        its exactness envelope on an emitted lane raises instead."""
+        if "dec_envelope" in emits:
+            n_drift = int(emits["dec_envelope"].sum())
+            if n_drift:
+                # never emit a silently drifted decimal sum
+                raise QueryRuntimeException(
+                    f"DECIMAL SUM exceeded the 2^53-exact envelope on "
+                    f"{n_drift} emitted aggregate(s); rerun this query on "
+                    "the oracle backend (ksql.runtime.backend=oracle) for "
+                    "unbounded decimal arithmetic"
+                )
         idx_dev = emits["emit_mask"].nonzero().squeeze(1)
         if idx_dev.numel() == 0:
             return []
@@ -2503,6 +2652,15 @@ class TorchCompiledQuery:
         for i, v in enumerate(elems):
             objs[i] = v
         return [list(part) for part in np.split(objs, bounds)]
+
+
+def _add_dec_envelope(emits: Dict[str, torch.Tensor], exceeded: Optional[torch.Tensor]) -> None:
+    """The emitted lanes whose DECIMAL SUM passed its exactness envelope,
+    counted into ``emits["dec_envelope"]`` (a 1-element int64 tensor, so
+    a table aggregation's two sides concatenate); nothing when no
+    aggregate has an envelope."""
+    if exceeded is not None:
+        emits["dec_envelope"] = (exceeded & emits["emit_mask"]).sum().reshape(1)
 
 
 def _read_load(overflow: torch.Tensor, before: torch.Tensor, occupancy: torch.Tensor) -> Tuple[bool, int]:

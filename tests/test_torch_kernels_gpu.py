@@ -786,3 +786,30 @@ def test_tap_residual_corpus_families_match_twin(dev, name):
     want = tr.lane_masks_plain(prog.spec, prog.col_types, *args)
     _same(got[0], want[0])
     _same(got[1], want[1])
+
+
+@pytest.mark.parametrize("n,capacity", [(4096, 1 << 12), (512, 1 << 7)])
+def test_fold_argset_kernel_matches_twin(dev, n, capacity):
+    # tolerance: exact (every component's bits, the dump slot included)
+    store, scratch, layout, slots, contribs = chip_smoke.make_argset_case(
+        torch, hs, np.random.default_rng(n), dev, n=n, capacity=capacity)
+    want = {k: v.clone() for k, v in store.items()}
+    hs.fold_argset_plain(want, layout, slots, contribs)
+    before = hs.fold_and_mark.mode_launches["argset"]
+    hs.fold_argset(store, scratch, layout, slots, contribs)
+    assert hs.fold_and_mark.mode_launches["argset"] == before + 1
+    for k in store:
+        a, b = store[k], want[k]
+        _same(a.view(torch.int64) if a.dtype == torch.float64 else a,
+              b.view(torch.int64) if b.dtype == torch.float64 else b)
+    assert int((scratch["dump_row"] != -1).sum()) == 0
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_session_merge_argset_kernel_matches_twin(dev, ties):
+    # tolerance: exact (every sorted item column, and every segment value
+    # read through segfirst; the payload sums start from +0 on both sides).
+    # ``ties``: orders modulo 50, so tied winners' payloads are summed
+    items, perm, comps = chip_smoke.make_merge_case(torch, sess, hs, np.random.default_rng(5), dev,
+                                                    n=1024, slots=4, keys=300, ties=ties)
+    chip_smoke.check_merge_argset(torch, sess, items, perm, comps, 1024, 4, 1 << 12, "K15 argset")

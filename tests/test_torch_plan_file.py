@@ -11,7 +11,10 @@ COLLECT_SET, TOPK, TOPKDISTINCT, EARLIEST/LATEST_BY_OFFSET(n)) and
 ``pv_user_pages.json`` (HISTOGRAM), ``users_by_region.json`` and
 ``customer_orders.json`` (table aggregations), ``big_spenders.json``
 (a table transform), ``user_accounts.json`` (a table-table join) and
-``orders_enriched.json`` (a foreign-key join) are the serialized physical plans
+``orders_enriched.json`` (a foreign-key join), ``current_location.json``
+(the ksqlDB quickstart's LATEST_BY_OFFSET view over riderLocations) and
+``pv_offsets.json`` with its HOPPING and SESSION variants (EARLIEST/
+LATEST_BY_OFFSET, CAST, CASE, ABS and a DECIMAL SUM) are the serialized physical plans
 that ``chip_smoke.py`` runs (the port has no SQL front end yet): each must
 equal ``plan_to_json`` of the plan the reference engine builds from the
 bench's DDL (``bench.py``'s tumbling COUNT(*) and hopping
@@ -49,6 +52,14 @@ from ksql_tpu_torch.execution.steps import PLAN_FORMAT_VERSION, plan_from_json
 from ksql_tpu_torch.server.push_registry import identity_plan, residual_chain
 
 PLANS = os.path.join(os.path.dirname(__file__), os.pardir, "ksql_tpu_torch", "plans")
+#: pv_offsets' select list
+OFFSETS_SELECT = (
+    "SELECT URL, EARLIEST_BY_OFFSET(USER_ID) AS FIRST_USER, "
+    "LATEST_BY_OFFSET(CAST(USER_ID AS DOUBLE) * 0.1, false) AS LAST_SCORE, "
+    "SUM(CASE WHEN USER_ID > 500 THEN 1 ELSE 0 END) AS HIGH_USERS, "
+    "MAX(ABS(USER_ID - 500)) AS MAX_DIST, "
+    "SUM(CAST(USER_ID AS DECIMAL(10, 2))) AS USER_SUM FROM PAGE_VIEWS "
+)
 CTAS = {
     "pv_counts_tumbling.json": (
         "CREATE TABLE PV_COUNTS AS SELECT URL, COUNT(*) AS CNT FROM PAGE_VIEWS "
@@ -138,6 +149,21 @@ CTAS = {
         "CREATE TABLE ORDERS_ENRICHED AS SELECT O.ID, O.AMOUNT, O.STATUS, U.NAME, U.REGION "
         "FROM ORDERS O LEFT JOIN USERS U ON O.CUSTOMER_ID = U.ID;"
     ),
+    # the ksqlDB quickstart's first materialized view (docs.ksqldb.io,
+    # "Quickstart", step 6)
+    "current_location.json": (
+        "CREATE TABLE CURRENTLOCATION AS SELECT PROFILEID, LATEST_BY_OFFSET(LATITUDE) AS LA, "
+        "LATEST_BY_OFFSET(LONGITUDE) AS LO FROM RIDERLOCATIONS GROUP BY PROFILEID EMIT CHANGES;"
+    ),
+    # the scalar offsets beside CAST, CASE, ABS and a DECIMAL SUM over the
+    # page views, per URL and hour, and over its HOPPING and SESSION windows
+    "pv_offsets.json": "CREATE TABLE PV_OFFSETS AS " + OFFSETS_SELECT
+                       + "WINDOW TUMBLING (SIZE 1 HOUR) GROUP BY URL EMIT CHANGES;",
+    "pv_offsets_hopping.json": "CREATE TABLE PV_OFFSETS_HOPPING AS " + OFFSETS_SELECT
+                               + "WINDOW HOPPING (SIZE 1 HOUR, ADVANCE BY 15 MINUTES) GROUP BY URL "
+                               "EMIT CHANGES;",
+    "pv_offsets_session.json": "CREATE TABLE PV_OFFSETS_SESSION AS " + OFFSETS_SELECT
+                               + "WINDOW SESSION (30 SECONDS) GROUP BY URL EMIT CHANGES;",
 }
 #: tests/test_engine_device.py:121
 USERS_DDL = ("CREATE TABLE USERS (ID INT PRIMARY KEY, REGION STRING, AMT INT) "
@@ -150,6 +176,9 @@ ACCOUNTS_DDL = ("CREATE TABLE ACCOUNTS (ID BIGINT PRIMARY KEY, BALANCE DOUBLE, T
 #: customer_orders.json's ORDERS
 ORDERS_DDL = ("CREATE TABLE ORDERS (ID BIGINT PRIMARY KEY, CUSTOMER_ID BIGINT, STATUS STRING, "
               "AMOUNT DOUBLE) WITH (kafka_topic='orders', value_format='JSON');")
+#: the quickstart's stream (docs.ksqldb.io, "Quickstart", step 3)
+RIDER_DDL = ("CREATE STREAM RIDERLOCATIONS (PROFILEID VARCHAR, LATITUDE DOUBLE, LONGITUDE DOUBLE) "
+             "WITH (KAFKA_TOPIC='locations', VALUE_FORMAT='JSON', PARTITIONS=1);")
 #: the DDL each plan's query reads (bench.py:149, :541-546)
 DDL = {
     "pv_counts_tumbling.json": [bench.PV_DDL],
@@ -176,6 +205,10 @@ DDL = {
     "big_spenders.json": [USERS_DDL],
     "user_accounts.json": [BASELINE3_USERS_DDL, ACCOUNTS_DDL],
     "orders_enriched.json": [ORDERS_DDL, BASELINE3_USERS_DDL],
+    "current_location.json": [RIDER_DDL],
+    "pv_offsets.json": [bench.PV_DDL],
+    "pv_offsets_hopping.json": [bench.PV_DDL],
+    "pv_offsets_session.json": [bench.PV_DDL],
 }
 SINKS = {"pv_counts_tumbling.json": "PV_COUNTS", "pv_stats_hopping.json": "PV_STATS",
          "enriched_join.json": "ENRICHED", "ss_join_grace.json": "J",
@@ -184,7 +217,9 @@ SINKS = {"pv_counts_tumbling.json": "PV_COUNTS", "pv_stats_hopping.json": "PV_ST
          "pv_having_retract.json": "PV_HAVING_RETRACT", "pv_vectors.json": "PV_VECTORS",
          "pv_user_pages.json": "USER_PAGES", "users_by_region.json": "USERS_BY_REGION",
          "customer_orders.json": "CUSTOMER_ORDERS", "big_spenders.json": "BIG_SPENDERS",
-         "user_accounts.json": "USER_ACCOUNTS", "orders_enriched.json": "ORDERS_ENRICHED"}
+         "user_accounts.json": "USER_ACCOUNTS", "orders_enriched.json": "ORDERS_ENRICHED",
+         "current_location.json": "CURRENTLOCATION", "pv_offsets.json": "PV_OFFSETS",
+         "pv_offsets_hopping.json": "PV_OFFSETS_HOPPING", "pv_offsets_session.json": "PV_OFFSETS_SESSION"}
 
 
 def _committed(name):
@@ -302,6 +337,35 @@ def test_table_join_plan_files_equal_reference_engine_plans(name):
 @pytest.mark.parametrize("name", JOIN_PLANS)
 def test_port_decodes_table_join_plan_files_losslessly(name):
     _check_decodes(name)
+
+
+#: the offsets' plans of chip_smoke.py's phases 22, 23, 23h and 23s
+OFFSET_PLANS = ("current_location.json", "pv_offsets.json", "pv_offsets_hopping.json",
+                "pv_offsets_session.json")
+
+
+@pytest.mark.parametrize("name", OFFSET_PLANS)
+def test_offset_plan_files_equal_reference_engine_plans(name):
+    _check_equals_reference(name)
+
+
+@pytest.mark.parametrize("name", OFFSET_PLANS)
+def test_port_decodes_offset_plan_files_losslessly(name):
+    _check_decodes(name)
+
+
+@pytest.mark.parametrize("name", OFFSET_PLANS)
+def test_reference_keeps_offset_plans_on_device(name):
+    """The reference's CompiledDeviceQuery takes each offsets plan (the
+    DECIMAL(10, 2) SUM inside its 2^53 envelope), and so does the port."""
+    from ksql_tpu.runtime.lowering import CompiledDeviceQuery
+    from ksql_tpu_torch.runtime.lowering import TorchCompiledQuery
+
+    engine = bench._engine()
+    plan = bench._plan_of(engine, DDL[name] + [CTAS[name]])
+    CompiledDeviceQuery(plan, engine.registry, capacity=8, store_capacity=16)
+    q = TorchCompiledQuery(plan_from_json(_committed(name)), capacity=8, store_capacity=16, device="cpu")
+    assert q._needs_seq
 
 
 PV_STREAM = "CREATE STREAM PV_STREAM AS SELECT URL, USER_ID, VIEWTIME FROM PAGE_VIEWS EMIT CHANGES;"

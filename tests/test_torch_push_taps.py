@@ -153,6 +153,53 @@ def test_corpus_on_one_pipeline_matches_reference():
         t.close()
 
 
+#: taps over CAST and CASE (K25's SQLCAST and SELECT opcodes), the CASE and
+#: a cast also in the projection (the host interpreter's copies)
+CAST_CASE_TAPS = [
+    "SELECT ID, CAST(P AS INT) AS PI FROM S WHERE CAST(P AS INT) > 4 EMIT CHANGES;",
+    "SELECT ID FROM S WHERE CAST(P AS INT) > 9 EMIT CHANGES;",
+    "SELECT ID, CAST(P AS DECIMAL(4, 1)) AS PD FROM S WHERE CAST(V AS DOUBLE) * 0.5 >= 6.0 EMIT CHANGES;",
+    "SELECT ID FROM S WHERE CAST(V AS DOUBLE) * 1.5 >= 20.0 EMIT CHANGES;",
+    "SELECT ID, CASE WHEN V > 10 THEN 'big' ELSE 'small' END AS SZ FROM S "
+    "WHERE CASE WHEN V > 10 THEN V ELSE ID END % 3 = 0 EMIT CHANGES;",
+    "SELECT ID FROM S WHERE CASE WHEN V > 4 THEN V ELSE ID END % 3 = 1 EMIT CHANGES;",
+    "SELECT ID FROM S WHERE CASE TAG WHEN 't1' THEN V END > 5 EMIT CHANGES;",
+    "SELECT ID FROM S WHERE CASE TAG WHEN 't2' THEN V END > 20 EMIT CHANGES;",
+]
+
+
+def test_cast_and_case_taps_are_fused_and_match_reference():
+    t = Pair()
+    try:
+        for sql in CAST_CASE_TAPS:
+            t.open(sql)
+        r, p = t.ref.push_registry.stats(), t.reg.stats()
+        assert p["residual"]["fused-taps"] == r["residual"]["fused-taps"] == len(CAST_CASE_TAPS)
+        for rnd in range(3):
+            t.produce("s", _s_rows(30, 30 * rnd), ts0=30 * rnd)
+            t.poll_all()
+        assert t.reg.stats()["delivered-rows-total"] == t.ref.push_registry.stats()["delivered-rows-total"] > 0
+        assert not t.reg.fallback_reasons
+    finally:
+        t.close()
+
+
+def test_function_call_tap_is_still_refused_at_attach_in_the_same_words():
+    """The host interpreter has no UDF library yet: a tap whose WHERE
+    calls a function is refused when it attaches, as before the device
+    compiler took the function table."""
+    t = Pair()
+    try:
+        q = "SELECT ID FROM S WHERE ABS(V) > 3 EMIT CHANGES;"
+        a = analyze_query(t.planner.parse(q)[0].statement, t.planner.metastore, t.planner.registry)
+        plan = plan_to_json(t.planner.planner.plan(a, "transient_fn").plan)
+        with pytest.raises(DeviceUnsupported) as err:
+            PSession(t.reg, json.loads(json.dumps(plan)))
+        assert str(err.value) == "push residual expression FunctionCall"
+    finally:
+        t.close()
+
+
 def test_single_tap_below_min_taps_runs_on_the_host():
     t = Pair()
     try:

@@ -212,6 +212,24 @@ FAMILIES = {
     "is_not_null": [f"SELECT ID FROM S WHERE P IS NOT NULL AND ID > {k} EMIT CHANGES;" for k in (0, 5)],
     "mixed_promote": [f"SELECT ID FROM S WHERE I + V > {k} AND P < I EMIT CHANGES;" for k in (0, 10)],
     "rowtime": [f"SELECT ID FROM S WHERE ROWTIME >= {k} EMIT CHANGES;" for k in (1 << 39, 3 << 38)],
+    # CAST: a double to INT (truncated, saturated, NaN 0), BIGINT narrowed
+    # to INT (wraps), to DOUBLE, to DECIMAL (HALF_UP, NULL past its
+    # precision), and ROWTIME as a TIMESTAMP floored to its DATE
+    "cast_double_int": [f"SELECT ID FROM S WHERE CAST(P AS INT) > {k} EMIT CHANGES;" for k in (0, -3)],
+    "cast_narrow": [f"SELECT ID FROM S WHERE CAST(V AS INT) + {k} < 0 EMIT CHANGES;" for k in (0, 1)],
+    "cast_double": [f"SELECT ID FROM S WHERE CAST(V AS DOUBLE) * {x} >= 10.0 EMIT CHANGES;"
+                    for x in ("0.5", "-1.5")],
+    "cast_decimal": [f"SELECT ID FROM S WHERE CAST(P AS DECIMAL(4, 1)) > {x} EMIT CHANGES;"
+                     for x in ("0.1", "-7.5")],
+    "cast_date": [f"SELECT ID FROM S WHERE CAST(CAST(ROWTIME AS TIMESTAMP) AS DATE) > CAST({k} AS DATE) "
+                  "EMIT CHANGES;" for k in (5_000, 9_000)],
+    # CASE: with and without ELSE, mixed numeric results, a simple CASE
+    "case_else": [f"SELECT ID FROM S WHERE CASE WHEN V > {a} THEN I ELSE J END > {k} EMIT CHANGES;"
+                  for a, k in ((0, 0), (10, -5))],
+    "case_no_else": [f"SELECT ID FROM S WHERE CASE WHEN B THEN P WHEN V < {a} THEN 1 END >= {x} "
+                     "EMIT CHANGES;" for a, x in ((0, "0.5"), (20, "-2.5"))],
+    "simple_case": [f"SELECT ID FROM S WHERE CASE TAG WHEN 't1' THEN V WHEN '{t}' THEN ID END = {k} "
+                    "EMIT CHANGES;" for t, k in (("t2", 6), ("t3", 0))],
 }
 
 
@@ -228,6 +246,8 @@ def test_like_is_refused_by_both():
 @pytest.mark.parametrize("sql", [
     "SELECT ID FROM S WHERE TAG > 't1' EMIT CHANGES;",  # string ordering
     "SELECT ID FROM S WHERE UCASE(TAG) = 'T1' EMIT CHANGES;",  # a function call
+    # a cast the program does not take: a string parsed as a number
+    "SELECT ID FROM S WHERE CAST(TAG AS INT) = 1 EMIT CHANGES;",
 ])
 def test_refusals_match_reference(sql):
     rspec, pspec = _classify(*_chains(sql))
@@ -356,3 +376,18 @@ def test_deep_tree_past_the_stack_cap_is_refused():
     _, pchain = _chains(sql)
     with pytest.raises(ptk.ResidualUnsupported, match="stack"):
         ptk.classify_residual(pchain[:-1], pchain[-1].schema)
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT ID FROM S WHERE ABS(V) > 3 EMIT CHANGES;",
+    "SELECT ID FROM S WHERE CAST(P AS DECIMAL(30, 25)) > 1 EMIT CHANGES;",
+])
+def test_what_the_program_does_not_take_is_refused_with_its_reason(sql):
+    """The reference fuses these; the port's program refuses a function
+    call (the tap is refused at attach, before any of this) and a DECIMAL
+    cast past K25's exact powers of ten, with the reason the registry puts
+    in ``fallback_reasons``."""
+    pchain = _chains(sql)[1]
+    with pytest.raises(ptk.ResidualUnsupported) as err:
+        ptk.classify_residual(pchain[:-1], pchain[-1].schema)
+    assert "FunctionCall" in str(err.value) or "fused residual" in str(err.value)
