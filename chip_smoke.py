@@ -19,7 +19,8 @@ Phases, in this order; any failure exits non-zero and prints no result:
    of one wrapper call over 50 calls after warm-up (``call_ms``, host
    launch cost included), the twin's time, the least time the card could
    take (bytes over 3.35 TB/s, ops over 67 TOP/s) and a PyTorch library
-   yardstick where one exists.
+   yardstick where one exists.  K2 also at phase 12g's 2^20-row batch,
+   where its cooperative grid strides over more rows than it has threads.
 2h. The hopping path's kernels against their twins at BASELINE #2's shapes
    (16,384-row batches, k = 4, S = 4 slices per window, a ring of 102
    slices, a 2^16-slot store 70% full with graves, stale ring cells and
@@ -394,11 +395,11 @@ def time_events(torch, fn, reset=None, reps=REPS, warmup=3) -> float:
 #: CUDA function names of each kernel wrapper's launches
 KERNEL_FUNCS = {
     "row_prologue": ("row_prologue_kernel", "batch_max_kernel"),
-    "probe_insert": ("init_kernel", "round_a_kernel", "round_b_kernel", "write_kernel", "fixup_kernel"),
+    "probe_insert": ("block_kernel", "grid_kernel"),
     "fold_and_mark": ("fold_kernel", "winners_kernel", "argset_kernel", "argset_dump_kernel"),
     "evict": ("evict_kernel",),
     "sliced_fold": ("slice_reset_kernel", "slice_fold_kernel"),
-    "combine_windows": ("combine_kernel", "wide_gather_kernel"),
+    "combine_windows": ("combine_kernel",),
     "member_lanes": ("lane_claim_kernel", "lane_winner_kernel"),
     "probe_find": ("probe_find_kernel", "find_slots_kernel", "gather_kernel"),
     "table_upsert": ("claim_kernel", "upsert_kernel", "dump_kernel"),
@@ -749,6 +750,42 @@ def phase_kernels(torch, seed, n=N_ROWS, capacity=STORE):
     recs["evict"] = dict(rec, max_abs_err=0.0)
     _report("2", f"evict ({expired} slots expired)", recs["evict"])
     return recs
+
+
+def phase_k2_batch(torch, seed, n=1 << 20, capacity=STORE):
+    """K2 at phase 12g's batch (2^20 rows: its cooperative grid walks more
+    rows than the card holds threads) into a 2^20-slot store 30% full with
+    graves, the rows zipf(1.3) URLs over 31 h as phase 2's: exact against
+    the twin, claim cells clean; returns its record."""
+    from ksql_tpu_torch.common.batch import stable_hash64
+    from ksql_tpu_torch.ops import hash_store as hs
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 30)
+    url_hashes = np.fromiter((stable_hash64(u) for u in _urls(N_URLS)), np.int64, N_URLS)
+    uid = rng.zipf(1.3, n).astype(np.int64) % N_URLS
+    reprs = torch.from_numpy(url_hashes[uid].reshape(1, n)).to(dev)
+    valid = torch.from_numpy(rng.random((1, n)) > 0.01).to(dev)
+    ts = torch.from_numpy(TS0 - 30 * HOUR_MS + np.sort(rng.integers(0, 31 * HOUR_MS, n))).to(dev)
+    active = torch.from_numpy(np.arange(n) < n - 17).to(dev)
+    max_ts = torch.tensor(TS0 - TS0 % HOUR_MS, dtype=torch.int64, device=dev)
+    wstart, knull, act, khash, base, _c0 = hs.row_prologue_plain(
+        reprs, valid, ts, active, HOUR_MS, 24 * HOUR_MS, max_ts, capacity)
+    _layout, store0 = make_store(torch, hs, capacity, int(0.3 * capacity), rng, url_hashes, dev)
+    args = (capacity, base, khash, wstart, reprs, knull, act)
+    scratch = hs.init_scratch(capacity, dev)
+    got = _check_insert(torch, hs, f"probe_insert[{n}]", store0, scratch, args)
+    new_keys = int((got["occ"] & ~store0["occ"] & ~store0["grave"]).sum())
+    ibytes, probes = insert_bytes(got["slots"], base.cpu().numpy(), act.cpu().numpy(), new_keys, capacity,
+                                  hs.MAX_PROBES)
+    work = _clone(store0)
+    rec = measure(torch, "probe_insert", lambda: hs.probe_insert(work, scratch, *args),
+                  lambda: hs.probe_insert_plain(work, *args), ibytes, n * 40,
+                  reset=lambda: _restore(work, store0), plain_reps=3)
+    rec["max_abs_err"] = 0.0
+    _report("2", f"probe_insert at 12g's batch ({n} rows into {capacity} slots 30% full, {new_keys} new, "
+            f"{probes} probes, overflow {int(got['overflow']) - int(store0['overflow'])})", rec)
+    return rec
 
 
 # ------------------------------------------------------------- phase 2h
@@ -6186,6 +6223,7 @@ def main() -> int:
     kind, smi = phase_device_and_build(torch)
     recs = {name: {"tumbling": rec} for name, rec in phase_kernels(torch, args.seed).items()}
     recs["fold_and_mark"]["fold"] = recs["fold_and_mark"].pop("tumbling")
+    recs["probe_insert"][f"batch_{FINAL_GROW_ROWS}"] = phase_k2_batch(torch, args.seed, FINAL_GROW_ROWS)
     for name, modes in phase_hop_kernels(torch, args.seed).items():
         recs.setdefault(name, {}).update(modes)
     for name, modes in phase_join_kernels(torch, args.seed).items():

@@ -239,6 +239,44 @@ def _decode_repr(data: np.ndarray, sql_type: SqlType) -> np.ndarray:
     return data
 
 
+_NUMERIC_LITERALS = (ex.IntegerLiteral, ex.LongLiteral, ex.DoubleLiteral, ex.DecimalLiteral)
+
+
+def _is_folded(e) -> bool:
+    if isinstance(e, _NUMERIC_LITERALS):
+        return isinstance(e, ex.DecimalLiteral) or e.value is not None
+    if isinstance(e, (ex.Cast, ex.ArithmeticUnary)):
+        return _is_folded(e.operand)
+    return False
+
+
+#: folded divisors by node: id -> (node, value); the node is held so its
+#: id stays its own (nodes compare 0.0 and -0.0 equal, so not by value)
+_FOLDED: Dict[int, Tuple[object, Optional[float]]] = {}
+_FOLDED_SIZE = 256
+
+
+def _folded_constant(e) -> Optional[float]:
+    """The value of a divisor that XLA sees as a constant — a numeric
+    literal, a CAST of one, a negation of one, nested — as float64, else
+    None.  It is evaluated once per node by the compiler's own rules on a
+    one-row CPU column, so a CAST rounds, saturates or nulls as it does on
+    the card (a NULL result is None)."""
+    if not _is_folded(e):
+        return None
+    hit = _FOLDED.get(id(e))
+    if hit is not None and hit[0] is e:
+        return hit[1]
+    col = TorchExprCompiler({}, 1, "cpu").compile(e)
+    value = None
+    if bool(col.valid[0]) and col.sql_type.is_numeric():
+        value = float(col.data.to(torch.float64)[0])
+    if len(_FOLDED) >= _FOLDED_SIZE:
+        _FOLDED.pop(next(iter(_FOLDED)))
+    _FOLDED[id(e)] = (e, value)
+    return value
+
+
 class TorchExprCompiler:
     """Compiles expressions against an environment of named DCols.
 
@@ -328,15 +366,16 @@ class TorchExprCompiler:
                     wrap = (da == torch.iinfo(da.dtype).min) & (db == -1)
                     safe = torch.where(wrap, torch.ones_like(db), safe)
                 if op == ex.ArithOp.DIVIDE:
-                    out = (
-                        torch.div(da, safe, rounding_mode="trunc")
-                        if integral else da / safe
-                    )
+                    if integral:
+                        out = torch.div(da, safe, rounding_mode="trunc")
+                    else:
+                        out = self._divide(da, safe, e.right, nonzero=True)
                 else:
                     out = torch.fmod(da, safe)
                 valid = valid & ~zero
             elif op == ex.ArithOp.DIVIDE:
-                out = da / db  # IEEE: inf/nan, stays valid (Java double)
+                # IEEE: inf/nan, stays valid (Java double)
+                out = self._divide(da, db, e.right)
             else:
                 out = torch.where(
                     db != 0,
@@ -346,6 +385,26 @@ class TorchExprCompiler:
         else:  # pragma: no cover
             raise DeviceUnsupported(f"arith op {op}")
         return DCol(out, valid, t)
+
+    #: whether a literal is a compile-time constant (K25's lane compiler
+    #: reads literals from per-lane parameters, which are not)
+    folds_literals = True
+
+    def _divide(self, x: torch.Tensor, y: torch.Tensor, divisor, nonzero=False) -> torch.Tensor:
+        """``x / y`` as the reference's jitted step computes it: XLA's
+        algebraic simplifier turns a division by a constant into a product
+        with the constant's reciprocal (``x * (1 / c)``, the reciprocal
+        rounded once in float64), which is not always the IEEE quotient.
+        The constant forms are a numeric literal, a CAST of one and a
+        negation of one (:func:`_folded_constant`); ``nonzero`` is the
+        DECIMAL branch's divisor, where a zero reads as 1."""
+        c = _folded_constant(divisor) if self.folds_literals else None
+        if c is None:
+            return x / y
+        if nonzero and c == 0:
+            c = 1.0
+        with np.errstate(divide="ignore"):
+            return x * float(np.float64(1.0) / np.float64(c))
 
     def _c_ArithmeticUnary(self, e) -> DCol:
         v = self.compile(e.operand)

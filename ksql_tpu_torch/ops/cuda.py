@@ -40,16 +40,18 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "row_prologue": {"ksql_row_prologue": [
         _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P,
         _P, _P, _P, _P, _P, _P, _P]},
-    "probe_insert": {"ksql_probe_insert": [
-        _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P]},
+    "probe_insert": {
+        "ksql_probe_insert": [
+            _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P],
+        "ksql_probe_insert_sizes": [_P],
+    },
     "fold_and_mark": {
         "ksql_fold_and_mark": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
         "ksql_fold_argset": [_P, _I, _P, _I, _I, _P, _P],
     },
     "evict": {"ksql_evict": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P]},
     "sliced_fold": {"ksql_sliced_fold": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]},
-    "combine_windows": {"ksql_combine_windows": [
-        _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P]},
+    "combine_windows": {"ksql_combine_windows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "member_lanes": {"ksql_member_lanes": [
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P]},
     "probe_find": {
@@ -192,6 +194,9 @@ def lib(name: str, entry: Optional[str] = None):
     entries = SIGNATURES[name]
     if entry is None:
         (entry,) = entries
+    fn = _LIBS.get(entry)
+    if fn is not None:
+        return fn
     with _LOCK:
         fn = _LIBS.get(entry)
         if fn is None:

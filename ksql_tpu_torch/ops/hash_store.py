@@ -47,6 +47,7 @@ or an exception.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -158,7 +159,8 @@ KSQL_MAX_COMPS = 32
 def init_scratch(capacity: int, device) -> Dict[str, torch.Tensor]:
     """Per-store scratch the kernels keep clean between calls: the claim
     cells of probe_insert, the first-row cells of fold_and_mark and the
-    dump-row cells (-1) of its argset mode, one an argset component."""
+    dump-row cells (-1) of its argset mode, one an argset component.
+    probe_insert adds its grid scratch ``work`` (:func:`probe_work`)."""
     return {
         "claim": torch.full((capacity + 1,), INT32_MAX, dtype=torch.int32, device=device),
         "first": torch.full((capacity + 1,), INT32_MAX, dtype=torch.int32, device=device),
@@ -483,20 +485,14 @@ def probe_insert(store: Dict[str, torch.Tensor], scratch: Dict[str, torch.Tensor
     one slot per active row, in place; returns int32 ``slots`` (the dump
     slot ``capacity`` for inactive and overflowed rows).  The slot layout,
     ``overflow`` and the dump slot's contents are the reference's bit for
-    bit."""
+    bit.  One launch a call: one block for up to :func:`probe_sizes`'s
+    rows, a cooperative grid past that (its scratch in
+    ``scratch["work"]``)."""
     if not khash.is_cuda:
         return probe_insert_plain(store, capacity, base, khash, wstart,
                                   key_reprs, knull, active)
     k, n = key_reprs.shape
-    c1 = capacity + 1
-    for name, dt in (("occ", torch.bool), ("grave", torch.bool),
-                     ("khash", torch.int64), ("wstart", torch.int64),
-                     ("knull", torch.int32)):
-        _expect(store[name], dt, (c1,))
-    for i in range(k):
-        _expect(store[f"key{i}"], torch.int64, (c1,))
-    _expect(store["overflow"], torch.int64, ())
-    _expect(scratch["claim"], torch.int32, (c1,))
+    cols, keys = _insert_columns(store, scratch, capacity, k)
     _expect(base, torch.int32, (n,))
     _expect(khash, torch.int64, (n,))
     _expect(wstart, torch.int64, (n,))
@@ -505,23 +501,78 @@ def probe_insert(store: Dict[str, torch.Tensor], scratch: Dict[str, torch.Tensor
     _expect(active, torch.bool, (n,))
     dev = khash.device
     slots = torch.empty(n, dtype=torch.int32, device=dev)
-    work = torch.empty(3 * n + MAX_PROBES + 2, dtype=torch.int32, device=dev)
-    keys = cuda.host_i64(store[f"key{i}"].data_ptr() for i in range(k))
-    fn = cuda.lib("probe_insert")
-    cuda.check("probe_insert", fn(
-        store["occ"].data_ptr(), store["grave"].data_ptr(),
-        store["khash"].data_ptr(), store["wstart"].data_ptr(), keys, k,
-        store["knull"].data_ptr(), store["overflow"].data_ptr(),
-        scratch["claim"].data_ptr(), capacity, base.data_ptr(),
-        khash.data_ptr(), wstart.data_ptr(), key_reprs.data_ptr(),
-        knull.data_ptr(), active.data_ptr(), n, slots.data_ptr(),
-        work.data_ptr(), _stream(dev),
+    work = probe_work(scratch, n, dev)
+    occ, grave, kh, ws, knull_store, overflow, claim = cols
+    cuda.check("probe_insert", cuda.lib("probe_insert", "ksql_probe_insert")(
+        occ, grave, kh, ws, keys, k, knull_store, overflow, claim, capacity, base.data_ptr(),
+        khash.data_ptr(), wstart.data_ptr(), key_reprs.data_ptr(), knull.data_ptr(),
+        active.data_ptr(), n, slots.data_ptr(), None if work is None else work.data_ptr(),
+        0 if work is None else work.numel(), _stream(dev),
     ))
     probe_insert.launches += 1
     return slots
 
 
+#: K2's store columns, checked once per set of buffers: (capacity, key
+#: count, the column pointers) -> the key column pointers as a host array
+_INSERT_COLUMNS: Dict[tuple, object] = {}
+
+
+def _insert_columns(store, scratch, capacity: int, k: int):
+    """The pointers of K2's store columns and claim cells, and its key
+    columns' pointer array; the columns are checked when a set of buffers
+    is first seen (a grow replaces them)."""
+    cols = (store["occ"].data_ptr(), store["grave"].data_ptr(), store["khash"].data_ptr(),
+            store["wstart"].data_ptr(), store["knull"].data_ptr(), store["overflow"].data_ptr(),
+            scratch["claim"].data_ptr())
+    key = (capacity, cols, tuple(store[f"key{i}"].data_ptr() for i in range(k)))
+    keys = _INSERT_COLUMNS.get(key)
+    if keys is None:
+        c1 = capacity + 1
+        for name, dt in (("occ", torch.bool), ("grave", torch.bool), ("khash", torch.int64),
+                         ("wstart", torch.int64), ("knull", torch.int32)):
+            _expect(store[name], dt, (c1,))
+        for i in range(k):
+            _expect(store[f"key{i}"], torch.int64, (c1,))
+        _expect(store["overflow"], torch.int64, ())
+        _expect(scratch["claim"], torch.int32, (c1,))
+        keys = cuda.host_i64(key[2])
+        if len(_INSERT_COLUMNS) >= 64:
+            _INSERT_COLUMNS.pop(next(iter(_INSERT_COLUMNS)))
+        _INSERT_COLUMNS[key] = keys
+    return cols, keys
+
+
 probe_insert.launches = 0
+
+_PROBE_SIZES: List[int] = []
+
+
+def probe_sizes() -> Tuple[int, int]:
+    """``(rows, words)``: the most rows K2 resolves in one block, and the
+    int32 words of its cooperative grid's scratch besides one a row (the
+    per-round pending counts, two cells, the rows handed to one block for
+    the last rounds), as ``csrc/probe_insert.cu`` sets them."""
+    if not _PROBE_SIZES:
+        out = (ctypes.c_int64 * 2)()
+        cuda.check("probe_insert", cuda.lib("probe_insert", "ksql_probe_insert_sizes")(out))
+        _PROBE_SIZES.extend(out)
+    return _PROBE_SIZES[0], _PROBE_SIZES[1]
+
+
+def probe_work(scratch: Dict[str, torch.Tensor], n: int, device) -> Optional[torch.Tensor]:
+    """K2's grid scratch for an ``n``-row batch, None for one block's:
+    ``scratch["work"]``, grown (never shrunk) to the largest batch the
+    store has seen; it needs no cleaning between calls."""
+    solo, fixed = probe_sizes()
+    if n <= solo:
+        return None
+    need = fixed + n
+    work = scratch.get("work")
+    if work is None or work.numel() < need:
+        work = torch.empty(need, dtype=torch.int32, device=device)
+        scratch["work"] = work
+    return work
 
 
 # ---------------------------------------------------- K3: fold_and_mark

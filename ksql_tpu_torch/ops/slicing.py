@@ -191,6 +191,123 @@ def combine_windows_plain(store, layout: StoreLayout, num_keys: int, slot_lane,
     return out
 
 
+#: K6's outputs start at multiples of this many bytes of one buffer
+OUT_ALIGN = 16
+_ESIZE = {torch.bool: 1, torch.int8: 1, torch.int32: 4, torch.int64: 8, torch.float64: 8}
+#: K6's column kinds (``csrc/combine_windows.cu``); a reduce is
+#: ``_K_REDUCE + combine * 3 + dtype``
+_K_GATHER4, _K_GATHER8, _K_WSTART, _K_REDUCE = 0, 1, 2, 3
+#: descriptors kept (a store that grows leaves its old ones behind)
+_PLAN_CACHE_SIZE = 64
+
+
+class GatherPlan:
+    """K6's host descriptor for one store and layout: ``specs`` the outputs
+    in order (name, dtype, width; width 0 for one value a lane), ``block``
+    the ``ctypes`` descriptor block ``csrc/combine_windows.cu`` reads
+    (which holds each output's bytes a lane, so the kernel's entry places
+    the outputs as :meth:`offsets` does) and ``mode`` the launch's mode."""
+
+    def __init__(self, layout, specs, lane_bytes, block, mode):
+        self.layout = layout  # held, so the cache's id(layout) stays unique
+        self.specs = specs
+        self.lane_bytes = lane_bytes
+        self.block = block
+        self.mode = mode
+
+    def offsets(self, nn: int) -> Tuple[List[int], int]:
+        """``(byte offsets, total bytes)`` of the outputs for ``nn`` lanes:
+        each starts at the first multiple of :data:`OUT_ALIGN` past the
+        one before it."""
+        offs, at = [], 0
+        for b in self.lane_bytes:
+            offs.append(at)
+            at += -(-nn * b // OUT_ALIGN) * OUT_ALIGN
+        return offs, at
+
+
+_PLANS: Dict[tuple, GatherPlan] = {}
+
+
+def _check_col(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous() or t.device != device:
+        raise ValueError(f"K6 store column {name}: expected contiguous {dtype}{list(shape)} on "
+                         f"{device}, got {t.dtype}{list(t.shape)} on {t.device}")
+
+
+def gather_plan(store: Dict[str, torch.Tensor], layout: StoreLayout, num_keys: int, ring: int,
+                device) -> GatherPlan:
+    """K6's descriptor for ``store`` (sliced when ``ring`` > 0), built and
+    checked once per (layout, store buffers) and cached: a grow that
+    replaces the store's tensors gets a new one."""
+    names = [f"a{j}" for j in range(len(layout.components))]
+    names += [f"key{i}" for i in range(num_keys)] + ["knull", "wstart"]
+    if ring:
+        names.append("slice_id")
+    key = (id(layout), num_keys, ring, device, tuple(store[n].data_ptr() for n in names))
+    plan = _PLANS.get(key)
+    if plan is not None:
+        return plan
+    dev = torch.device(device)
+    c1 = layout.capacity + 1
+    specs, cols, wide = [], [], []
+    slice_id = 0
+    if ring:
+        _check_col(store["slice_id"], "slice_id", torch.int64, (c1, ring), dev)
+        slice_id = store["slice_id"].data_ptr()
+    for j, comp in enumerate(layout.components):
+        col = store[f"a{j}"]
+        dt = hs._DTYPES[comp.dtype]
+        if not ring and comp.width > 1:
+            _check_col(col, f"a{j}", dt, (c1, comp.width), dev)
+            wide += [col.data_ptr(), len(specs), comp.width * _ESIZE[dt]]
+            specs.append((f"a{j}", dt, comp.width))
+            continue
+        _check_col(col, f"a{j}", dt, (c1, ring) if ring else (c1,), dev)
+        if ring:
+            # a vector group's scalar head (vec_count) is gathered as it is
+            kind = _K_REDUCE + hs._COMBINE_CODES.get(comp.combine, 0) * 3 + hs._DTYPE_CODES[comp.dtype]
+        elif _ESIZE[dt] in (4, 8):
+            kind = _K_GATHER4 if _ESIZE[dt] == 4 else _K_GATHER8
+        else:
+            raise ValueError(f"K6 gathers 4- and 8-byte columns, not {dt} (a{j})")
+        cols += [col.data_ptr(), len(specs), kind, hs.init_bits(comp)]
+        specs.append((f"a{j}", dt, 0))
+    for name, dt in [(f"key{i}", torch.int64) for i in range(num_keys)] + [
+            ("knull", torch.int32), ("wstart", torch.int64)]:
+        col = store[name]
+        _check_col(col, name, dt, (c1,), dev)
+        kind = _K_WSTART if ring and name == "wstart" else _K_GATHER4 if dt == torch.int32 else _K_GATHER8
+        cols += [col.data_ptr(), len(specs), kind, 0]
+        specs.append((name, dt, 0))
+    lane_bytes = [max(w, 1) * _ESIZE[dt] for _, dt, w in specs]
+    block = cuda.host_i64([len(cols) // 4, len(wide) // 3, slice_id, len(specs)] + lane_bytes
+                          + cols + wide)
+    plan = GatherPlan(layout, tuple(specs), tuple(lane_bytes), block,
+                      "sliced" if ring else "wide" if wide else "gather")
+    if len(_PLANS) >= _PLAN_CACHE_SIZE:
+        _PLANS.pop(next(iter(_PLANS)))
+    _PLANS[key] = plan
+    return plan
+
+
+def pack_outputs(plan: GatherPlan, nn: int, device) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One fresh byte buffer for K6's outputs of ``nn`` lanes and the typed
+    view of each (``[nn]``, or ``[nn, width]`` for a wide column) at its
+    offset; no view aliases another or the store."""
+    offs, total = plan.offsets(nn)
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    typed: Dict[torch.dtype, torch.Tensor] = {}
+    out: Dict[str, torch.Tensor] = {}
+    for (name, dt, w), off in zip(plan.specs, offs):
+        v = typed.get(dt)
+        if v is None:
+            v = typed[dt] = buf.view(dt)
+        start = off // _ESIZE[dt]
+        out[name] = v.as_strided((nn, w), (w, 1), start) if w else v.as_strided((nn,), (1,), start)
+    return buf, out
+
+
 def combine_windows(store: Dict[str, torch.Tensor], layout: StoreLayout,
                     num_keys: int, slot_lane: torch.Tensor,
                     w_lane: Optional[torch.Tensor] = None, spw: int = 1,
@@ -210,61 +327,28 @@ def combine_windows(store: Dict[str, torch.Tensor], layout: StoreLayout,
     routes; there a vector aggregate's width-K column (``ops/vector.py``)
     is gathered whole per lane (K6's wide mode, counted as ``wide``), for
     the lanes of ``mask`` only when one is given (K3's winners: the rows
-    of the other lanes are left unspecified)."""
+    of the other lanes are left unspecified).  The outputs are views of one
+    fresh buffer (:func:`pack_outputs`); the store's columns are checked
+    when their descriptor is built (:func:`gather_plan`)."""
     if not slot_lane.is_cuda:
         return combine_windows_plain(store, layout, num_keys, slot_lane, w_lane, spw, width, mask)
     nn = slot_lane.shape[0]
-    c1 = layout.capacity + 1
     ring = layout.components[0].width if w_lane is not None else 0
     _expect(slot_lane, torch.int32, (nn,))
     if w_lane is not None:
         _expect(w_lane, torch.int64, (nn,))
-        _expect(store["slice_id"], torch.int64, (c1, ring))
     if mask is not None:
         _expect(mask, torch.bool, (nn,))
     dev = slot_lane.device
-    out: Dict[str, torch.Tensor] = {}
-    desc: List[int] = []
-    wide: List[int] = []
-    for j, comp in enumerate(layout.components):
-        col = store[f"a{j}"]
-        if not ring and comp.width > 1:
-            _expect(col, hs._DTYPES[comp.dtype], (c1, comp.width))
-            o = torch.empty((nn, comp.width), dtype=col.dtype, device=dev)
-            out[f"a{j}"] = o
-            wide += [col.data_ptr(), o.data_ptr(), comp.width * col.element_size()]
-            continue
-        _expect(col, hs._DTYPES[comp.dtype], (c1, ring) if ring else (c1,))
-        o = torch.empty(nn, dtype=col.dtype, device=dev)
-        out[f"a{j}"] = o
-        # a vector group's scalar head (vec_count) is gathered as it is
-        combine = hs._COMBINE_CODES.get(comp.combine, 0)
-        desc += [col.data_ptr(), o.data_ptr(), combine * 3 + hs._DTYPE_CODES[comp.dtype],
-                 hs.init_bits(comp)]
-    keys_in, keys_out = [], []
-    for i in range(num_keys):
-        col = store[f"key{i}"]
-        _expect(col, torch.int64, (c1,))
-        o = torch.empty(nn, dtype=torch.int64, device=dev)
-        out[f"key{i}"] = o
-        keys_in.append(col.data_ptr())
-        keys_out.append(o.data_ptr())
-    for name, dt in (("knull", torch.int32), ("wstart", torch.int64)):
-        _expect(store[name], dt, (c1,))
-        out[name] = torch.empty(nn, dtype=dt, device=dev)
-    fn = cuda.lib("combine_windows")
-    cuda.check("combine_windows", fn(
-        cuda.host_i64(desc), len(desc) // 4, cuda.host_i64(keys_in),
-        cuda.host_i64(keys_out), num_keys, store["knull"].data_ptr(),
-        out["knull"].data_ptr(), store["wstart"].data_ptr(),
-        out["wstart"].data_ptr(),
-        store["slice_id"].data_ptr() if ring else None, slot_lane.data_ptr(),
-        w_lane.data_ptr() if ring else None, nn, ring, int(spw), int(width),
-        cuda.host_i64(wide), len(wide) // 3, None if mask is None else mask.data_ptr(),
-        _stream(dev),
+    plan = gather_plan(store, layout, num_keys, ring, dev)
+    buf, out = pack_outputs(plan, nn, dev)
+    cuda.check("combine_windows", cuda.lib("combine_windows")(
+        plan.block, buf.data_ptr(), slot_lane.data_ptr(),
+        w_lane.data_ptr() if ring else None, None if mask is None else mask.data_ptr(),
+        nn, ring, int(spw), int(width), _stream(dev),
     ))
     combine_windows.launches += 1
-    combine_windows.mode_launches["sliced" if ring else "wide" if wide else "gather"] += 1
+    combine_windows.mode_launches[plan.mode] += 1
     return out
 
 

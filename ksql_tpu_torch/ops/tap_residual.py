@@ -329,7 +329,10 @@ def build_program(spec, col_types: Sequence[SqlType]) -> Program:
 # ----------------------------------------------------------------- the twin
 class _ParamCompiler(TorchExprCompiler):
     """Literals read from the lanes' parameter rows (``_ParamCompiler`` of
-    the reference): each is a ``(lanes, 1)`` column."""
+    the reference): each is a ``(lanes, 1)`` column.  A parameter is no
+    constant to XLA, so a division by one stays a quotient."""
+
+    folds_literals = False
 
     def __init__(self, env, n, device, slots, p_i, p_f):
         super().__init__(env, n, device)

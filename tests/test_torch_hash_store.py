@@ -154,9 +154,8 @@ def _store_np(capacity, num_keys=1, seed=0, fill=0, graves=0):
     return st
 
 
-def _probe_inputs(st, capacity, case, seed):
+def _probe_inputs(st, capacity, case, seed, n=128):
     rng = np.random.default_rng(seed)
-    n = 128
     live = np.nonzero(st["occ"][:-1] | st["grave"][:-1])[0]
     reprs = rng.integers(I64.min, I64.max, n, dtype=np.int64)
     if case == "duplicates":
@@ -168,6 +167,8 @@ def _probe_inputs(st, capacity, case, seed):
         khash[: n // 2] = st["khash"][pick]
         reprs[: n // 2] = st["key0"][pick]
     active = rng.random(n) > 0.1
+    if case == "one_inactive":
+        active[:] = False
     knull = np.zeros(n, np.int32)
     return khash, wstart, reprs.reshape(1, n), knull, active
 
@@ -180,14 +181,78 @@ PROBE_CASES = {
     "matching_graves": (1 << 9, 200, 60),
     "nonclaimable_graves": (1 << 8, 150, 100),
     "overflow": (1 << 6, 40, 10),
+    # the schedules of K2's single launch (csrc/probe_insert.cu): a row
+    # found in the last of the 32 rounds behind a cluster of other keys; the
+    # highest row winning its slot in round 31 exactly (the dump's khash
+    # then comes from the row below it); rows overflowing a long cluster
+    # beside one that wins in round 31; one inactive row; and a batch at
+    # the one-block threshold (4,096 rows, which the card test
+    # test_probe_insert_is_one_launch_and_matches_twin reads from the
+    # kernel library) and one past it (the grid)
+    "all_rounds": (1 << 9, 0, 0),
+    "win_round_31": (1 << 9, 0, 0),
+    "late_overflow": (1 << 9, 0, 0),
+    "one_inactive": (1 << 6, 20, 5),
+    "solo_threshold": (1 << 14, 3000, 300),
+    "past_solo_threshold": (1 << 14, 3000, 300),
 }
+
+#: rows of each schedule case (the others have 128)
+_PROBE_ROWS = {"one_inactive": 1, "solo_threshold": 4096, "past_solo_threshold": 4097}
+
+
+def _keys_at(rng, capacity, base, count):
+    """``count`` distinct random key hashes (window 0) whose first probe
+    candidate is ``base``."""
+    out = []
+    while len(out) < count:
+        kh = rng.integers(I64.min, I64.max, 1 << 14, dtype=np.int64)
+        out.extend(kh[(hs.np_mix64(kh) & (capacity - 1)) == base].tolist())
+    return np.array(out[:count], np.int64)
+
+
+def _cluster_case(case, capacity, seed):
+    """A store holding a run of other keys from slot ``b`` (31 long, or 40
+    for ``late_overflow``) and rows probing into it; returns the store and
+    the rows' (khash, wstart, reprs, knull, active)."""
+    rng = np.random.default_rng(seed)
+    st = _store_np(capacity)
+    b = 100
+    run = 40 if case == "late_overflow" else 31
+    cells = np.arange(b, b + run)
+    st["occ"][cells] = True
+    st["khash"][cells] = rng.integers(I64.min, I64.max, run, dtype=np.int64)
+    st["key0"][cells] = st["khash"][cells]
+    if case == "all_rounds":
+        # the rows' key sits past the run: found in round 31
+        kh = _keys_at(rng, capacity, b, 1)
+        st["occ"][b + run] = True
+        st["khash"][b + run] = kh[0]
+        st["key0"][b + run] = kh[0]
+        khash = np.concatenate([np.repeat(kh, 5), _keys_at(rng, capacity, b + 5, 3)])
+    elif case == "win_round_31":
+        # the highest row alone reaches the free slot b + 31 in round 31
+        khash = np.concatenate([_keys_at(rng, capacity, 400, 6), _keys_at(rng, capacity, b, 1)])
+    else:
+        # rows from b overflow; the row from b + 9 wins b + 40 in round 31
+        khash = np.concatenate([_keys_at(rng, capacity, b, 4), _keys_at(rng, capacity, b + 9, 1),
+                                _keys_at(rng, capacity, b, 2)])
+    n = khash.size
+    active = np.ones(n, bool)
+    active[1] = False
+    return st, (khash, np.zeros(n, np.int64), khash.reshape(1, n).copy(),
+                (khash & 1).astype(np.int32), active)
 
 
 @pytest.mark.parametrize("case", list(PROBE_CASES))
 def test_probe_insert_twin_matches_reference(case):
     capacity, fill, graves = PROBE_CASES[case]
-    st = _store_np(capacity, fill=fill, graves=graves, seed=1)
-    khash, wstart, reprs, knull, active = _probe_inputs(st, capacity, case, seed=2)
+    if case in ("all_rounds", "win_round_31", "late_overflow"):
+        st, (khash, wstart, reprs, knull, active) = _cluster_case(case, capacity, seed=4)
+    else:
+        st = _store_np(capacity, fill=fill, graves=graves, seed=1)
+        khash, wstart, reprs, knull, active = _probe_inputs(st, capacity, case, seed=2,
+                                                            n=_PROBE_ROWS.get(case, 128))
     want_store, want_slots = ref.probe_insert(
         {k: jnp.asarray(v) for k, v in st.items()}, capacity, jnp.asarray(khash),
         jnp.asarray(wstart), [jnp.asarray(reprs[0])], jnp.asarray(knull), jnp.asarray(active),
@@ -205,10 +270,20 @@ def test_probe_insert_twin_matches_reference(case):
     for k in want:
         assert got[k].dtype == want[k].dtype, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    if case == "overflow":
+    want_slots = np.asarray(want_slots)
+    if case in ("overflow", "late_overflow"):
         assert int(want["overflow"]) > 0
     if case == "matching_graves":
         assert (st["grave"] & ~want["grave"]).any()
+    if case == "all_rounds":
+        assert (want_slots[active[:5].nonzero()[0]] == 100 + 31).all()
+    if case == "win_round_31":
+        assert want_slots[-1] == 100 + 31 and want["khash"][capacity] == khash[-2]
+    if case == "late_overflow":
+        assert want_slots[4] == 100 + 40 and int(want["overflow"]) == 5
+        assert want["key0"][capacity] == reprs[0][-1]
+    if case == "one_inactive":
+        assert want_slots.tolist() == [capacity] and int(want["overflow"]) == 0
 
 
 # -------------------------------------- scatter_combine + winners (K3)

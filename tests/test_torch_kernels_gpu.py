@@ -28,6 +28,7 @@ import torch
 
 import chip_smoke
 from ksql_tpu_torch.execution import expressions as pex
+from ksql_tpu_torch.ops import cuda
 from ksql_tpu_torch.ops import hash_store as hs
 from ksql_tpu_torch.ops import session as sess
 from ksql_tpu_torch.ops import slicing
@@ -813,3 +814,169 @@ def test_session_merge_argset_kernel_matches_twin(dev, ties):
     items, perm, comps = chip_smoke.make_merge_case(torch, sess, hs, np.random.default_rng(5), dev,
                                                     n=1024, slots=4, keys=300, ties=ties)
     chip_smoke.check_merge_argset(torch, sess, items, perm, comps, 1024, 4, 1 << 12, "K15 argset")
+
+
+def _cuda_kernels(fn):
+    """Names of the CUDA kernels ``fn()`` launches, one entry a launch (from
+    torch.profiler's device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and "emcpy" not in e.name and "emset" not in e.name]
+
+
+def _keys_at(rng, capacity, base, count):
+    out = []
+    while len(out) < count:
+        kh = rng.integers(I64.min, I64.max, 1 << 14, dtype=np.int64)
+        out.extend(kh[(hs.np_mix64(kh) & (capacity - 1)) == base].tolist())
+    return np.array(out[:count], np.int64)
+
+
+def _insert_case(dev, n, capacity, seed, cluster=False):
+    """A store 30% full (5% graves) and ``n`` rows, half of them stored
+    keys, with duplicates; ``cluster`` adds a run of 40 other keys from
+    slot 100, four rows probing from its start and the last one too (they
+    overflow after all 32 rounds) and the one before it from slot 109 (it
+    wins slot 140 in round 31); no other row probes near the run."""
+    layout, st = _store(dev, capacity, int(0.3 * capacity), int(0.015 * capacity), seed)
+    rng = np.random.default_rng(seed)
+    if cluster:
+        cells = torch.arange(100, 141, device=dev)
+        st["occ"][cells] = True
+        st["grave"][cells] = False
+        st["khash"][cells] = torch.from_numpy(rng.integers(I64.min, I64.max, 41, dtype=np.int64)).to(dev)
+        st["occ"][140] = False
+    live = np.nonzero((st["occ"] | st["grave"]).cpu().numpy()[:-1])[0]
+    khash = rng.integers(I64.min, I64.max, n, dtype=np.int64)
+    pick = live[rng.integers(0, live.size, n // 2)]
+    khash[: n // 2] = st["khash"].cpu().numpy()[pick]
+    khash = khash[rng.integers(0, n, n)]
+    if cluster:
+        base = hs.np_mix64(khash) & (capacity - 1)
+        near = (base >= 60) & (base <= 141)
+        khash[near] = _keys_at(rng, capacity, 3000, int(near.sum()))
+        khash[-6:] = np.concatenate([_keys_at(rng, capacity, 100, 4), _keys_at(rng, capacity, 109, 1),
+                                     _keys_at(rng, capacity, 100, 1)])
+    khash = torch.from_numpy(khash).to(dev)
+    wstart = torch.zeros(n, dtype=torch.int64, device=dev)
+    active = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    active[-6:] = True
+    args = (hs.slot_base(khash, wstart, capacity), khash, wstart, khash.reshape(1, n).clone(),
+            (khash & 1).to(torch.int32), active)
+    return st, args
+
+
+# one block (n <= 4,096), the cooperative grid past it; 2^20 rows run more
+# blocks than the card holds at once (grid stride); the cluster case needs
+# all 32 rounds and overflows
+@pytest.mark.parametrize("n,capacity,cluster", [(1, 1 << 10, False), (4096, 1 << 14, False),
+                                                (4097, 1 << 14, False), (4096, 1 << 14, True),
+                                                (4097, 1 << 14, True), (1 << 16, 1 << 18, False),
+                                                (1 << 20, 1 << 22, False)])
+def test_probe_insert_is_one_launch_and_matches_twin(dev, n, capacity, cluster):
+    st, args = _insert_case(dev, n, capacity, seed=n, cluster=cluster)
+    sk = {k: v.clone() for k, v in st.items()}
+    sp = {k: v.clone() for k, v in st.items()}
+    scratch = hs.init_scratch(capacity, dev)
+    out = {}
+    names = _cuda_kernels(lambda: out.setdefault("slots", hs.probe_insert(sk, scratch, capacity, *args)))
+    solo = hs.probe_sizes()[0]
+    assert solo == 4096  # the shapes above straddle the one-block threshold
+    assert len(names) == 1 and ("block_kernel" if n <= solo else "grid_kernel") in names[0]
+    want = hs.probe_insert_plain(sp, capacity, *args)
+    _same(out["slots"], want)
+    for k in st:
+        _same(sk[k], sp[k])
+    assert (scratch["claim"] == hs.INT32_MAX).all()
+    if cluster:
+        assert int(sp["overflow"]) >= 5 and int(want[-2]) == 140
+
+
+def test_probe_insert_refuses_a_grid_scratch_too_short(dev):
+    """Past the one-block rows the entry refuses a scratch shorter than
+    the grid needs (``ksql_probe_insert_sizes``) and launches nothing."""
+    solo, fixed = hs.probe_sizes()
+    n, capacity = solo + 1, 1 << 14
+    st, args = _insert_case(dev, n, capacity, seed=5, cluster=False)
+    scratch = hs.init_scratch(capacity, dev)
+    cols, keys = hs._insert_columns(st, scratch, capacity, 1)
+    occ, grave, kh, ws, knull_store, overflow, claim = cols
+    slots = torch.empty(n, dtype=torch.int32, device=dev)
+    work = torch.empty(fixed + n - 1, dtype=torch.int32, device=dev)
+    ptrs = [t.data_ptr() for t in args]
+    entry = cuda.lib("probe_insert", "ksql_probe_insert")
+    for buf, words in ((None, 0), (work, work.numel())):
+        code = entry(occ, grave, kh, ws, keys, 1, knull_store, overflow, claim, capacity, *ptrs, n,
+                     slots.data_ptr(), None if buf is None else buf.data_ptr(), words,
+                     torch.cuda.current_stream(dev).cuda_stream)
+        with pytest.raises(RuntimeError, match="probe_insert"):
+            cuda.check("probe_insert", code)
+    assert (scratch["claim"] == hs.INT32_MAX).all()
+
+
+def _wide_store(dev, rng, cap):
+    comps = (hs.AggComponent("vec_count", "int64", 0),
+             hs.AggComponent("vec_data", "int64", 0, width=7, mode="append"),
+             hs.AggComponent("vec_valid", "int8", 0, width=7),
+             hs.AggComponent("vec_count", "int64", 0),
+             hs.AggComponent("vec_data", "float64", 0.0, width=1000, mode="append"),
+             hs.AggComponent("vec_valid", "int8", 0, width=1000),
+             hs.AggComponent("topk", "int32", 0, width=3),
+             hs.AggComponent("vec_valid", "int8", 0, width=13))
+    layout = hs.StoreLayout(cap, 1, comps)
+    st = hs.init_store(layout, dev)
+    for t in st.values():
+        if t.dim() >= 1 and t.dtype != torch.bool:
+            t.copy_(torch.from_numpy(rng.integers(-100, 100, tuple(t.shape))).to(t.dtype))
+    return layout, st
+
+
+# rows of 56, 7, 8,000, 1,000, 12 and 13 bytes (source and destination
+# alignments differ lane by lane); masks all false, all true, random, none
+@pytest.mark.parametrize("nn,mask", [(1, "all"), (1, "none"), (4096, "none"), (4096, "all"),
+                                     (4096, "rand"), (777, None)])
+def test_combine_wide_matches_twin(dev, nn, mask):
+    rng = np.random.default_rng(nn)
+    cap = 1 << 12
+    layout, st = _wide_store(dev, rng, cap)
+    slots = torch.from_numpy(rng.integers(0, cap + 1, nn).astype(np.int32)).to(dev)
+    m = None if mask is None else torch.from_numpy(
+        {"all": np.ones(nn, bool), "none": np.zeros(nn, bool), "rand": rng.random(nn) < 0.2}[mask]).to(dev)
+    before = slicing.combine_windows.mode_launches["wide"]
+    got = slicing.combine_windows(st, layout, 1, slots, mask=m)
+    assert slicing.combine_windows.mode_launches["wide"] == before + 1
+    want = slicing.combine_windows_plain(st, layout, 1, slots, mask=m)
+    assert set(got) == set(want)
+    for k in want:
+        g, w = got[k], want[k]
+        if g.dim() == 2 and m is not None:
+            g, w = g[m], w[m]
+        _same(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("num_keys", [1, 16])
+def test_combine_plain_gather_types_match_twin(dev, num_keys):
+    rng = np.random.default_rng(num_keys)
+    cap = 1 << 12
+    comps = (hs.AggComponent("add", "int64", 0), hs.AggComponent("max", "int32", -5),
+             hs.AggComponent("min", "float64", float("inf")), hs.AggComponent("add", "int32", 0))
+    layout = hs.StoreLayout(cap, num_keys, comps)
+    st = hs.init_store(layout, dev)
+    for t in st.values():
+        if t.dim() >= 1 and t.dtype != torch.bool:
+            t.copy_(torch.from_numpy(rng.integers(-1000, 1000, tuple(t.shape))).to(t.dtype))
+    st["a2"][::3] = float("nan")
+    st["a2"][1::7] = -0.0
+    for nn in (1, 65_536):
+        slots = torch.from_numpy(rng.integers(0, cap + 1, nn).astype(np.int32)).to(dev)
+        got = slicing.combine_windows(st, layout, num_keys, slots)
+        want = slicing.combine_windows_plain(st, layout, num_keys, slots)
+        assert set(got) == set(want)
+        for k in want:
+            _same(_bits(got[k]), _bits(want[k]))
+            assert got[k].data_ptr() not in {t.data_ptr() for t in st.values()}

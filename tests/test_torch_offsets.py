@@ -17,6 +17,7 @@ SUM is checked in and past its 2^53 envelope (tests/test_engine_device.py
 """
 
 import json
+import math
 
 import jax
 import numpy as np
@@ -343,25 +344,57 @@ def test_struct_paths_and_nested_passthrough_match_the_reference_engine(name):
         assert {"INFO", "INFO->NAME", "INFO->AGE"} <= set(layout)
 
 
-def test_division_by_a_constant_is_the_quotient_not_a_reciprocal_product():
-    """ROADMAP C11: the reference's jitted step rewrites ``x / 10.0`` into
-    ``x * 0.1`` (XLA's algebraic simplifier), so 956 / 10.0 comes out
-    95.60000000000001; the port divides, as Java (ksqlDB) does: 95.6.  The
-    compiled plans keep the split out of their parity (``pv_offsets`` scales
-    by ``* 0.1``), and DECIMAL SUM's finalize multiplies by the reciprocal
-    of its scale on purpose, for the reference's bits."""
-    ddl = "CREATE STREAM V (X BIGINT) WITH (kafka_topic='v', value_format='JSON');"
-    engine, plan = plan_of([ddl], "CREATE STREAM Q AS SELECT CAST(X AS DOUBLE) / 10.0 AS Y FROM V;")
-    ref_q = CompiledDeviceQuery(plan, engine.registry, capacity=4, store_capacity=16)
-    port_q = TorchCompiledQuery(plan_from_json(plan_to_json(plan)), capacity=4, store_capacity=16,
+def test_division_by_a_constant_is_the_references_reciprocal_product():
+    """ROADMAP C11: the reference's jitted step divides by a constant as
+    XLA's algebraic simplifier rewrites it, ``x * (1 / c)``: 956 / 10.0
+    comes out 95.60000000000001, not the IEEE quotient 95.6.  The port's
+    compiled step gives the reference's bits for each constant form XLA
+    folds (a DOUBLE or DECIMAL literal, a CAST of an integer literal, a
+    negative, a power of two, 0.0 and -0.0, the DECIMAL branch) and the
+    quotient where the divisor is a column or constant arithmetic, which
+    the port does not fold (ROADMAP C13)."""
+    ddl = "CREATE STREAM V (X BIGINT, D DOUBLE) WITH (kafka_topic='v', value_format='JSON');"
+    forms = ["CAST(X AS DOUBLE) / 10.0", "CAST(X AS DOUBLE) / CAST(10 AS DOUBLE)", "CAST(X AS DOUBLE) / 10",
+             "CAST(X AS DOUBLE) / -10.0", "CAST(X AS DOUBLE) / 3.0", "CAST(X AS DOUBLE) / 4.0",
+             "CAST(X AS DOUBLE) / 0.0", "CAST(X AS DOUBLE) / -0.0", "X / 10.0",
+             "CAST(X AS DECIMAL(10, 2)) / CAST(3 AS DECIMAL(4, 1))", "CAST(X AS DOUBLE) / D"]
+    sel = ", ".join(f"{f} AS Y{k}" for k, f in enumerate(forms))
+    engine, plan = plan_of([ddl], f"CREATE STREAM Q AS SELECT {sel} FROM V;")
+    ref_q = CompiledDeviceQuery(plan, engine.registry, capacity=8, store_capacity=16)
+    port_q = TorchCompiledQuery(plan_from_json(plan_to_json(plan)), capacity=8, store_capacity=16,
                                 device="cpu")
     schema = ref_q.source.schema
-    rows, ts = [{"X": 956}], [0]
+    xs = [956, 7, -3, 0, 100003, 123456789]
+    rows, ts = [{"X": x, "D": 10.0} for x in xs], [0] * len(xs)
     want = ref_q.process_arrays(ref_q.layout.encode(RHostBatch.from_rows(schema, rows, timestamps=ts)))
     got = port_q.process_arrays(port_q.layout.encode(PHostBatch.from_rows(_pschema(schema), rows,
                                                                           timestamps=ts)))
-    assert want[0].row["Y"] == 956 * 0.1 == 95.60000000000001
-    assert got[0].row["Y"] == 956 / 10.0 == 95.6
+    assert [repr(r.row) for r in got] == [repr(r.row) for r in want]
+    assert want[0].row["Y0"] == got[0].row["Y0"] == 956 * 0.1 == 95.60000000000001
+    assert want[0].row["Y10"] == got[0].row["Y10"] == 956 / 10.0 == 95.6
+
+
+def test_a_folded_divisor_is_evaluated_once_per_node(monkeypatch):
+    """The lowering compiles its expressions every batch; a constant
+    divisor's value is evaluated the first time its node is seen and then
+    read back, per node (0.0 and -0.0 compare equal as nodes but are
+    different divisors)."""
+    from ksql_tpu_torch.compiler import torch_expr as te
+    from ksql_tpu_torch.execution import expressions as pex
+
+    ten = pex.DoubleLiteral(10.0)
+    zero, neg_zero = pex.DoubleLiteral(0.0), pex.DoubleLiteral(-0.0)
+    assert te._folded_constant(ten) == 10.0
+    got = [te._folded_constant(zero), te._folded_constant(neg_zero)]
+    assert [math.copysign(1.0, v) for v in got] == [1.0, -1.0]
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a folded divisor was evaluated again")
+
+    monkeypatch.setattr(te, "TorchExprCompiler", refuse)
+    assert te._folded_constant(ten) == 10.0
+    assert [math.copysign(1.0, te._folded_constant(v)) for v in (zero, neg_zero)] == [1.0, -1.0]
+    assert te._folded_constant(pex.ColumnRef("X")) is None
 
 
 @pytest.mark.parametrize("shape", ["emit_final", "having"])

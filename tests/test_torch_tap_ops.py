@@ -206,6 +206,10 @@ FAMILIES = {
     "float_ieee": [f"SELECT ID FROM S WHERE P = {x} OR P / {x} > 1.0 EMIT CHANGES;"
                    for x in ("0.0", "-0.0", "1.5")],
     "float_mod": [f"SELECT ID FROM S WHERE P % {x} >= 0.0 EMIT CHANGES;" for x in ("0.0", "2.0")],
+    # a division by a literal stays the quotient on the fused path: the
+    # literal is a lane parameter, no constant XLA could fold (ROADMAP C11)
+    "const_div": [f"SELECT ID FROM S WHERE CAST(V AS DOUBLE) / {d} = {q} EMIT CHANGES;"
+                  for d, q in (("10.0", "0.3"), ("10.0", "-0.7"), ("-10.0", "0.7"))],
     "float_div_col": [f"SELECT ID FROM S WHERE P / P <> {x} EMIT CHANGES;" for x in ("1.0", "0.5")],
     "bool": [f"SELECT ID FROM S WHERE B = {b} AND NOT (V > {k}) EMIT CHANGES;"
              for b, k in (("true", 3), ("false", -3))],
