@@ -97,9 +97,10 @@ Phases, in this order; any failure exits non-zero and prints no result:
    5% null keys, 2% rows 9-11 min late (a 9.5 min grace drops some) and 1%
    repeated timestamps: K1's session mode, K14 prologue, K13 on the rows,
    K14 first and items (270,336 items), K13 on the items, K15
-   session_merge, K16 delete, K2 and K16 write; all exact, every emission
-   lane and the dump slot included.  Yardstick: two stable torch.argsort
-   calls for K13; no single PyTorch call computes K14-K16.
+   session_merge (it reports the longest key run and the tiles of sorted
+   positions it spans), K16 delete, K2 and K16 write; all exact, every
+   emission lane and the dump slot included.  Yardstick: two stable
+   torch.argsort calls for K13; no single PyTorch call computes K14-K16.
 11. BASELINE #5 end to end (``ksql_tpu_torch/plans/pv_sessions.json``,
    COUNT(*) per URL over SESSION (30 SECONDS)) through ``run_plan`` at
    bench.py:668-692's sizes (8 batches, half its 16): 8 x 8,192 JSON records of bench.py's
@@ -223,10 +224,14 @@ Phases, in this order; any failure exits non-zero and prints no result:
    never live); K2 at phase 19's shapes, one order key and 1,024, into a
    2^16-slot orders store of 16,384 orders with 5% graves and a full
    probe chain (one key at a time too: the chain's own, which overflows,
-   a stored key, a grave's and one whose base lies in the chain).  All
-   exact.  Yardsticks: ``index_select`` per column for K8's gather,
-   ``nonzero`` + ``index_select`` for K24; no single PyTorch call
-   computes K8's walk, K9 or K2.
+   a stored key, a grave's and one whose base lies in the chain); then at
+   phase 19's own shapes, one change a step: K1's table mode on one
+   customer key, K8's live mode on one foreign key and K9's side mode on
+   one change into a 2^16-slot customers store of 2,500, and K24 for the
+   hottest customer of 4,096 orders in a 2^16-slot store.  All exact.
+   Yardsticks: ``index_select`` per column for K8's gather, ``nonzero`` +
+   ``index_select`` for K24; no single PyTorch call computes K8's walk, K9
+   or K2.
 18. ``user_accounts.json`` (USERS LEFT JOIN ACCOUNTS on the key) through
    ``start_plan``: BASELINE #3's 100,000 users and 90,000 accounts loaded
    apart, then 4 single-sided batches of 65,536 changes (users and
@@ -282,7 +287,8 @@ Phases, in this order; any failure exits non-zero and prints no result:
    -0.0, +0.0, NaN and inf payloads); K15's argset mode at phase 2w's
    shapes (8,192 rows and 32 session slots: 270,336 items in K14's
    layout, the same components; once more, untimed, with the orders
-   modulo 50, so tied winners' payloads are summed).  Yardstick for K3: ``index_put_`` of the
+   modulo 50, so tied winners' payloads are summed; the longest key run
+   and its tiles reported).  Yardstick for K3: ``index_put_`` of the
    payloads, whose duplicate-index order is unspecified, so it cannot keep
    the dump rule; none for K15.
 22. ksqlDB's quickstart view (``current_location.json``: LATEST_BY_OFFSET of
@@ -402,13 +408,13 @@ KERNEL_FUNCS = {
     "combine_windows": ("combine_kernel",),
     "member_lanes": ("lane_claim_kernel", "lane_winner_kernel"),
     "probe_find": ("probe_find_kernel", "find_slots_kernel", "gather_kernel"),
-    "table_upsert": ("claim_kernel", "upsert_kernel", "dump_kernel"),
+    "table_upsert": ("upsert_block_kernel", "upsert_grid_kernel"),
     "ss_match": ("match_count_kernel", "match_scan_kernel", "match_write_kernel"),
     "ss_insert": ("insert_prologue_kernel", "insert_write_kernel"),
     "ss_expire": ("expire_kernel",),
     "seg_sort": ("tile_sort_kernel", "merge_pass_kernel"),
     "session_items": ("prologue_kernel", "first_kernel", "items_kernel"),
-    "session_merge": ("permute_kernel", "runs_kernel", "finish_kernel"),
+    "session_merge": ("permute_kernel", "merge_kernel"),
     "session_write": ("delete_kernel", "write_kernel", "dump_kernel"),
     "suppress_clock": ("clock_kernel",),
     "suppress_close": ("born_kernel", "close_kernel"),
@@ -2716,14 +2722,13 @@ def phase_session_kernels(torch, plan_json, seed, case=None, timed=True):
             f"2w: {int(want['sess_ovf'])} sessions over {S} slots")
     nseg = int((want["segfirst"] == torch.arange(m, device=dev, dtype=torch.int32)).sum())
     n_ins = int(want["ins_act"].sum())
-    run_len = torch.unique_consecutive(want["kh"], return_counts=True)[1]
-    done("session_merge", "merge", meas(
-        torch, "session_merge", lambda: sess.session_merge(*mg_args),
-        lambda: sess.session_merge_plain(*mg_args),
-        merge_bytes(m, nseg, k, cb),
-        m * 30, plain_reps=5),
-        f"{m} items, {nseg} segments, {n_ins} inserts, longest key run {int(run_len.max())} items; "
-        "no single PyTorch call")
+    run, tiles = longest_run(torch, sess, want["kh"])
+    rec = meas(torch, "session_merge", lambda: sess.session_merge(*mg_args),
+               lambda: sess.session_merge_plain(*mg_args), merge_bytes(m, nseg, k, cb), m * 30,
+               plain_reps=5)
+    done("session_merge", "merge", dict(rec, longest_run=run, longest_run_tiles=tiles),
+         f"{m} items, {nseg} segments, {n_ins} inserts, longest key run {run} items over {tiles} "
+         f"tiles of {sess.MERGE_TILE}; no single PyTorch call")
     # ---- K16 delete, K2, K16 write on two copies of the store
     sk, sp = _clone(store), _clone(store)
     snap = _clone(store)
@@ -4885,7 +4890,113 @@ def phase_table_join_kernels(torch, seed):
             f"{n} order key{'s' if n > 1 else ''} into {FK_STORE} slots ({FK_STEP_ORDERS} orders, 5% graves, "
             f"a full probe chain), {new_keys} new, {probes} probes, overflow "
             f"{int(got['overflow']) - int(store0['overflow'])}")
+    for kernel, shape, rec, what in per_record_kernels(torch, seed):
+        done(kernel, shape, rec, what)
     return recs, extra
+
+
+def per_record_kernels(torch, seed):
+    """Phase 2x at phase 19's shapes, one change a step: K1's table mode on
+    one customer key, K8's live mode on one foreign key and K9's side mode
+    on one change, each into orders_enriched's 2^16-slot customers store
+    holding FK_USERS customers (10% deleted, 5% graves), and K24 for the
+    hottest customer over its 2^16-slot orders store of FK_ORDERS orders;
+    each against its twin.  Returns ``[(kernel, shape, record, what)]``."""
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.ops import table_join as tj
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 53)
+    out = []
+    c = make_fkr_case(torch, rng, dev, 1, FK_STORE, FK_USERS)
+    st, cap = c["store"], FK_STORE
+    cols = [col.name for col in c["query"].fk_cols["r"]]
+    fk = torch.full((1,), int(rng.integers(0, FK_USERS)), dtype=torch.int64, device=dev)
+    kr = fk.reshape(1, 1)
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    kv = one.reshape(1, 1)
+    # ---- K1's table mode: the change's key
+    got = hs.table_prologue(kr, kv, one, cap)
+    for g, w in zip(got, hs.table_prologue_plain(kr, kv, one, cap)):
+        _assert_equal(torch, "row_prologue[table, 1]", g, w)
+    out.append(("row_prologue", "table_per_record_1", measure(
+        torch, "row_prologue", lambda: hs.table_prologue(kr, kv, one, cap),
+        lambda: hs.table_prologue_plain(kr, kv, one, cap), 8 + 1 + 1 + 1 + 8 + 4, 30),
+        f"one customer key into {cap} slots"))
+    touched, khash, base = got
+    # ---- K8's live mode: the change's foreign key against the customers
+    args = (st, cap, fk, one, one, cols)
+    got = hs.probe_find(*args, live=st["live"])
+    want = hs.probe_find_gather_plain(*args, live=st["live"])
+    for k in want[0]:
+        _assert_equal(torch, f"probe_find[live, 1].{k}", got[0][k], want[0][k])
+    _assert_equal(torch, "probe_find[live, 1].found", got[2], want[2])
+    reads = find_walk_keys(torch, hs, c["st"], cap, fk.cpu().numpy(), np.ones(1, bool))
+    out.append(("probe_find", "live_per_record_1", measure(
+        torch, "probe_find", lambda: hs.probe_find(*args, live=st["live"]),
+        lambda: hs.probe_find_gather_plain(*args, live=st["live"]),
+        10 + 9 + 9 * len(cols) + reads * 18, reads * 6),
+        f"one foreign key over {cap} slots ({FK_USERS} customers), found live "
+        f"{bool(want[2][0])}, {reads} slot reads"))
+    # ---- K9's side mode: the change written into the customers store
+    scratch = hs.init_table_scratch(cap, dev)
+    slots = hs.probe_insert(st, scratch, cap, base, khash, torch.zeros_like(khash), kr,
+                            torch.zeros(1, dtype=torch.int32, device=dev), touched)
+    values = {name: (torch.from_numpy(_random_values(rng, c["st"][f"v_{name}"].dtype, 1)).to(dev),
+                     one.clone()) for name in cols}
+    delete = torch.zeros(1, dtype=torch.bool, device=dev)
+    keys = ["live"] + [f"{p}_{name}" for name in cols for p in ("v", "m")]
+    saved = {k: st[k].clone() for k in keys}
+    side_cols = [(st[f"v_{name}"], st[f"m_{name}"], d, v, True) for name, (d, v) in values.items()]
+
+    def side(plain):
+        if plain:
+            hs.upsert_side_plain(st["live"], cap, slots, touched, delete, one, side_cols)
+        else:
+            hs.upsert_side(st["live"], scratch, cap, slots, touched, delete, one, side_cols)
+
+    def reset():
+        for k in keys:
+            st[k].copy_(saved[k])
+
+    side(False)
+    work = {k: st[k].clone() for k in keys}
+    reset()
+    side(True)
+    for k in keys:
+        _assert_equal(torch, f"table_upsert[side, 1].{k}", work[k], st[k])
+    require(bool((scratch["last"] == -1).all()), "table_upsert[side, 1]: last-writer cells not clean")
+    sbytes, _w = side_bytes(slots.cpu().numpy(), touched.cpu().numpy(), delete.cpu().numpy(),
+                            [d.element_size() for d, _v in values.values()], cap)
+    out.append(("table_upsert", "side_per_record_1", measure(
+        torch, "table_upsert", lambda: side(False), lambda: side(True), sbytes, 0, reset=reset),
+        f"one change into {cap} slots, {len(cols)} columns"))
+    reset()
+    del c, st
+    # ---- K24: the hottest customer's orders
+    c = make_fanout_case(torch, rng, dev, cap, FK_ORDERS, FK_USERS)
+    st = c["store"]
+    lcols = [col.name for col in c["query"].fk_cols["l"]]
+    krepr = torch.tensor([c["hot"]], dtype=torch.int64, device=dev)
+    got = tj.fk_fanout(st, cap, krepr, one, lcols)
+    want = tj.fk_fanout_plain(st, cap, krepr, one, lcols)
+    _assert_equal(torch, "fk_fanout[per_record].slots", got[0], want[0])
+    for k in want[1]:
+        _assert_equal(torch, f"fk_fanout[per_record].{k}", got[1][k], want[1][k])
+    fbytes, m = fanout_bytes(c["st"], cap, c["hot"], lcols)
+
+    def library():
+        match = st["live"] & st["fkvalid"] & (st["fkrepr"] == krepr[0])
+        idx = torch.nonzero(match).squeeze(1)
+        return [st[f"{p}_{name}"].index_select(0, idx) for name in lcols for p in ("v", "m")] + [
+            st["key0"].index_select(0, idx)]
+
+    out.append(("fk_fanout", "fanout_per_record", measure(
+        torch, "fk_fanout", lambda: tj.fk_fanout(st, cap, krepr, one, lcols),
+        lambda: tj.fk_fanout_plain(st, cap, krepr, one, lcols), fbytes, 0, library=library),
+        f"{FK_ORDERS} orders over {cap + 1} slots, the hottest customer's {m} matches; "
+        "yardstick nonzero + index_select"))
+    return out
 
 
 def _check_insert(torch, hs, name, store0, scratch, args):
@@ -5837,6 +5948,19 @@ def merge_bytes(m, nseg, k, cb):
     return m * (4 + 29 + 8 * k + cb) + m * (30 + 8 * k + cb + 19 + 8 * k) + nseg * (26 + 8 * k + cb) + 8
 
 
+def longest_run(torch, sess, kh):
+    """The longest run of equal key hashes among K15's sorted items ``kh``:
+    its length and the number of K15's tiles (``sess.MERGE_TILE`` sorted
+    positions) it touches, the serial part of K15's merge launch (None for
+    a package without tiles)."""
+    _keys, lens = torch.unique_consecutive(kh, return_counts=True)
+    heads = torch.cumsum(lens, 0) - lens
+    i = int(lens.argmax())
+    length, head = int(lens[i]), int(heads[i])
+    tile = getattr(sess, "MERGE_TILE", None)  # None: a tree whose K15 has no tiles
+    return length, None if tile is None else (head % tile + length + tile - 1) // tile
+
+
 def check_merge_argset(torch, sess, items, perm, comps, n, slots, capacity, what):
     """K15's argset mode launched once (and counted) on the items, held to
     its twin by the bits: every sorted item column, and every segment
@@ -5913,9 +6037,11 @@ def phase_argset_kernels(torch, seed):
                   lambda: sess.session_merge_plain(items, perm, SESS_ROWS, SESS_2W_SLOTS, SESS_GAP_MS,
                                                    comps, SESS_STORE),
                   merge_bytes(m, nseg, items["reprs"].shape[0], cb), 0, plain_reps=3)
-    rec.update(max_abs_err=0.0, items=m, segments=segs)
-    _report("2a", f"session_merge[argset] ({m} items, {segs} segments, 7 components; no single "
-            "PyTorch call computes it)", rec)
+    run, tiles = longest_run(torch, sess, want["kh"])
+    rec.update(max_abs_err=0.0, items=m, segments=segs, longest_run=run, longest_run_tiles=tiles)
+    _report("2a", f"session_merge[argset] ({m} items, {segs} segments, 7 components, longest key run "
+            f"{run} items over {tiles} tiles of {sess.MERGE_TILE}; no single PyTorch call computes it)",
+            rec)
     out["session_merge"] = {"argset": rec}
     print(f"[2a] seconds {time.perf_counter() - t0:.1f}")
     return out

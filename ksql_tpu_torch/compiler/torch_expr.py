@@ -242,12 +242,31 @@ def _decode_repr(data: np.ndarray, sql_type: SqlType) -> np.ndarray:
 _NUMERIC_LITERALS = (ex.IntegerLiteral, ex.LongLiteral, ex.DoubleLiteral, ex.DecimalLiteral)
 
 
+#: the nodes that are a constant when every operand is one (XLA folds
+#: them: its algebraic simplifier hoists an elementwise op of broadcast
+#: constants into one scalar op, which constant folding then evaluates)
+_FOLDED_NODES = (ex.Cast, ex.ArithmeticUnary, ex.ArithmeticBinary, ex.Comparison,
+                 ex.LogicalBinary, ex.Not, ex.IsNull, ex.IsNotNull, ex.Between, ex.InList,
+                 ex.SearchedCase, ex.SimpleCase, ex.WhenClause, ex.FunctionCall)
+
+
+def _operands(e):
+    for f in dataclasses.fields(e):
+        v = getattr(e, f.name)
+        if isinstance(v, ex.Expression):
+            yield v
+        elif isinstance(v, tuple):
+            yield from (x for x in v if isinstance(x, ex.Expression))
+
+
 def _is_folded(e) -> bool:
     if isinstance(e, _NUMERIC_LITERALS):
         return isinstance(e, ex.DecimalLiteral) or e.value is not None
-    if isinstance(e, (ex.Cast, ex.ArithmeticUnary)):
-        return _is_folded(e.operand)
-    return False
+    if isinstance(e, (ex.BooleanLiteral, ex.NullLiteral)):
+        return True
+    if isinstance(e, ex.FunctionCall) and e.name.upper() not in DEVICE_FUNCTIONS:
+        return False
+    return isinstance(e, _FOLDED_NODES) and all(_is_folded(o) for o in _operands(e))
 
 
 #: folded divisors by node: id -> (node, value); the node is held so its
@@ -257,17 +276,21 @@ _FOLDED_SIZE = 256
 
 
 def _folded_constant(e) -> Optional[float]:
-    """The value of a divisor that XLA sees as a constant — a numeric
-    literal, a CAST of one, a negation of one, nested — as float64, else
-    None.  It is evaluated once per node by the compiler's own rules on a
-    one-row CPU column, so a CAST rounds, saturates or nulls as it does on
-    the card (a NULL result is None)."""
+    """The value of a divisor that XLA sees as a constant — an expression
+    of numeric and boolean literals: casts, arithmetic, comparisons, CASE
+    and the device functions, nested — as float64, else None.  It is
+    evaluated once per node by the compiler's own rules on a one-row CPU
+    column, so a CAST rounds, saturates or nulls as it does on the card
+    (a NULL result is None).  A division inside it is the IEEE quotient:
+    XLA folds the constant before any reciprocal rewrite reaches it."""
     if not _is_folded(e):
         return None
     hit = _FOLDED.get(id(e))
     if hit is not None and hit[0] is e:
         return hit[1]
-    col = TorchExprCompiler({}, 1, "cpu").compile(e)
+    compiler = TorchExprCompiler({}, 1, "cpu")
+    compiler.folds_literals = False
+    col = compiler.compile(e)
     value = None
     if bool(col.valid[0]) and col.sql_type.is_numeric():
         value = float(col.data.to(torch.float64)[0])

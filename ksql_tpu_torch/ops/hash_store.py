@@ -1085,33 +1085,107 @@ def table_upsert(store: Dict[str, torch.Tensor], scratch: Dict[str, torch.Tensor
     if not slots.is_cuda:
         table_upsert_plain(store, capacity, slots, active, delete, values)
         return
-    n = slots.shape[0]
+    plan = upsert_plan((store["occ"], store["grave"]), scratch["last"], capacity,
+                       [(store[f"v_{name}"], store[f"m_{name}"], False) for name in values])
+    _launch_upsert(plan, "join", slots, active, delete, None, list(values.values()))
+
+
+class UpsertPlan:
+    """K9's host descriptor for one store's buffers: ``block`` holds six
+    int64 a column (value dst, value src, element bytes, valid dst, valid
+    src, whether the valid bits take ``act``); the store half is packed and
+    checked once, the batch half (value and valid src) is filled per call
+    (:func:`_launch_upsert`; a store's calls come from its query's one
+    thread).  ``dtypes`` are the store's value dtypes."""
+
+    def __init__(self, flags, last, capacity, dtypes, block):
+        self.flags = flags  # held, so the cache's data pointers stay theirs
+        self.last = last
+        self.capacity = capacity
+        self.dtypes = dtypes
+        self.block = block
+
+
+_UPSERT_PLANS: Dict[tuple, UpsertPlan] = {}
+_UPSERT_PLAN_CACHE_SIZE = 64
+
+
+def upsert_plan(flags: Sequence[torch.Tensor], last: torch.Tensor, capacity: int,
+                cols: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]]) -> UpsertPlan:
+    """K9's descriptor for a store: ``flags`` its (occ, grave) (table
+    mode) or (live,) (side mode), ``last`` its scratch, ``cols`` per column
+    (values, valid bits, whether the valid bits take ``act``).  Built and
+    checked once per set of buffers and cached: a grow that replaces the
+    store's tensors gets a new one."""
+    key = (capacity, last.data_ptr(), tuple(f.data_ptr() for f in flags),
+           tuple((v.data_ptr(), v.dtype, m.data_ptr(), bool(u)) for v, m, u in cols))
+    plan = _UPSERT_PLANS.get(key)
+    if plan is not None:
+        return plan
     c1 = capacity + 1
-    _expect(store["occ"], torch.bool, (c1,))
-    _expect(store["grave"], torch.bool, (c1,))
-    _expect(scratch["last"], torch.int32, (c1,))
-    _expect(slots, torch.int32, (n,))
-    _expect(active, torch.bool, (n,))
-    _expect(delete, torch.bool, (n,))
+    for f in flags:
+        _expect(f, torch.bool, (c1,))
+    _expect(last, torch.int32, (c1,))
     desc: List[int] = []
-    keep = []  # the cast columns must outlive the launch below
-    for name, (data, valid) in values.items():
-        v, m = store[f"v_{name}"], store[f"m_{name}"]
-        data = data.to(v.dtype).contiguous()
+    for v, m, use_act in cols:
         _expect(v, v.dtype, (c1,))
         _expect(m, torch.bool, (c1,))
-        _expect(data, v.dtype, (n,))
-        _expect(valid, torch.bool, (n,))
-        keep.append(data)
-        desc += [v.data_ptr(), data.data_ptr(), v.element_size(), m.data_ptr(), valid.data_ptr(), 0]
-    fn = cuda.lib("table_upsert", "ksql_table_upsert")
-    cuda.check("table_upsert", fn(
-        store["occ"].data_ptr(), store["grave"].data_ptr(), capacity,
-        cuda.host_i64(desc), len(values), slots.data_ptr(), active.data_ptr(),
-        delete.data_ptr(), n, scratch["last"].data_ptr(), _stream(slots.device),
-    ))
+        desc += [v.data_ptr(), 0, v.element_size(), m.data_ptr(), 0, int(use_act)]
+    plan = UpsertPlan(tuple(flags), last, capacity, tuple(v.dtype for v, _, _ in cols),
+                      cuda.host_i64(desc))
+    if len(_UPSERT_PLANS) >= _UPSERT_PLAN_CACHE_SIZE:
+        _UPSERT_PLANS.pop(next(iter(_UPSERT_PLANS)))
+    _UPSERT_PLANS[key] = plan
+    return plan
+
+
+def _batch_col(t: torch.Tensor, dtype, n: int, cast: bool = True) -> torch.Tensor:
+    """A batch column as K9 reads it: cast only when its dtype differs
+    (``cast``; else a dtype that differs is refused), copied only when it
+    is not contiguous."""
+    if t.dtype != dtype:
+        if not cast:
+            raise ValueError(f"kernel argument: expected {dtype}, got {t.dtype}")
+        t = t.to(dtype)
+    if not t.is_contiguous():
+        t = t.contiguous()
+    if t.shape != (n,) or not t.is_cuda:
+        raise ValueError(f"kernel argument: expected a CUDA column of {n} rows, got "
+                         f"{list(t.shape)} on {t.device}")
+    return t
+
+
+def _launch_upsert(plan: UpsertPlan, mode: str, slots, active, delete, act,
+                   batch: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> None:
+    """One K9 launch: the batch's rows and columns into ``plan``'s store."""
+    n = slots.shape[0]
+    for t, dt in ((slots, torch.int32), (active, torch.bool), (delete, torch.bool)):
+        _expect(t, dt, (n,))
+    if act is not None:
+        _expect(act, torch.bool, (n,))
+    block = plan.block
+    keep = []  # the cast and contiguous columns must outlive the launch below
+    for j, ((data, valid), dt) in enumerate(zip(batch, plan.dtypes)):
+        data, valid = _batch_col(data, dt, n), _batch_col(valid, torch.bool, n, cast=False)
+        keep += [data, valid]
+        block[6 * j + 1] = data.data_ptr()
+        block[6 * j + 4] = valid.data_ptr()
+    stream = _stream(slots.device)
+    if mode == "join":
+        occ, grave = plan.flags
+        code = cuda.lib("table_upsert", "ksql_table_upsert")(
+            occ.data_ptr(), grave.data_ptr(), plan.capacity, block, len(batch),
+            slots.data_ptr(), active.data_ptr(), delete.data_ptr(), n, plan.last.data_ptr(),
+            stream)
+    else:
+        (live,) = plan.flags
+        code = cuda.lib("table_upsert", "ksql_table_upsert_side")(
+            live.data_ptr(), plan.capacity, block, len(batch), slots.data_ptr(),
+            active.data_ptr(), delete.data_ptr(), act.data_ptr(), n, plan.last.data_ptr(),
+            stream)
+    cuda.check("table_upsert", code)
     table_upsert.launches += 1
-    table_upsert.mode_launches["join"] += 1
+    table_upsert.mode_launches[mode] += 1
 
 
 #: a column :func:`upsert_side` writes: (store values, store valid bits,
@@ -1162,32 +1236,8 @@ def upsert_side(live: torch.Tensor, scratch: Dict[str, torch.Tensor], capacity: 
     if not slots.is_cuda:
         upsert_side_plain(live, capacity, slots, touched, delete, act, cols)
         return
-    n = slots.shape[0]
-    c1 = capacity + 1
-    _expect(live, torch.bool, (c1,))
-    _expect(scratch["last"], torch.int32, (c1,))
-    _expect(slots, torch.int32, (n,))
-    for t in (touched, delete, act):
-        _expect(t, torch.bool, (n,))
-    desc: List[int] = []
-    keep = []  # the cast and contiguous columns must outlive the launch below
-    for v, m, data, valid, use_act in cols:
-        data = data.to(v.dtype).contiguous()
-        valid = valid.contiguous()
-        _expect(v, v.dtype, (c1,))
-        _expect(m, torch.bool, (c1,))
-        _expect(data, v.dtype, (n,))
-        _expect(valid, torch.bool, (n,))
-        keep += [data, valid]
-        desc += [v.data_ptr(), data.data_ptr(), v.element_size(), m.data_ptr(), valid.data_ptr(),
-                 int(use_act)]
-    cuda.check("table_upsert", cuda.lib("table_upsert", "ksql_table_upsert_side")(
-        live.data_ptr(), capacity, cuda.host_i64(desc), len(cols), slots.data_ptr(),
-        touched.data_ptr(), delete.data_ptr(), act.data_ptr(), n, scratch["last"].data_ptr(),
-        _stream(slots.device),
-    ))
-    table_upsert.launches += 1
-    table_upsert.mode_launches["side"] += 1
+    plan = upsert_plan((live,), scratch["last"], capacity, [(v, m, u) for v, m, _, _, u in cols])
+    _launch_upsert(plan, "side", slots, touched, delete, act, [(d, m) for _, _, d, m, _ in cols])
 
 
 table_upsert.launches = 0
@@ -1208,8 +1258,11 @@ def init_bits(comp: AggComponent) -> int:
 KERNEL_WRAPPERS = (row_prologue, probe_insert, fold_and_mark, evict, probe_find, table_upsert)
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def _stream(device: torch.device) -> int:
+    """The current CUDA stream of a CUDA tensor's ``device``, as the
+    kernels' entry points take it: read as a raw pointer, without building
+    the Stream object that ``torch.cuda.current_stream`` makes a call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _expect(t: torch.Tensor, dtype, shape) -> None:

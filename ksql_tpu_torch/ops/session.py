@@ -425,6 +425,12 @@ def session_merge_plain(items: Items, perm, n, slots_per_key, gap, components, c
     }
 
 
+#: sorted positions K15's merge launch takes at once (``kTile`` in
+#: ``csrc/session_merge.cu``; a half or a quarter of it for a query whose
+#: tile would not fit a block's shared memory): a block owns the runs that
+#: open in its tile and follows its last run tile by tile
+MERGE_TILE = 1024
+
 #: K15's per-item outputs (sorted order), and its per-segment outputs (at
 #: each segment's first position; read through ``segfirst``)
 MERGE_ITEM_KEYS = ("kh", "start", "end", "alive", "isrow", "slot", "reprs", "comps", "segfirst",

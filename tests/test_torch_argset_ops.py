@@ -178,6 +178,27 @@ def test_segment_argset_twin_matches_reference(seed, ties):
     for k in np.unique(kh):
         idx = np.nonzero(kh == k)[0]
         start[idx] = np.cumsum(rng.integers(0, 50, idx.size))
+    _check_segment_argset(rng, kh, start, ties)
+
+
+def test_segment_argset_twin_matches_reference_across_tiles():
+    """K15 takes a run a tile of sorted positions at a time (1,024, or 512
+    or 256 for a wide query): one key's run of 771 items whose sessions
+    span the edges at 256 and 512, one opening exactly at 512, with tied
+    orders throughout (the payload sum carried across a tile edge adds the
+    tied winners in item order)."""
+    rng = np.random.default_rng(7)
+    m = 771
+    kh = np.zeros(m, np.int64)
+    kh[-3:] = 1
+    step = rng.integers(0, 20, m)
+    step[[0, 200, 512, 700]] = 100  # past the gap of 25
+    first = _check_segment_argset(rng, kh, np.cumsum(step).astype(np.int64), ties=True)
+    assert np.nonzero(first)[0].tolist() == [0, 200, 512, 700, 768]
+
+
+def _check_segment_argset(rng, kh, start, ties):
+    m = kh.size
     alive = rng.random(m) >= 0.2
     seqs = rng.permutation(10 * m)[:m].astype(np.int64)
     if ties:
@@ -206,3 +227,4 @@ def test_segment_argset_twin_matches_reference(seed, ties):
         else:
             np.testing.assert_array_equal(g, want)
     assert sess.session_merge.mode_launches["argset"] == 0  # CPU tensors: the twin, uncounted
+    return first

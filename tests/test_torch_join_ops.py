@@ -141,6 +141,47 @@ def test_table_step_twins_match_reference_trace_table_step():
     assert not jt["occ"][-1] and not jt["grave"][-1]
 
 
+@pytest.mark.parametrize("shape", ["one_row", "one_block", "grid", "one_key", "delete_winner",
+                                   "all_upsert"])
+def test_table_step_matches_reference_at_kernel_shapes(shape):
+    """K9's launch shapes through the table step, against the reference's
+    ``_trace_table_step``: one row, the one-block limit (4,096 rows) and
+    one past it (the cooperative grid), every row on one key, a deleting
+    winner beside upserting losers, and a batch whose every row upserts
+    (the dump row keeps its values).  Whole stores, dump row included."""
+    n = {"one_row": 1, "one_block": 4096, "grid": 4097}.get(shape, 64)
+    rng = np.random.default_rng(n)
+    ids = rng.integers(0, 3000, n)
+    dels = rng.random(n) < 0.2
+    if shape in ("one_key", "delete_winner"):
+        ids[:] = 7
+    if shape == "delete_winner":
+        dels[:] = False
+        dels[-1] = True
+    if shape == "all_upsert":
+        ids, dels = np.arange(n), np.zeros(n, bool)
+    rows = [{"ID": int(i), "NAME": f"n{j}", "REGION": None if j % 5 == 0 else "eu"}
+            for j, i in enumerate(ids)]
+    engine, plan = plan_of((USERS_DDL, CLICKS_DDL), LEFT_JOIN)
+    ref_q = CompiledDeviceQuery(plan, engine.registry, capacity=n, table_store_capacity=1 << 13)
+    port_q = TorchCompiledQuery(plan_from_json(json.loads(json.dumps(plan_to_json(plan)))),
+                                capacity=n, device="cpu", table_store_capacity=1 << 13)
+    tschema = ref_q.join_chain[0].table_source.schema
+    ts = list(range(n))
+    arrays = ref_q.join_chain[0].layout.encode(RHostBatch.from_rows(tschema, rows, timestamps=ts))
+    parrays = port_q.join_chain[0].layout.encode(PHostBatch.from_rows(_pschema(tschema), rows,
+                                                                      timestamps=ts))
+    arrays["delete"] = parrays["delete"] = dels
+    state, _metrics = ref_q._trace_table_step(ref_q.state, {k: jnp.asarray(v) for k, v in arrays.items()})
+    port_q._table_step(port_q.upload(parrays), 0)
+    want = {k: np.asarray(v) for k, v in jax.device_get(state["jtab"]).items()}
+    got = state_to_numpy(port_q.state["jtab"])
+    for k in want:
+        _same_bits(got[k], want[k], f"{shape}: {k}")
+    if shape == "delete_winner":
+        assert int(got["grave"].sum()) == 1 and not got["occ"].any()
+
+
 def test_table_upsert_dump_row_takes_the_highest_non_upserting_row():
     # the reference scatters every non-upserting row into the dump row, in
     # row order: here the last row is a losing duplicate, not padding

@@ -457,12 +457,13 @@ def test_session_kernels_match_twins(dev, n, slots):
     assert all(w.launches > before[w.__name__] for w in sess.KERNEL_WRAPPERS)
 
 
-@pytest.mark.parametrize("ncomp,k", [(2, 1), (4, 2), (6, 3)])
+@pytest.mark.parametrize("ncomp,k", [(2, 1), (4, 2), (6, 3), (12, 8), (32, 16)])
 def test_session_merge_kernel_matches_twin_at_each_width(dev, ncomp, k):
     # tolerance: exact (every sorted item column, and every segment value
     # read through segfirst; float64 sums add in item order on both sides).
-    # Up to 4 components and 2 keys K15 folds in registers, wider in local
-    # memory: both variants run here, on long runs of few keys.
+    # K15's tile is the widest of 1,024, 512 and 256 sorted positions whose
+    # shared memory fits a block: 1,024 up to 6 components, 512 at 12
+    # components and 8 keys, 256 at 32 and 16; on long runs of few keys.
     rng = np.random.default_rng(100 * ncomp + k)
     n, slots, gap, cap = 512, 3, 1_000, 1 << 12
     m = n * (slots + 1)
@@ -470,7 +471,8 @@ def test_session_merge_kernel_matches_twin_at_each_width(dev, ncomp, k):
     kh = pool[rng.integers(0, pool.size, m)]
     start = rng.integers(0, 2_000_000, m)
     specs = [("add", "int64", 0), ("min", "int32", 2**31 - 1), ("max", "float64", -np.inf),
-             ("add", "float64", 0.0), ("min", "float64", np.inf), ("max", "int32", -(2**31))][:ncomp]
+             ("add", "float64", 0.0), ("min", "float64", np.inf), ("max", "int32", -(2**31))] * 6
+    specs = specs[:ncomp]
     comps, cols = [], []
     for combine, dtype, init in specs:
         comps.append(hs.AggComponent(combine, dtype, init))
@@ -816,17 +818,35 @@ def test_session_merge_argset_kernel_matches_twin(dev, ties):
     chip_smoke.check_merge_argset(torch, sess, items, perm, comps, 1024, 4, 1 << 12, "K15 argset")
 
 
-def _cuda_kernels(fn):
+#: the fence kernels _cuda_kernels launches after ``fn``: a trace can come
+#: back without the records of its last kernels, or of all of them (seen on
+#: the H100 for microsecond-long kernels), so fn's kernels are followed by
+#: two of torch's spin kernels, and a trace that holds neither is taken again
+_FENCES = 2
+
+
+def _cuda_kernels(fn, reset=None, attempts=3):
     """Names of the CUDA kernels ``fn()`` launches, one entry a launch (from
-    torch.profiler's device events)."""
+    torch.profiler's device events; the fences after them left out).  A
+    trace without the fences is taken again, after ``reset()`` (which puts
+    back what ``fn`` changed; None: ``fn`` gives the same result run
+    twice), at most ``attempts`` times in all."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(attempts):
+        if attempt and reset is not None:
+            reset()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and "emcpy" not in e.name and "emset" not in e.name]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            for _ in range(_FENCES):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "emcpy" not in e.name and "emset" not in e.name]
+        if any("spin_kernel" in name for name in names):
+            return [name for name in names if "spin_kernel" not in name]
+    raise AssertionError(f"{attempts} profiler traces held none of the fences")
 
 
 def _keys_at(rng, capacity, base, count):
@@ -884,7 +904,14 @@ def test_probe_insert_is_one_launch_and_matches_twin(dev, n, capacity, cluster):
     sp = {k: v.clone() for k, v in st.items()}
     scratch = hs.init_scratch(capacity, dev)
     out = {}
-    names = _cuda_kernels(lambda: out.setdefault("slots", hs.probe_insert(sk, scratch, capacity, *args)))
+
+    def reset():
+        for k in st:
+            sk[k].copy_(st[k])
+        out.clear()
+
+    names = _cuda_kernels(lambda: out.setdefault("slots", hs.probe_insert(sk, scratch, capacity, *args)),
+                          reset)
     solo = hs.probe_sizes()[0]
     assert solo == 4096  # the shapes above straddle the one-block threshold
     assert len(names) == 1 and ("block_kernel" if n <= solo else "grid_kernel") in names[0]
@@ -980,3 +1007,160 @@ def test_combine_plain_gather_types_match_twin(dev, num_keys):
         for k in want:
             _same(_bits(got[k]), _bits(want[k]))
             assert got[k].data_ptr() not in {t.data_ptr() for t in st.values()}
+
+
+def _upsert_case(dev, n, shape, seed):
+    """A join store of 2^16 slots with every flag and column kind, and a
+    batch of ``n`` changes at K9's launch shapes: random slots (a tenth of
+    them the dump slot), every row on one slot, a deleting winner beside
+    upserting losers, or every row upserting a slot of its own."""
+    rng = np.random.default_rng(seed)
+    cap = 1 << 16
+    st = {"occ": rng.random(cap + 1) < 0.5, "grave": rng.random(cap + 1) < 0.1,
+          "live": rng.random(cap + 1) < 0.5}
+    for name, dt in JOIN_COLS:
+        st[f"v_{name}"] = chip_smoke._col_values(rng, dt, cap + 1)
+        st[f"m_{name}"] = rng.random(cap + 1) < 0.5
+    slots = rng.integers(0, cap + 1, n).astype(np.int32)
+    slots[rng.random(n) < 0.1] = cap
+    active, delete = rng.random(n) < 0.9, rng.random(n) < 0.3
+    if shape in ("one_slot", "delete_winner"):
+        slots[:], active[:] = 9, True
+    if shape == "delete_winner":
+        delete[:] = False
+        delete[-1] = True
+    if shape == "all_upsert":
+        slots = rng.permutation(cap)[:n].astype(np.int32)
+        active[:], delete[:] = True, False
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    batch = {name: (t(chip_smoke._col_values(rng, dt, n)), t(rng.random(n) < 0.8))
+             for name, dt in JOIN_COLS}
+    return cap, {k: t(v) for k, v in st.items()}, t(slots), t(active), t(delete), t(rng.random(n) < 0.7), batch
+
+
+# one block (n <= 4,096), the cooperative grid past it and phase 2x's
+# 65,536 changes; every shape in both modes, each one launch
+@pytest.mark.parametrize("n", [1, 4096, 4097, 1 << 16])
+@pytest.mark.parametrize("shape", ["random", "one_slot", "delete_winner", "all_upsert"])
+def test_table_upsert_is_one_launch_and_matches_twin(dev, n, shape):
+    # tolerance: exact (the whole store, its dump row, and the clean scratch)
+    cap, st, slots, active, delete, act, batch = _upsert_case(dev, n, shape, seed=n)
+    scratch = hs.init_table_scratch(cap, dev)
+    kernel = "upsert_block_kernel" if n <= 4096 else "upsert_grid_kernel"
+    sk = {k: v.clone() for k, v in st.items()}
+    sp = {k: v.clone() for k, v in st.items()}
+    names = _cuda_kernels(lambda: hs.table_upsert(sk, scratch, cap, slots, active, delete, batch))
+    assert len(names) == 1 and kernel in names[0]
+    hs.table_upsert_plain(sp, cap, slots, active, delete, batch)
+    for k in st:
+        _same(sk[k], sp[k])
+    assert bool((scratch["last"] == -1).all())
+    sk = {k: v.clone() for k, v in st.items()}
+    sp = {k: v.clone() for k, v in st.items()}
+
+    def cols(s):
+        return [(s[f"v_{c}"], s[f"m_{c}"], *batch[c], c != "D") for c, _ in JOIN_COLS]
+
+    names = _cuda_kernels(lambda: hs.upsert_side(sk["live"], scratch, cap, slots, active, delete, act,
+                                                 cols(sk)))
+    assert len(names) == 1 and kernel in names[0]
+    hs.upsert_side_plain(sp["live"], cap, slots, active, delete, act, cols(sp))
+    for k in st:
+        _same(sk[k], sp[k])
+    assert bool((scratch["last"] == -1).all())
+    if shape == "delete_winner":
+        assert not bool(sk["live"][9])
+
+
+def _long_run_case(dev, rng, kh, start, gap, specs, k=1, alive=0.8):
+    m = kh.size
+    comps, cols = [], []
+    for combine, dtype, init in specs:
+        comps.append(hs.AggComponent(combine, dtype, init))
+        if dtype == "float64":
+            v = rng.normal(size=m) * 1e3
+            v[rng.random(m) < 0.05] = np.nan
+            v[rng.random(m) < 0.05] = -0.0
+        else:
+            v = rng.integers(-1000, 1000, m).astype(dtype)
+        cols.append(torch.from_numpy(v).to(dev))
+    items = {"kh": torch.from_numpy(kh).to(dev), "start": torch.from_numpy(start).to(dev),
+             "end": torch.from_numpy(start + rng.integers(0, max(gap, 1), m)).to(dev),
+             "alive": torch.from_numpy(rng.random(m) < alive).to(dev),
+             "slot": torch.from_numpy(rng.integers(0, 4097, m).astype(np.int32)).to(dev),
+             "reprs": torch.from_numpy(rng.integers(-50, 50, (k, m))).to(dev), "comps": cols}
+    return items, comps
+
+
+def _bits(x):
+    """float64 tensors as their int64 bits (signed zeros and NaN payloads
+    compared too), in nested lists."""
+    if isinstance(x, (list, tuple)):
+        return [_bits(v) for v in x]
+    return x.view(torch.int64) if x.dtype == torch.float64 else x
+
+
+_RUN_SPECS = [("add", "int64", 0), ("min", "int32", 2**31 - 1), ("max", "float64", -np.inf),
+              ("add", "float64", 0.0)]
+_ARGSET_SPECS = [("min", "int64", I64.max), ("argset", "float64", 0.0), ("argset", "int64", 0),
+                 ("max", "int64", I64.min), ("argset", "int32", 0), ("argset", "float64", 0.0),
+                 ("add", "int64", 0)]
+
+
+# K15 takes a run 1,024 sorted positions at a time (512 or 256 for a query
+# too wide for that tile): runs one short of, at and past a tile; a session
+# spanning tiles; sessions opening at the tile edges; a float64 sum of
+# 1e16, 1.0, -1e16 in item order; argset ties carried across an edge;
+# winners past S in a long run
+@pytest.mark.parametrize("case", ["run63", "run64", "run65", "run255", "run256", "run257",
+                                  "run511", "run512", "run513", "run1023", "run1024", "run1025",
+                                  "spans_tiles",
+                                  "opens_at_tile_edges",
+                                  "float_sum_in_item_order", "argset_ties", "winners_past_s"])
+def test_session_merge_long_runs_are_two_launches_and_match_twin(dev, case):
+    # tolerance: exact (every sorted item column, every segment value read
+    # through segfirst, sess_ovf)
+    rng = np.random.default_rng(len(case))
+    gap, specs, S = 1000, _RUN_SPECS, 3
+    if case.startswith("run"):
+        n = int(case[3:])
+        kh = np.concatenate([np.full(n, -5), np.full(3, 9), np.full(n + 1, 11)]).astype(np.int64)
+        step = rng.integers(0, 600, kh.size)
+    else:
+        kh = np.concatenate([np.full(2 * 1024 + 5, 5), np.full(4, 6)]).astype(np.int64)
+        step = rng.integers(0, 100, kh.size)
+    if case == "spans_tiles":
+        step[:] = 10
+    if case == "opens_at_tile_edges":
+        step[:] = 10
+        step[[256, 512, 768, 1024, 2048]] = 5000
+    if case == "winners_past_s":
+        step[:] = 5000
+    if case == "argset_ties":
+        specs = _ARGSET_SPECS
+        step[::97] = 5000
+    start = np.cumsum(step).astype(np.int64)
+    items, comps = _long_run_case(dev, rng, kh, start, gap, specs)
+    if case == "float_sum_in_item_order":
+        items["comps"][3] = torch.from_numpy(np.tile([1e16, 1.0, -1e16], kh.size)[:kh.size].copy()).to(dev)
+        items["alive"][:] = True
+    if case == "argset_ties":
+        orders = torch.from_numpy(rng.integers(0, 7, kh.size)).to(dev)
+        items["comps"][0], items["comps"][3] = orders, orders.clone()
+    m = kh.size
+    perm = torch.arange(m, dtype=torch.int32, device=dev)  # already in (kh, start) order
+    out = {}
+    names = _cuda_kernels(lambda: out.setdefault("got", sess.session_merge(items, perm, m // 2, S, gap,
+                                                                        comps, 1 << 12)))
+    assert len(names) == 2 and "permute_kernel" in names[0] and "merge_kernel" in names[1]
+    got, want = out["got"], sess.session_merge_plain(items, perm, m // 2, S, gap, comps, 1 << 12)
+    for key in sess.MERGE_ITEM_KEYS + ("sess_ovf",):
+        _same_tree(_bits(got[key]), _bits(want[key]))
+    sf = want["segfirst"].long()
+    for key in sess.MERGE_SEG_KEYS:
+        pick = (lambda xs: [x[sf] for x in xs]) if key == "seg_comps" else (lambda x: x[..., sf])
+        _same_tree(_bits(pick(got[key])), _bits(pick(want[key])))
+    if case == "opens_at_tile_edges":
+        assert [int(want["rank"][p]) for p in (255, 256, 512, 768, 1024, 2048)] == [0, 1, 2, 3, 4, 5]
+    if case == "winners_past_s":
+        assert int(want["sess_ovf"]) > 1024

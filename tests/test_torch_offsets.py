@@ -345,19 +345,30 @@ def test_struct_paths_and_nested_passthrough_match_the_reference_engine(name):
 
 
 def test_division_by_a_constant_is_the_references_reciprocal_product():
-    """ROADMAP C11: the reference's jitted step divides by a constant as
-    XLA's algebraic simplifier rewrites it, ``x * (1 / c)``: 956 / 10.0
-    comes out 95.60000000000001, not the IEEE quotient 95.6.  The port's
-    compiled step gives the reference's bits for each constant form XLA
-    folds (a DOUBLE or DECIMAL literal, a CAST of an integer literal, a
-    negative, a power of two, 0.0 and -0.0, the DECIMAL branch) and the
-    quotient where the divisor is a column or constant arithmetic, which
-    the port does not fold (ROADMAP C13)."""
+    """ROADMAP C11 and C13: the reference's jitted step divides by a
+    constant as XLA's algebraic simplifier rewrites it, ``x * (1 / c)``:
+    956 / 10.0 comes out 95.60000000000001, not the IEEE quotient 95.6.
+    The port's compiled step gives the reference's bits for each constant
+    form XLA folds (a DOUBLE or DECIMAL literal, a CAST of an integer
+    literal, a negative, a power of two, 0.0 and -0.0, the DECIMAL branch;
+    constant arithmetic, nested, whose own divisions are the IEEE quotient
+    since XLA folds them before any rewrite; a device function or a CASE of
+    constants) and the quotient where the divisor reads a column."""
     ddl = "CREATE STREAM V (X BIGINT, D DOUBLE) WITH (kafka_topic='v', value_format='JSON');"
     forms = ["CAST(X AS DOUBLE) / 10.0", "CAST(X AS DOUBLE) / CAST(10 AS DOUBLE)", "CAST(X AS DOUBLE) / 10",
              "CAST(X AS DOUBLE) / -10.0", "CAST(X AS DOUBLE) / 3.0", "CAST(X AS DOUBLE) / 4.0",
              "CAST(X AS DOUBLE) / 0.0", "CAST(X AS DOUBLE) / -0.0", "X / 10.0",
-             "CAST(X AS DECIMAL(10, 2)) / CAST(3 AS DECIMAL(4, 1))", "CAST(X AS DOUBLE) / D"]
+             "CAST(X AS DECIMAL(10, 2)) / CAST(3 AS DECIMAL(4, 1))", "CAST(X AS DOUBLE) / D",
+             "CAST(X AS DOUBLE) / (5.0 * 2.0)", "CAST(X AS DOUBLE) / (5.0 / 3.0)",
+             "CAST(X AS DOUBLE) / (10.0 / 3.0 * 3.0)", "CAST(X AS DOUBLE) / (0.1 + 0.2)",
+             "CAST(X AS DOUBLE) / (7.0 - 4.0 % 3.0)", "CAST(X AS DOUBLE) / -(5.0 * 2.0)",
+             "CAST(X AS DOUBLE) / CAST(5 * 2 AS DOUBLE)", "CAST(X AS DOUBLE) / (10 / 3)",
+             "CAST(X AS DOUBLE) / ABS(-10.0)", "CAST(X AS DOUBLE) / SQRT(10.0)",
+             "CAST(X AS DOUBLE) / GREATEST(3.0, 7.0 / 3.0)",
+             "CAST(X AS DOUBLE) / CASE WHEN 1 < 2 THEN 10.0 ELSE 3.0 END",
+             "CAST(X AS DOUBLE) / CASE 3 WHEN 3 THEN 7.0 ELSE 1.0 END",
+             "CAST(X AS DOUBLE) / CASE WHEN false THEN 1.0 END",
+             "CAST(X AS DOUBLE) / (D * 2.0)", "CAST(X AS DOUBLE) / ABS(D)"]
     sel = ", ".join(f"{f} AS Y{k}" for k, f in enumerate(forms))
     engine, plan = plan_of([ddl], f"CREATE STREAM Q AS SELECT {sel} FROM V;")
     ref_q = CompiledDeviceQuery(plan, engine.registry, capacity=8, store_capacity=16)
@@ -372,6 +383,9 @@ def test_division_by_a_constant_is_the_references_reciprocal_product():
     assert [repr(r.row) for r in got] == [repr(r.row) for r in want]
     assert want[0].row["Y0"] == got[0].row["Y0"] == 956 * 0.1 == 95.60000000000001
     assert want[0].row["Y10"] == got[0].row["Y10"] == 956 / 10.0 == 95.6
+    assert want[0].row["Y11"] == got[0].row["Y11"] == 95.60000000000001
+    assert got[0].row["Y12"] == 956 * (1 / (5.0 / 3.0)) != 956 * (1 / (5.0 * (1 / 3.0)))
+    assert want[0].row["Y25"] == got[0].row["Y25"] == 956 / 20.0
 
 
 def test_a_folded_divisor_is_evaluated_once_per_node(monkeypatch):

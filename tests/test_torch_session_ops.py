@@ -222,6 +222,83 @@ def test_bench_plan_post_exchange_equals_reference():
     assert q is not None
 
 
+#: runs of one key across K15's tiles of sorted positions (1,024, or 512
+#: or 256 for a query too wide for that tile): (rows,
+#: positions that open a session, the query); the key's hash is the
+#: lowest, so its run starts at position 0 and run positions are tile
+#: positions
+_BREAKS = np.arange(0, 1025, 37)
+LONG_RUNS = {
+    **{f"run{n}": (n, _BREAKS[_BREAKS < n], "src") for n in (63, 64, 65, 255, 256, 257, 513, 1025)},
+    "spans_tiles": (600, np.array([0]), "src"),
+    "opens_at_tile_edges": (600, np.array([0, 256, 512]), "src"),
+    "float_sum_in_item_order": (600, np.array([0]), "doubles"),
+}
+
+
+@pytest.mark.parametrize("case", list(LONG_RUNS))
+def test_long_runs_across_tiles_equal_reference(case):
+    """K15's schedule cuts a run into tiles of sorted positions: runs one
+    position short of, at and past a tile, a session that spans tiles,
+    sessions that open exactly at a tile edge, and a float64 SUM of 1e16,
+    1.0, -1e16 repeated, whose item-order bits differ from a tree sum.
+    The twin against the reference's post_session_exchange."""
+    n, breaks, query = LONG_RUNS[case]
+    step = np.full(n, 50, np.int64)
+    step[breaks] = 20_000  # past the 10 s gap
+    ts = (1_000_000 + np.cumsum(step)).tolist()
+    khash = [-5] * (n - 2) + [7, I64.max]
+    active = [True] * n
+    ddl, sql = (DDL, SQL) if query == "src" else (D_DDL, DOUBLES)
+    slots = 1 << max(1, (len(breaks) - 1).bit_length())
+    ref_q, _ = build_pair(ddl, sql, capacity=n, store=64, slots=slots)
+    st = _store(ref_q, [])
+    if query == "src":
+        contribs = _count_contribs(ts, active)
+    else:
+        d = np.tile([1e16, 1.0, -1e16], n)[:n]
+        contribs = [np.asarray(ts, np.int64), d, d, np.ones(n, np.int32), d, np.ones(n, np.int32),
+                    np.ones(n, np.int64)]
+    want, q = run_post(ddl, sql, st, khash, ts, active, [3] * n, contribs, slots=slots, store=64)
+    assert q is not None
+    if query == "doubles":
+        serial = 0.0
+        for v in contribs[1][: n - 2]:
+            serial += v
+        sums = np.asarray(want["v_SD"])[np.asarray(want["emit_mask"])]
+        assert serial in sums.tolist() and serial != float(np.sum(contribs[1][: n - 2]))
+
+
+def test_winners_past_the_slots_in_a_long_run_equal_reference():
+    """60 sessions of one key in a run of 120 rows at 2 slots a key: the
+    reference's sess_ovf at 2 slots is the port's first count, and the port
+    doubles its slots until they fit and then equals the reference there."""
+    n = 120
+    step = np.full(n, 50, np.int64)
+    step[::2] = 20_000
+    ts = (1_000_000 + np.cumsum(step)).tolist()
+    active = [True] * n
+    ref_q, _ = build_pair(DDL, SQL, capacity=n, store=128, slots=2)
+    st = _store(ref_q, [])
+    args = (st, [-5] * n, ts, active, [3] * n, _count_contribs(ts, active))
+    want_ovf, none = run_post(DDL, SQL, *args, slots=2, store=128)
+    assert none is None and int(want_ovf["sess_ovf"]) == 58
+    ref_q, q = build_pair(DDL, SQL, capacity=n, store=128, slots=2)
+    q.state = state_from_numpy(st, "cpu")
+    seen = []
+    read = q._read_sess_ovf
+    q._read_sess_ovf = lambda merged: seen.append(read(merged)) or seen[-1]
+    t = torch.from_numpy
+    got = q.post_session_exchange({
+        "khash": torch.full((n,), -5), "ts": t(np.asarray(ts)), "active": torch.ones(n, dtype=torch.bool),
+        "scal": torch.tensor([max(ts), max(ts)]), "reprs": torch.full((1, n), 3),
+        "contribs": [t(c) for c in _count_contribs(ts, active)]})
+    assert seen[0] == 58 and seen[-1] == 0 and q.session_slots == 64
+    want, _q = run_post(DDL, SQL, *args, slots=64, store=128)
+    for k in want:
+        _same_bits(got[k].numpy(), np.asarray(want[k]), f"lane {k}")
+
+
 # ------------------------------------------------------------ twins alone
 def test_seg_sort_twin_equals_lexsort():
     rng = np.random.default_rng(0)

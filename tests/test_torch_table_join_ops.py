@@ -153,6 +153,38 @@ def test_upsert_side_when_every_row_upserts_leaves_the_dump_row():
     _same(got["v_D"][16], store["v_D"][16], "dump row kept")
 
 
+def _kernel_shape(shape):
+    """Side-mode batches at K9's launch shapes: one row, the one-block
+    limit (4,096 rows) and one past it (the cooperative grid), every row
+    on one slot, a deleting winner beside upserting losers, and a batch
+    whose every row upserts (the dump row keeps its values)."""
+    n = {"one_row": 1, "one_block": 4096, "grid": 4097}.get(shape, 300)
+    store, b = _side_case(40 + n, capacity=64, n=n)
+    if shape == "one_slot":
+        b.update(slots=np.full(n, 9, np.int32), touched=np.ones(n, bool))
+    elif shape == "delete_winner":
+        b.update(slots=np.full(n, 9, np.int32), touched=np.ones(n, bool), has_new=np.ones(n, bool))
+        b["has_new"][-1] = False
+    elif shape == "all_upsert":
+        b.update(slots=np.arange(n, dtype=np.int32) % 64, touched=np.ones(n, bool),
+                 has_new=np.ones(n, bool))
+    return store, b
+
+
+@pytest.mark.parametrize("shape", ["one_row", "one_block", "grid", "one_slot", "delete_winner",
+                                   "all_upsert"])
+def test_upsert_side_matches_reference_at_kernel_shapes(shape):
+    store, b = _kernel_shape(shape)
+    want = _ref_upsert_side(store, b, 64)
+    got = _port_upsert_side(store, b, 64)
+    for k in want:
+        _same(got[k], want[k], f"{shape}: {k}")
+    if shape == "delete_winner":
+        assert not got["live"][9] and got["v_L"][64] == b["v_L"][-1]
+    if shape == "all_upsert":
+        _same(got["v_D"][64], store["v_D"][64], "dump row kept")
+
+
 # ------------------------------------------------ K8 live and gather modes
 def _join_store(seed, capacity=32, n_keys=20):
     """A right store of a foreign-key join built by the reference's
