@@ -426,7 +426,7 @@ KERNEL_FUNCS = {
     "vec_hist": ("hist_count_kernel",),
     "vec_remove": ("remove_keys_kernel", "remove_claim_kernel", "remove_compact_kernel",
                    "remove_dump_kernel"),
-    "fk_fanout": ("fanout_count_kernel", "fanout_scan_kernel", "fanout_write_kernel"),
+    "fk_fanout": ("fanout_kernel",),
     "tap_residual": ("lanes_kernel", "clip_kernel"),
 }
 
@@ -439,12 +439,51 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def kernel_device_ms(torch, name, fn, reset=None, reps=REPS) -> float:
-    """Mean device time (ms) of kernel ``name``'s CUDA functions per call of
-    ``fn``, from torch.profiler over ``reps`` calls (the copies that
-    ``reset`` launches are not counted)."""
+#: the spin kernels (torch's ``_sleep``, in GPU cycles) a profiled region
+#: opens and closes with: the profiler can drop device records near
+#: either end of a trace's window (seen on the H100 for most of a trace's
+#: calls), so the timed calls run between a ~50 ms spin and two ~2 ms ones
+_LEAD_CYCLES = 100_000_000
+_FENCE_CYCLES = 4_000_000
+_FENCES = 2
+
+
+def _profiled_records(torch, fn, reset, reps, pats):
+    """One torch.profiler trace of ``reps`` calls of ``fn`` between fences
+    (a long spin kernel before them; two short ones and an event recorded
+    and synchronized after them): ``(the records of the kernel's
+    functions, their device us, whether the closing fence's records came
+    back)``."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(_LEAD_CYCLES)
+        for _ in range(reps):
+            if reset is not None:
+                reset()
+            fn()
+        for _ in range(_FENCES):
+            torch.cuda._sleep(_FENCE_CYCLES)
+        fence = torch.cuda.Event()
+        fence.record()
+        fence.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    mine = [e for e in events if any(p.search(e.name) for p in pats)]
+    spins = sorted((e for e in events if "spin_kernel" in e.name), key=lambda e: e.time_range.start)
+    # the closing fence: the two spins after the last of the timed calls
+    last = max((e.time_range.start for e in mine), default=-1)
+    fenced = sum(e.time_range.start > last for e in spins) == _FENCES
+    return len(mine), sum(e.time_range.elapsed_us() for e in mine), fenced
+
+
+def kernel_device_ms(torch, name, fn, reset=None, reps=REPS, per_call=None) -> float:
+    """Mean device time (ms) of kernel ``name``'s CUDA functions per call of
+    ``fn``, from torch.profiler over ``reps`` calls (the copies that
+    ``reset`` launches are not counted).  The trace must hold exactly
+    ``reps * per_call`` records of those functions and the fence after
+    them (``per_call`` None: the records one fenced call makes); a short
+    trace is taken again, three times in all, and one that stays short
+    fails the phase."""
     for _ in range(3):
         if reset is not None:
             reset()
@@ -453,22 +492,21 @@ def kernel_device_ms(torch, name, fn, reset=None, reps=REPS) -> float:
     # a function name not preceded by a letter or "_" (slice_fold_kernel is
     # not fold_kernel), demangled or not
     pats = [re.compile(rf"(?<![A-Za-z_]){f}") for f in KERNEL_FUNCS[name]]
-    # a trace can come back without a microsecond-long kernel's records
-    # (seen once for K14's first mode on the H100): profile again, at most
-    # three times in all
+    # a trace can come back without some of its kernels' records: the
+    # fences and the count show it, and only a whole trace is kept
     for attempt in range(1, 4):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if reset is not None:
-                    reset()
-                fn()
-            torch.cuda.synchronize()
-        total = sum(_device_us(e) for e in prof.key_averages() if any(p.search(e.key) for p in pats))
-        if total > 0:
-            break
-        print(f"[profile] {name}: trace {attempt} of 3 held no device time for its kernels")
-    require(total > 0, f"{name}: the profiler saw no device time for its kernels")
-    return total / reps / 1e3
+        records = per_call
+        if records is None:
+            records, _us, fenced = _profiled_records(torch, fn, reset, 1, pats)
+            if not fenced or records == 0:
+                print(f"[profile] {name}: calibration trace {attempt} of 3 came back short")
+                continue
+        count, total, fenced = _profiled_records(torch, fn, reset, reps, pats)
+        if fenced and count == reps * records:
+            return total / reps / 1e3
+        print(f"[profile] {name}: trace {attempt} of 3 held {count} of {reps} x {records} kernel "
+              f"records (fence {'in' if fenced else 'missing'})")
+    require(False, f"{name}: three profiler traces came back short")
 
 
 def bound(bytes_moved: float, ops: float):
@@ -583,10 +621,13 @@ def _assert_equal(torch, name, a, b, rtol=0.0):
     return 0.0
 
 
-def measure(torch, name, fn, plain, bytes_moved, ops, reset=None, library=None, plain_reps=PLAIN_REPS):
-    """One kernel record: device ms (profiler), call ms (CUDA events),
-    the twin's ms, the bound and the library yardstick's ms (or None)."""
-    ms = kernel_device_ms(torch, name, fn, reset)
+def measure(torch, name, fn, plain, bytes_moved, ops, reset=None, library=None, plain_reps=PLAIN_REPS,
+            per_call=None):
+    """One kernel record: device ms (profiler; ``per_call`` the kernel
+    records one call of ``fn`` makes, None: counted from a fenced call),
+    call ms (CUDA events), the twin's ms, the bound and the library
+    yardstick's ms (or None)."""
+    ms = kernel_device_ms(torch, name, fn, reset, per_call=per_call)
     call = time_events(torch, fn, reset)
     plain_ms = time_events(torch, plain, reset, reps=plain_reps, warmup=1)
     lib = time_events(torch, library, reset) if library is not None else None
@@ -1617,8 +1658,10 @@ PATH_KERNELS = {
     "18": _TT,
     "18g": _TT,
     # a foreign-key join, one change a step: a left change K1, K2, K8's live
-    # mode (old and new foreign key) and K9's side mode; a right change K1,
-    # K2, K9's side mode and K24's fan-out
+    # mode (one launch for the new and the old foreign key) and K9's side
+    # mode; a right change K1, K2, K9's side mode and K24's fan-out (one
+    # launch); phase_orders_enriched holds K8 live to one launch a left
+    # step and K24 to one a right step
     "19": {"row_prologue": "table", "probe_insert": None, "probe_find": "live", "table_upsert": "side",
            "fk_fanout": None},
     # push taps: the identity pipeline (standalone, per record) and the
@@ -4824,8 +4867,14 @@ def phase_table_join_kernels(torch, seed):
     done("probe_find", "live", measure(
         torch, "probe_find", lambda: hs.probe_find(*args, live=st["live"]),
         lambda: hs.probe_find_gather_plain(*args, live=st["live"]),
-        n * (8 + 1 + 1) + n * (8 + 1 + 9 * len(cols)) + reads * 18, reads * 6, plain_reps=10),
+        n * (8 + 1 + 1) + n * (8 + 1 + 9 * len(cols)) + reads * 18, reads * 6, plain_reps=10,
+        per_call=1),
         f"{n} foreign keys over {TT_STORE} slots, {found} found live, {reads} slot reads")
+    # the pair call: these keys as the new foreign keys, the same keys one
+    # row on as the old ones (a batch of left changes that move)
+    sets = live_pair_sets(torch, fk, valid)
+    rec, what = time_live_pair(torch, hs, st, TT_STORE, c["st"], sets, cols)
+    done("probe_find", "live_pair", rec, f"{n} left changes over {TT_STORE} slots: {what}")
     del c, st
 
     # ---- K24: the hottest customer's orders, and a customer with none
@@ -4855,7 +4904,7 @@ def phase_table_join_kernels(torch, seed):
         done("fk_fanout", "fanout", measure(
             torch, "fk_fanout", lambda krepr=krepr: tj.fk_fanout(st, FAN_STORE, krepr, touched, lcols),
             lambda krepr=krepr: tj.fk_fanout_plain(st, FAN_STORE, krepr, touched, lcols), fbytes, 0,
-            library=library),
+            library=library, per_call=fanout_records(tj)),
             f"{FAN_ORDERS} orders over {FAN_STORE + 1} slots, customer {cust}: {m} matches in slot order; "
             "yardstick nonzero + index_select", into=None if case == "hot" else "fk_fanout_none")
     del c, st
@@ -4895,6 +4944,53 @@ def phase_table_join_kernels(torch, seed):
     return recs, extra
 
 
+def fanout_records(tj):
+    """K24's kernel records a call: one for the single pass; None for an
+    earlier tree (timed against this one by ``scripts/torch_slice_times.py``),
+    whose count and scan launch a write only when something matches: its
+    records are counted from one fenced call."""
+    return 1 if hasattr(tj, "fanout_plan") else None
+
+
+def live_pair_sets(torch, fk, valid):
+    """A batch of left changes from foreign keys ``fk``: new keys ``fk``,
+    old keys the same column one row on, each looked up where valid."""
+    old, old_valid = torch.roll(fk, 1).contiguous(), torch.roll(valid, 1).contiguous()
+    return [(fk, valid, valid), (old, old_valid, old_valid)]
+
+
+def time_live_pair(torch, hs, st, cap, st_np, sets, cols):
+    """K8's pair call (a left change's new and old foreign key in one
+    launch) against two single twin calls, exact, then timed; an earlier
+    tree without the pair call is timed as its two single live-mode
+    calls.  Returns ``(record, what)``."""
+    if hasattr(hs, "probe_find_live_pair"):
+        def fn():
+            return hs.probe_find_live_pair(st, cap, sets, cols, st["live"])
+        per_call = 1
+    else:
+        def fn():
+            return [hs.probe_find(st, cap, *s, cols, live=st["live"]) for s in sets]
+        per_call = 2
+    got = fn()
+    want = [hs.probe_find_gather_plain(st, cap, *s, cols, live=st["live"]) for s in sets]
+    found, reads, n = 0, 0, 0
+    for k, (g, w, (fk, valid, _a)) in enumerate(zip(got, want, sets)):
+        for name in w[0]:
+            _assert_equal(torch, f"probe_find[live_pair {k}].{name}", g[0][name], w[0][name])
+        _assert_equal(torch, f"probe_find[live_pair {k}].key0", g[1], w[1])
+        _assert_equal(torch, f"probe_find[live_pair {k}].found", g[2], w[2])
+        found += int(w[2].sum())
+        reads += find_walk_keys(torch, hs, st_np, cap, fk.cpu().numpy(), valid.cpu().numpy())
+        n += fk.shape[0]
+    rec = measure(torch, "probe_find", fn,
+                  lambda: [hs.probe_find_gather_plain(st, cap, *s, cols, live=st["live"]) for s in sets],
+                  n * (8 + 1 + 1) + n * (8 + 1 + 9 * len(cols)) + reads * 18, reads * 6, plain_reps=10,
+                  per_call=per_call)
+    return rec, (f"{n} lookups in {per_call} launch{'es' if per_call > 1 else ''}, {found} found live, "
+                 f"{reads} slot reads")
+
+
 def per_record_kernels(torch, seed):
     """Phase 2x at phase 19's shapes, one change a step: K1's table mode on
     one customer key, K8's live mode on one foreign key and K9's side mode
@@ -4924,20 +5020,13 @@ def per_record_kernels(torch, seed):
         lambda: hs.table_prologue_plain(kr, kv, one, cap), 8 + 1 + 1 + 1 + 8 + 4, 30),
         f"one customer key into {cap} slots"))
     touched, khash, base = got
-    # ---- K8's live mode: the change's foreign key against the customers
-    args = (st, cap, fk, one, one, cols)
-    got = hs.probe_find(*args, live=st["live"])
-    want = hs.probe_find_gather_plain(*args, live=st["live"])
-    for k in want[0]:
-        _assert_equal(torch, f"probe_find[live, 1].{k}", got[0][k], want[0][k])
-    _assert_equal(torch, "probe_find[live, 1].found", got[2], want[2])
-    reads = find_walk_keys(torch, hs, c["st"], cap, fk.cpu().numpy(), np.ones(1, bool))
-    out.append(("probe_find", "live_per_record_1", measure(
-        torch, "probe_find", lambda: hs.probe_find(*args, live=st["live"]),
-        lambda: hs.probe_find_gather_plain(*args, live=st["live"]),
-        10 + 9 + 9 * len(cols) + reads * 18, reads * 6),
-        f"one foreign key over {cap} slots ({FK_USERS} customers), found live "
-        f"{bool(want[2][0])}, {reads} slot reads"))
+    # ---- K8's live mode: a left change's new and old foreign key against
+    # the customers (the pair call; an earlier tree's two single calls)
+    old_fk = torch.full((1,), int(rng.integers(0, FK_USERS)), dtype=torch.int64, device=dev)
+    rec, what = time_live_pair(torch, hs, st, cap, c["st"], [(fk, one, one), (old_fk, one, one)], cols)
+    out.append(("probe_find", "live_pair_per_record_1", rec,
+                f"a left change's new and old foreign key over {cap} slots ({FK_USERS} customers): "
+                f"{what}"))
     # ---- K9's side mode: the change written into the customers store
     scratch = hs.init_table_scratch(cap, dev)
     slots = hs.probe_insert(st, scratch, cap, base, khash, torch.zeros_like(khash), kr,
@@ -4993,7 +5082,8 @@ def per_record_kernels(torch, seed):
 
     out.append(("fk_fanout", "fanout_per_record", measure(
         torch, "fk_fanout", lambda: tj.fk_fanout(st, cap, krepr, one, lcols),
-        lambda: tj.fk_fanout_plain(st, cap, krepr, one, lcols), fbytes, 0, library=library),
+        lambda: tj.fk_fanout_plain(st, cap, krepr, one, lcols), fbytes, 0, library=library,
+        per_call=fanout_records(tj)),
         f"{FK_ORDERS} orders over {cap + 1} slots, the hottest customer's {m} matches; "
         "yardstick nonzero + index_select"))
     return out
@@ -5360,6 +5450,15 @@ def phase_orders_enriched(torch, plan_json, seed):
     broker = Broker()
     h = start_plan(plan_json, broker, device=DEVICE, capacity=1, table_store_capacity=FK_STORE)
     step_s: list = []
+    q = h.executor.query
+    steps = {"l": 0, "r": 0}
+    process_fk = q.process_fk
+
+    def counted(side, *a, **kw):
+        steps[side] += 1
+        return process_fk(side, *a, **kw)
+
+    q.process_fk = counted
     zero_launches()
     undo = _timed_side_batches(torch, step_s)
     t0 = time.perf_counter()
@@ -5375,7 +5474,12 @@ def phase_orders_enriched(torch, plan_json, seed):
     secs = time.perf_counter() - t0
     PATH_LAUNCHES["19"] = read_launches()
     check_path_launches("19", PATH_LAUNCHES["19"])
-    q = h.executor.query
+    # one K8 launch a left change (its new and old foreign key), one K24
+    # launch a right change
+    got_l, got_r = PATH_LAUNCHES["19"]["probe_find"]["live"], PATH_LAUNCHES["19"]["fk_fanout"]["all"]
+    require(got_l == steps["l"] and got_r == steps["r"],
+            f"19: K8 live {got_l} launches for {steps['l']} left steps, K24 {got_r} for {steps['r']} right steps")
+    del q.process_fk
     require(int(q.state["fkl"]["overflow"]) + int(q.state["fkr"]["overflow"]) == 0, "19: a store overflowed")
     recs = users + load + uchanges + ochanges
     got = join_sink(broker, "ORDERS_ENRICHED")

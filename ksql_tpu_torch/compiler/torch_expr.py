@@ -19,7 +19,12 @@ fused it on the TPU.
 
 Two of XLA's conversions are spelled out, since torch leaves them to the
 platform: a float to an integer saturates (NaN to 0), and float min/max
-let NaN win and put -0.0 below +0.0.  On the CPU, EXP, LN and SQRT take
+let NaN win and put -0.0 below +0.0.  So are three rewrites of XLA's
+algebraic simplifier that change bits: a division by a constant is a
+product with its reciprocal (the DECIMAL cast's ``/ 10^s`` too), ROUND's
+``/ 10^s`` is a product with ``10^-s``, and a product by a constant of a
+column that is itself a product by a constant multiplies the constants
+first (:attr:`DCol.scaled`).  On the CPU, EXP, LN and SQRT take
 numpy's correctly rounded results (torch's vectorized float64 kernels are
 off by one unit in the last place for some inputs); XLA's CPU exp and log
 are not correctly rounded either, so those two agree with the reference to
@@ -87,6 +92,10 @@ class DCol:
     sql_type: SqlType
     elem_valid: Optional[torch.Tensor] = None
     aux: Optional[torch.Tensor] = None
+    #: ``(base, factor)`` when ``data`` is ``base * factor`` by a constant
+    #: float64 ``factor``: XLA's simplifier folds a further product by a
+    #: constant into the factor, ``(A * c1) * c2 -> A * (c1 * c2)``
+    scaled: Optional[Tuple[torch.Tensor, float]] = None
 
     @property
     def hashed(self) -> bool:
@@ -282,14 +291,19 @@ def _folded_constant(e) -> Optional[float]:
     evaluated once per node by the compiler's own rules on a one-row CPU
     column, so a CAST rounds, saturates or nulls as it does on the card
     (a NULL result is None).  A division inside it is the IEEE quotient:
-    XLA folds the constant before any reciprocal rewrite reaches it."""
+    XLA folds the constant before any reciprocal rewrite reaches it.  A
+    DECIMAL cast or ROUND inside it is not: their rounded numerator is no
+    constant when the simplifier first sees it, so it takes the reciprocal
+    and a following product by a constant is reassociated, as in a
+    column (``CAST(7 AS DECIMAL(4, 1)) * 1.5`` is ``70 * (0.1 * 1.5)``,
+    10.500000000000002)."""
     if not _is_folded(e):
         return None
     hit = _FOLDED.get(id(e))
     if hit is not None and hit[0] is e:
         return hit[1]
     compiler = TorchExprCompiler({}, 1, "cpu")
-    compiler.folds_literals = False
+    compiler.folding = True
     col = compiler.compile(e)
     value = None
     if bool(col.valid[0]) and col.sql_type.is_numeric():
@@ -366,12 +380,13 @@ class TorchExprCompiler:
         da, db, t = _promote(a, b)
         valid = a.valid & b.valid
         op = e.op
+        scaled = None
         if op == ex.ArithOp.ADD:
             out = da + db
         elif op == ex.ArithOp.SUBTRACT:
             out = da - db
         elif op == ex.ArithOp.MULTIPLY:
-            out = da * db
+            return self._multiply(e, a, b, da, db, valid, t)
         elif op in (ex.ArithOp.DIVIDE, ex.ArithOp.MODULUS):
             decimal_op = (
                 a.sql_type.base == SqlBaseType.DECIMAL
@@ -392,13 +407,13 @@ class TorchExprCompiler:
                     if integral:
                         out = torch.div(da, safe, rounding_mode="trunc")
                     else:
-                        out = self._divide(da, safe, e.right, nonzero=True)
+                        out, scaled = self._divide(a, da, safe, e.right, nonzero=True)
                 else:
                     out = torch.fmod(da, safe)
                 valid = valid & ~zero
             elif op == ex.ArithOp.DIVIDE:
                 # IEEE: inf/nan, stays valid (Java double)
-                out = self._divide(da, db, e.right)
+                out, scaled = self._divide(a, da, db, e.right)
             else:
                 out = torch.where(
                     db != 0,
@@ -407,27 +422,58 @@ class TorchExprCompiler:
                 )
         else:  # pragma: no cover
             raise DeviceUnsupported(f"arith op {op}")
-        return DCol(out, valid, t)
+        return DCol(out, valid, t, scaled=scaled)
 
     #: whether a literal is a compile-time constant (K25's lane compiler
     #: reads literals from per-lane parameters, which are not)
     folds_literals = True
+    #: whether this compiler evaluates a constant divisor
+    #: (:func:`_folded_constant`), whose own divisions are IEEE quotients
+    folding = False
 
-    def _divide(self, x: torch.Tensor, y: torch.Tensor, divisor, nonzero=False) -> torch.Tensor:
-        """``x / y`` as the reference's jitted step computes it: XLA's
-        algebraic simplifier turns a division by a constant into a product
-        with the constant's reciprocal (``x * (1 / c)``, the reciprocal
-        rounded once in float64), which is not always the IEEE quotient.
-        The constant forms are a numeric literal, a CAST of one and a
-        negation of one (:func:`_folded_constant`); ``nonzero`` is the
-        DECIMAL branch's divisor, where a zero reads as 1."""
-        c = _folded_constant(divisor) if self.folds_literals else None
+    def _constant(self, e) -> Optional[float]:
+        """The value of ``e`` when XLA sees it as a constant, else None."""
+        return _folded_constant(e) if self.folds_literals else None
+
+    def _times(self, col: DCol, x: torch.Tensor, c: float):
+        """``x * c`` (``x`` the float64 data of ``col``) by a constant as
+        XLA's simplifier computes it: a column that is ``base * f`` by a
+        constant ``f`` becomes ``base * (f * c)``.  Returns the product
+        and its :attr:`DCol.scaled`."""
+        if col.scaled is not None and x is col.data:
+            base, f = col.scaled
+            c = float(np.float64(f) * np.float64(c))
+            return base * c, (base, c)
+        return x * c, (x, c)
+
+    def _multiply(self, e, a: DCol, b: DCol, da, db, valid, t) -> DCol:
+        """A product; by a constant (of a float column that is no constant
+        itself, or is a product by one) it is reassociated as XLA does."""
+        if da.is_floating_point():
+            for col, x, expr, other in ((a, da, e.left, e.right), (b, db, e.right, e.left)):
+                c = self._constant(other)
+                if c is not None and (col.scaled is not None or self._constant(expr) is None):
+                    out, scaled = self._times(col, x, c)
+                    return DCol(out, valid, t, scaled=scaled)
+        return DCol(da * db, valid, t)
+
+    def _divide(self, a: DCol, x: torch.Tensor, y: torch.Tensor, divisor, nonzero=False):
+        """``x / y`` (``x`` the float64 data of ``a``) as the reference's
+        jitted step computes it: XLA's algebraic simplifier turns a
+        division by a constant into a product with the constant's
+        reciprocal (``x * (1 / c)``, the reciprocal rounded once in
+        float64), which is not always the IEEE quotient, and reassociates
+        it with a product by a constant (:meth:`_times`).  The constant
+        forms are those of :func:`_folded_constant`; ``nonzero`` is the
+        DECIMAL branch's divisor, where a zero reads as 1.  Returns the
+        result and its :attr:`DCol.scaled`."""
+        c = None if self.folding else self._constant(divisor)
         if c is None:
-            return x / y
+            return x / y, None
         if nonzero and c == 0:
             c = 1.0
         with np.errstate(divide="ignore"):
-            return x * float(np.float64(1.0) / np.float64(c))
+            return self._times(a, x, float(np.float64(1.0) / np.float64(c)))
 
     def _c_ArithmeticUnary(self, e) -> DCol:
         v = self.compile(e.operand)
@@ -539,12 +585,45 @@ class TorchExprCompiler:
             valid = v.valid
             if dst == SqlBaseType.DECIMAL and e.target.scale is not None:
                 # the reference's cast raises past the precision; the card nulls
-                out, within = decimal_round(out, e.target.precision, e.target.scale)
-                valid = valid & within
-            return DCol(out, valid, e.target)
+                if not self.folds_literals:
+                    out, within = decimal_round(out, e.target.precision, e.target.scale)
+                    return DCol(out, valid & within, e.target)
+                return self._decimal_round(v, out, valid, e.target)
+            return DCol(out, valid, e.target, scaled=v.scaled if out is v.data else None)
         if route == "relabel":
             return DCol(v.data.to(torch_dtype(e.target)), v.valid, e.target)
         return DCol(temporal_cast(route, v.data.to(torch.int64)), v.valid, e.target)
+
+    def _decimal_round(self, v: DCol, x: torch.Tensor, valid, target: SqlType) -> DCol:
+        """:func:`decimal_round` as the reference's jitted step computes
+        it: ``x * 10^s`` reassociated when ``x`` is a product by a
+        constant, and the division by the constant ``10^s`` a product with
+        its reciprocal, which the result carries as :attr:`DCol.scaled`."""
+        f = 10.0 ** target.scale
+        xf, _ = self._times(v, x, f)
+        rounded = torch.where(x >= 0, torch.floor(xf + 0.5), torch.ceil(xf - 0.5))
+        out, scaled = self._times(DCol(rounded, valid, target), rounded, 1.0 / f)
+        if target.precision is not None:
+            valid = valid & (torch.abs(out) < 10.0 ** (target.precision - target.scale))
+        return DCol(out, valid, target, scaled=scaled)
+
+    def _round_to(self, v: DCol, s: DCol, s_expr) -> DCol:
+        """ROUND(v, s): ``floor(v * 10^s + 0.5) / 10^s``, whose division
+        XLA's simplifier turns into a product with ``10^-s``
+        (``A / pow(B, C) -> A * pow(B, -C)``) for any ``s``; for a
+        constant ``s`` both powers are constants, so ``v * 10^s`` and the
+        result are products by a constant (:meth:`_times`)."""
+        x = v.data.to(torch.float64)
+        c = self._constant(s_expr)
+        if c is None:
+            sd = s.data.to(torch.float64)
+            out = torch.floor(x * pow10(sd) + 0.5) * pow10(-sd)
+            return DCol(out, v.valid & s.valid, T.DOUBLE)
+        xf, _ = self._times(v, x, float(np.power(10.0, c)))
+        rounded = torch.floor(xf + 0.5)
+        out, scaled = self._times(DCol(rounded, v.valid, T.DOUBLE), rounded,
+                                  float(np.power(10.0, -c)))
+        return DCol(out, v.valid & s.valid, T.DOUBLE, scaled=scaled)
 
     # --------------------------------------------------------- conditionals
     def _c_SearchedCase(self, e) -> DCol:
@@ -579,6 +658,8 @@ class TorchExprCompiler:
         if fn is None:
             raise DeviceUnsupported(f"function {e.name} on device")
         args = [self.compile(a) for a in e.args]
+        if fn is _f_round and len(args) == 2:
+            return self._round_to(args[0], args[1], e.args[1])
         return fn(self, args)
 
 
@@ -600,7 +681,9 @@ def float_to_int(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def decimal_round(x: torch.Tensor, precision, scale: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """A CAST to DECIMAL(precision, scale) of f64 ``x``: the value rounded
     HALF_UP to ``scale``, and the mask of values within the precision
-    (all of them when ``precision`` is None)."""
+    (all of them when ``precision`` is None).  It divides by ``10^s``, as
+    K25's program and its twin do; a compiled step multiplies by the
+    reciprocal (:meth:`TorchExprCompiler._decimal_round`)."""
     f = 10.0 ** scale
     out = torch.where(x >= 0, torch.floor(x * f + 0.5), torch.ceil(x * f - 0.5)) / f
     if precision is None:
@@ -693,6 +776,14 @@ def _f_abs(c, args):
     return DCol(torch.abs(v.data), v.valid, v.sql_type)
 
 
+def pow10(s: torch.Tensor) -> torch.Tensor:
+    """``10 ** s`` over float64 ``s``: numpy's (libm's, as XLA's CPU pow)
+    on the CPU, torch's own on the card."""
+    if s.is_cuda:
+        return torch.pow(10.0, s)
+    return torch.from_numpy(np.power(10.0, s.contiguous().numpy()))
+
+
 def _f_round(c, args):
     # floor(x + 0.5): Java Math.round, -1.5 rounds UP to -1
     v = args[0]
@@ -703,10 +794,7 @@ def _f_round(c, args):
             return DCol(v.data.to(torch.int64), v.valid, T.BIGINT)
         out = torch.floor(v.data.to(torch.float64) + 0.5)
         return DCol(saturating_int(out, torch.int64), v.valid, T.BIGINT)
-    s = args[1]
-    f = torch.pow(10.0, s.data.to(torch.float64))
-    out = torch.floor(v.data.to(torch.float64) * f + 0.5) / f
-    return DCol(out, v.valid & s.valid, T.DOUBLE)
+    return c._round_to(v, args[1], None)
 
 
 def _f_floor(c, args):

@@ -55,7 +55,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "member_lanes": {"ksql_member_lanes": [
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P]},
     "probe_find": {
-        "ksql_probe_find": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
+        "ksql_probe_find": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
         "ksql_probe_find_slots": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P],
         "ksql_probe_gather": [_P, _I, _P, _I, _P, _I, _P, _P],
     },
@@ -118,10 +118,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "ksql_vec_remove_claim": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
         "ksql_vec_remove_apply": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     },
-    "fk_fanout": {
-        "ksql_fk_fanout_count": [_P, _P, _P, _I, _P, _P, _P, _P, _P],
-        "ksql_fk_fanout_write": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
-    },
+    "fk_fanout": {"ksql_fk_fanout": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P]},
     "tap_residual": {"ksql_tap_residual": [
         _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P]},
 }

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -891,6 +892,12 @@ def probe_find_gather_plain(store, capacity, krepr, kvalid, active, cols, live=N
     return out, store["key0"][s], found
 
 
+def probe_find_live_pair_plain(store, capacity, sets, cols, live):
+    """Plain twin of K8's pair call — see :func:`probe_find_live_pair`."""
+    return tuple(probe_find_gather_plain(store, capacity, krepr, kvalid, active, cols, live)
+                 for krepr, kvalid, active in sets)
+
+
 def probe_find(store: Dict[str, torch.Tensor], capacity: int, krepr: torch.Tensor,
                kvalid: torch.Tensor, active: torch.Tensor, cols: Sequence[str],
                live: Optional[torch.Tensor] = None):
@@ -900,51 +907,193 @@ def probe_find(store: Dict[str, torch.Tensor], capacity: int, krepr: torch.Tenso
     column (bool, ``capacity + 1``: the live mode, which replaces the
     ``probe_find`` and gathers of ``runtime/lowering.py:_trace_fk_left``'s
     ``right_of``) a row is found only where its slot is live: a deleted
-    key keeps its slot, whose values are still gathered.
+    key keeps its slot, whose values are still gathered.  A foreign-key
+    join's left change looks up its new and its old foreign key in one
+    launch through :func:`probe_find_live_pair`.
 
     ``krepr`` int64[n] is the key's 64-bit repr, ``kvalid`` its valid bit;
     a row is looked up when it is ``active`` with a valid key.  Returns
     ``(lanes, key0, found)``: per table column ``v_<col>`` (the store's
     value at the row's slot) and ``m_<col>`` (its valid bit AND found),
     the slot's ``key0`` repr and ``found``.  A row not found reads the
-    dump slot, as the reference does.  Every lane is a fresh tensor."""
+    dump slot, as the reference does.  Every lane is a fresh tensor: the
+    lanes of one call are views of one fresh allocation."""
     if not krepr.is_cuda:
         return probe_find_gather_plain(store, capacity, krepr, kvalid, active, cols, live)
-    n = krepr.shape[0]
+    (out,) = _launch_find(find_plan(store, capacity, cols, live), ((krepr, kvalid, active),))
+    probe_find.mode_launches["join" if live is None else "live"] += 1
+    return out
+
+
+def probe_find_live_pair(store: Dict[str, torch.Tensor], capacity: int,
+                         sets: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+                         cols: Sequence[str], live: torch.Tensor):
+    """K8's live mode for two key sets in one launch (replaces both
+    ``right_of`` calls of ``runtime/lowering.py:_trace_fk_left``, the new
+    foreign key's and the old one's: nothing writes the store between
+    them).  ``sets`` holds two ``(krepr, kvalid, active)`` triples, each as
+    :func:`probe_find` takes them; returns two ``(lanes, key0, found)``
+    triples, each what :func:`probe_find` with ``live`` returns for its
+    set."""
+    if not sets[0][0].is_cuda:
+        return probe_find_live_pair_plain(store, capacity, sets, cols, live)
+    out = _launch_find(find_plan(store, capacity, cols, live), sets)
+    probe_find.mode_launches["live"] += 1
+    return out
+
+
+class FindPlan:
+    """K8's host side for one store's buffers (join and live mode): the
+    store's arrays, checked once, and per batch length and row-set count
+    the device descriptor of ``csrc/probe_find.cu`` (the columns' store
+    arrays and element bytes, each output lane's byte offset in the call's
+    one allocation), packed once (a store's calls come from its query's
+    one thread).  ``lanes`` is the :class:`Lanes` layout of a set's output
+    lanes.  The plan holds the store's tensors weakly: a cached plan keeps
+    no store alive, and one whose tensors are gone no longer matches."""
+
+    def __init__(self, names, tensors, live, capacity, cols, lanes):
+        self.names = names
+        self.refs = [weakref.ref(t) for t in tensors]
+        self.live = None if live is None else weakref.ref(live)
+        self.ptrs = [t.data_ptr() for t in tensors[:5]] + [None if live is None else live.data_ptr()]
+        self.capacity = capacity
+        self.cols = cols
+        self.lanes = lanes
+        self.device = tensors[0].device
+        by_name = dict(zip(names, tensors))
+        self.store_words = [len(cols)]
+        for name in cols:
+            v, m = by_name[f"v_{name}"], by_name[f"m_{name}"]
+            self.store_words += [v.data_ptr(), v.element_size(), m.data_ptr()]
+        self._descs: Dict[Tuple[int, int], torch.Tensor] = {}
+
+    def matches(self, store: Dict[str, torch.Tensor], live) -> bool:
+        return (all(store[k] is r() for k, r in zip(self.names, self.refs))
+                and (live is None if self.live is None else self.live() is live))
+
+    def desc(self, n: int, copies: int) -> torch.Tensor:
+        d = self._descs.get((n, copies))
+        if d is None:
+            words = list(self.store_words)
+            for rel in self.lanes.offsets(n, copies):
+                words += [rel["key0"], rel["found"]]
+                for name in self.cols:
+                    words += [rel[f"v_{name}"], rel[f"m_{name}"]]
+            d = torch.tensor(words, dtype=torch.int64).to(self.device)
+            if len(self._descs) >= 8:
+                self._descs.clear()
+            self._descs[(n, copies)] = d
+        return d
+
+
+class Lanes:
+    """Output lanes of a kernel call as views of ONE fresh allocation: per
+    dtype, widest first, a ``(copies * len(names), rows)`` block (each
+    block starts aligned, since every block before it has elements at
+    least as wide).  ``groups`` is ``[(dtype, names)]``; the offsets of a
+    ``(rows, copies)`` shape are computed once."""
+
+    def __init__(self, groups):
+        self.groups = sorted(groups, key=lambda g: -g[0].itemsize)
+        self._shapes: Dict[Tuple[int, int], tuple] = {}
+
+    def _shape(self, rows: int, copies: int):
+        """``(allocation elements, per set each lane's byte offset, per
+        dtype (dtype, element offset, block rows, per set its names))``."""
+        shape = self._shapes.get((rows, copies))
+        if shape is None:
+            rel, blocks, off = [{} for _ in range(copies)], [], 0
+            for dt, names in self.groups:
+                k = len(names)
+                blocks.append((dt, off // dt.itemsize, copies * k,
+                               [(c * k, (c + 1) * k, names) for c in range(copies)]))
+                for c in range(copies):
+                    for j, name in enumerate(names):
+                        rel[c][name] = off + (c * k + j) * rows * dt.itemsize
+                off += copies * k * rows * dt.itemsize
+            shape = (-(-off // self.groups[0][0].itemsize), rel, blocks)
+            self._shapes[(rows, copies)] = shape
+        return shape
+
+    def offsets(self, rows: int, copies: int = 1) -> List[Dict[str, int]]:
+        """Per set, each lane's byte offset in the allocation."""
+        return self._shape(rows, copies)[1]
+
+    def alloc(self, rows: int, device, copies: int = 1) -> torch.Tensor:
+        """The allocation for ``copies`` sets of ``rows``-row lanes."""
+        return torch.empty(self._shape(rows, copies)[0], dtype=self.groups[0][0], device=device)
+
+    def views(self, buf, rows: int, m: int, copies: int = 1) -> List[Dict[str, torch.Tensor]]:
+        """Per set, the lanes of ``alloc(rows, ...)``'s ``buf`` as tensors
+        of their first ``m`` rows."""
+        out: List[Dict[str, torch.Tensor]] = [{} for _ in range(copies)]
+        for dt, at, k, sets in self._shape(rows, copies)[2]:
+            block = (buf if dt == buf.dtype else buf.view(dt)).as_strided((k, m), (rows, 1), at).unbind(0)
+            for lanes, (lo, hi, names) in zip(out, sets):
+                lanes.update(zip(names, block[lo:hi]))
+        return out
+
+
+_FIND_PLANS: Dict[tuple, FindPlan] = {}
+_FIND_PLAN_CACHE_SIZE = 64
+
+
+def find_plan(store: Dict[str, torch.Tensor], capacity: int, cols: Sequence[str],
+              live: Optional[torch.Tensor]) -> FindPlan:
+    """K8's host side for a store and the columns it gathers, built and
+    checked once per set of buffers and cached: a grow that replaces the
+    store's tensors gets a new one."""
+    key = (id(store), capacity, tuple(cols), id(live))
+    plan = _FIND_PLANS.get(key)
+    if plan is not None and plan.matches(store, live):
+        return plan
     c1 = capacity + 1
-    for name, dt in (("occ", torch.bool), ("grave", torch.bool),
-                     ("khash", torch.int64), ("wstart", torch.int64),
-                     ("key0", torch.int64)):
+    names = ["occ", "grave", "khash", "wstart", "key0"]
+    for name, dt in zip(names, (torch.bool, torch.bool, torch.int64, torch.int64, torch.int64)):
         _expect(store[name], dt, (c1,))
     if live is not None:
         _expect(live, torch.bool, (c1,))
-    _expect(krepr, torch.int64, (n,))
-    _expect(kvalid, torch.bool, (n,))
-    _expect(active, torch.bool, (n,))
-    dev = krepr.device
-    out: Dict[str, torch.Tensor] = {}
-    desc: List[int] = []
+    groups: Dict[torch.dtype, List[str]] = {torch.int64: ["key0"], torch.bool: ["found"]}
     for name in cols:
         v, m = store[f"v_{name}"], store[f"m_{name}"]
         _expect(v, v.dtype, (c1,))
         _expect(m, torch.bool, (c1,))
-        vo = torch.empty(n, dtype=v.dtype, device=dev)
-        mo = torch.empty(n, dtype=torch.bool, device=dev)
-        out[f"v_{name}"], out[f"m_{name}"] = vo, mo
-        desc += [v.data_ptr(), vo.data_ptr(), v.element_size(), m.data_ptr(), mo.data_ptr()]
-    key = torch.empty(n, dtype=torch.int64, device=dev)
-    found = torch.empty(n, dtype=torch.bool, device=dev)
-    fn = cuda.lib("probe_find", "ksql_probe_find")
-    cuda.check("probe_find", fn(
-        store["occ"].data_ptr(), store["grave"].data_ptr(),
-        store["khash"].data_ptr(), store["wstart"].data_ptr(),
-        store["key0"].data_ptr(), None if live is None else live.data_ptr(), capacity,
-        cuda.host_i64(desc), len(cols), krepr.data_ptr(), kvalid.data_ptr(),
-        active.data_ptr(), n, key.data_ptr(), found.data_ptr(), _stream(dev),
-    ))
+        groups.setdefault(v.dtype, []).append(f"v_{name}")
+        groups[torch.bool].append(f"m_{name}")
+        names += [f"v_{name}", f"m_{name}"]
+    plan = FindPlan(names, [store[k] for k in names], live, capacity, tuple(cols),
+                    Lanes(list(groups.items())))
+    if key not in _FIND_PLANS and len(_FIND_PLANS) >= _FIND_PLAN_CACHE_SIZE:
+        _FIND_PLANS.pop(next(iter(_FIND_PLANS)))
+    _FIND_PLANS[key] = plan
+    return plan
+
+
+def _launch_find(plan: FindPlan, sets) -> List[Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]]:
+    """One K8 launch (join or live mode) over one or two row sets of the
+    same length, whose lanes come from one allocation."""
+    dev = sets[0][0].device
+    n = sets[0][0].shape[0]
+    for krepr, kvalid, active in sets:
+        _expect(krepr, torch.int64, (n,))
+        _expect(kvalid, torch.bool, (n,))
+        _expect(active, torch.bool, (n,))
+    keys = [t.data_ptr() for s in sets for t in s]
+    copies = len(sets)
+    desc = plan.desc(n, copies)
+    buf = plan.lanes.alloc(n, dev, copies)
+    if copies == 1:
+        keys += [None, None, None]
+    cuda.check("probe_find", cuda.lib("probe_find", "ksql_probe_find")(
+        *plan.ptrs, plan.capacity, desc.data_ptr(), desc.shape[0], buf.data_ptr(), *keys, n, copies,
+        _stream(dev)))
     probe_find.launches += 1
-    probe_find.mode_launches["join" if live is None else "live"] += 1
-    return out, key, found
+    results = []
+    for lanes in plan.lanes.views(buf, n, n, copies):
+        key, found = lanes.pop("key0"), lanes.pop("found")
+        results.append((lanes, key, found))
+    return results
 
 
 def probe_gather_plain(store, capacity, slots, live, cols, prefix=""):

@@ -11,23 +11,25 @@ matching slots in slot order and gathers their columns, so that the chain
 runs over the matches alone (only matched lanes can emit; the sink's order
 is the host sort of the reference's ``process_fk``).
 
-The wrapper launches the CUDA kernel (``csrc/fk_fanout.cu``) for CUDA
+The wrapper launches the CUDA kernel (``csrc/fk_fanout.cu``, one
+single-pass launch a call: the scan, the order-keeping compaction and the
+gathers, with one host synchronization for the match count) for CUDA
 tensors and counts it in ``fk_fanout.launches``; for CPU tensors it runs
 the plain torch twin, :func:`fk_fanout_plain`.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from ksql_tpu_torch.ops import cuda
-from ksql_tpu_torch.ops.hash_store import _expect, _stream
+from ksql_tpu_torch.ops.hash_store import Lanes, _expect, _stream
 
-#: the kernel's block size (csrc/fk_fanout.cu kThreads): one block count
-#: per 256 slots
-_THREADS = 256
+#: the kernel's tile (csrc/fk_fanout.cu kTile): one status word a tile
+_TILE = 4096
 
 
 def fk_fanout_plain(store, capacity, krepr, touched, cols):
@@ -52,48 +54,99 @@ def fk_fanout(store: Dict[str, torch.Tensor], capacity: int, krepr: torch.Tensor
     Returns ``(slots, lanes, key0)``, each as long as the matches, in slot
     order: the int32 slots, per left column ``v_<col>`` and ``m_<col>``
     (the store's values and valid bits there) and the slots' ``key0``
-    reprs.  Reads the match count back to the host between its two
-    passes."""
+    reprs.  One single-pass launch writes them into lanes of ``capacity +
+    1`` rows of one fresh allocation, and the call synchronizes once to
+    read the match count."""
     if not krepr.is_cuda:
         return fk_fanout_plain(store, capacity, krepr, touched, cols)
-    c1 = capacity + 1
-    for name, dt in (("live", torch.bool), ("fkvalid", torch.bool), ("fkrepr", torch.int64),
-                     ("key0", torch.int64)):
-        _expect(store[name], dt, (c1,))
+    plan = fanout_plan(store, capacity, cols)
     _expect(krepr, torch.int64, (krepr.shape[0],))
     _expect(touched, torch.bool, (touched.shape[0],))
-    dev = krepr.device
-    nb = -(-c1 // _THREADS)
-    offsets = torch.empty(nb, dtype=torch.int32, device=dev)
-    total = torch.empty((), dtype=torch.int64, device=dev)
-    live, fkvalid, fkrepr = store["live"], store["fkvalid"], store["fkrepr"]
-    cuda.check("fk_fanout", cuda.lib("fk_fanout", "ksql_fk_fanout_count")(
-        live.data_ptr(), fkvalid.data_ptr(), fkrepr.data_ptr(), c1, krepr.data_ptr(),
-        touched.data_ptr(), offsets.data_ptr(), total.data_ptr(), _stream(dev),
-    ))
-    m = int(total)
-    slots = torch.empty(m, dtype=torch.int32, device=dev)
-    key = torch.empty(m, dtype=torch.int64, device=dev)
-    lanes: Dict[str, torch.Tensor] = {}
-    desc: List[int] = []
-    for name in cols:
-        v, mk = store[f"v_{name}"], store[f"m_{name}"]
-        _expect(v, v.dtype, (c1,))
-        _expect(mk, torch.bool, (c1,))
-        vo = torch.empty(m, dtype=v.dtype, device=dev)
-        mo = torch.empty(m, dtype=torch.bool, device=dev)
-        lanes[f"v_{name}"], lanes[f"m_{name}"] = vo, mo
-        desc += [v.data_ptr(), vo.data_ptr(), v.element_size(), mk.data_ptr(), mo.data_ptr()]
-    if m:
-        cuda.check("fk_fanout", cuda.lib("fk_fanout", "ksql_fk_fanout_write")(
-            live.data_ptr(), fkvalid.data_ptr(), fkrepr.data_ptr(), store["key0"].data_ptr(), c1,
-            krepr.data_ptr(), touched.data_ptr(), offsets.data_ptr(), cuda.host_i64(desc),
-            len(cols), slots.data_ptr(), key.data_ptr(), _stream(dev),
-        ))
+    buf = plan.lanes.alloc(plan.c1, krepr.device)
+    cuda.check("fk_fanout", cuda.lib("fk_fanout", "ksql_fk_fanout")(
+        *plan.ptrs, plan.c1, krepr.data_ptr(), touched.data_ptr(), plan.desc_ptr, plan.words,
+        buf.data_ptr(), *plan.scratch_ptrs, plan.host_ptr, _stream(krepr.device)))
     fk_fanout.launches += 1
+    (lanes,) = plan.lanes.views(buf, plan.c1, int(plan.host[0]))
+    slots, key = lanes.pop("slots"), lanes.pop("key0")
     return slots, lanes, key
 
 
 fk_fanout.launches = 0
+
+
+class FanoutPlan:
+    """K24's host side for one store's buffers: the store's arrays,
+    checked once; ``desc`` the device descriptor of ``csrc/fk_fanout.cu``
+    (the left columns' store arrays and element bytes, each output lane's
+    byte offset in the call's one allocation); ``scratch`` the kernel's
+    status words, ticket and done count (int64 each; the kernel leaves
+    them clean) and the device int64 it writes the match count into;
+    ``host`` the pinned int64 the count is copied to; ``lanes`` the
+    :class:`Lanes` layout of the outputs.  The plan holds the store's
+    tensors weakly: a cached plan keeps no store alive, and one whose
+    tensors are gone no longer matches."""
+
+    def __init__(self, names, tensors, c1, cols, lanes, host):
+        self.names = names
+        self.refs = [weakref.ref(t) for t in tensors]
+        self.ptrs = [t.data_ptr() for t in tensors[:4]]
+        self.c1 = c1
+        self.lanes = lanes
+        by_name = dict(zip(names, tensors))
+        rel = lanes.offsets(c1)[0]
+        words = [len(cols)]
+        for name in cols:
+            v, m = by_name[f"v_{name}"], by_name[f"m_{name}"]
+            words += [v.data_ptr(), v.element_size(), m.data_ptr()]
+        words += [rel["slots"], rel["key0"]]
+        for name in cols:
+            words += [rel[f"v_{name}"], rel[f"m_{name}"]]
+        dev = tensors[0].device
+        self.desc = torch.tensor(words, dtype=torch.int64).to(dev)
+        self.desc_ptr, self.words = self.desc.data_ptr(), len(words)
+        ntiles = -(-c1 // _TILE)
+        self.scratch = torch.zeros(ntiles + 3, dtype=torch.int64, device=dev)
+        p = self.scratch.data_ptr()
+        # status words, ticket, done count, total
+        self.scratch_ptrs = (p, p + 8 * ntiles, p + 8 * ntiles + 8, p + 8 * ntiles + 16)
+        self.host = host
+        self.host_ptr = host.data_ptr()
+
+    def matches(self, store: Dict[str, torch.Tensor]) -> bool:
+        return all(store[k] is r() for k, r in zip(self.names, self.refs))
+
+
+_FANOUT_PLANS: Dict[tuple, FanoutPlan] = {}
+_FANOUT_PLAN_CACHE_SIZE = 64
+
+
+def fanout_plan(store: Dict[str, torch.Tensor], capacity: int, cols: Sequence[str]) -> FanoutPlan:
+    """K24's host side for a store and the columns it gathers, built and
+    checked once per set of buffers and cached: a grow that replaces the
+    store's tensors gets a new one."""
+    key = (id(store), capacity, tuple(cols))
+    plan = _FANOUT_PLANS.get(key)
+    if plan is not None and plan.matches(store):
+        return plan
+    c1 = capacity + 1
+    names = ["live", "fkvalid", "fkrepr", "key0"]
+    for name, dt in zip(names, (torch.bool, torch.bool, torch.int64, torch.int64)):
+        _expect(store[name], dt, (c1,))
+    groups: Dict[torch.dtype, List[str]] = {torch.int64: ["key0"], torch.int32: ["slots"]}
+    for name in cols:
+        v, m = store[f"v_{name}"], store[f"m_{name}"]
+        _expect(v, v.dtype, (c1,))
+        _expect(m, torch.bool, (c1,))
+        groups.setdefault(v.dtype, []).append(f"v_{name}")
+        groups.setdefault(torch.bool, []).append(f"m_{name}")
+        names += [f"v_{name}", f"m_{name}"]
+    plan = FanoutPlan(names, [store[k] for k in names], c1, cols, Lanes(list(groups.items())),
+                      torch.zeros(1, dtype=torch.int64, pin_memory=True))
+    if key not in _FANOUT_PLANS and len(_FANOUT_PLANS) >= _FANOUT_PLAN_CACHE_SIZE:
+        _FANOUT_PLANS.pop(next(iter(_FANOUT_PLANS)))
+    _FANOUT_PLANS[key] = plan
+    return plan
+
 
 KERNEL_WRAPPERS = (fk_fanout,)

@@ -1985,11 +1985,12 @@ class TorchCompiledQuery:
     def _fk_left(self, a_new: Dict[str, torch.Tensor], a_old: Dict[str, torch.Tensor]):
         """One batch of LEFT-table changes (the reference's
         ``_trace_fk_left``): K1 + K2 place each change in ``fkl``; K8's live
-        mode finds the right row of the old and of the new foreign key
-        (a deleted right row is found, not live); the chain runs over the
-        joined rows; K9's side mode writes the left rows with their
-        foreign keys; a left delete tombstones only through a chain with
-        no TableFilter.  Returns ``(emits, occupancy, overflow)``."""
+        mode finds the right row of the new and of the old foreign key in
+        one launch (a deleted right row is found, not live); the chain
+        runs over the joined rows; K9's side mode writes the left rows
+        with their foreign keys; a left delete tombstones only through a
+        chain with no TableFilter.  Returns ``(emits, occupancy,
+        overflow)``."""
         n = self.capacity
         cap = self.fk_store_capacity
         fkl, fkr = self.state["fkl"], self.state["fkr"]
@@ -2001,26 +2002,24 @@ class TorchCompiledQuery:
         dev = touched.device
         fk_expr = self.fk_join.foreign_key_expression
         fk_new = TorchExprCompiler(env_new, n, dev, self.dictionary).compile(fk_expr)
-        rcols = [c.name for c in self.fk_cols["r"]]
-
-        def right_of(fk: DCol):
-            valid = fk.valid.contiguous()
-            lanes, _key0, found = hs.probe_find(fkr, cap, _repr64(fk).contiguous(), valid, valid,
-                                                rcols, live=fkr["live"])
-            return {c.name: DCol(lanes[f"v_{c.name}"], lanes[f"m_{c.name}"], c.type)
-                    for c in self.fk_cols["r"]}, found
-
-        renv_new, rok_new = right_of(fk_new)
+        env_old, act_old = self._side_env(a_old, layout, ops)
+        has_old = a_old["row_valid"]
+        fk_old = TorchExprCompiler(env_old, n, dev, self.dictionary).compile(fk_expr)
+        # the right rows of the new and the old foreign key in one K8
+        # launch: nothing writes fkr between the reference's two right_of
+        sets = [(_repr64(fk).contiguous(), valid, valid)
+                for fk, valid in ((f, f.valid.contiguous()) for f in (fk_new, fk_old))]
+        (renv_new, rok_new), (renv_old, rok_old) = [
+            ({c.name: DCol(lanes[f"v_{c.name}"], lanes[f"m_{c.name}"], c.type)
+              for c in self.fk_cols["r"]}, found)
+            for lanes, _key0, found in hs.probe_find_live_pair(
+                fkr, cap, sets, [c.name for c in self.fk_cols["r"]], fkr["live"])]
         jenv_new, jok_new = self._fk_joined(env_new, act_new & a_new["row_valid"] & ~delete,
                                             renv_new, rok_new)
         for out_key in self.fk_join.schema.key_columns:
             # the result key is the left key: valid for delete rows too
             jenv_new[out_key.name] = kcol
         fenv_new, fok_new = self._apply_ops(self.pre_ops, jenv_new, jok_new, n)
-        env_old, act_old = self._side_env(a_old, layout, ops)
-        has_old = a_old["row_valid"]
-        fk_old = TorchExprCompiler(env_old, n, dev, self.dictionary).compile(fk_expr)
-        renv_old, rok_old = right_of(fk_old)
         jenv_old, jok_old = self._fk_joined(env_old, act_old & has_old, renv_old, rok_old)
         for out_key in self.fk_join.schema.key_columns:
             jenv_old[out_key.name] = kcol

@@ -2,8 +2,9 @@
 
 The same expression trees (built with the reference's node classes, carried
 into the port through the plan JSON codec) compile over the same columns
-with both compilers; every DCol's ``data`` and ``valid`` must match exactly,
-null lanes included.  Nodes the port does not lower raise DeviceUnsupported,
+with both compilers (the reference's under ``jax.jit``, as its device step
+runs it); every DCol's ``data`` and ``valid`` must match exactly, null
+lanes included.  Nodes the port does not lower raise DeviceUnsupported,
 in the reference's words.  The casts cover every numeric and temporal pair
 the reference takes (saturating float-to-integer, wrapping integer
 narrowing, DECIMAL rounding HALF_UP and nulling past its precision, DATE and
@@ -198,11 +199,29 @@ def _port(e):
     return pex.decode(rex.encode(e))
 
 
+def _ref_jitted(ref_env, e):
+    """The reference's DCol for ``e`` as its device step computes it: the
+    compiler traced under ``jax.jit`` over the columns, so XLA's algebraic
+    simplifier sees the whole expression (ROADMAP C11, C13, C14)."""
+    types = {}
+
+    @jax.jit
+    def run(data, valid):
+        env = {k: RCol(data[k], valid[k], ref_env[k].sql_type) for k in ref_env}
+        col = JaxExprCompiler(env, N).compile(e)
+        types["t"] = col.sql_type
+        return col.data, col.valid
+
+    data, valid = run({k: v.data for k, v in ref_env.items()},
+                      {k: v.valid for k, v in ref_env.items()})
+    return RCol(data, valid, types["t"])
+
+
 @pytest.mark.parametrize("name", list(SUPPORTED))
 def test_supported_expression_matches_reference(name):
     ref_env, port_env = _envs()
     e = SUPPORTED[name]
-    want = JaxExprCompiler(ref_env, N).compile(e)
+    want = _ref_jitted(ref_env, e)
     got = TorchExprCompiler(port_env, N, "cpu").compile(_port(e))
     assert got.sql_type.base.value == want.sql_type.base.value
     wd, gd = np.asarray(want.data), got.data.numpy()

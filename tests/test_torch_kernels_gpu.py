@@ -762,6 +762,84 @@ def test_fk_fanout_matches_twin_in_slot_order(dev, case):
     assert bool((want[0][1:] > want[0][:-1]).all()) and cap not in want[0].tolist()
 
 
+#: K24's tile edges: (capacity, the slots that match; None: the hottest
+#: customer's orders of phase 2x's store), the store C + 1 slots long, never
+#: a multiple of the kernel's 1,024-slot tile
+FANOUT_EDGES = {
+    "zero": (1 << 12, ()),
+    "one_last": (1 << 12, ((1 << 12) - 1,)),
+    "tile_boundary": (1 << 12, (0, 1023, 1024, 2047, 2048, 3071, 3072, 4095)),
+    "all": (1 << 12, "all"),
+    "phase_2t": (1 << 18, None),
+}
+
+
+@pytest.mark.parametrize("case", list(FANOUT_EDGES))
+def test_fk_fanout_is_one_launch_at_tile_edges(dev, case):
+    # K24's single pass: one kernel record a call, exact against the twin,
+    # its scratch clean after every call (called twice)
+    from ksql_tpu_torch.ops import table_join as tj
+    from ksql_tpu_torch.state import state_from_numpy
+
+    cap, where = FANOUT_EDGES[case]
+    c = chip_smoke.make_fanout_case(torch, np.random.default_rng(cap), dev, capacity=cap,
+                                    orders=cap // 2)
+    cust = c["hot"]
+    if where is not None:
+        st = c["st"]
+        cust = chip_smoke.ORDER_CUSTOMERS + 7  # no stored order has it
+        idx = np.arange(cap) if where == "all" else np.array(where, np.int64)
+        st["fkrepr"][idx], st["fkvalid"][idx], st["live"][idx] = cust, True, True
+        c["store"] = state_from_numpy(st, dev)
+    st = c["store"]
+    cols = [col.name for col in c["query"].fk_cols["l"]]
+    krepr = torch.tensor([cust, 0], dtype=torch.int64, device=dev)
+    touched = torch.tensor([True, True], device=dev)
+    want = tj.fk_fanout_plain(st, cap, krepr, touched, cols)
+    plan = tj.fanout_plan(st, cap, cols)
+    for _ in range(2):
+        before = tj.fk_fanout.launches
+        got = tj.fk_fanout(st, cap, krepr, touched, cols)
+        assert tj.fk_fanout.launches == before + 1
+        _same(got[0], want[0])
+        _same(got[2], want[2])
+        for k in want[1]:
+            _same(got[1][k], want[1][k])
+        assert not bool(plan.scratch[:-1].any())  # the total aside
+    m = want[0].numel()
+    if where is None:
+        assert m > 100
+    else:
+        assert m == (cap if where == "all" else len(where))
+    kernels = _cuda_kernels(lambda: tj.fk_fanout(st, cap, krepr, touched, cols))
+    assert len(kernels) == 1 and "fanout" in kernels[0]
+
+
+@pytest.mark.parametrize("n", [1, 4096, 65_536])
+def test_probe_find_live_pair_is_one_launch_and_matches_twin(dev, n):
+    # K8's pair call: a left change's new and old foreign keys in one
+    # launch, each set exact against the twin's single call
+    rng = np.random.default_rng(n)
+    cap = 1 << 18 if n == 65_536 else 1 << 14
+    c = chip_smoke.make_fkr_case(torch, rng, dev, n=n, capacity=cap, users=min(6000, cap // 4))
+    st = c["store"]
+    cols = [col.name for col in c["query"].fk_cols["r"]]
+    old = torch.roll(c["fk"], 1).contiguous()
+    old_valid = torch.roll(c["valid"], 1).contiguous()
+    sets = [(c["fk"], c["valid"], c["valid"]), (old, old_valid, old_valid)]
+    before = dict(hs.probe_find.mode_launches)
+    got = hs.probe_find_live_pair(st, cap, sets, cols, st["live"])
+    assert hs.probe_find.mode_launches["live"] == before["live"] + 1
+    want = hs.probe_find_live_pair_plain(st, cap, sets, cols, st["live"])
+    for g, w in zip(got, want):
+        _same(g[1], w[1])
+        _same(g[2], w[2])
+        for k in w[0]:
+            _same(g[0][k], w[0][k])
+    kernels = _cuda_kernels(lambda: hs.probe_find_live_pair(st, cap, sets, cols, st["live"]))
+    assert len(kernels) == 1 and "probe_find" in kernels[0]
+
+
 @pytest.mark.parametrize("lanes,rows", [(256, 4096), (3, 1000), (40, 257)])
 def test_tap_residual_matches_twin(dev, lanes, rows):
     from ksql_tpu_torch.ops import tap_residual as tr

@@ -388,6 +388,115 @@ def test_division_by_a_constant_is_the_references_reciprocal_product():
     assert want[0].row["Y25"] == got[0].row["Y25"] == 956 / 20.0
 
 
+#: ROADMAP C14: forms whose reference bits come from three rewrites of XLA's
+#: algebraic simplifier (the HLO of the reference's step on the CPU): the
+#: DECIMAL cast's ``/ 10^s`` becomes a product with the reciprocal, ROUND's
+#: ``/ pow(10, s)`` a product with ``pow(10, -s)`` (for a column ``s`` too),
+#: and a product by a constant of a product by a constant multiplies the
+#: constants first (``CAST(D AS DECIMAL(10, 1)) * 1.5`` is ``floor(..) *
+#: (0.1 * 1.5)``), inside a fully constant divisor as well
+ROUNDING_FORMS = {
+    "round": ["ROUND(D, 0)", "ROUND(D, 1)", "ROUND(D, 2)", "ROUND(D, 3)", "ROUND(D, -1)",
+              "ROUND(D, -2)", "ROUND(D, S)", "ROUND(D, 1) * 1.5", "ROUND(D, 2) / 3.0",
+              "ROUND(D, S) * 1.5", "ROUND(D * 1.1, 1)", "ROUND(D * 1.1, S)", "D * 1.1 * 1.3"],
+    "decimal_cast": ["CAST(D AS DECIMAL(10, 1))", "CAST(D AS DECIMAL(10, 2))",
+                     "CAST(D AS DECIMAL(12, 3))", "CAST(D AS DECIMAL(10, 1)) * 1.5",
+                     "1.5 * CAST(D AS DECIMAL(10, 1))", "CAST(D AS DECIMAL(10, 1)) * 1.5 * 1.1",
+                     "CAST(D AS DECIMAL(10, 1)) + CAST(D AS DECIMAL(10, 2))",
+                     "CAST(D AS DECIMAL(10, 1)) / CAST(D AS DECIMAL(10, 2))",
+                     "CAST(D AS DECIMAL(10, 1)) / 3.0",
+                     "CAST(D AS DECIMAL(10, 1)) / CAST(3 AS DECIMAL(4, 1))",
+                     "CAST(D * 1.1 AS DECIMAL(10, 1))",
+                     "CAST(CAST(D AS DECIMAL(10, 1)) AS DOUBLE) * 1.5"],
+    "constant_divisor": ["CAST(X AS DOUBLE) / (CAST(7 AS DECIMAL(4, 1)) * 1.5)",
+                         "CAST(X AS DOUBLE) / CAST(7.7 AS DECIMAL(4, 1))",
+                         "CAST(X AS DOUBLE) / ROUND(2.35, 1)",
+                         "CAST(X AS DOUBLE) / (ROUND(2.35, 1) * 1.5)",
+                         "CAST(X AS DECIMAL(10, 2)) / CAST(3 AS DECIMAL(4, 1))"],
+}
+
+
+def _both_steps(forms, rows):
+    """The reference's and the port's compiled step over ``rows``: the
+    emitted rows of ``SELECT <forms> FROM V``."""
+    ddl = "CREATE STREAM V (X BIGINT, D DOUBLE, S INT) WITH (kafka_topic='v', value_format='JSON');"
+    sel = ", ".join(f"{f} AS Y{k}" for k, f in enumerate(forms))
+    engine, plan = plan_of([ddl], f"CREATE STREAM Q AS SELECT {sel} FROM V;")
+    n = len(rows)
+    ref_q = CompiledDeviceQuery(plan, engine.registry, capacity=n, store_capacity=16)
+    port_q = TorchCompiledQuery(plan_from_json(plan_to_json(plan)), capacity=n, store_capacity=16,
+                                device="cpu")
+    schema = ref_q.source.schema
+    ts = [0] * n
+    want = ref_q.process_arrays(ref_q.layout.encode(RHostBatch.from_rows(schema, rows, timestamps=ts)))
+    got = port_q.process_arrays(port_q.layout.encode(PHostBatch.from_rows(_pschema(schema), rows,
+                                                                          timestamps=ts)))
+    return [r.row for r in want], [r.row for r in got]
+
+
+@pytest.mark.parametrize("group", list(ROUNDING_FORMS))
+def test_rounding_divisions_are_the_references_products(group):
+    """ROADMAP C14: ROUND and the DECIMAL cast, alone, under a product or
+    a quotient by a constant, and inside a constant divisor, give the
+    reference's compiled step's bits in the port's compiled step, over 256
+    seeded rows (values of one to three places, the smallest cases of
+    C14 first, and a scale column S from -2 to 3)."""
+    rng = np.random.default_rng(14)
+    n = 256
+    ds = [2.35, 90.1, 2.85, 1.005, -2.35, 123.456, 0.15, 2.675, -90.1, 0.0, -0.0, 1.5, -2.5]
+    ds += [round(float(u), int(k)) for u, k in zip(rng.uniform(-1000, 1000, n - len(ds)),
+                                                   rng.integers(1, 4, n - len(ds)))]
+    rows = [{"X": int(rng.integers(-10**6, 10**6)), "D": d, "S": int(rng.integers(-2, 4))}
+            for d in ds]
+    want, got = _both_steps(ROUNDING_FORMS[group], rows)
+    assert len(want) == n
+    assert [repr(r) for r in got] == [repr(r) for r in want]
+    if group == "round":
+        assert want[0]["Y1"] == 24 * 0.1 == 2.4000000000000004 != 24 / 10
+    elif group == "decimal_cast":
+        # 90.1 -> 901 * (0.1 * 1.5) = 135.15000000000003, which rounds up;
+        # the quotient's 901 / 10 * 1.5 = 135.14999999999998 rounds down
+        assert str(want[1]["Y3"]) == "135.2" and 901 / 10 * 1.5 < 135.15
+    else:
+        c = 70 * (0.1 * 1.5)
+        assert c == 10.500000000000002
+        assert want[0]["Y0"] == rows[0]["X"] * float(np.float64(1.0) / np.float64(c))
+
+
+def _rounding_rows(n=64):
+    rng = np.random.default_rng(15)
+    return [{"X": int(x), "D": float(d), "S": 1}
+            for x, d in zip(rng.integers(-10**6, 10**6, n), rng.uniform(-1000, 1000, n))]
+
+
+def test_a_rounded_constant_divisor_is_program_dependent_in_the_reference():
+    """ROADMAP C14's one open case: the reference folds a fully constant
+    ROUND divisor by XLA's pass order, which depends on the rest of the
+    program.  ROUND(10.37, 1) is floor(104.2) * 10^-1 = 10.4.  Alone, the
+    step multiplies CAST(X AS DOUBLE) by (1 / 104) * (1 / 0.1) =
+    0.09615384615384616 (the divisor's product taken apart); beside
+    D / ROUND(10.37, 1) the same expression multiplies by 1 / 10.4 =
+    0.09615384615384615 and D takes the other constant.  The port folds
+    the divisor whole (ROADMAP C13) and multiplies by 1 / 10.4 in both
+    programs: the second program's bits, not the first's."""
+    rows = _rounding_rows()
+    split = float(np.float64(1.0) / np.float64(104.0) * (np.float64(1.0) / np.float64(0.1)))
+    whole = float(np.float64(1.0) / np.float64(10.4))
+    assert split == 0.09615384615384616 and whole == 0.09615384615384615
+    alone_ref, alone_port = _both_steps(["CAST(X AS DOUBLE) / ROUND(10.37, 1)"], rows)
+    pair_ref, pair_port = _both_steps(["D / ROUND(10.37, 1)", "CAST(X AS DOUBLE) / ROUND(10.37, 1)"],
+                                      rows)
+    xs = [r["X"] for r in rows]
+    assert [r["Y0"] for r in alone_ref] == [x * split for x in xs]
+    assert [r["Y1"] for r in pair_ref] == [x * whole for x in xs]
+    assert [r["Y0"] for r in pair_ref] == [r["D"] * split for r in rows]
+    # the reference disagrees with itself on the same expression
+    assert any(a["Y0"] != b["Y1"] for a, b in zip(alone_ref, pair_ref))
+    # the port gives the second program's bits in both
+    assert [r["Y0"] for r in alone_port] == [r["Y1"] for r in pair_port] == [x * whole for x in xs]
+    assert [r["Y1"] for r in pair_port] == [r["Y1"] for r in pair_ref]
+
+
 def test_a_folded_divisor_is_evaluated_once_per_node(monkeypatch):
     """The lowering compiles its expressions every batch; a constant
     divisor's value is evaluated the first time its node is seen and then

@@ -232,6 +232,47 @@ def test_live_probe_matches_reference(seed):
     assert ((np.asarray(rslots) != cap) & fkv & ~np.asarray(rfound)).any()
 
 
+@pytest.mark.parametrize("n", [1, 40, 4096])
+def test_live_pair_matches_two_single_calls_and_the_reference(n):
+    """K8's pair call (a left change's new and old foreign key in one
+    launch) against two single live-mode calls and the reference's two
+    ``right_of`` lookups, bit for bit: rows not looked up, keys not found,
+    deleted (found, not live) right rows."""
+    st, keys, rng = _join_store(n + 3, capacity=64, n_keys=40)
+    cap = 64
+    tst = _torch(st)
+    names = [name for name, _dt, _t in COLS]
+    sets = []
+    for _ in range(2):
+        fk = np.where(rng.random(n) < 0.7, rng.choice(keys, n), rng.integers(-80, 80, n))
+        fkv = rng.random(n) < 0.85
+        sets.append((fk.astype(np.int64), fkv))
+    tsets = [(torch.from_numpy(fk), torch.from_numpy(fkv), torch.from_numpy(fkv)) for fk, fkv in sets]
+    got = hs.probe_find_live_pair(tst, cap, tsets, names, tst["live"])
+    jst = {k: jnp.asarray(v) for k, v in st.items()}
+    seen_deleted = seen_missing = seen_skipped = False
+    for (fk, fkv), tset, (lanes, key0, found) in zip(sets, tsets, got):
+        one = hs.probe_find(tst, cap, *tset, names, live=tst["live"])
+        _same(found.numpy(), one[2].numpy(), "found")
+        _same(key0.numpy(), one[1].numpy(), "key0")
+        rslots = rhs.probe_find(jst, cap, rhs.combine_hash([jnp.asarray(fk)]),
+                                jnp.zeros(n, jnp.int64), jnp.asarray(fkv))
+        rfound = jnp.asarray(fkv) & (rslots != cap) & jst["live"][rslots]
+        _same(found.numpy(), np.asarray(rfound), "found")
+        _same(key0.numpy(), np.asarray(jst["key0"][rslots]), "key0")
+        for name in names:
+            _same(lanes[f"v_{name}"].numpy(), one[0][f"v_{name}"].numpy(), name)
+            _same(lanes[f"m_{name}"].numpy(), one[0][f"m_{name}"].numpy(), name)
+            _same(lanes[f"v_{name}"].numpy(), np.asarray(jst[f"v_{name}"][rslots]), name)
+            _same(lanes[f"m_{name}"].numpy(), np.asarray(jst[f"m_{name}"][rslots] & rfound), name)
+        rs = np.asarray(rslots)
+        seen_deleted |= bool(((rs != cap) & fkv & ~np.asarray(rfound)).any())
+        seen_missing |= bool(((rs == cap) & fkv).any())
+        seen_skipped |= bool((~fkv).any())
+    if n > 1:
+        assert seen_deleted and seen_missing and seen_skipped
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_gather_mode_matches_tt_joined_env(seed):
     rng = np.random.default_rng(seed + 10)
@@ -251,10 +292,16 @@ def test_gather_mode_matches_tt_joined_env(seed):
 
 
 # --------------------------------------------------------------- K24
-@pytest.mark.parametrize("case", ["hot", "none", "untouched", "dump"])
+#: K24's cases past one tile of its kernel (1,024 slots): a store of
+#: 2,049 slots (not a multiple of the tile) with a match on the last real
+#: slot, or with every slot of its second tile matching
+FANOUT_TILE_CASES = ("last_slot", "tile_full")
+
+
+@pytest.mark.parametrize("case", ["hot", "none", "untouched", "dump", *FANOUT_TILE_CASES])
 def test_fk_fanout_matches_the_reference_scan(case):
     rng = np.random.default_rng(7)
-    cap = 64
+    cap = 2048 if case in FANOUT_TILE_CASES else 64
     st = _store(rng, cap)
     st["key0"] = rng.integers(-(2 ** 40), 2 ** 40, cap + 1).astype(np.int64)
     st["fkrepr"] = rng.integers(0, 4, cap + 1).astype(np.int64)
@@ -262,6 +309,11 @@ def test_fk_fanout_matches_the_reference_scan(case):
     touched = np.array([case != "untouched", True])
     if case == "none":
         krepr[0] = 17
+    if case == "last_slot":
+        st["fkrepr"][st["fkrepr"] == 2] = 3
+        st["fkrepr"][[5, cap - 1]], st["fkvalid"][[5, cap - 1]], st["live"][[5, cap - 1]] = 2, True, True
+    if case == "tile_full":
+        st["fkrepr"][1024:2048], st["fkvalid"][1024:2048], st["live"][1024:2048] = 2, True, True
     st["live"][cap] = False  # the reference's dump row is never live
     if case == "dump":
         st["fkrepr"][cap], st["fkvalid"][cap] = 2, True
@@ -276,4 +328,8 @@ def test_fk_fanout_matches_the_reference_scan(case):
     for name in names:
         _same(lanes[f"v_{name}"].numpy(), np.asarray(jst[f"v_{name}"])[idx], name)
         _same(lanes[f"m_{name}"].numpy(), np.asarray(jst[f"m_{name}"] & match)[idx], name)
-    assert (idx.size > 0) == (case in ("hot", "dump")) and cap not in idx
+    assert (idx.size > 0) == (case not in ("none", "untouched")) and cap not in idx
+    if case == "last_slot":
+        assert idx.tolist() == [5, cap - 1]
+    if case == "tile_full":
+        assert set(range(1024, 2048)) <= set(idx.tolist())
