@@ -409,10 +409,10 @@ KERNEL_FUNCS = {
     "member_lanes": ("lane_claim_kernel", "lane_winner_kernel"),
     "probe_find": ("probe_find_kernel", "find_slots_kernel", "gather_kernel"),
     "table_upsert": ("upsert_block_kernel", "upsert_grid_kernel"),
-    "ss_match": ("match_count_kernel", "match_scan_kernel", "match_write_kernel"),
+    "ss_match": ("tile_count_kernel", "tile_write_kernel"),
     "ss_insert": ("insert_prologue_kernel", "insert_write_kernel"),
     "ss_expire": ("expire_kernel",),
-    "seg_sort": ("tile_sort_kernel", "merge_pass_kernel"),
+    "seg_sort": ("block_sort_kernel", "merge_pass_kernel"),
     "session_items": ("prologue_kernel", "first_kernel", "items_kernel"),
     "session_merge": ("permute_kernel", "merge_kernel"),
     "session_write": ("delete_kernel", "write_kernel", "dump_kernel"),
@@ -1441,6 +1441,56 @@ def _ss_calls(torch, c, oc, plain=False):
     return count, write, prologue, insert, expire
 
 
+def check_ss_match(torch, kc, pc, oc):
+    """K10's count and write on phase 2s's calls over case copies ``kc``
+    (the wrappers) and ``pc`` (the twins): exact, the write's lanes and
+    the ring's matched bits included, then each timed against its twin at
+    the function's bytes and ops.  Leaves each copy's ring as one write
+    leaves it.  Returns ``(count, twin's count, {mode: record}, info)``."""
+    k_calls, p_calls = _ss_calls(torch, kc, oc), _ss_calls(torch, pc, oc, plain=True)
+    got = k_calls[0]()
+    want = p_calls[0]()
+    for nm, g, w in zip(("cnt", "row_matched", "offsets", "total"), got, want):
+        _assert_equal(torch, f"ss_match[count].{nm}", g, w)
+    n, b1 = kc["rows"]["ts"].shape[0], kc["ring_r"]["ts"].shape[0]
+    total = int(want[3])
+    info = {"total": total, "rows_hit": int(want[1].sum()),
+            "look": int((kc["rows"]["active"] & kc["rows"]["kvalid"]).sum()),
+            "live": int((kc["ring_r"]["live"] & kc["ring_r"]["kval"]).sum())}
+    require(0 < total < oc, f"ss_match: {total} matches")
+    snap = kc["ring_r"]["matched"].clone()
+    lanes_k = k_calls[1](got)
+    lanes_p = p_calls[1](want)
+    _assert_tree(torch, "ss_match[write]", lanes_k, lanes_p)
+    _assert_equal(torch, "ss_match[write].matched", kc["ring_r"]["matched"], pc["ring_r"]["matched"])
+    # the function's own work, as an index by key would do it: one key test
+    # a row and an entry, a window test and a count a match (8 ops each)
+    ops = (n + b1 + total) * 8
+    # each input read once, each output written once: the rows' key, valid,
+    # active and ts and the ring's match fields (18 B an entry); the count
+    # writes cnt, row_matched, offsets and the total; the write also reads
+    # the rows' offsets and counts and each match's entry, and writes oc
+    # lanes of mi, mj, ts, ord_b, mvalid and the columns (data + valid)
+    width = sum(d.element_size() + 1 for d, _v in kc["row_cols"][:1] + kc["row_cols"] + kc["cols_r"])
+    recs = {"count": dict(measure(torch, "ss_match", k_calls[0], p_calls[0],
+                                  n * (8 + 1 + 1 + 8) + b1 * 18 + n * (8 + 1 + 8) + 8, ops),
+                          max_abs_err=0.0)}
+
+    def reset():
+        for c in (kc, pc):
+            c["ring_r"]["matched"].copy_(snap)
+
+    recs["write"] = dict(measure(
+        torch, "ss_match", lambda: k_calls[1](got), lambda: p_calls[1](want),
+        n * (8 + 1 + 1 + 8 + 8 + 8) + b1 * 18 + total * (8 + 1) + oc * (4 + 4 + 8 + 8 + 1 + width), ops,
+        reset=reset), max_abs_err=0.0)
+    # the timing runs reset both copies: write them once more
+    reset()
+    k_calls[1](got)
+    p_calls[1](want)
+    return got, want, recs, info
+
+
 def phase_ss_kernels(torch, seed, ring=SS_RING, n=SS_ROWS):
     """BASELINE #4's kernels against their twins at its shapes: a
     2,048-row left batch (5% null keys, 2% late rows, 16 padding rows)
@@ -1457,26 +1507,14 @@ def phase_ss_kernels(torch, seed, ring=SS_RING, n=SS_ROWS):
     kc, pc = _clone_case(base), _clone_case(base)
     k_calls, p_calls = _ss_calls(torch, kc, oc), _ss_calls(torch, pc, oc, plain=True)
 
-    # ---- K10 count (count + scan launches)
-    got = k_calls[0]()
-    want = p_calls[0]()
-    for nm, g, w in zip(("cnt", "row_matched", "offsets", "total"), got, want):
-        _assert_equal(torch, f"ss_match[count].{nm}", g, w)
-    total = int(want[3])
-    rows_hit = int(want[1].sum())
-    look = int((base["rows"]["active"] & base["rows"]["kvalid"]).sum())
-    live = int((base["ring_r"]["live"] & base["ring_r"]["kval"]).sum())
-    require(0 < total < oc and live < b1, f"ss_match: {total} matches, {live} live entries")
-    # the function's own work, as an index by key would do it: one key test
-    # a row and an entry, a window test and a count a match (8 ops each)
-    ops = (n + b1 + total) * 8
-    # reads the rows' key, valid, active and ts and the ring's match fields
-    # (18 B an entry) once; writes cnt, row_matched, offsets and the total
-    rec = measure(torch, "ss_match", k_calls[0], p_calls[0],
-                  n * (8 + 1 + 1 + 8) + b1 * 18 + n * (8 + 1 + 8) + 8, ops)
-    recs["ss_match"] = {"count": dict(rec, max_abs_err=0.0)}
-    _report("2s", f"ss_match[count] ({total} matches of {look} rows x {b1} entries, "
-            f"{live} live entries; no single PyTorch call computes it)", recs["ss_match"]["count"])
+    # ---- K10 count and write (each on its own copy of the right ring)
+    got, want, recs["ss_match"], info = check_ss_match(torch, kc, pc, oc)
+    total, rows_hit = info["total"], info["rows_hit"]
+    for mode, what in (("count", f"{total} matches of {info['look']} rows x {b1} entries, {info['live']} "
+                                 "live entries; no single PyTorch call computes it"),
+                       ("write", f"{total} matches into {oc} lanes, {rows_hit} rows walked; no single "
+                                 "PyTorch call")):
+        _report("2s", f"ss_match[{mode}] ({what})", recs["ss_match"][mode])
 
     # ---- K11 prologue
     pro_k = k_calls[2](got)
@@ -1491,24 +1529,8 @@ def phase_ss_kernels(torch, seed, ring=SS_RING, n=SS_ROWS):
     _report("2s", f"ss_insert[prologue] ({admitted} of {n - SS_PAD} rows admitted, {n_pad} pads on "
             "arrival; no single PyTorch call)", recs["ss_insert"]["prologue"])
 
-    # ---- K10 write, then K11 write (each on its own copy of the rings)
+    # ---- K11 write
     snap_k, snap_p = _clone_case(kc), _clone_case(pc)
-    lanes_k = k_calls[1](got)
-    lanes_p = p_calls[1](want)
-    _assert_tree(torch, "ss_match[write]", lanes_k, lanes_p)
-    _assert_equal(torch, "ss_match[write].matched", kc["ring_r"]["matched"], pc["ring_r"]["matched"])
-    width = 3 * 9 + 9  # own columns (L_ID, L_V, the key) and R_V, data + valid
-    rec = measure(torch, "ss_match", lambda: k_calls[1](got), lambda: p_calls[1](want),
-                  n * (8 + 1 + 1 + 8 + 8 + 8) + b1 * 18 + total * (8 + 1) + oc * (4 + 4 + 8 + 8 + 1 + width),
-                  ops, reset=lambda: [c["ring_r"]["matched"].copy_(snap["ring_r"]["matched"])
-                                                    for c, snap in ((kc, snap_k), (pc, snap_p))])
-    recs["ss_match"]["write"] = dict(rec, max_abs_err=0.0)
-    # the timing runs reset both copies: write them once more
-    k_calls[1](got)
-    p_calls[1](want)
-    _report("2s", f"ss_match[write] ({total} matches into {oc} lanes, {rows_hit} rows walked; "
-            "no single PyTorch call)", recs["ss_match"]["write"])
-
     k_calls[3](got, pro_k)
     p_calls[3](want, pro_p)
     for k in ("ring_l", "cols_l", "cursor_l", "max_ts", "smax_l"):

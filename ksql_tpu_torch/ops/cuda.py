@@ -65,10 +65,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "ss_match": {
         "ksql_ss_match_count": [
-            _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+            _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
         "ksql_ss_match_write": [
-            _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I,
-            _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
+            _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I,
+            _P, _I, _P, _I, _P, _P],
     },
     "ss_insert": {
         "ksql_ss_insert_prologue": [

@@ -18,7 +18,10 @@ session mode (``hash_store.session_prologue``) and K2 (``probe_insert``,
 reused as it is):
 
 * K13 ``seg_sort``: a stable sort of int64 key pairs, ties by index (the
-  order of ``jnp.lexsort((k2, k1))``), as an int32 permutation.
+  order of ``jnp.lexsort((k2, k1))``), as an int32 permutation: one
+  block in one launch up to 8,192 items (the session rows, every vector
+  order), block-sorted 2,048-item tiles and merge passes past it (the
+  session items).
 * K14 ``session_items``: :func:`session_prologue` (the running late-drop
   clock and the batch's stream time), :func:`session_first` (the first
   active row of each key, from K13's order of the rows) and
@@ -79,6 +82,11 @@ Items = Dict[str, object]
 
 
 # ------------------------------------------------------------ K13: seg_sort
+#: the most items K13 sorts in one block, with no scratch (csrc/seg_sort.cu
+#: kBlockMax): keys and two index buffers in 196,608 bytes of shared memory
+SEG_SORT_BLOCK_MAX = 8192
+
+
 def seg_sort_plain(k1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
     """Plain twin of K13 — see :func:`seg_sort`."""
     order = torch.argsort(k2, stable=True)
@@ -90,20 +98,22 @@ def seg_sort(k1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
     """K13 (replaces the two ``jnp.lexsort`` calls of ``runtime/lowering.py:
     post_session_exchange``): the permutation that sorts items by signed
     int64 ``k1``, then ``k2``, then item index (``jnp.lexsort((k2, k1))``
-    is stable), as int32."""
+    is stable), as int32.  Up to ``SEG_SORT_BLOCK_MAX`` items one block
+    sorts them in one launch; past it blocks sort 2,048-item tiles and
+    merge passes join them, in scratch of 40 bytes an item."""
     if not k1.is_cuda:
         return seg_sort_plain(k1, k2)
     n = k1.shape[0]
     _expect(k1, torch.int64, (n,))
     _expect(k2, torch.int64, (n,))
-    if n >= 1 << 31:
-        raise ValueError("seg_sort sorts fewer than 2^31 items")
+    if n > (1 << 31) - SEG_SORT_BLOCK_MAX:
+        raise ValueError("seg_sort sorts fewer than 2^31 - 8,192 items")
     perm = torch.empty(n, dtype=torch.int32, device=k1.device)
     # two ping-pong buffers of (k1, k2, index): 20 bytes an item each
-    work = torch.empty(5 * max(n, 1), dtype=torch.int64, device=k1.device)
+    work = torch.empty(5 * n, dtype=torch.int64, device=k1.device) if n > SEG_SORT_BLOCK_MAX else None
     fn = cuda.lib("seg_sort")
     cuda.check("seg_sort", fn(k1.data_ptr(), k2.data_ptr(), n, perm.data_ptr(),
-                              work.data_ptr(), _stream(k1.device)))
+                              None if work is None else work.data_ptr(), _stream(k1.device)))
     seg_sort.launches += 1
     return perm
 

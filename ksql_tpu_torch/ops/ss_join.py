@@ -14,10 +14,12 @@ ring is a dict of tensors (``RING_FIELDS`` plus the buffered columns):
 Three hand-written CUDA kernels (``csrc/``) carry the work:
 
 * K10 ``ss_match``: :func:`ss_match_count` counts each incoming row's
-  matches in the opposite ring and scans the counts (two launches, no
+  matches in the opposite ring, tile by tile of the ring in shared
+  memory, and scans the counts in the same launch (its last block; no
   state written); :func:`ss_match` writes the k-th match in row-major
-  (row, entry) order to output lane ``k`` with its gathers, and marks the
-  matched opposite entries.
+  (row, entry) order to output lane ``k`` with its gathers, re-testing
+  only the (row tile, ring tile) pairs the count found matches in, and
+  marks the matched opposite entries.
 * K11 ``ss_insert``: :func:`ss_insert_prologue` computes the pads, the
   admissions, the target entries and the overwrite loss (one launch, no
   state written); :func:`ss_insert` writes the admitted rows into the
@@ -37,13 +39,14 @@ also the kernel's oracle on the card.  Every int64 sum wraps, as XLA's.
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from ksql_tpu_torch.compiler.torch_expr import decode_key64
 from ksql_tpu_torch.ops import cuda
-from ksql_tpu_torch.ops.hash_store import _expect, _stream
+from ksql_tpu_torch.ops.hash_store import Lanes, _expect, _stream
 
 INT64_MIN = -(1 << 63)
 #: ``ord_b`` of a right-ring entry in the expiry's order (left entries first)
@@ -90,6 +93,29 @@ def ss_match_count_plain(side, krepr, kvalid, active, ts, ring: Ring, before, af
     return cnt, cnt > 0, torch.cumsum(cnt, 0) - cnt, cnt.sum()
 
 
+class MatchCount(tuple):
+    """K10's count on the card: the tuple ``(cnt, row_matched, offsets,
+    total)`` of :func:`ss_match_count_plain`, and beside it ``tcnt``, the
+    int32 match counts per (ring chunk, row) (chunk-major, ``chunks x n``)
+    and the ``span`` of kernel tiles a chunk holds, which the write reads:
+    all of it views of one allocation."""
+
+    def __new__(cls, items, tcnt: torch.Tensor, span: int):
+        self = super().__new__(cls, items)
+        self.tcnt = tcnt
+        self.span = span
+        return self
+
+
+def _chunks(b1: int) -> Tuple[int, int]:
+    """K10's ring chunks for a ring of ``b1`` entries: ``(span, chunks)``,
+    a chunk ``span`` kernel tiles of _TILE entries, span 1 until the ring
+    passes _MAX_CHUNKS tiles."""
+    tiles = -(-b1 // _TILE)
+    span = -(-tiles // _MAX_CHUNKS)
+    return span, -(-b1 // (_TILE * span))
+
+
 def ss_match_count(side: str, krepr: torch.Tensor, kvalid: torch.Tensor, active: torch.Tensor,
                    ts: torch.Tensor, ring: Ring, before: int, after: int):
     """K10, count mode (replaces the n x (B+1) mask, its sum and its
@@ -98,28 +124,33 @@ def ss_match_count(side: str, krepr: torch.Tensor, kvalid: torch.Tensor, active:
     opposite ``ring`` it joins: active row with a valid key, live entry
     with a valid key, equal key reprs, entry inside the row's WITHIN window.
     Returns ``(cnt, row_matched, offsets, total)``: int64 matches per row,
-    ``cnt > 0``, their exclusive prefix sum and the 0-d total.  Writes no
+    ``cnt > 0``, their exclusive prefix sum and the 0-d total (on the card
+    a :class:`MatchCount`, which also carries the per-chunk counts the
+    write reads).  One launch: blocks test 256 rows each against a ring
+    tile in shared memory, and the last block sums and scans.  Writes no
     state."""
     if not krepr.is_cuda:
         return ss_match_count_plain(side, krepr, kvalid, active, ts, ring, before, after)
     n = krepr.shape[0]
-    b1 = _check_ring(ring, ("ts", "krepr", "kval", "live"))
+    plan = ring_plan(ring)
     _check_rows(n, krepr=krepr, ts=ts, kvalid=kvalid, active=active)
-    dev = krepr.device
-    cnt = torch.empty(n, dtype=torch.int64, device=dev)
-    row_matched = torch.empty(n, dtype=torch.bool, device=dev)
-    offsets = torch.empty(n, dtype=torch.int64, device=dev)
-    total = torch.empty((), dtype=torch.int64, device=dev)
+    span, chunks = _chunks(plan.b1)
+    # one allocation: cnt, offsets, total (int64), tcnt (int32), row_matched
+    tw = -(-(chunks * n) // 2)
+    buf = torch.empty(2 * n + 1 + tw + -(-n // 8), dtype=torch.int64, device=krepr.device)
+    cnt, offsets, total = buf[:n], buf[n:2 * n], buf[2 * n]
+    tcnt = buf[2 * n + 1:2 * n + 1 + tw].view(torch.int32)[:chunks * n].view(chunks, n)
+    row_matched = buf[2 * n + 1 + tw:].view(torch.bool)[:n]
     fn = cuda.lib("ss_match", "ksql_ss_match_count")
     cuda.check("ss_match", fn(
         _SIDES[side], krepr.data_ptr(), kvalid.data_ptr(), active.data_ptr(), ts.data_ptr(), n,
-        ring["ts"].data_ptr(), ring["krepr"].data_ptr(), ring["kval"].data_ptr(),
-        ring["live"].data_ptr(), b1, before, after, cnt.data_ptr(), row_matched.data_ptr(),
-        offsets.data_ptr(), total.data_ptr(), _stream(dev),
+        *plan.match_ptrs, plan.b1, before, after, span, tcnt.data_ptr(), cnt.data_ptr(),
+        row_matched.data_ptr(), offsets.data_ptr(), total.data_ptr(), plan.ticket_ptr,
+        plan.row_totals(n), _stream(krepr.device),
     ))
     ss_match.launches += 1
     ss_match.mode_launches["count"] += 1
-    return cnt, row_matched, offsets, total
+    return MatchCount((cnt, row_matched, offsets, total), tcnt, span)
 
 
 def ss_match_plain(side, krepr, kvalid, active, ts, ring: Ring, before, after, count, oc: int,
@@ -155,42 +186,147 @@ def ss_match(side: str, krepr: torch.Tensor, kvalid: torch.Tensor, active: torch
     ``mi``/``mj`` with its valid bit.  Lanes past the matches read row 0
     and entry 0 with every valid bit False, as ``fill_value=0`` does.
     Sets ``ring["matched"]`` of every matched entry in place.  ``count``
-    is :func:`ss_match_count`'s result on the same inputs."""
+    is :func:`ss_match_count`'s result on the same inputs: the launch
+    re-tests only the (row tile, ring chunk) pairs it counted matches in,
+    and writes lanes of one allocation."""
     if not krepr.is_cuda:
         return ss_match_plain(side, krepr, kvalid, active, ts, ring, before, after, count, oc,
                               own_cols, opp_cols)
     n = krepr.shape[0]
-    b1 = _check_ring(ring, RING_FIELDS)
+    plan = ring_plan(ring)
     _check_rows(n, krepr=krepr, ts=ts, kvalid=kvalid, active=active)
-    cnt, _row_matched, offsets, total = count
-    _expect(cnt, torch.int64, (n,))
-    _expect(offsets, torch.int64, (n,))
-    _expect(total, torch.int64, ())
+    span, chunks = _chunks(plan.b1)
+    if not isinstance(count, MatchCount) or count.span != span or tuple(count.tcnt.shape) != (chunks, n):
+        raise ValueError("ss_match: count is not ss_match_count's result on this batch and ring")
+    _cnt, _row_matched, offsets, total = count
+    if len(own_cols) > 32:
+        raise ValueError("more than 32 own columns")
+    own_ptrs: List[int] = []
+    for d, v in own_cols:
+        _expect(d, d.dtype, (n,))
+        _expect(v, torch.bool, (n,))
+        own_ptrs += [d.data_ptr(), v.data_ptr()]
+    desc = plan.write_desc(opp_cols, tuple(d.dtype for d, _v in own_cols))
     dev = krepr.device
-    out = {"mi": torch.empty(oc, dtype=torch.int32, device=dev),
-           "mj": torch.empty(oc, dtype=torch.int32, device=dev),
-           "mvalid": torch.empty(oc, dtype=torch.bool, device=dev),
-           "ts": torch.empty(oc, dtype=torch.int64, device=dev),
-           "ord_b": torch.empty(oc, dtype=torch.int64, device=dev)}
-    own_desc, out["own"] = _gather_desc(own_cols, n, oc, dev)
-    opp_desc, out["opp"] = _gather_desc(opp_cols, b1, oc, dev)
+    buf = desc.lanes.alloc(oc, dev)
     fn = cuda.lib("ss_match", "ksql_ss_match_write")
     cuda.check("ss_match", fn(
         _SIDES[side], krepr.data_ptr(), kvalid.data_ptr(), active.data_ptr(), ts.data_ptr(), n,
-        ring["ts"].data_ptr(), ring["krepr"].data_ptr(), ring["kval"].data_ptr(),
-        ring["live"].data_ptr(), ring["seq"].data_ptr(), ring["matched"].data_ptr(), b1,
-        before, after, cnt.data_ptr(), offsets.data_ptr(), total.data_ptr(), oc,
-        cuda.host_i64(own_desc), len(own_cols), cuda.host_i64(opp_desc), len(opp_cols),
-        out["mi"].data_ptr(), out["mj"].data_ptr(), out["ts"].data_ptr(),
-        out["ord_b"].data_ptr(), out["mvalid"].data_ptr(), _stream(dev),
+        *plan.match_ptrs, plan.seq_ptr, plan.matched_ptr, plan.b1, before, after, span,
+        count.tcnt.data_ptr(), offsets.data_ptr(), total.data_ptr(), oc, desc.ptr, desc.words,
+        cuda.host_i64(own_ptrs), len(own_cols), buf.data_ptr(), _stream(dev),
     ))
     ss_match.launches += 1
     ss_match.mode_launches["write"] += 1
+    (lanes,) = desc.lanes.views(buf, oc, oc)
+    out: Dict[str, object] = {k: lanes[k] for k in ("mi", "mj", "mvalid", "ts", "ord_b")}
+    out["own"] = [(lanes[f"own_v{c}"], lanes[f"own_m{c}"]) for c in range(len(own_cols))]
+    out["opp"] = [(lanes[f"opp_v{c}"], lanes[f"opp_m{c}"]) for c in range(len(opp_cols))]
     return out
 
 
 ss_match.launches = 0
 ss_match.mode_launches = {"count": 0, "write": 0}
+
+#: K10's ring tile (csrc/ss_match.cu kTile) and the most chunks a count
+#: keeps a row (past them a chunk holds several tiles)
+_TILE = 512
+_MAX_CHUNKS = 64
+
+
+class WriteDesc:
+    """K10's write descriptor for one set of ring columns and own-column
+    dtypes: the device words of csrc/ss_match.cu (the ring columns'
+    arrays and element bytes, each output lane's byte offset per output
+    row) and the :class:`Lanes` layout of the outputs."""
+
+    def __init__(self, opp_cols: Cols, own_dtypes, dev):
+        self.refs = [(weakref.ref(d), weakref.ref(v)) for d, v in opp_cols]
+        groups: Dict[torch.dtype, List[str]] = {torch.int64: ["ts", "ord_b"], torch.int32: ["mi", "mj"],
+                                                torch.bool: ["mvalid"]}
+        for c, dt in enumerate(own_dtypes):
+            groups.setdefault(dt, []).append(f"own_v{c}")
+            groups[torch.bool].append(f"own_m{c}")
+        for c, (d, _v) in enumerate(opp_cols):
+            groups.setdefault(d.dtype, []).append(f"opp_v{c}")
+            groups[torch.bool].append(f"opp_m{c}")
+        self.lanes = Lanes(list(groups.items()))
+        rel = self.lanes.offsets(1)[0]  # bytes per output row: a lane of oc rows starts at oc times it
+        words = [len(own_dtypes), len(opp_cols)] + [rel[k] for k in ("mi", "mj", "ts", "ord_b", "mvalid")]
+        for c, dt in enumerate(own_dtypes):
+            words += [dt.itemsize, rel[f"own_v{c}"], rel[f"own_m{c}"]]
+        for c, (d, v) in enumerate(opp_cols):
+            words += [d.data_ptr(), d.element_size(), v.data_ptr(), rel[f"opp_v{c}"], rel[f"opp_m{c}"]]
+        self.desc = torch.tensor(words, dtype=torch.int64).to(dev)
+        self.ptr, self.words = self.desc.data_ptr(), len(words)
+
+    def matches(self, opp_cols: Cols) -> bool:
+        return len(opp_cols) == len(self.refs) and all(
+            d is rd() and v is rv() for (d, v), (rd, rv) in zip(opp_cols, self.refs))
+
+
+class RingPlan:
+    """K10's host side for one ring's buffers: the ring's fields, checked
+    once; the count's scratch, which the kernel leaves zeros: the int32
+    ticket of its last block and the int32 row totals it adds the rows'
+    chunk counts into (grown with the batch); and per set of ring columns
+    and own-column dtypes the write's :class:`WriteDesc`.  The plan holds
+    the ring's tensors weakly: a cached plan keeps no ring alive, and one
+    whose tensors are gone (a regrown ring) no longer matches."""
+
+    def __init__(self, ring: Ring):
+        self.b1 = _check_ring(ring, RING_FIELDS)
+        self.refs = [weakref.ref(ring[f]) for f in RING_FIELDS]
+        self.match_ptrs = [ring[f].data_ptr() for f in ("ts", "krepr", "kval", "live")]
+        self.seq_ptr, self.matched_ptr = ring["seq"].data_ptr(), ring["matched"].data_ptr()
+        self.device = ring["ts"].device
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self.ticket_ptr = self.ticket.data_ptr()
+        self.totals = torch.zeros(0, dtype=torch.int32, device=self.device)
+        self._descs: Dict[tuple, WriteDesc] = {}
+
+    def row_totals(self, n: int) -> int:
+        """The pointer of at least ``n`` zeroed int32 row totals."""
+        if self.totals.shape[0] < n:
+            self.totals = torch.zeros(max(n, 2 * self.totals.shape[0]), dtype=torch.int32,
+                                      device=self.device)
+        return self.totals.data_ptr()
+
+    def matches(self, ring: Ring) -> bool:
+        return all(ring[f] is r() for f, r in zip(RING_FIELDS, self.refs))
+
+    def write_desc(self, opp_cols: Cols, own_dtypes) -> WriteDesc:
+        key = (tuple((id(d), id(v)) for d, v in opp_cols), own_dtypes)
+        desc = self._descs.get(key)
+        if desc is None or not desc.matches(opp_cols):
+            for d, v in opp_cols:
+                _expect(d, d.dtype, (self.b1,))
+                _expect(v, torch.bool, (self.b1,))
+            if len(opp_cols) > 32:
+                raise ValueError("more than 32 buffered columns")
+            if len(self._descs) >= 8:
+                self._descs.clear()
+            desc = self._descs[key] = WriteDesc(opp_cols, own_dtypes, self.device)
+        return desc
+
+
+_RING_PLANS: Dict[tuple, RingPlan] = {}
+_RING_PLAN_CACHE_SIZE = 64
+
+
+def ring_plan(ring: Ring) -> RingPlan:
+    """K10's host side for a ring, built and checked once per set of ring
+    buffers and cached: a regrow (``_regrow_ring``, ``_grow_ss``) that
+    replaces the ring's tensors gets a new one."""
+    key = tuple(id(ring[f]) for f in RING_FIELDS)
+    plan = _RING_PLANS.get(key)
+    if plan is not None and plan.matches(ring):
+        return plan
+    plan = RingPlan(ring)
+    if key not in _RING_PLANS and len(_RING_PLANS) >= _RING_PLAN_CACHE_SIZE:
+        _RING_PLANS.pop(next(iter(_RING_PLANS)))
+    _RING_PLANS[key] = plan
+    return plan
 
 
 # ------------------------------------------------------ K11: ss_insert

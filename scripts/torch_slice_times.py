@@ -1,6 +1,6 @@
-"""Time K8's live mode and K24 at their main shapes, and phase 19's kernels at one change, for a checkout.
+"""Time a slice's kernels at their main shapes, for a checkout.
 
-Runs ``k8_k24_shapes`` below on this checkout's ``chip_smoke`` cases
+Runs the shape groups below on this checkout's ``chip_smoke`` cases
 against the ``ksql_tpu_torch`` package of the checkout at ROOT (this one
 by default), so that one call on the card times an earlier commit's
 kernels at the same shapes as this tree's:
@@ -9,16 +9,27 @@ kernels at the same shapes as this tree's:
     python scripts/torch_slice_times.py build/parent
     python scripts/torch_slice_times.py
 
-The shapes: K8's live mode at 65,536 foreign keys over 2^18 slots, alone
-and as a left change's pair of key sets (an earlier tree's two single
-calls), K24 over a 2^18 + 1-slot orders store for the hottest customer
-and for one with none, then K1's table mode, K8's pair, K9's side mode
-and K24 at one change a step.  Each kernel is held against its twin first
-(exact), then timed as chip_smoke times it (device ms from
-torch.profiler, its records counted, call ms from CUDA events).  Prints
-the card's name and power limit, then one JSON line of ``{"root",
-"records": [{"kernel", "shape", "what", ...}]}``.  Needs a CUDA device;
-exits 1 without one.
+Groups (``--groups``, all by default):
+
+* ``k10``: K10's count and write at phase 2s's case (1,913 looked-up rows
+  of 2,048 against a 16,385-entry ring, 6,144 live), then on rings of
+  2^12, 2^14 and 2^16 entries (+1, the dump entry) whose live share is
+  10%, 37% or 100%: whether the time follows the ring's length or its
+  live matches.
+* ``k13``: K13 on 4,096 vector-order rows, 8,192 session rows and
+  270,336 session items (synthetic keys in the mix phases 2v and 2w give
+  it), the whole call and each of its CUDA functions apart.
+* ``k8k24``: K8's live mode at 65,536 foreign keys over 2^18 slots, alone
+  and as a left change's pair of key sets (an earlier tree's two single
+  calls), K24 over a 2^18 + 1-slot orders store for the hottest customer
+  and for one with none, then K1's table mode, K8's pair, K9's side mode
+  and K24 at one change a step.
+
+Each kernel is held against its twin first (exact), then timed as
+chip_smoke times it (device ms from torch.profiler, its records counted,
+call ms from CUDA events).  Prints the card's name and power limit, then
+one JSON line of ``{"root", "records": [{"kernel", "shape", "what",
+...}]}``.  Needs a CUDA device; exits 1 without one.
 """
 
 import argparse
@@ -31,11 +42,17 @@ import sys
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: the kernel functions of K24's first version beside this tree's, so
-#: the profiler finds an earlier tree's
+#: the kernel functions of K10's, K13's and K24's earlier designs beside
+#: this tree's, so that the profiler finds an earlier tree's
 EARLIER_FUNCS = {
     "fk_fanout": ("fanout_kernel", "fanout_count_kernel", "fanout_scan_kernel", "fanout_write_kernel"),
+    "ss_match": ("tile_count_kernel", "tile_write_kernel", "match_count_kernel", "match_scan_kernel",
+                 "match_write_kernel"),
+    "seg_sort": ("block_sort_kernel", "tile_sort_kernel", "merge_pass_kernel"),
 }
+#: K10's sweep: (ring entries before the dump entry, live share; None:
+#: the case's own)
+K10_RINGS = [(1 << 14, None)] + [(b, p) for b in (1 << 12, 1 << 14, 1 << 16) for p in (0.10, 0.37, 1.0)]
 
 
 def k8_k24_shapes(cs, torch, seed):
@@ -95,10 +112,108 @@ def k8_k24_shapes(cs, torch, seed):
     return out + cs.per_record_kernels(torch, seed)
 
 
+def k10_shapes(cs, torch, seed):
+    """K10's count and write at phase 2s's case and K10_RINGS' rings (the
+    same 2,048-row batch of bench.py's traffic; a live share p makes a
+    random p of the ring's entries live).  Returns ``[(kernel, shape,
+    record, what)]``."""
+    dev = torch.device(cs.DEVICE)
+    out = []
+    for ring, share in K10_RINGS:
+        rng = np.random.default_rng(seed + 30)
+        case = cs.make_ss_case(rng, ring, cs.SS_ROWS)
+        if share is not None:
+            live = rng.random(ring + 1) < share
+            live[ring] = False  # the dump entry is never live
+            case["ring_r"]["live"] = live
+        base = cs.ss_case_tensors(torch, case, dev)
+        kc, pc = cs._clone_case(base), cs._clone_case(base)
+        _got, _want, recs, info = cs.check_ss_match(torch, kc, pc, 8 * cs.SS_ROWS)
+        tag = "2s" if share is None else f"{ring + 1}@{share:.2f}"
+        what = (f"{info['look']} rows x {ring + 1} entries, {info['live']} live, {info['total']} matches, "
+                f"{info['rows_hit']} rows matched")
+        out += [("ss_match", f"{mode} {tag}", recs[mode], what) for mode in ("count", "write")]
+    return out
+
+
+def k13_keys(torch, rng, dev, shape):
+    """K13's inputs at one main-path shape, synthetic keys in the mix that
+    phases 2v and 2w give it: ``vector`` (4,096 rows, k1 = 2 slot + bit over 814 of 2^14
+    slots, k2 a member id), ``rows`` (8,192 rows: the key hash of 1,369
+    zipf keys, 0 where a row is dropped; k2 = 0) and ``items`` (270,336 =
+    8,192 x 33 items: the rows as (key hash, ts), 4,125 stored sessions
+    (key hash, start) and the dead items' 2^62 + index sentinels)."""
+    if shape == "vector":
+        n = 4096
+        slot = rng.choice(1 << 14, 814, replace=False)[rng.zipf(1.3, n) % 814]
+        k1 = slot * 2 + rng.integers(0, 2, n)
+        k2 = rng.integers(0, 999, n)
+    else:
+        n = 8192
+        keys = rng.integers(-(1 << 63), (1 << 63) - 1, 1369, dtype=np.int64)
+        kh = keys[rng.zipf(1.3, n) % keys.size]
+        kh[rng.random(n) < 0.01] = 0
+        ts = 1_700_000_000_000 + np.arange(n) * 17
+        if shape == "rows":
+            k1, k2 = kh, np.zeros(n, np.int64)
+        else:
+            m = n * 33
+            k1 = (1 << 62) + np.arange(m, dtype=np.int64)
+            k2 = np.zeros(m, np.int64)
+            k1[:n], k2[:n] = kh, ts
+            stored = n + rng.choice(m - n, 4125, replace=False)
+            k1[stored] = keys[rng.integers(0, keys.size, stored.size)]
+            k2[stored] = ts[0] - rng.integers(0, 3_600_000, stored.size)
+    return (torch.from_numpy(np.ascontiguousarray(k1, np.int64)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(k2, np.int64)).to(dev))
+
+
+def _function_names(torch, fn, pats):
+    """The CUDA functions, of those ``pats`` match, that one call of ``fn``
+    launches (a fenced profiler trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+    return sorted({p.pattern.split(")")[-1] for e in prof.events() for p in pats if p.search(e.name)})
+
+
+def k13_shapes(cs, torch, seed):
+    """K13 at k13_keys' three shapes: the call against its twin and each
+    of its CUDA functions' device time apart.  Returns ``[(kernel, shape,
+    record, what)]``."""
+    import re
+
+    from ksql_tpu_torch.ops import session as sess
+
+    dev = torch.device(cs.DEVICE)
+    rng = np.random.default_rng(seed + 17)
+    pats = [re.compile(rf"(?<![A-Za-z_]){f}") for f in cs.KERNEL_FUNCS["seg_sort"]]
+    out = []
+    for shape in ("vector", "rows", "items"):
+        k1, k2 = k13_keys(torch, rng, dev, shape)
+        n = k1.shape[0]
+        cs._assert_equal(torch, f"seg_sort[{shape}]", sess.seg_sort(k1, k2), sess.seg_sort_plain(k1, k2))
+        rec = cs.measure(torch, "seg_sort", lambda: sess.seg_sort(k1, k2), lambda: sess.seg_sort_plain(k1, k2),
+                         n * 20, n * int(np.ceil(np.log2(n))) * 5,
+                         library=lambda: cs._argsort_lsd(torch, k1, k2))
+        funcs = _function_names(torch, lambda: sess.seg_sort(k1, k2), pats)
+        for f in funcs:
+            cs.KERNEL_FUNCS[f"seg_sort:{f}"] = (f,)
+        parts = {f: cs.kernel_device_ms(torch, f"seg_sort:{f}", lambda: sess.seg_sort(k1, k2)) for f in funcs}
+        what = f"{n} items; " + ", ".join(f"{f} {ms:.4f} ms" for f, ms in parts.items())
+        out.append(("seg_sort", shape, dict(rec, parts=parts), what))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", nargs="?", default=HERE, help="the checkout whose package is timed")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--groups", default="k10,k13,k8k24", help="comma-separated: k10, k13, k8k24")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -120,7 +235,11 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip()
     print(smi)
     records = []
-    for kernel, shape, rec, what in k8_k24_shapes(cs, torch, args.seed):
+    groups = {"k10": k10_shapes, "k13": k13_shapes, "k8k24": k8_k24_shapes}
+    shapes = []
+    for g in args.groups.split(","):
+        shapes += groups[g](cs, torch, args.seed)
+    for kernel, shape, rec, what in shapes:
         records.append(dict(rec, kernel=kernel, shape=shape, what=what))
         print(f"[{kernel}[{shape}]] {what}: device {rec['ms']:.4f} ms, call {rec['call_ms']:.4f} ms, "
               f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms")

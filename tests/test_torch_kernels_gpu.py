@@ -432,7 +432,8 @@ def test_session_mode_kernel_matches_twin(dev):
     _same_tree(got, hs.session_prologue_plain(reprs, valid, active))
 
 
-@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 70_000])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 2047, 2048, 2049, 4096, 8192, 8193, 70_000, 139_264,
+                               270_336])
 def test_seg_sort_kernel_matches_twin(dev, n):
     # tolerance: exact (the permutation; equal key pairs keep index order)
     rng = np.random.default_rng(n)
@@ -1242,3 +1243,115 @@ def test_session_merge_long_runs_are_two_launches_and_match_twin(dev, case):
         assert [int(want["rank"][p]) for p in (255, 256, 512, 768, 1024, 2048)] == [0, 1, 2, 3, 4, 5]
     if case == "winners_past_s":
         assert int(want["sess_ovf"]) > 1024
+
+
+# ---- K10's and K13's launch counts, last in the file, after the one-call
+# traces of the tests above: their own traces are long (20 calls each)
+def _records_per_call(fn, reps=20, attempts=3):
+    """Names of the CUDA kernels one call of ``fn()`` launches, from a
+    trace of ``reps`` calls fenced as chip_smoke's kernel_device_ms fences
+    its traces (a ~50 ms spin before them, two ~2 ms spins and an event
+    synchronized after): a single short call's trace can lose its one
+    record (seen for K13's one-block launch), a long trace keeps them.
+    Taken again, at most ``attempts`` times in all, unless both closing
+    fences are in it and its records are a whole number of calls'; ``fn``
+    must give the same launches run again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda_events = torch.autograd.DeviceType.CUDA
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(chip_smoke._LEAD_CYCLES)
+            for _ in range(reps):
+                fn()
+            for _ in range(chip_smoke._FENCES):
+                torch.cuda._sleep(chip_smoke._FENCE_CYCLES)
+            fence = torch.cuda.Event()
+            fence.record()
+            fence.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == cuda_events
+                         and "emcpy" not in e.name and "emset" not in e.name),
+                        key=lambda e: e.time_range.start)
+        body = [e for e in events if "spin_kernel" not in e.name]
+        last = max((e.time_range.start for e in body), default=-1)
+        closing = sum("spin_kernel" in e.name and e.time_range.start > last for e in events)
+        if body and closing == chip_smoke._FENCES and len(body) % reps == 0:
+            return [e.name for e in body[:len(body) // reps]]
+    raise AssertionError(f"{attempts} traces of {reps} calls came back short")
+
+
+#: K10's ring-tile edges (512-entry tiles; rings of B + 1 entries): the
+#: ring, and which entries match row 0 (None: make_ss_case's own traffic)
+SS_EDGES = {
+    "zero": (1 << 12, ()),
+    "one_at_tile_end": (1 << 12, (1023,)),
+    "all": (1 << 12, "all"),
+    "ring_4097": (1 << 12, None),
+    "ring_65537": (1 << 16, None),
+}
+
+
+@pytest.mark.parametrize("case", list(SS_EDGES))
+def test_ss_match_count_is_one_launch_at_tile_edges(dev, case):
+    # tolerance: exact (the count's four outputs, every lane, the matched
+    # bits); count mode is one kernel record a call and leaves its ticket 0
+    B, where = SS_EDGES[case]
+    c = chip_smoke.make_ss_case(np.random.default_rng(B), B, 512, keys=2000)
+    if where is not None:
+        ring, rows = c["ring_r"], c["rows"]
+        ring["krepr"][:] = 10**12  # no row's key
+        idx = np.arange(B) if where == "all" else np.array(where, np.int64)
+        rows["active"][0] = rows["kvalid"][0] = True
+        rows["krepr"][0] = 10**12 + 1  # row 0's key alone
+        ring["krepr"][idx], ring["ts"][idx] = rows["krepr"][0], rows["ts"][0]
+        ring["live"][idx] = ring["kval"][idx] = True
+    case_t = chip_smoke.ss_case_tensors(torch, c, dev)
+    n = case_t["rows"]["ts"].shape[0]
+    oc = 8 * n
+    kc, pc = chip_smoke._clone_case(case_t), chip_smoke._clone_case(case_t)
+    k_calls = chip_smoke._ss_calls(torch, kc, oc)
+    p_calls = chip_smoke._ss_calls(torch, pc, oc, plain=True)
+    plan = ssj.ring_plan(kc["ring_r"])
+    want = p_calls[0]()
+    for _ in range(2):
+        got = k_calls[0]()
+        _same_tree(tuple(got), tuple(want))
+        assert int(plan.ticket[0]) == 0 and not bool(plan.totals.any())
+    if where is not None:
+        assert int(want[3]) == (B if where == "all" else len(where))
+    lanes = k_calls[1](got)
+    _same_tree(lanes, p_calls[1](want))
+    _same(kc["ring_r"]["matched"], pc["ring_r"]["matched"])
+    kernels = _records_per_call(k_calls[0])
+    assert len(kernels) == 1 and "tile_count_kernel" in kernels[0], kernels
+
+
+@pytest.mark.parametrize("shape", ["equal", "k1_as_k2", "sentinels", "rows_8192"])
+def test_seg_sort_is_one_launch_up_to_a_block(dev, shape):
+    # tolerance: exact.  Up to 8,192 items K13 is one kernel record a
+    # call; ties keep index order; int64 extremes and the session items'
+    # 2^62 + index sentinels
+    rng = np.random.default_rng(3)
+    n = 8192 if shape in ("sentinels", "rows_8192") else 4096
+    if shape == "equal":
+        k1, k2 = np.full(n, 7, np.int64), np.full(n, -7, np.int64)
+    elif shape == "k1_as_k2":
+        k1 = k2 = rng.integers(0, 300, n)
+    elif shape == "sentinels":
+        k1 = (1 << 62) + np.arange(n, dtype=np.int64)
+        live = rng.random(n) < 0.3
+        k1[live] = rng.choice(np.array([I64.min, I64.max, (1 << 62) + 5, 42]), int(live.sum()))
+        k2 = rng.integers(I64.min, I64.max, n, dtype=np.int64)
+    else:
+        k1 = rng.integers(I64.min, I64.max, 1369, dtype=np.int64)[rng.zipf(1.3, n) % 1369]
+        k1[rng.random(n) < 0.05] = 0
+        k2 = np.zeros(n, np.int64)
+    t1 = torch.from_numpy(k1).to(dev)
+    t2 = t1 if k2 is k1 else torch.from_numpy(k2).to(dev)
+    before = sess.seg_sort.launches
+    got = sess.seg_sort(t1, t2)
+    assert sess.seg_sort.launches == before + 1
+    _same(got, sess.seg_sort_plain(t1, t2))
+    kernels = _records_per_call(lambda: sess.seg_sort(t1, t2))
+    assert len(kernels) == 1 and "block_sort_kernel" in kernels[0], kernels

@@ -300,11 +300,35 @@ def test_winners_past_the_slots_in_a_long_run_equal_reference():
 
 
 # ------------------------------------------------------------ twins alone
-def test_seg_sort_twin_equals_lexsort():
+def _sort_keys(shape):
+    """K13's inputs by case: ``mixed<n>`` int64 extremes and small ties,
+    ``equal`` every key pair the same, ``k1_as_k2`` one tensor passed
+    twice (``vector.py``'s ``seg_sort(eff, eff)``), ``sentinels`` the
+    session items' key hashes among the dead items' 2^62 + index."""
     rng = np.random.default_rng(0)
-    k1 = rng.choice(np.array([I64.min, -1, 0, 1, 1 << 62, I64.max]), 500)
-    k2 = rng.integers(-3, 3, 500)
-    got = sess.seg_sort_plain(torch.from_numpy(k1), torch.from_numpy(k2)).numpy()
+    if shape.startswith("mixed"):
+        n = int(shape[5:])
+        return rng.choice(np.array([I64.min, -1, 0, 1, 1 << 62, I64.max]), n), rng.integers(-3, 3, n)
+    if shape == "equal":
+        return np.full(4096, 7, np.int64), np.full(4096, -7, np.int64)
+    if shape == "k1_as_k2":
+        k = rng.integers(0, 300, 4096)
+        return k, k
+    n = 8193
+    k1 = (1 << 62) + np.arange(n, dtype=np.int64)
+    live = rng.random(n) < 0.3
+    k1[live] = rng.choice(np.array([I64.min, I64.max, (1 << 62) + 5, 1 << 62, 42]), int(live.sum()))
+    return k1, rng.integers(I64.min, I64.max, n, dtype=np.int64)
+
+
+@pytest.mark.parametrize("shape", ["mixed1", "mixed255", "mixed256", "mixed257", "mixed500", "mixed4096",
+                                   "mixed8192", "mixed8193", "equal", "k1_as_k2", "sentinels"])
+def test_seg_sort_twin_equals_lexsort(shape):
+    # tolerance: exact (the permutation; equal key pairs keep index order)
+    k1, k2 = _sort_keys(shape)
+    same = k2 is k1
+    t1 = torch.from_numpy(k1)
+    got = sess.seg_sort_plain(t1, t1 if same else torch.from_numpy(k2)).numpy()
     np.testing.assert_array_equal(got, np.asarray(jnp.lexsort((jnp.asarray(k2), jnp.asarray(k1)))))
     assert got.dtype == np.int32
 

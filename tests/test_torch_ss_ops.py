@@ -149,6 +149,58 @@ def test_matches_past_the_lane_capacity_are_cut_like_nonzero():
     assert after["ssr_matched"][:6].all()
 
 
+#: K10's ring-tile edges (the kernel tests 512-entry tiles): per case the
+#: ring capacity B (B + 1 entries, never a multiple of the tile), the
+#: lanes, and per row its key and the ring entries holding that key, all
+#: inside the row's window
+TILE_EDGES = {
+    "straddle": (2048, 4096, [(1, range(1000, 1100)), (2, [5, 2047]), (3, [])]),
+    "whole_tile": (2048, 4096, [(4, range(1024, 2048)), (5, [3, 1023])]),
+    "ragged_end": (1500, 4096, [(6, range(1490, 1500)), (7, [0, 1489])]),
+    "cut_in_tile": (2048, 50, [(1, range(1000, 1101)), (2, [1200, 1201])]),
+}
+
+
+@pytest.mark.parametrize("case", list(TILE_EDGES))
+def test_match_counts_and_lanes_at_ring_tile_edges(case):
+    # tolerance: exact.  The count's (cnt, row_matched, offsets, total)
+    # against the reference step's match lanes (rows in order, each row's
+    # entries in entry order; the total is its lanes plus ss_matchovf),
+    # then the whole step, lanes and state, against the reference
+    import torch
+
+    B, oc, plan = TILE_EDGES[case]
+    ref_q, port_q = build_pair(BENCH_DDL, BENCH_SS, capacity=4, buffer=B, out_cap=oc)
+    st = base_state(port_q)
+    t = T0 + 50_000
+    keys = np.full(B, 999)  # no row has key 999
+    for key, entries in plan:
+        keys[list(entries)] = key
+    fill_ring(st, "r", t - 9_000 + np.arange(B) * 4, keys)
+    st["max_ts"] = np.asarray(t, np.int64)
+    rows = [{"ID": key, "V": i} for i, (key, _e) in enumerate(plan)]
+    ts = [t] * len(rows)
+    port_q.state = state_from_numpy(st, "cpu")
+    parr = port_q.upload(port_q.layout.encode(PHostBatch.from_rows(
+        _pschema(ref_q.source.schema), rows, timestamps=ts)))
+    cnt, row_matched, offsets, total = port_q._ss_prepare("l", parr)["count"]
+    emits, after = step_both(ref_q, port_q, st, "l", rows, ts)
+    want_cnt = np.array([len(e) for _k, e in plan] + [0] * (4 - len(plan)))
+    mi = emits["ord_a"][:oc][emits["emit_mask"][:oc]]
+    assert int(total) == len(mi) + int(emits["ss_matchovf"]) == want_cnt.sum()
+    if int(emits["ss_matchovf"]) == 0:
+        np.testing.assert_array_equal(np.bincount(mi, minlength=4), want_cnt)
+    np.testing.assert_array_equal(cnt.numpy(), want_cnt)
+    np.testing.assert_array_equal(row_matched.numpy(), want_cnt > 0)
+    np.testing.assert_array_equal(offsets.numpy(), np.cumsum(want_cnt) - want_cnt)
+    assert cnt.dtype == offsets.dtype == total.dtype == torch.int64
+    # every match marks its entry, the cut ones included
+    hit = np.zeros(B + 1, bool)
+    for _key, entries in plan:
+        hit[list(entries)] = True
+    np.testing.assert_array_equal(after["ssr_matched"], hit)
+
+
 @pytest.mark.parametrize("unexpired", [False, True], ids=["expired", "live"])
 def test_cursor_wrap_and_overwrite_loss(unexpired):
     ref_q, port_q = build_pair(BENCH_DDL, BENCH_SS, capacity=8, buffer=8, out_cap=64)
