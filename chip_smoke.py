@@ -11,6 +11,9 @@ Phases, in this order; any failure exits non-zero and prints no result:
    kernel of the main path built from ``ksql_tpu_torch/csrc`` by its own
    ``nvcc`` (all started together), with each build's seconds and its
    ``-Xptxas -v`` report.
+1f. The launch floor: an empty kernel, built the same way and called
+   through ctypes, its device ms and call ms (K1's table mode, one launch
+   a change on phase 19's path, stands on it).
 2. Each kernel against its plain torch twin on the card, at the flagship's
    shapes (65,536-row batches, a 2^20-slot store that is 70% full with
    graves, zipf(1.3) keys): exact for every int and bool column, rtol 1e-12
@@ -121,8 +124,9 @@ Phases, in this order; any failure exits non-zero and prints no result:
    K19 having_verdict and K4's suppress mode; then K17 and K18 at the
    shapes the main paths give them: phase 12h's (16,384 rows, 15 min
    advance, 65,536 k = 4 lanes) and phase 12g's (2^20 rows, tumbling); all
-   exact.  No single PyTorch call computes any of them, so there is no
-   yardstick.
+   exact.  K17's yardstick: two torch.cummax calls over the masked lanes
+   and rows (the running maxima alone); no single PyTorch call computes
+   the others.
 12. BASELINE #1 with EMIT FINAL (``ksql_tpu_torch/plans/pv_counts_final.json``,
    no grace) through ``run_plan`` over phase 3's traffic at 16 batches, then
    ``flush_time(last ts + 1 h)``: the sink must equal a numpy model of the
@@ -415,7 +419,7 @@ KERNEL_FUNCS = {
     "seg_sort": ("block_sort_kernel", "merge_pass_kernel"),
     "session_items": ("prologue_kernel", "first_kernel", "items_kernel"),
     "session_merge": ("permute_kernel", "merge_kernel"),
-    "session_write": ("delete_kernel", "write_kernel", "dump_kernel"),
+    "session_write": ("delete_kernel", "write_kernel"),
     "suppress_clock": ("clock_kernel",),
     "suppress_close": ("born_kernel", "close_kernel"),
     "having_verdict": ("verdict_kernel", "dump_kernel"),
@@ -535,6 +539,45 @@ def phase_device_and_build(torch):
             if "ptxas" in line and ("registers" in line or "Compiling" in line or "spill" in line):
                 print(f"      {line.strip()}")
     return name, smi
+
+
+#: an empty kernel, built as the port's kernels are: the launch floor
+EMPTY_KERNEL = """extern "C" __global__ void empty_kernel() {}
+extern "C" int ksql_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def phase_launch_floor(torch):
+    """Phase 1f: an empty kernel's device ms (profiler) and call ms (CUDA
+    events, through ctypes as every kernel of the port is called): the
+    floor under a kernel launched once a change, as K1's table mode is on
+    phase 19's path."""
+    import ctypes
+
+    from ksql_tpu_torch.ops import cuda
+
+    out = cuda.BUILD_DIR / "launch_floor"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "empty.cu").write_text(EMPTY_KERNEL)
+    subprocess.run([cuda.nvcc_path(), *cuda.NVCC_FLAGS, "-o", str(out / "libempty.so"),
+                    str(out / "empty.cu")], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(out / "libempty.so")).ksql_empty
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    KERNEL_FUNCS["empty"] = ("empty_kernel",)
+
+    def call():
+        cuda.check("empty", fn(stream))
+
+    ms = kernel_device_ms(torch, "empty", call)
+    call_ms = time_events(torch, call)
+    print(f"[1f] launch floor: an empty kernel (1 block of 32 threads) device {ms:.4f} ms, call "
+          f"{call_ms:.4f} ms")
+    return {"ms": ms, "call_ms": call_ms}
 
 
 # ------------------------------------------------------------- phase 2
@@ -2861,11 +2904,57 @@ def phase_session_kernels(torch, plan_json, seed, case=None, timed=True):
     done("session_write", "write", meas(
         torch, "session_write", lambda: sess.session_write(sk, cap, merged, ins_k, scal),
         lambda: sess.session_write_plain(sp, cap, want, ins_p, scal),
-        m * (4 + 24 + 8 * k + cb) + nseg * (26 + 8 * k + cb) + 2 * m * (34 + 8 * k + cb)
-        + n_ins * (17 + cb) + 16, m * 20, reset=reset_write, plain_reps=5),
+        write_bytes(m, nseg, k, cb, n_ins), m * 20, reset=reset_write, plain_reps=5),
         f"{2 * m} lanes, {n_emit} emitted ({n_tomb} tombstones), {n_ins} sessions written; "
         "no single PyTorch call")
     return (recs, extra) if timed else None
+
+
+def write_bytes(m, nseg, k, cb, n_ins):
+    """The bytes K16's write mode must move over ``m`` items (``nseg``
+    segments, ``k`` keys, ``cb`` component bytes an item, ``n_ins``
+    inserts): each item's flags, slot, times, reprs and components; each
+    segment's values once; the 2m lanes written; an insert's store
+    writes; max_ts."""
+    return (m * (4 + 24 + 8 * k + cb) + nseg * (26 + 8 * k + cb) + 2 * m * (34 + 8 * k + cb)
+            + n_ins * (17 + cb) + 16)
+
+
+def session_write_case(torch, plan_json, seed, dev):
+    """K16 write mode's inputs at phase 2w's shapes, made by the twins
+    (so that any checkout's kernels meet the same inputs): phase 2w's
+    case run through K1's session mode, K14, K13, K15, K16's deletes and
+    K2.  Returns ``store`` (after the deletes and K2's inserts), ``cap``,
+    ``merged``, ``ins`` (K2's slots), ``scal`` and the counts ``m``,
+    ``nseg``, ``n_ins``, ``k``, ``cb``."""
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.ops import session as sess
+
+    q, _arrays, c = make_session_case(torch, plan_json, seed, dev)
+    n, cap, S = q.capacity, q.store_capacity, q.session_slots
+    store = _clone(q.state)
+    act1, khash = hs.session_prologue_plain(c["reprs"], c["valid"], c["active"])
+    active, scal = sess.session_prologue_plain(c["row_valid"], c["ts"], act1, store["max_ts"],
+                                               SESS_2W_GRACE_MS, SESS_GAP_MS)
+    ts = c["ts"]
+    contribs = [torch.where(active, ts, torch.full_like(ts, np.iinfo(np.int64).min)), active.long()]
+    khs = torch.where(active, khash, torch.zeros_like(khash))
+    order0 = sess.seg_sort_plain(khs, torch.zeros_like(khs))
+    first = sess.session_first_plain(order0, khash, active)
+    items = sess.session_items_plain(store, cap, S, khash, active, first, ts, c["reprs"], contribs,
+                                     SESS_GAP_MS, SESS_2W_GRACE_MS, scal)
+    perm = sess.seg_sort_plain(items["kh"], items["start"])
+    comps = q.store_layout.components
+    merged = sess.session_merge_plain(items, perm, n, S, SESS_GAP_MS, comps, cap)
+    sess.session_delete_plain(store, cap, merged)
+    m = n * (S + 1)
+    ins = hs.probe_insert_plain(store, cap, merged["base"], merged["kh"], merged["rank"],
+                                merged["ins_reprs"], torch.zeros(m, dtype=torch.int32, device=dev),
+                                merged["ins_act"])
+    nseg = int((merged["segfirst"] == torch.arange(m, device=dev, dtype=torch.int32)).sum())
+    return dict(store=store, cap=cap, merged=merged, ins=ins, scal=scal, m=m, nseg=nseg,
+                n_ins=int(merged["ins_act"].sum()), k=c["reprs"].shape[0],
+                cb=sum(np.dtype(x.dtype).itemsize for x in comps))
 
 
 # ------------------------------------------------------------------ main
@@ -2967,9 +3056,15 @@ def _check_suppress_clock(torch, c, mode, grace):
     n, lanes = c["ts"].shape[0], act.shape[0]
     cut = int(act.sum() - got[0].sum())
     require(cut > 0, f"suppress_clock[{mode}]: the late rows should be cut")
+    # the yardstick: the two running maxima alone, as two torch.cummax
+    # calls over the lanes and the rows masked beforehand
+    neg = torch.full((lanes,), np.iinfo(np.int64).min, dtype=torch.int64, device=act.device)
+    lane_vals = torch.where(act, c["ts"].repeat(lanes // n), neg)
+    row_vals = torch.where(c["row_valid"], c["ts"], neg[:n])
     rec = measure(torch, "suppress_clock", lambda: sup.suppress_clock(*args),
                   lambda: sup.suppress_clock_plain(*args),
-                  lanes * (8 + 1 + 1 + 8) + n * (8 + 1 + 8), lanes * 6 + n * 3)
+                  lanes * (8 + 1 + 1 + 8) + n * (8 + 1 + 8), lanes * 6 + n * 3,
+                  library=lambda: (torch.cummax(lane_vals, 0), torch.cummax(row_vals, 0)))
     return got, rec, f"{n} rows, {lanes} lanes, {cut} late lanes cut"
 
 
@@ -3034,7 +3129,9 @@ def phase_suppress_kernels(torch, seed, n=N_ROWS, capacity=STORE):
         else:
             extra[f"{kernel}[{mode}]@{tag}"] = rec
         where = "" if tag is None else f" at phase {tag}'s shape"
-        _report("2f", f"{kernel}[{mode}]{where} ({what}; no single PyTorch call computes it)", rec)
+        lib = ("yardstick two torch.cummax over the masked lanes and rows" if kernel == "suppress_clock"
+               else "no single PyTorch call computes it")
+        _report("2f", f"{kernel}[{mode}]{where} ({what}; {lib})", rec)
 
     # ---- K1 without its grace cut (the EMIT FINAL route's tumbling mode)
     keys = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, (1, n))).to(dev)
@@ -6473,6 +6570,7 @@ def main() -> int:
         fail(f"run from the root of a checkout ({e})")
     t_start = time.perf_counter()
     kind, smi = phase_device_and_build(torch)
+    phase_launch_floor(torch)
     recs = {name: {"tumbling": rec} for name, rec in phase_kernels(torch, args.seed).items()}
     recs["fold_and_mark"]["fold"] = recs["fold_and_mark"].pop("tumbling")
     recs["probe_insert"][f"batch_{FINAL_GROW_ROWS}"] = phase_k2_batch(torch, args.seed, FINAL_GROW_ROWS)

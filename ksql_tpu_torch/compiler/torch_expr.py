@@ -24,7 +24,9 @@ algebraic simplifier that change bits: a division by a constant is a
 product with its reciprocal (the DECIMAL cast's ``/ 10^s`` too), ROUND's
 ``/ 10^s`` is a product with ``10^-s``, and a product by a constant of a
 column that is itself a product by a constant multiplies the constants
-first (:attr:`DCol.scaled`).  On the CPU, EXP, LN and SQRT take
+first (:attr:`DCol.scaled`).  A division by a constant ROUND(c, s) takes
+one of two reciprocals by where it stands in its program (ROADMAP C14,
+:func:`round_program`).  On the CPU, EXP, LN and SQRT take
 numpy's correctly rounded results (torch's vectorized float64 kernels are
 off by one unit in the last place for some inputs); XLA's CPU exp and log
 are not correctly rounded either, so those two agree with the reference to
@@ -33,6 +35,8 @@ one unit in the last place, not bit for bit.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
@@ -314,6 +318,53 @@ def _folded_constant(e) -> Optional[float]:
     return value
 
 
+#: the constant ROUND nodes compiled so far in the current program, by
+#: repr; None outside a :func:`round_program`
+_ROUND_TRACE: contextvars.ContextVar[Optional[set]] = contextvars.ContextVar(
+    "ksql_round_trace", default=None)
+
+
+@contextlib.contextmanager
+def round_program(seen: Optional[set] = None):
+    """One of the reference's jitted programs (a step), as far as its
+    constant ROUNDs go (ROADMAP C14).  Within one program XLA splits the
+    reciprocal of the first constant ``ROUND(c, s)`` it meets when that
+    one is a division's divisor: ``x / ROUND(c, s)`` becomes ``x * (10^s
+    * (1 / F))``, ``F = floor(c * 10^s + 0.5)``; every later division by
+    the same ROUND, and every one after it met the ROUND elsewhere (a
+    product, a filter), takes ``1 / ROUND(c, s)`` whole, and so does each
+    at one lane (``f64[1]`` arrays fold first).  The lowering runs each
+    of its steps inside this context, which keeps the ROUNDs compiled in
+    its order and yields them; a nested one joins the outer program, and
+    ``seen`` carries on a program that ran in parts (the stream-stream
+    step's two halves).  Outside it every division takes the whole
+    reciprocal."""
+    outer = _ROUND_TRACE.get()
+    if outer is not None:
+        yield outer
+        return
+    rounds = set() if seen is None else seen
+    token = _ROUND_TRACE.set(rounds)
+    try:
+        yield rounds
+    finally:
+        _ROUND_TRACE.reset(token)
+
+
+def _round_split(e) -> Optional[float]:
+    """``10^s * (1 / floor(c * 10^s + 0.5))`` for a constant ``ROUND(c,
+    s)`` node (the reciprocal XLA takes apart), else None."""
+    if not (isinstance(e, ex.FunctionCall) and e.name.upper() == "ROUND" and len(e.args) == 2
+            and _is_folded(e)):
+        return None
+    c, s = _folded_constant(e.args[0]), _folded_constant(e.args[1])
+    if c is None or s is None:
+        return None
+    p = np.power(np.float64(10.0), np.float64(s))
+    with np.errstate(divide="ignore"):
+        return float(p * (np.float64(1.0) / np.floor(np.float64(c) * p + np.float64(0.5))))
+
+
 class TorchExprCompiler:
     """Compiles expressions against an environment of named DCols.
 
@@ -376,7 +427,16 @@ class TorchExprCompiler:
 
     # ---------------------------------------------------------- arithmetic
     def _c_ArithmeticBinary(self, e) -> DCol:
-        a, b = self.compile(e.left), self.compile(e.right)
+        seen = _ROUND_TRACE.get()
+        if (seen is not None and e.op == ex.ArithOp.DIVIDE and isinstance(e.left, ex.ArithmeticBinary)
+                and e.left.op == ex.ArithOp.DIVIDE and repr(e.left.right) == repr(e.right)
+                and _round_split(e.right) is not None):
+            # x / R / R by one constant ROUND: XLA divides by the folded
+            # R * R, so neither division splits
+            seen.add(repr(e.right))
+        a = self.compile(e.left)
+        split = self._split_divisor(e)  # before the divisor's ROUND is compiled
+        b = self.compile(e.right)
         da, db, t = _promote(a, b)
         valid = a.valid & b.valid
         op = e.op
@@ -413,7 +473,7 @@ class TorchExprCompiler:
                 valid = valid & ~zero
             elif op == ex.ArithOp.DIVIDE:
                 # IEEE: inf/nan, stays valid (Java double)
-                out, scaled = self._divide(a, da, db, e.right)
+                out, scaled = self._divide(a, da, db, e.right, split=split)
             else:
                 out = torch.where(
                     db != 0,
@@ -457,7 +517,18 @@ class TorchExprCompiler:
                     return DCol(out, valid, t, scaled=scaled)
         return DCol(da * db, valid, t)
 
-    def _divide(self, a: DCol, x: torch.Tensor, y: torch.Tensor, divisor, nonzero=False):
+    def _split_divisor(self, e) -> Optional[float]:
+        """The split reciprocal of ``e``'s divisor when ``e`` divides by a
+        constant ROUND that its program has not met yet, over more than
+        one lane (:func:`round_program`), else None."""
+        seen = _ROUND_TRACE.get()
+        if (seen is None or e.op != ex.ArithOp.DIVIDE or self.folding or not self.folds_literals
+                or self.n <= 1 or repr(e.right) in seen):
+            return None
+        return _round_split(e.right)
+
+    def _divide(self, a: DCol, x: torch.Tensor, y: torch.Tensor, divisor, nonzero=False,
+                split=None):
         """``x / y`` (``x`` the float64 data of ``a``) as the reference's
         jitted step computes it: XLA's algebraic simplifier turns a
         division by a constant into a product with the constant's
@@ -465,8 +536,11 @@ class TorchExprCompiler:
         float64), which is not always the IEEE quotient, and reassociates
         it with a product by a constant (:meth:`_times`).  The constant
         forms are those of :func:`_folded_constant`; ``nonzero`` is the
-        DECIMAL branch's divisor, where a zero reads as 1.  Returns the
-        result and its :attr:`DCol.scaled`."""
+        DECIMAL branch's divisor, where a zero reads as 1; ``split`` a
+        constant ROUND divisor's split reciprocal (:meth:`_split_divisor`).
+        Returns the result and its :attr:`DCol.scaled`."""
+        if split is not None:
+            return self._times(a, x, split)
         c = None if self.folding else self._constant(divisor)
         if c is None:
             return x / y, None
@@ -658,6 +732,9 @@ class TorchExprCompiler:
         if fn is None:
             raise DeviceUnsupported(f"function {e.name} on device")
         args = [self.compile(a) for a in e.args]
+        seen = _ROUND_TRACE.get()
+        if fn is _f_round and seen is not None and not self.folding and _is_folded(e):
+            seen.add(repr(e))
         if fn is _f_round and len(args) == 2:
             return self._round_to(args[0], args[1], e.args[1])
         return fn(self, args)

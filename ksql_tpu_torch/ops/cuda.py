@@ -94,10 +94,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "session_write": {
         "ksql_session_delete": [_P, _P, _I, _P, _P, _P, _I, _P],
         "ksql_session_write": [
-            _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, *[_P] * 12, _P, _P, *[_P] * 6, _P],
+            _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, *[_P] * 12, _P, _P, _I, *[_P] * 6, _P],
     },
     "suppress_clock": {"ksql_suppress_clock": [
-        _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P]},
+        _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P]},
     "suppress_close": {"ksql_suppress_close": [
         _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P]},
     "having_verdict": {"ksql_having_verdict": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P]},

@@ -533,6 +533,10 @@ session_merge.mode_launches = {"merge": 0, "argset": 0}
 
 
 # ------------------------------------------------------ K16: session_write
+#: items a block of K16's write mode takes (csrc/session_write.cu kWriteThreads)
+WRITE_THREADS = 256
+
+
 def session_delete_plain(store, capacity, merged) -> None:
     """Plain twin of K16's delete mode — see :func:`session_delete`."""
     dm = ~merged["isrow"] & merged["alive"]
@@ -624,7 +628,8 @@ def session_write(store: Dict[str, torch.Tensor], capacity: int, merged: Dict[st
     when it holds a row): ``mask``, ``keys`` (the key reprs), ``comps``
     (raw components, ``comps[0]`` the ROWTIME), ``ws``/``we``,
     ``tombstone`` (part A), ``ord_a`` (the segment's lowest row, 0 if none)
-    and ``ord_b`` (part A's start, then INT64_MAX)."""
+    and ``ord_b`` (part A's start, then INT64_MAX).  One launch: the last
+    block to finish writes the dump slot, ``dirty[C]`` and ``max_ts``."""
     if not ins_slots.is_cuda:
         return session_write_plain(store, capacity, merged, ins_slots, scal)
     m = ins_slots.shape[0]
@@ -638,33 +643,38 @@ def session_write(store: Dict[str, torch.Tensor], capacity: int, merged: Dict[st
     _expect(scal, torch.int64, (2,))
     dev = ins_slots.device
     m2 = 2 * m
-
-    def e(dt):
-        return torch.empty(m2, dtype=dt, device=dev)
-
-    lanes = {"mask": e(torch.bool), "keys": [e(torch.int64) for _ in range(k)], "comps": [],
-             "ws": e(torch.int64), "we": e(torch.int64), "tombstone": e(torch.bool),
-             "ord_a": e(torch.int64), "ord_b": e(torch.int64)}
+    # the 2m-row lanes: the int64 ones (ws, we, ord_a, ord_b, the keys) as
+    # the rows of one allocation, mask and tombstone of another
+    wide = torch.empty((4 + k, m2), dtype=torch.int64, device=dev).unbind(0)
+    flags = torch.empty((2, m2), dtype=torch.bool, device=dev).unbind(0)
+    ncomp = len(merged["comps"])
+    lanes = {"ws": wide[0], "we": wide[1], "ord_a": wide[2], "ord_b": wide[3], "keys": list(wide[4:]),
+             "comps": [torch.empty(m2, dtype=c.dtype, device=dev) for c in merged["comps"]],
+             "mask": flags[0], "tombstone": flags[1]}
+    _expect(merged["reprs"], torch.int64, (k, m))
+    _expect(merged["seg_reprs"], torch.int64, (k, m))
+    rp, sp = merged["reprs"].data_ptr(), merged["seg_reprs"].data_ptr()
     keys: List[int] = []
-    for r, s, o in zip(merged["reprs"], merged["seg_reprs"], lanes["keys"]):
-        keys += [r.data_ptr(), s.data_ptr(), o.data_ptr()]
+    for r, o in enumerate(lanes["keys"]):
+        keys += [rp + 8 * m * r, sp + 8 * m * r, o.data_ptr()]
     comps: List[int] = []
-    for j, (c, s) in enumerate(zip(merged["comps"], merged["seg_comps"])):
+    for j, (c, s, o) in enumerate(zip(merged["comps"], merged["seg_comps"], lanes["comps"])):
         col = store[f"a{j}"]
         _expect(col, c.dtype, (c1,))
-        o = e(c.dtype)
-        lanes["comps"].append(o)
         comps += [col.data_ptr(), c.data_ptr(), s.data_ptr(), o.data_ptr(), col.element_size()]
-    scratch = torch.empty(1, dtype=torch.int64, device=dev)
+    blocks = -(-m // WRITE_THREADS)
+    scratch = session_write.scratch.get(dev)
+    if scratch is None or scratch.shape[0] < 1 + blocks:
+        scratch = session_write.scratch[dev] = torch.zeros(1 + blocks, dtype=torch.int32, device=dev)
     fn = cuda.lib("session_write", "ksql_session_write")
     cuda.check("session_write", fn(
         store["sess_start"].data_ptr(), store["sess_end"].data_ptr(), store["dirty"].data_ptr(),
         store["max_ts"].data_ptr(), capacity, cuda.host_i64(keys), k, cuda.host_i64(comps),
-        len(merged["comps"]), m, ins_slots.data_ptr(),
+        ncomp, m, ins_slots.data_ptr(),
         *(merged[name].data_ptr() for name in (
             "start", "end", "alive", "isrow", "segfirst", "winner", "ins_act", "seg_start",
             "seg_end", "seg_has_row", "seg_minrow")),
-        scal.data_ptr(), scratch.data_ptr(),
+        scal.data_ptr(), scratch.data_ptr(), scratch.shape[0] - 1,
         *(lanes[name].data_ptr() for name in ("mask", "ws", "we", "tombstone", "ord_a", "ord_b")),
         _stream(dev),
     ))
@@ -675,5 +685,9 @@ def session_write(store: Dict[str, torch.Tensor], capacity: int, merged: Dict[st
 
 session_write.launches = 0
 session_write.mode_launches = {"delete": 0, "write": 0}
+#: per device, the write mode's int32 scratch: a done count, then one word
+#: a block (its highest item aimed at the dump slot); zeroed once, left
+#: clean by every call
+session_write.scratch = {}
 
 KERNEL_WRAPPERS = (seg_sort, session_items, session_merge, session_write)

@@ -53,6 +53,10 @@ from ksql_tpu_torch.ops.hash_store import (
 
 
 # ------------------------------------------------------ K17: suppress_clock
+#: the smallest tile K17 takes (csrc/suppress_clock.cu: kThreads x 2 items)
+CLOCK_MIN_TILE = 512
+
+
 def suppress_clock_plain(ts, wstart, active, row_valid, max_ts, emit_clock, size_ms, grace_ms):
     """Plain twin of K17 — see :func:`suppress_clock`."""
     n = ts.shape[0]
@@ -81,7 +85,9 @@ def suppress_clock(ts: torch.Tensor, wstart: torch.Tensor, active: torch.Tensor,
     cm_emit)``: the lanes that reach the store, their watermark
     contribution (``ts`` where active, INT64_MIN elsewhere) and the
     emission clock per raw row, ``max(cummax(where(row_valid, ts, MIN)),
-    emit_clock)``, which is non-decreasing.  One block; writes no state."""
+    emit_clock)``, which is non-decreasing.  One launch (a single-pass
+    scan with decoupled look-back over many blocks); writes no state but
+    its per-device scratch (``suppress_clock.scratch``)."""
     if not ts.is_cuda:
         return suppress_clock_plain(ts, wstart, active, row_valid, max_ts, emit_clock,
                                     size_ms, grace_ms)
@@ -97,11 +103,19 @@ def suppress_clock(ts: torch.Tensor, wstart: torch.Tensor, active: torch.Tensor,
     act = torch.empty(lanes, dtype=torch.bool, device=dev)
     c0 = torch.empty(lanes, dtype=torch.int64, device=dev)
     cm_emit = torch.empty(n, dtype=torch.int64, device=dev)
+    # tiles of the smallest size the kernel takes: an upper bound on its grid
+    need = (lanes // n) * -(-n // CLOCK_MIN_TILE)
+    scratch = suppress_clock.scratch.get(dev)
+    if scratch is None or scratch["tiles"] < need:
+        scratch = suppress_clock.scratch[dev] = {
+            "buf": torch.zeros(1 + 4 * need, dtype=torch.int64, device=dev), "tiles": need, "epoch": 0}
+    scratch["epoch"] += 1
     fn = cuda.lib("suppress_clock")
     cuda.check("suppress_clock", fn(
         ts.data_ptr(), wstart.data_ptr(), active.data_ptr(), row_valid.data_ptr(), n, lanes,
         max_ts.data_ptr(), emit_clock.data_ptr(), int(size_ms), int(grace_ms),
-        act.data_ptr(), c0.data_ptr(), cm_emit.data_ptr(), _stream(dev),
+        act.data_ptr(), c0.data_ptr(), cm_emit.data_ptr(), scratch["buf"].data_ptr(),
+        scratch["tiles"], scratch["epoch"], _stream(dev),
     ))
     suppress_clock.launches += 1
     suppress_clock.mode_launches["expansion" if lanes > n else "tumbling"] += 1
@@ -111,6 +125,11 @@ def suppress_clock(ts: torch.Tensor, wstart: torch.Tensor, active: torch.Tensor,
 suppress_clock.launches = 0
 #: ``tumbling``: one lane per row; ``expansion``: the k-fold hopping lanes
 suppress_clock.mode_launches = {"tumbling": 0, "expansion": 0}
+#: per device, the look-back scratch: ``buf`` (a ticket word, then a flag
+#: and a value a tile for the lane and the row sequences; zeroed once),
+#: its ``tiles`` and the calls made on it (``epoch``: each call's flags
+#: carry it, so no call resets the scratch)
+suppress_clock.scratch = {}
 
 
 # ------------------------------------------------------ K18: suppress_close

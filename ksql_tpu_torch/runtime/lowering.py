@@ -144,6 +144,7 @@ from ksql_tpu_torch.compiler.torch_expr import (
     deref_fields,
     deref_root,
     deref_synth_name,
+    round_program,
     torch_dtype,
 )
 from ksql_tpu_torch.execution import expressions as ex
@@ -1228,6 +1229,7 @@ class TorchCompiledQuery:
         # GROUP BY KEY (GroupByKey): the existing key columns
         return [env[col.name] for col in self.group.schema.key_columns]
 
+    @round_program()
     def _step(self, arrays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         state = self.state
         if self.agg is None:
@@ -1669,6 +1671,7 @@ class TorchCompiledQuery:
         vec.fold_vectors(store, self.store_layout, slots, contribs, vec_undo=undo)
         return self._emit_agg(slots, winners, n, ts_override=ts), reached, ts
 
+    @round_program()
     def _table_agg_step(self, a_new: Dict[str, torch.Tensor],
                         a_old: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One batch of table changes (the reference's
@@ -1689,6 +1692,7 @@ class TorchCompiledQuery:
         emits["overflow"] = store["overflow"].clone()
         return emits
 
+    @round_program()
     def _verdict(self, arrays: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The table transform's filter verdict over a batch of OLD rows
         (the reference's ``_trace_verdict``): expression ops only."""
@@ -1827,6 +1831,7 @@ class TorchCompiledQuery:
             fenv, fok = self._apply_ops(self.pre_ops, jenv, jok, 0)
             self._pack_emits(fenv, fok, ts)
 
+    @round_program()
     def _tt_step(self, side: str, a_new: Dict[str, torch.Tensor],
                  a_old: Dict[str, torch.Tensor]):
         """One batch of side ``side``'s changes (the reference's
@@ -1982,6 +1987,7 @@ class TorchCompiledQuery:
         hs.upsert_side(store["live"], self.jscratch[key], self.fk_store_capacity, slots, touched,
                        delete, act_new, cols + list(extra))
 
+    @round_program()
     def _fk_left(self, a_new: Dict[str, torch.Tensor], a_old: Dict[str, torch.Tensor]):
         """One batch of LEFT-table changes (the reference's
         ``_trace_fk_left``): K1 + K2 place each change in ``fkl``; K8's live
@@ -2034,6 +2040,7 @@ class TorchCompiledQuery:
         emits["tombstone"] = ~fok_new
         return emits, (fkl["occ"] | fkl["grave"]).sum(), fkl["overflow"] + fkr["overflow"]
 
+    @round_program()
     def _fk_right(self, a_new: Dict[str, torch.Tensor], a_old: Dict[str, torch.Tensor]):
         """One RIGHT-table change, per record (the reference's
         ``_trace_fk_right``): K1 + K2 + K9's side mode update ``fkr``; K24
@@ -2159,6 +2166,7 @@ class TorchCompiledQuery:
                 env[out_key.name] = kcol
         return env, active
 
+    @round_program()
     def _table_step(self, arrays: Dict[str, torch.Tensor], idx: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Fold one table-changelog batch into probe ``idx``'s store in
         place: K1's table mode hashes the key, K2 inserts with window 0 and
@@ -2318,7 +2326,8 @@ class TorchCompiledQuery:
         layout = self.layout if side == "l" else self.right_layout
         arrays = self.upload(layout.encode(batch))
         while True:
-            prep = self._ss_prepare(side, arrays)
+            with round_program() as rounds:  # a retry runs the same program again
+                prep = self._ss_prepare(side, arrays)
             total, lost = torch.stack([prep["count"][3], prep["pro"]["scal"][0]]).tolist()
             if lost == 0:
                 break
@@ -2326,7 +2335,9 @@ class TorchCompiledQuery:
         while total > self.ss_out_cap:
             self.ss_out_cap *= 2
             self.ss_out_grows += 1
-        return self._decode_emits(self._ss_write(side, arrays, prep))
+        with round_program(rounds):
+            lanes = self._ss_write(side, arrays, prep)
+        return self._decode_emits(lanes)
 
     def ss_expire_host(self) -> List[SinkEmit]:
         """Close, pad and evict both rings at the current stream time

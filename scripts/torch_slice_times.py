@@ -24,6 +24,11 @@ Groups (``--groups``, all by default):
   calls), K24 over a 2^18 + 1-slot orders store for the hottest customer
   and for one with none, then K1's table mode, K8's pair, K9's side mode
   and K24 at one change a step.
+* ``k17``: K17 at phase 2f's 65,536 tumbling and 196,608 k = 3 lanes,
+  12h's 65,536 k = 4 lanes and 12g's 2^20 rows, with the two
+  ``torch.cummax`` calls as its yardstick.
+* ``k16``: K16's write mode at phase 2w's 270,336 items (its inputs made
+  by the twins, ``chip_smoke.session_write_case``).
 
 Each kernel is held against its twin first (exact), then timed as
 chip_smoke times it (device ms from torch.profiler, its records counted,
@@ -42,13 +47,14 @@ import sys
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: the kernel functions of K10's, K13's and K24's earlier designs beside
+#: the kernel functions of K10's, K13's, K16's and K24's earlier designs beside
 #: this tree's, so that the profiler finds an earlier tree's
 EARLIER_FUNCS = {
     "fk_fanout": ("fanout_kernel", "fanout_count_kernel", "fanout_scan_kernel", "fanout_write_kernel"),
     "ss_match": ("tile_count_kernel", "tile_write_kernel", "match_count_kernel", "match_scan_kernel",
                  "match_write_kernel"),
     "seg_sort": ("block_sort_kernel", "tile_sort_kernel", "merge_pass_kernel"),
+    "session_write": ("delete_kernel", "write_kernel", "dump_kernel"),
 }
 #: K10's sweep: (ring entries before the dump entry, live share; None:
 #: the case's own)
@@ -209,11 +215,67 @@ def k13_shapes(cs, torch, seed):
     return out
 
 
+def k17_shapes(cs, torch, seed):
+    """K17 at the shapes its phases give it, on chip_smoke's suppress
+    cases (``make_suppress_case``): phase 2f's 65,536 tumbling lanes and
+    196,608 k = 3 expansion lanes, 12h's 16,384 rows as 65,536 k = 4
+    lanes and 12g's 2^20 tumbling rows; each against its twin, with the
+    two-``torch.cummax`` yardstick.  Returns ``[(kernel, shape, record,
+    what)]``."""
+    dev = torch.device(cs.DEVICE)
+    out = []
+    base = cs.make_suppress_case(torch, np.random.default_rng(seed + 11), dev, cs.N_ROWS, cs.STORE)
+    for mode in ("tumbling", "expansion"):
+        _got, rec, what = cs._check_suppress_clock(torch, base, mode, cs.FINAL_GRACE_MS)
+        out.append(("suppress_clock", f"2f {mode}", rec, what))
+    del base
+    for tag, rows, mode in (("12h", cs.HOP_ROWS, "expansion"), ("12g", cs.FINAL_GROW_ROWS, "tumbling")):
+        c = cs.make_suppress_case(torch, np.random.default_rng(seed + 12), dev, rows, cs.STORE,
+                                  advance=cs.HOP_ADVANCE_MS)
+        _got, rec, what = cs._check_suppress_clock(torch, c, mode, cs.FINAL_GRACE_MS)
+        out.append(("suppress_clock", f"{tag} {mode}", rec, what))
+        del c
+    return out
+
+
+def k16_shapes(cs, torch, seed):
+    """K16's write mode at phase 2w's shapes (``cs.session_write_case``:
+    270,336 items of BASELINE #5's query, S = 32), against its twin on a
+    copy of the store (lanes and the whole store exact).  Returns
+    ``[(kernel, shape, record, what)]``."""
+    from ksql_tpu_torch.ops import session as sess
+
+    with open(os.path.join(HERE, "ksql_tpu_torch", "plans", "pv_sessions.json")) as f:
+        plan = json.load(f)
+    dev = torch.device(cs.DEVICE)
+    w = cs.session_write_case(torch, plan, seed, dev)
+    cap, merged, ins, scal = w["cap"], w["merged"], w["ins"], w["scal"]
+    sk, sp = cs._clone(w["store"]), cs._clone(w["store"])
+    lanes_k = sess.session_write(sk, cap, merged, ins, scal)
+    lanes_p = sess.session_write_plain(sp, cap, merged, ins, scal)
+    cs._assert_tree(torch, "session_write[write] lanes", lanes_k, lanes_p)
+    cs._assert_tree(torch, "session_write[write] store", sk, sp)
+
+    def reset():
+        for s in (sk, sp):
+            cs._restore(s, w["store"])
+
+    m = w["m"]
+    rec = cs.measure(torch, "session_write", lambda: sess.session_write(sk, cap, merged, ins, scal),
+                     lambda: sess.session_write_plain(sp, cap, merged, ins, scal),
+                     cs.write_bytes(m, w["nseg"], w["k"], w["cb"], w["n_ins"]), m * 20, reset=reset,
+                     plain_reps=5)
+    dumped = int((~merged["ins_act"] | (ins == cap)).sum())
+    return [("session_write", "write 2w", rec,
+             f"{2 * m} lanes, {w['n_ins']} inserting items, {dumped} items aimed at the dump slot")]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", nargs="?", default=HERE, help="the checkout whose package is timed")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--groups", default="k10,k13,k8k24", help="comma-separated: k10, k13, k8k24")
+    ap.add_argument("--groups", default="k10,k13,k8k24,k17,k16",
+                    help="comma-separated: k10, k13, k8k24, k17, k16")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -235,7 +297,8 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip()
     print(smi)
     records = []
-    groups = {"k10": k10_shapes, "k13": k13_shapes, "k8k24": k8_k24_shapes}
+    groups = {"k10": k10_shapes, "k13": k13_shapes, "k8k24": k8_k24_shapes, "k17": k17_shapes,
+              "k16": k16_shapes}
     shapes = []
     for g in args.groups.split(","):
         shapes += groups[g](cs, torch, args.seed)

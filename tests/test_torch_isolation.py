@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, no ksql_tpu, and no silent CPU carry-on.
 
-* No module under ``ksql_tpu_torch/``, and not ``chip_smoke.py`` or
-  ``scripts/torch_store_overflow.py``, imports ``jax`` or ``ksql_tpu`` (an
-  AST scan of every import statement).
+* No module under ``ksql_tpu_torch/``, and not ``chip_smoke.py``, the
+  card-side scripts or the card tests and their cases (``CARD_SIDE``),
+  imports ``jax`` or ``ksql_tpu`` (an AST scan of every import
+  statement).
 * A fresh interpreter that imports the port and runs ``run_plan``, or a
   push registry's taps, on the CPU never loads ``jax``.
 * Without ``device=``, the entry points run on CUDA and raise when there is
@@ -25,8 +26,15 @@ PKG = os.path.join(ROOT, "ksql_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "ksql_tpu")
 
 
+#: the card-side scripts and test helpers, beside the package and chip_smoke.py
+CARD_SIDE = ("scripts/torch_store_overflow.py", "scripts/torch_slice_times.py",
+             "scripts/torch_k10_k13_probe.py", "scripts/torch_k8_warp_probe.py",
+             "scripts/torch_k16_k17_probe.py", "tests/torch_kernel_cases.py",
+             "tests/test_torch_kernels_gpu.py")
+
+
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "torch_store_overflow.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py")] + [os.path.join(ROOT, *p.split("/")) for p in CARD_SIDE]
     for d, _dirs, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

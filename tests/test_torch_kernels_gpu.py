@@ -34,6 +34,7 @@ from ksql_tpu_torch.ops import session as sess
 from ksql_tpu_torch.ops import slicing
 from ksql_tpu_torch.ops import ss_join as ssj
 from ksql_tpu_torch.ops import suppress as sup
+from torch_kernel_cases import CLOCK_CASES, WRITE_CASES, clock_case, write_case, write_torch
 
 pytestmark = pytest.mark.gpu
 I64 = np.iinfo(np.int64)
@@ -812,7 +813,7 @@ def test_fk_fanout_is_one_launch_at_tile_edges(dev, case):
         assert m > 100
     else:
         assert m == (cap if where == "all" else len(where))
-    kernels = _cuda_kernels(lambda: tj.fk_fanout(st, cap, krepr, touched, cols))
+    kernels = _records_per_call(lambda: tj.fk_fanout(st, cap, krepr, touched, cols))
     assert len(kernels) == 1 and "fanout" in kernels[0]
 
 
@@ -837,7 +838,7 @@ def test_probe_find_live_pair_is_one_launch_and_matches_twin(dev, n):
         _same(g[2], w[2])
         for k in w[0]:
             _same(g[0][k], w[0][k])
-    kernels = _cuda_kernels(lambda: hs.probe_find_live_pair(st, cap, sets, cols, st["live"]))
+    kernels = _records_per_call(lambda: hs.probe_find_live_pair(st, cap, sets, cols, st["live"]))
     assert len(kernels) == 1 and "probe_find" in kernels[0]
 
 
@@ -897,37 +898,6 @@ def test_session_merge_argset_kernel_matches_twin(dev, ties):
     chip_smoke.check_merge_argset(torch, sess, items, perm, comps, 1024, 4, 1 << 12, "K15 argset")
 
 
-#: the fence kernels _cuda_kernels launches after ``fn``: a trace can come
-#: back without the records of its last kernels, or of all of them (seen on
-#: the H100 for microsecond-long kernels), so fn's kernels are followed by
-#: two of torch's spin kernels, and a trace that holds neither is taken again
-_FENCES = 2
-
-
-def _cuda_kernels(fn, reset=None, attempts=3):
-    """Names of the CUDA kernels ``fn()`` launches, one entry a launch (from
-    torch.profiler's device events; the fences after them left out).  A
-    trace without the fences is taken again, after ``reset()`` (which puts
-    back what ``fn`` changed; None: ``fn`` gives the same result run
-    twice), at most ``attempts`` times in all."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for attempt in range(attempts):
-        if attempt and reset is not None:
-            reset()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            for _ in range(_FENCES):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "emcpy" not in e.name and "emset" not in e.name]
-        if any("spin_kernel" in name for name in names):
-            return [name for name in names if "spin_kernel" not in name]
-    raise AssertionError(f"{attempts} profiler traces held none of the fences")
-
-
 def _keys_at(rng, capacity, base, count):
     out = []
     while len(out) < count:
@@ -981,21 +951,16 @@ def test_probe_insert_is_one_launch_and_matches_twin(dev, n, capacity, cluster):
     st, args = _insert_case(dev, n, capacity, seed=n, cluster=cluster)
     sk = {k: v.clone() for k, v in st.items()}
     sp = {k: v.clone() for k, v in st.items()}
+    sc = {k: v.clone() for k, v in st.items()}
     scratch = hs.init_scratch(capacity, dev)
-    out = {}
-
-    def reset():
-        for k in st:
-            sk[k].copy_(st[k])
-        out.clear()
-
-    names = _cuda_kernels(lambda: out.setdefault("slots", hs.probe_insert(sk, scratch, capacity, *args)),
-                          reset)
+    got = hs.probe_insert(sk, scratch, capacity, *args)
+    # the launches from 20 calls on another copy (each call launches the same)
+    names = _records_per_call(lambda: hs.probe_insert(sc, scratch, capacity, *args))
     solo = hs.probe_sizes()[0]
     assert solo == 4096  # the shapes above straddle the one-block threshold
     assert len(names) == 1 and ("block_kernel" if n <= solo else "grid_kernel") in names[0]
     want = hs.probe_insert_plain(sp, capacity, *args)
-    _same(out["slots"], want)
+    _same(got, want)
     for k in st:
         _same(sk[k], sp[k])
     assert (scratch["claim"] == hs.INT32_MAX).all()
@@ -1128,7 +1093,9 @@ def test_table_upsert_is_one_launch_and_matches_twin(dev, n, shape):
     kernel = "upsert_block_kernel" if n <= 4096 else "upsert_grid_kernel"
     sk = {k: v.clone() for k, v in st.items()}
     sp = {k: v.clone() for k, v in st.items()}
-    names = _cuda_kernels(lambda: hs.table_upsert(sk, scratch, cap, slots, active, delete, batch))
+    sc = {k: v.clone() for k, v in st.items()}
+    hs.table_upsert(sk, scratch, cap, slots, active, delete, batch)
+    names = _records_per_call(lambda: hs.table_upsert(sc, scratch, cap, slots, active, delete, batch))
     assert len(names) == 1 and kernel in names[0]
     hs.table_upsert_plain(sp, cap, slots, active, delete, batch)
     for k in st:
@@ -1140,8 +1107,10 @@ def test_table_upsert_is_one_launch_and_matches_twin(dev, n, shape):
     def cols(s):
         return [(s[f"v_{c}"], s[f"m_{c}"], *batch[c], c != "D") for c, _ in JOIN_COLS]
 
-    names = _cuda_kernels(lambda: hs.upsert_side(sk["live"], scratch, cap, slots, active, delete, act,
-                                                 cols(sk)))
+    sc = {k: v.clone() for k, v in st.items()}
+    hs.upsert_side(sk["live"], scratch, cap, slots, active, delete, act, cols(sk))
+    names = _records_per_call(lambda: hs.upsert_side(sc["live"], scratch, cap, slots, active, delete, act,
+                                                     cols(sc)))
     assert len(names) == 1 and kernel in names[0]
     hs.upsert_side_plain(sp["live"], cap, slots, active, delete, act, cols(sp))
     for k in st:
@@ -1228,11 +1197,10 @@ def test_session_merge_long_runs_are_two_launches_and_match_twin(dev, case):
         items["comps"][0], items["comps"][3] = orders, orders.clone()
     m = kh.size
     perm = torch.arange(m, dtype=torch.int32, device=dev)  # already in (kh, start) order
-    out = {}
-    names = _cuda_kernels(lambda: out.setdefault("got", sess.session_merge(items, perm, m // 2, S, gap,
-                                                                        comps, 1 << 12)))
+    got = sess.session_merge(items, perm, m // 2, S, gap, comps, 1 << 12)
+    names = _records_per_call(lambda: sess.session_merge(items, perm, m // 2, S, gap, comps, 1 << 12))
     assert len(names) == 2 and "permute_kernel" in names[0] and "merge_kernel" in names[1]
-    got, want = out["got"], sess.session_merge_plain(items, perm, m // 2, S, gap, comps, 1 << 12)
+    want = sess.session_merge_plain(items, perm, m // 2, S, gap, comps, 1 << 12)
     for key in sess.MERGE_ITEM_KEYS + ("sess_ovf",):
         _same_tree(_bits(got[key]), _bits(want[key]))
     sf = want["segfirst"].long()
@@ -1245,8 +1213,8 @@ def test_session_merge_long_runs_are_two_launches_and_match_twin(dev, case):
         assert int(want["sess_ovf"]) > 1024
 
 
-# ---- K10's and K13's launch counts, last in the file, after the one-call
-# traces of the tests above: their own traces are long (20 calls each)
+# ---- launch counts: every one-launch check reads a trace of 20 calls (a
+# one-call trace can lose its records on the H100)
 def _records_per_call(fn, reps=20, attempts=3):
     """Names of the CUDA kernels one call of ``fn()`` launches, from a
     trace of ``reps`` calls fenced as chip_smoke's kernel_device_ms fences
@@ -1355,3 +1323,50 @@ def test_seg_sort_is_one_launch_up_to_a_block(dev, shape):
     _same(got, sess.seg_sort_plain(t1, t2))
     kernels = _records_per_call(lambda: sess.seg_sort(t1, t2))
     assert len(kernels) == 1 and "block_sort_kernel" in kernels[0], kernels
+
+
+# ---- K17 and K16's write mode at their tiles' edges (tests/torch_kernel_cases.py)
+@pytest.mark.parametrize("case", list(CLOCK_CASES))
+def test_suppress_clock_is_one_launch_at_tile_edges(dev, case):
+    # tolerance: exact (the lanes' cut and contribution, the emission
+    # clock); one clock_kernel record a call; called twice, so the second
+    # call meets the first's look-back scratch
+    n, k, kind = CLOCK_CASES[case]
+    args = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in clock_case(n, k, kind, seed=n + k)]
+    want = sup.suppress_clock_plain(*args)
+    mode = "expansion" if k > 1 else "tumbling"
+    for _ in range(2):
+        before = dict(sup.suppress_clock.mode_launches)
+        got = sup.suppress_clock(*args)
+        assert sup.suppress_clock.mode_launches[mode] == before[mode] + 1
+        _same_tree(list(got), list(want))
+    kernels = _records_per_call(lambda: sup.suppress_clock(*args))
+    assert len(kernels) == 1 and "clock_kernel" in kernels[0], kernels
+
+
+@pytest.mark.parametrize("case", list(WRITE_CASES))
+def test_session_write_is_one_launch_at_block_edges(dev, case):
+    # tolerance: exact (every lane, the whole store with its dump slot);
+    # one write_kernel record a call, its done count back to 0 after it
+    m, kind, sizes, k = WRITE_CASES[case]
+    store, merged, ins, scal = write_case(m, kind, sizes, k, seed=m)
+    cap = store["dirty"].shape[0] - 1
+    sp, pm, pins, pscal = write_torch(store, merged, ins, scal)
+    want = sess.session_write_plain(sp, cap, pm, pins, pscal)
+
+    def on_card():
+        s, mm, i, sc = write_torch(store, merged, ins, scal)
+        cu = {key: ([x.to(dev) for x in v] if isinstance(v, list) else v.to(dev)) for key, v in mm.items()}
+        return {key: v.to(dev) for key, v in s.items()}, cu, i.to(dev), sc.to(dev)
+
+    for _ in range(2):
+        sk, cm, cins, cscal = on_card()
+        before = dict(sess.session_write.mode_launches)
+        got = sess.session_write(sk, cap, cm, cins, cscal)
+        assert sess.session_write.mode_launches["write"] == before["write"] + 1
+        _same_tree({key: _bits(v) for key, v in got.items()}, {key: _bits(v) for key, v in want.items()})
+        for key in sp:
+            _same(_bits(sk[key]), _bits(sp[key]))
+        assert int(sess.session_write.scratch[cins.device][0]) == 0
+    kernels = _records_per_call(lambda: sess.session_write(sk, cap, cm, cins, cscal))
+    assert len(kernels) == 1 and "write_kernel" in kernels[0], kernels

@@ -470,17 +470,16 @@ def _rounding_rows(n=64):
 
 
 def test_a_rounded_constant_divisor_is_program_dependent_in_the_reference():
-    """ROADMAP C14's one open case: the reference folds a fully constant
-    ROUND divisor by XLA's pass order, which depends on the rest of the
-    program.  ROUND(10.37, 1) is floor(104.2) * 10^-1 = 10.4.  Alone, the
-    step multiplies CAST(X AS DOUBLE) by (1 / 104) * (1 / 0.1) =
-    0.09615384615384616 (the divisor's product taken apart); beside
-    D / ROUND(10.37, 1) the same expression multiplies by 1 / 10.4 =
-    0.09615384615384615 and D takes the other constant.  The port folds
-    the divisor whole (ROADMAP C13) and multiplies by 1 / 10.4 in both
-    programs: the second program's bits, not the first's."""
+    """ROADMAP C14: the reference folds a fully constant ROUND divisor by
+    where it stands in its program.  ROUND(10.37, 1) is floor(104.2) *
+    10^-1 = 10.4.  Alone, the step multiplies CAST(X AS DOUBLE) by 10 *
+    (1 / 104) = 0.09615384615384616 (the divisor's product taken apart);
+    after D / ROUND(10.37, 1) the same expression multiplies by 1 / 10.4 =
+    0.09615384615384615, and D takes the split constant.  The port keeps
+    the program's order of its constant ROUNDs (``round_program``) and
+    gives both programs' bits."""
     rows = _rounding_rows()
-    split = float(np.float64(1.0) / np.float64(104.0) * (np.float64(1.0) / np.float64(0.1)))
+    split = float(np.float64(10.0) * (np.float64(1.0) / np.float64(104.0)))
     whole = float(np.float64(1.0) / np.float64(10.4))
     assert split == 0.09615384615384616 and whole == 0.09615384615384615
     alone_ref, alone_port = _both_steps(["CAST(X AS DOUBLE) / ROUND(10.37, 1)"], rows)
@@ -490,11 +489,67 @@ def test_a_rounded_constant_divisor_is_program_dependent_in_the_reference():
     assert [r["Y0"] for r in alone_ref] == [x * split for x in xs]
     assert [r["Y1"] for r in pair_ref] == [x * whole for x in xs]
     assert [r["Y0"] for r in pair_ref] == [r["D"] * split for r in rows]
-    # the reference disagrees with itself on the same expression
+    # the reference disagrees with itself on the same expression, and the
+    # port with it in both programs
     assert any(a["Y0"] != b["Y1"] for a, b in zip(alone_ref, pair_ref))
-    # the port gives the second program's bits in both
-    assert [r["Y0"] for r in alone_port] == [r["Y1"] for r in pair_port] == [x * whole for x in xs]
-    assert [r["Y1"] for r in pair_port] == [r["Y1"] for r in pair_ref]
+    assert [repr(r) for r in alone_port] == [repr(r) for r in alone_ref]
+    assert [repr(r) for r in pair_port] == [repr(r) for r in pair_ref]
+
+
+#: ROADMAP C14's family: a constant ROUND divisor used once and twice, in
+#: one expression and in two, after a product, a sum or a filter that met
+#: it first, beside another constant divisor, over other literals and
+#: scales, under a product, chained with itself, and a DECIMAL cast's
+#: (a chain onto another constant ROUND is the open rest of C14, below)
+R = "ROUND(10.37, 1)"
+C14_FAMILY = {
+    "alone": [f"CAST(X AS DOUBLE) / {R}"],
+    "alone_d": [f"D / {R}"],
+    "twice_d_first": [f"D / {R}", f"CAST(X AS DOUBLE) / {R}"],
+    "twice_x_first": [f"CAST(X AS DOUBLE) / {R}", f"D / {R}"],
+    "same_twice": [f"CAST(X AS DOUBLE) / {R}", f"CAST(X AS DOUBLE) / {R}"],
+    "thrice": [f"D / {R}", f"CAST(X AS DOUBLE) / {R}", f"D / {R}"],
+    "one_expression": [f"D / {R} + CAST(X AS DOUBLE) / {R}"],
+    "after_a_product": [f"{R} * D", f"CAST(X AS DOUBLE) / {R}"],
+    "before_a_product": [f"CAST(X AS DOUBLE) / {R}", f"{R} * D"],
+    "after_a_sum": [f"{R} + D", f"CAST(X AS DOUBLE) / {R}"],
+    "inside_a_divisor_first": [f"CAST(X AS DOUBLE) / ({R} * 1.5)", f"CAST(X AS DOUBLE) / {R}"],
+    "inside_a_divisor_after": [f"CAST(X AS DOUBLE) / {R}", f"CAST(X AS DOUBLE) / ({R} * 1.5)"],
+    "beside_another": ["D / ROUND(2.35, 1)", f"CAST(X AS DOUBLE) / {R}"],
+    "other_literals": ["CAST(X AS DOUBLE) / ROUND(123.456, 2)", "D / ROUND(1234.5, -1)",
+                       "D / ROUND(0.3, 1)", "D / ROUND(7.7, 1)"],
+    "under_a_product": [f"CAST(X AS DOUBLE) / {R} * 1.5"],
+    "chained_with_itself": [f"CAST(X AS DOUBLE) / {R} / {R}"],
+    "decimal_cast": ["CAST(X AS DOUBLE) / CAST(10.37 AS DECIMAL(4, 1))",
+                     "D / CAST(10.37 AS DECIMAL(4, 1))"],
+}
+
+
+@pytest.mark.parametrize("rows", [64, 1])
+@pytest.mark.parametrize("case", list(C14_FAMILY))
+def test_rounded_constant_divisors_are_the_references(case, rows):
+    """ROADMAP C14's family, bit for bit over 64 seeded rows and at one
+    lane (where XLA folds every such divisor whole)."""
+    data = _rounding_rows(rows)
+    want, got = _both_steps(C14_FAMILY[case], data)
+    assert [repr(r) for r in got] == [repr(r) for r in want]
+
+
+def test_chains_of_different_rounded_divisors_stay_apart():
+    """ROADMAP C14, still open: a division chained onto a division by
+    another constant ROUND.  The reference's constant is neither the
+    split nor the whole reciprocals' product in these two programs (XLA
+    merges the chain, ``(A / B) / C -> A / (B * C)``, in some order the
+    port does not model); the port multiplies by the split reciprocals'
+    product and is one unit in the last place away."""
+    rows = [{"X": 1, "D": 1.0, "S": 1}] * 8
+    for forms, ref, port in (
+            (["CAST(X AS DOUBLE) / ROUND(10.37, 1) / ROUND(7.7, 1)"], 0.012487512487512488,
+             0.01248751248751249),
+            (["CAST(X AS DOUBLE) / ROUND(123.456, 2) / ROUND(0.3, 1)"], 0.026999298018251527,
+             0.02699929801825152)):
+        want, got = _both_steps(forms, rows)
+        assert want[0]["Y0"] == ref and got[0]["Y0"] == port
 
 
 def test_a_folded_divisor_is_evaluated_once_per_node(monkeypatch):

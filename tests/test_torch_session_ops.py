@@ -26,6 +26,7 @@ from ksql_tpu_torch.state import state_from_numpy, state_to_numpy
 from tests.test_torch_join import _same_bits
 from tests.test_torch_session import (BENCH, DDL, DOUBLES, D_DDL, GRACE, PV_DDL, SQL,
                                       build_pair)
+from tests.torch_kernel_cases import WRITE_CASES, write_case, write_torch
 
 jax.config.update("jax_enable_x64", True)
 I64 = np.iinfo(np.int64)
@@ -360,3 +361,69 @@ def test_session_mode_hash_equals_reference():
     want = ref_combine_hash([jnp.asarray(reprs[0]), jnp.asarray(reprs[1]), jnp.zeros(50, jnp.int64)])
     np.testing.assert_array_equal(khash.numpy(), np.asarray(want))
     np.testing.assert_array_equal(act.numpy(), active & valid.all(0))
+
+
+# ------------------------------------------------- K16's write mode alone
+@jax.jit
+def _reference_write(store, merged, ins, scal):
+    """The store writes and emission lanes of the reference's
+    ``post_session_exchange`` (``ksql_tpu/runtime/lowering.py:3715-3799``)
+    written out in jax, on K16's inputs: ``seg`` is ``segfirst``,
+    ``del_mask`` the alive stored-session items, ``batch_max`` ``scal[1]``."""
+    state = dict(store)
+    cap = store["dirty"].shape[0] - 1
+    seg = merged["segfirst"]
+    tgt_ins = jnp.where(merged["ins_act"], ins, jnp.int32(cap))
+    state["sess_start"] = state["sess_start"].at[tgt_ins].set(merged["seg_start"][seg])
+    state["sess_end"] = state["sess_end"].at[tgt_ins].set(merged["seg_end"][seg])
+    for j, sc in enumerate(merged["seg_comps"]):
+        col = state[f"a{j}"]
+        state[f"a{j}"] = col.at[tgt_ins].set(sc[seg].astype(col.dtype))
+    state["dirty"] = state["dirty"].at[tgt_ins].set(True).at[cap].set(False)
+    state["max_ts"] = jnp.maximum(state["max_ts"], scal[1])
+    del_mask = ~merged["isrow"] & merged["alive"]
+    tomb = del_mask & merged["seg_has_row"][seg]
+    emit_seg = merged["winner"] & merged["seg_has_row"][seg]
+    m = seg.shape[0]
+    big = jnp.int64(I64.max)
+    ord_row = jnp.where(merged["seg_minrow"][seg] == big, 0, merged["seg_minrow"][seg])
+    lanes = {
+        "mask": jnp.concatenate([tomb, emit_seg]),
+        "keys": [jnp.concatenate([r, s[seg]]) for r, s in zip(merged["reprs"], merged["seg_reprs"])],
+        "comps": [jnp.concatenate([c, s[seg]]) for c, s in zip(merged["comps"], merged["seg_comps"])],
+        "ws": jnp.concatenate([merged["start"], merged["seg_start"][seg]]),
+        "we": jnp.concatenate([merged["end"], merged["seg_end"][seg]]),
+        "tombstone": jnp.concatenate([jnp.ones(m, bool), jnp.zeros(m, bool)]),
+        "ord_a": jnp.concatenate([ord_row, ord_row]),
+        "ord_b": jnp.concatenate([merged["start"], jnp.full(m, big, jnp.int64)]),
+    }
+    return state, lanes
+
+
+@pytest.mark.parametrize("case", list(WRITE_CASES))
+def test_session_write_twin_equals_reference(case):
+    # tolerance: exact (every lane, the whole store with its dump slot,
+    # float64 compared as bits)
+    m, kind, sizes, k = WRITE_CASES[case]
+    store, merged, ins, scal = write_case(m, kind, sizes, k, seed=m)
+    cap = store["dirty"].shape[0] - 1
+    jm = {key: ([jnp.asarray(x) for x in v] if isinstance(v, list) else jnp.asarray(v))
+          for key, v in merged.items()}
+    want_state, want_lanes = _reference_write({key: jnp.asarray(v) for key, v in store.items()}, jm,
+                                              jnp.asarray(ins), jnp.asarray(scal))
+    st, pm, pins, pscal = write_torch(store, merged, ins, scal)
+    lanes = sess.session_write(st, cap, pm, pins, pscal)  # CPU tensors: the twin
+    for key, w in want_state.items():
+        _same_bits(st[key].numpy(), np.asarray(w), f"store {key}")
+    for key, w in want_lanes.items():
+        if isinstance(w, list):
+            assert len(lanes[key]) == len(w)
+            for j, (g, x) in enumerate(zip(lanes[key], w)):
+                _same_bits(g.numpy(), np.asarray(x), f"lane {key}[{j}]")
+        else:
+            _same_bits(lanes[key].numpy(), np.asarray(w), f"lane {key}")
+    aimed = ~merged["ins_act"] | (ins == cap)
+    if kind == "none":
+        assert not aimed.any()
+    if kind in ("all", "last"):
+        assert aimed[-1] and aimed.sum() == (m if kind == "all" else 1)

@@ -19,6 +19,7 @@ K17's emission clock is non-decreasing, so K18's sort is the identity.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -35,6 +36,7 @@ from ksql_tpu.execution.steps import plan_to_json
 from ksql_tpu.runtime.lowering import CompiledDeviceQuery
 from tests.test_torch_lowering import (DDL, HOUR, _as_tuples, _capture, assert_same_lanes,
                                        assert_same_state, plan_for)
+from tests.torch_kernel_cases import CLOCK_CASES, clock_case
 
 jax.config.update("jax_enable_x64", True)
 I64 = np.iinfo(np.int64)
@@ -296,3 +298,37 @@ def test_evict_plain_suppress_needs_born():
     store["max_ts"].fill_(10 * HOUR)
     hs.evict_plain(store, layout, HOUR, suppress=True)
     assert not store["occ"][0] and not store["emitted"][0] and store["grave"][0]
+
+
+@jax.jit
+def _reference_clock(ts, wstart, active, row_valid, max_ts, emit_clock, size, grace):
+    """The suppress lanes of the reference's ``pre_exchange``
+    (``ksql_tpu/runtime/lowering.py:3906-3931``) written out in jax on
+    K17's inputs: the lanes are the rows tiled k times, as the expansion
+    route tiles them; ``c0`` is the watermark contribution of the lanes
+    that stay (its ``contribs[0]``)."""
+    neg = jnp.int64(I64.min)
+    lane_ts = jnp.tile(ts, active.shape[0] // ts.shape[0])
+    cm = jnp.maximum(jax.lax.cummax(jnp.where(active, lane_ts, neg)), max_ts)
+    act = active & (wstart + size + grace > cm)
+    cm_emit = jnp.maximum(jax.lax.cummax(jnp.where(row_valid, ts, neg)), emit_clock)
+    return act, jnp.where(act, lane_ts, neg), cm_emit
+
+
+@pytest.mark.parametrize("case", list(CLOCK_CASES))
+def test_suppress_clock_twin_equals_reference(case):
+    # tolerance: exact (the lanes' cut and contribution, the emission clock)
+    n, k, kind = CLOCK_CASES[case]
+    args = clock_case(n, k, kind, seed=n + k)
+    got = sup.suppress_clock(*args)  # CPU tensors: the twin
+    want = _reference_clock(*(jnp.asarray(a.numpy()) for a in args[:6]), jnp.int64(args[6]),
+                            jnp.int64(args[7]))
+    for g, w, name in zip(got, want, ("active", "c0", "cm_emit")):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    cut = int(args[2].sum() - got[0].sum())
+    if kind == "late":
+        assert not got[0].any() and int(args[2].sum()) > 0
+    if kind == "inactive":
+        assert not got[0].any() and bool((got[2] == args[5]).all())
+    if kind in ("random", "wrap") and n > 1:
+        assert cut > 0
