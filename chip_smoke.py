@@ -23,7 +23,9 @@ Phases, in this order; any failure exits non-zero and prints no result:
    launch cost included), the twin's time, the least time the card could
    take (bytes over 3.35 TB/s, ops over 67 TOP/s) and a PyTorch library
    yardstick where one exists.  K2 also at phase 12g's 2^20-row batch,
-   where its cooperative grid strides over more rows than it has threads.
+   where its cooperative grid strides over more rows than it has threads;
+   K3 also at phase 3's own timestamps (about a quarter of the rows on one
+   slot), printed only.
 2h. The hopping path's kernels against their twins at BASELINE #2's shapes
    (16,384-row batches, k = 4, S = 4 slices per window, a ring of 102
    slices, a 2^16-slot store 70% full with graves, stale ring cells and
@@ -406,7 +408,7 @@ def time_events(torch, fn, reset=None, reps=REPS, warmup=3) -> float:
 KERNEL_FUNCS = {
     "row_prologue": ("row_prologue_kernel", "batch_max_kernel"),
     "probe_insert": ("block_kernel", "grid_kernel"),
-    "fold_and_mark": ("fold_kernel", "winners_kernel", "argset_kernel", "argset_dump_kernel"),
+    "fold_and_mark": ("fold_mark_kernel", "argset_kernel"),
     "evict": ("evict_kernel",),
     "sliced_fold": ("slice_reset_kernel", "slice_fold_kernel"),
     "combine_windows": ("combine_kernel",),
@@ -423,8 +425,7 @@ KERNEL_FUNCS = {
     "suppress_clock": ("clock_kernel",),
     "suppress_close": ("born_kernel", "close_kernel"),
     "having_verdict": ("verdict_kernel", "dump_kernel"),
-    "vec_collect": ("collect_prologue_kernel", "collect_first_kernel", "collect_place_kernel",
-                    "collect_finish_kernel"),
+    "vec_collect": ("collect_keys_kernel", "collect_member_kernel", "collect_place_kernel"),
     "vec_topk": ("topk_keys_kernel", "topk_dedup_kernel", "topk_gather_kernel", "topk_pstar_kernel",
                  "topk_top_kernel", "topk_dump_kernel"),
     "vec_hist": ("hist_count_kernel",),
@@ -685,6 +686,49 @@ def _report(phase, tag, rec):
           f"yardstick {lib}; max abs err {rec['max_abs_err']:.3g}")
 
 
+def make_fold_case(torch, hs, rng, dev, traffic="phase2", n=N_ROWS, capacity=STORE):
+    """K3's fold case at the flagship's shapes without K1 and K2: ``n``
+    rows of (URL, hour) keys on distinct slots of a ``capacity``-slot
+    store, the flagship's components (the window's max timestamp and
+    COUNT), 0.1% of the rows inactive (at the dump slot, identity
+    contributions).  ``traffic``: ``phase2``, phase 2's zipf(1.3) URLs
+    over 31 hours (the hottest slot takes ~0.8% of the rows);
+    ``flagship``, phase 3's, 17 ms apart (one or two windows: the hottest
+    slot takes about a quarter); ``uniform``, phase 2's hours over uniform
+    URLs.  Returns (store, scratch, layout, slots, contribs, active)."""
+    layout = hs.StoreLayout(capacity, 1, (
+        hs.AggComponent("max", "int64", np.iinfo(np.int64).min),
+        hs.AggComponent("add", "int64", 0),
+    ), windowed=True)
+    if traffic == "uniform":
+        uid = rng.integers(0, N_URLS, n)
+    else:
+        uid = rng.zipf(1.3, n).astype(np.int64) % N_URLS
+    if traffic == "flagship":
+        ts = TS0 + np.arange(n, dtype=np.int64) * 17
+    else:
+        ts = TS0 - 30 * HOUR_MS + np.sort(rng.integers(0, 31 * HOUR_MS, n))
+    keys, inv = np.unique(uid * 64 + ts // HOUR_MS % 64, return_inverse=True)
+    slots = rng.choice(capacity, keys.size, replace=False)[inv].astype(np.int32)
+    active = rng.random(n) > 0.001
+    slots[~active] = capacity
+    store = hs.init_store(layout, dev)
+    scratch = hs.init_scratch(capacity, dev)
+    act = torch.from_numpy(active).to(dev)
+    c0 = torch.from_numpy(np.where(active, ts, np.iinfo(np.int64).min)).to(dev)
+    return store, scratch, layout, torch.from_numpy(slots).to(dev), [c0, act.to(torch.int64)], act
+
+
+def fold_bytes(torch, slots, active, contribs):
+    """K3 fold's bytes: per row its slot, its mask and its contributions
+    read once; per touched slot each component read and written, its
+    ``dirty`` flag and ``first`` cell written; the winners written."""
+    n = slots.shape[0]
+    touched = int(torch.unique(slots[active]).numel())
+    cb = sum(c.element_size() for c in contribs)
+    return n * (4 + 1 + cb) + touched * (2 * cb + 1 + 4) + n
+
+
 def phase_kernels(torch, seed, n=N_ROWS, capacity=STORE):
     """Every kernel against its plain twin on the card; returns the
     per-kernel records (without launch counts)."""
@@ -815,6 +859,23 @@ def phase_kernels(torch, seed, n=N_ROWS, capacity=STORE):
                                    work["a1"].index_add_(0, sl, ones)))
     recs["fold_and_mark"] = dict(rec, max_abs_err=err3)
     _report("2", "fold_and_mark (yardstick index_reduce_ amax + index_add_)", recs["fold_and_mark"])
+    # K3 on phase 3's own traffic (17 ms apart: about a quarter of the rows
+    # on one slot), the contention its warp combine is for; printed only
+    fst, fscratch, flayout, fslots, fcontribs, fact = make_fold_case(
+        torch, hs, np.random.default_rng(seed + 5), dev, "flagship", n, capacity)
+    fk, fp = _clone(fst), _clone(fst)
+    _assert_equal(torch, "fold_and_mark[flagship].winners",
+                  hs.fold_and_mark(fk, fscratch, flayout, fslots, fcontribs, fact),
+                  hs.fold_and_mark_plain(fp, flayout, fslots, fcontribs, fact))
+    for key in fst:
+        _assert_equal(torch, f"fold_and_mark[flagship].{key}", fk[key], fp[key])
+    hot = int(torch.bincount(fslots[fact].long()).max())
+    rec = measure(torch, "fold_and_mark", lambda: hs.fold_and_mark(fk, fscratch, flayout, fslots, fcontribs, fact),
+                  lambda: hs.fold_and_mark_plain(fp, flayout, fslots, fcontribs, fact),
+                  fold_bytes(torch, fslots, fact, fcontribs), n * 6, plain_reps=5)
+    _report("2", f"fold_and_mark at phase 3's timestamps ({n} rows, the hottest slot {hot})",
+            dict(rec, max_abs_err=0.0))
+    del fst, fk, fp, fscratch
 
     # ---- K4 evict: the same store, stream time past the oldest windows
     ev0 = _clone(store_k)
@@ -4174,31 +4235,10 @@ def phase_table_agg_kernels(torch, seed):
     del c, ostore, work, twin, saved, hsaved, after1
 
     # ---- K3 on the undo side of phase 15: 65,536 negated rows into 50 regions
-    q, ulayout, ustore = _vector_query(torch, USERS_PLAN, TA_ROWS, TA_STORE, dev)
+    base_st, scratch, ulayout, slots, contribs, active = make_undo_fold_case(torch, hs, rng, dev)
     n = TA_ROWS
-    region_slots = rng.choice(TA_STORE, TA_REGIONS, replace=False)
-    for j, comp in enumerate(ulayout.components):
-        if comp.combine == "add":
-            v = rng.integers(2000, 3000, TA_STORE + 1)
-            ustore[f"a{j}"].copy_(torch.from_numpy(v.astype(np.float64 if comp.dtype == "float64"
-                                                            else comp.dtype)))
-    slots = region_slots[rng.integers(0, TA_REGIONS, n)].astype(np.int32)
-    slots[rng.random(n) < 0.01] = TA_STORE  # old rows whose group is gone
-    slots = torch.from_numpy(slots).to(dev)
-    active = torch.from_numpy(rng.random(n) > 0.001).to(dev)
-    from ksql_tpu_torch.common import types as T
-    from ksql_tpu_torch.compiler.torch_expr import DCol
-
-    amt = DCol(torch.from_numpy(rng.integers(0, 1001, n).astype(np.int32)).to(dev),
-               torch.ones(n, dtype=torch.bool, device=dev), T.INTEGER)
-    ts = torch.from_numpy(TS0 + np.arange(n, dtype=np.int64) * 17).to(dev)
-    contribs = [torch.where(active, ts, torch.full_like(ts, np.iinfo(np.int64).min))]  # never negated
-    for spec in q.agg_specs:
-        contribs.extend(-x for x in spec.device.contribs([amt] * len(spec.arg_exprs), active))
-    keys = [f"a{j}" for j in range(len(ulayout.components))] + ["dirty"]
-    base_st = {k: ustore[k].clone() for k in keys}
+    keys = list(base_st)
     kst, pst = _clone(base_st), _clone(base_st)
-    scratch = hs.init_scratch(TA_STORE, dev)
     w_k = hs.fold_and_mark(kst, scratch, ulayout, slots, contribs, active)
     w_p = hs.fold_and_mark_plain(pst, ulayout, slots, contribs, active)
     _assert_equal(torch, "fold_and_mark[undo].winners", w_k, w_p)
@@ -4217,6 +4257,38 @@ def phase_table_agg_kernels(torch, seed):
          f"{n} negated rows into {TA_REGIONS} region slots (1% missed: the dump slot), {n_comp} components; "
          "yardstick index_add_ per component", into="fold_and_mark_undo")
     return recs, extra
+
+
+def make_undo_fold_case(torch, hs, rng, dev):
+    """K3's case on the undo side of phase 15: TA_ROWS negated rows of
+    users_by_region into TA_REGIONS region slots of a TA_STORE-slot store
+    (1% of them at the dump slot, 0.1% inactive), its 8 components.
+    Returns (store columns and ``dirty``, scratch, layout, slots,
+    contribs, active)."""
+    from ksql_tpu_torch.common import types as T
+    from ksql_tpu_torch.compiler.torch_expr import DCol
+
+    q, ulayout, ustore = _vector_query(torch, USERS_PLAN, TA_ROWS, TA_STORE, dev)
+    n = TA_ROWS
+    region_slots = rng.choice(TA_STORE, TA_REGIONS, replace=False)
+    for j, comp in enumerate(ulayout.components):
+        if comp.combine == "add":
+            v = rng.integers(2000, 3000, TA_STORE + 1)
+            ustore[f"a{j}"].copy_(torch.from_numpy(v.astype(np.float64 if comp.dtype == "float64"
+                                                            else comp.dtype)))
+    slots = region_slots[rng.integers(0, TA_REGIONS, n)].astype(np.int32)
+    slots[rng.random(n) < 0.01] = TA_STORE  # old rows whose group is gone
+    slots = torch.from_numpy(slots).to(dev)
+    active = torch.from_numpy(rng.random(n) > 0.001).to(dev)
+    amt = DCol(torch.from_numpy(rng.integers(0, 1001, n).astype(np.int32)).to(dev),
+               torch.ones(n, dtype=torch.bool, device=dev), T.INTEGER)
+    ts = torch.from_numpy(TS0 + np.arange(n, dtype=np.int64) * 17).to(dev)
+    contribs = [torch.where(active, ts, torch.full_like(ts, np.iinfo(np.int64).min))]  # never negated
+    for spec in q.agg_specs:
+        contribs.extend(-x for x in spec.device.contribs([amt] * len(spec.arg_exprs), active))
+    keys = [f"a{j}" for j in range(len(ulayout.components))] + ["dirty"]
+    return ({k: ustore[k].clone() for k in keys}, hs.init_scratch(TA_STORE, dev), ulayout, slots,
+            contribs, active)
 
 
 # -------------------------------------------------------- phase 15/17 data
@@ -6228,7 +6300,8 @@ def phase_argset_kernels(torch, seed):
                             if store[k].dtype == torch.float64 else store[k],
                             want[k].view(torch.int64) if want[k].dtype == torch.float64 else want[k])
               for k in store)
-    require(int((scratch["dump_row"] != -1).sum()) == 0, "2a: K3 argset left a dump cell set")
+    require(int((scratch["dump_row"] != -1).sum()) == 0 and int(scratch["ticket"][0]) == 0,
+            "2a: K3 argset left a dump cell or its done count set")
     n = slots.shape[0]
     cap = layout.capacity
     per_payload = {j: int(((slots != cap) & (contribs[o] == want[f"a{o}"][slots.long()])).sum())

@@ -25,7 +25,8 @@ product with its reciprocal (the DECIMAL cast's ``/ 10^s`` too), ROUND's
 ``/ 10^s`` is a product with ``10^-s``, and a product by a constant of a
 column that is itself a product by a constant multiplies the constants
 first (:attr:`DCol.scaled`).  A division by a constant ROUND(c, s) takes
-one of two reciprocals by where it stands in its program (ROADMAP C14,
+one of two reciprocals by where it stands in its program, and a chain of
+divisions by two different ones a constant of its own (ROADMAP C14,
 :func:`round_program`).  On the CPU, EXP, LN and SQRT take
 numpy's correctly rounded results (torch's vectorized float64 kernels are
 off by one unit in the last place for some inputs); XLA's CPU exp and log
@@ -351,9 +352,9 @@ def round_program(seen: Optional[set] = None):
         _ROUND_TRACE.reset(token)
 
 
-def _round_split(e) -> Optional[float]:
-    """``10^s * (1 / floor(c * 10^s + 0.5))`` for a constant ``ROUND(c,
-    s)`` node (the reciprocal XLA takes apart), else None."""
+def _round_parts(e) -> Optional[Tuple[np.float64, np.float64, np.float64]]:
+    """``(F, 10^s, 10^-s)``, ``F = floor(c * 10^s + 0.5)``, for a constant
+    ``ROUND(c, s)`` node, else None."""
     if not (isinstance(e, ex.FunctionCall) and e.name.upper() == "ROUND" and len(e.args) == 2
             and _is_folded(e)):
         return None
@@ -361,8 +362,41 @@ def _round_split(e) -> Optional[float]:
     if c is None or s is None:
         return None
     p = np.power(np.float64(10.0), np.float64(s))
+    return np.floor(np.float64(c) * p + np.float64(0.5)), p, np.power(np.float64(10.0), np.float64(-s))
+
+
+def _round_split(e) -> Optional[float]:
+    """``10^s * (1 / floor(c * 10^s + 0.5))`` for a constant ``ROUND(c,
+    s)`` node (the reciprocal XLA takes apart), else None."""
+    parts = _round_parts(e)
+    if parts is None:
+        return None
+    f, p, _q = parts
     with np.errstate(divide="ignore"):
-        return float(p * (np.float64(1.0) / np.floor(np.float64(c) * p + np.float64(0.5))))
+        return float(p * (np.float64(1.0) / f))
+
+
+def _is_round_division(e) -> bool:
+    return (isinstance(e, ex.ArithmeticBinary) and e.op == ex.ArithOp.DIVIDE
+            and _round_parts(e.right) is not None)
+
+
+def _round_chain(e, lanes: int) -> Optional[float]:
+    """The constant by which XLA multiplies ``x`` in ``x / R1 / R2``, two
+    different constant ROUNDs (``R = F * 10^-s``) chained onto an ``x``
+    that is no division by one itself, else None (ROADMAP C14).  Over more
+    than one lane ``(1 / (F1 * F2)) * (10^s1 * 10^s2)``, whatever its
+    program met before; at one lane ``1 / ((F2 * R1) * 10^-s2)``."""
+    if not (_is_round_division(e) and _is_round_division(e.left)) or _is_round_division(e.left.left):
+        return None
+    if repr(e.left.right) == repr(e.right):
+        return None
+    (f1, p1, q1), (f2, p2, q2) = _round_parts(e.left.right), _round_parts(e.right)
+    one = np.float64(1.0)
+    with np.errstate(divide="ignore"):
+        if lanes > 1:
+            return float((one / (f1 * f2)) * (p1 * p2))
+        return float(one / ((f2 * (f1 * q1)) * q2))
 
 
 class TorchExprCompiler:
@@ -434,6 +468,9 @@ class TorchExprCompiler:
             # x / R / R by one constant ROUND: XLA divides by the folded
             # R * R, so neither division splits
             seen.add(repr(e.right))
+        chain = None if seen is None or self.folding or not self.folds_literals else _round_chain(e, self.n)
+        if chain is not None:
+            return self._divide_round_chain(e, chain)
         a = self.compile(e.left)
         split = self._split_divisor(e)  # before the divisor's ROUND is compiled
         b = self.compile(e.right)
@@ -516,6 +553,16 @@ class TorchExprCompiler:
                     out, scaled = self._times(col, x, c)
                     return DCol(out, valid, t, scaled=scaled)
         return DCol(da * db, valid, t)
+
+    def _divide_round_chain(self, e, c: float) -> DCol:
+        """``x / R1 / R2`` (:func:`_round_chain`): ``x`` times ``c``.  The
+        program meets R1 (a later division by it takes the whole
+        reciprocal) but not R2 (a later division by it still splits)."""
+        a = self.compile(e.left.left)
+        r1 = self.compile(e.left.right)
+        da, _db, t = _promote(a, r1)
+        out, scaled = self._times(a, da, c)
+        return DCol(out, a.valid & r1.valid, promoted_type(t, T.DOUBLE), scaled=scaled)
 
     def _split_divisor(self, e) -> Optional[float]:
         """The split reciprocal of ``e``'s divisor when ``e`` divides by a

@@ -3,24 +3,43 @@
 //
 // Replaces ops/hash_store.py:scatter_combine (B3: the add/min/max branches
 // plus the `dirty` marking) and ops/hash_store.py:winners_per_slot (B4).
-// Phase 1, one thread per active row: fold each component with an atomic
-// (common.cuh atomic_fold: int64 add as unsigned long long, which wraps like
-// two's complement; int32/int64 min/max with the native atomics; float64 add
-// with atomicAdd(double*); float64 min/max with a CAS loop that keeps XLA's
-// semantics — NaN wins, -0.0 is below +0.0 — which fmin/fmax would not);
-// then dirty[slot] and atomicMin(first[slot], row).  Phase 2: a row wins
-// iff first[slot] is its own index; the winner resets first[slot]
-// (INT32_MAX when clean), and dirty[C] is cleared.  Inactive rows carry identity contributions (every
-// device_aggs contrib masks them), so skipping them leaves the dump slot
-// exactly as the reference's full scatter does.
+// One cooperative launch (fold_mark_kernel), a grid of at most the blocks
+// the card holds at once, each warp striding over 32 rows at a time:
+//   fold: the warp's active rows that share a slot find each other
+//     (__match_any_sync on the slot; a warp whose rows all have slots of
+//     their own folds each row with its own atomics); per component every lane puts its
+//     contribution in shared memory and the group's lowest lane folds the
+//     group's values in lane order (int64 adds wrap; float64 min/max keep
+//     XLA's order: NaN wins, -0.0 is below +0.0).  Every lowest lane runs
+//     the same loop, as long as its warp's largest group: groups do not
+//     take turns, as shuffles within each group would.  The lowest lane
+//     then makes ONE atomic per component (atomicAdd, atomicMin/Max, or
+//     common.cuh's CAS loop for float64 min/max), sets dirty[slot] and
+//     makes one atomicMin of its row (the group's lowest) into
+//     first[slot].  A zipf-hot slot takes one atomic a warp and
+//     component, not one a row.
+//   grid.sync(), then winners: a row wins iff first[slot] is its own
+//     index; the winner resets first[slot] (INT32_MAX when clean), and
+//     dirty[C] is cleared.
+// Inactive rows carry identity contributions (every device_aggs contrib
+// masks them), so skipping them leaves the dump slot exactly as the
+// reference's full scatter does.
 //
-// Bound: memory.  Per row it reads the slot, the mask and J contributions,
-// and read-modify-writes J store cells; float64 atomic adds land in a
-// different order each run, so float sums agree with the plain version to
-// rounding only (the chip check uses rtol 1e-12).
+// Bound: memory.  Per row it reads the slot, the mask and J contributions;
+// per touched slot it read-modify-writes J store cells.  float64 adds are
+// summed in a warp in lane order, then added atomically in a different
+// order each run, so float sums agree with the plain version to rounding
+// only (the chip check uses rtol 1e-12).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 struct Comps {
   void* col[KSQL_MAX_COMPS];
@@ -29,38 +48,160 @@ struct Comps {
   int64_t count;
 };
 
-__global__ void fold_kernel(Comps c, const int32_t* __restrict__ slots,
-                            const bool* __restrict__ active, int64_t n,
-                            int32_t capacity, bool* __restrict__ dirty,
-                            int32_t* __restrict__ first) {
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n || !active[i]) return;
-  const int32_t s = slots[i];
-  for (int64_t j = 0; j < c.count; ++j) {
-    ksql::atomic_fold(c.col[j], s, c.contrib[j], i, c.kind[j]);
+// A lane's value as shared memory holds it: 8 bytes (an int32 in the low 4)
+template <typename T>
+__device__ __forceinline__ T lane_value(long long b);
+template <>
+__device__ __forceinline__ int lane_value<int>(long long b) { return static_cast<int>(b); }
+template <>
+__device__ __forceinline__ long long lane_value<long long>(long long b) { return b; }
+template <>
+__device__ __forceinline__ double lane_value<double>(long long b) { return __longlong_as_double(b); }
+
+// A group's values (`vals`, the warp's 32 lanes' in shared memory) folded
+// in lane order from the group's lowest lane's `acc` over the other lanes
+// of `peers`.
+template <typename T, typename Op>
+__device__ __forceinline__ T fold_lanes(const long long* vals, unsigned peers, T acc, Op op) {
+  for (unsigned rest = peers & (peers - 1); rest != 0; rest &= rest - 1) {
+    acc = op(acc, lane_value<T>(vals[__ffs(rest) - 1]));
   }
-  if (s != capacity) {
-    dirty[s] = true;
-    atomicMin(&first[s], static_cast<int32_t>(i));
+  return acc;
+}
+
+struct AddI32 {
+  __device__ int operator()(int a, int b) const {
+    return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+  }
+};
+struct MinI32 {
+  __device__ int operator()(int a, int b) const { return a < b ? a : b; }
+};
+struct MaxI32 {
+  __device__ int operator()(int a, int b) const { return a > b ? a : b; }
+};
+struct WrapAdd {
+  __device__ long long operator()(long long a, long long b) const { return ksql::wadd(a, b); }
+};
+struct MinI64 {
+  __device__ long long operator()(long long a, long long b) const { return a < b ? a : b; }
+};
+struct MaxI64 {
+  __device__ long long operator()(long long a, long long b) const { return a > b ? a : b; }
+};
+struct AddF64 {
+  __device__ double operator()(double a, double b) const { return a + b; }
+};
+struct MinF64 {
+  __device__ double operator()(double a, double b) const { return ksql::xla_min(a, b); }
+};
+struct MaxF64 {
+  __device__ double operator()(double a, double b) const { return ksql::xla_max(a, b); }
+};
+
+// One component: the group's lowest lane (`lead`) folds the group's
+// values (every lane's is in `vals`) and makes the one atomic into cell s.
+// Every active lane of the warp (`live`) calls it.
+__device__ __forceinline__ void fold_group(void* col, const void* contrib, int64_t kind, int64_t i,
+                                          int32_t s, unsigned peers, unsigned live, bool lead,
+                                          long long* vals, int lane) {
+  const int64_t combine = kind / 3, dtype = kind % 3;
+  if (dtype == ksql::kInt32) {
+    const int v = static_cast<const int*>(contrib)[i];
+    vals[lane] = v;
+    __syncwarp(live);
+    if (lead) {
+      int* p = static_cast<int*>(col) + s;
+      if (combine == ksql::kAdd) {
+        atomicAdd(p, fold_lanes(vals, peers, v, AddI32()));
+      } else if (combine == ksql::kMin) {
+        atomicMin(p, fold_lanes(vals, peers, v, MinI32()));
+      } else {
+        atomicMax(p, fold_lanes(vals, peers, v, MaxI32()));
+      }
+    }
+  } else if (dtype == ksql::kInt64) {
+    const long long v = static_cast<const long long*>(contrib)[i];
+    vals[lane] = v;
+    __syncwarp(live);
+    if (lead) {
+      long long* p = static_cast<long long*>(col) + s;
+      if (combine == ksql::kAdd) {
+        atomicAdd(reinterpret_cast<unsigned long long*>(p),
+                  static_cast<unsigned long long>(fold_lanes(vals, peers, v, WrapAdd())));
+      } else if (combine == ksql::kMin) {
+        atomicMin(p, fold_lanes(vals, peers, v, MinI64()));
+      } else {
+        atomicMax(p, fold_lanes(vals, peers, v, MaxI64()));
+      }
+    }
+  } else {
+    const double v = static_cast<const double*>(contrib)[i];
+    vals[lane] = __double_as_longlong(v);
+    __syncwarp(live);
+    if (lead) {
+      double* p = static_cast<double*>(col) + s;
+      if (combine == ksql::kAdd) {
+        atomicAdd(p, fold_lanes(vals, peers, v, AddF64()));
+      } else if (combine == ksql::kMin) {
+        ksql::atomic_fold_f64(p, fold_lanes(vals, peers, v, MinF64()), true);
+      } else {
+        ksql::atomic_fold_f64(p, fold_lanes(vals, peers, v, MaxF64()), false);
+      }
+    }
+  }
+  __syncwarp(live);  // the group's values are read before the next component's
+}
+
+__global__ void __launch_bounds__(kThreads) fold_mark_kernel(
+    Comps c, const int32_t* __restrict__ slots, const bool* __restrict__ active, int64_t n,
+    int32_t capacity, bool* __restrict__ dirty, int32_t* __restrict__ first,
+    bool* __restrict__ winners) {
+  __shared__ long long s_vals[kWarps][32];
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x & 31;
+  long long* vals = s_vals[threadIdx.x >> 5];
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t warp0 = static_cast<int64_t>(blockIdx.x) * kThreads + (threadIdx.x & ~31);
+  for (int64_t base = warp0; base < n; base += stride) {
+    const int64_t i = base + lane;
+    const bool act = i < n && active[i];
+    // an inactive lane's key is its own (slots are >= 0)
+    const int32_t s = act ? slots[i] : -1 - lane;
+    const unsigned peers = __match_any_sync(0xffffffffu, s);
+    const unsigned live = __ballot_sync(0xffffffffu, act);
+    // a warp whose rows all have slots of their own folds them straight in
+    const bool shared = __any_sync(0xffffffffu, act && (peers & (peers - 1)) != 0);
+    if (!act) continue;
+    const bool lead = lane == __ffs(peers) - 1;
+    for (int64_t j = 0; j < c.count; ++j) {
+      if (shared) {
+        fold_group(c.col[j], c.contrib[j], c.kind[j], i, s, peers, live, lead, vals, lane);
+      } else {
+        ksql::atomic_fold(c.col[j], s, c.contrib[j], i, c.kind[j]);
+      }
+    }
+    if (lead && s != capacity) {
+      dirty[s] = true;
+      atomicMin(&first[s], static_cast<int32_t>(i));
+    }
+  }
+  grid.sync();
+  if (blockIdx.x == 0 && threadIdx.x == 0) dirty[capacity] = false;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += stride) {
+    const int32_t s = slots[i];
+    bool win = false;
+    if (active[i] && s != capacity && first[s] == static_cast<int32_t>(i)) {
+      win = true;
+      first[s] = INT32_MAX;  // only the winner resets its cell
+    }
+    winners[i] = win;
   }
 }
 
-__global__ void winners_kernel(const int32_t* __restrict__ slots,
-                               const bool* __restrict__ active, int64_t n,
-                               int32_t capacity, bool* __restrict__ dirty,
-                               int32_t* __restrict__ first,
-                               bool* __restrict__ winners) {
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i == 0) dirty[capacity] = false;
-  if (i >= n) return;
-  const int32_t s = slots[i];
-  bool win = false;
-  if (active[i] && s != capacity && first[s] == static_cast<int32_t>(i)) {
-    win = true;
-    first[s] = INT32_MAX;  // only the winner resets its cell
-  }
-  winners[i] = win;
-}
+// the cooperative grid's most blocks, per device (fold_mark_kernel's
+// occupancy times the SMs), asked once
+int g_most[64];
 
 }  // namespace
 
@@ -76,17 +217,30 @@ extern "C" int ksql_fold_and_mark(const int64_t* comps, int64_t count,
     c.kind[j] = comps[3 * j + 2];
   }
   c.count = count;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  const int blocks = ksql::blocks_for(n, threads);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (g_most[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fold_mark_kernel, kThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    g_most[dev] = per_sm * sms;
+  }
+  const int64_t need = (n + kThreads - 1) / kThreads;
+  const unsigned blocks = static_cast<unsigned>(need < 1 ? 1 : (need < g_most[dev] ? need : g_most[dev]));
   const int32_t cap = static_cast<int32_t>(capacity);
-  fold_kernel<<<blocks, threads, 0, st>>>(
-      c, static_cast<const int32_t*>(slots), static_cast<const bool*>(active),
-      n, cap, static_cast<bool*>(dirty), static_cast<int32_t*>(first));
-  winners_kernel<<<blocks, threads, 0, st>>>(
-      static_cast<const int32_t*>(slots), static_cast<const bool*>(active), n,
-      cap, static_cast<bool*>(dirty), static_cast<int32_t*>(first),
-      static_cast<bool*>(winners));
+  const int32_t* s = static_cast<const int32_t*>(slots);
+  const bool* a = static_cast<const bool*>(active);
+  bool* d = static_cast<bool*>(dirty);
+  int32_t* f = static_cast<int32_t*>(first);
+  bool* w = static_cast<bool*>(winners);
+  void* params[] = {&c, &s, &a, &n, const_cast<int32_t*>(&cap), &d, &f, &w};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fold_mark_kernel), dim3(blocks),
+                                    dim3(kThreads), params, 0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -99,17 +253,21 @@ extern "C" int ksql_fold_and_mark(const int64_t* comps, int64_t count,
 // row, inactive ones too: their slot is the dump) is a winner when its slot s
 // is not the dump and contrib_o[i] == a_o[s]; a winner writes contrib_j[i] to
 // a_j[s].  Every other row is aimed at the dump slot, and the reference's
-// duplicate-index .at[].set leaves the payload of the highest such row there:
-// one atomicMax of the row index into the component's dump cell (scratch,
-// -1 between calls), then one thread per component writes that row's payload
-// to a_j[C] and resets the cell.  Real slots have no other ties: the order
-// values are unique sequence numbers, except at a slot that never had a
-// candidate, where every row with the init order wins and writes the same
-// zero payload.
+// duplicate-index .at[].set leaves the payload of the highest such row there.
+// One launch, one thread a row: each warp takes the highest such row a
+// component with __reduce_max_sync, each block the highest of its warps',
+// and makes one atomicMax into the component's dump cell (scratch, -1
+// between calls); the last block to finish (a wrapping atomicInc ticket
+// after a __threadfence) writes that row's payload to a_j[C] and resets the
+// cell.  Real slots have no other ties: the order values are unique
+// sequence numbers, except at a slot that never had a candidate, where
+// every row with the init order wins and writes the same zero payload.
 //
 // Bound: memory.  Per row and component it reads the slot, the two
 // contributions and the order cell, and a winner writes one payload cell.
 namespace {
+
+constexpr int kArgsetWarps = kThreads / 32;
 
 struct ArgsetComps {
   void* col[KSQL_MAX_COMPS];             // a_j, the payload column
@@ -138,36 +296,57 @@ __device__ __forceinline__ bool order_equal(const void* contrib, int64_t i, cons
   return static_cast<const int64_t*>(contrib)[i] == static_cast<const int64_t*>(col)[s];
 }
 
-__global__ void argset_kernel(ArgsetComps c, const int32_t* __restrict__ slots, int64_t n,
-                              int32_t capacity, int32_t* __restrict__ dump_row) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int32_t s = slots[i];
+__global__ void __launch_bounds__(kThreads) argset_kernel(
+    ArgsetComps c, const int32_t* __restrict__ slots, int64_t n, int32_t capacity,
+    int32_t* __restrict__ dump_row, unsigned* __restrict__ ticket) {
+  __shared__ int32_t s_best[KSQL_MAX_COMPS][kArgsetWarps];
+  __shared__ bool s_last;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int32_t s = i < n ? slots[i] : capacity;
   for (int64_t j = 0; j < c.count; ++j) {
-    if (s != capacity && order_equal(c.ocontrib[j], i, c.order[j], s, c.odtype[j])) {
-      ksql::copy_elem(c.col[j], s, c.contrib[j], i, elem_bytes(c.dtype[j]));
-    } else {
-      atomicMax(&dump_row[j], static_cast<int32_t>(i));
+    int32_t lost = -1;
+    if (i < n) {
+      if (s != capacity && order_equal(c.ocontrib[j], i, c.order[j], s, c.odtype[j])) {
+        ksql::copy_elem(c.col[j], s, c.contrib[j], i, elem_bytes(c.dtype[j]));
+      } else {
+        lost = static_cast<int32_t>(i);
+      }
+    }
+    lost = __reduce_max_sync(0xffffffffu, lost);
+    if (lane == 0) s_best[j][warp] = lost;
+  }
+  __syncthreads();
+  if (threadIdx.x < c.count) {
+    int32_t best = -1;
+    for (int w = 0; w < kArgsetWarps; ++w) best = s_best[threadIdx.x][w] > best ? s_best[threadIdx.x][w] : best;
+    if (best >= 0) atomicMax(&dump_row[threadIdx.x], best);
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  // the last block: every block's atomicMax is done
+  __threadfence();
+  if (threadIdx.x < c.count) {
+    const int32_t r = atomicExch(&dump_row[threadIdx.x], -1);
+    if (r >= 0) {
+      ksql::copy_elem(c.col[threadIdx.x], capacity, c.contrib[threadIdx.x], r,
+                      elem_bytes(c.dtype[threadIdx.x]));
     }
   }
-}
-
-__global__ void argset_dump_kernel(ArgsetComps c, int32_t capacity,
-                                   int32_t* __restrict__ dump_row) {
-  const int64_t j = threadIdx.x;
-  if (j >= c.count) return;
-  const int32_t r = dump_row[j];
-  if (r >= 0) ksql::copy_elem(c.col[j], capacity, c.contrib[j], r, elem_bytes(c.dtype[j]));
-  dump_row[j] = -1;
 }
 
 }  // namespace
 
 // comps: count x (payload column, payload contributions, order column, order
 // contributions, payload dtype, order dtype); dump_row: KSQL_MAX_COMPS int32
-// cells, -1 between calls.
+// cells, -1 between calls; ticket: one uint32, 0 between calls (the last
+// block's increment wraps it back).
 extern "C" int ksql_fold_argset(const int64_t* comps, int64_t count, const void* slots,
-                                int64_t n, int64_t capacity, void* dump_row, void* stream) {
+                                int64_t n, int64_t capacity, void* dump_row, void* ticket,
+                                void* stream) {
   if (count > KSQL_MAX_COMPS) return static_cast<int>(cudaErrorInvalidValue);
   ArgsetComps c{};
   for (int64_t j = 0; j < count; ++j) {
@@ -179,14 +358,8 @@ extern "C" int ksql_fold_argset(const int64_t* comps, int64_t count, const void*
     c.odtype[j] = comps[6 * j + 5];
   }
   c.count = count;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  const int32_t cap = static_cast<int32_t>(capacity);
-  auto* cells = static_cast<int32_t*>(dump_row);
-  if (n > 0) {
-    argset_kernel<<<ksql::blocks_for(n, threads), threads, 0, st>>>(
-        c, static_cast<const int32_t*>(slots), n, cap, cells);
-  }
-  argset_dump_kernel<<<1, KSQL_MAX_COMPS, 0, st>>>(c, cap, cells);
+  argset_kernel<<<ksql::blocks_for(n, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      c, static_cast<const int32_t*>(slots), n, static_cast<int32_t>(capacity),
+      static_cast<int32_t*>(dump_row), static_cast<unsigned*>(ticket));
   return static_cast<int>(cudaGetLastError());
 }

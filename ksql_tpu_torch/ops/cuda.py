@@ -47,7 +47,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "fold_and_mark": {
         "ksql_fold_and_mark": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
-        "ksql_fold_argset": [_P, _I, _P, _I, _I, _P, _P],
+        "ksql_fold_argset": [_P, _I, _P, _I, _I, _P, _P, _P],
     },
     "evict": {"ksql_evict": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P]},
     "sliced_fold": {"ksql_sliced_fold": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]},
@@ -102,10 +102,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P]},
     "having_verdict": {"ksql_having_verdict": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P]},
     "vec_collect": {
-        "ksql_vec_collect_prologue": [
-            _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
-        "ksql_vec_collect_first": [_P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _P],
-        "ksql_vec_collect_place": [_I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+        "ksql_vec_collect_keys": [_I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+        "ksql_vec_collect_member": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
+        "ksql_vec_collect_place": [_I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     },
     "vec_topk": {
         "ksql_vec_topk_keys": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P],

@@ -159,13 +159,15 @@ KSQL_MAX_COMPS = 32
 
 def init_scratch(capacity: int, device) -> Dict[str, torch.Tensor]:
     """Per-store scratch the kernels keep clean between calls: the claim
-    cells of probe_insert, the first-row cells of fold_and_mark and the
-    dump-row cells (-1) of its argset mode, one an argset component.
-    probe_insert adds its grid scratch ``work`` (:func:`probe_work`)."""
+    cells of probe_insert, the first-row cells of fold_and_mark, the
+    dump-row cells (-1) of its argset mode, one an argset component, and
+    that mode's done-block ticket (0).  probe_insert adds its grid scratch
+    ``work`` (:func:`probe_work`)."""
     return {
         "claim": torch.full((capacity + 1,), INT32_MAX, dtype=torch.int32, device=device),
         "first": torch.full((capacity + 1,), INT32_MAX, dtype=torch.int32, device=device),
         "dump_row": torch.full((KSQL_MAX_COMPS,), -1, dtype=torch.int32, device=device),
+        "ticket": torch.zeros(1, dtype=torch.int32, device=device),
     }
 
 
@@ -708,6 +710,64 @@ def fold_argset_plain(store, layout: StoreLayout, slots, contribs) -> None:
             col[capacity] = c[lost[-1]]  # the highest row aimed at the dump
 
 
+class ArgsetPlan:
+    """K3 argset's host side for one store and layout: its (payload, order)
+    component pairs, the store columns checked once, and per pair the
+    contributions' dtypes and the words of ``csrc/fold_and_mark.cu``'s
+    descriptor that do not change from call to call.  The plan holds the
+    store's columns weakly: a cached plan keeps no store alive, and one
+    whose columns are gone (a grow) no longer matches."""
+
+    def __init__(self, store: Dict[str, torch.Tensor], layout: StoreLayout):
+        c1 = layout.capacity + 1
+        self.layout = layout  # held, so the cache's id(layout) stays its own
+        self.pairs = argset_pairs(layout)
+        self.names = [f"a{x}" for j, o in self.pairs for x in (j, o)]
+        self.refs = [weakref.ref(store[k]) for k in self.names]
+        self.dtypes = []
+        self.words = []
+        for j, o in self.pairs:
+            comp, order = layout.components[j], layout.components[o]
+            col, ocol = store[f"a{j}"], store[f"a{o}"]
+            _expect(col, _DTYPES[comp.dtype], (c1,))
+            _expect(ocol, _DTYPES[order.dtype], (c1,))
+            self.dtypes.append((_DTYPES[comp.dtype], _DTYPES[order.dtype]))
+            self.words.append((col.data_ptr(), ocol.data_ptr(), _DTYPE_CODES[comp.dtype],
+                               _DTYPE_CODES[order.dtype]))
+        self.desc = (ctypes.c_int64 * (6 * max(len(self.pairs), 1)))()
+
+    def matches(self, store: Dict[str, torch.Tensor], layout: StoreLayout) -> bool:
+        return layout is self.layout and all(store[k] is r() for k, r in zip(self.names, self.refs))
+
+
+_ARGSET_PLANS: Dict[tuple, ArgsetPlan] = {}
+_ARGSET_PLAN_CACHE_SIZE = 64
+
+
+def argset_plan(store: Dict[str, torch.Tensor], layout: StoreLayout) -> ArgsetPlan:
+    """K3 argset's host side for a store and layout, built and checked
+    once per set of store columns and cached."""
+    key = (id(store), id(layout))
+    plan = _ARGSET_PLANS.get(key)
+    if plan is not None and plan.matches(store, layout):
+        return plan
+    plan = ArgsetPlan(store, layout)
+    if key not in _ARGSET_PLANS and len(_ARGSET_PLANS) >= _ARGSET_PLAN_CACHE_SIZE:
+        _ARGSET_PLANS.pop(next(iter(_ARGSET_PLANS)))
+    _ARGSET_PLANS[key] = plan
+    return plan
+
+
+def _contribution(c: torch.Tensor, dtype, n: int) -> torch.Tensor:
+    """``c`` as the kernel takes it: contiguous ``dtype[n]`` on the card."""
+    if c.dtype != dtype or not c.is_contiguous():
+        c = c.to(dtype).contiguous()
+    if c.shape != (n,) or not c.is_cuda:
+        raise ValueError(f"kernel argument: expected contiguous {dtype}[{n}] on the card, "
+                         f"got {c.dtype}{list(c.shape)}")
+    return c
+
+
 def fold_argset(store: Dict[str, torch.Tensor], scratch: Dict[str, torch.Tensor],
                 layout: StoreLayout, slots: torch.Tensor,
                 contribs: Sequence[torch.Tensor]) -> None:
@@ -722,37 +782,30 @@ def fold_argset(store: Dict[str, torch.Tensor], scratch: Dict[str, torch.Tensor]
     they aim at the dump (their slot is the dump).  A slot that never had
     a candidate keeps the init order, so every row there with an init
     contribution writes the same zero payload.  The sequence numbers are
-    unique, so a real slot has no other ties.  In place; returns nothing."""
-    pairs = argset_pairs(layout)
-    if not pairs:
-        return
+    unique, so a real slot has no other ties.  In place; returns nothing.
+    One launch; the store's side of the launch is checked once
+    (:func:`argset_plan`), and a call allocates nothing."""
     if not slots.is_cuda:
-        fold_argset_plain(store, layout, slots, contribs)
+        if argset_pairs(layout):
+            fold_argset_plain(store, layout, slots, contribs)
+        return
+    plan = argset_plan(store, layout)
+    if not plan.pairs:
         return
     n = slots.shape[0]
-    capacity = layout.capacity
-    c1 = capacity + 1
     _expect(slots, torch.int32, (n,))
-    _expect(scratch["dump_row"], torch.int32, (KSQL_MAX_COMPS,))
-    desc: List[int] = []
+    dump_row, ticket = scratch["dump_row"], scratch["ticket"]
+    _expect(dump_row, torch.int32, (KSQL_MAX_COMPS,))
+    _expect(ticket, torch.int32, (1,))
+    desc = plan.desc
     keep = []  # the cast contributions must outlive the launch below
-    for j, o in pairs:
-        comp, order = layout.components[j], layout.components[o]
-        col, ocol = store[f"a{j}"], store[f"a{o}"]
-        c = contribs[j].to(col.dtype).contiguous()
-        oc = contribs[o].to(ocol.dtype).contiguous()
-        _expect(col, _DTYPES[comp.dtype], (c1,))
-        _expect(ocol, _DTYPES[order.dtype], (c1,))
-        _expect(c, _DTYPES[comp.dtype], (n,))
-        _expect(oc, _DTYPES[order.dtype], (n,))
+    for k, ((j, o), (dt, odt), (col, ocol, code, ocode)) in enumerate(zip(plan.pairs, plan.dtypes, plan.words)):
+        c, oc = _contribution(contribs[j], dt, n), _contribution(contribs[o], odt, n)
         keep += [c, oc]
-        desc += [col.data_ptr(), c.data_ptr(), ocol.data_ptr(), oc.data_ptr(),
-                 _DTYPE_CODES[comp.dtype], _DTYPE_CODES[order.dtype]]
-    fn = cuda.lib("fold_and_mark", "ksql_fold_argset")
-    cuda.check("fold_and_mark", fn(
-        cuda.host_i64(desc), len(pairs), slots.data_ptr(), n, capacity,
-        scratch["dump_row"].data_ptr(), _stream(slots.device),
-    ))
+        desc[6 * k:6 * k + 6] = [col, c.data_ptr(), ocol, oc.data_ptr(), code, ocode]
+    cuda.check("fold_and_mark", cuda.lib("fold_and_mark", "ksql_fold_argset")(
+        desc, len(plan.pairs), slots.data_ptr(), n, layout.capacity, dump_row.data_ptr(),
+        ticket.data_ptr(), _stream(slots.device)))
     fold_and_mark.launches += 1
     fold_and_mark.mode_launches["argset"] += 1
 

@@ -17,11 +17,12 @@ Four hand-written CUDA kernels (``csrc/``) carry the folds, with K13
 ``seg_sort`` (``ops/session.py``) for the orders:
 
 * K20 ``vec_collect`` (modes ``append``, ``set``, ``ring`` and ``hist``,
-  the histogram's phase 1): set membership against the slot's stored
-  prefix, the first occurrence of each (slot, value, null bit) in the
-  batch (K13 on ``(slot * 2 + bit, value key)``), the arrival-stable rank
-  of each row within its slot (K13 on the slot), the writes, the dump
-  row's last-row-wins cells and the count adds.
+  the histogram's phase 1): the first occurrence of each (slot, value,
+  null bit) in the batch (K13 on ``(slot * 2 + bit, value key)``) and its
+  membership in the slot's stored prefix, read once a slot into a hash
+  table in shared memory; the arrival-stable rank of each row within its
+  slot (K13 on the slot), the writes, the dump row's last-row-wins cells
+  and the count adds.
 * K21 ``vec_topk`` (modes ``plain`` and ``distinct``): K13 on (slot,
   descending value), the in-batch dedup and a second K13 in distinct mode,
   then per slot-run winner the merge of its first K candidates with the
@@ -312,7 +313,8 @@ def vec_collect(store: Dict[str, torch.Tensor], layout: StoreLayout, j: int,
     arrival order: capped at K (``append``, ``set``, ``hist``) or the last
     K modulo K (``ring``).  Rows that do not write aim at the dump row,
     where the last one per cell wins.  The count adds the kept rows
-    (``hist``: the written ones)."""
+    (``hist``: the written ones).  Launches: keys, [K13, member,] K13,
+    place; the dump row's cells are tracked in :func:`_scratch`."""
     if not slots.is_cuda:
         vec_collect_plain(store, layout, j, contribs, slots, mode)
         return
@@ -324,6 +326,8 @@ def vec_collect(store: Dict[str, torch.Tensor], layout: StoreLayout, j: int,
     _expect(data, data.dtype, (c1, K))
     _expect(vbit, torch.int8, (c1, K))
     _expect(slots, torch.int32, (n,))
+    if n == 0:
+        return
     head = contribs[j].to(torch.int64).contiguous()
     vals = contribs[j + 1].to(data.dtype).contiguous()
     vbits = contribs[j + 2].to(torch.int8).contiguous()
@@ -331,27 +335,43 @@ def vec_collect(store: Dict[str, torch.Tensor], layout: StoreLayout, j: int,
     dev = slots.device
     st = _stream(dev)
     code = COLLECT_MODES[mode]
-    k1 = torch.empty(n, dtype=torch.int64, device=dev)
-    k2 = torch.empty(n, dtype=torch.int64, device=dev)
-    eff = torch.empty(n, dtype=torch.int64, device=dev)
-    flags = torch.empty(n, dtype=torch.int8, device=dev)
-    cuda.check("vec_collect", cuda.lib("vec_collect", "ksql_vec_collect_prologue")(
-        code, cnt.data_ptr(), data.data_ptr(), vbit.data_ptr(), esize, isfloat, K,
-        layout.capacity, head.data_ptr(), vals.data_ptr(), vbits.data_ptr(), slots.data_ptr(),
-        n, flags.data_ptr(), k1.data_ptr(), k2.data_ptr(), eff.data_ptr(), st))
+    keys = torch.empty(4 * n, dtype=torch.int64, device=dev)
+    k1, k2, eff, snap = keys[:n], keys[n:2 * n], keys[2 * n:3 * n], keys[3 * n:]
+    scratch = _scratch(dev, st, K).data_ptr()
+    cuda.check("vec_collect", cuda.lib("vec_collect", "ksql_vec_collect_keys")(
+        code, head.data_ptr(), vals.data_ptr(), vbits.data_ptr(), esize, isfloat, slots.data_ptr(),
+        cnt.data_ptr(), n, layout.capacity, k1.data_ptr(), k2.data_ptr(), eff.data_ptr(), snap.data_ptr(),
+        scratch, K, st))
     if mode in ("set", "hist"):
         perm = seg_sort(k1, k2)
-        cuda.check("vec_collect", cuda.lib("vec_collect", "ksql_vec_collect_first")(
-            perm.data_ptr(), n, k1.data_ptr(), vals.data_ptr(), esize, isfloat, flags.data_ptr(),
-            slots.data_ptr(), layout.capacity, eff.data_ptr(), st))
+        cuda.check("vec_collect", cuda.lib("vec_collect", "ksql_vec_collect_member")(
+            perm.data_ptr(), n, k1.data_ptr(), vals.data_ptr(), vbits.data_ptr(), esize, isfloat,
+            cnt.data_ptr(), data.data_ptr(), vbit.data_ptr(), K, layout.capacity, eff.data_ptr(),
+            scratch, st))
     perm = seg_sort(eff, eff)
-    dumplast = torch.full((K,), -1, dtype=torch.int32, device=dev)
     cuda.check("vec_collect", cuda.lib("vec_collect", "ksql_vec_collect_place")(
-        code, perm.data_ptr(), n, eff.data_ptr(), cnt.data_ptr(), data.data_ptr(),
-        vbit.data_ptr(), esize, K, layout.capacity, vals.data_ptr(), vbits.data_ptr(),
-        dumplast.data_ptr(), k2.data_ptr(), st))
+        code, perm.data_ptr(), n, eff.data_ptr(), snap.data_ptr(), cnt.data_ptr(), data.data_ptr(),
+        vbit.data_ptr(), esize, K, layout.capacity, vals.data_ptr(), vbits.data_ptr(), scratch, st))
     vec_collect.launches += 1
     vec_collect.mode_launches[mode] += 1
+
+
+#: K20's scratch by (device, stream, K): K dump-row cells, the highest row
+#: aimed at each (-1 between calls), then the count of kept rows and the
+#: place launch's done ticket (0); the place launch leaves them so
+_SCRATCH: Dict[tuple, torch.Tensor] = {}
+
+
+def _scratch(device: torch.device, stream: int, K: int) -> torch.Tensor:
+    """K20's scratch for calls on ``stream`` at width ``K``, made once
+    (calls on one stream run in order, so they can share it)."""
+    key = (device.index, stream, K)
+    cells = _SCRATCH.get(key)
+    if cells is None:
+        cells = torch.full((K + 2,), -1, dtype=torch.int32, device=device)
+        cells[K:] = 0
+        _SCRATCH[key] = cells
+    return cells
 
 
 vec_collect.launches = 0

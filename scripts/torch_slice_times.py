@@ -29,6 +29,17 @@ Groups (``--groups``, all by default):
   ``torch.cummax`` calls as its yardstick.
 * ``k16``: K16's write mode at phase 2w's 270,336 items (its inputs made
   by the twins, ``chip_smoke.session_write_case``).
+* ``k3``: K3's fold at phase 2's 65,536 rows into 2^20 + 1 slots (zipf
+  URLs over 31 hours, uniform URLs, and the flagship's own timestamps,
+  which put a quarter of the rows on one slot) and at phase 2t's undo
+  shape (65,536 rows into 50 slots, 8 components), its argset mode at
+  phase 2a's with the wrapper's host time a call.
+* ``k20``: K20's set and hist modes at phase 2v's cases, again with every
+  stored prefix emptied, hist on phase 2t's undo side, append and ring
+  at 2v's.
+
+The ``k3`` and ``k20`` groups also time each CUDA function of a call
+apart (K20's with the K13 sorts it makes).
 
 Each kernel is held against its twin first (exact), then timed as
 chip_smoke times it (device ms from torch.profiler, its records counted,
@@ -47,9 +58,12 @@ import sys
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: the kernel functions of K10's, K13's, K16's and K24's earlier designs beside
-#: this tree's, so that the profiler finds an earlier tree's
+#: the kernel functions of K3's, K10's, K13's, K16's, K20's and K24's earlier
+#: designs beside this tree's, so that the profiler finds an earlier tree's
 EARLIER_FUNCS = {
+    "fold_and_mark": ("fold_mark_kernel", "argset_kernel", "fold_kernel", "winners_kernel", "argset_dump_kernel"),
+    "vec_collect": ("collect_keys_kernel", "collect_member_kernel", "collect_place_kernel",
+                    "collect_prologue_kernel", "collect_first_kernel", "collect_finish_kernel"),
     "fk_fanout": ("fanout_kernel", "fanout_count_kernel", "fanout_scan_kernel", "fanout_write_kernel"),
     "ss_match": ("tile_count_kernel", "tile_write_kernel", "match_count_kernel", "match_scan_kernel",
                  "match_write_kernel"),
@@ -270,12 +284,189 @@ def k16_shapes(cs, torch, seed):
              f"{2 * m} lanes, {w['n_ins']} inserting items, {dumped} items aimed at the dump slot")]
 
 
+def _parts(cs, torch, kernels, fn):
+    """Each CUDA function of ``kernels`` (chip_smoke's KERNEL_FUNCS names)
+    that one call of ``fn`` launches, timed apart: ``{function: device
+    ms a call}`` (a function launched twice a call sums both)."""
+    import re
+
+    pats = [re.compile(rf"(?<![A-Za-z_]){f}") for k in kernels for f in cs.KERNEL_FUNCS[k]]
+    parts = {}
+    for f in _function_names(torch, fn, pats):
+        cs.KERNEL_FUNCS[f"part:{f}"] = (f,)
+        parts[f] = cs.kernel_device_ms(torch, f"part:{f}", fn)
+    return parts
+
+
+def _host_ms(torch, fn, reps=200):
+    """The wrapper's host time a call: ``reps`` calls enqueued back to back
+    (the card keeps up with kernels this short), then one synchronize."""
+    import time
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
+
+
+def _what_parts(what, parts):
+    return what + "; " + ", ".join(f"{f} {ms:.4f} ms" for f, ms in parts.items())
+
+
+def k3_shapes(cs, torch, seed, folds_only=False):
+    """K3 at its main-path shapes: the fold at phase 2's 65,536 zipf rows
+    into 2^20 + 1 slots (the flagship's components), the same rows with
+    uniform URLs (what contention on hot slots costs) and with the
+    flagship's own timestamps (about a quarter of the rows on one slot);
+    the fold at phase 2t's undo shape (65,536 rows into 50 slots, 8
+    components); the argset mode at phase 2a's (2 pairs), with the
+    wrapper's host time a call.  Each against its twin first, each CUDA
+    function's time apart (``folds_only``: the folds, not the argset
+    mode).  Returns ``[(kernel, shape, record, what)]``."""
+    from ksql_tpu_torch.ops import hash_store as hs
+
+    dev = torch.device(cs.DEVICE)
+    out = []
+    for traffic in ("phase2", "uniform", "flagship"):
+        rng = np.random.default_rng(seed + 3)
+        store, scratch, layout, slots, contribs, act = cs.make_fold_case(torch, hs, rng, dev, traffic)
+        sk, sp = cs._clone(store), cs._clone(store)
+        cs._assert_equal(torch, "fold_and_mark.winners", hs.fold_and_mark(sk, scratch, layout, slots, contribs, act),
+                         hs.fold_and_mark_plain(sp, layout, slots, contribs, act))
+        for key in store:
+            cs._assert_equal(torch, f"fold_and_mark.{key}", sk[key], sp[key])
+
+        def fold(sk=sk, scratch=scratch, layout=layout, slots=slots, contribs=contribs, act=act):
+            hs.fold_and_mark(sk, scratch, layout, slots, contribs, act)
+
+        rec = cs.measure(torch, "fold_and_mark", fold,
+                         lambda: hs.fold_and_mark_plain(sp, layout, slots, contribs, act),
+                         cs.fold_bytes(torch, slots, act, contribs), slots.shape[0] * 6, plain_reps=5)
+        parts = _parts(cs, torch, ["fold_and_mark"], fold)
+        hot = int(torch.bincount(slots[act].long()).max())
+        out.append(("fold_and_mark", f"fold {traffic}", dict(rec, parts=parts),
+                    _what_parts(f"{slots.shape[0]} rows, hottest slot {hot} rows", parts)))
+        del store, sk, sp, scratch
+    rng = np.random.default_rng(seed + 4)
+    base, scratch, layout, slots, contribs, act = cs.make_undo_fold_case(torch, hs, rng, dev)
+    sk, sp = cs._clone(base), cs._clone(base)
+    cs._assert_equal(torch, "fold_and_mark[undo].winners", hs.fold_and_mark(sk, scratch, layout, slots, contribs, act),
+                     hs.fold_and_mark_plain(sp, layout, slots, contribs, act))
+    for key in base:
+        cs._assert_equal(torch, f"fold_and_mark[undo].{key}", sk[key], sp[key], 1e-12)
+
+    def undo():
+        hs.fold_and_mark(sk, scratch, layout, slots, contribs, act)
+
+    n, nc = slots.shape[0], len(layout.components)
+    rec = cs.measure(torch, "fold_and_mark", undo, lambda: hs.fold_and_mark_plain(sp, layout, slots, contribs, act),
+                     n * (4 + 1 + 1 + 8 * nc) + cs.TA_REGIONS * (8 * nc + 1), n * nc,
+                     reset=lambda: cs._restore(sk, base), plain_reps=5)
+    parts = _parts(cs, torch, ["fold_and_mark"], undo)
+    out.append(("fold_and_mark", "fold undo 2t", dict(rec, parts=parts),
+                _what_parts(f"{n} rows into {cs.TA_REGIONS} slots, {nc} components", parts)))
+    del base, sk, sp
+    if folds_only:
+        return out
+    rng = np.random.default_rng(seed + 70)
+    store, scratch, layout, slots, contribs = cs.make_argset_case(torch, hs, rng, dev)
+    base, want = cs._clone(store), cs._clone(store)
+    hs.fold_argset_plain(want, layout, slots, contribs)
+    hs.fold_argset(store, scratch, layout, slots, contribs)
+    for k in store:
+        cs._assert_equal(torch, f"fold_and_mark[argset].{k}", cs._bits(torch, store[k]), cs._bits(torch, want[k]))
+    pairs = hs.argset_pairs(layout)
+    per = {j: int(((slots != layout.capacity) & (contribs[o] == want[f"a{o}"][slots.long()])).sum())
+           for j, o in pairs}
+
+    def argset():
+        hs.fold_argset(store, scratch, layout, slots, contribs)
+
+    lib_slots = torch.where(slots == layout.capacity, torch.zeros_like(slots), slots).long()
+    rec = cs.measure(torch, "fold_and_mark", argset, lambda: hs.fold_argset_plain(store, layout, slots, contribs),
+                     cs.argset_bytes(slots, contribs, layout, hs, per), 0, reset=lambda: cs._restore(store, base),
+                     library=lambda: [store[f"a{j}"].index_put_((lib_slots,), contribs[j].to(store[f"a{j}"].dtype))
+                                      for j, _o in pairs])
+    parts = _parts(cs, torch, ["fold_and_mark"], argset)
+    host = _host_ms(torch, argset)
+    out.append(("fold_and_mark", "argset 2a", dict(rec, parts=parts, host_ms=host),
+                _what_parts(f"{slots.shape[0]} rows, {len(pairs)} pairs, {sum(per.values())} winning (row, pair)s; "
+                            f"wrapper host {host:.4f} ms a call", parts)))
+    return out
+
+
+def k20_shapes(cs, torch, seed):
+    """K20's set and hist modes at phase 2v's cases (``make_vector_case``'s
+    COLLECT_SET, ``make_hist_case``) and again with every slot's stored
+    prefix emptied (the prefix scans' share), its hist mode on phase 2t's
+    undo side (``make_orders_case``), and its append and ring modes at
+    2v's; each against its twin, each K20 CUDA function and K13's sorts
+    within the call apart.  Returns ``[(kernel, shape, record, what)]``."""
+    from ksql_tpu_torch.ops import vector as vec
+
+    dev = torch.device(cs.DEVICE)
+    out = []
+
+    def one(tag, layout, store, j, contribs, slots, mode, what):
+        keys = [f"a{j + t}" for t in range(3)]
+        saved = {k: store[k].clone() for k in keys}
+        work = {k: store[k].clone() for k in keys}
+        twin = {k: store[k].clone() for k in keys}
+        vec.vec_collect(work, layout, j, contribs, slots, mode)
+        vec.vec_collect_plain(twin, layout, j, contribs, slots, mode)
+        cs._assert_store(torch, f"vec_collect[{tag}]", work, twin, keys)
+
+        def call():
+            vec.vec_collect(work, layout, j, contribs, slots, mode)
+
+        def reset():
+            for k in keys:
+                work[k].copy_(saved[k])
+
+        n, cap = slots.shape[0], layout.capacity
+        s_np = slots.cpu().numpy()
+        touched = np.unique(s_np[s_np != cap])
+        K = layout.components[j + 1].width
+        scan = int(saved[f"a{j}"][torch.from_numpy(touched).to(dev)].clamp(max=K).sum()) * 9
+        rec = cs.measure(torch, "vec_collect", call, lambda: vec.vec_collect_plain(work, layout, j, contribs, slots, mode),
+                         n * 21 + touched.size * 16 + (scan if mode in ("set", "hist") else 0), n * 40,
+                         reset=reset, plain_reps=5)
+        parts = _parts(cs, torch, ["vec_collect", "seg_sort"], call)
+        out.append(("vec_collect", tag, dict(rec, parts=parts),
+                    _what_parts(f"{what}: {n} rows into {touched.size} slots", parts)))
+
+    rng = np.random.default_rng(seed + 17)
+    c = cs.make_vector_case(torch, rng, dev)
+    names = [sp.fname for sp in c["q"].agg_specs]
+    for fname, mode in (("COLLECT_SET", "set"), ("COLLECT_LIST", "append"), ("LATEST_BY_OFFSET", "ring")):
+        j = c["starts"][names.index(fname)]
+        one(f"{mode} 2v", c["layout"], c["store"], j, c["contribs"], c["slots"], mode, fname)
+        if mode == "set":
+            empty = dict(c["store"], **{f"a{j}": torch.zeros_like(c["store"][f"a{j}"])})
+            one("set 2v empty prefixes", c["layout"], empty, j, c["contribs"], c["slots"], mode, fname)
+    del c
+    h = cs.make_hist_case(torch, np.random.default_rng(seed + 18), dev)
+    j = h["j"]
+    one("hist 2v", h["layout"], h["store"], j, h["contribs"], h["slots"], "hist", "HISTOGRAM")
+    empty = dict(h["store"], **{f"a{j}": torch.zeros_like(h["store"][f"a{j}"])})
+    one("hist 2v empty prefixes", h["layout"], empty, j, h["contribs"], h["slots"], "hist", "HISTOGRAM")
+    del h
+    o = cs.make_orders_case(torch, np.random.default_rng(seed + 19), dev)
+    one("hist undo 2t", o["layout"], o["store"], 6, o["contribs"], o["slots"], "hist", "HISTOGRAM(STATUS) undo")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", nargs="?", default=HERE, help="the checkout whose package is timed")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--groups", default="k10,k13,k8k24,k17,k16",
-                    help="comma-separated: k10, k13, k8k24, k17, k16")
+    ap.add_argument("--groups", default="k10,k13,k8k24,k17,k16,k3,k20",
+                    help="comma-separated: k10, k13, k8k24, k17, k16, k3, k20")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -298,7 +489,7 @@ def main() -> int:
     print(smi)
     records = []
     groups = {"k10": k10_shapes, "k13": k13_shapes, "k8k24": k8_k24_shapes, "k17": k17_shapes,
-              "k16": k16_shapes}
+              "k16": k16_shapes, "k3": k3_shapes, "k20": k20_shapes}
     shapes = []
     for g in args.groups.split(","):
         shapes += groups[g](cs, torch, args.seed)

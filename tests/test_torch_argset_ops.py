@@ -28,6 +28,7 @@ from ksql_tpu.ops import hash_store as ref
 from ksql_tpu_torch.ops import hash_store as hs
 from ksql_tpu_torch.ops import session as sess
 from ksql_tpu_torch.state import state_from_numpy, state_to_numpy
+from tests.torch_kernel_cases import ARGSET_CASES, ARGSET_COMPONENTS, argset_case
 
 jax.config.update("jax_enable_x64", True)
 
@@ -127,6 +128,46 @@ def test_fold_and_argset_twins_match_scatter_combine(case):
         if g.dtype == np.float64:
             g, w = g.view(np.int64), w.view(np.int64)
         np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+@pytest.mark.parametrize("case", list(ARGSET_CASES))
+def test_argset_twin_matches_scatter_combine_at_the_kernels_edges(case):
+    """K3 argset's twin against ``scatter_combine`` where the kernel's
+    block reduction and last-block ticket decide the dump slot
+    (``ARGSET_CASES``): every row of the last 256-row block wins, so the
+    dump takes the highest row of an earlier block; no row wins, so it
+    takes the last row; zipf slots.  Tolerance: none (bits)."""
+    n, kind = ARGSET_CASES[case]
+    state, slots, active, c = argset_case(n, kind)
+    capacity = state["a0"].shape[0] - 1
+    layout = ref.StoreLayout(capacity, 1, tuple(ref.AggComponent(*x) for x in ARGSET_COMPONENTS))
+    st = {k: np.array(v) for k, v in jax.device_get(ref.init_store(layout)).items()}
+    st.update({k: v.copy() for k, v in state.items()})
+    want_store = ref.scatter_combine({k: jnp.asarray(v) for k, v in st.items()}, layout,
+                                     jnp.asarray(slots), [jnp.asarray(x) for x in c])
+    port = state_from_numpy(st, "cpu")
+    port_layout = hs.StoreLayout(capacity, 1, tuple(hs.AggComponent(*x) for x in ARGSET_COMPONENTS))
+    scratch = hs.init_scratch(capacity, "cpu")
+    cs = [torch.from_numpy(x) for x in c]
+    hs.fold_and_mark(port, scratch, port_layout, torch.from_numpy(slots), cs, torch.from_numpy(active))
+    hs.fold_argset(port, scratch, port_layout, torch.from_numpy(slots), cs)
+    got = state_to_numpy(port)
+    want = {k: np.asarray(v) for k, v in jax.device_get(want_store).items()}
+    for k in want:
+        g, w = got[k], want[k]
+        if g.dtype == np.float64:
+            g, w = g.view(np.int64), w.view(np.int64)
+        np.testing.assert_array_equal(g, w, err_msg=k)
+    # the case does what it says: LATEST's payload at the dump is that row's
+    dump_row = {"top_block_wins": None, "none_wins": n - 1}.get(kind)
+    if kind == "top_block_wins":
+        top = slots[n - 256:]
+        assert (want["a4"][top] == c[4][n - 256:]).all()  # each wins its slot
+        lost = np.nonzero(~((slots != capacity) & (c[4] == want["a4"][slots])))[0]
+        dump_row = int(lost[-1])
+        assert dump_row < n - 256
+    if dump_row is not None:
+        assert want["a5"][capacity] == c[5][dump_row]
 
 
 def test_argset_pairs_follow_the_nearest_order():

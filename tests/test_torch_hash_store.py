@@ -19,6 +19,8 @@ from ksql_tpu.ops import window as ref_window
 from ksql_tpu_torch.ops import hash_store as hs
 from ksql_tpu_torch.ops import window as port_window
 from ksql_tpu_torch.state import state_from_numpy, state_to_numpy
+from tests.torch_kernel_cases import FOLD_CASES as FOLD_SKEWS
+from tests.torch_kernel_cases import FOLD_COMPONENTS, fold_case
 
 jax.config.update("jax_enable_x64", True)
 
@@ -339,6 +341,43 @@ def test_fold_and_mark_twin_matches_reference(combine, dtype):
 
 
 # ------------------------------------------------------------ host rebuild
+@pytest.mark.parametrize("case", list(FOLD_SKEWS))
+def test_fold_and_mark_twin_matches_reference_at_the_kernels_skews(case):
+    """K3's twin against ``scatter_combine`` and ``winners_per_slot`` at
+    the skews the kernel's warp combine leans on (``FOLD_CASES``): one slot
+    taking most of every warp, one warp's 32 lanes on one slot with NaN,
+    -0.0 and +0.0 among their min/max values, uniform slots, most rows at
+    the dump; every combine and dtype, int64 sums that wrap.  Tolerance:
+    float64 sums rtol 1e-12 with their signs, all else exact."""
+    n, kind = FOLD_SKEWS[case]
+    state, slots, active, contribs = fold_case(n, kind)
+    capacity = state["dirty"].shape[0] - 1
+    comps = tuple(ref.AggComponent(*c) for c in FOLD_COMPONENTS)
+    layout = ref.StoreLayout(capacity, 1, comps)
+    st = {k: np.array(v) for k, v in jax.device_get(ref.init_store(layout)).items()}
+    st.update({k: v.copy() for k, v in state.items()})
+    want_store = ref.scatter_combine({k: jnp.asarray(v) for k, v in st.items()}, layout, jnp.asarray(slots),
+                                     [jnp.asarray(c) for c in contribs])
+    want_win = np.asarray(ref.winners_per_slot(jnp.asarray(slots), jnp.asarray(active), capacity))
+    port = state_from_numpy(st, "cpu")
+    port_layout = hs.StoreLayout(capacity, 1, tuple(hs.AggComponent(*c) for c in FOLD_COMPONENTS))
+    win = hs.fold_and_mark(port, {}, port_layout, torch.from_numpy(slots),
+                           [torch.from_numpy(c) for c in contribs], torch.from_numpy(active))
+    np.testing.assert_array_equal(win.numpy(), want_win)
+    got = state_to_numpy(port)
+    want = {k: np.asarray(v) for k, v in jax.device_get(want_store).items()}
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        if got[k].dtype == np.float64:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-12, atol=0, err_msg=k)
+            np.testing.assert_array_equal(np.signbit(got[k]), np.signbit(want[k]), err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    if kind == "warp":
+        # the warp's slot folds NaN: the case reaches XLA's NaN rule
+        assert np.isnan(want["a3"][3]) and np.isnan(want["a4"][3])
+
+
 @pytest.mark.parametrize("capacity,n", [(1 << 8, 150), (1 << 12, 3000)])
 def test_host_insert_matches_reference(capacity, n):
     rng = np.random.default_rng(capacity)

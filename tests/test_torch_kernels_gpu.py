@@ -34,7 +34,9 @@ from ksql_tpu_torch.ops import session as sess
 from ksql_tpu_torch.ops import slicing
 from ksql_tpu_torch.ops import ss_join as ssj
 from ksql_tpu_torch.ops import suppress as sup
-from torch_kernel_cases import CLOCK_CASES, WRITE_CASES, clock_case, write_case, write_torch
+from torch_kernel_cases import (ARGSET_CASES, ARGSET_COMPONENTS, CLOCK_CASES, COLLECT_CASES, FOLD_CASES,
+                                FOLD_COMPONENTS, WRITE_CASES, argset_case, clock_case, collect_case,
+                                fold_case, write_case, write_torch)
 
 pytestmark = pytest.mark.gpu
 I64 = np.iinfo(np.int64)
@@ -133,12 +135,16 @@ def test_probe_insert_and_fold_kernels_match_twins(dev, capacity, fill, graves, 
         active.long(), torch.where(active, x, torch.zeros_like(x)),
         torch.where(active, x, torch.full_like(x, float("inf"))),
     ]
+    sc = {k: v.clone() for k, v in sk.items()}
     win_k = hs.fold_and_mark(sk, scratch, layout, slots, contribs, active)
     win_p = hs.fold_and_mark_plain(sp, layout, slots, contribs, active)
     _same(win_k, win_p)
     for k in st:
         _same(sk[k], sp[k], rtol=1e-12)
     assert (scratch["first"] == hs.INT32_MAX).all()
+    # K3's one cooperative launch, from 20 calls on a copy
+    names = _records_per_call(lambda: hs.fold_and_mark(sc, scratch, layout, slots, contribs, active))
+    assert len(names) == 1 and "fold_mark_kernel" in names[0], names
 
 
 def test_evict_kernel_matches_twin(dev):
@@ -592,6 +598,23 @@ def _bits(t):
     return t.view(torch.int64) if t.dtype == torch.float64 else t
 
 
+#: K20's CUDA functions a call launches, by mode, in order (K13's sorts between them)
+_COLLECT_FUNCS = {
+    "append": ["collect_keys_kernel", "collect_place_kernel"],
+    "ring": ["collect_keys_kernel", "collect_place_kernel"],
+    "set": ["collect_keys_kernel", "collect_member_kernel", "collect_place_kernel"],
+    "hist": ["collect_keys_kernel", "collect_member_kernel", "collect_place_kernel"],
+}
+
+
+def _collect_launches(fn):
+    """K20's CUDA functions one call of ``fn`` launches, in order, from a
+    20-call trace (``_records_per_call``)."""
+    names = _records_per_call(fn)
+    return [f for x in names for f in ("collect_keys_kernel", "collect_member_kernel", "collect_place_kernel")
+            if f in x]
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_vector_kernels_match_twins(dev, seed):
     # K20 (append, set, ring), K21 (plain, distinct) and K6's wide gather on
@@ -615,6 +638,9 @@ def test_vector_kernels_match_twins(dev, seed):
             vec.vec_collect(got, layout, j, contribs, slots, mode)
             assert vec.vec_collect.mode_launches[mode] == before + 1
             vec.vec_collect_plain(want, layout, j, contribs, slots, mode)
+            sc = {k: store[k].clone() for k in keys}
+            assert _collect_launches(lambda: vec.vec_collect(sc, layout, j, contribs, slots, mode)) == \
+                _COLLECT_FUNCS[mode]
         elif comp.combine == "topk":
             vec.vec_topk(got, layout, j, contribs[j], slots)
             vec.vec_topk_plain(want, layout, j, contribs[j], slots)
@@ -885,7 +911,9 @@ def test_fold_argset_kernel_matches_twin(dev, n, capacity):
         a, b = store[k], want[k]
         _same(a.view(torch.int64) if a.dtype == torch.float64 else a,
               b.view(torch.int64) if b.dtype == torch.float64 else b)
-    assert int((scratch["dump_row"] != -1).sum()) == 0
+    assert int((scratch["dump_row"] != -1).sum()) == 0 and int(scratch["ticket"][0]) == 0
+    names = _records_per_call(lambda: hs.fold_argset(store, scratch, layout, slots, contribs))
+    assert len(names) == 1 and "argset_kernel" in names[0], names
 
 
 @pytest.mark.parametrize("ties", [False, True])
@@ -1215,14 +1243,20 @@ def test_session_merge_long_runs_are_two_launches_and_match_twin(dev, case):
 
 # ---- launch counts: every one-launch check reads a trace of 20 calls (a
 # one-call trace can lose its records on the H100)
-def _records_per_call(fn, reps=20, attempts=3):
+def _records_per_call(fn, reps=20, attempts=8, warm=3):
     """Names of the CUDA kernels one call of ``fn()`` launches, from a
     trace of ``reps`` calls fenced as chip_smoke's kernel_device_ms fences
     its traces (a ~50 ms spin before them, two ~2 ms spins and an event
     synchronized after): a single short call's trace can lose its one
     record (seen for K13's one-block launch), a long trace keeps them.
-    Taken again, at most ``attempts`` times in all, unless both closing
-    fences are in it and its records are a whole number of calls'; ``fn``
+    The H100's profiler also drops single records of short kernels, most
+    often the first after the long spin (traces of K3's, K15's and K20's
+    checks came back with 18 or 19 of 20 calls' records, three traces
+    running), so ``warm`` calls run after it and a ~1 ms marker spin before
+    the counted calls, only the records between the marker and the
+    closing fences count, and a short trace is taken again, at most
+    ``attempts`` times in all, unless the marker and both closing fences
+    are in it and its counted records are a whole number of calls'; ``fn``
     must give the same launches run again."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1231,6 +1265,9 @@ def _records_per_call(fn, reps=20, attempts=3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(chip_smoke._LEAD_CYCLES)
+            for _ in range(warm):
+                fn()
+            torch.cuda._sleep(chip_smoke._FENCE_CYCLES // 2)
             for _ in range(reps):
                 fn()
             for _ in range(chip_smoke._FENCES):
@@ -1241,12 +1278,22 @@ def _records_per_call(fn, reps=20, attempts=3):
         events = sorted((e for e in prof.events() if e.device_type == cuda_events
                          and "emcpy" not in e.name and "emset" not in e.name),
                         key=lambda e: e.time_range.start)
-        body = [e for e in events if "spin_kernel" not in e.name]
+        spins = [e for e in events if "spin_kernel" in e.name]
+        # the marker: the spin before the last two (the closing fences), not
+        # the lead spin (~50 ms; it may be dropped): the marker is ~1 ms
+        marker = spins[-3] if len(spins) >= 3 and spins[-3].time_range.elapsed_us() < 10_000 else None
+        body = [e for e in events if "spin_kernel" not in e.name
+                and (marker is None or e.time_range.start > marker.time_range.start)]
         last = max((e.time_range.start for e in body), default=-1)
-        closing = sum("spin_kernel" in e.name and e.time_range.start > last for e in events)
-        if body and closing == chip_smoke._FENCES and len(body) % reps == 0:
+        closing = sum(e.time_range.start > last for e in spins)
+        if body and marker is not None and closing == chip_smoke._FENCES and len(body) % reps == 0:
             return [e.name for e in body[:len(body) // reps]]
-    raise AssertionError(f"{attempts} traces of {reps} calls came back short")
+    seen = {}
+    for e in body:
+        seen[e.name[:60]] = seen.get(e.name[:60], 0) + 1
+    raise AssertionError(f"{attempts} traces of {reps} calls came back short (the last: {len(body)} "
+                         f"records, {closing} closing fences, spins of "
+                         f"{[round(e.time_range.elapsed_us()) for e in spins]} us, {seen})")
 
 
 #: K10's ring-tile edges (512-entry tiles; rings of B + 1 entries): the
@@ -1370,3 +1417,79 @@ def test_session_write_is_one_launch_at_block_edges(dev, case):
         assert int(sess.session_write.scratch[cins.device][0]) == 0
     kernels = _records_per_call(lambda: sess.session_write(sk, cap, cm, cins, cscal))
     assert len(kernels) == 1 and "write_kernel" in kernels[0], kernels
+
+
+# ---- K3 and K20 at the skews their designs lean on (tests/torch_kernel_cases.py)
+@pytest.mark.parametrize("case", list(FOLD_CASES))
+def test_fold_and_mark_is_one_launch_at_its_skews(dev, case):
+    # tolerance: float64 sums rtol 1e-12 (a warp's rows are summed first,
+    # then the warps in atomic order), every other column by its bits;
+    # one fold_mark_kernel record a call, the first cells clean after it
+    n, kind = FOLD_CASES[case]
+    state, slots, active, contribs = fold_case(n, kind)
+    capacity = state["dirty"].shape[0] - 1
+    layout = hs.StoreLayout(capacity, 1, tuple(hs.AggComponent(*c) for c in FOLD_COMPONENTS))
+    st = {k: torch.from_numpy(v.copy()).to(dev) for k, v in state.items()}
+    sk, sp, sc = ({k: v.clone() for k, v in st.items()} for _ in range(3))
+    s, a = torch.from_numpy(slots).to(dev), torch.from_numpy(active).to(dev)
+    cs = [torch.from_numpy(c).to(dev) for c in contribs]
+    scratch = hs.init_scratch(capacity, dev)
+    _same(hs.fold_and_mark(sk, scratch, layout, s, cs, a), hs.fold_and_mark_plain(sp, layout, s, cs, a))
+    for j, (combine, dtype, _init) in enumerate(FOLD_COMPONENTS):
+        if combine == "add" and dtype == "float64":
+            _same(sk[f"a{j}"], sp[f"a{j}"], rtol=1e-12)
+        else:
+            _same(_bits(sk[f"a{j}"]), _bits(sp[f"a{j}"]))
+    _same(sk["dirty"], sp["dirty"])
+    assert (scratch["first"] == hs.INT32_MAX).all()
+    names = _records_per_call(lambda: hs.fold_and_mark(sc, scratch, layout, s, cs, a))
+    assert len(names) == 1 and "fold_mark_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("case", list(ARGSET_CASES))
+def test_fold_argset_is_one_launch_at_its_edges(dev, case):
+    # tolerance: exact (bits, the dump slot included); one argset_kernel
+    # record a call, the dump cells and the done count clean after it
+    n, kind = ARGSET_CASES[case]
+    state, slots, active, contribs = argset_case(n, kind)
+    capacity = state["a0"].shape[0] - 1
+    layout = hs.StoreLayout(capacity, 1, tuple(hs.AggComponent(*x) for x in ARGSET_COMPONENTS))
+    st = {k: torch.from_numpy(v.copy()).to(dev) for k, v in state.items()}
+    st["dirty"] = torch.zeros(capacity + 1, dtype=torch.bool, device=dev)
+    s, a = torch.from_numpy(slots).to(dev), torch.from_numpy(active).to(dev)
+    cs = [torch.from_numpy(c).to(dev) for c in contribs]
+    hs.fold_and_mark_plain(st, layout, s, cs, a)  # the orders settled
+    got, want, sc = ({k: v.clone() for k, v in st.items()} for _ in range(3))
+    scratch = hs.init_scratch(capacity, dev)
+    for _ in range(2):  # the cells the first call used come back clean
+        hs.fold_argset(got, scratch, layout, s, cs)
+        hs.fold_argset_plain(want, layout, s, cs)
+        for k in st:
+            _same(_bits(got[k]), _bits(want[k]))
+        assert int((scratch["dump_row"] != -1).sum()) == 0 and int(scratch["ticket"][0]) == 0
+    names = _records_per_call(lambda: hs.fold_argset(sc, scratch, layout, s, cs))
+    assert len(names) == 1 and "argset_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("case", list(COLLECT_CASES))
+def test_vec_collect_set_and_hist_at_their_skews(dev, case):
+    # tolerance: exact (the group's columns, the dump row included); the
+    # keys, member and place launches a call, the scratch clean after it
+    from ksql_tpu_torch.ops import vector as vec
+
+    kind, mode, dtype = COLLECT_CASES[case]
+    comps, state, contribs, slots = collect_case(kind, mode, dtype)
+    capacity = state["a1"].shape[0] - 1
+    layout = hs.StoreLayout(capacity, 1, tuple(hs.AggComponent(c, d, i, width=w, mode=m)
+                                               for c, d, i, w, m in comps))
+    st = {k: torch.from_numpy(v.copy()).to(dev) for k, v in state.items()}
+    got, want, sc = ({k: v.clone() for k, v in st.items()} for _ in range(3))
+    s = torch.from_numpy(slots).to(dev)
+    cs = [None if c is None else torch.from_numpy(c).to(dev) for c in contribs]
+    for _ in range(2):
+        vec.vec_collect(got, layout, 1, cs, s, mode)
+        vec.vec_collect_plain(want, layout, 1, cs, s, mode)
+        for k in st:
+            _same(_bits(got[k]), _bits(want[k]))
+        assert all(bool((t[:-2] == -1).all()) and not bool(t[-2:].any()) for t in vec._SCRATCH.values())
+    assert _collect_launches(lambda: vec.vec_collect(sc, layout, 1, cs, s, mode)) == _COLLECT_FUNCS[mode]

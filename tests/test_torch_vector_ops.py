@@ -32,6 +32,7 @@ from ksql_tpu_torch.ops import device_aggs as pda
 from ksql_tpu_torch.ops import hash_store as hs
 from ksql_tpu_torch.ops import slicing
 from ksql_tpu_torch.ops import vector
+from tests.torch_kernel_cases import COLLECT_CASES, collect_case
 
 jax.config.update("jax_enable_x64", True)
 
@@ -119,6 +120,36 @@ def test_vec_hist_matches_reference(seed):
     _run_both(lambda s, c, sl: rhs._vec_hist(s, rl, 1, c, sl, jnp.int32(rl.capacity)),
               lambda s, c, sl: vector.fold_vectors(s, pl, sl, c),
               state, contribs, slots)
+
+
+@pytest.mark.parametrize("case", list(COLLECT_CASES))
+def test_set_and_hist_match_reference_at_the_kernels_skews(case):
+    """K20's set and hist modes (``_vec_collect``, ``_vec_hist`` with
+    ``_batch_membership``) where the kernel reads each slot's stored prefix
+    once into a table (``COLLECT_CASES``): stored prefixes full at K,
+    every row on one slot with repeated values, NULL bits and NaNs, one
+    slot's run longer than a block; then the membership masks themselves
+    against ``_batch_membership``.  Tolerance: none."""
+    kind, mode, dtype = COLLECT_CASES[case]
+    comps, state, contribs, slots = collect_case(kind, mode, dtype)
+    capacity = state["a1"].shape[0] - 1
+    rl, pl = _layouts(capacity, [dict(combine=c, dtype=d, init=i, width=w, mode=m)
+                                 for c, d, i, w, m in comps])
+    if mode == "hist":
+        _run_both(lambda s, c, sl: rhs._vec_hist(s, rl, 1, c, sl, jnp.int32(capacity)),
+                  lambda s, c, sl: vector.fold_vectors(s, pl, sl, c), state, contribs, slots)
+    else:
+        _run_both(lambda s, c, sl: rhs._vec_collect(s, rl, 1, c, sl, jnp.int32(capacity)),
+                  lambda s, c, sl: vector.vec_collect(s, pl, 1, c, sl, mode), state, contribs, slots)
+    K = comps[2][3]
+    eff0 = np.where((contribs[1] > 0) & (slots != capacity), slots, capacity).astype(np.int32)
+    want = rhs._batch_membership(*map(jnp.asarray, (state["a1"], state["a2"], state["a3"])), K,
+                                 *map(jnp.asarray, (eff0, contribs[2], contribs[3])))
+    got = vector.batch_membership_plain(*map(torch.from_numpy, (state["a1"], state["a2"], state["a3"])), K,
+                                        *map(torch.from_numpy, (eff0, contribs[2], contribs[3])))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert np.asarray(want[0]).any() and not np.asarray(want[0]).all()  # members and not
 
 
 @pytest.mark.parametrize("seed", range(3))

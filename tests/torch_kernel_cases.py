@@ -1,7 +1,8 @@
 """Inputs of K16's write mode and K17 at the edges of their kernels'
-tiles, shared by the CPU parity tests (the twins against the reference's
-jax) and the card tests (the kernels against the twins).  Numpy and torch
-only: the card's machine has no JAX."""
+tiles, and of K3 (fold and argset) and K20 (set and hist) at the skews
+their designs lean on, shared by the CPU parity tests (the twins against
+the reference's jax) and the card tests (the kernels against the twins).
+Numpy and torch only: the card's machine has no JAX."""
 
 import numpy as np
 import torch
@@ -149,4 +150,193 @@ CLOCK_CASES = {
     "items8_partial": ((1 << 19) + 3, 1, "random"), "hops4": (1 << 14, 4, "random"),
     "inactive": (1536, 3, "inactive"), "late": (1536, 2, "late"),
     "extremes": (1541, 2, "extremes"), "wrap": (1024, 4, "wrap"),
+}
+
+
+# ------------------------------------------------------------ K3
+I32 = np.iinfo(np.int32)
+#: K3 fold's components, (combine, dtype, init): every combine and dtype
+FOLD_COMPONENTS = (("max", "int64", I64.min), ("add", "int64", 0), ("add", "float64", 0.0),
+                   ("min", "float64", np.inf), ("max", "float64", -np.inf), ("min", "int64", I64.max),
+                   ("add", "int32", 0), ("max", "int32", I32.min), ("min", "int32", I32.max))
+#: the doubles XLA's min/max order: NaN wins, -0.0 is below +0.0
+SIGNED = np.array([-0.0, 0.0, np.nan, 1.5, -1.5, np.inf, -np.inf])
+
+
+def fold_case(n, kind, capacity=256, seed=0):
+    """K3 fold's inputs over ``n`` rows into ``capacity`` slots, as numpy:
+    ``(state, slots, active, contribs)``, ``state`` the components'
+    columns (``a<j>``, ``capacity + 1`` cells, half of them folded before)
+    and ``dirty``, ``contribs`` one column a component of
+    ``FOLD_COMPONENTS`` (the identity on inactive rows; int64 adds near
+    2^62, so sums wrap).  ``kind``: ``hot`` (one slot takes 90% of the
+    rows: most of every warp), ``warp`` (rows 32-63, one warp's lanes, on
+    one slot, their float min/max values from ``SIGNED``: NaN, -0.0 and
+    +0.0 among them), ``spread`` (uniform slots) or ``dump`` (80% of the
+    rows active at the dump slot, overflowed)."""
+    rng = np.random.default_rng(seed)
+    c1 = capacity + 1
+    state = {"dirty": rng.random(c1) < 0.2}
+    for j, (combine, dtype, init) in enumerate(FOLD_COMPONENTS):
+        col = np.full(c1, init, dtype)
+        held = rng.random(c1) < 0.5
+        if dtype == "float64":
+            col[held] = SIGNED[rng.integers(0, SIGNED.size, int(held.sum()))] if combine != "add" \
+                else rng.normal(0, 100, int(held.sum()))
+        else:
+            col[held] = rng.integers(-1000, 1000, int(held.sum()))
+        state[f"a{j}"] = col
+    slots = rng.integers(0, capacity, n)
+    if kind == "hot":
+        slots[rng.random(n) < 0.9] = 7 % capacity
+    elif kind == "warp":
+        slots[32:64] = 3 % capacity
+    elif kind == "dump":
+        slots[rng.random(n) < 0.8] = capacity
+    active = rng.random(n) > 0.1
+    slots[~active] = capacity
+    contribs = []
+    for combine, dtype, init in FOLD_COMPONENTS:
+        if dtype == "float64" and combine != "add":
+            v = SIGNED[rng.integers(0, SIGNED.size, n)]
+        elif dtype == "float64":
+            v = rng.normal(0, 1e3, n)
+            v[rng.random(n) < 0.01] = np.nan
+        elif combine == "add" and dtype == "int64":
+            v = rng.integers(-(2 ** 62), 2 ** 62, n)
+        else:
+            v = rng.integers(-100, 100, n)
+        contribs.append(np.where(active, v, np.asarray(init, dtype)).astype(dtype))
+    return state, slots.astype(np.int32), active, contribs
+
+
+#: K3 fold's skews: a hot slot across every warp, one warp on one slot,
+#: uniform slots, most rows at the dump; with more rows than one block
+#: (256) and a grid-stride loop's worth (the cooperative grid caps its blocks)
+FOLD_CASES = {
+    "hot": (4096, "hot"), "warp": (96, "warp"), "spread": (3000, "spread"), "dump": (1000, "dump"),
+    "hot_large": (1 << 18, "hot"),
+}
+
+#: K3 argset's components (ops/device_aggs.py): the ts watermark, EARLIEST
+#: over a DOUBLE (min order, value, valid bit), LATEST over a BIGINT (max
+#: order, value, valid bit)
+ARGSET_COMPONENTS = (("max", "int64", I64.min), ("min", "int64", I64.max), ("argset", "float64", 0),
+                     ("argset", "int32", 0), ("max", "int64", I64.min), ("argset", "int64", 0),
+                     ("argset", "int32", 0))
+
+
+def argset_case(n, kind, capacity=1 << 12, seed=0):
+    """K3 argset's inputs before the fold: ``(state, slots, active,
+    contribs)`` as numpy (``state`` the components' columns), rows with
+    unique sequence numbers above every stored order.  ``kind``:
+    ``top_block_wins`` (the last 256 rows, the kernel's last block, are
+    each the only candidate of a slot of their own, so all of them win and
+    the dump takes the highest row of an earlier block), ``none_wins``
+    (every row active at the dump slot, overflowed: the dump takes row n
+    - 1) or ``random`` (zipf slots, 5% inactive, 10% NULL values)."""
+    rng = np.random.default_rng(seed)
+    c1 = capacity + 1
+    state = {}
+    for j, (combine, dtype, init) in enumerate(ARGSET_COMPONENTS):
+        state[f"a{j}"] = np.full(c1, init, dtype)
+    held = rng.choice(capacity, capacity // 2, replace=False)
+    old = rng.choice(1 << 30, 2 * held.size, replace=False).astype(np.int64)
+    state["a1"][held], state["a4"][held] = old[:held.size], old[held.size:]
+    state["a2"][held] = rng.normal(0, 100, held.size)
+    state["a5"][held] = rng.integers(-10 ** 9, 10 ** 9, held.size)
+    state["a3"][held] = state["a6"][held] = 1
+    slots = held[(rng.zipf(1.3, n) - 1) % held.size].astype(np.int32)
+    active = rng.random(n) >= 0.05
+    valid = rng.random(n) >= 0.1
+    if kind == "top_block_wins":
+        top = np.arange(max(n - 256, 0), n)
+        free = np.setdiff1d(np.arange(capacity), held)
+        slots[top] = free[:top.size]
+        active[top] = valid[top] = True
+    elif kind == "none_wins":
+        slots[:] = capacity
+        active[:] = True
+    slots[~active] = capacity
+    seq = (1 << 40) + np.arange(n, dtype=np.int64)
+    e_cand = active & valid
+    x = rng.normal(0, 100, n)
+    x[rng.random(n) < 0.1] = -0.0
+    x[rng.random(n) < 0.05] = np.nan
+    contribs = [np.where(active, rng.integers(0, 10 ** 12, n), I64.min).astype(np.int64),
+                np.where(e_cand, seq, I64.max), np.where(e_cand, x, 0.0),
+                e_cand.astype(np.int32), np.where(active, seq, I64.min),
+                np.where(active, rng.integers(-10 ** 9, 10 ** 9, n), 0).astype(np.int64),
+                (active & valid).astype(np.int32)]
+    return state, slots, active, contribs
+
+
+ARGSET_CASES = {
+    "top_block_wins": (1024, "top_block_wins"), "none_wins": (700, "none_wins"),
+    "random": (5000, "random"),
+}
+
+
+# ------------------------------------------------------------ K20
+#: doubles of a set's values: both zeros and NaN among them
+SET_DOUBLES = np.array([-0.0, 0.0, np.nan, 1.5, -2.0, 7.25, -np.inf, 3.0, 4.5])
+
+
+def collect_case(kind, mode, dtype="int64", capacity=64, K=40, n=600, seed=0):
+    """K20's set or hist inputs: ``(components, state, contribs, slots)``,
+    ``components`` the group's ``(combine, dtype, init, width, mode)`` at
+    component 1 after an int64 max at 0, ``state`` numpy columns
+    ``a1``-``a3`` (``a4``: hist's counts), ``contribs`` ``[None, head,
+    values, bits]`` (hist: ``+ [head]``).  ``kind``: ``full_prefix``
+    (every touched slot's stored prefix holds K entries; the batch's values
+    partly among them), ``one_slot`` (every row on one slot, values
+    repeated, NULL bits mixed in, NaNs among the doubles) or ``hot_run``
+    (one slot takes 70% of the rows with many distinct values: a run
+    longer than a block)."""
+    rng = np.random.default_rng(seed)
+    hist = mode == "hist"
+    ddt = "int64" if hist else dtype
+    comps = [("max", "int64", 0, 1, ""), ("vec_count", "int64", 0, 1, "hist" if hist else ""),
+             ("vec_data", ddt, 0, K, mode), ("vec_valid", "int8", 0, K, "")]
+    if hist:
+        comps.append(("hist_count", "int64", 0, K, ""))
+    c1 = capacity + 1
+    span = 3 * K if kind == "hot_run" else K + K // 2
+
+    def vals(m):
+        if ddt == "float64":
+            return SET_DOUBLES[rng.integers(0, SET_DOUBLES.size, m)].copy() if kind == "one_slot" \
+                else rng.integers(0, span, m).astype(np.float64) / 4
+        return rng.integers(0, span, m).astype(ddt)
+
+    cnt = rng.integers(0, K + 1, c1).astype(np.int64)
+    if kind == "full_prefix":
+        cnt[:] = K + rng.integers(0, 3, c1) * (not hist)
+    else:
+        cnt[5] = K - 3  # the hot slot's prefix: most of K
+    cnt[capacity] = 0
+    data = np.stack([rng.permutation(span)[:K] for _ in range(c1)]).astype(ddt)
+    if ddt == "float64":
+        data /= 4
+    state = {"a1": cnt, "a2": data, "a3": (rng.random((c1, K)) < 0.9).astype(np.int8)}
+    if hist:
+        state["a4"] = rng.integers(1, 5, (c1, K)).astype(np.int64)
+    slots = rng.integers(0, capacity, n).astype(np.int32)
+    if kind == "one_slot":
+        slots[:] = 5
+    elif kind == "hot_run":
+        slots[rng.random(n) < 0.7] = 5
+    slots[rng.random(n) < 0.03] = capacity
+    head = np.where(rng.random(n) < 0.9, 1, 0 if not hist else -1).astype(np.int64)
+    vbits = (rng.random(n) < 0.85).astype(np.int8)
+    v = np.where(vbits != 0, vals(n), 0).astype(ddt)
+    contribs = [None, head, v, vbits] + ([head] if hist else [])
+    return comps, state, contribs, slots
+
+
+COLLECT_CASES = {
+    "set_full_prefix": ("full_prefix", "set", "int64"), "set_full_prefix_doubles": ("full_prefix", "set", "float64"),
+    "set_one_slot": ("one_slot", "set", "int64"), "set_one_slot_doubles": ("one_slot", "set", "float64"),
+    "set_hot_run": ("hot_run", "set", "int64"), "hist_full_prefix": ("full_prefix", "hist", "int64"),
+    "hist_one_slot": ("one_slot", "hist", "int64"), "hist_hot_run": ("hot_run", "hist", "int64"),
 }
