@@ -410,7 +410,7 @@ KERNEL_FUNCS = {
     "probe_insert": ("block_kernel", "grid_kernel"),
     "fold_and_mark": ("fold_mark_kernel", "argset_kernel"),
     "evict": ("evict_kernel",),
-    "sliced_fold": ("slice_reset_kernel", "slice_fold_kernel"),
+    "sliced_fold": ("sliced_fold_kernel",),
     "combine_windows": ("combine_kernel",),
     "member_lanes": ("lane_claim_kernel", "lane_winner_kernel"),
     "probe_find": ("probe_find_kernel", "find_slots_kernel", "gather_kernel"),
@@ -429,8 +429,7 @@ KERNEL_FUNCS = {
     "vec_topk": ("topk_keys_kernel", "topk_dedup_kernel", "topk_gather_kernel", "topk_pstar_kernel",
                  "topk_top_kernel", "topk_dump_kernel"),
     "vec_hist": ("hist_count_kernel",),
-    "vec_remove": ("remove_keys_kernel", "remove_claim_kernel", "remove_compact_kernel",
-                   "remove_dump_kernel"),
+    "vec_remove": ("remove_kernel",),
     "fk_fanout": ("fanout_kernel",),
     "tap_residual": ("lanes_kernel", "clip_kernel"),
 }
@@ -1054,6 +1053,58 @@ def make_sliced_case(hs, rng, capacity, ring, n, components=HOP_COMPONENTS,
     return layout, store, rows
 
 
+def check_sliced_fold(torch, layout, store_np, rows, dev, scratch_spw=HOUR_MS // SLICE_MS):
+    """K5 on a ``make_sliced_case`` case: the kernel against its twin on
+    copies of the store (float64 adds at rtol 1e-12, every other cell
+    exact, ``ring_last`` clean after the call), then timed from the same
+    store every launch.  Returns the kernel's folded store, the record and
+    what the case holds."""
+    from ksql_tpu_torch.ops import slicing
+
+    capacity, ring = layout.capacity, layout.components[0].width
+    n = rows["slots"].shape[0]
+    store0 = {key: torch.from_numpy(v).to(dev) for key, v in store_np.items()}
+    slots = torch.from_numpy(rows["slots"]).to(dev)
+    act = torch.from_numpy(rows["active"]).to(dev)
+    wstart = torch.from_numpy(rows["wstart"]).to(dev)
+    contribs = [torch.from_numpy(c).to(dev) for c in rows["contribs"]]
+    scratch = slicing.init_slice_scratch(capacity, ring, scratch_spw, dev)
+    sk, sp = _clone(store0), _clone(store0)
+    slicing.sliced_fold(sk, scratch, layout, slots, wstart, contribs, act, SLICE_MS)
+    slicing.sliced_fold_plain(sp, layout, slots, wstart, contribs, act, SLICE_MS)
+    err = 0.0
+    for key in store0:
+        comp = layout.components[int(key[1:])] if key[0] == "a" and key[1:].isdigit() else None
+        rtol = 1e-12 if comp is not None and comp.dtype == "float64" else 0.0
+        err = max(err, _assert_equal(torch, f"sliced_fold.{key}", sk[key], sp[key], rtol))
+    require(bool((scratch["ring_last"] == -1).all()), "sliced_fold: ring_last not clean")
+    live = act & (slots != capacity)
+    sidx = torch.div(wstart, SLICE_MS, rounding_mode="floor")
+    cell = slots.long() * ring + torch.remainder(sidx, ring)
+    stale = int((live & (store0["slice_id"].view(-1)[cell] != sidx)).sum())
+    cells = int(torch.unique(torch.where(live, cell, capacity * ring)).numel())
+    touched = int(torch.unique(slots[live]).numel())
+    hot = int(torch.bincount(slots[live].long()).max()) if bool(live.any()) else 0
+    cbytes = sum(np.dtype(c.dtype).itemsize for c in layout.components)
+    work = _clone(store0)
+    flat = (slots.long() * ring + torch.remainder(sidx, ring)).clamp(max=(capacity + 1) * ring - 1)
+    rec = measure(torch, "sliced_fold",
+                  lambda: slicing.sliced_fold(work, scratch, layout, slots, wstart, contribs, act, SLICE_MS),
+                  lambda: slicing.sliced_fold_plain(work, layout, slots, wstart, contribs, act, SLICE_MS),
+                  n * (4 + 8 + 1 + cbytes) + cells * 2 * (8 + cbytes) + touched * 2 * 9,
+                  n * 40, reset=lambda: _restore(work, store0), plain_reps=10,
+                  library=lambda: [work[f"a{j}"].view(-1).index_add_(0, flat, c.to(work[f"a{j}"].dtype))
+                                   if comp.combine == "add" else
+                                   work[f"a{j}"].view(-1).index_reduce_(
+                                       0, flat, c.to(work[f"a{j}"].dtype),
+                                       "amin" if comp.combine == "min" else "amax")
+                                   for j, (comp, c) in enumerate(zip(layout.components, contribs))])
+    rec["max_abs_err"] = err
+    what = (f"{n} rows, {int(live.sum())} live, {stale} stale cells reset, {cells} cells of {touched} slots, "
+            f"hottest slot {hot} rows; yardstick index_add_/index_reduce_ per component")
+    return sk, rec, what
+
+
 def phase_hop_kernels(torch, seed, n=HOP_ROWS, capacity=HOP_STORE, ring=HOP_RING):
     """The hopping path's kernels and modes against their twins at BASELINE
     #2's shapes: K1's sliced and expansion modes, K5, K7, K6 (sliced, and
@@ -1098,37 +1149,14 @@ def phase_hop_kernels(torch, seed, n=HOP_ROWS, capacity=HOP_STORE, ring=HOP_RING
 
     # ---- K5 sliced_fold on a 70%-full ring store with stale cells
     layout, store_np, rows = make_sliced_case(hs, rng, capacity, ring, n)
-    store0 = {key: torch.from_numpy(v).to(dev) for key, v in store_np.items()}
+    sk, rec, what = check_sliced_fold(torch, layout, store_np, rows, dev, scratch_spw=spw)
     slots = torch.from_numpy(rows["slots"]).to(dev)
     act = torch.from_numpy(rows["active"]).to(dev)
     wstart = torch.from_numpy(rows["wstart"]).to(dev)
-    contribs = [torch.from_numpy(c).to(dev) for c in rows["contribs"]]
     scratch = slicing.init_slice_scratch(capacity, ring, spw, dev)
-    sk, sp = _clone(store0), _clone(store0)
-    slicing.sliced_fold(sk, scratch, layout, slots, wstart, contribs, act, SLICE_MS)
-    slicing.sliced_fold_plain(sp, layout, slots, wstart, contribs, act, SLICE_MS)
-    err = 0.0
-    for key in store0:
-        comp = layout.components[int(key[1:])] if key[0] == "a" and key[1:].isdigit() else None
-        rtol = 1e-12 if comp is not None and comp.dtype == "float64" else 0.0
-        err = max(err, _assert_equal(torch, f"sliced_fold.{key}", sk[key], sp[key], rtol))
-    require(bool((scratch["ring_last"] == -1).all()), "sliced_fold: ring_last not clean")
-    live = act & (slots != capacity)
-    sidx = torch.div(wstart, SLICE_MS, rounding_mode="floor")
-    cell = slots.long() * ring + torch.remainder(sidx, ring)
-    stale = int((live & (store0["slice_id"].view(-1)[cell] != sidx)).sum())
-    cells = int(torch.unique(torch.where(live, cell, capacity * ring)).numel())
-    touched = int(torch.unique(slots[live]).numel())
     cbytes = sum(np.dtype(c.dtype).itemsize for c in layout.components)
-    work = _clone(store0)
-    rec = measure(torch, "sliced_fold",
-                  lambda: slicing.sliced_fold(work, scratch, layout, slots, wstart, contribs, act, SLICE_MS),
-                  lambda: slicing.sliced_fold_plain(work, layout, slots, wstart, contribs, act, SLICE_MS),
-                  n * (4 + 8 + 1 + cbytes) + cells * 2 * (8 + cbytes) + touched * 2 * 9,
-                  n * 40, reset=lambda: _restore(work, store0), plain_reps=10)
-    rec["max_abs_err"] = err
     recs["sliced_fold"] = {"sliced": rec}
-    _report("2h", f"sliced_fold ({stale} stale cells reset, {cells} cells)", rec)
+    _report("2h", f"sliced_fold ({what})", rec)
 
     # ---- K7 member_lanes on the folded store (the stream time at batch
     # start closes the oldest windows)
@@ -1774,7 +1802,7 @@ PATH_KERNELS = {
     "14h": {**_VECTOR, "vec_collect": "hist", "vec_hist": None},
     "15": _TABLE_AGG,
     # COLLECT_LIST and HISTOGRAM: K23 before K20 on the undo side, K20
-    # (append, hist) and K22 on both, K13 for their orders, K6's wide gather
+    # (append, hist) and K22 on both, K13 for K20's orders, K6's wide gather
     "16": {**_TABLE_AGG, "combine_windows": "wide", "seg_sort": None,
            "vec_collect": ("append", "hist"), "vec_hist": None, "vec_remove": None},
     # a table transform: expression ops only, no kernel
@@ -4130,6 +4158,50 @@ def check_remove_doubles(torch, rng, dev, capacity=1 << 10, n=UNDO_ROWS, K=1000)
     print("[2t] vec_remove over DOUBLE (-0.0, +0.0, NaN; lists below, at and past 1,000): exact (bits)")
 
 
+def check_vec_remove(torch, layout, ostore, slots, contribs, dev, j=3):
+    """K23 on the collect group at component ``j`` of a ``make_orders_case``
+    store: the kernel against its twin (bits; count, data and null bits),
+    then timed from the same store every launch.  K23's bound from this
+    case's counts: per removing slot its count and its first min(count, K)
+    cells (8-byte id + null bit) each way, and the dump row's rewrite
+    (min(count, K) cells read, all K written) when some row of the batch is
+    not its slot's lowest undo row.  Returns the record and what the case
+    holds."""
+    from ksql_tpu_torch.ops import vector as vec
+
+    n, cap = slots.shape[0], layout.capacity
+    keys = [f"a{j + t}" for t in range(3)]
+    K = layout.components[j + 1].width
+    s_np = slots.cpu().numpy()
+    touched = np.unique(s_np[s_np != cap])
+    removing = (contribs[j].cpu().numpy() < 0) & (s_np != cap)
+    held = np.minimum(ostore[keys[0]].cpu().numpy(), K)
+    rslots = np.unique(s_np[removing])
+    remove_bytes = n * (8 + 8 + 1 + 4) + rslots.size * 16 + 2 * 9 * int(held[rslots].sum())
+    if rslots.size < n:
+        remove_bytes += 8 + 9 * (int(held[cap]) + K)
+    saved = {k: ostore[k].clone() for k in keys}
+    work = {k: ostore[k].clone() for k in keys}
+    twin = {k: ostore[k].clone() for k in keys}
+    vec.vec_remove(work, layout, j, contribs, slots)
+    vec.vec_remove_plain(twin, layout, j, contribs, slots)
+    torch.cuda.synchronize()
+    _assert_store(torch, "vec_remove", work, twin, keys)
+    removed = int((saved[keys[0]] - twin[keys[0]]).sum())
+    capped = int((saved[keys[0]][torch.from_numpy(touched).to(dev)] >= K).sum())
+    rows_capped = int(np.isin(s_np[removing], touched[saved[keys[0]].cpu().numpy()[touched] >= K]).sum())
+    require(removed > 0, f"vec_remove: {removed} entries removed")
+    rec = measure(
+        torch, "vec_remove", lambda: vec.vec_remove(work, layout, j, contribs, slots),
+        lambda: vec.vec_remove_plain(work, layout, j, contribs, slots), remove_bytes, n * 40,
+        reset=lambda: [work[k].copy_(saved[k]) for k in keys], plain_reps=10)
+    what = (f"COLLECT_LIST(ID), K = {K}: {n} undo rows into {touched.size} slots ({capped} at or past "
+            f"the cap; {rslots.size} with a removing row, {int(held[rslots].sum())} cells held; "
+            f"{int(removing.sum())} removing rows, {rows_capped} of them on capped slots), "
+            f"{removed} entries removed")
+    return dict(rec, removed=removed, capped=capped), what
+
+
 def phase_table_agg_kernels(torch, seed):
     """Phase 2t: K8's find mode, K23 vec_remove, K20 hist + K22 with the
     undo side's negative heads and K3 on negated contributions, against
@@ -4175,35 +4247,10 @@ def phase_table_agg_kernels(torch, seed):
     n, cap = slots.shape[0], layout.capacity
     s_np = slots.cpu().numpy()
     touched = np.unique(s_np[s_np != cap])
-    keys = [f"a{j}" for j in (3, 4, 5)]
-    K = layout.components[4].width
-    # K23's bound from this case's counts: per removing slot its count and
-    # its first min(count, K) cells (8-byte id + null bit) each way, and the
-    # dump row's rewrite (min(count, K) cells read, all K written) when some
-    # row of the batch is not its slot's lowest undo row
-    removing = (contribs[3].cpu().numpy() < 0) & (s_np != cap)
-    held = np.minimum(ostore["a3"].cpu().numpy(), K)
-    rslots = np.unique(s_np[removing])
-    remove_bytes = n * (8 + 8 + 1 + 4) + rslots.size * 16 + 2 * 9 * int(held[rslots].sum())
-    if rslots.size < n:
-        remove_bytes += 8 + 9 * (int(held[cap]) + K)
-    saved = {k: ostore[k].clone() for k in keys}
-    work = {k: ostore[k].clone() for k in keys}
-    twin = {k: ostore[k].clone() for k in keys}
-    vec.vec_remove(work, layout, 3, contribs, slots)
-    vec.vec_remove_plain(twin, layout, 3, contribs, slots)
-    torch.cuda.synchronize()
-    _assert_store(torch, "vec_remove", work, twin, keys)
-    removed = int((saved["a3"] - twin["a3"]).sum())
-    capped = int((saved["a3"][torch.from_numpy(touched).to(dev)] >= 1000).sum())
-    require(removed > 0 and capped > 0, f"vec_remove: {removed} entries removed, {capped} slots at the cap")
-    done("vec_remove", "remove", measure(
-        torch, "vec_remove", lambda: vec.vec_remove(work, layout, 3, contribs, slots),
-        lambda: vec.vec_remove_plain(work, layout, 3, contribs, slots), remove_bytes, n * 40,
-        reset=lambda: [work[k].copy_(saved[k]) for k in keys], plain_reps=10),
-        f"COLLECT_LIST(ID), K = {K}: {n} undo rows into {touched.size} slots ({capped} at or past "
-        f"the cap; {rslots.size} with a removing row, {int(held[rslots].sum())} cells held), "
-        f"{removed} entries removed")
+    rec, what = check_vec_remove(torch, layout, ostore, slots, contribs, dev)
+    rec.pop("removed")
+    require(rec.pop("capped") > 0, "vec_remove: no slot at the cap")
+    done("vec_remove", "remove", rec, what)
     check_remove_doubles(torch, rng, dev)
     hkeys = [f"a{j}" for j in (6, 7, 8, 9)]
     hsaved = {k: ostore[k].clone() for k in hkeys}
@@ -4232,7 +4279,7 @@ def phase_table_agg_kernels(torch, seed):
         n * 21 + touched.size * (8 + 3 * 9) + bumped * 16, n * 40,
         reset=lambda: [work[k].copy_(after1[k]) for k in hkeys], plain_reps=10),
         f"HISTOGRAM(STATUS) undo: {n} negative heads into {bumped} entries", into="vec_hist_undo")
-    del c, ostore, work, twin, saved, hsaved, after1
+    del c, ostore, work, twin, hsaved, after1
 
     # ---- K3 on the undo side of phase 15: 65,536 negated rows into 50 regions
     base_st, scratch, ulayout, slots, contribs, active = make_undo_fold_case(torch, hs, rng, dev)

@@ -48,111 +48,6 @@ struct Comps {
   int64_t count;
 };
 
-// A lane's value as shared memory holds it: 8 bytes (an int32 in the low 4)
-template <typename T>
-__device__ __forceinline__ T lane_value(long long b);
-template <>
-__device__ __forceinline__ int lane_value<int>(long long b) { return static_cast<int>(b); }
-template <>
-__device__ __forceinline__ long long lane_value<long long>(long long b) { return b; }
-template <>
-__device__ __forceinline__ double lane_value<double>(long long b) { return __longlong_as_double(b); }
-
-// A group's values (`vals`, the warp's 32 lanes' in shared memory) folded
-// in lane order from the group's lowest lane's `acc` over the other lanes
-// of `peers`.
-template <typename T, typename Op>
-__device__ __forceinline__ T fold_lanes(const long long* vals, unsigned peers, T acc, Op op) {
-  for (unsigned rest = peers & (peers - 1); rest != 0; rest &= rest - 1) {
-    acc = op(acc, lane_value<T>(vals[__ffs(rest) - 1]));
-  }
-  return acc;
-}
-
-struct AddI32 {
-  __device__ int operator()(int a, int b) const {
-    return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
-  }
-};
-struct MinI32 {
-  __device__ int operator()(int a, int b) const { return a < b ? a : b; }
-};
-struct MaxI32 {
-  __device__ int operator()(int a, int b) const { return a > b ? a : b; }
-};
-struct WrapAdd {
-  __device__ long long operator()(long long a, long long b) const { return ksql::wadd(a, b); }
-};
-struct MinI64 {
-  __device__ long long operator()(long long a, long long b) const { return a < b ? a : b; }
-};
-struct MaxI64 {
-  __device__ long long operator()(long long a, long long b) const { return a > b ? a : b; }
-};
-struct AddF64 {
-  __device__ double operator()(double a, double b) const { return a + b; }
-};
-struct MinF64 {
-  __device__ double operator()(double a, double b) const { return ksql::xla_min(a, b); }
-};
-struct MaxF64 {
-  __device__ double operator()(double a, double b) const { return ksql::xla_max(a, b); }
-};
-
-// One component: the group's lowest lane (`lead`) folds the group's
-// values (every lane's is in `vals`) and makes the one atomic into cell s.
-// Every active lane of the warp (`live`) calls it.
-__device__ __forceinline__ void fold_group(void* col, const void* contrib, int64_t kind, int64_t i,
-                                          int32_t s, unsigned peers, unsigned live, bool lead,
-                                          long long* vals, int lane) {
-  const int64_t combine = kind / 3, dtype = kind % 3;
-  if (dtype == ksql::kInt32) {
-    const int v = static_cast<const int*>(contrib)[i];
-    vals[lane] = v;
-    __syncwarp(live);
-    if (lead) {
-      int* p = static_cast<int*>(col) + s;
-      if (combine == ksql::kAdd) {
-        atomicAdd(p, fold_lanes(vals, peers, v, AddI32()));
-      } else if (combine == ksql::kMin) {
-        atomicMin(p, fold_lanes(vals, peers, v, MinI32()));
-      } else {
-        atomicMax(p, fold_lanes(vals, peers, v, MaxI32()));
-      }
-    }
-  } else if (dtype == ksql::kInt64) {
-    const long long v = static_cast<const long long*>(contrib)[i];
-    vals[lane] = v;
-    __syncwarp(live);
-    if (lead) {
-      long long* p = static_cast<long long*>(col) + s;
-      if (combine == ksql::kAdd) {
-        atomicAdd(reinterpret_cast<unsigned long long*>(p),
-                  static_cast<unsigned long long>(fold_lanes(vals, peers, v, WrapAdd())));
-      } else if (combine == ksql::kMin) {
-        atomicMin(p, fold_lanes(vals, peers, v, MinI64()));
-      } else {
-        atomicMax(p, fold_lanes(vals, peers, v, MaxI64()));
-      }
-    }
-  } else {
-    const double v = static_cast<const double*>(contrib)[i];
-    vals[lane] = __double_as_longlong(v);
-    __syncwarp(live);
-    if (lead) {
-      double* p = static_cast<double*>(col) + s;
-      if (combine == ksql::kAdd) {
-        atomicAdd(p, fold_lanes(vals, peers, v, AddF64()));
-      } else if (combine == ksql::kMin) {
-        ksql::atomic_fold_f64(p, fold_lanes(vals, peers, v, MinF64()), true);
-      } else {
-        ksql::atomic_fold_f64(p, fold_lanes(vals, peers, v, MaxF64()), false);
-      }
-    }
-  }
-  __syncwarp(live);  // the group's values are read before the next component's
-}
-
 __global__ void __launch_bounds__(kThreads) fold_mark_kernel(
     Comps c, const int32_t* __restrict__ slots, const bool* __restrict__ active, int64_t n,
     int32_t capacity, bool* __restrict__ dirty, int32_t* __restrict__ first,
@@ -176,7 +71,7 @@ __global__ void __launch_bounds__(kThreads) fold_mark_kernel(
     const bool lead = lane == __ffs(peers) - 1;
     for (int64_t j = 0; j < c.count; ++j) {
       if (shared) {
-        fold_group(c.col[j], c.contrib[j], c.kind[j], i, s, peers, live, lead, vals, lane);
+        ksql::fold_group(c.col[j], c.contrib[j], c.kind[j], i, s, peers, live, lead, vals, lane);
       } else {
         ksql::atomic_fold(c.col[j], s, c.contrib[j], i, c.kind[j]);
       }

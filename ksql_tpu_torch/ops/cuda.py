@@ -113,9 +113,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "vec_hist": {"ksql_vec_hist": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P]},
     "vec_remove": {
-        "ksql_vec_remove_keys": [_P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P],
-        "ksql_vec_remove_claim": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-        "ksql_vec_remove_apply": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+        "ksql_vec_remove": [_P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P],
     },
     "fk_fanout": {"ksql_fk_fanout": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P]},
     "tap_residual": {"ksql_tap_residual": [

@@ -31,9 +31,10 @@ Four hand-written CUDA kernels (``csrc/``) carry the folds, with K13
   ``atomicAdd``-ed at its value's entry (negative on a table
   aggregation's undo side).
 * K23 ``vec_remove``: COLLECT_LIST's undo in a table aggregation
-  (``_vec_remove``): K13 ranks the undo rows of each (slot, value, bit),
-  each claims its stored occurrence, and a block per touched slot
-  compacts the slot's row left.
+  (``_vec_remove``): one cooperative launch groups the undo rows by slot
+  (no sort), and a block per touched slot matches them against the
+  slot's stored prefix in a hash table in shared memory and compacts the
+  slot's row left.
 
 As in ``ops/hash_store.py``, each wrapper launches its kernels for CUDA
 tensors and counts the call in ``<wrapper>.launches`` and
@@ -503,26 +504,30 @@ def vec_remove(store: Dict[str, torch.Tensor], layout: StoreLayout, j: int,
     vbits = contribs[j + 2].to(torch.int8).contiguous()
     esize, isfloat = _elem(data)
     dev = slots.device
-    st = _stream(dev)
-    k1 = torch.empty(n, dtype=torch.int64, device=dev)
-    k2 = torch.empty(n, dtype=torch.int64, device=dev)
-    cuda.check("vec_remove", cuda.lib("vec_remove", "ksql_vec_remove_keys")(
+    counts, ctrl = _remove_scratch(dev, c1)
+    buf = torch.empty(3 * n + c1, dtype=torch.int32, device=dev)
+    cuda.check("vec_remove", cuda.lib("vec_remove", "ksql_vec_remove")(
         head.data_ptr(), vals.data_ptr(), vbits.data_ptr(), esize, isfloat, slots.data_ptr(), n,
-        layout.capacity, k1.data_ptr(), k2.data_ptr(), st))
-    perm = seg_sort(k1, k2)
-    claim = torch.empty(n, dtype=torch.int32, device=dev)
-    cuda.check("vec_remove", cuda.lib("vec_remove", "ksql_vec_remove_claim")(
-        perm.data_ptr(), n, k1.data_ptr(), k2.data_ptr(), cnt.data_ptr(), data.data_ptr(),
-        vbit.data_ptr(), esize, isfloat, K, layout.capacity, vals.data_ptr(), vbits.data_ptr(),
-        claim.data_ptr(), st))
-    winners = torch.zeros(1, dtype=torch.int64, device=dev)
-    cuda.check("vec_remove", cuda.lib("vec_remove", "ksql_vec_remove_apply")(
-        perm.data_ptr(), n, k1.data_ptr(), claim.data_ptr(), cnt.data_ptr(), data.data_ptr(),
-        vbit.data_ptr(), esize, isfloat, K, layout.capacity, winners.data_ptr(), st))
+        layout.capacity, cnt.data_ptr(), data.data_ptr(), vbit.data_ptr(), K, counts.data_ptr(),
+        ctrl.data_ptr(), buf.data_ptr(), _stream(dev)))
     vec_remove.launches += 1
 
 
 vec_remove.launches = 0
+
+#: K23's scratch per (device, capacity + 1): the slots' ticket counts and
+#: the work list's two counters, zero between calls (the kernel leaves them
+#: so)
+_REMOVE_SCRATCH: Dict[tuple, tuple] = {}
+
+
+def _remove_scratch(dev: torch.device, c1: int):
+    key = (str(dev), c1)
+    if key not in _REMOVE_SCRATCH:
+        z = torch.zeros(c1 + 2, dtype=torch.int32, device=dev)
+        _REMOVE_SCRATCH[key] = (z[:c1], z[c1:])
+    return _REMOVE_SCRATCH[key]
+
 
 KERNEL_WRAPPERS = (vec_collect, vec_topk, vec_hist, vec_remove)
 

@@ -37,9 +37,18 @@ Groups (``--groups``, all by default):
 * ``k20``: K20's set and hist modes at phase 2v's cases, again with every
   stored prefix emptied, hist on phase 2t's undo side, append and ring
   at 2v's.
+* ``k23``: K23 at phase 2t's shape (4,096 undo rows of COLLECT_LIST(ID),
+  K = 1,000), then with every undo row on slots below the cap and with
+  every undo row on slots at or past it, with the wrapper's host time a
+  call.
+* ``k5``: K5 at phase 2h's shape (16,384 zipf rows, a 102-cell ring, 8
+  components), with uniform slots, with every row live and no cell
+  stale, and at phase 7's 8,192-row batch, with the ``index_add_`` /
+  ``index_reduce_`` yardstick.
 
-The ``k3`` and ``k20`` groups also time each CUDA function of a call
-apart (K20's with the K13 sorts it makes).
+The ``k3``, ``k20``, ``k23`` and ``k5`` groups also time each CUDA
+function of a call apart (K20's and K23's with the K13 sorts they
+make).
 
 Each kernel is held against its twin first (exact), then timed as
 chip_smoke times it (device ms from torch.profiler, its records counted,
@@ -58,8 +67,9 @@ import sys
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: the kernel functions of K3's, K10's, K13's, K16's, K20's and K24's earlier
-#: designs beside this tree's, so that the profiler finds an earlier tree's
+#: the kernel functions of K3's, K5's, K10's, K13's, K16's, K20's, K23's and
+#: K24's earlier designs beside this tree's, so that the profiler finds an
+#: earlier tree's
 EARLIER_FUNCS = {
     "fold_and_mark": ("fold_mark_kernel", "argset_kernel", "fold_kernel", "winners_kernel", "argset_dump_kernel"),
     "vec_collect": ("collect_keys_kernel", "collect_member_kernel", "collect_place_kernel",
@@ -69,6 +79,9 @@ EARLIER_FUNCS = {
                  "match_write_kernel"),
     "seg_sort": ("block_sort_kernel", "tile_sort_kernel", "merge_pass_kernel"),
     "session_write": ("delete_kernel", "write_kernel", "dump_kernel"),
+    "sliced_fold": ("sliced_fold_kernel", "slice_reset_kernel", "slice_fold_kernel"),
+    "vec_remove": ("remove_kernel", "remove_keys_kernel", "remove_claim_kernel", "remove_compact_kernel",
+                   "remove_dump_kernel"),
 }
 #: K10's sweep: (ring entries before the dump entry, live share; None:
 #: the case's own)
@@ -284,17 +297,20 @@ def k16_shapes(cs, torch, seed):
              f"{2 * m} lanes, {w['n_ins']} inserting items, {dumped} items aimed at the dump slot")]
 
 
-def _parts(cs, torch, kernels, fn):
+def _parts(cs, torch, kernels, fn, reset=None):
     """Each CUDA function of ``kernels`` (chip_smoke's KERNEL_FUNCS names)
     that one call of ``fn`` launches, timed apart: ``{function: device
-    ms a call}`` (a function launched twice a call sums both)."""
+    ms a call}`` (a function launched twice a call sums both; ``reset``
+    runs before each call, untimed)."""
     import re
 
     pats = [re.compile(rf"(?<![A-Za-z_]){f}") for k in kernels for f in cs.KERNEL_FUNCS[k]]
     parts = {}
+    if reset is not None:
+        reset()
     for f in _function_names(torch, fn, pats):
         cs.KERNEL_FUNCS[f"part:{f}"] = (f,)
-        parts[f] = cs.kernel_device_ms(torch, f"part:{f}", fn)
+        parts[f] = cs.kernel_device_ms(torch, f"part:{f}", fn, reset)
     return parts
 
 
@@ -461,12 +477,130 @@ def k20_shapes(cs, torch, seed):
     return out
 
 
+def _undo_rows(rng, cnt, ids, pool, n, cap, K):
+    """``n`` undo rows of ``make_orders_case``'s kind over the slots of
+    ``pool``: zipf-ish slots, an id the slot holds (85%) or an absent one,
+    2% missed (the dump slot).  Returns (slots, ids) as numpy."""
+    slots = pool[(rng.zipf(1.3, n) % 100_003) * 2654435761 % pool.size].astype(np.int64)
+    pos = (rng.random(n) * np.minimum(cnt[slots], K)).astype(np.int64)
+    oid = np.where(rng.random(n) < 0.85, ids[slots, pos], rng.integers(0, 1 << 40, n))
+    slots[rng.random(n) < 0.02] = cap
+    return slots, oid
+
+
+def k23_shapes(cs, torch, seed):
+    """K23 at phase 2t's shape (``make_orders_case`` after phase 2t's K8
+    case, from the same seed: 4,096 undo rows of COLLECT_LIST(ID), K =
+    1,000), then the same store with every undo row on slots below the cap
+    and with every undo row on slots at or past it (what a walk of a
+    slot's stored prefix costs); each against its twin, the call's CUDA
+    functions (K13's sort among them) apart, and the wrapper's host time
+    a call.  Returns ``[(kernel, shape, record, what)]``."""
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.ops import vector as vec
+
+    dev = torch.device(cs.DEVICE)
+    rng = np.random.default_rng(seed + 40)
+    cs.make_find_case(torch, hs, rng, dev)  # phase 2t draws its K8 case first
+    c = cs.make_orders_case(torch, rng, dev)
+    layout, store, slots, contribs = c["layout"], c["store"], c["slots"], c["contribs"]
+    cap, n = layout.capacity, slots.shape[0]
+    K = layout.components[4].width
+    cnt, ids = store["a3"].cpu().numpy(), store["a4"].cpu().numpy()
+    filled = np.nonzero(cnt[:cap] > 0)[0]
+    cases = [("remove 2t", slots, contribs)]
+    for tag, pool in (("below the cap", filled[cnt[filled] < K]), ("capped", filled[cnt[filled] >= K])):
+        s, oid = _undo_rows(np.random.default_rng(seed + 41), cnt, ids, pool, n, cap, K)
+        moved = list(contribs)
+        moved[4] = torch.from_numpy(oid).to(dev)
+        cases.append((f"remove {tag}", torch.from_numpy(s.astype(np.int32)).to(dev), moved))
+    out = []
+    keys = ("a3", "a4", "a5")
+    cs.KERNEL_FUNCS["vec_remove_call"] = cs.KERNEL_FUNCS["vec_remove"] + cs.KERNEL_FUNCS["seg_sort"]
+    for shape, sl, cb in cases:
+        rec, what = cs.check_vec_remove(torch, layout, store, sl, cb, dev)
+        work = {k: store[k].clone() for k in keys}
+
+        def call(work=work, sl=sl, cb=cb):
+            vec.vec_remove(work, layout, 3, cb, sl)
+
+        def reset(work=work):
+            for k in keys:
+                work[k].copy_(store[k])
+
+        parts = _parts(cs, torch, ["vec_remove", "seg_sort"], call, reset)
+        whole = cs.kernel_device_ms(torch, "vec_remove_call", call, reset)
+        host = _host_ms(torch, call)
+        out.append(("vec_remove", shape, dict(rec, parts=parts, host_ms=host, call_device_ms=whole),
+                    _what_parts(f"{what}; the call's kernels with any K13 sort {whole:.4f} ms; "
+                                f"wrapper host {host:.4f} ms a call", parts)))
+    return out
+
+
+def k5_shapes(cs, torch, seed):
+    """K5 at phase 2h's shape (``make_sliced_case`` after phase 2h's K1
+    draws, from the same seed: 16,384 zipf(1.3) rows over a 70%-full
+    2^16-slot store, a 102-cell ring, BASELINE #2's 8 components), then
+    with uniform slots (what contention on hot slots costs), with every
+    row live and no cell stale (no dump-row stores, no resets) and at
+    phase 7's 8,192-row batch; each against its twin, each CUDA function
+    apart, with the ``index_add_``/``index_reduce_`` yardstick.  Returns
+    ``[(kernel, shape, record, what)]``."""
+    from ksql_tpu_torch.ops import hash_store as hs
+
+    dev = torch.device(cs.DEVICE)
+    cap, ring, n = cs.HOP_STORE, cs.HOP_RING, cs.HOP_ROWS
+    rng = np.random.default_rng(seed + 10)
+    rng.zipf(1.3, n)  # phase 2h's K1 draws come first
+    rng.random((1, n))
+    rng.integers(0, 31 * cs.HOUR_MS, n)
+    layout, store, rows = cs.make_sliced_case(hs, rng, cap, ring, n)
+    cases = [("sliced 2h", store, rows)]
+    occupied = np.nonzero(store["occ"][:-1])[0]
+    r2 = np.random.default_rng(seed + 11)
+    uni = dict(rows, slots=rows["slots"].copy())
+    on_live = np.isin(uni["slots"], occupied)
+    uni["slots"][on_live] = r2.choice(occupied, int(on_live.sum())).astype(np.int32)
+    cases.append(("sliced uniform", store, uni))
+    # every row live on a stored key, each cell already holding the row's slice
+    fresh = dict(rows, slots=rows["slots"].copy(), active=np.ones(n, bool), wstart=rows["wstart"].copy())
+    off = ~np.isin(fresh["slots"], occupied) | ~rows["active"]
+    fresh["slots"][off] = occupied[(r2.zipf(1.3, int(off.sum())) - 1) % occupied.size]
+    newest = int(rows["wstart"][rows["active"]].max()) // cs.SLICE_MS
+    fresh["wstart"][off] = (newest - np.minimum(r2.geometric(0.3, int(off.sum())) - 1, ring - 2)) * cs.SLICE_MS
+    fstore = {k: v.copy() for k, v in store.items()}
+    sidx = fresh["wstart"] // cs.SLICE_MS
+    fstore["slice_id"][fresh["slots"], sidx % ring] = sidx
+    cases.append(("sliced all live, none stale", fstore, fresh))
+    layout7, store7, rows7 = cs.make_sliced_case(hs, np.random.default_rng(seed + 12), cap, ring, cs.LONG_ROWS)
+    out = []
+    for shape, st, rw in cases + [("sliced phase 7 batch", store7, rows7)]:
+        lay = layout7 if shape.endswith("7 batch") else layout
+        sk, rec, what = cs.check_sliced_fold(torch, lay, st, rw, dev)
+        from ksql_tpu_torch.ops import slicing
+
+        scratch = slicing.init_slice_scratch(cap, ring, cs.HOUR_MS // cs.SLICE_MS, dev)
+        args = [torch.from_numpy(rw[k]).to(dev) for k in ("slots", "wstart")]
+        contribs = [torch.from_numpy(x).to(dev) for x in rw["contribs"]]
+        act = torch.from_numpy(rw["active"]).to(dev)
+
+        base = {k: torch.from_numpy(v).to(dev) for k, v in st.items()}
+
+        def call(sk=sk, scratch=scratch, lay=lay, args=args, contribs=contribs, act=act):
+            slicing.sliced_fold(sk, scratch, lay, args[0], args[1], contribs, act, cs.SLICE_MS)
+
+        parts = _parts(cs, torch, ["sliced_fold"], call, lambda sk=sk, base=base: cs._restore(sk, base))
+        out.append(("sliced_fold", shape, dict(rec, parts=parts), _what_parts(what, parts)))
+        del sk, base
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", nargs="?", default=HERE, help="the checkout whose package is timed")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--groups", default="k10,k13,k8k24,k17,k16,k3,k20",
-                    help="comma-separated: k10, k13, k8k24, k17, k16, k3, k20")
+    ap.add_argument("--groups", default="k10,k13,k8k24,k17,k16,k3,k20,k23,k5",
+                    help="comma-separated: k10, k13, k8k24, k17, k16, k3, k20, k23, k5")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -489,7 +623,8 @@ def main() -> int:
     print(smi)
     records = []
     groups = {"k10": k10_shapes, "k13": k13_shapes, "k8k24": k8_k24_shapes, "k17": k17_shapes,
-              "k16": k16_shapes, "k3": k3_shapes, "k20": k20_shapes}
+              "k16": k16_shapes, "k3": k3_shapes, "k20": k20_shapes, "k23": k23_shapes,
+              "k5": k5_shapes}
     shapes = []
     for g in args.groups.split(","):
         shapes += groups[g](cs, torch, args.seed)

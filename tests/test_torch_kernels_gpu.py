@@ -35,8 +35,9 @@ from ksql_tpu_torch.ops import slicing
 from ksql_tpu_torch.ops import ss_join as ssj
 from ksql_tpu_torch.ops import suppress as sup
 from torch_kernel_cases import (ARGSET_CASES, ARGSET_COMPONENTS, CLOCK_CASES, COLLECT_CASES, FOLD_CASES,
-                                FOLD_COMPONENTS, WRITE_CASES, argset_case, clock_case, collect_case,
-                                fold_case, write_case, write_torch)
+                                FOLD_COMPONENTS, REMOVE_CASES, SLICED_SKEWS, WRITE_CASES, argset_case,
+                                clock_case, collect_case, fold_case, remove_case, sliced_skew, write_case,
+                                write_torch)
 
 pytestmark = pytest.mark.gpu
 I64 = np.iinfo(np.int64)
@@ -221,6 +222,30 @@ def test_sliced_fold_kernel_matches_twin(dev, components):
         _same(sk[k], sp[k], rtol=1e-12)
     assert (scratch["ring_last"] == -1).all()
     assert not torch.equal(sk["slice_id"], st["slice_id"])
+    names = _records_per_call(lambda: slicing.sliced_fold(sp, scratch, *args))
+    assert len(names) == 1 and "sliced_fold_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("kind", SLICED_SKEWS)
+def test_sliced_fold_kernel_at_its_skews(dev, kind):
+    # tolerance: float64 adds rtol 1e-12, every other cell by its bits;
+    # ring_last clean after the call
+    layout, store, rows = chip_smoke.make_sliced_case(hs, np.random.default_rng(7), 1 << 10, 30, 3000,
+                                                      components=FLOAT_COMPONENTS, specials=True)
+    ring = layout.components[0].width
+    store, rows = sliced_skew(kind, store, rows, 1 << 10, ring, SW, seed=7)
+    st = {k: torch.from_numpy(v).to(dev) for k, v in store.items()}
+    sk = {k: v.clone() for k, v in st.items()}
+    sp = {k: v.clone() for k, v in st.items()}
+    t = {k: torch.from_numpy(rows[k]).to(dev) for k in ("slots", "wstart", "active")}
+    args = (layout, t["slots"], t["wstart"], [torch.from_numpy(c).to(dev) for c in rows["contribs"]],
+            t["active"], SW)
+    scratch = slicing.init_slice_scratch(layout.capacity, ring, 4, dev)
+    slicing.sliced_fold(sk, scratch, *args)
+    slicing.sliced_fold_plain(sp, *args)
+    for k in st:
+        _same(sk[k], sp[k], rtol=1e-12)
+    assert (scratch["ring_last"] == -1).all()
 
 
 @pytest.mark.parametrize("one_slot", [False, True])
@@ -705,6 +730,34 @@ def test_table_agg_undo_kernels_match_twins(dev, seed):
     for k in keys:
         _same(got[k], want[k])
     assert bool((want["a3"] < store["a3"]).any())  # entries were removed
+    # one launch a call, no K13 sort: a 20-call trace on a copy
+    sc = {k: store[k].clone() for k in keys}
+    names = _records_per_call(lambda: vec.vec_remove(sc, layout, 3, contribs, slots))
+    assert len(names) == 1 and "remove_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("case", REMOVE_CASES)
+def test_vec_remove_at_its_skews(dev, case):
+    # tolerance: exact (bits; count, data and null bits, the dump row
+    # included); one remove_kernel record a call, the ticket scratch clean
+    from ksql_tpu_torch.ops import vector as vec
+
+    comps, state, contribs, slots = remove_case(case)
+    capacity = state["a1"].shape[0] - 1
+    layout = hs.StoreLayout(capacity, 1, tuple(hs.AggComponent(c, d, i, width=w, mode=m)
+                                               for c, d, i, w, m in comps))
+    st = {k: torch.from_numpy(v.copy()).to(dev) for k, v in state.items()}
+    got, want, sc = ({k: v.clone() for k, v in st.items()} for _ in range(3))
+    cs = [None if c is None else torch.from_numpy(c).to(dev) for c in contribs]
+    s = torch.from_numpy(slots).to(dev)
+    vec.vec_remove(got, layout, 1, cs, s)
+    vec.vec_remove_plain(want, layout, 1, cs, s)
+    for k in st:
+        _same(_bits(got[k]), _bits(want[k]))
+    counts, ctrl = vec._remove_scratch(s.device, capacity + 1)
+    assert not counts.any() and not ctrl.any()
+    names = _records_per_call(lambda: vec.vec_remove(sc, layout, 1, cs, s))
+    assert len(names) == 1 and "remove_kernel" in names[0], names
 
 
 def test_vec_remove_over_doubles_matches_twin(dev):

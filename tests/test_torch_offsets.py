@@ -591,9 +591,13 @@ def test_two_rounded_divisor_chains_are_the_references(case, rows):
 
 #: what the rule does not fit (ROADMAP C14, open): (forms, lanes, the
 #: reference's first value, the port's).  A chain of three fits no order
-#: that follows from the two-ROUND rule; ``x / (R1 * R2)`` fits ``x *
-#: (10^s1 / (F1 * R2))`` over 18 drawn programs but is not modelled; at
-#: one lane 3 of 20 drawn chains of two fit no order tried
+#: that follows from the two-ROUND rule in every drawn program (``(1 / (F1
+#: * F2 * F3)) * (10^s1 * 10^s2 * 10^s3)`` fits 13 of 14 at 8 lanes, the
+#: last below); ``x / (R1 * R2)`` fits no one order in every program
+#: (``x * (10^s1 / (F1 * R2))`` 17 of 22 drawn at 8 lanes, ``x * (1 / ((F2
+#: * R1) * 10^-s2))`` 22 of 22 there but 16 of 20 in a second draw, and
+#: neither where the program met R1 first); at one lane 3 of 20 drawn
+#: chains of two fit no order tried
 C14_APART = {
     "three": (["CAST(X AS DOUBLE) / ROUND(10.37, 1) / ROUND(7.7, 1) / ROUND(0.3, 1)"], 1,
               0.04162504162504161, 0.04162504162504162),
@@ -603,6 +607,8 @@ C14_APART = {
                 0.012487512487512488),
     "one_lane_drawn": (["CAST(X AS DOUBLE) / ROUND(264.3, 0) / ROUND(31.22, 2)"], 1,
                        0.00012132859666491953, 0.00012132859666491954),
+    "three_drawn_eight": (["CAST(X AS DOUBLE) / ROUND(187.2, -1) / ROUND(330.28, 2) / ROUND(103.67, 1)"], 8,
+                          1.5366868212158497e-07, 1.53668682121585e-07),
 }
 
 

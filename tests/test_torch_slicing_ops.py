@@ -35,6 +35,7 @@ from ksql_tpu_torch.runtime.lowering import TorchCompiledQuery
 from ksql_tpu_torch.state import state_from_numpy, state_to_numpy
 from tests.test_slicing import HOPPING_CORPUS
 from tests.test_torch_lowering import DDL, PV_DDL, gen_batches, plan_for
+from tests.torch_kernel_cases import SLICED_SKEWS, sliced_skew
 
 jax.config.update("jax_enable_x64", True)
 
@@ -120,6 +121,29 @@ def test_sliced_fold_twin_matches_reference(name, seed):
     cur = store["slice_id"][rows["slots"], sidx % ring]
     assert (live & (cur >= 0) & (cur != sidx)).any()  # recycled cells
     assert (rows["active"] & ~live).any() and (~rows["active"]).any()
+
+
+@pytest.mark.parametrize("name", list(QUERIES))
+@pytest.mark.parametrize("kind", SLICED_SKEWS)
+def test_sliced_fold_twin_matches_reference_at_the_kernels_skews(name, kind):
+    """K5's twin against ``_sliced_scatter`` where the kernel's design
+    leans (``SLICED_SKEWS``): one key taking most of a batch over many ring
+    positions, the 32 rows of one warp on one cell with int64 extremes,
+    every target cell stale and none stale, no row active, active rows
+    that overflowed into the dump slot.  Tolerance: none (bits)."""
+    ref_q, port_q, _schema = queries(name)
+    layout, store, rows = case(port_q, 5)
+    store, rows = sliced_skew(kind, store, rows, CAPACITY, layout.components[0].width,
+                              port_q.slice_width, seed=5)
+    payload = {"active": jnp.asarray(rows["active"]), "wstart": jnp.asarray(rows["wstart"])}
+    want = ref_q._sliced_scatter(as_jax(store), jnp.asarray(rows["slots"]), payload,
+                                 [jnp.asarray(c) for c in rows["contribs"]])
+    got = as_torch(store)
+    t = as_torch({k: rows[k] for k in ("slots", "wstart", "active")})
+    slicing.sliced_fold(got, {}, layout, t["slots"], t["wstart"],
+                        [torch.from_numpy(c) for c in rows["contribs"]], t["active"],
+                        port_q.slice_width)
+    assert_same_arrays(state_to_numpy(got), jax.device_get(want), f"sliced_fold[{kind}]")
 
 
 @pytest.mark.parametrize("name", list(QUERIES))

@@ -33,6 +33,7 @@ from ksql_tpu_torch.ops import device_aggs as pda
 from ksql_tpu_torch.ops import hash_store as hs
 from ksql_tpu_torch.ops import vector
 from test_torch_vector_ops import FVALS, _layouts, _run_both
+from torch_kernel_cases import REMOVE_CASES, remove_case
 
 jax.config.update("jax_enable_x64", True)
 
@@ -361,3 +362,29 @@ def test_a_list_past_its_cap_shows_a_null_after_an_undo():
     data, present, valid = finalize([port["a1"][:1], port["a2"][:1], port["a3"][:1]])
     assert present[0].tolist() == [True] * 4 and valid[0].tolist() == [True, True, True, False]
     assert data[0, :3].tolist() == [11, 13, 14] and port["a1"][0] == 5
+
+
+@pytest.mark.parametrize("case", REMOVE_CASES)
+def test_vec_remove_matches_reference_at_the_kernels_skews(case):
+    """K23's twin against ``_vec_remove`` where the kernel's design leans
+    (``REMOVE_CASES``): one slot taking most undo rows, a full list whose
+    value is stored 70 times with 40 undo rows (claims past the 32nd
+    occurrence and the 1,024th entry) beside one with 5, NaN and both zeros
+    undone in one slot's run, every row winning its slot (the dump row
+    untouched), undo values no slot holds.  Tolerance: none."""
+    comps, state, contribs, slots = remove_case(case)
+    capacity = state["a1"].shape[0] - 1
+    rl, pl = _layouts(capacity, [dict(combine=c, dtype=d, init=i, width=w, mode=m)
+                                 for c, d, i, w, m in comps])
+    state = dict(state, a0=np.zeros(capacity + 1, np.int64))
+    port = _run_both(lambda s, c, sl: rhs._vec_remove(s, rl, 1, c, sl, jnp.int32(capacity)),
+                     lambda s, c, sl: vector.vec_remove(s, pl, 1, c, sl), state, contribs, slots)
+    removed = state["a1"] - port["a1"].numpy()
+    if case == "repeats":
+        assert removed[3] >= 40 and removed[4] >= 5
+    elif case == "all_win":
+        np.testing.assert_array_equal(port["a2"][capacity].numpy(), state["a2"][capacity])
+    elif case == "no_match":
+        assert not removed.any()
+    else:
+        assert removed.sum() > 0

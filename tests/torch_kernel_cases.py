@@ -1,6 +1,6 @@
 """Inputs of K16's write mode and K17 at the edges of their kernels'
-tiles, and of K3 (fold and argset) and K20 (set and hist) at the skews
-their designs lean on, shared by the CPU parity tests (the twins against
+tiles, and of K3 (fold and argset), K20 (set and hist), K23 and K5 at the
+skews their designs lean on, shared by the CPU parity tests (the twins against
 the reference's jax) and the card tests (the kernels against the twins).
 Numpy and torch only: the card's machine has no JAX."""
 
@@ -340,3 +340,129 @@ COLLECT_CASES = {
     "set_hot_run": ("hot_run", "set", "int64"), "hist_full_prefix": ("full_prefix", "hist", "int64"),
     "hist_one_slot": ("one_slot", "hist", "int64"), "hist_hot_run": ("hot_run", "hist", "int64"),
 }
+
+
+# ------------------------------------------------------------ K23
+#: doubles of an undo batch: both zeros and NaN among them
+REMOVE_DOUBLES = np.array([-0.0, 0.0, np.nan, 1.5, -2.0, 7.25, np.inf])
+
+
+def remove_case(kind, capacity=64, K=40, n=600, seed=0):
+    """K23's inputs: ``(components, state, contribs, slots)``, the
+    COLLECT_LIST group at component 1 after an int64 max at 0
+    (``components`` as ``collect_case``'s), ``state`` numpy columns
+    ``a1``-``a3`` (the dump row's cells past its count not zero),
+    ``contribs`` ``[None, head, values, bits]``.  ``kind``: ``hot_slot``
+    (one slot takes 80% of the undo rows, its list past the cap),
+    ``repeats`` (K = 1,100: one value stored at 70 positions of a full
+    list, some past the 1,024th, and 40 undo rows of it, past the 32nd
+    occurrence; another stored 70 times with 5 undo rows), ``signed``
+    (doubles: NaN, -0.0 and +0.0 stored and undone in one slot's run),
+    ``all_win`` (each removing row alone on its slot: the dump row stays)
+    or ``no_match`` (undo values no slot holds)."""
+    rng = np.random.default_rng(seed)
+    if kind == "repeats":
+        K = 1100
+    ddt = "float64" if kind == "signed" else "int64"
+    comps = [("max", "int64", 0, 1, ""), ("vec_count", "int64", 0, 1, ""),
+             ("vec_data", ddt, 0, K, "append"), ("vec_valid", "int8", 0, K, "")]
+    c1 = capacity + 1
+    cnt = rng.choice([0, 1, 5, K - 1, K, K + 7], c1).astype(np.int64)
+    cnt[capacity] = 3
+    if ddt == "float64":
+        data = REMOVE_DOUBLES[rng.integers(0, REMOVE_DOUBLES.size, (c1, K))]
+    else:
+        data = rng.integers(0, 1 << 40, (c1, K))
+    vbit = (rng.random((c1, K)) < 0.9).astype(np.int8)
+    held = np.arange(K)[None, :] < np.minimum(cnt, K)[:, None]
+    held[capacity] = True  # the dump row: cells past its count left as they are
+    data = np.where(held, data, 0).astype(ddt)
+    vbit = np.where(held, vbit, 0).astype(np.int8)
+    slots = rng.integers(0, capacity, n)
+    if kind == "hot_slot":
+        cnt[7] = K + 7
+        slots[rng.random(n) < 0.8] = 7
+    pos = (rng.random(n) * np.maximum(np.minimum(cnt[slots], K), 1)).astype(np.int64)
+    v = data[slots, pos].copy()
+    b = vbit[slots, pos].copy()
+    if kind == "no_match":
+        v = rng.integers(1 << 41, 1 << 42, n)
+    if kind == "signed":
+        slots[: n // 2] = 9
+        cnt[9] = K
+        data[9] = REMOVE_DOUBLES[rng.integers(0, REMOVE_DOUBLES.size, K)]
+        vbit[9] = 1
+        v[: n // 2] = REMOVE_DOUBLES[rng.integers(0, REMOVE_DOUBLES.size, n // 2)]
+        b[: n // 2] = 1
+    head = np.where(rng.random(n) < 0.9, -1, rng.integers(0, 2, n)).astype(np.int64)
+    slots[rng.random(n) < 0.03] = capacity
+    if kind == "repeats":
+        cnt[3] = cnt[4] = K
+        for slot, at, undo in ((3, rng.choice(K, 70, replace=False), 40), (4, np.arange(0, K, K // 70)[:70], 5)):
+            data[slot, at] = 1234567 + slot
+            vbit[slot, at] = 1
+            rows = rng.choice(n, undo, replace=False)
+            slots[rows], v[rows], b[rows], head[rows] = slot, 1234567 + slot, 1, -1
+        assert (np.nonzero(data[3] == 1234570)[0] >= 1024).any()
+    if kind == "all_win":
+        n = min(n, capacity)
+        slots, v, b = rng.permutation(capacity)[:n], v[:n], b[:n]
+        head = -np.ones(n, np.int64)
+    state = {"a1": cnt, "a2": data, "a3": vbit}
+    contribs = [None, head, v.astype(ddt), b.astype(np.int8)]
+    return comps, state, contribs, slots.astype(np.int32)
+
+
+REMOVE_CASES = ("hot_slot", "repeats", "signed", "all_win", "no_match")
+
+
+# ------------------------------------------------------------ K5
+def sliced_skew(kind, store, rows, capacity, ring, width, seed=0):
+    """``make_sliced_case``'s store and rows (numpy) reshaped to one of
+    K5's skews, as new arrays: ``hot_key`` (80% of the rows on one stored
+    key over many ring positions), ``warp_cell`` (the first 32 rows, one
+    warp, on one live cell, int64 contributions at their extremes so that
+    adds wrap), ``all_stale`` (every live row's cell holds an earlier
+    wrap's slice), ``none_stale`` (every live row's cell holds its slice),
+    ``inactive`` (no row active) or ``overflow`` (a third of the active
+    rows overflowed into the dump slot)."""
+    rng = np.random.default_rng(seed)
+    st = {k: np.array(v, copy=True) for k, v in store.items()}
+    rw = {k: ([c.copy() for c in v] if k == "contribs" else np.array(v, copy=True)) for k, v in rows.items()}
+    occupied = np.nonzero(st["occ"][:-1])[0]
+    act = rw["active"]
+    sidx = rw["wstart"] // width
+    newest = int(sidx[act].max())
+    if kind == "hot_key":
+        hot = rng.random(act.size) < 0.8
+        rw["slots"][hot] = occupied[0]
+        act[hot] = True
+        sidx[hot] = newest - rng.integers(0, ring - 1, int(hot.sum()))
+    elif kind == "warp_cell":
+        rw["slots"][:32] = occupied[1]
+        act[:32] = True
+        sidx[:32] = newest
+        for j, c in enumerate(rw["contribs"]):
+            if j > 0 and c.dtype == np.int64:
+                c[:32] = np.where(np.arange(32) % 2 == 0, I64.max, I64.min + 1)
+    elif kind == "inactive":
+        act[:] = False
+        rw["slots"][:] = capacity
+    elif kind == "overflow":
+        rw["slots"][act & (rng.random(act.size) < 0.33)] = capacity
+    rw["wstart"] = sidx * width
+    live = act & (rw["slots"] != capacity)
+    cells = (rw["slots"][live], sidx[live] % ring)
+    if kind == "all_stale":
+        st["slice_id"][cells] = sidx[live] - ring
+    elif kind == "none_stale":
+        st["slice_id"][cells] = sidx[live]
+    rw["active"] = act
+    if kind == "inactive":
+        ident = int(np.nonzero(~rows["active"])[0][0])  # an inactive row carries the identities
+        for c in rw["contribs"]:
+            c[:] = c[ident]
+    return st, rw
+
+
+SLICED_SKEWS = ("hot_key", "warp_cell", "all_stale", "none_stale", "inactive", "overflow")
