@@ -160,9 +160,12 @@ Phases, in this order; any failure exits non-zero and prints no result:
    of distinct ids, LATEST_BY_OFFSET(n)'s ring mid-wrap, sorted top-3s,
    a populated dump row; 2% of the rows overflowed, 1% inactive): K20
    ``vec_collect`` (append, set, ring), K21 ``vec_topk`` (plain,
-   distinct; and over DOUBLE with -0.0, +0.0, NaN and -inf), K6's wide
-   gather of the winners' width-K rows, K13 on the first-occurrence order
-   and K4 over width-K columns; then K20's hist mode and K22 ``vec_hist``
+   distinct; at the batch and at ``TOPK_SKEWS``' others: none at the dump
+   slot or the sentinel, the hottest slot a quarter, every row alone; and
+   over DOUBLE with -0.0, +0.0, NaN and -inf), K6's wide gather of the
+   winners' width-K rows, K13 on the first-occurrence order and K4's
+   tumbling reset of width-K rows (a quarter of the filled slots expire,
+   timed); then K20's hist mode and K22 ``vec_hist``
    on a 2^15-slot pv_user_pages store (up to 300 URLs a map, some at the
    1,000 cap).  All exact, the dump row included.  Yardstick:
    ``index_select`` of the K-wide rows for K6, two stable torch.argsort
@@ -409,7 +412,7 @@ KERNEL_FUNCS = {
     "row_prologue": ("row_prologue_kernel", "batch_max_kernel"),
     "probe_insert": ("block_kernel", "grid_kernel"),
     "fold_and_mark": ("fold_mark_kernel", "argset_kernel"),
-    "evict": ("evict_kernel",),
+    "evict": ("evict_kernel", "evict_rows_kernel"),
     "sliced_fold": ("sliced_fold_kernel",),
     "combine_windows": ("combine_kernel",),
     "member_lanes": ("lane_claim_kernel", "lane_winner_kernel"),
@@ -426,8 +429,7 @@ KERNEL_FUNCS = {
     "suppress_close": ("born_kernel", "close_kernel"),
     "having_verdict": ("verdict_kernel", "dump_kernel"),
     "vec_collect": ("collect_keys_kernel", "collect_member_kernel", "collect_place_kernel"),
-    "vec_topk": ("topk_keys_kernel", "topk_dedup_kernel", "topk_gather_kernel", "topk_pstar_kernel",
-                 "topk_top_kernel", "topk_dump_kernel"),
+    "vec_topk": ("topk_kernel",),
     "vec_hist": ("hist_count_kernel",),
     "vec_remove": ("remove_kernel",),
     "fk_fanout": ("fanout_kernel",),
@@ -879,27 +881,47 @@ def phase_kernels(torch, seed, n=N_ROWS, capacity=STORE):
     # ---- K4 evict: the same store, stream time past the oldest windows
     ev0 = _clone(store_k)
     ev0["max_ts"].fill_(int(store_k["wstart"][store_k["occ"]].min()) + 25 * HOUR_MS + 4 * HOUR_MS)
-    ek, ep = _clone(ev0), _clone(ev0)
-    retention = 25 * HOUR_MS
-    hs.evict(ek, layout, retention)
-    hs.evict_plain(ep, layout, retention)
-    for key in ev0:
-        _assert_equal(torch, f"evict.{key}", ek[key], ep[key])
-    expired = int((ev0["occ"] & ~ek["occ"]).sum())
+    rec, expired, _ek = check_evict(torch, layout, ev0, 25 * HOUR_MS)
     require(expired > 0, "evict: data should expire some slots")
-    work = _clone(ev0)
-
-    def reset_k4():
-        _restore(work, ev0)
-
-    def k4():
-        hs.evict(work, layout, retention)
-
-    rec = measure(torch, "evict", k4, lambda: hs.evict_plain(work, layout, retention),
-                  (capacity + 1) * 9 + expired * (3 + 16), (capacity + 1) * 4, reset=reset_k4)
-    recs["evict"] = dict(rec, max_abs_err=0.0)
+    recs["evict"] = rec
     _report("2", f"evict ({expired} slots expired)", recs["evict"])
     return recs
+
+
+def evict_bytes(layout, store, expired, sliced=False, suppress=False):
+    """K4's least bytes: each slot's ``occ`` read, an occupied slot's start
+    (``wstart`` or ``slast``; and ``dirty`` under suppress) read, an
+    expired slot's flags, ``born``/``emitted``/``hpass`` where the store
+    keeps them, ``slast`` and its ``slice_id`` row (sliced) and every cell
+    of every component written once."""
+    c1 = layout.capacity + 1
+    occ_n = int(store["occ"].sum())
+    per = 3 + ("hpass" in store) + (9 if "born" in store else 0)
+    if sliced:
+        per += 8 + 8 * layout.components[0].width
+    per += sum(store[f"a{j}"].element_size() * comp.width for j, comp in enumerate(layout.components))
+    return c1 + occ_n * (9 if suppress else 8) + expired * per
+
+
+def check_evict(torch, layout, ev0, retention, sliced=False, suppress=False):
+    """K4 on ``ev0`` (a store whose ``max_ts`` puts some slots past
+    ``retention``) against its twin on copies: every column exact (bits),
+    then timed from ``ev0`` every launch.  Returns the record, the count of
+    expired slots and the kernel's store."""
+    from ksql_tpu_torch.ops import hash_store as hs
+
+    mode = "suppress" if suppress else "sliced" if sliced else "tumbling"
+    ek, ep, work = _clone(ev0), _clone(ev0), _clone(ev0)
+    hs.evict(ek, layout, retention, sliced=sliced, suppress=suppress)
+    hs.evict_plain(ep, layout, retention, sliced=sliced, suppress=suppress)
+    for key in ev0:
+        _assert_equal(torch, f"evict[{mode}].{key}", _bits(torch, ek[key]), _bits(torch, ep[key]))
+    expired = int((ev0["occ"] & ~ek["occ"]).sum())
+    rec = measure(torch, "evict", lambda: hs.evict(work, layout, retention, sliced=sliced, suppress=suppress),
+                  lambda: hs.evict_plain(work, layout, retention, sliced=sliced, suppress=suppress),
+                  evict_bytes(layout, ev0, expired, sliced, suppress), (layout.capacity + 1) * 4,
+                  reset=lambda: _restore(work, ev0))
+    return dict(rec, max_abs_err=0.0), expired, ek
 
 
 def phase_k2_batch(torch, seed, n=1 << 20, capacity=STORE):
@@ -1228,19 +1250,8 @@ def phase_hop_kernels(torch, seed, n=HOP_ROWS, capacity=HOP_STORE, ring=HOP_RING
     retention = 25 * HOUR_MS
     ev0 = _clone(sk)
     ev0["max_ts"].fill_(int(sk["slast"][sk["occ"]].median()) + retention)
-    ek, ep = _clone(ev0), _clone(ev0)
-    hs.evict(ek, layout, retention, sliced=True)
-    hs.evict_plain(ep, layout, retention, sliced=True)
-    for key in ev0:
-        _assert_equal(torch, f"evict[sliced].{key}", ek[key], ep[key])
-    expired = int((ev0["occ"] & ~ek["occ"]).sum())
+    rec, expired, ek = check_evict(torch, layout, ev0, retention, sliced=True)
     require(expired > 0 and bool(ek["occ"].any()), "evict[sliced]: data should expire some slots")
-    work = _clone(ev0)
-    rec = measure(torch, "evict", lambda: hs.evict(work, layout, retention, sliced=True),
-                  lambda: hs.evict_plain(work, layout, retention, sliced=True),
-                  (capacity + 1) * 9 + expired * (3 + 8 + ring * (8 + cbytes)), (capacity + 1) * 4,
-                  reset=lambda: _restore(work, ev0))
-    rec["max_abs_err"] = 0.0
     recs["evict"]["sliced"] = rec
     _report("2h", f"evict[sliced] ({expired} keys expired, ring {ring})", rec)
     return recs
@@ -3243,7 +3254,6 @@ def phase_suppress_kernels(torch, seed, n=N_ROWS, capacity=STORE):
     sk, rec, what, waiting = _check_suppress_close(torch, c, c["slots"], c["act_rows"], cm_emit, grace)
     require(waiting > 0, "suppress_close: some candidates should keep waiting")
     done("suppress_close", "tumbling", rec, what)
-    ncomp_b = 16
 
     # ---- K17 and K18 at the main paths' shapes: 12h (k = 4), 12g (2^20 rows)
     for tag, rows, mode in (("12h", HOP_ROWS, "expansion"), ("12g", FINAL_GROW_ROWS, "tumbling")):
@@ -3278,22 +3288,10 @@ def phase_suppress_kernels(torch, seed, n=N_ROWS, capacity=STORE):
     # ---- K4's suppress mode: the store after K18, the stream time 4 h on
     e0 = _clone(sk)
     e0["max_ts"].fill_(int(cm_emit[-1]) + 4 * HOUR_MS)
-    ek, ep = _clone(e0), _clone(e0)
-    hs.evict(ek, layout, FINAL_RETENTION_MS, suppress=True)
-    hs.evict_plain(ep, layout, FINAL_RETENTION_MS, suppress=True)
-    for key in e0:
-        _assert_equal(torch, f"evict[suppress].{key}", ek[key], ep[key])
-    expired = int((e0["occ"] & ~ek["occ"]).sum())
+    rec, expired, ek = check_evict(torch, layout, e0, FINAL_RETENTION_MS, suppress=True)
     kept = int((e0["occ"] & e0["dirty"] & ek["occ"]).sum())
     require(expired > 0 and kept > 0, "evict[suppress]: data should expire slots and keep dirty ones")
-    occ_n = int(e0["occ"].sum())
-    work = _clone(e0)
-    done("evict", "suppress", measure(
-        torch, "evict", lambda: hs.evict(work, layout, FINAL_RETENTION_MS, suppress=True),
-        lambda: hs.evict_plain(work, layout, FINAL_RETENTION_MS, suppress=True),
-        (capacity + 1) + occ_n * 9 + expired * (3 + 8 + 1 + ncomp_b), (capacity + 1) * 5,
-        reset=lambda: _restore(work, e0)),
-        f"{expired} slots expired, {kept} dirty past retention kept")
+    done("evict", "suppress", rec, f"{expired} slots expired, {kept} dirty past retention kept")
     return recs, extra
 
 
@@ -3702,6 +3700,74 @@ def make_hist_case(torch, rng, dev, n=VEC_ROWS, capacity=HIST_STORE):
                 contribs=contribs, j=j)
 
 
+#: K21's batches on phase 2v's case (``topk_skew``): phase 2v's own; no
+#: row aimed at the dump slot and none holding the sentinel (the dump row's
+#: merge reads a real slot); the hottest slot holding a quarter of the
+#: batch (phase 3's zipf skew); every row alone in its slot (the dump row
+#: untouched)
+TOPK_SKEWS = ("2v", "no dump", "hot quarter", "alone")
+
+
+def topk_skew(torch, c, j, kind, rng):
+    """One TOPK_SKEWS batch, ``(slots, values)``, for the top-K column at
+    component ``j`` of ``make_vector_case``'s case ``c``."""
+    cap = c["layout"].capacity
+    sent = c["layout"].components[j].init
+    slots = c["slots"].cpu().numpy().copy()
+    vals = c["contribs"][j].cpu().numpy().copy()
+    n = slots.size
+    if kind == "no dump":
+        live = np.unique(slots[(slots != cap) & (vals != sent)])
+        off = (slots == cap) | (vals == sent)
+        slots[off] = live[rng.integers(0, live.size, int(off.sum()))]
+        vals[off] = rng.integers(1, 1000, int(off.sum()))
+    elif kind == "hot quarter":
+        hot = np.bincount(slots[slots != cap]).argmax()
+        slots[rng.permutation(n)[: n // 4]] = hot
+    elif kind == "alone":
+        slots = rng.choice(cap, n, replace=False).astype(np.int32)
+        vals = rng.integers(1, 1000, n).astype(vals.dtype)
+    dev = c["slots"].device
+    return torch.from_numpy(slots).to(dev), torch.from_numpy(vals).to(dev)
+
+
+def check_vec_topk(torch, layout, store, j, vals, slots, tag, plain_reps=PLAIN_REPS):
+    """K21 on the top-K column at component ``j`` of ``store`` against its
+    twin on copies (exact, bits, the dump row included), then timed from
+    the same column every launch.  Returns the record and what it saw."""
+    from ksql_tpu_torch.ops import vector as vec
+
+    key = f"a{j}"
+    got, want, work = ({key: store[key].clone()} for _ in range(3))
+    vec.vec_topk(got, layout, j, vals, slots)
+    vec.vec_topk_plain(want, layout, j, vals, slots)
+    _assert_store(torch, f"vec_topk[{tag}]", got, want, [key])
+    cap, K = layout.capacity, layout.components[j].width
+    n, esize = slots.shape[0], store[key].element_size()
+    s_np, v_np = slots.cpu().numpy(), vals.cpu().numpy()
+    live = (s_np != cap) & (v_np != layout.components[j].init)
+    touched = np.unique(s_np[live]).size
+    hot = int(np.bincount(s_np[live]).max()) if live.any() else 0
+    rec = measure(torch, "vec_topk", lambda: vec.vec_topk(work, layout, j, vals, slots),
+                  lambda: vec.vec_topk_plain(work, layout, j, vals, slots),
+                  n * (4 + esize) + (touched + 1) * K * esize * 2, n * 40,
+                  reset=lambda: work[key].copy_(store[key]), plain_reps=plain_reps)
+    return dict(rec, max_abs_err=0.0), (f"{n} rows into {touched} slots, the hottest {hot} rows, "
+                                        f"{n - int(live.sum())} at the dump slot or the sentinel")
+
+
+def width_k_evict_case(torch, c, rng):
+    """K4's tumbling mode over ``make_vector_case``'s store: the slots that
+    hold vector state live, a quarter of them past the retention (1 h)."""
+    st = _clone(c["store"])
+    names = [spec.fname for spec in c["q"].agg_specs]
+    cnt = st[f"a{c['starts'][names.index('COLLECT_LIST')]}"]  # the filled slots hold a list
+    st["occ"].copy_(cnt > 0)
+    st["wstart"].copy_(torch.from_numpy(rng.integers(0, 4, cnt.shape[0]) * HOUR_MS).to(cnt.device))
+    st["max_ts"].fill_(HOUR_MS + 1)
+    return st
+
+
 def _changed_cells(torch, before, after, keys):
     """Cells of the listed columns that a fold changed (its writes)."""
     return sum(int((_bits(torch, before[k]) != _bits(torch, after[k])).sum()) for k in keys)
@@ -3782,18 +3848,14 @@ def phase_vector_kernels(torch, seed):
         max_abs_err=0.0)
     _report("2v", f"seg_sort[vector] ({n} rows, (slot, bit, value); yardstick two stable torch.argsort)",
             extra["seg_sort_vector"])
-    # ---- K21 plain / distinct (TK, TD)
+    # ---- K21 plain / distinct (TK, TD), at phase 2v's batch and its skews
     for fname, mode in (("TOPK", "plain"), ("TOPKDISTINCT", "distinct")):
         j = c["starts"][names.index(fname)] + 1
         K = layout.components[j].width
-        saved, work, reset = check_fold(
-            f"vec_topk[{mode}]", j, 1, lambda s: vec.vec_topk(s, layout, j, contribs[j], slots),
-            lambda s: vec.vec_topk_plain(s, layout, j, contribs[j], slots))
-        done("vec_topk", mode, measure(
-            torch, "vec_topk", lambda: vec.vec_topk(work, layout, j, contribs[j], slots),
-            lambda: vec.vec_topk_plain(work, layout, j, contribs[j], slots),
-            n * 12 + touched.size * K * 16, n * 40, reset=reset, plain_reps=10),
-            f"{fname}(USER_ID, {K}): {n} rows into {touched.size} slots")
+        for kind in TOPK_SKEWS:
+            tslots, tvals = (slots, contribs[j]) if kind == "2v" else topk_skew(torch, c, j, kind, rng)
+            rec, what = check_vec_topk(torch, layout, store, j, tvals, tslots, f"{mode} {kind}", plain_reps=5)
+            done("vec_topk", mode if kind == "2v" else f"{mode} {kind}", rec, f"{fname}(USER_ID, {K}): {what}")
     _check_topk_doubles(torch, rng, dev)
     # ---- K6's wide gather over the winners
     rowidx = torch.arange(n, dtype=torch.int32, device=dev)
@@ -3818,18 +3880,13 @@ def phase_vector_kernels(torch, seed):
         library=lambda: [torch.index_select(w, 0, sel) for w in wide]),
         f"{lanes} of {n} lanes gather {row_bytes} B of vector state; yardstick index_select of the "
         "K-wide rows")
-    # ---- K4 over width-K columns
-    ev = {k: v.clone() for k, v in store.items()}
-    ev["occ"][torch.from_numpy(touched).to(dev)] = True
-    ev["wstart"].copy_(torch.from_numpy(rng.integers(0, 10, cap + 1) * HOUR_MS).to(dev))
-    ev["max_ts"].fill_(9 * HOUR_MS)
-    twin = {k: v.clone() for k, v in ev.items()}
-    hs.evict(ev, layout, HOUR_MS)
-    hs.evict_plain(twin, layout, HOUR_MS)
-    torch.cuda.synchronize()
-    _assert_store(torch, "evict[vector]", ev, twin, list(twin))
-    print(f"[2v] evict over width-K columns ({int(twin['grave'].sum())} slots expire): exact")
-    del ev, twin
+    # ---- K4 over width-K columns: a quarter of the filled slots expire
+    ev0 = width_k_evict_case(torch, c, rng)
+    rec, expired, _ek = check_evict(torch, layout, ev0, HOUR_MS)
+    require(expired > 0, "evict[width-K]: data should expire some slots")
+    done("evict", "tumbling width-K", rec, f"{expired} of {int(ev0['occ'].sum())} slots expire, "
+         f"{sum(store[f'a{j}'][0].numel() * store[f'a{j}'].element_size() for j in range(len(layout.components)))} B a slot")
+    del ev0
     # ---- K20 hist + K22 (pv_user_pages)
     h = make_hist_case(torch, rng, dev)
     hl, hst, hslots, hc, j = h["layout"], h["store"], h["slots"], h["contribs"], h["j"]

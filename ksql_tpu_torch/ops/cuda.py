@@ -107,9 +107,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "ksql_vec_collect_place": [_I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     },
     "vec_topk": {
-        "ksql_vec_topk_keys": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P],
-        "ksql_vec_topk_dedup": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-        "ksql_vec_topk_merge": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+        "ksql_vec_topk": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P],
     },
     "vec_hist": {"ksql_vec_hist": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P]},
     "vec_remove": {

@@ -14,7 +14,7 @@ reference does (groups of 3 for collect, 4 for a histogram, 1 for a
 top-K) after K3 has folded the scalar components.
 
 Four hand-written CUDA kernels (``csrc/``) carry the folds, with K13
-``seg_sort`` (``ops/session.py``) for the orders:
+``seg_sort`` (``ops/session.py``) for K20's orders:
 
 * K20 ``vec_collect`` (modes ``append``, ``set``, ``ring`` and ``hist``,
   the histogram's phase 1): the first occurrence of each (slot, value,
@@ -23,10 +23,11 @@ Four hand-written CUDA kernels (``csrc/``) carry the folds, with K13
   table in shared memory; the arrival-stable rank of each row within its
   slot (K13 on the slot), the writes, the dump row's last-row-wins cells
   and the count adds.
-* K21 ``vec_topk`` (modes ``plain`` and ``distinct``): K13 on (slot,
-  descending value), the in-batch dedup and a second K13 in distinct mode,
-  then per slot-run winner the merge of its first K candidates with the
-  stored K, sorted as XLA sorts.
+* K21 ``vec_topk`` (modes ``plain`` and ``distinct``): one cooperative
+  launch groups the rows by slot (tickets, no sort); a warp (a block for a
+  hot slot) takes each slot's first K candidates by successive minima
+  (distinct: past equal values) and merges them with the stored K by rank
+  counting, as XLA sorts; the last group to finish merges the dump row.
 * K22 ``vec_hist``: the histogram's phase 2, each row's signed head
   ``atomicAdd``-ed at its value's entry (negative on a table
   aggregation's undo side).
@@ -56,7 +57,7 @@ from typing import Dict, List, Sequence
 import torch
 
 from ksql_tpu_torch.ops import cuda
-from ksql_tpu_torch.ops.hash_store import StoreLayout, _expect, _stream
+from ksql_tpu_torch.ops.hash_store import StoreLayout, _expect, _stream, init_bits
 from ksql_tpu_torch.ops.session import seg_sort
 
 INT64_MAX = (1 << 63) - 1
@@ -426,7 +427,8 @@ def vec_topk(store: Dict[str, torch.Tensor], layout: StoreLayout, j: int,
     XLA sorts (NaN first, equal values in reverse order of the merged
     list; ``distinct`` drops equal neighbours and sorts again), and writes
     the first K.  The dump row takes the merge of the last row that is not
-    a run's first."""
+    a run's first.  One cooperative launch, no sort; the scratch is made
+    once per store size and batch size (:func:`_topk_scratch`)."""
     if not slots.is_cuda:
         vec_topk_plain(store, layout, j, contrib, slots)
         return
@@ -439,39 +441,45 @@ def vec_topk(store: Dict[str, torch.Tensor], layout: StoreLayout, j: int,
     _expect(slots, torch.int32, (n,))
     if K > 256:
         raise ValueError("vec_topk merges at most 256 values a slot")
+    if n == 0:
+        return
     vals = contrib.to(col.dtype).contiguous()
     esize, isfloat = _elem(col)
-    sent = int(torch.tensor([comp.init], dtype=col.dtype).view(
-        torch.int64 if isfloat else col.dtype).to(torch.int64)[0])
     distinct = comp.mode == "distinct"
     dev = slots.device
-    st = _stream(dev)
-    k1 = torch.empty(n, dtype=torch.int64, device=dev)
-    k2 = torch.empty(n, dtype=torch.int64, device=dev)
-    vraw = torch.empty(n, dtype=torch.int64, device=dev)
-    cuda.check("vec_topk", cuda.lib("vec_topk", "ksql_vec_topk_keys")(
-        vals.data_ptr(), esize, isfloat, sent, slots.data_ptr(), n, layout.capacity,
-        k1.data_ptr(), k2.data_ptr(), vraw.data_ptr(), st))
-    perm = seg_sort(k1, k2)
-    if distinct:
-        e2 = torch.empty(n, dtype=torch.int64, device=dev)
-        d2 = torch.empty(n, dtype=torch.int64, device=dev)
-        v2 = torch.empty(n, dtype=torch.int64, device=dev)
-        cuda.check("vec_topk", cuda.lib("vec_topk", "ksql_vec_topk_dedup")(
-            perm.data_ptr(), n, k1.data_ptr(), vraw.data_ptr(), isfloat, sent, layout.capacity,
-            e2.data_ptr(), d2.data_ptr(), v2.data_ptr(), st))
-        perm = seg_sort(e2, d2)
-        k1, vraw = e2, v2
-    work = torch.empty(2 * n + K + 1, dtype=torch.int64, device=dev)
-    cuda.check("vec_topk", cuda.lib("vec_topk", "ksql_vec_topk_merge")(
-        perm.data_ptr(), n, k1.data_ptr(), vraw.data_ptr(), col.data_ptr(), esize, isfloat,
-        sent, K, layout.capacity, int(distinct), work.data_ptr(), st))
+    slot_buf, ctrl, rows32, rows64 = _topk_scratch(dev, c1, n, K)
+    cuda.check("vec_topk", cuda.lib("vec_topk")(
+        vals.data_ptr(), esize, isfloat, init_bits(comp), slots.data_ptr(), n, layout.capacity,
+        col.data_ptr(), K, int(distinct), slot_buf.data_ptr(), ctrl.data_ptr(), rows32.data_ptr(),
+        rows64.data_ptr(), _stream(dev)))
     vec_topk.launches += 1
     vec_topk.mode_launches["distinct" if distinct else "plain"] += 1
 
 
 vec_topk.launches = 0
 vec_topk.mode_launches = {"plain": 0, "distinct": 0}
+
+#: K21's scratch: per (device, capacity + 1) the slots' ticket counts (0)
+#: and bucket offsets (-1) and the control words (0), which the kernel
+#: leaves so; per (device, rows, K) its row buffers
+_TOPK_SLOTS: Dict[tuple, tuple] = {}
+_TOPK_ROWS: Dict[tuple, tuple] = {}
+#: ``ksql_vec_topk``'s control words (csrc/vec_topk.cu, kCtrlWords)
+TOPK_CTRL_WORDS = 11
+
+
+def _topk_scratch(dev: torch.device, c1: int, n: int, K: int):
+    key = (str(dev), c1)
+    if key not in _TOPK_SLOTS:
+        slot_buf = torch.full((2 * c1,), -1, dtype=torch.int32, device=dev)
+        slot_buf[:c1] = 0
+        _TOPK_SLOTS[key] = (slot_buf, torch.zeros(TOPK_CTRL_WORDS, dtype=torch.int64, device=dev))
+    rkey = (str(dev), n, K)
+    if rkey not in _TOPK_ROWS:
+        _TOPK_ROWS[rkey] = (torch.empty(3 * n, dtype=torch.int32, device=dev),
+                            torch.empty((K + 7) * n, dtype=torch.int64, device=dev))
+    return _TOPK_SLOTS[key] + _TOPK_ROWS[rkey]
+
 
 def vec_remove(store: Dict[str, torch.Tensor], layout: StoreLayout, j: int,
                contribs: Sequence[torch.Tensor], slots: torch.Tensor) -> None:

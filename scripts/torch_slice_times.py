@@ -46,9 +46,22 @@ Groups (``--groups``, all by default):
   stale, and at phase 7's 8,192-row batch, with the ``index_add_`` /
   ``index_reduce_`` yardstick.
 
-The ``k3``, ``k20``, ``k23`` and ``k5`` groups also time each CUDA
-function of a call apart (K20's and K23's with the K13 sorts they
-make).
+* ``k21``: K21 in each mode at phase 2v's batch (4,096 rows of phase
+  14's traffic into a half-full 2^16-slot store, K = 3) and at
+  ``chip_smoke.TOPK_SKEWS``' other batches: no row at the dump slot or the
+  sentinel, the hottest slot holding a quarter of the batch, every row
+  alone in its slot; the call's kernels with any K13 sort timed together,
+  and the wrapper's host time a call.
+* ``k4``: K4's sliced mode at phase 2h's store (2^16 + 1 slots, a 102-cell
+  ring, 8 components, half the keys past the retention) and on the same
+  store with none past it, its tumbling mode at phase 2's flagship store
+  (2^20 + 1 slots, before K2's inserts) and over phase 2v's vector store
+  (a quarter of its filled slots expired, ~18 KB of width-K rows a slot),
+  its suppress mode at phase 2f's store.
+
+The ``k3``, ``k20``, ``k23``, ``k5`` and ``k21`` groups also time each
+CUDA function of a call apart (K20's, K21's and K23's with the K13 sorts
+they make).
 
 Each kernel is held against its twin first (exact), then timed as
 chip_smoke times it (device ms from torch.profiler, its records counted,
@@ -67,8 +80,8 @@ import sys
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: the kernel functions of K3's, K5's, K10's, K13's, K16's, K20's, K23's and
-#: K24's earlier designs beside this tree's, so that the profiler finds an
+#: the kernel functions of K3's, K5's, K10's, K13's, K16's, K20's, K21's,
+#: K23's and K24's earlier designs beside this tree's, so that the profiler finds an
 #: earlier tree's
 EARLIER_FUNCS = {
     "fold_and_mark": ("fold_mark_kernel", "argset_kernel", "fold_kernel", "winners_kernel", "argset_dump_kernel"),
@@ -82,6 +95,9 @@ EARLIER_FUNCS = {
     "sliced_fold": ("sliced_fold_kernel", "slice_reset_kernel", "slice_fold_kernel"),
     "vec_remove": ("remove_kernel", "remove_keys_kernel", "remove_claim_kernel", "remove_compact_kernel",
                    "remove_dump_kernel"),
+    "evict": ("evict_kernel", "evict_rows_kernel"),
+    "vec_topk": ("topk_kernel", "topk_keys_kernel", "topk_dedup_kernel", "topk_gather_kernel",
+                 "topk_pstar_kernel", "topk_top_kernel", "topk_dump_kernel"),
 }
 #: K10's sweep: (ring entries before the dump entry, live share; None:
 #: the case's own)
@@ -595,12 +611,103 @@ def k5_shapes(cs, torch, seed):
     return out
 
 
+def k21_shapes(cs, torch, seed):
+    """K21 in each mode on phase 2v's case (``make_vector_case``, from
+    phase 2v's seed) at each of ``cs.TOPK_SKEWS``' batches; each against
+    its twin, the call's CUDA functions (any K13 sort among them) apart and
+    together, and the wrapper's host time a call.  Returns ``[(kernel,
+    shape, record, what)]``."""
+    from ksql_tpu_torch.ops import vector as vec
+
+    dev = torch.device(cs.DEVICE)
+    c = cs.make_vector_case(torch, np.random.default_rng(seed + 17), dev)
+    layout, store = c["layout"], c["store"]
+    names = [s.fname for s in c["q"].agg_specs]
+    cs.KERNEL_FUNCS["vec_topk_call"] = cs.KERNEL_FUNCS["vec_topk"] + cs.KERNEL_FUNCS["seg_sort"]
+    out = []
+    for fname, mode in (("TOPK", "plain"), ("TOPKDISTINCT", "distinct")):
+        j = c["starts"][names.index(fname)] + 1
+        key = f"a{j}"
+        for kind in cs.TOPK_SKEWS:
+            if kind == "2v":
+                slots, vals = c["slots"], c["contribs"][j]
+            else:
+                slots, vals = cs.topk_skew(torch, c, j, kind, np.random.default_rng(seed + 23))
+            rec, what = cs.check_vec_topk(torch, layout, store, j, vals, slots, f"{mode} {kind}", plain_reps=5)
+            work = {key: store[key].clone()}
+
+            def call(work=work, j=j, vals=vals, slots=slots):
+                vec.vec_topk(work, layout, j, vals, slots)
+
+            def reset(work=work, key=key):
+                work[key].copy_(store[key])
+
+            parts = _parts(cs, torch, ["vec_topk", "seg_sort"], call, reset)
+            whole = cs.kernel_device_ms(torch, "vec_topk_call", call, reset)
+            host = _host_ms(torch, call)
+            out.append(("vec_topk", f"{mode} {kind}", dict(rec, parts=parts, host_ms=host, call_device_ms=whole),
+                        _what_parts(f"{what}; the call's kernels with any K13 sort {whole:.4f} ms; "
+                                    f"wrapper host {host:.4f} ms a call", parts)))
+    return out
+
+
+def k4_shapes(cs, torch, seed):
+    """K4 in each mode at the stores its phases check it on: sliced at
+    phase 2h's (``make_sliced_case`` after 2h's K1 draws, half the keys'
+    newest slice past 25 h; then the same store with no key past it),
+    tumbling at phase 2's flagship store (``make_store``, 70% full, the
+    keys of the oldest hours past 25 h) and over phase 2v's vector store
+    (``width_k_evict_case``), suppress at phase 2f's (``make_suppress_case``,
+    the stream time 4 h on); each against its twin first.  Returns
+    ``[(kernel, shape, record, what)]``."""
+    from ksql_tpu_torch.common.batch import stable_hash64
+    from ksql_tpu_torch.ops import hash_store as hs
+    from ksql_tpu_torch.state import state_from_numpy
+
+    dev = torch.device(cs.DEVICE)
+    out = []
+
+    def one(shape, layout, ev0, retention, **mode):
+        rec, expired, _ek = cs.check_evict(torch, layout, ev0, retention, **mode)
+        out.append(("evict", shape, rec, f"{expired} of {int(ev0['occ'].sum())} occupied slots of "
+                                         f"{layout.capacity + 1} expire"))
+
+    cap, ring, n = cs.HOP_STORE, cs.HOP_RING, cs.HOP_ROWS
+    rng = np.random.default_rng(seed + 10)
+    rng.zipf(1.3, n)  # phase 2h's K1 draws come first
+    rng.random((1, n))
+    rng.integers(0, 31 * cs.HOUR_MS, n)
+    layout, st, _rows = cs.make_sliced_case(hs, rng, cap, ring, n)
+    store = state_from_numpy(st, dev)
+    retention = 25 * cs.HOUR_MS
+    slast = store["slast"][store["occ"]]
+    for shape, t in (("sliced 2h", int(slast.median())), ("sliced none expired", int(slast.min()))):
+        store["max_ts"].fill_(t + retention)
+        one(shape, layout, store, retention, sliced=True)
+    del store, st
+    url_hashes = np.fromiter((stable_hash64(u) for u in cs._urls(cs.N_URLS)), np.int64, cs.N_URLS)
+    layout, store = cs.make_store(torch, hs, cs.STORE, int(0.7 * cs.STORE), np.random.default_rng(seed),
+                                  url_hashes, dev)
+    store["max_ts"].fill_(int(store["wstart"][store["occ"]].min()) + 29 * cs.HOUR_MS)
+    one("tumbling flagship", layout, store, 25 * cs.HOUR_MS)
+    del store
+    rng = np.random.default_rng(seed + 17)
+    c = cs.make_vector_case(torch, rng, dev)
+    one("tumbling 2v width-K", c["layout"], cs.width_k_evict_case(torch, c, rng), cs.HOUR_MS)
+    del c
+    c = cs.make_suppress_case(torch, np.random.default_rng(seed + 11), dev)
+    store = c["store"]
+    store["max_ts"].fill_(int(c["ts"][-1]) + 4 * cs.HOUR_MS)
+    one("suppress 2f", c["layout"], store, cs.FINAL_RETENTION_MS, suppress=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", nargs="?", default=HERE, help="the checkout whose package is timed")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--groups", default="k10,k13,k8k24,k17,k16,k3,k20,k23,k5",
-                    help="comma-separated: k10, k13, k8k24, k17, k16, k3, k20, k23, k5")
+    ap.add_argument("--groups", default="k10,k13,k8k24,k17,k16,k3,k20,k23,k5,k21,k4",
+                    help="comma-separated: k10, k13, k8k24, k17, k16, k3, k20, k23, k5, k21, k4")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -624,7 +731,7 @@ def main() -> int:
     records = []
     groups = {"k10": k10_shapes, "k13": k13_shapes, "k8k24": k8_k24_shapes, "k17": k17_shapes,
               "k16": k16_shapes, "k3": k3_shapes, "k20": k20_shapes, "k23": k23_shapes,
-              "k5": k5_shapes}
+              "k5": k5_shapes, "k21": k21_shapes, "k4": k4_shapes}
     shapes = []
     for g in args.groups.split(","):
         shapes += groups[g](cs, torch, args.seed)

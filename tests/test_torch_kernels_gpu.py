@@ -34,10 +34,10 @@ from ksql_tpu_torch.ops import session as sess
 from ksql_tpu_torch.ops import slicing
 from ksql_tpu_torch.ops import ss_join as ssj
 from ksql_tpu_torch.ops import suppress as sup
-from torch_kernel_cases import (ARGSET_CASES, ARGSET_COMPONENTS, CLOCK_CASES, COLLECT_CASES, FOLD_CASES,
-                                FOLD_COMPONENTS, REMOVE_CASES, SLICED_SKEWS, WRITE_CASES, argset_case,
-                                clock_case, collect_case, fold_case, remove_case, sliced_skew, write_case,
-                                write_torch)
+from torch_kernel_cases import (ARGSET_CASES, ARGSET_COMPONENTS, CLOCK_CASES, COLLECT_CASES, EVICT_CASES,
+                                FOLD_CASES, FOLD_COMPONENTS, REMOVE_CASES, SLICED_SKEWS, TOPK_KINDS, WRITE_CASES,
+                                argset_case, clock_case, collect_case, evict_case, fold_case, remove_case,
+                                sliced_skew, topk_case, write_case, write_torch)
 
 pytestmark = pytest.mark.gpu
 I64 = np.iinfo(np.int64)
@@ -1546,3 +1546,53 @@ def test_vec_collect_set_and_hist_at_their_skews(dev, case):
             _same(_bits(got[k]), _bits(want[k]))
         assert all(bool((t[:-2] == -1).all()) and not bool(t[-2:].any()) for t in vec._SCRATCH.values())
     assert _collect_launches(lambda: vec.vec_collect(sc, layout, 1, cs, s, mode)) == _COLLECT_FUNCS[mode]
+
+
+@pytest.mark.parametrize("distinct", [False, True])
+@pytest.mark.parametrize("dtype", ["int8", "int32", "int64", "float64"])
+@pytest.mark.parametrize("kind", TOPK_KINDS)
+def test_vec_topk_is_one_launch_at_its_skews(dev, kind, dtype, distinct):
+    # tolerance: exact (bits, the dump row included); one topk_kernel
+    # record a call (no K13 sort), the scratch clean after each call
+    from ksql_tpu_torch.ops import vector as vec
+
+    comps, state, vals, slots = topk_case(kind, dtype, distinct)
+    capacity = state["a1"].shape[0] - 1
+    layout = hs.StoreLayout(capacity, 1, tuple(hs.AggComponent(c, d, i, width=w, mode=m)
+                                               for c, d, i, w, m in comps))
+    col = torch.from_numpy(state["a1"]).to(dev)
+    v, s = torch.from_numpy(vals).to(dev), torch.from_numpy(slots).to(dev)
+    got, want, sc = ({"a1": col.clone()} for _ in range(3))
+    mode = "distinct" if distinct else "plain"
+    for _ in range(2):
+        before = vec.vec_topk.mode_launches[mode]
+        vec.vec_topk(got, layout, 1, v, s)
+        assert vec.vec_topk.mode_launches[mode] == before + 1
+        vec.vec_topk_plain(want, layout, 1, v, s)
+        _same(_bits(got["a1"]), _bits(want["a1"]))
+        slot_buf, ctrl = vec._TOPK_SLOTS[(str(s.device), capacity + 1)]
+        assert not slot_buf[:capacity + 1].any() and bool((slot_buf[capacity + 1:] == -1).all())
+        assert not ctrl.any()
+    names = _records_per_call(lambda: vec.vec_topk(sc, layout, 1, v, s))
+    assert len(names) == 1 and "topk_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("case", list(EVICT_CASES))
+def test_evict_is_one_launch_at_its_edges(dev, case):
+    # tolerance: exact (bits, every column); one evict_kernel record a call
+    comps, state, retention, sliced, suppress = evict_case(case)
+    capacity = state["occ"].shape[0] - 1
+    layout = hs.StoreLayout(capacity, 1, tuple(hs.AggComponent(c, d, i, width=w) for c, d, i, w in comps),
+                            windowed=True)
+    st = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in state.items()}
+    got, want, sc = ({k: v.clone() for k, v in st.items()} for _ in range(3))
+    mode = "suppress" if suppress else "sliced" if sliced else "tumbling"
+    before = hs.evict.mode_launches[mode]
+    hs.evict(got, layout, retention, sliced=sliced, suppress=suppress)
+    assert hs.evict.mode_launches[mode] == before + 1
+    hs.evict_plain(want, layout, retention, sliced=sliced, suppress=suppress)
+    for k in st:
+        _same(_bits(got[k]), _bits(want[k]))
+    names = _records_per_call(lambda: hs.evict(sc, layout, retention, sliced=sliced, suppress=suppress))
+    kernel = "evict_rows_kernel" if sliced or max(c[3] for c in comps) > 1 else "evict_kernel"
+    assert len(names) == 1 and kernel in names[0], names

@@ -243,16 +243,20 @@ def test_row_prologue_modes_match_reference_payload(sliced):
     assert 0 < act.sum() < np.asarray(arrays["row_valid"]).sum() * port_q.expansion
 
 
-def test_sliced_evict_matches_reference():
+@pytest.mark.parametrize("when", ["median", "none", "all"])
+def test_sliced_evict_matches_reference(when):
+    # the stream time past half the keys' newest slice plus the retention
+    # (median), short of every key's (none) or past every key's (all)
     ref_q, port_q, _schema = queries("baseline2")
     _layout, store, _rows = case(port_q, 7)
     live = store["slast"][store["occ"]]
-    store["max_ts"] = np.array(int(np.median(live)) + port_q.retention_ms, np.int64)
+    t = {"median": int(np.median(live)), "none": int(live.min()), "all": int(live.max()) + 1}[when]
+    store["max_ts"] = np.array(t + port_q.retention_ms, np.int64)
     want = jax.device_get(ref_q._trace_evict(as_jax(store)))
     port_q.state = state_from_numpy(store, "cpu")
     port_q._evict()
     got = state_to_numpy(port_q.state)
     assert_same_arrays(got, want, "evict")
     expired = store["occ"] & ~got["occ"]
-    assert expired.any() and got["occ"].any()
+    assert expired.any() == (when != "none") and got["occ"].any() == (when != "all")
     assert (got["slice_id"][expired] == -1).all()

@@ -32,7 +32,7 @@ from ksql_tpu_torch.ops import device_aggs as pda
 from ksql_tpu_torch.ops import hash_store as hs
 from ksql_tpu_torch.ops import slicing
 from ksql_tpu_torch.ops import vector
-from tests.torch_kernel_cases import COLLECT_CASES, collect_case
+from tests.torch_kernel_cases import COLLECT_CASES, TOPK_KINDS, collect_case, topk_case
 
 jax.config.update("jax_enable_x64", True)
 
@@ -152,10 +152,22 @@ def test_set_and_hist_match_reference_at_the_kernels_skews(case):
     assert np.asarray(want[0]).any() and not np.asarray(want[0]).all()  # members and not
 
 
-@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("seed", [*range(3), *TOPK_KINDS])
 @pytest.mark.parametrize("dtype", ["int64", "float64", "int32", "int8"])
 @pytest.mark.parametrize("distinct", [False, True])
 def test_vec_topk_matches_reference(dtype, distinct, seed):
+    # a seed: small random batches; a kind of TOPK_KINDS: the kernel's
+    # skews (no row at the dump slot or the sentinel, every row there,
+    # every row alone, a hot slot past K, runs of equal values (+-0.0 and
+    # NaN for doubles), K = 1 and K = 256), one seed-made input each
+    if isinstance(seed, str):
+        comps, state, vals, slots = topk_case(seed, dtype, distinct, capacity=64, n=192)
+        capacity = state["a1"].shape[0] - 1
+        rl, pl = _layouts(capacity, [dict(combine=c, dtype=d, init=i, width=w, mode=m) for c, d, i, w, m in comps])
+        _run_both(lambda s, c, sl: rhs._vec_topk(s, rl.components[1], 1, c[1], sl, jnp.int32(capacity)),
+                  lambda s, c, sl: vector.vec_topk(s, pl, 1, c[1], sl),
+                  state, [None, vals], slots)
+        return
     rng = np.random.default_rng(seed)
     capacity, K, n = 16, 1 + seed, 48
     sent = float("-inf") if dtype == "float64" else int(np.iinfo(dtype).min)
@@ -340,11 +352,12 @@ def _bits(t):
     return t.view(torch.int64) if t.is_floating_point() else t
 
 
-def test_wide_gather_and_evict_reset_width_k_rows():
+@pytest.mark.parametrize("K", [3, 1000])
+def test_wide_gather_and_evict_reset_width_k_rows(K):
     rng = np.random.default_rng(5)
     comps = (hs.AggComponent("max", "int64", 0), hs.AggComponent("vec_count", "int64", 0),
-             hs.AggComponent("vec_data", "float64", 0, width=3, mode="append"),
-             hs.AggComponent("vec_valid", "int8", 0, width=3),
+             hs.AggComponent("vec_data", "float64", 0, width=K, mode="append"),
+             hs.AggComponent("vec_valid", "int8", 0, width=K),
              hs.AggComponent("topk", "int32", int(np.iinfo(np.int32).min), width=2))
     layout = hs.StoreLayout(8, 1, comps, windowed=True)
     store = hs.init_store(layout, "cpu")
@@ -361,10 +374,12 @@ def test_wide_gather_and_evict_reset_width_k_rows():
     store["occ"][:] = True
     store["wstart"].copy_(torch.arange(9) * 10)
     store["max_ts"].fill_(45)
+    before = {k: v.clone() for k, v in store.items()}
     hs.evict(store, layout, 10)
     expired = torch.arange(9) * 10 + 10 < 45
     for j, c in enumerate(comps):
         col = store[f"a{j}"]
         if col.dim() == 2:
             assert bool((col[expired] == torch.tensor(c.init, dtype=col.dtype)).all())
+        assert torch.equal(_bits(col[~expired]), _bits(before[f"a{j}"][~expired]))  # kept rows bit for bit
     assert bool((store["grave"] == expired).all())

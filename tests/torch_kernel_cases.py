@@ -1,6 +1,6 @@
 """Inputs of K16's write mode and K17 at the edges of their kernels'
-tiles, and of K3 (fold and argset), K20 (set and hist), K23 and K5 at the
-skews their designs lean on, shared by the CPU parity tests (the twins against
+tiles, and of K3 (fold and argset), K20 (set and hist), K23, K5, K21 and
+K4 at the skews and edges their designs lean on, shared by the CPU parity tests (the twins against
 the reference's jax) and the card tests (the kernels against the twins).
 Numpy and torch only: the card's machine has no JAX."""
 
@@ -466,3 +466,122 @@ def sliced_skew(kind, store, rows, capacity, ring, width, seed=0):
 
 
 SLICED_SKEWS = ("hot_key", "warp_cell", "all_stale", "none_stale", "inactive", "overflow")
+
+
+# ------------------------------------------------------------ K21
+#: doubles with the top-K traps: both zeros, NaN, the floor (-inf)
+TOPK_DOUBLES = np.array([-0.0, 0.0, np.nan, 1.5, -2.0, 7.25, -np.inf, 3.0])
+#: K21's batches: ``random`` (zipf slots, 3% at the dump slot, 5% holding
+#: the sentinel), ``no_dump`` (none at the dump slot or the sentinel: the
+#: dump row's merge reads a real slot), ``all_dump`` (every row at the dump
+#: slot), ``alone`` (every row alone in its slot: the dump row untouched),
+#: ``hot`` (half the rows on one slot, more than a block's group), ``runs``
+#: (three slots of repeated values: ±0.0 and NaN for doubles), ``k1`` and
+#: ``k256`` (the widths' edges)
+TOPK_KINDS = ("random", "no_dump", "all_dump", "alone", "hot", "runs", "k1", "k256")
+
+
+def topk_case(kind, dtype="int64", distinct=False, capacity=1 << 10, n=2048, seed=0):
+    """A top-K column (component 1 of ``comps``, component 0 its count) and
+    a batch of one of TOPK_KINDS, as numpy: ``(comps, state, vals,
+    slots)``; ``comps`` rows are (combine, dtype, init, width, mode)."""
+    rng = np.random.default_rng(seed)
+    K = {"k1": 1, "k256": 256}.get(kind, 3)
+    if kind == "k256":
+        capacity, n = min(capacity, 64), min(n, 1024)
+    sent = float("-inf") if dtype == "float64" else int(np.iinfo(dtype).min)
+    comps = [("add", "int32", 0, 1, ""), ("topk", dtype, sent, K, "distinct" if distinct else "")]
+    c1 = capacity + 1
+
+    def draw(m):
+        if dtype == "float64":
+            return TOPK_DOUBLES[rng.integers(0, TOPK_DOUBLES.size, m)]
+        hi = 100 if dtype == "int8" else 1000
+        return rng.integers(-hi, hi, m).astype(dtype)
+
+    col = np.sort(draw(c1 * K).reshape(c1, K), axis=1)[:, ::-1].copy()
+    col[np.arange(K)[None, :] >= rng.integers(0, K + 1, c1)[:, None]] = sent
+    slots = (rng.zipf(1.3, n) % capacity).astype(np.int32)
+    vals = draw(n)
+    if kind in ("random", "k1", "k256"):
+        slots[rng.random(n) < 0.03] = capacity
+        vals[rng.random(n) < 0.05] = sent
+    elif kind == "no_dump":
+        vals[vals == sent] = 1
+    elif kind == "all_dump":
+        slots[:] = capacity
+    elif kind == "alone":
+        n = min(n, capacity)
+        slots, vals = rng.permutation(capacity)[:n].astype(np.int32), vals[:n]
+        vals[vals == sent] = 1
+    elif kind == "hot":
+        slots[rng.random(n) < 0.5] = slots[0]
+    elif kind == "runs":
+        pool = np.array([-0.0, 0.0, np.nan, 1.5]) if dtype == "float64" else np.array([0, 1, 2])
+        vals = pool[rng.integers(0, pool.size, n)]
+        slots = rng.integers(0, 3, n).astype(np.int32)
+    return comps, {"a1": col.astype(dtype)}, vals.astype(dtype), slots
+
+
+# ------------------------------------------------------------ K4
+#: K4's edges: (component widths, which occupied slots expire, mode): every
+#: one, none, one (slot 37: one lane of one warp), half at random, runs of
+#: 1-40 consecutive slots; widths 1, 3 (rows shorter than 16 bytes), the
+#: slice ring's 102 and a vector's 1,000
+EVICT_CASES = {
+    "width1_all": ((1,), "all", "tumbling"),
+    "width1_one": ((1,), "one", "tumbling"),
+    "width3_runs": ((3, 1), "runs", "tumbling"),
+    "ring102_half": ((102,), "half", "sliced"),
+    "ring102_all": ((102,), "all", "sliced"),
+    "ring102_none": ((102,), "none", "sliced"),
+    "width1000_one": ((1000, 1), "one", "tumbling"),
+    "width1000_all": ((1000, 1), "all", "tumbling"),
+    "width1000_runs": ((1000, 1), "runs", "tumbling"),
+    "suppress_half": ((1, 3), "half", "suppress"),
+}
+#: each width's components: one of each element type
+_EVICT_TYPES = (("max", "int64", int(I64.min)), ("add", "float64", 0.0), ("min", "int32", 2**31 - 1),
+                ("add", "int8", -5))
+
+
+def evict_case(name, capacity=1 << 10, seed=0):
+    """A windowed store (HAVING verdicts, and born/emitted under suppress)
+    and the retention at one of EVICT_CASES' edges, as numpy: ``(comps,
+    state, retention, sliced, suppress)``; ``comps`` rows are (combine,
+    dtype, init, width).  An expiring slot starts at 0, a kept one at 9.5
+    h, the stream time is 10 h and the retention 1 h."""
+    widths, pattern, mode = EVICT_CASES[name]
+    rng = np.random.default_rng(seed)
+    c1 = capacity + 1
+    sliced = mode == "sliced"
+    comps = [(cb, dt, init, w) for w in widths for cb, dt, init in _EVICT_TYPES]
+    occ = rng.random(c1) < 0.8
+    occ[-1] = False
+    if pattern == "all":
+        exp = np.ones(c1, bool)
+    elif pattern == "none":
+        exp = np.zeros(c1, bool)
+    elif pattern == "one":
+        exp = np.arange(c1) == 37
+        occ[37] = True
+    elif pattern == "half":
+        exp = rng.random(c1) < 0.5
+    else:  # runs of 1-40 slots, expiring or not in turn
+        exp = np.repeat(np.arange(c1) % 2 == 0, rng.integers(1, 41, c1))[:c1]
+    start = np.where(exp, 0, 9 * HOUR + HOUR // 2).astype(np.int64)
+    st = {"occ": occ, "grave": ~occ & (rng.random(c1) < 0.1), "dirty": occ & (rng.random(c1) < 0.3),
+          "wstart": np.zeros(c1, np.int64) if sliced else start, "max_ts": np.array(10 * HOUR, np.int64),
+          "hpass": rng.random(c1) < 0.5}
+    if sliced:
+        ring = widths[0]
+        st["slast"] = start
+        st["slice_id"] = rng.integers(-1, 1000, (c1, ring)).astype(np.int64)
+    if mode == "suppress":
+        st["born"] = rng.integers(0, 1 << 40, c1).astype(np.int64)
+        st["emitted"] = rng.random(c1) < 0.2
+    for j, (_cb, dt, _init, w) in enumerate(comps):
+        shape = (c1,) if w == 1 else (c1, w)
+        st[f"a{j}"] = (rng.random(shape) * 100).astype(dt) if dt == "float64" else \
+            rng.integers(-100, 100, shape).astype(dt)
+    return comps, st, HOUR, sliced, mode == "suppress"
