@@ -21,23 +21,22 @@
 // emitted and hpass where kept, and each component's row (times the ring
 // when sliced: 8 + 56 bytes a ring cell at BASELINE #2's layout, ~6.5 KB a
 // slot; ~18 KB a slot of pv_vectors' width-K rows).  So a wide store's pass
-// is bound by the rows it writes, at the rate scattered rows of a few KB
-// are written.  One launch, of one of two kernels:
+// is bound by the rows it writes.  One launch, of one of two kernels:
 //   evict_kernel, a store without rows (one cell a slot in every column): a
 //     thread a slot, coalesced on the slot columns;
-//   evict_rows_kernel, a store with rows: one cooperative launch that
-//     lists the expired slots, then spreads their rows' cells over every
-//     thread of the grid (a warp stores 32 neighbouring cells), so that no
-//     thread or warp writes many rows while others idle.
-#include <cooperative_groups.h>
-
+//   evict_rows_kernel, a store with rows: a warp owns kSlots consecutive
+//     slots; each lane tests its slot and writes its flags and one-cell
+//     columns, and a ballot of the expired lanes cuts them into runs of
+//     consecutive slots, whose rows are one contiguous range per component:
+//     the whole warp stores each range with 16-byte stores of the init
+//     pattern (element stores at its unaligned ends), 512 bytes a warp
+//     store.  No thread writes a row alone.
 #include "common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kSlots = 2;  // the slots a warp tests, one a lane (more warps in flight)
 
 struct Comps {
   void* col[KSQL_MAX_COMPS];
@@ -46,6 +45,41 @@ struct Comps {
   int64_t width[KSQL_MAX_COMPS];      // cells per slot (ring or vector width)
   int64_t count;
 };
+
+__device__ __forceinline__ int64_t elem_size(int64_t dtype) {
+  return dtype == ksql::kInt32 ? 4 : dtype == ksql::kInt8 ? 1 : 8;
+}
+
+// Cells [first, first + cells) of `col` (elements of `dtype`) set to the
+// init bits by the whole warp: element stores up to the first 16-byte
+// boundary and after the last, 16-byte stores of the repeated pattern
+// between them.
+__device__ void fill_range(void* col, int64_t dtype, int64_t bits, int64_t first, int64_t cells,
+                           int lane) {
+  const int64_t es = elem_size(dtype);
+  char* const base = static_cast<char*>(col);
+  const uint64_t start = reinterpret_cast<uint64_t>(base) + static_cast<uint64_t>(first * es);
+  const uint64_t end = start + static_cast<uint64_t>(cells * es);
+  uint64_t a16 = (start + 15) & ~static_cast<uint64_t>(15);
+  if (a16 > end) a16 = end;
+  uint64_t e16 = end & ~static_cast<uint64_t>(15);
+  if (e16 < a16) e16 = a16;
+  const int64_t head = static_cast<int64_t>(a16 - start) / es;
+  for (int64_t p = lane; p < head; p += 32) ksql::store_init(col, first + p, dtype, bits);
+  uint64_t p8 = static_cast<uint64_t>(bits);
+  if (es == 4) {
+    p8 = (p8 & 0xffffffffull) * 0x0000000100000001ull;
+  } else if (es == 1) {
+    p8 = (p8 & 0xffull) * 0x0101010101010101ull;
+  }
+  const uint4 v = make_uint4(static_cast<unsigned>(p8), static_cast<unsigned>(p8 >> 32),
+                             static_cast<unsigned>(p8), static_cast<unsigned>(p8 >> 32));
+  for (uint64_t a = a16 + 16 * static_cast<uint64_t>(lane); a < e16; a += 16 * 32) {
+    *reinterpret_cast<uint4*>(a) = v;
+  }
+  const int64_t tail0 = first + static_cast<int64_t>(e16 - start) / es;
+  for (int64_t p = tail0 + lane; p < first + cells; p += 32) ksql::store_init(col, p, dtype, bits);
+}
 
 // Slot s expired: its flags and its cells of the one-cell components.
 __device__ __forceinline__ void expire_slot(const Comps& c, int64_t s, bool* occ, bool* grave, bool* dirty,
@@ -84,79 +118,46 @@ __global__ void __launch_bounds__(kThreads) evict_kernel(
   expire_slot(c, s, occ, grave, dirty, nullptr, 0, hpass, born, emitted);
 }
 
-// A store with rows, one cooperative launch: each thread tests slots (a
-// grid-stride scan, coalesced), writes an expired slot's flags and
-// one-cell columns and lists it (one atomicAdd a warp on list_ctrl[0]);
-// after the grid barrier every thread of the grid walks the cells of the
-// listed slots' rows, component after component, neighbouring threads on
-// neighbouring cells.  The last block out resets list_ctrl for the next
-// call.
+// A store with rows: a warp tests kSlots consecutive slots, one a lane,
+// and writes its expired slots' rows, a run of consecutive expired slots as
+// one range a component.
 __global__ void __launch_bounds__(kThreads) evict_rows_kernel(
     Comps c, bool* __restrict__ occ, bool* __restrict__ grave, bool* __restrict__ dirty,
     const int64_t* __restrict__ wstart, int64_t* __restrict__ slast,
     int64_t* __restrict__ slice_id, int64_t ring, const int64_t* __restrict__ max_ts,
     int64_t retention, int64_t slots, int64_t suppress, bool* __restrict__ hpass,
-    int64_t* __restrict__ born, bool* __restrict__ emitted, int32_t* __restrict__ list,
-    unsigned int* __restrict__ list_ctrl) {
-  cg::grid_group grid = cg::this_grid();
+    int64_t* __restrict__ born, bool* __restrict__ emitted) {
   const int lane = threadIdx.x & 31;
-  const unsigned lt = (1u << lane) - 1u;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  for (int64_t base = t0 - lane; base < slots; base += stride) {
-    const int64_t s = base + lane;
-    const bool expired = is_expired(s, slots, occ, dirty, wstart, slast, ring, max_ts, retention, suppress);
-    if (expired) expire_slot(c, s, occ, grave, dirty, slast, ring, hpass, born, emitted);
-    const unsigned mask = __ballot_sync(0xffffffffu, expired);
-    if (mask != 0u) {
-      unsigned int at = 0;
-      if (lane == 0) at = atomicAdd(list_ctrl, static_cast<unsigned int>(__popc(mask)));
-      at = __shfl_sync(0xffffffffu, at, 0);
-      if (expired) list[at + __popc(mask & lt)] = static_cast<int32_t>(s);
+  const int64_t warp0 = (static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + (threadIdx.x >> 5)) * kSlots;
+  const int64_t s = warp0 + lane;
+  const bool expired = lane < kSlots && is_expired(s, slots, occ, dirty, wstart, slast, ring, max_ts,
+                                                   retention, suppress);
+  const unsigned mask = __ballot_sync(0xffffffffu, expired);
+  if (mask == 0u) return;  // the whole warp
+  if (expired) expire_slot(c, s, occ, grave, dirty, slast, ring, hpass, born, emitted);
+  for (unsigned m = mask; m != 0u;) {
+    const int a = __ffs(m) - 1;
+    const unsigned rest = ~(m >> a);
+    const int len = rest == 0u ? 32 - a : __ffs(rest) - 1;
+    const int64_t first = warp0 + a;
+    if (ring > 0) fill_range(slice_id, ksql::kInt64, -1, first * ring, len * ring, lane);
+    for (int64_t j = 0; j < c.count; ++j) {
+      const int64_t w = c.width[j];
+      if (w > 1) fill_range(c.col[j], c.dtype[j], c.init_bits[j], first * w, len * w, lane);
     }
-  }
-  grid.sync();
-  const int64_t listed = __ldcg(list_ctrl);
-  for (int64_t j = ring > 0 ? -1 : 0; j < c.count; ++j) {  // -1: the slice_id ring
-    const int64_t w = j < 0 ? ring : c.width[j];
-    if (w == 1) continue;
-    void* col = j < 0 ? static_cast<void*>(slice_id) : c.col[j];
-    const int64_t dtype = j < 0 ? ksql::kInt64 : c.dtype[j];
-    const int64_t bits = j < 0 ? -1 : c.init_bits[j];
-    // cell e of the listed rows is (row e / w, column e % w); each thread
-    // steps by the grid's size, carrying the division
-    const int64_t dq = stride / w, dr = stride % w;
-    int64_t row = t0 / w, at = t0 % w;
-    for (; row < listed; row += dq, at += dr) {
-      if (at >= w) {
-        at -= w;
-        ++row;
-        if (row >= listed) break;
-      }
-      ksql::store_init(col, static_cast<int64_t>(__ldcg(list + row)) * w + at, dtype, bits);
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x == 0 && atomicAdd(list_ctrl + 1, 1u) == gridDim.x - 1) {
-    list_ctrl[0] = 0;  // every block read the count before its own atomicAdd
-    list_ctrl[1] = 0;
+    m = a + len >= 32 ? 0u : m & ~((1u << (a + len)) - 1u);
   }
 }
 
-// the cooperative grid's most blocks of evict_rows_kernel, per device
-int g_most[64];
-
 }  // namespace
 
-// list: capacity + 1 int32 of scratch; list_ctrl: 2 uint32, 0 between
-// calls (the kernel leaves them so).
 extern "C" int ksql_evict(const int64_t* comps, int64_t count, void* occ,
                           void* grave, void* dirty, const void* wstart,
                           void* slast, void* slice_id, int64_t ring,
                           const void* max_ts, int64_t retention,
                           int64_t capacity, int64_t suppress, void* hpass,
-                          void* born, void* emitted, void* list, void* list_ctrl, void* stream) {
-  if (count > KSQL_MAX_COMPS || capacity + 1 > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+                          void* born, void* emitted, void* stream) {
+  if (count > KSQL_MAX_COMPS) return static_cast<int>(cudaErrorInvalidValue);
   Comps c{};
   for (int64_t j = 0; j < count; ++j) {
     c.col[j] = reinterpret_cast<void*>(comps[4 * j]);
@@ -167,44 +168,19 @@ extern "C" int ksql_evict(const int64_t* comps, int64_t count, void* occ,
   c.count = count;
   bool rows = ring > 0;
   for (int64_t j = 0; j < count; ++j) rows = rows || c.width[j] > 1;
-  int64_t slots = capacity + 1;
+  const int64_t slots = capacity + 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bool* o = static_cast<bool*>(occ);
-  bool* g = static_cast<bool*>(grave);
-  bool* d = static_cast<bool*>(dirty);
-  const int64_t* ws = static_cast<const int64_t*>(wstart);
-  const int64_t* mt = static_cast<const int64_t*>(max_ts);
-  bool* hp = static_cast<bool*>(hpass);
-  int64_t* bo = static_cast<int64_t*>(born);
-  bool* em = static_cast<bool*>(emitted);
-  if (!rows) {
-    evict_kernel<<<ksql::blocks_for(slots, kThreads), kThreads, 0, st>>>(c, o, g, d, ws, mt, retention, slots,
-                                                                         suppress, hp, bo, em);
-    return static_cast<int>(cudaGetLastError());
+  if (rows) {
+    evict_rows_kernel<<<ksql::blocks_for(slots, kThreads / 32 * kSlots), kThreads, 0, st>>>(
+        c, static_cast<bool*>(occ), static_cast<bool*>(grave), static_cast<bool*>(dirty),
+        static_cast<const int64_t*>(wstart), static_cast<int64_t*>(slast), static_cast<int64_t*>(slice_id),
+        ring, static_cast<const int64_t*>(max_ts), retention, slots, suppress, static_cast<bool*>(hpass),
+        static_cast<int64_t*>(born), static_cast<bool*>(emitted));
+  } else {
+    evict_kernel<<<ksql::blocks_for(slots, kThreads), kThreads, 0, st>>>(
+        c, static_cast<bool*>(occ), static_cast<bool*>(grave), static_cast<bool*>(dirty),
+        static_cast<const int64_t*>(wstart), static_cast<const int64_t*>(max_ts), retention, slots, suppress,
+        static_cast<bool*>(hpass), static_cast<int64_t*>(born), static_cast<bool*>(emitted));
   }
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (g_most[dev] == 0) {
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, evict_rows_kernel, kThreads, 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    g_most[dev] = per_sm * sms;
-  }
-  int64_t* sl = static_cast<int64_t*>(slast);
-  int64_t* sid = static_cast<int64_t*>(slice_id);
-  int32_t* li = static_cast<int32_t*>(list);
-  unsigned int* lc = static_cast<unsigned int*>(list_ctrl);
-  const int64_t want = ksql::blocks_for(slots, kThreads);
-  const unsigned blocks = static_cast<unsigned>(want < g_most[dev] ? want : g_most[dev]);
-  void* params[] = {&c, &o, &g, &d, &ws, &sl, &sid, &ring, &mt, &retention, &slots, &suppress, &hp, &bo, &em,
-                    &li, &lc};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(evict_rows_kernel), dim3(blocks), dim3(kThreads),
-                                    params, 0, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

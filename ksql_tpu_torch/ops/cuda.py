@@ -49,7 +49,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "ksql_fold_and_mark": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
         "ksql_fold_argset": [_P, _I, _P, _I, _I, _P, _P, _P],
     },
-    "evict": {"ksql_evict": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]},
+    "evict": {"ksql_evict": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P]},
     "sliced_fold": {"ksql_sliced_fold": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]},
     "combine_windows": {"ksql_combine_windows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "member_lanes": {"ksql_member_lanes": [

@@ -878,7 +878,6 @@ def evict(store: Dict[str, torch.Tensor], layout: StoreLayout, retention_ms: int
         col = store[f"a{j}"]
         _expect(col, _DTYPES[comp.dtype], (c1,) if comp.width == 1 else (c1, comp.width))
         desc += [col.data_ptr(), _DTYPE_CODES[comp.dtype], init_bits(comp), comp.width]
-    expired, ctrl = _evict_scratch(occ.device, c1)
     fn = cuda.lib("evict")
     cuda.check("evict", fn(
         cuda.host_i64(desc), len(layout.components), occ.data_ptr(),
@@ -890,24 +889,10 @@ def evict(store: Dict[str, torch.Tensor], layout: StoreLayout, retention_ms: int
         None if hpass is None else hpass.data_ptr(),
         None if born is None else born.data_ptr(),
         None if emitted is None else emitted.data_ptr(),
-        expired.data_ptr(), ctrl.data_ptr(), _stream(occ.device),
+        _stream(occ.device),
     ))
     evict.launches += 1
     evict.mode_launches["suppress" if suppress else "sliced" if sliced else "tumbling"] += 1
-
-
-#: K4's scratch per (device, capacity + 1): the list of expired slots a
-#: store with rows fills, and its count and done count (0 between calls:
-#: the kernel leaves them so)
-_EVICT_SCRATCH: Dict[tuple, tuple] = {}
-
-
-def _evict_scratch(dev: torch.device, c1: int):
-    key = (str(dev), c1)
-    if key not in _EVICT_SCRATCH:
-        _EVICT_SCRATCH[key] = (torch.empty(c1, dtype=torch.int32, device=dev),
-                               torch.zeros(2, dtype=torch.int32, device=dev))
-    return _EVICT_SCRATCH[key]
 
 
 evict.launches = 0

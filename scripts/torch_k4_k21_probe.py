@@ -7,11 +7,10 @@ torch.profiler, call ms from CUDA events) at the shapes of
 ``scripts/torch_slice_times.py``'s ``k4`` and ``k21`` groups:
 
 * K4 at phase 2h's sliced store, phase 2v's width-K store and the
-  flagship's tumbling store: ``kept`` (256-thread blocks, a grid of the
-  card's resident blocks at most), 128- and 512-thread blocks, a quarter
-  of the grid (the rows' cells over fewer threads); beside them a
-  ``fill_`` of a buffer of the bytes the pass writes, the rate a
-  contiguous write reaches;
+  flagship's tumbling store: ``kept`` (a warp tests 2 slots), 32, 16, 8, 4
+  and 1 slots a warp (fewer or more warps, each writing more or fewer rows),
+  ``element stores`` (no 16-byte stores); beside them a ``fill_`` of a
+  buffer of the bytes the pass writes, the rate a contiguous write reaches;
 * K21 at phase 2v's batch and its ``alone`` skew, each mode: ``kept``
   (a block for every 32 rows, groups of more than 64 rows a block's),
   ``a block for every 8``, ``64`` and ``128 rows`` (the grid's size
@@ -38,13 +37,17 @@ import numpy as np
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-_WANT = "  const int64_t want = ksql::blocks_for(slots, kThreads);\n"
+_SLOTS = "constexpr int kSlots = 2;"
+_BODY = "  uint64_t a16 = (start + 15) & ~static_cast<uint64_t>(15);\n"
 #: (name, text edits of csrc/evict.cu)
 K4_VARIANTS = [
     ("kept", []),
-    ("128-thread blocks", [("constexpr int kThreads = 256;", "constexpr int kThreads = 128;")]),
-    ("512-thread blocks", [("constexpr int kThreads = 256;", "constexpr int kThreads = 512;")]),
-    ("a quarter of the grid", [(_WANT, "  const int64_t want = ksql::blocks_for(slots, kThreads) / 4 + 1;\n")]),
+    ("32 slots a warp", [(_SLOTS, "constexpr int kSlots = 32;")]),
+    ("16 slots a warp", [(_SLOTS, "constexpr int kSlots = 16;")]),
+    ("8 slots a warp", [(_SLOTS, "constexpr int kSlots = 8;")]),
+    ("4 slots a warp", [(_SLOTS, "constexpr int kSlots = 4;")]),
+    ("1 slot a warp", [(_SLOTS, "constexpr int kSlots = 1;")]),
+    ("element stores", [(_BODY, "  uint64_t a16 = end;\n")]),
 ]
 _BLOCKS = "  const int64_t want = (n + 31) / 32;\n"
 #: (name, text edits of csrc/vec_topk.cu)
@@ -82,11 +85,8 @@ def k4_cases(cs, torch, seed):
     layout, st, _rows = cs.make_sliced_case(hs, rng, cs.HOP_STORE, cs.HOP_RING, n)
     store = state_from_numpy(st, dev)
     retention = 25 * cs.HOUR_MS
-    slast = store["slast"][store["occ"]]
-    store["max_ts"].fill_(int(slast.median()) + retention)
-    none = {k: v.clone() for k, v in store.items()}
-    none["max_ts"].fill_(int(slast.min()) + retention)
-    out = [("sliced 2h", layout, store, retention, True), ("sliced none expired", layout, none, retention, True)]
+    store["max_ts"].fill_(int(store["slast"][store["occ"]].median()) + retention)
+    out = [("sliced 2h", layout, store, retention, True)]
     c = cs.make_vector_case(torch, np.random.default_rng(seed + 17), dev)
     out.append(("tumbling 2v width-K", c["layout"], cs.width_k_evict_case(torch, c, np.random.default_rng(seed + 18)),
                 cs.HOUR_MS, False))
