@@ -477,8 +477,9 @@ TOPK_DOUBLES = np.array([-0.0, 0.0, np.nan, 1.5, -2.0, 7.25, -np.inf, 3.0])
 #: slot), ``alone`` (every row alone in its slot: the dump row untouched),
 #: ``hot`` (half the rows on one slot, more than a block's group), ``runs``
 #: (three slots of repeated values: ±0.0 and NaN for doubles), ``k1`` and
-#: ``k256`` (the widths' edges)
-TOPK_KINDS = ("random", "no_dump", "all_dump", "alone", "hot", "runs", "k1", "k256")
+#: ``k256`` (the widths' edges), ``large`` (65,536 rows into 2^14 slots:
+#: more rows than the kernel's grid has threads)
+TOPK_KINDS = ("random", "no_dump", "all_dump", "alone", "hot", "runs", "k1", "k256", "large")
 
 
 def topk_case(kind, dtype="int64", distinct=False, capacity=1 << 10, n=2048, seed=0):
@@ -489,6 +490,8 @@ def topk_case(kind, dtype="int64", distinct=False, capacity=1 << 10, n=2048, see
     K = {"k1": 1, "k256": 256}.get(kind, 3)
     if kind == "k256":
         capacity, n = min(capacity, 64), min(n, 1024)
+    elif kind == "large":
+        capacity, n = max(capacity, 1 << 14), max(n, 1 << 16)
     sent = float("-inf") if dtype == "float64" else int(np.iinfo(dtype).min)
     comps = [("add", "int32", 0, 1, ""), ("topk", dtype, sent, K, "distinct" if distinct else "")]
     c1 = capacity + 1
@@ -503,7 +506,7 @@ def topk_case(kind, dtype="int64", distinct=False, capacity=1 << 10, n=2048, see
     col[np.arange(K)[None, :] >= rng.integers(0, K + 1, c1)[:, None]] = sent
     slots = (rng.zipf(1.3, n) % capacity).astype(np.int32)
     vals = draw(n)
-    if kind in ("random", "k1", "k256"):
+    if kind in ("random", "k1", "k256", "large"):
         slots[rng.random(n) < 0.03] = capacity
         vals[rng.random(n) < 0.05] = sent
     elif kind == "no_dump":
