@@ -126,9 +126,9 @@ Phases, in this order; any failure exits non-zero and prints no result:
    K19 having_verdict and K4's suppress mode; then K17 and K18 at the
    shapes the main paths give them: phase 12h's (16,384 rows, 15 min
    advance, 65,536 k = 4 lanes) and phase 12g's (2^20 rows, tumbling); all
-   exact.  K17's yardstick: two torch.cummax calls over the masked lanes
-   and rows (the running maxima alone); no single PyTorch call computes
-   the others.
+   exact, K18 one kernel record a call at each shape.  K17's yardstick:
+   two torch.cummax calls over the masked lanes and rows (the running
+   maxima alone); no single PyTorch call computes the others.
 12. BASELINE #1 with EMIT FINAL (``ksql_tpu_torch/plans/pv_counts_final.json``,
    no grace) through ``run_plan`` over phase 3's traffic at 16 batches, then
    ``flush_time(last ts + 1 h)``: the sink must equal a numpy model of the
@@ -271,8 +271,9 @@ Phases, in this order; any failure exits non-zero and prints no result:
    ``<>``, [NOT] BETWEEN, [NOT] IN, a division by a column with zeros, and
    the CAST and CASE families: a double truncated to INT, a BIGINT to
    DECIMAL(4, 1), a TIMESTAMP floored to its DATE; searched CASE with and
-   without ELSE over mixed numeric results) at 64 lanes x 4,096 rows each.
-   No single PyTorch call computes it: no yardstick.
+   without ELSE over mixed numeric results) at 64 lanes x 4,096 rows each;
+   one kernel record a call where timed.  No single PyTorch call computes
+   it: no yardstick.
 20. Standalone fan-out, BASELINE config 8 (bench.py:881-1020) at its full
    size: one shared pipeline over PAGE_VIEWS (the identity plan per record,
    ``capacity=1``) through ``start_push_registry``; 256 ``USER_ID % 256 = i``
@@ -426,14 +427,14 @@ KERNEL_FUNCS = {
     "session_merge": ("permute_kernel", "merge_kernel"),
     "session_write": ("delete_kernel", "write_kernel"),
     "suppress_clock": ("clock_kernel",),
-    "suppress_close": ("born_kernel", "close_kernel"),
+    "suppress_close": ("close_slots_kernel",),
     "having_verdict": ("verdict_kernel", "dump_kernel"),
     "vec_collect": ("collect_keys_kernel", "collect_member_kernel", "collect_place_kernel"),
     "vec_topk": ("topk_kernel",),
     "vec_hist": ("hist_count_kernel",),
     "vec_remove": ("remove_kernel",),
     "fk_fanout": ("fanout_kernel",),
-    "tap_residual": ("lanes_kernel", "clip_kernel"),
+    "tap_residual": ("tap_tile_kernel",),
 }
 
 
@@ -3168,10 +3169,12 @@ def _check_suppress_clock(torch, c, mode, grace):
     return got, rec, f"{n} rows, {lanes} lanes, {cut} late lanes cut"
 
 
-def _check_suppress_close(torch, c, slots, active, cm_emit, grace):
+def _check_suppress_close(torch, c, slots, active, cm_emit, grace, per_call=1):
     """K18 on ``c``'s store for the lanes ``slots``/``active`` and K17's
     ``cm_emit`` against its twin, exact; returns the store after it, its
-    measure record, what it saw and how many candidates keep waiting."""
+    measure record (whose trace must hold ``per_call`` kernel records a
+    call; None: counted from a fenced call), what it saw and how many
+    candidates keep waiting."""
     from ksql_tpu_torch.ops import suppress as sup
 
     s0, layout = _clone(c["store"]), c["layout"]
@@ -3198,7 +3201,7 @@ def _check_suppress_close(torch, c, slots, active, cm_emit, grace):
         lambda: sup.suppress_close_plain(work, *args),
         lanes * (4 + 1) + touched * 16 + (capacity + 1) * (3 + 1) + n * 8 + n_cand * 8
         + n_emit * 2 + n_evict * (3 + 8 + ncomp_b), (capacity + 1) * 4 + n_cand * 17 * 3,
-        reset=lambda: _restore(work, s0))
+        reset=lambda: _restore(work, s0), per_call=per_call)
     return sk, rec, (f"{lanes} lanes, {capacity + 1} slots, {n_cand} candidates: {n_emit} emit, "
                      f"{n_evict} evicted"), n_cand - n_emit - n_evict
 
@@ -6022,8 +6025,10 @@ def phase_tap_kernels(torch, seed):
         prog, matched = _check_tap(torch, tr, group, args, f"tap_residual[{lanes}x{rows}]")
         require(matched > 0, f"2p: no row matched at {lanes} x {rows}")
         nbytes, ops = _tap_bytes_ops(prog, args)
+        # one kernel record a call (no memset, no second launch)
         rec = measure(torch, "tap_residual", lambda: tr.lane_masks(prog, *args),
-                      lambda: tr.lane_masks_plain(prog.spec, prog.col_types, *args), nbytes, ops)
+                      lambda: tr.lane_masks_plain(prog.spec, prog.col_types, *args), nbytes, ops,
+                      per_call=1)
         rec.update(max_abs_err=0.0, lanes=lanes, rows=rows, matched=matched, n_instr=prog.n_instr)
         recs[f"{lanes}x{rows}"] = rec
         _report("2p", f"tap_residual[{lanes} lanes x {rows} rows, {prog.n_instr} instructions, "

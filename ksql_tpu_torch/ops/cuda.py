@@ -99,7 +99,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "suppress_clock": {"ksql_suppress_clock": [
         _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P]},
     "suppress_close": {"ksql_suppress_close": [
-        _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P]},
+        _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P]},
     "having_verdict": {"ksql_having_verdict": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P]},
     "vec_collect": {
         "ksql_vec_collect_keys": [_I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
@@ -115,7 +115,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "fk_fanout": {"ksql_fk_fanout": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P]},
     "tap_residual": {"ksql_tap_residual": [
-        _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P]},
+        _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P]},
 }
 KERNELS = tuple(SIGNATURES)
 

@@ -21,7 +21,7 @@ Three hand-written CUDA kernels (``csrc/``):
   emission clock over the raw rows.
 * K18 ``suppress_close``: the ``born`` scatter-min, then per slot the close
   decision (emit, evict or wait) and its state updates, the emission mask
-  and the two clocks.
+  and the two clocks, in one launch.
 * K19 ``having_verdict``: per emission lane, the retraction tombstone, the
   new mask and the slot's verdict.
 
@@ -183,7 +183,13 @@ def suppress_close(store: Dict[str, torch.Tensor], layout: StoreLayout, slots: t
     ``emit_clock`` advances to ``cm_emit[-1]`` and ``row_clock`` by the lane
     count.  ``cm_emit`` is K17's, already non-decreasing (the twin sorts it
     as the reference does; the kernel does not need to).  Returns the
-    ``[capacity + 1]`` mask of the slots that emit."""
+    ``[capacity + 1]`` mask of the slots that emit.  One cooperative launch:
+    the born scatter (one atomic a warp's group of lanes on a slot; a
+    group of several reads born first and skips the atomic where born
+    already holds a smaller order), a grid barrier, then the
+    close pass (16 slots a lane as 16-byte vectors, each warp's candidates
+    shared out among its lanes, the search through a sample of ``cm_emit``
+    in shared memory)."""
     occ = store["occ"]
     if not occ.is_cuda:
         return suppress_close_plain(store, layout, slots, active, cm_emit, size_ms, grace_ms,
@@ -204,7 +210,11 @@ def suppress_close(store: Dict[str, torch.Tensor], layout: StoreLayout, slots: t
         col = store[f"a{j}"]
         _expect(col, _DTYPES[comp.dtype], (c1,))
         desc += [col.data_ptr(), _DTYPE_CODES[comp.dtype], init_bits(comp)]
-    emit_now = torch.empty(c1, dtype=torch.bool, device=occ.device)
+    dev = occ.device
+    emit_now = torch.empty(c1, dtype=torch.bool, device=dev)
+    sample = suppress_close.scratch.get(dev)
+    if sample is None:
+        sample = suppress_close.scratch[dev] = torch.empty(CLOSE_SAMPLE_WORDS, dtype=torch.int64, device=dev)
     fn = cuda.lib("suppress_close")
     cuda.check("suppress_close", fn(
         cuda.host_i64(desc), len(layout.components), slots.data_ptr(), active.data_ptr(), lanes,
@@ -212,13 +222,19 @@ def suppress_close(store: Dict[str, torch.Tensor], layout: StoreLayout, slots: t
         store["emitted"].data_ptr(), store["born"].data_ptr(), store["wstart"].data_ptr(),
         cm_emit.data_ptr(), n, int(size_ms), int(grace_ms), int(retention_ms),
         store["emit_clock"].data_ptr(), store["row_clock"].data_ptr(), emit_now.data_ptr(),
-        layout.capacity, _stream(occ.device),
+        layout.capacity, sample.data_ptr(), CLOSE_SAMPLE_WORDS, _stream(dev),
     ))
     suppress_close.launches += 1
     return emit_now
 
 
 suppress_close.launches = 0
+#: the words of K18's sample scratch (csrc/suppress_close.cu's kSample, or
+#: more; the kernel refuses less)
+CLOSE_SAMPLE_WORDS = 8192
+#: per device, the sample of cm_emit the born phase writes and the close
+#: phase reads (no state between calls)
+suppress_close.scratch = {}
 
 
 # ------------------------------------------------------ K19: having_verdict

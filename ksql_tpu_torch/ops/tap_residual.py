@@ -144,10 +144,18 @@ class Program:
     code: np.ndarray
     max_depth: int
     col_dts: Tuple[int, ...]
+    _host_code: Any = dataclasses.field(default=None, init=False, repr=False, compare=False)
 
     @property
     def n_instr(self) -> int:
         return int(self.code.shape[0])
+
+    def host_code(self):
+        """``code`` as the ctypes int64 array K25's entry point takes, built
+        once per program."""
+        if self._host_code is None:
+            self._host_code = cuda.host_i64(self.code.reshape(-1).tolist())
+        return self._host_code
 
 
 class _Builder:
@@ -504,10 +512,12 @@ def lane_masks(prog: Program, datas, valids, P_i, P_f, active, row_valid, limits
     (lanes, n_f) float64 the lanes' parameters; ``active`` (lanes,) bool;
     ``row_valid`` (rows,) bool; ``limits`` (lanes,) int64.  Returns
     ``(masks, counts)``: (lanes, rows) bool and (lanes,) int64, ``counts``
-    clipped by ``limits``.  One thread per (lane, row), rows along
-    ``threadIdx.x``; each interprets the program over a register/local
-    value stack; per warp a ballot and popcount add to the lane's count,
-    then a second launch clips the counts."""
+    clipped by ``limits``.  One launch: a block takes a tile of 512 rows
+    and a group of lanes, stages the tile's columns and the lanes'
+    parameters in shared memory, and each thread interprets the program
+    over 4 rows with the top of its stack in registers; the lanes' counts
+    meet in the per-device scratch (``lane_masks.scratch``: two words a
+    lane, 0 between calls), where the lane's last block clips them."""
     if not datas[0].is_cuda:
         return lane_masks_plain(prog.spec, prog.col_types, datas, valids, P_i, P_f, active,
                                 row_valid, limits)
@@ -529,19 +539,31 @@ def lane_masks(prog: Program, datas, valids, P_i, P_f, active, row_valid, limits
             raise ValueError(f"K25 argument: expected contiguous {dtype}{list(shape)} on the card, "
                              f"got {t.dtype}{list(t.shape)}")
     masks = torch.empty((lanes, n), dtype=torch.bool, device=dev)
-    counts = torch.zeros(lanes, dtype=torch.int64, device=dev)
+    counts = torch.empty(lanes, dtype=torch.int64, device=dev)
+    if lanes == 0:
+        return masks, counts
+    scratch = lane_masks.scratch.get(dev)
+    if scratch is None or scratch.shape[0] < 2 * lanes:
+        scratch = lane_masks.scratch[dev] = torch.zeros(2 * lanes, dtype=torch.int64, device=dev)
     fn = cuda.lib("tap_residual")
-    cuda.check("tap_residual", fn(
-        cuda.host_i64(prog.code.reshape(-1).tolist()), prog.n_instr, cuda.host_i64(cols), len(datas),
+    code = fn(
+        prog.host_code(), prog.n_instr, cuda.host_i64(cols), len(datas),
         P_i.data_ptr(), P_i.shape[1], P_f.data_ptr(), P_f.shape[1], active.data_ptr(),
         row_valid.data_ptr(), n, lanes, limits.data_ptr(), masks.data_ptr(), counts.data_ptr(),
-        _stream(dev),
-    ))
+        scratch.data_ptr(), _stream(dev),
+    )
+    if code != 0:  # the launch may not have left the scratch at 0
+        del lane_masks.scratch[dev]
+    cuda.check("tap_residual", code)
     lane_masks.launches += 1
     return masks, counts
 
 
 lane_masks.launches = 0
+#: per device, the lanes' count accumulators and tickets (int64, two words
+#: a lane, grown to the widest family; 0 between calls: the kernel's last
+#: block of each lane resets its words)
+lane_masks.scratch = {}
 # named by its kernel's source (``csrc/tap_residual.cu``), as the other
 # wrappers are: the chip check's launch records key on the name
 lane_masks.__name__ = "tap_residual"

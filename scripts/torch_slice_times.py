@@ -58,8 +58,15 @@ Groups (``--groups``, all by default):
   (2^20 + 1 slots, before K2's inserts) and over phase 2v's vector store
   (a quarter of its filled slots expired, ~18 KB of width-K rows a slot),
   its suppress mode at phase 2f's store.
+* ``k25``: K25 at phase 2p's 256 lanes x 4,096 rows and 4,096 x 8,192 of
+  the ``USER_ID % N = i`` family and at its cast (20 instructions) and
+  case (27) corpus families (64 x 4,096), with an earlier tree's
+  ``torch.zeros`` of the counts and the wrapper's host time a call.
+* ``k18``: K18 at phase 2f's three shapes: phase 12's 65,536 lanes over
+  2^20 + 1 slots, 12h's 65,536 k = 4 lanes and 12g's 2^20 lanes, with the
+  wrapper's host time a call.
 
-The ``k3``, ``k20``, ``k23``, ``k5`` and ``k21`` groups also time each
+The ``k3``, ``k20``, ``k23``, ``k5``, ``k21``, ``k25`` and ``k18`` groups also time each
 CUDA function of a call apart (K20's, K21's and K23's with the K13 sorts
 they make).
 
@@ -80,8 +87,8 @@ import sys
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: the kernel functions of K3's, K5's, K10's, K13's, K16's, K20's, K21's,
-#: K23's and K24's earlier designs beside this tree's, so that the profiler finds an
+#: the kernel functions of K3's, K5's, K10's, K13's, K16's, K18's, K20's,
+#: K21's, K23's, K24's and K25's earlier designs beside this tree's, so that the profiler finds an
 #: earlier tree's
 EARLIER_FUNCS = {
     "fold_and_mark": ("fold_mark_kernel", "argset_kernel", "fold_kernel", "winners_kernel", "argset_dump_kernel"),
@@ -98,6 +105,8 @@ EARLIER_FUNCS = {
     "evict": ("evict_kernel", "evict_rows_kernel"),
     "vec_topk": ("topk_kernel", "topk_keys_kernel", "topk_dedup_kernel", "topk_gather_kernel",
                  "topk_pstar_kernel", "topk_top_kernel", "topk_dump_kernel"),
+    "suppress_close": ("close_slots_kernel", "born_kernel", "close_kernel"),
+    "tap_residual": ("tap_tile_kernel", "lanes_kernel", "clip_kernel"),
 }
 #: K10's sweep: (ring entries before the dump entry, live share; None:
 #: the case's own)
@@ -702,12 +711,96 @@ def k4_shapes(cs, torch, seed):
     return out
 
 
+def k25_shapes(cs, torch, seed):
+    """K25 at phase 2p's shapes (``cs.make_tap_case`` over the ``USER_ID %
+    N = i`` family: 256 lanes x 4,096 rows and 4,096 x 8,192) and at its
+    cast (20 instructions) and case (27) corpus families (64 lanes x 4,096
+    rows); each against its twin, each CUDA function of a call apart (an
+    earlier tree's ``torch.zeros`` of the counts among them), and the
+    wrapper's host time a call.  Returns ``[(kernel, shape, record,
+    what)]``."""
+    from ksql_tpu_torch.ops import tap_residual as tr
+
+    dev = torch.device(cs.DEVICE)
+    rng = np.random.default_rng(seed + 60)
+    cs.KERNEL_FUNCS["tap_call"] = cs.KERNEL_FUNCS["tap_residual"] + ("FillFunctor", "Memset")
+    cases = [(f"{lanes}x{rows}", cs.mod_plans(lanes), lanes, rows)
+             for lanes, rows in ((cs.TAP_LANES, cs.TAP_ROWS), (cs.TAP_MAX_LANES, cs.TAP_MAX_ROWS))]
+    corpus = cs.corpus_plans()
+    cases += [(name, corpus[name], cs.TAP_CORPUS_LANES, cs.TAP_ROWS) for name in ("cast", "case")]
+    out = []
+    for shape, plans, lanes, rows in cases:
+        group = cs.tap_group(torch, plans, lanes)
+        args = cs.make_tap_case(torch, rng, dev, group, rows)
+        prog, matched = cs._check_tap(torch, tr, group, args, f"tap_residual[{shape}]")
+        nbytes, ops = cs._tap_bytes_ops(prog, args)
+
+        def call(prog=prog, args=args):
+            tr.lane_masks(prog, *args)
+
+        rec = cs.measure(torch, "tap_residual", call,
+                         lambda prog=prog, args=args: tr.lane_masks_plain(prog.spec, prog.col_types, *args),
+                         nbytes, ops, plain_reps=5)
+        parts = _parts(cs, torch, ["tap_call"], call)
+        whole = cs.kernel_device_ms(torch, "tap_call", call)
+        host = _host_ms(torch, call)
+        out.append(("tap_residual", shape, dict(rec, parts=parts, host_ms=host, call_device_ms=whole),
+                    _what_parts(f"{lanes} lanes x {rows} rows, {prog.n_instr} instructions, stack "
+                                f"{prog.max_depth}, {matched} matches; the call's device work {whole:.4f} ms; "
+                                f"wrapper host {host:.4f} ms a call", parts)))
+    return out
+
+
+def k18_shapes(cs, torch, seed):
+    """K18 at the shapes phase 2f checks it at: phase 12's (65,536 tumbling
+    lanes over a 2^20 + 1-slot store, ``cs.make_suppress_case``), 12h's
+    (16,384 rows as 65,536 k = 4 lanes) and 12g's (2^20 lanes); the
+    emission clock and the lanes' cut from K17's twin.  Each against its
+    twin (``cs._check_suppress_close``), each CUDA function of a call
+    apart, and the wrapper's host time a call.  Returns ``[(kernel, shape,
+    record, what)]``."""
+    from ksql_tpu_torch.ops import suppress as sup
+
+    dev = torch.device(cs.DEVICE)
+    grace = cs.FINAL_GRACE_MS
+    out = []
+    for tag, rows, mode, seed_off, advance in (("12", cs.N_ROWS, "tumbling", 11, cs.FINAL_ADVANCE_MS),
+                                              ("12h", cs.HOP_ROWS, "expansion", 12, cs.HOP_ADVANCE_MS),
+                                              ("12g", cs.FINAL_GROW_ROWS, "tumbling", 12, cs.HOP_ADVANCE_MS)):
+        c = cs.make_suppress_case(torch, np.random.default_rng(seed + seed_off), dev, rows, cs.STORE,
+                                  advance=advance)
+        ws, act = (c["tws"], c["act_rows"]) if mode == "tumbling" else (c["hws"], c["hact"])
+        st = c["store"]
+        lanes_act, _c0, cm_emit = sup.suppress_clock_plain(c["ts"], ws, act, c["row_valid"], st["max_ts"],
+                                                           st["emit_clock"], cs.HOUR_MS, grace)
+        slots = c["slots"] if mode == "tumbling" else c["hop_slots"]
+        if tag == "12":  # phase 2f checks K18 on the rows' own activity
+            lanes_act = c["act_rows"]
+        # records a call counted from a fenced call: an earlier tree's K18 made two
+        _sk, rec, what, _w = cs._check_suppress_close(torch, c, slots, lanes_act, cm_emit, grace, per_call=None)
+        s0, work = cs._clone(st), cs._clone(st)
+        args = (c["layout"], slots, lanes_act, cm_emit, cs.HOUR_MS, grace, cs.FINAL_RETENTION_MS)
+
+        def call(work=work, args=args):
+            sup.suppress_close(work, *args)
+
+        def reset(work=work, s0=s0):
+            cs._restore(work, s0)
+
+        parts = _parts(cs, torch, ["suppress_close"], call, reset)
+        host = _host_ms(torch, call)
+        out.append(("suppress_close", tag, dict(rec, parts=parts, host_ms=host),
+                    _what_parts(f"{what}; wrapper host {host:.4f} ms a call", parts)))
+        del c, st, s0, work, _sk
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", nargs="?", default=HERE, help="the checkout whose package is timed")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--groups", default="k10,k13,k8k24,k17,k16,k3,k20,k23,k5,k21,k4",
-                    help="comma-separated: k10, k13, k8k24, k17, k16, k3, k20, k23, k5, k21, k4")
+    ap.add_argument("--groups", default="k10,k13,k8k24,k17,k16,k3,k20,k23,k5,k21,k4,k25,k18",
+                    help="comma-separated: k10, k13, k8k24, k17, k16, k3, k20, k23, k5, k21, k4, k25, k18")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -731,7 +824,7 @@ def main() -> int:
     records = []
     groups = {"k10": k10_shapes, "k13": k13_shapes, "k8k24": k8_k24_shapes, "k17": k17_shapes,
               "k16": k16_shapes, "k3": k3_shapes, "k20": k20_shapes, "k23": k23_shapes,
-              "k5": k5_shapes, "k21": k21_shapes, "k4": k4_shapes}
+              "k5": k5_shapes, "k21": k21_shapes, "k4": k4_shapes, "k25": k25_shapes, "k18": k18_shapes}
     shapes = []
     for g in args.groups.split(","):
         shapes += groups[g](cs, torch, args.seed)

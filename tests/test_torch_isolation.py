@@ -30,7 +30,7 @@ FORBIDDEN = ("jax", "jaxlib", "ksql_tpu")
 CARD_SIDE = ("scripts/torch_store_overflow.py", "scripts/torch_slice_times.py",
              "scripts/torch_k10_k13_probe.py", "scripts/torch_k8_warp_probe.py",
              "scripts/torch_k16_k17_probe.py", "scripts/torch_k3_probe.py", "scripts/torch_k5_probe.py",
-             "scripts/torch_k4_k21_probe.py",
+             "scripts/torch_k4_k21_probe.py", "scripts/torch_k18_k25_probe.py",
              "tests/torch_kernel_cases.py", "tests/test_torch_kernels_gpu.py")
 
 

@@ -34,10 +34,11 @@ from ksql_tpu_torch.ops import session as sess
 from ksql_tpu_torch.ops import slicing
 from ksql_tpu_torch.ops import ss_join as ssj
 from ksql_tpu_torch.ops import suppress as sup
-from torch_kernel_cases import (ARGSET_CASES, ARGSET_COMPONENTS, CLOCK_CASES, COLLECT_CASES, EVICT_CASES,
-                                FOLD_CASES, FOLD_COMPONENTS, REMOVE_CASES, SLICED_SKEWS, TOPK_KINDS, WRITE_CASES,
-                                argset_case, clock_case, collect_case, evict_case, fold_case, remove_case,
-                                sliced_skew, topk_case, write_case, write_torch)
+from torch_kernel_cases import (ARGSET_CASES, ARGSET_COMPONENTS, CLOCK_CASES, CLOSE_CASES, COLLECT_CASES,
+                                EVICT_CASES, FOLD_CASES, FOLD_COMPONENTS, REMOVE_CASES, SLICED_SKEWS, TAP_EDGES,
+                                TOPK_KINDS, WRITE_CASES, argset_case, clock_case, close_case, collect_case,
+                                evict_case, fold_case, remove_case, sliced_skew, tap_edge_case, tap_edge_plans,
+                                topk_case, write_case, write_torch)
 
 pytestmark = pytest.mark.gpu
 I64 = np.iinfo(np.int64)
@@ -1596,3 +1597,56 @@ def test_evict_is_one_launch_at_its_edges(dev, case):
     names = _records_per_call(lambda: hs.evict(sc, layout, retention, sliced=sliced, suppress=suppress))
     kernel = "evict_rows_kernel" if sliced or max(c[3] for c in comps) > 1 else "evict_kernel"
     assert len(names) == 1 and kernel in names[0], names
+
+
+# ---- K18 and K25 at their cases and edges (tests/torch_kernel_cases.py)
+@pytest.mark.parametrize("case", list(CLOSE_CASES))
+def test_suppress_close_is_one_launch_at_its_cases(dev, case):
+    # tolerance: exact (every slot's flags, born and component bits, the
+    # clocks, the emission mask); one close_slots_kernel record a call
+    comps, st, slots, active, cm, size, grace, retention = close_case(case)
+    capacity = st["occ"].shape[0] - 1
+    layout = hs.StoreLayout(capacity, 1, tuple(hs.AggComponent(c, d, i) for c, d, i in comps),
+                            windowed=True)
+    store = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in st.items()}
+    got_st, want_st, sc = ({k: v.clone() for k, v in store.items()} for _ in range(3))
+    args = (layout, torch.from_numpy(slots).to(dev), torch.from_numpy(active).to(dev),
+            torch.from_numpy(cm).to(dev), size, grace, retention)
+    before = sup.suppress_close.launches
+    got = sup.suppress_close(got_st, *args)
+    assert sup.suppress_close.launches == before + 1
+    _same(got, sup.suppress_close_plain(want_st, *args))
+    for k in store:
+        _same(_bits(got_st[k]), _bits(want_st[k]))
+    names = _records_per_call(lambda: sup.suppress_close(sc, *args))
+    assert len(names) == 1 and "close_slots_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("edge", list(TAP_EDGES))
+def test_tap_residual_is_one_launch_at_its_edges(dev, edge):
+    # tolerance: exact (masks and counts); one tap_tile_kernel record a
+    # call, the counts' scratch back to 0 after each call
+    from ksql_tpu_torch.common.batch import stable_hash64
+    from ksql_tpu_torch.ops import tap_residual as tr
+
+    plans = tap_edge_plans(edge)
+    group = chip_smoke.tap_group(torch, plans, len(plans))
+    columns, row_valid, limits, inactive = tap_edge_case(edge, stable_hash64, seed=len(edge))
+    for k in inactive:
+        group.remove(f"t{k}")
+    names = group.rep.col_names
+    P_i, P_f, active = group.device_params(dev)
+    args = ([torch.from_numpy(columns[c][0]).to(dev) for c in names],
+            [torch.from_numpy(columns[c][1]).to(dev) for c in names], P_i, P_f, active,
+            torch.from_numpy(row_valid).to(dev), torch.from_numpy(limits).to(dev))
+    prog = group.program()
+    want = tr.lane_masks_plain(prog.spec, prog.col_types, *args)
+    for _ in range(2):
+        before = tr.lane_masks.launches
+        got = tr.lane_masks(prog, *args)
+        assert tr.lane_masks.launches == before + 1
+        _same(got[0], want[0])
+        _same(got[1], want[1])
+        assert not any(sc.any() for sc in tr.lane_masks.scratch.values())
+    kernels = _records_per_call(lambda: tr.lane_masks(prog, *args))
+    assert len(kernels) == 1 and "tap_tile_kernel" in kernels[0], kernels

@@ -15,7 +15,9 @@ flush emit again; the expansion route's lanes, whose running maximum runs
 over the tiled lanes; the dump slot's ``born`` (overflowed lanes) and
 ``hpass`` (the highest lane aimed at it); K4's suppress mode on a store of
 every flag combination at the retention boundary.  Then the twins alone:
-K17's emission clock is non-decreasing, so K18's sort is the identity.
+K17's emission clock is non-decreasing, so K18's sort is the identity;
+K17's and K18's twins against the reference's lines written out in jax
+over ``tests/torch_kernel_cases.py``'s CLOCK_CASES and CLOSE_CASES.
 """
 
 import jax
@@ -36,7 +38,7 @@ from ksql_tpu.execution.steps import plan_to_json
 from ksql_tpu.runtime.lowering import CompiledDeviceQuery
 from tests.test_torch_lowering import (DDL, HOUR, _as_tuples, _capture, assert_same_lanes,
                                        assert_same_state, plan_for)
-from tests.torch_kernel_cases import CLOCK_CASES, clock_case
+from tests.torch_kernel_cases import CLOCK_CASES, CLOSE_CASES, clock_case, close_case
 
 jax.config.update("jax_enable_x64", True)
 I64 = np.iinfo(np.int64)
@@ -332,3 +334,76 @@ def test_suppress_clock_twin_equals_reference(case):
         assert not got[0].any() and bool((got[2] == args[5]).all())
     if kind in ("random", "wrap") and n > 1:
         assert cut > 0
+
+
+@jax.jit
+def _reference_close(st, comps_init, slots, active, cm_in, size, grace, retention):
+    """The suppress branch of the reference's ``post_exchange``
+    (``ksql_tpu/runtime/lowering.py:4003-4034``) written out in jax on
+    K18's inputs: ``st`` the store's flags, ``wstart``, ``born``, the
+    components (``a<j>``, their inits in ``comps_init``) and the two
+    clocks; ``slots`` are K2's, ``cm_in`` K17's emission clock."""
+    st = dict(st)
+    cap = st["occ"].shape[0] - 1
+    nn = active.shape[0]
+    slot_or_dump = jnp.where(active, slots, cap)
+    cm = jnp.sort(cm_in)
+    m = cm.shape[0]
+    ws = st["wstart"]
+    close = ws + size + grace
+    horizon = ws + retention
+    pos = jnp.searchsorted(cm, close)
+    t_first = cm[jnp.minimum(pos, m - 1)]
+    reachable = (pos < m) & (t_first <= horizon)
+    final_t = cm[m - 1]
+    st["emit_clock"] = jnp.maximum(st["emit_clock"], final_t)
+    order = st["row_clock"] + jnp.arange(nn, dtype=jnp.int64)
+    st["born"] = st["born"].at[slot_or_dump].min(jnp.where(active, order, np.iinfo(np.int64).max))
+    st["row_clock"] = st["row_clock"] + nn
+    cand = st["occ"] & st["dirty"] & ~st["emitted"]
+    emit_now = cand & reachable
+    evict_now = cand & (close <= final_t) & ~reachable
+    st["dirty"] = st["dirty"] & ~(emit_now | evict_now)
+    st["emitted"] = st["emitted"] | emit_now
+    st["occ"] = st["occ"] & ~evict_now
+    st["grave"] = st["grave"] | evict_now
+    st["born"] = jnp.where(evict_now, np.iinfo(np.int64).max, st["born"])
+    for j, init in enumerate(comps_init):
+        col = st[f"a{j}"]
+        st[f"a{j}"] = jnp.where(evict_now, init.astype(col.dtype), col)
+    return st, emit_now
+
+
+@pytest.mark.parametrize("case", list(CLOSE_CASES))
+def test_suppress_close_twin_equals_reference(case):
+    # tolerance: exact (every slot's flags, born and component bits, the
+    # clocks, the emission mask)
+    comps, st, slots, active, cm, size, grace, retention = close_case(case)
+    capacity = st["occ"].shape[0] - 1
+    layout = hs.StoreLayout(capacity, 1, tuple(hs.AggComponent(c, d, i) for c, d, i in comps),
+                            windowed=True)
+    store = {k: torch.from_numpy(np.array(v)) for k, v in st.items()}
+    got = sup.suppress_close(store, layout, torch.from_numpy(slots), torch.from_numpy(active),
+                             torch.from_numpy(cm), size, grace, retention)  # CPU tensors: the twin
+    want_st, want = _reference_close({k: jnp.asarray(v) for k, v in st.items()},
+                                     [jnp.asarray(np.array(i, d)) for _c, d, i in comps],
+                                     jnp.asarray(slots), jnp.asarray(active), jnp.asarray(cm),
+                                     jnp.int64(size), jnp.int64(grace), jnp.int64(retention))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg="suppress_emit")
+    for k, v in want_st.items():
+        g, w = store[k].numpy(), np.asarray(v)
+        if w.dtype == np.float64:
+            g, w = g.view(np.int64), w.view(np.int64)
+        np.testing.assert_array_equal(g, w, err_msg=k)
+    cand = st["occ"] & st["dirty"] & ~st["emitted"]
+    evicted = int((st["occ"] & ~store["occ"].numpy()).sum())
+    if case == "no_candidate":
+        assert not cand.any() and not got.any()
+    elif case == "all_emit":
+        assert int(got.sum()) == int(cand.sum()) > 0 and evicted == 0
+    elif case == "all_evict":
+        assert evicted == int(cand.sum()) > 0 and not got.any()
+    elif case == "close_on_cm":
+        assert got.any()
+    elif case == "on_horizon":
+        assert got.any() and evicted > 0

@@ -10,7 +10,9 @@ function over the same seeded columns (5-10% NULLs, NaN, +-0.0, +-inf,
 INT_MIN/INT_MAX, zero divisors, padding rows, inactive lanes, partial
 LIMIT budgets).  The masks and counts of ``lane_masks_plain`` and of the
 torch evaluator of ``build_program``'s program (``run_program``) must
-equal the reference's exactly: they are bool and int.
+equal the reference's exactly: they are bool and int.  Then K25's edges
+(``tests/torch_kernel_cases.py``'s TAP_EDGES) the same way, from plan
+JSONs that both packages decode.
 """
 
 import jax
@@ -32,6 +34,7 @@ from ksql_tpu_torch.execution.steps import plan_from_json
 from ksql_tpu_torch.ops import tap_residual as tr
 from ksql_tpu_torch.server import push_registry as preg
 from ksql_tpu_torch.server import tap_kernel as ptk
+from tests.torch_kernel_cases import TAP_EDGES, tap_edge_case, tap_edge_plans
 
 jax.config.update("jax_enable_x64", True)
 
@@ -395,3 +398,57 @@ def test_what_the_program_does_not_take_is_refused_with_its_reason(sql):
     with pytest.raises(ptk.ResidualUnsupported) as err:
         ptk.classify_residual(pchain[:-1], pchain[-1].schema)
     assert "FunctionCall" in str(err.value) or "fused residual" in str(err.value)
+
+
+@pytest.mark.parametrize("edge", list(TAP_EDGES))
+def test_tap_edges_twin_equals_reference(edge):
+    """K25's edges (``tests/torch_kernel_cases.py``: 1, 15, 17 and 4,097
+    rows, 1 and 4,096 lanes, every row invalid, inactive lanes, LIMIT
+    budgets of 0, partial and past the count, a program 16 deep, one of
+    128 instructions): both packages decode the same plan JSONs, pack the
+    family, and the twin, ``run_program`` and the wrapper (CPU tensors:
+    the twin) equal ``_trace_group``'s masks and counts exactly."""
+    from ksql_tpu.common.batch import stable_hash64 as rhash
+    from ksql_tpu.execution.steps import plan_from_json as rplan_from_json
+    from ksql_tpu.server.push_registry import residual_chain as rchain
+
+    plans = tap_edge_plans(edge)
+    lanes = len(plans)
+    columns, row_valid, limits, inactive = tap_edge_case(edge, rhash, seed=len(edge))
+    rgrp = pgrp = None
+    for k, pj in enumerate(plans):
+        rc, pc = rchain(rplan_from_json(pj)), preg.residual_chain(plan_from_json(pj))
+        rspec, pspec = _classify(rc, pc)
+        assert rspec != "refused" and pspec != "refused"
+        assert rspec.signature == pspec.signature
+        if rgrp is None:
+            rtypes = rtk._dummy_cols(rspec.col_names, {c.name: c.type for c in rc[-1].schema.columns()}, 1)[2]
+            ptypes = ptk._col_types(pspec.col_names, {c.name: c.type for c in pc[-1].schema.columns()})
+            rgrp = rtk._LaneGroup(rspec, rtypes, lanes)
+            pgrp = ptk._LaneGroup(pspec, ptypes, lanes)
+        assert rgrp.add(f"t{k}", rspec) and pgrp.add(f"t{k}", pspec)
+    for k in inactive:
+        rgrp.remove(f"t{k}")
+        pgrp.remove(f"t{k}")
+    prog = pgrp.program()
+    kind = TAP_EDGES[edge][0]
+    if kind == "depth16":
+        assert prog.max_depth == tr.MAX_DEPTH
+    if kind == "instr128":
+        assert prog.n_instr == tr.MAX_INSTR
+    names = pgrp.rep.col_names
+    rmasks, rcounts = rgrp.fn()(tuple(jnp.asarray(columns[c][0]) for c in names),
+                                tuple(jnp.asarray(columns[c][1]) for c in names), rgrp.P_i, rgrp.P_f,
+                                rgrp.active, jnp.asarray(row_valid), limits)
+    args = ([torch.from_numpy(columns[c][0]) for c in names], [torch.from_numpy(columns[c][1]) for c in names],
+            torch.from_numpy(pgrp.P_i), torch.from_numpy(pgrp.P_f), torch.from_numpy(pgrp.active),
+            torch.from_numpy(row_valid), torch.from_numpy(limits))
+    for pm, pcnt in (tr.lane_masks_plain(pgrp.rep, ptypes, *args), tr.run_program(prog, *args),
+                     tr.lane_masks(prog, *args)):
+        np.testing.assert_array_equal(pm.numpy(), np.asarray(rmasks))
+        np.testing.assert_array_equal(pcnt.numpy(), np.asarray(rcounts))
+    if TAP_EDGES[edge][3] is None:
+        assert np.asarray(rcounts).sum() > 0
+    if edge == "limits":
+        full = np.asarray(rmasks).sum(axis=1)
+        assert (np.asarray(rcounts) < full).any() and (np.asarray(rcounts) == full).any()

@@ -1,8 +1,13 @@
 """Inputs of K16's write mode and K17 at the edges of their kernels'
-tiles, and of K3 (fold and argset), K20 (set and hist), K23, K5, K21 and
-K4 at the skews and edges their designs lean on, shared by the CPU parity tests (the twins against
+tiles, and of K3 (fold and argset), K20 (set and hist), K23, K5, K21,
+K4, K18 and K25 at the skews and edges their designs lean on, shared by the CPU parity tests (the twins against
 the reference's jax) and the card tests (the kernels against the twins).
-Numpy and torch only: the card's machine has no JAX."""
+Numpy and torch only (K25's plans are JSON that both packages decode): the
+card's machine has no JAX."""
+
+import copy
+import json
+import os
 
 import numpy as np
 import torch
@@ -588,3 +593,248 @@ def evict_case(name, capacity=1 << 10, seed=0):
         st[f"a{j}"] = (rng.random(shape) * 100).astype(dt) if dt == "float64" else \
             rng.integers(-100, 100, shape).astype(dt)
     return comps, st, HOUR, sliced, mode == "suppress"
+
+
+# ------------------------------------------------------------ K18
+MIN = 60_000
+#: K18's cases: (lanes, capacity, kind).  One lane; no candidate; every
+#: candidate emitting; every one evicted; closes exactly on cm_emit values
+#: and first times exactly on (and one ms either side of) a horizon; a hot
+#: slot holding a quarter of the lanes; every lane at the dump slot; many
+#: overflowed lanes; mostly inactive lanes; int32, int64 and float64
+#: components; 17 and 9 slots (capacity + 1 is never a multiple of the
+#: kernel's 16-slot vectors: a whole vector and a tail, a tail alone) with
+#: candidates crowding both ends; orders that wrap past INT64_MAX within a
+#: warp; 2^20 lanes (phase 12g's batch)
+CLOSE_CASES = {
+    "n1": (1, 1 << 10, "random"),
+    "no_candidate": (3000, 1 << 12, "no_candidate"),
+    "all_emit": (3000, 1 << 12, "all_emit"),
+    "all_evict": (3000, 1 << 12, "all_evict"),
+    "close_on_cm": (3000, 1 << 12, "close_on_cm"),
+    "on_horizon": (3000, 1 << 12, "on_horizon"),
+    "hot_quarter": (5000, 1 << 12, "hot_quarter"),
+    "all_dump": (3000, 1 << 12, "all_dump"),
+    "overflowed": (3000, 1 << 12, "overflowed"),
+    "inactive": (3000, 1 << 12, "inactive"),
+    "dtypes": (3000, 1 << 12, "dtypes"),
+    "edges17": (2000, 16, "edges"),
+    "edges9": (700, 8, "edges"),
+    "order_wrap": (3000, 1 << 12, "order_wrap"),
+    "lanes_2_20": (1 << 20, 1 << 20, "random"),
+}
+_CLOSE_TYPES = (("max", "int64", int(I64.min)), ("add", "int64", 0))
+_CLOSE_DTYPES = (("add", "int32", 0), ("max", "int64", int(I64.min)), ("add", "float64", 0.0),
+                 ("min", "float64", float("inf")))
+
+
+def close_case(name, small=False, seed=0):
+    """K18's inputs at one of CLOSE_CASES, as numpy: ``(comps, state,
+    slots, active, cm_emit, size_ms, grace_ms, retention_ms)``; ``comps``
+    rows are (combine, dtype, init); ``state`` holds an EMIT FINAL store's
+    flags, ``wstart``, ``born``, the components and the two clocks.  1 h
+    windows, a 10 min grace and a 3 h horizon (phase 2f's); the batch's
+    stream times span 2 h from an hour boundary; 70% of the slots occupied,
+    40% of those dirty and 10% emitted; born below row_clock for about half
+    of them (the read first is final there); 10% of the lanes inactive and
+    10% of the rest at the dump slot.  ``small`` cuts 2^20 lanes and slots
+    to 2^12."""
+    n, capacity, kind = CLOSE_CASES[name]
+    if small:
+        n, capacity = min(n, 1 << 12), min(capacity, 1 << 12)
+    rng = np.random.default_rng(seed)
+    size, grace, retention = HOUR, 10 * MIN, 3 * HOUR
+    c1 = capacity + 1
+    t0 = 1_700_000_000_000 - 1_700_000_000_000 % HOUR + 5 * HOUR
+    cm = np.sort(t0 + rng.integers(0, 2 * HOUR, n))
+    occ = rng.random(c1) < 0.7
+    occ[-1] = False
+    dirty = occ & (rng.random(c1) < 0.4)
+    emitted = occ & (rng.random(c1) < 0.1)
+    wstart = t0 + rng.integers(-5, 3, c1) * HOUR
+    row_clock = 1 << 30
+    if kind == "no_candidate":
+        dirty[:] = False
+    elif kind == "all_emit":
+        wstart[:] = t0 - HOUR  # close t0 + 10 min, horizon t0 + 2 h: inside the batch
+    elif kind == "all_evict":
+        wstart[:] = t0 - 5 * HOUR  # closed and past its horizon before the batch
+    elif kind == "close_on_cm":
+        # closes exactly on emission times (inclusive), one ms after some
+        ws = t0 + rng.integers(-2, 1, c1) * HOUR
+        wstart = ws + rng.choice(np.array([0, 1, -1]), c1)
+        cm[::7] = ws[rng.integers(0, c1, cm[::7].size)] + size + grace
+        cm = np.sort(cm)
+    elif kind == "on_horizon":
+        # close t0 - 50 min; the first time at or past it is t0 + 1 h, the
+        # horizon of start t0 - 2 h (inclusive), one ms either side of it
+        wstart = t0 - 2 * HOUR + rng.choice(np.array([0, 1, -1]), c1)
+        cm = np.concatenate([np.full(n // 3, t0 - 2 * HOUR), np.full(n - n // 3, t0 + HOUR)])
+        cm[-1] += HOUR
+    elif kind == "edges":
+        occ[:-1] = dirty[:] = True
+        emitted[:] = False
+    elif kind == "order_wrap":
+        row_clock = int(I64.max) - 40  # lanes 41 on wrap to INT64_MIN
+    born = np.where(occ, rng.integers(0, 1 << 31, c1), I64.max).astype(np.int64)
+    comps = _CLOSE_DTYPES if kind == "dtypes" else _CLOSE_TYPES
+    live = np.nonzero(occ)[0]
+    slots = rng.choice(live, n).astype(np.int32)
+    active = rng.random(n) > 0.1
+    if kind == "hot_quarter":
+        hot = live[0]
+        born[hot] = I64.max
+        slots[rng.random(n) < 0.25] = hot
+    elif kind == "all_dump":
+        slots[:] = capacity
+        active[:] = True
+    elif kind == "overflowed":
+        slots[active & (rng.random(n) < 0.4)] = capacity
+    elif kind == "inactive":
+        active = rng.random(n) < 0.1
+    else:
+        slots[rng.random(n) < 0.1] = capacity
+    st = {"occ": occ, "grave": ~occ & (rng.random(c1) < 0.05), "dirty": dirty, "emitted": emitted,
+          "wstart": wstart.astype(np.int64), "born": born,
+          "emit_clock": np.array(t0 - MIN, np.int64), "row_clock": np.array(row_clock, np.int64)}
+    for j, (_cb, dt, init) in enumerate(comps):
+        vals = (rng.normal(size=c1) * 1e3).astype(dt) if dt == "float64" else \
+            rng.integers(-1000, 1000, c1).astype(dt)
+        st[f"a{j}"] = np.where(occ, vals, np.array(init, dt)).astype(dt)
+    return comps, st, slots, active, cm.astype(np.int64), size, grace, retention
+
+
+# ------------------------------------------------------------ K25
+_TAP_TEMPLATE = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, "ksql_tpu_torch",
+                             "plans", "tap_mod_page_views.json")
+TAP_NULLS = 0.05
+TAP_T0 = 1_700_000_000_000
+
+
+def _lit(v):
+    if isinstance(v, str):
+        return {"node": "StringLiteral", "fields": {"value": v}}
+    node = "IntegerLiteral" if -(1 << 31) <= v < (1 << 31) else "LongLiteral"
+    return {"node": node, "fields": {"value": int(v)}}
+
+
+def _long(v):
+    return {"node": "LongLiteral", "fields": {"value": int(v)}}
+
+
+def _col(name):
+    return {"node": "ColumnRef", "fields": {"name": name, "source": None}}
+
+
+def _bin(node, enum, op, left, right):
+    return {"node": node, "fields": {"op": {"enum": f"{enum}.{op}"}, "left": left, "right": right}}
+
+
+def _tap_predicate(kind, i):
+    """Lane ``i``'s predicate of program ``kind`` over PAGE_VIEWS, as JSON:
+    ``mod`` (``USER_ID % m = r``, 8 instructions), ``not_and`` (``NOT
+    ((CASE WHEN USER_ID > a THEN TRUE END AND VIEWTIME > t) OR URL = u)``:
+    three-valued AND and OR over a NULL under a NOT, where NULL and FALSE
+    differ), ``depth16`` (15 literals
+    right-nested over USER_ID by +, then compared: a stack 16 deep) or
+    ``instr128`` (32 comparisons of a column with a BIGINT literal, joined
+    left-deep by alternating AND and OR: 128 instructions)."""
+    if kind == "mod":
+        m = 2 + i % 61
+        return _bin("Comparison", "CompareOp", "EQ",
+                    _bin("ArithmeticBinary", "ArithOp", "MODULUS", _col("USER_ID"), _lit(m)), _lit(i % m % 5))
+    if kind == "not_and":
+        # a comparison is never NULL on this path: a CASE without ELSE is
+        maybe = {"node": "SearchedCase", "fields": {"when_clauses": [{"node": "WhenClause", "fields": {
+            "condition": _bin("Comparison", "CompareOp", "GT", _col("USER_ID"), _lit(300 + 50 * i)),
+            "result": {"node": "BooleanLiteral", "fields": {"value": True}}}}], "default": None}}
+        both = _bin("LogicalBinary", "LogicOp", "AND", maybe,
+                    _bin("Comparison", "CompareOp", "GT", _col("VIEWTIME"), _long(TAP_T0 + 17 * 40 * i)))
+        either = _bin("LogicalBinary", "LogicOp", "OR", both, _bin("Comparison", "CompareOp", "EQ", _col("URL"),
+                                                                   _lit(f"/page/{i}")))
+        return {"node": "Not", "fields": {"operand": either}}
+    if kind == "depth16":
+        e = _col("USER_ID")
+        for k in range(15):
+            e = _bin("ArithmeticBinary", "ArithOp", "ADD", _lit(k + i), e)
+        return _bin("Comparison", "CompareOp", "GT", e, _lit(600 + 7 * i))
+    terms = []
+    for k in range(32):
+        col, op, v = (("USER_ID", "GT", 31 * k + i), ("VIEWTIME", "LTE", TAP_T0 + 17 * (97 * k + 13 * i)),
+                      ("URL", "NEQ", None), ("USER_ID", "NEQ", k + i))[k % 4]
+        lit = {"node": "StringLiteral", "fields": {"value": f"/page/{(k + i) % 9}"}} if v is None else _long(v)
+        terms.append(_bin("Comparison", "CompareOp", op, _col(col), lit))
+    e = terms[0]
+    for k, t in enumerate(terms[1:]):
+        e = _bin("LogicalBinary", "LogicOp", "AND" if k % 2 else "OR", e, t)
+    return e
+
+
+#: K25's edges: (program, lanes, rows, variant).  One row; 15 and 17 rows
+#: (off the 4 rows a thread and the 32 of a warp's stride); 4,097 rows
+#: (past eight 512-row tiles: the lanes' counts cross blocks); one lane;
+#: 4,096 lanes; every row invalid; half the lanes inactive; LIMIT budgets
+#: of 0, partial and past the count; NULLs through AND and OR under a
+#: NOT; a program 16 deep; one of 128 instructions
+TAP_EDGES = {
+    "rows_1": ("mod", 8, 1, None),
+    "rows_15": ("mod", 8, 15, None),
+    "rows_17": ("mod", 8, 17, None),
+    "rows_4097": ("mod", 8, 4097, None),
+    "lanes_1": ("mod", 1, 1000, None),
+    "lanes_4096": ("mod", 4096, 300, None),
+    "rows_invalid": ("mod", 8, 600, "rows_invalid"),
+    "inactive": ("mod", 16, 700, "inactive"),
+    "limits": ("mod", 12, 2000, "limits"),
+    "not_and": ("not_and", 8, 700, None),
+    "depth16": ("depth16", 6, 700, None),
+    "instr128": ("instr128", 5, 700, None),
+}
+
+
+def tap_edge_plans(name):
+    """The edge's lanes as plan JSONs (the committed ``tap_mod_page_views``
+    template with each lane's predicate), for both packages'
+    ``plan_from_json``."""
+    kind, lanes, _rows, _v = TAP_EDGES[name]
+    with open(_TAP_TEMPLATE) as f:
+        template = json.load(f)
+    out = []
+    for i in range(lanes):
+        p = copy.deepcopy(template)
+        p["plan"]["fields"]["physical_plan"]["fields"]["source"]["fields"]["predicate"] = _tap_predicate(kind, i)
+        out.append(p)
+    return out
+
+
+def tap_edge_case(name, hash64, seed=0):
+    """The edge's span as numpy: ``(columns, row_valid, limits, inactive)``;
+    ``columns`` maps each PAGE_VIEWS column and ROWTIME to (data,
+    validity): zipf(1.3) URLs of 50,000 (hashed by ``hash64``, the
+    packages' ``stable_hash64``), USER_IDs 0-999, VIEWTIMEs 17 ms apart,
+    each NULL 5% of the time; 2% of the rows invalid; ``inactive`` the
+    lanes removed after packing; ``limits`` the lanes' LIMIT budgets
+    (none: 2^62)."""
+    _kind, lanes, rows, variant = TAP_EDGES[name]
+    rng = np.random.default_rng(seed)
+    urls = rng.zipf(1.3, rows) % 50_000
+    cols = {
+        "URL": np.array([hash64(f"/page/{u}") for u in urls], np.int64),
+        "USER_ID": rng.integers(0, 1000, rows).astype(np.int64),
+        "VIEWTIME": TAP_T0 + 17 * np.arange(rows, dtype=np.int64),
+        "ROWTIME": TAP_T0 + 17 * np.arange(rows, dtype=np.int64),
+    }
+    columns = {}
+    for c, d in cols.items():
+        valid = np.ones(rows, bool) if c == "ROWTIME" else rng.random(rows) >= TAP_NULLS
+        columns[c] = (np.where(valid, d, 0).astype(np.int64), valid)
+    row_valid = rng.random(rows) >= 0.02
+    limits = np.full(lanes, 1 << 62, np.int64)
+    inactive = []
+    if variant == "rows_invalid":
+        row_valid[:] = False
+    elif variant == "inactive":
+        inactive = list(range(0, lanes, 2))
+    elif variant == "limits":
+        limits[:] = [0, 1, 3, 0, 50, 1 << 62, 7, 2, 1 << 40, 10**6, 0, 5][:lanes]
+    return columns, row_valid, limits, inactive
