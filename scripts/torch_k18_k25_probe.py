@@ -22,8 +22,8 @@ against its twin (exact) and times it as chip_smoke times a kernel
   program has it); 2 and 8 rows a thread;
   lane groups of 1 and of up to 64 lanes a block, and a grid of two
   waves of resident blocks (one kept); ``stack in shared memory`` (every
-  stack level, not the top two in registers); registers capped for 8 and
-  12 blocks an SM (``__launch_bounds__``; ptxas chose 72 a thread, 7).
+  stack level, not the top two in registers); the registers left to
+  ptxas (72 a thread: 7 blocks an SM; 8 kept) and capped for 12 blocks.
 
     python scripts/torch_k18_k25_probe.py [--groups k18,k25]
 
@@ -69,10 +69,8 @@ K25_VARIANTS = [
     ("up to 64 lanes a block", [(_GROUP, "constexpr int kMaxGroup = 64;")]),
     ("a grid of two waves", [("constexpr int kWaves = 1;", "constexpr int kWaves = 2;")]),
     ("stack in shared memory", [("constexpr bool kSharedStack = false;", "constexpr bool kSharedStack = true;")]),
-    ("registers for 8 blocks an SM", [("__launch_bounds__(kThreads) tap_tile_kernel",
-                                       "__launch_bounds__(kThreads, 8) tap_tile_kernel")]),
-    ("registers for 12 blocks an SM", [("__launch_bounds__(kThreads) tap_tile_kernel",
-                                        "__launch_bounds__(kThreads, 12) tap_tile_kernel")]),
+    ("registers unbounded", [("constexpr int kBlocksPerSm = 8;", "constexpr int kBlocksPerSm = 1;")]),
+    ("registers for 12 blocks an SM", [("constexpr int kBlocksPerSm = 8;", "constexpr int kBlocksPerSm = 12;")]),
 ]
 
 
