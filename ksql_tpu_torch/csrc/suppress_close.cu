@@ -54,14 +54,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSlots = 16;             // slots a lane (4, 8 or 16): one vector of each flag
+constexpr int kSlots = 16;             // slots a lane: one 16-byte vector of each flag
 constexpr int kUnit = 32 * kSlots;     // slots a warp
 constexpr int kSample = 4096;          // cm_emit entries a block keeps in shared memory
 constexpr int kFan = 16;               // positions a search round reads at once
-constexpr bool kOneLaunch = true;      // false: born and close as two launches
-constexpr bool kDedupe = false;        // true: a warp searches each distinct close once
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kBorn = 1, kClose = 2;   // phases of a launch
 
 struct Comps {
   void* col[KSQL_MAX_COMPS];
@@ -99,24 +96,14 @@ struct Chunks {
       : chunk((n + kSample - 1) / kSample), chunks(static_cast<int>((n + chunk - 1) / chunk)) {}
 };
 
-constexpr int kWords = kSlots / 4;  // 32-bit words of a lane's vector
-
 // kSlots flags from p[s0, s0 + cnt) as bits (one vector load where whole and aligned)
 __device__ __forceinline__ uint32_t load16(const bool* p, int64_t s0, int cnt, bool vec) {
   uint32_t bits = 0;
   if (vec && cnt == kSlots) {
-    uint32_t w[kWords];
-    if constexpr (kWords == 4) {
-      const uint4 v = *reinterpret_cast<const uint4*>(p + s0);
-      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
-    } else if constexpr (kWords == 2) {
-      const uint2 v = *reinterpret_cast<const uint2*>(p + s0);
-      w[0] = v.x, w[1] = v.y;
-    } else {
-      w[0] = *reinterpret_cast<const uint32_t*>(p + s0);
-    }
+    const uint4 v = *reinterpret_cast<const uint4*>(p + s0);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int q = 0; q < kWords; ++q) {
+    for (int q = 0; q < kSlots / 4; ++q) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) bits |= static_cast<uint32_t>(((w[q] >> (8 * j)) & 0xFFu) != 0) << (4 * q + j);
     }
@@ -131,14 +118,8 @@ __device__ __forceinline__ uint32_t spread4(uint32_t nib) { return (nib * 0x0020
 
 __device__ __forceinline__ void store16(bool* p, int64_t s0, int cnt, bool vec, uint32_t bits) {
   if (vec && cnt == kSlots) {
-    if constexpr (kWords == 4) {
-      *reinterpret_cast<uint4*>(p + s0) = make_uint4(spread4(bits & 0xFu), spread4((bits >> 4) & 0xFu),
-                                                     spread4((bits >> 8) & 0xFu), spread4((bits >> 12) & 0xFu));
-    } else if constexpr (kWords == 2) {
-      *reinterpret_cast<uint2*>(p + s0) = make_uint2(spread4(bits & 0xFu), spread4((bits >> 4) & 0xFu));
-    } else {
-      *reinterpret_cast<uint32_t*>(p + s0) = spread4(bits & 0xFu);
-    }
+    *reinterpret_cast<uint4*>(p + s0) = make_uint4(spread4(bits & 0xFu), spread4((bits >> 4) & 0xFu),
+                                                   spread4((bits >> 8) & 0xFu), spread4((bits >> 12) & 0xFu));
   } else {
     for (int j = 0; j < cnt; ++j) p[s0 + j] = (bits >> j) & 1u;
   }
@@ -274,19 +255,8 @@ __device__ void close_phase(const Args& a, long long* sample, uint16_t* list, ui
       if (r + 32 < total) ws_next = a.wstart[unit * kUnit + my_list[r + 32]];
       const int64_t close = ksql::wadd(ksql::wadd(ws, a.size_ms), a.grace_ms);
       const int64_t horizon = ksql::wadd(ws, a.retention);
-      int64_t at = 0, pos;
-      if (kDedupe) {
-        // lanes with one close value: its lowest lane searches for them all
-        const unsigned on = __ballot_sync(kFull, has);
-        const unsigned peers = __match_any_sync(kFull, static_cast<unsigned long long>(close)) & on;
-        const int leader = has ? __ffs(peers) - 1 : lane_id;
-        pos = a.n;
-        if (has && leader == lane_id) pos = first_at_or_past(a, sample, ch, close, &at);
-        pos = __shfl_sync(kFull, pos, leader);
-        at = __shfl_sync(kFull, at, leader);
-      } else {
-        pos = has ? first_at_or_past(a, sample, ch, close, &at) : a.n;
-      }
+      int64_t at = 0;
+      const int64_t pos = has ? first_at_or_past(a, sample, ch, close, &at) : a.n;
       if (!has) continue;
       const bool reachable = pos < a.n && at <= horizon;
       const bool evict = !reachable && close <= final_t;
@@ -318,16 +288,16 @@ __device__ void close_phase(const Args& a, long long* sample, uint16_t* list, ui
   }
 }
 
-__global__ void __launch_bounds__(kThreads) close_slots_kernel(const __grid_constant__ Args a, int phases) {
+__global__ void __launch_bounds__(kThreads) close_slots_kernel(const __grid_constant__ Args a) {
   __shared__ long long sample[kSample];
   __shared__ uint16_t list[kWarps * kUnit];
   __shared__ uint8_t res[kWarps * kUnit];
   __shared__ long long c_min;
   if (threadIdx.x == 0) c_min = INT64_MAX;
   __syncthreads();
-  if (phases & kBorn) born_phase(a, &c_min);
-  if (phases == (kBorn | kClose)) cg::this_grid().sync();
-  if (phases & kClose) close_phase(a, sample, list, res);
+  born_phase(a, &c_min);
+  cg::this_grid().sync();
+  close_phase(a, sample, list, res);
 }
 
 // the cooperative grid's most blocks, per device (close_slots_kernel's
@@ -378,13 +348,6 @@ extern "C" int ksql_suppress_close(const int64_t* comps, int64_t count, const vo
   const int64_t units = (a.slot_count + kUnit - 1) / kUnit;
   const int64_t close_blocks = (units + kWarps - 1) / kWarps;
   const int64_t born_blocks = (lanes + kThreads - 1) / kThreads;
-  if (!kOneLaunch) {
-    close_slots_kernel<<<ksql::blocks_for(born_blocks * kThreads, kThreads), kThreads, 0, st>>>(a, kBorn);
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-    close_slots_kernel<<<ksql::blocks_for(close_blocks * kThreads, kThreads), kThreads, 0, st>>>(a, kClose);
-    return static_cast<int>(cudaGetLastError());
-  }
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -399,8 +362,7 @@ extern "C" int ksql_suppress_close(const int64_t* comps, int64_t count, const vo
   }
   const int64_t need = close_blocks > born_blocks ? close_blocks : born_blocks;
   const unsigned blocks = static_cast<unsigned>(need < 1 ? 1 : (need < g_most[dev] ? need : g_most[dev]));
-  int phases = kBorn | kClose;
-  void* params[] = {&a, &phases};
+  void* params[] = {&a};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(close_slots_kernel), dim3(blocks),
                                     dim3(kThreads), params, 0, st);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -3,8 +3,8 @@
 // Replaces server/tap_kernel.py:_lane_fn of the reference, vmapped over the
 // lanes in _LaneGroup.fn (_trace_group, :414-433).  The family's WHERE chain
 // is lowered once on the host (ops/tap_residual.py:build_program) to a flat
-// postfix program of typed instructions (op, a, b, dt); this one fixed kernel
-// interprets it.  Per (lane l, row r):
+// postfix program of typed instructions (op, a, b, dt), then rewritten for
+// this kernel (lower_for_kernel there); this one fixed kernel interprets it.  Per (lane l, row r):
 //   masks[l, r] = active[l] && row_valid[r] && every FILTER of the program
 //                 saw a valid, true value,
 //   counts[l]   = min(sum_r masks[l, r], limits[l]).
@@ -38,7 +38,8 @@
 //     deeper ones at fixed shared-memory levels [depth][row][thread]; it
 //     also drops the casts that keep a value's bits and fuses a parameter
 //     pushed for the binary op right after it into that op (no push, no
-//     pop: the mod family's 8 instructions run as 4);
+//     pop: the mod family's 8 instructions run as 4), and numbers the
+//     columns the program loads in the order it first loads them;
 //   * the masks: each thread writes its rows' mask bytes as one word;
 //   * the counts: a warp sum of the threads' popcounts, summed per lane in
 //     the block; with one tile a block writes min(sum, limit) itself, else
@@ -73,7 +74,6 @@ constexpr int kWaves = 1;  // lane groups shrink until the grid fills this many 
 // registers held to 64 a thread so that 8 blocks fit an SM (unbounded,
 // ptxas took 72: 7 blocks, 3-8% slower; 12 blocks spill)
 constexpr int kBlocksPerSm = 8;
-constexpr bool kSharedStack = false;  // true: every stack level in shared memory
 constexpr uint32_t kAll = (1u << kRows) - 1;
 
 // opcodes and dtype codes of ops/tap_residual.py
@@ -81,10 +81,11 @@ enum Op : int32_t {
   kCol = 0, kParamI = 1, kParamF = 2, kConst = 3, kCast = 4, kAdd = 5, kSub = 6, kMul = 7,
   kDiv = 8, kMod = 9, kNeg = 10, kCmp = 11, kAnd = 12, kOr = 13, kNot = 14, kIsNull = 15,
   kFilter = 16, kSelect = 17, kSqlCast = 18,
-  // the launcher's own: a parameter pushed (and cast) for the binary op that
-  // takes it as its right operand, as one instruction: a = the op, its
-  // code, decimal flag and dtype (a byte each); b = the push's opcode, dtype
-  // and the cast's target (a byte each); dt = the parameter's index
+  // the host's rewrite (OP_FUSED): a parameter pushed (and cast) for the
+  // binary op that takes it as its right operand, as one instruction: a =
+  // the op, its code, decimal flag and dtype (a byte each); b = the push's
+  // opcode, dtype and the cast's target (a byte each); dt = the parameter's
+  // index
   kFused = 19
 };
 // SQLCAST kinds (ops/tap_residual.py SC_*)
@@ -260,11 +261,6 @@ __device__ uint32_t run(const TapProgram& p, const int64_t* __restrict__ cv,
     const int32_t b = p.code[4 * pc + 2];
     const int32_t dt = p.code[4 * pc + 3];
     const int d = p.depth[pc];
-    if (kSharedStack) {
-      if (d >= 1) tb = lv.get(d - 1, t);
-      if (d >= 2) nb = lv.get(d - 2, s);
-    }
-    int nd = d;  // the depth after the instruction
     switch (op) {
       case kCol: case kParamI: case kParamF: case kConst: {
         if (d >= 2) lv.put(d - 2, s, nb);
@@ -286,7 +282,6 @@ __device__ uint32_t run(const TapProgram& p, const int64_t* __restrict__ cv,
           for (int k = 0; k < kRows; ++k) t[k] = v;
           tb = (op == kConst && b == 0) ? 0 : kAll;
         }
-        nd = d + 1;
         break;
       }
       case kCast:
@@ -325,7 +320,6 @@ __device__ uint32_t run(const TapProgram& p, const int64_t* __restrict__ cv,
         for (int k = 0; k < kRows; ++k) t[k] = s[k];
         tb = nb;
         if (d >= 3) nb = lv.get(d - 3, s);
-        nd = d - 1;
         break;
       case kSelect: {
         // stack: ..., then (position d - 3), else (s), condition (t)
@@ -336,7 +330,6 @@ __device__ uint32_t run(const TapProgram& p, const int64_t* __restrict__ cv,
         for (int k = 0; k < kRows; ++k) t[k] = ((fire >> k) & 1u) ? then[k] : s[k];
         tb = (fire & thb) | (~fire & nb & kAll);
         if (d >= 4) nb = lv.get(d - 4, s);
-        nd = d - 2;
         break;
       }
       default: {  // binary: x op y, x = s and y = t; a fused parameter: x = t, y = the parameter
@@ -432,16 +425,9 @@ __device__ uint32_t run(const TapProgram& p, const int64_t* __restrict__ cv,
           out = v;
         }
         tb = out & kAll;
-        if (!fused) {
-          if (d >= 3) nb = lv.get(d - 3, s);
-          nd = d - 1;
-        }
+        if (!fused && d >= 3) nb = lv.get(d - 3, s);
         break;
       }
-    }
-    if (kSharedStack) {
-      if (nd >= 1) lv.put(nd - 1, t, tb);
-      if (nd >= 2) lv.put(nd - 2, s, nb);
     }
   }
   return pass;
@@ -524,87 +510,46 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) tap_tile_kernel(
   }
 }
 
-// stack effect (pops, pushes) of each opcode
-constexpr int kPops[20] = {0, 0, 0, 0, 1, 2, 2, 2, 2, 2, 1, 2, 2, 2, 1, 1, 1, 3, 1, 1};
-constexpr int kPushes[20] = {1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 1, 1, 1};
-
-// a cast that leaves a value's 64 bits as they are (int32 and bool values
-// are kept sign-extended, bools as 0/1)
-bool keeps_bits(int64_t from, int64_t to) {
-  return from == to || (to == kI64 && (from == kI32 || from == kBool)) || (to == kI32 && from == kBool);
-}
-
-bool is_binary(int64_t op) {
-  return (op >= kAdd && op <= kMod) || op == kCmp || op == kAnd || op == kOr;
-}
-
 int g_smem_max[64];  // the dynamic shared memory tap_tile_kernel was allowed, per device
 int64_t g_wave[64];  // per device, the blocks of kWaves waves at the shared memory below
 size_t g_wave_smem[64];
 
 }  // namespace
 
-// code: n_instr rows of (op, a, b, dt); cols: n_cols rows of (data pointer,
-// validity pointer, dtype code); both in host memory, copied into the launch's
+// code: n_instr rows of (op, a, b, dt, depth before it), the program as the
+// host rewrote it for this kernel, `depth` its deepest stack; cols: n_cols
+// rows of (data pointer, validity pointer, dtype code), the columns it
+// loads in its own numbering; both in host memory, copied into the launch's
 // parameter struct.  scratch: 2 * lanes 64-bit words, 0 on entry and left 0
 // (each lane's count accumulator, then its ticket).
-extern "C" int ksql_tap_residual(const int64_t* code, int64_t n_instr, const int64_t* cols,
-                                 int64_t n_cols, const void* P_i, int64_t n_i, const void* P_f,
-                                 int64_t n_f, const void* active, const void* row_valid,
-                                 int64_t rows, int64_t lanes, const void* limits, void* masks,
-                                 void* counts, void* scratch, void* stream) {
-  if (n_instr > TAP_MAX_INSTR || n_cols > TAP_MAX_COLS || n_i > TAP_MAX_PARAMS ||
-      n_f > TAP_MAX_PARAMS || rows >= (int64_t{1} << 31)) {
+extern "C" int ksql_tap_residual(const int64_t* code, int64_t n_instr, int64_t depth,
+                                 const int64_t* cols, int64_t n_cols, const void* P_i, int64_t n_i,
+                                 const void* P_f, int64_t n_f, const void* active,
+                                 const void* row_valid, int64_t rows, int64_t lanes,
+                                 const void* limits, void* masks, void* counts, void* scratch,
+                                 void* stream) {
+  if (n_instr > TAP_MAX_INSTR || n_cols > TAP_MAX_COLS || depth > TAP_MAX_DEPTH ||
+      n_i > TAP_MAX_PARAMS || n_f > TAP_MAX_PARAMS || rows >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   TapProgram prog;
-  int staged[TAP_MAX_COLS];
-  for (int c = 0; c < TAP_MAX_COLS; ++c) staged[c] = -1;
-  prog.n_cols = 0;
-  // the program as the kernel runs it: casts that keep the bits dropped, a
-  // parameter pushed for the binary op right after it fused into that op,
-  // each instruction with its stack depth, the columns it loads staged
-  int depth = 0, most = 0, out = 0;
   for (int64_t i = 0; i < n_instr; ++i) {
-    int64_t op = code[4 * i], a = code[4 * i + 1], b = code[4 * i + 2], dt = code[4 * i + 3];
-    if (op < 0 || op > kSqlCast) return static_cast<int>(cudaErrorInvalidValue);
-    if (op == kCast && keeps_bits(a, dt)) continue;
-    if (op == kParamI || op == kParamF) {
-      int64_t j = i + 1, to = dt;
-      if (j < n_instr && code[4 * j] == kCast && code[4 * j + 1] == to) to = code[4 * j++ + 3];
-      if (j < n_instr && is_binary(code[4 * j])) {
-        const int64_t* bin = code + 4 * j;
-        b = op | (dt << 8) | (to << 16);
-        dt = a;
-        a = bin[0] | (bin[1] << 8) | (bin[2] << 16) | (bin[3] << 24);
-        op = kFused;
-        i = j;
-      }
+    const int64_t* ins = code + 5 * i;
+    if (ins[0] < 0 || ins[0] > kFused || ins[4] < 0 || ins[4] > depth ||
+        (ins[0] == kCol && (ins[1] < 0 || ins[1] >= n_cols))) {
+      return static_cast<int>(cudaErrorInvalidValue);
     }
-    if (depth < kPops[op]) return static_cast<int>(cudaErrorInvalidValue);
-    prog.depth[out] = static_cast<uint8_t>(depth);
-    depth += kPushes[op] - kPops[op];
-    most = depth > most ? depth : most;
-    if (op == kCol) {
-      if (a < 0 || a >= n_cols) return static_cast<int>(cudaErrorInvalidValue);
-      if (staged[a] < 0) {
-        staged[a] = prog.n_cols;
-        prog.data[prog.n_cols] = reinterpret_cast<const void*>(cols[3 * a]);
-        prog.valid[prog.n_cols] = reinterpret_cast<const bool*>(cols[3 * a + 1]);
-        prog.dt[prog.n_cols] = static_cast<int32_t>(cols[3 * a + 2]);
-        ++prog.n_cols;
-      }
-      a = staged[a];
-    }
-    prog.code[4 * out] = static_cast<int32_t>(op);
-    prog.code[4 * out + 1] = static_cast<int32_t>(a);
-    prog.code[4 * out + 2] = static_cast<int32_t>(b);
-    prog.code[4 * out + 3] = static_cast<int32_t>(dt);
-    ++out;
+    for (int q = 0; q < 4; ++q) prog.code[4 * i + q] = static_cast<int32_t>(ins[q]);
+    prog.depth[i] = static_cast<uint8_t>(ins[4]);
   }
-  if (most > TAP_MAX_DEPTH) return static_cast<int>(cudaErrorInvalidValue);
-  prog.n_instr = out;
-  prog.levels = kSharedStack ? most : (most > 2 ? most - 2 : 0);
+  for (int64_t c = 0; c < n_cols; ++c) {
+    prog.data[c] = reinterpret_cast<const void*>(cols[3 * c]);
+    prog.valid[c] = reinterpret_cast<const bool*>(cols[3 * c + 1]);
+    prog.dt[c] = static_cast<int32_t>(cols[3 * c + 2]);
+  }
+  prog.n_instr = static_cast<int32_t>(n_instr);
+  prog.n_cols = static_cast<int32_t>(n_cols);
+  prog.levels = static_cast<int32_t>(depth > 2 ? depth - 2 : 0);
   if (lanes == 0) return 0;
   const int64_t tiles = rows > 0 ? (rows + kTile - 1) / kTile : 1;
   if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);

@@ -115,7 +115,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "fk_fanout": {"ksql_fk_fanout": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P]},
     "tap_residual": {"ksql_tap_residual": [
-        _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P]},
+        _P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P]},
 }
 KERNELS = tuple(SIGNATURES)
 

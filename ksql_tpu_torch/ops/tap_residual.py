@@ -14,10 +14,13 @@ parameters)`` and ``counts[l] = min(sum_r masks[l, r], limits[l])``.
   lane's parameters as ``(lanes, 1)`` tensors, so one pass over the
   ``(rows,)`` columns broadcasts to ``(lanes, rows)``.
 * :func:`build_program` lowers the chain once to a flat, typed postfix
-  program (``csrc/tap_residual.cu`` interprets it); a select step's outputs
-  are inlined where later steps read them.  :func:`run_program` evaluates
-  the program in torch, one opcode at a time, so the CPU tests hold the
-  lowering against the twin before any card runs it.
+  program; a select step's outputs are inlined where later steps read
+  them.  :func:`run_program` evaluates the program in torch, one opcode at
+  a time, so the CPU tests hold the lowering against the twin before any
+  card runs it.  :func:`lower_for_kernel` rewrites it once more into the
+  form ``csrc/tap_residual.cu`` interprets (bit-keeping casts dropped,
+  parameters fused into their ops, stack depths annotated), kept on the
+  :class:`Program`.
 * :func:`lane_masks` is K25's wrapper: for CUDA tensors it launches the
   kernel on the tensors' stream and counts the launch in
   ``lane_masks.launches``; for CPU tensors it runs the twin.
@@ -80,6 +83,12 @@ OP_COL, OP_PARAM_I, OP_PARAM_F, OP_CONST, OP_CAST = 0, 1, 2, 3, 4
 OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MOD = 5, 6, 7, 8, 9
 OP_NEG, OP_CMP, OP_AND, OP_OR, OP_NOT, OP_ISNULL, OP_FILTER = 10, 11, 12, 13, 14, 15, 16
 OP_SELECT, OP_SQLCAST = 17, 18
+#: K25's own (:func:`lower_for_kernel`): a parameter pushed (and cast) for
+#: the binary op that takes it as its right operand, as one instruction
+#: that pops and pushes the left operand: ``a`` = the op, its code, decimal
+#: flag and dtype (a byte each); ``b`` = the push's opcode, dtype and the
+#: cast's target (a byte each); ``dt`` = the parameter's index
+OP_FUSED = 19
 #: OP_SQLCAST kinds: a float to an integer (truncated, saturated, NaN 0);
 #: a float to DECIMAL(p, s) (HALF_UP at scale s, NULL at or past 10^(p-s):
 #: ``b = s * 64 + (p - s)``); epoch days to ms; ms to epoch days and to
@@ -94,7 +103,9 @@ _EFFECT = {OP_COL: (0, 1), OP_PARAM_I: (0, 1), OP_PARAM_F: (0, 1), OP_CONST: (0,
            OP_CAST: (1, 1), OP_ADD: (2, 1), OP_SUB: (2, 1), OP_MUL: (2, 1), OP_DIV: (2, 1),
            OP_MOD: (2, 1), OP_NEG: (1, 1), OP_CMP: (2, 1), OP_AND: (2, 1), OP_OR: (2, 1),
            OP_NOT: (1, 1), OP_ISNULL: (1, 1), OP_FILTER: (1, 0), OP_SELECT: (3, 1),
-           OP_SQLCAST: (1, 1)}
+           OP_SQLCAST: (1, 1), OP_FUSED: (1, 1)}
+#: the binary opcodes a parameter fuses into
+_BINARY = frozenset({OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MOD, OP_CMP, OP_AND, OP_OR})
 _ARITH_OPS = {ex.ArithOp.ADD: OP_ADD, ex.ArithOp.SUBTRACT: OP_SUB, ex.ArithOp.MULTIPLY: OP_MUL,
               ex.ArithOp.DIVIDE: OP_DIV, ex.ArithOp.MODULUS: OP_MOD}
 #: comparison codes (``a`` of OP_CMP)
@@ -137,13 +148,17 @@ class Program:
     """A family's chain lowered for K25: ``code`` (n_instr, 4) int64 rows
     ``(op, a, b, dt)``, the stack depth it needs, and the column dtypes it
     reads (``spec.col_names`` order); ``spec`` and ``col_types`` stay for
-    the twin."""
+    the twin.  ``kernel_code``, ``kernel_depth`` and ``staged`` are
+    :func:`lower_for_kernel`'s form of ``code``, the one the kernel runs."""
 
     spec: Any
     col_types: Tuple[SqlType, ...]
     code: np.ndarray
     max_depth: int
     col_dts: Tuple[int, ...]
+    kernel_code: np.ndarray
+    kernel_depth: int
+    staged: Tuple[int, ...]
     _host_code: Any = dataclasses.field(default=None, init=False, repr=False, compare=False)
 
     @property
@@ -151,10 +166,10 @@ class Program:
         return int(self.code.shape[0])
 
     def host_code(self):
-        """``code`` as the ctypes int64 array K25's entry point takes, built
-        once per program."""
+        """``kernel_code`` as the ctypes int64 array K25's entry point
+        takes, built once per program."""
         if self._host_code is None:
-            self._host_code = cuda.host_i64(self.code.reshape(-1).tolist())
+            self._host_code = cuda.host_i64(self.kernel_code.reshape(-1).tolist())
         return self._host_code
 
 
@@ -331,7 +346,53 @@ def build_program(spec, col_types: Sequence[SqlType]) -> Program:
     if max(len(spec.params_i), len(spec.params_f)) > MAX_PARAMS:
         raise DeviceUnsupported(f"residual with more than {MAX_PARAMS} parameters of a kind")
     arr = np.asarray(code, np.int64).reshape(-1, 4)
-    return Program(spec, tuple(col_types), arr, max_depth, tuple(_dt(t) for t in col_types))
+    return Program(spec, tuple(col_types), arr, max_depth, tuple(_dt(t) for t in col_types),
+                   *lower_for_kernel(arr))
+
+
+def _keeps_bits(dt_from: int, dt_to: int) -> bool:
+    """A cast that leaves a value's 64 bits as K25 holds them (int32 values
+    sign-extended, bools 0/1)."""
+    return dt_from == dt_to or (dt_to == DT_I64 and dt_from in (DT_I32, DT_BOOL)) or (
+        dt_to == DT_I32 and dt_from == DT_BOOL)
+
+
+def lower_for_kernel(code: np.ndarray) -> Tuple[np.ndarray, int, Tuple[int, ...]]:
+    """``code`` as ``csrc/tap_residual.cu`` runs it: the casts that keep a
+    value's bits dropped; a parameter pushed (and cast) for the binary op
+    right after it fused into that op (:data:`OP_FUSED`); each instruction
+    with the stack depth before it; the columns numbered in the order the
+    program first loads them.  Returns the ``(n, 5)`` int64 rows ``(op, a,
+    b, dt, depth)``, the deepest stack, and the loaded columns (their
+    indexes into ``code``'s numbering, in the kernel's order)."""
+    code = [tuple(int(x) for x in row) for row in code]
+    rows, staged = [], []
+    depth = most = 0
+    i = 0
+    while i < len(code):
+        op, a, b, dt = code[i]
+        i += 1
+        if op == OP_CAST and _keeps_bits(a, dt):
+            continue
+        if op in (OP_PARAM_I, OP_PARAM_F):
+            j, to = i, dt
+            if j < len(code) and code[j][0] == OP_CAST and code[j][1] == to:
+                to = code[j][3]
+                j += 1
+            if j < len(code) and code[j][0] in _BINARY:
+                bop, bcode, bdec, bdt = code[j]
+                op, a, b, dt = (OP_FUSED, bop | bcode << 8 | bdec << 16 | bdt << 24,
+                                op | dt << 8 | to << 16, a)
+                i = j + 1
+        if op == OP_COL:
+            if a not in staged:
+                staged.append(a)
+            a = staged.index(a)
+        rows.append((op, a, b, dt, depth))
+        pops, pushes = _EFFECT[op]
+        depth += pushes - pops
+        most = max(most, depth)
+    return np.asarray(rows, np.int64).reshape(-1, 5), most, tuple(staged)
 
 
 # ----------------------------------------------------------------- the twin
@@ -523,14 +584,12 @@ def lane_masks(prog: Program, datas, valids, P_i, P_f, active, row_valid, limits
                                 row_valid, limits)
     lanes, n = P_i.shape[0], datas[0].shape[0]
     dev = datas[0].device
-    cols = []
     for d, v, dt in zip(datas, valids, prog.col_dts):
         if _DT_OF.get(d.dtype) != dt or d.shape != (n,) or not d.is_contiguous() or not d.is_cuda:
             raise ValueError(f"K25 column: expected contiguous {_TORCH_OF[dt]}[{n}] on the card, "
                              f"got {d.dtype}{list(d.shape)}")
         if v.dtype != torch.bool or v.shape != (n,) or not v.is_contiguous() or not v.is_cuda:
             raise ValueError("K25 validity: expected a contiguous bool column on the card")
-        cols += [d.data_ptr(), v.data_ptr(), dt]
     for t, dtype, shape in ((P_i, torch.int64, (lanes, P_i.shape[1])),
                             (P_f, torch.float64, (lanes, P_f.shape[1])),
                             (active, torch.bool, (lanes,)), (row_valid, torch.bool, (n,)),
@@ -542,13 +601,16 @@ def lane_masks(prog: Program, datas, valids, P_i, P_f, active, row_valid, limits
     counts = torch.empty(lanes, dtype=torch.int64, device=dev)
     if lanes == 0:
         return masks, counts
+    cols = []
+    for c in prog.staged:
+        cols += [datas[c].data_ptr(), valids[c].data_ptr(), prog.col_dts[c]]
     scratch = lane_masks.scratch.get(dev)
     if scratch is None or scratch.shape[0] < 2 * lanes:
         scratch = lane_masks.scratch[dev] = torch.zeros(2 * lanes, dtype=torch.int64, device=dev)
     fn = cuda.lib("tap_residual")
     code = fn(
-        prog.host_code(), prog.n_instr, cuda.host_i64(cols), len(datas),
-        P_i.data_ptr(), P_i.shape[1], P_f.data_ptr(), P_f.shape[1], active.data_ptr(),
+        prog.host_code(), prog.kernel_code.shape[0], prog.kernel_depth, cuda.host_i64(cols),
+        len(prog.staged), P_i.data_ptr(), P_i.shape[1], P_f.data_ptr(), P_f.shape[1], active.data_ptr(),
         row_valid.data_ptr(), n, lanes, limits.data_ptr(), masks.data_ptr(), counts.data_ptr(),
         scratch.data_ptr(), _stream(dev),
     )

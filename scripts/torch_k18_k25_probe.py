@@ -17,9 +17,9 @@ against its twin (exact) and times it as chip_smoke times a kernel
   sample); born read before the atomic for every lane, not only for a
   warp's groups of several lanes;
 * K25 at phase 2p's 256 lanes x 4,096 rows and 4,096 x 8,192 and its cast
-  and case families at 64 x 4,096: ``kept``; ``no fused parameters`` (a
-  parameter pushed on the stack for the binary op after it, as the
-  program has it); 2 and 8 rows a thread;
+  and case families at 64 x 4,096: ``kept``; ``no fused parameters`` (the
+  kept kernel on programs that push a parameter on the stack for the
+  binary op after it, as ``build_program`` has it); 2 and 8 rows a thread;
   lane groups of 1 and of up to 64 lanes a block, and a grid of two
   waves of resident blocks (one kept); ``stack in shared memory`` (every
   stack level, not the top two in registers); the registers left to
@@ -44,31 +44,87 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 _SAMPLE = "constexpr int kSample = 4096;"
+#: K18 as two launches, born then close, with no grid barrier
+_K18_TWO_LAUNCHES = [
+    ("close_slots_kernel(const __grid_constant__ Args a) {",
+     "close_slots_kernel(const __grid_constant__ Args a, int phases) {"),
+    ("  born_phase(a, &c_min);\n  cg::this_grid().sync();\n  close_phase(a, sample, list, res);\n",
+     "  if (phases & 1) born_phase(a, &c_min);\n  if (phases & 2) close_phase(a, sample, list, res);\n"),
+    ("  const int64_t born_blocks = (lanes + kThreads - 1) / kThreads;\n",
+     "  const int64_t born_blocks = (lanes + kThreads - 1) / kThreads;\n"
+     "  close_slots_kernel<<<ksql::blocks_for(born_blocks * kThreads, kThreads), kThreads, 0, st>>>(a, 1);\n"
+     "  const int born_err = static_cast<int>(cudaGetLastError());\n"
+     "  if (born_err != 0) return born_err;\n"
+     "  close_slots_kernel<<<ksql::blocks_for(close_blocks * kThreads, kThreads), kThreads, 0, st>>>(a, 2);\n"
+     "  if (born_blocks >= 0) return static_cast<int>(cudaGetLastError());\n"),
+]
+#: K18's search: the lanes of a warp's round with one close value leave it
+#: to their lowest lane, which shuffles the answer to the others
+_K18_DEDUPE = [
+    ("      int64_t at = 0;\n      const int64_t pos = has ? first_at_or_past(a, sample, ch, close, &at) : a.n;\n",
+     "      int64_t at = 0, pos = a.n;\n"
+     "      const unsigned on = __ballot_sync(kFull, has);\n"
+     "      const unsigned peers = __match_any_sync(kFull, static_cast<unsigned long long>(close)) & on;\n"
+     "      const int leader = has ? __ffs(peers) - 1 : lane_id;\n"
+     "      if (has && leader == lane_id) pos = first_at_or_past(a, sample, ch, close, &at);\n"
+     "      pos = __shfl_sync(kFull, pos, leader);\n"
+     "      at = __shfl_sync(kFull, at, leader);\n"),
+]
+#: K18 with 8 slots a lane: 8-byte vectors of each flag
+_K18_EIGHT_SLOTS = [
+    ("constexpr int kSlots = 16;", "constexpr int kSlots = 8;"),
+    ("    const uint4 v = *reinterpret_cast<const uint4*>(p + s0);\n"
+     "    const uint32_t w[4] = {v.x, v.y, v.z, v.w};\n",
+     "    const uint2 v = *reinterpret_cast<const uint2*>(p + s0);\n"
+     "    const uint32_t w[4] = {v.x, v.y, 0u, 0u};\n"),
+    ("    *reinterpret_cast<uint4*>(p + s0) = make_uint4(spread4(bits & 0xFu), spread4((bits >> 4) & 0xFu),\n"
+     "                                                   spread4((bits >> 8) & 0xFu), spread4((bits >> 12) & 0xFu));\n",
+     "    *reinterpret_cast<uint2*>(p + s0) = make_uint2(spread4(bits & 0xFu), spread4((bits >> 4) & 0xFu));\n"),
+]
 #: (name, text edits of csrc/suppress_close.cu)
 K18_VARIANTS = [
     ("kept", []),
-    ("two launches", [("constexpr bool kOneLaunch = true;", "constexpr bool kOneLaunch = false;")]),
-    ("warp dedupe", [("constexpr bool kDedupe = false;", "constexpr bool kDedupe = true;")]),
+    ("two launches", _K18_TWO_LAUNCHES),
+    ("warp dedupe", _K18_DEDUPE),
     ("no sample", [(_SAMPLE, "constexpr int kSample = 1;")]),
     ("sample of 2,048", [(_SAMPLE, "constexpr int kSample = 2048;")]),
     ("binary search in the chunk", [("constexpr int kFan = 16;", "constexpr int kFan = 2;")]),
     ("4 positions a search round", [("constexpr int kFan = 16;", "constexpr int kFan = 4;")]),
-    ("8 slots a lane", [("constexpr int kSlots = 16;", "constexpr int kSlots = 8;")]),
+    ("8 slots a lane", _K18_EIGHT_SLOTS),
     ("born read first for every lane", [("__popc(peers) == 1 || order", "order")]),
 ]
 _ROWS = "constexpr int kRows = 4;"
 _GROUP = "constexpr int kMaxGroup = 16;"
+#: K25 with every stack level in shared memory: each instruction reads its
+#: top two entries from their levels and writes them back after
+_K25_SHARED_STACK = [
+    ("    const int d = p.depth[pc];\n    switch (op) {\n",
+     "    const int d = p.depth[pc];\n"
+     "    if (d >= 1) tb = lv.get(d - 1, t);\n"
+     "    if (d >= 2) nb = lv.get(d - 2, s);\n"
+     "    switch (op) {\n"),
+    ("        if (!fused && d >= 3) nb = lv.get(d - 3, s);\n        break;\n      }\n    }\n  }\n",
+     "        if (!fused && d >= 3) nb = lv.get(d - 3, s);\n        break;\n      }\n    }\n"
+     "    const int nd = pc + 1 < p.n_instr ? p.depth[pc + 1] : 0;  // the depth after it\n"
+     "    if (nd >= 1) lv.put(nd - 1, t, tb);\n"
+     "    if (nd >= 2) lv.put(nd - 2, s, nb);\n  }\n"),
+    ("  prog.levels = static_cast<int32_t>(depth > 2 ? depth - 2 : 0);",
+     "  prog.levels = static_cast<int32_t>(depth);"),
+]
+#: the K25 variant that runs the kept kernel on programs lowered with no
+#: parameter fused into its op (``lower_for_kernel`` with no binary op to
+#: fuse into)
+_UNFUSED = "no fused parameters"
 #: (name, text edits of csrc/tap_residual.cu)
 K25_VARIANTS = [
     ("kept", []),
-    ("no fused parameters", [("      if (j < n_instr && is_binary(code[4 * j])) {",
-                              "      if (false) {")]),
+    (_UNFUSED, []),
     ("2 rows a thread", [(_ROWS, "constexpr int kRows = 2;")]),
     ("8 rows a thread", [(_ROWS, "constexpr int kRows = 8;")]),
     ("1 lane a block", [(_GROUP, "constexpr int kMaxGroup = 1;")]),
     ("up to 64 lanes a block", [(_GROUP, "constexpr int kMaxGroup = 64;")]),
     ("a grid of two waves", [("constexpr int kWaves = 1;", "constexpr int kWaves = 2;")]),
-    ("stack in shared memory", [("constexpr bool kSharedStack = false;", "constexpr bool kSharedStack = true;")]),
+    ("stack in shared memory", _K25_SHARED_STACK),
     ("registers unbounded", [("constexpr int kBlocksPerSm = 8;", "constexpr int kBlocksPerSm = 1;")]),
     ("registers for 12 blocks an SM", [("constexpr int kBlocksPerSm = 8;", "constexpr int kBlocksPerSm = 12;")]),
 ]
@@ -133,16 +189,22 @@ def k25_variants(cs, torch, out_dir, seed, report):
             [(name, corpus[name], cs.TAP_CORPUS_LANES, cs.TAP_ROWS) for name in ("cast", "case")]:
         group = cs.tap_group(torch, plans, lanes)
         cases.append((shape, group, cs.make_tap_case(torch, rng, dev, group, rows)))
+    binary = tr._BINARY
     for (name, _edits), lib in zip(K25_VARIANTS, libs):
         cuda._LIBS["ksql_tap_residual"] = _k3p()._bind(lib, "tap_residual", "ksql_tap_residual")
         tr.lane_masks.scratch.clear()
+        tr._BINARY = frozenset() if name == _UNFUSED else binary
         for shape, group, args in cases:
+            group._program = None  # lowered again under this variant's rules
             prog, matched = cs._check_tap(torch, tr, group, args, f"{name} {shape}")
             nbytes, ops = cs._tap_bytes_ops(prog, args)
             rec = cs.measure(torch, "tap_residual", lambda prog=prog, args=args: tr.lane_masks(prog, *args),
                              lambda prog=prog, args=args: tr.lane_masks_plain(prog.spec, prog.col_types, *args),
                              nbytes, ops, plain_reps=1, per_call=1)
             report("tap_residual", name, shape, rec, f"{prog.n_instr} instructions, {matched} matches")
+    tr._BINARY = binary
+    for _shape, group, _args in cases:
+        group._program = None
     cuda._LIBS.pop("ksql_tap_residual", None)
     tr.lane_masks.scratch.clear()
 

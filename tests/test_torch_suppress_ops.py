@@ -17,7 +17,8 @@ over the tiled lanes; the dump slot's ``born`` (overflowed lanes) and
 every flag combination at the retention boundary.  Then the twins alone:
 K17's emission clock is non-decreasing, so K18's sort is the identity;
 K17's and K18's twins against the reference's lines written out in jax
-over ``tests/torch_kernel_cases.py``'s CLOCK_CASES and CLOSE_CASES.
+over ``tests/torch_kernel_cases.py``'s CLOCK_CASES and CLOSE_CASES, and
+that copy of K18's lines against the reference's own step on batches.
 """
 
 import jax
@@ -372,6 +373,75 @@ def _reference_close(st, comps_init, slots, active, cm_in, size, grace, retentio
         col = st[f"a{j}"]
         st[f"a{j}"] = jnp.where(evict_now, init.astype(col.dtype), col)
     return st, emit_now
+
+
+#: the store entries K18 reads or writes (its scalar components' columns
+#: besides)
+_CLOSE_KEYS = ("occ", "grave", "dirty", "emitted", "born", "wstart", "emit_clock", "row_clock")
+
+
+@pytest.mark.parametrize("scenario", ["emit", "evict", "hopping", "overflow"])
+def test_reference_close_copy_agrees_with_the_reference_step(scenario, monkeypatch):
+    """``_reference_close``, the copy the CLOSE_CASES test below holds the
+    twin to, against the reference itself: the port's device step runs
+    beside ``CompiledDeviceQuery._step`` (whose suppress branch is
+    ``post_exchange``'s :4003-4034), each of the port's K18 calls also runs
+    the copy on the same inputs and must equal it, and the port's state and
+    lanes must equal the reference's after every batch (``Pair.check``).
+    So the copy, the twin and the reference agree on these batches: a
+    window emitting on its close, two evicted past their horizon, a hopping
+    store's closes, and lanes overflowed to the dump slot."""
+    # tolerance: exact (every flag, born, component bits, the clocks, the mask)
+    twin = sup.suppress_close
+    outcomes = []
+
+    def checked(store, layout, slots, active, cm_emit, size_ms, grace_ms, retention_ms):
+        comps = layout.components
+        assert all(c.width == 1 for c in comps)
+        keys = _CLOSE_KEYS + tuple(f"a{j}" for j in range(len(comps)))
+        before = {k: jnp.asarray(store[k].numpy().copy()) for k in keys}
+        want_st, want = _reference_close(before, [jnp.asarray(np.array(c.init, c.dtype)) for c in comps],
+                                         jnp.asarray(slots.numpy()), jnp.asarray(active.numpy()),
+                                         jnp.asarray(cm_emit.numpy()), jnp.int64(size_ms),
+                                         jnp.int64(grace_ms), jnp.int64(retention_ms))
+        got = twin(store, layout, slots, active, cm_emit, size_ms, grace_ms, retention_ms)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg="suppress_emit")
+        for k in keys:
+            g, w = store[k].numpy(), np.asarray(want_st[k])
+            if w.dtype == np.float64:
+                g, w = g.view(np.int64), w.view(np.int64)
+            np.testing.assert_array_equal(g, w, err_msg=k)
+        outcomes.append((int(got.sum()), int((np.asarray(before["occ"]) & ~store["occ"].numpy()).sum())))
+        return got
+
+    monkeypatch.setattr(sup, "suppress_close", checked)
+    if scenario == "emit":
+        p = Pair(FINAL_GRACE)
+        p.step([row("/a"), row("/b"), row("/a")], [H0 + MIN, H0 + 2 * MIN, H0 + 3 * MIN], "fill")
+        p.step([row("/c")], [H0 + HOUR + 10 * MIN], "close")
+    elif scenario == "evict":
+        p = Pair(FINAL_GRACE)
+        p.step([row("/a"), row("/b")], [H0 + MIN, H0 + 2 * MIN], "fill")
+        p.step([row("/c")], [H0 + HOUR + 10 * MIN + 1], "past horizon")
+    elif scenario == "hopping":
+        p = Pair(HOP_FINAL, capacity=6, store=64)
+        ts = [H0 + 50 * MIN, H0 + 100 * MIN, H0 + 21 * MIN, H0 + 64 * MIN, H0 + 99 * MIN, H0 + 40 * MIN]
+        p.step([row(f"/{c}", float(i)) for i, c in enumerate("abcdab")], ts, "expanded")
+        p.step([row("/a")], [H0 + 3 * HOUR], "close all")
+    else:
+        p = Pair(FINAL_GRACE, capacity=8, store=4)
+        rows = [row(f"/k{i}") for i in range(8)]
+        p.step(rows, [H0 + i * MIN for i in range(8)], "overflow")
+        p.step(rows, [H0 + HOUR + 10 * MIN + i * MIN for i in range(8)], "again")
+        assert p.state()["born"][-1] != I64.max
+    assert len(outcomes) == 2
+    emitted, evicted = outcomes[-1]
+    if scenario == "emit":
+        assert emitted == 2 and evicted == 0
+    elif scenario == "evict":
+        assert emitted == 0 and evicted == 2
+    else:
+        assert emitted + evicted > 0
 
 
 @pytest.mark.parametrize("case", list(CLOSE_CASES))

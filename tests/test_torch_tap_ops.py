@@ -10,7 +10,8 @@ function over the same seeded columns (5-10% NULLs, NaN, +-0.0, +-inf,
 INT_MIN/INT_MAX, zero divisors, padding rows, inactive lanes, partial
 LIMIT budgets).  The masks and counts of ``lane_masks_plain`` and of the
 torch evaluator of ``build_program``'s program (``run_program``) must
-equal the reference's exactly: they are bool and int.  Then K25's edges
+equal the reference's exactly: they are bool and int.  The form K25 runs
+(``lower_for_kernel``) must expand back to the program.  Then K25's edges
 (``tests/torch_kernel_cases.py``'s TAP_EDGES) the same way, from plan
 JSONs that both packages decode.
 """
@@ -371,6 +372,76 @@ def test_program_is_flat_typed_postfix():
     assert prog.max_depth == 2 and prog.col_dts == (tr.DT_I64, tr.DT_I64)
 
 
+def _unfused(prog):
+    """``prog.kernel_code`` expanded back to ``build_program``'s encoding:
+    each fused parameter as its push, its cast and its op; each column
+    load by its index in ``spec.col_names``."""
+    out = []
+    for op, a, b, dt, _depth in prog.kernel_code.tolist():
+        if op == tr.OP_FUSED:
+            src, pdt, cdt = b & 0xFF, (b >> 8) & 0xFF, (b >> 16) & 0xFF
+            out.append((src, dt, 0, pdt))
+            if cdt != pdt:
+                out.append((tr.OP_CAST, pdt, 0, cdt))
+            out.append((a & 0xFF, (a >> 8) & 0xFF, (a >> 16) & 0xFF, (a >> 24) & 0xFF))
+        else:
+            out.append((op, prog.staged[a] if op == tr.OP_COL else a, b, dt))
+    return out
+
+
+def _assert_kernel_form(prog):
+    """``lower_for_kernel``'s rewrite keeps the program: with the casts
+    that keep a value's bits left out of both, the expanded kernel code is
+    ``code``; no parameter is left unfused before a binary op; each
+    instruction's depth is the stack's before it; the columns are numbered
+    in the order the program first loads them."""
+    def kept(code):
+        return [tuple(r) for r in code if not (r[0] == tr.OP_CAST and tr._keeps_bits(r[1], r[3]))]
+
+    assert kept(_unfused(prog)) == kept(prog.code.tolist())
+    rows = prog.kernel_code.tolist()
+    for r, nxt in zip(rows, rows[1:]):
+        assert not (r[0] in (tr.OP_PARAM_I, tr.OP_PARAM_F) and nxt[0] in tr._BINARY)
+    depth = most = 0
+    for op, _a, _b, _dt, d in rows:
+        pops, pushes = tr._EFFECT[op]
+        assert d == depth and depth >= pops
+        depth += pushes - pops
+        most = max(most, depth)
+    assert depth == 0 and most == prog.kernel_depth <= prog.max_depth
+    loads = [int(a) for op, a, _b, _dt in prog.code.tolist() if op == tr.OP_COL]
+    assert list(prog.staged) == list(dict.fromkeys(loads))
+
+
+def test_kernel_form_of_the_mod_family():
+    """The mod family as K25 runs it: the column load, then each INTEGER
+    parameter and its widening fused into the op that takes it (MOD, then
+    CMP), then FILTER; a stack one deep; one of the two columns loaded."""
+    _, pchain = _chains(FAMILIES["mod64"][0])
+    spec = ptk.classify_residual(pchain[:-1], pchain[-1].schema)
+    types = ptk._col_types(spec.col_names, {c.name: c.type for c in pchain[-1].schema.columns()})
+    prog = tr.build_program(spec, types)
+    k = prog.kernel_code.tolist()
+    assert [r[0] for r in k] == [tr.OP_COL, tr.OP_FUSED, tr.OP_FUSED, tr.OP_FILTER]
+    assert [r[4] for r in k] == [0, 1, 1, 1] and prog.kernel_depth == 1
+    assert k[1][1] == tr.OP_MOD | tr.DT_I64 << 24
+    assert k[1][2] == tr.OP_PARAM_I | tr.DT_I32 << 8 | tr.DT_I64 << 16
+    assert k[2][1] & 0xFF == tr.OP_CMP and (k[2][1] >> 8) & 0xFF == 0
+    assert len(prog.staged) == 1 and spec.col_names[prog.staged[0]] == "V"
+    _assert_kernel_form(prog)
+
+
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_kernel_form_keeps_the_program(name):
+    """Every family's program survives ``lower_for_kernel`` (see
+    ``_assert_kernel_form``); the card tests run the rewritten form against
+    the twin."""
+    _, pchain = _chains(FAMILIES[name][0])
+    spec = ptk.classify_residual(pchain[:-1], pchain[-1].schema)
+    types = ptk._col_types(spec.col_names, {c.name: c.type for c in pchain[-1].schema.columns()})
+    _assert_kernel_form(tr.build_program(spec, types))
+
+
 def test_deep_tree_past_the_stack_cap_is_refused():
     """A chain needing more than MAX_DEPTH stack slots keeps the host path
     with its reason (ROADMAP C), while the reference fuses it."""
@@ -431,6 +502,7 @@ def test_tap_edges_twin_equals_reference(edge):
         rgrp.remove(f"t{k}")
         pgrp.remove(f"t{k}")
     prog = pgrp.program()
+    _assert_kernel_form(prog)
     kind = TAP_EDGES[edge][0]
     if kind == "depth16":
         assert prog.max_depth == tr.MAX_DEPTH
